@@ -1,0 +1,291 @@
+"""Nested tensor trees ⇄ named-tensor model blobs (the torch side of the
+wire contract).
+
+The federation moves *models* as ordered, named, flat tensors. The names
+come from the tree's key path exactly as the JAX package derives them
+(``params/block_0/attn/wq/base/kernel``), and ModelBlob v2 is the same
+bytes: a blob packed by either package unpacks in the other to the same
+names, dtypes and bytes. Trees here are nested ``dict``/``list``/``tuple``
+containers whose leaves are ``torch.Tensor`` (numpy arrays are accepted
+and converted). Dict keys flatten in sorted order, as JAX flattens dicts,
+so the tensor order on the wire matches too.
+
+bf16 and fp8 travel as themselves: the payload is the tensor's raw bytes,
+so no numpy bf16 type is needed on either side.
+"""
+
+from __future__ import annotations
+
+import struct
+import zlib
+from dataclasses import dataclass, field
+from typing import Dict, List, Tuple
+
+import numpy as np
+import torch
+
+from metisfl_tpu_torch.tensor.spec import (
+    DType,
+    TensorKind,
+    TensorSpec,
+    _header_bytes,
+    opaque_tensor_to_bytes,
+    read_tensor,
+)
+
+NamedTensors = List[Tuple[str, torch.Tensor]]
+
+_MAGIC = b"MTFB"  # metisfl-tpu federated blob
+# v2: integrity framing (<u64 body_len, u32 crc32> over the tensor body);
+# v1 blobs parse unverified; v3 is the store-local variant whose crc field
+# is zero and never verified (accepted only with allow_nocrc=True)
+_BLOB_VERSION = 2
+_BLOB_VERSION_NOCRC = 3
+
+_TORCH_TO_WIRE = {
+    torch.float32: DType.F32,
+    torch.float64: DType.F64,
+    torch.float16: DType.F16,
+    torch.bfloat16: DType.BF16,
+    torch.int8: DType.I8,
+    torch.int16: DType.I16,
+    torch.int32: DType.I32,
+    torch.int64: DType.I64,
+    torch.uint8: DType.U8,
+    torch.bool: DType.BOOL,
+}
+for _name, _tag in (("uint16", DType.U16), ("uint32", DType.U32),
+                    ("uint64", DType.U64), ("float8_e4m3fn", DType.F8_E4M3),
+                    ("float8_e5m2", DType.F8_E5M2)):
+    if hasattr(torch, _name):  # newer torch releases only
+        _TORCH_TO_WIRE[getattr(torch, _name)] = _tag
+_WIRE_TO_TORCH = {v: k for k, v in _TORCH_TO_WIRE.items()}
+
+# numpy dtype names of the types numpy lacks natively (ml_dtypes' names),
+# reinterpreted bit for bit through an integer view
+_NP_BITCAST = {"bfloat16": (np.uint16, torch.bfloat16),
+               "float8_e4m3fn": (np.uint8, getattr(torch, "float8_e4m3fn",
+                                                   None)),
+               "float8_e5m2": (np.uint8, getattr(torch, "float8_e5m2", None))}
+
+
+def as_tensor(x) -> torch.Tensor:
+    """A leaf as a torch tensor: tensors pass through; numpy arrays (and
+    anything ``np.asarray`` takes) convert without changing their bits,
+    bf16/fp8 from ml_dtypes included."""
+    if isinstance(x, torch.Tensor):
+        return x
+    arr = np.asarray(x)
+    if arr.dtype.byteorder == ">":  # the wire is little-endian (spec.py)
+        arr = arr.astype(arr.dtype.newbyteorder("="))
+    if not arr.flags.writeable:  # torch tensors are always writable
+        arr = arr.copy()
+    # reshape: ascontiguousarray promotes a 0-d array to 1-d
+    contig = np.ascontiguousarray(arr).reshape(arr.shape)
+    bitcast = _NP_BITCAST.get(arr.dtype.name)
+    if bitcast is not None:
+        int_dtype, torch_dtype = bitcast
+        if torch_dtype is None:
+            raise TypeError(f"this torch has no {arr.dtype.name} dtype")
+        return torch.from_numpy(contig.view(int_dtype)).view(torch_dtype)
+    return torch.from_numpy(contig)
+
+
+def to_numpy(t: torch.Tensor) -> np.ndarray:
+    """A tensor as a host numpy array; bf16 needs ml_dtypes installed."""
+    t = t.detach().cpu()
+    if t.dtype is torch.bfloat16:
+        import ml_dtypes  # raises where numpy has no bf16 type at all
+
+        return t.view(torch.uint16).numpy().view(ml_dtypes.bfloat16)
+    return t.numpy()
+
+
+def wire_dtype_of(t: torch.Tensor) -> DType:
+    try:
+        return _TORCH_TO_WIRE[t.dtype]
+    except KeyError:
+        raise ValueError(f"torch dtype {t.dtype} has no wire "
+                         "representation") from None
+
+
+def tensor_to_bytes(t: torch.Tensor) -> bytes:
+    """One plaintext tensor: header + little-endian C-order payload."""
+    t = as_tensor(t).detach().cpu().contiguous()
+    payload = t.reshape(-1).view(torch.uint8).numpy().tobytes()
+    return _header_bytes(TensorSpec(tuple(t.shape), wire_dtype_of(t),
+                                    TensorKind.PLAINTEXT),
+                         len(payload)) + payload
+
+
+def tensor_from_payload(spec: TensorSpec, payload) -> torch.Tensor:
+    """A plaintext payload as a (writable, CPU) tensor of ``spec``."""
+    dtype = _WIRE_TO_TORCH.get(spec.dtype)
+    if dtype is None:
+        raise ValueError(f"wire dtype {spec.dtype!r} has no torch dtype here")
+    if len(payload) == 0:
+        return torch.empty(spec.shape, dtype=dtype)
+    return torch.frombuffer(bytearray(payload), dtype=dtype).reshape(
+        spec.shape)
+
+
+def _escape(part: str) -> str:
+    # '/' joins path components; escape literal '/' (and the escape char) so
+    # {'a': {'b': x}} and {'a/b': y} can never collide.
+    return part.replace("%", "%25").replace("/", "%2F")
+
+
+def _key_to_name(path) -> str:
+    """Key path → wire name: dict keys escaped, sequence indices as
+    decimal (the JAX package's ``DictKey``/``SequenceKey`` rule)."""
+    return "/".join(str(p) if isinstance(p, int) else _escape(str(p))
+                    for p in path)
+
+
+def _flatten(tree, path=()):
+    """(path, leaf) pairs in JAX's flattening order: dict keys sorted,
+    sequences in order, ``None`` an empty subtree."""
+    if tree is None:
+        return
+    if isinstance(tree, dict):
+        for key in sorted(tree):
+            yield from _flatten(tree[key], path + (key,))
+    elif isinstance(tree, (list, tuple)):
+        for i, sub in enumerate(tree):
+            yield from _flatten(sub, path + (i,))
+    else:
+        yield path, tree
+
+
+def _check_unique(names) -> None:
+    if len(set(names)) != len(names):
+        seen, dupes = set(), set()
+        for n in names:
+            (dupes if n in seen else seen).add(n)
+        raise ValueError(f"duplicate tensor names in model: {sorted(dupes)[:5]}")
+
+
+def pytree_to_named_tensors(tree) -> NamedTensors:
+    """Flatten a nested tree to ``[(name, torch.Tensor), ...]`` (ordered)."""
+    named = [(_key_to_name(path), as_tensor(leaf))
+             for path, leaf in _flatten(tree)]
+    _check_unique([n for n, _ in named])
+    return named
+
+
+def named_tensors_to_pytree(named: NamedTensors, treedef_like):
+    """Rebuild a tree structured like ``treedef_like`` from named tensors."""
+    _check_unique([n for n, _ in named])
+    by_name = dict(named)
+    missing = [_key_to_name(p) for p, _ in _flatten(treedef_like)
+               if _key_to_name(p) not in by_name]
+    if missing:
+        raise KeyError(f"model blob is missing tensors: {missing[:5]}")
+
+    def build(sub, path):
+        if sub is None:
+            return None
+        if isinstance(sub, dict):
+            return {k: build(v, path + (k,)) for k, v in sub.items()}
+        if isinstance(sub, (list, tuple)):
+            return type(sub)(build(v, path + (i,)) for i, v in enumerate(sub))
+        return by_name[_key_to_name(path)]
+
+    return build(treedef_like, ())
+
+
+@dataclass
+class ModelBlob:
+    """A serializable model: ordered named tensors plus opaque entries
+    (``name -> (payload bytes, TensorSpec)``, ciphertext or masked)."""
+
+    tensors: NamedTensors = field(default_factory=list)
+    opaque: Dict[str, tuple] = field(default_factory=dict)
+
+    @property
+    def names(self) -> List[str]:
+        seen = [n for n, _ in self.tensors]
+        seen.extend(self.opaque.keys())
+        return seen
+
+    @property
+    def num_parameters(self) -> int:
+        return sum(int(t.numel()) for _, t in self.tensors) + sum(
+            spec.size for _, spec in self.opaque.values())
+
+    def to_bytes(self) -> bytes:
+        chunks = []
+        for name, t in self.tensors:
+            nb = name.encode("utf-8")
+            chunks.append(struct.pack("<H", len(nb)))
+            chunks.append(nb)
+            chunks.append(tensor_to_bytes(t))
+        for name, (payload, spec) in self.opaque.items():
+            nb = name.encode("utf-8")
+            chunks.append(struct.pack("<H", len(nb)))
+            chunks.append(nb)
+            chunks.append(opaque_tensor_to_bytes(spec, payload))
+        body = b"".join(chunks)
+        return b"".join([
+            _MAGIC,
+            struct.pack("<BI", _BLOB_VERSION, len(self.names)),
+            struct.pack("<QI", len(body), zlib.crc32(body)),
+            body,
+        ])
+
+    @classmethod
+    def from_bytes(cls, buf, allow_nocrc: bool = False) -> "ModelBlob":
+        """Parse and verify a blob. ``allow_nocrc=True`` accepts the v3
+        store-local variant; by default it is rejected, so a wire payload
+        cannot sidestep the v2 integrity framing."""
+        view = memoryview(buf)
+        if bytes(view[:4]) != _MAGIC:
+            raise ValueError("not a metisfl-tpu model blob")
+        version, count = struct.unpack_from("<BI", view, 4)
+        offset = 9
+        if version == _BLOB_VERSION_NOCRC and not allow_nocrc:
+            raise ValueError(
+                "unchecksummed v3 model blob rejected outside the store "
+                "read path (wire payloads must carry the v2 crc framing)")
+        if version in (_BLOB_VERSION, _BLOB_VERSION_NOCRC):
+            try:
+                body_len, crc = struct.unpack_from("<QI", view, offset)
+            except struct.error:
+                raise ValueError("truncated model blob header") from None
+            offset += 12
+            body = view[offset:]
+            if len(body) != body_len:
+                raise ValueError(
+                    f"model blob length mismatch (framed {body_len} body "
+                    f"bytes, have {len(body)}) — truncated or spliced "
+                    "payload")
+            if version == _BLOB_VERSION and zlib.crc32(body) != crc:
+                raise ValueError(
+                    "model blob checksum mismatch — corrupt payload "
+                    "rejected before deserialization")
+        elif version != 1:  # v1: legacy pre-integrity blobs parse unverified
+            raise ValueError(f"unsupported blob version {version}")
+        blob = cls()
+        for _ in range(count):
+            (nlen,) = struct.unpack_from("<H", view, offset)
+            offset += 2
+            name = bytes(view[offset: offset + nlen]).decode("utf-8")
+            offset += nlen
+            spec, payload, offset = read_tensor(view, offset)
+            if spec.kind is TensorKind.PLAINTEXT:
+                blob.tensors.append((name, tensor_from_payload(spec,
+                                                               payload)))
+            else:
+                blob.opaque[name] = (bytes(payload), spec)
+        return blob
+
+
+def pack_model(params_tree) -> bytes:
+    """One-call tree → wire bytes."""
+    return ModelBlob(tensors=pytree_to_named_tensors(params_tree)).to_bytes()
+
+
+def unpack_model(buf, treedef_like):
+    """One-call wire bytes → tree shaped like ``treedef_like``."""
+    blob = ModelBlob.from_bytes(buf)
+    return named_tensors_to_pytree(blob.tensors, treedef_like)

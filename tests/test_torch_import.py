@@ -1,0 +1,62 @@
+"""The port stands alone: importing every metisfl_tpu_torch module pulls in
+neither jax nor any module of the JAX package, and no source file names
+them."""
+
+import json
+import os
+import pkgutil
+import re
+import subprocess
+import sys
+
+import metisfl_tpu_torch
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+PKG_DIR = os.path.join(REPO, "metisfl_tpu_torch")
+
+
+def _module_names():
+    return sorted(m.name for m in pkgutil.walk_packages(
+        metisfl_tpu_torch.__path__, "metisfl_tpu_torch."))
+
+
+def test_every_module_imports_without_jax():
+    names = _module_names()
+    assert {"metisfl_tpu_torch.ops.flash_attention",
+            "metisfl_tpu_torch.serving.gateway",
+            "metisfl_tpu_torch.models.convert"} <= set(names)
+    code = (
+        "import importlib, json, sys\n"
+        f"for name in {names!r}:\n"
+        "    importlib.import_module(name)\n"
+        "print(json.dumps(sorted(m for m in sys.modules\n"
+        "    if m.split('.')[0] in ('jax', 'jaxlib', 'flax', 'optax',\n"
+        "                           'metisfl_tpu'))))\n")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["PYTHONPATH"] = REPO
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert json.loads(out.stdout.strip().splitlines()[-1]) == []
+
+
+def test_sources_reference_neither_jax_nor_the_jax_package():
+    jax_import = re.compile(r"^\s*(import|from)\s+(jax|jaxlib|flax|optax)\b",
+                            re.M)
+    jax_package = re.compile(r"\bmetisfl_tpu\.")
+    offenders = []
+    for root, _, files in os.walk(PKG_DIR):
+        for fname in files:
+            if fname.endswith(".py"):
+                path = os.path.join(root, fname)
+                with open(path, encoding="utf-8") as fh:
+                    text = fh.read()
+                if jax_import.search(text) or jax_package.search(text):
+                    offenders.append(os.path.relpath(path, REPO))
+    assert offenders == []
+
+
+def test_kernel_sources_ship_with_the_package():
+    assert os.path.exists(os.path.join(PKG_DIR, "csrc", "flash_fwd.cu"))
+    with open(os.path.join(REPO, "pyproject.toml"), encoding="utf-8") as fh:
+        assert '"metisfl_tpu_torch" = ["csrc/*.cu", "csrc/*.cuh"]' in fh.read()
