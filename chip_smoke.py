@@ -8,19 +8,27 @@ It drives the port only (it imports no jax and nothing of the JAX package):
 1. device: the GPU's name and power limit, torch and CUDA versions; TF32
    off for matmuls and cuDNN, so fp32 stays fp32;
 2. build: every CUDA kernel of the port from ``metisfl_tpu_torch/csrc``
-   with nvcc, one process per source, timed;
+   with nvcc, one process per source, all at once, timed;
 3. kernel vs plain: each kernel against its plain PyTorch version on the
-   card, at the serving path's shape and at a ragged fp32 shape, with the
+   card, at its path's shape and at a ragged fp32 shape, with the
    tolerance stated, timed beside its bound and one PyTorch library call
-   that computes the same function (a yardstick the port never calls);
-4. slice: a full-width LlamaLite (vocab 32768, dim 1024, depth 8, heads 16,
-   kv_heads 4, bf16 compute, flash attention) with seeded random weights,
-   packed into a ModelBlob and installed in a ``ServingGateway``; 8
-   concurrent Predict requests of 1024 tokens go through the flash kernel
+   that computes the same function (a yardstick the port never calls):
+   K1 (flash_fwd) at the serving shape, K2 and K3 (flash_bwd_dq,
+   flash_bwd_dkv) at the training shape, K3 run twice for bit-identity;
+4. serving slice: a full-width LlamaLite (vocab 32768, dim 1024, depth 8,
+   heads 16, kv_heads 4, bf16 compute, flash attention) with seeded random
+   weights, packed into a ModelBlob and installed in a ``ServingGateway``;
+   8 concurrent Predict requests of 1024 tokens go through the flash kernel
    (the launch count is checked per forward) and one reply is held against
    the same module on the dense path; 4 concurrent Generate requests
    decode 64 tokens each through the continuous batcher and are compared
-   with a solo ``generate`` per request.
+   with a solo ``generate`` per request;
+5. training slice: the same model installed from a blob into
+   ``TorchModelOps``, trained 6 Adam steps on 16 random-token rows of 1024
+   (batch 8) through K1 forward and K2/K3 backward (every launch counted),
+   then evaluated; the trained weights go back out as a blob, and one
+   batch's gradients through the flash path are held against the dense
+   path's.
 
 It prints a ``{"kernels": [...]}`` line, the GPU's name and power limit,
 and, when every phase passed, ``{"ok": true, "device": {...}}`` as its last
@@ -48,6 +56,12 @@ VOCAB, DIM, DEPTH, HEADS, KV_HEADS = 32768, 1024, 8, 16, 4
 PREDICT_REQUESTS, PREDICT_LEN = 8, 1024
 GEN_REQUESTS, PROMPT_LEN, NEW_TOKENS = 4, 128, 64
 MAX_BATCH, SLOTS, MAX_LEN = 4, 4, 512
+# training slice: bench_mfu's traffic (random tokens, y = the next token)
+TRAIN_ROWS, TRAIN_LEN, TRAIN_BATCH, TRAIN_STEPS = 16, 1024, 8, 6
+# flash vs dense gradients of one batch, per tensor, relative L2: both
+# paths round every bf16 activation, in other places (the dense path
+# rounds the scores to bf16 before its softmax), through 8 blocks
+GRAD_REL_L2 = 5e-2
 # flash vs dense logits at bf16 compute: both round every activation to
 # 8 mantissa bits, in other places (the kernel keeps fp32 scores, the dense
 # path rounds them to bf16 first), through 8 residual blocks
@@ -163,6 +177,100 @@ def attention_case(smoke, name, B, Hq, Hkv, L, D, dtype_name, causal,
     }
     print(json.dumps({"kernel_case": record}), flush=True)
     return record
+
+
+def backward_case(smoke, name, B, Hq, Hkv, L, D, dtype_name, causal,
+                  rel_tol):
+    """K2 and K3 against their plain versions on the card, K3 twice for
+    bit-identity, all timed; returns one record per kernel."""
+    import torch
+    import torch.nn.functional as F
+
+    from metisfl_tpu_torch.ops.flash_attention import (
+        flash_attention_fwd,
+        flash_bwd_dkv,
+        flash_bwd_dkv_reference,
+        flash_bwd_dq,
+        flash_bwd_dq_reference,
+    )
+
+    dtype = getattr(torch, dtype_name)
+    rng = np.random.default_rng(SEED + 3)
+    q, k, v, do = (torch.from_numpy(rng.standard_normal(shape).astype(
+        np.float32)).to("cuda", dtype)
+        for shape in ((B, Hq, L, D), (B, Hkv, L, D), (B, Hkv, L, D),
+                      (B, Hq, L, D)))
+    o, lse = flash_attention_fwd(q, k, v, causal)
+    delta = (do.float() * o.float()).sum(-1)
+    dq = flash_bwd_dq(q, k, v, do, lse, delta, causal)
+    dk, dv = flash_bwd_dkv(q, k, v, do, lse, delta, causal)
+    dk2, dv2 = flash_bwd_dkv(q, k, v, do, lse, delta, causal)
+    torch.cuda.synchronize()
+    want_dq = flash_bwd_dq_reference(q, k, v, do, lse, delta, causal)
+    want_dk, want_dv = flash_bwd_dkv_reference(q, k, v, do, lse, delta,
+                                               causal)
+    errs = {}
+    for label, got, want in (("dq", dq, want_dq), ("dk", dk, want_dk),
+                             ("dv", dv, want_dv)):
+        err = float((got.float() - want.float()).abs().max())
+        scale = float(want.float().abs().max())
+        errs[label] = err
+        smoke.check(bool(torch.isfinite(got).all()) and err <= rel_tol * scale,
+                    f"{name}: {label} err {err:.3g} <= {rel_tol} x max|ref| "
+                    f"{scale:.3g}")
+    smoke.check(torch.equal(dk, dk2) and torch.equal(dv, dv2),
+                f"{name}: two runs of K3 give bit-identical dK and dV")
+
+    dq_ms = time_ms(lambda: flash_bwd_dq(q, k, v, do, lse, delta, causal))
+    dkv_ms = time_ms(lambda: flash_bwd_dkv(q, k, v, do, lse, delta, causal))
+    dq_plain = time_ms(lambda: flash_bwd_dq_reference(
+        q, k, v, do, lse, delta, causal), iters=5)
+    dkv_plain = time_ms(lambda: flash_bwd_dkv_reference(
+        q, k, v, do, lse, delta, causal), iters=5)
+
+    # the library yardstick for the pair: SDPA forward + backward minus
+    # SDPA forward, on the same q, k, v, dO (the port never calls it)
+    qg, kg, vg = (t.detach().requires_grad_() for t in (q, k, v))
+
+    def sdpa():
+        return F.scaled_dot_product_attention(qg, kg, vg, is_causal=causal,
+                                              enable_gqa=Hq != Hkv)
+
+    try:
+        with torch.no_grad():
+            fwd_ms = time_ms(sdpa)
+        both_ms = time_ms(lambda: torch.autograd.grad(sdpa(), (qg, kg, vg),
+                                                      do))
+        library_ms = both_ms - fwd_ms
+    except (TypeError, RuntimeError) as exc:
+        print(f"library call unavailable: {exc}")
+        library_ms = None
+
+    # the work these inputs need: per (q, k) pair and head, K2 does QK^T,
+    # dO V^T and dS K (6 D operations), K3 adds P^T dO and dS^T Q (8 D)
+    pairs = B * Hq * (L * (L + 1) // 2 if causal else L * L)
+    size = q.element_size()
+    ins = (q.numel() * 2 + k.numel() * 2) * size + lse.numel() * 4 * 2
+    records = []
+    for kernel, ms, plain, per_pair, outs in (
+            ("flash_bwd_dq", dq_ms, dq_plain, 6, q.numel()),
+            ("flash_bwd_dkv", dkv_ms, dkv_plain, 8, 2 * k.numel())):
+        flops = float(per_pair * D * pairs)
+        nbytes = ins + outs * size
+        flop_ms = flops / PEAK_FLOPS[dtype_name] * 1e3
+        byte_ms = nbytes / PEAK_BYTES * 1e3
+        err = (errs["dq"] if kernel == "flash_bwd_dq"
+               else max(errs["dk"], errs["dv"]))
+        records.append({
+            "name": kernel, "case": name, "shape": [B, Hq, Hkv, L, D],
+            "dtype": dtype_name, "causal": causal, "max_abs_err": err,
+            "kernel_ms": ms, "plain_ms": plain,
+            "bound_ms": max(flop_ms, byte_ms),
+            "bound_by": "operations" if flop_ms >= byte_ms else "bytes",
+            "library_ms": library_ms, "flops": flops, "bytes": nbytes,
+        })
+    print(json.dumps({"kernel_case": records}), flush=True)
+    return records
 
 
 def random_variables(module, seed: int):
@@ -320,6 +428,127 @@ def slice_phase(smoke, gpu):
     return out
 
 
+def training_phase(smoke, gpu):
+    import torch
+    import torch.nn.functional as F
+
+    from metisfl_tpu_torch.comm import TrainParams
+    from metisfl_tpu_torch.models import (
+        ArrayDataset,
+        TorchModelOps,
+        load_flax_variables,
+    )
+    from metisfl_tpu_torch.models.zoo import LlamaLite
+    from metisfl_tpu_torch.ops.flash_attention import (
+        flash_attention_fwd,
+        flash_bwd_dkv,
+        flash_bwd_dq,
+    )
+    from metisfl_tpu_torch.tensor import ModelBlob, pack_model, unpack_model
+
+    cfg = dict(vocab_size=VOCAB, dim=DIM, depth=DEPTH, heads=HEADS,
+               kv_heads=KV_HEADS, dtype=torch.bfloat16)
+    t0 = time.perf_counter()
+    variables = random_variables(LlamaLite(**cfg, device="meta"), SEED)
+    blob = pack_model(variables)
+    ops = TorchModelOps(LlamaLite(**cfg, use_flash=True),
+                        variables=ModelBlob.from_bytes(blob).tensors,
+                        device=DEVICE)
+    del variables
+    print(f"training model: {ops.param_count()} params, installed from a "
+          f"{len(blob)}-byte blob in {time.perf_counter() - t0:.3f} s",
+          flush=True)
+    tokens = np.random.default_rng(SEED + 4).integers(
+        0, VOCAB, (TRAIN_ROWS, TRAIN_LEN + 1)).astype(np.int32)
+    data = ArrayDataset(tokens[:, :-1], tokens[:, 1:], seed=SEED)
+    params = TrainParams(batch_size=TRAIN_BATCH, local_steps=TRAIN_STEPS,
+                         optimizer="adam", learning_rate=1e-4)
+    out = {"params": ops.param_count()}
+
+    counters = (flash_attention_fwd, flash_bwd_dq, flash_bwd_dkv)
+    for fn in counters:
+        fn.launches = 0
+    if DEVICE == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    t1 = time.perf_counter()
+    result = ops.train(data, params)
+    if DEVICE == "cuda":
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t1
+    k1, k2, k3 = (fn.launches for fn in counters)
+    losses = [e["loss"] for e in result.epoch_metrics]
+    out.update(train_wall_s=wall, ms_per_step=result.ms_per_step,
+               tokens_per_s=TRAIN_BATCH * TRAIN_LEN
+               / (result.ms_per_step / 1e3) if result.ms_per_step else None,
+               epoch_losses=losses, train_metrics=result.train_metrics,
+               peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9
+               if DEVICE == "cuda" else None,
+               launches={"flash_fwd": k1, "flash_bwd_dq": k2,
+                         "flash_bwd_dkv": k3})
+    want = DEPTH * TRAIN_STEPS
+    smoke.check(result.completed_steps == TRAIN_STEPS
+                and all(np.isfinite(losses)),
+                f"train: {result.completed_steps} steps, epoch losses "
+                f"{[round(x, 4) for x in losses]} finite")
+    # 2 steps per epoch: the first and last epochs are the first and last
+    # 2 steps
+    smoke.check(len(losses) == 3 and losses[-1] < losses[0],
+                f"train: mean loss of the last 2 steps {losses[-1]:.4f} < "
+                f"the first 2 {losses[0]:.4f}")
+    smoke.check(k2 == k3 == want and k1 >= want,
+                f"train: K2 {k2} and K3 {k3} launches = depth x steps = "
+                f"{want}, K1 {k1} >= {want}")
+    print(f"train: {result.ms_per_step:.2f} ms per step, "
+          f"{out['tokens_per_s']:.0f} tokens/s, wall {wall:.3f} s",
+          flush=True)
+
+    scores = ops.evaluate(data, batch_size=TRAIN_BATCH,
+                          metrics=["accuracy"])
+    out["evaluate"] = scores
+    smoke.check(set(scores) == {"loss", "accuracy"}
+                and all(np.isfinite(list(scores.values()))),
+                f"evaluate: {scores}")
+
+    trained = result.variables
+    back = unpack_model(pack_model(trained), trained)
+    same = all(np.array_equal(a, b)
+               for a, b in zip(_leaves(back), _leaves(trained)))
+    smoke.check(same, "trained weights pack into a blob and unpack equal")
+
+    # one batch's gradients, flash path vs dense path, same weights
+    x = torch.as_tensor(tokens[:TRAIN_BATCH, :-1], device=DEVICE)
+    y = torch.as_tensor(tokens[:TRAIN_BATCH, 1:], device=DEVICE).long()
+    dense = load_flax_variables(LlamaLite(**cfg, use_flash=False,
+                                          device=DEVICE), trained)
+
+    def grads(model):
+        logits = model(x, train=True)
+        loss = F.cross_entropy(logits.reshape(-1, VOCAB), y.reshape(-1))
+        return torch.autograd.grad(loss, list(model.parameters()))
+
+    rel = [float(torch.linalg.vector_norm(a - b)
+                 / torch.linalg.vector_norm(b).clamp_min(1e-30))
+           for a, b in zip(grads(ops.module), grads(dense))]
+    names = [n for n, _ in ops.module.named_parameters()]
+    worst = int(np.argmax(rel))
+    out.update(grad_rel_l2_max=rel[worst], grad_rel_l2_worst=names[worst],
+               grad_rel_l2_median=float(np.median(rel)))
+    smoke.check(rel[worst] <= GRAD_REL_L2,
+                f"flash vs dense gradients: largest relative L2 error "
+                f"{rel[worst]:.4g} ({names[worst]}) <= {GRAD_REL_L2}")
+    del dense
+    if DEVICE == "cuda":  # a device-time breakdown of one training step
+        # train() ends by copying the weights to the host (TrainOutput's
+        # numpy tree); the breakdown lists enough rows to see past it
+        out["train_step_profile"] = profile_call(lambda: ops.train(
+            data, TrainParams(batch_size=TRAIN_BATCH, local_steps=1,
+                              optimizer="adam", learning_rate=1e-4)),
+            top=16)
+    out["gpu"] = gpu
+    print(json.dumps({"train": out}), flush=True)
+    return out
+
+
 def _leaves(node):
     if isinstance(node, dict):
         for v in node.values():
@@ -328,7 +557,7 @@ def _leaves(node):
         yield node
 
 
-def profile_call(fn):
+def profile_call(fn, top: int = 8):
     """Device time by kernel over one call of ``fn`` under
     ``torch.profiler``, beside the call's wall time. Only device events
     (kernels, copies) are summed; ``idle_share`` is the part of the wall
@@ -361,7 +590,7 @@ def profile_call(fn):
     return {"wall_ms": wall_ms, "device_ms": device_ms,
             "idle_share": max(0.0, 1.0 - device_ms / wall_ms),
             "top": [{"kernel": k[:80], "ms": ms, "calls": c,
-                     "share": ms / device_ms} for ms, k, c in rows[:8]]}
+                     "share": ms / device_ms} for ms, k, c in rows[:top]]}
 
 
 def main() -> int:
@@ -400,7 +629,8 @@ def main() -> int:
         print(f"built {sorted(libs)} in {time.perf_counter() - t0:.3f} s")
         for name, log in build.build_logs.items():
             for line in log.splitlines():
-                if "registers" in line or "spill" in line:
+                if ("registers" in line or "spill" in line
+                        or "Compiling entry" in line):
                     print(f"  {name}: {line.strip()}")
         return libs
 
@@ -414,24 +644,51 @@ def main() -> int:
     smoke.phase("kernel vs plain: flash_fwd ragged fp32 D=128",
                 attention_case, smoke, "flash_fwd_ragged_fp32", 2, 8, 8,
                 1000, 128, "float32", False, 1e-4, 1e-4)
+    bwd_cases = smoke.phase(
+        "kernel vs plain: flash_bwd_dq and flash_bwd_dkv at the training "
+        "shape", backward_case, smoke, "flash_bwd", 8, 16, 4, TRAIN_LEN, 64,
+        "bfloat16", True, 2e-2)
+    smoke.phase("kernel vs plain: flash_bwd ragged fp32 D=128",
+                backward_case, smoke, "flash_bwd_ragged_fp32", 2, 8, 8, 1000,
+                128, "float32", False, 1e-4)
     sliced = smoke.phase("slice: Predict and Generate through the gateway",
                          slice_phase, smoke, gpu)
+    torch.cuda.empty_cache()
+    trained = smoke.phase("slice: LlamaLite training through TorchModelOps",
+                          training_phase, smoke, gpu)
 
-    kernels = []
+    # launches on the path that runs each kernel: K1 on both slices
+    train_launches = (trained or {}).get("launches", {})
+    serve_k1 = (sliced or {}).get("flash_launches", 0)
+    rows = []
     if main_case is not None:
-        kernels.append({
-            "name": "flash_fwd", "route": "cuda",
-            "source": "metisfl_tpu_torch/csrc/flash_fwd.cu",
-            "replaces": "metisfl_tpu/ops/flash_attention.py:76",
-            "launches": (sliced or {}).get("flash_launches", 0),
-            "max_abs_err": main_case["max_abs_err"],
-            "ms": main_case["kernel_ms"], "plain_ms": main_case["plain_ms"],
-            "bound_ms": main_case["bound_ms"],
-            "bound_by": main_case["bound_by"],
-            "library_ms": main_case["library_ms"],
-        })
-    if kernels and sliced is not None and not kernels[0]["launches"]:
-        smoke.failures.append("flash_fwd was not launched on the main path")
+        rows.append(("flash_fwd", "flash_fwd.cu", 76, main_case,
+                     serve_k1 + train_launches.get("flash_fwd", 0),
+                     {"serve": serve_k1,
+                      "train": train_launches.get("flash_fwd", 0)}))
+    for record, line in zip(bwd_cases or [], (126, 162)):
+        rows.append((record["name"], "flash_bwd.cu", line, record,
+                     train_launches.get(record["name"], 0),
+                     {"train": train_launches.get(record["name"], 0)}))
+    kernels = []
+    for name, source, line, record, launches, by_path in rows:
+        entry = {
+            "name": name, "route": "cuda",
+            "source": f"metisfl_tpu_torch/csrc/{source}",
+            "replaces": f"metisfl_tpu/ops/flash_attention.py:{line}",
+            "launches": launches, "launches_by_path": by_path,
+            "max_abs_err": record["max_abs_err"],
+            "ms": record["kernel_ms"], "plain_ms": record["plain_ms"],
+            "bound_ms": record["bound_ms"], "bound_by": record["bound_by"],
+            "library_ms": record["library_ms"],
+        }
+        if name != "flash_fwd":
+            entry["library_covers"] = "flash_bwd_dq+flash_bwd_dkv"
+        kernels.append(entry)
+        if not launches:
+            smoke.failures.append(f"{name} was not launched on its path")
+    if len(kernels) < 3:
+        smoke.failures.append("a kernel of the path has no measured row")
     print(json.dumps({"kernels": kernels}))
     print(gpu, flush=True)
     if smoke.failures:

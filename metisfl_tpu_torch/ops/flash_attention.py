@@ -1,21 +1,28 @@
-"""Flash attention forward: a CUDA kernel for Hopper and its plain twin.
+"""Flash attention, forward and backward: CUDA kernels for Hopper and their
+plain twins.
 
-The JAX package's TPU kernel ``_fwd_kernel`` (metisfl_tpu/ops/
-flash_attention.py) becomes ``csrc/flash_fwd.cu``, written for sm_90a and
-loaded through ``ctypes`` (ops/build.py). :func:`flash_attention_fwd` is its
-wrapper: a CUDA tensor launches the kernel (or raises), a CPU tensor runs
-:func:`flash_attention_fwd_reference`, the plain PyTorch version of the same
-function. There is no fallback from one to the other.
+The JAX package's TPU kernels (metisfl_tpu/ops/flash_attention.py) become
+hand-written sm_90a kernels, loaded through ``ctypes`` (ops/build.py):
+
+- ``_fwd_kernel`` (K1) → ``csrc/flash_fwd.cu``, wrapped by
+  :func:`flash_attention_fwd`;
+- ``_dq_kernel`` (K2) and ``_dkv_kernel`` (K3) → ``csrc/flash_bwd.cu``,
+  wrapped by :func:`flash_bwd_dq` and :func:`flash_bwd_dkv`, which
+  :func:`flash_attention_bwd` launches in turn.
+
+A CUDA tensor launches the kernel (or raises); a CPU tensor runs the plain
+PyTorch twin of the same function (:func:`flash_attention_fwd_reference`,
+:func:`flash_bwd_dq_reference` and :func:`flash_bwd_dkv_reference`, which
+:func:`flash_attention_bwd_reference` runs in turn). There is no
+fallback from one to the other. Each wrapper counts its kernel launches in
+``.launches``.
 
 Layout is the JAX package's (B, H, L, D) with scale 1/sqrt(D). GQA is
 native: ``k``/``v`` may carry fewer heads than ``q`` (Hq a multiple of Hkv)
-and query head h reads kv head h // (Hq // Hkv). The forward returns
-``(o, lse)`` with lse in logical layout (B, Hq, L) fp32, the shape ring
-attention consumes.
-
-This slice serves inference only: the backward kernels (``_dq_kernel``,
-``_dkv_kernel``) and the autograd wrapper come with the training slice, so
-:func:`flash_attention` refuses inputs that require a gradient.
+and query head h reads kv head h // (Hq // Hkv). lse and delta travel in
+logical layout (B, Hq, L) fp32, the shape ring attention consumes.
+:func:`flash_attention` is differentiable: its autograd Function runs K1
+forward and K2/K3 backward, as the JAX package's custom VJP does.
 """
 
 from __future__ import annotations
@@ -23,7 +30,7 @@ from __future__ import annotations
 import ctypes
 import math
 import threading
-from typing import Optional, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -49,28 +56,125 @@ def _repeat_kv(x: torch.Tensor, group: int) -> torch.Tensor:
     return x if group == 1 else x.repeat_interleave(group, dim=1)
 
 
-def flash_attention_fwd_reference(q: torch.Tensor, k: torch.Tensor,
-                                  v: torch.Tensor, causal: bool
-                                  ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Plain PyTorch twin of the kernel: a dense fp32 softmax with GQA
-    grouping. Returns ``(o in q.dtype, lse (B, Hq, L) fp32)``."""
+def _acc_dtype(dtype: torch.dtype) -> torch.dtype:
+    """The twins' accumulation type: fp32 as in the kernels, fp64 for fp64
+    inputs (so ``gradcheck`` can hold the twins to finite differences)."""
+    return torch.float64 if dtype == torch.float64 else torch.float32
+
+
+def _scores(q: torch.Tensor, k: torch.Tensor, causal: bool):
+    """scale·QKᵀ in the accumulation type, masked to -1e30, and the causal
+    mask (None when not causal)."""
     B, Hq, Hkv, L, D = _gqa_shapes(q, k)
-    group = Hq // Hkv
-    qf = q.float()
-    kf = _repeat_kv(k.float(), group)
-    vf = _repeat_kv(v.float(), group)
-    s = torch.einsum("bhqd,bhkd->bhqk", qf, kf) * float(1.0 / math.sqrt(D))
+    acc = _acc_dtype(q.dtype)
+    kf = _repeat_kv(k.to(acc), Hq // Hkv)
+    s = torch.einsum("bhqd,bhkd->bhqk", q.to(acc), kf) * float(
+        1.0 / math.sqrt(D))
+    mask = None
     if causal:
         mask = torch.ones(L, L, dtype=torch.bool, device=q.device).tril()
         s = s.masked_fill(~mask, _NEG)
-    lse = torch.logsumexp(s, dim=-1)
-    p = torch.exp(s - lse[..., None])
-    o = torch.einsum("bhqk,bhkd->bhqd", p, vf)
-    return o.to(q.dtype), lse
+    return s, mask
 
 
-def _check_cuda_inputs(q, k, v):
-    for name, t in (("q", q), ("k", k), ("v", v)):
+def flash_attention_fwd_reference(q: torch.Tensor, k: torch.Tensor,
+                                  v: torch.Tensor, causal: bool
+                                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain PyTorch twin of K1: a dense softmax with GQA grouping that
+    rounds where the kernel rounds. P = exp(S − m) against the row max m is
+    rounded to the input dtype before P·V, summed in fp32 and divided by
+    l = ΣP afterwards, as ``_fwd_kernel`` casts ``p.astype(v.dtype)`` before
+    its PV product and divides at the store. Returns ``(o in q.dtype,
+    lse = m + log l (B, Hq, L) fp32)``."""
+    group = q.shape[1] // k.shape[1]
+    acc = _acc_dtype(q.dtype)
+    s, _ = _scores(q, k, causal)
+    m = s.amax(dim=-1, keepdim=True)
+    p = torch.exp(s - m)  # masked scores give exp(-1e30 - m) = 0
+    l = p.sum(dim=-1, keepdim=True)
+    vf = _repeat_kv(v.to(acc), group)
+    o = torch.einsum("bhqk,bhkd->bhqd", p.to(v.dtype).to(acc), vf) / l
+    return o.to(q.dtype), (m + torch.log(l)).squeeze(-1)
+
+
+def _bwd_probs(q, k, v, do, lse, delta, causal):
+    """P recomputed from lse (masked to 0) and dS = P∘(dP − δ)·scale, dense
+    (B, Hq, L, L) in the accumulation type, as both backward kernels
+    recompute them tile by tile."""
+    group = q.shape[1] // k.shape[1]
+    acc = _acc_dtype(q.dtype)
+    s, mask = _scores(q, k, causal)
+    p = torch.exp(s - lse.to(acc)[..., None])
+    if mask is not None:
+        p = p.masked_fill(~mask, 0.0)
+    dp = torch.einsum("bhqd,bhkd->bhqk", do.to(acc),
+                      _repeat_kv(v.to(acc), group))
+    ds = p * (dp - delta.to(acc)[..., None]) * float(
+        1.0 / math.sqrt(q.shape[-1]))
+    return p, ds
+
+
+def flash_bwd_dq_reference(q: torch.Tensor, k: torch.Tensor,
+                           v: torch.Tensor, do: torch.Tensor,
+                           lse: torch.Tensor, delta: torch.Tensor,
+                           causal: bool) -> torch.Tensor:
+    """Plain PyTorch twin of K2: dQ = (dS→``k.dtype``)·K summed in fp32,
+    returned in q.dtype."""
+    acc = _acc_dtype(q.dtype)
+    _, ds = _bwd_probs(q, k, v, do, lse, delta, causal)
+    dq = torch.einsum("bhqk,bhkd->bhqd", ds.to(k.dtype).to(acc),
+                      _repeat_kv(k.to(acc), q.shape[1] // k.shape[1]))
+    return dq.to(q.dtype)
+
+
+def flash_bwd_dkv_reference(q: torch.Tensor, k: torch.Tensor,
+                            v: torch.Tensor, do: torch.Tensor,
+                            lse: torch.Tensor, delta: torch.Tensor,
+                            causal: bool
+                            ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain PyTorch twin of K3: dV = (P→``do.dtype``)ᵀ·dO and dK =
+    (dS→``q.dtype``)ᵀ·Q summed in fp32 over each KV group (a reshape to
+    (B, Hkv, G, L, D)), returned in k's and v's dtypes."""
+    B, Hq, Hkv, L, D = _gqa_shapes(q, k)
+    acc = _acc_dtype(q.dtype)
+    p, ds = _bwd_probs(q, k, v, do, lse, delta, causal)
+    dv = torch.einsum("bhqk,bhqd->bhkd", p.to(do.dtype).to(acc),
+                      do.to(acc))
+    dk = torch.einsum("bhqk,bhqd->bhkd", ds.to(q.dtype).to(acc), q.to(acc))
+    dk = dk.reshape(B, Hkv, Hq // Hkv, L, D).sum(dim=2)
+    dv = dv.reshape(B, Hkv, Hq // Hkv, L, D).sum(dim=2)
+    return dk.to(k.dtype), dv.to(v.dtype)
+
+
+def flash_attention_bwd_reference(q: torch.Tensor, k: torch.Tensor,
+                                  v: torch.Tensor, o: torch.Tensor,
+                                  lse: torch.Tensor, do: torch.Tensor,
+                                  causal: bool,
+                                  delta: Optional[torch.Tensor] = None
+                                  ) -> Tuple[torch.Tensor, torch.Tensor,
+                                             torch.Tensor]:
+    """Plain PyTorch twin of the backward, dense, with the kernels' casts:
+    P is recomputed from lse, dS = P∘(dP − δ)·scale is rounded to
+    ``k.dtype`` before dS·K and to ``q.dtype`` before dSᵀ·Q, and P to
+    ``do.dtype`` before Pᵀ·dO. Returns ``(dq, dk, dv)`` in the inputs'
+    dtypes."""
+    if delta is None:
+        delta = _delta(o, do)
+    dq = flash_bwd_dq_reference(q, k, v, do, lse, delta, causal)
+    dk, dv = flash_bwd_dkv_reference(q, k, v, do, lse, delta, causal)
+    return dq, dk, dv
+
+
+def _delta(o: torch.Tensor, do: torch.Tensor) -> torch.Tensor:
+    """δ = rowsum(dO∘O) in fp32 (fp64 for fp64 inputs), (B, Hq, L); the
+    JAX package computes it outside any kernel too."""
+    acc = _acc_dtype(o.dtype)
+    return (do.to(acc) * o.to(acc)).sum(dim=-1)
+
+
+def _check_cuda_inputs(q, k, v, **same_as_q):
+    named = (("q", q), ("k", k), ("v", v)) + tuple(same_as_q.items())
+    for name, t in named:
         if t.device != q.device:
             raise ValueError(f"{name} is on {t.device}, q on {q.device}")
         if t.dtype != q.dtype:
@@ -80,6 +184,10 @@ def _check_cuda_inputs(q, k, v):
                              f"{tuple(t.shape)}")
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
+    for name, t in same_as_q.items():
+        if t.shape != q.shape:
+            raise ValueError(f"{name} {tuple(t.shape)} does not match q "
+                             f"{tuple(q.shape)}")
     if q.dtype not in _DTYPE_CODES:
         raise ValueError(f"flash kernel takes float32/float16/bfloat16, "
                          f"got {q.dtype}")
@@ -97,27 +205,85 @@ def _check_cuda_inputs(q, k, v):
                          "grid")
 
 
+def _check_row_stats(q: torch.Tensor, **stats):
+    B, Hq, L, _ = q.shape
+    for name, t in stats.items():
+        if (t.device != q.device or t.dtype != torch.float32
+                or tuple(t.shape) != (B, Hq, L) or not t.is_contiguous()):
+            raise ValueError(
+                f"{name} must be a contiguous (B, Hq, L) = {(B, Hq, L)} "
+                f"float32 tensor on {q.device}, got {tuple(t.shape)} "
+                f"{t.dtype} on {t.device}")
+
+
 _lib_lock = threading.Lock()
-_lib: Optional[ctypes.CDLL] = None
+_libs: Dict[str, ctypes.CDLL] = {}
+_PTR, _INT, _FLOAT = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+# C signatures: tensors and the stream as pointers, shapes as ints, scale
+_SIGNATURES = {
+    "flash_fwd": {
+        "metisfl_flash_fwd": [_PTR] * 5 + [_INT] * 7 + [_FLOAT, _PTR],
+    },
+    "flash_bwd": {
+        "metisfl_flash_bwd_dq": [_PTR] * 7 + [_INT] * 7 + [_FLOAT, _PTR],
+        "metisfl_flash_bwd_dkv": [_PTR] * 8 + [_INT] * 7 + [_FLOAT, _PTR],
+    },
+}
+_ERROR_STRINGS = {"flash_fwd": "metisfl_cuda_error_string",
+                  "flash_bwd": "metisfl_bwd_error_string"}
 
 
-def _library() -> ctypes.CDLL:
-    """The kernel's library with its C signatures declared (built on
-    first use)."""
-    global _lib
+def _library(name: str) -> ctypes.CDLL:
+    """The kernel library ``name`` with its C signatures declared (built
+    on first use)."""
     with _lib_lock:
-        if _lib is None:
+        lib = _libs.get(name)
+        if lib is None:
             from metisfl_tpu_torch.ops.build import load
 
-            lib = load("flash_fwd")
-            fn = lib.metisfl_flash_fwd
-            fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 7
-                           + [ctypes.c_float, ctypes.c_void_p])
-            fn.restype = ctypes.c_int
-            lib.metisfl_cuda_error_string.argtypes = [ctypes.c_int]
-            lib.metisfl_cuda_error_string.restype = ctypes.c_char_p
-            _lib = lib
-        return _lib
+            lib = load(name)
+            for fn_name, argtypes in _SIGNATURES[name].items():
+                fn = getattr(lib, fn_name)
+                fn.argtypes = argtypes
+                fn.restype = ctypes.c_int
+            err_fn = getattr(lib, _ERROR_STRINGS[name])
+            err_fn.argtypes = [ctypes.c_int]
+            err_fn.restype = ctypes.c_char_p
+            _libs[name] = lib
+        return lib
+
+
+def _launch(lib_name: str, fn_name: str, counter, device, *args) -> None:
+    """Call one kernel's C entry on ``device``'s current stream; raise on a
+    refused launch, count a launched one on ``counter``."""
+    lib = _library(lib_name)
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        err = getattr(lib, fn_name)(*args, stream)
+    if err != 0:
+        msg = getattr(lib, _ERROR_STRINGS[lib_name])(err).decode()
+        raise RuntimeError(f"{fn_name} launch failed: {msg}")
+    with _launch_lock:
+        counter.launches += 1
+
+
+def _on_cuda(q: torch.Tensor) -> bool:
+    """False for a CPU tensor (the caller runs the twin); raises for any
+    device other than the CPU or CUDA."""
+    if q.device.type == "cpu":
+        return False
+    if q.device.type != "cuda":
+        raise ValueError(f"flash kernel runs on cuda tensors, got "
+                         f"{q.device}")
+    return True
+
+
+def _shape_args(q, k, causal):
+    """The C entries' trailing arguments: shapes, dtype code, causal and
+    the softmax scale."""
+    B, Hq, Hkv, L, D = _gqa_shapes(q, k)
+    return (B, Hq, Hkv, L, D, _DTYPE_CODES[q.dtype], int(bool(causal)),
+            float(1.0 / math.sqrt(D)))
 
 
 def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -129,41 +295,122 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     launch ``csrc/flash_fwd.cu`` on the current stream (D in {64, 128};
     fp32, fp16 or bf16; contiguous) and raise on anything else.
     ``flash_attention_fwd.launches`` counts kernel launches."""
-    if q.device.type == "cpu":
+    if not _on_cuda(q):
         return flash_attention_fwd_reference(q, k, v, causal)
-    if q.device.type != "cuda":
-        raise ValueError(f"flash kernel runs on cuda tensors, got "
-                         f"{q.device}")
     _check_cuda_inputs(q, k, v)
-    lib = _library()
-    B, Hq, Hkv, L, D = _gqa_shapes(q, k)
+    B, Hq, L, _ = q.shape
     o = torch.empty_like(q)
     lse = torch.empty((B, Hq, L), dtype=torch.float32, device=q.device)
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = lib.metisfl_flash_fwd(
+    _launch("flash_fwd", "metisfl_flash_fwd", flash_attention_fwd, q.device,
             q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-            lse.data_ptr(), B, Hq, Hkv, L, D, _DTYPE_CODES[q.dtype],
-            int(bool(causal)), float(1.0 / math.sqrt(D)), stream)
-    if err != 0:
-        raise RuntimeError("flash_fwd launch failed: "
-                           + lib.metisfl_cuda_error_string(err).decode())
-    with _launch_lock:
-        flash_attention_fwd.launches += 1
+            lse.data_ptr(), *_shape_args(q, k, causal))
     return o, lse
 
 
 flash_attention_fwd.launches = 0
 
 
+def flash_bwd_dq(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                 do: torch.Tensor, lse: torch.Tensor, delta: torch.Tensor,
+                 causal: bool = False) -> torch.Tensor:
+    """K2 on CUDA tensors: dQ (B, Hq, L, D) in q.dtype from the forward's
+    lse and δ = rowsum(dO∘O), both (B, Hq, L) fp32. Launches
+    ``csrc/flash_bwd.cu``'s dQ kernel or raises;
+    ``flash_bwd_dq.launches`` counts launches."""
+    if not _on_cuda(q):
+        raise ValueError("flash_bwd_dq launches the CUDA kernel; on the CPU "
+                         "call flash_attention_bwd (the plain twin)")
+    _check_cuda_inputs(q, k, v, do=do)
+    _check_row_stats(q, lse=lse, delta=delta)
+    dq = torch.empty_like(q)
+    _launch("flash_bwd", "metisfl_flash_bwd_dq", flash_bwd_dq, q.device,
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+            lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
+            *_shape_args(q, k, causal))
+    return dq
+
+
+flash_bwd_dq.launches = 0
+
+
+def flash_bwd_dkv(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                  do: torch.Tensor, lse: torch.Tensor, delta: torch.Tensor,
+                  causal: bool = False
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K3 on CUDA tensors: ``(dk, dv)`` (B, Hkv, L, D), each summed over
+    the query heads of its KV group, without atomics (the same bits on
+    every run). Launches ``csrc/flash_bwd.cu``'s dK/dV kernel or raises;
+    ``flash_bwd_dkv.launches`` counts launches."""
+    if not _on_cuda(q):
+        raise ValueError("flash_bwd_dkv launches the CUDA kernel; on the "
+                         "CPU call flash_attention_bwd (the plain twin)")
+    _check_cuda_inputs(q, k, v, do=do)
+    _check_row_stats(q, lse=lse, delta=delta)
+    dk = torch.empty_like(k)
+    dv = torch.empty_like(v)
+    _launch("flash_bwd", "metisfl_flash_bwd_dkv", flash_bwd_dkv, q.device,
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+            lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+            *_shape_args(q, k, causal))
+    return dk, dv
+
+
+flash_bwd_dkv.launches = 0
+
+
+def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        o: torch.Tensor, lse: torch.Tensor, do: torch.Tensor,
+                        causal: bool = False,
+                        delta: Optional[torch.Tensor] = None
+                        ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """``(dq, dk, dv)`` of flash attention, the API ring attention needs:
+    lse and the optional δ in logical (B, Hq, L) fp32 layout.
+
+    CPU tensors run :func:`flash_attention_bwd_reference`. CUDA tensors
+    compute δ = rowsum(dO∘O) in fp32 where it is not given, then launch K2
+    (:func:`flash_bwd_dq`) and K3 (:func:`flash_bwd_dkv`), and raise on
+    anything the kernels do not take."""
+    if not _on_cuda(q):
+        return flash_attention_bwd_reference(q, k, v, o, lse, do, causal,
+                                             delta)
+    if o.shape != q.shape:
+        raise ValueError(f"o {tuple(o.shape)} does not match q "
+                         f"{tuple(q.shape)}")
+    delta = _delta(o, do) if delta is None else delta.float()
+    delta = delta.contiguous()
+    lse = lse.float().contiguous()
+    dq = flash_bwd_dq(q, k, v, do, lse, delta, causal)
+    dk, dv = flash_bwd_dkv(q, k, v, do, lse, delta, causal)
+    return dq, dk, dv
+
+
+class _FlashAttention(torch.autograd.Function):
+    """K1 forward, K2/K3 backward: the JAX package's custom VJP
+    (``flash_attention.defvjp``) as an autograd Function."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal):
+        o, lse = flash_attention_fwd(q, k, v, causal)
+        ctx.save_for_backward(q, k, v, o, lse)
+        ctx.causal = causal
+        return o
+
+    @staticmethod
+    def backward(ctx, grad_out):
+        q, k, v, o, lse = ctx.saved_tensors
+        # the model hands over the gradient of a transposed view; the
+        # kernels take contiguous rows
+        dq, dk, dv = flash_attention_bwd(q, k, v, o, lse,
+                                         grad_out.contiguous(), ctx.causal)
+        return dq, dk, dv, None
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     causal: bool = False) -> torch.Tensor:
-    """Flash attention output over (B, H, L, D), GQA-native. Forward only
-    in this slice: inputs that require a gradient are refused."""
+    """Flash attention output over (B, H, L, D), GQA-native and
+    differentiable (K1 forward; K2 and K3 backward)."""
     if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
-        raise NotImplementedError(
-            "flash attention backward (K2/K3) is not ported yet; run under "
-            "torch.no_grad() or use the dense path")
+        return _FlashAttention.apply(q, k, v, causal)
     return flash_attention_fwd(q, k, v, causal)[0]
 
 

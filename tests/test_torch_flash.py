@@ -1,13 +1,14 @@
-"""The port's flash-attention forward (metisfl_tpu_torch/ops) against the
-JAX package's: the Pallas kernel in interpret mode and its dense oracle.
+"""The port's flash attention, forward and backward (metisfl_tpu_torch/ops),
+against the JAX package's: the Pallas kernels in interpret mode and their
+dense oracle.
 
-On the CPU the wrapper runs its plain twin, so these tests hold that twin
-(and the dense/auto router) to the reference. The CUDA kernel itself is
-held to the twin by the ``cuda``-marked test, which runs only on a GPU
-(and by chip_smoke.py at the serving shape). jax is imported only by the
-fixture that needs it, so on a machine with the card (which has no jax)
-``python -m pytest --noconftest -m cuda tests/test_torch_flash.py`` runs
-the kernel tests alone.
+On the CPU each wrapper runs its plain twin, so these tests hold the twins
+(and the dense/auto router) to the reference. The CUDA kernels themselves
+are held to the twins by the ``cuda``-marked tests, which run only on a GPU
+(and by chip_smoke.py at the serving and training shapes). jax is imported
+only by the fixture that needs it, so on a machine with the card (which has
+no jax) ``python -m pytest --noconftest -m cuda tests/test_torch_flash.py``
+runs the kernel tests alone.
 """
 
 import importlib
@@ -20,15 +21,25 @@ import torch
 from metisfl_tpu_torch.ops.flash_attention import (
     FLASH_MIN_SEQ,
     _dense_attention as port_dense,
+    _repeat_kv,
     attention as port_attention,
     flash_attention,
+    flash_attention_bwd,
+    flash_attention_bwd_reference,
     flash_attention_fwd,
     flash_attention_fwd_reference,
+    flash_bwd_dkv,
+    flash_bwd_dq,
 )
 
 # fp32 on both sides: one softmax over the same scores, summed in another
 # order (blockwise online vs dense), stays within a few ulp of 1
 ATOL = 1e-5
+# bf16 forward: the Pallas kernel rounds P to bf16 against the running max
+# of each 128-key block, the twin against the row's final max; the two
+# roundings of one P can differ by an ulp, which moves o by at most one
+# bf16 ulp in [0.5, 1)
+BF16_FWD_ATOL = 2.0 ** -8
 
 
 @pytest.fixture
@@ -156,12 +167,145 @@ def test_reference_keeps_input_dtype_and_groups_heads():
 
 
 def test_refuses_inputs_that_need_a_gradient():
-    q, k, v = (torch.from_numpy(a) for a in _qkv(L=8))
-    q.requires_grad_(True)
-    with pytest.raises(NotImplementedError, match="backward"):
-        flash_attention(q, k, v, True)
+    """Inputs that need a gradient are no longer refused: the gradient
+    flows through ``flash_attention`` (K1 forward, K2/K3 backward; their
+    twins here) and equals the dense path's, GQA groups summed."""
+    q, k, v = (torch.from_numpy(a).requires_grad_(True)
+               for a in _qkv(L=40))
+    g = torch.from_numpy(np.random.default_rng(1).standard_normal(
+        q.shape).astype(np.float32))
+    grads = torch.autograd.grad((flash_attention(q, k, v, True) * g).sum(),
+                                (q, k, v))
+    group = q.shape[1] // k.shape[1]
+    dense = port_dense(q, _repeat_kv(k, group), _repeat_kv(v, group), True)
+    want = torch.autograd.grad((dense * g).sum(), (q, k, v))
+    for got, ref in zip(grads, want):
+        torch.testing.assert_close(got, ref, atol=ATOL, rtol=0)
     with torch.no_grad():
         assert flash_attention(q, k, v, True).shape == q.shape
+
+
+def _bwd_inputs(seed=5, **shape):
+    q, k, v = _qkv(seed=seed, **shape)
+    do = np.random.default_rng(seed + 1).standard_normal(q.shape).astype(
+        np.float32)
+    return q, k, v, do
+
+
+@pytest.mark.parametrize("causal", [False, True])
+def test_bwd_twin_matches_pallas_backward(jax_flash, causal):
+    """dq, dk, dv of the port's CPU path equal the Pallas backward's (K2
+    and K3 in interpret mode) at B1·Hq4·Hkv2·L200·D64 fp32: L=200 pads the
+    kernels' blocks (the ragged tail) and Hkv2 makes dK/dV sum over a
+    group. fp32 on both sides, summed in another order: 1e-5."""
+    jnp = jax_flash.jnp
+    q, k, v, do = _bwd_inputs()
+    o_ref, lse_ref = jax_flash._flash_forward(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), causal, None, None,
+        True)
+    B, H, L, _ = q.shape
+    lse_ref = np.asarray(lse_ref)[:, :L, 0].reshape(B, H, L)
+    want = jax_flash._flash_backward(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), o_ref, lse_ref,
+        jnp.asarray(do), causal, None, None, True)
+    o, lse = flash_attention_fwd(*(torch.from_numpy(a) for a in (q, k, v)),
+                                 causal)
+    got = flash_attention_bwd(*(torch.from_numpy(a) for a in (q, k, v)), o,
+                              lse, torch.from_numpy(do), causal)
+    for name, a, b in zip(("dq", "dk", "dv"), got, want):
+        assert a.shape == b.shape and a.dtype == torch.float32, name
+        np.testing.assert_allclose(a.numpy(), np.asarray(b), atol=ATOL,
+                                   err_msg=name)
+
+
+@pytest.mark.parametrize("causal", [False, True])
+def test_bwd_twin_matches_jax_grad_of_dense_oracle(jax_flash, causal):
+    """The same gradients against ``jax.grad`` of ``_dense_attention``
+    (KV repeated to the query heads, so the group sum comes from the
+    repeat's transpose)."""
+    import jax
+
+    jnp = jax_flash.jnp
+    q, k, v, do = _bwd_inputs()
+    group = q.shape[1] // k.shape[1]
+
+    def loss(q, k, v):
+        out = jax_flash._dense_attention(
+            q, jnp.repeat(k, group, axis=1), jnp.repeat(v, group, axis=1),
+            causal)
+        return jnp.sum(out * jnp.asarray(do))
+
+    want = jax.grad(loss, argnums=(0, 1, 2))(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
+    tq, tk, tv = (torch.from_numpy(a) for a in (q, k, v))
+    o, lse = flash_attention_fwd(tq, tk, tv, causal)
+    got = flash_attention_bwd(tq, tk, tv, o, lse, torch.from_numpy(do),
+                              causal)
+    for name, a, b in zip(("dq", "dk", "dv"), got, want):
+        np.testing.assert_allclose(a.numpy(), np.asarray(b), atol=ATOL,
+                                   err_msg=name)
+
+
+@pytest.mark.parametrize("causal", [False, True])
+def test_autograd_function_passes_gradcheck(causal):
+    """The autograd Function in float64 at B1·Hq4·Hkv2·L7·D4: the backward
+    twin is the derivative of the forward twin (finite differences)."""
+    rng = np.random.default_rng(3)
+    q, k, v = (torch.from_numpy(rng.standard_normal(shape)).requires_grad_()
+               for shape in ((1, 4, 7, 4), (1, 2, 7, 4), (1, 2, 7, 4)))
+    assert torch.autograd.gradcheck(
+        lambda q, k, v: flash_attention(q, k, v, causal), (q, k, v))
+
+
+def test_bwd_twin_takes_delta_and_keeps_dtypes():
+    """A given δ is used as is (ring attention passes its own); bf16 inputs
+    give bf16 gradients at kv-head size."""
+    q, k, v, do = (torch.from_numpy(a) for a in _bwd_inputs(L=24))
+    o, lse = flash_attention_fwd(q, k, v, True)
+    delta = (do * o).sum(-1)
+    base = flash_attention_bwd(q, k, v, o, lse, do, True)
+    given = flash_attention_bwd(q, k, v, o, lse, do, True, delta=delta)
+    for a, b in zip(base, given):
+        assert torch.equal(a, b)
+    shifted = flash_attention_bwd(q, k, v, o, lse, do, True,
+                                  delta=delta + 1.0)
+    assert not torch.equal(shifted[0], base[0])
+    bq, bk, bv, bdo = (t.bfloat16() for t in (q, k, v, do))
+    bo, blse = flash_attention_fwd(bq, bk, bv, True)
+    dq, dk, dv = flash_attention_bwd_reference(bq, bk, bv, bo, blse, bdo,
+                                               True)
+    assert (dq.dtype, dk.dtype, dv.dtype) == (torch.bfloat16,) * 3
+    assert dk.shape == k.shape and dv.shape == v.shape
+
+
+def test_bwd_kernel_wrappers_refuse_cpu_tensors():
+    """K2 and K3 are kernels only: on the CPU the twin is reached through
+    ``flash_attention_bwd``, never by the kernels' wrappers."""
+    q, k, v, do = (torch.from_numpy(a) for a in _bwd_inputs(L=8))
+    lse = torch.zeros(q.shape[:3])
+    before = (flash_bwd_dq.launches, flash_bwd_dkv.launches)
+    with pytest.raises(ValueError, match="CUDA kernel"):
+        flash_bwd_dq(q, k, v, do, lse, lse, True)
+    with pytest.raises(ValueError, match="CUDA kernel"):
+        flash_bwd_dkv(q, k, v, do, lse, lse, True)
+    assert (flash_bwd_dq.launches, flash_bwd_dkv.launches) == before
+
+
+@pytest.mark.parametrize("causal", [False, True])
+def test_bf16_forward_twin_matches_pallas_forward(jax_flash, causal):
+    """The twin rounds P to the input dtype before P·V and divides by l
+    afterwards, as ``_fwd_kernel`` does; B1·Hq4·Hkv2·L200·D64 in bf16."""
+    jnp = jax_flash.jnp
+    q, k, v = _qkv()
+    o_ref, _ = jax_flash._flash_forward(
+        *(jnp.asarray(a, jnp.bfloat16) for a in (q, k, v)), causal, None,
+        None, True)
+    o, _ = flash_attention_fwd(
+        *(torch.from_numpy(a).bfloat16() for a in (q, k, v)), causal)
+    assert o.dtype == torch.bfloat16
+    np.testing.assert_allclose(
+        o.float().numpy(), np.asarray(o_ref.astype(jnp.float32)),
+        atol=BF16_FWD_ATOL, rtol=0)
 
 
 def test_rejects_gqa_mismatch():
@@ -193,3 +337,75 @@ def test_kernel_matches_plain_version_on_gpu(cuda_device, dtype, causal, Hkv,
     lse_atol = 1e-4 if dtype == torch.float32 else 1e-3
     torch.testing.assert_close(o.float(), o_ref.float(), atol=atol, rtol=0)
     torch.testing.assert_close(lse, lse_ref, atol=lse_atol, rtol=0)
+
+
+def _cuda_bwd_inputs(device, dtype, B, Hq, Hkv, L, D, causal, seed=0):
+    rng = np.random.default_rng(seed)
+
+    def draw(shape):
+        return torch.from_numpy(rng.standard_normal(shape).astype(
+            np.float32)).to(device, dtype)
+
+    q, do = draw((B, Hq, L, D)), draw((B, Hq, L, D))
+    k, v = draw((B, Hkv, L, D)), draw((B, Hkv, L, D))
+    o, lse = flash_attention_fwd_reference(q, k, v, causal)
+    return q, k, v, o.contiguous(), lse.contiguous(), do
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,causal,B,Hkv,L,D,rel", [
+    (torch.bfloat16, True, 2, 4, 1024, 64, 2e-2),
+    (torch.float16, True, 2, 4, 333, 128, 2e-3),
+    (torch.float16, False, 1, 16, 200, 64, 2e-3),
+    (torch.float32, False, 2, 8, 1000, 128, 1e-4),
+])
+def test_bwd_kernels_match_plain_version_on_gpu(cuda_device, dtype, causal,
+                                                B, Hkv, L, D, rel):
+    """K2 and K3 against their twin on the card, 16 query heads (GQA where
+    Hkv < 16), ragged L where L is not a multiple of 64: each of dq, dk,
+    dv within ``rel`` × max|twin| (the dtype's rounding of dS and P can
+    flip where the two sum in another order). Each launches once."""
+    q, k, v, o, lse, do = _cuda_bwd_inputs(cuda_device, dtype, B, 16, Hkv,
+                                           L, D, causal)
+    before = (flash_bwd_dq.launches, flash_bwd_dkv.launches)
+    got = flash_attention_bwd(q, k, v, o, lse, do, causal)
+    torch.cuda.synchronize()
+    assert (flash_bwd_dq.launches, flash_bwd_dkv.launches) == (
+        before[0] + 1, before[1] + 1)
+    want = flash_attention_bwd_reference(q, k, v, o, lse, do, causal)
+    for name, a, b in zip(("dq", "dk", "dv"), got, want):
+        assert a.dtype == dtype and a.shape == b.shape, name
+        scale = float(b.float().abs().max())
+        err = float((a.float() - b.float()).abs().max())
+        assert err <= rel * scale, (name, err, scale)
+
+
+@pytest.mark.cuda
+def test_dkv_kernel_is_deterministic_on_gpu(cuda_device):
+    """K3 sums each KV group in a fixed order, without atomics: two runs
+    give the same bits."""
+    q, k, v, o, lse, do = _cuda_bwd_inputs(cuda_device, torch.bfloat16, 2,
+                                           16, 4, 517, 64, True, seed=3)
+    delta = (do.float() * o.float()).sum(-1)
+    first = flash_bwd_dkv(q, k, v, do, lse, delta, True)
+    second = flash_bwd_dkv(q, k, v, do, lse, delta, True)
+    torch.cuda.synchronize()
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_autograd_runs_all_three_kernels_on_gpu(cuda_device):
+    """One backward through ``flash_attention`` launches K1 once and K2, K3
+    once each, with a strided upstream gradient made contiguous."""
+    q, k, v, _, _, _ = _cuda_bwd_inputs(cuda_device, torch.bfloat16, 1, 16,
+                                        4, 256, 64, True)
+    q, k, v = (t.requires_grad_() for t in (q, k, v))
+    before = (flash_attention_fwd.launches, flash_bwd_dq.launches,
+              flash_bwd_dkv.launches)
+    out = flash_attention(q, k, v, True)
+    out.transpose(1, 2).sum().backward()
+    torch.cuda.synchronize()
+    assert (flash_attention_fwd.launches, flash_bwd_dq.launches,
+            flash_bwd_dkv.launches) == tuple(n + 1 for n in before)
+    assert all(bool(torch.isfinite(t.grad).all()) for t in (q, k, v))

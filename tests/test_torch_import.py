@@ -57,6 +57,7 @@ def test_sources_reference_neither_jax_nor_the_jax_package():
 
 
 def test_kernel_sources_ship_with_the_package():
-    assert os.path.exists(os.path.join(PKG_DIR, "csrc", "flash_fwd.cu"))
+    for name in ("flash_fwd", "flash_bwd"):
+        assert os.path.exists(os.path.join(PKG_DIR, "csrc", f"{name}.cu"))
     with open(os.path.join(REPO, "pyproject.toml"), encoding="utf-8") as fh:
         assert '"metisfl_tpu_torch" = ["csrc/*.cu", "csrc/*.cuh"]' in fh.read()

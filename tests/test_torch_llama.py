@@ -193,8 +193,7 @@ def test_greedy_tokens_equal_jax(variables, eos_id):
 def test_sampling_and_unported_fields_raise(variables):
     with pytest.raises(NotImplementedError, match="temperature"):
         generate(_port(variables), _tokens(L=4), 2, temperature=0.7)
-    for field in (dict(moe_experts=4), dict(sp_mesh=object()),
-                  dict(remat=True)):
+    for field in (dict(moe_experts=4), dict(sp_mesh=object())):
         with pytest.raises(NotImplementedError):
             LlamaLite(**CFG, **field)
 
