@@ -12,9 +12,11 @@ It drives the port only (it imports no jax and nothing of the JAX package):
 3. kernel vs plain: each kernel against its plain PyTorch version on the
    card, at its path's shape and at a ragged fp32 shape, with the
    tolerance stated, timed beside its bound and one PyTorch library call
-   that computes the same function (a yardstick the port never calls):
+   that computes the same function (a yardstick the port never calls;
+   for K2+K3 one call of SDPA's backward, also as profiled device time):
    K1 (flash_fwd) at the serving shape, K2 and K3 (flash_bwd_dq,
-   flash_bwd_dkv) at the training shape, K3 run twice for bit-identity;
+   flash_bwd_dkv; tensor cores in bf16) at the training shape, each run
+   twice for bit-identity, with the achieved TFLOP/s;
 4. serving slice: a full-width LlamaLite (vocab 32768, dim 1024, depth 8,
    heads 16, kv_heads 4, bf16 compute, flash attention) with seeded random
    weights, packed into a ModelBlob and installed in a ``ServingGateway``;
@@ -174,6 +176,7 @@ def attention_case(smoke, name, B, Hq, Hkv, L, D, dtype_name, causal,
         "bound_ms": max(flop_ms, byte_ms),
         "bound_by": "operations" if flop_ms >= byte_ms else "bytes",
         "library_ms": library_ms, "flops": flops, "bytes": nbytes,
+        "tflops": flops / (kernel_ms * 1e-3) / 1e12,
     }
     print(json.dumps({"kernel_case": record}), flush=True)
     return record
@@ -181,7 +184,7 @@ def attention_case(smoke, name, B, Hq, Hkv, L, D, dtype_name, causal,
 
 def backward_case(smoke, name, B, Hq, Hkv, L, D, dtype_name, causal,
                   rel_tol):
-    """K2 and K3 against their plain versions on the card, K3 twice for
+    """K2 and K3 against their plain versions on the card, each twice for
     bit-identity, all timed; returns one record per kernel."""
     import torch
     import torch.nn.functional as F
@@ -203,6 +206,7 @@ def backward_case(smoke, name, B, Hq, Hkv, L, D, dtype_name, causal,
     o, lse = flash_attention_fwd(q, k, v, causal)
     delta = (do.float() * o.float()).sum(-1)
     dq = flash_bwd_dq(q, k, v, do, lse, delta, causal)
+    dq2 = flash_bwd_dq(q, k, v, do, lse, delta, causal)
     dk, dv = flash_bwd_dkv(q, k, v, do, lse, delta, causal)
     dk2, dv2 = flash_bwd_dkv(q, k, v, do, lse, delta, causal)
     torch.cuda.synchronize()
@@ -218,6 +222,8 @@ def backward_case(smoke, name, B, Hq, Hkv, L, D, dtype_name, causal,
         smoke.check(bool(torch.isfinite(got).all()) and err <= rel_tol * scale,
                     f"{name}: {label} err {err:.3g} <= {rel_tol} x max|ref| "
                     f"{scale:.3g}")
+    smoke.check(torch.equal(dq, dq2),
+                f"{name}: two runs of K2 give bit-identical dQ")
     smoke.check(torch.equal(dk, dk2) and torch.equal(dv, dv2),
                 f"{name}: two runs of K3 give bit-identical dK and dV")
 
@@ -228,23 +234,27 @@ def backward_case(smoke, name, B, Hq, Hkv, L, D, dtype_name, causal,
     dkv_plain = time_ms(lambda: flash_bwd_dkv_reference(
         q, k, v, do, lse, delta, causal), iters=5)
 
-    # the library yardstick for the pair: SDPA forward + backward minus
-    # SDPA forward, on the same q, k, v, dO (the port never calls it)
+    # the library yardstick for the pair: one call of SDPA's backward
+    # (autograd.grad on a saved SDPA forward of the same q, k, v, with the
+    # same dO), timed by CUDA events, and the device time of its kernels
+    # under the profiler (the call's own host work between them aside);
+    # the port never calls it
     qg, kg, vg = (t.detach().requires_grad_() for t in (q, k, v))
-
-    def sdpa():
-        return F.scaled_dot_product_attention(qg, kg, vg, is_causal=causal,
-                                              enable_gqa=Hq != Hkv)
-
+    library_ms = library_device_ms = None
     try:
-        with torch.no_grad():
-            fwd_ms = time_ms(sdpa)
-        both_ms = time_ms(lambda: torch.autograd.grad(sdpa(), (qg, kg, vg),
-                                                      do))
-        library_ms = both_ms - fwd_ms
+        out = F.scaled_dot_product_attention(qg, kg, vg, is_causal=causal,
+                                             enable_gqa=Hq != Hkv)
+
+        def sdpa_backward():
+            return torch.autograd.grad(out, (qg, kg, vg), do,
+                                       retain_graph=True)
+
+        library_ms = time_ms(sdpa_backward)
+        profiled = profile_call(sdpa_backward, top=8)
+        if isinstance(profiled, dict):
+            library_device_ms = profiled["device_ms"]
     except (TypeError, RuntimeError) as exc:
         print(f"library call unavailable: {exc}")
-        library_ms = None
 
     # the work these inputs need: per (q, k) pair and head, K2 does QK^T,
     # dO V^T and dS K (6 D operations), K3 adds P^T dO and dS^T Q (8 D)
@@ -267,7 +277,10 @@ def backward_case(smoke, name, B, Hq, Hkv, L, D, dtype_name, causal,
             "kernel_ms": ms, "plain_ms": plain,
             "bound_ms": max(flop_ms, byte_ms),
             "bound_by": "operations" if flop_ms >= byte_ms else "bytes",
-            "library_ms": library_ms, "flops": flops, "bytes": nbytes,
+            "library_ms": library_ms,
+            "library_device_ms": library_device_ms,
+            "flops": flops, "bytes": nbytes,
+            "tflops": flops / (ms * 1e-3) / 1e12,
         })
     print(json.dumps({"kernel_case": records}), flush=True)
     return records
@@ -627,6 +640,8 @@ def main() -> int:
         t0 = time.perf_counter()
         libs = build.build_all()
         print(f"built {sorted(libs)} in {time.perf_counter() - t0:.3f} s")
+        for name, seconds in sorted(build.build_seconds.items()):
+            print(f"  {name}: nvcc done after {seconds:.3f} s")
         for name, log in build.build_logs.items():
             for line in log.splitlines():
                 if ("registers" in line or "spill" in line
@@ -680,10 +695,11 @@ def main() -> int:
             "max_abs_err": record["max_abs_err"],
             "ms": record["kernel_ms"], "plain_ms": record["plain_ms"],
             "bound_ms": record["bound_ms"], "bound_by": record["bound_by"],
-            "library_ms": record["library_ms"],
+            "library_ms": record["library_ms"], "tflops": record["tflops"],
         }
         if name != "flash_fwd":
             entry["library_covers"] = "flash_bwd_dq+flash_bwd_dkv"
+            entry["library_device_ms"] = record["library_device_ms"]
         kernels.append(entry)
         if not launches:
             smoke.failures.append(f"{name} was not launched on its path")

@@ -5,9 +5,10 @@
 Each source compiles on its own (``nvcc -gencode
 arch=compute_90a,code=sm_90a -O3 -shared -Xcompiler -fPIC``) into
 ``build/metisfl_tpu_torch/lib<name>.so`` beside the package, at first use.
-A library is rebuilt when its source or flags change (a sha256 stamp sits
-next to it). :func:`build_all` starts one ``nvcc`` per source at once and
-waits for all of them. Nothing here runs at import time.
+A library is rebuilt when its source, a header in ``csrc/`` or the flags
+change (a sha256 stamp sits next to it). :func:`build_all` starts one
+``nvcc`` per source at once and waits for all of them. Nothing here runs at
+import time.
 """
 
 from __future__ import annotations
@@ -18,6 +19,7 @@ import os
 import shutil
 import subprocess
 import threading
+import time
 from pathlib import Path
 from typing import Dict, Iterable
 
@@ -32,6 +34,8 @@ _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
 # nvcc's stderr per built source (ptxas register / shared-memory report)
 build_logs: Dict[str, str] = {}
+# wall seconds from the start of the parallel build to each nvcc's exit
+build_seconds: Dict[str, float] = {}
 
 
 def _nvcc() -> str:
@@ -45,12 +49,20 @@ def _nvcc() -> str:
                        "build only where the CUDA toolkit is installed")
 
 
+def source_digest(src: Path) -> str:
+    """sha256 over the source, every header (``*.cuh``) beside it and the
+    flags: a library is stale when any of them changes."""
+    h = hashlib.sha256(src.read_bytes())
+    for header in sorted(src.parent.glob("*.cuh")):
+        h.update(header.name.encode() + b"\0" + header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return h.hexdigest()
+
+
 def _paths(name: str):
     src = CSRC / f"{name}.cu"
     lib = BUILD_DIR / f"lib{name}.so"
-    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode()
-                            ).hexdigest()
-    return src, lib, Path(str(lib) + ".srchash"), digest
+    return src, lib, Path(str(lib) + ".srchash"), source_digest(src)
 
 
 def _fresh(name: str) -> bool:
@@ -63,6 +75,7 @@ def build_all(names: Iterable[str] = SOURCES) -> Dict[str, Path]:
     names = list(names)
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     procs = {}
+    t0 = time.perf_counter()
     for name in names:
         if _fresh(name):
             continue
@@ -71,9 +84,21 @@ def build_all(names: Iterable[str] = SOURCES) -> Dict[str, Path]:
         procs[name] = (tmp, subprocess.Popen(
             [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)],
             stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
+    results = {}
+
+    def wait(name, proc):
+        results[name] = proc.communicate()
+        build_seconds[name] = time.perf_counter() - t0
+
+    waiters = [threading.Thread(target=wait, args=(name, proc))
+               for name, (_, proc) in procs.items()]
+    for w in waiters:
+        w.start()
+    for w in waiters:
+        w.join()
     failures = []
     for name, (tmp, proc) in procs.items():
-        out, err = proc.communicate()
+        out, err = results[name]
         build_logs[name] = out + err
         _, lib, stamp, digest = _paths(name)
         if proc.returncode != 0:

@@ -205,6 +205,16 @@ def _check_cuda_inputs(q, k, v, **same_as_q):
                          "grid")
 
 
+def _check_aligned(**tensors):
+    """The backward kernels copy (B, H, L, D) rows 16 bytes at a time
+    (``cp.async``), so each such tensor must start on a 16-byte boundary;
+    a view that starts inside an allocation may not."""
+    for name, t in tensors.items():
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name} must start at a 16-byte aligned "
+                             f"address, got {t.data_ptr():#x}")
+
+
 def _check_row_stats(q: torch.Tensor, **stats):
     B, Hq, L, _ = q.shape
     for name, t in stats.items():
@@ -315,12 +325,14 @@ def flash_bwd_dq(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                  causal: bool = False) -> torch.Tensor:
     """K2 on CUDA tensors: dQ (B, Hq, L, D) in q.dtype from the forward's
     lse and δ = rowsum(dO∘O), both (B, Hq, L) fp32. Launches
-    ``csrc/flash_bwd.cu``'s dQ kernel or raises;
+    ``csrc/flash_bwd.cu``'s dQ kernel (tensor cores for bf16/fp16, SIMT for
+    fp32) or raises; q, k, v and do must be 16-byte aligned.
     ``flash_bwd_dq.launches`` counts launches."""
     if not _on_cuda(q):
         raise ValueError("flash_bwd_dq launches the CUDA kernel; on the CPU "
                          "call flash_attention_bwd (the plain twin)")
     _check_cuda_inputs(q, k, v, do=do)
+    _check_aligned(q=q, k=k, v=v, do=do)
     _check_row_stats(q, lse=lse, delta=delta)
     dq = torch.empty_like(q)
     _launch("flash_bwd", "metisfl_flash_bwd_dq", flash_bwd_dq, q.device,
@@ -339,12 +351,14 @@ def flash_bwd_dkv(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                   ) -> Tuple[torch.Tensor, torch.Tensor]:
     """K3 on CUDA tensors: ``(dk, dv)`` (B, Hkv, L, D), each summed over
     the query heads of its KV group, without atomics (the same bits on
-    every run). Launches ``csrc/flash_bwd.cu``'s dK/dV kernel or raises;
-    ``flash_bwd_dkv.launches`` counts launches."""
+    every run). Launches ``csrc/flash_bwd.cu``'s dK/dV kernel (tensor cores
+    for bf16/fp16, SIMT for fp32) or raises; q, k, v and do must be 16-byte
+    aligned. ``flash_bwd_dkv.launches`` counts launches."""
     if not _on_cuda(q):
         raise ValueError("flash_bwd_dkv launches the CUDA kernel; on the "
                          "CPU call flash_attention_bwd (the plain twin)")
     _check_cuda_inputs(q, k, v, do=do)
+    _check_aligned(q=q, k=k, v=v, do=do)
     _check_row_stats(q, lse=lse, delta=delta)
     dk = torch.empty_like(k)
     dv = torch.empty_like(v)

@@ -352,32 +352,57 @@ def _cuda_bwd_inputs(device, dtype, B, Hq, Hkv, L, D, causal, seed=0):
     return q, k, v, o.contiguous(), lse.contiguous(), do
 
 
+# the dtype's tolerance for K2/K3 against their twin, × max|twin|: the
+# rounding of dS and P to bf16/fp16 can flip where kernel and twin sum the
+# scores in another order
+_BWD_REL = {torch.bfloat16: 2e-2, torch.float16: 2e-3, torch.float32: 1e-4}
+# (dtype, causal, B, Hq, Hkv, L, D, given_delta): the shapes held since the
+# SIMT kernels, with δ = rowsum(dO∘O); then the tensor-core kernels across
+# their fragment (16 rows), tile (64 rows) and streamed-tile (32 q rows at
+# D=128) edges, for every group size, with a δ drawn apart from O, as ring
+# attention's hops pass the δ of the whole output. With δ from O, dP − δ
+# cancels to fp32 noise wherever a row sees one key (L=1: all of dq), and
+# no relative tolerance can hold noise against noise.
+_BWD_GPU_CASES = [
+    (torch.bfloat16, True, 2, 16, 4, 1024, 64, False),
+    (torch.float16, True, 2, 16, 4, 333, 128, False),
+    (torch.float16, False, 1, 16, 16, 200, 64, False),
+    (torch.float32, False, 2, 16, 8, 1000, 128, False),
+] + [(dtype, causal, 1, 8, 8 // group, L, D, True)
+     for dtype in (torch.bfloat16, torch.float16)
+     for causal in (False, True)
+     for D in (64, 128)
+     for group in (1, 4, 8)
+     for L in (1, 63, 64, 65, 129, 517)]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("dtype,causal,B,Hkv,L,D,rel", [
-    (torch.bfloat16, True, 2, 4, 1024, 64, 2e-2),
-    (torch.float16, True, 2, 4, 333, 128, 2e-3),
-    (torch.float16, False, 1, 16, 200, 64, 2e-3),
-    (torch.float32, False, 2, 8, 1000, 128, 1e-4),
-])
+@pytest.mark.parametrize("dtype,causal,B,Hq,Hkv,L,D,given_delta",
+                         _BWD_GPU_CASES)
 def test_bwd_kernels_match_plain_version_on_gpu(cuda_device, dtype, causal,
-                                                B, Hkv, L, D, rel):
-    """K2 and K3 against their twin on the card, 16 query heads (GQA where
-    Hkv < 16), ragged L where L is not a multiple of 64: each of dq, dk,
-    dv within ``rel`` × max|twin| (the dtype's rounding of dS and P can
-    flip where the two sum in another order). Each launches once."""
-    q, k, v, o, lse, do = _cuda_bwd_inputs(cuda_device, dtype, B, 16, Hkv,
+                                                B, Hq, Hkv, L, D,
+                                                given_delta):
+    """K2 and K3 against their twin on the card (GQA where Hkv < Hq, ragged
+    L where L is not a multiple of 64): each of dq, dk, dv within the
+    dtype's ``_BWD_REL`` × max|twin|. Each launches once."""
+    q, k, v, o, lse, do = _cuda_bwd_inputs(cuda_device, dtype, B, Hq, Hkv,
                                            L, D, causal)
+    delta = None
+    if given_delta:
+        delta = torch.from_numpy(np.random.default_rng(L).standard_normal(
+            lse.shape).astype(np.float32)).to(cuda_device)
     before = (flash_bwd_dq.launches, flash_bwd_dkv.launches)
-    got = flash_attention_bwd(q, k, v, o, lse, do, causal)
+    got = flash_attention_bwd(q, k, v, o, lse, do, causal, delta=delta)
     torch.cuda.synchronize()
     assert (flash_bwd_dq.launches, flash_bwd_dkv.launches) == (
         before[0] + 1, before[1] + 1)
-    want = flash_attention_bwd_reference(q, k, v, o, lse, do, causal)
+    want = flash_attention_bwd_reference(q, k, v, o, lse, do, causal,
+                                         delta=delta)
     for name, a, b in zip(("dq", "dk", "dv"), got, want):
         assert a.dtype == dtype and a.shape == b.shape, name
         scale = float(b.float().abs().max())
         err = float((a.float() - b.float()).abs().max())
-        assert err <= rel * scale, (name, err, scale)
+        assert err <= _BWD_REL[dtype] * scale, (name, err, scale)
 
 
 @pytest.mark.cuda
@@ -392,6 +417,55 @@ def test_dkv_kernel_is_deterministic_on_gpu(cuda_device):
     torch.cuda.synchronize()
     for a, b in zip(first, second):
         assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_dq_kernel_is_deterministic_on_gpu(cuda_device):
+    """K2 writes each dQ tile once from one block: two runs give the same
+    bits."""
+    q, k, v, o, lse, do = _cuda_bwd_inputs(cuda_device, torch.bfloat16, 2,
+                                           16, 4, 517, 64, True, seed=3)
+    delta = (do.float() * o.float()).sum(-1)
+    first = flash_bwd_dq(q, k, v, do, lse, delta, True)
+    second = flash_bwd_dq(q, k, v, do, lse, delta, True)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
+
+
+def _misaligned(t: torch.Tensor) -> torch.Tensor:
+    """A copy of ``t`` as a view that starts one element into its
+    allocation, so off any 16-byte boundary."""
+    flat = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    view = flat[1:].view(t.shape)
+    view.copy_(t)
+    return view
+
+
+def test_alignment_check_refuses_views_off_16_bytes():
+    """The backward kernels copy rows 16 bytes at a time; the wrappers'
+    check refuses a view that starts inside its allocation and passes a
+    fresh tensor."""
+    from metisfl_tpu_torch.ops.flash_attention import _check_aligned
+
+    q = torch.zeros(1, 2, 8, 64, dtype=torch.bfloat16)
+    _check_aligned(q=q)
+    with pytest.raises(ValueError, match="16-byte"):
+        _check_aligned(q=q, do=_misaligned(q))
+
+
+@pytest.mark.cuda
+def test_bwd_kernels_refuse_misaligned_views_on_gpu(cuda_device):
+    """A misaligned q or do never reaches K2 or K3: both wrappers raise
+    before a launch."""
+    q, k, v, o, lse, do = _cuda_bwd_inputs(cuda_device, torch.bfloat16, 1,
+                                           4, 2, 65, 64, True)
+    delta = (do.float() * o.float()).sum(-1)
+    before = (flash_bwd_dq.launches, flash_bwd_dkv.launches)
+    with pytest.raises(ValueError, match="16-byte"):
+        flash_bwd_dq(_misaligned(q), k, v, do, lse, delta, True)
+    with pytest.raises(ValueError, match="16-byte"):
+        flash_bwd_dkv(q, k, v, _misaligned(do), lse, delta, True)
+    assert (flash_bwd_dq.launches, flash_bwd_dkv.launches) == before
 
 
 @pytest.mark.cuda
