@@ -13,10 +13,12 @@ It drives the port only (it imports no jax and nothing of the JAX package):
    card, at its path's shape and at a ragged fp32 shape, with the
    tolerance stated, timed beside its bound and one PyTorch library call
    that computes the same function (a yardstick the port never calls;
-   for K2+K3 one call of SDPA's backward, also as profiled device time):
-   K1 (flash_fwd) at the serving shape, K2 and K3 (flash_bwd_dq,
-   flash_bwd_dkv; tensor cores in bf16) at the training shape, each run
-   twice for bit-identity, with the achieved TFLOP/s;
+   SDPA's forward for K1, one call of SDPA's backward for K2+K3), each
+   also as device time under the profiler:
+   K1 (flash_fwd; tensor cores in bf16, SIMT in fp32) at the serving and
+   the training shapes, K2 and K3 (flash_bwd_dq, flash_bwd_dkv; tensor
+   cores in bf16) at the training shape, each run twice for bit-identity,
+   with the achieved TFLOP/s;
 4. serving slice: a full-width LlamaLite (vocab 32768, dim 1024, depth 8,
    heads 16, kv_heads 4, bf16 compute, flash attention) with seeded random
    weights, packed into a ModelBlob and installed in a ``ServingGateway``;
@@ -83,6 +85,10 @@ def gpu_line() -> str:
         "nvidia-smi unavailable: " + out.stderr.strip())
 
 
+# back-to-back calls under the profiler for one device-time figure
+PROFILED_CALLS = 20
+
+
 def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     """Mean device time of ``fn`` over ``iters`` back-to-back calls (CUDA
     events around the whole run, after ``warmup`` calls)."""
@@ -99,6 +105,18 @@ def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def device_ms(fn):
+    """Mean device time of one call of ``fn`` by the profiler, over
+    ``PROFILED_CALLS`` back-to-back calls. Where a call's host work is as
+    long as its kernels (K1 and SDPA's forward take tens of µs), CUDA
+    events around eager calls also count the host's pace; this does not."""
+    profiled = profile_call(lambda: [fn() for _ in range(PROFILED_CALLS)],
+                            top=2)
+    if not isinstance(profiled, dict):
+        return None
+    return profiled["device_ms"] / PROFILED_CALLS
 
 
 class Smoke:
@@ -137,6 +155,7 @@ def attention_case(smoke, name, B, Hq, Hkv, L, D, dtype_name, causal,
         np.float32)).to("cuda", dtype)
         for shape in ((B, Hq, L, D), (B, Hkv, L, D), (B, Hkv, L, D)))
     o, lse = flash_attention_fwd(q, k, v, causal)
+    o2, lse2 = flash_attention_fwd(q, k, v, causal)
     torch.cuda.synchronize()
     o_ref, lse_ref = flash_attention_fwd_reference(q, k, v, causal)
     o_err = float((o.float() - o_ref.float()).abs().max())
@@ -145,21 +164,27 @@ def attention_case(smoke, name, B, Hq, Hkv, L, D, dtype_name, causal,
                 and lse_err <= lse_atol,
                 f"{name}: o err {o_err:.3g} <= {o_atol}, lse err "
                 f"{lse_err:.3g} <= {lse_atol}")
+    smoke.check(torch.equal(o, o2) and torch.equal(lse, lse2),
+                f"{name}: two runs of K1 give bit-identical o and lse")
 
-    kernel_ms = time_ms(lambda: flash_attention_fwd(q, k, v, causal))
-    plain_ms = time_ms(lambda: flash_attention_fwd_reference(q, k, v,
-                                                             causal),
-                       iters=5)
+    def kernel():
+        return flash_attention_fwd(q, k, v, causal)
 
     def library():
         return F.scaled_dot_product_attention(q, k, v, is_causal=causal,
                                               enable_gqa=Hq != Hkv)
 
+    kernel_ms = time_ms(kernel)
+    kernel_device_ms = device_ms(kernel)
+    plain_ms = time_ms(lambda: flash_attention_fwd_reference(q, k, v,
+                                                             causal),
+                       iters=5)
     try:
         library_ms = time_ms(library)
+        library_device_ms = device_ms(library)
     except (TypeError, RuntimeError) as exc:
         print(f"library call unavailable: {exc}")
-        library_ms = None
+        library_ms = library_device_ms = None
 
     # the work these inputs need: causal keeps L(L+1)/2 (q, k) pairs per
     # head; QK^T and PV are 2·D operations per pair each
@@ -172,11 +197,14 @@ def attention_case(smoke, name, B, Hq, Hkv, L, D, dtype_name, causal,
     record = {
         "name": name, "shape": [B, Hq, Hkv, L, D], "dtype": dtype_name,
         "causal": causal, "max_abs_err": o_err, "max_abs_err_lse": lse_err,
-        "kernel_ms": kernel_ms, "plain_ms": plain_ms,
-        "bound_ms": max(flop_ms, byte_ms),
+        "kernel_ms": kernel_ms, "kernel_device_ms": kernel_device_ms,
+        "plain_ms": plain_ms, "bound_ms": max(flop_ms, byte_ms),
         "bound_by": "operations" if flop_ms >= byte_ms else "bytes",
-        "library_ms": library_ms, "flops": flops, "bytes": nbytes,
+        "library_ms": library_ms, "library_device_ms": library_device_ms,
+        "flops": flops, "bytes": nbytes,
         "tflops": flops / (kernel_ms * 1e-3) / 1e12,
+        "tflops_device": flops / (kernel_device_ms * 1e-3) / 1e12
+        if kernel_device_ms else None,
     }
     print(json.dumps({"kernel_case": record}), flush=True)
     return record
@@ -656,6 +684,10 @@ def main() -> int:
     main_case = smoke.phase(
         "kernel vs plain: flash_fwd at the serving shape", attention_case,
         smoke, "flash_fwd", 4, 16, 4, 1024, 64, "bfloat16", True, 2e-2, 1e-3)
+    train_case = smoke.phase(
+        "kernel vs plain: flash_fwd at the training shape", attention_case,
+        smoke, "flash_fwd_train", TRAIN_BATCH, HEADS, KV_HEADS, TRAIN_LEN,
+        DIM // HEADS, "bfloat16", True, 2e-2, 1e-3)
     smoke.phase("kernel vs plain: flash_fwd ragged fp32 D=128",
                 attention_case, smoke, "flash_fwd_ragged_fp32", 2, 8, 8,
                 1000, 128, "float32", False, 1e-4, 1e-4)
@@ -700,6 +732,16 @@ def main() -> int:
         if name != "flash_fwd":
             entry["library_covers"] = "flash_bwd_dq+flash_bwd_dkv"
             entry["library_device_ms"] = record["library_device_ms"]
+        elif train_case is not None:
+            entry["device_ms"] = record["kernel_device_ms"]
+            entry["library_device_ms"] = record["library_device_ms"]
+            entry["at_training_shape"] = {
+                key: train_case[key] for key in (
+                    "shape", "max_abs_err", "kernel_ms", "kernel_device_ms",
+                    "plain_ms", "bound_ms", "bound_by", "library_ms",
+                    "library_device_ms", "tflops", "tflops_device")}
+        else:
+            smoke.failures.append("flash_fwd has no training-shape row")
         kernels.append(entry)
         if not launches:
             smoke.failures.append(f"{name} was not launched on its path")

@@ -6,82 +6,100 @@
 // kernel computes: O = softmax(Q K^T / sqrt(D)) V with an online softmax, an
 // unnormalised fp32 accumulator divided once at the store (FlashAttention-2),
 // the fp32 logsumexp per query row, and O = 0 for a row with no unmasked key.
-//
-// Design. One CUDA block of 256 threads owns one (batch*q-head, 64-row q
-// tile). A loop inside the block walks the 64-row K/V tiles staged in shared
-// memory; it takes the place of the TPU kernel's sequential grid axis and its
-// VMEM scratch, since blocks on this card run in parallel and in no order.
-// Four threads own one query row: each computes 16 of the tile's 64 scores
-// and D/4 of the output columns, and the row's max and sum are reduced over
-// the four lanes with shuffles. The running max m, sum l and the accumulator
-// stay in fp32 registers. Q, K and V are widened to fp32 in shared memory:
-// a product of two bf16 or fp16 values is exact in fp32, so products are
-// those of the input dtype, accumulated in fp32. P is rounded to the input
-// dtype before the P.V product, as the TPU kernel casts p to v.dtype.
+// P is rounded to the input dtype before the P.V product, as the TPU kernel
+// casts p to v.dtype, and the row sum l adds the unrounded fp32 P.
 //   - GQA: query head h reads kv head h / (Hq/Hkv); K and V are never
 //     repeated in memory.
 //   - Causal (q_pos >= k_pos): the loop stops at the last K tile that
 //     overlaps the q tile, which skips about half the work.
 //   - Ragged L: keys with k_pos >= L are masked and rows >= L are neither
-//     loaded nor stored; no padded copy is made.
+//     read nor stored; no padded copy is made.
 //   - lse is written in logical layout (B, Hq, L) fp32.
 //
 // Bound at the serving shape (B=4, Hq=16, Hkv=4, L=1024, D=64, bf16,
-// causal): 8.6 GFLOP over 989 TFLOP/s is about 8.7 us; about 21 MB moved
-// over 3.35 TB/s is about 6.3 us; so it is bound by operations. This first
-// version multiplies on the CUDA cores (not the tensor cores) and reads
-// shared memory once per multiply-add, so it runs far above that bound;
-// wgmma, TMA and warp specialisation are later work.
+// causal; 524,800 (q, k) pairs per head, 64 heads): Q K^T and P V are 4 D
+// operations per pair, 8.6 GFLOP, 8.7 us at 989 TFLOP/s; about 21 MB moved
+// is 6.3 us at 3.35 TB/s. So it is bound by the tensor cores' rate, and
+// both products have to run on them.
+//
+// bf16 and fp16: a tensor-core kernel (flash_fwd_mma_kernel) on the
+// building blocks of sm90.cuh; its loop is the dQ kernel's (flash_bwd.cu).
+//   - One warpgroup (4 warps) per 64-row q tile of one (batch, query head);
+//     warp w owns rows 16 w..16 w + 15. A loop over the K/V tiles takes the
+//     place of the TPU kernel's sequential grid axis and its VMEM scratch.
+//   - Q is loaded once; K and V stream through a two-stage cp.async ring
+//     (16 bytes per thread, zero-filled past L), all in 128-byte-swizzled
+//     tiles; every copy is fenced into the async proxy before the barrier
+//     that publishes it to wgmma.
+//   - S = Q K^T is wgmma.mma_async m64n64k16 with fp32 accumulation, Q and
+//     K read K-major from shared memory through matrix descriptors.
+//   - The online softmax runs on the accumulator fragment in registers:
+//     each thread holds parts of two rows, whose max reduces over the
+//     row's 4 lanes by shuffles. m, l and alpha stay fp32, in base 2
+//     (exp2 of scale * log2(e) * s). Masks are applied only on tiles that
+//     cross the diagonal or the end of the sequence. Each thread keeps its
+//     own part of l, reduced over the row's lanes once, at the store.
+//   - O += P V: P rounded to the input dtype in registers is the A operand
+//     (that conversion is the TPU kernel's cast), V is read MN-major (the
+//     reduction runs over keys), one wgmma per 64-column block of D. O
+//     stays in fp32 registers (32 per thread at D = 64, 64 at D = 128)
+//     until one store.
+//   - Causal work is uneven (the last q tile walks every K tile), so the
+//     1-D grid hands out the longest tiles first. No atomics: the same bits
+//     on every run.
+//   - Not yet: TMA loads, warp specialisation (a producer warp and two
+//     consumer warpgroups in ping-pong), keeping the next tile's Q K^T in
+//     flight across this tile's softmax, and staging O through shared
+//     memory for 16-byte stores; each step waits for its products.
+//
+// fp32: the SIMT kernel (flash_fwd_simt_kernel), a deliberate choice by
+// dtype: TF32 tensor cores keep 10 bits of mantissa, which the fp32
+// tolerance and the JAX package's fp32 numerics do not allow. One block of
+// 256 threads owns one (64-row q tile, b * Hq + h); four threads own one
+// query row, each computing 16 of a K tile's 64 scores and D/4 of the
+// output columns, with the row's max and sum reduced over the four lanes by
+// shuffles. Q, K and V are staged in shared memory with rows padded to
+// D + 1 floats.
 
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "sm90.cuh"
+
 namespace {
 
-constexpr int kBlockM = 64;   // query rows per block
-constexpr int kBlockN = 64;   // key rows per loop step
-constexpr int kThreads = 256; // 4 threads per query row
+constexpr int kTile = 64;     // rows of a q tile and of a K/V tile
 constexpr float kNeg = -1e30f;
+constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
 
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__half x) { return __half2float(x); }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
+// ---------------------------------------------------------------------------
+// fp32: SIMT kernel
 
-template <typename T> __device__ __forceinline__ T from_f32(float x);
-template <> __device__ __forceinline__ float from_f32<float>(float x) {
-  return x;
-}
-template <> __device__ __forceinline__ __half from_f32<__half>(float x) {
-  return __float2half_rn(x);
-}
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
-  return __float2bfloat16_rn(x);
+constexpr int kThreads = 256;  // 4 threads per query row
+
+template <int D>
+constexpr size_t simt_smem_bytes() {
+  // Q and K rows padded by one float so the four lanes of a row (and the
+  // eight rows of a warp) fall in distinct banks; P padded likewise.
+  return sizeof(float) * (size_t)(kTile * (D + 1) + kTile * (D + 1) +
+                                  kTile * D + kTile * (kTile + 1));
 }
 
 template <int D>
-constexpr size_t smem_bytes() {
-  // Q and K rows padded by one float so the four lanes of a row (and the
-  // eight rows of a warp) fall in distinct banks; P padded likewise.
-  return sizeof(float) * (size_t)(kBlockM * (D + 1) + kBlockN * (D + 1) +
-                                  kBlockN * D + kBlockM * (kBlockN + 1));
-}
-
-template <typename T, int D>
 __global__ void __launch_bounds__(kThreads)
-flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                 const T* __restrict__ v, T* __restrict__ o,
-                 float* __restrict__ lse, int Hq, int Hkv, int L,
-                 float scale, int causal) {
+flash_fwd_simt_kernel(const float* __restrict__ q,
+                      const float* __restrict__ k,
+                      const float* __restrict__ v, float* __restrict__ o,
+                      float* __restrict__ lse, int Hq, int Hkv, int L,
+                      float scale, int causal) {
   extern __shared__ float smem[];
-  float* sQ = smem;                          // kBlockM x (D + 1)
-  float* sK = sQ + kBlockM * (D + 1);        // kBlockN x (D + 1)
-  float* sV = sK + kBlockN * (D + 1);        // kBlockN x D
-  float* sP = sV + kBlockN * D;              // kBlockM x (kBlockN + 1)
+  float* sQ = smem;                        // kTile x (D + 1)
+  float* sK = sQ + kTile * (D + 1);        // kTile x (D + 1)
+  float* sV = sK + kTile * (D + 1);        // kTile x D
+  float* sP = sV + kTile * D;              // kTile x (kTile + 1)
 
   const int tid = threadIdx.x;
   const int row = tid >> 2;       // query row inside the tile
@@ -90,17 +108,17 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int b = bh / Hq;
   const int h = bh - b * Hq;
   const int kvh = b * Hkv + h / (Hq / Hkv);
-  const int q0 = blockIdx.x * kBlockM;
+  const int q0 = blockIdx.x * kTile;
   const int q_pos = q0 + row;
 
-  const T* qb = q + (size_t)bh * L * D;
-  const T* kb = k + (size_t)kvh * L * D;
-  const T* vb = v + (size_t)kvh * L * D;
+  const float* qb = q + (size_t)bh * L * D;
+  const float* kb = k + (size_t)kvh * L * D;
+  const float* vb = v + (size_t)kvh * L * D;
 
-  for (int i = tid; i < kBlockM * D; i += kThreads) {
+  for (int i = tid; i < kTile * D; i += kThreads) {
     const int r = i / D, d = i - (i / D) * D;
     const int g = q0 + r;
-    sQ[r * (D + 1) + d] = g < L ? to_f32(qb[(size_t)g * D + d]) : 0.f;
+    sQ[r * (D + 1) + d] = g < L ? qb[(size_t)g * D + d] : 0.f;
   }
 
   float m = kNeg, l = 0.f;
@@ -108,33 +126,33 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
   for (int j = 0; j < D / 4; ++j) acc[j] = 0.f;
 
-  // causal: the last key tile that overlaps this q tile (q0 + kBlockM - 1)
-  const int k_end = causal ? min(L, q0 + kBlockM) : L;
-  for (int k0 = 0; k0 < k_end; k0 += kBlockN) {
+  // causal: the last key tile that overlaps this q tile (q0 + kTile - 1)
+  const int k_end = causal ? min(L, q0 + kTile) : L;
+  for (int k0 = 0; k0 < k_end; k0 += kTile) {
     __syncthreads();  // the previous step is done with sK / sV
-    for (int i = tid; i < kBlockN * D; i += kThreads) {
+    for (int i = tid; i < kTile * D; i += kThreads) {
       const int r = i / D, d = i - (i / D) * D;
       const int g = k0 + r;
       const bool in = g < L;
-      sK[r * (D + 1) + d] = in ? to_f32(kb[(size_t)g * D + d]) : 0.f;
-      sV[r * D + d] = in ? to_f32(vb[(size_t)g * D + d]) : 0.f;
+      sK[r * (D + 1) + d] = in ? kb[(size_t)g * D + d] : 0.f;
+      sV[r * D + d] = in ? vb[(size_t)g * D + d] : 0.f;
     }
     __syncthreads();
 
-    float s[kBlockN / 4];
+    float s[kTile / 4];
 #pragma unroll
-    for (int j = 0; j < kBlockN / 4; ++j) s[j] = 0.f;
+    for (int j = 0; j < kTile / 4; ++j) s[j] = 0.f;
     const float* qrow = sQ + row * (D + 1);
 #pragma unroll 8
     for (int d = 0; d < D; ++d) {
       const float qd = qrow[d];
 #pragma unroll
-      for (int j = 0; j < kBlockN / 4; ++j)
+      for (int j = 0; j < kTile / 4; ++j)
         s[j] = fmaf(qd, sK[(sub + 4 * j) * (D + 1) + d], s[j]);
     }
     float mx = kNeg;
 #pragma unroll
-    for (int j = 0; j < kBlockN / 4; ++j) {
+    for (int j = 0; j < kTile / 4; ++j) {
       const int k_pos = k0 + sub + 4 * j;
       const bool ok = k_pos < L && (!causal || q_pos >= k_pos);
       s[j] = ok ? s[j] * scale : kNeg;
@@ -146,10 +164,10 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const float alpha = expf(m - m_next);
     float psum = 0.f;
 #pragma unroll
-    for (int j = 0; j < kBlockN / 4; ++j) {
+    for (int j = 0; j < kTile / 4; ++j) {
       const float p = s[j] > kNeg ? expf(s[j] - m_next) : 0.f;
       psum += p;
-      sP[row * (kBlockN + 1) + sub + 4 * j] = to_f32(from_f32<T>(p));
+      sP[row * (kTile + 1) + sub + 4 * j] = p;
     }
     psum += __shfl_xor_sync(0xffffffffu, psum, 1);
     psum += __shfl_xor_sync(0xffffffffu, psum, 2);
@@ -157,11 +175,11 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     m = m_next;
     __syncwarp();  // a row's P is written and read by the same four lanes
 
-    const float* prow = sP + row * (kBlockN + 1);
+    const float* prow = sP + row * (kTile + 1);
 #pragma unroll
     for (int j = 0; j < D / 4; ++j) acc[j] *= alpha;
 #pragma unroll 4
-    for (int c = 0; c < kBlockN; ++c) {
+    for (int c = 0; c < kTile; ++c) {
       const float p = prow[c];
       const float* vrow = sV + c * D + sub;
 #pragma unroll
@@ -172,66 +190,266 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   if (q_pos < L) {
     // a row with no unmasked key has l == 0: store 0, not nan
     const float inv = l == 0.f ? 0.f : 1.f / l;
-    T* orow = o + ((size_t)bh * L + q_pos) * D + sub;
+    float* orow = o + ((size_t)bh * L + q_pos) * D + sub;
 #pragma unroll
-    for (int j = 0; j < D / 4; ++j) orow[4 * j] = from_f32<T>(acc[j] * inv);
+    for (int j = 0; j < D / 4; ++j) orow[4 * j] = acc[j] * inv;
     if (sub == 0) lse[(size_t)bh * L + q_pos] = m + logf(fmaxf(l, 1e-30f));
   }
 }
 
+// ---------------------------------------------------------------------------
+// bf16 / fp16: tensor-core kernel
+
+constexpr int kMmaThreads = 128;  // one warpgroup; a warp owns 16 tile rows
+
+template <int D>
+constexpr size_t mma_smem_bytes() {
+  // the resident Q tile, two stages of K and V tiles (16-bit values)
+  return 2 * (size_t)(kTile * D + 2 * 2 * kTile * D);
+}
+
 template <typename T, int D>
-int launch(const void* q, const void* k, const void* v, void* o, float* lse,
-           int B, int Hq, int Hkv, int L, float scale, int causal,
-           cudaStream_t stream) {
-  const size_t smem = smem_bytes<D>();
-  cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  const dim3 grid((L + kBlockM - 1) / kBlockM, B * Hq);
-  flash_fwd_kernel<T, D><<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), lse, Hq, Hkv, L, scale,
-      causal);
+__global__ void __launch_bounds__(kMmaThreads)
+flash_fwd_mma_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                     const T* __restrict__ v, T* __restrict__ o,
+                     float* __restrict__ lse, int Hq, int Hkv, int L,
+                     float scale, int causal) {
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  T* sQ = reinterpret_cast<T*>(smem_raw);  // kTile x D, swizzled
+  T* sK = sQ + kTile * D;                  // 2 stages x kTile x D
+  T* sV = sK + 2 * kTile * D;              // 2 stages x kTile x D
+
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const int nq = (L + kTile - 1) / kTile;
+  const int heads = gridDim.x / nq;  // B * Hq
+  const int bh = blockIdx.x % heads;
+  const int rank = blockIdx.x / heads;
+  // causal: the last q tile walks every K tile, so it goes first
+  const int q0 = (causal ? nq - 1 - rank : rank) * kTile;
+  const int b = bh / Hq;
+  const int kvh = b * Hkv + (bh - b * Hq) / (Hq / Hkv);
+  const T* kb = k + (size_t)kvh * L * D;
+  const T* vb = v + (size_t)kvh * L * D;
+
+  sm90::load_tile_async<T, D, kTile, kMmaThreads>(
+      sQ, q + (size_t)bh * L * D, q0, L);
+  sm90::load_tile_async<T, D, kTile, kMmaThreads>(sK, kb, 0, L);
+  sm90::load_tile_async<T, D, kTile, kMmaThreads>(sV, vb, 0, L);
+  sm90::cp_async_commit();
+
+  // this thread's two rows of the warp's 16: g and g + 8
+  const int row_a = q0 + warp * 16 + g, row_b = row_a + 8;
+  const float scale_log2 = scale * kLog2e;
+  const uint32_t q_smem = sm90::smem_addr(sQ);
+
+  float acc_o[D / 64][32], s[32];
+#pragma unroll
+  for (int i = 0; i < 32; ++i) {
+    s[i] = 0.f;
+#pragma unroll
+    for (int c = 0; c < D / 64; ++c) acc_o[c][i] = 0.f;
+  }
+  // running max (base 2) and this thread's part of the running sum
+  float m_a = kNeg, m_b = kNeg, l_a = 0.f, l_b = 0.f;
+
+  const int k_end = causal ? min(L, q0 + kTile) : L;
+  const int n_k = (k_end + kTile - 1) / kTile;
+  for (int it = 0; it < n_k; ++it) {
+    const int stage = it & 1;
+    if (it + 1 < n_k) {
+      const int next = (it + 1) * kTile;
+      sm90::load_tile_async<T, D, kTile, kMmaThreads>(
+          sK + (stage ^ 1) * kTile * D, kb, next, L);
+      sm90::load_tile_async<T, D, kTile, kMmaThreads>(
+          sV + (stage ^ 1) * kTile * D, vb, next, L);
+    }
+    sm90::cp_async_commit();
+    sm90::cp_async_wait<1>();  // this stage (and Q) have landed
+    sm90::fence_proxy_async();
+    __syncthreads();
+
+    const int k0 = it * kTile;
+    const uint32_t k_smem = sm90::smem_addr(sK + stage * kTile * D);
+    const uint32_t v_smem = sm90::smem_addr(sV + stage * kTile * D);
+
+    // S = Q K^T, 64 rows x 64 keys, K read K-major
+    sm90::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk)
+      sm90::wgmma_ss<T, kTile>(s, sm90::desc_k_major<kTile>(q_smem, kk),
+                               sm90::desc_k_major<kTile>(k_smem, kk), kk > 0);
+    sm90::wgmma_commit();
+    sm90::wgmma_wait<0>();
+    sm90::fence_operands(s);
+
+    // scaled scores in base 2, masked on tiles that cross the diagonal or
+    // the end of the sequence; the tile's row max over the row's 4 lanes
+    const bool edge = (causal && k0 + kTile > q0) || k0 + kTile > L;
+    float mx_a = kNeg, mx_b = kNeg;
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      const bool hi = i & 2;
+      float x = s[i] * scale_log2;
+      if (edge) {
+        const int k_pos = k0 + 8 * (i >> 2) + 2 * t + (i & 1);
+        if (k_pos >= L || (causal && k_pos > (hi ? row_b : row_a))) x = kNeg;
+      }
+      s[i] = x;
+      if (hi)
+        mx_b = fmaxf(mx_b, x);
+      else
+        mx_a = fmaxf(mx_a, x);
+    }
+#pragma unroll
+    for (int lanes = 1; lanes <= 2; lanes <<= 1) {
+      mx_a = fmaxf(mx_a, __shfl_xor_sync(0xffffffffu, mx_a, lanes));
+      mx_b = fmaxf(mx_b, __shfl_xor_sync(0xffffffffu, mx_b, lanes));
+    }
+    const float next_a = fmaxf(m_a, mx_a), next_b = fmaxf(m_b, mx_b);
+    const float alpha_a = exp2f(m_a - next_a), alpha_b = exp2f(m_b - next_b);
+    m_a = next_a;
+    m_b = next_b;
+
+    // P = exp2(x - m), 0 where masked; l adds the unrounded P
+    float sum_a = 0.f, sum_b = 0.f;
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      const bool hi = i & 2;
+      float p = exp2f(s[i] - (hi ? m_b : m_a));
+      if (edge && s[i] <= kNeg) p = 0.f;
+      s[i] = p;
+      if (hi)
+        sum_b += p;
+      else
+        sum_a += p;
+    }
+    l_a = alpha_a * l_a + sum_a;
+    l_b = alpha_b * l_b + sum_b;
+#pragma unroll
+    for (int c = 0; c < D / 64; ++c)
+#pragma unroll
+      for (int i = 0; i < 32; ++i) acc_o[c][i] *= (i & 2) ? alpha_b : alpha_a;
+
+    // O += P V, P rounded to the input dtype from registers; V read
+    // MN-major ([key][d], the reduction runs over keys)
+    uint32_t ap[kTile / 16][4];
+#pragma unroll
+    for (int kk = 0; kk < kTile / 16; ++kk)
+      sm90::acc_to_a<T>(ap[kk], s + 8 * kk);
+    sm90::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < kTile / 16; ++kk)
+#pragma unroll
+      for (int c = 0; c < D / 64; ++c)
+        sm90::wgmma_rs_mn<T>(acc_o[c], ap[kk],
+                             sm90::desc_mn_major<kTile>(v_smem, 16 * kk, c));
+    sm90::wgmma_commit();
+    sm90::wgmma_wait<0>();
+#pragma unroll
+    for (int c = 0; c < D / 64; ++c) sm90::fence_operands(acc_o[c]);
+    __syncthreads();  // done with this stage before it is refilled
+  }
+
+#pragma unroll
+  for (int lanes = 1; lanes <= 2; lanes <<= 1) {
+    l_a += __shfl_xor_sync(0xffffffffu, l_a, lanes);
+    l_b += __shfl_xor_sync(0xffffffffu, l_b, lanes);
+  }
+  // a row with no unmasked key has l == 0: store 0, not nan
+  const float inv_a = l_a == 0.f ? 0.f : 1.f / l_a;
+  const float inv_b = l_b == 0.f ? 0.f : 1.f / l_b;
+  T* out = o + (size_t)bh * L * D;
+#pragma unroll
+  for (int c = 0; c < D / 64; ++c)
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const int col = 64 * c + 8 * j + 2 * t;
+      if (row_a < L)
+        *reinterpret_cast<uint32_t*>(out + (size_t)row_a * D + col) =
+            sm90::pack2<T>(acc_o[c][4 * j] * inv_a,
+                           acc_o[c][4 * j + 1] * inv_a);
+      if (row_b < L)
+        *reinterpret_cast<uint32_t*>(out + (size_t)row_b * D + col) =
+            sm90::pack2<T>(acc_o[c][4 * j + 2] * inv_b,
+                           acc_o[c][4 * j + 3] * inv_b);
+    }
+  if (t == 0) {
+    float* lse_bh = lse + (size_t)bh * L;
+    if (row_a < L) lse_bh[row_a] = m_a * kLn2 + logf(fmaxf(l_a, 1e-30f));
+    if (row_b < L) lse_bh[row_b] = m_b * kLn2 + logf(fmaxf(l_b, 1e-30f));
+  }
+}
+
+// ---------------------------------------------------------------------------
+// launch
+
+struct Args {
+  const void *q, *k, *v;
+  void* o;
+  float* lse;
+  int B, Hq, Hkv, L;
+  float scale;
+  int causal;
+  cudaStream_t stream;
+};
+
+template <typename Kernel>
+int prepare(Kernel kernel, size_t smem) {
+  return (int)cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+}
+
+template <int D>
+int launch_simt(const Args& a) {
+  const size_t smem = simt_smem_bytes<D>();
+  if (int err = prepare(flash_fwd_simt_kernel<D>, smem)) return err;
+  const dim3 grid((a.L + kTile - 1) / kTile, a.B * a.Hq);
+  flash_fwd_simt_kernel<D><<<grid, kThreads, smem, a.stream>>>(
+      static_cast<const float*>(a.q), static_cast<const float*>(a.k),
+      static_cast<const float*>(a.v), static_cast<float*>(a.o), a.lse, a.Hq,
+      a.Hkv, a.L, a.scale, a.causal);
   return (int)cudaGetLastError();
 }
 
-template <typename T>
-int launch_d(const void* q, const void* k, const void* v, void* o,
-             float* lse, int B, int Hq, int Hkv, int L, int D, float scale,
-             int causal, cudaStream_t stream) {
-  if (D == 64)
-    return launch<T, 64>(q, k, v, o, lse, B, Hq, Hkv, L, scale, causal,
-                         stream);
-  if (D == 128)
-    return launch<T, 128>(q, k, v, o, lse, B, Hq, Hkv, L, scale, causal,
-                          stream);
-  return -1;
+// one block per (tile, head): tile-major, so the tile rank is the slow index
+template <typename T, int D>
+int launch_mma(const Args& a) {
+  const size_t smem = mma_smem_bytes<D>();
+  if (int err = prepare(flash_fwd_mma_kernel<T, D>, smem)) return err;
+  const int grid = (a.L + kTile - 1) / kTile * a.B * a.Hq;
+  flash_fwd_mma_kernel<T, D><<<grid, kMmaThreads, smem, a.stream>>>(
+      static_cast<const T*>(a.q), static_cast<const T*>(a.k),
+      static_cast<const T*>(a.v), static_cast<T*>(a.o), a.lse, a.Hq, a.Hkv,
+      a.L, a.scale, a.causal);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
 
 extern "C" {
 
-// dtype: 0 = float32, 1 = float16, 2 = bfloat16. Returns 0 on success, the
-// cudaError_t of a refused launch, or -1 for arguments the kernel does not
-// take (the Python wrapper checks them first).
+// dtype: 0 = float32 (SIMT), 1 = float16, 2 = bfloat16 (tensor cores); D in
+// {64, 128}. Returns 0 on success, the cudaError_t of a refused launch, or -1
+// for arguments the kernel does not take (the Python wrapper checks them
+// first). q and o are (B, Hq, L, D), k and v (B, Hkv, L, D), lse (B, Hq, L)
+// fp32; all contiguous, and for bf16/fp16 q, k and v 16-byte aligned.
 int metisfl_flash_fwd(const void* q, const void* k, const void* v, void* o,
                       void* lse, int B, int Hq, int Hkv, int L, int D,
                       int dtype, int causal, float scale, void* stream) {
   if (B < 1 || Hkv < 1 || Hq % Hkv != 0 || L < 1) return -1;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  float* lse_f = static_cast<float*>(lse);
+  if (D != 64 && D != 128) return -1;
+  const Args a{q, k, v, o, static_cast<float*>(lse), B, Hq, Hkv, L, scale,
+               causal, static_cast<cudaStream_t>(stream)};
+  const bool d64 = D == 64;
   switch (dtype) {
     case 0:
-      return launch_d<float>(q, k, v, o, lse_f, B, Hq, Hkv, L, D, scale,
-                             causal, s);
+      return d64 ? launch_simt<64>(a) : launch_simt<128>(a);
     case 1:
-      return launch_d<__half>(q, k, v, o, lse_f, B, Hq, Hkv, L, D, scale,
-                              causal, s);
+      return d64 ? launch_mma<__half, 64>(a) : launch_mma<__half, 128>(a);
     case 2:
-      return launch_d<__nv_bfloat16>(q, k, v, o, lse_f, B, Hq, Hkv, L, D,
-                                     scale, causal, s);
+      return d64 ? launch_mma<__nv_bfloat16, 64>(a)
+                 : launch_mma<__nv_bfloat16, 128>(a);
     default:
       return -1;
   }

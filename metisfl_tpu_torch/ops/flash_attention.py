@@ -206,7 +206,7 @@ def _check_cuda_inputs(q, k, v, **same_as_q):
 
 
 def _check_aligned(**tensors):
-    """The backward kernels copy (B, H, L, D) rows 16 bytes at a time
+    """The kernels copy (B, H, L, D) rows 16 bytes at a time
     (``cp.async``), so each such tensor must start on a 16-byte boundary;
     a view that starts inside an allocation may not."""
     for name, t in tensors.items():
@@ -302,12 +302,14 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """K1: ``(o, lse)`` for (B, Hq, L, D) q and (B, Hkv, L, D) k/v.
 
     CPU tensors run :func:`flash_attention_fwd_reference`. CUDA tensors
-    launch ``csrc/flash_fwd.cu`` on the current stream (D in {64, 128};
-    fp32, fp16 or bf16; contiguous) and raise on anything else.
+    launch ``csrc/flash_fwd.cu`` on the current stream (tensor cores for
+    bf16/fp16, SIMT for fp32; D in {64, 128}; contiguous; q, k and v
+    16-byte aligned) and raise on anything else.
     ``flash_attention_fwd.launches`` counts kernel launches."""
     if not _on_cuda(q):
         return flash_attention_fwd_reference(q, k, v, causal)
     _check_cuda_inputs(q, k, v)
+    _check_aligned(q=q, k=k, v=v)
     B, Hq, L, _ = q.shape
     o = torch.empty_like(q)
     lse = torch.empty((B, Hq, L), dtype=torch.float32, device=q.device)

@@ -291,18 +291,24 @@ def test_bwd_kernel_wrappers_refuse_cpu_tensors():
     assert (flash_bwd_dq.launches, flash_bwd_dkv.launches) == before
 
 
+@pytest.mark.parametrize("L,group", [(200, 2)] + [
+    (L, group) for L in (1, 65, 129) for group in (1, 4)])
 @pytest.mark.parametrize("causal", [False, True])
-def test_bf16_forward_twin_matches_pallas_forward(jax_flash, causal):
+def test_bf16_forward_twin_matches_pallas_forward(jax_flash, causal, L,
+                                                  group):
     """The twin rounds P to the input dtype before P·V and divides by l
-    afterwards, as ``_fwd_kernel`` does; B1·Hq4·Hkv2·L200·D64 in bf16."""
+    afterwards, as ``_fwd_kernel`` does; B1·Hq4·D64 in bf16, at L=200 with
+    Hkv2 and at the tensor-core kernel's edges (one key, one row past a
+    64-row tile, two tiles and one) for one KV head per query head and for
+    groups of 4."""
     jnp = jax_flash.jnp
-    q, k, v = _qkv()
+    q, k, v = _qkv(Hkv=4 // group, L=L)
     o_ref, _ = jax_flash._flash_forward(
         *(jnp.asarray(a, jnp.bfloat16) for a in (q, k, v)), causal, None,
         None, True)
     o, _ = flash_attention_fwd(
         *(torch.from_numpy(a).bfloat16() for a in (q, k, v)), causal)
-    assert o.dtype == torch.bfloat16
+    assert o.dtype == torch.bfloat16 and o.shape == q.shape
     np.testing.assert_allclose(
         o.float().numpy(), np.asarray(o_ref.astype(jnp.float32)),
         atol=BF16_FWD_ATOL, rtol=0)
@@ -314,20 +320,33 @@ def test_rejects_gqa_mismatch():
         flash_attention_fwd(q, k, v, False)
 
 
+# K1's tolerance against its twin on the card, on o (lse: 1e-3, fp32 1e-4)
+_FWD_ATOL = {torch.bfloat16: 2e-2, torch.float16: 2e-3, torch.float32: 1e-4}
+# (dtype, causal, B, Hq, Hkv, L, D): the shapes held since the SIMT kernel,
+# then the tensor-core kernel across its fragment (16 rows) and tile (64
+# rows) edges, for every group size
+_FWD_GPU_CASES = [
+    (torch.bfloat16, True, 2, 16, 4, 1024, 64),
+    (torch.float16, True, 2, 16, 4, 333, 64),
+    (torch.float32, False, 2, 16, 16, 1000, 128),
+] + [(dtype, causal, 1, 8, 8 // group, L, D)
+     for dtype in (torch.bfloat16, torch.float16)
+     for causal in (False, True)
+     for D in (64, 128)
+     for group in (1, 4, 8)
+     for L in (1, 63, 64, 65, 129, 517)]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("dtype,causal,Hkv,L,D,atol", [
-    (torch.bfloat16, True, 4, 1024, 64, 2e-2),
-    (torch.float16, True, 4, 333, 64, 2e-3),
-    (torch.float32, False, 16, 1000, 128, 1e-4),
-])
-def test_kernel_matches_plain_version_on_gpu(cuda_device, dtype, causal, Hkv,
-                                             L, D, atol):
+@pytest.mark.parametrize("dtype,causal,B,Hq,Hkv,L,D", _FWD_GPU_CASES)
+def test_kernel_matches_plain_version_on_gpu(cuda_device, dtype, causal, B,
+                                             Hq, Hkv, L, D):
     """The CUDA kernel against its plain twin on the card: o within the
-    dtype's tolerance, lse within 1e-3 (1e-4 in fp32)."""
+    dtype's ``_FWD_ATOL``, lse within 1e-3 (1e-4 in fp32). One launch."""
     rng = np.random.default_rng(0)
-    q = torch.from_numpy(rng.standard_normal((2, 16, L, D)).astype(
+    q = torch.from_numpy(rng.standard_normal((B, Hq, L, D)).astype(
         np.float32)).to(cuda_device, dtype)
-    k, v = (torch.from_numpy(rng.standard_normal((2, Hkv, L, D)).astype(
+    k, v = (torch.from_numpy(rng.standard_normal((B, Hkv, L, D)).astype(
         np.float32)).to(cuda_device, dtype) for _ in range(2))
     before = flash_attention_fwd.launches
     o, lse = flash_attention_fwd(q, k, v, causal)
@@ -335,8 +354,23 @@ def test_kernel_matches_plain_version_on_gpu(cuda_device, dtype, causal, Hkv,
     assert flash_attention_fwd.launches == before + 1
     o_ref, lse_ref = flash_attention_fwd_reference(q, k, v, causal)
     lse_atol = 1e-4 if dtype == torch.float32 else 1e-3
-    torch.testing.assert_close(o.float(), o_ref.float(), atol=atol, rtol=0)
+    assert o.dtype == dtype and lse.shape == (B, Hq, L)
+    torch.testing.assert_close(o.float(), o_ref.float(),
+                               atol=_FWD_ATOL[dtype], rtol=0)
     torch.testing.assert_close(lse, lse_ref, atol=lse_atol, rtol=0)
+
+
+@pytest.mark.cuda
+def test_fwd_kernel_is_deterministic_on_gpu(cuda_device):
+    """K1 writes each O tile and its lse once from one block: two runs
+    give the same bits."""
+    q, k, v, _, _, _ = _cuda_bwd_inputs(cuda_device, torch.bfloat16, 2, 16,
+                                        4, 517, 64, True, seed=3)
+    first = flash_attention_fwd(q, k, v, True)
+    second = flash_attention_fwd(q, k, v, True)
+    torch.cuda.synchronize()
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
 
 
 def _cuda_bwd_inputs(device, dtype, B, Hq, Hkv, L, D, causal, seed=0):
@@ -442,8 +476,8 @@ def _misaligned(t: torch.Tensor) -> torch.Tensor:
 
 
 def test_alignment_check_refuses_views_off_16_bytes():
-    """The backward kernels copy rows 16 bytes at a time; the wrappers'
-    check refuses a view that starts inside its allocation and passes a
+    """The kernels copy rows 16 bytes at a time; the wrappers' check
+    refuses a view that starts inside its allocation and passes a
     fresh tensor."""
     from metisfl_tpu_torch.ops.flash_attention import _check_aligned
 
@@ -466,6 +500,20 @@ def test_bwd_kernels_refuse_misaligned_views_on_gpu(cuda_device):
     with pytest.raises(ValueError, match="16-byte"):
         flash_bwd_dkv(q, k, v, _misaligned(do), lse, delta, True)
     assert (flash_bwd_dq.launches, flash_bwd_dkv.launches) == before
+
+
+@pytest.mark.cuda
+def test_fwd_kernel_refuses_misaligned_views_on_gpu(cuda_device):
+    """A misaligned q, k or v never reaches K1: the wrapper raises before a
+    launch."""
+    q, k, v, _, _, _ = _cuda_bwd_inputs(cuda_device, torch.bfloat16, 1, 4,
+                                        2, 65, 64, True)
+    before = flash_attention_fwd.launches
+    for args in ((_misaligned(q), k, v), (q, _misaligned(k), v),
+                 (q, k, _misaligned(v))):
+        with pytest.raises(ValueError, match="16-byte"):
+            flash_attention_fwd(*args, True)
+    assert flash_attention_fwd.launches == before
 
 
 @pytest.mark.cuda
