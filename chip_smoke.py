@@ -32,9 +32,23 @@ It drives the port only (it imports no jax and nothing of the JAX package):
    (batch 8) through K1 forward and K2/K3 backward (every launch counted),
    then evaluated; the trained weights go back out as a blob, and one
    batch's gradients through the flash path are held against the dense
-   path's.
+   path's;
+6. federation slice: synchronous FedAvg rounds through the port's
+   ``InProcessFederation`` (controller, learners, in-memory store, host
+   fold), every learner's engine on the card: (a) 3 FashionMNIST CNN
+   learners x 3 rounds of 20 SGD steps on synthetic 28x28 images, whose
+   community test accuracy must rise; (b) 3 full-width LlamaLite learners
+   x 2 rounds of 2 Adam steps, whose K1/K2/K3 launches must equal learners
+   x rounds x steps x depth (K1 also once per block per evaluation batch).
+   Each round's community model is held, bit for bit, against a FedAvg
+   re-fold of the blobs its learners shipped (and, for LlamaLite, against
+   a float64 weighted mean), and each round's wall time is split into
+   its stages (learner train, weights copy-out, blob pack, controller
+   ingest, fold, downlink unpack, load_flax_variables).
 
-It prints a ``{"kernels": [...]}`` line, the GPU's name and power limit,
+It prints a ``{"federation": {...}}`` line (round walls and their split,
+ms per step, blob bytes, launches), a ``{"kernels": [...]}`` line (each
+kernel's launches by path), the GPU's name and power limit,
 and, when every phase passed, ``{"ok": true, "device": {...}}`` as its last
 line. It exits non-zero without a GPU, or outside a checkout.
 """
@@ -62,6 +76,22 @@ GEN_REQUESTS, PROMPT_LEN, NEW_TOKENS = 4, 128, 64
 MAX_BATCH, SLOTS, MAX_LEN = 4, 4, 512
 # training slice: bench_mfu's traffic (random tokens, y = the next token)
 TRAIN_ROWS, TRAIN_LEN, TRAIN_BATCH, TRAIN_STEPS = 16, 1024, 8, 6
+# federation phase: 3 learners; (a) FashionMNIST-shaped CNN, 3 rounds of
+# 20 SGD steps over 600 synthetic examples each, a 600-example test split;
+# (b) the LlamaLite above at full width, 2 rounds of 2 Adam steps over 16
+# random-token rows each (batch TRAIN_BATCH, length TRAIN_LEN), evaluated
+# on 8 held-out rows
+FED_LEARNERS = 3
+CNN_ROUNDS, CNN_EXAMPLES, CNN_TEST, CNN_BATCH, CNN_STEPS = 3, 600, 600, 32, 20
+# pixel noise over the class templates: at the examples' 0.35 one round of
+# 20 steps already classifies the whole test split (1.0, 1.0, 1.0 on a
+# CPU rehearsal), so a rise across rounds could not show; at 1.0 it reads
+# 0.49, 1.0, 1.0 there
+CNN_NOISE = 1.0
+FED_ROUNDS, FED_STEPS, FED_ROWS, FED_EVAL_ROWS = 2, 2, 16, 8
+# the community model against a float64 weighted mean of the uplinks,
+# relative to max|w| per tensor (an f32 accumulator over 3 models)
+FED_F64_REL = 1e-6
 # flash vs dense gradients of one batch, per tensor, relative L2: both
 # paths round every bf16 activation, in other places (the dense path
 # rounds the scores to bf16 before its softmax), through 8 blocks
@@ -590,6 +620,386 @@ def training_phase(smoke, gpu):
     return out
 
 
+# -- federation phase: the synchronous FedAvg round through InProcessFederation
+
+def synthetic_image_classification(n, height=28, width=28, channels=1,
+                                   num_classes=10, noise=0.35, seed=SEED):
+    """Class-template images plus Gaussian noise: learnable, offline, and
+    Fashion-MNIST's shapes and dtypes (the JAX package's examples make
+    their stand-in the same way)."""
+    rng = np.random.default_rng(seed)
+    templates = rng.standard_normal(
+        (num_classes, height, width, channels)).astype(np.float32)
+    y = rng.integers(0, num_classes, n).astype(np.int32)
+    x = templates[y] + noise * rng.standard_normal(
+        (n, height, width, channels)).astype(np.float32)
+    return x.astype(np.float32), y
+
+
+class RoundProbe:
+    """Watches one in-process federation by wrapping instance methods (the
+    port itself is left as it is): the community blob each round's train
+    tasks carry, every uplink, and the time each learner spends per round
+    in each stage. Train tasks of round ``rounds`` and later are dropped,
+    so the run ends after exactly ``rounds`` rounds of training."""
+
+    def __init__(self, fed, rounds):
+        self.fed, self.rounds = fed, rounds
+        self.dispatched = {}     # round -> community blob the tasks carry
+        self.uplinks = {}        # round -> {learner_id: blob}
+        self.times = {}          # (learner index, stage) -> [s, per round]
+        self.pack_s = []         # controller: community blob encode
+        self.ms_per_step = {}    # round -> {learner_id: ms}
+        self._lock = threading.Lock()
+        for i, learner in enumerate(fed.learners):
+            self._wrap_learner(i, learner)
+        self._wrap(fed.controller, "_community_to_blob",
+                   lambda dt: self.pack_s.append(dt))
+        done = fed.controller.task_completed
+
+        def task_completed(result):
+            with self._lock:
+                self.uplinks.setdefault(result.round_id, {})[
+                    result.learner_id] = result.model
+                self.ms_per_step.setdefault(result.round_id, {})[
+                    result.learner_id] = result.processing_ms_per_step
+            return done(result)
+
+        fed.controller.task_completed = task_completed
+
+    def _record(self, i, stage):
+        def note(dt):
+            on_train = threading.current_thread().name.startswith(
+                "learner-train")
+            key = (i, stage if on_train else "eval_" + stage)
+            with self._lock:
+                self.times.setdefault(key, []).append(dt)
+        return note
+
+    @staticmethod
+    def _wrap(obj, name, note):
+        fn = getattr(obj, name)
+
+        def timed(*args, **kwargs):
+            t0 = time.perf_counter()
+            try:
+                return fn(*args, **kwargs)
+            finally:
+                note(time.perf_counter() - t0)
+
+        setattr(obj, name, timed)
+
+    def _wrap_learner(self, i, learner):
+        ops = learner.model_ops
+        for obj, name, stage in (
+                (learner, "_load_model", "downlink_unpack"),
+                (ops, "set_variables", "load_flax_variables"),
+                (ops, "train", "train_call"),
+                (ops, "get_variables", "weights_copy_out"),
+                (learner, "_dump_model", "blob_pack")):
+            self._wrap(obj, name, self._record(i, stage))
+        run = learner.run_task
+
+        def run_task(task):
+            with self._lock:
+                self.dispatched.setdefault(task.round_id, task.model)
+            if task.round_id < self.rounds:
+                run(task)
+
+        learner.run_task = run_task
+
+    def community(self, round_id):
+        """The community model after ``round_id``: the blob the next
+        round's train tasks carried."""
+        return self.dispatched[round_id + 1]
+
+    def split(self, stats):
+        """Per round: the wall time and its split into stages (learner
+        stages are means over the learners), from the probe and the
+        controller's round metadata."""
+        out = []
+        n = len(self.fed.learners)
+        for r in range(self.rounds):
+            meta = stats["round_metadata"][r]
+
+            def mean(stage):
+                return float(np.mean([self.times[(i, stage)][r]
+                                      for i in range(n)]))
+
+            copy_out = mean("weights_copy_out")
+            pack = self.pack_s[r] if r < len(self.pack_s) else 0.0
+            out.append({
+                "round": r,
+                "wall_s": meta["completed_at"] - meta["started_at"],
+                "learner_s": {
+                    "downlink_unpack": mean("downlink_unpack"),
+                    "load_flax_variables": mean("load_flax_variables"),
+                    "train": mean("train_call") - copy_out,
+                    "weights_copy_out": copy_out,
+                    "blob_pack": mean("blob_pack"),
+                },
+                "controller_s": {
+                    "ingest_per_uplink": float(np.mean(list(
+                        meta["model_insertion_duration_ms"].values())))
+                    / 1e3,
+                    "fold": meta["aggregation_duration_ms"] / 1e3 - pack,
+                    "community_pack": pack,
+                },
+                "uplink_bytes": meta["uplink_bytes"],
+                "ms_per_step": self.ms_per_step.get(r, {}),
+            })
+        return out
+
+
+def run_federation(fed, rounds, timeout_s=600.0):
+    """Start ``fed``, wait for ``rounds`` rounds and every learner's
+    evaluation of each, shut it down; returns (probe, statistics)."""
+    probe = RoundProbe(fed, rounds)
+    n = len(fed.learners)
+
+    def evaluated():
+        entries = fed.statistics()["community_evaluations"]
+        return sum(len(e["evaluations"]) == n for e in entries) >= rounds
+
+    try:
+        t0 = time.perf_counter()
+        fed.start()
+        ok = (fed.wait_for_rounds(rounds, timeout_s)
+              and fed.wait_until(evaluated, timeout_s)
+              and fed.wait_until(lambda: rounds in probe.dispatched, 60))
+        wall = time.perf_counter() - t0
+        stats = fed.statistics()
+    finally:
+        fed.shutdown()
+    if not ok:
+        raise RuntimeError(f"federation did not complete {rounds} rounds "
+                           f"with evaluations in {timeout_s} s")
+    stats["wall_s"] = wall
+    return probe, stats
+
+
+def check_folds(smoke, label, probe, stats, rounds, f64_rel=None):
+    """Each round's community model against an independent FedAvg of the
+    uplinks its cohort shipped (re-read from the wire bytes, scaled as the
+    controller's scaler scales them): bit for bit, and, with ``f64_rel``,
+    within ``f64_rel`` x max|w| of a float64 numpy weighted mean."""
+    from metisfl_tpu_torch.aggregation import FedAvg
+    from metisfl_tpu_torch.scaling import make_scaler
+    from metisfl_tpu_torch.tensor import ModelBlob
+    from metisfl_tpu_torch.tensor.pytree import to_numpy
+
+    def parse(blob):
+        return {n: to_numpy(t) for n, t in ModelBlob.from_bytes(blob).tensors}
+
+    sizes = {learner.learner_id: len(learner.datasets["train"])
+             for learner in probe.fed.learners}
+    scaler = make_scaler(probe.fed.config.aggregation.scaler)
+    worst_f64 = 0.0
+    for r in range(rounds):
+        selected = stats["round_metadata"][r]["selected_learners"]
+        scales = scaler({lid: {"num_train_examples": sizes[lid]}
+                         for lid in selected})
+        ups = [parse(probe.uplinks[r][lid]) for lid in selected]
+        want = FedAvg().aggregate([([m], scales[lid])
+                                   for lid, m in zip(selected, ups)])
+        got = parse(probe.community(r))
+        same = sorted(got) == sorted(want) and all(
+            got[k].dtype == want[k].dtype
+            and got[k].tobytes() == want[k].tobytes() for k in want)
+        smoke.check(same, f"{label} round {r}: community model equals a "
+                    f"FedAvg re-fold of the {len(ups)} shipped blobs, bit "
+                    "for bit")
+        if f64_rel is not None:
+            for k in want:
+                mean = sum(scales[lid] * m[k].astype(np.float64)
+                           for lid, m in zip(selected, ups))
+                mean /= sum(scales.values())
+                scale = max(float(np.abs(mean).max()), 1e-30)
+                worst_f64 = max(worst_f64, float(np.abs(
+                    got[k].astype(np.float64) - mean).max()) / scale)
+    if f64_rel is not None:
+        smoke.check(worst_f64 <= f64_rel,
+                    f"{label}: community within {worst_f64:.3g} x max|w| of "
+                    f"the float64 weighted mean (<= {f64_rel})")
+    return worst_f64
+
+
+def _accuracies(stats, key="accuracy"):
+    out = []
+    for entry in sorted(stats["community_evaluations"],
+                        key=lambda e: e["global_iteration"]):
+        vals = [v["test"][key] for v in entry["evaluations"].values()]
+        out.append(float(np.mean(vals)))
+    return out
+
+
+def federation_phase(smoke, gpu):
+    """(a) a FashionMNIST CNN round and (b) a full-width LlamaLite round,
+    each through the port's InProcessFederation with its learners on
+    ``DEVICE``."""
+    import torch
+
+    from metisfl_tpu_torch.comm import TrainParams
+    from metisfl_tpu_torch.config import (
+        AggregationConfig,
+        EvalConfig,
+        FederationConfig,
+    )
+    from metisfl_tpu_torch.driver import InProcessFederation
+    from metisfl_tpu_torch.models import ArrayDataset, TorchModelOps
+    from metisfl_tpu_torch.models.zoo import FashionMnistCNN, LlamaLite
+    from metisfl_tpu_torch.ops.flash_attention import (
+        flash_attention_fwd,
+        flash_bwd_dkv,
+        flash_bwd_dq,
+    )
+
+    out = {"learners": FED_LEARNERS}
+
+    # (a) FashionMNIST: 3 learners x 3 rounds of 20 SGD steps
+    x, y = synthetic_image_classification(
+        FED_LEARNERS * CNN_EXAMPLES + CNN_TEST, noise=CNN_NOISE, seed=SEED)
+    test = ArrayDataset(x[-CNN_TEST:], y[-CNN_TEST:])
+    cfg = FederationConfig(
+        aggregation=AggregationConfig(scaler="train_dataset_size"),
+        train=TrainParams(batch_size=CNN_BATCH, local_steps=CNN_STEPS,
+                          optimizer="sgd", learning_rate=0.05),
+        eval=EvalConfig(batch_size=256, datasets=["test"],
+                        metrics=["loss", "accuracy"]))
+    fed = InProcessFederation(cfg)
+    template = None
+    for i in range(FED_LEARNERS):
+        ops = TorchModelOps(FashionMnistCNN(), rng_seed=SEED, device=DEVICE,
+                            variables=template)
+        template = template or ops.get_variables()
+        part = slice(i * CNN_EXAMPLES, (i + 1) * CNN_EXAMPLES)
+        fed.add_learner(ops, ArrayDataset(x[part], y[part], seed=SEED + i),
+                        test_dataset=test)
+    fed.seed_model(template)
+    probe, stats = run_federation(fed, CNN_ROUNDS)
+    smoke.check(stats["global_iteration"] >= CNN_ROUNDS,
+                f"cnn federation: {stats['global_iteration']} of "
+                f"{CNN_ROUNDS} rounds complete")
+    on_device = all(p.device.type == torch.device(DEVICE).type
+                    for learner in fed.learners
+                    for p in learner.model_ops.module.parameters())
+    smoke.check(on_device, f"cnn federation: every learner's parameters "
+                f"are on {DEVICE}")
+    acc = _accuracies(stats)
+    smoke.check(len(acc) >= CNN_ROUNDS and acc[CNN_ROUNDS - 1] > acc[0]
+                and acc[CNN_ROUNDS - 1] > 0.1,
+                f"cnn federation: community test accuracy by round "
+                f"{[round(a, 4) for a in acc]} rises above the first "
+                "round's and above chance (0.1)")
+    check_folds(smoke, "cnn federation", probe, stats, CNN_ROUNDS)
+    walls = [m["completed_at"] - m["started_at"]
+             for m in stats["round_metadata"][:CNN_ROUNDS]]
+    print(f"cnn federation: round walls {[round(w, 3) for w in walls]} s",
+          flush=True)
+    out["cnn"] = {"rounds": CNN_ROUNDS, "round_wall_s": walls,
+                  "test_accuracy": acc, "wall_s": stats["wall_s"],
+                  "split": probe.split(stats)}
+    del fed, probe, ops, template
+    if DEVICE == "cuda":
+        torch.cuda.empty_cache()
+
+    # (b) full-width LlamaLite: 3 learners x 2 rounds of 2 Adam steps
+    llama = dict(vocab_size=VOCAB, dim=DIM, depth=DEPTH, heads=HEADS,
+                 kv_heads=KV_HEADS, dtype=torch.bfloat16)
+    variables = random_variables(LlamaLite(**llama, device="meta"), SEED)
+    cfg = FederationConfig(
+        aggregation=AggregationConfig(scaler="train_dataset_size"),
+        train=TrainParams(batch_size=TRAIN_BATCH, local_steps=FED_STEPS,
+                          optimizer="adam", learning_rate=1e-4),
+        eval=EvalConfig(batch_size=TRAIN_BATCH, datasets=["test"],
+                        metrics=["loss", "accuracy"]))
+    tokens = np.random.default_rng(SEED + 5).integers(
+        0, VOCAB, (FED_LEARNERS * FED_ROWS + FED_EVAL_ROWS, TRAIN_LEN + 1)
+    ).astype(np.int32)
+    test = ArrayDataset(tokens[-FED_EVAL_ROWS:, :-1],
+                        tokens[-FED_EVAL_ROWS:, 1:])
+
+    def llama_federation():
+        fed = InProcessFederation(cfg)
+        for i in range(FED_LEARNERS):
+            rows = tokens[i * FED_ROWS:(i + 1) * FED_ROWS]
+            ops = TorchModelOps(LlamaLite(**llama, use_flash=True),
+                                variables=variables, device=DEVICE)
+            fed.add_learner(ops, ArrayDataset(rows[:, :-1], rows[:, 1:],
+                                              seed=SEED + i),
+                            test_dataset=test)
+        fed.seed_model(variables)
+        return fed
+
+    t0 = time.perf_counter()
+    fed = llama_federation()
+    n_params = fed.learners[0].model_ops.param_count()
+    print(f"llama federation: {FED_LEARNERS} learners of {n_params} params "
+          f"built in {time.perf_counter() - t0:.3f} s", flush=True)
+    counters = (flash_attention_fwd, flash_bwd_dq, flash_bwd_dkv)
+    for fn in counters:
+        fn.launches = 0
+    if DEVICE == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    probe, stats = run_federation(fed, FED_ROUNDS)
+    if DEVICE == "cuda":
+        torch.cuda.synchronize()
+    k1, k2, k3 = (fn.launches for fn in counters)
+    smoke.check(stats["global_iteration"] >= FED_ROUNDS,
+                f"llama federation: {stats['global_iteration']} of "
+                f"{FED_ROUNDS} rounds complete")
+    train_launches = FED_LEARNERS * FED_ROUNDS * FED_STEPS * DEPTH
+    eval_batches = -(-FED_EVAL_ROWS // TRAIN_BATCH)
+    eval_launches = FED_LEARNERS * FED_ROUNDS * eval_batches * DEPTH
+    smoke.check(k2 == k3 == train_launches
+                and k1 == train_launches + eval_launches,
+                f"llama federation: K2 {k2} and K3 {k3} launches = learners "
+                f"x rounds x steps x depth = {train_launches}; K1 {k1} = "
+                f"{train_launches} + {eval_launches} (evaluation)")
+    losses = [v["loss"] for m in stats["round_metadata"][:FED_ROUNDS]
+              for v in m["train_metrics"].values()]
+    eval_losses = _accuracies(stats, "loss")
+    smoke.check(len(losses) == FED_LEARNERS * FED_ROUNDS
+                and all(np.isfinite(losses + eval_losses)),
+                f"llama federation: train losses "
+                f"{[round(v, 4) for v in losses]} and community eval losses "
+                f"{[round(v, 4) for v in eval_losses]} finite")
+    worst = check_folds(smoke, "llama federation", probe, stats, FED_ROUNDS,
+                        f64_rel=FED_F64_REL)
+    split = probe.split(stats)
+    out["llama"] = {
+        "params": n_params, "rounds": FED_ROUNDS, "steps": FED_STEPS,
+        "round_wall_s": [s["wall_s"] for s in split], "split": split,
+        "wall_s": stats["wall_s"],
+        "blob_bytes": len(fed.controller.community_model_bytes()),
+        "launches": {"flash_fwd": k1, "flash_bwd_dq": k2,
+                     "flash_bwd_dkv": k3},
+        "expected_launches": {"flash_fwd": train_launches + eval_launches,
+                              "flash_bwd_dq": train_launches,
+                              "flash_bwd_dkv": train_launches},
+        "train_losses": losses, "eval_losses": eval_losses,
+        "f64_rel_err": worst,
+        "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9
+        if DEVICE == "cuda" else None,
+    }
+    print(f"llama federation: round walls "
+          f"{[round(s['wall_s'], 3) for s in split]} s", flush=True)
+    del fed, probe
+    if DEVICE == "cuda":
+        # one more round, on a fresh federation, under the profiler: the
+        # device's share of a round and its kernels (the timed rounds
+        # above ran without it; this round's launches are not counted)
+        torch.cuda.empty_cache()
+        fed = llama_federation()
+        out["llama"]["round_profile"] = profile_call(
+            lambda: run_federation(fed, 1), top=12)
+        del fed
+    del variables
+    out["gpu"] = gpu
+    print(json.dumps({"federation": out}), flush=True)
+    return out
+
+
 def _leaves(node):
     if isinstance(node, dict):
         for v in node.values():
@@ -703,20 +1113,28 @@ def main() -> int:
     torch.cuda.empty_cache()
     trained = smoke.phase("slice: LlamaLite training through TorchModelOps",
                           training_phase, smoke, gpu)
+    torch.cuda.empty_cache()
+    federated = smoke.phase("slice: synchronous FedAvg rounds through "
+                            "InProcessFederation", federation_phase, smoke,
+                            gpu)
 
-    # launches on the path that runs each kernel: K1 on both slices
+    # launches on each path that runs a kernel (each path's counts set to
+    # 0 just before it and read just after): K1 on every path
     train_launches = (trained or {}).get("launches", {})
+    fed_launches = ((federated or {}).get("llama") or {}).get("launches", {})
     serve_k1 = (sliced or {}).get("flash_launches", 0)
     rows = []
     if main_case is not None:
+        by_path = {"serve": serve_k1,
+                   "train": train_launches.get("flash_fwd", 0),
+                   "federation": fed_launches.get("flash_fwd", 0)}
         rows.append(("flash_fwd", "flash_fwd.cu", 76, main_case,
-                     serve_k1 + train_launches.get("flash_fwd", 0),
-                     {"serve": serve_k1,
-                      "train": train_launches.get("flash_fwd", 0)}))
+                     sum(by_path.values()), by_path))
     for record, line in zip(bwd_cases or [], (126, 162)):
+        by_path = {"train": train_launches.get(record["name"], 0),
+                   "federation": fed_launches.get(record["name"], 0)}
         rows.append((record["name"], "flash_bwd.cu", line, record,
-                     train_launches.get(record["name"], 0),
-                     {"train": train_launches.get(record["name"], 0)}))
+                     sum(by_path.values()), by_path))
     kernels = []
     for name, source, line, record, launches, by_path in rows:
         entry = {
@@ -743,8 +1161,10 @@ def main() -> int:
         else:
             smoke.failures.append("flash_fwd has no training-shape row")
         kernels.append(entry)
-        if not launches:
-            smoke.failures.append(f"{name} was not launched on its path")
+        for path, count in by_path.items():
+            if not count:
+                smoke.failures.append(f"{name} was not launched on the "
+                                      f"{path} path")
     if len(kernels) < 3:
         smoke.failures.append("a kernel of the path has no measured row")
     print(json.dumps({"kernels": kernels}))

@@ -1,7 +1,11 @@
-"""The port's copy of the JAX package's ``TrainParams``
-(metisfl_tpu/comm/messages.py): the same fields with the same defaults, as
-a plain dataclass. The ``Message`` base class and its wire codec are not
-needed yet: training takes the dataclass in process.
+"""The port's copies of the JAX package's federation messages
+(``comm/messages.py``): ``TrainParams``, ``JoinRequest``/``JoinReply``,
+``TrainTask``/``TaskResult`` and ``EvalTask``/``EvalResult``, with the same
+field names and defaults, as plain dataclasses. The ``Message`` base class
+and its wire codec are not ported yet: the in-process federation passes
+the dataclasses by direct call, and since every field keeps its name, a
+learner or controller of either package reads the other's messages by
+attribute.
 
 Fields that matter only to the JAX engine are kept so that one task's
 parameters fit both engines: ``profile_dir`` and ``profile_steps`` are
@@ -15,7 +19,7 @@ learner and the aggregation slices.
 from __future__ import annotations
 
 from dataclasses import dataclass, field
-from typing import Any, Dict
+from typing import Any, Dict, List
 
 
 @dataclass
@@ -53,3 +57,85 @@ class TrainParams:
     # client-level differential privacy on the shipped update
     dp_clip_norm: float = 0.0
     dp_noise_multiplier: float = 0.0
+
+
+@dataclass
+class JoinRequest:
+    hostname: str = "localhost"
+    port: int = 0
+    num_train_examples: int = 0
+    num_val_examples: int = 0
+    num_test_examples: int = 0
+    # rejoin: a restarted learner presents its previous identity
+    previous_id: str = ""
+    auth_token: str = ""
+    capabilities: Dict[str, Any] = field(default_factory=dict)
+
+
+@dataclass
+class JoinReply:
+    learner_id: str = ""
+    auth_token: str = ""
+    rejoined: bool = False
+    # controller incarnation id, fresh per controller object
+    controller_epoch: str = ""
+
+
+@dataclass
+class TrainTask:
+    task_id: str = ""
+    learner_id: str = ""
+    round_id: int = 0
+    global_iteration: int = 0
+    model: bytes = b""          # ModelBlob wire bytes (community model)
+    params: TrainParams = field(default_factory=TrainParams)
+    # SCAFFOLD fields, kept so a task fits both packages' learners; the
+    # port's learner refuses a task that sets them
+    scaffold: bool = False
+    control: bytes = b""
+    controller_epoch: str = ""
+
+
+@dataclass
+class TaskResult:
+    task_id: str = ""
+    learner_id: str = ""
+    # the controller accepts a model only with the learner's token
+    auth_token: str = ""
+    # the dispatching incarnation (the TrainTask's controller_epoch)
+    controller_epoch: str = ""
+    round_id: int = 0
+    model: bytes = b""          # locally trained ModelBlob
+    num_train_examples: int = 0
+    completed_steps: int = 0
+    completed_epochs: float = 0.0
+    completed_batches: int = 0
+    processing_ms_per_step: float = 0.0
+    train_metrics: Dict[str, float] = field(default_factory=dict)
+    epoch_metrics: List[Dict[str, float]] = field(default_factory=list)
+    control_delta: bytes = b""
+    device_stats: Dict[str, Any] = field(default_factory=dict)
+
+
+@dataclass
+class EvalTask:
+    task_id: str = ""
+    learner_id: str = ""
+    round_id: int = 0
+    model: bytes = b""
+    batch_size: int = 256
+    datasets: List[str] = field(default_factory=lambda: ["test"])
+    metrics: List[str] = field(default_factory=lambda: ["loss", "accuracy"])
+    local_tensor_regex: str = ""
+    ship_tensor_regex: str = ""
+    controller_epoch: str = ""
+
+
+@dataclass
+class EvalResult:
+    task_id: str = ""
+    learner_id: str = ""
+    round_id: int = 0
+    # dataset name -> {metric -> value}
+    evaluations: Dict[str, Dict[str, float]] = field(default_factory=dict)
+    duration_ms: float = 0.0

@@ -1,5 +1,13 @@
-"""Torch model zoo: the serving slice of the JAX package's zoo."""
+"""Torch model zoo: the JAX package's MLPs, small CNNs and the LlamaLite
+part of its transformers."""
 
+from metisfl_tpu_torch.models.zoo.cnn import (
+    BrainAge3DCNN,
+    Cifar10CNN,
+    Conv,
+    FashionMnistCNN,
+)
+from metisfl_tpu_torch.models.zoo.mlp import MLP, HousingMLP
 from metisfl_tpu_torch.models.zoo.transformer import (
     Attention,
     DecoderBlock,
@@ -12,5 +20,6 @@ from metisfl_tpu_torch.models.zoo.transformer import (
     init_params,
 )
 
-__all__ = ["LlamaLite", "DecoderBlock", "Attention", "SwiGLU", "LoRADense",
-           "Dense", "Embed", "RMSNorm", "init_params"]
+__all__ = ["MLP", "HousingMLP", "FashionMnistCNN", "Cifar10CNN",
+           "BrainAge3DCNN", "Conv", "LlamaLite", "DecoderBlock", "Attention",
+           "SwiGLU", "LoRADense", "Dense", "Embed", "RMSNorm", "init_params"]

@@ -381,14 +381,15 @@ class LlamaLite(nn.Module):
 @torch.no_grad()
 def init_params(module: nn.Module, generator: torch.Generator) -> None:
     """Fill every parameter from ``generator`` (a CPU generator; draws are
-    copied to the parameter's device): dense kernels and embeddings
-    N(0, 1/fan_in) and N(0, 1/dim), ``lora_a`` N(0, 0.02²), ``lora_b``,
-    biases zero, norm scales one. These are not Flax's draws; weights
-    from the JAX package come across through models/convert.py."""
+    copied to the parameter's device): dense and conv kernels and
+    embeddings N(0, 1/fan_in) (fan_in: every kernel axis but the last) and
+    N(0, 1/dim), ``lora_a`` N(0, 0.02²), ``lora_b``, biases zero, norm
+    scales one. These are not Flax's draws; weights from the JAX package
+    come across through models/convert.py."""
     for name, p in module.named_parameters():
         leaf = name.rsplit(".", 1)[-1]
         if leaf == "kernel" or leaf == "embedding":
-            fan = p.shape[0] if leaf == "kernel" else p.shape[1]
+            fan = math.prod(p.shape[:-1]) if leaf == "kernel" else p.shape[1]
             std = 1.0 / math.sqrt(fan)
         elif leaf == "lora_a":
             std = 0.02

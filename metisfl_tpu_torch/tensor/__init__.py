@@ -11,10 +11,13 @@ from metisfl_tpu_torch.tensor.pytree import (
     ModelBlob,
     NamedTensors,
     named_tensors_to_pytree,
+    narrow_tensors,
     pack_model,
     pytree_to_named_tensors,
     tensor_from_payload,
     tensor_to_bytes,
+    tree_leaves,
+    tree_map,
     unpack_model,
 )
 
@@ -27,8 +30,11 @@ __all__ = [
     "ModelBlob",
     "pytree_to_named_tensors",
     "named_tensors_to_pytree",
+    "narrow_tensors",
     "pack_model",
     "unpack_model",
     "tensor_to_bytes",
     "tensor_from_payload",
+    "tree_leaves",
+    "tree_map",
 ]

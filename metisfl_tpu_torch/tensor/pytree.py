@@ -31,6 +31,7 @@ from metisfl_tpu_torch.tensor.spec import (
     _header_bytes,
     opaque_tensor_to_bytes,
     read_tensor,
+    resolve_ship_dtype,
 )
 
 NamedTensors = List[Tuple[str, torch.Tensor]]
@@ -289,3 +290,36 @@ def unpack_model(buf, treedef_like):
     """One-call wire bytes → tree shaped like ``treedef_like``."""
     blob = ModelBlob.from_bytes(buf)
     return named_tensors_to_pytree(blob.tensors, treedef_like)
+
+
+def tree_leaves(tree) -> list:
+    """The leaves of a nested dict/list/tuple tree in JAX's flattening
+    order (dict keys sorted); leaves stay as they are (numpy or torch)."""
+    return [leaf for _, leaf in _flatten(tree)]
+
+
+def tree_map(fn, tree, *rest):
+    """``fn`` over the leaves of ``tree`` (and the matching leaves of the
+    trees in ``rest``), rebuilt in ``tree``'s structure; dicts come back
+    with their keys sorted, as ``jax.tree.map`` returns them."""
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, tree[k], *(r[k] for r in rest))
+                for k in sorted(tree)}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(tree_map(fn, sub, *(r[i] for r in rest))
+                          for i, sub in enumerate(tree))
+    if tree is None:
+        return None
+    return fn(tree, *rest)
+
+
+def narrow_tensors(named: NamedTensors, ship_dtype: str) -> NamedTensors:
+    """[(name, tensor)] with floating tensors cast to the wire dtype named
+    ``ship_dtype`` ("bf16", "f16", "f32", ...); integer and bool state
+    (step counters, token ids) passes through untouched, since a float
+    mantissa would corrupt it. The torch form of ``spec.narrow_named``;
+    an unknown name raises ``ValueError`` (``spec.resolve_ship_dtype``)."""
+    resolve_ship_dtype(ship_dtype)
+    target = _WIRE_TO_TORCH[DType[ship_dtype.upper()]]
+    return [(n, t.to(target) if t.is_floating_point() and t.dtype != target
+             else t) for n, t in named]

@@ -24,7 +24,20 @@ def test_every_module_imports_without_jax():
     names = _module_names()
     assert {"metisfl_tpu_torch.ops.flash_attention",
             "metisfl_tpu_torch.serving.gateway",
-            "metisfl_tpu_torch.models.convert"} <= set(names)
+            "metisfl_tpu_torch.models.convert",
+            "metisfl_tpu_torch.models.zoo.mlp",
+            "metisfl_tpu_torch.models.zoo.cnn",
+            "metisfl_tpu_torch.config.federation",
+            "metisfl_tpu_torch.aggregation.base",
+            "metisfl_tpu_torch.aggregation.fedavg",
+            "metisfl_tpu_torch.scaling",
+            "metisfl_tpu_torch.selection",
+            "metisfl_tpu_torch.scheduling",
+            "metisfl_tpu_torch.store.base",
+            "metisfl_tpu_torch.store.memory",
+            "metisfl_tpu_torch.learner.learner",
+            "metisfl_tpu_torch.controller.core",
+            "metisfl_tpu_torch.driver.inprocess"} <= set(names)
     code = (
         "import importlib, json, sys\n"
         f"for name in {names!r}:\n"
