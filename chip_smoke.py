@@ -2,6 +2,7 @@
 """Chip smoke for metisfl_tpu_torch, the PyTorch/CUDA port, on one NVIDIA GPU.
 
     python3 chip_smoke.py            # from the root of a checkout
+    python3 chip_smoke.py --profile-round   # + one profiled federation round
 
 It drives the port only (it imports no jax and nothing of the JAX package):
 
@@ -44,7 +45,9 @@ It drives the port only (it imports no jax and nothing of the JAX package):
    re-fold of the blobs its learners shipped (and, for LlamaLite, against
    a float64 weighted mean), and each round's wall time is split into
    its stages (learner train, weights copy-out, blob pack, controller
-   ingest, fold, downlink unpack, load_flax_variables).
+   ingest, fold, downlink unpack, load_flax_variables). The federations
+   stop at their ``termination.federation_rounds``. With
+   ``--profile-round`` one more LlamaLite round runs under the profiler.
 
 It prints a ``{"federation": {...}}`` line (round walls and their split,
 ms per step, blob bytes, launches), a ``{"kernels": [...]}`` line (each
@@ -68,6 +71,9 @@ import numpy as np
 REPO = os.path.dirname(os.path.abspath(__file__))
 SEED = 7
 DEVICE = "cuda"
+# --profile-round: one more LlamaLite federation round under torch.profiler
+# (about 25-40 s more on the H100)
+PROFILE_ROUND = "--profile-round" in sys.argv[1:]
 
 # the serving slice's model (the JAX package's bench_decode/bench_mfu shape)
 VOCAB, DIM, DEPTH, HEADS, KV_HEADS = 32768, 1024, 8, 16, 4
@@ -160,12 +166,15 @@ class Smoke:
 
     def phase(self, name, fn, *args):
         print(f"== {name}", flush=True)
+        t0 = time.perf_counter()
         try:
             return fn(*args)
         except Exception:  # noqa: BLE001 - recorded, the run goes on
             traceback.print_exc()
             self.failures.append(f"{name}: raised")
             return None
+        finally:
+            print(f"-- {name}: {time.perf_counter() - t0:.3f} s", flush=True)
 
 
 def attention_case(smoke, name, B, Hq, Hkv, L, D, dtype_name, causal,
@@ -638,14 +647,13 @@ def synthetic_image_classification(n, height=28, width=28, channels=1,
 
 class RoundProbe:
     """Watches one in-process federation by wrapping instance methods (the
-    port itself is left as it is): the community blob each round's train
-    tasks carry, every uplink, and the time each learner spends per round
-    in each stage. Train tasks of round ``rounds`` and later are dropped,
-    so the run ends after exactly ``rounds`` rounds of training."""
+    port itself is left as it is): each round's community blob, every
+    uplink, and the time each learner spends per round in each stage."""
 
-    def __init__(self, fed, rounds):
-        self.fed, self.rounds = fed, rounds
-        self.dispatched = {}     # round -> community blob the tasks carry
+    def __init__(self, fed):
+        self.fed = fed
+        self.rounds = fed.config.termination.federation_rounds
+        self.communities = []    # per round: the community blob
         self.uplinks = {}        # round -> {learner_id: blob}
         self.times = {}          # (learner index, stage) -> [s, per round]
         self.pack_s = []         # controller: community blob encode
@@ -653,8 +661,17 @@ class RoundProbe:
         self._lock = threading.Lock()
         for i, learner in enumerate(fed.learners):
             self._wrap_learner(i, learner)
-        self._wrap(fed.controller, "_community_to_blob",
-                   lambda dt: self.pack_s.append(dt))
+        pack = fed.controller._community_to_blob
+
+        def community_to_blob(community):
+            t0 = time.perf_counter()
+            blob = pack(community)
+            with self._lock:
+                self.pack_s.append(time.perf_counter() - t0)
+                self.communities.append(blob)
+            return blob
+
+        fed.controller._community_to_blob = community_to_blob
         done = fed.controller.task_completed
 
         def task_completed(result):
@@ -698,20 +715,6 @@ class RoundProbe:
                 (ops, "get_variables", "weights_copy_out"),
                 (learner, "_dump_model", "blob_pack")):
             self._wrap(obj, name, self._record(i, stage))
-        run = learner.run_task
-
-        def run_task(task):
-            with self._lock:
-                self.dispatched.setdefault(task.round_id, task.model)
-            if task.round_id < self.rounds:
-                run(task)
-
-        learner.run_task = run_task
-
-    def community(self, round_id):
-        """The community model after ``round_id``: the blob the next
-        round's train tasks carried."""
-        return self.dispatched[round_id + 1]
 
     def split(self, stats):
         """Per round: the wall time and its split into stages (learner
@@ -751,10 +754,12 @@ class RoundProbe:
         return out
 
 
-def run_federation(fed, rounds, timeout_s=600.0):
-    """Start ``fed``, wait for ``rounds`` rounds and every learner's
-    evaluation of each, shut it down; returns (probe, statistics)."""
-    probe = RoundProbe(fed, rounds)
+def run_federation(fed, timeout_s=600.0):
+    """Start ``fed``, wait for its ``termination.federation_rounds`` rounds
+    and every learner's evaluation of each, shut it down; returns (probe,
+    statistics)."""
+    probe = RoundProbe(fed)
+    rounds = probe.rounds
     n = len(fed.learners)
 
     def evaluated():
@@ -765,8 +770,7 @@ def run_federation(fed, rounds, timeout_s=600.0):
         t0 = time.perf_counter()
         fed.start()
         ok = (fed.wait_for_rounds(rounds, timeout_s)
-              and fed.wait_until(evaluated, timeout_s)
-              and fed.wait_until(lambda: rounds in probe.dispatched, 60))
+              and fed.wait_until(evaluated, timeout_s))
         wall = time.perf_counter() - t0
         stats = fed.statistics()
     finally:
@@ -802,7 +806,7 @@ def check_folds(smoke, label, probe, stats, rounds, f64_rel=None):
         ups = [parse(probe.uplinks[r][lid]) for lid in selected]
         want = FedAvg().aggregate([([m], scales[lid])
                                    for lid, m in zip(selected, ups)])
-        got = parse(probe.community(r))
+        got = parse(probe.communities[r])
         same = sorted(got) == sorted(want) and all(
             got[k].dtype == want[k].dtype
             and got[k].tobytes() == want[k].tobytes() for k in want)
@@ -844,6 +848,7 @@ def federation_phase(smoke, gpu):
         AggregationConfig,
         EvalConfig,
         FederationConfig,
+        TerminationConfig,
     )
     from metisfl_tpu_torch.driver import InProcessFederation
     from metisfl_tpu_torch.models import ArrayDataset, TorchModelOps
@@ -865,7 +870,8 @@ def federation_phase(smoke, gpu):
         train=TrainParams(batch_size=CNN_BATCH, local_steps=CNN_STEPS,
                           optimizer="sgd", learning_rate=0.05),
         eval=EvalConfig(batch_size=256, datasets=["test"],
-                        metrics=["loss", "accuracy"]))
+                        metrics=["loss", "accuracy"]),
+        termination=TerminationConfig(federation_rounds=CNN_ROUNDS))
     fed = InProcessFederation(cfg)
     template = None
     for i in range(FED_LEARNERS):
@@ -876,7 +882,7 @@ def federation_phase(smoke, gpu):
         fed.add_learner(ops, ArrayDataset(x[part], y[part], seed=SEED + i),
                         test_dataset=test)
     fed.seed_model(template)
-    probe, stats = run_federation(fed, CNN_ROUNDS)
+    probe, stats = run_federation(fed)
     smoke.check(stats["global_iteration"] >= CNN_ROUNDS,
                 f"cnn federation: {stats['global_iteration']} of "
                 f"{CNN_ROUNDS} rounds complete")
@@ -907,20 +913,24 @@ def federation_phase(smoke, gpu):
     llama = dict(vocab_size=VOCAB, dim=DIM, depth=DEPTH, heads=HEADS,
                  kv_heads=KV_HEADS, dtype=torch.bfloat16)
     variables = random_variables(LlamaLite(**llama, device="meta"), SEED)
-    cfg = FederationConfig(
-        aggregation=AggregationConfig(scaler="train_dataset_size"),
-        train=TrainParams(batch_size=TRAIN_BATCH, local_steps=FED_STEPS,
-                          optimizer="adam", learning_rate=1e-4),
-        eval=EvalConfig(batch_size=TRAIN_BATCH, datasets=["test"],
-                        metrics=["loss", "accuracy"]))
+
+    def llama_config(rounds):
+        return FederationConfig(
+            aggregation=AggregationConfig(scaler="train_dataset_size"),
+            train=TrainParams(batch_size=TRAIN_BATCH, local_steps=FED_STEPS,
+                              optimizer="adam", learning_rate=1e-4),
+            eval=EvalConfig(batch_size=TRAIN_BATCH, datasets=["test"],
+                            metrics=["loss", "accuracy"]),
+            termination=TerminationConfig(federation_rounds=rounds))
+
     tokens = np.random.default_rng(SEED + 5).integers(
         0, VOCAB, (FED_LEARNERS * FED_ROWS + FED_EVAL_ROWS, TRAIN_LEN + 1)
     ).astype(np.int32)
     test = ArrayDataset(tokens[-FED_EVAL_ROWS:, :-1],
                         tokens[-FED_EVAL_ROWS:, 1:])
 
-    def llama_federation():
-        fed = InProcessFederation(cfg)
+    def llama_federation(rounds):
+        fed = InProcessFederation(llama_config(rounds))
         for i in range(FED_LEARNERS):
             rows = tokens[i * FED_ROWS:(i + 1) * FED_ROWS]
             ops = TorchModelOps(LlamaLite(**llama, use_flash=True),
@@ -932,7 +942,7 @@ def federation_phase(smoke, gpu):
         return fed
 
     t0 = time.perf_counter()
-    fed = llama_federation()
+    fed = llama_federation(FED_ROUNDS)
     n_params = fed.learners[0].model_ops.param_count()
     print(f"llama federation: {FED_LEARNERS} learners of {n_params} params "
           f"built in {time.perf_counter() - t0:.3f} s", flush=True)
@@ -941,7 +951,7 @@ def federation_phase(smoke, gpu):
         fn.launches = 0
     if DEVICE == "cuda":
         torch.cuda.reset_peak_memory_stats()
-    probe, stats = run_federation(fed, FED_ROUNDS)
+    probe, stats = run_federation(fed)
     if DEVICE == "cuda":
         torch.cuda.synchronize()
     k1, k2, k3 = (fn.launches for fn in counters)
@@ -985,14 +995,15 @@ def federation_phase(smoke, gpu):
     print(f"llama federation: round walls "
           f"{[round(s['wall_s'], 3) for s in split]} s", flush=True)
     del fed, probe
-    if DEVICE == "cuda":
-        # one more round, on a fresh federation, under the profiler: the
-        # device's share of a round and its kernels (the timed rounds
-        # above ran without it; this round's launches are not counted)
+    if PROFILE_ROUND and DEVICE == "cuda":
+        # with --profile-round: one more round, on a fresh federation,
+        # under the profiler: the device's share of a round and its
+        # kernels (the timed rounds above ran without it; this round's
+        # launches are not counted)
         torch.cuda.empty_cache()
-        fed = llama_federation()
+        fed = llama_federation(1)
         out["llama"]["round_profile"] = profile_call(
-            lambda: run_federation(fed, 1), top=12)
+            lambda: run_federation(fed), top=12)
         del fed
     del variables
     out["gpu"] = gpu
@@ -1063,6 +1074,7 @@ def main() -> int:
               "from the root of a checkout", file=sys.stderr)
         return 2
 
+    started = time.perf_counter()
     smoke = Smoke()
     gpu = gpu_line()
     print(f"gpu: {gpu}")
@@ -1167,6 +1179,7 @@ def main() -> int:
                                       f"{path} path")
     if len(kernels) < 3:
         smoke.failures.append("a kernel of the path has no measured row")
+    print(f"phases done in {time.perf_counter() - started:.3f} s")
     print(json.dumps({"kernels": kernels}))
     print(gpu, flush=True)
     if smoke.failures:

@@ -1,28 +1,19 @@
 """Aggregation rules. The port has FedAvg; the JAX package's other rules
 (FedStride, FedRec, SCAFFOLD, FedNova, the server optimizers, the robust
-rules, secure aggregation) raise ``NotImplementedError`` until they are
-ported (ROADMAP.md Queue 1 item 3c)."""
+rules, secure aggregation) are not ported yet (ROADMAP.md Queue 1 item
+3c), and ``FederationConfig`` refuses them by name."""
 
 from metisfl_tpu_torch.aggregation.fedavg import FedAvg
 
 AGGREGATION_RULES = {"fedavg": FedAvg}
 
-# the JAX package's other rules, named so that asking for one says so
-_NOT_PORTED = ("fedstride", "fedrec", "secure_agg", "scaffold", "fednova",
-               "fedavgm", "fedadam", "fedyogi", "median", "trimmed_mean",
-               "krum", "multikrum")
-
 
 def make_aggregation_rule(name: str, **kwargs) -> FedAvg:
-    key = name.lower()
-    if key in AGGREGATION_RULES:
-        return AGGREGATION_RULES[key](**kwargs)
-    if key in _NOT_PORTED:
-        raise NotImplementedError(
-            f"aggregation rule {name!r} is not ported to metisfl_tpu_torch "
-            "yet (ROADMAP.md Queue 1 item 3c)")
-    raise ValueError(f"unknown aggregation rule {name!r}; have "
-                     f"{sorted(AGGREGATION_RULES)}")
+    try:
+        return AGGREGATION_RULES[name.lower()](**kwargs)
+    except KeyError:
+        raise ValueError(f"unknown aggregation rule {name!r}; have "
+                         f"{sorted(AGGREGATION_RULES)}") from None
 
 
 __all__ = ["FedAvg", "AGGREGATION_RULES", "make_aggregation_rule"]

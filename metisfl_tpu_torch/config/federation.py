@@ -46,28 +46,23 @@ class ServingConfig:
 
 @dataclass
 class TerminationConfig:
-    """When a driver stops the federation: rounds, wall clock or a metric.
-    The controller itself never stops dispatching; its driver does."""
+    """When the federation stops. The port's controller dispatches no train
+    task after ``federation_rounds`` rounds (0 = no limit); the wall-clock
+    and metric cutoffs belong to the multi-process ``DriverSession`` and
+    raise."""
 
     federation_rounds: int = 10
     execution_cutoff_mins: float = 0.0       # 0 → no wall-clock cutoff
     metric_cutoff_score: float = 0.0         # 0 → no metric cutoff
-    metric_name: str = "accuracy"
+    metric_name: str = "accuracy"            # the metric cutoff's metric
 
 
 @dataclass
 class SchedulingConfig:
     """Round scheduling. The port runs the full-cohort barrier
-    (``quorum`` 0) with churn scoring and optional quarantine."""
+    (``quorum`` 0)."""
 
     quorum: int = 0
-    # churn/flap scoring (selection.py ChurnTracker)
-    churn_tracking: bool = True
-    churn_alpha: float = 0.3
-    # a churn event lifting a learner's score past quarantine_score keeps
-    # it out of cohort sampling for quarantine_s seconds (0 = never)
-    quarantine_score: float = 0.0
-    quarantine_s: float = 30.0
 
 
 @dataclass
@@ -134,9 +129,6 @@ class FederationConfig:
     protocol: str = "synchronous"
     # straggler deadline for a round (0 = none; deadlines not ported)
     round_deadline_secs: float = 0.0
-    # consecutive failed train dispatches after which a learner is left
-    # out of cohort sampling until it completes a task or rejoins (0 = off)
-    max_dispatch_failures: int = 3
     scheduling: SchedulingConfig = field(default_factory=SchedulingConfig)
     aggregation: AggregationConfig = field(default_factory=AggregationConfig)
     model_store: ModelStoreConfig = field(default_factory=ModelStoreConfig)
@@ -176,18 +168,12 @@ class FederationConfig:
             raise ValueError("scheduling.quorum must be >= 0")
         if sched.quorum > 0:
             raise not_ported("quorum barriers", "3f")
-        if not 0.0 < sched.churn_alpha <= 1.0:
-            raise ValueError("scheduling.churn_alpha must be in (0, 1]")
-        if sched.quarantine_score < 0.0:
-            raise ValueError("scheduling.quarantine_score must be >= 0")
-        if sched.quarantine_score > 0.0 and sched.quarantine_s <= 0.0:
-            raise ValueError(
-                "scheduling.quarantine_s must be > 0 when quarantine is "
-                "armed (a zero-length quarantine never excludes anyone)")
-        if sched.quarantine_score > 0.0 and not sched.churn_tracking:
-            raise ValueError(
-                "scheduling.quarantine_score requires churn_tracking "
-                "(quarantine is driven by the churn scores)")
+        term = self.termination
+        if term.federation_rounds < 0:
+            raise ValueError("termination.federation_rounds must be >= 0")
+        if term.execution_cutoff_mins > 0 or term.metric_cutoff_score > 0:
+            raise not_ported("wall-clock and metric termination cutoffs",
+                             "3a")
         if train.dp_noise_multiplier < 0.0 or train.dp_clip_norm < 0.0:
             raise ValueError("dp_clip_norm and dp_noise_multiplier must be "
                              ">= 0")

@@ -12,11 +12,15 @@ Concurrency as in the JAX package: RPC threads only validate and enqueue;
 one scheduling worker owns all round logic, so a completion ack never
 waits on aggregation, and state needs one lock.
 
+After ``termination.federation_rounds`` rounds (0 = no limit) the
+controller dispatches no more train tasks; the last round's evaluations
+still go out.
+
 Not ported yet (ROADMAP.md Queue 1 items 3b-3g and 4): the round-state WAL,
 checkpoints and the hot standby, deadlines, quorum and dispatch retries,
-the registry, the streaming and tree tiers, secure aggregation, SCAFFOLD,
-int8q/top-k uplinks, ``describe`` and every telemetry plane. The config
-(config/federation.py) refuses them.
+churn scoring and quarantine, the registry, the streaming and tree tiers,
+secure aggregation, SCAFFOLD, int8q/top-k uplinks, ``describe`` and every
+telemetry plane. The config (config/federation.py) refuses them.
 """
 
 from __future__ import annotations
@@ -47,7 +51,7 @@ from metisfl_tpu_torch.comm.messages import (
 from metisfl_tpu_torch.config import FederationConfig
 from metisfl_tpu_torch.scaling import make_scaler
 from metisfl_tpu_torch.scheduling import make_scheduler
-from metisfl_tpu_torch.selection import ChurnTracker, make_selector
+from metisfl_tpu_torch.selection import make_selector
 from metisfl_tpu_torch.store import make_store
 from metisfl_tpu_torch.tensor.pytree import ModelBlob, to_numpy
 from metisfl_tpu_torch.tensor.spec import quantify
@@ -95,8 +99,6 @@ class LearnerRecord:
     num_test_examples: int = 0
     # completed batches of the stored model's task (the batches scaler)
     completed_batches: int = 0
-    # consecutive failed train dispatches (reset on completion)
-    dispatch_failures: int = 0
     proxy: Optional[LearnerProxy] = None
 
 
@@ -154,14 +156,7 @@ class Controller:
         self._aggregator = make_aggregation_rule(agg.rule)
         self._scaler = make_scaler(agg.scaler)
         self._selector = make_selector("scheduled_cardinality")
-        sched_cfg = config.scheduling
         self._scheduler = make_scheduler(config.protocol)
-        self._churn: Optional[ChurnTracker] = None
-        if sched_cfg.churn_tracking:
-            self._churn = ChurnTracker(
-                alpha=sched_cfg.churn_alpha,
-                quarantine_score=sched_cfg.quarantine_score,
-                quarantine_s=sched_cfg.quarantine_s)
         required = self._aggregator.required_lineage
         lineage = max(config.model_store.lineage_length or required,
                       required)
@@ -234,12 +229,9 @@ class Controller:
                 self._learners[learner_id] = record
                 self._tokens[learner_id] = token
             record.proxy = self._proxy_factory(record)
-            record.dispatch_failures = 0  # fresh endpoint, assume live
         logger.info("learner %s %s (%d train examples)", record.learner_id,
                     "rejoined" if rejoined else "joined",
                     record.num_train_examples)
-        if rejoined:
-            self._note_churn(record.learner_id, "flap_rejoin")
         if not self._shutdown.is_set():
             self._pool.submit(self._guard, self._schedule_initial,
                               record.learner_id)
@@ -256,22 +248,11 @@ class Controller:
             del self._learners[learner_id]
         self._store.erase([learner_id])
         logger.info("learner %s left", learner_id)
-        self._note_churn(learner_id, "leave")
         # the departed learner may have been the last one the barrier
         # waited on: no later completion would re-check it
         if not self._shutdown.is_set():
             self._pool.submit(self._guard, self._handle_membership_change)
         return True
-
-    def _note_churn(self, learner_id: str, event: str) -> None:
-        if self._churn is None:
-            return
-        was_quarantined = self._churn.quarantined(learner_id)
-        score = self._churn.note(learner_id, event)
-        if not was_quarantined and self._churn.quarantined(learner_id):
-            logger.warning(
-                "learner %s quarantined for %.1fs (churn score %.2f after "
-                "%s)", learner_id, self._churn.quarantine_s, score, event)
 
     def active_learners(self) -> List[str]:
         with self._lock:
@@ -337,11 +318,9 @@ class Controller:
             record = self._learners.get(result.learner_id)
             if record is None:
                 return
-            record.dispatch_failures = 0  # provably reachable
             self._current_meta.train_received_at[result.learner_id] = start
             self._current_meta.uplink_bytes[result.learner_id] = len(
                 result.model)
-        self._note_churn(result.learner_id, "completion")
         try:
             model = self._parse_result_model(result)
         except ValueError as exc:
@@ -434,28 +413,10 @@ class Controller:
             return
         self._dispatch_train(self._sample_cohort())
 
-    def _admission_pool(self) -> List[str]:
-        """Dispatchable learners: under the consecutive-dispatch-failure
-        limit and not churn-quarantined; never empty while any learner is
-        registered."""
-        limit = self.config.max_dispatch_failures
-        with self._lock:
-            pool = [lid for lid, r in self._learners.items()
-                    if limit <= 0 or r.dispatch_failures < limit]
-            if not pool:
-                pool = list(self._learners.keys())
-        if self._churn is not None:
-            quarantined = set(self._churn.quarantined_ids())
-            if quarantined:
-                healthy = [lid for lid in pool if lid not in quarantined]
-                if healthy:
-                    pool = healthy
-        return pool
-
     def _sample_cohort(self) -> List[str]:
         """Next round's participants (``participation_ratio`` of the
-        admission pool; the barrier is the dispatched sample)."""
-        pool = self._admission_pool()
+        active learners; the barrier is the dispatched sample)."""
+        pool = self.active_learners()
         ratio = self.config.aggregation.participation_ratio
         if ratio >= 1.0 or not pool:
             return pool
@@ -531,8 +492,12 @@ class Controller:
 
     def _dispatch_train(self, learner_ids: Sequence[str]) -> None:
         """Send the community model to ``learner_ids`` as train tasks; the
-        dispatched set is the round barrier."""
+        dispatched set is the round barrier. Nothing is sent once
+        ``termination.federation_rounds`` rounds have completed."""
+        limit = self.config.termination.federation_rounds
         with self._lock:
+            if 0 < limit <= self.global_iteration:
+                return
             blob = self._community_blob
         if blob is None:
             logger.warning("no community model yet; cannot dispatch train "
@@ -564,28 +529,11 @@ class Controller:
                 proxy = record.proxy
             try:
                 proxy.run_task(task)
-            except Exception as exc:
+            except Exception:
                 logger.exception("train dispatch to %s failed", lid)
-                self._note_dispatch_failure(lid, exc)
         with self._lock:
             self._current_meta.dispatch_duration_ms += (
                 (time.perf_counter() - t0) * 1e3)
-
-    def _note_dispatch_failure(self, learner_id: str,
-                               exc: Exception) -> None:
-        with self._lock:
-            record = self._learners.get(learner_id)
-            if record is None:
-                return
-            record.dispatch_failures += 1
-            count = record.dispatch_failures
-        limit = self.config.max_dispatch_failures
-        if limit > 0 and count == limit:
-            logger.warning(
-                "learner %s unreachable after %d failed dispatches (%r); "
-                "excluded from cohort sampling until it reports or rejoins",
-                learner_id, count, exc)
-        self._note_churn(learner_id, "dispatch_failure")
 
     def _send_eval_tasks(self) -> None:
         """Evaluate the new community model on every learner; results land

@@ -40,7 +40,7 @@ from metisfl_tpu_torch.models.convert import (
 from metisfl_tpu_torch.models.dataset import ArrayDataset
 from metisfl_tpu_torch.models.generate import generate as _generate
 from metisfl_tpu_torch.models.optimizers import apply_updates, make_optimizer
-from metisfl_tpu_torch.models.zoo.transformer import init_params
+from metisfl_tpu_torch.models.zoo.transformer import Dropout, init_params
 from metisfl_tpu_torch.tensor.pytree import as_tensor, pytree_to_named_tensors
 
 logger = logging.getLogger("metisfl_tpu_torch.models")
@@ -123,11 +123,12 @@ class TorchModelOps:
     """Train/eval/inference engine around one module. ``variables`` (a
     Flax variables tree or named tensors) fills the weights; without it
     they are drawn from a ``torch.Generator`` seeded with ``rng_seed``,
-    which also seeds training's random draws (dropout). ``loss`` names a
-    loss (or is a callable ``loss(outputs, labels)``); ``trainable_regex``
-    freezes every parameter whose Flax name does not match it (LoRA:
-    ``"lora_"``). Runs on ``device`` (default ``"cuda"``, which raises
-    without a GPU)."""
+    which also seeds the masks of the zoo's ``Dropout`` layers in training
+    (a module's own ``nn.Dropout`` draws from torch's default generator,
+    which the engine leaves alone). ``loss`` names a loss (or is a
+    callable ``loss(outputs, labels)``); ``trainable_regex`` freezes every
+    parameter whose Flax name does not match it (LoRA: ``"lora_"``). Runs
+    on ``device`` (default ``"cuda"``, which raises without a GPU)."""
 
     def __init__(self, module: nn.Module, rng_seed: int = 0,
                  variables=None, device="cuda",
@@ -264,40 +265,43 @@ class TorchModelOps:
         completed = 0
         stream = dataset.infinite_batches(params_cfg.batch_size)
         chunk = max(1, int(params_cfg.scan_chunk))
-        # dropout draws: the global generators, seeded from the engine's
-        # generator for this call and restored afterwards
+        # dropout masks: a generator of this call on the engine's device,
+        # seeded from the engine's own (no global state, so engines that
+        # train in parallel threads keep their own streams)
         seed = int(torch.randint(0, 2 ** 62, (1,), generator=self._generator))
-        devices = ([self.device.index if self.device.index is not None
-                    else torch.cuda.current_device()]
-                   if self.device.type == "cuda" else [])
+        dropouts = [m for m in self.module.modules()
+                    if isinstance(m, Dropout)]
+        masks = torch.Generator(device=self.device).manual_seed(seed)
+        for m in dropouts:
+            m.generator = masks
         self.module.train()
         try:
-            with torch.random.fork_rng(devices=devices):
-                torch.manual_seed(seed)
-                while completed < total_steps:
-                    if cancel_event is not None and cancel_event.is_set():
-                        break
-                    n = min(chunk, total_steps - completed)
-                    t0 = time.perf_counter()
-                    pending = [step(*next(stream)) for _ in range(n)]
-                    # one host sync per chunk: read the chunk's metrics
-                    stats = torch.stack([torch.stack(p) for p in pending]
-                                        ).float().cpu().tolist()
-                    dt = (time.perf_counter() - t0) / n
-                    if completed == 0:
-                        # the first chunk pays the warm-up (allocator,
-                        # kernel builds); steady-state timing skips it
-                        first_time = dt
-                    else:
-                        step_times.extend([dt] * n)
-                    for loss, acc in stats:
-                        completed += 1
-                        epoch_losses.append((loss, acc))
-                        if (completed % steps_per_epoch == 0
-                                or completed == total_steps):
-                            self._flush(epoch_losses, epoch_metrics,
-                                        losses, accs)
+            while completed < total_steps:
+                if cancel_event is not None and cancel_event.is_set():
+                    break
+                n = min(chunk, total_steps - completed)
+                t0 = time.perf_counter()
+                pending = [step(*next(stream)) for _ in range(n)]
+                # one host sync per chunk: read the chunk's metrics
+                stats = torch.stack([torch.stack(p) for p in pending]
+                                    ).float().cpu().tolist()
+                dt = (time.perf_counter() - t0) / n
+                if completed == 0:
+                    # the first chunk pays the warm-up (allocator, kernel
+                    # builds); steady-state timing skips it
+                    first_time = dt
+                else:
+                    step_times.extend([dt] * n)
+                for loss, acc in stats:
+                    completed += 1
+                    epoch_losses.append((loss, acc))
+                    if (completed % steps_per_epoch == 0
+                            or completed == total_steps):
+                        self._flush(epoch_losses, epoch_metrics, losses,
+                                    accs)
         finally:
+            for m in dropouts:
+                m.generator = None
             self.module.eval()
         self._flush(epoch_losses, epoch_metrics, losses, accs)
         if not step_times and first_time is not None:

@@ -8,9 +8,9 @@ torch's OIHW inside ``forward``, so Flax variables load by renaming. The
 numerics follow Flax: ``nn.Conv`` pads SAME at stride 1, ``nn.max_pool``
 is VALID, and the flatten before the dense head runs in channels-last
 order (H, then W, then C), so ``Dense_0``'s kernel rows mean what they
-mean in Flax. Dropout draws from torch's global generator, which
-``TorchModelOps.train`` seeds from its own generator; its masks are not
-JAX's. A torch module allocates its parameters up front, so the input
+mean in Flax. Dropout draws its masks from the generator that
+``TorchModelOps.train`` gives it (transformer.py ``Dropout``); they are
+not JAX's. A torch module allocates its parameters up front, so the input
 shape of one example (``input_shape``, channels last) is a constructor
 argument.
 """
@@ -24,7 +24,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from metisfl_tpu_torch.models.zoo.transformer import Dense, _param
+from metisfl_tpu_torch.models.zoo.transformer import Dense, Dropout, _param
 
 
 class Conv(nn.Module):
@@ -69,7 +69,7 @@ class FashionMnistCNN(nn.Module):
                  dropout_rate: float = 0.25, device=None):
         super().__init__()
         h, w, c = input_shape
-        self.dropout_rate = dropout_rate
+        self.dropout = Dropout(dropout_rate)
         self.Conv_0 = Conv(c, 32, (3, 3), device=device)
         self.Conv_1 = Conv(32, 64, (3, 3), device=device)
         flat = _pooled(h, 2) * _pooled(w, 2) * 64
@@ -83,7 +83,7 @@ class FashionMnistCNN(nn.Module):
         x = F.max_pool2d(F.relu(self.Conv_0(x)), 2)
         x = F.max_pool2d(F.relu(self.Conv_1(x)), 2)
         x = F.relu(self.Dense_0(_flatten_channels_last(x)))
-        x = F.dropout(x, self.dropout_rate, training=train)
+        x = self.dropout(x, train)
         return self.Dense_1(x)
 
 
@@ -97,7 +97,7 @@ class Cifar10CNN(nn.Module):
                  dropout_rate: float = 0.5, device=None):
         super().__init__()
         h, w, c = input_shape
-        self.dropout_rate = dropout_rate
+        self.dropout = Dropout(dropout_rate)
         width_in = c
         for i, width in enumerate(self.widths):
             self.add_module(f"Conv_{2 * i}",
@@ -117,7 +117,7 @@ class Cifar10CNN(nn.Module):
             x = F.relu(getattr(self, f"Conv_{2 * i + 1}")(x))
             x = F.max_pool2d(x, 2)
         x = F.relu(self.Dense_0(_flatten_channels_last(x)))
-        x = F.dropout(x, self.dropout_rate, training=train)
+        x = self.dropout(x, train)
         return self.Dense_1(x)
 
 

@@ -66,6 +66,29 @@ class Dense(nn.Module):
         return y
 
 
+class Dropout(nn.Module):
+    """Flax ``nn.Dropout``: in training each element is zeroed with
+    probability ``rate`` and the rest are scaled by ``1 / (1 - rate)``.
+    The masks are drawn from ``generator``, a ``torch.Generator`` on the
+    input's device that ``TorchModelOps.train`` installs for the length of
+    its call, so engines training in parallel threads never share a random
+    stream (``None`` draws from torch's default generator)."""
+
+    def __init__(self, rate: float):
+        super().__init__()
+        self.rate = rate
+        self.generator: Optional[torch.Generator] = None
+
+    def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
+        if not train or self.rate == 0.0:
+            return x
+        if self.rate >= 1.0:
+            return torch.zeros_like(x)
+        keep = torch.rand(x.shape, generator=self.generator,
+                          device=x.device) >= self.rate
+        return torch.where(keep, x / (1.0 - self.rate), torch.zeros_like(x))
+
+
 class LoRADense(nn.Module):
     """Dense with an optional low-rank adapter: y = xW + scale·(xA)B.
 
@@ -169,7 +192,8 @@ class Attention(nn.Module):
                 "attention path; set dropout=0 or disable use_flash")
         self.dim, self.heads, self.kv_heads = dim, heads, kv_heads
         self.head_dim = dim // heads
-        self.causal, self.rotary, self.dropout = causal, rotary, dropout
+        self.causal, self.rotary = causal, rotary
+        self.dropout = Dropout(dropout)
         self.use_flash = use_flash
         kv_dim = kv_heads * self.head_dim
         # LoRA on q/v only (standard practice)
@@ -217,7 +241,7 @@ class Attention(nn.Module):
                 scores = scores.masked_fill(~mask,
                                             torch.finfo(torch.float32).min)
             weights = torch.softmax(scores, dim=-1).to(v.dtype)
-            weights = F.dropout(weights, self.dropout, training=train)
+            weights = self.dropout(weights, train)
             out = torch.einsum("bhqk,bhkd->bhqd", weights, v)
         out = out.transpose(1, 2).reshape(B, L, self.dim)
         return self.wo(out)

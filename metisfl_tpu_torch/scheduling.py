@@ -80,17 +80,11 @@ class SynchronousScheduler:
 
 
 SCHEDULERS = {"synchronous": SynchronousScheduler}
-_NOT_PORTED = ("semi_synchronous", "asynchronous", "asynchronous_buffered")
 
 
 def make_scheduler(name: str):
-    key = name.lower()
-    if key in _NOT_PORTED:
-        raise NotImplementedError(
-            f"scheduler {name!r} is not ported to metisfl_tpu_torch yet "
-            "(ROADMAP.md Queue 1 item 3f)")
     try:
-        return SCHEDULERS[key]()
+        return SCHEDULERS[name.lower()]()
     except KeyError:
         raise ValueError(f"unknown scheduler {name!r}; have "
                          f"{sorted(SCHEDULERS)}") from None

@@ -1,23 +1,14 @@
-"""Model selection and churn-aware admission: which stored learner models
-join an aggregation, and which learners are healthy enough to dispatch to.
+"""Model selection: which stored learner models join an aggregation.
 
 The port's copy of the JAX package's ``selection.py``. With fewer than two
 scheduled learners the aggregation uses ALL active learners' latest models;
-otherwise exactly the scheduled set.
-
-:class:`ChurnTracker` adds the cross-device admission signal the silo
-regime never needed: per-learner churn/flap scores (EWMA of leave,
-flap-rejoin, and failed-dispatch events — the membership counterpart of
-the straggler and divergence scores) with optional temporary quarantine
-of flapping learners, which cohort sampling consults (Oort-style guided
-selection, OSDI 2021: prefer clients that actually deliver).
+otherwise exactly the scheduled set. The churn tracker and flap quarantine
+are not ported yet (ROADMAP.md Queue 1 item 3f).
 """
 
 from __future__ import annotations
 
-import threading
-import time
-from typing import Dict, List, Optional, Sequence
+from typing import List, Sequence
 
 
 class ScheduledCardinalitySelector:
@@ -28,82 +19,6 @@ class ScheduledCardinalitySelector:
         if len(scheduled) < 2:
             return list(active)
         return [lid for lid in scheduled if lid in set(active)]
-
-
-class ChurnTracker:
-    """Per-learner churn/flap scores with optional quarantine.
-
-    Score semantics mirror the divergence score's EWMA posture: each
-    churn event (``leave``, ``flap_rejoin``, ``dispatch_failure``) blends
-    a 1.0 observation in (``score = alpha + (1-alpha)*score``), each
-    successful completion blends a 0.0 in, so a learner that leaves and
-    rejoins every few rounds saturates toward 1.0 while one that delivers
-    steadily decays toward 0.0 within a few rounds.
-
-    Quarantine (``quarantine_score > 0`` arms it): a churn event that
-    lifts a learner's score past the threshold excludes it from cohort
-    sampling for ``quarantine_s`` seconds — a flapping endpoint stops
-    consuming over-provisioned dispatch slots that a stable replacement
-    could use. The tracker deliberately SURVIVES leave (a flapper's
-    history is the whole signal); state is bounded by ``max_entries``
-    with oldest-touched eviction, so 100k-client churn cannot grow it
-    without bound. Thread-safe: the controller notes events from RPC
-    threads and samples cohorts from the scheduling executor.
-    """
-
-    def __init__(self, alpha: float = 0.3, quarantine_score: float = 0.0,
-                 quarantine_s: float = 30.0, max_entries: int = 8192):
-        self.alpha = float(alpha)
-        self.quarantine_score = float(quarantine_score)
-        self.quarantine_s = float(quarantine_s)
-        self.max_entries = max(16, int(max_entries))
-        self._lock = threading.Lock()
-        # learner_id -> score, insertion/touch-ordered for bounded eviction
-        self._scores: Dict[str, float] = {}
-        self._quarantined_until: Dict[str, float] = {}
-
-    # events worth a full 1.0 observation
-    CHURN_EVENTS = ("leave", "flap_rejoin", "dispatch_failure")
-
-    def note(self, learner_id: str, event: str,
-             now: Optional[float] = None) -> float:
-        """Fold one membership event into the learner's score; returns
-        the updated score. ``event='completion'`` is the decay tick.
-        Returns the score AFTER the blend; quarantine arms when a churn
-        event pushes it past the threshold."""
-        observation = 1.0 if event in self.CHURN_EVENTS else 0.0
-        now = time.time() if now is None else now
-        with self._lock:
-            prev = self._scores.pop(learner_id, 0.0)  # pop+set: touch order
-            score = self.alpha * observation + (1.0 - self.alpha) * prev
-            self._scores[learner_id] = score
-            while len(self._scores) > self.max_entries:
-                evicted, _ = next(iter(self._scores.items()))
-                del self._scores[evicted]
-                self._quarantined_until.pop(evicted, None)
-            if (observation > 0.0 and self.quarantine_score > 0.0
-                    and score >= self.quarantine_score):
-                self._quarantined_until[learner_id] = now + self.quarantine_s
-            return score
-
-    def quarantined(self, learner_id: str,
-                    now: Optional[float] = None) -> bool:
-        now = time.time() if now is None else now
-        with self._lock:
-            until = self._quarantined_until.get(learner_id, 0.0)
-            if until and until <= now:
-                del self._quarantined_until[learner_id]  # expired
-                return False
-            return until > now
-
-    def quarantined_ids(self, now: Optional[float] = None) -> List[str]:
-        now = time.time() if now is None else now
-        with self._lock:
-            expired = [lid for lid, until in self._quarantined_until.items()
-                       if until <= now]
-            for lid in expired:
-                del self._quarantined_until[lid]
-            return sorted(self._quarantined_until)
 
 
 SELECTORS = {"scheduled_cardinality": ScheduledCardinalitySelector}

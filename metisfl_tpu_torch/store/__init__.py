@@ -1,22 +1,17 @@
 """Model lineage stores. The port has the in-memory store; the JAX
 package's disk, cached, durable, ingest and remote stores are not ported
-yet (ROADMAP.md Queue 1 item 3b)."""
+yet (ROADMAP.md Queue 1 item 3b), and ``FederationConfig`` refuses them by
+name."""
 
 from metisfl_tpu_torch.store.base import EvictionPolicy, ModelStore
 from metisfl_tpu_torch.store.memory import InMemoryModelStore
 
 STORES = {"in_memory": InMemoryModelStore}
-_NOT_PORTED = ("disk", "cached_disk", "remote")
 
 
 def make_store(name: str, **kwargs) -> ModelStore:
-    key = name.lower()
-    if key in _NOT_PORTED:
-        raise NotImplementedError(
-            f"model store {name!r} is not ported to metisfl_tpu_torch yet "
-            "(ROADMAP.md Queue 1 item 3b)")
     try:
-        return STORES[key](**kwargs)
+        return STORES[name.lower()](**kwargs)
     except KeyError:
         raise ValueError(f"unknown store {name!r}; have "
                          f"{sorted(STORES)}") from None

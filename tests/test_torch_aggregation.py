@@ -19,6 +19,7 @@ from metisfl_tpu.aggregation import base as jax_base
 from metisfl_tpu.aggregation.fedavg import FedAvg as JaxFedAvg
 from metisfl_tpu_torch.aggregation import FedAvg, make_aggregation_rule
 from metisfl_tpu_torch.aggregation.base import is_host_tree
+from metisfl_tpu_torch.config import AggregationConfig, FederationConfig
 from metisfl_tpu_torch.tensor.pytree import as_tensor, tree_map, to_numpy
 
 BF16 = np.dtype(ml_dtypes.bfloat16)
@@ -167,7 +168,11 @@ def test_aggregate_rejects_empty_and_result_before_accumulate():
 @pytest.mark.parametrize("name", ["fedstride", "fedrec", "scaffold",
                                   "fedadam", "median", "krum", "secure_agg"])
 def test_other_rules_are_not_ported(name):
+    """FederationConfig refuses the JAX package's other rules by name; the
+    factory knows only what it builds."""
     with pytest.raises(NotImplementedError, match="ROADMAP"):
+        FederationConfig(aggregation=AggregationConfig(rule=name))
+    with pytest.raises(ValueError, match="unknown aggregation rule"):
         make_aggregation_rule(name)
 
 

@@ -7,7 +7,9 @@ batch 16, 4 SGD steps at lr 0.1) run through both packages'
 ``TorchModelOps(..., device="cpu")``. Every community model is read from
 the train tasks that carry it, so nothing races the live federation.
 Learner training is held until every learner has joined, on both sides,
-so round 0's cohort is the whole federation in both.
+so round 0's cohort is the whole federation in both. The port's
+controller dispatches nothing after ``termination.federation_rounds``
+rounds, so its last community model is read from the controller.
 
 Mixed cohorts (a JAX learner in the port's federation and a port learner
 in the JAX package's) complete rounds, and each community model equals
@@ -116,6 +118,8 @@ class _Recorder:
     def __init__(self):
         self.gate = threading.Event()
         self.dispatched = {}   # round_id -> community blob bytes
+        # the community model of a controller that stopped dispatching
+        self.final = None
         self.uplinks = {}      # round_id -> {learner_id: blob bytes}
         self._lock = threading.Lock()
 
@@ -143,8 +147,9 @@ class _Recorder:
 
     def community(self, round_id):
         """The community model after ``round_id`` (what round_id + 1's
-        tasks carried), as {name: np.ndarray}."""
-        return _parse(self.dispatched[round_id + 1])
+        tasks carried, or the final one after the controller's last
+        round), as {name: np.ndarray}."""
+        return _parse(self.dispatched.get(round_id + 1, self.final))
 
 
 def _parse(blob_bytes):
@@ -160,14 +165,22 @@ def _run(fed, recorder, rounds=ROUNDS, evals=True):
         fed.start()
         recorder.gate.set()
         assert fed.wait_for_rounds(rounds, timeout_s=240)
-        assert fed.wait_until(lambda: rounds in recorder.dispatched, 60)
+        if (isinstance(fed, InProcessFederation)
+                and rounds == fed.config.termination.federation_rounds):
+            recorder.final = fed.controller.community_model_bytes()
+        else:
+            assert fed.wait_until(lambda: rounds in recorder.dispatched, 60)
         if evals:
             n = len(fed.learners)
 
             def evaluated():
-                done = [e for e in fed.statistics()["community_evaluations"]
-                        if len(e["evaluations"]) == n]
-                return len(done) >= rounds
+                # every learner's evaluation of each of the first rounds
+                # (the JAX package's controller runs on: a later round's
+                # entry may fill before an earlier one)
+                done = {e["global_iteration"]
+                        for e in fed.statistics()["community_evaluations"]
+                        if len(e["evaluations"]) == n}
+                return set(range(rounds)) <= done
 
             assert fed.wait_until(evaluated, 120)
         stats = fed.statistics()
@@ -394,6 +407,75 @@ def test_leave_releases_the_barrier():
         "selected_learners"]
 
 
+def test_federation_stops_after_federation_rounds():
+    """termination.federation_rounds: after round 2 the controller sends
+    the community model out for evaluation, and no train task."""
+    shards, test = _arrays(2)
+    template = _jax_template(shards[0][0])
+    cfg = _port_config()
+    cfg.termination.federation_rounds = 2
+    fed = _port_federation(shards, test, template, cfg)
+    rec = _Recorder()
+    for learner in fed.learners:
+        rec.wrap_learner(learner)
+    try:
+        fed.start()
+        rec.gate.set()
+        assert fed.wait_for_rounds(2, timeout_s=120)
+        # the single scheduling worker runs jobs in order: once this one
+        # ran, round 1's close (and any dispatch of round 2) is done
+        fed.controller._pool.submit(lambda: None).result(60)
+        assert fed.wait_until(lambda: len(
+            fed.statistics()["community_evaluations"]) == 2, 60)
+        stats = fed.statistics()
+    finally:
+        fed.shutdown()
+    assert stats["global_iteration"] == 2
+    assert sorted(rec.dispatched) == [0, 1]
+    # a dispatch asked for after the last round (a late join) sends nothing
+    fed.controller._dispatch_train(stats["learners"])
+    assert sorted(rec.dispatched) == [0, 1]
+
+
+def test_dropout_federation_uplinks_are_reproducible():
+    """Two dropout CNN learners train in parallel threads; each draws its
+    masks from its own engine's generator, so a second run of the same
+    federation ships the same uplinks, bit for bit."""
+    rng = np.random.default_rng(17)
+    x = rng.standard_normal((72, 8, 8, 1)).astype(np.float32)
+    y = rng.integers(0, 10, 72).astype(np.int32)
+    template = TorchModelOps(FashionMnistCNN(
+        input_shape=(8, 8, 1), dropout_rate=0.5), device="cpu"
+    ).get_variables()
+    cfg = FederationConfig(
+        train=TrainParams(batch_size=8, local_steps=3, optimizer="sgd",
+                          learning_rate=0.1),
+        eval=EvalConfig(every_n_rounds=0),
+        termination=TerminationConfig(federation_rounds=2))
+
+    def run():
+        fed = InProcessFederation(cfg)
+        for i in range(2):
+            ops = TorchModelOps(FashionMnistCNN(
+                input_shape=(8, 8, 1), dropout_rate=0.5), rng_seed=10 + i,
+                variables=template, device="cpu")
+            part = slice(i * 32, (i + 1) * 32)
+            fed.add_learner(ops, ArrayDataset(x[part], y[part], seed=i),
+                            test_dataset=ArrayDataset(x[64:], y[64:]))
+        fed.seed_model(template)
+        rec = _Recorder()
+        _run(fed, rec, rounds=2, evals=False)
+        return rec.uplinks
+
+    first, second = run(), run()
+    assert sorted(first) == sorted(second) == [0, 1]
+    for r in (0, 1):
+        assert sorted(first[r]) == sorted(second[r])
+        assert len(first[r]) == 2
+        for lid in first[r]:
+            assert first[r][lid] == second[r][lid], (r, lid)
+
+
 def test_completion_with_a_bad_token_is_rejected():
     shards, test = _arrays(1)
     template = _jax_template(shards[0][0])
@@ -451,6 +533,10 @@ UNSUPPORTED = {
     "deadline": lambda: FederationConfig(round_deadline_secs=5.0),
     "local_tensors": lambda: FederationConfig(
         train=TrainParams(local_tensor_regex="batch_stats")),
+    "cutoff_wall_clock": lambda: FederationConfig(
+        termination=TerminationConfig(execution_cutoff_mins=5.0)),
+    "cutoff_metric": lambda: FederationConfig(
+        termination=TerminationConfig(metric_cutoff_score=0.9)),
 }
 
 

@@ -6,9 +6,12 @@ gradients at ``train=False`` agree per tensor within a relative L2 of
 1e-5. Flattening the feature map channels-first instead of Flax's
 channels-last order breaks the forward parity (so the order is tested,
 not assumed). N-step SGD training of the FashionMNIST CNN through both
-engines agrees with dropout off on both sides (its masks cannot match).
+engines agrees with dropout off on both sides (its masks cannot match);
+dropout engines training in parallel threads keep their own mask streams.
 Inputs come from numpy seeds; shapes are small.
 """
+
+import threading
 
 import flax.linen as fnn
 import jax
@@ -212,3 +215,85 @@ def _flat_get(tree, name):
     for part in name.split("/"):
         tree = tree[part]
     return np.asarray(tree)
+
+
+class _LockstepDataset(ArrayDataset):
+    """Each batch waits on a barrier shared with the other engine's
+    dataset, so two engines training in two threads interleave step by
+    step."""
+
+    def __init__(self, x, y, barrier, seed=0):
+        super().__init__(x, y, seed=seed)
+        self._barrier = barrier
+
+    def infinite_batches(self, batch_size):
+        for batch in super().infinite_batches(batch_size):
+            self._barrier.wait(30)
+            yield batch
+
+
+def _dropout_run(seeds, x, y, barrier=None):
+    """Train one dropout CNN engine per seed, in parallel threads when a
+    barrier is given, else one after another; returns their weights."""
+    kwargs = dict(batch_size=8, local_steps=4, optimizer="sgd",
+                  learning_rate=0.1)
+    template = TorchModelOps(torch_cnn.FashionMnistCNN(
+        input_shape=(8, 8, 1), dropout_rate=0.5), rng_seed=0,
+        device="cpu").get_variables()
+    out = {}
+
+    def train(seed):
+        ops = TorchModelOps(torch_cnn.FashionMnistCNN(
+            input_shape=(8, 8, 1), dropout_rate=0.5), rng_seed=seed,
+            variables=template, device="cpu")
+        data = (ArrayDataset(x, y, seed=1) if barrier is None
+                else _LockstepDataset(x, y, barrier, seed=1))
+        out[seed] = dict(_flat(ops.train(data, TrainParams(
+            **kwargs)).variables))
+
+    if barrier is None:
+        for seed in seeds:
+            train(seed)
+    else:
+        threads = [threading.Thread(target=train, args=(s,)) for s in seeds]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(60)
+    return out
+
+
+def test_concurrent_dropout_training_is_reproducible_from_seeds():
+    """Dropout masks come from each engine's own generator: two engines
+    training in lockstep in two threads end with the weights each gets
+    alone, and the masks do depend on the seed."""
+    rng = np.random.default_rng(13)
+    x = rng.standard_normal((32, 8, 8, 1)).astype(np.float32)
+    y = rng.integers(0, 10, 32).astype(np.int32)
+    alone = _dropout_run((1, 2), x, y)
+    together = _dropout_run((1, 2), x, y, threading.Barrier(2))
+    for seed in (1, 2):
+        assert sorted(together[seed]) == sorted(alone[seed])
+        for n in alone[seed]:
+            assert together[seed][n].tobytes() == alone[seed][n].tobytes(), (
+                seed, n)
+    assert any(alone[1][n].tobytes() != alone[2][n].tobytes()
+               for n in alone[1])
+
+
+def test_dropout_keeps_and_rescales_like_flax():
+    """Flax's inverted dropout: kept elements are x / (1 - rate), the rest
+    zero; the same generator state gives the same mask; eval is the
+    identity."""
+    drop = torch_cnn.Dropout(0.25)
+    x = torch.from_numpy(np.random.default_rng(3).uniform(
+        1.0, 2.0, (64, 32)).astype(np.float32))
+    drop.generator = torch.Generator().manual_seed(5)
+    a = drop(x, train=True)
+    drop.generator = torch.Generator().manual_seed(5)
+    b = drop(x, train=True)
+    assert torch.equal(a, b)
+    kept = a != 0
+    assert torch.equal(a[kept], x[kept] / 0.75)
+    assert 0.65 < kept.float().mean().item() < 0.85
+    assert torch.equal(drop(x, train=False), x)
