@@ -19,7 +19,11 @@ It drives the port only (it imports no jax and nothing of the JAX package):
    K1 (flash_fwd; tensor cores in bf16, SIMT in fp32) at the serving and
    the training shapes, K2 and K3 (flash_bwd_dq, flash_bwd_dkv; tensor
    cores in bf16) at the training shape, each run twice for bit-identity,
-   with the achieved TFLOP/s;
+   with the achieved TFLOP/s; then K1-K3 at head dims the kernels are not
+   built for (the wrapper zero-pads them to 64: the
+   ``examples/long_context.py`` shape B4·Hq4·L512·D16, D = 8 and D = 32)
+   and at B·Hq above the grid's 65535 (launched in batch chunks), and K1
+   at its head dim 256 instantiation;
 4. serving slice: a full-width LlamaLite (vocab 32768, dim 1024, depth 8,
    heads 16, kv_heads 4, bf16 compute, flash attention) with seeded random
    weights, packed into a ModelBlob and installed in a ``ServingGateway``;
@@ -39,7 +43,7 @@ It drives the port only (it imports no jax and nothing of the JAX package):
    fold), every learner's engine on the card: (a) 3 FashionMNIST CNN
    learners x 3 rounds of 20 SGD steps on synthetic 28x28 images, whose
    community test accuracy must rise; (b) 3 full-width LlamaLite learners
-   x 2 rounds of 2 Adam steps, whose K1/K2/K3 launches must equal learners
+   x 1 round of 2 Adam steps, whose K1/K2/K3 launches must equal learners
    x rounds x steps x depth (K1 also once per block per evaluation batch).
    Each round's community model is held, bit for bit, against a FedAvg
    re-fold of the blobs its learners shipped (and, for LlamaLite, against
@@ -47,11 +51,25 @@ It drives the port only (it imports no jax and nothing of the JAX package):
    its stages (learner train, weights copy-out, blob pack, controller
    ingest, fold, downlink unpack, load_flax_variables). The federations
    stop at their ``termination.federation_rounds``. With
-   ``--profile-round`` one more LlamaLite round runs under the profiler.
+   ``--profile-round`` one more LlamaLite round runs under the profiler;
+7. multiprocess: the same two federations through ``DriverSession``, a
+   controller process and one process per learner on the card, over
+   localhost gRPC (the LlamaLite blobs, 755 MB, on the chunked path both
+   ways). The learner recipes record each round's uplinks, the community
+   model each learner received, stage times, peak device memory and
+   K1-K3 launches, and write them at process exit; each community model
+   is held bit for bit against a re-fold of its round's uplinks, K1-K3
+   must launch 72/48/48 times per LlamaLite round across the learner
+   processes, the CNN's accuracy must rise, and every process must exit 0
+   after ``shutdown_federation``. Where grpc or cloudpickle is not
+   installed it prints ``multiprocess: not run: ...`` and runs the rounds
+   through the port's gRPC services' handlers, called directly, instead.
 
 It prints a ``{"federation": {...}}`` line (round walls and their split,
-ms per step, blob bytes, launches), a ``{"kernels": [...]}`` line (each
-kernel's launches by path), the GPU's name and power limit,
+ms per step, blob bytes, launches), a ``{"multiprocess": {...}}`` line
+(the same with a process per learner, and each process's peak device
+memory), a ``{"kernels": [...]}`` line (each kernel's launches by path),
+the GPU's name and power limit,
 and, when every phase passed, ``{"ok": true, "device": {...}}`` as its last
 line. It exits non-zero without a GPU, or outside a checkout.
 """
@@ -60,6 +78,8 @@ from __future__ import annotations
 
 import json
 import os
+import re
+import shutil
 import subprocess
 import sys
 import threading
@@ -84,7 +104,7 @@ MAX_BATCH, SLOTS, MAX_LEN = 4, 4, 512
 TRAIN_ROWS, TRAIN_LEN, TRAIN_BATCH, TRAIN_STEPS = 16, 1024, 8, 6
 # federation phase: 3 learners; (a) FashionMNIST-shaped CNN, 3 rounds of
 # 20 SGD steps over 600 synthetic examples each, a 600-example test split;
-# (b) the LlamaLite above at full width, 2 rounds of 2 Adam steps over 16
+# (b) the LlamaLite above at full width, 1 round of 2 Adam steps over 16
 # random-token rows each (batch TRAIN_BATCH, length TRAIN_LEN), evaluated
 # on 8 held-out rows
 FED_LEARNERS = 3
@@ -94,7 +114,10 @@ CNN_ROUNDS, CNN_EXAMPLES, CNN_TEST, CNN_BATCH, CNN_STEPS = 3, 600, 600, 32, 20
 # CPU rehearsal), so a rise across rounds could not show; at 1.0 it reads
 # 0.49, 1.0, 1.0 there
 CNN_NOISE = 1.0
-FED_ROUNDS, FED_STEPS, FED_ROWS, FED_EVAL_ROWS = 2, 2, 16, 8
+FED_ROUNDS, FED_STEPS, FED_ROWS, FED_EVAL_ROWS = 1, 2, 16, 8
+# multiprocess phase: the LlamaLite federation above with a process per
+# learner, 2 rounds (in process it runs 1, for the script's time)
+MP_ROUNDS = 2
 # the community model against a float64 weighted mean of the uplinks,
 # relative to max|w| per tensor (an f32 accumulator over 3 models)
 FED_F64_REL = 1e-6
@@ -837,10 +860,10 @@ def _accuracies(stats, key="accuracy"):
     return out
 
 
-def federation_phase(smoke, gpu):
+def federation_phase(smoke, gpu, label="federation", make_federation=None):
     """(a) a FashionMNIST CNN round and (b) a full-width LlamaLite round,
-    each through the port's InProcessFederation with its learners on
-    ``DEVICE``."""
+    each through the port's InProcessFederation (or ``make_federation``)
+    with its learners on ``DEVICE``."""
     import torch
 
     from metisfl_tpu_torch.comm import TrainParams
@@ -851,6 +874,8 @@ def federation_phase(smoke, gpu):
         TerminationConfig,
     )
     from metisfl_tpu_torch.driver import InProcessFederation
+
+    make_federation = make_federation or InProcessFederation
     from metisfl_tpu_torch.models import ArrayDataset, TorchModelOps
     from metisfl_tpu_torch.models.zoo import FashionMnistCNN, LlamaLite
     from metisfl_tpu_torch.ops.flash_attention import (
@@ -872,7 +897,7 @@ def federation_phase(smoke, gpu):
         eval=EvalConfig(batch_size=256, datasets=["test"],
                         metrics=["loss", "accuracy"]),
         termination=TerminationConfig(federation_rounds=CNN_ROUNDS))
-    fed = InProcessFederation(cfg)
+    fed = make_federation(cfg)
     template = None
     for i in range(FED_LEARNERS):
         ops = TorchModelOps(FashionMnistCNN(), rng_seed=SEED, device=DEVICE,
@@ -884,23 +909,23 @@ def federation_phase(smoke, gpu):
     fed.seed_model(template)
     probe, stats = run_federation(fed)
     smoke.check(stats["global_iteration"] >= CNN_ROUNDS,
-                f"cnn federation: {stats['global_iteration']} of "
+                f"cnn {label}: {stats['global_iteration']} of "
                 f"{CNN_ROUNDS} rounds complete")
     on_device = all(p.device.type == torch.device(DEVICE).type
                     for learner in fed.learners
                     for p in learner.model_ops.module.parameters())
-    smoke.check(on_device, f"cnn federation: every learner's parameters "
+    smoke.check(on_device, f"cnn {label}: every learner's parameters "
                 f"are on {DEVICE}")
     acc = _accuracies(stats)
     smoke.check(len(acc) >= CNN_ROUNDS and acc[CNN_ROUNDS - 1] > acc[0]
                 and acc[CNN_ROUNDS - 1] > 0.1,
-                f"cnn federation: community test accuracy by round "
+                f"cnn {label}: community test accuracy by round "
                 f"{[round(a, 4) for a in acc]} rises above the first "
                 "round's and above chance (0.1)")
-    check_folds(smoke, "cnn federation", probe, stats, CNN_ROUNDS)
+    check_folds(smoke, f"cnn {label}", probe, stats, CNN_ROUNDS)
     walls = [m["completed_at"] - m["started_at"]
              for m in stats["round_metadata"][:CNN_ROUNDS]]
-    print(f"cnn federation: round walls {[round(w, 3) for w in walls]} s",
+    print(f"cnn {label}: round walls {[round(w, 3) for w in walls]} s",
           flush=True)
     out["cnn"] = {"rounds": CNN_ROUNDS, "round_wall_s": walls,
                   "test_accuracy": acc, "wall_s": stats["wall_s"],
@@ -909,7 +934,7 @@ def federation_phase(smoke, gpu):
     if DEVICE == "cuda":
         torch.cuda.empty_cache()
 
-    # (b) full-width LlamaLite: 3 learners x 2 rounds of 2 Adam steps
+    # (b) full-width LlamaLite: 3 learners x FED_ROUNDS of 2 Adam steps
     llama = dict(vocab_size=VOCAB, dim=DIM, depth=DEPTH, heads=HEADS,
                  kv_heads=KV_HEADS, dtype=torch.bfloat16)
     variables = random_variables(LlamaLite(**llama, device="meta"), SEED)
@@ -930,7 +955,7 @@ def federation_phase(smoke, gpu):
                         tokens[-FED_EVAL_ROWS:, 1:])
 
     def llama_federation(rounds):
-        fed = InProcessFederation(llama_config(rounds))
+        fed = make_federation(llama_config(rounds))
         for i in range(FED_LEARNERS):
             rows = tokens[i * FED_ROWS:(i + 1) * FED_ROWS]
             ops = TorchModelOps(LlamaLite(**llama, use_flash=True),
@@ -944,7 +969,7 @@ def federation_phase(smoke, gpu):
     t0 = time.perf_counter()
     fed = llama_federation(FED_ROUNDS)
     n_params = fed.learners[0].model_ops.param_count()
-    print(f"llama federation: {FED_LEARNERS} learners of {n_params} params "
+    print(f"llama {label}: {FED_LEARNERS} learners of {n_params} params "
           f"built in {time.perf_counter() - t0:.3f} s", flush=True)
     counters = (flash_attention_fwd, flash_bwd_dq, flash_bwd_dkv)
     for fn in counters:
@@ -956,14 +981,14 @@ def federation_phase(smoke, gpu):
         torch.cuda.synchronize()
     k1, k2, k3 = (fn.launches for fn in counters)
     smoke.check(stats["global_iteration"] >= FED_ROUNDS,
-                f"llama federation: {stats['global_iteration']} of "
+                f"llama {label}: {stats['global_iteration']} of "
                 f"{FED_ROUNDS} rounds complete")
     train_launches = FED_LEARNERS * FED_ROUNDS * FED_STEPS * DEPTH
     eval_batches = -(-FED_EVAL_ROWS // TRAIN_BATCH)
     eval_launches = FED_LEARNERS * FED_ROUNDS * eval_batches * DEPTH
     smoke.check(k2 == k3 == train_launches
                 and k1 == train_launches + eval_launches,
-                f"llama federation: K2 {k2} and K3 {k3} launches = learners "
+                f"llama {label}: K2 {k2} and K3 {k3} launches = learners "
                 f"x rounds x steps x depth = {train_launches}; K1 {k1} = "
                 f"{train_launches} + {eval_launches} (evaluation)")
     losses = [v["loss"] for m in stats["round_metadata"][:FED_ROUNDS]
@@ -971,10 +996,10 @@ def federation_phase(smoke, gpu):
     eval_losses = _accuracies(stats, "loss")
     smoke.check(len(losses) == FED_LEARNERS * FED_ROUNDS
                 and all(np.isfinite(losses + eval_losses)),
-                f"llama federation: train losses "
+                f"llama {label}: train losses "
                 f"{[round(v, 4) for v in losses]} and community eval losses "
                 f"{[round(v, 4) for v in eval_losses]} finite")
-    worst = check_folds(smoke, "llama federation", probe, stats, FED_ROUNDS,
+    worst = check_folds(smoke, f"llama {label}", probe, stats, FED_ROUNDS,
                         f64_rel=FED_F64_REL)
     split = probe.split(stats)
     out["llama"] = {
@@ -992,7 +1017,7 @@ def federation_phase(smoke, gpu):
         "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9
         if DEVICE == "cuda" else None,
     }
-    print(f"llama federation: round walls "
+    print(f"llama {label}: round walls "
           f"{[round(s['wall_s'], 3) for s in split]} s", flush=True)
     del fed, probe
     if PROFILE_ROUND and DEVICE == "cuda":
@@ -1007,7 +1032,549 @@ def federation_phase(smoke, gpu):
         del fed
     del variables
     out["gpu"] = gpu
-    print(json.dumps({"federation": out}), flush=True)
+    print(json.dumps({label: out}), flush=True)
+    return out
+
+
+class DirectClient:
+    """A stand-in for ``RpcClient`` where grpc is not installed: it calls a
+    service's handler in this process, with the same bytes a gRPC call
+    would carry (asynchronous calls on a thread of their own)."""
+
+    def __init__(self, service):
+        self.handlers = service.handlers
+        self.threads = []
+
+    def call(self, method, payload, **kwargs):
+        return self.handlers[method](payload)
+
+    def call_async(self, method, payload, callback=None,
+                   error_callback=None, **kwargs):
+        def run():
+            try:
+                result = self.handlers[method](payload)
+            except Exception as exc:  # noqa: BLE001 - as a failed RPC
+                if error_callback is None:
+                    raise
+                error_callback(exc)
+                return
+            if callback is not None:
+                callback(result)
+
+        thread = threading.Thread(target=run, daemon=True)
+        self.threads.append(thread)
+        thread.start()
+
+    def close(self):
+        for thread in self.threads:
+            thread.join(timeout=60)
+
+
+def _service(server, name):
+    return next(s for s in server.services if s.service_name == name)
+
+
+def wire_federation_class():
+    """``WireFederation``: the in-process federation's interface over the
+    port's ``ControllerServer`` and ``LearnerServer`` handlers, wired by
+    :class:`DirectClient`s, so every message crosses the codec, the
+    messages and the services as over gRPC."""
+    from metisfl_tpu_torch.controller.service import (
+        CONTROLLER_SERVICE,
+        LEARNER_SERVICE,
+        ControllerClient,
+        ControllerServer,
+        RpcLearnerProxy,
+    )
+    from metisfl_tpu_torch.driver import InProcessFederation
+    from metisfl_tpu_torch.learner import Learner
+    from metisfl_tpu_torch.learner.service import LearnerServer
+    from metisfl_tpu_torch.tensor import pack_model
+
+    class DirectLearnerProxy(RpcLearnerProxy):
+        def __init__(self, record, client):
+            self._learner_id = record.learner_id
+            self._client = client
+
+    class DirectControllerClient(ControllerClient):
+        def __init__(self, client):
+            self._client = client
+
+        def _call(self, method, payload, **kwargs):
+            return self._client.call(method, payload)
+
+    class WireFederation(InProcessFederation):
+        def __init__(self, config):
+            self._servers = {}
+            self._clients = []
+            super().__init__(config)
+            self.server = ControllerServer(self.controller)
+
+        def _direct(self, service):
+            client = DirectClient(service)
+            self._clients.append(client)
+            return client
+
+        def _make_proxy(self, record):
+            server = self._servers[record.port]
+            return DirectLearnerProxy(record, self._direct(
+                _service(server, LEARNER_SERVICE)))
+
+        def _controller_client(self):
+            return DirectControllerClient(self._direct(
+                _service(self.server, CONTROLLER_SERVICE)))
+
+        def add_learner(self, model_ops, train_dataset, val_dataset=None,
+                        test_dataset=None):
+            port = 50100 + len(self.learners)
+            learner = Learner(model_ops=model_ops,
+                              train_dataset=train_dataset,
+                              val_dataset=val_dataset,
+                              test_dataset=test_dataset, port=port,
+                              controller=self._controller_client())
+            self._servers[port] = LearnerServer(learner)
+            self.learners.append(learner)
+            return learner
+
+        def seed_model(self, variables):
+            self._controller_client().replace_community_model(
+                pack_model(variables))
+
+        def shutdown(self):
+            for server in self._servers.values():
+                server.stop(leave=False)
+            self.server.stop()
+            for client in self._clients:
+                client.close()
+
+    return WireFederation
+
+
+def wire_phase(smoke, gpu):
+    """The federation phase's CNN and LlamaLite rounds through the port's
+    services, wired by direct calls in place of gRPC."""
+    return federation_phase(smoke, gpu, label="wire",
+                            make_federation=wire_federation_class())
+
+
+# -- multiprocess phase: the same rounds with one process per learner, over
+# localhost gRPC, through DriverSession
+
+MP_DIR = os.path.join(REPO, "build", "chip_smoke_multiprocess")
+# a bound on every wait of the phase (process boot, rounds, shutdown)
+MP_TIMEOUT_S = 600.0
+
+
+def mp_recipe(kind, x, y, test_x, test_y, seed, device, out_dir, gate):
+    """A learner recipe for ``DriverSession``: the engine on ``device``,
+    wrapped to record what the phase checks without work on the timed
+    path. It keeps a reference to each community model a train task
+    starts from and to the weights each task ships (the learner ships
+    exactly ``TrainOutput.variables``), notes each stage's start and end,
+    and at process exit writes them, the process's peak device memory and
+    its K1-K3 launches into ``out_dir``. Training waits for ``gate``, so
+    that round 0's cohort is every learner."""
+
+    def recipe():
+        import atexit
+        import copy
+        import json
+        import os
+        import time
+
+        import numpy as np
+        import torch
+
+        from metisfl_tpu_torch.models import ArrayDataset, TorchModelOps
+        from metisfl_tpu_torch.models.zoo import FashionMnistCNN, LlamaLite
+        from metisfl_tpu_torch.ops.flash_attention import (
+            flash_attention_fwd,
+            flash_bwd_dkv,
+            flash_bwd_dq,
+        )
+        from metisfl_tpu_torch.tensor.pytree import ModelBlob
+
+        on_cuda = device == "cuda"
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        if kind == "cnn":
+            module = FashionMnistCNN()
+        else:
+            module = LlamaLite(vocab_size=VOCAB, dim=DIM, depth=DEPTH,
+                               heads=HEADS, kv_heads=KV_HEADS,
+                               dtype=torch.bfloat16, use_flash=True)
+        ops = TorchModelOps(module, rng_seed=seed, device=device)
+        rec = {"set_variables": [], "train": [], "evaluate": [],
+               "blob_parse": [], "blob_pack": []}
+        downs, ups = [], []
+        # the learner parses every community blob it receives and packs
+        # every uplink with these (this process's class, timed in place)
+        from_bytes, to_bytes = ModelBlob.from_bytes, ModelBlob.to_bytes
+
+        def timed_from_bytes(cls, data):
+            t0 = time.time()
+            blob = from_bytes(data)
+            rec["blob_parse"].append([t0, time.time()])
+            return blob
+
+        def timed_to_bytes(self):
+            t0 = time.time()
+            out = to_bytes(self)
+            rec["blob_pack"].append([t0, time.time()])
+            return out
+
+        ModelBlob.from_bytes = classmethod(timed_from_bytes)
+        ModelBlob.to_bytes = timed_to_bytes
+        set_variables, train, evaluate = (ops.set_variables, ops.train,
+                                          ops.evaluate)
+
+        def timed_set_variables(variables):
+            t0 = time.time()
+            set_variables(variables)
+            if on_cuda:
+                torch.cuda.synchronize()
+            rec["set_variables"].append([t0, time.time()])
+            downs.append(variables)
+
+        def timed_train(dataset, params, *args, **kwargs):
+            deadline = time.time() + MP_TIMEOUT_S
+            while not os.path.exists(gate) and time.time() < deadline:
+                time.sleep(0.05)
+            t0 = time.time()
+            out = train(dataset, params, *args, **kwargs)
+            rec["train"].append([t0, time.time(), out.ms_per_step])
+            # on the card TrainOutput.variables is a fresh host copy; on
+            # the CPU its arrays share the parameters' memory, which the
+            # next task trains in place
+            ups.append(out.variables if on_cuda else copy.deepcopy(
+                out.variables))
+            return out
+
+        def timed_evaluate(*args, **kwargs):
+            t0 = time.time()
+            out = evaluate(*args, **kwargs)
+            rec["evaluate"].append([t0, time.time()])
+            return out
+
+        def flat(tree, prefix=""):
+            out = {}
+            for key in sorted(tree):
+                name = f"{prefix}/{key}" if prefix else key
+                leaf = tree[key]
+                if isinstance(leaf, dict):
+                    out.update(flat(leaf, name))
+                else:
+                    out[name] = (leaf.numpy() if torch.is_tensor(leaf)
+                                 else np.asarray(leaf))
+            return out
+
+        def dump():
+            rec["device"] = str(next(module.parameters()).device)
+            rec["peak_memory_gb"] = (torch.cuda.max_memory_allocated() / 1e9
+                                     if on_cuda else None)
+            rec["launches"] = {fn.__name__: fn.launches for fn in (
+                flash_attention_fwd, flash_bwd_dq, flash_bwd_dkv)}
+            for r, tree in enumerate(ups):
+                np.savez(os.path.join(out_dir, f"up_{r}.npz"), **flat(tree))
+            # round r's community model is what round r + 1 starts from
+            for r, tree in enumerate(downs[1:]):
+                np.savez(os.path.join(out_dir, f"community_{r}.npz"),
+                         **flat(tree))
+            with open(os.path.join(out_dir, "record.json"), "w") as f:
+                json.dump(rec, f)
+
+        ops.set_variables = timed_set_variables
+        ops.train = timed_train
+        ops.evaluate = timed_evaluate
+        atexit.register(dump)
+        return (ops, ArrayDataset(x, y, seed=seed), None,
+                ArrayDataset(test_x, test_y))
+
+    return recipe
+
+
+def _npz(path):
+    with np.load(path) as data:
+        return {k: data[k] for k in data.files}
+
+
+def run_multiprocess(smoke, label, kind, shards, test, train, eval_cfg,
+                     rounds, template):
+    """One DriverSession federation of ``len(shards)`` learner processes
+    and a controller process; returns (statistics, per-learner records,
+    learner ids by index, workdir, the final community blob, walls)."""
+    from metisfl_tpu_torch.config import (
+        AggregationConfig,
+        FederationConfig,
+        LearnerEndpoint,
+        TerminationConfig,
+    )
+    from metisfl_tpu_torch.controller.service import ControllerClient
+    from metisfl_tpu_torch.driver import DriverSession
+
+    workdir = os.path.join(MP_DIR, label)
+    shutil.rmtree(workdir, ignore_errors=True)
+    os.makedirs(workdir)
+    gate = os.path.join(workdir, "gate")
+    recipes = []
+    for i, (x, y) in enumerate(shards):
+        out_dir = os.path.join(workdir, f"record_{i}")
+        os.makedirs(out_dir)
+        recipes.append(mp_recipe(kind, x, y, test[0], test[1], SEED + i,
+                                 DEVICE, out_dir, gate))
+    config = FederationConfig(
+        controller_port=0,
+        aggregation=AggregationConfig(scaler="train_dataset_size"),
+        train=train, eval=eval_cfg,
+        termination=TerminationConfig(federation_rounds=rounds),
+        learners=[LearnerEndpoint() for _ in shards])
+    session = DriverSession(config, template, recipes, workdir=workdir,
+                            device=DEVICE)
+    client = None
+    t0 = time.perf_counter()
+    try:
+        session.initialize_federation(
+            health_retries=int(MP_TIMEOUT_S / 0.5), health_sleep_s=0.5)
+        client = ControllerClient("localhost", config.controller_port)
+        deadline = time.time() + MP_TIMEOUT_S
+        while len(client.list_learners()) < len(shards):
+            session._check_procs_alive()
+            if time.time() > deadline:
+                raise RuntimeError(f"{label}: learners never all joined")
+            time.sleep(0.1)
+        ports = {}
+        for i in range(len(shards)):
+            with open(os.path.join(workdir, f"learner_{i}.log")) as f:
+                ports[int(re.search(r"LEARNER_READY port=(\d+)",
+                                    f.read()).group(1))] = i
+        ids = {ports[ep["port"]]: ep["learner_id"]
+               for ep in client.list_learners()}
+        boot_s = time.perf_counter() - t0
+        with open(gate, "w"):
+            pass
+        t1 = time.perf_counter()
+        stats = session.monitor_federation(poll_every_s=0.25)
+        run_s = time.perf_counter() - t1
+        final = client.get_community_model()
+    finally:
+        if client is not None:
+            client.close()
+        t2 = time.perf_counter()
+        session.shutdown_federation(timeout_s=MP_TIMEOUT_S)
+        shutdown_s = time.perf_counter() - t2
+    codes = session.process_exit_codes()
+    smoke.check(len(codes) == len(shards) + 1
+                and all(c == 0 for c in codes.values()),
+                f"{label}: every process exits 0 after shutdown_federation "
+                f"{codes}")
+    records = []
+    for i in range(len(shards)):
+        with open(os.path.join(workdir, f"record_{i}", "record.json")) as f:
+            records.append(json.load(f))
+    smoke.check(all(r["device"].startswith(DEVICE) for r in records),
+                f"{label}: every learner's engine ran on {DEVICE}: "
+                f"{[r['device'] for r in records]}")
+    walls = {"boot_s": boot_s, "rounds_s": run_s, "shutdown_s": shutdown_s}
+    return stats, records, ids, workdir, final, walls
+
+
+def check_mp_folds(smoke, label, stats, ids, workdir, sizes, final, rounds):
+    """Each round's community model, as every learner received it (the
+    last round's from the controller), bit for bit against a FedAvg
+    re-fold of that round's uplinks in the order the controller folded
+    them, scaled as its scaler scales them."""
+    from metisfl_tpu_torch.aggregation import FedAvg
+    from metisfl_tpu_torch.scaling import make_scaler
+    from metisfl_tpu_torch.tensor import ModelBlob
+    from metisfl_tpu_torch.tensor.pytree import to_numpy
+
+    index = {lid: i for i, lid in ids.items()}
+    scaler = make_scaler("train_dataset_size")
+    last = {n: to_numpy(t) for n, t in ModelBlob.from_bytes(final).tensors}
+    for r in range(rounds):
+        selected = stats["round_metadata"][r]["selected_learners"]
+        smoke.check(sorted(index[lid] for lid in selected)
+                    == list(range(len(ids))),
+                    f"{label} round {r}: the cohort is every learner")
+        scales = scaler({lid: {"num_train_examples": sizes[index[lid]]}
+                         for lid in selected})
+        want = FedAvg().aggregate([
+            ([_npz(os.path.join(workdir, f"record_{index[lid]}",
+                                f"up_{r}.npz"))], scales[lid])
+            for lid in selected])
+        gots = ([last] if r == rounds - 1 else
+                [_npz(os.path.join(workdir, f"record_{i}",
+                                   f"community_{r}.npz"))
+                 for i in range(len(ids))])
+        same = all(sorted(got) == sorted(want) and all(
+            got[k].dtype == want[k].dtype
+            and got[k].tobytes() == want[k].tobytes() for k in want)
+            for got in gots)
+        holder = ("the controller holds" if r == rounds - 1
+                  else "every learner received")
+        smoke.check(same, f"{label} round {r}: the community model {holder} "
+                    f"equals a FedAvg re-fold of the {len(selected)} "
+                    "uplinks, bit for bit")
+        del want, gots
+
+
+def mp_split(stats, records, ids, rounds):
+    """Per round: the wall and its stages. Learner stages come from the
+    learner's own clock and the controller's round metadata (one host, one
+    clock): downlink = dispatch to the start of the blob's parse
+    (community envelope encode, send, receive, envelope decode), unpack
+    (blob parse into tensors), load_flax_variables, train (its weights
+    copy-out included), blob pack, and uplink = the end of the pack to
+    the controller's ingest (result envelope encode, send, decode).
+    Controller stages: ingest (blob parse and store insert) per uplink,
+    fold, and the community blob pack."""
+    out = []
+    for r in range(rounds):
+        meta = stats["round_metadata"][r]
+        learners = {}
+        for i, lid in sorted(ids.items()):
+            rec = records[i]
+            sv0, sv1 = rec["set_variables"][r]
+            tr0, tr1, ms = rec["train"][r]
+            # the train task's parse is the last one before its load
+            # (evaluation tasks parse community blobs too)
+            parse0 = max(t0 for t0, t1 in rec["blob_parse"] if t1 <= sv0)
+            pack0, pack1 = rec["blob_pack"][r]
+            learners[lid] = {
+                "downlink_s": parse0 - meta["train_submitted_at"][lid],
+                "unpack_s": sv0 - parse0,
+                "load_flax_variables_s": sv1 - sv0,
+                "train_s": tr1 - tr0,
+                "blob_pack_s": pack1 - pack0,
+                "uplink_s": meta["train_received_at"][lid] - pack1,
+                "ms_per_step": ms,
+            }
+        pack = meta["community_pack_duration_ms"] / 1e3
+        out.append({
+            "round": r,
+            "wall_s": meta["completed_at"] - meta["started_at"],
+            "learners": learners,
+            "controller_s": {
+                "ingest_per_uplink": float(np.mean(list(
+                    meta["model_insertion_duration_ms"].values()))) / 1e3,
+                "fold": meta["aggregation_duration_ms"] / 1e3 - pack,
+                "community_pack": pack,
+            },
+            "uplink_bytes": meta["uplink_bytes"],
+        })
+    return out
+
+
+def multiprocess_phase(smoke, gpu):
+    """(a) the CNN and (b) the full-width LlamaLite federation of the
+    federation phase, each with one controller process and one process per
+    learner on ``DEVICE``, over localhost gRPC through DriverSession. The
+    blobs of (b) (755 MB) travel the chunked path both ways. Without grpc
+    or cloudpickle the phase cannot run; the wire phase takes its place."""
+    for name in ("grpc", "cloudpickle"):
+        try:
+            __import__(name)
+        except ImportError:
+            print(f"multiprocess: not run: {name} is not installed on this "
+                  "machine", flush=True)
+            return wire_phase(smoke, gpu)
+    import torch
+
+    from metisfl_tpu_torch.comm import TrainParams
+    from metisfl_tpu_torch.config import EvalConfig
+    from metisfl_tpu_torch.models import TorchModelOps
+    from metisfl_tpu_torch.models.zoo import FashionMnistCNN, LlamaLite
+
+    out = {"learners": FED_LEARNERS}
+    # (a) FashionMNIST CNN, the federation phase's data and settings
+    x, y = synthetic_image_classification(
+        FED_LEARNERS * CNN_EXAMPLES + CNN_TEST, noise=CNN_NOISE, seed=SEED)
+    shards = [(x[i * CNN_EXAMPLES:(i + 1) * CNN_EXAMPLES],
+               y[i * CNN_EXAMPLES:(i + 1) * CNN_EXAMPLES])
+              for i in range(FED_LEARNERS)]
+    test = (x[-CNN_TEST:], y[-CNN_TEST:])
+    template = TorchModelOps(FashionMnistCNN(), rng_seed=SEED,
+                             device="cpu").get_variables()
+    stats, records, ids, workdir, final, walls = run_multiprocess(
+        smoke, "mp cnn", "cnn", shards, test,
+        TrainParams(batch_size=CNN_BATCH, local_steps=CNN_STEPS,
+                    optimizer="sgd", learning_rate=0.05),
+        EvalConfig(batch_size=256, datasets=["test"],
+                   metrics=["loss", "accuracy"]),
+        CNN_ROUNDS, template)
+    check_mp_folds(smoke, "mp cnn", stats, ids, workdir,
+                   [len(s[0]) for s in shards], final, CNN_ROUNDS)
+    acc = _accuracies(stats)
+    smoke.check(len(acc) >= CNN_ROUNDS and acc[CNN_ROUNDS - 1] > acc[0]
+                and acc[CNN_ROUNDS - 1] > 0.1,
+                f"mp cnn: community test accuracy by round "
+                f"{[round(a, 4) for a in acc]} rises above the first "
+                "round's and above chance (0.1)")
+    split = mp_split(stats, records, ids, CNN_ROUNDS)
+    out["cnn"] = {"rounds": CNN_ROUNDS, "test_accuracy": acc,
+                  "round_wall_s": [s["wall_s"] for s in split],
+                  "split": split, **walls,
+                  "peak_memory_gb": [r["peak_memory_gb"] for r in records]}
+    print(f"mp cnn: round walls "
+          f"{[round(s['wall_s'], 3) for s in split]} s", flush=True)
+
+    # (b) full-width LlamaLite, the federation phase's data and settings
+    variables = random_variables(LlamaLite(
+        vocab_size=VOCAB, dim=DIM, depth=DEPTH, heads=HEADS,
+        kv_heads=KV_HEADS, dtype=torch.bfloat16, device="meta"), SEED)
+    tokens = np.random.default_rng(SEED + 5).integers(
+        0, VOCAB, (FED_LEARNERS * FED_ROWS + FED_EVAL_ROWS, TRAIN_LEN + 1)
+    ).astype(np.int32)
+    shards = [(tokens[i * FED_ROWS:(i + 1) * FED_ROWS, :-1],
+               tokens[i * FED_ROWS:(i + 1) * FED_ROWS, 1:])
+              for i in range(FED_LEARNERS)]
+    test = (tokens[-FED_EVAL_ROWS:, :-1], tokens[-FED_EVAL_ROWS:, 1:])
+    stats, records, ids, workdir, final, walls = run_multiprocess(
+        smoke, "mp llama", "llama", shards, test,
+        TrainParams(batch_size=TRAIN_BATCH, local_steps=FED_STEPS,
+                    optimizer="adam", learning_rate=1e-4),
+        EvalConfig(batch_size=TRAIN_BATCH, datasets=["test"],
+                   metrics=["loss", "accuracy"]),
+        MP_ROUNDS, variables)
+    del variables
+    check_mp_folds(smoke, "mp llama", stats, ids, workdir,
+                   [len(s[0]) for s in shards], final, MP_ROUNDS)
+    launches = {name: sum(r["launches"][name] for r in records)
+                for name in ("flash_attention_fwd", "flash_bwd_dq",
+                             "flash_bwd_dkv")}
+    train_launches = FED_LEARNERS * FED_STEPS * DEPTH
+    eval_launches = FED_LEARNERS * -(-FED_EVAL_ROWS // TRAIN_BATCH) * DEPTH
+    k1, k2, k3 = (launches[n] / MP_ROUNDS for n in launches)
+    smoke.check(k2 == k3 == train_launches
+                and k1 == train_launches + eval_launches,
+                f"mp llama: per round across the learner processes K2 {k2} "
+                f"and K3 {k3} launches = learners x steps x depth = "
+                f"{train_launches}; K1 {k1} = {train_launches} + "
+                f"{eval_launches} (evaluation)")
+    losses = [v["loss"] for m in stats["round_metadata"][:MP_ROUNDS]
+              for v in m["train_metrics"].values()]
+    smoke.check(len(losses) == FED_LEARNERS * MP_ROUNDS
+                and all(np.isfinite(losses)),
+                f"mp llama: train losses {[round(v, 4) for v in losses]} "
+                "finite")
+    split = mp_split(stats, records, ids, MP_ROUNDS)
+    out["llama"] = {
+        "rounds": MP_ROUNDS, "steps": FED_STEPS,
+        "round_wall_s": [s["wall_s"] for s in split], "split": split,
+        **walls, "blob_bytes": len(final),
+        "launches": {"flash_fwd": launches["flash_attention_fwd"],
+                     "flash_bwd_dq": launches["flash_bwd_dq"],
+                     "flash_bwd_dkv": launches["flash_bwd_dkv"]},
+        "launches_per_round": {"flash_fwd": k1, "flash_bwd_dq": k2,
+                               "flash_bwd_dkv": k3},
+        "train_losses": losses,
+        "peak_memory_gb": [r["peak_memory_gb"] for r in records],
+    }
+    print(f"mp llama: round walls "
+          f"{[round(s['wall_s'], 3) for s in split]} s", flush=True)
+    shutil.rmtree(MP_DIR, ignore_errors=True)
+    out["gpu"] = gpu
+    print(json.dumps({"multiprocess": out}), flush=True)
     return out
 
 
@@ -1120,6 +1687,24 @@ def main() -> int:
     smoke.phase("kernel vs plain: flash_bwd ragged fp32 D=128",
                 backward_case, smoke, "flash_bwd_ragged_fp32", 2, 8, 8, 1000,
                 128, "float32", False, 1e-4)
+    # head dims the kernels are not built for (zero-padded to 64 in the
+    # wrapper), and B·Hq above gridDim.y's 65535 (launched in batch chunks)
+    for name, shape in (
+            # examples/long_context.py's shape
+            ("long_context_d16", (4, 4, 4, 512, 16)),
+            ("d8", (2, 16, 4, 1024, 8)),
+            ("d32", (2, 16, 4, 1024, 32)),
+            ("grid_b4100", (4100, 16, 4, 16, 64))):
+        smoke.phase(f"kernel vs plain: flash_fwd {name}", attention_case,
+                    smoke, f"flash_fwd_{name}", *shape, "bfloat16", True,
+                    2e-2, 1e-3)
+        smoke.phase(f"kernel vs plain: flash_bwd {name}", backward_case,
+                    smoke, f"flash_bwd_{name}", *shape, "bfloat16", True,
+                    2e-2)
+    # K1's head dim 256 instantiation (the backward kernels stop at 128)
+    smoke.phase("kernel vs plain: flash_fwd d256", attention_case, smoke,
+                "flash_fwd_d256", 2, 16, 4, 1024, 256, "bfloat16", True,
+                2e-2, 1e-3)
     sliced = smoke.phase("slice: Predict and Generate through the gateway",
                          slice_phase, smoke, gpu)
     torch.cuda.empty_cache()
@@ -1129,22 +1714,33 @@ def main() -> int:
     federated = smoke.phase("slice: synchronous FedAvg rounds through "
                             "InProcessFederation", federation_phase, smoke,
                             gpu)
+    # the phase's processes need the card's memory: this process keeps only
+    # its CUDA context
+    torch.cuda.empty_cache()
+    multiprocess = smoke.phase(
+        "slice: FedAvg rounds with a process per learner through "
+        "DriverSession over gRPC", multiprocess_phase, smoke, gpu)
 
     # launches on each path that runs a kernel (each path's counts set to
     # 0 just before it and read just after): K1 on every path
     train_launches = (trained or {}).get("launches", {})
     fed_launches = ((federated or {}).get("llama") or {}).get("launches", {})
+    # the learner processes' launches (or the wire phase's, in its place)
+    mp_launches = ((multiprocess or {}).get("llama") or {}).get(
+        "launches", {})
     serve_k1 = (sliced or {}).get("flash_launches", 0)
     rows = []
     if main_case is not None:
         by_path = {"serve": serve_k1,
                    "train": train_launches.get("flash_fwd", 0),
-                   "federation": fed_launches.get("flash_fwd", 0)}
+                   "federation": fed_launches.get("flash_fwd", 0),
+                   "multiprocess": mp_launches.get("flash_fwd", 0)}
         rows.append(("flash_fwd", "flash_fwd.cu", 76, main_case,
                      sum(by_path.values()), by_path))
     for record, line in zip(bwd_cases or [], (126, 162)):
         by_path = {"train": train_launches.get(record["name"], 0),
-                   "federation": fed_launches.get(record["name"], 0)}
+                   "federation": fed_launches.get(record["name"], 0),
+                   "multiprocess": mp_launches.get(record["name"], 0)}
         rows.append((record["name"], "flash_bwd.cu", line, record,
                      sum(by_path.values()), by_path))
     kernels = []

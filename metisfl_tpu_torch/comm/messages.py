@@ -1,11 +1,12 @@
 """The port's copies of the JAX package's federation messages
 (``comm/messages.py``): ``TrainParams``, ``JoinRequest``/``JoinReply``,
 ``TrainTask``/``TaskResult`` and ``EvalTask``/``EvalResult``, with the same
-field names and defaults, as plain dataclasses. The ``Message`` base class
-and its wire codec are not ported yet: the in-process federation passes
-the dataclasses by direct call, and since every field keeps its name, a
-learner or controller of either package reads the other's messages by
-attribute.
+field names and defaults. Each is a :class:`Message`: ``to_wire`` encodes
+its fields, nested messages as dicts, with the codec (``comm/codec.py``)
+and ``from_wire`` reads them back, ignoring fields it does not know. Since
+every field keeps its name, the bytes equal the JAX package's for the same
+values, and a learner or controller of either package reads the other's
+messages, over the wire or by attribute in one process.
 
 Fields that matter only to the JAX engine are kept so that one task's
 parameters fit both engines: ``profile_dir`` and ``profile_steps`` are
@@ -18,12 +19,65 @@ learner and the aggregation slices.
 
 from __future__ import annotations
 
+import dataclasses
+import functools
 from dataclasses import dataclass, field
-from typing import Any, Dict, List
+from typing import Any, Dict, List, get_type_hints
+
+from metisfl_tpu_torch.comm.codec import dumps, loads
+
+
+@functools.lru_cache(maxsize=None)
+def _hints_for(cls):
+    return get_type_hints(cls)
+
+
+class Message:
+    """Base of the messages: dataclass ⇄ codec bytes, nested messages
+    included."""
+
+    def to_dict(self) -> dict:
+        out = {}
+        for f in dataclasses.fields(self):
+            value = getattr(self, f.name)
+            if isinstance(value, Message):
+                value = value.to_dict()
+            elif (isinstance(value, list) and value
+                  and isinstance(value[0], Message)):
+                value = [v.to_dict() for v in value]
+            out[f.name] = value
+        return out
+
+    @classmethod
+    def from_dict(cls, data: dict):
+        hints = _hints_for(cls)
+        kwargs = {}
+        for f in dataclasses.fields(cls):
+            if f.name not in data:
+                continue
+            value = data[f.name]
+            hint = hints.get(f.name)
+            if (isinstance(hint, type) and issubclass(hint, Message)
+                    and isinstance(value, dict)):
+                value = hint.from_dict(value)
+            elif isinstance(value, list):
+                args = getattr(hint, "__args__", ())
+                if (args and isinstance(args[0], type)
+                        and issubclass(args[0], Message)):
+                    value = [args[0].from_dict(v) for v in value]
+            kwargs[f.name] = value
+        return cls(**kwargs)
+
+    def to_wire(self) -> bytes:
+        return dumps(self.to_dict())
+
+    @classmethod
+    def from_wire(cls, buf):
+        return cls.from_dict(loads(buf))
 
 
 @dataclass
-class TrainParams:
+class TrainParams(Message):
     """Local-training hyperparameters shipped with every task."""
 
     batch_size: int = 32
@@ -60,7 +114,7 @@ class TrainParams:
 
 
 @dataclass
-class JoinRequest:
+class JoinRequest(Message):
     hostname: str = "localhost"
     port: int = 0
     num_train_examples: int = 0
@@ -73,7 +127,7 @@ class JoinRequest:
 
 
 @dataclass
-class JoinReply:
+class JoinReply(Message):
     learner_id: str = ""
     auth_token: str = ""
     rejoined: bool = False
@@ -82,7 +136,7 @@ class JoinReply:
 
 
 @dataclass
-class TrainTask:
+class TrainTask(Message):
     task_id: str = ""
     learner_id: str = ""
     round_id: int = 0
@@ -97,7 +151,7 @@ class TrainTask:
 
 
 @dataclass
-class TaskResult:
+class TaskResult(Message):
     task_id: str = ""
     learner_id: str = ""
     # the controller accepts a model only with the learner's token
@@ -118,7 +172,7 @@ class TaskResult:
 
 
 @dataclass
-class EvalTask:
+class EvalTask(Message):
     task_id: str = ""
     learner_id: str = ""
     round_id: int = 0
@@ -132,7 +186,7 @@ class EvalTask:
 
 
 @dataclass
-class EvalResult:
+class EvalResult(Message):
     task_id: str = ""
     learner_id: str = ""
     round_id: int = 0

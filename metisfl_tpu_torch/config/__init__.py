@@ -4,8 +4,10 @@ package's ``config`` dataclasses, with the fields the port reads."""
 from metisfl_tpu_torch.config.federation import (
     AggregationConfig,
     CheckpointConfig,
+    CommConfig,
     EvalConfig,
     FederationConfig,
+    LearnerEndpoint,
     ModelStoreConfig,
     SchedulingConfig,
     SecureAggConfig,
@@ -13,11 +15,14 @@ from metisfl_tpu_torch.config.federation import (
     ServingDecodeConfig,
     TerminationConfig,
     TreeAggregationConfig,
+    load_config,
 )
+from metisfl_tpu_torch.comm.ssl import SSLConfig
 
 __all__ = [
     "FederationConfig", "AggregationConfig", "TreeAggregationConfig",
     "SchedulingConfig", "ModelStoreConfig", "SecureAggConfig",
     "TerminationConfig", "CheckpointConfig", "EvalConfig", "ServingConfig",
-    "ServingDecodeConfig",
+    "ServingDecodeConfig", "CommConfig", "LearnerEndpoint", "SSLConfig",
+    "load_config",
 ]

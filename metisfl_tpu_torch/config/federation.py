@@ -2,19 +2,26 @@
 dataclasses (``config/federation.py``) with the fields the port reads.
 
 ``FederationConfig`` covers the synchronous FedAvg round over the
-in-memory store. It refuses at construction what the port does not do yet:
-a request for a protocol, rule, tier, store, uplink encoding or plane that
-is not ported raises ``NotImplementedError`` naming the ROADMAP item that
-queues it, so no configuration is accepted and then silently ignored.
-Values the JAX package rejects raise ``ValueError`` here too.
+in-memory store, with the controller's endpoint, the learners' endpoints,
+the transport's settings and TLS for the multi-process federation. It
+travels to the controller process as codec bytes (``to_wire``) or YAML
+(:func:`load_config`). It refuses at construction what the port does not
+do yet: a request for a protocol, rule, tier, store, uplink encoding or
+plane that is not ported raises ``NotImplementedError`` naming the ROADMAP
+item that queues it, so no configuration is accepted and then silently
+ignored. Values the JAX package rejects raise ``ValueError`` here too.
 """
 
 from __future__ import annotations
 
+import dataclasses
+import typing
 from dataclasses import dataclass, field
 from typing import List
 
+from metisfl_tpu_torch.comm.codec import dumps, loads
 from metisfl_tpu_torch.comm.messages import TrainParams
+from metisfl_tpu_torch.comm.ssl import SSLConfig
 from metisfl_tpu_torch.tensor.spec import resolve_ship_dtype
 
 
@@ -47,9 +54,10 @@ class ServingConfig:
 @dataclass
 class TerminationConfig:
     """When the federation stops. The port's controller dispatches no train
-    task after ``federation_rounds`` rounds (0 = no limit); the wall-clock
-    and metric cutoffs belong to the multi-process ``DriverSession`` and
-    raise."""
+    task after ``federation_rounds`` rounds (0 = no limit). The wall-clock
+    and metric cutoffs are watched by the multi-process ``DriverSession``
+    (``driver/session.py``), which then shuts the federation down; the
+    in-process federation cannot watch them and refuses them."""
 
     federation_rounds: int = 10
     execution_cutoff_mins: float = 0.0       # 0 → no wall-clock cutoff
@@ -112,6 +120,29 @@ class EvalConfig:
     every_n_rounds: int = 1
 
 
+@dataclass
+class CommConfig:
+    """Transport settings (``comm/rpc.py`` ``RpcClient``): the deadline of
+    a call that passes ``timeout=None`` (``<= 0`` = unbounded), and how
+    often and how far apart UNAVAILABLE is retried. DEADLINE_EXCEEDED is
+    retried only for idempotent methods (getters, join, health)."""
+
+    default_deadline_s: float = 120.0
+    retries: int = 10
+    retry_sleep_s: float = 1.0
+
+
+@dataclass
+class LearnerEndpoint:
+    """Where DriverSession launches one learner; port 0 binds an ephemeral
+    port, which the learner reports when it joins."""
+
+    hostname: str = "localhost"
+    port: int = 0
+    # processes for this one learner (multi-host learners: not ported)
+    world_size: int = 1
+
+
 # names the JAX package accepts that the port has not ported yet
 _PROTOCOLS = ("synchronous", "semi_synchronous", "asynchronous",
               "asynchronous_buffered")
@@ -137,6 +168,13 @@ class FederationConfig:
     checkpoint: CheckpointConfig = field(default_factory=CheckpointConfig)
     train: TrainParams = field(default_factory=TrainParams)
     eval: EvalConfig = field(default_factory=EvalConfig)
+    comm: CommConfig = field(default_factory=CommConfig)
+    ssl: SSLConfig = field(default_factory=SSLConfig)
+    # the controller's endpoint; DriverSession binds an ephemeral port and
+    # reads it back when controller_port is 0
+    controller_host: str = "localhost"
+    controller_port: int = 50051
+    learners: List[LearnerEndpoint] = field(default_factory=list)
 
     def __post_init__(self):
         if self.protocol not in _PROTOCOLS:
@@ -171,9 +209,10 @@ class FederationConfig:
         term = self.termination
         if term.federation_rounds < 0:
             raise ValueError("termination.federation_rounds must be >= 0")
-        if term.execution_cutoff_mins > 0 or term.metric_cutoff_score > 0:
-            raise not_ported("wall-clock and metric termination cutoffs",
-                             "3a")
+        if term.execution_cutoff_mins < 0 or term.metric_cutoff_score < 0:
+            raise ValueError("termination cutoffs must be >= 0")
+        if any(ep.world_size > 1 for ep in self.learners):
+            raise not_ported("multi-host learners (world_size > 1)", "9")
         if train.dp_noise_multiplier < 0.0 or train.dp_clip_norm < 0.0:
             raise ValueError("dp_clip_norm and dp_noise_multiplier must be "
                              ">= 0")
@@ -189,3 +228,52 @@ class FederationConfig:
             raise not_ported("downlink_dtype", "3e")
         if train.local_tensor_regex or train.ship_tensor_regex:
             raise not_ported("local_tensor_regex / ship_tensor_regex", "3e")
+
+    def to_wire(self) -> bytes:
+        return dumps(_to_plain(self))
+
+    @classmethod
+    def from_wire(cls, buf) -> "FederationConfig":
+        return _from_plain(cls, loads(buf))
+
+
+def _to_plain(obj):
+    if dataclasses.is_dataclass(obj) and not isinstance(obj, type):
+        return {f.name: _to_plain(getattr(obj, f.name))
+                for f in dataclasses.fields(obj)}
+    if isinstance(obj, list):
+        return [_to_plain(x) for x in obj]
+    if isinstance(obj, dict):
+        return {k: _to_plain(v) for k, v in obj.items()}
+    return obj
+
+
+def _from_plain(cls, data):
+    """A dataclass from plain dicts and lists; fields it does not know are
+    ignored, as the JAX package ignores them."""
+    if not dataclasses.is_dataclass(cls):
+        return data
+    hints = typing.get_type_hints(cls)
+    kwargs = {}
+    for f in dataclasses.fields(cls):
+        if f.name not in data:
+            continue
+        value = data[f.name]
+        hint = hints.get(f.name)
+        if dataclasses.is_dataclass(hint) and isinstance(value, dict):
+            value = _from_plain(hint, value)
+        elif isinstance(value, list):
+            args = typing.get_args(hint)
+            if args and dataclasses.is_dataclass(args[0]):
+                value = [_from_plain(args[0], v) for v in value]
+        kwargs[f.name] = value
+    return cls(**kwargs)
+
+
+def load_config(path: str) -> FederationConfig:
+    """A federation environment from YAML."""
+    import yaml
+
+    with open(path) as f:
+        data = yaml.safe_load(f) or {}
+    return _from_plain(FederationConfig, data)

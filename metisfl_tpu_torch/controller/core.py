@@ -118,6 +118,8 @@ class RoundMetadata:
     aggregation_block_duration_ms: List[float] = field(default_factory=list)
     # select + fold + community blob encode
     aggregation_duration_ms: float = 0.0
+    # of which the community blob encode
+    community_pack_duration_ms: float = 0.0
     dispatch_duration_ms: float = 0.0
     # the contribution weights applied this round
     scales: Dict[str, float] = field(default_factory=dict)
@@ -257,6 +259,12 @@ class Controller:
     def active_learners(self) -> List[str]:
         with self._lock:
             return list(self._learners.keys())
+
+    def learner_endpoints(self) -> List[Dict[str, Any]]:
+        """Registered endpoints with the ports learners reported on join."""
+        with self._lock:
+            return [{"learner_id": r.learner_id, "hostname": r.hostname,
+                     "port": r.port} for r in self._learners.values()]
 
     # ------------------------------------------------------------------ #
     # community model
@@ -467,7 +475,9 @@ class Controller:
             return
         community = self._aggregator.result()
         self._aggregator.reset()
+        p0 = time.perf_counter()
         blob = self._community_to_blob(community)
+        pack_ms = (time.perf_counter() - p0) * 1e3
         agg_ms = (time.perf_counter() - t0) * 1e3
         sizes = {"values": 0, "non_zeros": 0, "zeros": 0, "bytes": 0}
         for arr in community.values():
@@ -483,6 +493,7 @@ class Controller:
             meta.aggregation_block_sizes = block_sizes
             meta.aggregation_block_duration_ms = block_ms
             meta.aggregation_duration_ms = agg_ms
+            meta.community_pack_duration_ms = pack_ms
             meta.model_size = sizes
 
     def _community_to_blob(self, community: Dict[str, np.ndarray]) -> bytes:
@@ -585,11 +596,48 @@ class Controller:
     # lineage
     # ------------------------------------------------------------------ #
 
-    def _snapshot_evaluations(self) -> List[dict]:
-        """Entries copied deep enough to detach the ``evaluations`` dict
-        that eval callbacks keep inserting into. Call with the lock held."""
+    def _snapshot_evaluations(self, tail: int = 0) -> List[dict]:
+        """The last ``tail`` entries (0 = all), copied deep enough to detach
+        the ``evaluations`` dict that eval callbacks keep inserting into.
+        Call with the lock held."""
+        entries = (self.community_evaluations[-tail:] if tail > 0
+                   else self.community_evaluations)
         return [{**e, "evaluations": dict(e["evaluations"])}
-                for e in self.community_evaluations]
+                for e in entries]
+
+    def get_runtime_metadata(self, tail: int = 0) -> List[dict]:
+        """Round metadata, only the last ``tail`` rounds when ``tail > 0``
+        (DriverSession polls this; it must not ship the whole history)."""
+        with self._lock:
+            metas = (self.round_metadata[-tail:] if tail > 0
+                     else self.round_metadata)
+            return [m.to_dict() for m in metas]
+
+    def get_evaluation_lineage(self, tail: int = 0) -> List[dict]:
+        """Community-model evaluations, only the last ``tail`` when
+        ``tail > 0``."""
+        with self._lock:
+            return self._snapshot_evaluations(tail)
+
+    def describe(self) -> dict:
+        """A live snapshot: the round, the protocol, the learners and the
+        community model's size."""
+        with self._lock:
+            blob = self._community_blob
+            return {
+                "global_iteration": self.global_iteration,
+                "protocol": self.config.protocol,
+                "controller_epoch": self.controller_epoch,
+                "learners": [{"learner_id": r.learner_id,
+                              "hostname": r.hostname, "port": r.port,
+                              "num_train_examples": r.num_train_examples}
+                             for r in self._learners.values()],
+                # dispatched this round and not yet reported back
+                "in_flight": sorted(
+                    set(self._current_meta.train_submitted_at)
+                    - set(self._current_meta.train_received_at)),
+                "community_model_bytes": len(blob) if blob else 0,
+            }
 
     def get_statistics(self) -> dict:
         with self._lock:

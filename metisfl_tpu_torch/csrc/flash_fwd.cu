@@ -42,8 +42,13 @@
 //   - O += P V: P rounded to the input dtype in registers is the A operand
 //     (that conversion is the TPU kernel's cast), V is read MN-major (the
 //     reduction runs over keys), one wgmma per 64-column block of D. O
-//     stays in fp32 registers (32 per thread at D = 64, 64 at D = 128)
-//     until one store.
+//     stays in fp32 registers (32 per thread at D = 64, 64 at D = 128, 128
+//     at D = 256) until one store.
+//   - Head dims 64, 128 and 256, the tile shapes unchanged (64-row q and
+//     K/V tiles): shared memory holds Q and two K/V stages in 40, 80 and
+//     160 KB (the SIMT kernel's fp32 tiles 52, 104 and 209 KB), under the
+//     227 KB a block may use. The wrapper pads any other D up to one of
+//     them.
 //   - Causal work is uneven (the last q tile walks every K tile), so the
 //     1-D grid hands out the longest tiles first. No atomics: the same bits
 //     on every run.
@@ -430,7 +435,7 @@ int launch_mma(const Args& a) {
 extern "C" {
 
 // dtype: 0 = float32 (SIMT), 1 = float16, 2 = bfloat16 (tensor cores); D in
-// {64, 128}. Returns 0 on success, the cudaError_t of a refused launch, or -1
+// {64, 128, 256}. Returns 0 on success, the cudaError_t of a refused launch, or -1
 // for arguments the kernel does not take (the Python wrapper checks them
 // first). q and o are (B, Hq, L, D), k and v (B, Hkv, L, D), lse (B, Hq, L)
 // fp32; all contiguous, and for bf16/fp16 q, k and v 16-byte aligned.
@@ -438,18 +443,27 @@ int metisfl_flash_fwd(const void* q, const void* k, const void* v, void* o,
                       void* lse, int B, int Hq, int Hkv, int L, int D,
                       int dtype, int causal, float scale, void* stream) {
   if (B < 1 || Hkv < 1 || Hq % Hkv != 0 || L < 1) return -1;
-  if (D != 64 && D != 128) return -1;
   const Args a{q, k, v, o, static_cast<float*>(lse), B, Hq, Hkv, L, scale,
                causal, static_cast<cudaStream_t>(stream)};
-  const bool d64 = D == 64;
-  switch (dtype) {
-    case 0:
-      return d64 ? launch_simt<64>(a) : launch_simt<128>(a);
-    case 1:
-      return d64 ? launch_mma<__half, 64>(a) : launch_mma<__half, 128>(a);
-    case 2:
-      return d64 ? launch_mma<__nv_bfloat16, 64>(a)
-                 : launch_mma<__nv_bfloat16, 128>(a);
+  switch (dtype * 1000 + D) {
+    case 64:
+      return launch_simt<64>(a);
+    case 128:
+      return launch_simt<128>(a);
+    case 256:
+      return launch_simt<256>(a);
+    case 1064:
+      return launch_mma<__half, 64>(a);
+    case 1128:
+      return launch_mma<__half, 128>(a);
+    case 1256:
+      return launch_mma<__half, 256>(a);
+    case 2064:
+      return launch_mma<__nv_bfloat16, 64>(a);
+    case 2128:
+      return launch_mma<__nv_bfloat16, 128>(a);
+    case 2256:
+      return launch_mma<__nv_bfloat16, 256>(a);
     default:
       return -1;
   }

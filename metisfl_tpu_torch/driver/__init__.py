@@ -1,7 +1,7 @@
-"""Drivers. The port has the in-process federation; the multi-process
-``DriverSession`` waits for the wire codec and gRPC (ROADMAP.md Queue 1
-item 3a)."""
+"""Drivers: the in-process federation, and ``DriverSession``, which runs a
+controller and its learners as processes over gRPC."""
 
 from metisfl_tpu_torch.driver.inprocess import InProcessFederation
+from metisfl_tpu_torch.driver.session import DriverSession, LocalLauncher
 
-__all__ = ["InProcessFederation"]
+__all__ = ["InProcessFederation", "DriverSession", "LocalLauncher"]

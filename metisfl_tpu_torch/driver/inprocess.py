@@ -58,6 +58,12 @@ class InProcessFederation:
     """Wire a controller and learners with direct proxies and run rounds."""
 
     def __init__(self, config: FederationConfig):
+        term = config.termination
+        if term.execution_cutoff_mins > 0 or term.metric_cutoff_score > 0:
+            raise NotImplementedError(
+                "termination cutoffs are watched by DriverSession "
+                "(driver/session.py, ROADMAP.md Queue 1 item 3a); the "
+                "in-process federation cannot watch them")
         self.config = config
         self._learners_by_port: Dict[int, Learner] = {}
         self._proxies: List[_DirectLearnerProxy] = []

@@ -1,0 +1,436 @@
+"""DriverSession: a multi-process federation run from the user's script.
+
+The port's copy of the JAX package's ``driver/session.py``, cut down to
+the synchronous FedAvg federation on localhost processes: it writes the
+config, boots the controller (``python -m metisfl_tpu_torch.controller``),
+waits for it to answer, ships the seed model, launches one learner process
+per recipe (``python -m metisfl_tpu_torch.learner``), watches the three
+termination criteria (rounds, wall clock, a community metric), collects
+the statistics and shuts every process down. Models and data travel as
+one cloudpickled recipe per learner and one ModelBlob; the statistics land
+in ``experiment.json``.
+
+The port's controller dispatches no train task after
+``termination.federation_rounds`` rounds, so the rounds criterion ends an
+idle federation; the two cutoffs end one mid-round.
+
+Not ported, and raising ``NotImplementedError`` with the ROADMAP.md Queue 1
+item: :class:`SSHLauncher` (remote hosts, 3h), ``resume`` and the
+controller's supervision and hot standby (3f), secure-aggregation key
+material (3c, refused by the config), serving (5), and trace and
+post-mortem collection (4).
+"""
+
+from __future__ import annotations
+
+import json
+import logging
+import os
+import re
+import subprocess
+import sys
+import tempfile
+import time
+from dataclasses import dataclass
+from typing import Any, Callable, Dict, List, Optional, Sequence
+
+import cloudpickle
+import numpy as np
+
+from metisfl_tpu_torch.comm.rpc import RpcClient
+from metisfl_tpu_torch.config import FederationConfig, LearnerEndpoint
+from metisfl_tpu_torch.config.federation import not_ported
+from metisfl_tpu_torch.controller.service import (
+    LEARNER_SERVICE,
+    ControllerClient,
+)
+from metisfl_tpu_torch.tensor.pytree import pack_model
+
+logger = logging.getLogger("metisfl_tpu_torch.driver")
+
+_CONTROLLER_READY = re.compile(r"METISFL_TPU_CONTROLLER_READY port=(\d+)")
+_LEARNER_READY = re.compile(r"METISFL_TPU_LEARNER_READY port=(\d+)")
+
+
+@dataclass
+class _Proc:
+    name: str
+    process: subprocess.Popen
+    log_path: str
+
+
+def _terminate_process(process: subprocess.Popen,
+                       grace_s: float = 5.0) -> None:
+    """terminate → wait → kill → reap, never raising: a process stuck in
+    the kernel must not abort the caller's loop, and the last wait records
+    its exit code instead of leaving a zombie."""
+    if process.poll() is not None:
+        return
+    process.terminate()
+    try:
+        process.wait(timeout=grace_s)
+        return
+    except subprocess.TimeoutExpired:
+        pass
+    process.kill()
+    try:
+        process.wait(timeout=grace_s)
+    except subprocess.TimeoutExpired:  # pragma: no cover - unkillable
+        pass
+
+
+class LocalLauncher:
+    """Launch federation processes as localhost subprocesses, each logging
+    to ``<workdir>/<name>.log``."""
+
+    def __init__(self, workdir: str):
+        self.workdir = workdir
+        self.python = sys.executable
+
+    def launch(self, name: str, argv: Sequence[str],
+               env: Dict[str, str]) -> _Proc:
+        log_path = os.path.join(self.workdir, f"{name}.log")
+        with open(log_path, "w") as log:
+            process = subprocess.Popen(
+                list(argv), stdout=log, stderr=subprocess.STDOUT,
+                env={**os.environ, **env})
+        return _Proc(name, process, log_path)
+
+
+class SSHLauncher:
+    """Launching on remote hosts over ssh is not ported."""
+
+    def __init__(self, *args, **kwargs):
+        raise not_ported("SSHLauncher (learners on remote hosts)", "3h")
+
+
+class DriverSession:
+    """Run a multi-process federation on localhost.
+
+    ``learner_recipes``: one zero-argument callable per learner returning
+    ``(model_ops, train_ds, val_ds, test_ds)``, run inside the learner's
+    process. ``device`` is where every learner's engine must run
+    (``cuda`` unless the caller says otherwise; a learner whose recipe
+    built its engine elsewhere refuses to start)."""
+
+    _LOCAL_HOSTS = ("", "localhost", "127.0.0.1")
+
+    def __init__(
+        self,
+        config: FederationConfig,
+        initial_model_variables: Any,
+        learner_recipes: Sequence[Callable[[], tuple]],
+        workdir: Optional[str] = None,
+        learner_env: Optional[Dict[str, str]] = None,
+        resume: bool = False,
+        device: str = "cuda",
+    ):
+        if resume:
+            raise not_ported("resuming a federation from a checkpoint",
+                             "3f")
+        self.config = config
+        self.initial_blob = pack_model(initial_model_variables)
+        self.learner_recipes = list(learner_recipes)
+        self.workdir = workdir or tempfile.mkdtemp(prefix="metisfl_torch_")
+        os.makedirs(self.workdir, exist_ok=True)
+        self.learner_env = learner_env or {}
+        self.device = device
+        self._launcher = LocalLauncher(self.workdir)
+        self._procs: List[_Proc] = []
+        self._client: Optional[ControllerClient] = None
+        self._config_path = ""
+        self._started_at = 0.0
+
+    # ------------------------------------------------------------------ #
+    # bootstrap
+    # ------------------------------------------------------------------ #
+
+    def _check_local(self, hostname: str, what: str) -> None:
+        if hostname not in self._LOCAL_HOSTS:
+            raise not_ported(f"{what} on remote host {hostname!r} "
+                             "(SSHLauncher)", "3h")
+
+    def _endpoint(self, idx: int) -> LearnerEndpoint:
+        if idx < len(self.config.learners):
+            return self.config.learners[idx]
+        return LearnerEndpoint()
+
+    def _base_env(self) -> Dict[str, str]:
+        # the package importable in the children whatever their cwd
+        import metisfl_tpu_torch
+        pkg_root = os.path.dirname(os.path.dirname(
+            os.path.abspath(metisfl_tpu_torch.__file__)))
+        pythonpath = os.pathsep.join(
+            p for p in (pkg_root, os.environ.get("PYTHONPATH", "")) if p)
+        return {"PYTHONPATH": pythonpath}
+
+    def initialize_federation(self, health_retries: int = 60,
+                              health_sleep_s: float = 0.5) -> None:
+        """Boot the controller, wait until it answers, ship the seed model,
+        then launch the learners."""
+        ctrl_host = self.config.controller_host or "localhost"
+        self._check_local(ctrl_host, "the controller")
+        for idx in range(len(self.learner_recipes)):
+            self._check_local(self._endpoint(idx).hostname, "a learner")
+        if self.config.ssl.enabled and not self.config.ssl.cert_path:
+            # the federation's self-signed pair, made on first boot
+            from metisfl_tpu_torch.comm.ssl import generate_self_signed
+            cert, key = generate_self_signed(
+                os.path.join(self.workdir, "tls"),
+                hosts=[h for h in self.config.ssl.hosts
+                       if h not in self._LOCAL_HOSTS])
+            self.config.ssl.cert_path, self.config.ssl.key_path = cert, key
+        self._config_path = os.path.join(self.workdir,
+                                         "federation_config.bin")
+        with open(self._config_path, "wb") as f:
+            f.write(self.config.to_wire())
+
+        proc = self._launch("controller", [
+            "-m", "metisfl_tpu_torch.controller",
+            "--config", self._config_path,
+            "--port", str(self.config.controller_port)])
+        deadline = time.time() + health_retries * health_sleep_s
+        if not self.config.controller_port:
+            # an ephemeral port: the controller prints the one it bound
+            self.config.controller_port = self._wait_ready_port(proc,
+                                                                deadline)
+        self._client = ControllerClient(ctrl_host,
+                                        self.config.controller_port,
+                                        ssl=self.config.ssl,
+                                        comm=self.config.comm)
+        self._wait_healthy(deadline, health_sleep_s)
+        self._client.replace_community_model(self.initial_blob)
+        for idx in range(len(self.learner_recipes)):
+            self.launch_learner(idx)
+        self._started_at = time.time()
+
+    def _launch(self, name: str, args: Sequence[str],
+                env: Optional[Dict[str, str]] = None) -> _Proc:
+        env = {**self._base_env(), **(env or {})}
+        # a relaunch replaces the tracked process of the same name
+        self._procs = [p for p in self._procs if p.name != name]
+        proc = self._launcher.launch(name, [self._launcher.python, *args],
+                                     env)
+        self._procs.append(proc)
+        return proc
+
+    @staticmethod
+    def _logged_port(proc: _Proc, pattern: re.Pattern) -> Optional[int]:
+        """The port a process printed it serves on, once it has."""
+        with open(proc.log_path) as f:
+            found = pattern.search(f.read())
+        return int(found.group(1)) if found else None
+
+    def _wait_ready_port(self, proc: _Proc, deadline: float) -> int:
+        while time.time() < deadline:
+            port = self._logged_port(proc, _CONTROLLER_READY)
+            if port is not None:
+                return port
+            self._check_procs_alive()
+            time.sleep(0.1)
+        raise RuntimeError("the controller never reported its port")
+
+    def _recipe_path(self, idx: int) -> str:
+        """Learner ``idx``'s recipe, cloudpickled into the workdir once."""
+        path = os.path.join(self.workdir, f"learner_{idx}_recipe.pkl")
+        if not os.path.exists(path):
+            with open(path, "wb") as f:
+                cloudpickle.dump(self.learner_recipes[idx], f)
+        return path
+
+    def launch_learner(self, idx: int) -> _Proc:
+        """(Re)launch learner ``idx``. Its port comes from its endpoint or
+        is ephemeral (the learner reports it on join); its credentials
+        persist in the workdir, so a relaunched learner rejoins as
+        itself."""
+        ep = self._endpoint(idx)
+        name = f"learner_{idx}"
+        args = ["-m", "metisfl_tpu_torch.learner",
+                "--controller-host",
+                self.config.controller_host or "localhost",
+                "--controller-port", str(self.config.controller_port),
+                "--advertise-host", ep.hostname or "localhost",
+                "--port", str(ep.port),
+                "--recipe", self._recipe_path(idx),
+                "--device", self.device,
+                "--rpc-deadline-s", str(self.config.comm.default_deadline_s),
+                "--credentials-dir",
+                os.path.join(self.workdir, f"{name}_creds")]
+        if self.config.ssl.enabled:
+            args += ["--ssl-cert", self.config.ssl.cert_path,
+                     "--ssl-key", self.config.ssl.key_path]
+        return self._launch(name, args, self.learner_env)
+
+    def _wait_healthy(self, deadline: float, sleep_s: float) -> None:
+        last_exc: Optional[Exception] = None
+        while time.time() < deadline:
+            try:
+                if self._client.health(timeout=5.0).get("status") == \
+                        "SERVING":
+                    return
+            except Exception as exc:  # noqa: BLE001 - retried until deadline
+                last_exc = exc
+            self._check_procs_alive()
+            time.sleep(sleep_s)
+        raise RuntimeError(f"controller never became healthy: {last_exc}")
+
+    def _check_procs_alive(self) -> None:
+        """Raise with the log's tail if any process exited non-zero."""
+        for proc in self._procs:
+            code = proc.process.poll()
+            if code is not None and code != 0:
+                with open(proc.log_path) as f:
+                    tail = f.read()[-2000:]
+                raise RuntimeError(
+                    f"{proc.name} exited with code {code}; log tail:\n{tail}")
+
+    # ------------------------------------------------------------------ #
+    # monitoring
+    # ------------------------------------------------------------------ #
+
+    def monitor_federation(self, poll_every_s: float = 1.0,
+                           eval_drain_timeout_s: float = 90.0) -> dict:
+        """Poll until a termination criterion holds: ``federation_rounds``
+        rounds completed, ``execution_cutoff_mins`` passed since the
+        learners launched, or the mean test ``metric_name`` of the latest
+        evaluated community model reached ``metric_cutoff_score``. Then
+        give in-flight evaluations a bounded grace and return the
+        statistics."""
+        term = self.config.termination
+        poll_failures = 0
+        while True:
+            time.sleep(poll_every_s)
+            self._check_procs_alive()
+            try:
+                # fail fast on a dead controller (short deadline, no wait
+                # for ready); the lineage RPCs are tail-bounded
+                progress = self._client.get_runtime_metadata(
+                    tail=1, timeout=15.0, wait_ready=False)
+                poll_failures = 0
+            except Exception as exc:  # noqa: BLE001 - bounded retry
+                poll_failures += 1
+                if poll_failures > 5:
+                    raise
+                logger.warning("monitor poll failed (%s); retrying", exc)
+                continue
+            if progress["global_iteration"] >= term.federation_rounds > 0:
+                logger.info("termination: reached %d rounds",
+                            term.federation_rounds)
+                break
+            if term.execution_cutoff_mins > 0 and (
+                    time.time() - self._started_at
+                    > term.execution_cutoff_mins * 60):
+                logger.info("termination: wall-clock cutoff")
+                break
+            if term.metric_cutoff_score > 0:
+                score = self._latest_mean_metric(
+                    self._client.get_evaluation_lineage(tail=5),
+                    term.metric_name)
+                if score is not None and score >= term.metric_cutoff_score:
+                    logger.info("termination: %s=%.4f >= cutoff",
+                                term.metric_name, score)
+                    break
+        self._drain_evaluations(eval_drain_timeout_s)
+        return self.get_statistics()
+
+    def _drain_evaluations(self, timeout_s: float) -> None:
+        """Wait (bounded) until every registered learner has reported its
+        evaluation of the latest community model: a round completes on
+        training, and its evaluations lag behind."""
+        deadline = time.time() + timeout_s
+        while time.time() < deadline:
+            try:
+                evals = self._client.get_evaluation_lineage(tail=1)
+                learners = self._client.list_learners(timeout=5.0)
+            except Exception:  # noqa: BLE001 - the controller is gone
+                return
+            if not evals or len(evals[-1]["evaluations"]) >= len(learners):
+                return
+            time.sleep(0.2)
+        logger.warning("evaluations still pending after %.0f s", timeout_s)
+
+    @staticmethod
+    def _latest_mean_metric(evaluations: List[dict],
+                            metric: str) -> Optional[float]:
+        for entry in reversed(evaluations):
+            values = [ds_metrics[metric]
+                      for learner_evals in entry["evaluations"].values()
+                      for ds_name, ds_metrics in learner_evals.items()
+                      if ds_name == "test" and metric in ds_metrics]
+            if values:
+                return float(np.mean(values))
+        return None
+
+    # ------------------------------------------------------------------ #
+    # statistics and shutdown
+    # ------------------------------------------------------------------ #
+
+    def get_statistics(self) -> dict:
+        return self._client.get_statistics()
+
+    def process_exit_codes(self) -> Dict[str, Optional[int]]:
+        """name → exit code (None while running) of every process."""
+        return {p.name: p.process.poll() for p in self._procs}
+
+    def save_experiment(self, path: Optional[str] = None) -> str:
+        path = path or os.path.join(self.workdir, "experiment.json")
+        with open(path, "w") as f:
+            json.dump(self.get_statistics(), f, indent=2, default=str)
+        return path
+
+    def serving_client(self):
+        raise not_ported("serving beside a DriverSession federation", "5")
+
+    def collect_traces(self, dest: Optional[str] = None):
+        raise not_ported("trace and post-mortem collection", "4")
+
+    def _wait(self, procs: Sequence[_Proc], deadline: float) -> None:
+        for proc in procs:
+            try:
+                proc.process.wait(timeout=max(0.5, deadline - time.time()))
+            except subprocess.TimeoutExpired:
+                logger.warning("%s did not exit; terminating it", proc.name)
+                _terminate_process(proc.process)
+
+    def shutdown_federation(self, timeout_s: float = 30.0) -> None:
+        """Stop every learner, and once they have exited (each leaves the
+        federation on the way out), the controller; a process still
+        running after ``timeout_s`` is terminated. A learner that serves
+        (its log names its port, joined or not) gets the ShutDown RPC; one
+        still starting gets SIGTERM, which it answers by exiting."""
+        deadline = time.time() + timeout_s
+        learners = [p for p in self._procs if p.name != "controller"]
+        for proc in learners:
+            if proc.process.poll() is not None:
+                continue
+            port = self._logged_port(proc, _LEARNER_READY)
+            if port is None:
+                proc.process.terminate()
+                continue
+            client = RpcClient("localhost", port, LEARNER_SERVICE,
+                               retries=0, ssl=self.config.ssl)
+            try:
+                client.call("ShutDown", b"", timeout=5.0, wait_ready=False)
+            except Exception:  # noqa: BLE001 - the learner may be gone
+                pass
+            finally:
+                client.close()
+        self._wait(learners, deadline)
+        if self._client is not None:
+            try:
+                self._client.shutdown_controller()
+            except Exception:  # noqa: BLE001 - terminated below
+                logger.warning("controller shutdown RPC failed")
+            self._client.close()
+        self._wait([p for p in self._procs if p.name == "controller"],
+                   deadline)
+
+    def run(self) -> dict:
+        """initialize → monitor → save the statistics → shut down."""
+        try:
+            self.initialize_federation()
+            stats = self.monitor_federation()
+            self.save_experiment()
+            return stats
+        finally:
+            self.shutdown_federation()

@@ -21,6 +21,21 @@ Layout is the JAX package's (B, H, L, D) with scale 1/sqrt(D). GQA is
 native: ``k``/``v`` may carry fewer heads than ``q`` (Hq a multiple of Hkv)
 and query head h reads kv head h // (Hq // Hkv). lse and delta travel in
 logical layout (B, Hq, L) fp32, the shape ring attention consumes.
+
+The Pallas kernels take any D, since their blocks span the whole head; the
+CUDA kernels are built for a few: K1 for 64, 128 and 256, K2 and K3 for
+64 and 128. The wrappers zero-pad q, k, v (and dO) along D to the next
+head dim the kernel is built for, launch with the true D's scale, and
+slice O, dQ, dK and dV back to D. That is exact: padded columns add 0 to
+Q·Kᵀ and to dO·Vᵀ, and padded V, dO, Q and K columns only give output
+columns that are sliced off. A built head dim makes no copy. So the
+forward takes D <= 256 and the backward D <= 128; D > 128 in the backward
+raises: K3 keeps dK and dV of its 64-row tile in registers, 256 fp32 a
+thread at D = 256 against the 255 a thread may hold, and the fp32 K2/K3
+tiles would need more than the 227 KB of shared memory a block may use
+(K2's tensor-core tiles would fit, but a backward needs K3). The SIMT
+kernels carry b * H in gridDim.y, which stops at 65535, so the wrappers
+launch in batch chunks of at most 65535 // H batches.
 :func:`flash_attention` is differentiable: its autograd Function runs K1
 forward and K2/K3 backward, as the JAX package's custom VJP does.
 """
@@ -36,7 +51,11 @@ import torch
 
 _NEG = -1e30
 _DTYPE_CODES = {torch.float32: 0, torch.float16: 1, torch.bfloat16: 2}
-_HEAD_DIMS = (64, 128)
+# the head dims each kernel is instantiated for; a smaller D is padded
+_FWD_HEAD_DIMS = (64, 128, 256)
+_BWD_HEAD_DIMS = (64, 128)
+# gridDim.y of the SIMT kernels carries b * H
+_MAX_GRID_Y = 65535
 
 _launch_lock = threading.Lock()
 
@@ -62,14 +81,19 @@ def _acc_dtype(dtype: torch.dtype) -> torch.dtype:
     return torch.float64 if dtype == torch.float64 else torch.float32
 
 
-def _scores(q: torch.Tensor, k: torch.Tensor, causal: bool):
+def _softmax_scale(D: int, scale: Optional[float]) -> float:
+    return float(1.0 / math.sqrt(D)) if scale is None else float(scale)
+
+
+def _scores(q: torch.Tensor, k: torch.Tensor, causal: bool,
+            scale: Optional[float] = None):
     """scale·QKᵀ in the accumulation type, masked to -1e30, and the causal
-    mask (None when not causal)."""
+    mask (None when not causal). ``scale`` defaults to 1/sqrt(D)."""
     B, Hq, Hkv, L, D = _gqa_shapes(q, k)
     acc = _acc_dtype(q.dtype)
     kf = _repeat_kv(k.to(acc), Hq // Hkv)
-    s = torch.einsum("bhqd,bhkd->bhqk", q.to(acc), kf) * float(
-        1.0 / math.sqrt(D))
+    s = torch.einsum("bhqd,bhkd->bhqk", q.to(acc), kf) * _softmax_scale(
+        D, scale)
     mask = None
     if causal:
         mask = torch.ones(L, L, dtype=torch.bool, device=q.device).tril()
@@ -78,17 +102,18 @@ def _scores(q: torch.Tensor, k: torch.Tensor, causal: bool):
 
 
 def flash_attention_fwd_reference(q: torch.Tensor, k: torch.Tensor,
-                                  v: torch.Tensor, causal: bool
+                                  v: torch.Tensor, causal: bool,
+                                  scale: Optional[float] = None
                                   ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Plain PyTorch twin of K1: a dense softmax with GQA grouping that
     rounds where the kernel rounds. P = exp(S − m) against the row max m is
     rounded to the input dtype before P·V, summed in fp32 and divided by
     l = ΣP afterwards, as ``_fwd_kernel`` casts ``p.astype(v.dtype)`` before
     its PV product and divides at the store. Returns ``(o in q.dtype,
-    lse = m + log l (B, Hq, L) fp32)``."""
+    lse = m + log l (B, Hq, L) fp32)``. ``scale`` defaults to 1/sqrt(D)."""
     group = q.shape[1] // k.shape[1]
     acc = _acc_dtype(q.dtype)
-    s, _ = _scores(q, k, causal)
+    s, _ = _scores(q, k, causal, scale)
     m = s.amax(dim=-1, keepdim=True)
     p = torch.exp(s - m)  # masked scores give exp(-1e30 - m) = 0
     l = p.sum(dim=-1, keepdim=True)
@@ -97,31 +122,32 @@ def flash_attention_fwd_reference(q: torch.Tensor, k: torch.Tensor,
     return o.to(q.dtype), (m + torch.log(l)).squeeze(-1)
 
 
-def _bwd_probs(q, k, v, do, lse, delta, causal):
+def _bwd_probs(q, k, v, do, lse, delta, causal, scale=None):
     """P recomputed from lse (masked to 0) and dS = P∘(dP − δ)·scale, dense
     (B, Hq, L, L) in the accumulation type, as both backward kernels
     recompute them tile by tile."""
     group = q.shape[1] // k.shape[1]
     acc = _acc_dtype(q.dtype)
-    s, mask = _scores(q, k, causal)
+    s, mask = _scores(q, k, causal, scale)
     p = torch.exp(s - lse.to(acc)[..., None])
     if mask is not None:
         p = p.masked_fill(~mask, 0.0)
     dp = torch.einsum("bhqd,bhkd->bhqk", do.to(acc),
                       _repeat_kv(v.to(acc), group))
-    ds = p * (dp - delta.to(acc)[..., None]) * float(
-        1.0 / math.sqrt(q.shape[-1]))
+    ds = p * (dp - delta.to(acc)[..., None]) * _softmax_scale(q.shape[-1],
+                                                               scale)
     return p, ds
 
 
 def flash_bwd_dq_reference(q: torch.Tensor, k: torch.Tensor,
                            v: torch.Tensor, do: torch.Tensor,
                            lse: torch.Tensor, delta: torch.Tensor,
-                           causal: bool) -> torch.Tensor:
+                           causal: bool, scale: Optional[float] = None
+                           ) -> torch.Tensor:
     """Plain PyTorch twin of K2: dQ = (dS→``k.dtype``)·K summed in fp32,
     returned in q.dtype."""
     acc = _acc_dtype(q.dtype)
-    _, ds = _bwd_probs(q, k, v, do, lse, delta, causal)
+    _, ds = _bwd_probs(q, k, v, do, lse, delta, causal, scale)
     dq = torch.einsum("bhqk,bhkd->bhqd", ds.to(k.dtype).to(acc),
                       _repeat_kv(k.to(acc), q.shape[1] // k.shape[1]))
     return dq.to(q.dtype)
@@ -130,14 +156,14 @@ def flash_bwd_dq_reference(q: torch.Tensor, k: torch.Tensor,
 def flash_bwd_dkv_reference(q: torch.Tensor, k: torch.Tensor,
                             v: torch.Tensor, do: torch.Tensor,
                             lse: torch.Tensor, delta: torch.Tensor,
-                            causal: bool
+                            causal: bool, scale: Optional[float] = None
                             ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Plain PyTorch twin of K3: dV = (P→``do.dtype``)ᵀ·dO and dK =
     (dS→``q.dtype``)ᵀ·Q summed in fp32 over each KV group (a reshape to
     (B, Hkv, G, L, D)), returned in k's and v's dtypes."""
     B, Hq, Hkv, L, D = _gqa_shapes(q, k)
     acc = _acc_dtype(q.dtype)
-    p, ds = _bwd_probs(q, k, v, do, lse, delta, causal)
+    p, ds = _bwd_probs(q, k, v, do, lse, delta, causal, scale)
     dv = torch.einsum("bhqk,bhqd->bhkd", p.to(do.dtype).to(acc),
                       do.to(acc))
     dk = torch.einsum("bhqk,bhqd->bhkd", ds.to(q.dtype).to(acc), q.to(acc))
@@ -172,7 +198,7 @@ def _delta(o: torch.Tensor, do: torch.Tensor) -> torch.Tensor:
     return (do.to(acc) * o.to(acc)).sum(dim=-1)
 
 
-def _check_cuda_inputs(q, k, v, **same_as_q):
+def _check_cuda_inputs(q, k, v, head_dims, **same_as_q):
     named = (("q", q), ("k", k), ("v", v)) + tuple(same_as_q.items())
     for name, t in named:
         if t.device != q.device:
@@ -197,12 +223,30 @@ def _check_cuda_inputs(q, k, v, **same_as_q):
     if k.shape[0] != B or k.shape[2] != L or k.shape[3] != D:
         raise ValueError(f"k {tuple(k.shape)} does not match q "
                          f"{tuple(q.shape)} in batch, length or head dim")
-    if D not in _HEAD_DIMS:
-        raise ValueError(f"flash kernel takes head_dim in {_HEAD_DIMS}, "
+    if not 1 <= D <= head_dims[-1]:
+        raise ValueError(f"flash kernel takes head_dim 1..{head_dims[-1]}, "
                          f"got {D}")
-    if L < 1 or B * Hq > 65535:  # gridDim.y carries b * Hq + h
+    if L < 1 or B < 1 or Hq > _MAX_GRID_Y:
         raise ValueError(f"shape {tuple(q.shape)} is outside the kernel's "
                          "grid")
+
+
+def pad_head_dim(*tensors: torch.Tensor, head_dims=_BWD_HEAD_DIMS):
+    """``(Dk, padded)``: each (B, H, L, D) tensor zero-padded along D to
+    Dk, the next of ``head_dims`` (those a kernel is built for); tensors
+    already at Dk come back as they are (no copy)."""
+    D = tensors[0].shape[-1]
+    Dk = next(d for d in head_dims if D <= d)
+    if D == Dk:
+        return Dk, tensors
+    return Dk, tuple(torch.nn.functional.pad(t, (0, Dk - D))
+                     for t in tensors)
+
+
+def _batch_chunks(B: int, H: int):
+    """[b0, b1) batch ranges whose b * H fits gridDim.y."""
+    step = _MAX_GRID_Y // H
+    return [(b0, min(B, b0 + step)) for b0 in range(0, B, step)]
 
 
 def _check_aligned(**tensors):
@@ -288,12 +332,12 @@ def _on_cuda(q: torch.Tensor) -> bool:
     return True
 
 
-def _shape_args(q, k, causal):
+def _shape_args(q, k, causal, scale):
     """The C entries' trailing arguments: shapes, dtype code, causal and
     the softmax scale."""
     B, Hq, Hkv, L, D = _gqa_shapes(q, k)
     return (B, Hq, Hkv, L, D, _DTYPE_CODES[q.dtype], int(bool(causal)),
-            float(1.0 / math.sqrt(D)))
+            float(scale))
 
 
 def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -303,19 +347,27 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
     CPU tensors run :func:`flash_attention_fwd_reference`. CUDA tensors
     launch ``csrc/flash_fwd.cu`` on the current stream (tensor cores for
-    bf16/fp16, SIMT for fp32; D in {64, 128}; contiguous; q, k and v
-    16-byte aligned) and raise on anything else.
-    ``flash_attention_fwd.launches`` counts kernel launches."""
+    bf16/fp16, SIMT for fp32; D <= 256, padded to 64, 128 or 256;
+    contiguous; q, k and v 16-byte aligned at D = 64, 128 and 256) and
+    raise on anything else. ``flash_attention_fwd.launches`` counts kernel
+    launches (one per batch chunk)."""
     if not _on_cuda(q):
         return flash_attention_fwd_reference(q, k, v, causal)
-    _check_cuda_inputs(q, k, v)
+    _check_cuda_inputs(q, k, v, _FWD_HEAD_DIMS)
+    B, Hq, L, D = q.shape
+    scale = 1.0 / math.sqrt(D)
+    Dk, (q, k, v) = pad_head_dim(q, k, v, head_dims=_FWD_HEAD_DIMS)
     _check_aligned(q=q, k=k, v=v)
-    B, Hq, L, _ = q.shape
     o = torch.empty_like(q)
     lse = torch.empty((B, Hq, L), dtype=torch.float32, device=q.device)
-    _launch("flash_fwd", "metisfl_flash_fwd", flash_attention_fwd, q.device,
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-            lse.data_ptr(), *_shape_args(q, k, causal))
+    for b0, b1 in _batch_chunks(B, Hq):
+        _launch("flash_fwd", "metisfl_flash_fwd", flash_attention_fwd,
+                q.device, q[b0:b1].data_ptr(), k[b0:b1].data_ptr(),
+                v[b0:b1].data_ptr(), o[b0:b1].data_ptr(),
+                lse[b0:b1].data_ptr(),
+                *_shape_args(q[b0:b1], k, causal, scale))
+    if Dk != D:
+        o = o[..., :D].contiguous()
     return o, lse
 
 
@@ -328,20 +380,27 @@ def flash_bwd_dq(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """K2 on CUDA tensors: dQ (B, Hq, L, D) in q.dtype from the forward's
     lse and δ = rowsum(dO∘O), both (B, Hq, L) fp32. Launches
     ``csrc/flash_bwd.cu``'s dQ kernel (tensor cores for bf16/fp16, SIMT for
-    fp32) or raises; q, k, v and do must be 16-byte aligned.
-    ``flash_bwd_dq.launches`` counts launches."""
+    fp32) or raises; D <= 128 is padded to 64 or 128 as in the forward,
+    and at D = 64 and 128 q, k, v and do must be 16-byte aligned.
+    ``flash_bwd_dq.launches`` counts launches (one per batch chunk)."""
     if not _on_cuda(q):
         raise ValueError("flash_bwd_dq launches the CUDA kernel; on the CPU "
                          "call flash_attention_bwd (the plain twin)")
-    _check_cuda_inputs(q, k, v, do=do)
-    _check_aligned(q=q, k=k, v=v, do=do)
+    _check_cuda_inputs(q, k, v, _BWD_HEAD_DIMS, do=do)
     _check_row_stats(q, lse=lse, delta=delta)
+    B, Hq, _, D = q.shape
+    scale = 1.0 / math.sqrt(D)
+    Dk, (q, k, v, do) = pad_head_dim(q, k, v, do)
+    _check_aligned(q=q, k=k, v=v, do=do)
     dq = torch.empty_like(q)
-    _launch("flash_bwd", "metisfl_flash_bwd_dq", flash_bwd_dq, q.device,
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
-            lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
-            *_shape_args(q, k, causal))
-    return dq
+    for b0, b1 in _batch_chunks(B, Hq):
+        _launch("flash_bwd", "metisfl_flash_bwd_dq", flash_bwd_dq, q.device,
+                q[b0:b1].data_ptr(), k[b0:b1].data_ptr(),
+                v[b0:b1].data_ptr(), do[b0:b1].data_ptr(),
+                lse[b0:b1].data_ptr(), delta[b0:b1].data_ptr(),
+                dq[b0:b1].data_ptr(),
+                *_shape_args(q[b0:b1], k, causal, scale))
+    return dq if Dk == D else dq[..., :D].contiguous()
 
 
 flash_bwd_dq.launches = 0
@@ -354,20 +413,30 @@ def flash_bwd_dkv(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """K3 on CUDA tensors: ``(dk, dv)`` (B, Hkv, L, D), each summed over
     the query heads of its KV group, without atomics (the same bits on
     every run). Launches ``csrc/flash_bwd.cu``'s dK/dV kernel (tensor cores
-    for bf16/fp16, SIMT for fp32) or raises; q, k, v and do must be 16-byte
-    aligned. ``flash_bwd_dkv.launches`` counts launches."""
+    for bf16/fp16, SIMT for fp32) or raises; D <= 128 is padded to 64 or
+    128 as in the forward, and at D = 64 and 128 q, k, v and do must be
+    16-byte aligned. ``flash_bwd_dkv.launches`` counts launches (one per
+    batch chunk)."""
     if not _on_cuda(q):
         raise ValueError("flash_bwd_dkv launches the CUDA kernel; on the "
                          "CPU call flash_attention_bwd (the plain twin)")
-    _check_cuda_inputs(q, k, v, do=do)
-    _check_aligned(q=q, k=k, v=v, do=do)
+    _check_cuda_inputs(q, k, v, _BWD_HEAD_DIMS, do=do)
     _check_row_stats(q, lse=lse, delta=delta)
+    B, Hq, _, D = q.shape
+    scale = 1.0 / math.sqrt(D)
+    Dk, (q, k, v, do) = pad_head_dim(q, k, v, do)
+    _check_aligned(q=q, k=k, v=v, do=do)
     dk = torch.empty_like(k)
     dv = torch.empty_like(v)
-    _launch("flash_bwd", "metisfl_flash_bwd_dkv", flash_bwd_dkv, q.device,
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
-            lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-            *_shape_args(q, k, causal))
+    for b0, b1 in _batch_chunks(B, Hq):
+        _launch("flash_bwd", "metisfl_flash_bwd_dkv", flash_bwd_dkv,
+                q.device, q[b0:b1].data_ptr(), k[b0:b1].data_ptr(),
+                v[b0:b1].data_ptr(), do[b0:b1].data_ptr(),
+                lse[b0:b1].data_ptr(), delta[b0:b1].data_ptr(),
+                dk[b0:b1].data_ptr(), dv[b0:b1].data_ptr(),
+                *_shape_args(q[b0:b1], k, causal, scale))
+    if Dk != D:
+        dk, dv = dk[..., :D].contiguous(), dv[..., :D].contiguous()
     return dk, dv
 
 

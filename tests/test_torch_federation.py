@@ -533,10 +533,11 @@ UNSUPPORTED = {
     "deadline": lambda: FederationConfig(round_deadline_secs=5.0),
     "local_tensors": lambda: FederationConfig(
         train=TrainParams(local_tensor_regex="batch_stats")),
-    "cutoff_wall_clock": lambda: FederationConfig(
-        termination=TerminationConfig(execution_cutoff_mins=5.0)),
-    "cutoff_metric": lambda: FederationConfig(
-        termination=TerminationConfig(metric_cutoff_score=0.9)),
+    # DriverSession watches the cutoffs; the in-process federation cannot
+    "cutoff_wall_clock": lambda: InProcessFederation(FederationConfig(
+        termination=TerminationConfig(execution_cutoff_mins=5.0))),
+    "cutoff_metric": lambda: InProcessFederation(FederationConfig(
+        termination=TerminationConfig(metric_cutoff_score=0.9))),
 }
 
 

@@ -531,3 +531,206 @@ def test_autograd_runs_all_three_kernels_on_gpu(cuda_device):
     assert (flash_attention_fwd.launches, flash_bwd_dq.launches,
             flash_bwd_dkv.launches) == tuple(n + 1 for n in before)
     assert all(bool(torch.isfinite(t.grad).all()) for t in (q, k, v))
+
+
+# -- head dims the kernels are not built for, and every grid ----------------
+
+@pytest.mark.parametrize("D", [8, 16, 32, 256])
+@pytest.mark.parametrize("causal", [False, True])
+def test_twins_at_padded_head_dims_match_pallas(jax_flash, causal, D):
+    """The Pallas kernels take any D (their blocks span the head); the
+    twins, which the CPU path runs and the padded kernels are held to, give
+    the Pallas forward's o and lse and its backward's dq, dk, dv (interpret
+    mode) at D = 8, 16, 32 and 256, B1·Hq4·Hkv2·L40 fp32."""
+    jnp = jax_flash.jnp
+    q, k, v, do = _bwd_inputs(L=40, D=D)
+    o_ref, lse_ref = jax_flash._flash_forward(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), causal, None, None,
+        True)
+    B, H, L, _ = q.shape
+    lse_ref = np.asarray(lse_ref)[:, :L, 0].reshape(B, H, L)
+    want = jax_flash._flash_backward(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), o_ref, lse_ref,
+        jnp.asarray(do), causal, None, None, True)
+    tq, tk, tv = (torch.from_numpy(a) for a in (q, k, v))
+    o, lse = flash_attention_fwd(tq, tk, tv, causal)
+    np.testing.assert_allclose(o.numpy(), np.asarray(o_ref), atol=ATOL)
+    np.testing.assert_allclose(lse.numpy(), lse_ref, atol=ATOL)
+    got = flash_attention_bwd(tq, tk, tv, o, lse, torch.from_numpy(do),
+                              causal)
+    for name, a, b in zip(("dq", "dk", "dv"), got, want):
+        assert a.shape == b.shape, name
+        np.testing.assert_allclose(a.numpy(), np.asarray(b), atol=ATOL,
+                                   err_msg=name)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("D", [1, 8, 16, 32, 65, 100, 200])
+@pytest.mark.parametrize("causal", [False, True])
+def test_head_dim_padding_is_exact(causal, D, dtype):
+    """The wrappers' padding path, with the twins in the kernels' place:
+    q, k, v and dO zero-padded to the next head dim a kernel is built for
+    (``pad_head_dim``: 64, 128 or 256 for K1, 64 or 128 for K2 and K3), run
+    with the true D's scale and sliced back, give the unpadded twins' o,
+    lse, dq, dk and dv to 0 ulp, and 0 in every padded column."""
+    import math
+
+    from metisfl_tpu_torch.ops.flash_attention import (
+        _FWD_HEAD_DIMS,
+        _delta,
+        flash_bwd_dkv_reference,
+        flash_bwd_dq_reference,
+        pad_head_dim,
+    )
+
+    q, k, v, do = (torch.from_numpy(a).to(dtype)
+                   for a in _bwd_inputs(B=2, L=37, D=D))
+    scale = 1.0 / math.sqrt(D)
+    Dk, (qp, kp, vp) = pad_head_dim(q, k, v, head_dims=_FWD_HEAD_DIMS)
+    assert Dk == next(d for d in (64, 128, 256) if D <= d)
+    assert qp.shape[-1] == Dk
+    o, lse = flash_attention_fwd_reference(q, k, v, causal)
+    op, lsep = flash_attention_fwd_reference(qp, kp, vp, causal, scale)
+    assert torch.equal(op[..., :D], o) and torch.equal(lsep, lse)
+    assert not op[..., D:].any()
+    if D > 128:
+        return  # no backward kernel at this head dim
+    Dk, (qp, kp, vp, dop) = pad_head_dim(q, k, v, do)
+    delta = _delta(o, do)
+    dq = flash_bwd_dq_reference(q, k, v, do, lse, delta, causal)
+    dqp = flash_bwd_dq_reference(qp, kp, vp, dop, lse, delta, causal, scale)
+    dk, dv = flash_bwd_dkv_reference(q, k, v, do, lse, delta, causal)
+    dkp, dvp = flash_bwd_dkv_reference(qp, kp, vp, dop, lse, delta, causal,
+                                       scale)
+    for got, want in ((dqp, dq), (dkp, dk), (dvp, dv)):
+        assert torch.equal(got[..., :D], want)
+        assert not got[..., D:].any()
+
+
+def test_kernel_head_dims_need_no_copy():
+    from metisfl_tpu_torch.ops.flash_attention import (
+        _FWD_HEAD_DIMS,
+        pad_head_dim,
+    )
+
+    for D in (64, 128, 256):
+        q = torch.zeros(1, 2, 8, D)
+        Dk, (same,) = pad_head_dim(q, head_dims=_FWD_HEAD_DIMS)
+        assert Dk == D and same is q
+
+
+def test_head_dims_beyond_the_kernels_are_refused_with_their_reason():
+    """On the card K1 takes D <= 256 and K2/K3 D <= 128 (no instantiation
+    holds K3's dK and dV at D = 256 in registers, nor the fp32 K2/K3 tiles
+    in shared memory); the check runs before any launch, so it is
+    reachable on the CPU."""
+    from metisfl_tpu_torch.ops.flash_attention import (
+        _BWD_HEAD_DIMS,
+        _FWD_HEAD_DIMS,
+        _check_cuda_inputs,
+    )
+
+    for D in (129, 256):
+        q = torch.zeros(1, 2, 8, D, dtype=torch.bfloat16)
+        _check_cuda_inputs(q, q, q, _FWD_HEAD_DIMS)
+        with pytest.raises(ValueError, match="head_dim 1..128"):
+            _check_cuda_inputs(q, q, q, _BWD_HEAD_DIMS, do=q)
+    q = torch.zeros(1, 2, 8, 257, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="head_dim 1..256"):
+        _check_cuda_inputs(q, q, q, _FWD_HEAD_DIMS)
+    q = torch.zeros(1, 65536, 1, 64, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="grid"):
+        _check_cuda_inputs(q, q, q, _FWD_HEAD_DIMS)
+
+
+@pytest.mark.parametrize("B,H", [(1, 16), (4096, 16), (4097, 16),
+                                 (70000, 1), (3, 65535), (10, 40000)])
+def test_batch_chunks_fit_the_grid_and_cover_the_batch(B, H):
+    from metisfl_tpu_torch.ops.flash_attention import _batch_chunks
+
+    chunks = _batch_chunks(B, H)
+    assert chunks[0][0] == 0 and chunks[-1][1] == B
+    assert all(a[1] == b[0] for a, b in zip(chunks, chunks[1:]))
+    assert all(0 < (b1 - b0) * H <= 65535 for b0, b1 in chunks)
+    assert len(chunks) == -(-B // (65535 // H))
+
+
+# (dtype, causal, B, Hq, Hkv, L, D, launches): padded head dims, the
+# examples/long_context.py shape (D = 16), and B·Hq above gridDim.y's 65535
+# (two batch chunks)
+_PADDED_GPU_CASES = [
+    (dtype, causal, 2, 8, 2, L, D, 1)
+    for dtype in (torch.bfloat16, torch.float16, torch.float32)
+    for causal in (False, True)
+    for D in (8, 16, 32)
+    for L in (65, 200)
+] + [
+    (torch.bfloat16, True, 4, 4, 4, 512, 16, 1),
+    (torch.bfloat16, True, 4100, 16, 4, 16, 64, 2),
+    (torch.float32, False, 4100, 16, 4, 16, 32, 2),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,causal,B,Hq,Hkv,L,D,launches",
+                         _PADDED_GPU_CASES)
+def test_kernels_at_padded_head_dims_and_large_grids_on_gpu(
+        cuda_device, dtype, causal, B, Hq, Hkv, L, D, launches):
+    """K1, K2 and K3 at head dims the kernels are not built for (padded to
+    64) and at B·Hq > 65535 (launched in batch chunks) against their twins
+    on the card, at the tolerances of the unpadded cases."""
+    q, k, v, o_ref, lse_ref, do = _cuda_bwd_inputs(cuda_device, dtype, B,
+                                                   Hq, Hkv, L, D, causal)
+    before = (flash_attention_fwd.launches, flash_bwd_dq.launches,
+              flash_bwd_dkv.launches)
+    o, lse = flash_attention_fwd(q, k, v, causal)
+    got = flash_attention_bwd(q, k, v, o_ref, lse_ref, do, causal)
+    torch.cuda.synchronize()
+    assert (flash_attention_fwd.launches, flash_bwd_dq.launches,
+            flash_bwd_dkv.launches) == tuple(n + launches for n in before)
+    lse_atol = 1e-4 if dtype == torch.float32 else 1e-3
+    assert o.shape == q.shape and o.is_contiguous()
+    torch.testing.assert_close(o.float(), o_ref.float(),
+                               atol=_FWD_ATOL[dtype], rtol=0)
+    torch.testing.assert_close(lse, lse_ref, atol=lse_atol, rtol=0)
+    want = flash_attention_bwd_reference(q, k, v, o_ref, lse_ref, do, causal)
+    for name, a, b in zip(("dq", "dk", "dv"), got, want):
+        assert a.dtype == dtype and a.shape == b.shape, name
+        scale = float(b.float().abs().max())
+        err = float((a.float() - b.float()).abs().max())
+        assert err <= _BWD_REL[dtype] * scale, (name, err, scale)
+
+
+# (dtype, causal, B, Hq, Hkv, L, D): K1 at the head dim 256 instantiation
+# and at D = 200, padded to it
+_FWD_256_GPU_CASES = [
+    (dtype, causal, 1, 8, 2, L, D)
+    for dtype in (torch.bfloat16, torch.float16, torch.float32)
+    for causal in (False, True)
+    for D in (200, 256)
+    for L in (65, 300)
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,causal,B,Hq,Hkv,L,D", _FWD_256_GPU_CASES)
+def test_forward_kernel_at_head_dims_up_to_256_on_gpu(cuda_device, dtype,
+                                                      causal, B, Hq, Hkv, L,
+                                                      D):
+    """K1 against its twin at D = 256 (its own instantiation) and D = 200
+    (padded to 256), one launch; the backward refuses D > 128 before
+    launching anything."""
+    q, k, v, o_ref, lse_ref, do = _cuda_bwd_inputs(cuda_device, dtype, B,
+                                                   Hq, Hkv, L, D, causal)
+    before = flash_attention_fwd.launches
+    o, lse = flash_attention_fwd(q, k, v, causal)
+    torch.cuda.synchronize()
+    assert flash_attention_fwd.launches == before + 1
+    lse_atol = 1e-4 if dtype == torch.float32 else 1e-3
+    torch.testing.assert_close(o.float(), o_ref.float(),
+                               atol=_FWD_ATOL[dtype], rtol=0)
+    torch.testing.assert_close(lse, lse_ref, atol=lse_atol, rtol=0)
+    before = (flash_bwd_dq.launches, flash_bwd_dkv.launches)
+    with pytest.raises(ValueError, match="head_dim 1..128"):
+        flash_attention_bwd(q, k, v, o, lse, do, causal)
+    assert (flash_bwd_dq.launches, flash_bwd_dkv.launches) == before

@@ -1,6 +1,6 @@
 """The port stands alone: importing every metisfl_tpu_torch module pulls in
 neither jax nor any module of the JAX package, and no source file names
-them."""
+them (the gRPC service names the two packages share on the wire aside)."""
 
 import json
 import os
@@ -37,7 +37,17 @@ def test_every_module_imports_without_jax():
             "metisfl_tpu_torch.store.memory",
             "metisfl_tpu_torch.learner.learner",
             "metisfl_tpu_torch.controller.core",
-            "metisfl_tpu_torch.driver.inprocess"} <= set(names)
+            "metisfl_tpu_torch.driver.inprocess",
+            "metisfl_tpu_torch.comm.codec",
+            "metisfl_tpu_torch.comm.messages",
+            "metisfl_tpu_torch.comm.health",
+            "metisfl_tpu_torch.comm.ssl",
+            "metisfl_tpu_torch.comm.rpc",
+            "metisfl_tpu_torch.controller.service",
+            "metisfl_tpu_torch.controller.__main__",
+            "metisfl_tpu_torch.learner.service",
+            "metisfl_tpu_torch.learner.__main__",
+            "metisfl_tpu_torch.driver.session"} <= set(names)
     code = (
         "import importlib, json, sys\n"
         f"for name in {names!r}:\n"
@@ -56,7 +66,9 @@ def test_every_module_imports_without_jax():
 def test_sources_reference_neither_jax_nor_the_jax_package():
     jax_import = re.compile(r"^\s*(import|from)\s+(jax|jaxlib|flax|optax)\b",
                             re.M)
-    jax_package = re.compile(r"\bmetisfl_tpu\.")
+    # the gRPC service names ("metisfl_tpu.Controller", "metisfl_tpu.Learner")
+    # are wire names the two packages share, not references to the package
+    jax_package = re.compile(r"\bmetisfl_tpu\.(?!(Controller|Learner)\b\")")
     offenders = []
     for root, _, files in os.walk(PKG_DIR):
         for fname in files:
