@@ -15,15 +15,19 @@ It drives the port only (it imports no jax and nothing of the JAX package):
    tolerance stated, timed beside its bound and one PyTorch library call
    that computes the same function (a yardstick the port never calls;
    SDPA's forward for K1, one call of SDPA's backward for K2+K3), each
-   also as device time under the profiler:
+   also as device time under the profiler and as host time per call:
    K1 (flash_fwd; tensor cores in bf16, SIMT in fp32) at the serving and
    the training shapes, K2 and K3 (flash_bwd_dq, flash_bwd_dkv; tensor
    cores in bf16) at the training shape, each run twice for bit-identity,
    with the achieved TFLOP/s; then K1-K3 at head dims the kernels are not
    built for (the wrapper zero-pads them to 64: the
    ``examples/long_context.py`` shape B4·Hq4·L512·D16, D = 8 and D = 32)
-   and at B·Hq above the grid's 65535 (launched in batch chunks), and K1
-   at its head dim 256 instantiation;
+   and at B·Hq above the grid's 65535 (launched in batch chunks), K1-K3
+   at their head dim 256 builds (K3 in two passes), and the general SIMT
+   kernels (any head dim) at D = 512 in bf16 and fp32 and, for K2/K3, at
+   fp32 D = 256; then every wrapper the wide-heads path (5.) launches, at
+   that path's own B2·H·L256·D (D = 256 in bf16 and fp32, 512 in bf16);
+   each case checks which wrapper launched;
 4. serving slice: a full-width LlamaLite (vocab 32768, dim 1024, depth 8,
    heads 16, kv_heads 4, bf16 compute, flash attention) with seeded random
    weights, packed into a ModelBlob and installed in a ``ServingGateway``;
@@ -37,7 +41,10 @@ It drives the port only (it imports no jax and nothing of the JAX package):
    (batch 8) through K1 forward and K2/K3 backward (every launch counted),
    then evaluated; the trained weights go back out as a blob, and one
    batch's gradients through the flash path are held against the dense
-   path's;
+   path's; then the wide-heads path: LlamaLite at depth 2 trained 2 steps
+   at head dims 256 (bf16 and fp32) and 512 (bf16), each launch checked
+   against the kernel that head dim routes to, gradients against the
+   dense path's;
 6. federation slice: synchronous FedAvg rounds through the port's
    ``InProcessFederation`` (controller, learners, in-memory store, host
    fold), every learner's engine on the card: (a) 3 FashionMNIST CNN
@@ -63,12 +70,27 @@ It drives the port only (it imports no jax and nothing of the JAX package):
    processes, the CNN's accuracy must rise, and every process must exit 0
    after ``shutdown_federation``. Where grpc or cloudpickle is not
    installed it prints ``multiprocess: not run: ...`` and runs the rounds
-   through the port's gRPC services' handlers, called directly, instead.
+   through the port's gRPC services' handlers, called directly, instead;
+8. store: (a) the LlamaLite round in process on ``model_store.store:
+   cached_disk`` (a 256 MB cache, below one 755 MB model, so select reads
+   the mmapped file) with 3 ingest writers and a root in a temporary
+   directory: the host fold must be the native one (``fold_backend()``),
+   the community bit-identical to a re-fold of the uplinks and within
+   1e-6 x max|w| of a float64 mean, each stored ``.blob`` a v3 blob of its
+   uplink's tensors, and the drain fence must return before the select;
+   it prints each insert's, the drain's and the select's times and the
+   native against the numpy fold of the same three models, in turns;
+   (b) the CNN with a process per learner for 2 rounds on ``store:
+   remote``, served by a ``python -m metisfl_tpu_torch.store.server``
+   process on a disk store, which must exit 0 on SIGTERM.
 
 It prints a ``{"federation": {...}}`` line (round walls and their split,
 ms per step, blob bytes, launches), a ``{"multiprocess": {...}}`` line
 (the same with a process per learner, and each process's peak device
-memory), a ``{"kernels": [...]}`` line (each kernel's launches by path),
+memory), ``{"wide_heads": ...}`` and ``{"store": ...}`` lines, a
+``{"kernels": [...]}`` line (each kernel's launches by path: K1-K3 at
+D = 64 on the main paths, and a row per wide-heads case and wrapper with
+its launches there, each measured at its path's shape),
 the GPU's name and power limit,
 and, when every phase passed, ``{"ok": true, "device": {...}}`` as its last
 line. It exits non-zero without a GPU, or outside a checkout.
@@ -166,6 +188,22 @@ def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
+def host_ms(fn, iters: int = 20) -> float:
+    """Host time of one call of ``fn``: ``iters`` calls queued with no sync
+    between them (the device runs behind), over ``iters``. Where it is
+    near ``time_ms``, the host paces the calls, not the kernel."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    seconds = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return seconds * 1e3 / iters
+
+
 def device_ms(fn):
     """Mean device time of one call of ``fn`` by the profiler, over
     ``PROFILED_CALLS`` back-to-back calls. Where a call's host work is as
@@ -200,9 +238,35 @@ class Smoke:
             print(f"-- {name}: {time.perf_counter() - t0:.3f} s", flush=True)
 
 
+# the six kernel wrappers, by name: K1-K3 and their general-D kernels
+KERNEL_WRAPPERS = ("flash_attention_fwd", "flash_bwd_dq", "flash_bwd_dkv",
+                   "flash_fwd_general", "flash_bwd_dq_general",
+                   "flash_bwd_dkv_general")
+# a wrapper's name in the kernels line, where it differs
+ROW_NAMES = {"flash_attention_fwd": "flash_fwd"}
+
+
+def kernel_wrappers():
+    import importlib
+
+    # the module (``ops.flash_attention`` also names a function)
+    fa = importlib.import_module("metisfl_tpu_torch.ops.flash_attention")
+    return [getattr(fa, name) for name in KERNEL_WRAPPERS]
+
+
+def launch_counts():
+    return {fn.__name__: fn.launches for fn in kernel_wrappers()}
+
+
+def reset_launches():
+    for fn in kernel_wrappers():
+        fn.launches = 0
+
+
 def attention_case(smoke, name, B, Hq, Hkv, L, D, dtype_name, causal,
-                   o_atol, lse_atol):
-    """One kernel-vs-plain comparison, timed; returns its record."""
+                   o_atol, lse_atol, kernel="flash_attention_fwd"):
+    """One kernel-vs-plain comparison, timed; returns its record.
+    ``kernel`` names the wrapper that must have launched."""
     import torch
     import torch.nn.functional as F
 
@@ -216,9 +280,14 @@ def attention_case(smoke, name, B, Hq, Hkv, L, D, dtype_name, causal,
     q, k, v = (torch.from_numpy(rng.standard_normal(shape).astype(
         np.float32)).to("cuda", dtype)
         for shape in ((B, Hq, L, D), (B, Hkv, L, D), (B, Hkv, L, D)))
+    before = launch_counts()
     o, lse = flash_attention_fwd(q, k, v, causal)
     o2, lse2 = flash_attention_fwd(q, k, v, causal)
     torch.cuda.synchronize()
+    launched = {n: c - before[n] for n, c in launch_counts().items() if
+                c - before[n]}
+    smoke.check(set(launched) == {kernel},
+                f"{name}: the forward ran on {kernel}: launches {launched}")
     o_ref, lse_ref = flash_attention_fwd_reference(q, k, v, causal)
     o_err = float((o.float() - o_ref.float()).abs().max())
     lse_err = float((lse - lse_ref).abs().max())
@@ -238,6 +307,7 @@ def attention_case(smoke, name, B, Hq, Hkv, L, D, dtype_name, causal,
 
     kernel_ms = time_ms(kernel)
     kernel_device_ms = device_ms(kernel)
+    kernel_host_ms = host_ms(kernel)
     plain_ms = time_ms(lambda: flash_attention_fwd_reference(q, k, v,
                                                              causal),
                        iters=5)
@@ -260,7 +330,7 @@ def attention_case(smoke, name, B, Hq, Hkv, L, D, dtype_name, causal,
         "name": name, "shape": [B, Hq, Hkv, L, D], "dtype": dtype_name,
         "causal": causal, "max_abs_err": o_err, "max_abs_err_lse": lse_err,
         "kernel_ms": kernel_ms, "kernel_device_ms": kernel_device_ms,
-        "plain_ms": plain_ms, "bound_ms": max(flop_ms, byte_ms),
+        "kernel_host_ms": kernel_host_ms, "plain_ms": plain_ms, "bound_ms": max(flop_ms, byte_ms),
         "bound_by": "operations" if flop_ms >= byte_ms else "bytes",
         "library_ms": library_ms, "library_device_ms": library_device_ms,
         "flops": flops, "bytes": nbytes,
@@ -273,9 +343,10 @@ def attention_case(smoke, name, B, Hq, Hkv, L, D, dtype_name, causal,
 
 
 def backward_case(smoke, name, B, Hq, Hkv, L, D, dtype_name, causal,
-                  rel_tol):
+                  rel_tol, kernels=("flash_bwd_dq", "flash_bwd_dkv")):
     """K2 and K3 against their plain versions on the card, each twice for
-    bit-identity, all timed; returns one record per kernel."""
+    bit-identity, all timed; returns one record per kernel, named by
+    ``kernels`` (the wrappers that must have launched)."""
     import torch
     import torch.nn.functional as F
 
@@ -295,11 +366,17 @@ def backward_case(smoke, name, B, Hq, Hkv, L, D, dtype_name, causal,
                       (B, Hq, L, D)))
     o, lse = flash_attention_fwd(q, k, v, causal)
     delta = (do.float() * o.float()).sum(-1)
+    before = launch_counts()
     dq = flash_bwd_dq(q, k, v, do, lse, delta, causal)
     dq2 = flash_bwd_dq(q, k, v, do, lse, delta, causal)
     dk, dv = flash_bwd_dkv(q, k, v, do, lse, delta, causal)
     dk2, dv2 = flash_bwd_dkv(q, k, v, do, lse, delta, causal)
     torch.cuda.synchronize()
+    launched = {n: c - before[n] for n, c in launch_counts().items() if
+                c - before[n]}
+    smoke.check(set(launched) == set(kernels),
+                f"{name}: the backward ran on {sorted(kernels)}: launches "
+                f"{launched}")
     want_dq = flash_bwd_dq_reference(q, k, v, do, lse, delta, causal)
     want_dk, want_dv = flash_bwd_dkv_reference(q, k, v, do, lse, delta,
                                                causal)
@@ -317,8 +394,17 @@ def backward_case(smoke, name, B, Hq, Hkv, L, D, dtype_name, causal,
     smoke.check(torch.equal(dk, dk2) and torch.equal(dv, dv2),
                 f"{name}: two runs of K3 give bit-identical dK and dV")
 
-    dq_ms = time_ms(lambda: flash_bwd_dq(q, k, v, do, lse, delta, causal))
-    dkv_ms = time_ms(lambda: flash_bwd_dkv(q, k, v, do, lse, delta, causal))
+    def run_dq():
+        return flash_bwd_dq(q, k, v, do, lse, delta, causal)
+
+    def run_dkv():
+        return flash_bwd_dkv(q, k, v, do, lse, delta, causal)
+
+    # by CUDA events, by the profiler's device time and on the host's
+    # clock: a kernel that is slower tells from a host that paces it
+    dq_ms, dkv_ms = time_ms(run_dq), time_ms(run_dkv)
+    dq_device, dkv_device = device_ms(run_dq), device_ms(run_dkv)
+    dq_host, dkv_host = host_ms(run_dq), host_ms(run_dkv)
     dq_plain = time_ms(lambda: flash_bwd_dq_reference(
         q, k, v, do, lse, delta, causal), iters=5)
     dkv_plain = time_ms(lambda: flash_bwd_dkv_reference(
@@ -352,19 +438,20 @@ def backward_case(smoke, name, B, Hq, Hkv, L, D, dtype_name, causal,
     size = q.element_size()
     ins = (q.numel() * 2 + k.numel() * 2) * size + lse.numel() * 4 * 2
     records = []
-    for kernel, ms, plain, per_pair, outs in (
-            ("flash_bwd_dq", dq_ms, dq_plain, 6, q.numel()),
-            ("flash_bwd_dkv", dkv_ms, dkv_plain, 8, 2 * k.numel())):
+    for kernel, ms, dev, host, plain, per_pair, outs, err in (
+            (kernels[0], dq_ms, dq_device, dq_host, dq_plain, 6, q.numel(),
+             errs["dq"]),
+            (kernels[1], dkv_ms, dkv_device, dkv_host, dkv_plain, 8,
+             2 * k.numel(), max(errs["dk"], errs["dv"]))):
         flops = float(per_pair * D * pairs)
         nbytes = ins + outs * size
         flop_ms = flops / PEAK_FLOPS[dtype_name] * 1e3
         byte_ms = nbytes / PEAK_BYTES * 1e3
-        err = (errs["dq"] if kernel == "flash_bwd_dq"
-               else max(errs["dk"], errs["dv"]))
         records.append({
             "name": kernel, "case": name, "shape": [B, Hq, Hkv, L, D],
             "dtype": dtype_name, "causal": causal, "max_abs_err": err,
-            "kernel_ms": ms, "plain_ms": plain,
+            "kernel_ms": ms, "kernel_device_ms": dev,
+            "kernel_host_ms": host, "plain_ms": plain,
             "bound_ms": max(flop_ms, byte_ms),
             "bound_by": "operations" if flop_ms >= byte_ms else "bytes",
             "library_ms": library_ms,
@@ -1299,14 +1386,17 @@ def _npz(path):
 
 
 def run_multiprocess(smoke, label, kind, shards, test, train, eval_cfg,
-                     rounds, template):
+                     rounds, template, model_store=None, before_shutdown=None):
     """One DriverSession federation of ``len(shards)`` learner processes
-    and a controller process; returns (statistics, per-learner records,
-    learner ids by index, workdir, the final community blob, walls)."""
+    and a controller process (on ``model_store``, default in memory;
+    ``before_shutdown()`` runs after the last round); returns (statistics,
+    per-learner records, learner ids by index, workdir, the final
+    community blob, walls)."""
     from metisfl_tpu_torch.config import (
         AggregationConfig,
         FederationConfig,
         LearnerEndpoint,
+        ModelStoreConfig,
         TerminationConfig,
     )
     from metisfl_tpu_torch.controller.service import ControllerClient
@@ -1327,6 +1417,7 @@ def run_multiprocess(smoke, label, kind, shards, test, train, eval_cfg,
         aggregation=AggregationConfig(scaler="train_dataset_size"),
         train=train, eval=eval_cfg,
         termination=TerminationConfig(federation_rounds=rounds),
+        model_store=model_store or ModelStoreConfig(),
         learners=[LearnerEndpoint() for _ in shards])
     session = DriverSession(config, template, recipes, workdir=workdir,
                             device=DEVICE)
@@ -1356,6 +1447,8 @@ def run_multiprocess(smoke, label, kind, shards, test, train, eval_cfg,
         stats = session.monitor_federation(poll_every_s=0.25)
         run_s = time.perf_counter() - t1
         final = client.get_community_model()
+        if before_shutdown is not None:
+            before_shutdown()
     finally:
         if client is not None:
             client.close()
@@ -1578,6 +1671,440 @@ def multiprocess_phase(smoke, gpu):
     return out
 
 
+# -- wide-heads path: LlamaLite training at head dims beyond the main path's
+
+# dim 1024 with 4 heads (D = 256) in bf16 (K1-K3's D = 256 builds, K3 in
+# two passes) and in fp32 (K1's SIMT build, the general K2/K3), and with 2
+# heads (D = 512, the general K1-K3) in bf16; depth 2, 2 Adam steps at
+# batch 2 of 256 tokens
+WIDE_DEPTH, WIDE_STEPS, WIDE_BATCH, WIDE_LEN = 2, 2, 2, 256
+# (label, heads, compute dtype, K1's wrapper, K2's and K3's wrappers): the
+# wrappers each head dim routes to; each also runs as a kernel case at the
+# path's own B·H·L·D
+WIDE_CASES = (
+    ("d256_bf16", 4, "bfloat16", "flash_attention_fwd",
+     ("flash_bwd_dq", "flash_bwd_dkv")),
+    ("d256_fp32", 4, "float32", "flash_attention_fwd",
+     ("flash_bwd_dq_general", "flash_bwd_dkv_general")),
+    ("d512_bf16", 2, "bfloat16", "flash_fwd_general",
+     ("flash_bwd_dq_general", "flash_bwd_dkv_general")),
+)
+
+
+def wide_heads_phase(smoke, gpu):
+    """LlamaLite training through ``TorchModelOps.train`` at D = 256 and
+    512: each launch lands on the kernel the head dim routes to, the loss
+    stays finite and one batch's gradients hold to the dense path's."""
+    import torch
+    import torch.nn.functional as F
+
+    from metisfl_tpu_torch.comm import TrainParams
+    from metisfl_tpu_torch.models import (
+        ArrayDataset,
+        TorchModelOps,
+        load_flax_variables,
+    )
+    from metisfl_tpu_torch.models.zoo import LlamaLite
+
+    steps = WIDE_DEPTH * WIDE_STEPS
+    tokens = np.random.default_rng(SEED + 6).integers(
+        0, VOCAB, (WIDE_BATCH, WIDE_LEN + 1)).astype(np.int32)
+    data = ArrayDataset(tokens[:, :-1], tokens[:, 1:], seed=SEED)
+    out = {"depth": WIDE_DEPTH, "steps": WIDE_STEPS, "cases": {}}
+    total = {name: 0 for name in KERNEL_WRAPPERS}
+    for label, heads, dtype_name, fwd, (dq, dkv) in WIDE_CASES:
+        # K3's D = 256 build launches twice a step (dV, then dK)
+        want = {fwd: steps, dq: steps,
+                dkv: 2 * steps if dkv == "flash_bwd_dkv" else steps}
+        # fp32 is the model's own compute dtype (None)
+        dtype = None if dtype_name == "float32" else getattr(torch,
+                                                             dtype_name)
+        cfg = dict(vocab_size=VOCAB, dim=DIM, depth=WIDE_DEPTH, heads=heads,
+                   kv_heads=heads, dtype=dtype)
+        variables = random_variables(LlamaLite(**cfg, device="meta"), SEED)
+        ops = TorchModelOps(LlamaLite(**cfg, use_flash=True),
+                            variables=variables, device=DEVICE)
+        reset_launches()
+        result = ops.train(data, TrainParams(
+            batch_size=WIDE_BATCH, local_steps=WIDE_STEPS, optimizer="adam",
+            learning_rate=1e-4))
+        if DEVICE == "cuda":
+            torch.cuda.synchronize()
+        counts = launch_counts()
+        for name, n in counts.items():
+            total[name] += n
+        launched = {n: c for n, c in counts.items() if c}
+        # K1 also runs where a block recomputes its forward
+        ok = (set(launched) == set(want) and all(
+            launched[n] >= c if n in ("flash_attention_fwd",
+                                      "flash_fwd_general")
+            else launched[n] == c for n, c in want.items()))
+        smoke.check(ok, f"wide heads {label} (D = {DIM // heads}): "
+                    f"launches {launched}, expected {want}")
+        losses = [e["loss"] for e in result.epoch_metrics]
+        smoke.check(result.completed_steps == WIDE_STEPS
+                    and all(np.isfinite(losses)),
+                    f"wide heads {label}: {result.completed_steps} steps, "
+                    f"losses {[round(x, 4) for x in losses]} finite")
+        x = torch.as_tensor(tokens[:, :-1], device=DEVICE)
+        y = torch.as_tensor(tokens[:, 1:], device=DEVICE).long()
+        dense = load_flax_variables(LlamaLite(**cfg, use_flash=False,
+                                              device=DEVICE),
+                                    result.variables)
+
+        def grads(model):
+            logits = model(x, train=True)
+            loss = F.cross_entropy(logits.reshape(-1, VOCAB).float(),
+                                   y.reshape(-1))
+            return torch.autograd.grad(loss, list(model.parameters()))
+
+        rel = max(float(torch.linalg.vector_norm(a - b)
+                        / torch.linalg.vector_norm(b).clamp_min(1e-30))
+                  for a, b in zip(grads(ops.module), grads(dense)))
+        smoke.check(rel <= GRAD_REL_L2,
+                    f"wide heads {label}: flash vs dense gradients, largest "
+                    f"relative L2 error {rel:.4g} <= {GRAD_REL_L2}")
+        out["cases"][label] = {"head_dim": DIM // heads, "launches": launched,
+                               "ms_per_step": result.ms_per_step,
+                               "losses": losses, "grad_rel_l2_max": rel}
+        del ops, dense, variables
+        if DEVICE == "cuda":
+            torch.cuda.empty_cache()
+    out["launches"] = total
+    out["gpu"] = gpu
+    print(json.dumps({"wide_heads": out}), flush=True)
+    return out
+
+
+# -- store phase: the model-store layer and the native host fold
+
+# (a) the LlamaLite federation on a cached_disk store (a 256 MB cache,
+# below one 755 MB model) with 3 ingest writers; (b) the CNN with a
+# process per learner on a remote store served by a store-server process
+STORE_CACHE_MB, STORE_INGEST_WORKERS, STORE_CNN_ROUNDS = 256, 3, 2
+# native vs numpy fold of the 3 uplinks: repetitions each, in turns
+FOLD_REPS = 3
+
+
+class FenceProbe:
+    """Records, on one controller, when each ingest drain returns and
+    each store select starts (wrapping the instances' methods)."""
+
+    def __init__(self, controller):
+        self.events = []
+        self._lock = threading.Lock()
+        ingest, store = controller._ingest, controller._store
+        drain, select = ingest.drain, store.select
+
+        def timed_drain(learner_id=None, timeout=None):
+            ok = drain(learner_id, timeout)
+            self._note("drain_all" if learner_id is None else "drain_one")
+            return ok
+
+        def timed_select(ids, k=1):
+            self._note("select")
+            return select(ids, k)
+
+        ingest.drain = timed_drain
+        store.select = timed_select
+
+    def _note(self, what):
+        with self._lock:
+            self.events.append((what, time.perf_counter()))
+
+    def fenced(self):
+        """True when an all-learner drain returned before the first select
+        (the phase runs one round)."""
+        seen_drain = False
+        for what, _ in self.events:
+            if what == "drain_all":
+                seen_drain = True
+            elif what == "select" and not seen_drain:
+                return False
+        return seen_drain
+
+
+def time_folds(uplinks, scales):
+    """The native and the numpy host fold of the same models, timed in
+    turns (native, numpy, numpy, native, ...), ``FOLD_REPS`` each; returns
+    the seconds of each and the largest difference between the results,
+    relative to max|w|."""
+    from metisfl_tpu_torch.aggregation import FedAvg
+    from metisfl_tpu_torch.aggregation import base as agg_base
+
+    pairs = [([m], s) for m, s in zip(uplinks, scales)]
+    times = {"native": [], "numpy": []}
+    results = {}
+    saved = agg_base._hostfold_lib
+    order = ["native", "numpy", "numpy", "native"] * FOLD_REPS
+    try:
+        for which in order[:2 * FOLD_REPS]:
+            agg_base._hostfold_lib = None if which == "native" else False
+            t0 = time.perf_counter()
+            results[which] = FedAvg().aggregate(pairs)
+            times[which].append(time.perf_counter() - t0)
+            if agg_base.fold_backend() != which:
+                raise RuntimeError(f"the {which} fold ran as "
+                                   f"{agg_base.fold_backend()}")
+    finally:
+        agg_base._hostfold_lib = saved
+    rel = max(float(np.abs(results["native"][k].astype(np.float64)
+                           - results["numpy"][k]).max())
+              / max(float(np.abs(results["numpy"][k]).max()), 1e-30)
+              for k in results["numpy"])
+    return times, rel
+
+
+def store_phase(smoke, gpu):
+    """(a) the full-width LlamaLite federation in process on a cached disk
+    store with parallel ingest, and the native fold; (b) the CNN with a
+    process per learner on a remote store."""
+    import tempfile
+
+    import torch
+
+    from metisfl_tpu_torch.aggregation import base as agg_base
+    from metisfl_tpu_torch.comm import TrainParams
+    from metisfl_tpu_torch.config import (
+        AggregationConfig,
+        EvalConfig,
+        FederationConfig,
+        ModelStoreConfig,
+        TerminationConfig,
+    )
+    from metisfl_tpu_torch.driver import InProcessFederation
+    from metisfl_tpu_torch.models import ArrayDataset, TorchModelOps
+    from metisfl_tpu_torch.models.zoo import FashionMnistCNN, LlamaLite
+    from metisfl_tpu_torch.scaling import make_scaler
+    from metisfl_tpu_torch.tensor import ModelBlob
+    from metisfl_tpu_torch.tensor.pytree import read_named_arrays, to_numpy
+
+    out = {}
+    # (a) LlamaLite, 3 learners x 1 round of 2 Adam steps
+    llama = dict(vocab_size=VOCAB, dim=DIM, depth=DEPTH, heads=HEADS,
+                 kv_heads=KV_HEADS, dtype=torch.bfloat16)
+    variables = random_variables(LlamaLite(**llama, device="meta"), SEED)
+    tokens = np.random.default_rng(SEED + 5).integers(
+        0, VOCAB, (FED_LEARNERS * FED_ROWS + FED_EVAL_ROWS, TRAIN_LEN + 1)
+    ).astype(np.int32)
+    test = ArrayDataset(tokens[-FED_EVAL_ROWS:, :-1],
+                        tokens[-FED_EVAL_ROWS:, 1:])
+    root = tempfile.mkdtemp(prefix="chip_smoke_store_")
+    try:
+        fed = InProcessFederation(FederationConfig(
+            aggregation=AggregationConfig(scaler="train_dataset_size"),
+            train=TrainParams(batch_size=TRAIN_BATCH, local_steps=FED_STEPS,
+                              optimizer="adam", learning_rate=1e-4),
+            eval=EvalConfig(batch_size=TRAIN_BATCH, datasets=["test"],
+                            metrics=["loss", "accuracy"]),
+            termination=TerminationConfig(federation_rounds=1),
+            model_store=ModelStoreConfig(
+                store="cached_disk", root=root, cache_mb=STORE_CACHE_MB,
+                ingest_workers=STORE_INGEST_WORKERS)))
+        for i in range(FED_LEARNERS):
+            rows = tokens[i * FED_ROWS:(i + 1) * FED_ROWS]
+            fed.add_learner(
+                TorchModelOps(LlamaLite(**llama, use_flash=True),
+                              variables=variables, device=DEVICE),
+                ArrayDataset(rows[:, :-1], rows[:, 1:], seed=SEED + i),
+                test_dataset=test)
+        fed.seed_model(variables)
+        del variables
+        fences = FenceProbe(fed.controller)
+        store = fed.controller._store
+        reset_launches()
+        # the check reads this round's own fold, not an earlier phase's
+        agg_base._last_backends = ()
+        probe, stats = run_federation(fed)
+        if DEVICE == "cuda":
+            torch.cuda.synchronize()
+        launches = launch_counts()
+        backend = agg_base.fold_backend()
+        smoke.check(backend == "native",
+                    f"store llama: the controller's host fold ran "
+                    f"{backend!r} (native hostfold.cc expected)")
+        smoke.check(fences.fenced(),
+                    "store llama: the ingest drain fence returned before "
+                    f"every select ({[e for e, _ in fences.events]})")
+        meta = stats["round_metadata"][0]
+        writes = meta["ingest_write_duration_ms"]
+        smoke.check(sorted(writes) == sorted(meta["selected_learners"])
+                    and fed.controller._ingest.errors()[0] == 0,
+                    f"store llama: each of the {len(writes)} uplinks was "
+                    "written by the ingest pool, with no error")
+        smoke.check(store.cache_misses >= FED_LEARNERS
+                    and store._cached_total == 0,
+                    f"store llama: select read every 755 MB model from "
+                    f"its mmapped file ({store.cache_misses} cache misses; "
+                    f"{store._cached_total} bytes cached of a "
+                    f"{STORE_CACHE_MB} MB budget)")
+        worst = check_folds(smoke, "store llama", probe, stats, 1,
+                            f64_rel=FED_F64_REL)
+
+        def parse(blob):
+            return {n: to_numpy(t)
+                    for n, t in ModelBlob.from_bytes(blob).tensors}
+
+        uplinks = {lid: parse(blob) for lid, blob in probe.uplinks[0].items()}
+        files_ok = True
+        for lid, want in uplinks.items():
+            path = os.path.join(root, lid, "0.blob")
+            with open(path, "rb") as f:
+                data = f.read()
+            got, _ = read_named_arrays(data, allow_nocrc=True)
+            files_ok &= data[4] == 3 and sorted(got) == sorted(want) and all(
+                got[k].dtype == want[k].dtype
+                and got[k].tobytes() == want[k].tobytes() for k in want)
+            del data, got
+        smoke.check(files_ok, f"store llama: each stored .blob is a v3 blob "
+                    f"that parses to its uplink's tensors ({root}/<id>/0.blob)")
+        sizes = {learner.learner_id: len(learner.datasets["train"])
+                 for learner in fed.learners}
+        selected = meta["selected_learners"]
+        scales = make_scaler("train_dataset_size")(
+            {lid: {"num_train_examples": sizes[lid]} for lid in selected})
+        fold_s, fold_rel = time_folds([uplinks[lid] for lid in selected],
+                                      [scales[lid] for lid in selected])
+        del uplinks
+        smoke.check(fold_rel <= FED_F64_REL,
+                    f"store llama: native and numpy folds agree within "
+                    f"{fold_rel:.3g} x max|w| (<= {FED_F64_REL})")
+        pack = meta["community_pack_duration_ms"]
+        out["llama"] = {
+            "round_wall_s": meta["completed_at"] - meta["started_at"],
+            "ingest_write_ms": writes,
+            "ingest_enqueue_ms": meta["model_insertion_duration_ms"],
+            "drain_ms": meta["ingest_drain_duration_ms"],
+            "select_s": meta["store_select_duration_ms"] / 1e3,
+            "fold_in_round_s": (meta["aggregation_duration_ms"] - pack
+                                - meta["ingest_drain_duration_ms"]
+                                - meta["store_select_duration_ms"]) / 1e3,
+            "community_pack_s": pack / 1e3,
+            "fold_native_s": fold_s["native"],
+            "fold_numpy_s": fold_s["numpy"],
+            "native_vs_numpy_rel": fold_rel, "f64_rel_err": worst,
+            "cache_misses": store.cache_misses, "fold_backend": backend,
+            "launches": launches, "split": probe.split(stats),
+        }
+        print(f"store llama: insert ms per uplink "
+              f"{[round(v, 1) for v in writes.values()]}, drain "
+              f"{meta['ingest_drain_duration_ms']:.1f} ms, select "
+              f"{meta['store_select_duration_ms'] / 1e3:.3f} s; fold native "
+              f"{[round(v, 3) for v in fold_s['native']]} s vs numpy "
+              f"{[round(v, 3) for v in fold_s['numpy']]} s", flush=True)
+        del fed, probe, store, fences
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    if DEVICE == "cuda":
+        torch.cuda.empty_cache()
+    out["cnn"] = store_cnn_remote(smoke)
+    out["gpu"] = gpu
+    print(json.dumps({"store": out}), flush=True)
+    return out
+
+
+def remote_learner_ids(port):
+    """The learner ids a store server on ``port`` holds a lineage for."""
+    from metisfl_tpu_torch.store.remote import RemoteModelStore
+
+    client = RemoteModelStore("localhost", port)
+    try:
+        return client.learner_ids()
+    finally:
+        client.shutdown()
+
+
+def store_cnn_remote(smoke):
+    """(b) the CNN federation with a process per learner, its model store
+    a ``python -m metisfl_tpu_torch.store.server`` process on a disk
+    store."""
+    for name in ("grpc", "cloudpickle"):
+        try:
+            __import__(name)
+        except ImportError:
+            print(f"store cnn: not run: {name} is not installed on this "
+                  "machine", flush=True)
+            smoke.failures.append(f"store cnn: {name} missing")
+            return None
+    import signal
+
+    from metisfl_tpu_torch.comm import TrainParams
+    from metisfl_tpu_torch.config import EvalConfig, ModelStoreConfig
+    from metisfl_tpu_torch.models import TorchModelOps
+    from metisfl_tpu_torch.models.zoo import FashionMnistCNN
+
+    x, y = synthetic_image_classification(
+        FED_LEARNERS * CNN_EXAMPLES + CNN_TEST, noise=CNN_NOISE, seed=SEED)
+    shards = [(x[i * CNN_EXAMPLES:(i + 1) * CNN_EXAMPLES],
+               y[i * CNN_EXAMPLES:(i + 1) * CNN_EXAMPLES])
+              for i in range(FED_LEARNERS)]
+    test = (x[-CNN_TEST:], y[-CNN_TEST:])
+    template = TorchModelOps(FashionMnistCNN(), rng_seed=SEED,
+                             device="cpu").get_variables()
+    root = os.path.join(MP_DIR, "store_server")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(MP_DIR, exist_ok=True)
+    log_path = os.path.join(MP_DIR, "store_server.log")
+    env = dict(os.environ, PYTHONPATH=REPO)
+    log = open(log_path, "w")
+    server = subprocess.Popen(
+        [sys.executable, "-m", "metisfl_tpu_torch.store.server",
+         "--host", "localhost", "--port", "0", "--store", "disk",
+         "--root", root], stdout=log, stderr=subprocess.STDOUT, cwd=REPO,
+        env=env)
+    out, held = {}, []
+    try:
+        port, deadline = None, time.time() + MP_TIMEOUT_S
+        while port is None:
+            if server.poll() is not None or time.time() > deadline:
+                raise RuntimeError("the store server did not start")
+            with open(log_path) as f:
+                found = re.search(r"METISFL_TPU_STORE_READY port=(\d+)",
+                                  f.read())
+            port = int(found.group(1)) if found else None
+            time.sleep(0.1)
+        stats, records, ids, workdir, final, walls = run_multiprocess(
+            smoke, "store cnn", "cnn", shards, test,
+            TrainParams(batch_size=CNN_BATCH, local_steps=CNN_STEPS,
+                        optimizer="sgd", learning_rate=0.05),
+            EvalConfig(batch_size=256, datasets=["test"],
+                       metrics=["loss", "accuracy"]),
+            STORE_CNN_ROUNDS, template,
+            model_store=ModelStoreConfig(store="remote", host="localhost",
+                                         port=port),
+            before_shutdown=lambda: held.extend(remote_learner_ids(port)))
+        check_mp_folds(smoke, "store cnn", stats, ids, workdir,
+                       [len(s[0]) for s in shards], final, STORE_CNN_ROUNDS)
+        acc = _accuracies(stats)
+        smoke.check(len(acc) >= STORE_CNN_ROUNDS
+                    and acc[STORE_CNN_ROUNDS - 1] > acc[0],
+                    f"store cnn: community test accuracy by round "
+                    f"{[round(a, 4) for a in acc]} rises")
+        smoke.check(len(held) == FED_LEARNERS,
+                    f"store cnn: the store server held each learner's "
+                    f"lineage after the last round ({sorted(held)})")
+        split = mp_split(stats, records, ids, STORE_CNN_ROUNDS)
+        out = {"rounds": STORE_CNN_ROUNDS, "test_accuracy": acc,
+               "round_wall_s": [s["wall_s"] for s in split],
+               "select_s": [m["store_select_duration_ms"] / 1e3
+                            for m in stats["round_metadata"]
+                            [:STORE_CNN_ROUNDS]], **walls}
+        print(f"store cnn: round walls "
+              f"{[round(w, 3) for w in out['round_wall_s']]} s", flush=True)
+    finally:
+        server.send_signal(signal.SIGTERM)
+        try:
+            code = server.wait(timeout=60)
+        except subprocess.TimeoutExpired:
+            server.kill()
+            code = server.wait(timeout=30)
+        log.close()
+        smoke.check(code == 0, f"store cnn: the store server exits {code} "
+                    "on SIGTERM (0 expected)")
+        shutil.rmtree(MP_DIR, ignore_errors=True)
+    return out
+
+
 def _leaves(node):
     if isinstance(node, dict):
         for v in node.values():
@@ -1701,15 +2228,52 @@ def main() -> int:
         smoke.phase(f"kernel vs plain: flash_bwd {name}", backward_case,
                     smoke, f"flash_bwd_{name}", *shape, "bfloat16", True,
                     2e-2)
-    # K1's head dim 256 instantiation (the backward kernels stop at 128)
+    # the head dim 256 builds (K3 in two passes: dV, then dK)
     smoke.phase("kernel vs plain: flash_fwd d256", attention_case, smoke,
                 "flash_fwd_d256", 2, 16, 4, 1024, 256, "bfloat16", True,
                 2e-2, 1e-3)
+    smoke.phase("kernel vs plain: flash_bwd d256", backward_case, smoke,
+                "flash_bwd_d256", 2, 16, 4, 1024, 256, "bfloat16", True,
+                2e-2)
+    # beyond every build: the general kernels (any D, any dtype)
+    general = ("flash_bwd_dq_general", "flash_bwd_dkv_general")
+    for dtype_name, o_atol, lse_atol, rel in (
+            ("bfloat16", 2e-2, 1e-3, 2e-2), ("float32", 1e-4, 1e-4, 1e-4)):
+        tag = "bf16" if dtype_name == "bfloat16" else "fp32"
+        smoke.phase(
+            f"kernel vs plain: flash_fwd d512 {tag}", attention_case, smoke,
+            f"flash_fwd_general_d512_{tag}", 1, 4, 4, 512, 512, dtype_name,
+            True, o_atol, lse_atol, "flash_fwd_general")
+        smoke.phase(
+            f"kernel vs plain: flash_bwd d512 {tag}", backward_case, smoke,
+            f"flash_bwd_general_d512_{tag}", 1, 4, 4, 512, 512, dtype_name,
+            True, rel, general)
+    smoke.phase("kernel vs plain: flash_bwd d256 fp32", backward_case, smoke,
+                "flash_bwd_general_d256_fp32", 2, 8, 2, 1024, 256, "float32",
+                True, 1e-4, general)
+    # the wide-heads path's own shapes: every wrapper it launches, held to
+    # its twin where the path launches it (its rows in the kernels line)
+    wide_cases = {}
+    for label, heads, dtype_name, fwd, bwd in WIDE_CASES:
+        o_atol, lse_atol, rel = ((2e-2, 1e-3, 2e-2)
+                                 if dtype_name == "bfloat16"
+                                 else (1e-4, 1e-4, 1e-4))
+        shape = (WIDE_BATCH, heads, heads, WIDE_LEN, DIM // heads)
+        wide_cases[label] = (
+            smoke.phase(f"kernel vs plain: flash_fwd wide heads {label}",
+                        attention_case, smoke, f"flash_fwd_wide_{label}",
+                        *shape, dtype_name, True, o_atol, lse_atol, fwd),
+            smoke.phase(f"kernel vs plain: flash_bwd wide heads {label}",
+                        backward_case, smoke, f"flash_bwd_wide_{label}",
+                        *shape, dtype_name, True, rel, bwd))
     sliced = smoke.phase("slice: Predict and Generate through the gateway",
                          slice_phase, smoke, gpu)
     torch.cuda.empty_cache()
     trained = smoke.phase("slice: LlamaLite training through TorchModelOps",
                           training_phase, smoke, gpu)
+    torch.cuda.empty_cache()
+    wide = smoke.phase("slice: LlamaLite training at head dims 256 and 512",
+                       wide_heads_phase, smoke, gpu)
     torch.cuda.empty_cache()
     federated = smoke.phase("slice: synchronous FedAvg rounds through "
                             "InProcessFederation", federation_phase, smoke,
@@ -1720,6 +2284,10 @@ def main() -> int:
     multiprocess = smoke.phase(
         "slice: FedAvg rounds with a process per learner through "
         "DriverSession over gRPC", multiprocess_phase, smoke, gpu)
+    torch.cuda.empty_cache()
+    stored = smoke.phase(
+        "slice: the model-store layer (cached disk with parallel ingest, "
+        "remote) and the native host fold", store_phase, smoke, gpu)
 
     # launches on each path that runs a kernel (each path's counts set to
     # 0 just before it and read just after): K1 on every path
@@ -1729,20 +2297,41 @@ def main() -> int:
     mp_launches = ((multiprocess or {}).get("llama") or {}).get(
         "launches", {})
     serve_k1 = (sliced or {}).get("flash_launches", 0)
+    # the store phase's counts, by wrapper name
+    store_launches = ((stored or {}).get("llama") or {}).get("launches", {})
     rows = []
     if main_case is not None:
         by_path = {"serve": serve_k1,
                    "train": train_launches.get("flash_fwd", 0),
                    "federation": fed_launches.get("flash_fwd", 0),
-                   "multiprocess": mp_launches.get("flash_fwd", 0)}
+                   "multiprocess": mp_launches.get("flash_fwd", 0),
+                   "store": store_launches.get("flash_attention_fwd", 0)}
         rows.append(("flash_fwd", "flash_fwd.cu", 76, main_case,
                      sum(by_path.values()), by_path))
     for record, line in zip(bwd_cases or [], (126, 162)):
         by_path = {"train": train_launches.get(record["name"], 0),
                    "federation": fed_launches.get(record["name"], 0),
-                   "multiprocess": mp_launches.get(record["name"], 0)}
+                   "multiprocess": mp_launches.get(record["name"], 0),
+                   "store": store_launches.get(record["name"], 0)}
         rows.append((record["name"], "flash_bwd.cu", line, record,
                      sum(by_path.values()), by_path))
+    # the wide-heads path, a row per head dim and wrapper: its launches in
+    # that case's run beside the case measured at the same B·H·L·D
+    wide_by_case = (wide or {}).get("cases", {})
+    for label, _, _, fwd, bwd in WIDE_CASES:
+        fwd_record, bwd_records = wide_cases[label]
+        launched = wide_by_case.get(label, {}).get("launches", {})
+        for wrapper, record, source, line in (
+                (fwd, fwd_record, "flash_fwd.cu", 76),
+                (bwd[0], (bwd_records or [None])[0], "flash_bwd.cu", 126),
+                (bwd[1], (bwd_records or [None, None])[1], "flash_bwd.cu",
+                 162)):
+            if record is None:
+                continue
+            by_path = {"wide_heads": launched.get(wrapper, 0)}
+            name = ROW_NAMES.get(wrapper, wrapper) + "_" + label
+            rows.append((name, source, line, dict(record, wrapper=wrapper),
+                         sum(by_path.values()), by_path))
     kernels = []
     for name, source, line, record, launches, by_path in rows:
         entry = {
@@ -1754,26 +2343,30 @@ def main() -> int:
             "ms": record["kernel_ms"], "plain_ms": record["plain_ms"],
             "bound_ms": record["bound_ms"], "bound_by": record["bound_by"],
             "library_ms": record["library_ms"], "tflops": record["tflops"],
+            "device_ms": record["kernel_device_ms"],
+            "host_ms": record["kernel_host_ms"],
+            "library_device_ms": record["library_device_ms"],
+            "shape": record["shape"], "dtype": record["dtype"],
         }
-        if name != "flash_fwd":
+        if "wrapper" in record:
+            entry["wrapper"] = record["wrapper"]
+        if "case" in record:  # K2/K3: SDPA's one backward call covers both
             entry["library_covers"] = "flash_bwd_dq+flash_bwd_dkv"
-            entry["library_device_ms"] = record["library_device_ms"]
-        elif train_case is not None:
-            entry["device_ms"] = record["kernel_device_ms"]
-            entry["library_device_ms"] = record["library_device_ms"]
+        if name == "flash_fwd" and train_case is None:
+            smoke.failures.append("flash_fwd has no training-shape row")
+        elif name == "flash_fwd":
             entry["at_training_shape"] = {
                 key: train_case[key] for key in (
                     "shape", "max_abs_err", "kernel_ms", "kernel_device_ms",
-                    "plain_ms", "bound_ms", "bound_by", "library_ms",
-                    "library_device_ms", "tflops", "tflops_device")}
-        else:
-            smoke.failures.append("flash_fwd has no training-shape row")
+                    "kernel_host_ms", "plain_ms", "bound_ms", "bound_by",
+                    "library_ms", "library_device_ms", "tflops",
+                    "tflops_device")}
         kernels.append(entry)
         for path, count in by_path.items():
             if not count:
                 smoke.failures.append(f"{name} was not launched on the "
                                       f"{path} path")
-    if len(kernels) < 3:
+    if len(kernels) < 3 + 3 * len(WIDE_CASES):
         smoke.failures.append("a kernel of the path has no measured row")
     print(f"phases done in {time.perf_counter() - started:.3f} s")
     print(json.dumps({"kernels": kernels}))

@@ -210,6 +210,10 @@ class RpcServer:
     def stop(self, grace: float = 1.0) -> None:
         self._server.stop(grace).wait()
 
+    def wait(self) -> None:
+        """Block until the server stops."""
+        self._server.wait_for_termination()
+
 
 class RpcClient:
     """Channel to a :class:`BytesService`, retrying UNAVAILABLE.

@@ -2,11 +2,12 @@
 dataclasses (``config/federation.py``) with the fields the port reads.
 
 ``FederationConfig`` covers the synchronous FedAvg round over the
-in-memory store, with the controller's endpoint, the learners' endpoints,
+in-memory, disk, cached-disk and remote stores (with parallel ingest),
+with the controller's endpoint, the learners' endpoints,
 the transport's settings and TLS for the multi-process federation. It
 travels to the controller process as codec bytes (``to_wire``) or YAML
 (:func:`load_config`). It refuses at construction what the port does not
-do yet: a request for a protocol, rule, tier, store, uplink encoding or
+do yet: a request for a protocol, rule, tier, uplink encoding or
 plane that is not ported raises ``NotImplementedError`` naming the ROADMAP
 item that queues it, so no configuration is accepted and then silently
 ignored. Values the JAX package rejects raise ``ValueError`` here too.
@@ -94,8 +95,21 @@ class AggregationConfig:
 
 @dataclass
 class ModelStoreConfig:
-    store: str = "in_memory"
+    store: str = "in_memory"                 # in_memory | disk | cached_disk
+                                             # | remote
     lineage_length: int = 0                  # 0 → derive from the rule
+    root: str = ""                           # disk stores' directory ("":
+                                             # metisfl_tpu_store in the
+                                             # temp directory)
+    cache_mb: int = 256                      # cached_disk memory budget
+    # store="remote": where python -m metisfl_tpu_torch.store.server (or
+    # the JAX package's) serves
+    host: str = "localhost"
+    port: int = 0
+    # > 0: a bounded pool of this many writers persists uplinks off the
+    # completion path and aggregation fences on its drain before select
+    # (store/ingest.py); 0 inserts on the completion path
+    ingest_workers: int = 0
 
 
 @dataclass
@@ -143,7 +157,8 @@ class LearnerEndpoint:
     world_size: int = 1
 
 
-# names the JAX package accepts that the port has not ported yet
+# names the JAX package accepts (the protocols beyond synchronous are not
+# ported yet)
 _PROTOCOLS = ("synchronous", "semi_synchronous", "asynchronous",
               "asynchronous_buffered")
 _STORES = ("in_memory", "disk", "cached_disk", "remote")
@@ -196,8 +211,8 @@ class FederationConfig:
             raise ValueError("participation_ratio must be in (0, 1]")
         if self.model_store.store not in _STORES:
             raise ValueError(f"unknown store {self.model_store.store!r}")
-        if self.model_store.store != "in_memory":
-            raise not_ported(f"model store {self.model_store.store!r}", "3b")
+        if self.model_store.ingest_workers < 0:
+            raise ValueError("model_store.ingest_workers must be >= 0")
         if self.checkpoint.dir:
             raise not_ported("controller checkpoints", "3f")
         if self.round_deadline_secs > 0:

@@ -5,7 +5,11 @@ configuration arrives as one file, a codec-serialized ``FederationConfig``
 (``.bin``, what ``DriverSession`` writes) or YAML. The controller serves on
 ``--port`` (else the config's ``controller_port``; 0 binds an ephemeral
 port) and prints ``METISFL_TPU_CONTROLLER_READY port=<port>`` once it
-serves. SIGTERM, SIGINT or the ShutDown RPC stop it.
+serves. SIGTERM, SIGINT or the ShutDown RPC stop it. The whole config
+reaches the controller, its ``model_store`` block included: the store
+(in memory, disk, cached disk, or a ``python -m
+metisfl_tpu_torch.store.server`` at ``host``:``port``) and the ingest
+writers are built in this process.
 
 Not ported: ``--standby`` (the hot standby) and ``--resume`` (restore from
 a checkpoint), ROADMAP.md Queue 1 item 3f.

@@ -2,11 +2,18 @@
 
 The port's copy of the JAX package's ``controller/core.py``, trimmed to
 the synchronous FedAvg path: the learner registry (join, rejoin, leave),
-the train-task lifecycle, the in-memory model store, stride-blocked FedAvg
-aggregation on the host, round metadata, community-model evaluation and
-re-dispatch. The controller does no device work: wire blobs are parsed
-into numpy and folded on the host (aggregation/base.py); a round's device
-work is its learners' training.
+the train-task lifecycle, the model store (in memory, on disk, cached, or
+remote) with its parallel-ingest plane, stride-blocked FedAvg aggregation
+on the host, round metadata, community-model evaluation and re-dispatch.
+The controller does no device work: wire blobs are parsed into numpy and
+folded on the host (aggregation/base.py); a round's device work is its
+learners' training.
+
+Parallel ingest (``model_store.ingest_workers > 0``, store/ingest.py):
+a completion enqueues its model and returns; the writer pool persists it
+and applies the result's metadata only once the write lands; aggregation
+drains the pipeline before any select, and a departing learner's queued
+writes are drained before its lineage is erased.
 
 Concurrency as in the JAX package: RPC threads only validate and enqueue;
 one scheduling worker owns all round logic, so a completion ack never
@@ -16,7 +23,7 @@ After ``termination.federation_rounds`` rounds (0 = no limit) the
 controller dispatches no more train tasks; the last round's evaluations
 still go out.
 
-Not ported yet (ROADMAP.md Queue 1 items 3b-3g and 4): the round-state WAL,
+Not ported yet (ROADMAP.md Queue 1 items 3c-3g and 4): the round-state WAL,
 checkpoints and the hot standby, deadlines, quorum and dispatch retries,
 churn scoring and quarantine, the registry, the streaming and tree tiers,
 secure aggregation, SCAFFOLD, int8q/top-k uplinks, ``describe`` and every
@@ -28,13 +35,16 @@ from __future__ import annotations
 import dataclasses
 import logging
 import math
+import os
 import random
 import resource
+import tempfile
 import threading
 import time
 import uuid
 from concurrent.futures import ThreadPoolExecutor
 from dataclasses import dataclass, field
+from functools import partial
 from typing import (Any, Callable, Dict, List, Optional, Protocol, Sequence)
 
 import numpy as np
@@ -52,7 +62,7 @@ from metisfl_tpu_torch.config import FederationConfig
 from metisfl_tpu_torch.scaling import make_scaler
 from metisfl_tpu_torch.scheduling import make_scheduler
 from metisfl_tpu_torch.selection import make_selector
-from metisfl_tpu_torch.store import make_store
+from metisfl_tpu_torch.store import IngestPipeline, make_store
 from metisfl_tpu_torch.tensor.pytree import ModelBlob, to_numpy
 from metisfl_tpu_torch.tensor.spec import quantify
 
@@ -123,8 +133,15 @@ class RoundMetadata:
     dispatch_duration_ms: float = 0.0
     # the contribution weights applied this round
     scales: Dict[str, float] = field(default_factory=dict)
-    # per uplink: blob parse + store insert
+    # per uplink: blob parse + store insert (with parallel ingest: blob
+    # parse + enqueue)
     model_insertion_duration_ms: Dict[str, float] = field(default_factory=dict)
+    # parallel ingest: per uplink, the writer's store insert; the drain
+    # fence before the select
+    ingest_write_duration_ms: Dict[str, float] = field(default_factory=dict)
+    ingest_drain_duration_ms: float = 0.0
+    # the store selects of the round's blocks
+    store_select_duration_ms: float = 0.0
     model_size: Dict[str, int] = field(default_factory=dict)
     uplink_bytes: Dict[str, int] = field(default_factory=dict)
     peak_rss_kb: int = 0
@@ -160,10 +177,27 @@ class Controller:
         self._selector = make_selector("scheduled_cardinality")
         self._scheduler = make_scheduler(config.protocol)
         required = self._aggregator.required_lineage
-        lineage = max(config.model_store.lineage_length or required,
-                      required)
-        self._store = make_store(config.model_store.store,
-                                 lineage_length=lineage)
+        store_cfg = config.model_store
+        lineage = max(store_cfg.lineage_length or required, required)
+        store_kwargs: Dict[str, Any] = {"lineage_length": lineage}
+        if store_cfg.store in ("disk", "cached_disk"):
+            store_kwargs["root"] = store_cfg.root or os.path.join(
+                tempfile.gettempdir(), "metisfl_tpu_store")
+        if store_cfg.store == "cached_disk":
+            store_kwargs["cache_bytes"] = store_cfg.cache_mb << 20
+        if store_cfg.store == "remote":
+            store_kwargs["host"] = store_cfg.host
+            store_kwargs["port"] = store_cfg.port
+        self._store = make_store(store_cfg.store, **store_kwargs)
+        # parallel ingest: completions enqueue, a bounded writer pool
+        # persists, aggregation fences on drain; the worker re-checks
+        # membership right before the write, so a queued write racing
+        # leave() cannot land after the erase
+        self._ingest: Optional[IngestPipeline] = None
+        if store_cfg.ingest_workers > 0:
+            self._ingest = IngestPipeline(
+                self._store, store_cfg.ingest_workers,
+                on_insert=self._note_ingest_insert, accept=self.is_member)
 
         # the community model's wire bytes
         self._community_blob: Optional[bytes] = None
@@ -185,6 +219,10 @@ class Controller:
     def shutdown(self) -> None:
         self._shutdown.set()
         self._pool.shutdown(wait=True)
+        # ingest workers write INTO the store: stop them (bounded drain)
+        # before the store's own shutdown
+        if self._ingest is not None:
+            self._ingest.shutdown()
         self._store.shutdown()
 
     # ------------------------------------------------------------------ #
@@ -248,6 +286,14 @@ class Controller:
             if record is None or record.auth_token != auth_token:
                 return False
             del self._learners[learner_id]
+        # drain the departing learner's queued writes BEFORE the erase: a
+        # write landing after it would resurrect the lineage
+        if (self._ingest is not None
+                and not self._ingest.drain(learner_id, timeout=30.0)):
+            # a wedged writer: erase anyway; the worker's membership gate
+            # drops the queued write
+            logger.error("ingest drain for departing %s timed out; its "
+                         "queued writes will be gate-dropped", learner_id)
         self._store.erase([learner_id])
         logger.info("learner %s left", learner_id)
         # the departed learner may have been the last one the barrier
@@ -259,6 +305,10 @@ class Controller:
     def active_learners(self) -> List[str]:
         with self._lock:
             return list(self._learners.keys())
+
+    def is_member(self, learner_id: str) -> bool:
+        with self._lock:
+            return learner_id in self._learners
 
     def learner_endpoints(self) -> List[Dict[str, Any]]:
         """Registered endpoints with the ports learners reported on join."""
@@ -339,7 +389,15 @@ class Controller:
                 self._current_meta.errors.append(
                     f"malformed result from {result.learner_id}: {exc}")
             model = None
-        if model is not None:
+        if model is not None and self._ingest is not None:
+            # enqueue and go on: the writer records the write's own time
+            # (_note_ingest_insert) and applies the result's metadata only
+            # when the write lands (_ingest_landed); aggregation fences on
+            # the drain before its select
+            self._ingest.submit(result.learner_id, model,
+                                on_success=partial(self._ingest_landed,
+                                                   result))
+        elif model is not None:
             self._store.insert(result.learner_id, model)
             with self._lock:
                 record.completed_batches = result.completed_batches
@@ -357,6 +415,23 @@ class Controller:
             result.learner_id, self.active_learners())
         if to_schedule:
             self._complete_round(to_schedule)
+
+    def _ingest_landed(self, result: TaskResult, ms: float) -> None:
+        """Ingest-write success hook (on the writer, strictly before the
+        drain fence covering the write returns): pair the result's step
+        count with the NOW-stored model. A failed write never gets here,
+        so the older stored model keeps its older metadata."""
+        with self._lock:
+            record = self._learners.get(result.learner_id)
+            if record is not None:
+                record.completed_batches = result.completed_batches
+
+    def _note_ingest_insert(self, learner_id: str, ms: float) -> None:
+        """The writer's own insert time, recorded against the round the
+        write lands in."""
+        with self._lock:
+            if learner_id in self._learners:
+                self._current_meta.ingest_write_duration_ms[learner_id] = ms
 
     def _handle_membership_change(self) -> None:
         active = self.active_learners()
@@ -450,6 +525,16 @@ class Controller:
         ``stride_length`` models (plus the accumulator) is resident at a
         time."""
         t0 = time.perf_counter()
+        drain_ms = 0.0
+        if self._ingest is not None:
+            # lineage fence: every queued write lands (and the store
+            # flushes its batched fsyncs) before any select; a timeout
+            # means a wedged writer, and raising routes into the
+            # aggregation-failure retry instead of a partial cohort
+            if not self._ingest.drain(timeout=300.0):
+                raise RuntimeError("ingest drain fence timed out; store "
+                                   "lineage would be torn")
+            drain_ms = (time.perf_counter() - t0) * 1e3
         lineage_k = self._aggregator.required_lineage
         stride = self.config.aggregation.stride_length or len(selected) or 1
         metadata = self._scaling_metadata(selected)
@@ -459,10 +544,12 @@ class Controller:
         block_ms: List[float] = []
         self._aggregator.reset()
         accumulated = 0
+        select_ms = 0.0
         for i in range(0, len(ids), stride):
             b0 = time.perf_counter()
             block = ids[i: i + stride]
             picked = self._store.select(block, k=lineage_k)
+            select_ms += (time.perf_counter() - b0) * 1e3
             pairs = [(picked[lid], scales[lid]) for lid in block
                      if lid in picked]
             if pairs:
@@ -494,6 +581,8 @@ class Controller:
             meta.aggregation_block_duration_ms = block_ms
             meta.aggregation_duration_ms = agg_ms
             meta.community_pack_duration_ms = pack_ms
+            meta.ingest_drain_duration_ms = drain_ms
+            meta.store_select_duration_ms = select_ms
             meta.model_size = sizes
 
     def _community_to_blob(self, community: Dict[str, np.ndarray]) -> bytes:

@@ -50,9 +50,21 @@
 //     tiles first.
 //   - D = 128 in K3 streams 32-row q tiles, so that dK, dV (128 fp32 per
 //     thread) and the 64x32 S^T and dP^T fit in registers without spills.
+//   - D = 256: K2 keeps its tiles (192 KB of shared memory; dQ is 128 fp32
+//     a thread, and ptxas spills about 96 bytes). K3 cannot hold dK and dV
+//     of its 64-row k tile (256 fp32 a thread), and wgmma's M edge of 64
+//     rules out a 32-row k tile, so it launches twice over the same grid:
+//     once for dV (S^T alone, then P^T dO) and once for dK (S^T and dP^T,
+//     then dS^T Q), each holding 128 fp32 of one output a thread (the
+//     kParts template argument). The price is S^T computed twice: 10 D
+//     operations a (q, k) pair instead of 8.
 //   - Not yet: TMA loads, warp specialisation (a producer warp and two
 //     consumer warpgroups) and keeping a wgmma group in flight across the
 //     softmax; each step waits for its products before the next.
+//
+// Any other head dim (above 256, and above 128 in fp32, whose SIMT tiles
+// would need 274 KB of shared memory and more at D = 256): the general SIMT
+// kernels (flash_bwd_*_general_kernel, below), for any D and dtype.
 //
 // fp32: the SIMT kernels (flash_bwd_*_simt_kernel), a deliberate choice by
 // dtype: TF32 tensor cores keep 10 bits of mantissa, which the fp32
@@ -76,6 +88,7 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "simt.cuh"
 #include "sm90.cuh"
 
 namespace {
@@ -484,8 +497,11 @@ flash_bwd_dq_mma_kernel(const T* __restrict__ q, const T* __restrict__ k,
 }
 
 // K3: dK and dV for one 64-row k tile of one (batch, KV head), summed over
-// the G query heads of its group.
-template <typename T, int D>
+// the G query heads of its group. kParts picks the outputs: kDv, kDk or
+// both (at D = 256 one launch per output, see the note at the top).
+constexpr int kDv = 1, kDk = 2;
+
+template <typename T, int D, int kParts>
 __global__ void __launch_bounds__(kMmaThreads)
 flash_bwd_dkv_mma_kernel(const T* __restrict__ q, const T* __restrict__ k,
                          const T* __restrict__ v, const T* __restrict__ dout,
@@ -546,11 +562,19 @@ flash_bwd_dkv_mma_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const uint32_t k_smem = sm90::smem_addr(sK);
   const uint32_t v_smem = sm90::smem_addr(sV);
 
-  float acc_dk[D / 64][32], acc_dv[D / 64][32], s[BQ / 2], dp[BQ / 2];
+  constexpr bool kWantDv = kParts & kDv, kWantDk = kParts & kDk;
+  // an output this launch does not make keeps one unused block
+  float acc_dk[kWantDk ? D / 64 : 1][32], acc_dv[kWantDv ? D / 64 : 1][32];
+  float s[BQ / 2], dp[BQ / 2];
 #pragma unroll
-  for (int i = 0; i < 32; ++i)
+  for (int i = 0; i < 32; ++i) {
+    acc_dk[0][i] = acc_dv[0][i] = 0.f;
 #pragma unroll
-    for (int c = 0; c < D / 64; ++c) acc_dk[c][i] = acc_dv[c][i] = 0.f;
+    for (int c = 1; c < D / 64; ++c) {
+      if constexpr (kWantDk) acc_dk[c][i] = 0.f;
+      if constexpr (kWantDv) acc_dv[c][i] = 0.f;
+    }
+  }
 #pragma unroll
   for (int i = 0; i < BQ / 2; ++i) s[i] = dp[i] = 0.f;
 
@@ -575,10 +599,12 @@ flash_bwd_dkv_mma_kernel(const T* __restrict__ q, const T* __restrict__ k,
     for (int kk = 0; kk < D / 16; ++kk)
       sm90::wgmma_ss<T, BQ>(s, sm90::desc_k_major<kTile>(k_smem, kk),
                             sm90::desc_k_major<BQ>(q_smem, kk), kk > 0);
+    if constexpr (kWantDk) {  // dV needs P alone
 #pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk)
-      sm90::wgmma_ss<T, BQ>(dp, sm90::desc_k_major<kTile>(v_smem, kk),
-                            sm90::desc_k_major<BQ>(do_smem, kk), kk > 0);
+      for (int kk = 0; kk < D / 16; ++kk)
+        sm90::wgmma_ss<T, BQ>(dp, sm90::desc_k_major<kTile>(v_smem, kk),
+                              sm90::desc_k_major<BQ>(do_smem, kk), kk > 0);
+    }
     sm90::wgmma_commit();
     sm90::wgmma_wait<0>();
     sm90::fence_operands(s);
@@ -613,25 +639,27 @@ flash_bwd_dkv_mma_kernel(const T* __restrict__ q, const T* __restrict__ k,
     uint32_t ap[BQ / 16][4], ads[BQ / 16][4];
 #pragma unroll
     for (int kk = 0; kk < BQ / 16; ++kk) {
-      sm90::acc_to_a<T>(ap[kk], s + 8 * kk);
-      sm90::acc_to_a<T>(ads[kk], dp + 8 * kk);
+      if constexpr (kWantDv) sm90::acc_to_a<T>(ap[kk], s + 8 * kk);
+      if constexpr (kWantDk) sm90::acc_to_a<T>(ads[kk], dp + 8 * kk);
     }
     sm90::wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < BQ / 16; ++kk)
 #pragma unroll
       for (int c = 0; c < D / 64; ++c) {
-        sm90::wgmma_rs_mn<T>(acc_dv[c], ap[kk],
-                             sm90::desc_mn_major<BQ>(do_smem, 16 * kk, c));
-        sm90::wgmma_rs_mn<T>(acc_dk[c], ads[kk],
-                             sm90::desc_mn_major<BQ>(q_smem, 16 * kk, c));
+        if constexpr (kWantDv)
+          sm90::wgmma_rs_mn<T>(acc_dv[c], ap[kk],
+                               sm90::desc_mn_major<BQ>(do_smem, 16 * kk, c));
+        if constexpr (kWantDk)
+          sm90::wgmma_rs_mn<T>(acc_dk[c], ads[kk],
+                               sm90::desc_mn_major<BQ>(q_smem, 16 * kk, c));
       }
     sm90::wgmma_commit();
     sm90::wgmma_wait<0>();
 #pragma unroll
     for (int c = 0; c < D / 64; ++c) {
-      sm90::fence_operands(acc_dv[c]);
-      sm90::fence_operands(acc_dk[c]);
+      if constexpr (kWantDv) sm90::fence_operands(acc_dv[c]);
+      if constexpr (kWantDk) sm90::fence_operands(acc_dk[c]);
     }
     __syncthreads();  // done with this stage before it is refilled
   }
@@ -645,19 +673,273 @@ flash_bwd_dkv_mma_kernel(const T* __restrict__ q, const T* __restrict__ k,
       const int col = 64 * c + 8 * j + 2 * t;
       if (key_a < L) {
         const size_t at = (size_t)key_a * D + col;
-        *reinterpret_cast<uint32_t*>(dk_out + at) =
-            sm90::pack2<T>(acc_dk[c][4 * j], acc_dk[c][4 * j + 1]);
-        *reinterpret_cast<uint32_t*>(dv_out + at) =
-            sm90::pack2<T>(acc_dv[c][4 * j], acc_dv[c][4 * j + 1]);
+        if constexpr (kWantDk)
+          *reinterpret_cast<uint32_t*>(dk_out + at) =
+              sm90::pack2<T>(acc_dk[c][4 * j], acc_dk[c][4 * j + 1]);
+        if constexpr (kWantDv)
+          *reinterpret_cast<uint32_t*>(dv_out + at) =
+              sm90::pack2<T>(acc_dv[c][4 * j], acc_dv[c][4 * j + 1]);
       }
       if (key_b < L) {
         const size_t at = (size_t)key_b * D + col;
-        *reinterpret_cast<uint32_t*>(dk_out + at) =
-            sm90::pack2<T>(acc_dk[c][4 * j + 2], acc_dk[c][4 * j + 3]);
-        *reinterpret_cast<uint32_t*>(dv_out + at) =
-            sm90::pack2<T>(acc_dv[c][4 * j + 2], acc_dv[c][4 * j + 3]);
+        if constexpr (kWantDk)
+          *reinterpret_cast<uint32_t*>(dk_out + at) =
+              sm90::pack2<T>(acc_dk[c][4 * j + 2], acc_dk[c][4 * j + 3]);
+        if constexpr (kWantDv)
+          *reinterpret_cast<uint32_t*>(dv_out + at) =
+              sm90::pack2<T>(acc_dv[c][4 * j + 2], acc_dv[c][4 * j + 3]);
       }
     }
+}
+
+// ---------------------------------------------------------------------------
+// any head dim, any dtype: SIMT kernels (flash_bwd_*_general_kernel)
+//
+// One block of 256 threads per (64-row tile, b * H, 64-column chunk of the
+// output's D): four threads own one row, as in the fp32 SIMT kernels. Each
+// block recomputes its tile's S and dP over the full D, 64 columns at a
+// time through shared memory (every operand converted to fp32 as it is
+// staged), then accumulates only its own output chunk. The chunks of one
+// tile repeat the same S and dP, bit for bit. dS (K2, K3) and P (K3) are
+// rounded to the input dtype before their products, as the TPU kernels
+// cast them. Bound: the tuned kernels' work (6 D and 8 D operations a
+// pair); at B1 Hq4 L512 D512 causal the bytes they must move bind them
+// (about 3 us each). The recompute of S and dP per output chunk at SIMT
+// rates makes them right for any D, not fast.
+
+constexpr int kChunk = simt::kChunk;
+constexpr int kChunkTile = kTile * (kChunk + 1);  // floats of one tile
+
+constexpr size_t dq_general_smem_bytes() {
+  // Q, dO, K, V chunk tiles and the dS tile
+  return sizeof(float) * (size_t)(4 * kChunkTile + kTile * (kTile + 1));
+}
+
+constexpr size_t dkv_general_smem_bytes() {
+  // K, V, Q, dO chunk tiles, the P and dS tiles, one tile's lse and delta
+  return sizeof(float) *
+         (size_t)(4 * kChunkTile + 2 * kTile * (kTile + 1) + 2 * kTile);
+}
+
+// K2 at any D: dQ columns [d0, d0 + kChunk) of one 64-row q tile of one
+// (batch, query head).
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+flash_bwd_dq_general_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                            const T* __restrict__ v,
+                            const T* __restrict__ dout,
+                            const float* __restrict__ lse,
+                            const float* __restrict__ delta,
+                            T* __restrict__ dq, int Hq, int Hkv, int L, int D,
+                            float scale, int causal) {
+  extern __shared__ float smem[];
+  float* sQ = smem;
+  float* sDO = sQ + kChunkTile;
+  float* sK = sDO + kChunkTile;
+  float* sV = sK + kChunkTile;
+  float* sDS = sV + kChunkTile;  // kTile x (kTile + 1)
+
+  const int tid = threadIdx.x;
+  const int row = tid >> 2;
+  const int sub = tid & 3;
+  const int bh = blockIdx.y;  // b * Hq + h
+  const int b = bh / Hq;
+  const int kvh = b * Hkv + (bh - b * Hq) / (Hq / Hkv);
+  const int q0 = blockIdx.x * kTile;
+  const int d0 = blockIdx.z * kChunk;
+  const int q_pos = q0 + row;
+  const bool row_in = q_pos < L;
+
+  const T* qb = q + (size_t)bh * L * D;
+  const T* dob = dout + (size_t)bh * L * D;
+  const T* kb = k + (size_t)kvh * L * D;
+  const T* vb = v + (size_t)kvh * L * D;
+  const float row_lse = row_in ? lse[(size_t)bh * L + q_pos] : 0.f;
+  const float row_delta = row_in ? delta[(size_t)bh * L + q_pos] : 0.f;
+
+  float acc[kChunk / 4];
+#pragma unroll
+  for (int j = 0; j < kChunk / 4; ++j) acc[j] = 0.f;
+
+  const int k_end = causal ? min(L, q0 + kTile) : L;
+  for (int k0 = 0; k0 < k_end; k0 += kTile) {
+    float s[kCols], dp[kCols];
+#pragma unroll
+    for (int j = 0; j < kCols; ++j) s[j] = dp[j] = 0.f;
+    for (int c0 = 0; c0 < D; c0 += kChunk) {
+      __syncthreads();  // the previous step is done with the tiles
+      simt::load_chunk<T, kTile, kThreads>(sQ, qb, q0, L, c0, D);
+      simt::load_chunk<T, kTile, kThreads>(sDO, dob, q0, L, c0, D);
+      simt::load_chunk<T, kTile, kThreads>(sK, kb, k0, L, c0, D);
+      simt::load_chunk<T, kTile, kThreads>(sV, vb, k0, L, c0, D);
+      __syncthreads();
+      const float* qrow = sQ + row * (kChunk + 1);
+      const float* dorow = sDO + row * (kChunk + 1);
+#pragma unroll 4
+      for (int d = 0; d < kChunk; ++d) {
+        const float qd = qrow[d];
+        const float dod = dorow[d];
+#pragma unroll
+        for (int j = 0; j < kCols; ++j) {
+          const int c = (sub + 4 * j) * (kChunk + 1) + d;
+          s[j] = fmaf(qd, sK[c], s[j]);
+          dp[j] = fmaf(dod, sV[c], dp[j]);
+        }
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < kCols; ++j) {
+      const int k_pos = k0 + sub + 4 * j;
+      const bool ok = row_in && k_pos < L && (!causal || q_pos >= k_pos);
+      const float p = ok ? expf(s[j] * scale - row_lse) : 0.f;
+      sDS[row * (kTile + 1) + sub + 4 * j] =
+          simt::round_to<T>(p * (dp[j] - row_delta) * scale);
+    }
+    __syncthreads();  // everyone is done with sK before its output chunk
+    simt::load_chunk<T, kTile, kThreads>(sK, kb, k0, L, d0, D);
+    __syncthreads();
+
+    const float* dsrow = sDS + row * (kTile + 1);
+#pragma unroll 4
+    for (int c = 0; c < kTile; ++c) {
+      const float ds = dsrow[c];
+      const float* krow = sK + c * (kChunk + 1) + sub;
+#pragma unroll
+      for (int j = 0; j < kChunk / 4; ++j)
+        acc[j] = fmaf(ds, krow[4 * j], acc[j]);
+    }
+  }
+
+  if (row_in) {
+    T* out = dq + ((size_t)bh * L + q_pos) * D;
+#pragma unroll
+    for (int j = 0; j < kChunk / 4; ++j) {
+      const int col = d0 + sub + 4 * j;
+      if (col < D) out[col] = simt::from_f<T>(acc[j]);
+    }
+  }
+}
+
+// K3 at any D: dK and dV columns [d0, d0 + kChunk) of one 64-row k tile of
+// one (batch, KV head), summed over the G query heads of its group.
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+flash_bwd_dkv_general_kernel(const T* __restrict__ q,
+                             const T* __restrict__ k,
+                             const T* __restrict__ v,
+                             const T* __restrict__ dout,
+                             const float* __restrict__ lse,
+                             const float* __restrict__ delta,
+                             T* __restrict__ dk, T* __restrict__ dv, int Hq,
+                             int Hkv, int L, int D, float scale, int causal) {
+  extern __shared__ float smem[];
+  float* sK = smem;
+  float* sV = sK + kChunkTile;
+  float* sQ = sV + kChunkTile;
+  float* sDO = sQ + kChunkTile;
+  float* sP = sDO + kChunkTile;            // kTile x (kTile + 1), [key][query]
+  float* sDS = sP + kTile * (kTile + 1);   // kTile x (kTile + 1), [key][query]
+  float* sLse = sDS + kTile * (kTile + 1); // kTile
+  float* sDelta = sLse + kTile;            // kTile
+
+  const int tid = threadIdx.x;
+  const int row = tid >> 2;  // key row inside the tile
+  const int sub = tid & 3;
+  const int bkv = blockIdx.y;  // b * Hkv + h_kv
+  const int b = bkv / Hkv;
+  const int hkv = bkv - b * Hkv;
+  const int G = Hq / Hkv;
+  const int k0 = blockIdx.x * kTile;
+  const int d0 = blockIdx.z * kChunk;
+  const int k_pos = k0 + row;
+  const bool row_in = k_pos < L;
+  const T* kb = k + (size_t)bkv * L * D;
+  const T* vb = v + (size_t)bkv * L * D;
+
+  float acc_k[kChunk / 4], acc_v[kChunk / 4];
+#pragma unroll
+  for (int j = 0; j < kChunk / 4; ++j) acc_k[j] = acc_v[j] = 0.f;
+
+  const int q_begin = causal ? k0 : 0;
+  for (int g = 0; g < G; ++g) {
+    const int bh = b * Hq + hkv * G + g;
+    const T* qb = q + (size_t)bh * L * D;
+    const T* dob = dout + (size_t)bh * L * D;
+    const float* lseb = lse + (size_t)bh * L;
+    const float* deltab = delta + (size_t)bh * L;
+    for (int q0 = q_begin; q0 < L; q0 += kTile) {
+      float s[kCols], dp[kCols];
+#pragma unroll
+      for (int j = 0; j < kCols; ++j) s[j] = dp[j] = 0.f;
+      for (int c0 = 0; c0 < D; c0 += kChunk) {
+        __syncthreads();  // the previous step is done with the tiles
+        simt::load_chunk<T, kTile, kThreads>(sK, kb, k0, L, c0, D);
+        simt::load_chunk<T, kTile, kThreads>(sV, vb, k0, L, c0, D);
+        simt::load_chunk<T, kTile, kThreads>(sQ, qb, q0, L, c0, D);
+        simt::load_chunk<T, kTile, kThreads>(sDO, dob, q0, L, c0, D);
+        if (c0 == 0 && tid < kTile) {
+          const int gq = q0 + tid;
+          sLse[tid] = gq < L ? lseb[gq] : 0.f;
+          sDelta[tid] = gq < L ? deltab[gq] : 0.f;
+        }
+        __syncthreads();
+        const float* krow = sK + row * (kChunk + 1);
+        const float* vrow = sV + row * (kChunk + 1);
+#pragma unroll 4
+        for (int d = 0; d < kChunk; ++d) {
+          const float kd = krow[d];
+          const float vd = vrow[d];
+#pragma unroll
+          for (int j = 0; j < kCols; ++j) {
+            const int c = (sub + 4 * j) * (kChunk + 1) + d;
+            s[j] = fmaf(kd, sQ[c], s[j]);
+            dp[j] = fmaf(vd, sDO[c], dp[j]);
+          }
+        }
+      }
+#pragma unroll
+      for (int j = 0; j < kCols; ++j) {
+        const int c = sub + 4 * j;
+        const int q_pos = q0 + c;
+        const bool ok = row_in && q_pos < L && (!causal || q_pos >= k_pos);
+        const float p = ok ? expf(s[j] * scale - sLse[c]) : 0.f;
+        sP[row * (kTile + 1) + c] = simt::round_to<T>(p);
+        sDS[row * (kTile + 1) + c] =
+            simt::round_to<T>(p * (dp[j] - sDelta[c]) * scale);
+      }
+      __syncthreads();  // everyone is done with sQ, sDO before the chunk
+      simt::load_chunk<T, kTile, kThreads>(sQ, qb, q0, L, d0, D);
+      simt::load_chunk<T, kTile, kThreads>(sDO, dob, q0, L, d0, D);
+      __syncthreads();
+
+      const float* prow = sP + row * (kTile + 1);
+      const float* dsrow = sDS + row * (kTile + 1);
+#pragma unroll 2
+      for (int c = 0; c < kTile; ++c) {
+        const float p = prow[c];
+        const float ds = dsrow[c];
+        const float* dorow = sDO + c * (kChunk + 1) + sub;
+        const float* qrow = sQ + c * (kChunk + 1) + sub;
+#pragma unroll
+        for (int j = 0; j < kChunk / 4; ++j) {
+          acc_v[j] = fmaf(p, dorow[4 * j], acc_v[j]);
+          acc_k[j] = fmaf(ds, qrow[4 * j], acc_k[j]);
+        }
+      }
+    }
+  }
+
+  if (row_in) {
+    const size_t at = ((size_t)bkv * L + k_pos) * D;
+#pragma unroll
+    for (int j = 0; j < kChunk / 4; ++j) {
+      const int col = d0 + sub + 4 * j;
+      if (col < D) {
+        dk[at + col] = simt::from_f<T>(acc_k[j]);
+        dv[at + col] = simt::from_f<T>(acc_v[j]);
+      }
+    }
+  }
 }
 
 // ---------------------------------------------------------------------------
@@ -718,44 +1000,95 @@ int launch_dq_mma(const Args& a) {
   return (int)cudaGetLastError();
 }
 
-template <typename T, int D>
+template <typename T, int D, int kParts>
 int launch_dkv_mma(const Args& a) {
   const size_t smem = dkv_mma_smem_bytes<D>();
-  if (int err = prepare(flash_bwd_dkv_mma_kernel<T, D>, smem)) return err;
+  if (int err = prepare(flash_bwd_dkv_mma_kernel<T, D, kParts>, smem))
+    return err;
   const int grid = (a.L + kTile - 1) / kTile * a.B * a.Hkv;
-  flash_bwd_dkv_mma_kernel<T, D><<<grid, kMmaThreads, smem, a.stream>>>(
-      static_cast<const T*>(a.q), static_cast<const T*>(a.k),
-      static_cast<const T*>(a.v), static_cast<const T*>(a.dout), a.lse,
-      a.delta, static_cast<T*>(a.out0), static_cast<T*>(a.out1), a.Hq,
-      a.Hkv, a.L, a.scale, a.causal);
+  flash_bwd_dkv_mma_kernel<T, D, kParts>
+      <<<grid, kMmaThreads, smem, a.stream>>>(
+          static_cast<const T*>(a.q), static_cast<const T*>(a.k),
+          static_cast<const T*>(a.v), static_cast<const T*>(a.dout), a.lse,
+          a.delta, static_cast<T*>(a.out0), static_cast<T*>(a.out1), a.Hq,
+          a.Hkv, a.L, a.scale, a.causal);
   return (int)cudaGetLastError();
 }
 
-// dtype: 0 = float32 (SIMT), 1 = float16, 2 = bfloat16 (tensor cores);
-// D in {64, 128}
-template <bool kDq>
-int dispatch(const Args& a, int D, int dtype) {
+template <typename T>
+int launch_mma(const Args& a, int D, bool dq, int parts) {
+  if (dq) {
+    switch (D) {
+      case 64: return launch_dq_mma<T, 64>(a);
+      case 128: return launch_dq_mma<T, 128>(a);
+      case 256: return launch_dq_mma<T, 256>(a);
+    }
+    return -1;
+  }
+  // D = 64 and 128 make dK and dV in one launch, D = 256 one per launch
+  switch (D * 4 + parts) {
+    case 64 * 4 + (kDk | kDv): return launch_dkv_mma<T, 64, kDk | kDv>(a);
+    case 128 * 4 + (kDk | kDv): return launch_dkv_mma<T, 128, kDk | kDv>(a);
+    case 256 * 4 + kDv: return launch_dkv_mma<T, 256, kDv>(a);
+    case 256 * 4 + kDk: return launch_dkv_mma<T, 256, kDk>(a);
+  }
+  return -1;
+}
+
+// dtype: 0 = float32 (SIMT; D in {64, 128}), 1 = float16, 2 = bfloat16
+// (tensor cores; D in {64, 128, 256}); parts (K3 only): kDk | kDv at D = 64
+// and 128, kDv or kDk at D = 256
+int dispatch(const Args& a, int D, int dtype, bool dq, int parts) {
   if (a.B < 1 || a.Hkv < 1 || a.Hq % a.Hkv != 0 || a.L < 1) return -1;
-  if (D != 64 && D != 128) return -1;
-  const bool d64 = D == 64;
   switch (dtype) {
     case 0:
-      if (kDq) return d64 ? launch_dq_simt<64>(a) : launch_dq_simt<128>(a);
-      return d64 ? launch_dkv_simt<64>(a) : launch_dkv_simt<128>(a);
+      if (D != 64 && D != 128) return -1;
+      if (dq) return D == 64 ? launch_dq_simt<64>(a) : launch_dq_simt<128>(a);
+      if (parts != (kDk | kDv)) return -1;
+      return D == 64 ? launch_dkv_simt<64>(a) : launch_dkv_simt<128>(a);
     case 1:
-      if (kDq)
-        return d64 ? launch_dq_mma<__half, 64>(a)
-                   : launch_dq_mma<__half, 128>(a);
-      return d64 ? launch_dkv_mma<__half, 64>(a)
-                 : launch_dkv_mma<__half, 128>(a);
+      return launch_mma<__half>(a, D, dq, parts);
     case 2:
-      if (kDq)
-        return d64 ? launch_dq_mma<__nv_bfloat16, 64>(a)
-                   : launch_dq_mma<__nv_bfloat16, 128>(a);
-      return d64 ? launch_dkv_mma<__nv_bfloat16, 64>(a)
-                 : launch_dkv_mma<__nv_bfloat16, 128>(a);
+      return launch_mma<__nv_bfloat16>(a, D, dq, parts);
     default:
       return -1;
+  }
+}
+
+template <typename T>
+int launch_general(const Args& a, int D, bool dq) {
+  const int tiles = (a.L + kTile - 1) / kTile;
+  const int chunks = (D + kChunk - 1) / kChunk;
+  if (dq) {
+    const size_t smem = dq_general_smem_bytes();
+    if (int err = prepare(flash_bwd_dq_general_kernel<T>, smem)) return err;
+    flash_bwd_dq_general_kernel<T>
+        <<<dim3(tiles, a.B * a.Hq, chunks), kThreads, smem, a.stream>>>(
+            static_cast<const T*>(a.q), static_cast<const T*>(a.k),
+            static_cast<const T*>(a.v), static_cast<const T*>(a.dout), a.lse,
+            a.delta, static_cast<T*>(a.out0), a.Hq, a.Hkv, a.L, D, a.scale,
+            a.causal);
+  } else {
+    const size_t smem = dkv_general_smem_bytes();
+    if (int err = prepare(flash_bwd_dkv_general_kernel<T>, smem)) return err;
+    flash_bwd_dkv_general_kernel<T>
+        <<<dim3(tiles, a.B * a.Hkv, chunks), kThreads, smem, a.stream>>>(
+            static_cast<const T*>(a.q), static_cast<const T*>(a.k),
+            static_cast<const T*>(a.v), static_cast<const T*>(a.dout), a.lse,
+            a.delta, static_cast<T*>(a.out0), static_cast<T*>(a.out1), a.Hq,
+            a.Hkv, a.L, D, a.scale, a.causal);
+  }
+  return (int)cudaGetLastError();
+}
+
+int dispatch_general(const Args& a, int D, int dtype, bool dq) {
+  if (a.B < 1 || a.Hkv < 1 || a.Hq % a.Hkv != 0 || a.L < 1 || D < 1)
+    return -1;
+  switch (dtype) {
+    case 0: return launch_general<float>(a, D, dq);
+    case 1: return launch_general<__half>(a, D, dq);
+    case 2: return launch_general<__nv_bfloat16>(a, D, dq);
+    default: return -1;
   }
 }
 
@@ -775,19 +1108,47 @@ int metisfl_flash_bwd_dq(const void* q, const void* k, const void* v,
   const Args a{q, k, v, dout, static_cast<const float*>(lse),
                static_cast<const float*>(delta), dq, nullptr, B, Hq, Hkv, L,
                scale, causal, static_cast<cudaStream_t>(stream)};
-  return dispatch<true>(a, D, dtype);
+  return dispatch(a, D, dtype, true, 0);
 }
 
-// K3. As K2, with dk and dv (B, Hkv, L, D) as outputs.
+// K3. As K2, with dk and dv (B, Hkv, L, D) as outputs; parts = 1 makes dV
+// alone, 2 dK alone, 3 both (the output a launch does not make is not
+// touched).
 int metisfl_flash_bwd_dkv(const void* q, const void* k, const void* v,
                           const void* dout, const void* lse,
                           const void* delta, void* dk, void* dv, int B,
                           int Hq, int Hkv, int L, int D, int dtype,
-                          int causal, float scale, void* stream) {
+                          int causal, int parts, float scale, void* stream) {
   const Args a{q, k, v, dout, static_cast<const float*>(lse),
                static_cast<const float*>(delta), dk, dv, B, Hq, Hkv, L,
                scale, causal, static_cast<cudaStream_t>(stream)};
-  return dispatch<false>(a, D, dtype);
+  return dispatch(a, D, dtype, false, parts);
+}
+
+// K2 and K3 at any head dim D >= 1 and any dtype (SIMT, one block per
+// 64-column chunk of the output), with K2's and K3's arguments; no
+// alignment is needed.
+int metisfl_flash_bwd_dq_general(const void* q, const void* k, const void* v,
+                                 const void* dout, const void* lse,
+                                 const void* delta, void* dq, int B, int Hq,
+                                 int Hkv, int L, int D, int dtype, int causal,
+                                 float scale, void* stream) {
+  const Args a{q, k, v, dout, static_cast<const float*>(lse),
+               static_cast<const float*>(delta), dq, nullptr, B, Hq, Hkv, L,
+               scale, causal, static_cast<cudaStream_t>(stream)};
+  return dispatch_general(a, D, dtype, true);
+}
+
+int metisfl_flash_bwd_dkv_general(const void* q, const void* k,
+                                  const void* v, const void* dout,
+                                  const void* lse, const void* delta,
+                                  void* dk, void* dv, int B, int Hq, int Hkv,
+                                  int L, int D, int dtype, int causal,
+                                  float scale, void* stream) {
+  const Args a{q, k, v, dout, static_cast<const float*>(lse),
+               static_cast<const float*>(delta), dk, dv, B, Hq, Hkv, L,
+               scale, causal, static_cast<cudaStream_t>(stream)};
+  return dispatch_general(a, D, dtype, false);
 }
 
 const char* metisfl_bwd_error_string(int err) {

@@ -47,8 +47,8 @@
 //   - Head dims 64, 128 and 256, the tile shapes unchanged (64-row q and
 //     K/V tiles): shared memory holds Q and two K/V stages in 40, 80 and
 //     160 KB (the SIMT kernel's fp32 tiles 52, 104 and 209 KB), under the
-//     227 KB a block may use. The wrapper pads any other D up to one of
-//     them.
+//     227 KB a block may use. The wrapper pads any other D up to 256 to
+//     one of them; a larger D goes to the general kernel (below).
 //   - Causal work is uneven (the last q tile walks every K tile), so the
 //     1-D grid hands out the longest tiles first. No atomics: the same bits
 //     on every run.
@@ -71,6 +71,7 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "simt.cuh"
 #include "sm90.cuh"
 
 namespace {
@@ -387,6 +388,136 @@ flash_fwd_mma_kernel(const T* __restrict__ q, const T* __restrict__ k,
 }
 
 // ---------------------------------------------------------------------------
+// any head dim, any dtype: SIMT kernel (flash_fwd_general_kernel)
+//
+// One block of 256 threads per (64-row q tile, b * Hq + h, 64-column chunk
+// of O's D); four threads own one query row, as in the fp32 SIMT kernel.
+// Each block computes S over the full D, 64 columns at a time through
+// shared memory (operands converted to fp32 as they are staged), runs the
+// online softmax, and accumulates only its own chunk of O = P V. Every
+// chunk of a tile repeats the same S, m and l, bit for bit; the first
+// writes the lse. P is rounded to the input dtype before P V.
+// Bound: the work is the tuned kernel's, 4 D operations a (q, k) pair (at
+// B1 Hq4 L512 D512 causal, 1.1 GFLOP; the 4.2 MB it must move bind it
+// there, 2.5 us). It recomputes S once per output chunk, D / 64 times,
+// at SIMT rates: a right kernel for head dims the builds do not cover,
+// not a fast one.
+
+constexpr int kChunk = simt::kChunk;
+constexpr int kChunkTile = kTile * (kChunk + 1);  // floats of one tile
+
+constexpr size_t general_smem_bytes() {
+  // Q, K and V chunk tiles and the P tile
+  return sizeof(float) * (size_t)(3 * kChunkTile + kTile * (kTile + 1));
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+flash_fwd_general_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                         const T* __restrict__ v, T* __restrict__ o,
+                         float* __restrict__ lse, int Hq, int Hkv, int L,
+                         int D, float scale, int causal) {
+  extern __shared__ float smem[];
+  float* sQ = smem;
+  float* sK = sQ + kChunkTile;
+  float* sV = sK + kChunkTile;
+  float* sP = sV + kChunkTile;  // kTile x (kTile + 1)
+
+  const int tid = threadIdx.x;
+  const int row = tid >> 2;
+  const int sub = tid & 3;
+  const int bh = blockIdx.y;  // b * Hq + h
+  const int b = bh / Hq;
+  const int kvh = b * Hkv + (bh - b * Hq) / (Hq / Hkv);
+  const int q0 = blockIdx.x * kTile;
+  const int d0 = blockIdx.z * kChunk;
+  const int q_pos = q0 + row;
+
+  const T* qb = q + (size_t)bh * L * D;
+  const T* kb = k + (size_t)kvh * L * D;
+  const T* vb = v + (size_t)kvh * L * D;
+
+  float m = kNeg, l = 0.f;
+  float acc[kChunk / 4];
+#pragma unroll
+  for (int j = 0; j < kChunk / 4; ++j) acc[j] = 0.f;
+
+  const int k_end = causal ? min(L, q0 + kTile) : L;
+  for (int k0 = 0; k0 < k_end; k0 += kTile) {
+    float s[kTile / 4];
+#pragma unroll
+    for (int j = 0; j < kTile / 4; ++j) s[j] = 0.f;
+    for (int c0 = 0; c0 < D; c0 += kChunk) {
+      __syncthreads();  // the previous step is done with the tiles
+      simt::load_chunk<T, kTile, kThreads>(sQ, qb, q0, L, c0, D);
+      simt::load_chunk<T, kTile, kThreads>(sK, kb, k0, L, c0, D);
+      __syncthreads();
+      const float* qrow = sQ + row * (kChunk + 1);
+#pragma unroll 8
+      for (int d = 0; d < kChunk; ++d) {
+        const float qd = qrow[d];
+#pragma unroll
+        for (int j = 0; j < kTile / 4; ++j)
+          s[j] = fmaf(qd, sK[(sub + 4 * j) * (kChunk + 1) + d], s[j]);
+      }
+    }
+    // every thread passed the loop's last barrier after the previous
+    // step's P V, so sV may be refilled
+    simt::load_chunk<T, kTile, kThreads>(sV, vb, k0, L, d0, D);
+
+    float mx = kNeg;
+#pragma unroll
+    for (int j = 0; j < kTile / 4; ++j) {
+      const int k_pos = k0 + sub + 4 * j;
+      const bool ok = k_pos < L && (!causal || q_pos >= k_pos);
+      s[j] = ok ? s[j] * scale : kNeg;
+      mx = fmaxf(mx, s[j]);
+    }
+    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+    const float m_next = fmaxf(m, mx);
+    const float alpha = expf(m - m_next);
+    float psum = 0.f;
+#pragma unroll
+    for (int j = 0; j < kTile / 4; ++j) {
+      const float p = s[j] > kNeg ? expf(s[j] - m_next) : 0.f;
+      psum += p;
+      sP[row * (kTile + 1) + sub + 4 * j] = simt::round_to<T>(p);
+    }
+    psum += __shfl_xor_sync(0xffffffffu, psum, 1);
+    psum += __shfl_xor_sync(0xffffffffu, psum, 2);
+    l = alpha * l + psum;
+    m = m_next;
+    __syncthreads();  // sV is loaded; a row's P is written by its lanes
+
+    const float* prow = sP + row * (kTile + 1);
+#pragma unroll
+    for (int j = 0; j < kChunk / 4; ++j) acc[j] *= alpha;
+#pragma unroll 4
+    for (int c = 0; c < kTile; ++c) {
+      const float p = prow[c];
+      const float* vrow = sV + c * (kChunk + 1) + sub;
+#pragma unroll
+      for (int j = 0; j < kChunk / 4; ++j)
+        acc[j] = fmaf(p, vrow[4 * j], acc[j]);
+    }
+  }
+
+  if (q_pos < L) {
+    // a row with no unmasked key has l == 0: store 0, not nan
+    const float inv = l == 0.f ? 0.f : 1.f / l;
+    T* orow = o + ((size_t)bh * L + q_pos) * D;
+#pragma unroll
+    for (int j = 0; j < kChunk / 4; ++j) {
+      const int col = d0 + sub + 4 * j;
+      if (col < D) orow[col] = simt::from_f<T>(acc[j] * inv);
+    }
+    if (sub == 0 && blockIdx.z == 0)
+      lse[(size_t)bh * L + q_pos] = m + logf(fmaxf(l, 1e-30f));
+  }
+}
+
+// ---------------------------------------------------------------------------
 // launch
 
 struct Args {
@@ -430,6 +561,19 @@ int launch_mma(const Args& a) {
   return (int)cudaGetLastError();
 }
 
+template <typename T>
+int launch_general(const Args& a, int D) {
+  const size_t smem = general_smem_bytes();
+  if (int err = prepare(flash_fwd_general_kernel<T>, smem)) return err;
+  const dim3 grid((a.L + kTile - 1) / kTile, a.B * a.Hq,
+                  (D + kChunk - 1) / kChunk);
+  flash_fwd_general_kernel<T><<<grid, kThreads, smem, a.stream>>>(
+      static_cast<const T*>(a.q), static_cast<const T*>(a.k),
+      static_cast<const T*>(a.v), static_cast<T*>(a.o), a.lse, a.Hq, a.Hkv,
+      a.L, D, a.scale, a.causal);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
@@ -466,6 +610,23 @@ int metisfl_flash_fwd(const void* q, const void* k, const void* v, void* o,
       return launch_mma<__nv_bfloat16, 256>(a);
     default:
       return -1;
+  }
+}
+
+// K1 at any head dim D >= 1 and any dtype (SIMT, one block per 64-column
+// chunk of O), with metisfl_flash_fwd's arguments; no alignment is needed.
+int metisfl_flash_fwd_general(const void* q, const void* k, const void* v,
+                              void* o, void* lse, int B, int Hq, int Hkv,
+                              int L, int D, int dtype, int causal,
+                              float scale, void* stream) {
+  if (B < 1 || Hkv < 1 || Hq % Hkv != 0 || L < 1 || D < 1) return -1;
+  const Args a{q, k, v, o, static_cast<float*>(lse), B, Hq, Hkv, L, scale,
+               causal, static_cast<cudaStream_t>(stream)};
+  switch (dtype) {
+    case 0: return launch_general<float>(a, D);
+    case 1: return launch_general<__half>(a, D);
+    case 2: return launch_general<__nv_bfloat16>(a, D);
+    default: return -1;
   }
 }
 

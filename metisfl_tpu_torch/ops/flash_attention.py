@@ -22,20 +22,23 @@ native: ``k``/``v`` may carry fewer heads than ``q`` (Hq a multiple of Hkv)
 and query head h reads kv head h // (Hq // Hkv). lse and delta travel in
 logical layout (B, Hq, L) fp32, the shape ring attention consumes.
 
-The Pallas kernels take any D, since their blocks span the whole head; the
-CUDA kernels are built for a few: K1 for 64, 128 and 256, K2 and K3 for
-64 and 128. The wrappers zero-pad q, k, v (and dO) along D to the next
-head dim the kernel is built for, launch with the true D's scale, and
-slice O, dQ, dK and dV back to D. That is exact: padded columns add 0 to
-Q·Kᵀ and to dO·Vᵀ, and padded V, dO, Q and K columns only give output
-columns that are sliced off. A built head dim makes no copy. So the
-forward takes D <= 256 and the backward D <= 128; D > 128 in the backward
-raises: K3 keeps dK and dV of its 64-row tile in registers, 256 fp32 a
-thread at D = 256 against the 255 a thread may hold, and the fp32 K2/K3
-tiles would need more than the 227 KB of shared memory a block may use
-(K2's tensor-core tiles would fit, but a backward needs K3). The SIMT
-kernels carry b * H in gridDim.y, which stops at 65535, so the wrappers
-launch in batch chunks of at most 65535 // H batches.
+The Pallas kernels take any D, since their blocks span the whole head, and
+so do the wrappers. The tuned kernels are built for a few head dims: K1
+for 64, 128 and 256; K2 and K3 for 64, 128 and 256 in bf16/fp16 and for
+64 and 128 in fp32 (K3 at D = 256 launches twice, once for dV and once
+for dK, since dK and dV of its 64-row tile would take 256 fp32 registers a
+thread). Up to the largest, the wrappers zero-pad q, k, v (and dO) along D
+to the next built head dim, launch with the true D's scale, and slice O,
+dQ, dK and dV back to D. That is exact: padded columns add 0 to Q·Kᵀ and
+to dO·Vᵀ, and padded V, dO, Q and K columns only give output columns that
+are sliced off. A built head dim makes no copy. Beyond it (D > 256, and
+D > 128 for the fp32 backward, whose SIMT tiles would need more than the
+227 KB of shared memory a block may use) the wrappers launch the general
+kernels, SIMT kernels for any D and dtype (:func:`flash_fwd_general`,
+:func:`flash_bwd_dq_general`, :func:`flash_bwd_dkv_general`, each
+counting its own launches). The SIMT kernels carry b * H in gridDim.y,
+which stops at 65535, so the wrappers launch in batch chunks of at most
+65535 // H batches.
 :func:`flash_attention` is differentiable: its autograd Function runs K1
 forward and K2/K3 backward, as the JAX package's custom VJP does.
 """
@@ -51,9 +54,11 @@ import torch
 
 _NEG = -1e30
 _DTYPE_CODES = {torch.float32: 0, torch.float16: 1, torch.bfloat16: 2}
-# the head dims each kernel is instantiated for; a smaller D is padded
+# the head dims each tuned kernel is instantiated for; a smaller D is
+# padded, a larger one goes to the general kernels
 _FWD_HEAD_DIMS = (64, 128, 256)
-_BWD_HEAD_DIMS = (64, 128)
+_BWD_HEAD_DIMS = (64, 128, 256)
+_BWD_HEAD_DIMS_FP32 = (64, 128)
 # gridDim.y of the SIMT kernels carries b * H
 _MAX_GRID_Y = 65535
 
@@ -198,7 +203,18 @@ def _delta(o: torch.Tensor, do: torch.Tensor) -> torch.Tensor:
     return (do.to(acc) * o.to(acc)).sum(dim=-1)
 
 
-def _check_cuda_inputs(q, k, v, head_dims, **same_as_q):
+def bwd_head_dims(dtype: torch.dtype) -> Tuple[int, ...]:
+    """The head dims K2 and K3 are built for in ``dtype``."""
+    return _BWD_HEAD_DIMS_FP32 if dtype == torch.float32 else _BWD_HEAD_DIMS
+
+
+def kernel_head_dim(D: int, head_dims) -> Optional[int]:
+    """The built head dim that D is padded to, or None where D is beyond
+    every one of ``head_dims`` and the general kernel takes it."""
+    return next((d for d in head_dims if D <= d), None)
+
+
+def _check_cuda_inputs(q, k, v, **same_as_q):
     named = (("q", q), ("k", k), ("v", v)) + tuple(same_as_q.items())
     for name, t in named:
         if t.device != q.device:
@@ -223,20 +239,22 @@ def _check_cuda_inputs(q, k, v, head_dims, **same_as_q):
     if k.shape[0] != B or k.shape[2] != L or k.shape[3] != D:
         raise ValueError(f"k {tuple(k.shape)} does not match q "
                          f"{tuple(q.shape)} in batch, length or head dim")
-    if not 1 <= D <= head_dims[-1]:
-        raise ValueError(f"flash kernel takes head_dim 1..{head_dims[-1]}, "
-                         f"got {D}")
+    if D < 1:
+        raise ValueError(f"flash kernel takes head_dim >= 1, got {D}")
     if L < 1 or B < 1 or Hq > _MAX_GRID_Y:
         raise ValueError(f"shape {tuple(q.shape)} is outside the kernel's "
                          "grid")
 
 
-def pad_head_dim(*tensors: torch.Tensor, head_dims=_BWD_HEAD_DIMS):
+def pad_head_dim(*tensors: torch.Tensor, head_dims: Tuple[int, ...]):
     """``(Dk, padded)``: each (B, H, L, D) tensor zero-padded along D to
-    Dk, the next of ``head_dims`` (those a kernel is built for); tensors
-    already at Dk come back as they are (no copy)."""
+    Dk, the next of ``head_dims`` (those one kernel is built for, such as
+    ``bwd_head_dims(dtype)``; D must not exceed the last); tensors already
+    at Dk come back as they are (no copy)."""
     D = tensors[0].shape[-1]
-    Dk = next(d for d in head_dims if D <= d)
+    Dk = kernel_head_dim(D, head_dims)
+    if Dk is None:
+        raise ValueError(f"head_dim {D} is beyond the built {head_dims}")
     if D == Dk:
         return Dk, tensors
     return Dk, tuple(torch.nn.functional.pad(t, (0, Dk - D))
@@ -277,12 +295,20 @@ _PTR, _INT, _FLOAT = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
     "flash_fwd": {
         "metisfl_flash_fwd": [_PTR] * 5 + [_INT] * 7 + [_FLOAT, _PTR],
+        "metisfl_flash_fwd_general": [_PTR] * 5 + [_INT] * 7
+        + [_FLOAT, _PTR],
     },
     "flash_bwd": {
         "metisfl_flash_bwd_dq": [_PTR] * 7 + [_INT] * 7 + [_FLOAT, _PTR],
-        "metisfl_flash_bwd_dkv": [_PTR] * 8 + [_INT] * 7 + [_FLOAT, _PTR],
+        "metisfl_flash_bwd_dkv": [_PTR] * 8 + [_INT] * 8 + [_FLOAT, _PTR],
+        "metisfl_flash_bwd_dq_general": [_PTR] * 7 + [_INT] * 7
+        + [_FLOAT, _PTR],
+        "metisfl_flash_bwd_dkv_general": [_PTR] * 8 + [_INT] * 7
+        + [_FLOAT, _PTR],
     },
 }
+# K3's parts argument: the outputs one launch makes
+_DV, _DK = 1, 2
 _ERROR_STRINGS = {"flash_fwd": "metisfl_cuda_error_string",
                   "flash_bwd": "metisfl_bwd_error_string"}
 
@@ -347,14 +373,16 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
     CPU tensors run :func:`flash_attention_fwd_reference`. CUDA tensors
     launch ``csrc/flash_fwd.cu`` on the current stream (tensor cores for
-    bf16/fp16, SIMT for fp32; D <= 256, padded to 64, 128 or 256;
-    contiguous; q, k and v 16-byte aligned at D = 64, 128 and 256) and
-    raise on anything else. ``flash_attention_fwd.launches`` counts kernel
-    launches (one per batch chunk)."""
+    bf16/fp16, SIMT for fp32; D <= 256 padded to 64, 128 or 256, with q, k
+    and v 16-byte aligned there; contiguous) and raise on anything else;
+    D > 256 goes to :func:`flash_fwd_general`. ``flash_attention_fwd.launches``
+    counts this kernel's launches (one per batch chunk)."""
     if not _on_cuda(q):
         return flash_attention_fwd_reference(q, k, v, causal)
-    _check_cuda_inputs(q, k, v, _FWD_HEAD_DIMS)
+    _check_cuda_inputs(q, k, v)
     B, Hq, L, D = q.shape
+    if kernel_head_dim(D, _FWD_HEAD_DIMS) is None:
+        return flash_fwd_general(q, k, v, causal)
     scale = 1.0 / math.sqrt(D)
     Dk, (q, k, v) = pad_head_dim(q, k, v, head_dims=_FWD_HEAD_DIMS)
     _check_aligned(q=q, k=k, v=v)
@@ -374,23 +402,61 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 flash_attention_fwd.launches = 0
 
 
+def flash_fwd_general(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                      causal: bool = False
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K1 at any head dim: ``(o, lse)`` as :func:`flash_attention_fwd`.
+
+    CPU tensors run :func:`flash_attention_fwd_reference`. CUDA tensors
+    launch ``csrc/flash_fwd.cu``'s general kernel (SIMT, any D and dtype,
+    one block per 64-column chunk of O; no padding, no alignment) or raise.
+    :func:`flash_attention_fwd` routes D > 256 here.
+    ``flash_fwd_general.launches`` counts launches (one per batch chunk)."""
+    if not _on_cuda(q):
+        return flash_attention_fwd_reference(q, k, v, causal)
+    _check_cuda_inputs(q, k, v)
+    B, Hq, L, D = q.shape
+    o = torch.empty_like(q)
+    lse = torch.empty((B, Hq, L), dtype=torch.float32, device=q.device)
+    for b0, b1 in _batch_chunks(B, Hq):
+        _launch("flash_fwd", "metisfl_flash_fwd_general", flash_fwd_general,
+                q.device, q[b0:b1].data_ptr(), k[b0:b1].data_ptr(),
+                v[b0:b1].data_ptr(), o[b0:b1].data_ptr(),
+                lse[b0:b1].data_ptr(),
+                *_shape_args(q[b0:b1], k, causal, 1.0 / math.sqrt(D)))
+    return o, lse
+
+
+flash_fwd_general.launches = 0
+
+
+def _bwd_inputs_on_cuda(name, q, k, v, do, lse, delta):
+    """Check the backward kernels' inputs; raise for CPU tensors."""
+    if not _on_cuda(q):
+        raise ValueError(f"{name} launches the CUDA kernel; on the CPU call "
+                         "flash_attention_bwd (the plain twin)")
+    _check_cuda_inputs(q, k, v, do=do)
+    _check_row_stats(q, lse=lse, delta=delta)
+
+
 def flash_bwd_dq(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                  do: torch.Tensor, lse: torch.Tensor, delta: torch.Tensor,
                  causal: bool = False) -> torch.Tensor:
     """K2 on CUDA tensors: dQ (B, Hq, L, D) in q.dtype from the forward's
     lse and δ = rowsum(dO∘O), both (B, Hq, L) fp32. Launches
-    ``csrc/flash_bwd.cu``'s dQ kernel (tensor cores for bf16/fp16, SIMT for
-    fp32) or raises; D <= 128 is padded to 64 or 128 as in the forward,
-    and at D = 64 and 128 q, k, v and do must be 16-byte aligned.
-    ``flash_bwd_dq.launches`` counts launches (one per batch chunk)."""
-    if not _on_cuda(q):
-        raise ValueError("flash_bwd_dq launches the CUDA kernel; on the CPU "
-                         "call flash_attention_bwd (the plain twin)")
-    _check_cuda_inputs(q, k, v, _BWD_HEAD_DIMS, do=do)
-    _check_row_stats(q, lse=lse, delta=delta)
+    ``csrc/flash_bwd.cu``'s dQ kernel (tensor cores for bf16/fp16 at
+    D <= 256, SIMT for fp32 at D <= 128; padded to the next built head dim
+    as in the forward, with q, k, v and do 16-byte aligned there) or
+    raises; a larger D goes to :func:`flash_bwd_dq_general`.
+    ``flash_bwd_dq.launches`` counts this kernel's launches (one per batch
+    chunk)."""
+    _bwd_inputs_on_cuda("flash_bwd_dq", q, k, v, do, lse, delta)
     B, Hq, _, D = q.shape
+    head_dims = bwd_head_dims(q.dtype)
+    if kernel_head_dim(D, head_dims) is None:
+        return flash_bwd_dq_general(q, k, v, do, lse, delta, causal)
     scale = 1.0 / math.sqrt(D)
-    Dk, (q, k, v, do) = pad_head_dim(q, k, v, do)
+    Dk, (q, k, v, do) = pad_head_dim(q, k, v, do, head_dims=head_dims)
     _check_aligned(q=q, k=k, v=v, do=do)
     dq = torch.empty_like(q)
     for b0, b1 in _batch_chunks(B, Hq):
@@ -413,34 +479,88 @@ def flash_bwd_dkv(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """K3 on CUDA tensors: ``(dk, dv)`` (B, Hkv, L, D), each summed over
     the query heads of its KV group, without atomics (the same bits on
     every run). Launches ``csrc/flash_bwd.cu``'s dK/dV kernel (tensor cores
-    for bf16/fp16, SIMT for fp32) or raises; D <= 128 is padded to 64 or
-    128 as in the forward, and at D = 64 and 128 q, k, v and do must be
-    16-byte aligned. ``flash_bwd_dkv.launches`` counts launches (one per
-    batch chunk)."""
-    if not _on_cuda(q):
-        raise ValueError("flash_bwd_dkv launches the CUDA kernel; on the "
-                         "CPU call flash_attention_bwd (the plain twin)")
-    _check_cuda_inputs(q, k, v, _BWD_HEAD_DIMS, do=do)
-    _check_row_stats(q, lse=lse, delta=delta)
+    for bf16/fp16 at D <= 256, SIMT for fp32 at D <= 128; padded as K2) or
+    raises; at D = 256 it launches twice, for dV and then for dK. A larger
+    D goes to :func:`flash_bwd_dkv_general`. ``flash_bwd_dkv.launches``
+    counts this kernel's launches (one per batch chunk and output pass)."""
+    _bwd_inputs_on_cuda("flash_bwd_dkv", q, k, v, do, lse, delta)
     B, Hq, _, D = q.shape
+    head_dims = bwd_head_dims(q.dtype)
+    if kernel_head_dim(D, head_dims) is None:
+        return flash_bwd_dkv_general(q, k, v, do, lse, delta, causal)
     scale = 1.0 / math.sqrt(D)
-    Dk, (q, k, v, do) = pad_head_dim(q, k, v, do)
+    Dk, (q, k, v, do) = pad_head_dim(q, k, v, do, head_dims=head_dims)
     _check_aligned(q=q, k=k, v=v, do=do)
     dk = torch.empty_like(k)
     dv = torch.empty_like(v)
+    # D = 256: one pass for dV, one for dK (K3's registers hold one)
+    passes = (_DV, _DK) if Dk == 256 else (_DV | _DK,)
     for b0, b1 in _batch_chunks(B, Hq):
-        _launch("flash_bwd", "metisfl_flash_bwd_dkv", flash_bwd_dkv,
-                q.device, q[b0:b1].data_ptr(), k[b0:b1].data_ptr(),
-                v[b0:b1].data_ptr(), do[b0:b1].data_ptr(),
-                lse[b0:b1].data_ptr(), delta[b0:b1].data_ptr(),
-                dk[b0:b1].data_ptr(), dv[b0:b1].data_ptr(),
-                *_shape_args(q[b0:b1], k, causal, scale))
+        *shapes, scale_arg = _shape_args(q[b0:b1], k, causal, scale)
+        for parts in passes:
+            _launch("flash_bwd", "metisfl_flash_bwd_dkv", flash_bwd_dkv,
+                    q.device, q[b0:b1].data_ptr(), k[b0:b1].data_ptr(),
+                    v[b0:b1].data_ptr(), do[b0:b1].data_ptr(),
+                    lse[b0:b1].data_ptr(), delta[b0:b1].data_ptr(),
+                    dk[b0:b1].data_ptr(), dv[b0:b1].data_ptr(), *shapes,
+                    parts, scale_arg)
     if Dk != D:
         dk, dv = dk[..., :D].contiguous(), dv[..., :D].contiguous()
     return dk, dv
 
 
 flash_bwd_dkv.launches = 0
+
+
+def flash_bwd_dq_general(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                         do: torch.Tensor, lse: torch.Tensor,
+                         delta: torch.Tensor, causal: bool = False
+                         ) -> torch.Tensor:
+    """K2 at any head dim and dtype on CUDA tensors, as
+    :func:`flash_bwd_dq`: ``csrc/flash_bwd.cu``'s general SIMT kernel (one
+    block per 64-column chunk of dQ; no padding, no alignment) or raises.
+    ``flash_bwd_dq_general.launches`` counts launches."""
+    _bwd_inputs_on_cuda("flash_bwd_dq_general", q, k, v, do, lse, delta)
+    B, Hq, _, D = q.shape
+    dq = torch.empty_like(q)
+    for b0, b1 in _batch_chunks(B, Hq):
+        _launch("flash_bwd", "metisfl_flash_bwd_dq_general",
+                flash_bwd_dq_general, q.device, q[b0:b1].data_ptr(),
+                k[b0:b1].data_ptr(), v[b0:b1].data_ptr(),
+                do[b0:b1].data_ptr(), lse[b0:b1].data_ptr(),
+                delta[b0:b1].data_ptr(), dq[b0:b1].data_ptr(),
+                *_shape_args(q[b0:b1], k, causal, 1.0 / math.sqrt(D)))
+    return dq
+
+
+flash_bwd_dq_general.launches = 0
+
+
+def flash_bwd_dkv_general(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                          do: torch.Tensor, lse: torch.Tensor,
+                          delta: torch.Tensor, causal: bool = False
+                          ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K3 at any head dim and dtype on CUDA tensors, as
+    :func:`flash_bwd_dkv`: ``csrc/flash_bwd.cu``'s general SIMT kernel (one
+    block per 64-column chunk of dK and dV; no atomics, no padding, no
+    alignment) or raises. ``flash_bwd_dkv_general.launches`` counts
+    launches."""
+    _bwd_inputs_on_cuda("flash_bwd_dkv_general", q, k, v, do, lse, delta)
+    B, Hq, _, D = q.shape
+    dk = torch.empty_like(k)
+    dv = torch.empty_like(v)
+    for b0, b1 in _batch_chunks(B, Hq):
+        _launch("flash_bwd", "metisfl_flash_bwd_dkv_general",
+                flash_bwd_dkv_general, q.device, q[b0:b1].data_ptr(),
+                k[b0:b1].data_ptr(), v[b0:b1].data_ptr(),
+                do[b0:b1].data_ptr(), lse[b0:b1].data_ptr(),
+                delta[b0:b1].data_ptr(), dk[b0:b1].data_ptr(),
+                dv[b0:b1].data_ptr(),
+                *_shape_args(q[b0:b1], k, causal, 1.0 / math.sqrt(D)))
+    return dk, dv
+
+
+flash_bwd_dkv_general.launches = 0
 
 
 def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

@@ -121,5 +121,11 @@ class ModelStore:
         with self._locked(learner_id):
             return len(self._lineage(learner_id))
 
+    def flush(self) -> None:
+        """Durability fence: persistent backends sync buffered state
+        (batched directory fsyncs on the disk store); in-memory stores
+        do nothing. The ingest pipeline calls it at drain fences, so the
+        per-insert hot path never pays an fsync."""
+
     def shutdown(self) -> None:
         pass

@@ -14,11 +14,13 @@ from metisfl_tpu_torch.tensor.pytree import (
     narrow_tensors,
     pack_model,
     pytree_to_named_tensors,
+    read_named_arrays,
     tensor_from_payload,
     tensor_to_bytes,
     tree_leaves,
     tree_map,
     unpack_model,
+    write_named_tensors,
 )
 
 __all__ = [
@@ -37,4 +39,6 @@ __all__ = [
     "tensor_from_payload",
     "tree_leaves",
     "tree_map",
+    "read_named_arrays",
+    "write_named_tensors",
 ]

@@ -16,10 +16,11 @@ so no numpy bf16 type is needed on either side.
 
 from __future__ import annotations
 
+import os
 import struct
 import zlib
 from dataclasses import dataclass, field
-from typing import Dict, List, Tuple
+from typing import Dict, Iterator, List, Tuple
 
 import numpy as np
 import torch
@@ -29,10 +30,12 @@ from metisfl_tpu_torch.tensor.spec import (
     TensorKind,
     TensorSpec,
     _header_bytes,
+    np_dtype_of,
     opaque_tensor_to_bytes,
     read_tensor,
     resolve_ship_dtype,
 )
+from metisfl_tpu_torch.tensor.spec import wire_dtype_of as np_wire_dtype_of
 
 NamedTensors = List[Tuple[str, torch.Tensor]]
 
@@ -239,46 +242,136 @@ class ModelBlob:
         """Parse and verify a blob. ``allow_nocrc=True`` accepts the v3
         store-local variant; by default it is rejected, so a wire payload
         cannot sidestep the v2 integrity framing."""
-        view = memoryview(buf)
-        if bytes(view[:4]) != _MAGIC:
-            raise ValueError("not a metisfl-tpu model blob")
-        version, count = struct.unpack_from("<BI", view, 4)
-        offset = 9
-        if version == _BLOB_VERSION_NOCRC and not allow_nocrc:
-            raise ValueError(
-                "unchecksummed v3 model blob rejected outside the store "
-                "read path (wire payloads must carry the v2 crc framing)")
-        if version in (_BLOB_VERSION, _BLOB_VERSION_NOCRC):
-            try:
-                body_len, crc = struct.unpack_from("<QI", view, offset)
-            except struct.error:
-                raise ValueError("truncated model blob header") from None
-            offset += 12
-            body = view[offset:]
-            if len(body) != body_len:
-                raise ValueError(
-                    f"model blob length mismatch (framed {body_len} body "
-                    f"bytes, have {len(body)}) — truncated or spliced "
-                    "payload")
-            if version == _BLOB_VERSION and zlib.crc32(body) != crc:
-                raise ValueError(
-                    "model blob checksum mismatch — corrupt payload "
-                    "rejected before deserialization")
-        elif version != 1:  # v1: legacy pre-integrity blobs parse unverified
-            raise ValueError(f"unsupported blob version {version}")
         blob = cls()
-        for _ in range(count):
-            (nlen,) = struct.unpack_from("<H", view, offset)
-            offset += 2
-            name = bytes(view[offset: offset + nlen]).decode("utf-8")
-            offset += nlen
-            spec, payload, offset = read_tensor(view, offset)
+        for name, spec, payload in blob_entries(buf, allow_nocrc):
             if spec.kind is TensorKind.PLAINTEXT:
                 blob.tensors.append((name, tensor_from_payload(spec,
                                                                payload)))
             else:
                 blob.opaque[name] = (bytes(payload), spec)
         return blob
+
+
+def blob_entries(buf, allow_nocrc: bool = False
+                 ) -> Iterator[Tuple[str, TensorSpec, memoryview]]:
+    """Verify a blob's framing (magic, version, length, the v2 crc), then
+    yield ``(name, spec, payload view)`` per entry without copying a
+    payload. ``allow_nocrc`` as in :meth:`ModelBlob.from_bytes`."""
+    view = memoryview(buf)
+    if bytes(view[:4]) != _MAGIC:
+        raise ValueError("not a metisfl-tpu model blob")
+    version, count = struct.unpack_from("<BI", view, 4)
+    offset = 9
+    if version == _BLOB_VERSION_NOCRC and not allow_nocrc:
+        raise ValueError(
+            "unchecksummed v3 model blob rejected outside the store "
+            "read path (wire payloads must carry the v2 crc framing)")
+    if version in (_BLOB_VERSION, _BLOB_VERSION_NOCRC):
+        try:
+            body_len, crc = struct.unpack_from("<QI", view, offset)
+        except struct.error:
+            raise ValueError("truncated model blob header") from None
+        offset += 12
+        body = view[offset:]
+        if len(body) != body_len:
+            raise ValueError(
+                f"model blob length mismatch (framed {body_len} body "
+                f"bytes, have {len(body)}) — truncated or spliced "
+                "payload")
+        if version == _BLOB_VERSION and zlib.crc32(body) != crc:
+            raise ValueError(
+                "model blob checksum mismatch — corrupt payload "
+                "rejected before deserialization")
+    elif version != 1:  # v1: legacy pre-integrity blobs parse unverified
+        raise ValueError(f"unsupported blob version {version}")
+    for _ in range(count):
+        (nlen,) = struct.unpack_from("<H", view, offset)
+        offset += 2
+        name = bytes(view[offset: offset + nlen]).decode("utf-8")
+        offset += nlen
+        spec, payload, offset = read_tensor(view, offset)
+        yield name, spec, payload
+
+
+def read_named_arrays(buf, allow_nocrc: bool = False
+                      ) -> Tuple[Dict[str, np.ndarray], Dict[str, tuple]]:
+    """A blob as ``({name: numpy array}, {name: (payload bytes, spec)})``:
+    the plaintext tensors as read-only numpy views over ``buf`` (no copy;
+    they keep ``buf`` alive), the opaque entries as in
+    :class:`ModelBlob`. The host side of the store and the fold read
+    models this way; bf16/fp8 tensors need ml_dtypes."""
+    tensors: Dict[str, np.ndarray] = {}
+    opaque: Dict[str, tuple] = {}
+    for name, spec, payload in blob_entries(buf, allow_nocrc):
+        if spec.kind is TensorKind.PLAINTEXT:
+            tensors[name] = np.frombuffer(
+                payload, dtype=np_dtype_of(spec.dtype)).reshape(spec.shape)
+        else:
+            opaque[name] = (bytes(payload), spec)
+    return tensors, opaque
+
+
+def _payload_view(value) -> Tuple[TensorSpec, memoryview]:
+    """One plaintext tensor (numpy or torch) as its header spec and a flat
+    byte view over its buffer (a contiguous copy only where it is not
+    contiguous already)."""
+    if isinstance(value, torch.Tensor):
+        t = value.detach().cpu()
+        spec = TensorSpec(tuple(t.shape), wire_dtype_of(t),
+                          TensorKind.PLAINTEXT)
+        flat = t.contiguous().reshape(-1).view(torch.uint8).numpy()
+        return spec, flat.data
+    arr = np.asarray(value)
+    if arr.dtype.byteorder == ">":  # the wire is little-endian (spec.py)
+        arr = arr.astype(arr.dtype.newbyteorder("="))
+    # the header's shape before the reshape: a 0-d array stays 0-d there
+    spec = TensorSpec(tuple(arr.shape), np_wire_dtype_of(arr.dtype),
+                      TensorKind.PLAINTEXT)
+    flat = np.ascontiguousarray(arr).reshape(-1).view(np.uint8)
+    return spec, flat.data
+
+
+def write_named_tensors(fd: int, named, checksum: bool = True) -> int:
+    """Stream a tensors-only blob to the open file descriptor ``fd`` with
+    no staging copy of the model; returns the bytes written.
+
+    ``named`` is ``[(name, numpy array or torch tensor)]``. Each tensor
+    contributes a ``memoryview`` over its own buffer: the crc folds across
+    the views and ``os.writev`` gathers them into the file. With
+    ``checksum=True`` the file holds exactly ``ModelBlob(tensors=named)
+    .to_bytes()`` (v2); ``checksum=False`` writes the store-local v3
+    variant, the same layout with a zero crc that is never verified
+    (the uplink was checked at the wire decode, and the length frame
+    still rejects truncation). The JAX package's
+    ``tensor/pytree.py:write_named_tensors`` writes the same bytes."""
+    chunks: List = []
+    for name, value in named:
+        spec, payload = _payload_view(value)
+        nb = name.encode("utf-8")
+        chunks.append(struct.pack("<H", len(nb)) + nb
+                      + _header_bytes(spec, len(payload)))
+        chunks.append(payload)
+    body_len = sum(len(c) for c in chunks)
+    crc = 0
+    if checksum:
+        for c in chunks:
+            crc = zlib.crc32(c, crc)
+    header = b"".join([
+        _MAGIC,
+        struct.pack("<BI", _BLOB_VERSION if checksum else _BLOB_VERSION_NOCRC,
+                    len(named)),
+        struct.pack("<QI", body_len, crc),
+    ])
+    buffers: List = [header] + chunks
+    total = len(header) + body_len
+    while buffers:
+        written = os.writev(fd, buffers[:64])
+        while buffers and written >= len(buffers[0]):
+            written -= len(buffers[0])
+            buffers.pop(0)
+        if written:
+            buffers[0] = memoryview(buffers[0])[written:]
+    return total
 
 
 def pack_model(params_tree) -> bytes:

@@ -1,13 +1,17 @@
 """FedAvg fold parity: the port's ``aggregation`` against the JAX
 package's.
 
-Host numpy trees (what every wire-arrived model is) must fold to the same
-bits as the JAX package's numpy fold, so its native host fold is switched
-off here (``_hostfold_lib = False``, restored after each test, as
-tests/test_aggregation.py does); against the native fold the port holds
-within 2 f32 ulps of max|acc|. The port's tensor fold (trees of torch
-tensors, folded where they live; CPU here) holds to its host fold within
-1e-6 relative. Inputs come from numpy seeds.
+Host numpy trees (what every wire-arrived model is) fold natively in both
+packages (``native/hostfold.cc``, the same source and g++ flags), and the
+port's native fold is bit-identical to the JAX package's on this host.
+The numpy folds (what serves where g++ cannot build the library) are
+bit-identical too: the ``numpy_fold`` tests switch both packages' native
+folds off (``_hostfold_lib = False``, restored after each test, as
+tests/test_aggregation.py does), their ``native_fold`` twins load both.
+Between the two folds the port holds within the JAX test's tolerance
+(atol 1e-4, rtol 1e-5) and 2 f32 ulps of max|acc|. The port's tensor fold
+(trees of torch tensors, folded where they live; CPU here) holds to its
+host fold within 1e-6 relative. Inputs come from numpy seeds.
 """
 
 import ml_dtypes
@@ -18,6 +22,7 @@ import torch
 from metisfl_tpu.aggregation import base as jax_base
 from metisfl_tpu.aggregation.fedavg import FedAvg as JaxFedAvg
 from metisfl_tpu_torch.aggregation import FedAvg, make_aggregation_rule
+from metisfl_tpu_torch.aggregation import base as port_base
 from metisfl_tpu_torch.aggregation.base import is_host_tree
 from metisfl_tpu_torch.config import AggregationConfig, FederationConfig
 from metisfl_tpu_torch.tensor.pytree import as_tensor, tree_map, to_numpy
@@ -25,15 +30,29 @@ from metisfl_tpu_torch.tensor.pytree import as_tensor, tree_map, to_numpy
 BF16 = np.dtype(ml_dtypes.bfloat16)
 
 
-@pytest.fixture
-def numpy_fold():
-    """The JAX package's fold without its native library."""
-    saved = jax_base._hostfold_lib
-    jax_base._hostfold_lib = False
+def _pin_folds(value):
+    saved = jax_base._hostfold_lib, port_base._hostfold_lib
+    jax_base._hostfold_lib = port_base._hostfold_lib = value
     try:
         yield
     finally:
-        jax_base._hostfold_lib = saved
+        jax_base._hostfold_lib, port_base._hostfold_lib = saved
+
+
+@pytest.fixture
+def numpy_fold():
+    """Both packages' folds without their native libraries."""
+    yield from _pin_folds(False)
+
+
+@pytest.fixture
+def native_fold():
+    """Both packages' native folds (built with g++ on first use)."""
+    for _ in _pin_folds(None):
+        if (jax_base._get_hostfold() is None
+                or port_base._get_hostfold() is None):
+            pytest.skip("g++ cannot build native/hostfold.cc here")
+        yield
 
 
 def _models(dtype, k=5, seed=0):
@@ -86,6 +105,25 @@ def _leaves(tree):
 @pytest.mark.parametrize("stride", [0, 2])
 def test_host_fold_is_bit_identical_to_jax(numpy_fold, dtype, normalized,
                                            stride):
+    _assert_folds_bit_identical(dtype, normalized, stride)
+    assert port_base.fold_backend() == "numpy"
+
+
+@pytest.mark.parametrize("dtype", [np.float32, BF16, np.int32, np.float64],
+                         ids=["f32", "bf16", "i32", "f64"])
+@pytest.mark.parametrize("normalized", [True, False],
+                         ids=["normalized", "unnormalized"])
+@pytest.mark.parametrize("stride", [0, 2])
+def test_native_host_fold_is_bit_identical_to_jax(native_fold, dtype,
+                                                  normalized, stride):
+    """The twin on both native folds: f32 and f64 leaves fold in
+    hostfold.cc on both sides, bf16 and int32 leaves in numpy."""
+    _assert_folds_bit_identical(dtype, normalized, stride)
+    native = np.dtype(dtype) in (np.float32, np.float64)
+    assert port_base.fold_backend() == ("native" if native else "numpy")
+
+
+def _assert_folds_bit_identical(dtype, normalized, stride):
     models = _models(dtype)
     scales = _scales(len(models), normalized)
     got = _fold(FedAvg(), models, scales, stride)
@@ -119,17 +157,91 @@ def test_host_fold_within_two_ulps_of_the_native_fold():
     of max|acc| of it."""
     models = _models(np.float32, k=7, seed=3)
     scales = _scales(7, normalized=False, seed=4)
-    saved = jax_base._hostfold_lib
+    saved = jax_base._hostfold_lib, port_base._hostfold_lib
     try:
         jax_base._hostfold_lib = None  # (re)load the native library
+        port_base._hostfold_lib = False  # the port's numpy fold
         want = _fold(JaxFedAvg(), models, scales, 3)
+        got = _fold(FedAvg(), models, scales, 3)
     finally:
-        jax_base._hostfold_lib = saved
-    got = _fold(FedAvg(), models, scales, 3)
+        jax_base._hostfold_lib, port_base._hostfold_lib = saved
     for g, w in zip(_leaves(got), _leaves(want)):
         w = np.asarray(w)
         ulp = np.spacing(np.float32(np.abs(w).max()))
         assert np.abs(g - w).max() <= 2 * ulp
+
+
+@pytest.mark.parametrize("dtype", [np.float32, np.float64],
+                         ids=["f32", "f64"])
+@pytest.mark.parametrize("k", [1, 2, 3, 4, 5])
+def test_native_fold_is_bit_identical_to_the_jax_native_fold(native_fold,
+                                                             dtype, k):
+    """``_native_fold`` of both packages on the same models: starting the
+    accumulator and adding into it, over a length that is not a multiple
+    of either OpenMP block (8192 f32, 4096 f64) and a 2-D leaf."""
+    rng = np.random.default_rng(20 + k)
+    n = 2 * 8192 + 37
+    for shape in ((n,), (37, 29)):
+        arrs = [rng.standard_normal(shape).astype(dtype) for _ in range(k)]
+        scales = rng.random(k) * 3.0
+        got = port_base._native_fold(None, arrs, scales)
+        want = jax_base._native_fold(None, arrs, scales)
+        assert got.dtype == want.dtype == np.dtype(dtype)
+        assert got.tobytes() == want.tobytes()
+        got2 = port_base._native_fold(got, arrs, scales[::-1].copy())
+        want2 = jax_base._native_fold(want, arrs, scales[::-1].copy())
+        assert got2 is got and want2 is want  # accumulated in place
+        assert got2.tobytes() == want2.tobytes()
+
+
+def test_native_fold_matches_the_numpy_fold(native_fold):
+    """tests/test_aggregation.py's check on the port: the native fold
+    against the numpy fold (init, then accumulate) at its tolerance, and
+    ``fold_backend`` names the fold that ran."""
+    rng = np.random.default_rng(13)
+    block = [{"w": rng.standard_normal((64, 32)).astype(np.float32),
+              "b": rng.standard_normal((7,)).astype(np.float64)}
+             for _ in range(5)]
+    scales = rng.random(5)
+    native_init = port_base.np_stacked_scaled_add(None, block, scales)
+    native_acc = port_base.np_stacked_scaled_add(native_init, block, scales)
+    assert port_base.fold_backend() == "native"
+    port_base._hostfold_lib = False
+    np_init = port_base.np_stacked_scaled_add(None, block, scales)
+    np_acc = port_base.np_stacked_scaled_add(np_init, block, scales)
+    assert port_base.fold_backend() == "numpy"
+    for key in ("w", "b"):
+        assert native_acc[key].dtype == np_acc[key].dtype
+        np.testing.assert_allclose(native_acc[key], np_acc[key],
+                                   atol=1e-4, rtol=1e-5)
+
+
+def test_fold_backend_reports_mixed_leaves(native_fold):
+    """A tree with f32 and int leaves folds each leaf where it can: the
+    report names both folds."""
+    block = [{"w": np.ones(3, np.float32), "c": np.ones(3, np.int32)}] * 2
+    port_base.np_stacked_scaled_add(None, block, np.ones(2))
+    assert port_base.fold_backend() == "native+numpy"
+
+
+def test_unbuildable_native_fold_falls_back_to_numpy_and_says_so(
+        monkeypatch, caplog):
+    """Where g++ cannot build the library, the numpy fold serves, the
+    first attempt logs it, and ``fold_backend`` reports it."""
+    import metisfl_tpu_torch.native as native
+
+    def refuse():
+        raise RuntimeError("native build of hostfold.cc failed")
+
+    monkeypatch.setattr(native, "load_hostfold", refuse)
+    monkeypatch.setattr(port_base, "_hostfold_lib", None)
+    with caplog.at_level("WARNING", logger="metisfl_tpu_torch.aggregation"):
+        out = port_base.np_stacked_scaled_add(
+            None, [{"w": np.ones(4, np.float32)}] * 3, np.full(3, 0.5))
+    np.testing.assert_array_equal(out["w"], 1.5)
+    assert port_base.fold_backend() == "numpy"
+    assert port_base._hostfold_lib is False
+    assert "host fold: numpy" in caplog.text
 
 
 @pytest.mark.parametrize("dtype", [np.float32, np.float64, BF16, np.int32],

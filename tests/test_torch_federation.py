@@ -13,11 +13,15 @@ rounds, so its last community model is read from the controller.
 
 Mixed cohorts (a JAX learner in the port's federation and a port learner
 in the JAX package's) complete rounds, and each community model equals
-the FedAvg of the blobs its cohort shipped. The JAX package's native host
-fold is switched off (``_hostfold_lib = False``) so both controllers fold
-with numpy; the FedAvg fold is then bit-identical (test_torch_aggregation).
+the FedAvg of the blobs its cohort shipped. Most tests pin both
+packages' host folds to numpy (``_hostfold_lib = False``); their twins
+``..._on_the_native_fold`` run both native folds (``native/hostfold.cc``,
+built with g++ at first use). Either way the two folds are bit-identical
+(test_torch_aggregation). The cached-disk case runs both federations on
+``model_store.store: cached_disk`` with ``ingest_workers: 2``.
 """
 
+import os
 import threading
 
 import ml_dtypes
@@ -25,6 +29,7 @@ import numpy as np
 import pytest
 
 from metisfl_tpu.aggregation import base as jax_base
+from metisfl_tpu.config import ModelStoreConfig as JaxModelStoreConfig
 from metisfl_tpu.comm.messages import TrainParams as JaxTrainParams
 from metisfl_tpu.config import AggregationConfig as JaxAggregationConfig
 from metisfl_tpu.config import EvalConfig as JaxEvalConfig
@@ -36,6 +41,7 @@ from metisfl_tpu.models import FlaxModelOps
 from metisfl_tpu.models.dataset import ArrayDataset as JaxDataset
 from metisfl_tpu.models.zoo import MLP as JaxMLP
 from metisfl_tpu_torch.aggregation import FedAvg
+from metisfl_tpu_torch.aggregation import base as port_base
 from metisfl_tpu_torch.comm import TaskResult, TrainParams, TrainTask
 from metisfl_tpu_torch.config import (
     AggregationConfig,
@@ -62,14 +68,29 @@ ROUNDS = 3
 COMMUNITY_ATOL = 1e-5
 
 
-@pytest.fixture
-def numpy_fold():
-    saved = jax_base._hostfold_lib
-    jax_base._hostfold_lib = False
+def _pin_folds(value):
+    """Set both packages' native-fold handles (False: numpy; None: load
+    the native library) for one test, and restore them after."""
+    saved = jax_base._hostfold_lib, port_base._hostfold_lib
+    jax_base._hostfold_lib = port_base._hostfold_lib = value
     try:
         yield
     finally:
-        jax_base._hostfold_lib = saved
+        jax_base._hostfold_lib, port_base._hostfold_lib = saved
+
+
+@pytest.fixture
+def numpy_fold():
+    yield from _pin_folds(False)
+
+
+@pytest.fixture
+def native_fold():
+    for _ in _pin_folds(None):
+        if (jax_base._get_hostfold() is None
+                or port_base._get_hostfold() is None):
+            pytest.skip("g++ cannot build native/hostfold.cc here")
+        yield
 
 
 def _arrays(num_learners, n_per=60, d=6, classes=3, seed=7):
@@ -93,21 +114,23 @@ def _train_kwargs(**extra):
     return dict(batch_size=16, local_steps=4, learning_rate=0.1, **extra)
 
 
-def _port_config(**train_extra):
+def _port_config(model_store=None, **train_extra):
     return FederationConfig(
         aggregation=AggregationConfig(rule="fedavg", scaler="participants"),
         train=TrainParams(**_train_kwargs(**train_extra)),
         eval=EvalConfig(batch_size=64, datasets=["test"]),
-        termination=TerminationConfig(federation_rounds=ROUNDS))
+        termination=TerminationConfig(federation_rounds=ROUNDS),
+        model_store=model_store or ModelStoreConfig())
 
 
-def _jax_config():
+def _jax_config(model_store=None):
     return JaxFederationConfig(
         aggregation=JaxAggregationConfig(rule="fedavg",
                                          scaler="participants"),
         train=JaxTrainParams(**_train_kwargs()),
         eval=JaxEvalConfig(batch_size=64, datasets=["test"]),
-        termination=JaxTerminationConfig(federation_rounds=ROUNDS))
+        termination=JaxTerminationConfig(federation_rounds=ROUNDS),
+        model_store=model_store or JaxModelStoreConfig())
 
 
 class _Recorder:
@@ -201,8 +224,8 @@ def _port_federation(shards, test, template, config=None):
     return fed
 
 
-def _jax_federation(shards, test, template):
-    fed = JaxFederation(_jax_config())
+def _jax_federation(shards, test, template, config=None):
+    fed = JaxFederation(config or _jax_config())
     for x, y in shards:
         i = len(fed.learners)
         engine = FlaxModelOps(JaxMLP(features=(16,), num_outputs=3), x[:2])
@@ -220,12 +243,18 @@ def _accuracy(stats, round_id):
             sorted(entry["evaluations"].items())]
 
 
-def test_sync_federation_matches_the_jax_package(numpy_fold):
+def _federations_match(port_config=None, jax_config=None):
+    """The 3-learner x ROUNDS federation through both packages: the same
+    cohorts and scales, communities within COMMUNITY_ATOL, the same
+    accuracies, and the port learns. Returns the largest community
+    difference over all rounds and tensors."""
     shards, test = _arrays(3)
     template = _jax_template(shards[0][0])
     port_rec, jax_rec = _Recorder(), _Recorder()
-    port = _run(_port_federation(shards, test, template), port_rec)
-    ref = _run(_jax_federation(shards, test, template), jax_rec)
+    port = _run(_port_federation(shards, test, template, port_config),
+                port_rec)
+    ref = _run(_jax_federation(shards, test, template, jax_config), jax_rec)
+    worst = 0.0
     assert port["global_iteration"] >= ROUNDS
     assert ref["global_iteration"] >= ROUNDS
     assert port["learners"] == ref["learners"]
@@ -238,8 +267,9 @@ def test_sync_federation_matches_the_jax_package(numpy_fold):
         assert sorted(got) == sorted(want)
         for name in want:
             assert got[name].dtype == want[name].dtype
-            assert np.abs(got[name] - want[name]).max() <= COMMUNITY_ATOL, (
-                r, name)
+            diff = float(np.abs(got[name] - want[name]).max())
+            assert diff <= COMMUNITY_ATOL, (r, name)
+            worst = max(worst, diff)
         # equal accuracy: the same count of correct test predictions (the
         # JAX engine averages each batch in f32, the port in f64)
         n_test = len(test[1])
@@ -247,6 +277,39 @@ def test_sync_federation_matches_the_jax_package(numpy_fold):
             round(a * n_test) for a in _accuracy(ref, r)]
     # and it learns: the last round's community beats the first
     assert np.mean(_accuracy(port, ROUNDS - 1)) > np.mean(_accuracy(port, 0))
+    return worst
+
+
+def test_sync_federation_matches_the_jax_package(numpy_fold):
+    _federations_match()
+
+
+def test_sync_federation_matches_the_jax_package_on_the_native_fold(
+        native_fold):
+    _federations_match()
+
+
+def test_cached_disk_ingest_federation_matches_the_jax_package(
+        native_fold, tmp_path):
+    """Both federations keep their lineage in a cached disk store (a cache
+    budget below one model, so every select reads the mmapped file) and
+    ingest through 2 writers; both fold natively. The communities agree
+    within COMMUNITY_ATOL; the engines' f32 training differs by ~1e-8, so
+    they are not bit-identical (the folds are)."""
+    def store(cls, name):
+        return cls(store="cached_disk", root=str(tmp_path / name),
+                   cache_mb=0, ingest_workers=2)
+
+    worst = _federations_match(
+        _port_config(model_store=store(ModelStoreConfig, "port")),
+        _jax_config(model_store=store(JaxModelStoreConfig, "jax")))
+    assert worst <= COMMUNITY_ATOL
+    # both controllers stored their learners' lineage on disk, in files
+    # of the same names
+    for name in ("port", "jax"):
+        assert len(os.listdir(tmp_path / name)) == 3
+    assert sorted(os.listdir(tmp_path / "port")) == sorted(
+        os.listdir(tmp_path / "jax"))
 
 
 def _check_folds(recorder, stats, rounds):
@@ -514,10 +577,16 @@ UNSUPPORTED = {
         aggregation=AggregationConfig(streaming=True)),
     "tree": lambda: FederationConfig(aggregation=AggregationConfig(
         tree=TreeAggregationConfig(enabled=True))),
+    # the stores are ported; what stays refused around them is the disk
+    # store's checkpoints (3f) and the distributed tree tier that the JAX
+    # package refuses beside parallel ingest (3c)
     "store_disk": lambda: FederationConfig(
-        model_store=ModelStoreConfig(store="disk")),
+        model_store=ModelStoreConfig(store="disk"),
+        checkpoint=CheckpointConfig(dir="ckpt")),
     "store_remote": lambda: FederationConfig(
-        model_store=ModelStoreConfig(store="remote")),
+        model_store=ModelStoreConfig(store="remote", ingest_workers=2),
+        aggregation=AggregationConfig(tree=TreeAggregationConfig(
+            enabled=True, distributed=True))),
     "checkpoint": lambda: FederationConfig(
         checkpoint=CheckpointConfig(dir="ckpt")),
     "ship_int8q": lambda: FederationConfig(
@@ -545,6 +614,22 @@ UNSUPPORTED = {
 def test_unsupported_config_raises(name):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         UNSUPPORTED[name]()
+
+
+@pytest.mark.parametrize("store", ["in_memory", "disk", "cached_disk",
+                                   "remote"])
+def test_every_store_is_accepted(store):
+    """The JAX package's four stores configure (with parallel ingest);
+    a negative writer count is a ValueError, as there."""
+    cfg = FederationConfig(model_store=ModelStoreConfig(
+        store=store, root="r", cache_mb=8, host="h", port=9,
+        ingest_workers=3))
+    assert FederationConfig.from_wire(cfg.to_wire()) == cfg
+    with pytest.raises(ValueError, match="ingest_workers"):
+        FederationConfig(model_store=ModelStoreConfig(store=store,
+                                                      ingest_workers=-1))
+    with pytest.raises(ValueError, match="unknown store"):
+        FederationConfig(model_store=ModelStoreConfig(store="redis"))
 
 
 @pytest.mark.parametrize("field,task", [
@@ -618,3 +703,21 @@ def test_ship_dtype_skips_integer_state():
     assert by_name["w"].dtype == np.dtype(ml_dtypes.bfloat16)
     np.testing.assert_array_equal(by_name["steps"], [1001, 70000])
     assert by_name["steps"].dtype == np.uint32
+
+
+# the parity tests above, with both packages on their native folds
+
+
+def test_jax_learner_joins_the_port_controller_on_the_native_fold(
+        native_fold):
+    test_jax_learner_joins_the_port_controller(native_fold)
+
+
+def test_port_learner_joins_the_jax_controller_on_the_native_fold(
+        native_fold):
+    test_port_learner_joins_the_jax_controller(native_fold)
+
+
+def test_stride_blocks_give_the_same_community_on_the_native_fold(
+        native_fold):
+    test_stride_blocks_give_the_same_community(native_fold)

@@ -535,13 +535,14 @@ def test_autograd_runs_all_three_kernels_on_gpu(cuda_device):
 
 # -- head dims the kernels are not built for, and every grid ----------------
 
-@pytest.mark.parametrize("D", [8, 16, 32, 256])
+@pytest.mark.parametrize("D", [8, 16, 32, 256, 320, 512])
 @pytest.mark.parametrize("causal", [False, True])
 def test_twins_at_padded_head_dims_match_pallas(jax_flash, causal, D):
     """The Pallas kernels take any D (their blocks span the head); the
-    twins, which the CPU path runs and the padded kernels are held to, give
-    the Pallas forward's o and lse and its backward's dq, dk, dv (interpret
-    mode) at D = 8, 16, 32 and 256, B1·Hq4·Hkv2·L40 fp32."""
+    twins, which the CPU path runs and the padded and general kernels are
+    held to, give the Pallas forward's o and lse and its backward's dq, dk,
+    dv (interpret mode) at D = 8, 16, 32, 256 (K2/K3's largest build), 320
+    and 512 (the general kernels), B1·Hq4·Hkv2·L40 fp32."""
     jnp = jax_flash.jnp
     q, k, v, do = _bwd_inputs(L=40, D=D)
     o_ref, lse_ref = jax_flash._flash_forward(
@@ -570,16 +571,19 @@ def test_twins_at_padded_head_dims_match_pallas(jax_flash, causal, D):
 def test_head_dim_padding_is_exact(causal, D, dtype):
     """The wrappers' padding path, with the twins in the kernels' place:
     q, k, v and dO zero-padded to the next head dim a kernel is built for
-    (``pad_head_dim``: 64, 128 or 256 for K1, 64 or 128 for K2 and K3), run
-    with the true D's scale and sliced back, give the unpadded twins' o,
-    lse, dq, dk and dv to 0 ulp, and 0 in every padded column."""
+    (``pad_head_dim``: 64, 128 or 256 for K1 and for K2 and K3 in bf16, 64
+    or 128 for K2 and K3 in fp32), run with the true D's scale and sliced
+    back, give the unpadded twins' o, lse, dq, dk and dv to 0 ulp, and 0 in
+    every padded column."""
     import math
 
     from metisfl_tpu_torch.ops.flash_attention import (
         _FWD_HEAD_DIMS,
         _delta,
+        bwd_head_dims,
         flash_bwd_dkv_reference,
         flash_bwd_dq_reference,
+        kernel_head_dim,
         pad_head_dim,
     )
 
@@ -593,9 +597,10 @@ def test_head_dim_padding_is_exact(causal, D, dtype):
     op, lsep = flash_attention_fwd_reference(qp, kp, vp, causal, scale)
     assert torch.equal(op[..., :D], o) and torch.equal(lsep, lse)
     assert not op[..., D:].any()
-    if D > 128:
-        return  # no backward kernel at this head dim
-    Dk, (qp, kp, vp, dop) = pad_head_dim(q, k, v, do)
+    if kernel_head_dim(D, bwd_head_dims(dtype)) is None:
+        return  # the general kernel takes this D unpadded
+    Dk, (qp, kp, vp, dop) = pad_head_dim(q, k, v, do,
+                                         head_dims=bwd_head_dims(dtype))
     delta = _delta(o, do)
     dq = flash_bwd_dq_reference(q, k, v, do, lse, delta, causal)
     dqp = flash_bwd_dq_reference(qp, kp, vp, dop, lse, delta, causal, scale)
@@ -620,27 +625,36 @@ def test_kernel_head_dims_need_no_copy():
 
 
 def test_head_dims_beyond_the_kernels_are_refused_with_their_reason():
-    """On the card K1 takes D <= 256 and K2/K3 D <= 128 (no instantiation
-    holds K3's dK and dV at D = 256 in registers, nor the fp32 K2/K3 tiles
-    in shared memory); the check runs before any launch, so it is
-    reachable on the CPU."""
+    """No head dim that the Pallas kernels take is refused on the card any
+    more: each D goes to a tuned kernel (padded to its next built head dim:
+    K1 64/128/256, K2 and K3 64/128/256 in bf16/fp16 and 64/128 in fp32)
+    or, beyond the largest, to the general kernel. The input check runs
+    before any launch, so it is reachable on the CPU; it still refuses a
+    head dim of 0 and a grid it cannot launch."""
     from metisfl_tpu_torch.ops.flash_attention import (
-        _BWD_HEAD_DIMS,
         _FWD_HEAD_DIMS,
         _check_cuda_inputs,
+        bwd_head_dims,
+        kernel_head_dim,
     )
 
-    for D in (129, 256):
+    for D, fwd, bwd16, bwd32 in ((1, 64, 64, 64), (129, 256, 256, None),
+                                 (256, 256, 256, None),
+                                 (257, None, None, None),
+                                 (512, None, None, None)):
         q = torch.zeros(1, 2, 8, D, dtype=torch.bfloat16)
-        _check_cuda_inputs(q, q, q, _FWD_HEAD_DIMS)
-        with pytest.raises(ValueError, match="head_dim 1..128"):
-            _check_cuda_inputs(q, q, q, _BWD_HEAD_DIMS, do=q)
-    q = torch.zeros(1, 2, 8, 257, dtype=torch.bfloat16)
-    with pytest.raises(ValueError, match="head_dim 1..256"):
-        _check_cuda_inputs(q, q, q, _FWD_HEAD_DIMS)
+        _check_cuda_inputs(q, q, q)
+        _check_cuda_inputs(q, q, q, do=q)
+        assert kernel_head_dim(D, _FWD_HEAD_DIMS) == fwd
+        assert kernel_head_dim(D, bwd_head_dims(torch.bfloat16)) == bwd16
+        assert kernel_head_dim(D, bwd_head_dims(torch.float16)) == bwd16
+        assert kernel_head_dim(D, bwd_head_dims(torch.float32)) == bwd32
+    q = torch.zeros(1, 2, 8, 0, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="head_dim >= 1"):
+        _check_cuda_inputs(q, q, q)
     q = torch.zeros(1, 65536, 1, 64, dtype=torch.bfloat16)
     with pytest.raises(ValueError, match="grid"):
-        _check_cuda_inputs(q, q, q, _FWD_HEAD_DIMS)
+        _check_cuda_inputs(q, q, q)
 
 
 @pytest.mark.parametrize("B,H", [(1, 16), (4096, 16), (4097, 16),
@@ -712,25 +726,102 @@ _FWD_256_GPU_CASES = [
 ]
 
 
+def _launch_counts():
+    from metisfl_tpu_torch.ops.flash_attention import (
+        flash_bwd_dkv_general,
+        flash_bwd_dq_general,
+        flash_fwd_general,
+    )
+
+    return {fn.__name__: fn.launches for fn in (
+        flash_attention_fwd, flash_bwd_dq, flash_bwd_dkv, flash_fwd_general,
+        flash_bwd_dq_general, flash_bwd_dkv_general)}
+
+
+def _check_fwd_bwd_on_gpu(dtype, causal, B, Hq, Hkv, L, D, device):
+    """K1, then K2 and K3 through flash_attention_bwd, against their twins
+    at the unpadded cases' tolerances; returns the launches each wrapper
+    counted."""
+    q, k, v, o_ref, lse_ref, do = _cuda_bwd_inputs(device, dtype, B, Hq,
+                                                   Hkv, L, D, causal)
+    before = _launch_counts()
+    o, lse = flash_attention_fwd(q, k, v, causal)
+    got = flash_attention_bwd(q, k, v, o_ref, lse_ref, do, causal)
+    torch.cuda.synchronize()
+    after = _launch_counts()
+    lse_atol = 1e-4 if dtype == torch.float32 else 1e-3
+    assert o.dtype == dtype and o.shape == q.shape and o.is_contiguous()
+    torch.testing.assert_close(o.float(), o_ref.float(),
+                               atol=_FWD_ATOL[dtype], rtol=0)
+    torch.testing.assert_close(lse, lse_ref, atol=lse_atol, rtol=0)
+    want = flash_attention_bwd_reference(q, k, v, o_ref, lse_ref, do, causal)
+    for name, a, b in zip(("dq", "dk", "dv"), got, want):
+        assert a.dtype == dtype and a.shape == b.shape, name
+        scale = float(b.float().abs().max())
+        err = float((a.float() - b.float()).abs().max())
+        assert err <= _BWD_REL[dtype] * scale, (name, err, scale)
+    return {name: after[name] - before[name] for name in after}
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype,causal,B,Hq,Hkv,L,D", _FWD_256_GPU_CASES)
 def test_forward_kernel_at_head_dims_up_to_256_on_gpu(cuda_device, dtype,
                                                       causal, B, Hq, Hkv, L,
                                                       D):
     """K1 against its twin at D = 256 (its own instantiation) and D = 200
-    (padded to 256), one launch; the backward refuses D > 128 before
-    launching anything."""
-    q, k, v, o_ref, lse_ref, do = _cuda_bwd_inputs(cuda_device, dtype, B,
-                                                   Hq, Hkv, L, D, causal)
-    before = flash_attention_fwd.launches
-    o, lse = flash_attention_fwd(q, k, v, causal)
-    torch.cuda.synchronize()
-    assert flash_attention_fwd.launches == before + 1
-    lse_atol = 1e-4 if dtype == torch.float32 else 1e-3
-    torch.testing.assert_close(o.float(), o_ref.float(),
-                               atol=_FWD_ATOL[dtype], rtol=0)
-    torch.testing.assert_close(lse, lse_ref, atol=lse_atol, rtol=0)
-    before = (flash_bwd_dq.launches, flash_bwd_dkv.launches)
-    with pytest.raises(ValueError, match="head_dim 1..128"):
-        flash_attention_bwd(q, k, v, o, lse, do, causal)
-    assert (flash_bwd_dq.launches, flash_bwd_dkv.launches) == before
+    (padded to it), one launch; the backward runs too: in bf16/fp16 on
+    K2's D = 256 build and K3's, once for dV and once for dK; in fp32 on
+    the general kernels."""
+    launched = _check_fwd_bwd_on_gpu(dtype, causal, B, Hq, Hkv, L, D,
+                                     cuda_device)
+    general = dtype == torch.float32
+    assert launched == {
+        "flash_attention_fwd": 1, "flash_fwd_general": 0,
+        "flash_bwd_dq": 0 if general else 1,
+        "flash_bwd_dkv": 0 if general else 2,
+        "flash_bwd_dq_general": int(general),
+        "flash_bwd_dkv_general": int(general)}
+
+
+# (dtype, causal, B, Hq, Hkv, L, D): head dims beyond every build, on the
+# general kernels: ragged chunks (D = 320 is five, 300 and 600 end inside
+# a chunk), tiles and groups
+_GENERAL_GPU_CASES = [
+    (dtype, causal, 1, 4, Hkv, L, D)
+    for dtype in (torch.bfloat16, torch.float16, torch.float32)
+    for causal in (False, True)
+    for D, Hkv, L in ((300, 2, 65), (320, 4, 130), (512, 1, 200),
+                      (600, 2, 64))
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,causal,B,Hq,Hkv,L,D", _GENERAL_GPU_CASES)
+def test_general_kernels_beyond_every_build_on_gpu(cuda_device, dtype,
+                                                    causal, B, Hq, Hkv, L,
+                                                    D):
+    """K1, K2 and K3 at D > 256 go to the general kernels, one launch each,
+    and hold their twins at the tuned kernels' tolerances."""
+    launched = _check_fwd_bwd_on_gpu(dtype, causal, B, Hq, Hkv, L, D,
+                                     cuda_device)
+    assert launched == {
+        "flash_attention_fwd": 0, "flash_bwd_dq": 0, "flash_bwd_dkv": 0,
+        "flash_fwd_general": 1, "flash_bwd_dq_general": 1,
+        "flash_bwd_dkv_general": 1}
+
+
+@pytest.mark.cuda
+def test_general_and_d256_kernels_are_deterministic_on_gpu(cuda_device):
+    """The general kernels and K3's two-pass D = 256 build write each
+    output once from one block: two runs give the same bits."""
+    for dtype, D in ((torch.bfloat16, 256), (torch.bfloat16, 320),
+                     (torch.float32, 256)):
+        q, k, v, o, lse, do = _cuda_bwd_inputs(cuda_device, dtype, 1, 4, 2,
+                                               130, D, True, seed=3)
+        first = (flash_attention_fwd(q, k, v, True)
+                 + flash_attention_bwd(q, k, v, o, lse, do, True))
+        second = (flash_attention_fwd(q, k, v, True)
+                  + flash_attention_bwd(q, k, v, o, lse, do, True))
+        torch.cuda.synchronize()
+        for a, b in zip(first, second):
+            assert torch.equal(a, b), (dtype, D)

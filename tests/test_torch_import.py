@@ -9,6 +9,8 @@ import re
 import subprocess
 import sys
 
+import pytest
+
 import metisfl_tpu_torch
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -47,7 +49,14 @@ def test_every_module_imports_without_jax():
             "metisfl_tpu_torch.controller.__main__",
             "metisfl_tpu_torch.learner.service",
             "metisfl_tpu_torch.learner.__main__",
-            "metisfl_tpu_torch.driver.session"} <= set(names)
+            "metisfl_tpu_torch.driver.session",
+            "metisfl_tpu_torch.native",
+            "metisfl_tpu_torch.store.durable",
+            "metisfl_tpu_torch.store.disk",
+            "metisfl_tpu_torch.store.cached",
+            "metisfl_tpu_torch.store.ingest",
+            "metisfl_tpu_torch.store.remote",
+            "metisfl_tpu_torch.store.server"} <= set(names)
     code = (
         "import importlib, json, sys\n"
         f"for name in {names!r}:\n"
@@ -81,8 +90,22 @@ def test_sources_reference_neither_jax_nor_the_jax_package():
     assert offenders == []
 
 
+@pytest.mark.parametrize("script", ["chip_smoke.py",
+                                    "scripts/torch_kernel_turns.py"])
+def test_card_scripts_reference_neither_jax_nor_the_jax_package(script):
+    """The scripts that run on the card, where jax is not installed."""
+    with open(os.path.join(REPO, script), encoding="utf-8") as fh:
+        text = fh.read()
+    assert not re.search(
+        r"^\s*(import|from)\s+(jax|jaxlib|flax|optax)\b", text, re.M)
+    assert not re.search(r"\bmetisfl_tpu\.", text)
+
+
 def test_kernel_sources_ship_with_the_package():
     for name in ("flash_fwd", "flash_bwd"):
         assert os.path.exists(os.path.join(PKG_DIR, "csrc", f"{name}.cu"))
+    assert os.path.exists(os.path.join(PKG_DIR, "native", "hostfold.cc"))
     with open(os.path.join(REPO, "pyproject.toml"), encoding="utf-8") as fh:
-        assert '"metisfl_tpu_torch" = ["csrc/*.cu", "csrc/*.cuh"]' in fh.read()
+        text = fh.read()
+    assert '"metisfl_tpu_torch" = ["csrc/*.cu", "csrc/*.cuh"]' in text
+    assert '"metisfl_tpu_torch.native" = ["*.cc"]' in text

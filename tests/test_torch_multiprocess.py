@@ -396,6 +396,43 @@ def test_cutoffs_stop_a_run_without_a_round_limit(tmp_path, cutoff):
         assert score is not None and score >= 0.6
 
 
+def test_driver_session_passes_the_store_settings_through(tmp_path):
+    """The controller process builds the configured store and ingest
+    plane: a cached_disk store under the given root, written by 2 ingest
+    writers (the round metadata records each writer's insert)."""
+    from metisfl_tpu_torch.config import ModelStoreConfig
+
+    shards, test = _arrays((60, 60))
+    root = tmp_path / "store"
+    config = FederationConfig(
+        controller_port=0,
+        train=TrainParams(batch_size=16, local_steps=2, learning_rate=0.1),
+        eval=EvalConfig(batch_size=64, datasets=["test"]),
+        termination=TerminationConfig(federation_rounds=2),
+        model_store=ModelStoreConfig(store="cached_disk", root=str(root),
+                                     cache_mb=1, ingest_workers=2))
+    template = TorchModelOps(MLP(6, (16,), 3), rng_seed=0,
+                             device="cpu").get_variables()
+    session = DriverSession(config, template,
+                            [_mlp_recipe(x, y, test, i)
+                             for i, (x, y) in enumerate(shards)],
+                            workdir=str(tmp_path / "run"), device="cpu")
+    try:
+        with _recipes_by_value():
+            session.initialize_federation()
+        stats = session.monitor_federation(poll_every_s=0.2,
+                                           eval_drain_timeout_s=30.0)
+    finally:
+        session.shutdown_federation()
+    assert session.process_exit_codes() == {
+        "controller": 0, "learner_0": 0, "learner_1": 0}
+    assert root.is_dir()
+    for meta in stats["round_metadata"][:2]:
+        assert sorted(meta["ingest_write_duration_ms"]) == sorted(
+            meta["selected_learners"])
+        assert meta["ingest_drain_duration_ms"] >= 0.0
+
+
 def test_what_is_not_ported_is_refused_before_any_process_starts(tmp_path):
     from metisfl_tpu_torch.config import LearnerEndpoint
     from metisfl_tpu_torch.controller.__main__ import main as controller_main
