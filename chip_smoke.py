@@ -23,11 +23,16 @@ It drives the port only (it imports no jax and nothing of the JAX package):
    built for (the wrapper zero-pads them to 64: the
    ``examples/long_context.py`` shape B4·Hq4·L512·D16, D = 8 and D = 32)
    and at B·Hq above the grid's 65535 (launched in batch chunks), K1-K3
-   at their head dim 256 builds (K3 in two passes), and the general SIMT
-   kernels (any head dim) at D = 512 in bf16 and fp32 and, for K2/K3, at
-   fp32 D = 256; then every wrapper the wide-heads path (5.) launches, at
-   that path's own B2·H·L256·D (D = 256 in bf16 and fp32, 512 in bf16);
-   each case checks which wrapper launched;
+   at their head dim 256 builds (K3 in two passes), and the general
+   kernels beyond the builds (K1 and K3 on tensor cores in bf16/fp16 and
+   SIMT in fp32, K2 SIMT) at D = 512 in bf16 and fp32 and, for K2/K3, at
+   fp32 D = 256; the tensor-core general kernels at the card-filling
+   B2·Hq16·Hkv4·L1024·D512 bf16 causal (the D = 256 case at twice the head
+   dim) and, for correctness only, at D = 320 fp16, not causal, L = 1000,
+   Hq8·Hkv2; then every wrapper the wide-heads path (5.) launches, at that
+   path's own B2·H·L256·D (D = 256 in bf16 and fp32, 512 in bf16 and
+   fp32); each case checks which wrapper launched and records which SDPA
+   kernels ran (the profiler's names: SDPA's backend);
 4. serving slice: a full-width LlamaLite (vocab 32768, dim 1024, depth 8,
    heads 16, kv_heads 4, bf16 compute, flash attention) with seeded random
    weights, packed into a ModelBlob and installed in a ``ServingGateway``;
@@ -42,9 +47,9 @@ It drives the port only (it imports no jax and nothing of the JAX package):
    then evaluated; the trained weights go back out as a blob, and one
    batch's gradients through the flash path are held against the dense
    path's; then the wide-heads path: LlamaLite at depth 2 trained 2 steps
-   at head dims 256 (bf16 and fp32) and 512 (bf16), each launch checked
-   against the kernel that head dim routes to, gradients against the
-   dense path's;
+   at head dims 256 and 512, each in bf16 and fp32, each launch checked
+   against the kernel that head dim and dtype route to, gradients against
+   the dense path's;
 6. federation slice: synchronous FedAvg rounds through the port's
    ``InProcessFederation`` (controller, learners, in-memory store, host
    fold), every learner's engine on the card: (a) 3 FashionMNIST CNN
@@ -90,7 +95,9 @@ ms per step, blob bytes, launches), a ``{"multiprocess": {...}}`` line
 memory), ``{"wide_heads": ...}`` and ``{"store": ...}`` lines, a
 ``{"kernels": [...]}`` line (each kernel's launches by path: K1-K3 at
 D = 64 on the main paths, and a row per wide-heads case and wrapper with
-its launches there, each measured at its path's shape),
+its launches there, each measured at its path's shape: the tensor-core
+and the SIMT routes of K1 and K3 beyond the builds each have rows, the
+D = 512 bf16 ones also their card-filling case's numbers),
 the GPU's name and power limit,
 and, when every phase passed, ``{"ok": true, "device": {...}}`` as its last
 line. It exits non-zero without a GPU, or outside a checkout.
@@ -216,6 +223,15 @@ def device_ms(fn):
     return profiled["device_ms"] / PROFILED_CALLS
 
 
+def kernel_names(fn, top: int = 3):
+    """The names of the device kernels that take most of one call of
+    ``fn`` (the profiler's), e.g. which SDPA backend ran."""
+    profiled = profile_call(fn, top=top)
+    if not isinstance(profiled, dict):
+        return None
+    return [row["kernel"] for row in profiled["top"]]
+
+
 class Smoke:
     def __init__(self):
         self.failures = []
@@ -238,10 +254,15 @@ class Smoke:
             print(f"-- {name}: {time.perf_counter() - t0:.3f} s", flush=True)
 
 
-# the six kernel wrappers, by name: K1-K3 and their general-D kernels
+# the eight kernel wrappers, by name: K1-K3, their general-D SIMT kernels
+# and the general-D tensor-core kernels of K1 and K3
 KERNEL_WRAPPERS = ("flash_attention_fwd", "flash_bwd_dq", "flash_bwd_dkv",
                    "flash_fwd_general", "flash_bwd_dq_general",
-                   "flash_bwd_dkv_general")
+                   "flash_bwd_dkv_general", "flash_fwd_general_mma",
+                   "flash_bwd_dkv_general_mma")
+# K1's wrappers: they also run where a block recomputes its forward
+FWD_WRAPPERS = ("flash_attention_fwd", "flash_fwd_general",
+                "flash_fwd_general_mma")
 # a wrapper's name in the kernels line, where it differs
 ROW_NAMES = {"flash_attention_fwd": "flash_fwd"}
 
@@ -264,9 +285,11 @@ def reset_launches():
 
 
 def attention_case(smoke, name, B, Hq, Hkv, L, D, dtype_name, causal,
-                   o_atol, lse_atol, kernel="flash_attention_fwd"):
-    """One kernel-vs-plain comparison, timed; returns its record.
-    ``kernel`` names the wrapper that must have launched."""
+                   o_atol, lse_atol, kernel="flash_attention_fwd",
+                   timed=True):
+    """One kernel-vs-plain comparison, timed unless ``timed`` is false;
+    returns its record. ``kernel`` names the wrapper that must have
+    launched."""
     import torch
     import torch.nn.functional as F
 
@@ -297,6 +320,10 @@ def attention_case(smoke, name, B, Hq, Hkv, L, D, dtype_name, causal,
                 f"{lse_err:.3g} <= {lse_atol}")
     smoke.check(torch.equal(o, o2) and torch.equal(lse, lse2),
                 f"{name}: two runs of K1 give bit-identical o and lse")
+    if not timed:
+        return {"name": name, "shape": [B, Hq, Hkv, L, D],
+                "dtype": dtype_name, "causal": causal, "wrapper": kernel,
+                "max_abs_err": o_err, "max_abs_err_lse": lse_err}
 
     def kernel():
         return flash_attention_fwd(q, k, v, causal)
@@ -311,9 +338,11 @@ def attention_case(smoke, name, B, Hq, Hkv, L, D, dtype_name, causal,
     plain_ms = time_ms(lambda: flash_attention_fwd_reference(q, k, v,
                                                              causal),
                        iters=5)
+    library_kernels = None
     try:
         library_ms = time_ms(library)
         library_device_ms = device_ms(library)
+        library_kernels = kernel_names(library)
     except (TypeError, RuntimeError) as exc:
         print(f"library call unavailable: {exc}")
         library_ms = library_device_ms = None
@@ -333,6 +362,7 @@ def attention_case(smoke, name, B, Hq, Hkv, L, D, dtype_name, causal,
         "kernel_host_ms": kernel_host_ms, "plain_ms": plain_ms, "bound_ms": max(flop_ms, byte_ms),
         "bound_by": "operations" if flop_ms >= byte_ms else "bytes",
         "library_ms": library_ms, "library_device_ms": library_device_ms,
+        "library_kernels": library_kernels,
         "flops": flops, "bytes": nbytes,
         "tflops": flops / (kernel_ms * 1e-3) / 1e12,
         "tflops_device": flops / (kernel_device_ms * 1e-3) / 1e12
@@ -343,10 +373,11 @@ def attention_case(smoke, name, B, Hq, Hkv, L, D, dtype_name, causal,
 
 
 def backward_case(smoke, name, B, Hq, Hkv, L, D, dtype_name, causal,
-                  rel_tol, kernels=("flash_bwd_dq", "flash_bwd_dkv")):
+                  rel_tol, kernels=("flash_bwd_dq", "flash_bwd_dkv"),
+                  timed=True):
     """K2 and K3 against their plain versions on the card, each twice for
-    bit-identity, all timed; returns one record per kernel, named by
-    ``kernels`` (the wrappers that must have launched)."""
+    bit-identity, timed unless ``timed`` is false; returns one record per
+    kernel, named by ``kernels`` (the wrappers that must have launched)."""
     import torch
     import torch.nn.functional as F
 
@@ -393,6 +424,11 @@ def backward_case(smoke, name, B, Hq, Hkv, L, D, dtype_name, causal,
                 f"{name}: two runs of K2 give bit-identical dQ")
     smoke.check(torch.equal(dk, dk2) and torch.equal(dv, dv2),
                 f"{name}: two runs of K3 give bit-identical dK and dV")
+    if not timed:
+        return [{"name": kernel, "case": name, "shape": [B, Hq, Hkv, L, D],
+                 "dtype": dtype_name, "causal": causal, "max_abs_err": err}
+                for kernel, err in zip(kernels, (
+                    errs["dq"], max(errs["dk"], errs["dv"])))]
 
     def run_dq():
         return flash_bwd_dq(q, k, v, do, lse, delta, causal)
@@ -416,7 +452,7 @@ def backward_case(smoke, name, B, Hq, Hkv, L, D, dtype_name, causal,
     # under the profiler (the call's own host work between them aside);
     # the port never calls it
     qg, kg, vg = (t.detach().requires_grad_() for t in (q, k, v))
-    library_ms = library_device_ms = None
+    library_ms = library_device_ms = library_kernels = None
     try:
         out = F.scaled_dot_product_attention(qg, kg, vg, is_causal=causal,
                                              enable_gqa=Hq != Hkv)
@@ -429,6 +465,7 @@ def backward_case(smoke, name, B, Hq, Hkv, L, D, dtype_name, causal,
         profiled = profile_call(sdpa_backward, top=8)
         if isinstance(profiled, dict):
             library_device_ms = profiled["device_ms"]
+            library_kernels = [row["kernel"] for row in profiled["top"]]
     except (TypeError, RuntimeError) as exc:
         print(f"library call unavailable: {exc}")
 
@@ -456,6 +493,7 @@ def backward_case(smoke, name, B, Hq, Hkv, L, D, dtype_name, causal,
             "bound_by": "operations" if flop_ms >= byte_ms else "bytes",
             "library_ms": library_ms,
             "library_device_ms": library_device_ms,
+            "library_kernels": library_kernels,
             "flops": flops, "bytes": nbytes,
             "tflops": flops / (ms * 1e-3) / 1e12,
         })
@@ -1674,10 +1712,14 @@ def multiprocess_phase(smoke, gpu):
 # -- wide-heads path: LlamaLite training at head dims beyond the main path's
 
 # dim 1024 with 4 heads (D = 256) in bf16 (K1-K3's D = 256 builds, K3 in
-# two passes) and in fp32 (K1's SIMT build, the general K2/K3), and with 2
-# heads (D = 512, the general K1-K3) in bf16; depth 2, 2 Adam steps at
-# batch 2 of 256 tokens
+# two passes) and in fp32 (K1's SIMT build, the general SIMT K2/K3), and
+# with 2 heads (D = 512) in bf16 (the general tensor-core K1 and K3, the
+# general SIMT K2) and in fp32 (the general SIMT K1-K3); depth 2, 2 Adam
+# steps at batch 2 of 256 tokens
 WIDE_DEPTH, WIDE_STEPS, WIDE_BATCH, WIDE_LEN = 2, 2, 2, 256
+# B, Hq, Hkv, L, D of the kernel case that fills the card at D = 512: the
+# D = 256 case's shape at twice the head dim
+FULL_D512 = (2, 16, 4, 1024, 512)
 # (label, heads, compute dtype, K1's wrapper, K2's and K3's wrappers): the
 # wrappers each head dim routes to; each also runs as a kernel case at the
 # path's own B·H·L·D
@@ -1686,7 +1728,9 @@ WIDE_CASES = (
      ("flash_bwd_dq", "flash_bwd_dkv")),
     ("d256_fp32", 4, "float32", "flash_attention_fwd",
      ("flash_bwd_dq_general", "flash_bwd_dkv_general")),
-    ("d512_bf16", 2, "bfloat16", "flash_fwd_general",
+    ("d512_bf16", 2, "bfloat16", "flash_fwd_general_mma",
+     ("flash_bwd_dq_general", "flash_bwd_dkv_general_mma")),
+    ("d512_fp32", 2, "float32", "flash_fwd_general",
      ("flash_bwd_dq_general", "flash_bwd_dkv_general")),
 )
 
@@ -1736,9 +1780,8 @@ def wide_heads_phase(smoke, gpu):
         launched = {n: c for n, c in counts.items() if c}
         # K1 also runs where a block recomputes its forward
         ok = (set(launched) == set(want) and all(
-            launched[n] >= c if n in ("flash_attention_fwd",
-                                      "flash_fwd_general")
-            else launched[n] == c for n, c in want.items()))
+            launched[n] >= c if n in FWD_WRAPPERS else launched[n] == c
+            for n, c in want.items()))
         smoke.check(ok, f"wide heads {label} (D = {DIM // heads}): "
                     f"launches {launched}, expected {want}")
         losses = [e["loss"] for e in result.epoch_metrics]
@@ -2235,22 +2278,43 @@ def main() -> int:
     smoke.phase("kernel vs plain: flash_bwd d256", backward_case, smoke,
                 "flash_bwd_d256", 2, 16, 4, 1024, 256, "bfloat16", True,
                 2e-2)
-    # beyond every build: the general kernels (any D, any dtype)
+    # beyond every build: the general kernels, K1 and K3 on tensor cores in
+    # bf16/fp16 and SIMT in fp32, K2 SIMT in every dtype
     general = ("flash_bwd_dq_general", "flash_bwd_dkv_general")
-    for dtype_name, o_atol, lse_atol, rel in (
-            ("bfloat16", 2e-2, 1e-3, 2e-2), ("float32", 1e-4, 1e-4, 1e-4)):
+    general_mma = ("flash_bwd_dq_general", "flash_bwd_dkv_general_mma")
+    for dtype_name, o_atol, lse_atol, rel, fwd, bwd in (
+            ("bfloat16", 2e-2, 1e-3, 2e-2, "flash_fwd_general_mma",
+             general_mma),
+            ("float32", 1e-4, 1e-4, 1e-4, "flash_fwd_general", general)):
         tag = "bf16" if dtype_name == "bfloat16" else "fp32"
         smoke.phase(
             f"kernel vs plain: flash_fwd d512 {tag}", attention_case, smoke,
             f"flash_fwd_general_d512_{tag}", 1, 4, 4, 512, 512, dtype_name,
-            True, o_atol, lse_atol, "flash_fwd_general")
+            True, o_atol, lse_atol, fwd)
         smoke.phase(
             f"kernel vs plain: flash_bwd d512 {tag}", backward_case, smoke,
             f"flash_bwd_general_d512_{tag}", 1, 4, 4, 512, 512, dtype_name,
-            True, rel, general)
+            True, rel, bwd)
     smoke.phase("kernel vs plain: flash_bwd d256 fp32", backward_case, smoke,
                 "flash_bwd_general_d256_fp32", 2, 8, 2, 1024, 256, "float32",
                 True, 1e-4, general)
+    # the D = 256 case's shape at twice the head dim, which fills the card:
+    # the tensor-core general kernels beside the D = 256 builds
+    full_cases = (
+        smoke.phase("kernel vs plain: flash_fwd d512 full", attention_case,
+                    smoke, "flash_fwd_d512", *FULL_D512, "bfloat16", True,
+                    2e-2, 1e-3, "flash_fwd_general_mma"),
+        smoke.phase("kernel vs plain: flash_bwd d512 full", backward_case,
+                    smoke, "flash_bwd_d512", *FULL_D512, "bfloat16", True,
+                    2e-2, general_mma))
+    # correctness only, at an awkward shape: a narrower last chunk (D = 320
+    # pads to 320: chunks of 256 and 64), ragged L, GQA, fp16, not causal
+    smoke.phase("kernel vs plain: flash_fwd d320 fp16", attention_case,
+                smoke, "flash_fwd_d320_fp16", 2, 8, 2, 1000, 320, "float16",
+                False, 2e-3, 1e-3, "flash_fwd_general_mma", False)
+    smoke.phase("kernel vs plain: flash_bwd d320 fp16", backward_case,
+                smoke, "flash_bwd_d320_fp16", 2, 8, 2, 1000, 320, "float16",
+                False, 2e-3, general_mma, False)
     # the wide-heads path's own shapes: every wrapper it launches, held to
     # its twin where the path launches it (its rows in the kernels line)
     wide_cases = {}
@@ -2318,6 +2382,9 @@ def main() -> int:
     # the wide-heads path, a row per head dim and wrapper: its launches in
     # that case's run beside the case measured at the same B·H·L·D
     wide_by_case = (wide or {}).get("cases", {})
+    full_by_wrapper = {r["name"]: r for r in full_cases[1] or []}
+    if full_cases[0] is not None:
+        full_by_wrapper["flash_fwd_general_mma"] = full_cases[0]
     for label, _, _, fwd, bwd in WIDE_CASES:
         fwd_record, bwd_records = wide_cases[label]
         launched = wide_by_case.get(label, {}).get("launches", {})
@@ -2330,7 +2397,17 @@ def main() -> int:
                 continue
             by_path = {"wide_heads": launched.get(wrapper, 0)}
             name = ROW_NAMES.get(wrapper, wrapper) + "_" + label
-            rows.append((name, source, line, dict(record, wrapper=wrapper),
+            record = dict(record, wrapper=wrapper)
+            # the D = 512 bf16 wrappers also at the card-filling shape
+            full = full_by_wrapper.get(wrapper)
+            if label == "d512_bf16" and full is not None:
+                record["at_card_filling_shape"] = {
+                    key: full.get(key) for key in (
+                        "shape", "max_abs_err", "kernel_ms",
+                        "kernel_device_ms", "kernel_host_ms", "plain_ms",
+                        "bound_ms", "bound_by", "library_ms",
+                        "library_device_ms", "library_kernels", "tflops")}
+            rows.append((name, source, line, record,
                          sum(by_path.values()), by_path))
     kernels = []
     for name, source, line, record, launches, by_path in rows:
@@ -2346,10 +2423,13 @@ def main() -> int:
             "device_ms": record["kernel_device_ms"],
             "host_ms": record["kernel_host_ms"],
             "library_device_ms": record["library_device_ms"],
+            "library_kernels": record["library_kernels"],
             "shape": record["shape"], "dtype": record["dtype"],
         }
         if "wrapper" in record:
             entry["wrapper"] = record["wrapper"]
+        if "at_card_filling_shape" in record:
+            entry["at_card_filling_shape"] = record["at_card_filling_shape"]
         if "case" in record:  # K2/K3: SDPA's one backward call covers both
             entry["library_covers"] = "flash_bwd_dq+flash_bwd_dkv"
         if name == "flash_fwd" and train_case is None:
@@ -2359,8 +2439,8 @@ def main() -> int:
                 key: train_case[key] for key in (
                     "shape", "max_abs_err", "kernel_ms", "kernel_device_ms",
                     "kernel_host_ms", "plain_ms", "bound_ms", "bound_by",
-                    "library_ms", "library_device_ms", "tflops",
-                    "tflops_device")}
+                    "library_ms", "library_device_ms", "library_kernels",
+                    "tflops", "tflops_device")}
         kernels.append(entry)
         for path, count in by_path.items():
             if not count:

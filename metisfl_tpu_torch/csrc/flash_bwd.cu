@@ -62,9 +62,15 @@
 //     consumer warpgroups) and keeping a wgmma group in flight across the
 //     softmax; each step waits for its products before the next.
 //
-// Any other head dim (above 256, and above 128 in fp32, whose SIMT tiles
-// would need 274 KB of shared memory and more at D = 256): the general SIMT
-// kernels (flash_bwd_*_general_kernel, below), for any D and dtype.
+// Beyond the builds (above 256, and above 128 in fp32, whose SIMT tiles
+// would need 274 KB of shared memory and more at D = 256):
+//   - K3 in bf16/fp16: the general tensor-core kernel
+//     (flash_bwd_dkv_general_mma_kernel, below; the wrapper zero-pads D to
+//     a multiple of 64), which streams K, V, Q and dO through shared memory
+//     64 columns at a time and gives the grid an axis over 256-column
+//     chunks of the output and one over the two outputs;
+//   - K2 in any dtype and K3 in fp32: the general SIMT kernels
+//     (flash_bwd_*_general_kernel, below), for any D.
 //
 // fp32: the SIMT kernels (flash_bwd_*_simt_kernel), a deliberate choice by
 // dtype: TF32 tensor cores keep 10 bits of mantissa, which the fp32
@@ -82,6 +88,8 @@
 //   - Ragged L without padding: keys and queries at positions >= L are
 //     masked (P = 0, their lse is never read) and only rows < L are stored.
 //     The TPU path pads lse with a 1e30 sentinel instead.
+
+#include <climits>
 
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
@@ -496,6 +504,42 @@ flash_bwd_dq_mma_kernel(const T* __restrict__ q, const T* __restrict__ k,
     }
 }
 
+// K3's P^T and dS^T of one (64-row k tile, BQ-row q tile), from the S^T and
+// dP^T fragments (keys key_a and key_b as rows, queries q0.. as columns, in
+// wgmma's accumulator layout; lse and delta per column, from shared
+// memory): s becomes P = exp(scale s - lse) and dp becomes dS = P (dP -
+// delta) scale, masked on tiles that cross the diagonal or the end of the
+// sequence.
+template <int BQ>
+__device__ __forceinline__ void dkv_probs(float (&s)[BQ / 2],
+                                          float (&dp)[BQ / 2],
+                                          const float* tLse,
+                                          const float* tDelta, int q0, int k0,
+                                          int key_a, int key_b, int t, int L,
+                                          int causal, float scale,
+                                          float scale_log2) {
+  const bool edge = (causal && q0 < k0 + kTile) || q0 + BQ > L;
+#pragma unroll
+  for (int j = 0; j < BQ / 8; ++j) {
+    const int col = 8 * j + 2 * t;
+    const float2 ls = *reinterpret_cast<const float2*>(tLse + col);
+    const float2 dl = *reinterpret_cast<const float2*>(tDelta + col);
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int i = 4 * j + e;
+      const bool odd = e & 1;
+      float p = exp2f(s[i] * scale_log2 - (odd ? ls.y : ls.x) * kLog2e);
+      if (edge) {
+        const int q_pos = q0 + col + odd;
+        const int k_pos = e >= 2 ? key_b : key_a;
+        if (q_pos >= L || (causal && q_pos < k_pos)) p = 0.f;
+      }
+      dp[i] = p * (dp[i] - (odd ? dl.y : dl.x)) * scale;
+      s[i] = p;
+    }
+  }
+}
+
 // K3: dK and dV for one 64-row k tile of one (batch, KV head), summed over
 // the G query heads of its group. kParts picks the outputs: kDv, kDk or
 // both (at D = 256 one launch per output, see the note at the top).
@@ -610,28 +654,8 @@ flash_bwd_dkv_mma_kernel(const T* __restrict__ q, const T* __restrict__ k,
     sm90::fence_operands(s);
     sm90::fence_operands(dp);
 
-    // P^T and dS^T, masked on tiles that cross the diagonal or the end of
-    // the sequence; the columns are queries, so lse and delta are per column
-    const bool edge = (causal && q0 < k0 + kTile) || q0 + BQ > L;
-#pragma unroll
-    for (int j = 0; j < BQ / 8; ++j) {
-      const int col = 8 * j + 2 * t;
-      const float2 ls = *reinterpret_cast<const float2*>(tLse + col);
-      const float2 dl = *reinterpret_cast<const float2*>(tDelta + col);
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int i = 4 * j + e;
-        const bool odd = e & 1;
-        float p = exp2f(s[i] * scale_log2 - (odd ? ls.y : ls.x) * kLog2e);
-        if (edge) {
-          const int q_pos = q0 + col + odd;
-          const int k_pos = e >= 2 ? key_b : key_a;
-          if (q_pos >= L || (causal && q_pos < k_pos)) p = 0.f;
-        }
-        dp[i] = p * (dp[i] - (odd ? dl.y : dl.x)) * scale;
-        s[i] = p;
-      }
-    }
+    dkv_probs<BQ>(s, dp, tLse, tDelta, q0, k0, key_a, key_b, t, L, causal,
+                  scale, scale_log2);
 
     // dV += P^T dO and dK += dS^T Q, P and dS rounded to the input dtype
     // from registers; dO and Q read MN-major ([query][d], the reduction
@@ -693,19 +717,266 @@ flash_bwd_dkv_mma_kernel(const T* __restrict__ q, const T* __restrict__ k,
 }
 
 // ---------------------------------------------------------------------------
-// any head dim, any dtype: SIMT kernels (flash_bwd_*_general_kernel)
+// bf16 / fp16 beyond the builds: the dK/dV tensor-core kernel
+// (flash_bwd_dkv_general_mma_kernel), for any D that is a multiple of 64
+// (the wrapper zero-pads to one, as it pads to the builds)
+//
+// It starts from the two-pass design at D = 256, where one launch makes dV
+// and another dK, each holding 128 fp32 of one output a thread. At D = 512
+// the resident K and V tiles alone (128 KB) and dK's or dV's 512 columns
+// (256 fp32 a thread) do not fit. So:
+//   - The grid is (64-row k tile, pass, 256-column chunk of the output,
+//     b * Hkv) in one launch, tile-major with the first (longest causal)
+//     k tiles first: the dV pass makes dV[:, c0:c0 + 256] and the dK pass
+//     dK[:, c0:c0 + 256] of one k tile, each in 128 fp32 registers a
+//     thread, over the G query heads of the group and their 32-row q tiles
+//     (kGenBq, as K3 at D = 128 and 256).
+//   - S^T = K Q^T (and in the dK pass dP^T = V dO^T) reduce over the full D
+//     on wgmma (m64n32k16, every operand K-major), one 64-column block of
+//     K, Q (V, dO) at a time through a ring of kRing stages filled by
+//     cp.async with the runtime row stride D. Every q tile is nb = D / 64
+//     such steps and one more, which forms P^T and dS^T (dkv_probs, as the
+//     tuned kernel) and does dV[:, chunk] += P^T dO[:, chunk] or
+//     dK[:, chunk] += dS^T Q[:, chunk], with dO's or Q's chunk (and the q
+//     tile's lse and delta) loaded for that step and read MN-major. One
+//     cp.async group per step, started kAhead steps ahead; 88 KB of shared
+//     memory at any D.
+//   - Work: per chunk, S^T twice (once in each pass) and dP^T once, and each
+//     output once: 6 D ceil(D / 256) + 4 D operations a (q, k) pair, 16 D at
+//     D = 512 against the ideal 8 D. Bound at B2 Hq16 Hkv4 L1024 D512
+//     causal: 8 D a pair is 68.8 GFLOP, 0.0696 ms at 989 TFLOP/s.
+//   - Each output column is written once, by one block, summed in a fixed
+//     order: no atomics, the same bits on every run.
+
+constexpr int kMmaChunk = 256;  // output columns a block accumulates
+constexpr int kBlock = 64;      // columns of a streamed block
+constexpr int kGenBq = 32;      // q rows of a step
+constexpr int kAhead = 2;       // steps a load is started ahead of its use
+constexpr int kRing = kAhead + 1;  // stages of the K/V/Q/dO block ring
+// one ring stage: a K and a V block (kTile x 64), a Q and a dO block
+// (kGenBq x 64)
+constexpr int kGenStage = 2 * kTile * kBlock + 2 * kGenBq * kBlock;
+
+constexpr size_t dkv_general_mma_smem_bytes() {
+  // the ring, dO's or Q's chunk (16-bit values), one q tile's lse and delta
+  return 2 * (size_t)(kRing * kGenStage + kGenBq * kMmaChunk) +
+         4 * (size_t)(2 * kGenBq);
+}
+
+// one block of the kernel below; kDkPass picks the output (dK, else dV), so
+// that each pass's wgmma sequence compiles without a branch inside it
+template <typename T, bool kDkPass>
+__device__ __forceinline__ void dkv_general_mma_block(
+    const T* __restrict__ q, const T* __restrict__ k,
+    const T* __restrict__ v, const T* __restrict__ dout,
+    const float* __restrict__ lse, const float* __restrict__ delta,
+    T* __restrict__ out_all, int Hq, int Hkv, int L, int D, float scale,
+    int causal) {
+  constexpr int BQ = kGenBq;
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  // kRing stages, each a K, a V, a Q and a dO block (swizzled)
+  T* sRing = reinterpret_cast<T*>(smem_raw);
+  T* sC = sRing + kRing * kGenStage;  // dO's (dV pass) or Q's (dK) chunk
+  float* sLse = reinterpret_cast<float*>(sC + BQ * kMmaChunk);  // BQ
+  float* sDelta = sLse + BQ;                                    // BQ
+
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const int nk = (L + kTile - 1) / kTile;
+  const int nb = D / kBlock;  // the blocks S^T and dP^T reduce over
+  const int chunks = (D + kMmaChunk - 1) / kMmaChunk;
+  const int heads = gridDim.x / (nk * 2 * chunks);  // B * Hkv
+  const int bkv = blockIdx.x % heads;
+  const int chunk = blockIdx.x / heads % chunks;
+  // causal: the first k tile is seen by every q tile, so it goes first
+  const int k0 = blockIdx.x / (heads * chunks * 2) * kTile;
+  const int c0 = chunk * kMmaChunk;
+  const int nc = min(kMmaChunk, D - c0) / kBlock;  // this chunk's blocks
+  const int b = bkv / Hkv;
+  const int G = Hq / Hkv;
+  const int bh0 = b * Hq + (bkv - b * Hkv) * G;  // the group's first q head
+  const T* kb = k + (size_t)bkv * L * D;
+  const T* vb = v + (size_t)bkv * L * D;
+
+  // q tiles: member-major, as the TPU kernel's grid; per q tile, nb steps
+  // accumulate S^T (and dP^T) and one makes P^T, dS^T and the product
+  const int nq = (L + BQ - 1) / BQ;
+  const int q_first = causal ? k0 / BQ : 0;
+  const int per_head = nq - q_first;
+  const int per = nb + 1;
+  const int n_steps = G * per_head * per;
+
+  // one step's loads as one cp.async group (empty past the last step). A
+  // ring stage is refilled kRing block steps after its last use; the chunk,
+  // lse and delta at least one step after the product that read them
+  // (nb >= kAhead)
+  auto load_step = [&](int step) {
+    if (step < n_steps) {
+      const int it = step / per, blk = step - it * per;
+      const int bh = bh0 + it / per_head;
+      const int q0 = (q_first + it % per_head) * BQ;
+      if (blk < nb) {
+        T* stage = sRing + (it * nb + blk) % kRing * kGenStage;
+        const int col = kBlock * blk;
+        sm90::load_block_async<T, kTile, kMmaThreads>(stage, kb, k0, L, D,
+                                                      col);
+        sm90::load_block_async<T, BQ, kMmaThreads>(
+            stage + 2 * kTile * kBlock, q + (size_t)bh * L * D, q0, L, D,
+            col);
+        if constexpr (kDkPass) {
+          sm90::load_block_async<T, kTile, kMmaThreads>(
+              stage + kTile * kBlock, vb, k0, L, D, col);
+          sm90::load_block_async<T, BQ, kMmaThreads>(
+              stage + 2 * kTile * kBlock + BQ * kBlock,
+              dout + (size_t)bh * L * D, q0, L, D, col);
+        }
+      } else {
+        const T* src = (kDkPass ? q : dout) + (size_t)bh * L * D;
+        for (int c = 0; c < nc; ++c)
+          sm90::load_block_async<T, BQ, kMmaThreads>(
+              sC + c * BQ * kBlock, src, q0, L, D, c0 + kBlock * c);
+        if (threadIdx.x < BQ) {
+          const int i = threadIdx.x, gq = q0 + i;
+          const size_t at = (size_t)bh * L + (gq < L ? gq : 0);
+          sm90::cp_async_4(sLse + i, lse + at, gq < L ? 4 : 0);
+          sm90::cp_async_4(sDelta + i, delta + at, gq < L ? 4 : 0);
+        }
+      }
+    }
+    sm90::cp_async_commit();
+  };
+  for (int step = 0; step < kAhead; ++step) load_step(step);
+
+  // this thread's two key rows of the warp's 16: g and g + 8
+  const int key_a = k0 + warp * 16 + g, key_b = key_a + 8;
+  const float scale_log2 = scale * kLog2e;
+  const uint32_t c_smem = sm90::smem_addr(sC);
+
+  float acc[kMmaChunk / kBlock][32], s[BQ / 2], dp[BQ / 2];
+#pragma unroll
+  for (int i = 0; i < 32; ++i)
+#pragma unroll
+    for (int c = 0; c < kMmaChunk / kBlock; ++c) acc[c][i] = 0.f;
+#pragma unroll
+  for (int i = 0; i < BQ / 2; ++i) s[i] = dp[i] = 0.f;
+
+  for (int step = 0; step < n_steps; ++step) {
+    sm90::cp_async_wait<kAhead - 1>();  // this step's group has landed
+    sm90::fence_proxy_async();
+    __syncthreads();  // for every thread; all are done with the last step
+    load_step(step + kAhead);
+    const int it = step / per, blk = step - it * per;
+    if (blk < nb) {
+      // S^T (+)= K Q^T and, in the dK pass, dP^T (+)= V dO^T over this
+      // block's 64 columns
+      const uint32_t k_smem =
+          sm90::smem_addr(sRing + (it * nb + blk) % kRing * kGenStage);
+      const uint32_t v_smem = k_smem + kTile * kBlock * (uint32_t)sizeof(T);
+      const uint32_t q_smem = v_smem + kTile * kBlock * (uint32_t)sizeof(T);
+      const uint32_t do_smem = q_smem + BQ * kBlock * (uint32_t)sizeof(T);
+      sm90::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < kBlock / 16; ++kk)
+        sm90::wgmma_ss<T, BQ>(s, sm90::desc_k_major<kTile>(k_smem, kk),
+                              sm90::desc_k_major<BQ>(q_smem, kk),
+                              blk > 0 || kk > 0);
+      if constexpr (kDkPass) {
+#pragma unroll
+        for (int kk = 0; kk < kBlock / 16; ++kk)
+          sm90::wgmma_ss<T, BQ>(dp, sm90::desc_k_major<kTile>(v_smem, kk),
+                                sm90::desc_k_major<BQ>(do_smem, kk),
+                                blk > 0 || kk > 0);
+      }
+      sm90::wgmma_commit();
+      sm90::wgmma_wait<0>();
+      sm90::fence_operands(s);
+      sm90::fence_operands(dp);
+      continue;
+    }
+
+    const int q0 = (q_first + it % per_head) * BQ;
+    dkv_probs<BQ>(s, dp, sLse, sDelta, q0, k0, key_a, key_b, t, L, causal,
+                  scale, scale_log2);
+    // dV[:, chunk] += P^T dO[:, chunk] or dK[:, chunk] += dS^T Q[:, chunk],
+    // P or dS rounded to the input dtype from registers; the chunk read
+    // MN-major ([query][d], the reduction runs over query rows)
+    uint32_t a[BQ / 16][4];
+#pragma unroll
+    for (int kk = 0; kk < BQ / 16; ++kk) {
+      if constexpr (kDkPass)
+        sm90::acc_to_a<T>(a[kk], dp + 8 * kk);
+      else
+        sm90::acc_to_a<T>(a[kk], s + 8 * kk);
+    }
+    sm90::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < BQ / 16; ++kk)
+#pragma unroll
+      for (int c = 0; c < kMmaChunk / kBlock; ++c)
+        if (c < nc)
+          sm90::wgmma_rs_mn<T>(acc[c], a[kk],
+                               sm90::desc_mn_major<BQ>(c_smem, 16 * kk, c));
+    sm90::wgmma_commit();
+    sm90::wgmma_wait<0>();
+#pragma unroll
+    for (int c = 0; c < kMmaChunk / kBlock; ++c)
+      sm90::fence_operands(acc[c]);
+  }
+
+  T* out = out_all + (size_t)bkv * L * D;
+#pragma unroll
+  for (int c = 0; c < kMmaChunk / kBlock; ++c) {
+    if (c >= nc) break;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const int col = c0 + kBlock * c + 8 * j + 2 * t;
+      if (key_a < L)
+        *reinterpret_cast<uint32_t*>(out + (size_t)key_a * D + col) =
+            sm90::pack2<T>(acc[c][4 * j], acc[c][4 * j + 1]);
+      if (key_b < L)
+        *reinterpret_cast<uint32_t*>(out + (size_t)key_b * D + col) =
+            sm90::pack2<T>(acc[c][4 * j + 2], acc[c][4 * j + 3]);
+    }
+  }
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kMmaThreads)
+flash_bwd_dkv_general_mma_kernel(const T* __restrict__ q,
+                                 const T* __restrict__ k,
+                                 const T* __restrict__ v,
+                                 const T* __restrict__ dout,
+                                 const float* __restrict__ lse,
+                                 const float* __restrict__ delta,
+                                 T* __restrict__ dk, T* __restrict__ dv,
+                                 int Hq, int Hkv, int L, int D, float scale,
+                                 int causal) {
+  // the pass: blocks [heads * chunks, 2 heads * chunks) of each k tile
+  const int chunks = (D + kMmaChunk - 1) / kMmaChunk;
+  const int heads = gridDim.x / ((L + kTile - 1) / kTile * 2 * chunks);
+  if (blockIdx.x / (heads * chunks) % 2)
+    dkv_general_mma_block<T, true>(q, k, v, dout, lse, delta, dk, Hq, Hkv,
+                                   L, D, scale, causal);
+  else
+    dkv_general_mma_block<T, false>(q, k, v, dout, lse, delta, dv, Hq, Hkv,
+                                    L, D, scale, causal);
+}
+
+// ---------------------------------------------------------------------------
+// beyond the builds: SIMT kernels (flash_bwd_*_general_kernel), K2 in any
+// dtype, K3 in fp32
 //
 // One block of 256 threads per (64-row tile, b * H, 64-column chunk of the
 // output's D): four threads own one row, as in the fp32 SIMT kernels. Each
 // block recomputes its tile's S and dP over the full D, 64 columns at a
 // time through shared memory (every operand converted to fp32 as it is
 // staged), then accumulates only its own output chunk. The chunks of one
-// tile repeat the same S and dP, bit for bit. dS (K2, K3) and P (K3) are
-// rounded to the input dtype before their products, as the TPU kernels
-// cast them. Bound: the tuned kernels' work (6 D and 8 D operations a
-// pair); at B1 Hq4 L512 D512 causal the bytes they must move bind them
-// (about 3 us each). The recompute of S and dP per output chunk at SIMT
-// rates makes them right for any D, not fast.
+// tile repeat the same S and dP, bit for bit. K2 rounds dS to the input
+// dtype before dS K, as the TPU kernel casts it. Bound: the tuned kernels'
+// work (6 D and 8 D operations a pair); at B1 Hq4 L512 D512 causal the
+// bytes they must move bind them in bf16 (about 3 us each), the operations
+// at SIMT's 67 TFLOP/s in fp32 (0.024 and 0.032 ms). The recompute of S and
+// dP per output chunk at SIMT rates makes them right for any D, not fast.
 
 constexpr int kChunk = simt::kChunk;
 constexpr int kChunkTile = kTile * (kChunk + 1);  // floats of one tile
@@ -820,18 +1091,18 @@ flash_bwd_dq_general_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
-// K3 at any D: dK and dV columns [d0, d0 + kChunk) of one 64-row k tile of
-// one (batch, KV head), summed over the G query heads of its group.
-template <typename T>
+// K3 in fp32 at any D: dK and dV columns [d0, d0 + kChunk) of one 64-row k
+// tile of one (batch, KV head), summed over the G query heads of its group.
 __global__ void __launch_bounds__(kThreads)
-flash_bwd_dkv_general_kernel(const T* __restrict__ q,
-                             const T* __restrict__ k,
-                             const T* __restrict__ v,
-                             const T* __restrict__ dout,
+flash_bwd_dkv_general_kernel(const float* __restrict__ q,
+                             const float* __restrict__ k,
+                             const float* __restrict__ v,
+                             const float* __restrict__ dout,
                              const float* __restrict__ lse,
                              const float* __restrict__ delta,
-                             T* __restrict__ dk, T* __restrict__ dv, int Hq,
-                             int Hkv, int L, int D, float scale, int causal) {
+                             float* __restrict__ dk, float* __restrict__ dv,
+                             int Hq, int Hkv, int L, int D, float scale,
+                             int causal) {
   extern __shared__ float smem[];
   float* sK = smem;
   float* sV = sK + kChunkTile;
@@ -853,8 +1124,8 @@ flash_bwd_dkv_general_kernel(const T* __restrict__ q,
   const int d0 = blockIdx.z * kChunk;
   const int k_pos = k0 + row;
   const bool row_in = k_pos < L;
-  const T* kb = k + (size_t)bkv * L * D;
-  const T* vb = v + (size_t)bkv * L * D;
+  const float* kb = k + (size_t)bkv * L * D;
+  const float* vb = v + (size_t)bkv * L * D;
 
   float acc_k[kChunk / 4], acc_v[kChunk / 4];
 #pragma unroll
@@ -863,8 +1134,8 @@ flash_bwd_dkv_general_kernel(const T* __restrict__ q,
   const int q_begin = causal ? k0 : 0;
   for (int g = 0; g < G; ++g) {
     const int bh = b * Hq + hkv * G + g;
-    const T* qb = q + (size_t)bh * L * D;
-    const T* dob = dout + (size_t)bh * L * D;
+    const float* qb = q + (size_t)bh * L * D;
+    const float* dob = dout + (size_t)bh * L * D;
     const float* lseb = lse + (size_t)bh * L;
     const float* deltab = delta + (size_t)bh * L;
     for (int q0 = q_begin; q0 < L; q0 += kTile) {
@@ -873,10 +1144,10 @@ flash_bwd_dkv_general_kernel(const T* __restrict__ q,
       for (int j = 0; j < kCols; ++j) s[j] = dp[j] = 0.f;
       for (int c0 = 0; c0 < D; c0 += kChunk) {
         __syncthreads();  // the previous step is done with the tiles
-        simt::load_chunk<T, kTile, kThreads>(sK, kb, k0, L, c0, D);
-        simt::load_chunk<T, kTile, kThreads>(sV, vb, k0, L, c0, D);
-        simt::load_chunk<T, kTile, kThreads>(sQ, qb, q0, L, c0, D);
-        simt::load_chunk<T, kTile, kThreads>(sDO, dob, q0, L, c0, D);
+        simt::load_chunk<float, kTile, kThreads>(sK, kb, k0, L, c0, D);
+        simt::load_chunk<float, kTile, kThreads>(sV, vb, k0, L, c0, D);
+        simt::load_chunk<float, kTile, kThreads>(sQ, qb, q0, L, c0, D);
+        simt::load_chunk<float, kTile, kThreads>(sDO, dob, q0, L, c0, D);
         if (c0 == 0 && tid < kTile) {
           const int gq = q0 + tid;
           sLse[tid] = gq < L ? lseb[gq] : 0.f;
@@ -903,13 +1174,12 @@ flash_bwd_dkv_general_kernel(const T* __restrict__ q,
         const int q_pos = q0 + c;
         const bool ok = row_in && q_pos < L && (!causal || q_pos >= k_pos);
         const float p = ok ? expf(s[j] * scale - sLse[c]) : 0.f;
-        sP[row * (kTile + 1) + c] = simt::round_to<T>(p);
-        sDS[row * (kTile + 1) + c] =
-            simt::round_to<T>(p * (dp[j] - sDelta[c]) * scale);
+        sP[row * (kTile + 1) + c] = p;
+        sDS[row * (kTile + 1) + c] = p * (dp[j] - sDelta[c]) * scale;
       }
       __syncthreads();  // everyone is done with sQ, sDO before the chunk
-      simt::load_chunk<T, kTile, kThreads>(sQ, qb, q0, L, d0, D);
-      simt::load_chunk<T, kTile, kThreads>(sDO, dob, q0, L, d0, D);
+      simt::load_chunk<float, kTile, kThreads>(sQ, qb, q0, L, d0, D);
+      simt::load_chunk<float, kTile, kThreads>(sDO, dob, q0, L, d0, D);
       __syncthreads();
 
       const float* prow = sP + row * (kTile + 1);
@@ -935,8 +1205,8 @@ flash_bwd_dkv_general_kernel(const T* __restrict__ q,
     for (int j = 0; j < kChunk / 4; ++j) {
       const int col = d0 + sub + 4 * j;
       if (col < D) {
-        dk[at + col] = simt::from_f<T>(acc_k[j]);
-        dv[at + col] = simt::from_f<T>(acc_v[j]);
+        dk[at + col] = acc_k[j];
+        dv[at + col] = acc_v[j];
       }
     }
   }
@@ -1056,40 +1326,65 @@ int dispatch(const Args& a, int D, int dtype, bool dq, int parts) {
 }
 
 template <typename T>
-int launch_general(const Args& a, int D, bool dq) {
+int launch_dq_general(const Args& a, int D) {
   const int tiles = (a.L + kTile - 1) / kTile;
   const int chunks = (D + kChunk - 1) / kChunk;
-  if (dq) {
-    const size_t smem = dq_general_smem_bytes();
-    if (int err = prepare(flash_bwd_dq_general_kernel<T>, smem)) return err;
-    flash_bwd_dq_general_kernel<T>
-        <<<dim3(tiles, a.B * a.Hq, chunks), kThreads, smem, a.stream>>>(
-            static_cast<const T*>(a.q), static_cast<const T*>(a.k),
-            static_cast<const T*>(a.v), static_cast<const T*>(a.dout), a.lse,
-            a.delta, static_cast<T*>(a.out0), a.Hq, a.Hkv, a.L, D, a.scale,
-            a.causal);
-  } else {
-    const size_t smem = dkv_general_smem_bytes();
-    if (int err = prepare(flash_bwd_dkv_general_kernel<T>, smem)) return err;
-    flash_bwd_dkv_general_kernel<T>
-        <<<dim3(tiles, a.B * a.Hkv, chunks), kThreads, smem, a.stream>>>(
-            static_cast<const T*>(a.q), static_cast<const T*>(a.k),
-            static_cast<const T*>(a.v), static_cast<const T*>(a.dout), a.lse,
-            a.delta, static_cast<T*>(a.out0), static_cast<T*>(a.out1), a.Hq,
-            a.Hkv, a.L, D, a.scale, a.causal);
-  }
+  const size_t smem = dq_general_smem_bytes();
+  if (int err = prepare(flash_bwd_dq_general_kernel<T>, smem)) return err;
+  flash_bwd_dq_general_kernel<T>
+      <<<dim3(tiles, a.B * a.Hq, chunks), kThreads, smem, a.stream>>>(
+          static_cast<const T*>(a.q), static_cast<const T*>(a.k),
+          static_cast<const T*>(a.v), static_cast<const T*>(a.dout), a.lse,
+          a.delta, static_cast<T*>(a.out0), a.Hq, a.Hkv, a.L, D, a.scale,
+          a.causal);
   return (int)cudaGetLastError();
 }
 
+int launch_dkv_general(const Args& a, int D) {
+  const int tiles = (a.L + kTile - 1) / kTile;
+  const int chunks = (D + kChunk - 1) / kChunk;
+  const size_t smem = dkv_general_smem_bytes();
+  if (int err = prepare(flash_bwd_dkv_general_kernel, smem)) return err;
+  flash_bwd_dkv_general_kernel<<<dim3(tiles, a.B * a.Hkv, chunks), kThreads,
+                                 smem, a.stream>>>(
+      static_cast<const float*>(a.q), static_cast<const float*>(a.k),
+      static_cast<const float*>(a.v), static_cast<const float*>(a.dout),
+      a.lse, a.delta, static_cast<float*>(a.out0),
+      static_cast<float*>(a.out1), a.Hq, a.Hkv, a.L, D, a.scale, a.causal);
+  return (int)cudaGetLastError();
+}
+
+// dtype: 0 = float32, 1 = float16, 2 = bfloat16 for K2; float32 alone for
+// K3 (bf16/fp16 K3 beyond the builds runs on tensor cores)
 int dispatch_general(const Args& a, int D, int dtype, bool dq) {
   if (a.B < 1 || a.Hkv < 1 || a.Hq % a.Hkv != 0 || a.L < 1 || D < 1)
     return -1;
+  if (!dq) return dtype == 0 ? launch_dkv_general(a, D) : -1;
   switch (dtype) {
-    case 0: return launch_general<float>(a, D, dq);
-    case 1: return launch_general<__half>(a, D, dq);
-    case 2: return launch_general<__nv_bfloat16>(a, D, dq);
+    case 0: return launch_dq_general<float>(a, D);
+    case 1: return launch_dq_general<__half>(a, D);
+    case 2: return launch_dq_general<__nv_bfloat16>(a, D);
     default: return -1;
   }
+}
+
+// one block per (k tile, pass, chunk, KV head): tile-major, so the tile
+// rank is the slow index
+template <typename T>
+int launch_dkv_general_mma(const Args& a, int D) {
+  const size_t smem = dkv_general_mma_smem_bytes();
+  if (int err = prepare(flash_bwd_dkv_general_mma_kernel<T>, smem))
+    return err;
+  const long long grid = (long long)((a.L + kTile - 1) / kTile) * 2 *
+                         ((D + kMmaChunk - 1) / kMmaChunk) * a.B * a.Hkv;
+  if (grid > INT_MAX) return -1;
+  flash_bwd_dkv_general_mma_kernel<T>
+      <<<(int)grid, kMmaThreads, smem, a.stream>>>(
+          static_cast<const T*>(a.q), static_cast<const T*>(a.k),
+          static_cast<const T*>(a.v), static_cast<const T*>(a.dout), a.lse,
+          a.delta, static_cast<T*>(a.out0), static_cast<T*>(a.out1), a.Hq,
+          a.Hkv, a.L, D, a.scale, a.causal);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -1125,9 +1420,9 @@ int metisfl_flash_bwd_dkv(const void* q, const void* k, const void* v,
   return dispatch(a, D, dtype, false, parts);
 }
 
-// K2 and K3 at any head dim D >= 1 and any dtype (SIMT, one block per
-// 64-column chunk of the output), with K2's and K3's arguments; no
-// alignment is needed.
+// K2 at any head dim D >= 1 in any dtype, and K3 at any D in fp32 (SIMT,
+// one block per 64-column chunk of the output), with K2's and K3's
+// arguments; no alignment is needed.
 int metisfl_flash_bwd_dq_general(const void* q, const void* k, const void* v,
                                  const void* dout, const void* lse,
                                  const void* delta, void* dq, int B, int Hq,
@@ -1149,6 +1444,31 @@ int metisfl_flash_bwd_dkv_general(const void* q, const void* k,
                static_cast<const float*>(delta), dk, dv, B, Hq, Hkv, L,
                scale, causal, static_cast<cudaStream_t>(stream)};
   return dispatch_general(a, D, dtype, false);
+}
+
+// K3 on tensor cores in bf16 (dtype 2) or fp16 (1) at any head dim D that
+// is a multiple of 64 and at least 128 (the wrapper zero-pads to one), with
+// K3's arguments: one launch makes dV and dK, one block per (64-row k
+// tile, output, 256-column chunk, b * Hkv); the (B, H, L, D) tensors
+// contiguous and 16-byte aligned.
+int metisfl_flash_bwd_dkv_general_mma(const void* q, const void* k,
+                                      const void* v, const void* dout,
+                                      const void* lse, const void* delta,
+                                      void* dk, void* dv, int B, int Hq,
+                                      int Hkv, int L, int D, int dtype,
+                                      int causal, float scale,
+                                      void* stream) {
+  if (B < 1 || Hkv < 1 || Hq % Hkv != 0 || L < 1 || D % kBlock != 0 ||
+      D / kBlock < kAhead)
+    return -1;
+  const Args a{q, k, v, dout, static_cast<const float*>(lse),
+               static_cast<const float*>(delta), dk, dv, B, Hq, Hkv, L,
+               scale, causal, static_cast<cudaStream_t>(stream)};
+  switch (dtype) {
+    case 1: return launch_dkv_general_mma<__half>(a, D);
+    case 2: return launch_dkv_general_mma<__nv_bfloat16>(a, D);
+    default: return -1;
+  }
 }
 
 const char* metisfl_bwd_error_string(int err) {

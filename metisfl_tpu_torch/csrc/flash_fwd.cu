@@ -48,7 +48,9 @@
 //     K/V tiles): shared memory holds Q and two K/V stages in 40, 80 and
 //     160 KB (the SIMT kernel's fp32 tiles 52, 104 and 209 KB), under the
 //     227 KB a block may use. The wrapper pads any other D up to 256 to
-//     one of them; a larger D goes to the general kernel (below).
+//     one of them; a larger D goes to the general tensor-core kernel
+//     (flash_fwd_general_mma_kernel, below), whose Q and K stream through
+//     shared memory 64 columns at a time, so that no D is too large.
 //   - Causal work is uneven (the last q tile walks every K tile), so the
 //     1-D grid hands out the longest tiles first. No atomics: the same bits
 //     on every run.
@@ -64,7 +66,10 @@
 // query row, each computing 16 of a K tile's 64 scores and D/4 of the
 // output columns, with the row's max and sum reduced over the four lanes by
 // shuffles. Q, K and V are staged in shared memory with rows padded to
-// D + 1 floats.
+// D + 1 floats. Beyond the fp32 builds (D > 256) the general SIMT kernel
+// (flash_fwd_general_kernel) takes any D.
+
+#include <climits>
 
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
@@ -208,6 +213,85 @@ flash_fwd_simt_kernel(const float* __restrict__ q,
 
 constexpr int kMmaThreads = 128;  // one warpgroup; a warp owns 16 tile rows
 
+// One K tile's step of the online softmax on the S fragment of a 64-row q
+// tile: this thread's parts of rows row_a and row_b against keys k0..k0 +
+// 63, in wgmma's accumulator layout (sm90.cuh). The scores are scaled into
+// base 2 and masked on tiles that cross the diagonal or the end of the
+// sequence; the tile's row max reduces over the row's 4 lanes. s becomes
+// P = exp2(x - m), 0 where masked; m and this thread's part of l (the
+// unrounded P) advance; alpha_a and alpha_b are the factors that rescale O.
+__device__ __forceinline__ void softmax_step(float (&s)[32], int q0, int k0,
+                                             int row_a, int row_b, int t,
+                                             int L, int causal,
+                                             float scale_log2, float& m_a,
+                                             float& m_b, float& l_a,
+                                             float& l_b, float& alpha_a,
+                                             float& alpha_b) {
+  const bool edge = (causal && k0 + kTile > q0) || k0 + kTile > L;
+  float mx_a = kNeg, mx_b = kNeg;
+#pragma unroll
+  for (int i = 0; i < 32; ++i) {
+    const bool hi = i & 2;
+    float x = s[i] * scale_log2;
+    if (edge) {
+      const int k_pos = k0 + 8 * (i >> 2) + 2 * t + (i & 1);
+      if (k_pos >= L || (causal && k_pos > (hi ? row_b : row_a))) x = kNeg;
+    }
+    s[i] = x;
+    if (hi)
+      mx_b = fmaxf(mx_b, x);
+    else
+      mx_a = fmaxf(mx_a, x);
+  }
+#pragma unroll
+  for (int lanes = 1; lanes <= 2; lanes <<= 1) {
+    mx_a = fmaxf(mx_a, __shfl_xor_sync(0xffffffffu, mx_a, lanes));
+    mx_b = fmaxf(mx_b, __shfl_xor_sync(0xffffffffu, mx_b, lanes));
+  }
+  const float next_a = fmaxf(m_a, mx_a), next_b = fmaxf(m_b, mx_b);
+  alpha_a = exp2f(m_a - next_a);
+  alpha_b = exp2f(m_b - next_b);
+  m_a = next_a;
+  m_b = next_b;
+
+  float sum_a = 0.f, sum_b = 0.f;
+#pragma unroll
+  for (int i = 0; i < 32; ++i) {
+    const bool hi = i & 2;
+    float p = exp2f(s[i] - (hi ? m_b : m_a));
+    if (edge && s[i] <= kNeg) p = 0.f;
+    s[i] = p;
+    if (hi)
+      sum_b += p;
+    else
+      sum_a += p;
+  }
+  l_a = alpha_a * l_a + sum_a;
+  l_b = alpha_b * l_b + sum_b;
+}
+
+// after the last K tile: l summed over the row's 4 lanes, and 1 / l (0 for a
+// row with no unmasked key, l == 0, which stores 0, not nan)
+__device__ __forceinline__ void finish_rows(float& l_a, float& l_b,
+                                            float& inv_a, float& inv_b) {
+#pragma unroll
+  for (int lanes = 1; lanes <= 2; lanes <<= 1) {
+    l_a += __shfl_xor_sync(0xffffffffu, l_a, lanes);
+    l_b += __shfl_xor_sync(0xffffffffu, l_b, lanes);
+  }
+  inv_a = l_a == 0.f ? 0.f : 1.f / l_a;
+  inv_b = l_b == 0.f ? 0.f : 1.f / l_b;
+}
+
+// lse = m ln 2 + log l of rows row_a and row_b, from one lane of the four
+__device__ __forceinline__ void store_lse(float* lse_bh, int row_a, int row_b,
+                                          int L, int t, float m_a, float m_b,
+                                          float l_a, float l_b) {
+  if (t != 0) return;
+  if (row_a < L) lse_bh[row_a] = m_a * kLn2 + logf(fmaxf(l_a, 1e-30f));
+  if (row_b < L) lse_bh[row_b] = m_b * kLn2 + logf(fmaxf(l_b, 1e-30f));
+}
+
 template <int D>
 constexpr size_t mma_smem_bytes() {
   // the resident Q tile, two stages of K and V tiles (16-bit values)
@@ -289,49 +373,9 @@ flash_fwd_mma_kernel(const T* __restrict__ q, const T* __restrict__ k,
     sm90::wgmma_wait<0>();
     sm90::fence_operands(s);
 
-    // scaled scores in base 2, masked on tiles that cross the diagonal or
-    // the end of the sequence; the tile's row max over the row's 4 lanes
-    const bool edge = (causal && k0 + kTile > q0) || k0 + kTile > L;
-    float mx_a = kNeg, mx_b = kNeg;
-#pragma unroll
-    for (int i = 0; i < 32; ++i) {
-      const bool hi = i & 2;
-      float x = s[i] * scale_log2;
-      if (edge) {
-        const int k_pos = k0 + 8 * (i >> 2) + 2 * t + (i & 1);
-        if (k_pos >= L || (causal && k_pos > (hi ? row_b : row_a))) x = kNeg;
-      }
-      s[i] = x;
-      if (hi)
-        mx_b = fmaxf(mx_b, x);
-      else
-        mx_a = fmaxf(mx_a, x);
-    }
-#pragma unroll
-    for (int lanes = 1; lanes <= 2; lanes <<= 1) {
-      mx_a = fmaxf(mx_a, __shfl_xor_sync(0xffffffffu, mx_a, lanes));
-      mx_b = fmaxf(mx_b, __shfl_xor_sync(0xffffffffu, mx_b, lanes));
-    }
-    const float next_a = fmaxf(m_a, mx_a), next_b = fmaxf(m_b, mx_b);
-    const float alpha_a = exp2f(m_a - next_a), alpha_b = exp2f(m_b - next_b);
-    m_a = next_a;
-    m_b = next_b;
-
-    // P = exp2(x - m), 0 where masked; l adds the unrounded P
-    float sum_a = 0.f, sum_b = 0.f;
-#pragma unroll
-    for (int i = 0; i < 32; ++i) {
-      const bool hi = i & 2;
-      float p = exp2f(s[i] - (hi ? m_b : m_a));
-      if (edge && s[i] <= kNeg) p = 0.f;
-      s[i] = p;
-      if (hi)
-        sum_b += p;
-      else
-        sum_a += p;
-    }
-    l_a = alpha_a * l_a + sum_a;
-    l_b = alpha_b * l_b + sum_b;
+    float alpha_a, alpha_b;
+    softmax_step(s, q0, k0, row_a, row_b, t, L, causal, scale_log2, m_a, m_b,
+                 l_a, l_b, alpha_a, alpha_b);
 #pragma unroll
     for (int c = 0; c < D / 64; ++c)
 #pragma unroll
@@ -357,14 +401,8 @@ flash_fwd_mma_kernel(const T* __restrict__ q, const T* __restrict__ k,
     __syncthreads();  // done with this stage before it is refilled
   }
 
-#pragma unroll
-  for (int lanes = 1; lanes <= 2; lanes <<= 1) {
-    l_a += __shfl_xor_sync(0xffffffffu, l_a, lanes);
-    l_b += __shfl_xor_sync(0xffffffffu, l_b, lanes);
-  }
-  // a row with no unmasked key has l == 0: store 0, not nan
-  const float inv_a = l_a == 0.f ? 0.f : 1.f / l_a;
-  const float inv_b = l_b == 0.f ? 0.f : 1.f / l_b;
+  float inv_a, inv_b;
+  finish_rows(l_a, l_b, inv_a, inv_b);
   T* out = o + (size_t)bh * L * D;
 #pragma unroll
   for (int c = 0; c < D / 64; ++c)
@@ -380,28 +418,214 @@ flash_fwd_mma_kernel(const T* __restrict__ q, const T* __restrict__ k,
             sm90::pack2<T>(acc_o[c][4 * j + 2] * inv_b,
                            acc_o[c][4 * j + 3] * inv_b);
     }
-  if (t == 0) {
-    float* lse_bh = lse + (size_t)bh * L;
-    if (row_a < L) lse_bh[row_a] = m_a * kLn2 + logf(fmaxf(l_a, 1e-30f));
-    if (row_b < L) lse_bh[row_b] = m_b * kLn2 + logf(fmaxf(l_b, 1e-30f));
-  }
+  store_lse(lse + (size_t)bh * L, row_a, row_b, L, t, m_a, m_b, l_a, l_b);
 }
 
 // ---------------------------------------------------------------------------
-// any head dim, any dtype: SIMT kernel (flash_fwd_general_kernel)
+// bf16 / fp16 beyond the builds: tensor-core kernel
+// (flash_fwd_general_mma_kernel), for any D that is a multiple of 64 (the
+// wrapper zero-pads to one, as it pads to the builds)
+//
+// The D = 256 build holds Q resident and O's 256 columns in 128 fp32
+// registers a thread. At D = 512, Q (64 KB), two K stages (128 KB) and two V
+// stages (128 KB) would not fit the 227 KB of shared memory a block may use,
+// and O would need 256 registers a thread. So:
+//   - The grid gets an axis over 256-column chunks of O (kMmaChunk, the D =
+//     256 build's accumulator): one block of one warpgroup per (64-row q
+//     tile, chunk, b * Hq + h), tile-major with the longest causal tiles
+//     first.
+//   - S = Q K^T reduces over the full D on wgmma (m64n64k16, both read
+//     K-major), one 64-column block of Q and of K at a time, streamed
+//     through a ring of kRing stages by cp.async with the runtime row
+//     stride D (sm90.cuh load_block_async). Every K tile is nb = D / 64
+//     such steps and one more, which runs the online softmax (the tuned
+//     kernel's softmax_step) and accumulates only this block's chunk,
+//     O[:, c0:c0 + 256] += P V[:, c0:c0 + 256], P from registers and V's
+//     chunk read MN-major. One cp.async group per step, started kAhead
+//     steps ahead: a step's loads overlap the steps before it, and no D is
+//     too large (80 KB of shared memory at any D).
+//   - Every chunk of one q tile computes S, m and l by the same wgmma
+//     sequence over the same blocks and the same masks, bit for bit, so the
+//     chunks agree without a second pass; the first chunk writes the lse.
+//     The last chunk is narrower where D is not a multiple of 256: its
+//     products and stores skip the blocks past D.
+//   - Work: S once per chunk, P V once, 2 D ceil(D / 256) + 2 D operations
+//     a (q, k) pair: 6 D at D = 512 against the ideal 4 D (the SIMT kernel
+//     it replaces computed S D / 64 times). Bound at B2 Hq16 Hkv4 L1024
+//     D512 causal: 4 D a pair is 34.4 GFLOP, 0.0348 ms at 989 TFLOP/s; its
+//     ~84 MB take 0.025 ms at 3.35 TB/s, so the tensor cores bound it.
+//   - Each step waits for its products before the next, as in the tuned
+//     kernels; no TMA, no warp specialisation yet.
+
+constexpr int kMmaChunk = 256;  // O columns a block accumulates
+constexpr int kBlock = 64;      // columns of a streamed block
+constexpr int kAhead = 2;       // steps a load is started ahead of its use
+constexpr int kRing = kAhead + 1;  // stages of the Q/K block ring
+
+constexpr size_t general_mma_smem_bytes() {
+  // kRing stages of a Q and a K block, and V's chunk (16-bit values)
+  return 2 * (size_t)(kRing * 2 * kTile * kBlock + kTile * kMmaChunk);
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kMmaThreads)
+flash_fwd_general_mma_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                             const T* __restrict__ v, T* __restrict__ o,
+                             float* __restrict__ lse, int Hq, int Hkv, int L,
+                             int D, float scale, int causal) {
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  // kRing stages, each a Q block then a K block (kTile x 64, swizzled)
+  T* sQK = reinterpret_cast<T*>(smem_raw);
+  T* sV = sQK + kRing * 2 * kTile * kBlock;  // V's chunk, kTile x kMmaChunk
+
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const int nq = (L + kTile - 1) / kTile;
+  const int nb = D / kBlock;  // the blocks S reduces over
+  const int chunks = (D + kMmaChunk - 1) / kMmaChunk;
+  const int heads = gridDim.x / (nq * chunks);  // B * Hq
+  const int bh = blockIdx.x % heads;
+  const int chunk = blockIdx.x / heads % chunks;
+  const int rank = blockIdx.x / (heads * chunks);
+  // causal: the last q tile walks every K tile, so it goes first
+  const int q0 = (causal ? nq - 1 - rank : rank) * kTile;
+  const int c0 = chunk * kMmaChunk;
+  const int nc = min(kMmaChunk, D - c0) / kBlock;  // this chunk's blocks
+  const int b = bh / Hq;
+  const int kvh = b * Hkv + (bh - b * Hq) / (Hq / Hkv);
+  const T* qb = q + (size_t)bh * L * D;
+  const T* kb = k + (size_t)kvh * L * D;
+  const T* vb = v + (size_t)kvh * L * D;
+
+  // per K tile, nb steps accumulate S and one runs the softmax and P V
+  const int per = nb + 1;
+  const int k_end = causal ? min(L, q0 + kTile) : L;
+  const int n_steps = (k_end + kTile - 1) / kTile * per;
+
+  // one step's loads as one cp.async group (empty past the last step). A
+  // Q/K stage is refilled kRing QK steps after its last use; V's chunk
+  // is refilled at least one step after the P V that read it (nb >= kAhead)
+  auto load_step = [&](int step) {
+    if (step < n_steps) {
+      const int it = step / per, blk = step - it * per;
+      if (blk < nb) {
+        T* stage = sQK + (it * nb + blk) % kRing * 2 * kTile * kBlock;
+        sm90::load_block_async<T, kTile, kMmaThreads>(stage, qb, q0, L, D,
+                                                      kBlock * blk);
+        sm90::load_block_async<T, kTile, kMmaThreads>(
+            stage + kTile * kBlock, kb, it * kTile, L, D, kBlock * blk);
+      } else {
+        for (int c = 0; c < nc; ++c)
+          sm90::load_block_async<T, kTile, kMmaThreads>(
+              sV + c * kTile * kBlock, vb, it * kTile, L, D, c0 + kBlock * c);
+      }
+    }
+    sm90::cp_async_commit();
+  };
+  for (int step = 0; step < kAhead; ++step) load_step(step);
+
+  // this thread's two rows of the warp's 16: g and g + 8
+  const int row_a = q0 + warp * 16 + g, row_b = row_a + 8;
+  const float scale_log2 = scale * kLog2e;
+  const uint32_t v_smem = sm90::smem_addr(sV);
+
+  float acc_o[kMmaChunk / kBlock][32], s[32];
+#pragma unroll
+  for (int i = 0; i < 32; ++i) {
+    s[i] = 0.f;
+#pragma unroll
+    for (int c = 0; c < kMmaChunk / kBlock; ++c) acc_o[c][i] = 0.f;
+  }
+  float m_a = kNeg, m_b = kNeg, l_a = 0.f, l_b = 0.f;
+
+  for (int step = 0; step < n_steps; ++step) {
+    sm90::cp_async_wait<kAhead - 1>();  // this step's group has landed
+    sm90::fence_proxy_async();
+    __syncthreads();  // for every thread; all are done with the last step
+    load_step(step + kAhead);
+    const int it = step / per, blk = step - it * per;
+    if (blk < nb) {
+      // S (+)= Q K^T over this block's 64 columns
+      const uint32_t q_smem = sm90::smem_addr(
+          sQK + (it * nb + blk) % kRing * 2 * kTile * kBlock);
+      const uint32_t k_smem = q_smem + kTile * kBlock * (uint32_t)sizeof(T);
+      sm90::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < kBlock / 16; ++kk)
+        sm90::wgmma_ss<T, kTile>(s, sm90::desc_k_major<kTile>(q_smem, kk),
+                                 sm90::desc_k_major<kTile>(k_smem, kk),
+                                 blk > 0 || kk > 0);
+      sm90::wgmma_commit();
+      sm90::wgmma_wait<0>();
+      sm90::fence_operands(s);
+      continue;
+    }
+
+    float alpha_a, alpha_b;
+    softmax_step(s, q0, it * kTile, row_a, row_b, t, L, causal, scale_log2,
+                 m_a, m_b, l_a, l_b, alpha_a, alpha_b);
+#pragma unroll
+    for (int c = 0; c < kMmaChunk / kBlock; ++c)
+#pragma unroll
+      for (int i = 0; i < 32; ++i) acc_o[c][i] *= (i & 2) ? alpha_b : alpha_a;
+
+    // O[:, chunk] += P V[:, chunk], P rounded to the input dtype from
+    // registers; V read MN-major
+    uint32_t ap[kTile / 16][4];
+#pragma unroll
+    for (int kk = 0; kk < kTile / 16; ++kk)
+      sm90::acc_to_a<T>(ap[kk], s + 8 * kk);
+    sm90::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < kTile / 16; ++kk)
+#pragma unroll
+      for (int c = 0; c < kMmaChunk / kBlock; ++c)
+        if (c < nc)
+          sm90::wgmma_rs_mn<T>(acc_o[c], ap[kk],
+                               sm90::desc_mn_major<kTile>(v_smem, 16 * kk, c));
+    sm90::wgmma_commit();
+    sm90::wgmma_wait<0>();
+#pragma unroll
+    for (int c = 0; c < kMmaChunk / kBlock; ++c)
+      sm90::fence_operands(acc_o[c]);
+  }
+
+  float inv_a, inv_b;
+  finish_rows(l_a, l_b, inv_a, inv_b);
+  T* out = o + (size_t)bh * L * D;
+#pragma unroll
+  for (int c = 0; c < kMmaChunk / kBlock; ++c) {
+    if (c >= nc) break;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const int col = c0 + kBlock * c + 8 * j + 2 * t;
+      if (row_a < L)
+        *reinterpret_cast<uint32_t*>(out + (size_t)row_a * D + col) =
+            sm90::pack2<T>(acc_o[c][4 * j] * inv_a,
+                           acc_o[c][4 * j + 1] * inv_a);
+      if (row_b < L)
+        *reinterpret_cast<uint32_t*>(out + (size_t)row_b * D + col) =
+            sm90::pack2<T>(acc_o[c][4 * j + 2] * inv_b,
+                           acc_o[c][4 * j + 3] * inv_b);
+    }
+  }
+  if (chunk == 0)
+    store_lse(lse + (size_t)bh * L, row_a, row_b, L, t, m_a, m_b, l_a, l_b);
+}
+
+// ---------------------------------------------------------------------------
+// fp32 beyond the builds (D > 256): SIMT kernel (flash_fwd_general_kernel)
 //
 // One block of 256 threads per (64-row q tile, b * Hq + h, 64-column chunk
 // of O's D); four threads own one query row, as in the fp32 SIMT kernel.
 // Each block computes S over the full D, 64 columns at a time through
-// shared memory (operands converted to fp32 as they are staged), runs the
-// online softmax, and accumulates only its own chunk of O = P V. Every
-// chunk of a tile repeats the same S, m and l, bit for bit; the first
-// writes the lse. P is rounded to the input dtype before P V.
-// Bound: the work is the tuned kernel's, 4 D operations a (q, k) pair (at
-// B1 Hq4 L512 D512 causal, 1.1 GFLOP; the 4.2 MB it must move bind it
-// there, 2.5 us). It recomputes S once per output chunk, D / 64 times,
-// at SIMT rates: a right kernel for head dims the builds do not cover,
-// not a fast one.
+// shared memory, runs the online softmax, and accumulates only its own
+// chunk of O = P V. Every chunk of a tile repeats the same S, m and l, bit
+// for bit; the first writes the lse.
+// Bound: 4 D operations a (q, k) pair, at SIMT's 67 TFLOP/s (at B1 Hq4 L512
+// D512 causal, 1.1 GFLOP, 0.016 ms). It recomputes S once per output
+// chunk, D / 64 times: a right kernel for fp32 head dims the builds do not
+// cover, not a fast one.
 
 constexpr int kChunk = simt::kChunk;
 constexpr int kChunkTile = kTile * (kChunk + 1);  // floats of one tile
@@ -411,10 +635,10 @@ constexpr size_t general_smem_bytes() {
   return sizeof(float) * (size_t)(3 * kChunkTile + kTile * (kTile + 1));
 }
 
-template <typename T>
 __global__ void __launch_bounds__(kThreads)
-flash_fwd_general_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                         const T* __restrict__ v, T* __restrict__ o,
+flash_fwd_general_kernel(const float* __restrict__ q,
+                         const float* __restrict__ k,
+                         const float* __restrict__ v, float* __restrict__ o,
                          float* __restrict__ lse, int Hq, int Hkv, int L,
                          int D, float scale, int causal) {
   extern __shared__ float smem[];
@@ -433,9 +657,9 @@ flash_fwd_general_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int d0 = blockIdx.z * kChunk;
   const int q_pos = q0 + row;
 
-  const T* qb = q + (size_t)bh * L * D;
-  const T* kb = k + (size_t)kvh * L * D;
-  const T* vb = v + (size_t)kvh * L * D;
+  const float* qb = q + (size_t)bh * L * D;
+  const float* kb = k + (size_t)kvh * L * D;
+  const float* vb = v + (size_t)kvh * L * D;
 
   float m = kNeg, l = 0.f;
   float acc[kChunk / 4];
@@ -449,8 +673,8 @@ flash_fwd_general_kernel(const T* __restrict__ q, const T* __restrict__ k,
     for (int j = 0; j < kTile / 4; ++j) s[j] = 0.f;
     for (int c0 = 0; c0 < D; c0 += kChunk) {
       __syncthreads();  // the previous step is done with the tiles
-      simt::load_chunk<T, kTile, kThreads>(sQ, qb, q0, L, c0, D);
-      simt::load_chunk<T, kTile, kThreads>(sK, kb, k0, L, c0, D);
+      simt::load_chunk<float, kTile, kThreads>(sQ, qb, q0, L, c0, D);
+      simt::load_chunk<float, kTile, kThreads>(sK, kb, k0, L, c0, D);
       __syncthreads();
       const float* qrow = sQ + row * (kChunk + 1);
 #pragma unroll 8
@@ -463,7 +687,7 @@ flash_fwd_general_kernel(const T* __restrict__ q, const T* __restrict__ k,
     }
     // every thread passed the loop's last barrier after the previous
     // step's P V, so sV may be refilled
-    simt::load_chunk<T, kTile, kThreads>(sV, vb, k0, L, d0, D);
+    simt::load_chunk<float, kTile, kThreads>(sV, vb, k0, L, d0, D);
 
     float mx = kNeg;
 #pragma unroll
@@ -482,7 +706,7 @@ flash_fwd_general_kernel(const T* __restrict__ q, const T* __restrict__ k,
     for (int j = 0; j < kTile / 4; ++j) {
       const float p = s[j] > kNeg ? expf(s[j] - m_next) : 0.f;
       psum += p;
-      sP[row * (kTile + 1) + sub + 4 * j] = simt::round_to<T>(p);
+      sP[row * (kTile + 1) + sub + 4 * j] = p;
     }
     psum += __shfl_xor_sync(0xffffffffu, psum, 1);
     psum += __shfl_xor_sync(0xffffffffu, psum, 2);
@@ -506,11 +730,11 @@ flash_fwd_general_kernel(const T* __restrict__ q, const T* __restrict__ k,
   if (q_pos < L) {
     // a row with no unmasked key has l == 0: store 0, not nan
     const float inv = l == 0.f ? 0.f : 1.f / l;
-    T* orow = o + ((size_t)bh * L + q_pos) * D;
+    float* orow = o + ((size_t)bh * L + q_pos) * D;
 #pragma unroll
     for (int j = 0; j < kChunk / 4; ++j) {
       const int col = d0 + sub + 4 * j;
-      if (col < D) orow[col] = simt::from_f<T>(acc[j] * inv);
+      if (col < D) orow[col] = acc[j] * inv;
     }
     if (sub == 0 && blockIdx.z == 0)
       lse[(size_t)bh * L + q_pos] = m + logf(fmaxf(l, 1e-30f));
@@ -561,16 +785,32 @@ int launch_mma(const Args& a) {
   return (int)cudaGetLastError();
 }
 
-template <typename T>
 int launch_general(const Args& a, int D) {
   const size_t smem = general_smem_bytes();
-  if (int err = prepare(flash_fwd_general_kernel<T>, smem)) return err;
+  if (int err = prepare(flash_fwd_general_kernel, smem)) return err;
   const dim3 grid((a.L + kTile - 1) / kTile, a.B * a.Hq,
                   (D + kChunk - 1) / kChunk);
-  flash_fwd_general_kernel<T><<<grid, kThreads, smem, a.stream>>>(
-      static_cast<const T*>(a.q), static_cast<const T*>(a.k),
-      static_cast<const T*>(a.v), static_cast<T*>(a.o), a.lse, a.Hq, a.Hkv,
-      a.L, D, a.scale, a.causal);
+  flash_fwd_general_kernel<<<grid, kThreads, smem, a.stream>>>(
+      static_cast<const float*>(a.q), static_cast<const float*>(a.k),
+      static_cast<const float*>(a.v), static_cast<float*>(a.o), a.lse, a.Hq,
+      a.Hkv, a.L, D, a.scale, a.causal);
+  return (int)cudaGetLastError();
+}
+
+// one block per (q tile, chunk, head): tile-major, so the tile rank is the
+// slow index
+template <typename T>
+int launch_general_mma(const Args& a, int D) {
+  const size_t smem = general_mma_smem_bytes();
+  if (int err = prepare(flash_fwd_general_mma_kernel<T>, smem)) return err;
+  const long long grid = (long long)((a.L + kTile - 1) / kTile) *
+                         ((D + kMmaChunk - 1) / kMmaChunk) * a.B * a.Hq;
+  if (grid > INT_MAX) return -1;
+  flash_fwd_general_mma_kernel<T>
+      <<<(int)grid, kMmaThreads, smem, a.stream>>>(
+          static_cast<const T*>(a.q), static_cast<const T*>(a.k),
+          static_cast<const T*>(a.v), static_cast<T*>(a.o), a.lse, a.Hq,
+          a.Hkv, a.L, D, a.scale, a.causal);
   return (int)cudaGetLastError();
 }
 
@@ -613,19 +853,35 @@ int metisfl_flash_fwd(const void* q, const void* k, const void* v, void* o,
   }
 }
 
-// K1 at any head dim D >= 1 and any dtype (SIMT, one block per 64-column
-// chunk of O), with metisfl_flash_fwd's arguments; no alignment is needed.
+// K1 in fp32 at any head dim D >= 1 (SIMT, one block per 64-column chunk
+// of O), with metisfl_flash_fwd's arguments; no alignment is needed.
 int metisfl_flash_fwd_general(const void* q, const void* k, const void* v,
                               void* o, void* lse, int B, int Hq, int Hkv,
                               int L, int D, int dtype, int causal,
                               float scale, void* stream) {
-  if (B < 1 || Hkv < 1 || Hq % Hkv != 0 || L < 1 || D < 1) return -1;
+  if (B < 1 || Hkv < 1 || Hq % Hkv != 0 || L < 1 || D < 1 || dtype != 0)
+    return -1;
+  const Args a{q, k, v, o, static_cast<float*>(lse), B, Hq, Hkv, L, scale,
+               causal, static_cast<cudaStream_t>(stream)};
+  return launch_general(a, D);
+}
+
+// K1 on tensor cores in bf16 (dtype 2) or fp16 (1) at any head dim D that
+// is a multiple of 64 and at least 128 (the wrapper zero-pads to one), with
+// metisfl_flash_fwd's arguments: one block per (64-row q tile, 256-column
+// chunk of O, b * Hq + h); q, k and v contiguous and 16-byte aligned.
+int metisfl_flash_fwd_general_mma(const void* q, const void* k,
+                                  const void* v, void* o, void* lse, int B,
+                                  int Hq, int Hkv, int L, int D, int dtype,
+                                  int causal, float scale, void* stream) {
+  if (B < 1 || Hkv < 1 || Hq % Hkv != 0 || L < 1 || D % kBlock != 0 ||
+      D / kBlock < kAhead)
+    return -1;
   const Args a{q, k, v, o, static_cast<float*>(lse), B, Hq, Hkv, L, scale,
                causal, static_cast<cudaStream_t>(stream)};
   switch (dtype) {
-    case 0: return launch_general<float>(a, D);
-    case 1: return launch_general<__half>(a, D);
-    case 2: return launch_general<__nv_bfloat16>(a, D);
+    case 1: return launch_general_mma<__half>(a, D);
+    case 2: return launch_general_mma<__nv_bfloat16>(a, D);
     default: return -1;
   }
 }

@@ -7,7 +7,9 @@
 //   stored as D / 64 column blocks, each ROWS rows of 128 bytes (64
 //   values), and 16-byte chunk c of a row r sits at chunk c ^ (r & 7) of
 //   its row: the 128-byte swizzle of wgmma's (and TMA's) SWIZZLE_128B mode,
-//   with every column block 1024-byte aligned.
+//   with every column block 1024-byte aligned. A block can also be loaded
+//   on its own from a matrix whose row stride is known only at run time
+//   (load_block_async), for the general head-dim kernels.
 // - wgmma.mma_async m64nNk16 with fp32 accumulation, for bf16 and fp16
 //   operands, from one warpgroup (4 warps). B comes from shared memory
 //   through a matrix descriptor, read K-major (a tile stored [n][k]) or
@@ -88,6 +90,28 @@ __device__ __forceinline__ void load_tile_async(T* tile, const T* src, int r0,
     const int g = r0 + r;
     const T* from = src + (size_t)(g < L ? g : 0) * D + c * 8;
     cp_async_16(reinterpret_cast<char*>(tile) + tile_chunk_bytes<ROWS>(r, c),
+                from, g < L ? 16 : 0);
+  }
+}
+
+// rows [r0, r0 + ROWS) and columns [c0, c0 + 64) of a row-major (L, ld)
+// matrix whose row stride ld is known only at run time, into one swizzled
+// 64-column block of ROWS rows: the layout load_tile_async gives each of
+// its column blocks, so desc_k_major and desc_mn_major read it unchanged.
+// ld and c0 are multiples of 8 (16-byte rows); rows at or past L are zero
+// and no byte of them is read.
+template <typename T, int ROWS, int THREADS>
+__device__ __forceinline__ void load_block_async(T* block, const T* src,
+                                                 int r0, int L, int ld,
+                                                 int c0) {
+  static_assert(ROWS * 8 % THREADS == 0, "whole chunks per thread");
+#pragma unroll
+  for (int j = 0; j < ROWS * 8 / THREADS; ++j) {
+    const int i = threadIdx.x + j * THREADS;
+    const int r = i >> 3, c = i & 7;
+    const int g = r0 + r;
+    const T* from = src + (size_t)(g < L ? g : 0) * ld + c0 + c * 8;
+    cp_async_16(reinterpret_cast<char*>(block) + tile_chunk_bytes<ROWS>(r, c),
                 from, g < L ? 16 : 0);
   }
 }

@@ -23,22 +23,34 @@ and query head h reads kv head h // (Hq // Hkv). lse and delta travel in
 logical layout (B, Hq, L) fp32, the shape ring attention consumes.
 
 The Pallas kernels take any D, since their blocks span the whole head, and
-so do the wrappers. The tuned kernels are built for a few head dims: K1
-for 64, 128 and 256; K2 and K3 for 64, 128 and 256 in bf16/fp16 and for
-64 and 128 in fp32 (K3 at D = 256 launches twice, once for dV and once
-for dK, since dK and dV of its 64-row tile would take 256 fp32 registers a
-thread). Up to the largest, the wrappers zero-pad q, k, v (and dO) along D
-to the next built head dim, launch with the true D's scale, and slice O,
-dQ, dK and dV back to D. That is exact: padded columns add 0 to Q·Kᵀ and
-to dO·Vᵀ, and padded V, dO, Q and K columns only give output columns that
-are sliced off. A built head dim makes no copy. Beyond it (D > 256, and
-D > 128 for the fp32 backward, whose SIMT tiles would need more than the
-227 KB of shared memory a block may use) the wrappers launch the general
-kernels, SIMT kernels for any D and dtype (:func:`flash_fwd_general`,
-:func:`flash_bwd_dq_general`, :func:`flash_bwd_dkv_general`, each
-counting its own launches). The SIMT kernels carry b * H in gridDim.y,
-which stops at 65535, so the wrappers launch in batch chunks of at most
-65535 // H batches.
+so do the wrappers. Which kernel takes which (dtype, D) is
+:func:`kernel_route`'s answer, a pure function of both:
+
+- the tuned kernels, built for a few head dims: K1 for 64, 128 and 256; K2
+  and K3 for 64, 128 and 256 in bf16/fp16 and for 64 and 128 in fp32 (K3
+  at D = 256 launches twice, once for dV and once for dK, since dK and dV
+  of its 64-row tile would take 256 fp32 registers a thread). Up to the
+  largest, the wrappers zero-pad q, k, v (and dO) along D to the next built
+  head dim, launch with the true D's scale, and slice O, dQ, dK and dV back
+  to D. That is exact: padded columns add 0 to Q·Kᵀ and to dO·Vᵀ, and
+  padded V, dO, Q and K columns only give output columns that are sliced
+  off. A built head dim makes no copy.
+- beyond the builds in bf16/fp16, K1 and K3 run on the general tensor-core
+  kernels (:func:`flash_fwd_general_mma`, :func:`flash_bwd_dkv_general_mma`),
+  which stream Q, K, V and dO through shared memory 64 columns at a time
+  and give the grid an axis over 256-column chunks of the output (K3 also
+  one over its two outputs); the wrappers zero-pad D to a multiple of 64
+  the same way.
+- the rest, K1 and K3 in fp32 beyond their builds (D > 256, and D > 128
+  for the fp32 backward, whose SIMT tiles would need more than the 227 KB
+  of shared memory a block may use) and K2 beyond its builds in any dtype,
+  runs on the general SIMT kernels, one block per 64-column chunk of the
+  output and no padding (:func:`flash_fwd_general`,
+  :func:`flash_bwd_dq_general`, :func:`flash_bwd_dkv_general`).
+
+Each wrapper counts its own launches. The SIMT kernels carry b * H in
+gridDim.y, which stops at 65535, so the wrappers launch in batch chunks of
+at most 65535 // H batches.
 :func:`flash_attention` is differentiable: its autograd Function runs K1
 forward and K2/K3 backward, as the JAX package's custom VJP does.
 """
@@ -48,7 +60,7 @@ from __future__ import annotations
 import ctypes
 import math
 import threading
-from typing import Dict, Optional, Tuple
+from typing import Dict, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -61,6 +73,10 @@ _BWD_HEAD_DIMS = (64, 128, 256)
 _BWD_HEAD_DIMS_FP32 = (64, 128)
 # gridDim.y of the SIMT kernels carries b * H
 _MAX_GRID_Y = 65535
+# output columns of one block of the general kernels: the SIMT kernels'
+# 64-column chunks, the tensor-core kernels' 256 (their fp32 accumulator)
+_SIMT_CHUNK = 64
+_MMA_CHUNK = 256
 
 _launch_lock = threading.Lock()
 
@@ -214,6 +230,53 @@ def kernel_head_dim(D: int, head_dims) -> Optional[int]:
     return next((d for d in head_dims if D <= d), None)
 
 
+def mma_head_dim(D: int) -> int:
+    """The head dim the general tensor-core kernels run D at: the next
+    multiple of 64 (the width of a streamed block), and at least 128 (two
+    blocks, which their two-step-ahead loads need)."""
+    return max(128, -(-D // 64) * 64)
+
+
+class Route(NamedTuple):
+    """The kernel that a CUDA tensor's call launches."""
+
+    wrapper: str  # the wrapper that launches it and counts the launch
+    head_dim: int  # the D it runs at (zero-padded from the caller's)
+    chunks: int  # blocks along the output's head dim, for each tile
+    passes: int  # outputs made one at a time (K3: dV, then dK)
+
+
+# the wrappers of each kernel: (tuned builds, general SIMT, general
+# tensor-core; K2 has none of the last)
+_WRAPPERS = {
+    "fwd": ("flash_attention_fwd", "flash_fwd_general",
+            "flash_fwd_general_mma"),
+    "dq": ("flash_bwd_dq", "flash_bwd_dq_general", None),
+    "dkv": ("flash_bwd_dkv", "flash_bwd_dkv_general",
+            "flash_bwd_dkv_general_mma"),
+}
+
+
+def kernel_route(kernel: str, dtype: torch.dtype, D: int) -> Route:
+    """Which kernel ``kernel`` ("fwd" for K1, "dq" for K2, "dkv" for K3)
+    launches on a CUDA tensor of ``dtype`` at head dim ``D``: a pure
+    function of the two, and the one the wrappers route by. A tuned build
+    where D fits one (padded to it); beyond, in bf16/fp16, K1 and K3 on the
+    general tensor-core kernels (padded to :func:`mma_head_dim`); anything
+    else on the general SIMT kernels (unpadded)."""
+    tuned, simt, mma = _WRAPPERS[kernel]
+    builds = _FWD_HEAD_DIMS if kernel == "fwd" else bwd_head_dims(dtype)
+    built = kernel_head_dim(D, builds)
+    if built is not None:
+        return Route(tuned, built, 1,
+                     2 if kernel == "dkv" and built == 256 else 1)
+    if mma is not None and dtype != torch.float32:
+        Dp = mma_head_dim(D)
+        return Route(mma, Dp, -(-Dp // _MMA_CHUNK),
+                     2 if kernel == "dkv" else 1)
+    return Route(simt, D, -(-D // _SIMT_CHUNK), 1)
+
+
 def _check_cuda_inputs(q, k, v, **same_as_q):
     named = (("q", q), ("k", k), ("v", v)) + tuple(same_as_q.items())
     for name, t in named:
@@ -267,6 +330,16 @@ def _batch_chunks(B: int, H: int):
     return [(b0, min(B, b0 + step)) for b0 in range(0, B, step)]
 
 
+# the dtypes of the tensor-core kernels
+_MMA_DTYPES = (torch.float16, torch.bfloat16)
+
+
+def _check_dtype(name: str, q: torch.Tensor, dtypes) -> None:
+    if q.dtype not in dtypes:
+        raise ValueError(f"{name} takes {', '.join(map(str, dtypes))}, got "
+                         f"{q.dtype}")
+
+
 def _check_aligned(**tensors):
     """The kernels copy (B, H, L, D) rows 16 bytes at a time
     (``cp.async``), so each such tensor must start on a 16-byte boundary;
@@ -297,6 +370,8 @@ _SIGNATURES = {
         "metisfl_flash_fwd": [_PTR] * 5 + [_INT] * 7 + [_FLOAT, _PTR],
         "metisfl_flash_fwd_general": [_PTR] * 5 + [_INT] * 7
         + [_FLOAT, _PTR],
+        "metisfl_flash_fwd_general_mma": [_PTR] * 5 + [_INT] * 7
+        + [_FLOAT, _PTR],
     },
     "flash_bwd": {
         "metisfl_flash_bwd_dq": [_PTR] * 7 + [_INT] * 7 + [_FLOAT, _PTR],
@@ -304,6 +379,8 @@ _SIGNATURES = {
         "metisfl_flash_bwd_dq_general": [_PTR] * 7 + [_INT] * 7
         + [_FLOAT, _PTR],
         "metisfl_flash_bwd_dkv_general": [_PTR] * 8 + [_INT] * 7
+        + [_FLOAT, _PTR],
+        "metisfl_flash_bwd_dkv_general_mma": [_PTR] * 8 + [_INT] * 7
         + [_FLOAT, _PTR],
     },
 }
@@ -375,16 +452,21 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     launch ``csrc/flash_fwd.cu`` on the current stream (tensor cores for
     bf16/fp16, SIMT for fp32; D <= 256 padded to 64, 128 or 256, with q, k
     and v 16-byte aligned there; contiguous) and raise on anything else;
-    D > 256 goes to :func:`flash_fwd_general`. ``flash_attention_fwd.launches``
-    counts this kernel's launches (one per batch chunk)."""
+    D > 256 goes to :func:`flash_fwd_general_mma` in bf16/fp16 and to
+    :func:`flash_fwd_general` in fp32 (:func:`kernel_route`).
+    ``flash_attention_fwd.launches`` counts this kernel's launches (one per
+    batch chunk)."""
     if not _on_cuda(q):
         return flash_attention_fwd_reference(q, k, v, causal)
     _check_cuda_inputs(q, k, v)
     B, Hq, L, D = q.shape
-    if kernel_head_dim(D, _FWD_HEAD_DIMS) is None:
+    route = kernel_route("fwd", q.dtype, D)
+    if route.wrapper == "flash_fwd_general_mma":
+        return flash_fwd_general_mma(q, k, v, causal)
+    if route.wrapper == "flash_fwd_general":
         return flash_fwd_general(q, k, v, causal)
     scale = 1.0 / math.sqrt(D)
-    Dk, (q, k, v) = pad_head_dim(q, k, v, head_dims=_FWD_HEAD_DIMS)
+    Dk, (q, k, v) = pad_head_dim(q, k, v, head_dims=(route.head_dim,))
     _check_aligned(q=q, k=k, v=v)
     o = torch.empty_like(q)
     lse = torch.empty((B, Hq, L), dtype=torch.float32, device=q.device)
@@ -405,16 +487,18 @@ flash_attention_fwd.launches = 0
 def flash_fwd_general(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                       causal: bool = False
                       ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """K1 at any head dim: ``(o, lse)`` as :func:`flash_attention_fwd`.
+    """K1 in fp32 at any head dim: ``(o, lse)`` as
+    :func:`flash_attention_fwd`.
 
     CPU tensors run :func:`flash_attention_fwd_reference`. CUDA tensors
-    launch ``csrc/flash_fwd.cu``'s general kernel (SIMT, any D and dtype,
-    one block per 64-column chunk of O; no padding, no alignment) or raise.
-    :func:`flash_attention_fwd` routes D > 256 here.
+    launch ``csrc/flash_fwd.cu``'s general SIMT kernel (fp32, any D, one
+    block per 64-column chunk of O; no padding, no alignment) or raise.
+    :func:`flash_attention_fwd` routes fp32 at D > 256 here.
     ``flash_fwd_general.launches`` counts launches (one per batch chunk)."""
     if not _on_cuda(q):
         return flash_attention_fwd_reference(q, k, v, causal)
     _check_cuda_inputs(q, k, v)
+    _check_dtype("flash_fwd_general", q, (torch.float32,))
     B, Hq, L, D = q.shape
     o = torch.empty_like(q)
     lse = torch.empty((B, Hq, L), dtype=torch.float32, device=q.device)
@@ -428,6 +512,44 @@ def flash_fwd_general(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 flash_fwd_general.launches = 0
+
+
+def flash_fwd_general_mma(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                          causal: bool = False
+                          ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K1 on tensor cores at any head dim, bf16/fp16: ``(o, lse)`` as
+    :func:`flash_attention_fwd`.
+
+    CPU tensors run :func:`flash_attention_fwd_reference`. CUDA tensors
+    are zero-padded along D to :func:`mma_head_dim` (exact, as for the
+    builds) and launch ``csrc/flash_fwd.cu``'s general tensor-core kernel,
+    one block per (64-row q tile, 256-column chunk of O, head), with q, k
+    and v 16-byte aligned and contiguous, or raise.
+    :func:`flash_attention_fwd` routes bf16/fp16 at D > 256 here.
+    ``flash_fwd_general_mma.launches`` counts launches (one per batch
+    chunk)."""
+    if not _on_cuda(q):
+        return flash_attention_fwd_reference(q, k, v, causal)
+    _check_cuda_inputs(q, k, v)
+    _check_dtype("flash_fwd_general_mma", q, _MMA_DTYPES)
+    B, Hq, L, D = q.shape
+    scale = 1.0 / math.sqrt(D)
+    Dk, (q, k, v) = pad_head_dim(q, k, v, head_dims=(mma_head_dim(D),))
+    _check_aligned(q=q, k=k, v=v)
+    o = torch.empty_like(q)
+    lse = torch.empty((B, Hq, L), dtype=torch.float32, device=q.device)
+    for b0, b1 in _batch_chunks(B, Hq):
+        _launch("flash_fwd", "metisfl_flash_fwd_general_mma",
+                flash_fwd_general_mma, q.device, q[b0:b1].data_ptr(),
+                k[b0:b1].data_ptr(), v[b0:b1].data_ptr(),
+                o[b0:b1].data_ptr(), lse[b0:b1].data_ptr(),
+                *_shape_args(q[b0:b1], k, causal, scale))
+    if Dk != D:
+        o = o[..., :D].contiguous()
+    return o, lse
+
+
+flash_fwd_general_mma.launches = 0
 
 
 def _bwd_inputs_on_cuda(name, q, k, v, do, lse, delta):
@@ -452,11 +574,12 @@ def flash_bwd_dq(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     chunk)."""
     _bwd_inputs_on_cuda("flash_bwd_dq", q, k, v, do, lse, delta)
     B, Hq, _, D = q.shape
-    head_dims = bwd_head_dims(q.dtype)
-    if kernel_head_dim(D, head_dims) is None:
+    route = kernel_route("dq", q.dtype, D)
+    if route.wrapper == "flash_bwd_dq_general":
         return flash_bwd_dq_general(q, k, v, do, lse, delta, causal)
     scale = 1.0 / math.sqrt(D)
-    Dk, (q, k, v, do) = pad_head_dim(q, k, v, do, head_dims=head_dims)
+    Dk, (q, k, v, do) = pad_head_dim(q, k, v, do,
+                                     head_dims=(route.head_dim,))
     _check_aligned(q=q, k=k, v=v, do=do)
     dq = torch.empty_like(q)
     for b0, b1 in _batch_chunks(B, Hq):
@@ -481,20 +604,25 @@ def flash_bwd_dkv(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     every run). Launches ``csrc/flash_bwd.cu``'s dK/dV kernel (tensor cores
     for bf16/fp16 at D <= 256, SIMT for fp32 at D <= 128; padded as K2) or
     raises; at D = 256 it launches twice, for dV and then for dK. A larger
-    D goes to :func:`flash_bwd_dkv_general`. ``flash_bwd_dkv.launches``
-    counts this kernel's launches (one per batch chunk and output pass)."""
+    D goes to :func:`flash_bwd_dkv_general_mma` in bf16/fp16 and to
+    :func:`flash_bwd_dkv_general` in fp32 (:func:`kernel_route`).
+    ``flash_bwd_dkv.launches`` counts this kernel's launches (one per batch
+    chunk and output pass)."""
     _bwd_inputs_on_cuda("flash_bwd_dkv", q, k, v, do, lse, delta)
     B, Hq, _, D = q.shape
-    head_dims = bwd_head_dims(q.dtype)
-    if kernel_head_dim(D, head_dims) is None:
+    route = kernel_route("dkv", q.dtype, D)
+    if route.wrapper == "flash_bwd_dkv_general_mma":
+        return flash_bwd_dkv_general_mma(q, k, v, do, lse, delta, causal)
+    if route.wrapper == "flash_bwd_dkv_general":
         return flash_bwd_dkv_general(q, k, v, do, lse, delta, causal)
     scale = 1.0 / math.sqrt(D)
-    Dk, (q, k, v, do) = pad_head_dim(q, k, v, do, head_dims=head_dims)
+    Dk, (q, k, v, do) = pad_head_dim(q, k, v, do,
+                                     head_dims=(route.head_dim,))
     _check_aligned(q=q, k=k, v=v, do=do)
     dk = torch.empty_like(k)
     dv = torch.empty_like(v)
     # D = 256: one pass for dV, one for dK (K3's registers hold one)
-    passes = (_DV, _DK) if Dk == 256 else (_DV | _DK,)
+    passes = (_DV, _DK) if route.passes == 2 else (_DV | _DK,)
     for b0, b1 in _batch_chunks(B, Hq):
         *shapes, scale_arg = _shape_args(q[b0:b1], k, causal, scale)
         for parts in passes:
@@ -540,12 +668,13 @@ def flash_bwd_dkv_general(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                           do: torch.Tensor, lse: torch.Tensor,
                           delta: torch.Tensor, causal: bool = False
                           ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """K3 at any head dim and dtype on CUDA tensors, as
+    """K3 in fp32 at any head dim on CUDA tensors, as
     :func:`flash_bwd_dkv`: ``csrc/flash_bwd.cu``'s general SIMT kernel (one
     block per 64-column chunk of dK and dV; no atomics, no padding, no
     alignment) or raises. ``flash_bwd_dkv_general.launches`` counts
     launches."""
     _bwd_inputs_on_cuda("flash_bwd_dkv_general", q, k, v, do, lse, delta)
+    _check_dtype("flash_bwd_dkv_general", q, (torch.float32,))
     B, Hq, _, D = q.shape
     dk = torch.empty_like(k)
     dv = torch.empty_like(v)
@@ -561,6 +690,46 @@ def flash_bwd_dkv_general(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 flash_bwd_dkv_general.launches = 0
+
+
+def flash_bwd_dkv_general_mma(q: torch.Tensor, k: torch.Tensor,
+                              v: torch.Tensor, do: torch.Tensor,
+                              lse: torch.Tensor, delta: torch.Tensor,
+                              causal: bool = False
+                              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K3 on tensor cores at any head dim, bf16/fp16, on CUDA tensors, as
+    :func:`flash_bwd_dkv`: q, k, v and dO zero-padded along D to
+    :func:`mma_head_dim` (exact), then one launch of ``csrc/flash_bwd.cu``'s
+    general tensor-core kernel, which makes dV and dK in blocks of one
+    (64-row k tile, output, 256-column chunk, KV head), without atomics,
+    with the (B, H, L, D) tensors 16-byte aligned; or raises.
+    :func:`flash_bwd_dkv` routes bf16/fp16 at D > 256 here.
+    ``flash_bwd_dkv_general_mma.launches`` counts launches (one per batch
+    chunk)."""
+    _bwd_inputs_on_cuda("flash_bwd_dkv_general_mma", q, k, v, do, lse,
+                        delta)
+    _check_dtype("flash_bwd_dkv_general_mma", q, _MMA_DTYPES)
+    B, Hq, _, D = q.shape
+    scale = 1.0 / math.sqrt(D)
+    Dk, (q, k, v, do) = pad_head_dim(q, k, v, do,
+                                     head_dims=(mma_head_dim(D),))
+    _check_aligned(q=q, k=k, v=v, do=do)
+    dk = torch.empty_like(k)
+    dv = torch.empty_like(v)
+    for b0, b1 in _batch_chunks(B, Hq):
+        _launch("flash_bwd", "metisfl_flash_bwd_dkv_general_mma",
+                flash_bwd_dkv_general_mma, q.device, q[b0:b1].data_ptr(),
+                k[b0:b1].data_ptr(), v[b0:b1].data_ptr(),
+                do[b0:b1].data_ptr(), lse[b0:b1].data_ptr(),
+                delta[b0:b1].data_ptr(), dk[b0:b1].data_ptr(),
+                dv[b0:b1].data_ptr(),
+                *_shape_args(q[b0:b1], k, causal, scale))
+    if Dk != D:
+        dk, dv = dk[..., :D].contiguous(), dv[..., :D].contiguous()
+    return dk, dv
+
+
+flash_bwd_dkv_general_mma.launches = 0
 
 
 def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

@@ -3,19 +3,24 @@
 one NVIDIA GPU.
 
     python3 scripts/torch_kernel_turns.py --root build/turns/parent --root .
+    python3 scripts/torch_kernel_turns.py --shape 2,16,4,1024,512 \
+        --root build/turns/parent --root .
 
 Each checkout's ``metisfl_tpu_torch`` runs in a process of its own (its
 kernels built from its own ``csrc/`` into its own ``build/``), in the
 order A, B, B, A for two roots (``--turns 2``), so that two versions are
 compared on the same card within one call. Each run times
-``flash_attention_fwd``, ``flash_bwd_dq`` and ``flash_bwd_dkv`` at the
-training shape of ``chip_smoke.py`` (B8·Hq16·Hkv4·L1024·D64, bf16,
-causal) three ways: CUDA events around 20 back-to-back calls (``ms``, as
-chip_smoke's kernel rows), the profiler's device time per call
-(``device_ms``) and the host's time per call with no sync between calls
-(``host_ms``). Where ``ms`` is near ``host_ms`` and above ``device_ms``,
-the host paces the calls. It prints one ``{"turn": ...}`` JSON line per
-run and the GPU's name and power limit; it imports no jax.
+``flash_attention_fwd``, ``flash_bwd_dq`` and ``flash_bwd_dkv`` at one
+shape, bf16 and causal: ``--shape B,Hq,Hkv,L,D`` (default the training
+shape of ``chip_smoke.py``, B8·Hq16·Hkv4·L1024·D64). It times them three
+ways: CUDA events around 20 back-to-back calls (``ms``, as chip_smoke's
+kernel rows), the profiler's device time per call (``device_ms``) and the
+host's time per call with no sync between calls (``host_ms``). Where
+``ms`` is near ``host_ms`` and above ``device_ms``, the host paces the
+calls. Each call's ``launched`` names the wrappers that launched under it
+(at a head dim beyond the builds the three route to the general kernels,
+which each checkout may route differently). It prints one ``{"turn": ...}``
+JSON line per run and the GPU's name and power limit; it imports no jax.
 """
 
 from __future__ import annotations
@@ -27,7 +32,7 @@ import subprocess
 import sys
 import time
 
-SHAPE = (8, 16, 4, 1024, 64)  # B, Hq, Hkv, L, D
+TRAINING_SHAPE = (8, 16, 4, 1024, 64)  # B, Hq, Hkv, L, D
 SEED, ITERS, REPEATS = 7, 20, 3
 
 
@@ -72,7 +77,13 @@ def _host_ms(torch, fn):
     return seconds * 1e3 / ITERS
 
 
-def child(root: str) -> int:
+def _launches(fa):
+    """Every wrapper of the module with a launch counter, by name."""
+    return {name: fn.launches for name, fn in vars(fa).items()
+            if callable(fn) and hasattr(fn, "launches")}
+
+
+def child(root: str, shape) -> int:
     sys.path.insert(0, os.path.abspath(root))
     import importlib
 
@@ -80,7 +91,7 @@ def child(root: str) -> int:
     import torch
 
     fa = importlib.import_module("metisfl_tpu_torch.ops.flash_attention")
-    B, Hq, Hkv, L, D = SHAPE
+    B, Hq, Hkv, L, D = shape
     rng = np.random.default_rng(SEED)
     q, k, v, do = (torch.from_numpy(rng.standard_normal(s).astype(
         np.float32)).to("cuda", torch.bfloat16)
@@ -97,12 +108,17 @@ def child(root: str) -> int:
     }
     out = {}
     for name, fn in calls.items():
-        out[name] = [{"ms": _time_ms(torch, fn),
-                      "device_ms": _device_ms(torch, fn),
-                      "host_ms": _host_ms(torch, fn)}
-                     for _ in range(REPEATS)]
-    print(json.dumps({"turn": {"root": root, "shape": SHAPE,
-                               "dtype": "bfloat16", "kernels": out}}),
+        before = _launches(fa)
+        fn()
+        torch.cuda.synchronize()
+        launched = {n: c - before.get(n, 0) for n, c in _launches(fa).items()
+                    if c - before.get(n, 0)}
+        out[name] = {"launched": launched, "readings": [
+            {"ms": _time_ms(torch, fn), "device_ms": _device_ms(torch, fn),
+             "host_ms": _host_ms(torch, fn)} for _ in range(REPEATS)]}
+    print(json.dumps({"turn": {"root": root, "shape": list(shape),
+                               "dtype": "bfloat16", "causal": True,
+                               "kernels": out}}),
           flush=True)
     return 0
 
@@ -115,10 +131,16 @@ def main() -> int:
     parser.add_argument("--turns", type=int, default=2,
                         help="passes over the roots, every other one "
                              "reversed (2: A, B, B, A)")
+    parser.add_argument("--shape", default=",".join(map(str, TRAINING_SHAPE)),
+                        help="B,Hq,Hkv,L,D (default: the training shape, "
+                             "%(default)s)")
     parser.add_argument("--child", help=argparse.SUPPRESS)
     args = parser.parse_args()
+    shape = tuple(int(x) for x in args.shape.split(","))
+    if len(shape) != 5:
+        parser.error(f"--shape takes B,Hq,Hkv,L,D, got {args.shape!r}")
     if args.child:
-        return child(args.child)
+        return child(args.child, shape)
     import torch
 
     if not torch.cuda.is_available():
@@ -130,7 +152,8 @@ def main() -> int:
              for r in (roots if t % 2 == 0 else roots[::-1])]
     for root in order:
         rc = subprocess.run([sys.executable, os.path.abspath(__file__),
-                             "--child", root]).returncode
+                             "--shape", args.shape, "--child",
+                             root]).returncode
         if rc:
             print(f"torch_kernel_turns: {root} exited {rc}", file=sys.stderr)
             return rc

@@ -535,81 +535,196 @@ def test_autograd_runs_all_three_kernels_on_gpu(cuda_device):
 
 # -- head dims the kernels are not built for, and every grid ----------------
 
-@pytest.mark.parametrize("D", [8, 16, 32, 256, 320, 512])
+# bf16 backward, twin against the Pallas kernels: both round dS and P to
+# bf16 before their products but sum in other orders (and from o's that
+# differ by up to an ulp, through δ), so one rounding can flip; each of dq,
+# dk, dv within one bf16 ulp of its largest magnitude, 2⁻⁷ × max|ref|
+BF16_BWD_REL = 2.0 ** -7
+
+
+@pytest.mark.parametrize("D,dtype", [
+    pytest.param(D, torch.float32, id=str(D))
+    for D in (8, 16, 32, 256, 320, 512)] + [
+    pytest.param(D, torch.bfloat16, id=f"{D}-bf16") for D in (320, 384)])
 @pytest.mark.parametrize("causal", [False, True])
-def test_twins_at_padded_head_dims_match_pallas(jax_flash, causal, D):
+def test_twins_at_padded_head_dims_match_pallas(jax_flash, causal, D, dtype):
     """The Pallas kernels take any D (their blocks span the head); the
     twins, which the CPU path runs and the padded and general kernels are
     held to, give the Pallas forward's o and lse and its backward's dq, dk,
     dv (interpret mode) at D = 8, 16, 32, 256 (K2/K3's largest build), 320
-    and 512 (the general kernels), B1·Hq4·Hkv2·L40 fp32."""
+    and 512 (the general kernels), B1·Hq4·Hkv2·L40 fp32 (to ``ATOL``); and
+    in bf16 at D = 320 and 384, where the general tensor-core kernels take
+    K1 and K3: o within ``BF16_FWD_ATOL`` (the bf16 forward test's), lse
+    (fp32 from exact bf16 inputs) within ``ATOL``, dq, dk, dv within
+    ``BF16_BWD_REL`` × max|ref|."""
     jnp = jax_flash.jnp
     q, k, v, do = _bwd_inputs(L=40, D=D)
-    o_ref, lse_ref = jax_flash._flash_forward(
-        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), causal, None, None,
-        True)
+    jdt = jnp.float32 if dtype == torch.float32 else jnp.bfloat16
+    jq, jk, jv, jdo = (jnp.asarray(a, jdt) for a in (q, k, v, do))
+    o_ref, lse_ref = jax_flash._flash_forward(jq, jk, jv, causal, None,
+                                              None, True)
     B, H, L, _ = q.shape
     lse_ref = np.asarray(lse_ref)[:, :L, 0].reshape(B, H, L)
-    want = jax_flash._flash_backward(
-        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), o_ref, lse_ref,
-        jnp.asarray(do), causal, None, None, True)
-    tq, tk, tv = (torch.from_numpy(a) for a in (q, k, v))
+    want = jax_flash._flash_backward(jq, jk, jv, o_ref, lse_ref, jdo, causal,
+                                     None, None, True)
+    tq, tk, tv, tdo = (torch.from_numpy(a).to(dtype) for a in (q, k, v, do))
     o, lse = flash_attention_fwd(tq, tk, tv, causal)
-    np.testing.assert_allclose(o.numpy(), np.asarray(o_ref), atol=ATOL)
+    assert o.dtype == dtype
+    o_atol = ATOL if dtype == torch.float32 else BF16_FWD_ATOL
+    np.testing.assert_allclose(o.float().numpy(),
+                               np.asarray(o_ref.astype(jnp.float32)),
+                               atol=o_atol, rtol=0)
     np.testing.assert_allclose(lse.numpy(), lse_ref, atol=ATOL)
-    got = flash_attention_bwd(tq, tk, tv, o, lse, torch.from_numpy(do),
-                              causal)
+    got = flash_attention_bwd(tq, tk, tv, o, lse, tdo, causal)
     for name, a, b in zip(("dq", "dk", "dv"), got, want):
-        assert a.shape == b.shape, name
-        np.testing.assert_allclose(a.numpy(), np.asarray(b), atol=ATOL,
+        assert a.shape == b.shape and a.dtype == dtype, name
+        b = np.asarray(b.astype(jnp.float32))
+        atol = ATOL if dtype == torch.float32 else (
+            BF16_BWD_REL * float(np.abs(b).max()))
+        np.testing.assert_allclose(a.float().numpy(), b, atol=atol, rtol=0,
                                    err_msg=name)
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("D", [1, 8, 16, 32, 65, 100, 200])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
+@pytest.mark.parametrize("D", [1, 8, 16, 32, 65, 100, 200, 257, 300, 400])
 @pytest.mark.parametrize("causal", [False, True])
 def test_head_dim_padding_is_exact(causal, D, dtype):
     """The wrappers' padding path, with the twins in the kernels' place:
-    q, k, v and dO zero-padded to the next head dim a kernel is built for
-    (``pad_head_dim``: 64, 128 or 256 for K1 and for K2 and K3 in bf16, 64
-    or 128 for K2 and K3 in fp32), run with the true D's scale and sliced
+    q, k, v and dO zero-padded to the head dim of the kernel each call
+    routes to (``kernel_route``: the next build, 64, 128 or 256 for K1 and
+    for K2 and K3 in bf16/fp16, 64 or 128 for K2 and K3 in fp32; beyond the
+    builds, K1 and K3 in bf16/fp16 the next multiple of 64 of the
+    tensor-core general kernels), run with the true D's scale and sliced
     back, give the unpadded twins' o, lse, dq, dk and dv to 0 ulp, and 0 in
-    every padded column."""
+    every padded column. The SIMT general kernels take D unpadded.
+
+    The inputs are multiples of 1/8 in [-1, 1], exact in every dtype, so
+    that every product and every sum over D (Q·Kᵀ, dO·Vᵀ) is exact in fp32
+    in any order: the CPU's GEMM sums over D in an order that depends on
+    D's length (with N(0, 1) inputs the padded and unpadded Q·Kᵀ differ by
+    an ulp at D = 400 → 448 and 500 → 512, and by none at D <= 320), and
+    that order, not the padding, is what a 0-ulp comparison would see."""
     import math
 
     from metisfl_tpu_torch.ops.flash_attention import (
-        _FWD_HEAD_DIMS,
         _delta,
-        bwd_head_dims,
         flash_bwd_dkv_reference,
         flash_bwd_dq_reference,
-        kernel_head_dim,
+        kernel_route,
         pad_head_dim,
     )
 
-    q, k, v, do = (torch.from_numpy(a).to(dtype)
-                   for a in _bwd_inputs(B=2, L=37, D=D))
+    rng = np.random.default_rng(5)
+    q, do = (torch.from_numpy(rng.integers(-8, 9, (2, 4, 37, D)) / 8).to(
+        dtype) for _ in range(2))
+    k, v = (torch.from_numpy(rng.integers(-8, 9, (2, 2, 37, D)) / 8).to(
+        dtype) for _ in range(2))
     scale = 1.0 / math.sqrt(D)
-    Dk, (qp, kp, vp) = pad_head_dim(q, k, v, head_dims=_FWD_HEAD_DIMS)
-    assert Dk == next(d for d in (64, 128, 256) if D <= d)
-    assert qp.shape[-1] == Dk
+    fwd = kernel_route("fwd", dtype, D)
+    if D <= 256:
+        assert fwd.head_dim == next(d for d in (64, 128, 256) if D <= d)
+    elif dtype == torch.float32:
+        assert fwd.head_dim == D
+    else:
+        assert fwd.head_dim == -(-D // 64) * 64
+    Dk, (qp, kp, vp) = pad_head_dim(q, k, v, head_dims=(fwd.head_dim,))
+    assert qp.shape[-1] == Dk == fwd.head_dim
     o, lse = flash_attention_fwd_reference(q, k, v, causal)
     op, lsep = flash_attention_fwd_reference(qp, kp, vp, causal, scale)
     assert torch.equal(op[..., :D], o) and torch.equal(lsep, lse)
     assert not op[..., D:].any()
-    if kernel_head_dim(D, bwd_head_dims(dtype)) is None:
-        return  # the general kernel takes this D unpadded
-    Dk, (qp, kp, vp, dop) = pad_head_dim(q, k, v, do,
-                                         head_dims=bwd_head_dims(dtype))
     delta = _delta(o, do)
-    dq = flash_bwd_dq_reference(q, k, v, do, lse, delta, causal)
-    dqp = flash_bwd_dq_reference(qp, kp, vp, dop, lse, delta, causal, scale)
-    dk, dv = flash_bwd_dkv_reference(q, k, v, do, lse, delta, causal)
-    dkp, dvp = flash_bwd_dkv_reference(qp, kp, vp, dop, lse, delta, causal,
-                                       scale)
-    for got, want in ((dqp, dq), (dkp, dk), (dvp, dv)):
-        assert torch.equal(got[..., :D], want)
-        assert not got[..., D:].any()
+    for kernel in ("dq", "dkv"):
+        Dk = kernel_route(kernel, dtype, D).head_dim
+        if Dk == D:
+            continue  # a general SIMT kernel or a build: no padding
+        _, (qp, kp, vp, dop) = pad_head_dim(q, k, v, do, head_dims=(Dk,))
+        if kernel == "dq":
+            pairs = ((flash_bwd_dq_reference(qp, kp, vp, dop, lse, delta,
+                                             causal, scale),
+                      flash_bwd_dq_reference(q, k, v, do, lse, delta,
+                                             causal)),)
+        else:
+            pairs = zip(flash_bwd_dkv_reference(qp, kp, vp, dop, lse, delta,
+                                                causal, scale),
+                        flash_bwd_dkv_reference(q, k, v, do, lse, delta,
+                                                causal))
+        for got, want in pairs:
+            assert torch.equal(got[..., :D], want)
+            assert not got[..., D:].any()
+
+
+# (dtype, D) -> the wrapper each of K1, K2, K3 routes to on the card, with
+# the head dim it runs at, its chunks along D and its passes
+_ROUTES = {
+    (torch.float32, 64): (("flash_attention_fwd", 64, 1, 1),
+                          ("flash_bwd_dq", 64, 1, 1),
+                          ("flash_bwd_dkv", 64, 1, 1)),
+    (torch.float32, 200): (("flash_attention_fwd", 256, 1, 1),
+                           ("flash_bwd_dq_general", 200, 4, 1),
+                           ("flash_bwd_dkv_general", 200, 4, 1)),
+    (torch.float32, 256): (("flash_attention_fwd", 256, 1, 1),
+                           ("flash_bwd_dq_general", 256, 4, 1),
+                           ("flash_bwd_dkv_general", 256, 4, 1)),
+    (torch.float32, 257): (("flash_fwd_general", 257, 5, 1),
+                           ("flash_bwd_dq_general", 257, 5, 1),
+                           ("flash_bwd_dkv_general", 257, 5, 1)),
+    (torch.float32, 320): (("flash_fwd_general", 320, 5, 1),
+                           ("flash_bwd_dq_general", 320, 5, 1),
+                           ("flash_bwd_dkv_general", 320, 5, 1)),
+    (torch.float32, 512): (("flash_fwd_general", 512, 8, 1),
+                           ("flash_bwd_dq_general", 512, 8, 1),
+                           ("flash_bwd_dkv_general", 512, 8, 1)),
+    (torch.float32, 1024): (("flash_fwd_general", 1024, 16, 1),
+                            ("flash_bwd_dq_general", 1024, 16, 1),
+                            ("flash_bwd_dkv_general", 1024, 16, 1)),
+}
+for _dtype in (torch.bfloat16, torch.float16):
+    _ROUTES.update({
+        (_dtype, 64): (("flash_attention_fwd", 64, 1, 1),
+                       ("flash_bwd_dq", 64, 1, 1),
+                       ("flash_bwd_dkv", 64, 1, 1)),
+        (_dtype, 200): (("flash_attention_fwd", 256, 1, 1),
+                        ("flash_bwd_dq", 256, 1, 1),
+                        ("flash_bwd_dkv", 256, 1, 2)),
+        (_dtype, 256): (("flash_attention_fwd", 256, 1, 1),
+                        ("flash_bwd_dq", 256, 1, 1),
+                        ("flash_bwd_dkv", 256, 1, 2)),
+        (_dtype, 257): (("flash_fwd_general_mma", 320, 2, 1),
+                        ("flash_bwd_dq_general", 257, 5, 1),
+                        ("flash_bwd_dkv_general_mma", 320, 2, 2)),
+        (_dtype, 320): (("flash_fwd_general_mma", 320, 2, 1),
+                        ("flash_bwd_dq_general", 320, 5, 1),
+                        ("flash_bwd_dkv_general_mma", 320, 2, 2)),
+        (_dtype, 512): (("flash_fwd_general_mma", 512, 2, 1),
+                        ("flash_bwd_dq_general", 512, 8, 1),
+                        ("flash_bwd_dkv_general_mma", 512, 2, 2)),
+        (_dtype, 1024): (("flash_fwd_general_mma", 1024, 4, 1),
+                         ("flash_bwd_dq_general", 1024, 16, 1),
+                         ("flash_bwd_dkv_general_mma", 1024, 4, 2)),
+    })
+
+
+@pytest.mark.parametrize("dtype,D", list(_ROUTES), ids=[
+    f"{str(dtype).split('.')[-1]}-{D}" for dtype, D in _ROUTES])
+def test_kernel_route_names_the_kernel_for_each_dtype_and_head_dim(dtype,
+                                                                   D):
+    """``kernel_route`` is a pure function of (dtype, D), the one the
+    wrappers route by, and needs no GPU: fp32 beyond its builds goes to the
+    SIMT general kernels (unpadded, 64-column chunks), bf16/fp16 above 256
+    to the tensor-core general kernels for K1 and K3 (padded to a multiple
+    of 64, 256-column chunks; K3 in two passes, dV and dK) and to the SIMT
+    general kernel for K2; each route names a wrapper of the module."""
+    import importlib
+
+    from metisfl_tpu_torch.ops.flash_attention import kernel_route
+
+    fa = importlib.import_module("metisfl_tpu_torch.ops.flash_attention")
+    for kernel, want in zip(("fwd", "dq", "dkv"), _ROUTES[(dtype, D)]):
+        route = kernel_route(kernel, dtype, D)
+        assert tuple(route) == want, (kernel, route)
+        assert hasattr(getattr(fa, route.wrapper), "launches")
 
 
 def test_kernel_head_dims_need_no_copy():
@@ -729,24 +844,29 @@ _FWD_256_GPU_CASES = [
 def _launch_counts():
     from metisfl_tpu_torch.ops.flash_attention import (
         flash_bwd_dkv_general,
+        flash_bwd_dkv_general_mma,
         flash_bwd_dq_general,
         flash_fwd_general,
+        flash_fwd_general_mma,
     )
 
     return {fn.__name__: fn.launches for fn in (
         flash_attention_fwd, flash_bwd_dq, flash_bwd_dkv, flash_fwd_general,
-        flash_bwd_dq_general, flash_bwd_dkv_general)}
+        flash_bwd_dq_general, flash_bwd_dkv_general, flash_fwd_general_mma,
+        flash_bwd_dkv_general_mma)}
 
 
-def _check_fwd_bwd_on_gpu(dtype, causal, B, Hq, Hkv, L, D, device):
-    """K1, then K2 and K3 through flash_attention_bwd, against their twins
-    at the unpadded cases' tolerances; returns the launches each wrapper
-    counted."""
+def _check_fwd_bwd_on_gpu(dtype, causal, B, Hq, Hkv, L, D, device,
+                          delta=None):
+    """K1, then K2 and K3 through flash_attention_bwd (with ``delta`` where
+    given, else δ from O), against their twins at the unpadded cases'
+    tolerances; returns the launches each wrapper counted."""
     q, k, v, o_ref, lse_ref, do = _cuda_bwd_inputs(device, dtype, B, Hq,
                                                    Hkv, L, D, causal)
     before = _launch_counts()
     o, lse = flash_attention_fwd(q, k, v, causal)
-    got = flash_attention_bwd(q, k, v, o_ref, lse_ref, do, causal)
+    got = flash_attention_bwd(q, k, v, o_ref, lse_ref, do, causal,
+                              delta=delta)
     torch.cuda.synchronize()
     after = _launch_counts()
     lse_atol = 1e-4 if dtype == torch.float32 else 1e-3
@@ -754,7 +874,8 @@ def _check_fwd_bwd_on_gpu(dtype, causal, B, Hq, Hkv, L, D, device):
     torch.testing.assert_close(o.float(), o_ref.float(),
                                atol=_FWD_ATOL[dtype], rtol=0)
     torch.testing.assert_close(lse, lse_ref, atol=lse_atol, rtol=0)
-    want = flash_attention_bwd_reference(q, k, v, o_ref, lse_ref, do, causal)
+    want = flash_attention_bwd_reference(q, k, v, o_ref, lse_ref, do, causal,
+                                         delta=delta)
     for name, a, b in zip(("dq", "dk", "dv"), got, want):
         assert a.dtype == dtype and a.shape == b.shape, name
         scale = float(b.float().abs().max())
@@ -780,7 +901,8 @@ def test_forward_kernel_at_head_dims_up_to_256_on_gpu(cuda_device, dtype,
         "flash_bwd_dq": 0 if general else 1,
         "flash_bwd_dkv": 0 if general else 2,
         "flash_bwd_dq_general": int(general),
-        "flash_bwd_dkv_general": int(general)}
+        "flash_bwd_dkv_general": int(general),
+        "flash_fwd_general_mma": 0, "flash_bwd_dkv_general_mma": 0}
 
 
 # (dtype, causal, B, Hq, Hkv, L, D): head dims beyond every build, on the
@@ -800,20 +922,25 @@ _GENERAL_GPU_CASES = [
 def test_general_kernels_beyond_every_build_on_gpu(cuda_device, dtype,
                                                     causal, B, Hq, Hkv, L,
                                                     D):
-    """K1, K2 and K3 at D > 256 go to the general kernels, one launch each,
-    and hold their twins at the tuned kernels' tolerances."""
+    """K1, K2 and K3 at D > 256 go to the general kernels, one launch each
+    (K1 and K3 on tensor cores in bf16/fp16, SIMT in fp32; K2 SIMT), and
+    hold their twins at the tuned kernels' tolerances."""
     launched = _check_fwd_bwd_on_gpu(dtype, causal, B, Hq, Hkv, L, D,
                                      cuda_device)
+    mma = dtype != torch.float32
     assert launched == {
         "flash_attention_fwd": 0, "flash_bwd_dq": 0, "flash_bwd_dkv": 0,
-        "flash_fwd_general": 1, "flash_bwd_dq_general": 1,
-        "flash_bwd_dkv_general": 1}
+        "flash_fwd_general": int(not mma), "flash_bwd_dq_general": 1,
+        "flash_bwd_dkv_general": int(not mma),
+        "flash_fwd_general_mma": int(mma),
+        "flash_bwd_dkv_general_mma": int(mma)}
 
 
 @pytest.mark.cuda
 def test_general_and_d256_kernels_are_deterministic_on_gpu(cuda_device):
-    """The general kernels and K3's two-pass D = 256 build write each
-    output once from one block: two runs give the same bits."""
+    """The general kernels (bf16 D = 320: K1 and K3 on tensor cores; fp32
+    D = 256: SIMT) and K3's two-pass D = 256 build write each output once
+    from one block: two runs give the same bits."""
     for dtype, D in ((torch.bfloat16, 256), (torch.bfloat16, 320),
                      (torch.float32, 256)):
         q, k, v, o, lse, do = _cuda_bwd_inputs(cuda_device, dtype, 1, 4, 2,
@@ -825,3 +952,113 @@ def test_general_and_d256_kernels_are_deterministic_on_gpu(cuda_device):
         torch.cuda.synchronize()
         for a, b in zip(first, second):
             assert torch.equal(a, b), (dtype, D)
+
+
+# (dtype, causal, B, Hq, Hkv, L, D): the general tensor-core kernels (K1
+# and K3 in bf16/fp16 beyond the builds) across padded head dims (320, 384,
+# 640 end inside a 256-column chunk), group sizes 1 and 4, and q/k tiles
+# (one row, one short of a tile, one past, a ragged many)
+_MMA_GENERAL_GPU_CASES = [
+    (dtype, causal, 1, 4, 4 // group, L, D)
+    for dtype in (torch.bfloat16, torch.float16)
+    for causal in (False, True)
+    for D in (320, 384, 512, 640, 1024)
+    for group in (1, 4)
+    for L in (1, 63, 65, 517)
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,causal,B,Hq,Hkv,L,D", _MMA_GENERAL_GPU_CASES)
+def test_tensor_core_general_kernels_match_twins_on_gpu(cuda_device, dtype,
+                                                        causal, B, Hq, Hkv,
+                                                        L, D):
+    """K1 and K3 beyond the builds in bf16/fp16 run on the general
+    tensor-core kernels, one launch each (K2 on its SIMT kernel), and hold
+    their twins at the tuned kernels' tolerances: o within ``_FWD_ATOL``,
+    lse 1e-3, dq, dk, dv within ``_BWD_REL`` × max|twin|, with a δ drawn
+    apart from O (as in the tuned kernels' cases, so that rows that see one
+    key compare values, not fp32 noise)."""
+    delta = torch.from_numpy(np.random.default_rng(L + D).standard_normal(
+        (B, Hq, L)).astype(np.float32)).to(cuda_device)
+    launched = _check_fwd_bwd_on_gpu(dtype, causal, B, Hq, Hkv, L, D,
+                                     cuda_device, delta=delta)
+    assert launched == {
+        "flash_attention_fwd": 0, "flash_bwd_dq": 0, "flash_bwd_dkv": 0,
+        "flash_fwd_general": 0, "flash_bwd_dq_general": 1,
+        "flash_bwd_dkv_general": 0, "flash_fwd_general_mma": 1,
+        "flash_bwd_dkv_general_mma": 1}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("D", [320, 640])
+def test_tensor_core_general_kernels_are_deterministic_on_gpu(cuda_device,
+                                                              dtype, D):
+    """Each chunk of O, dK and dV is written once, by one block, summed in
+    a fixed order (no atomics): two runs give the same bits, GQA and
+    ragged L included."""
+    from metisfl_tpu_torch.ops.flash_attention import (
+        flash_bwd_dkv_general_mma,
+        flash_fwd_general_mma,
+    )
+
+    q, k, v, o, lse, do = _cuda_bwd_inputs(cuda_device, dtype, 2, 8, 2, 517,
+                                           D, True, seed=3)
+    delta = (do.float() * o.float()).sum(-1)
+    for run in (lambda: flash_fwd_general_mma(q, k, v, True),
+                lambda: flash_bwd_dkv_general_mma(q, k, v, do, lse, delta,
+                                                  True)):
+        first, second = run(), run()
+        torch.cuda.synchronize()
+        for a, b in zip(first, second):
+            assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_tensor_core_general_kernels_refuse_misaligned_views_on_gpu(
+        cuda_device):
+    """At a head dim that needs no padding (512), a misaligned q, k, v or
+    dO never reaches the general tensor-core kernels: both wrappers raise
+    before a launch."""
+    from metisfl_tpu_torch.ops.flash_attention import (
+        flash_bwd_dkv_general_mma,
+        flash_fwd_general_mma,
+    )
+
+    q, k, v, o, lse, do = _cuda_bwd_inputs(cuda_device, torch.bfloat16, 1,
+                                           4, 2, 65, 512, True)
+    delta = (do.float() * o.float()).sum(-1)
+    before = _launch_counts()
+    for args in ((_misaligned(q), k, v), (q, _misaligned(k), v),
+                 (q, k, _misaligned(v))):
+        with pytest.raises(ValueError, match="16-byte"):
+            flash_fwd_general_mma(*args, True)
+    with pytest.raises(ValueError, match="16-byte"):
+        flash_bwd_dkv_general_mma(q, k, v, _misaligned(do), lse, delta, True)
+    with pytest.raises(ValueError, match="float16"):
+        flash_fwd_general_mma(q.float(), k.float(), v.float(), True)
+    assert _launch_counts() == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+def test_autograd_takes_the_tensor_core_route_beyond_the_builds_on_gpu(
+        cuda_device, dtype):
+    """One backward through ``flash_attention`` at D = 512 launches K1 and
+    K3 on the general tensor-core kernels, once each, and K2 on its SIMT
+    kernel; the SIMT K1 and K3 and the tuned builds stay at 0."""
+    q, k, v, _, _, _ = _cuda_bwd_inputs(cuda_device, dtype, 1, 8, 2, 256,
+                                        512, True)
+    q, k, v = (t.requires_grad_() for t in (q, k, v))
+    before = _launch_counts()
+    out = flash_attention(q, k, v, True)
+    out.transpose(1, 2).sum().backward()
+    torch.cuda.synchronize()
+    after = _launch_counts()
+    assert {n: after[n] - before[n] for n in after} == {
+        "flash_attention_fwd": 0, "flash_bwd_dq": 0, "flash_bwd_dkv": 0,
+        "flash_fwd_general": 0, "flash_bwd_dq_general": 1,
+        "flash_bwd_dkv_general": 0, "flash_fwd_general_mma": 1,
+        "flash_bwd_dkv_general_mma": 1}
+    assert all(bool(torch.isfinite(t.grad).all()) for t in (q, k, v))
