@@ -24,9 +24,10 @@ It drives the port only (it imports no jax and nothing of the JAX package):
    ``examples/long_context.py`` shape B4·Hq4·L512·D16, D = 8 and D = 32)
    and at B·Hq above the grid's 65535 (launched in batch chunks), K1-K3
    at their head dim 256 builds (K3 in two passes), and the general
-   kernels beyond the builds (K1 and K3 on tensor cores in bf16/fp16 and
-   SIMT in fp32, K2 SIMT) at D = 512 in bf16 and fp32 and, for K2/K3, at
-   fp32 D = 256; the tensor-core general kernels at the card-filling
+   kernels beyond the builds (K1-K3 on tensor cores in bf16/fp16; in fp32
+   K1 and K2 SIMT, K3 register-tiled with the second launch that sums its
+   split, held to its own twin) at D = 512 in bf16 and fp32 and, for
+   K2/K3, at fp32 D = 256; the tensor-core general kernels at the card-filling
    B2·Hq16·Hkv4·L1024·D512 bf16 causal (the D = 256 case at twice the head
    dim) and, for correctness only, at D = 320 fp16, not causal, L = 1000,
    Hq8·Hkv2; then every wrapper the wide-heads path (5.) launches, at that
@@ -96,8 +97,9 @@ memory), ``{"wide_heads": ...}`` and ``{"store": ...}`` lines, a
 ``{"kernels": [...]}`` line (each kernel's launches by path: K1-K3 at
 D = 64 on the main paths, and a row per wide-heads case and wrapper with
 its launches there, each measured at its path's shape: the tensor-core
-and the SIMT routes of K1 and K3 beyond the builds each have rows, the
-D = 512 bf16 ones also their card-filling case's numbers),
+and the fp32 routes of K1-K3 beyond the builds each have rows, the split
+fp32 K3's sum too, the D = 512 bf16 ones also their card-filling case's
+numbers),
 the GPU's name and power limit,
 and, when every phase passed, ``{"ok": true, "device": {...}}`` as its last
 line. It exits non-zero without a GPU, or outside a checkout.
@@ -254,12 +256,15 @@ class Smoke:
             print(f"-- {name}: {time.perf_counter() - t0:.3f} s", flush=True)
 
 
-# the eight kernel wrappers, by name: K1-K3, their general-D SIMT kernels
-# and the general-D tensor-core kernels of K1 and K3
+# the ten kernel wrappers, by name: K1-K3, their general-D fp32 kernels
+# (K1 and K2 SIMT, K3 register-tiled), the general-D tensor-core kernels of
+# K1-K3, and the second launch of a split fp32 K3
 KERNEL_WRAPPERS = ("flash_attention_fwd", "flash_bwd_dq", "flash_bwd_dkv",
                    "flash_fwd_general", "flash_bwd_dq_general",
                    "flash_bwd_dkv_general", "flash_fwd_general_mma",
-                   "flash_bwd_dkv_general_mma")
+                   "flash_bwd_dkv_general_mma", "flash_bwd_dq_general_mma",
+                   "flash_bwd_dkv_split_sum")
+SPLIT_SUM = "flash_bwd_dkv_split_sum"
 # K1's wrappers: they also run where a block recomputes its forward
 FWD_WRAPPERS = ("flash_attention_fwd", "flash_fwd_general",
                 "flash_fwd_general_mma")
@@ -282,6 +287,85 @@ def launch_counts():
 def reset_launches():
     for fn in kernel_wrappers():
         fn.launches = 0
+
+
+def dkv_split_at(B, Hq, Hkv, L, D, causal):
+    """``(per_slab, slabs, Dp)`` of the fp32 K3 beyond its builds at these
+    shapes on this card (slabs > 1: it launches ``SPLIT_SUM`` too)."""
+    import torch
+
+    from metisfl_tpu_torch.ops.flash_attention import (
+        dkv_head_dim,
+        dkv_split,
+    )
+
+    Dp = dkv_head_dim(D)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    return (*dkv_split(B, Hq, Hkv, L, Dp, causal, sms), Dp)
+
+
+def split_sum_case(smoke, name, B, Hq, Hkv, L, D, causal):
+    """The split fp32 K3's second launch against its twin on the card, on
+    random partials of the shape the split gives at (B, Hq, Hkv, L, D),
+    NaN in every slab a k tile lacks (read by neither): the same sums in
+    the same slab order, so bit for bit (tolerance 0), twice; timed beside
+    its bound (the bytes of the slabs it reads and the outputs it writes)
+    and its twin. No single PyTorch call computes it (library_ms null)."""
+    import torch
+
+    from metisfl_tpu_torch.ops.flash_attention import (
+        _slab_steps,
+        dkv_split_sum_reference,
+        flash_bwd_dkv_split_sum,
+    )
+
+    per_slab, slabs, Dp = dkv_split_at(B, Hq, Hkv, L, D, causal)
+    group = Hq // Hkv
+    counts = [-(-n // per_slab) for n in _slab_steps(L, group, causal)]
+    rng = np.random.default_rng(SEED + 9)
+    part = torch.from_numpy(rng.standard_normal(
+        (slabs, 2, B, Hkv, L, Dp)).astype(np.float32))
+    for t, n in enumerate(counts):
+        part[n:, :, :, :, 64 * t:64 * t + 64] = float("nan")
+    part = part.to("cuda")
+    before = flash_bwd_dkv_split_sum.launches
+    got = flash_bwd_dkv_split_sum(part, group, causal, per_slab)
+    got2 = flash_bwd_dkv_split_sum(part, group, causal, per_slab)
+    torch.cuda.synchronize()
+    want = dkv_split_sum_reference(part, group, causal, per_slab)
+    err = max(float((a - b).abs().max()) for a, b in zip(got, want))
+    smoke.check(flash_bwd_dkv_split_sum.launches == before + 2
+                and all(bool(torch.isfinite(a).all()) for a in got)
+                and err == 0.0,
+                f"{name}: {SPLIT_SUM} err {err:.3g} == 0 ({slabs} slabs of "
+                f"{per_slab} q steps)")
+    smoke.check(all(torch.equal(a, b) for a, b in zip(got, got2)),
+                f"{name}: two runs of {SPLIT_SUM} give bit-identical dK "
+                "and dV")
+
+    def run():
+        return flash_bwd_dkv_split_sum(part, group, causal, per_slab)
+
+    ms = time_ms(run)
+    rows = B * Hkv * sum(min(64, L - 64 * t) * n for t, n in
+                         enumerate(counts))
+    nbytes = float(rows * Dp * 4 * 2 + 2 * B * Hkv * L * Dp * 4)
+    record = {
+        "name": SPLIT_SUM, "case": name, "shape": [B, Hq, Hkv, L, D],
+        "dtype": "float32", "causal": causal, "max_abs_err": err,
+        "per_slab": per_slab, "slabs": slabs,
+        "scratch_bytes": part.numel() * 4,
+        "kernel_ms": ms, "kernel_device_ms": device_ms(run),
+        "kernel_host_ms": host_ms(run),
+        "plain_ms": time_ms(lambda: dkv_split_sum_reference(
+            part, group, causal, per_slab), iters=5),
+        "bound_ms": nbytes / PEAK_BYTES * 1e3, "bound_by": "bytes",
+        "library_ms": None, "library_device_ms": None,
+        "library_kernels": None, "flops": 0.0, "bytes": nbytes,
+        "tflops": 0.0,
+    }
+    print(json.dumps({"kernel_case": record}), flush=True)
+    return record
 
 
 def attention_case(smoke, name, B, Hq, Hkv, L, D, dtype_name, causal,
@@ -377,7 +461,8 @@ def backward_case(smoke, name, B, Hq, Hkv, L, D, dtype_name, causal,
                   timed=True):
     """K2 and K3 against their plain versions on the card, each twice for
     bit-identity, timed unless ``timed`` is false; returns one record per
-    kernel, named by ``kernels`` (the wrappers that must have launched)."""
+    kernel, named by ``kernels`` (the wrappers that must have launched,
+    with the split fp32 K3's sum where it splits at this shape)."""
     import torch
     import torch.nn.functional as F
 
@@ -405,8 +490,11 @@ def backward_case(smoke, name, B, Hq, Hkv, L, D, dtype_name, causal,
     torch.cuda.synchronize()
     launched = {n: c - before[n] for n, c in launch_counts().items() if
                 c - before[n]}
-    smoke.check(set(launched) == set(kernels),
-                f"{name}: the backward ran on {sorted(kernels)}: launches "
+    split = (kernels[1] == "flash_bwd_dkv_general"
+             and dkv_split_at(B, Hq, Hkv, L, D, causal)[1] > 1)
+    expected = set(kernels) | ({SPLIT_SUM} if split else set())
+    smoke.check(set(launched) == expected,
+                f"{name}: the backward ran on {sorted(expected)}: launches "
                 f"{launched}")
     want_dq = flash_bwd_dq_reference(q, k, v, do, lse, delta, causal)
     want_dk, want_dv = flash_bwd_dkv_reference(q, k, v, do, lse, delta,
@@ -441,6 +529,12 @@ def backward_case(smoke, name, B, Hq, Hkv, L, D, dtype_name, causal,
     dq_ms, dkv_ms = time_ms(run_dq), time_ms(run_dkv)
     dq_device, dkv_device = device_ms(run_dq), device_ms(run_dkv)
     dq_host, dkv_host = host_ms(run_dq), host_ms(run_dkv)
+    # the split K3's device time by kernel: the tiles' and the sum's
+    dkv_kernels = None
+    if split:
+        profiled = profile_call(run_dkv, top=4)
+        if isinstance(profiled, dict):
+            dkv_kernels = profiled["top"]
     dq_plain = time_ms(lambda: flash_bwd_dq_reference(
         q, k, v, do, lse, delta, causal), iters=5)
     dkv_plain = time_ms(lambda: flash_bwd_dkv_reference(
@@ -497,6 +591,8 @@ def backward_case(smoke, name, B, Hq, Hkv, L, D, dtype_name, causal,
             "flops": flops, "bytes": nbytes,
             "tflops": flops / (ms * 1e-3) / 1e12,
         })
+    if dkv_kernels is not None:
+        records[1]["device_kernels"] = dkv_kernels
     print(json.dumps({"kernel_case": records}), flush=True)
     return records
 
@@ -1712,24 +1808,26 @@ def multiprocess_phase(smoke, gpu):
 # -- wide-heads path: LlamaLite training at head dims beyond the main path's
 
 # dim 1024 with 4 heads (D = 256) in bf16 (K1-K3's D = 256 builds, K3 in
-# two passes) and in fp32 (K1's SIMT build, the general SIMT K2/K3), and
-# with 2 heads (D = 512) in bf16 (the general tensor-core K1 and K3, the
-# general SIMT K2) and in fp32 (the general SIMT K1-K3); depth 2, 2 Adam
-# steps at batch 2 of 256 tokens
+# two passes) and in fp32 (K1's SIMT build, the general SIMT K2, the
+# register-tiled K3 with its split sum), and with 2 heads (D = 512) in bf16
+# (the general tensor-core K1-K3) and in fp32 (the general SIMT K1 and K2,
+# the register-tiled K3 and its sum); depth 2, 2 Adam steps at batch 2 of
+# 256 tokens
 WIDE_DEPTH, WIDE_STEPS, WIDE_BATCH, WIDE_LEN = 2, 2, 2, 256
 # B, Hq, Hkv, L, D of the kernel case that fills the card at D = 512: the
 # D = 256 case's shape at twice the head dim
 FULL_D512 = (2, 16, 4, 1024, 512)
 # (label, heads, compute dtype, K1's wrapper, K2's and K3's wrappers): the
-# wrappers each head dim routes to; each also runs as a kernel case at the
-# path's own B·H·L·D
+# wrappers each head dim routes to (the fp32 K3's split sum too, where it
+# splits: dkv_split_at); each also runs as a kernel case at the path's own
+# B·H·L·D
 WIDE_CASES = (
     ("d256_bf16", 4, "bfloat16", "flash_attention_fwd",
      ("flash_bwd_dq", "flash_bwd_dkv")),
     ("d256_fp32", 4, "float32", "flash_attention_fwd",
      ("flash_bwd_dq_general", "flash_bwd_dkv_general")),
     ("d512_bf16", 2, "bfloat16", "flash_fwd_general_mma",
-     ("flash_bwd_dq_general", "flash_bwd_dkv_general_mma")),
+     ("flash_bwd_dq_general_mma", "flash_bwd_dkv_general_mma")),
     ("d512_fp32", 2, "float32", "flash_fwd_general",
      ("flash_bwd_dq_general", "flash_bwd_dkv_general")),
 )
@@ -1760,6 +1858,10 @@ def wide_heads_phase(smoke, gpu):
         # K3's D = 256 build launches twice a step (dV, then dK)
         want = {fwd: steps, dq: steps,
                 dkv: 2 * steps if dkv == "flash_bwd_dkv" else steps}
+        if dkv == "flash_bwd_dkv_general" and dkv_split_at(
+                WIDE_BATCH, heads, heads, WIDE_LEN, DIM // heads,
+                True)[1] > 1:
+            want[SPLIT_SUM] = steps
         # fp32 is the model's own compute dtype (None)
         dtype = None if dtype_name == "float32" else getattr(torch,
                                                              dtype_name)
@@ -2278,10 +2380,11 @@ def main() -> int:
     smoke.phase("kernel vs plain: flash_bwd d256", backward_case, smoke,
                 "flash_bwd_d256", 2, 16, 4, 1024, 256, "bfloat16", True,
                 2e-2)
-    # beyond every build: the general kernels, K1 and K3 on tensor cores in
-    # bf16/fp16 and SIMT in fp32, K2 SIMT in every dtype
+    # beyond every build: the general kernels, K1-K3 on tensor cores in
+    # bf16/fp16; in fp32 K1 and K2 SIMT, K3 register-tiled (and its split
+    # sum, where it splits)
     general = ("flash_bwd_dq_general", "flash_bwd_dkv_general")
-    general_mma = ("flash_bwd_dq_general", "flash_bwd_dkv_general_mma")
+    general_mma = ("flash_bwd_dq_general_mma", "flash_bwd_dkv_general_mma")
     for dtype_name, o_atol, lse_atol, rel, fwd, bwd in (
             ("bfloat16", 2e-2, 1e-3, 2e-2, "flash_fwd_general_mma",
              general_mma),
@@ -2298,6 +2401,9 @@ def main() -> int:
     smoke.phase("kernel vs plain: flash_bwd d256 fp32", backward_case, smoke,
                 "flash_bwd_general_d256_fp32", 2, 8, 2, 1024, 256, "float32",
                 True, 1e-4, general)
+    smoke.phase("kernel vs plain: the split sum at d256 fp32",
+                split_sum_case, smoke, "flash_bwd_split_sum_d256_fp32", 2,
+                8, 2, 1024, 256, True)
     # the D = 256 case's shape at twice the head dim, which fills the card:
     # the tensor-core general kernels beside the D = 256 builds
     full_cases = (
@@ -2323,13 +2429,21 @@ def main() -> int:
                                  if dtype_name == "bfloat16"
                                  else (1e-4, 1e-4, 1e-4))
         shape = (WIDE_BATCH, heads, heads, WIDE_LEN, DIM // heads)
+        sum_case = None
+        if bwd[1] == "flash_bwd_dkv_general" and dkv_split_at(
+                *shape, True)[1] > 1:
+            sum_case = smoke.phase(
+                f"kernel vs plain: the split sum wide heads {label}",
+                split_sum_case, smoke, f"flash_bwd_split_sum_wide_{label}",
+                *shape, True)
         wide_cases[label] = (
             smoke.phase(f"kernel vs plain: flash_fwd wide heads {label}",
                         attention_case, smoke, f"flash_fwd_wide_{label}",
                         *shape, dtype_name, True, o_atol, lse_atol, fwd),
             smoke.phase(f"kernel vs plain: flash_bwd wide heads {label}",
                         backward_case, smoke, f"flash_bwd_wide_{label}",
-                        *shape, dtype_name, True, rel, bwd))
+                        *shape, dtype_name, True, rel, bwd),
+            sum_case)
     sliced = smoke.phase("slice: Predict and Generate through the gateway",
                          slice_phase, smoke, gpu)
     torch.cuda.empty_cache()
@@ -2385,14 +2499,17 @@ def main() -> int:
     full_by_wrapper = {r["name"]: r for r in full_cases[1] or []}
     if full_cases[0] is not None:
         full_by_wrapper["flash_fwd_general_mma"] = full_cases[0]
+    expected_rows = 3
     for label, _, _, fwd, bwd in WIDE_CASES:
-        fwd_record, bwd_records = wide_cases[label]
+        fwd_record, bwd_records, sum_record = wide_cases[label]
         launched = wide_by_case.get(label, {}).get("launches", {})
+        expected_rows += 3 + (sum_record is not None)
         for wrapper, record, source, line in (
                 (fwd, fwd_record, "flash_fwd.cu", 76),
                 (bwd[0], (bwd_records or [None])[0], "flash_bwd.cu", 126),
                 (bwd[1], (bwd_records or [None, None])[1], "flash_bwd.cu",
-                 162)):
+                 162),
+                (SPLIT_SUM, sum_record, "flash_bwd.cu", 162)):
             if record is None:
                 continue
             by_path = {"wide_heads": launched.get(wrapper, 0)}
@@ -2430,8 +2547,12 @@ def main() -> int:
             entry["wrapper"] = record["wrapper"]
         if "at_card_filling_shape" in record:
             entry["at_card_filling_shape"] = record["at_card_filling_shape"]
-        if "case" in record:  # K2/K3: SDPA's one backward call covers both
+        if "case" in record and record["name"] != SPLIT_SUM:
+            # K2/K3: SDPA's one backward call covers both
             entry["library_covers"] = "flash_bwd_dq+flash_bwd_dkv"
+        for key in ("device_kernels", "per_slab", "slabs", "scratch_bytes"):
+            if key in record:
+                entry[key] = record[key]
         if name == "flash_fwd" and train_case is None:
             smoke.failures.append("flash_fwd has no training-shape row")
         elif name == "flash_fwd":
@@ -2446,7 +2567,7 @@ def main() -> int:
             if not count:
                 smoke.failures.append(f"{name} was not launched on the "
                                       f"{path} path")
-    if len(kernels) < 3 + 3 * len(WIDE_CASES):
+    if len(kernels) < expected_rows:
         smoke.failures.append("a kernel of the path has no measured row")
     print(f"phases done in {time.perf_counter() - started:.3f} s")
     print(json.dumps({"kernels": kernels}))

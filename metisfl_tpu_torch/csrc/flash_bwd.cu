@@ -64,13 +64,18 @@
 //
 // Beyond the builds (above 256, and above 128 in fp32, whose SIMT tiles
 // would need 274 KB of shared memory and more at D = 256):
-//   - K3 in bf16/fp16: the general tensor-core kernel
-//     (flash_bwd_dkv_general_mma_kernel, below; the wrapper zero-pads D to
-//     a multiple of 64), which streams K, V, Q and dO through shared memory
-//     64 columns at a time and gives the grid an axis over 256-column
-//     chunks of the output and one over the two outputs;
-//   - K2 in any dtype and K3 in fp32: the general SIMT kernels
-//     (flash_bwd_*_general_kernel, below), for any D.
+//   - K2 and K3 in bf16/fp16: the general tensor-core kernels
+//     (flash_bwd_dq_general_mma_kernel, flash_bwd_dkv_general_mma_kernel,
+//     below; the wrappers zero-pad D to a multiple of 64), which stream Q,
+//     K, V and dO through shared memory 64 columns at a time and give the
+//     grid an axis over 256-column chunks of the output (K3 also one over
+//     its two outputs);
+//   - K3 in fp32: the register-tiled SIMT kernel
+//     (flash_bwd_dkv_general_kernel, below; D zero-padded to a multiple of
+//     32), with the same pass and chunk axes, which splits long k tiles
+//     across blocks and sums the slabs in a second launch;
+//   - K2 in fp32: the general SIMT kernel (flash_bwd_dq_general_kernel,
+//     below), for any D.
 //
 // fp32: the SIMT kernels (flash_bwd_*_simt_kernel), a deliberate choice by
 // dtype: TF32 tensor cores keep 10 bits of mantissa, which the fp32
@@ -89,6 +94,7 @@
 //     masked (P = 0, their lse is never read) and only rows < L are stored.
 //     The TPU path pads lse with a 1e30 sentinel instead.
 
+#include <algorithm>
 #include <climits>
 
 #include <cuda_bf16.h>
@@ -362,6 +368,34 @@ constexpr size_t dkv_mma_smem_bytes() {
          4 * (size_t)(2 * 2 * kDkvBq<D>);
 }
 
+// K2's dS of one (64-row q tile, BK-key step), from the S and dP fragments
+// (queries row_a and row_b as rows, keys k0.. as columns, in wgmma's
+// accumulator layout; each row's lse, times log2 e, and delta in
+// registers): dp becomes dS = P (dP - delta) scale with P = exp(scale s -
+// lse), masked on steps that cross the diagonal or the end of the
+// sequence.
+template <int BK>
+__device__ __forceinline__ void dq_probs(const float (&s)[BK / 2],
+                                         float (&dp)[BK / 2], float lse_a,
+                                         float lse_b, float delta_a,
+                                         float delta_b, int q0, int k0,
+                                         int row_a, int row_b, int t, int L,
+                                         int causal, float scale,
+                                         float scale_log2) {
+  const bool edge = (causal && k0 + BK > q0) || k0 + BK > L;
+#pragma unroll
+  for (int i = 0; i < BK / 2; ++i) {
+    const bool hi = i & 2;
+    float p = exp2f(s[i] * scale_log2 - (hi ? lse_b : lse_a));
+    if (edge) {
+      const int k_pos = k0 + 8 * (i >> 2) + 2 * t + (i & 1);
+      const int q_pos = hi ? row_b : row_a;
+      if (k_pos >= L || (causal && k_pos > q_pos)) p = 0.f;
+    }
+    dp[i] = p * (dp[i] - (hi ? delta_b : delta_a)) * scale;
+  }
+}
+
 // K2: dQ for one 64-row q tile of one (batch, query head).
 template <typename T, int D>
 __global__ void __launch_bounds__(kMmaThreads)
@@ -454,20 +488,8 @@ flash_bwd_dq_mma_kernel(const T* __restrict__ q, const T* __restrict__ k,
     sm90::fence_operands(s);
     sm90::fence_operands(dp);
 
-    // dS = P (dP - delta) scale, P = exp(scale s - lse), masked on tiles
-    // that cross the diagonal or the end of the sequence
-    const bool edge = (causal && k0 + kTile > q0) || k0 + kTile > L;
-#pragma unroll
-    for (int i = 0; i < 32; ++i) {
-      const bool hi = i & 2;
-      float p = exp2f(s[i] * scale_log2 - (hi ? lse_b : lse_a));
-      if (edge) {
-        const int k_pos = k0 + 8 * (i >> 2) + 2 * t + (i & 1);
-        const int q_pos = hi ? row_b : row_a;
-        if (k_pos >= L || (causal && k_pos > q_pos)) p = 0.f;
-      }
-      dp[i] = p * (dp[i] - (hi ? delta_b : delta_a)) * scale;
-    }
+    dq_probs<kTile>(s, dp, lse_a, lse_b, delta_a, delta_b, q0, k0, row_a,
+                    row_b, t, L, causal, scale, scale_log2);
 
     // dQ += dS K, dS rounded to the input dtype from registers; K read
     // MN-major ([key][d], the reduction runs over keys)
@@ -963,20 +985,216 @@ flash_bwd_dkv_general_mma_kernel(const T* __restrict__ q,
 }
 
 // ---------------------------------------------------------------------------
-// beyond the builds: SIMT kernels (flash_bwd_*_general_kernel), K2 in any
-// dtype, K3 in fp32
+// bf16 / fp16 beyond the builds: the dQ tensor-core kernel
+// (flash_bwd_dq_general_mma_kernel), for any D that is a multiple of 64
+// and at least 128 (the wrapper zero-pads to one)
 //
-// One block of 256 threads per (64-row tile, b * H, 64-column chunk of the
-// output's D): four threads own one row, as in the fp32 SIMT kernels. Each
-// block recomputes its tile's S and dP over the full D, 64 columns at a
-// time through shared memory (every operand converted to fp32 as it is
-// staged), then accumulates only its own output chunk. The chunks of one
-// tile repeat the same S and dP, bit for bit. K2 rounds dS to the input
-// dtype before dS K, as the TPU kernel casts it. Bound: the tuned kernels'
-// work (6 D and 8 D operations a pair); at B1 Hq4 L512 D512 causal the
-// bytes they must move bind them in bf16 (about 3 us each), the operations
-// at SIMT's 67 TFLOP/s in fp32 (0.024 and 0.032 ms). The recompute of S and
-// dP per output chunk at SIMT rates makes them right for any D, not fast.
+// K3g's design with queries and keys trading roles. The tuned K2 keeps Q,
+// dO and dQ of its 64-row q tile in shared memory and registers, which at
+// D = 512 would take 128 KB and 256 fp32 a thread. So:
+//   - The grid is (64-row q tile, 256-column chunk of dQ, b * Hq) in one
+//     launch, tile-major with the last (longest causal) q tiles first; a
+//     block holds dQ[:, c0:c0 + 256] of its q tile in 128 fp32 registers a
+//     thread and walks the keys up to the diagonal in 32-key steps
+//     (kGenBk).
+//   - S = Q K^T and dP = dO V^T reduce over the full D on wgmma
+//     (m64n32k16, every operand K-major), one 64-column block of Q, dO, K
+//     and V at a time through K3g's ring (kRing stages filled by cp.async
+//     with the runtime row stride D). Every k step is nb = D / 64 such
+//     steps and one more, which forms dS (dq_probs, as the tuned kernel;
+//     each row's lse and delta stay in registers) and does dQ[:, chunk] +=
+//     dS K[:, chunk], dS rounded to the input dtype as _dq_kernel casts it,
+//     with K's chunk loaded for that step and read MN-major. One cp.async
+//     group per step, started kAhead steps ahead; 88 KB of shared memory
+//     at any D, so two blocks share an SM.
+//   - Work: per chunk S and dP once, and dQ once: 4 D ceil(D / 256) + 2 D
+//     operations a (q, k) pair, 10 D at D = 512 against the ideal 6 D.
+//     Bound at B2 Hq16 Hkv4 L1024 D512 causal: 6 D a pair is 51.6 GFLOP,
+//     0.0522 ms at 989 TFLOP/s.
+//   - Each dQ column is written once, by one block, summed in a fixed
+//     order: no atomics, the same bits on every run.
+
+constexpr int kGenBk = 32;  // keys of a K2g step
+static_assert(kGenBk == kGenBq, "K2g's ring stages are K3g's");
+
+constexpr size_t dq_general_mma_smem_bytes() {
+  // the ring (a Q and a dO block of kTile rows, a K and a V block of kGenBk
+  // rows: kGenStage, as K3g's) and K's chunk (16-bit values)
+  return 2 * (size_t)(kRing * kGenStage + kGenBk * kMmaChunk);
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kMmaThreads)
+flash_bwd_dq_general_mma_kernel(const T* __restrict__ q,
+                                const T* __restrict__ k,
+                                const T* __restrict__ v,
+                                const T* __restrict__ dout,
+                                const float* __restrict__ lse,
+                                const float* __restrict__ delta,
+                                T* __restrict__ dq, int Hq, int Hkv, int L,
+                                int D, float scale, int causal) {
+  constexpr int BK = kGenBk;
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  // kRing stages, each a Q, a dO, a K and a V block (swizzled)
+  T* sRing = reinterpret_cast<T*>(smem_raw);
+  T* sC = sRing + kRing * kGenStage;  // K's chunk: BK rows x 256 columns
+
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const int nq = (L + kTile - 1) / kTile;
+  const int nb = D / kBlock;  // the blocks S and dP reduce over
+  const int chunks = (D + kMmaChunk - 1) / kMmaChunk;
+  const int heads = gridDim.x / (nq * chunks);  // B * Hq
+  const int bh = blockIdx.x % heads;
+  const int chunk = blockIdx.x / heads % chunks;
+  const int rank = blockIdx.x / (heads * chunks);
+  // causal: the last q tile walks every k step, so it goes first
+  const int q0 = (causal ? nq - 1 - rank : rank) * kTile;
+  const int c0 = chunk * kMmaChunk;
+  const int nc = min(kMmaChunk, D - c0) / kBlock;  // this chunk's blocks
+  const int b = bh / Hq;
+  const int kvh = b * Hkv + (bh - b * Hq) / (Hq / Hkv);
+  const T* qb = q + (size_t)bh * L * D;
+  const T* dob = dout + (size_t)bh * L * D;
+  const T* kb = k + (size_t)kvh * L * D;
+  const T* vb = v + (size_t)kvh * L * D;
+
+  // k steps up to the q tile's diagonal; per k step, nb steps accumulate S
+  // and dP and one makes dS and the product
+  const int k_end = causal ? min(L, q0 + kTile) : L;
+  const int per = nb + 1;
+  const int n_steps = (k_end + BK - 1) / BK * per;
+
+  // one step's loads as one cp.async group (empty past the last step). A
+  // ring stage is refilled kRing block steps after its last use; the chunk
+  // at least one step after the product that read it (nb >= kAhead)
+  auto load_step = [&](int step) {
+    if (step < n_steps) {
+      const int it = step / per, blk = step - it * per;
+      const int k0 = it * BK;
+      if (blk < nb) {
+        T* stage = sRing + (it * nb + blk) % kRing * kGenStage;
+        const int col = kBlock * blk;
+        sm90::load_block_async<T, kTile, kMmaThreads>(stage, qb, q0, L, D,
+                                                      col);
+        sm90::load_block_async<T, kTile, kMmaThreads>(
+            stage + kTile * kBlock, dob, q0, L, D, col);
+        sm90::load_block_async<T, BK, kMmaThreads>(
+            stage + 2 * kTile * kBlock, kb, k0, L, D, col);
+        sm90::load_block_async<T, BK, kMmaThreads>(
+            stage + 2 * kTile * kBlock + BK * kBlock, vb, k0, L, D, col);
+      } else {
+        for (int c = 0; c < nc; ++c)
+          sm90::load_block_async<T, BK, kMmaThreads>(
+              sC + c * BK * kBlock, kb, k0, L, D, c0 + kBlock * c);
+      }
+    }
+    sm90::cp_async_commit();
+  };
+  for (int step = 0; step < kAhead; ++step) load_step(step);
+
+  // this thread's two rows of the warp's 16: g and g + 8; a row past L
+  // takes no part (it is never stored)
+  const int row_a = q0 + warp * 16 + g, row_b = row_a + 8;
+  const float* lse_bh = lse + (size_t)bh * L;
+  const float* delta_bh = delta + (size_t)bh * L;
+  const float lse_a = row_a < L ? lse_bh[row_a] * kLog2e : 0.f;
+  const float lse_b = row_b < L ? lse_bh[row_b] * kLog2e : 0.f;
+  const float delta_a = row_a < L ? delta_bh[row_a] : 0.f;
+  const float delta_b = row_b < L ? delta_bh[row_b] : 0.f;
+  const float scale_log2 = scale * kLog2e;
+  const uint32_t c_smem = sm90::smem_addr(sC);
+
+  float acc[kMmaChunk / kBlock][32], s[BK / 2], dp[BK / 2];
+#pragma unroll
+  for (int i = 0; i < 32; ++i)
+#pragma unroll
+    for (int c = 0; c < kMmaChunk / kBlock; ++c) acc[c][i] = 0.f;
+#pragma unroll
+  for (int i = 0; i < BK / 2; ++i) s[i] = dp[i] = 0.f;
+
+  for (int step = 0; step < n_steps; ++step) {
+    sm90::cp_async_wait<kAhead - 1>();  // this step's group has landed
+    sm90::fence_proxy_async();
+    __syncthreads();  // for every thread; all are done with the last step
+    load_step(step + kAhead);
+    const int it = step / per, blk = step - it * per;
+    if (blk < nb) {
+      // S (+)= Q K^T and dP (+)= dO V^T over this block's 64 columns
+      const uint32_t q_smem =
+          sm90::smem_addr(sRing + (it * nb + blk) % kRing * kGenStage);
+      const uint32_t do_smem = q_smem + kTile * kBlock * (uint32_t)sizeof(T);
+      const uint32_t k_smem = do_smem + kTile * kBlock * (uint32_t)sizeof(T);
+      const uint32_t v_smem = k_smem + BK * kBlock * (uint32_t)sizeof(T);
+      sm90::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < kBlock / 16; ++kk)
+        sm90::wgmma_ss<T, BK>(s, sm90::desc_k_major<kTile>(q_smem, kk),
+                              sm90::desc_k_major<BK>(k_smem, kk),
+                              blk > 0 || kk > 0);
+#pragma unroll
+      for (int kk = 0; kk < kBlock / 16; ++kk)
+        sm90::wgmma_ss<T, BK>(dp, sm90::desc_k_major<kTile>(do_smem, kk),
+                              sm90::desc_k_major<BK>(v_smem, kk),
+                              blk > 0 || kk > 0);
+      sm90::wgmma_commit();
+      sm90::wgmma_wait<0>();
+      sm90::fence_operands(s);
+      sm90::fence_operands(dp);
+      continue;
+    }
+
+    dq_probs<BK>(s, dp, lse_a, lse_b, delta_a, delta_b, q0, it * BK, row_a,
+                 row_b, t, L, causal, scale, scale_log2);
+    // dQ[:, chunk] += dS K[:, chunk], dS rounded to the input dtype from
+    // registers; K's chunk read MN-major ([key][d], the reduction runs over
+    // keys)
+    uint32_t a[BK / 16][4];
+#pragma unroll
+    for (int kk = 0; kk < BK / 16; ++kk) sm90::acc_to_a<T>(a[kk], dp + 8 * kk);
+    sm90::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < BK / 16; ++kk)
+#pragma unroll
+      for (int c = 0; c < kMmaChunk / kBlock; ++c)
+        if (c < nc)
+          sm90::wgmma_rs_mn<T>(acc[c], a[kk],
+                               sm90::desc_mn_major<BK>(c_smem, 16 * kk, c));
+    sm90::wgmma_commit();
+    sm90::wgmma_wait<0>();
+#pragma unroll
+    for (int c = 0; c < kMmaChunk / kBlock; ++c)
+      sm90::fence_operands(acc[c]);
+  }
+
+  T* out = dq + (size_t)bh * L * D;
+#pragma unroll
+  for (int c = 0; c < kMmaChunk / kBlock; ++c) {
+    if (c >= nc) break;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const int col = c0 + kBlock * c + 8 * j + 2 * t;
+      if (row_a < L)
+        *reinterpret_cast<uint32_t*>(out + (size_t)row_a * D + col) =
+            sm90::pack2<T>(acc[c][4 * j], acc[c][4 * j + 1]);
+      if (row_b < L)
+        *reinterpret_cast<uint32_t*>(out + (size_t)row_b * D + col) =
+            sm90::pack2<T>(acc[c][4 * j + 2], acc[c][4 * j + 3]);
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// fp32 beyond the builds: K2 (flash_bwd_dq_general_kernel, SIMT, any D)
+//
+// One block of 256 threads per (64-row q tile, b * Hq + h, 64-column chunk
+// of dQ): four threads own one row, as in the fp32 SIMT kernels. Each block
+// recomputes its tile's S and dP over the full D, 64 columns at a time
+// through shared memory, then accumulates only its own output chunk; the
+// chunks of one tile repeat the same S and dP, bit for bit. Bound: 6 D
+// operations a pair at SIMT's 67 TFLOP/s (at B2 Hq8 Hkv2 L1024 D256 causal
+// 12.9 GFLOP, 0.193 ms). The recompute of S and dP per output chunk makes
+// it right for any D, not fast.
 
 constexpr int kChunk = simt::kChunk;
 constexpr int kChunkTile = kTile * (kChunk + 1);  // floats of one tile
@@ -986,23 +1204,17 @@ constexpr size_t dq_general_smem_bytes() {
   return sizeof(float) * (size_t)(4 * kChunkTile + kTile * (kTile + 1));
 }
 
-constexpr size_t dkv_general_smem_bytes() {
-  // K, V, Q, dO chunk tiles, the P and dS tiles, one tile's lse and delta
-  return sizeof(float) *
-         (size_t)(4 * kChunkTile + 2 * kTile * (kTile + 1) + 2 * kTile);
-}
-
-// K2 at any D: dQ columns [d0, d0 + kChunk) of one 64-row q tile of one
-// (batch, query head).
-template <typename T>
+// K2 in fp32 at any D: dQ columns [d0, d0 + kChunk) of one 64-row q tile of
+// one (batch, query head).
 __global__ void __launch_bounds__(kThreads)
-flash_bwd_dq_general_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                            const T* __restrict__ v,
-                            const T* __restrict__ dout,
+flash_bwd_dq_general_kernel(const float* __restrict__ q,
+                            const float* __restrict__ k,
+                            const float* __restrict__ v,
+                            const float* __restrict__ dout,
                             const float* __restrict__ lse,
                             const float* __restrict__ delta,
-                            T* __restrict__ dq, int Hq, int Hkv, int L, int D,
-                            float scale, int causal) {
+                            float* __restrict__ dq, int Hq, int Hkv, int L,
+                            int D, float scale, int causal) {
   extern __shared__ float smem[];
   float* sQ = smem;
   float* sDO = sQ + kChunkTile;
@@ -1021,10 +1233,10 @@ flash_bwd_dq_general_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int q_pos = q0 + row;
   const bool row_in = q_pos < L;
 
-  const T* qb = q + (size_t)bh * L * D;
-  const T* dob = dout + (size_t)bh * L * D;
-  const T* kb = k + (size_t)kvh * L * D;
-  const T* vb = v + (size_t)kvh * L * D;
+  const float* qb = q + (size_t)bh * L * D;
+  const float* dob = dout + (size_t)bh * L * D;
+  const float* kb = k + (size_t)kvh * L * D;
+  const float* vb = v + (size_t)kvh * L * D;
   const float row_lse = row_in ? lse[(size_t)bh * L + q_pos] : 0.f;
   const float row_delta = row_in ? delta[(size_t)bh * L + q_pos] : 0.f;
 
@@ -1039,10 +1251,10 @@ flash_bwd_dq_general_kernel(const T* __restrict__ q, const T* __restrict__ k,
     for (int j = 0; j < kCols; ++j) s[j] = dp[j] = 0.f;
     for (int c0 = 0; c0 < D; c0 += kChunk) {
       __syncthreads();  // the previous step is done with the tiles
-      simt::load_chunk<T, kTile, kThreads>(sQ, qb, q0, L, c0, D);
-      simt::load_chunk<T, kTile, kThreads>(sDO, dob, q0, L, c0, D);
-      simt::load_chunk<T, kTile, kThreads>(sK, kb, k0, L, c0, D);
-      simt::load_chunk<T, kTile, kThreads>(sV, vb, k0, L, c0, D);
+      simt::load_chunk<kTile, kThreads>(sQ, qb, q0, L, c0, D);
+      simt::load_chunk<kTile, kThreads>(sDO, dob, q0, L, c0, D);
+      simt::load_chunk<kTile, kThreads>(sK, kb, k0, L, c0, D);
+      simt::load_chunk<kTile, kThreads>(sV, vb, k0, L, c0, D);
       __syncthreads();
       const float* qrow = sQ + row * (kChunk + 1);
       const float* dorow = sDO + row * (kChunk + 1);
@@ -1063,11 +1275,10 @@ flash_bwd_dq_general_kernel(const T* __restrict__ q, const T* __restrict__ k,
       const int k_pos = k0 + sub + 4 * j;
       const bool ok = row_in && k_pos < L && (!causal || q_pos >= k_pos);
       const float p = ok ? expf(s[j] * scale - row_lse) : 0.f;
-      sDS[row * (kTile + 1) + sub + 4 * j] =
-          simt::round_to<T>(p * (dp[j] - row_delta) * scale);
+      sDS[row * (kTile + 1) + sub + 4 * j] = p * (dp[j] - row_delta) * scale;
     }
     __syncthreads();  // everyone is done with sK before its output chunk
-    simt::load_chunk<T, kTile, kThreads>(sK, kb, k0, L, d0, D);
+    simt::load_chunk<kTile, kThreads>(sK, kb, k0, L, d0, D);
     __syncthreads();
 
     const float* dsrow = sDS + row * (kTile + 1);
@@ -1082,18 +1293,321 @@ flash_bwd_dq_general_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 
   if (row_in) {
-    T* out = dq + ((size_t)bh * L + q_pos) * D;
+    float* out = dq + ((size_t)bh * L + q_pos) * D;
 #pragma unroll
     for (int j = 0; j < kChunk / 4; ++j) {
       const int col = d0 + sub + 4 * j;
-      if (col < D) out[col] = simt::from_f<T>(acc[j]);
+      if (col < D) out[col] = acc[j];
     }
   }
 }
 
-// K3 in fp32 at any D: dK and dV columns [d0, d0 + kChunk) of one 64-row k
-// tile of one (batch, KV head), summed over the G query heads of its group.
-__global__ void __launch_bounds__(kThreads)
+// ---------------------------------------------------------------------------
+// fp32 beyond the builds: K3 (flash_bwd_dkv_general_kernel), register-tiled
+// SIMT, for any D that is a multiple of 32 and at least 64 (the wrapper
+// zero-pads to one)
+//
+// Full fp32 FMAs, as the twin computes: single-pass TF32 keeps about three
+// decimal digits and would break the fp32 limit of 1e-4 x max|ref|
+// (3xTF32 on wgmma is the later route to measure against this one).
+//   - Passes and chunks as K3g in bf16: the grid has an axis over the two
+//     outputs (dV: S^T alone, then P^T dO; dK: S^T and dP^T, then dS^T Q)
+//     and one over 256-column chunks of the output; a block of 256 threads
+//     holds dV[:, chunk] or dK[:, chunk] of its 64-row k tile, 64 fp32 a
+//     thread. Work: 4 D + 2 * 256 (dV) and 2 D + 2 D + 2 * 256 (dK)
+//     operations a (q, k) pair per chunk, 10 D at D = 256 against the
+//     ideal 8 D.
+//   - Register tiles: for S^T (64 keys x 64 queries of a q step) and dP^T
+//     each thread owns a 4 x 4 outer-product tile, reading four keys' and
+//     four queries' values with 16-byte shared loads, each load feeding 16
+//     FMAs; for the product it owns 8 keys x 8 columns (64 FMAs for four
+//     16-byte loads a query). A warp's threads are laid out 4 x 8 over
+//     each tile, so that one 16-byte load of a warp reads 128 bytes at most
+//     (one shared-memory wavefront). P^T or dS^T goes through shared
+//     memory ([query][key]) between the two.
+//   - Copies: K, Q (and V, dO in the dK pass) stream in 32-column blocks
+//     through a ring of kF32Ring stages filled by 16-byte cp.async, one
+//     group a step started kF32Ahead steps ahead, so the next blocks'
+//     loads overlap this block's FMAs; each staged row is padded to 36
+//     floats, so that the 16-byte loads of 8 consecutive rows fall in
+//     distinct banks. The product's dO or Q chunk (64 rows x 256 columns)
+//     arrives in quarters with the last four block steps of its q step,
+//     lse and delta with the product step. 190 KB of shared memory: one
+//     block an SM.
+//   - Load balance: with few KV heads (B Hkv = 4 at B2 Hq8 Hkv2) a block
+//     per (k tile, output, chunk, KV head) cannot fill 132 SMs, and causal
+//     k tiles differ 16-fold in work. So the q steps of one k tile (the G
+//     query heads of its group, member-major, times its q tiles) are cut
+//     into slabs of per_slab steps (the wrapper's dkv_split); a block per
+//     slab writes an fp32 partial into a scratch tensor, and a second
+//     launch (flash_bwd_dkv_split_sum_kernel) sums each row's slabs in
+//     slab order: no atomics, the same bits on every run. Where one slab
+//     covers every k tile the block writes dK or dV itself. The grid is
+//     tile-major with the first (longest causal) k tile first; a slab past
+//     its tile's steps exits at once.
+//   - Bound at B2 Hq8 Hkv2 L1024 D256 causal: 8 D a pair is 17.2 GFLOP,
+//     0.257 ms at SIMT's 67 TFLOP/s; the 10 D executed take 0.321 ms there.
+//     What holds it: an SM moves 32 floats a cycle from shared memory to
+//     registers for 128 FMA lanes, so the 4 x 4 tiles (2 FMAs a float)
+//     run at about half the FMA rate and the 8 x 8 product (4 a float) at
+//     about two thirds (PERF.md).
+
+constexpr int kF32Threads = 256;
+constexpr int kF32Ahead = 2;  // steps a load is started ahead of its use
+constexpr int kF32Ring = kF32Ahead + 1;  // stages of the block ring
+constexpr int kF32Block = 32;           // D columns of a streamed block
+constexpr int kF32Row = kF32Block + 4;  // floats of a staged row
+constexpr int kF32PRow = kTile + 4;     // floats of a row of P^T or dS^T
+// one ring stage: a K, a Q, a V and a dO block (kTile rows each)
+constexpr int kF32Stage = 4 * kTile * kF32Row;
+
+constexpr size_t dkv_general_smem_bytes() {
+  // the ring, dO's or Q's chunk, P^T or dS^T, one q tile's lse and delta
+  return sizeof(float) * (size_t)(kF32Ring * kF32Stage + kTile * kMmaChunk +
+                                  kTile * kF32PRow + 2 * kTile);
+}
+
+// rows [r0, r0 + kTile) and columns [col, col + kF32Block) of a row-major
+// (L, ld) fp32 matrix into a staged block (rows of kF32Row floats); rows at
+// or past L are zero and no byte of them is read
+__device__ __forceinline__ void load_f32_block(float* dst, const float* src,
+                                               int r0, int L, int ld,
+                                               int col) {
+  constexpr int kPerRow = kF32Block / 4;  // 16-byte chunks of a row
+#pragma unroll
+  for (int j = 0; j < kTile * kPerRow / kF32Threads; ++j) {
+    const int i = threadIdx.x + j * kF32Threads;
+    const int r = i / kPerRow, c = i % kPerRow;
+    const int g = r0 + r;
+    sm90::cp_async_16(dst + r * kF32Row + 4 * c,
+                      src + (size_t)(g < L ? g : 0) * ld + col + 4 * c,
+                      g < L ? 16 : 0);
+  }
+}
+
+// S^T's 4 x 4 tile of a thread: keys 16 (w % 4) + (lane % 4) + 4 i and
+// queries 32 (w / 4) + lane / 4 + 8 j of warp w, so that one 16-byte load
+// of a warp reads 4 key rows or 8 query rows, 128 bytes at most
+constexpr int kKeyStep = 4, kQueryStep = 8;
+
+// acc[i][j] += sum over the block's columns of a[kKeyStep i] .
+// b[kQueryStep j] (a and b: the thread's first key row and first query row
+// of two staged blocks): a 4 x 4 outer-product tile
+__device__ __forceinline__ void f32_tile_product(float (&acc)[4][4],
+                                                 const float* a,
+                                                 const float* b) {
+#pragma unroll
+  for (int d = 0; d < kF32Block; d += 4) {
+    float4 x[4], y[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      x[i] = *reinterpret_cast<const float4*>(a + kKeyStep * i * kF32Row + d);
+      y[i] = *reinterpret_cast<const float4*>(b + kQueryStep * i * kF32Row +
+                                              d);
+    }
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        acc[i][j] = fmaf(x[i].x, y[j].x, acc[i][j]);
+        acc[i][j] = fmaf(x[i].y, y[j].y, acc[i][j]);
+        acc[i][j] = fmaf(x[i].z, y[j].z, acc[i][j]);
+        acc[i][j] = fmaf(x[i].w, y[j].w, acc[i][j]);
+      }
+  }
+}
+
+// one block of the kernel below; kDkPass picks the output (dK, else dV)
+template <bool kDkPass>
+__device__ __forceinline__ void dkv_general_block(
+    const float* __restrict__ q, const float* __restrict__ k,
+    const float* __restrict__ v, const float* __restrict__ dout,
+    const float* __restrict__ lse, const float* __restrict__ delta,
+    float* __restrict__ out_all, float* __restrict__ part, int Hq, int Hkv,
+    int L, int D, float scale, int causal, int per_slab, int slabs) {
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  float* sRing = reinterpret_cast<float*>(smem_raw);
+  float* sC = sRing + kF32Ring * kF32Stage;  // dO's (dV pass) or Q's chunk
+  float* sP = sC + kTile * kMmaChunk;     // P^T or dS^T, [query][key]
+  float* sLse = sP + kTile * kF32PRow;    // kTile
+  float* sDelta = sLse + kTile;           // kTile
+
+  const int tid = threadIdx.x;
+  const int nk = (L + kTile - 1) / kTile;
+  const int nb = D / kF32Block;  // the blocks S^T and dP^T reduce over
+  const int chunks = (D + kMmaChunk - 1) / kMmaChunk;
+  const int heads = gridDim.x / (nk * slabs * 2 * chunks);  // B * Hkv
+  const int bkv = blockIdx.x % heads;
+  const int chunk = blockIdx.x / heads % chunks;
+  const int slab = blockIdx.x / (heads * chunks * 2) % slabs;
+  // causal: the first k tile is seen by every q tile, so it goes first
+  const int k0 = blockIdx.x / (heads * chunks * 2 * slabs) * kTile;
+  const int G = Hq / Hkv;
+  // the k tile's q steps: member-major over the group's query heads, then
+  // the q tiles from the diagonal on (causal); this slab's share of them
+  const int q_first = causal ? k0 / kTile : 0;
+  const int per_head = nk - q_first;
+  const int it0 = slab * per_slab;
+  if (it0 >= G * per_head) return;  // the tile needs fewer slabs
+  const int n_it = min(per_slab, G * per_head - it0);
+  const int per = nb + 1;  // nb block steps and the product step
+  const int n_steps = n_it * per;
+  const int c0 = chunk * kMmaChunk;
+  const int b = bkv / Hkv;
+  const int bh0 = b * Hq + (bkv - b * Hkv) * G;  // the group's first q head
+  const float* kb = k + (size_t)bkv * L * D;
+  const float* vb = v + (size_t)bkv * L * D;
+
+  // one step's loads as one cp.async group (empty past the last step). A
+  // ring stage is refilled kF32Ring block steps after its last use; the chunk
+  // quarters go with block steps max(kF32Ahead, nb - 3 + m), and lse and delta
+  // with the product step, so all are started no earlier than the first
+  // step of their q step, after the last product read the previous ones
+  auto load_step = [&](int step) {
+    if (step < n_steps) {
+      const int it = step / per, blk = step - it * per;
+      const int gi = it0 + it;
+      const int bh = bh0 + gi / per_head;
+      const int q0 = (q_first + gi % per_head) * kTile;
+      if (blk < nb) {
+        float* stage = sRing + (it * nb + blk) % kF32Ring * kF32Stage;
+        const int col = kF32Block * blk;
+        load_f32_block(stage, kb, k0, L, D, col);
+        load_f32_block(stage + kTile * kF32Row, q + (size_t)bh * L * D, q0,
+                       L, D, col);
+        if constexpr (kDkPass) {
+          load_f32_block(stage + 2 * kTile * kF32Row, vb, k0, L, D, col);
+          load_f32_block(stage + 3 * kTile * kF32Row,
+                         dout + (size_t)bh * L * D, q0, L, D, col);
+        }
+      }
+      const float* src = (kDkPass ? q : dout) + (size_t)bh * L * D;
+#pragma unroll
+      for (int m = 0; m < 4; ++m) {
+        if (blk != max(kF32Ahead, nb - 3 + m)) continue;
+        // rows [16 m, 16 m + 16) of the chunk, 64 16-byte pieces a row;
+        // columns past D are zero
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const int i = tid + j * kF32Threads;
+          const int r = 16 * m + (i >> 6), col = c0 + 4 * (i & 63);
+          const bool ok = q0 + r < L && col < D;
+          sm90::cp_async_16(sC + r * kMmaChunk + 4 * (i & 63),
+                            src + (ok ? (size_t)(q0 + r) * D + col : 0),
+                            ok ? 16 : 0);
+        }
+      }
+      if (blk == nb && tid < kTile) {
+        const int gq = q0 + tid;
+        const size_t at = (size_t)bh * L + (gq < L ? gq : 0);
+        sm90::cp_async_4(sLse + tid, lse + at, gq < L ? 4 : 0);
+        sm90::cp_async_4(sDelta + tid, delta + at, gq < L ? 4 : 0);
+      }
+    }
+    sm90::cp_async_commit();
+  };
+  for (int step = 0; step < kF32Ahead; ++step) load_step(step);
+
+  const int warp = tid >> 5, lane = tid & 31;
+  // S^T tile: the first key and query (f32_tile_product)
+  const int tk = 16 * (warp & 3) + (lane & 3);
+  const int tq = 32 * (warp >> 2) + (lane >> 2);
+  // product tile: keys pk .. pk + 7, columns pc .. pc + 3 and pc + 32 ..
+  // pc + 35 of the chunk, so that one 16-byte load of a warp reads 4 P^T
+  // or 8 chunk pieces of one row, 128 bytes at most
+  const int pk = 32 * (warp & 1) + 8 * (lane & 3);
+  const int pc = 64 * (warp >> 1) + 4 * (lane >> 2);
+  float acc[8][8], s[4][4], dp[4][4];
+#pragma unroll
+  for (int r = 0; r < 8; ++r)
+#pragma unroll
+    for (int c = 0; c < 8; ++c) acc[r][c] = 0.f;
+
+  for (int step = 0; step < n_steps; ++step) {
+    sm90::cp_async_wait<kF32Ahead - 1>();  // this step's group has landed
+    __syncthreads();  // for every thread; all are done with the last step
+    load_step(step + kF32Ahead);
+    const int it = step / per, blk = step - it * per;
+    if (blk < nb) {
+      // S^T (+)= K Q^T and, in the dK pass, dP^T (+)= V dO^T over this
+      // block's 32 columns
+      const float* stage = sRing + (it * nb + blk) % kF32Ring * kF32Stage;
+      if (blk == 0) {
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+#pragma unroll
+          for (int j = 0; j < 4; ++j) s[i][j] = dp[i][j] = 0.f;
+      }
+      f32_tile_product(s, stage + tk * kF32Row,
+                       stage + (kTile + tq) * kF32Row);
+      if constexpr (kDkPass)
+        f32_tile_product(dp, stage + (2 * kTile + tk) * kF32Row,
+                         stage + (3 * kTile + tq) * kF32Row);
+      continue;
+    }
+
+    // P^T (dV pass) or dS^T = P^T (dP^T - delta) scale (dK pass) into
+    // shared memory, P = exp(scale s - lse) masked past L and above the
+    // diagonal
+    const int gi = it0 + it;
+    const int q0 = (q_first + gi % per_head) * kTile;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int ql = tq + kQueryStep * j;
+      const int q_pos = q0 + ql;
+      const float row_lse = sLse[ql];
+      const float row_delta = sDelta[ql];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int key = tk + kKeyStep * i;
+        const bool ok = q_pos < L && (!causal || q_pos >= k0 + key);
+        const float p = ok ? expf(s[i][j] * scale - row_lse) : 0.f;
+        sP[ql * kF32PRow + key] =
+            kDkPass ? p * (dp[i][j] - row_delta) * scale : p;
+      }
+    }
+    __syncthreads();
+
+    // dV[:, chunk] += P^T dO[:, chunk] or dK[:, chunk] += dS^T Q[:, chunk]
+#pragma unroll 4
+    for (int ql = 0; ql < kTile; ++ql) {
+      const float* prow = sP + ql * kF32PRow + pk;
+      const float* crow = sC + ql * kMmaChunk + pc;
+      const float4 p0 = *reinterpret_cast<const float4*>(prow);
+      const float4 p1 = *reinterpret_cast<const float4*>(prow + 4);
+      const float4 x0 = *reinterpret_cast<const float4*>(crow);
+      const float4 x1 = *reinterpret_cast<const float4*>(crow + 32);
+      const float pr[8] = {p0.x, p0.y, p0.z, p0.w, p1.x, p1.y, p1.z, p1.w};
+      const float cr[8] = {x0.x, x0.y, x0.z, x0.w, x1.x, x1.y, x1.z, x1.w};
+#pragma unroll
+      for (int r = 0; r < 8; ++r)
+#pragma unroll
+        for (int c = 0; c < 8; ++c) acc[r][c] = fmaf(pr[r], cr[c], acc[r][c]);
+    }
+  }
+
+  // rows pk .. pk + 7 of the k tile, columns c0 + pc and c0 + pc + 32:
+  // into dK or dV, or into this slab's partial
+  float* out = slabs == 1
+                   ? out_all + (size_t)bkv * L * D
+                   : part + ((size_t)(slab * 2 + kDkPass) * heads + bkv) *
+                                L * D;
+#pragma unroll
+  for (int r = 0; r < 8; ++r) {
+    const int row = k0 + pk + r;
+    if (row >= L) break;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int col = c0 + pc + 32 * h;
+      if (col < D)
+        *reinterpret_cast<float4*>(out + (size_t)row * D + col) =
+            make_float4(acc[r][4 * h], acc[r][4 * h + 1], acc[r][4 * h + 2],
+                        acc[r][4 * h + 3]);
+    }
+  }
+}
+
+__global__ void __launch_bounds__(kF32Threads, 1)
 flash_bwd_dkv_general_kernel(const float* __restrict__ q,
                              const float* __restrict__ k,
                              const float* __restrict__ v,
@@ -1101,114 +1615,48 @@ flash_bwd_dkv_general_kernel(const float* __restrict__ q,
                              const float* __restrict__ lse,
                              const float* __restrict__ delta,
                              float* __restrict__ dk, float* __restrict__ dv,
-                             int Hq, int Hkv, int L, int D, float scale,
-                             int causal) {
-  extern __shared__ float smem[];
-  float* sK = smem;
-  float* sV = sK + kChunkTile;
-  float* sQ = sV + kChunkTile;
-  float* sDO = sQ + kChunkTile;
-  float* sP = sDO + kChunkTile;            // kTile x (kTile + 1), [key][query]
-  float* sDS = sP + kTile * (kTile + 1);   // kTile x (kTile + 1), [key][query]
-  float* sLse = sDS + kTile * (kTile + 1); // kTile
-  float* sDelta = sLse + kTile;            // kTile
+                             float* __restrict__ part, int Hq, int Hkv, int L,
+                             int D, float scale, int causal, int per_slab,
+                             int slabs) {
+  // the pass: blocks [heads * chunks, 2 heads * chunks) of each (k tile,
+  // slab)
+  const int chunks = (D + kMmaChunk - 1) / kMmaChunk;
+  const int heads = gridDim.x / ((L + kTile - 1) / kTile * slabs * 2 *
+                                 chunks);
+  if (blockIdx.x / (heads * chunks) % 2)
+    dkv_general_block<true>(q, k, v, dout, lse, delta, dk, part, Hq, Hkv, L,
+                            D, scale, causal, per_slab, slabs);
+  else
+    dkv_general_block<false>(q, k, v, dout, lse, delta, dv, part, Hq, Hkv,
+                             L, D, scale, causal, per_slab, slabs);
+}
 
-  const int tid = threadIdx.x;
-  const int row = tid >> 2;  // key row inside the tile
-  const int sub = tid & 3;
-  const int bkv = blockIdx.y;  // b * Hkv + h_kv
-  const int b = bkv / Hkv;
-  const int hkv = bkv - b * Hkv;
-  const int G = Hq / Hkv;
-  const int k0 = blockIdx.x * kTile;
-  const int d0 = blockIdx.z * kChunk;
-  const int k_pos = k0 + row;
-  const bool row_in = k_pos < L;
-  const float* kb = k + (size_t)bkv * L * D;
-  const float* vb = v + (size_t)bkv * L * D;
-
-  float acc_k[kChunk / 4], acc_v[kChunk / 4];
-#pragma unroll
-  for (int j = 0; j < kChunk / 4; ++j) acc_k[j] = acc_v[j] = 0.f;
-
-  const int q_begin = causal ? k0 : 0;
-  for (int g = 0; g < G; ++g) {
-    const int bh = b * Hq + hkv * G + g;
-    const float* qb = q + (size_t)bh * L * D;
-    const float* dob = dout + (size_t)bh * L * D;
-    const float* lseb = lse + (size_t)bh * L;
-    const float* deltab = delta + (size_t)bh * L;
-    for (int q0 = q_begin; q0 < L; q0 += kTile) {
-      float s[kCols], dp[kCols];
-#pragma unroll
-      for (int j = 0; j < kCols; ++j) s[j] = dp[j] = 0.f;
-      for (int c0 = 0; c0 < D; c0 += kChunk) {
-        __syncthreads();  // the previous step is done with the tiles
-        simt::load_chunk<float, kTile, kThreads>(sK, kb, k0, L, c0, D);
-        simt::load_chunk<float, kTile, kThreads>(sV, vb, k0, L, c0, D);
-        simt::load_chunk<float, kTile, kThreads>(sQ, qb, q0, L, c0, D);
-        simt::load_chunk<float, kTile, kThreads>(sDO, dob, q0, L, c0, D);
-        if (c0 == 0 && tid < kTile) {
-          const int gq = q0 + tid;
-          sLse[tid] = gq < L ? lseb[gq] : 0.f;
-          sDelta[tid] = gq < L ? deltab[gq] : 0.f;
-        }
-        __syncthreads();
-        const float* krow = sK + row * (kChunk + 1);
-        const float* vrow = sV + row * (kChunk + 1);
-#pragma unroll 4
-        for (int d = 0; d < kChunk; ++d) {
-          const float kd = krow[d];
-          const float vd = vrow[d];
-#pragma unroll
-          for (int j = 0; j < kCols; ++j) {
-            const int c = (sub + 4 * j) * (kChunk + 1) + d;
-            s[j] = fmaf(kd, sQ[c], s[j]);
-            dp[j] = fmaf(vd, sDO[c], dp[j]);
-          }
-        }
-      }
-#pragma unroll
-      for (int j = 0; j < kCols; ++j) {
-        const int c = sub + 4 * j;
-        const int q_pos = q0 + c;
-        const bool ok = row_in && q_pos < L && (!causal || q_pos >= k_pos);
-        const float p = ok ? expf(s[j] * scale - sLse[c]) : 0.f;
-        sP[row * (kTile + 1) + c] = p;
-        sDS[row * (kTile + 1) + c] = p * (dp[j] - sDelta[c]) * scale;
-      }
-      __syncthreads();  // everyone is done with sQ, sDO before the chunk
-      simt::load_chunk<float, kTile, kThreads>(sQ, qb, q0, L, d0, D);
-      simt::load_chunk<float, kTile, kThreads>(sDO, dob, q0, L, d0, D);
-      __syncthreads();
-
-      const float* prow = sP + row * (kTile + 1);
-      const float* dsrow = sDS + row * (kTile + 1);
-#pragma unroll 2
-      for (int c = 0; c < kTile; ++c) {
-        const float p = prow[c];
-        const float ds = dsrow[c];
-        const float* dorow = sDO + c * (kChunk + 1) + sub;
-        const float* qrow = sQ + c * (kChunk + 1) + sub;
-#pragma unroll
-        for (int j = 0; j < kChunk / 4; ++j) {
-          acc_v[j] = fmaf(p, dorow[4 * j], acc_v[j]);
-          acc_k[j] = fmaf(ds, qrow[4 * j], acc_k[j]);
-        }
-      }
+// the second launch of a split K3g: dV and dK, each row the sum of its k
+// tile's slabs from the partials (slabs, 2 = dV / dK, B * Hkv, L, D), in
+// slab order. Memory-bound: it reads every slab's partial once.
+__global__ void __launch_bounds__(kF32Threads)
+flash_bwd_dkv_split_sum_kernel(const float4* __restrict__ part,
+                               float4* __restrict__ dk,
+                               float4* __restrict__ dv, int heads, int L,
+                               int D, int G, int causal, int per_slab) {
+  const size_t per_out = (size_t)heads * L * D / 4;  // float4s of an output
+  const int nk = (L + kTile - 1) / kTile;
+  for (size_t i = blockIdx.x * (size_t)blockDim.x + threadIdx.x;
+       i < 2 * per_out; i += (size_t)gridDim.x * blockDim.x) {
+    const int pass = i >= per_out;  // 0: dV, 1: dK
+    const size_t e = i - pass * per_out;
+    const int tile = (int)(e * 4 / D % L) / kTile;
+    const int n = (G * (nk - (causal ? tile : 0)) + per_slab - 1) / per_slab;
+    const float4* src = part + pass * per_out + e;
+    float4 sum = src[0];
+    for (int sl = 1; sl < n; ++sl) {
+      const float4 x = src[(size_t)sl * 2 * per_out];
+      sum.x += x.x;
+      sum.y += x.y;
+      sum.z += x.z;
+      sum.w += x.w;
     }
-  }
-
-  if (row_in) {
-    const size_t at = ((size_t)bkv * L + k_pos) * D;
-#pragma unroll
-    for (int j = 0; j < kChunk / 4; ++j) {
-      const int col = d0 + sub + 4 * j;
-      if (col < D) {
-        dk[at + col] = acc_k[j];
-        dv[at + col] = acc_v[j];
-      }
-    }
+    (pass ? dk : dv)[e] = sum;
   }
 }
 
@@ -1325,51 +1773,40 @@ int dispatch(const Args& a, int D, int dtype, bool dq, int parts) {
   }
 }
 
-template <typename T>
 int launch_dq_general(const Args& a, int D) {
   const int tiles = (a.L + kTile - 1) / kTile;
   const int chunks = (D + kChunk - 1) / kChunk;
   const size_t smem = dq_general_smem_bytes();
-  if (int err = prepare(flash_bwd_dq_general_kernel<T>, smem)) return err;
-  flash_bwd_dq_general_kernel<T>
-      <<<dim3(tiles, a.B * a.Hq, chunks), kThreads, smem, a.stream>>>(
-          static_cast<const T*>(a.q), static_cast<const T*>(a.k),
-          static_cast<const T*>(a.v), static_cast<const T*>(a.dout), a.lse,
-          a.delta, static_cast<T*>(a.out0), a.Hq, a.Hkv, a.L, D, a.scale,
-          a.causal);
+  if (int err = prepare(flash_bwd_dq_general_kernel, smem)) return err;
+  flash_bwd_dq_general_kernel<<<dim3(tiles, a.B * a.Hq, chunks), kThreads,
+                                smem, a.stream>>>(
+      static_cast<const float*>(a.q), static_cast<const float*>(a.k),
+      static_cast<const float*>(a.v), static_cast<const float*>(a.dout),
+      a.lse, a.delta, static_cast<float*>(a.out0), a.Hq, a.Hkv, a.L, D,
+      a.scale, a.causal);
   return (int)cudaGetLastError();
 }
 
-int launch_dkv_general(const Args& a, int D) {
-  const int tiles = (a.L + kTile - 1) / kTile;
-  const int chunks = (D + kChunk - 1) / kChunk;
+// one block per (k tile, slab, pass, chunk, KV head): tile-major, so the
+// tile rank is the slow index
+int launch_dkv_general(const Args& a, int D, float* part, int per_slab,
+                       int slabs) {
   const size_t smem = dkv_general_smem_bytes();
   if (int err = prepare(flash_bwd_dkv_general_kernel, smem)) return err;
-  flash_bwd_dkv_general_kernel<<<dim3(tiles, a.B * a.Hkv, chunks), kThreads,
-                                 smem, a.stream>>>(
+  const long long grid = (long long)((a.L + kTile - 1) / kTile) * slabs * 2 *
+                         ((D + kMmaChunk - 1) / kMmaChunk) * a.B * a.Hkv;
+  if (grid > INT_MAX) return -1;
+  flash_bwd_dkv_general_kernel<<<(int)grid, kF32Threads, smem, a.stream>>>(
       static_cast<const float*>(a.q), static_cast<const float*>(a.k),
       static_cast<const float*>(a.v), static_cast<const float*>(a.dout),
       a.lse, a.delta, static_cast<float*>(a.out0),
-      static_cast<float*>(a.out1), a.Hq, a.Hkv, a.L, D, a.scale, a.causal);
+      static_cast<float*>(a.out1), part, a.Hq, a.Hkv, a.L, D, a.scale,
+      a.causal, per_slab, slabs);
   return (int)cudaGetLastError();
 }
 
-// dtype: 0 = float32, 1 = float16, 2 = bfloat16 for K2; float32 alone for
-// K3 (bf16/fp16 K3 beyond the builds runs on tensor cores)
-int dispatch_general(const Args& a, int D, int dtype, bool dq) {
-  if (a.B < 1 || a.Hkv < 1 || a.Hq % a.Hkv != 0 || a.L < 1 || D < 1)
-    return -1;
-  if (!dq) return dtype == 0 ? launch_dkv_general(a, D) : -1;
-  switch (dtype) {
-    case 0: return launch_dq_general<float>(a, D);
-    case 1: return launch_dq_general<__half>(a, D);
-    case 2: return launch_dq_general<__nv_bfloat16>(a, D);
-    default: return -1;
-  }
-}
-
-// one block per (k tile, pass, chunk, KV head): tile-major, so the tile
-// rank is the slow index
+// one block per (tile, pass, chunk, head): tile-major, so the tile rank is
+// the slow index (K3g: k tile and pass; K2g: q tile)
 template <typename T>
 int launch_dkv_general_mma(const Args& a, int D) {
   const size_t smem = dkv_general_mma_smem_bytes();
@@ -1386,6 +1823,31 @@ int launch_dkv_general_mma(const Args& a, int D) {
           a.Hkv, a.L, D, a.scale, a.causal);
   return (int)cudaGetLastError();
 }
+
+template <typename T>
+int launch_dq_general_mma(const Args& a, int D) {
+  const size_t smem = dq_general_mma_smem_bytes();
+  if (int err = prepare(flash_bwd_dq_general_mma_kernel<T>, smem))
+    return err;
+  const long long grid = (long long)((a.L + kTile - 1) / kTile) *
+                         ((D + kMmaChunk - 1) / kMmaChunk) * a.B * a.Hq;
+  if (grid > INT_MAX) return -1;
+  flash_bwd_dq_general_mma_kernel<T>
+      <<<(int)grid, kMmaThreads, smem, a.stream>>>(
+          static_cast<const T*>(a.q), static_cast<const T*>(a.k),
+          static_cast<const T*>(a.v), static_cast<const T*>(a.dout), a.lse,
+          a.delta, static_cast<T*>(a.out0), a.Hq, a.Hkv, a.L, D, a.scale,
+          a.causal);
+  return (int)cudaGetLastError();
+}
+
+// the (B, Hq, Hkv, L, D) every general kernel takes; mma: D a multiple of
+// 64 with at least kAhead blocks
+bool general_shape_ok(int B, int Hq, int Hkv, int L, int D) {
+  return B >= 1 && Hkv >= 1 && Hq % Hkv == 0 && L >= 1 && D >= 1;
+}
+
+bool mma_head_dim_ok(int D) { return D % kBlock == 0 && D / kBlock >= kAhead; }
 
 }  // namespace
 
@@ -1420,30 +1882,61 @@ int metisfl_flash_bwd_dkv(const void* q, const void* k, const void* v,
   return dispatch(a, D, dtype, false, parts);
 }
 
-// K2 at any head dim D >= 1 in any dtype, and K3 at any D in fp32 (SIMT,
-// one block per 64-column chunk of the output), with K2's and K3's
-// arguments; no alignment is needed.
+// K2 in fp32 (dtype 0) at any head dim D >= 1 (SIMT, one block per
+// 64-column chunk of dQ), with K2's arguments; no alignment is needed.
 int metisfl_flash_bwd_dq_general(const void* q, const void* k, const void* v,
                                  const void* dout, const void* lse,
                                  const void* delta, void* dq, int B, int Hq,
                                  int Hkv, int L, int D, int dtype, int causal,
                                  float scale, void* stream) {
+  if (!general_shape_ok(B, Hq, Hkv, L, D) || dtype != 0) return -1;
   const Args a{q, k, v, dout, static_cast<const float*>(lse),
                static_cast<const float*>(delta), dq, nullptr, B, Hq, Hkv, L,
                scale, causal, static_cast<cudaStream_t>(stream)};
-  return dispatch_general(a, D, dtype, true);
+  return launch_dq_general(a, D);
 }
 
+// K3 in fp32 (dtype 0) at any head dim D that is a multiple of 32 and at
+// least 64 (the wrapper zero-pads to one), with K3's arguments and the
+// split: each k tile's q steps are cut into slabs of per_slab steps
+// (slabs for the longest tile). slabs = 1 writes dk and dv; slabs > 1
+// writes fp32 partials into part, (slabs, 2, B * Hkv, L, D) with dV at
+// index 0 and dK at 1, which metisfl_flash_bwd_dkv_split_sum then sums.
+// The (B, H, L, D) tensors contiguous and 16-byte aligned.
 int metisfl_flash_bwd_dkv_general(const void* q, const void* k,
                                   const void* v, const void* dout,
                                   const void* lse, const void* delta,
-                                  void* dk, void* dv, int B, int Hq, int Hkv,
-                                  int L, int D, int dtype, int causal,
+                                  void* dk, void* dv, void* part, int B,
+                                  int Hq, int Hkv, int L, int D, int dtype,
+                                  int causal, int per_slab, int slabs,
                                   float scale, void* stream) {
+  if (!general_shape_ok(B, Hq, Hkv, L, D) || dtype != 0 ||
+      D % kF32Block != 0 || D / kF32Block < kF32Ahead || per_slab < 1 ||
+      slabs < 1 || (slabs > 1 && part == nullptr))
+    return -1;
   const Args a{q, k, v, dout, static_cast<const float*>(lse),
                static_cast<const float*>(delta), dk, dv, B, Hq, Hkv, L,
                scale, causal, static_cast<cudaStream_t>(stream)};
-  return dispatch_general(a, D, dtype, false);
+  return launch_dkv_general(a, D, static_cast<float*>(part), per_slab,
+                            slabs);
+}
+
+// The second launch of a split fp32 K3: dv and dk (B, Hkv, L, D) from the
+// partials of metisfl_flash_bwd_dkv_general with the same shapes, causal
+// and per_slab; D a multiple of 4, every tensor 16-byte aligned.
+int metisfl_flash_bwd_dkv_split_sum(const void* part, void* dk, void* dv,
+                                    int B, int Hq, int Hkv, int L, int D,
+                                    int causal, int per_slab, void* stream) {
+  if (!general_shape_ok(B, Hq, Hkv, L, D) || D % 4 != 0 || per_slab < 1)
+    return -1;
+  const long long float4s = 2LL * B * Hkv * L * D / 4;
+  const int grid = (int)std::min<long long>(
+      (float4s + kF32Threads - 1) / kF32Threads, 16384);
+  flash_bwd_dkv_split_sum_kernel<<<grid, kF32Threads, 0,
+                                   static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float4*>(part), static_cast<float4*>(dk),
+      static_cast<float4*>(dv), B * Hkv, L, D, Hq / Hkv, causal, per_slab);
+  return (int)cudaGetLastError();
 }
 
 // K3 on tensor cores in bf16 (dtype 2) or fp16 (1) at any head dim D that
@@ -1458,15 +1951,34 @@ int metisfl_flash_bwd_dkv_general_mma(const void* q, const void* k,
                                       int Hkv, int L, int D, int dtype,
                                       int causal, float scale,
                                       void* stream) {
-  if (B < 1 || Hkv < 1 || Hq % Hkv != 0 || L < 1 || D % kBlock != 0 ||
-      D / kBlock < kAhead)
-    return -1;
+  if (!general_shape_ok(B, Hq, Hkv, L, D) || !mma_head_dim_ok(D)) return -1;
   const Args a{q, k, v, dout, static_cast<const float*>(lse),
                static_cast<const float*>(delta), dk, dv, B, Hq, Hkv, L,
                scale, causal, static_cast<cudaStream_t>(stream)};
   switch (dtype) {
     case 1: return launch_dkv_general_mma<__half>(a, D);
     case 2: return launch_dkv_general_mma<__nv_bfloat16>(a, D);
+    default: return -1;
+  }
+}
+
+// K2 on tensor cores in bf16 (dtype 2) or fp16 (1) at any head dim D that
+// is a multiple of 64 and at least 128 (the wrapper zero-pads to one), with
+// K2's arguments: one block per (64-row q tile, 256-column chunk of dQ,
+// b * Hq); the (B, H, L, D) tensors contiguous and 16-byte aligned.
+int metisfl_flash_bwd_dq_general_mma(const void* q, const void* k,
+                                     const void* v, const void* dout,
+                                     const void* lse, const void* delta,
+                                     void* dq, int B, int Hq, int Hkv, int L,
+                                     int D, int dtype, int causal,
+                                     float scale, void* stream) {
+  if (!general_shape_ok(B, Hq, Hkv, L, D) || !mma_head_dim_ok(D)) return -1;
+  const Args a{q, k, v, dout, static_cast<const float*>(lse),
+               static_cast<const float*>(delta), dq, nullptr, B, Hq, Hkv, L,
+               scale, causal, static_cast<cudaStream_t>(stream)};
+  switch (dtype) {
+    case 1: return launch_dq_general_mma<__half>(a, D);
+    case 2: return launch_dq_general_mma<__nv_bfloat16>(a, D);
     default: return -1;
   }
 }

@@ -673,8 +673,8 @@ flash_fwd_general_kernel(const float* __restrict__ q,
     for (int j = 0; j < kTile / 4; ++j) s[j] = 0.f;
     for (int c0 = 0; c0 < D; c0 += kChunk) {
       __syncthreads();  // the previous step is done with the tiles
-      simt::load_chunk<float, kTile, kThreads>(sQ, qb, q0, L, c0, D);
-      simt::load_chunk<float, kTile, kThreads>(sK, kb, k0, L, c0, D);
+      simt::load_chunk<kTile, kThreads>(sQ, qb, q0, L, c0, D);
+      simt::load_chunk<kTile, kThreads>(sK, kb, k0, L, c0, D);
       __syncthreads();
       const float* qrow = sQ + row * (kChunk + 1);
 #pragma unroll 8
@@ -687,7 +687,7 @@ flash_fwd_general_kernel(const float* __restrict__ q,
     }
     // every thread passed the loop's last barrier after the previous
     // step's P V, so sV may be refilled
-    simt::load_chunk<float, kTile, kThreads>(sV, vb, k0, L, d0, D);
+    simt::load_chunk<kTile, kThreads>(sV, vb, k0, L, d0, D);
 
     float mx = kNeg;
 #pragma unroll

@@ -35,18 +35,23 @@ so do the wrappers. Which kernel takes which (dtype, D) is
   to D. That is exact: padded columns add 0 to Q·Kᵀ and to dO·Vᵀ, and
   padded V, dO, Q and K columns only give output columns that are sliced
   off. A built head dim makes no copy.
-- beyond the builds in bf16/fp16, K1 and K3 run on the general tensor-core
-  kernels (:func:`flash_fwd_general_mma`, :func:`flash_bwd_dkv_general_mma`),
+- beyond the builds in bf16/fp16, K1, K2 and K3 run on the general
+  tensor-core kernels (:func:`flash_fwd_general_mma`,
+  :func:`flash_bwd_dq_general_mma`, :func:`flash_bwd_dkv_general_mma`),
   which stream Q, K, V and dO through shared memory 64 columns at a time
   and give the grid an axis over 256-column chunks of the output (K3 also
   one over its two outputs); the wrappers zero-pad D to a multiple of 64
   the same way.
-- the rest, K1 and K3 in fp32 beyond their builds (D > 256, and D > 128
-  for the fp32 backward, whose SIMT tiles would need more than the 227 KB
-  of shared memory a block may use) and K2 beyond its builds in any dtype,
+- K3 in fp32 beyond its builds (D > 128, whose tuned SIMT tiles would need
+  more than the 227 KB of shared memory a block may use) runs on a
+  register-tiled SIMT kernel (:func:`flash_bwd_dkv_general`, D zero-padded
+  to a multiple of 32), with the same chunk and output axes, which cuts
+  long k tiles into slabs across blocks (:func:`dkv_split`) and sums their
+  fp32 partials in a second launch (:func:`flash_bwd_dkv_split_sum`).
+- the rest, K1 and K2 in fp32 beyond their builds (D > 256 and D > 128),
   runs on the general SIMT kernels, one block per 64-column chunk of the
   output and no padding (:func:`flash_fwd_general`,
-  :func:`flash_bwd_dq_general`, :func:`flash_bwd_dkv_general`).
+  :func:`flash_bwd_dq_general`).
 
 Each wrapper counts its own launches. The SIMT kernels carry b * H in
 gridDim.y, which stops at 65535, so the wrappers launch in batch chunks of
@@ -74,9 +79,16 @@ _BWD_HEAD_DIMS_FP32 = (64, 128)
 # gridDim.y of the SIMT kernels carries b * H
 _MAX_GRID_Y = 65535
 # output columns of one block of the general kernels: the SIMT kernels'
-# 64-column chunks, the tensor-core kernels' 256 (their fp32 accumulator)
+# 64-column chunks, the tensor-core kernels' and fp32 K3's 256 (their fp32
+# accumulator)
 _SIMT_CHUNK = 64
 _MMA_CHUNK = 256
+# rows of a k tile (and of a q step) of the fp32 K3 beyond its builds
+_KV_TILE = 64
+# blocks per SM that the fp32 K3's split aims its grid at (one block fits
+# an SM at a time: several per SM let the longest-first order even them
+# out; on the H100, 8 beat 2 and 4 and matched 16, PERF.md)
+_SPLIT_BLOCKS_PER_SM = 8
 
 _launch_lock = threading.Lock()
 
@@ -237,6 +249,39 @@ def mma_head_dim(D: int) -> int:
     return max(128, -(-D // 64) * 64)
 
 
+def dkv_head_dim(D: int) -> int:
+    """The head dim the fp32 K3 beyond its builds runs D at: the next
+    multiple of 32 (the width of its streamed block), and at least 64 (two
+    blocks, as :func:`mma_head_dim`)."""
+    return max(64, -(-D // 32) * 32)
+
+
+def _slab_steps(L: int, group: int, causal: bool):
+    """The q steps (64-row q tiles of the group's query heads) of each
+    64-row k tile of the fp32 K3: every q tile, or from the diagonal on."""
+    nk = -(-L // _KV_TILE)
+    return [group * (nk - (t if causal else 0)) for t in range(nk)]
+
+
+def dkv_split(B: int, Hq: int, Hkv: int, L: int, D: int, causal: bool,
+              sms: int) -> Tuple[int, int]:
+    """``(per_slab, slabs)`` of the fp32 K3 beyond its builds at these
+    shapes on a card of ``sms`` SMs: each k tile's q steps are cut into
+    slabs of ``per_slab`` steps, one block each, so that the grid holds
+    about ``_SPLIT_BLOCKS_PER_SM`` blocks' work per SM; ``slabs`` is the
+    longest tile's count. ``slabs == 1`` (a grid already that full) writes
+    dK and dV directly; more writes partials that
+    :func:`flash_bwd_dkv_split_sum` adds up. A pure function of its
+    arguments."""
+    steps = _slab_steps(L, Hq // Hkv, causal)
+    blocks = B * Hkv * 2 * -(-D // _MMA_CHUNK)  # per k tile and slab
+    per_slab = max(1, -(-blocks * sum(steps)
+                        // (_SPLIT_BLOCKS_PER_SM * sms)))
+    if per_slab >= steps[0]:
+        return steps[0], 1
+    return per_slab, -(-steps[0] // per_slab)
+
+
 class Route(NamedTuple):
     """The kernel that a CUDA tensor's call launches."""
 
@@ -246,12 +291,13 @@ class Route(NamedTuple):
     passes: int  # outputs made one at a time (K3: dV, then dK)
 
 
-# the wrappers of each kernel: (tuned builds, general SIMT, general
-# tensor-core; K2 has none of the last)
+# the wrappers of each kernel: (tuned builds, general fp32, general
+# tensor-core)
 _WRAPPERS = {
     "fwd": ("flash_attention_fwd", "flash_fwd_general",
             "flash_fwd_general_mma"),
-    "dq": ("flash_bwd_dq", "flash_bwd_dq_general", None),
+    "dq": ("flash_bwd_dq", "flash_bwd_dq_general",
+           "flash_bwd_dq_general_mma"),
     "dkv": ("flash_bwd_dkv", "flash_bwd_dkv_general",
             "flash_bwd_dkv_general_mma"),
 }
@@ -261,20 +307,25 @@ def kernel_route(kernel: str, dtype: torch.dtype, D: int) -> Route:
     """Which kernel ``kernel`` ("fwd" for K1, "dq" for K2, "dkv" for K3)
     launches on a CUDA tensor of ``dtype`` at head dim ``D``: a pure
     function of the two, and the one the wrappers route by. A tuned build
-    where D fits one (padded to it); beyond, in bf16/fp16, K1 and K3 on the
-    general tensor-core kernels (padded to :func:`mma_head_dim`); anything
-    else on the general SIMT kernels (unpadded)."""
-    tuned, simt, mma = _WRAPPERS[kernel]
+    where D fits one (padded to it); beyond, in bf16/fp16, the general
+    tensor-core kernels (padded to :func:`mma_head_dim`); in fp32, K3 on
+    its register-tiled kernel (padded to :func:`dkv_head_dim`, 256-column
+    chunks, two passes) and K1 and K2 on the general SIMT kernels
+    (unpadded)."""
+    tuned, general, mma = _WRAPPERS[kernel]
     builds = _FWD_HEAD_DIMS if kernel == "fwd" else bwd_head_dims(dtype)
     built = kernel_head_dim(D, builds)
+    passes = 2 if kernel == "dkv" else 1
     if built is not None:
         return Route(tuned, built, 1,
                      2 if kernel == "dkv" and built == 256 else 1)
-    if mma is not None and dtype != torch.float32:
+    if dtype != torch.float32:
         Dp = mma_head_dim(D)
-        return Route(mma, Dp, -(-Dp // _MMA_CHUNK),
-                     2 if kernel == "dkv" else 1)
-    return Route(simt, D, -(-D // _SIMT_CHUNK), 1)
+        return Route(mma, Dp, -(-Dp // _MMA_CHUNK), passes)
+    if kernel == "dkv":
+        Dp = dkv_head_dim(D)
+        return Route(general, Dp, -(-Dp // _MMA_CHUNK), passes)
+    return Route(general, D, -(-D // _SIMT_CHUNK), 1)
 
 
 def _check_cuda_inputs(q, k, v, **same_as_q):
@@ -378,9 +429,13 @@ _SIGNATURES = {
         "metisfl_flash_bwd_dkv": [_PTR] * 8 + [_INT] * 8 + [_FLOAT, _PTR],
         "metisfl_flash_bwd_dq_general": [_PTR] * 7 + [_INT] * 7
         + [_FLOAT, _PTR],
-        "metisfl_flash_bwd_dkv_general": [_PTR] * 8 + [_INT] * 7
+        "metisfl_flash_bwd_dkv_general": [_PTR] * 9 + [_INT] * 9
         + [_FLOAT, _PTR],
+        "metisfl_flash_bwd_dkv_split_sum": [_PTR] * 3 + [_INT] * 7
+        + [_PTR],
         "metisfl_flash_bwd_dkv_general_mma": [_PTR] * 8 + [_INT] * 7
+        + [_FLOAT, _PTR],
+        "metisfl_flash_bwd_dq_general_mma": [_PTR] * 7 + [_INT] * 7
         + [_FLOAT, _PTR],
     },
 }
@@ -569,12 +624,15 @@ def flash_bwd_dq(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     ``csrc/flash_bwd.cu``'s dQ kernel (tensor cores for bf16/fp16 at
     D <= 256, SIMT for fp32 at D <= 128; padded to the next built head dim
     as in the forward, with q, k, v and do 16-byte aligned there) or
-    raises; a larger D goes to :func:`flash_bwd_dq_general`.
-    ``flash_bwd_dq.launches`` counts this kernel's launches (one per batch
-    chunk)."""
+    raises; a larger D goes to :func:`flash_bwd_dq_general_mma` in
+    bf16/fp16 and to :func:`flash_bwd_dq_general` in fp32
+    (:func:`kernel_route`). ``flash_bwd_dq.launches`` counts this kernel's
+    launches (one per batch chunk)."""
     _bwd_inputs_on_cuda("flash_bwd_dq", q, k, v, do, lse, delta)
     B, Hq, _, D = q.shape
     route = kernel_route("dq", q.dtype, D)
+    if route.wrapper == "flash_bwd_dq_general_mma":
+        return flash_bwd_dq_general_mma(q, k, v, do, lse, delta, causal)
     if route.wrapper == "flash_bwd_dq_general":
         return flash_bwd_dq_general(q, k, v, do, lse, delta, causal)
     scale = 1.0 / math.sqrt(D)
@@ -644,11 +702,13 @@ def flash_bwd_dq_general(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          do: torch.Tensor, lse: torch.Tensor,
                          delta: torch.Tensor, causal: bool = False
                          ) -> torch.Tensor:
-    """K2 at any head dim and dtype on CUDA tensors, as
-    :func:`flash_bwd_dq`: ``csrc/flash_bwd.cu``'s general SIMT kernel (one
-    block per 64-column chunk of dQ; no padding, no alignment) or raises.
+    """K2 in fp32 at any head dim on CUDA tensors, as :func:`flash_bwd_dq`:
+    ``csrc/flash_bwd.cu``'s general SIMT kernel (one block per 64-column
+    chunk of dQ; no padding, no alignment) or raises.
+    :func:`flash_bwd_dq` routes fp32 at D > 128 here.
     ``flash_bwd_dq_general.launches`` counts launches."""
     _bwd_inputs_on_cuda("flash_bwd_dq_general", q, k, v, do, lse, delta)
+    _check_dtype("flash_bwd_dq_general", q, (torch.float32,))
     B, Hq, _, D = q.shape
     dq = torch.empty_like(q)
     for b0, b1 in _batch_chunks(B, Hq):
@@ -669,27 +729,109 @@ def flash_bwd_dkv_general(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                           delta: torch.Tensor, causal: bool = False
                           ) -> Tuple[torch.Tensor, torch.Tensor]:
     """K3 in fp32 at any head dim on CUDA tensors, as
-    :func:`flash_bwd_dkv`: ``csrc/flash_bwd.cu``'s general SIMT kernel (one
-    block per 64-column chunk of dK and dV; no atomics, no padding, no
-    alignment) or raises. ``flash_bwd_dkv_general.launches`` counts
-    launches."""
+    :func:`flash_bwd_dkv`: q, k, v and dO zero-padded along D to
+    :func:`dkv_head_dim` (exact), then ``csrc/flash_bwd.cu``'s
+    register-tiled SIMT kernel, blocks of one (64-row k tile, slab of its
+    q steps, output, 256-column chunk, KV head), with the (B, H, L, D)
+    tensors 16-byte aligned; or raises. Where :func:`dkv_split` cuts the k
+    tiles into more than one slab, the blocks write fp32 partials into a
+    scratch tensor and :func:`flash_bwd_dkv_split_sum` adds them up in a
+    fixed order: no atomics, the same bits on every run.
+    :func:`flash_bwd_dkv` routes fp32 at D > 128 here.
+    ``flash_bwd_dkv_general.launches`` counts this kernel's launches (one
+    per call)."""
     _bwd_inputs_on_cuda("flash_bwd_dkv_general", q, k, v, do, lse, delta)
     _check_dtype("flash_bwd_dkv_general", q, (torch.float32,))
-    B, Hq, _, D = q.shape
+    B, Hq, L, D = q.shape
+    Hkv = k.shape[1]
+    scale = 1.0 / math.sqrt(D)
+    Dk, (q, k, v, do) = pad_head_dim(q, k, v, do,
+                                     head_dims=(dkv_head_dim(D),))
+    _check_aligned(q=q, k=k, v=v, do=do)
+    sms = torch.cuda.get_device_properties(q.device).multi_processor_count
+    per_slab, slabs = dkv_split(B, Hq, Hkv, L, Dk, causal, sms)
     dk = torch.empty_like(k)
     dv = torch.empty_like(v)
-    for b0, b1 in _batch_chunks(B, Hq):
-        _launch("flash_bwd", "metisfl_flash_bwd_dkv_general",
-                flash_bwd_dkv_general, q.device, q[b0:b1].data_ptr(),
-                k[b0:b1].data_ptr(), v[b0:b1].data_ptr(),
-                do[b0:b1].data_ptr(), lse[b0:b1].data_ptr(),
-                delta[b0:b1].data_ptr(), dk[b0:b1].data_ptr(),
-                dv[b0:b1].data_ptr(),
-                *_shape_args(q[b0:b1], k, causal, 1.0 / math.sqrt(D)))
+    # the slabs' partials: dV at [:, 0], dK at [:, 1]
+    part = (torch.empty((slabs, 2) + tuple(k.shape), dtype=torch.float32,
+                        device=q.device) if slabs > 1 else None)
+    *shapes, scale_arg = _shape_args(q, k, causal, scale)
+    _launch("flash_bwd", "metisfl_flash_bwd_dkv_general",
+            flash_bwd_dkv_general, q.device, q.data_ptr(), k.data_ptr(),
+            v.data_ptr(), do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
+            dk.data_ptr(), dv.data_ptr(),
+            None if part is None else part.data_ptr(), *shapes, per_slab,
+            slabs, scale_arg)
+    if part is not None:
+        flash_bwd_dkv_split_sum(part, Hq // Hkv, causal, per_slab,
+                                out=(dk, dv))
+    if Dk != D:
+        dk, dv = dk[..., :D].contiguous(), dv[..., :D].contiguous()
     return dk, dv
 
 
 flash_bwd_dkv_general.launches = 0
+
+
+def dkv_split_sum_reference(part: torch.Tensor, group: int, causal: bool,
+                            per_slab: int
+                            ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain PyTorch twin of the split fp32 K3's second launch: ``(dk,
+    dv)`` from partials ``(slabs, 2, B, Hkv, L, D)`` (dV at index 0, dK
+    at 1), each row the sum, in slab order, of the slabs its 64-row k tile
+    has (``ceil(steps / per_slab)`` of :func:`_slab_steps`); the rest of
+    ``part`` is never read."""
+    L = part.shape[4]
+    counts = torch.tensor([-(-n // per_slab) for n in _slab_steps(
+        L, group, causal)], device=part.device)
+    rows = counts.repeat_interleave(_KV_TILE)[:L]  # slabs of each row
+    out = part[0].clone()
+    for slab in range(1, part.shape[0]):
+        has = (rows > slab)[:, None]
+        out = out + torch.where(has, part[slab], torch.zeros_like(out))
+    return out[1], out[0]
+
+
+def flash_bwd_dkv_split_sum(part: torch.Tensor, group: int, causal: bool,
+                            per_slab: int,
+                            out: Optional[Tuple[torch.Tensor,
+                                                torch.Tensor]] = None
+                            ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The split fp32 K3's second launch: ``(dk, dv)`` (B, Hkv, L, D) fp32
+    from the partials ``(slabs, 2, B, Hkv, L, D)`` that
+    :func:`flash_bwd_dkv_general` wrote with ``per_slab`` q steps a slab,
+    for ``group`` query heads per KV head; written into ``out`` where
+    given. CPU tensors run :func:`dkv_split_sum_reference`; CUDA tensors
+    launch ``csrc/flash_bwd.cu``'s sum kernel (each row's slabs added in
+    slab order) or raise. ``flash_bwd_dkv_split_sum.launches`` counts
+    launches."""
+    if not _on_cuda(part):
+        return dkv_split_sum_reference(part, group, causal, per_slab)
+    if (part.dtype != torch.float32 or part.dim() != 6
+            or part.shape[1] != 2 or not part.is_contiguous()
+            or part.shape[-1] % 4):
+        raise ValueError(f"part must be a contiguous (slabs, 2, B, Hkv, L, "
+                         f"D) float32 tensor with D a multiple of 4, got "
+                         f"{tuple(part.shape)} {part.dtype}")
+    _, _, B, Hkv, L, D = part.shape
+    if out is None:
+        out = (torch.empty_like(part[0, 1]), torch.empty_like(part[0, 0]))
+    dk, dv = out
+    for name, t in (("dk", dk), ("dv", dv)):
+        if (t.device != part.device or t.dtype != torch.float32
+                or t.shape != part.shape[2:] or not t.is_contiguous()):
+            raise ValueError(f"{name} must be a contiguous "
+                             f"{tuple(part.shape[2:])} float32 tensor on "
+                             f"{part.device}")
+    _check_aligned(part=part, dk=dk, dv=dv)
+    _launch("flash_bwd", "metisfl_flash_bwd_dkv_split_sum",
+            flash_bwd_dkv_split_sum, part.device, part.data_ptr(),
+            dk.data_ptr(), dv.data_ptr(), B, Hkv * group, Hkv, L, D,
+            int(bool(causal)), per_slab)
+    return dk, dv
+
+
+flash_bwd_dkv_split_sum.launches = 0
 
 
 def flash_bwd_dkv_general_mma(q: torch.Tensor, k: torch.Tensor,
@@ -730,6 +872,40 @@ def flash_bwd_dkv_general_mma(q: torch.Tensor, k: torch.Tensor,
 
 
 flash_bwd_dkv_general_mma.launches = 0
+
+
+def flash_bwd_dq_general_mma(q: torch.Tensor, k: torch.Tensor,
+                             v: torch.Tensor, do: torch.Tensor,
+                             lse: torch.Tensor, delta: torch.Tensor,
+                             causal: bool = False) -> torch.Tensor:
+    """K2 on tensor cores at any head dim, bf16/fp16, on CUDA tensors, as
+    :func:`flash_bwd_dq`: q, k, v and dO zero-padded along D to
+    :func:`mma_head_dim` (exact), then ``csrc/flash_bwd.cu``'s general
+    tensor-core kernel, one block per (64-row q tile, 256-column chunk of
+    dQ, head), without atomics, with the (B, H, L, D) tensors 16-byte
+    aligned; or raises. :func:`flash_bwd_dq` routes bf16/fp16 at D > 256
+    here. ``flash_bwd_dq_general_mma.launches`` counts launches (one per
+    batch chunk)."""
+    _bwd_inputs_on_cuda("flash_bwd_dq_general_mma", q, k, v, do, lse,
+                        delta)
+    _check_dtype("flash_bwd_dq_general_mma", q, _MMA_DTYPES)
+    B, Hq, _, D = q.shape
+    scale = 1.0 / math.sqrt(D)
+    Dk, (q, k, v, do) = pad_head_dim(q, k, v, do,
+                                     head_dims=(mma_head_dim(D),))
+    _check_aligned(q=q, k=k, v=v, do=do)
+    dq = torch.empty_like(q)
+    for b0, b1 in _batch_chunks(B, Hq):
+        _launch("flash_bwd", "metisfl_flash_bwd_dq_general_mma",
+                flash_bwd_dq_general_mma, q.device, q[b0:b1].data_ptr(),
+                k[b0:b1].data_ptr(), v[b0:b1].data_ptr(),
+                do[b0:b1].data_ptr(), lse[b0:b1].data_ptr(),
+                delta[b0:b1].data_ptr(), dq[b0:b1].data_ptr(),
+                *_shape_args(q[b0:b1], k, causal, scale))
+    return dq if Dk == D else dq[..., :D].contiguous()
+
+
+flash_bwd_dq_general_mma.launches = 0
 
 
 def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

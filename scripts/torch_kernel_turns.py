@@ -5,14 +5,17 @@ one NVIDIA GPU.
     python3 scripts/torch_kernel_turns.py --root build/turns/parent --root .
     python3 scripts/torch_kernel_turns.py --shape 2,16,4,1024,512 \
         --root build/turns/parent --root .
+    python3 scripts/torch_kernel_turns.py --shape 2,8,2,1024,256 \
+        --dtype float32 --root build/turns/parent --root .
 
 Each checkout's ``metisfl_tpu_torch`` runs in a process of its own (its
 kernels built from its own ``csrc/`` into its own ``build/``), in the
 order A, B, B, A for two roots (``--turns 2``), so that two versions are
 compared on the same card within one call. Each run times
 ``flash_attention_fwd``, ``flash_bwd_dq`` and ``flash_bwd_dkv`` at one
-shape, bf16 and causal: ``--shape B,Hq,Hkv,L,D`` (default the training
-shape of ``chip_smoke.py``, B8·Hq16·Hkv4·L1024·D64). It times them three
+shape and dtype, causal: ``--shape B,Hq,Hkv,L,D`` (default the training
+shape of ``chip_smoke.py``, B8·Hq16·Hkv4·L1024·D64) and ``--dtype``
+(bfloat16, float16 or float32; default bfloat16). It times them three
 ways: CUDA events around 20 back-to-back calls (``ms``, as chip_smoke's
 kernel rows), the profiler's device time per call (``device_ms``) and the
 host's time per call with no sync between calls (``host_ms``). Where
@@ -83,7 +86,7 @@ def _launches(fa):
             if callable(fn) and hasattr(fn, "launches")}
 
 
-def child(root: str, shape) -> int:
+def child(root: str, shape, dtype_name: str) -> int:
     sys.path.insert(0, os.path.abspath(root))
     import importlib
 
@@ -94,7 +97,7 @@ def child(root: str, shape) -> int:
     B, Hq, Hkv, L, D = shape
     rng = np.random.default_rng(SEED)
     q, k, v, do = (torch.from_numpy(rng.standard_normal(s).astype(
-        np.float32)).to("cuda", torch.bfloat16)
+        np.float32)).to("cuda", getattr(torch, dtype_name))
         for s in ((B, Hq, L, D), (B, Hkv, L, D), (B, Hkv, L, D),
                   (B, Hq, L, D)))
     o, lse = fa.flash_attention_fwd(q, k, v, True)
@@ -117,7 +120,7 @@ def child(root: str, shape) -> int:
             {"ms": _time_ms(torch, fn), "device_ms": _device_ms(torch, fn),
              "host_ms": _host_ms(torch, fn)} for _ in range(REPEATS)]}
     print(json.dumps({"turn": {"root": root, "shape": list(shape),
-                               "dtype": "bfloat16", "causal": True,
+                               "dtype": dtype_name, "causal": True,
                                "kernels": out}}),
           flush=True)
     return 0
@@ -134,13 +137,16 @@ def main() -> int:
     parser.add_argument("--shape", default=",".join(map(str, TRAINING_SHAPE)),
                         help="B,Hq,Hkv,L,D (default: the training shape, "
                              "%(default)s)")
+    parser.add_argument("--dtype", default="bfloat16",
+                        choices=("bfloat16", "float16", "float32"),
+                        help="the inputs' dtype (default: %(default)s)")
     parser.add_argument("--child", help=argparse.SUPPRESS)
     args = parser.parse_args()
     shape = tuple(int(x) for x in args.shape.split(","))
     if len(shape) != 5:
         parser.error(f"--shape takes B,Hq,Hkv,L,D, got {args.shape!r}")
     if args.child:
-        return child(args.child, shape)
+        return child(args.child, shape, args.dtype)
     import torch
 
     if not torch.cuda.is_available():
@@ -152,8 +158,8 @@ def main() -> int:
              for r in (roots if t % 2 == 0 else roots[::-1])]
     for root in order:
         rc = subprocess.run([sys.executable, os.path.abspath(__file__),
-                             "--shape", args.shape, "--child",
-                             root]).returncode
+                             "--shape", args.shape, "--dtype", args.dtype,
+                             "--child", root]).returncode
         if rc:
             print(f"torch_kernel_turns: {root} exited {rc}", file=sys.stderr)
             return rc

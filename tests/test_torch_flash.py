@@ -594,10 +594,12 @@ def test_head_dim_padding_is_exact(causal, D, dtype):
     q, k, v and dO zero-padded to the head dim of the kernel each call
     routes to (``kernel_route``: the next build, 64, 128 or 256 for K1 and
     for K2 and K3 in bf16/fp16, 64 or 128 for K2 and K3 in fp32; beyond the
-    builds, K1 and K3 in bf16/fp16 the next multiple of 64 of the
-    tensor-core general kernels), run with the true D's scale and sliced
-    back, give the unpadded twins' o, lse, dq, dk and dv to 0 ulp, and 0 in
-    every padded column. The SIMT general kernels take D unpadded.
+    builds, K1, K2 and K3 in bf16/fp16 the next multiple of 64 of the
+    tensor-core general kernels, K3 in fp32 the next multiple of 32 of its
+    register-tiled kernel), run with the true
+    D's scale and sliced back, give the unpadded twins' o, lse, dq, dk and
+    dv to 0 ulp, and 0 in every padded column. The fp32 SIMT general
+    kernels of K1 and K2 take D unpadded.
 
     The inputs are multiples of 1/8 in [-1, 1], exact in every dtype, so
     that every product and every sum over D (Q·Kᵀ, dO·Vᵀ) is exact in fp32
@@ -663,22 +665,22 @@ _ROUTES = {
                           ("flash_bwd_dkv", 64, 1, 1)),
     (torch.float32, 200): (("flash_attention_fwd", 256, 1, 1),
                            ("flash_bwd_dq_general", 200, 4, 1),
-                           ("flash_bwd_dkv_general", 200, 4, 1)),
+                           ("flash_bwd_dkv_general", 224, 1, 2)),
     (torch.float32, 256): (("flash_attention_fwd", 256, 1, 1),
                            ("flash_bwd_dq_general", 256, 4, 1),
-                           ("flash_bwd_dkv_general", 256, 4, 1)),
+                           ("flash_bwd_dkv_general", 256, 1, 2)),
     (torch.float32, 257): (("flash_fwd_general", 257, 5, 1),
                            ("flash_bwd_dq_general", 257, 5, 1),
-                           ("flash_bwd_dkv_general", 257, 5, 1)),
+                           ("flash_bwd_dkv_general", 288, 2, 2)),
     (torch.float32, 320): (("flash_fwd_general", 320, 5, 1),
                            ("flash_bwd_dq_general", 320, 5, 1),
-                           ("flash_bwd_dkv_general", 320, 5, 1)),
+                           ("flash_bwd_dkv_general", 320, 2, 2)),
     (torch.float32, 512): (("flash_fwd_general", 512, 8, 1),
                            ("flash_bwd_dq_general", 512, 8, 1),
-                           ("flash_bwd_dkv_general", 512, 8, 1)),
+                           ("flash_bwd_dkv_general", 512, 2, 2)),
     (torch.float32, 1024): (("flash_fwd_general", 1024, 16, 1),
                             ("flash_bwd_dq_general", 1024, 16, 1),
-                            ("flash_bwd_dkv_general", 1024, 16, 1)),
+                            ("flash_bwd_dkv_general", 1024, 4, 2)),
 }
 for _dtype in (torch.bfloat16, torch.float16):
     _ROUTES.update({
@@ -692,16 +694,16 @@ for _dtype in (torch.bfloat16, torch.float16):
                         ("flash_bwd_dq", 256, 1, 1),
                         ("flash_bwd_dkv", 256, 1, 2)),
         (_dtype, 257): (("flash_fwd_general_mma", 320, 2, 1),
-                        ("flash_bwd_dq_general", 257, 5, 1),
+                        ("flash_bwd_dq_general_mma", 320, 2, 1),
                         ("flash_bwd_dkv_general_mma", 320, 2, 2)),
         (_dtype, 320): (("flash_fwd_general_mma", 320, 2, 1),
-                        ("flash_bwd_dq_general", 320, 5, 1),
+                        ("flash_bwd_dq_general_mma", 320, 2, 1),
                         ("flash_bwd_dkv_general_mma", 320, 2, 2)),
         (_dtype, 512): (("flash_fwd_general_mma", 512, 2, 1),
-                        ("flash_bwd_dq_general", 512, 8, 1),
+                        ("flash_bwd_dq_general_mma", 512, 2, 1),
                         ("flash_bwd_dkv_general_mma", 512, 2, 2)),
         (_dtype, 1024): (("flash_fwd_general_mma", 1024, 4, 1),
-                         ("flash_bwd_dq_general", 1024, 16, 1),
+                         ("flash_bwd_dq_general_mma", 1024, 4, 1),
                          ("flash_bwd_dkv_general_mma", 1024, 4, 2)),
     })
 
@@ -711,11 +713,13 @@ for _dtype in (torch.bfloat16, torch.float16):
 def test_kernel_route_names_the_kernel_for_each_dtype_and_head_dim(dtype,
                                                                    D):
     """``kernel_route`` is a pure function of (dtype, D), the one the
-    wrappers route by, and needs no GPU: fp32 beyond its builds goes to the
-    SIMT general kernels (unpadded, 64-column chunks), bf16/fp16 above 256
-    to the tensor-core general kernels for K1 and K3 (padded to a multiple
-    of 64, 256-column chunks; K3 in two passes, dV and dK) and to the SIMT
-    general kernel for K2; each route names a wrapper of the module."""
+    wrappers route by, and needs no GPU: fp32 beyond its builds goes, for
+    K1 and K2, to the SIMT general kernels (unpadded, 64-column chunks) and,
+    for K3, to its register-tiled kernel (padded to a multiple of 32,
+    256-column chunks, two passes); bf16/fp16 above 256 to the tensor-core
+    general kernels for K1, K2 and K3 (padded to a multiple of 64,
+    256-column chunks; K3 in two passes, dV and dK); each route names a
+    wrapper of the module."""
     import importlib
 
     from metisfl_tpu_torch.ops.flash_attention import kernel_route
@@ -725,6 +729,168 @@ def test_kernel_route_names_the_kernel_for_each_dtype_and_head_dim(dtype,
         route = kernel_route(kernel, dtype, D)
         assert tuple(route) == want, (kernel, route)
         assert hasattr(getattr(fa, route.wrapper), "launches")
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("D", [257, 300, 320, 384, 400, 512, 640, 1024,
+                               4096])
+def test_dq_route_beyond_the_builds_is_the_tensor_core_kernel(dtype, D):
+    """In bf16/fp16 every head dim above 256 sends K2 to the general
+    tensor-core kernel, padded to a multiple of 64, one pass, a block per
+    256-column chunk; never to the SIMT kernel, which is fp32 only."""
+    from metisfl_tpu_torch.ops.flash_attention import kernel_route
+
+    route = kernel_route("dq", dtype, D)
+    assert route.wrapper == "flash_bwd_dq_general_mma"
+    assert route.wrapper != "flash_bwd_dq_general"
+    assert route.head_dim == -(-D // 64) * 64 and route.passes == 1
+    assert route.chunks == -(-route.head_dim // 256)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("D", [257, 300, 400])
+@pytest.mark.parametrize("causal", [False, True])
+def test_dq_padding_at_the_tensor_core_route_is_exact(causal, D, dtype):
+    """K2's twin at the head dim the tensor-core route pads D to (320, 320,
+    448) equals the twin at the true D to 0 ulp, with 0 in every padded
+    column: padded K and V columns add 0 to Q·Kᵀ and dO·Vᵀ, and padded K
+    columns only give dQ columns that are sliced off. Inputs are multiples
+    of 1/8, exact in every dtype, as in the padding test above; GQA (4
+    query heads on 2 KV heads) and a ragged L = 37."""
+    import math
+
+    from metisfl_tpu_torch.ops.flash_attention import (
+        _delta,
+        flash_bwd_dq_reference,
+        kernel_route,
+        pad_head_dim,
+    )
+
+    rng = np.random.default_rng(D)
+    q, do = (torch.from_numpy(rng.integers(-8, 9, (1, 4, 37, D)) / 8).to(
+        dtype) for _ in range(2))
+    k, v = (torch.from_numpy(rng.integers(-8, 9, (1, 2, 37, D)) / 8).to(
+        dtype) for _ in range(2))
+    o, lse = flash_attention_fwd_reference(q, k, v, causal)
+    delta = _delta(o, do)
+    Dk = kernel_route("dq", dtype, D).head_dim
+    assert Dk == -(-D // 64) * 64 > D
+    _, (qp, kp, vp, dop) = pad_head_dim(q, k, v, do, head_dims=(Dk,))
+    got = flash_bwd_dq_reference(qp, kp, vp, dop, lse, delta, causal,
+                                 1.0 / math.sqrt(D))
+    want = flash_bwd_dq_reference(q, k, v, do, lse, delta, causal)
+    assert got.shape[-1] == Dk and got.dtype == dtype
+    assert torch.equal(got[..., :D], want)
+    assert not got[..., D:].any()
+
+
+@pytest.mark.parametrize("B,Hq,Hkv,L,D,causal", [
+    (2, 8, 2, 1024, 256, True), (2, 8, 2, 1024, 256, False),
+    (2, 4, 4, 256, 256, True), (2, 2, 2, 256, 512, True),
+    (1, 4, 4, 512, 512, True), (8, 16, 4, 1024, 256, True),
+    (1, 8, 2, 65, 224, True), (1, 4, 1, 517, 608, False),
+    (64, 32, 8, 4096, 1024, True)])
+@pytest.mark.parametrize("sms", [1, 132])
+def test_dkv_split_cuts_the_longest_tile_into_slabs(B, Hq, Hkv, L, D,
+                                                    causal, sms):
+    """``dkv_split`` is a pure function of the shapes and the card's SM
+    count: ``slabs`` slabs of ``per_slab`` q steps cover the longest k
+    tile (the first, when causal) and one slab fewer would not; no slab
+    is longer than the work of about ``_SPLIT_BLOCKS_PER_SM`` blocks per
+    SM needs; a grid that is full already is not split."""
+    from metisfl_tpu_torch.ops.flash_attention import (
+        _SPLIT_BLOCKS_PER_SM,
+        _slab_steps,
+        dkv_split,
+    )
+
+    steps = _slab_steps(L, Hq // Hkv, causal)
+    assert len(steps) == -(-L // 64) and steps[0] == max(steps)
+    per_slab, slabs = dkv_split(B, Hq, Hkv, L, D, causal, sms)
+    assert (per_slab, slabs) == dkv_split(B, Hq, Hkv, L, D, causal, sms)
+    assert per_slab >= 1 and slabs >= 1
+    assert per_slab * slabs >= steps[0] > per_slab * (slabs - 1)
+    blocks = B * Hkv * 2 * -(-D // 256)
+    target = -(-blocks * sum(steps) // (_SPLIT_BLOCKS_PER_SM * sms))
+    if slabs == 1:
+        assert per_slab == steps[0] <= max(1, target)
+    else:
+        assert per_slab == max(1, target)
+
+
+def _split_partials(q, k, v, do, lse, delta, causal, per_slab, slabs):
+    """The split fp32 K3's partials, computed the way its blocks cut the
+    work (each 64-row k tile's q steps, member-major over the group's query
+    heads, then the 64-row q tiles from the diagonal on, in slabs of
+    ``per_slab``), with the twin's dense P and dS: (slabs, 2, B, Hkv, L, D),
+    dV at 0 and dK at 1, NaN where a tile has no such slab (never read)."""
+    from metisfl_tpu_torch.ops.flash_attention import _bwd_probs
+
+    B, Hq, L, D = q.shape
+    Hkv = k.shape[1]
+    G = Hq // Hkv
+    p, ds = _bwd_probs(q, k, v, do, lse, delta, causal)
+    part = torch.full((slabs, 2, B, Hkv, L, D), float("nan"))
+    nk = -(-L // 64)
+    for t in range(nk):
+        keys = slice(64 * t, min(L, 64 * t + 64))
+        first = t if causal else 0
+        per_head = nk - first
+        for slab in range(slabs):
+            steps = range(slab * per_slab,
+                          min(G * per_head, (slab + 1) * per_slab))
+            if not steps:
+                continue
+            dv = torch.zeros(B, Hkv, keys.stop - keys.start, D)
+            dk = torch.zeros_like(dv)
+            for gi in steps:
+                g, qt = divmod(gi, per_head)
+                h = torch.arange(Hkv) * G + g  # the q head of each group
+                rows = slice(64 * (first + qt), min(L, 64 * (first + qt + 1)))
+                pt = p[:, h, rows, keys]
+                dst = ds[:, h, rows, keys]
+                dv += torch.einsum("bhqk,bhqd->bhkd", pt, do[:, h, rows])
+                dk += torch.einsum("bhqk,bhqd->bhkd", dst, q[:, h, rows])
+            part[slab, 0, :, :, keys] = dv
+            part[slab, 1, :, :, keys] = dk
+    return part
+
+
+@pytest.mark.parametrize("B,Hq,Hkv,L,causal,per_slab", [
+    (1, 4, 2, 130, True, 1), (1, 4, 2, 130, False, 2),
+    (2, 4, 1, 200, True, 3), (1, 2, 2, 65, True, 1),
+    (1, 8, 2, 129, False, 5)])
+def test_split_partials_sum_to_the_dkv_twin(B, Hq, Hkv, L, causal,
+                                            per_slab):
+    """The fp32 K3's split, emulated on the CPU: each slab's partial (the
+    blocks' cut of every k tile's q steps) summed by the second launch's
+    twin, which reads only the slabs each tile has (the rest hold NaN),
+    gives the dK/dV twin: every (query head, q tile) pair of a k tile lies
+    in exactly one slab, GQA, ragged L and both masks included."""
+    from metisfl_tpu_torch.ops.flash_attention import (
+        _delta,
+        _slab_steps,
+        dkv_split_sum_reference,
+        flash_bwd_dkv_reference,
+        flash_bwd_dkv_split_sum,
+    )
+
+    q, k, v, do = (torch.from_numpy(a) for a in _bwd_inputs(
+        B=B, Hq=Hq, Hkv=Hkv, L=L, D=32))
+    o, lse = flash_attention_fwd_reference(q, k, v, causal)
+    delta = _delta(o, do)
+    slabs = -(-_slab_steps(L, Hq // Hkv, causal)[0] // per_slab)
+    part = _split_partials(q, k, v, do, lse, delta, causal, per_slab, slabs)
+    dk, dv = dkv_split_sum_reference(part, Hq // Hkv, causal, per_slab)
+    want_dk, want_dv = flash_bwd_dkv_reference(q, k, v, do, lse, delta,
+                                               causal)
+    np.testing.assert_allclose(dk.numpy(), want_dk.numpy(), atol=ATOL)
+    np.testing.assert_allclose(dv.numpy(), want_dv.numpy(), atol=ATOL)
+    # on CPU tensors the wrapper runs the twin, no launch
+    before = flash_bwd_dkv_split_sum.launches
+    got = flash_bwd_dkv_split_sum(part, Hq // Hkv, causal, per_slab)
+    assert flash_bwd_dkv_split_sum.launches == before
+    assert all(torch.equal(a, b) for a, b in zip(got, (dk, dv)))
 
 
 def test_kernel_head_dims_need_no_copy():
@@ -845,7 +1011,9 @@ def _launch_counts():
     from metisfl_tpu_torch.ops.flash_attention import (
         flash_bwd_dkv_general,
         flash_bwd_dkv_general_mma,
+        flash_bwd_dkv_split_sum,
         flash_bwd_dq_general,
+        flash_bwd_dq_general_mma,
         flash_fwd_general,
         flash_fwd_general_mma,
     )
@@ -853,7 +1021,21 @@ def _launch_counts():
     return {fn.__name__: fn.launches for fn in (
         flash_attention_fwd, flash_bwd_dq, flash_bwd_dkv, flash_fwd_general,
         flash_bwd_dq_general, flash_bwd_dkv_general, flash_fwd_general_mma,
-        flash_bwd_dkv_general_mma)}
+        flash_bwd_dkv_general_mma, flash_bwd_dq_general_mma,
+        flash_bwd_dkv_split_sum)}
+
+
+def _split_launches(device, B, Hq, Hkv, L, D, causal):
+    """1 where the fp32 K3 beyond its builds splits its k tiles at these
+    shapes on ``device`` (and so launches its sum), else 0."""
+    from metisfl_tpu_torch.ops.flash_attention import (
+        dkv_head_dim,
+        dkv_split,
+    )
+
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    return int(dkv_split(B, Hq, Hkv, L, dkv_head_dim(D), causal,
+                         sms)[1] > 1)
 
 
 def _check_fwd_bwd_on_gpu(dtype, causal, B, Hq, Hkv, L, D, device,
@@ -892,7 +1074,7 @@ def test_forward_kernel_at_head_dims_up_to_256_on_gpu(cuda_device, dtype,
     """K1 against its twin at D = 256 (its own instantiation) and D = 200
     (padded to it), one launch; the backward runs too: in bf16/fp16 on
     K2's D = 256 build and K3's, once for dV and once for dK; in fp32 on
-    the general kernels."""
+    the general kernels (K3's split sum where it splits)."""
     launched = _check_fwd_bwd_on_gpu(dtype, causal, B, Hq, Hkv, L, D,
                                      cuda_device)
     general = dtype == torch.float32
@@ -902,7 +1084,10 @@ def test_forward_kernel_at_head_dims_up_to_256_on_gpu(cuda_device, dtype,
         "flash_bwd_dkv": 0 if general else 2,
         "flash_bwd_dq_general": int(general),
         "flash_bwd_dkv_general": int(general),
-        "flash_fwd_general_mma": 0, "flash_bwd_dkv_general_mma": 0}
+        "flash_fwd_general_mma": 0, "flash_bwd_dkv_general_mma": 0,
+        "flash_bwd_dq_general_mma": 0,
+        "flash_bwd_dkv_split_sum": general and _split_launches(
+            cuda_device, B, Hq, Hkv, L, D, causal)}
 
 
 # (dtype, causal, B, Hq, Hkv, L, D): head dims beyond every build, on the
@@ -923,17 +1108,22 @@ def test_general_kernels_beyond_every_build_on_gpu(cuda_device, dtype,
                                                     causal, B, Hq, Hkv, L,
                                                     D):
     """K1, K2 and K3 at D > 256 go to the general kernels, one launch each
-    (K1 and K3 on tensor cores in bf16/fp16, SIMT in fp32; K2 SIMT), and
-    hold their twins at the tuned kernels' tolerances."""
+    (on tensor cores in bf16/fp16; SIMT in fp32, K3 with its split sum
+    where it splits), and hold their twins at the tuned kernels'
+    tolerances."""
     launched = _check_fwd_bwd_on_gpu(dtype, causal, B, Hq, Hkv, L, D,
                                      cuda_device)
     mma = dtype != torch.float32
     assert launched == {
         "flash_attention_fwd": 0, "flash_bwd_dq": 0, "flash_bwd_dkv": 0,
-        "flash_fwd_general": int(not mma), "flash_bwd_dq_general": 1,
+        "flash_fwd_general": int(not mma),
+        "flash_bwd_dq_general": int(not mma),
         "flash_bwd_dkv_general": int(not mma),
         "flash_fwd_general_mma": int(mma),
-        "flash_bwd_dkv_general_mma": int(mma)}
+        "flash_bwd_dkv_general_mma": int(mma),
+        "flash_bwd_dq_general_mma": int(mma),
+        "flash_bwd_dkv_split_sum": 0 if mma else _split_launches(
+            cuda_device, B, Hq, Hkv, L, D, causal)}
 
 
 @pytest.mark.cuda
@@ -973,9 +1163,9 @@ _MMA_GENERAL_GPU_CASES = [
 def test_tensor_core_general_kernels_match_twins_on_gpu(cuda_device, dtype,
                                                         causal, B, Hq, Hkv,
                                                         L, D):
-    """K1 and K3 beyond the builds in bf16/fp16 run on the general
-    tensor-core kernels, one launch each (K2 on its SIMT kernel), and hold
-    their twins at the tuned kernels' tolerances: o within ``_FWD_ATOL``,
+    """K1, K2 and K3 beyond the builds in bf16/fp16 run on the general
+    tensor-core kernels, one launch each, and hold their twins at the
+    tuned kernels' tolerances: o within ``_FWD_ATOL``,
     lse 1e-3, dq, dk, dv within ``_BWD_REL`` × max|twin|, with a δ drawn
     apart from O (as in the tuned kernels' cases, so that rows that see one
     key compare values, not fp32 noise)."""
@@ -985,9 +1175,10 @@ def test_tensor_core_general_kernels_match_twins_on_gpu(cuda_device, dtype,
                                      cuda_device, delta=delta)
     assert launched == {
         "flash_attention_fwd": 0, "flash_bwd_dq": 0, "flash_bwd_dkv": 0,
-        "flash_fwd_general": 0, "flash_bwd_dq_general": 1,
+        "flash_fwd_general": 0, "flash_bwd_dq_general": 0,
         "flash_bwd_dkv_general": 0, "flash_fwd_general_mma": 1,
-        "flash_bwd_dkv_general_mma": 1}
+        "flash_bwd_dkv_general_mma": 1, "flash_bwd_dq_general_mma": 1,
+        "flash_bwd_dkv_split_sum": 0}
 
 
 @pytest.mark.cuda
@@ -995,11 +1186,12 @@ def test_tensor_core_general_kernels_match_twins_on_gpu(cuda_device, dtype,
 @pytest.mark.parametrize("D", [320, 640])
 def test_tensor_core_general_kernels_are_deterministic_on_gpu(cuda_device,
                                                               dtype, D):
-    """Each chunk of O, dK and dV is written once, by one block, summed in
-    a fixed order (no atomics): two runs give the same bits, GQA and
+    """Each chunk of O, dQ, dK and dV is written once, by one block, summed
+    in a fixed order (no atomics): two runs give the same bits, GQA and
     ragged L included."""
     from metisfl_tpu_torch.ops.flash_attention import (
         flash_bwd_dkv_general_mma,
+        flash_bwd_dq_general_mma,
         flash_fwd_general_mma,
     )
 
@@ -1008,7 +1200,9 @@ def test_tensor_core_general_kernels_are_deterministic_on_gpu(cuda_device,
     delta = (do.float() * o.float()).sum(-1)
     for run in (lambda: flash_fwd_general_mma(q, k, v, True),
                 lambda: flash_bwd_dkv_general_mma(q, k, v, do, lse, delta,
-                                                  True)):
+                                                  True),
+                lambda: (flash_bwd_dq_general_mma(q, k, v, do, lse, delta,
+                                                  True),)):
         first, second = run(), run()
         torch.cuda.synchronize()
         for a, b in zip(first, second):
@@ -1019,10 +1213,12 @@ def test_tensor_core_general_kernels_are_deterministic_on_gpu(cuda_device,
 def test_tensor_core_general_kernels_refuse_misaligned_views_on_gpu(
         cuda_device):
     """At a head dim that needs no padding (512), a misaligned q, k, v or
-    dO never reaches the general tensor-core kernels: both wrappers raise
-    before a launch."""
+    dO never reaches the general tensor-core kernels, nor the fp32 K3:
+    every wrapper raises before a launch."""
     from metisfl_tpu_torch.ops.flash_attention import (
+        flash_bwd_dkv_general,
         flash_bwd_dkv_general_mma,
+        flash_bwd_dq_general_mma,
         flash_fwd_general_mma,
     )
 
@@ -1036,8 +1232,18 @@ def test_tensor_core_general_kernels_refuse_misaligned_views_on_gpu(
             flash_fwd_general_mma(*args, True)
     with pytest.raises(ValueError, match="16-byte"):
         flash_bwd_dkv_general_mma(q, k, v, _misaligned(do), lse, delta, True)
+    for args in ((_misaligned(q), k, v, do), (q, _misaligned(k), v, do),
+                 (q, k, _misaligned(v), do), (q, k, v, _misaligned(do))):
+        with pytest.raises(ValueError, match="16-byte"):
+            flash_bwd_dq_general_mma(*args, lse, delta, True)
+    with pytest.raises(ValueError, match="16-byte"):
+        flash_bwd_dkv_general(q.float(), k.float(), v.float(),
+                              _misaligned(do.float()), lse, delta, True)
     with pytest.raises(ValueError, match="float16"):
         flash_fwd_general_mma(q.float(), k.float(), v.float(), True)
+    with pytest.raises(ValueError, match="float16"):
+        flash_bwd_dq_general_mma(q.float(), k.float(), v.float(), do.float(),
+                                 lse, delta, True)
     assert _launch_counts() == before
 
 
@@ -1045,9 +1251,9 @@ def test_tensor_core_general_kernels_refuse_misaligned_views_on_gpu(
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
 def test_autograd_takes_the_tensor_core_route_beyond_the_builds_on_gpu(
         cuda_device, dtype):
-    """One backward through ``flash_attention`` at D = 512 launches K1 and
-    K3 on the general tensor-core kernels, once each, and K2 on its SIMT
-    kernel; the SIMT K1 and K3 and the tuned builds stay at 0."""
+    """One backward through ``flash_attention`` at D = 512 launches K1, K2
+    and K3 on the general tensor-core kernels, once each; the SIMT general
+    kernels and the tuned builds stay at 0."""
     q, k, v, _, _, _ = _cuda_bwd_inputs(cuda_device, dtype, 1, 8, 2, 256,
                                         512, True)
     q, k, v = (t.requires_grad_() for t in (q, k, v))
@@ -1058,7 +1264,107 @@ def test_autograd_takes_the_tensor_core_route_beyond_the_builds_on_gpu(
     after = _launch_counts()
     assert {n: after[n] - before[n] for n in after} == {
         "flash_attention_fwd": 0, "flash_bwd_dq": 0, "flash_bwd_dkv": 0,
-        "flash_fwd_general": 0, "flash_bwd_dq_general": 1,
+        "flash_fwd_general": 0, "flash_bwd_dq_general": 0,
         "flash_bwd_dkv_general": 0, "flash_fwd_general_mma": 1,
-        "flash_bwd_dkv_general_mma": 1}
+        "flash_bwd_dkv_general_mma": 1, "flash_bwd_dq_general_mma": 1,
+        "flash_bwd_dkv_split_sum": 0}
     assert all(bool(torch.isfinite(t.grad).all()) for t in (q, k, v))
+
+
+# (causal, B, Hq, Hkv, L, D): the fp32 K3 beyond its builds across padded
+# head dims (129, 200 and 300 pad to 160, 224 and 320; 600 to 608, a
+# 96-column last chunk), group sizes 1 and 4 (B2·Hq8·Hkv2: B·Hkv = 4, the
+# split path), one row, ragged and many tiles
+_FP32_DKV_GPU_CASES = [
+    (causal, B, Hq, Hkv, L, D)
+    for causal in (False, True)
+    for D in (129, 200, 256, 300, 512, 600)
+    for B, Hq, Hkv in ((1, 4, 4), (2, 8, 2))
+    for L in (1, 65, 517)
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("causal,B,Hq,Hkv,L,D", _FP32_DKV_GPU_CASES)
+def test_fp32_dkv_general_kernel_matches_twin_on_gpu(cuda_device, causal, B,
+                                                      Hq, Hkv, L, D):
+    """The register-tiled fp32 K3 holds its twin within 1e-4 × max|twin|
+    (δ drawn apart from O, as the tensor-core cases), one launch, plus the
+    split sum where ``dkv_split`` cuts its k tiles; D comes back
+    unpadded."""
+    from metisfl_tpu_torch.ops.flash_attention import (
+        flash_bwd_dkv_general,
+        flash_bwd_dkv_reference,
+    )
+
+    q, k, v, _, lse, do = _cuda_bwd_inputs(cuda_device, torch.float32, B,
+                                           Hq, Hkv, L, D, causal)
+    delta = torch.from_numpy(np.random.default_rng(L + D).standard_normal(
+        (B, Hq, L)).astype(np.float32)).to(cuda_device)
+    before = _launch_counts()
+    got = flash_bwd_dkv_general(q, k, v, do, lse, delta, causal)
+    torch.cuda.synchronize()
+    after = _launch_counts()
+    split = _split_launches(cuda_device, B, Hq, Hkv, L, D, causal)
+    assert {n: after[n] - before[n] for n in after if after[n] - before[n]} \
+        == {"flash_bwd_dkv_general": 1,
+            **({"flash_bwd_dkv_split_sum": 1} if split else {})}
+    want = flash_bwd_dkv_reference(q, k, v, do, lse, delta, causal)
+    for name, a, b in zip(("dk", "dv"), got, want):
+        assert a.shape == b.shape == k.shape and a.is_contiguous(), name
+        scale = float(b.abs().max())
+        err = float((a - b).abs().max())
+        assert err <= _BWD_REL[torch.float32] * scale, (name, err, scale)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("D", [256, 600])
+def test_fp32_dkv_general_kernel_is_deterministic_on_gpu(cuda_device,
+                                                         causal, D):
+    """The fp32 K3 writes each partial once, from one block, and its sum
+    adds a row's slabs in slab order (no atomics): two runs give the same
+    bits, at B2·Hq8·Hkv2 (split) and B8·Hq8·Hkv8 (a grid that needs none
+    on the H100)."""
+    from metisfl_tpu_torch.ops.flash_attention import flash_bwd_dkv_general
+
+    for B, Hq, Hkv in ((2, 8, 2), (8, 8, 8)):
+        q, k, v, o, lse, do = _cuda_bwd_inputs(cuda_device, torch.float32,
+                                               B, Hq, Hkv, 517, D, causal,
+                                               seed=3)
+        delta = (do * o).sum(-1)
+        first = flash_bwd_dkv_general(q, k, v, do, lse, delta, causal)
+        second = flash_bwd_dkv_general(q, k, v, do, lse, delta, causal)
+        torch.cuda.synchronize()
+        for a, b in zip(first, second):
+            assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("causal,group,per_slab", [
+    (True, 4, 9), (False, 4, 5), (True, 1, 1)])
+def test_split_sum_kernel_matches_twin_on_gpu(cuda_device, causal, group,
+                                              per_slab):
+    """The split fp32 K3's second launch against its twin on random
+    partials (B2·Hkv2·L1000·D96): the same sums in the same slab order,
+    bit for bit, reading no slab a tile lacks (those hold NaN)."""
+    from metisfl_tpu_torch.ops.flash_attention import (
+        _slab_steps,
+        dkv_split_sum_reference,
+        flash_bwd_dkv_split_sum,
+    )
+
+    L = 1000
+    counts = [-(-n // per_slab) for n in _slab_steps(L, group, causal)]
+    part = torch.from_numpy(np.random.default_rng(per_slab).standard_normal(
+        (counts[0], 2, 2, 2, L, 96)).astype(np.float32))
+    for t, n in enumerate(counts):
+        part[n:, :, :, :, 64 * t:64 * t + 64] = float("nan")
+    part = part.to(cuda_device)
+    before = flash_bwd_dkv_split_sum.launches
+    got = flash_bwd_dkv_split_sum(part, group, causal, per_slab)
+    torch.cuda.synchronize()
+    assert flash_bwd_dkv_split_sum.launches == before + 1
+    want = dkv_split_sum_reference(part, group, causal, per_slab)
+    for a, b in zip(got, want):
+        assert bool(torch.isfinite(a).all()) and torch.equal(a, b)
