@@ -16,8 +16,8 @@ It drives the port only (it imports no jax and nothing of the JAX package):
    that computes the same function (a yardstick the port never calls;
    SDPA's forward for K1, one call of SDPA's backward for K2+K3), each
    also as device time under the profiler and as host time per call:
-   K1 (flash_fwd; tensor cores in bf16, SIMT in fp32) at the serving and
-   the training shapes, K2 and K3 (flash_bwd_dq, flash_bwd_dkv; tensor
+   K1 (flash_fwd; tensor cores in bf16) at the serving and the training
+   shapes, K2 and K3 (flash_bwd_dq, flash_bwd_dkv; tensor
    cores in bf16) at the training shape, each run twice for bit-identity,
    with the achieved TFLOP/s; then K1-K3 at head dims the kernels are not
    built for (the wrapper zero-pads them to 64: the
@@ -25,12 +25,13 @@ It drives the port only (it imports no jax and nothing of the JAX package):
    and at B·Hq above the grid's 65535 (launched in batch chunks), K1-K3
    at their head dim 256 builds (K3 in two passes), and the general
    kernels beyond the builds (K1-K3 on tensor cores in bf16/fp16; in fp32
-   K1 and K2 SIMT, K3 register-tiled with the second launch that sums its
-   split, held to its own twin) at D = 512 in bf16 and fp32 and, for
-   K2/K3, at fp32 D = 256; the tensor-core general kernels at the card-filling
-   B2·Hq16·Hkv4·L1024·D512 bf16 causal (the D = 256 case at twice the head
-   dim) and, for correctness only, at D = 320 fp16, not causal, L = 1000,
-   Hq8·Hkv2; then every wrapper the wide-heads path (5.) launches, at that
+   K2 SIMT, K1 at every D and K3 register-tiled, each with the second
+   launch that merges or sums its split, held to its own twin) at D = 512
+   in bf16 and fp32 and at fp32 D = 256 (B2·Hq8·Hkv2·L1024), the fp32 K1
+   also at the ragged B2·Hq8·L1000·D128; the tensor-core general kernels
+   at the card-filling B2·Hq16·Hkv4·L1024·D512 bf16 causal (the D = 256
+   case at twice the head dim) and, for correctness only, at D = 320
+   fp16, not causal, L = 1000, Hq8·Hkv2; then every wrapper the wide-heads path (5.) launches, at that
    path's own B2·H·L256·D (D = 256 in bf16 and fp32, 512 in bf16 and
    fp32); each case checks which wrapper launched and records which SDPA
    kernels ran (the profiler's names: SDPA's backend);
@@ -97,9 +98,9 @@ memory), ``{"wide_heads": ...}`` and ``{"store": ...}`` lines, a
 ``{"kernels": [...]}`` line (each kernel's launches by path: K1-K3 at
 D = 64 on the main paths, and a row per wide-heads case and wrapper with
 its launches there, each measured at its path's shape: the tensor-core
-and the fp32 routes of K1-K3 beyond the builds each have rows, the split
-fp32 K3's sum too, the D = 512 bf16 ones also their card-filling case's
-numbers),
+and the fp32 routes of K1-K3 each have rows, the split fp32 K1's combine
+and K3's sum too, the D = 512 bf16 ones also their card-filling case's
+numbers, the fp32 K1 its B2·Hq8·Hkv2·L1024·D256 case's),
 the GPU's name and power limit,
 and, when every phase passed, ``{"ok": true, "device": {...}}`` as its last
 line. It exits non-zero without a GPU, or outside a checkout.
@@ -256,18 +257,20 @@ class Smoke:
             print(f"-- {name}: {time.perf_counter() - t0:.3f} s", flush=True)
 
 
-# the ten kernel wrappers, by name: K1-K3, their general-D fp32 kernels
-# (K1 and K2 SIMT, K3 register-tiled), the general-D tensor-core kernels of
-# K1-K3, and the second launch of a split fp32 K3
+# the eleven kernel wrappers, by name: K1-K3, their fp32 kernels beyond the
+# builds (K1 at every D and K3 register-tiled, K2 SIMT), the general-D
+# tensor-core kernels of K1-K3, and the second launches of a split fp32 K3
+# and a split fp32 K1
 KERNEL_WRAPPERS = ("flash_attention_fwd", "flash_bwd_dq", "flash_bwd_dkv",
                    "flash_fwd_general", "flash_bwd_dq_general",
                    "flash_bwd_dkv_general", "flash_fwd_general_mma",
                    "flash_bwd_dkv_general_mma", "flash_bwd_dq_general_mma",
-                   "flash_bwd_dkv_split_sum")
+                   "flash_bwd_dkv_split_sum", "flash_fwd_split_combine")
 SPLIT_SUM = "flash_bwd_dkv_split_sum"
+COMBINE = "flash_fwd_split_combine"
 # K1's wrappers: they also run where a block recomputes its forward
 FWD_WRAPPERS = ("flash_attention_fwd", "flash_fwd_general",
-                "flash_fwd_general_mma")
+                "flash_fwd_general_mma", COMBINE)
 # a wrapper's name in the kernels line, where it differs
 ROW_NAMES = {"flash_attention_fwd": "flash_fwd"}
 
@@ -295,13 +298,105 @@ def dkv_split_at(B, Hq, Hkv, L, D, causal):
     import torch
 
     from metisfl_tpu_torch.ops.flash_attention import (
-        dkv_head_dim,
+        f32_head_dim,
         dkv_split,
     )
 
-    Dp = dkv_head_dim(D)
+    Dp = f32_head_dim(D)
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     return (*dkv_split(B, Hq, Hkv, L, Dp, causal, sms), Dp)
+
+
+def fwd_split_at(B, Hq, L, D, causal):
+    """``(per_slab, slabs, Dp)`` of the fp32 K1 at these shapes on this
+    card (slabs > 1: it launches ``COMBINE`` too)."""
+    import torch
+
+    from metisfl_tpu_torch.ops.flash_attention import (
+        f32_head_dim,
+        fwd_split,
+    )
+
+    Dp = f32_head_dim(D)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    return (*fwd_split(B, Hq, L, Dp, causal, sms), Dp)
+
+
+def combine_case(smoke, name, B, Hq, L, D, causal):
+    """The split fp32 K1's second launch against its twin on the card, on
+    random partials of the shape the split gives at (B, Hq, L, D) (each
+    row's m and l drawn, one row with no unmasked key in its first slab),
+    NaN in every slab a q tile lacks (read by neither): o within 1e-6 x
+    max|twin| and lse within a relative 1e-6 (the two round e^(m_s - m)
+    and the products apart), twice for bit-identity; timed beside its
+    bound (the bytes of the slabs it reads and the outputs it writes) and
+    its twin. No single PyTorch call computes it (library_ms null)."""
+    import torch
+
+    from metisfl_tpu_torch.ops.flash_attention import (
+        _fwd_slab_steps,
+        flash_fwd_split_combine,
+        fwd_split_combine_reference,
+    )
+
+    per_slab, slabs, Dp = fwd_split_at(B, Hq, L, D, causal)
+    counts = [-(-n // per_slab) for n in _fwd_slab_steps(L, causal)]
+    rng = np.random.default_rng(SEED + 10)
+    o_part = torch.from_numpy(rng.standard_normal(
+        (slabs, B, Hq, L, Dp)).astype(np.float32))
+    m_part = torch.from_numpy(4 * rng.standard_normal(
+        (slabs, B, Hq, L)).astype(np.float32))
+    l_part = torch.from_numpy(rng.uniform(1, 64, (slabs, B, Hq, L)).astype(
+        np.float32))
+    o_part[0, :, :, 0], m_part[0, :, :, 0], l_part[0, :, :, 0] = 0, -1e30, 0
+    for t, n in enumerate(counts):
+        for part in (o_part, m_part, l_part):
+            part[n:, :, :, 64 * t:64 * t + 64] = float("nan")
+    o_part, m_part, l_part = (t.to("cuda") for t in (o_part, m_part, l_part))
+    before = flash_fwd_split_combine.launches
+    got = flash_fwd_split_combine(o_part, m_part, l_part, causal, per_slab)
+    got2 = flash_fwd_split_combine(o_part, m_part, l_part, causal, per_slab)
+    torch.cuda.synchronize()
+    want = fwd_split_combine_reference(o_part, m_part, l_part, causal,
+                                       per_slab)
+    err = float((got[0] - want[0]).abs().max())
+    o_tol = 1e-6 * float(want[0].abs().max())
+    lse_rel = float(((got[1] - want[1]).abs()
+                     / want[1].abs().clamp_min(1.0)).max())
+    smoke.check(flash_fwd_split_combine.launches == before + 2
+                and all(bool(torch.isfinite(a).all()) for a in got)
+                and err <= o_tol and lse_rel <= 1e-6,
+                f"{name}: {COMBINE} o err {err:.3g} <= {o_tol:.3g}, lse "
+                f"relative err {lse_rel:.3g} <= 1e-6 ({slabs} slabs of "
+                f"{per_slab} k tiles)")
+    smoke.check(all(torch.equal(a, b) for a, b in zip(got, got2)),
+                f"{name}: two runs of {COMBINE} give bit-identical o and lse")
+
+    def run():
+        return flash_fwd_split_combine(o_part, m_part, l_part, causal,
+                                       per_slab)
+
+    ms = time_ms(run)
+    rows = B * Hq * sum(min(64, L - 64 * t) * n for t, n in
+                        enumerate(counts))
+    # each owned slab's o, m and l read once, o and lse written once
+    nbytes = float(rows * (Dp + 2) * 4 + B * Hq * L * (Dp + 1) * 4)
+    record = {
+        "name": COMBINE, "case": name, "shape": [B, Hq, Hq, L, D],
+        "dtype": "float32", "causal": causal, "max_abs_err": err,
+        "lse_rel_err": lse_rel, "per_slab": per_slab, "slabs": slabs,
+        "scratch_bytes": (o_part.numel() + 2 * m_part.numel()) * 4,
+        "kernel_ms": ms, "kernel_device_ms": device_ms(run),
+        "kernel_host_ms": host_ms(run),
+        "plain_ms": time_ms(lambda: fwd_split_combine_reference(
+            o_part, m_part, l_part, causal, per_slab), iters=5),
+        "bound_ms": nbytes / PEAK_BYTES * 1e3, "bound_by": "bytes",
+        "library_ms": None, "library_device_ms": None,
+        "library_kernels": None, "flops": 0.0, "bytes": nbytes,
+        "tflops": 0.0,
+    }
+    print(json.dumps({"kernel_case": record}), flush=True)
+    return record
 
 
 def split_sum_case(smoke, name, B, Hq, Hkv, L, D, causal):
@@ -393,8 +488,12 @@ def attention_case(smoke, name, B, Hq, Hkv, L, D, dtype_name, causal,
     torch.cuda.synchronize()
     launched = {n: c - before[n] for n, c in launch_counts().items() if
                 c - before[n]}
-    smoke.check(set(launched) == {kernel},
-                f"{name}: the forward ran on {kernel}: launches {launched}")
+    split = (kernel == "flash_fwd_general"
+             and fwd_split_at(B, Hq, L, D, causal)[1] > 1)
+    expected = {kernel} | ({COMBINE} if split else set())
+    smoke.check(set(launched) == expected,
+                f"{name}: the forward ran on {sorted(expected)}: launches "
+                f"{launched}")
     o_ref, lse_ref = flash_attention_fwd_reference(q, k, v, causal)
     o_err = float((o.float() - o_ref.float()).abs().max())
     lse_err = float((lse - lse_ref).abs().max())
@@ -416,9 +515,16 @@ def attention_case(smoke, name, B, Hq, Hkv, L, D, dtype_name, causal,
         return F.scaled_dot_product_attention(q, k, v, is_causal=causal,
                                               enable_gqa=Hq != Hkv)
 
+    # a split call's time covers both launches; the profiler's device time
+    # by kernel beside the events' (the profiler has dropped kernels)
     kernel_ms = time_ms(kernel)
     kernel_device_ms = device_ms(kernel)
     kernel_host_ms = host_ms(kernel)
+    device_kernels = None
+    if split:
+        profiled = profile_call(kernel, top=4)
+        if isinstance(profiled, dict):
+            device_kernels = profiled["top"]
     plain_ms = time_ms(lambda: flash_attention_fwd_reference(q, k, v,
                                                              causal),
                        iters=5)
@@ -452,6 +558,8 @@ def attention_case(smoke, name, B, Hq, Hkv, L, D, dtype_name, causal,
         "tflops_device": flops / (kernel_device_ms * 1e-3) / 1e12
         if kernel_device_ms else None,
     }
+    if device_kernels is not None:
+        record["device_kernels"] = device_kernels
     print(json.dumps({"kernel_case": record}), flush=True)
     return record
 
@@ -1808,23 +1916,25 @@ def multiprocess_phase(smoke, gpu):
 # -- wide-heads path: LlamaLite training at head dims beyond the main path's
 
 # dim 1024 with 4 heads (D = 256) in bf16 (K1-K3's D = 256 builds, K3 in
-# two passes) and in fp32 (K1's SIMT build, the general SIMT K2, the
-# register-tiled K3 with its split sum), and with 2 heads (D = 512) in bf16
-# (the general tensor-core K1-K3) and in fp32 (the general SIMT K1 and K2,
-# the register-tiled K3 and its sum); depth 2, 2 Adam steps at batch 2 of
-# 256 tokens
+# two passes), and with 2 heads (D = 512) in bf16 (the general tensor-core
+# K1-K3); both in fp32 (the register-tiled K1 with its combine, the
+# general SIMT K2, the register-tiled K3 with its split sum); depth 2, 2
+# Adam steps at batch 2 of 256 tokens
 WIDE_DEPTH, WIDE_STEPS, WIDE_BATCH, WIDE_LEN = 2, 2, 2, 256
 # B, Hq, Hkv, L, D of the kernel case that fills the card at D = 512: the
 # D = 256 case's shape at twice the head dim
 FULL_D512 = (2, 16, 4, 1024, 512)
+# B, Hq, Hkv, L, D of the fp32 K1 case that fills the card at D = 256: the
+# fp32 K2/K3 case's shape
+FULL_D256_FP32 = (2, 8, 2, 1024, 256)
 # (label, heads, compute dtype, K1's wrapper, K2's and K3's wrappers): the
-# wrappers each head dim routes to (the fp32 K3's split sum too, where it
-# splits: dkv_split_at); each also runs as a kernel case at the path's own
-# B·H·L·D
+# wrappers each head dim routes to (the fp32 K1's combine and K3's split
+# sum too, where they split: fwd_split_at, dkv_split_at); each also runs
+# as a kernel case at the path's own B·H·L·D
 WIDE_CASES = (
     ("d256_bf16", 4, "bfloat16", "flash_attention_fwd",
      ("flash_bwd_dq", "flash_bwd_dkv")),
-    ("d256_fp32", 4, "float32", "flash_attention_fwd",
+    ("d256_fp32", 4, "float32", "flash_fwd_general",
      ("flash_bwd_dq_general", "flash_bwd_dkv_general")),
     ("d512_bf16", 2, "bfloat16", "flash_fwd_general_mma",
      ("flash_bwd_dq_general_mma", "flash_bwd_dkv_general_mma")),
@@ -1862,6 +1972,9 @@ def wide_heads_phase(smoke, gpu):
                 WIDE_BATCH, heads, heads, WIDE_LEN, DIM // heads,
                 True)[1] > 1:
             want[SPLIT_SUM] = steps
+        if fwd == "flash_fwd_general" and fwd_split_at(
+                WIDE_BATCH, heads, WIDE_LEN, DIM // heads, True)[1] > 1:
+            want[COMBINE] = steps
         # fp32 is the model's own compute dtype (None)
         dtype = None if dtype_name == "float32" else getattr(torch,
                                                              dtype_name)
@@ -2349,9 +2462,10 @@ def main() -> int:
         "kernel vs plain: flash_fwd at the training shape", attention_case,
         smoke, "flash_fwd_train", TRAIN_BATCH, HEADS, KV_HEADS, TRAIN_LEN,
         DIM // HEADS, "bfloat16", True, 2e-2, 1e-3)
-    smoke.phase("kernel vs plain: flash_fwd ragged fp32 D=128",
-                attention_case, smoke, "flash_fwd_ragged_fp32", 2, 8, 8,
-                1000, 128, "float32", False, 1e-4, 1e-4)
+    ragged_fp32 = smoke.phase(
+        "kernel vs plain: flash_fwd ragged fp32 D=128", attention_case,
+        smoke, "flash_fwd_ragged_fp32", 2, 8, 8, 1000, 128, "float32", False,
+        1e-4, 1e-4, "flash_fwd_general")
     bwd_cases = smoke.phase(
         "kernel vs plain: flash_bwd_dq and flash_bwd_dkv at the training "
         "shape", backward_case, smoke, "flash_bwd", 8, 16, 4, TRAIN_LEN, 64,
@@ -2381,16 +2495,17 @@ def main() -> int:
                 "flash_bwd_d256", 2, 16, 4, 1024, 256, "bfloat16", True,
                 2e-2)
     # beyond every build: the general kernels, K1-K3 on tensor cores in
-    # bf16/fp16; in fp32 K1 and K2 SIMT, K3 register-tiled (and its split
-    # sum, where it splits)
+    # bf16/fp16; in fp32 K2 SIMT, K1 and K3 register-tiled (and the combine
+    # and the split sum, where they split)
     general = ("flash_bwd_dq_general", "flash_bwd_dkv_general")
     general_mma = ("flash_bwd_dq_general_mma", "flash_bwd_dkv_general_mma")
+    d512_fwd = {}
     for dtype_name, o_atol, lse_atol, rel, fwd, bwd in (
             ("bfloat16", 2e-2, 1e-3, 2e-2, "flash_fwd_general_mma",
              general_mma),
             ("float32", 1e-4, 1e-4, 1e-4, "flash_fwd_general", general)):
         tag = "bf16" if dtype_name == "bfloat16" else "fp32"
-        smoke.phase(
+        d512_fwd[tag] = smoke.phase(
             f"kernel vs plain: flash_fwd d512 {tag}", attention_case, smoke,
             f"flash_fwd_general_d512_{tag}", 1, 4, 4, 512, 512, dtype_name,
             True, o_atol, lse_atol, fwd)
@@ -2404,6 +2519,15 @@ def main() -> int:
     smoke.phase("kernel vs plain: the split sum at d256 fp32",
                 split_sum_case, smoke, "flash_bwd_split_sum_d256_fp32", 2,
                 8, 2, 1024, 256, True)
+    # the fp32 K1 at that shape, which fills the card (unsplit), and its
+    # combine at the B1·Hq4·L512·D512 case's split
+    full_fp32 = smoke.phase(
+        "kernel vs plain: flash_fwd d256 fp32 full", attention_case, smoke,
+        "flash_fwd_general_d256_fp32", *FULL_D256_FP32, "float32", True,
+        1e-4, 1e-4, "flash_fwd_general")
+    d512_combine = smoke.phase(
+        "kernel vs plain: the combine at d512 fp32", combine_case, smoke,
+        "flash_fwd_combine_d512_fp32", 1, 4, 512, 512, True)
     # the D = 256 case's shape at twice the head dim, which fills the card:
     # the tensor-core general kernels beside the D = 256 builds
     full_cases = (
@@ -2429,13 +2553,19 @@ def main() -> int:
                                  if dtype_name == "bfloat16"
                                  else (1e-4, 1e-4, 1e-4))
         shape = (WIDE_BATCH, heads, heads, WIDE_LEN, DIM // heads)
-        sum_case = None
+        sum_case = combine = None
         if bwd[1] == "flash_bwd_dkv_general" and dkv_split_at(
                 *shape, True)[1] > 1:
             sum_case = smoke.phase(
                 f"kernel vs plain: the split sum wide heads {label}",
                 split_sum_case, smoke, f"flash_bwd_split_sum_wide_{label}",
                 *shape, True)
+        if fwd == "flash_fwd_general" and fwd_split_at(
+                *shape[:2], *shape[3:], True)[1] > 1:
+            combine = smoke.phase(
+                f"kernel vs plain: the combine wide heads {label}",
+                combine_case, smoke, f"flash_fwd_combine_wide_{label}",
+                *shape[:2], *shape[3:], True)
         wide_cases[label] = (
             smoke.phase(f"kernel vs plain: flash_fwd wide heads {label}",
                         attention_case, smoke, f"flash_fwd_wide_{label}",
@@ -2443,7 +2573,7 @@ def main() -> int:
             smoke.phase(f"kernel vs plain: flash_bwd wide heads {label}",
                         backward_case, smoke, f"flash_bwd_wide_{label}",
                         *shape, dtype_name, True, rel, bwd),
-            sum_case)
+            sum_case, combine)
     sliced = smoke.phase("slice: Predict and Generate through the gateway",
                          slice_phase, smoke, gpu)
     torch.cuda.empty_cache()
@@ -2496,16 +2626,35 @@ def main() -> int:
     # the wide-heads path, a row per head dim and wrapper: its launches in
     # that case's run beside the case measured at the same B·H·L·D
     wide_by_case = (wide or {}).get("cases", {})
-    full_by_wrapper = {r["name"]: r for r in full_cases[1] or []}
-    if full_cases[0] is not None:
-        full_by_wrapper["flash_fwd_general_mma"] = full_cases[0]
+    # other shapes' cases of a wide-heads row's wrapper, by (label,
+    # wrapper): (key, record): the card-filling D = 512 bf16 cases and
+    # D = 256 fp32 K1, the ragged fp32 K1, and the fp32 K1 and its combine
+    # at B1·Hq4·L512·D512
+    other_shapes = {("d512_bf16", r["name"]): [("at_card_filling_shape", r)]
+                    for r in full_cases[1] or []}
+    for label, wrapper, key, record in (
+            ("d512_bf16", "flash_fwd_general_mma", "at_card_filling_shape",
+             full_cases[0]),
+            ("d256_fp32", "flash_fwd_general", "at_card_filling_shape",
+             full_fp32),
+            ("d256_fp32", "flash_fwd_general", "at_ragged_shape",
+             ragged_fp32),
+            ("d512_fp32", "flash_fwd_general", "at_b1_hq4_l512_shape",
+             d512_fwd.get("fp32")),
+            ("d512_fp32", COMBINE, "at_b1_hq4_l512_shape", d512_combine)):
+        if record is not None:
+            other_shapes.setdefault((label, wrapper), []).append(
+                (key, record))
     expected_rows = 3
     for label, _, _, fwd, bwd in WIDE_CASES:
-        fwd_record, bwd_records, sum_record = wide_cases[label]
+        fwd_record, bwd_records, sum_record, combine_record = (
+            wide_cases[label])
         launched = wide_by_case.get(label, {}).get("launches", {})
-        expected_rows += 3 + (sum_record is not None)
+        expected_rows += 3 + (sum_record is not None) + (
+            combine_record is not None)
         for wrapper, record, source, line in (
                 (fwd, fwd_record, "flash_fwd.cu", 76),
+                (COMBINE, combine_record, "flash_fwd.cu", 76),
                 (bwd[0], (bwd_records or [None])[0], "flash_bwd.cu", 126),
                 (bwd[1], (bwd_records or [None, None])[1], "flash_bwd.cu",
                  162),
@@ -2515,15 +2664,15 @@ def main() -> int:
             by_path = {"wide_heads": launched.get(wrapper, 0)}
             name = ROW_NAMES.get(wrapper, wrapper) + "_" + label
             record = dict(record, wrapper=wrapper)
-            # the D = 512 bf16 wrappers also at the card-filling shape
-            full = full_by_wrapper.get(wrapper)
-            if label == "d512_bf16" and full is not None:
-                record["at_card_filling_shape"] = {
-                    key: full.get(key) for key in (
-                        "shape", "max_abs_err", "kernel_ms",
+            for key, other in other_shapes.get((label, wrapper), []):
+                record[key] = {
+                    k: other[k] for k in (
+                        "shape", "causal", "max_abs_err", "kernel_ms",
                         "kernel_device_ms", "kernel_host_ms", "plain_ms",
                         "bound_ms", "bound_by", "library_ms",
-                        "library_device_ms", "library_kernels", "tflops")}
+                        "library_device_ms", "library_kernels", "tflops",
+                        "device_kernels", "per_slab", "slabs")
+                    if k in other}
             rows.append((name, source, line, record,
                          sum(by_path.values()), by_path))
     kernels = []
@@ -2545,9 +2694,11 @@ def main() -> int:
         }
         if "wrapper" in record:
             entry["wrapper"] = record["wrapper"]
-        if "at_card_filling_shape" in record:
-            entry["at_card_filling_shape"] = record["at_card_filling_shape"]
-        if "case" in record and record["name"] != SPLIT_SUM:
+        for key in ("at_card_filling_shape", "at_ragged_shape",
+                    "at_b1_hq4_l512_shape"):
+            if key in record:
+                entry[key] = record[key]
+        if "case" in record and record["name"] not in (SPLIT_SUM, COMBINE):
             # K2/K3: SDPA's one backward call covers both
             entry["library_covers"] = "flash_bwd_dq+flash_bwd_dkv"
         for key in ("device_kernels", "per_slab", "slabs", "scratch_bytes"):

@@ -1352,14 +1352,16 @@ flash_bwd_dq_general_kernel(const float* __restrict__ q,
 //     run at about half the FMA rate and the 8 x 8 product (4 a float) at
 //     about two thirds (PERF.md).
 
-constexpr int kF32Threads = 256;
-constexpr int kF32Ahead = 2;  // steps a load is started ahead of its use
-constexpr int kF32Ring = kF32Ahead + 1;  // stages of the block ring
-constexpr int kF32Block = 32;           // D columns of a streamed block
-constexpr int kF32Row = kF32Block + 4;  // floats of a staged row
+using simt::kF32Ahead;
+using simt::kF32Block;
+using simt::kF32Ring;
+using simt::kF32Row;
+using simt::kF32Threads;
+using simt::load_f32_block;
 constexpr int kF32PRow = kTile + 4;     // floats of a row of P^T or dS^T
 // one ring stage: a K, a Q, a V and a dO block (kTile rows each)
 constexpr int kF32Stage = 4 * kTile * kF32Row;
+static_assert(simt::kF32Rows == kTile, "a staged block is one k or q tile");
 
 constexpr size_t dkv_general_smem_bytes() {
   // the ring, dO's or Q's chunk, P^T or dS^T, one q tile's lse and delta
@@ -1367,55 +1369,11 @@ constexpr size_t dkv_general_smem_bytes() {
                                   kTile * kF32PRow + 2 * kTile);
 }
 
-// rows [r0, r0 + kTile) and columns [col, col + kF32Block) of a row-major
-// (L, ld) fp32 matrix into a staged block (rows of kF32Row floats); rows at
-// or past L are zero and no byte of them is read
-__device__ __forceinline__ void load_f32_block(float* dst, const float* src,
-                                               int r0, int L, int ld,
-                                               int col) {
-  constexpr int kPerRow = kF32Block / 4;  // 16-byte chunks of a row
-#pragma unroll
-  for (int j = 0; j < kTile * kPerRow / kF32Threads; ++j) {
-    const int i = threadIdx.x + j * kF32Threads;
-    const int r = i / kPerRow, c = i % kPerRow;
-    const int g = r0 + r;
-    sm90::cp_async_16(dst + r * kF32Row + 4 * c,
-                      src + (size_t)(g < L ? g : 0) * ld + col + 4 * c,
-                      g < L ? 16 : 0);
-  }
-}
-
-// S^T's 4 x 4 tile of a thread: keys 16 (w % 4) + (lane % 4) + 4 i and
-// queries 32 (w / 4) + lane / 4 + 8 j of warp w, so that one 16-byte load
-// of a warp reads 4 key rows or 8 query rows, 128 bytes at most
+// S^T's 4 x 4 tile of a thread (simt::f32_tile_product): keys 16 (w % 4) +
+// (lane % 4) + 4 i and queries 32 (w / 4) + lane / 4 + 8 j of warp w, so
+// that one 16-byte load of a warp reads 4 key rows or 8 query rows, 128
+// bytes at most
 constexpr int kKeyStep = 4, kQueryStep = 8;
-
-// acc[i][j] += sum over the block's columns of a[kKeyStep i] .
-// b[kQueryStep j] (a and b: the thread's first key row and first query row
-// of two staged blocks): a 4 x 4 outer-product tile
-__device__ __forceinline__ void f32_tile_product(float (&acc)[4][4],
-                                                 const float* a,
-                                                 const float* b) {
-#pragma unroll
-  for (int d = 0; d < kF32Block; d += 4) {
-    float4 x[4], y[4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      x[i] = *reinterpret_cast<const float4*>(a + kKeyStep * i * kF32Row + d);
-      y[i] = *reinterpret_cast<const float4*>(b + kQueryStep * i * kF32Row +
-                                              d);
-    }
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        acc[i][j] = fmaf(x[i].x, y[j].x, acc[i][j]);
-        acc[i][j] = fmaf(x[i].y, y[j].y, acc[i][j]);
-        acc[i][j] = fmaf(x[i].z, y[j].z, acc[i][j]);
-        acc[i][j] = fmaf(x[i].w, y[j].w, acc[i][j]);
-      }
-  }
-}
 
 // one block of the kernel below; kDkPass picks the output (dK, else dV)
 template <bool kDkPass>
@@ -1538,11 +1496,12 @@ __device__ __forceinline__ void dkv_general_block(
 #pragma unroll
           for (int j = 0; j < 4; ++j) s[i][j] = dp[i][j] = 0.f;
       }
-      f32_tile_product(s, stage + tk * kF32Row,
-                       stage + (kTile + tq) * kF32Row);
+      simt::f32_tile_product<kKeyStep, kQueryStep>(
+          s, stage + tk * kF32Row, stage + (kTile + tq) * kF32Row);
       if constexpr (kDkPass)
-        f32_tile_product(dp, stage + (2 * kTile + tk) * kF32Row,
-                         stage + (3 * kTile + tq) * kF32Row);
+        simt::f32_tile_product<kKeyStep, kQueryStep>(
+            dp, stage + (2 * kTile + tk) * kF32Row,
+            stage + (3 * kTile + tq) * kF32Row);
       continue;
     }
 

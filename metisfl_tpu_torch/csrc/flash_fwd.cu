@@ -46,11 +46,10 @@
 //     at D = 256) until one store.
 //   - Head dims 64, 128 and 256, the tile shapes unchanged (64-row q and
 //     K/V tiles): shared memory holds Q and two K/V stages in 40, 80 and
-//     160 KB (the SIMT kernel's fp32 tiles 52, 104 and 209 KB), under the
-//     227 KB a block may use. The wrapper pads any other D up to 256 to
-//     one of them; a larger D goes to the general tensor-core kernel
-//     (flash_fwd_general_mma_kernel, below), whose Q and K stream through
-//     shared memory 64 columns at a time, so that no D is too large.
+//     160 KB, under the 227 KB a block may use. The wrapper pads any other
+//     D up to 256 to one of them; a larger D goes to the general tensor-core
+//     kernel (flash_fwd_general_mma_kernel, below), whose Q and K stream
+//     through shared memory 64 columns at a time, so that no D is too large.
 //   - Causal work is uneven (the last q tile walks every K tile), so the
 //     1-D grid hands out the longest tiles first. No atomics: the same bits
 //     on every run.
@@ -59,16 +58,13 @@
 //     flight across this tile's softmax, and staging O through shared
 //     memory for 16-byte stores; each step waits for its products.
 //
-// fp32: the SIMT kernel (flash_fwd_simt_kernel), a deliberate choice by
-// dtype: TF32 tensor cores keep 10 bits of mantissa, which the fp32
-// tolerance and the JAX package's fp32 numerics do not allow. One block of
-// 256 threads owns one (64-row q tile, b * Hq + h); four threads own one
-// query row, each computing 16 of a K tile's 64 scores and D/4 of the
-// output columns, with the row's max and sum reduced over the four lanes by
-// shuffles. Q, K and V are staged in shared memory with rows padded to
-// D + 1 floats. Beyond the fp32 builds (D > 256) the general SIMT kernel
-// (flash_fwd_general_kernel) takes any D.
+// fp32: one register-tiled SIMT kernel for every D (flash_fwd_f32_kernel,
+// below), a deliberate choice by dtype: TF32 tensor cores keep 10 bits of
+// mantissa, which the fp32 tolerance and the JAX package's fp32 numerics do
+// not allow. Its tiles, ring and slabs are the fp32 K3's (flash_bwd.cu),
+// over the building blocks of simt.cuh.
 
+#include <algorithm>
 #include <climits>
 
 #include <cuda_bf16.h>
@@ -85,128 +81,6 @@ constexpr int kTile = 64;     // rows of a q tile and of a K/V tile
 constexpr float kNeg = -1e30f;
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr float kLn2 = 0.6931471805599453f;
-
-// ---------------------------------------------------------------------------
-// fp32: SIMT kernel
-
-constexpr int kThreads = 256;  // 4 threads per query row
-
-template <int D>
-constexpr size_t simt_smem_bytes() {
-  // Q and K rows padded by one float so the four lanes of a row (and the
-  // eight rows of a warp) fall in distinct banks; P padded likewise.
-  return sizeof(float) * (size_t)(kTile * (D + 1) + kTile * (D + 1) +
-                                  kTile * D + kTile * (kTile + 1));
-}
-
-template <int D>
-__global__ void __launch_bounds__(kThreads)
-flash_fwd_simt_kernel(const float* __restrict__ q,
-                      const float* __restrict__ k,
-                      const float* __restrict__ v, float* __restrict__ o,
-                      float* __restrict__ lse, int Hq, int Hkv, int L,
-                      float scale, int causal) {
-  extern __shared__ float smem[];
-  float* sQ = smem;                        // kTile x (D + 1)
-  float* sK = sQ + kTile * (D + 1);        // kTile x (D + 1)
-  float* sV = sK + kTile * (D + 1);        // kTile x D
-  float* sP = sV + kTile * D;              // kTile x (kTile + 1)
-
-  const int tid = threadIdx.x;
-  const int row = tid >> 2;       // query row inside the tile
-  const int sub = tid & 3;        // which quarter of the row's columns
-  const int bh = blockIdx.y;      // b * Hq + h
-  const int b = bh / Hq;
-  const int h = bh - b * Hq;
-  const int kvh = b * Hkv + h / (Hq / Hkv);
-  const int q0 = blockIdx.x * kTile;
-  const int q_pos = q0 + row;
-
-  const float* qb = q + (size_t)bh * L * D;
-  const float* kb = k + (size_t)kvh * L * D;
-  const float* vb = v + (size_t)kvh * L * D;
-
-  for (int i = tid; i < kTile * D; i += kThreads) {
-    const int r = i / D, d = i - (i / D) * D;
-    const int g = q0 + r;
-    sQ[r * (D + 1) + d] = g < L ? qb[(size_t)g * D + d] : 0.f;
-  }
-
-  float m = kNeg, l = 0.f;
-  float acc[D / 4];
-#pragma unroll
-  for (int j = 0; j < D / 4; ++j) acc[j] = 0.f;
-
-  // causal: the last key tile that overlaps this q tile (q0 + kTile - 1)
-  const int k_end = causal ? min(L, q0 + kTile) : L;
-  for (int k0 = 0; k0 < k_end; k0 += kTile) {
-    __syncthreads();  // the previous step is done with sK / sV
-    for (int i = tid; i < kTile * D; i += kThreads) {
-      const int r = i / D, d = i - (i / D) * D;
-      const int g = k0 + r;
-      const bool in = g < L;
-      sK[r * (D + 1) + d] = in ? kb[(size_t)g * D + d] : 0.f;
-      sV[r * D + d] = in ? vb[(size_t)g * D + d] : 0.f;
-    }
-    __syncthreads();
-
-    float s[kTile / 4];
-#pragma unroll
-    for (int j = 0; j < kTile / 4; ++j) s[j] = 0.f;
-    const float* qrow = sQ + row * (D + 1);
-#pragma unroll 8
-    for (int d = 0; d < D; ++d) {
-      const float qd = qrow[d];
-#pragma unroll
-      for (int j = 0; j < kTile / 4; ++j)
-        s[j] = fmaf(qd, sK[(sub + 4 * j) * (D + 1) + d], s[j]);
-    }
-    float mx = kNeg;
-#pragma unroll
-    for (int j = 0; j < kTile / 4; ++j) {
-      const int k_pos = k0 + sub + 4 * j;
-      const bool ok = k_pos < L && (!causal || q_pos >= k_pos);
-      s[j] = ok ? s[j] * scale : kNeg;
-      mx = fmaxf(mx, s[j]);
-    }
-    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
-    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
-    const float m_next = fmaxf(m, mx);
-    const float alpha = expf(m - m_next);
-    float psum = 0.f;
-#pragma unroll
-    for (int j = 0; j < kTile / 4; ++j) {
-      const float p = s[j] > kNeg ? expf(s[j] - m_next) : 0.f;
-      psum += p;
-      sP[row * (kTile + 1) + sub + 4 * j] = p;
-    }
-    psum += __shfl_xor_sync(0xffffffffu, psum, 1);
-    psum += __shfl_xor_sync(0xffffffffu, psum, 2);
-    l = alpha * l + psum;
-    m = m_next;
-    __syncwarp();  // a row's P is written and read by the same four lanes
-
-    const float* prow = sP + row * (kTile + 1);
-#pragma unroll
-    for (int j = 0; j < D / 4; ++j) acc[j] *= alpha;
-#pragma unroll 4
-    for (int c = 0; c < kTile; ++c) {
-      const float p = prow[c];
-      const float* vrow = sV + c * D + sub;
-#pragma unroll
-      for (int j = 0; j < D / 4; ++j) acc[j] = fmaf(p, vrow[4 * j], acc[j]);
-    }
-  }
-
-  if (q_pos < L) {
-    // a row with no unmasked key has l == 0: store 0, not nan
-    const float inv = l == 0.f ? 0.f : 1.f / l;
-    float* orow = o + ((size_t)bh * L + q_pos) * D + sub;
-#pragma unroll
-    for (int j = 0; j < D / 4; ++j) orow[4 * j] = acc[j] * inv;
-    if (sub == 0) lse[(size_t)bh * L + q_pos] = m + logf(fmaxf(l, 1e-30f));
-  }
-}
 
 // ---------------------------------------------------------------------------
 // bf16 / fp16: tensor-core kernel
@@ -614,130 +488,345 @@ flash_fwd_general_mma_kernel(const T* __restrict__ q, const T* __restrict__ k,
 }
 
 // ---------------------------------------------------------------------------
-// fp32 beyond the builds (D > 256): SIMT kernel (flash_fwd_general_kernel)
+// fp32: register-tiled SIMT kernel (flash_fwd_f32_kernel), for any D that is
+// a multiple of 32 and at least 64 (the wrapper zero-pads to one)
 //
-// One block of 256 threads per (64-row q tile, b * Hq + h, 64-column chunk
-// of O's D); four threads own one query row, as in the fp32 SIMT kernel.
-// Each block computes S over the full D, 64 columns at a time through
-// shared memory, runs the online softmax, and accumulates only its own
-// chunk of O = P V. Every chunk of a tile repeats the same S, m and l, bit
-// for bit; the first writes the lse.
-// Bound: 4 D operations a (q, k) pair, at SIMT's 67 TFLOP/s (at B1 Hq4 L512
-// D512 causal, 1.1 GFLOP, 0.016 ms). It recomputes S once per output
-// chunk, D / 64 times: a right kernel for fp32 head dims the builds do not
-// cover, not a fast one.
+// Full fp32 FMAs, as the twin computes: single-pass TF32 keeps about three
+// decimal digits and would break the fp32 limit of 1e-4 (3xTF32 on wgmma is
+// the later route to measure against this one). It is the fp32 K3g's
+// design (flash_bwd.cu) carried over to the forward:
+//   - A block of 256 threads owns one 64-row q tile of one b * Hq + h, one
+//     256-column chunk of O (kF32Chunk; the last chunk narrower where D is
+//     not a multiple of 256) and one slab of the tile's k tiles.
+//   - S = Q K^T: Q and K stream in 32-column blocks through the ring of
+//     simt.cuh (3 stages, loads two steps ahead, rows padded to 36 floats).
+//     Each thread owns a 4 x 4 tile of S, queries 8 w + 4 (lane / 16) .. + 3
+//     and keys lane % 16 + 16 i of warp w (simt::f32_tile_product): a query
+//     row's 16 owners share one half-warp, so the row max and the row sum
+//     reduce by shuffles. One 16-byte load of a warp reads two Q rows
+//     (broadcast) or 16 K rows (two wavefronts, the least for 256 bytes).
+//   - The online softmax runs on that tile after the tile's last block
+//     step, in fp32 with expf, as the twin; each thread keeps its part of l
+//     (reduced over the 16 owners once, at the end). P goes through shared
+//     memory as P^T ([key][query], rows padded to 68 floats, one 16-byte
+//     store per key), with each row's alpha beside it.
+//   - O += P V: each thread owns an 8 x 8 tile of the block's 64 x 256 fp32
+//     O chunk (64 registers): rows 32 (w % 2) + 8 (lane % 4) .. + 7, columns
+//     64 (w / 2) + 4 (lane / 4) .. + 3 and + 32 .. + 35, so that per key it
+//     loads 8 P and 8 V floats in four 16-byte loads (one wavefront each)
+//     for 64 FMAs. V's chunk (64 keys x 256 columns, 64 KB) arrives in
+//     quarters with the last block steps of S, as K3g's dO chunk does.
+//     Warps whose columns lie past a narrow chunk (D <= 192, or the last
+//     chunk) skip the product: splitting the keys among them instead, with
+//     a sum at the end, measured no faster (PERF.md).
+//   - Work: S once per chunk and P V once, 2 D ceil(D / 256) + 2 D
+//     operations a (q, k) pair: 4 D at D <= 256, 6 D at D = 512.
+//   - Load balance: the grid is tile-major, the longest causal q tile
+//     first. Where one block per (q tile, chunk, head) cannot fill the
+//     card, a tile's k tiles are cut into slabs of per_slab (the wrapper's
+//     fwd_split, from the shapes and the card's SM count). With one slab a
+//     block writes O and the lse itself. With more each block writes an fp32
+//     partial (O unnormalised, and the row's m and l from chunk 0), and a
+//     second launch (flash_fwd_split_combine_kernel) merges each row's slabs
+//     in slab order: no atomics, the same bits on every run. A slab past its
+//     tile's k tiles exits at once.
+//   - Shared memory: ring 55 KB, V's chunk 64 KB, P^T 17 KB: 136 KB, one
+//     block an SM (218 registers a thread, no spill).
+//   - Bound: 4 D operations a pair at SIMT's 67 TFLOP/s (at B2 Hq8 Hkv2
+//     L1024 D256 causal, 8.6 GFLOP, 0.128 ms). What holds it is K3g's
+//     limit: an SM moves 32 floats a cycle from shared memory to registers
+//     for 128 FMA lanes, so the 4 x 4 S tile (2 FMAs a float loaded) runs at
+//     about half the FMA rate and the 8 x 8 product (4 a float) at about two
+//     thirds; then the loads, whose latency the ring leaves partly exposed
+//     (PERF.md: S, the product and the loads measured apart).
 
-constexpr int kChunk = simt::kChunk;
-constexpr int kChunkTile = kTile * (kChunk + 1);  // floats of one tile
+using simt::kF32Ahead;
+using simt::kF32Block;
+using simt::kF32Ring;
+using simt::kF32Row;
+using simt::kF32Threads;
+using simt::load_f32_block;
+constexpr int kF32Chunk = 256;       // O columns a block accumulates
+constexpr int kF32PRow = kTile + 4;  // floats of a row of P^T
+// one ring stage: a Q and a K block (kTile rows each)
+constexpr int kF32Stage = 2 * kTile * kF32Row;
+static_assert(simt::kF32Rows == kTile, "a staged block is one q or k tile");
 
-constexpr size_t general_smem_bytes() {
-  // Q, K and V chunk tiles and the P tile
-  return sizeof(float) * (size_t)(3 * kChunkTile + kTile * (kTile + 1));
+constexpr size_t f32_smem_bytes() {
+  // the ring, V's chunk, P^T, each row's alpha and l
+  return sizeof(float) * (size_t)(kF32Ring * kF32Stage + kTile * kF32Chunk +
+                                  kTile * kF32PRow + 2 * kTile);
 }
 
-__global__ void __launch_bounds__(kThreads)
-flash_fwd_general_kernel(const float* __restrict__ q,
-                         const float* __restrict__ k,
-                         const float* __restrict__ v, float* __restrict__ o,
-                         float* __restrict__ lse, int Hq, int Hkv, int L,
-                         int D, float scale, int causal) {
-  extern __shared__ float smem[];
-  float* sQ = smem;
-  float* sK = sQ + kChunkTile;
-  float* sV = sK + kChunkTile;
-  float* sP = sV + kChunkTile;  // kTile x (kTile + 1)
+__global__ void __launch_bounds__(kF32Threads, 1)
+flash_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                     const float* __restrict__ v, float* __restrict__ o,
+                     float* __restrict__ lse, float* __restrict__ o_part,
+                     float* __restrict__ m_part, float* __restrict__ l_part,
+                     int Hq, int Hkv, int L, int D, float scale, int causal,
+                     int per_slab, int slabs) {
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  float* sRing = reinterpret_cast<float*>(smem_raw);
+  float* sV = sRing + kF32Ring * kF32Stage;  // V's chunk, kTile x kF32Chunk
+  float* sPT = sV + kTile * kF32Chunk;       // P^T, [key][query]
+  float* sAlpha = sPT + kTile * kF32PRow;    // kTile
+  float* sL = sAlpha + kTile;                // kTile
 
   const int tid = threadIdx.x;
-  const int row = tid >> 2;
-  const int sub = tid & 3;
-  const int bh = blockIdx.y;  // b * Hq + h
+  const int nq = (L + kTile - 1) / kTile;
+  const int nb = D / kF32Block;  // the blocks S reduces over
+  const int chunks = (D + kF32Chunk - 1) / kF32Chunk;
+  const int heads = gridDim.x / (nq * slabs * chunks);  // B * Hq
+  const int bh = blockIdx.x % heads;
+  const int chunk = blockIdx.x / heads % chunks;
+  const int slab = blockIdx.x / (heads * chunks) % slabs;
+  const int rank = blockIdx.x / (heads * chunks * slabs);
+  // causal: the last q tile walks every k tile, so it goes first
+  const int q0 = (causal ? nq - 1 - rank : rank) * kTile;
+  // the q tile's k tiles (causal: up to the diagonal); this slab's share
+  const int n_k = causal ? q0 / kTile + 1 : nq;
+  const int it0 = slab * per_slab;
+  if (it0 >= n_k) return;  // the tile needs fewer slabs
+  const int n_it = min(per_slab, n_k - it0);
+  const int per = nb + 1;  // nb block steps and the softmax / P V step
+  const int n_steps = n_it * per;
+  const int c0 = chunk * kF32Chunk;
   const int b = bh / Hq;
   const int kvh = b * Hkv + (bh - b * Hq) / (Hq / Hkv);
-  const int q0 = blockIdx.x * kTile;
-  const int d0 = blockIdx.z * kChunk;
-  const int q_pos = q0 + row;
-
   const float* qb = q + (size_t)bh * L * D;
   const float* kb = k + (size_t)kvh * L * D;
   const float* vb = v + (size_t)kvh * L * D;
 
-  float m = kNeg, l = 0.f;
-  float acc[kChunk / 4];
+  // one step's loads as one cp.async group (empty past the last step). A
+  // ring stage is refilled kF32Ring block steps after its last use; V's
+  // chunk quarters go with block steps max(kF32Ahead, nb - 3 + m), so all
+  // are started no earlier than the first step of their k tile, after the
+  // last P V read the previous chunk
+  auto load_step = [&](int step) {
+    if (step < n_steps) {
+      const int it = step / per, blk = step - it * per;
+      const int k0 = (it0 + it) * kTile;
+      if (blk < nb) {
+        float* stage = sRing + (it * nb + blk) % kF32Ring * kF32Stage;
+        load_f32_block(stage, qb, q0, L, D, kF32Block * blk);
+        load_f32_block(stage + kTile * kF32Row, kb, k0, L, D,
+                       kF32Block * blk);
+      }
 #pragma unroll
-  for (int j = 0; j < kChunk / 4; ++j) acc[j] = 0.f;
-
-  const int k_end = causal ? min(L, q0 + kTile) : L;
-  for (int k0 = 0; k0 < k_end; k0 += kTile) {
-    float s[kTile / 4];
+      for (int m = 0; m < 4; ++m) {
+        if (blk != max(kF32Ahead, nb - 3 + m)) continue;
+        // keys [16 m, 16 m + 16) of the chunk, 64 16-byte pieces a row;
+        // columns past D are zero
 #pragma unroll
-    for (int j = 0; j < kTile / 4; ++j) s[j] = 0.f;
-    for (int c0 = 0; c0 < D; c0 += kChunk) {
-      __syncthreads();  // the previous step is done with the tiles
-      simt::load_chunk<kTile, kThreads>(sQ, qb, q0, L, c0, D);
-      simt::load_chunk<kTile, kThreads>(sK, kb, k0, L, c0, D);
-      __syncthreads();
-      const float* qrow = sQ + row * (kChunk + 1);
-#pragma unroll 8
-      for (int d = 0; d < kChunk; ++d) {
-        const float qd = qrow[d];
-#pragma unroll
-        for (int j = 0; j < kTile / 4; ++j)
-          s[j] = fmaf(qd, sK[(sub + 4 * j) * (kChunk + 1) + d], s[j]);
+        for (int j = 0; j < 4; ++j) {
+          const int i = tid + j * kF32Threads;
+          const int r = 16 * m + (i >> 6), col = c0 + 4 * (i & 63);
+          const bool ok = k0 + r < L && col < D;
+          sm90::cp_async_16(sV + r * kF32Chunk + 4 * (i & 63),
+                            vb + (ok ? (size_t)(k0 + r) * D + col : 0),
+                            ok ? 16 : 0);
+        }
       }
     }
-    // every thread passed the loop's last barrier after the previous
-    // step's P V, so sV may be refilled
-    simt::load_chunk<kTile, kThreads>(sV, vb, k0, L, d0, D);
+    sm90::cp_async_commit();
+  };
+  for (int step = 0; step < kF32Ahead; ++step) load_step(step);
 
-    float mx = kNeg;
+  const int warp = tid >> 5, lane = tid & 31;
+  // S tile: queries tq .. tq + 3, keys tk + 16 i (f32_tile_product)
+  const int tq = 8 * warp + 4 * (lane >> 4);
+  const int tk = lane & 15;
+  // product tile: queries pq .. pq + 7, columns pc .. pc + 3 and pc + 32 ..
+  // pc + 35 of the chunk; warps past a narrow last chunk have none
+  const int pq = 32 * (warp & 1) + 8 * (lane & 3);
+  const int pc = 64 * (warp >> 1) + 4 * (lane >> 2);
+  const bool has_cols = c0 + 64 * (warp >> 1) < D;
+  float acc[8][8], s[4][4];
+  float m[4], l[4];  // the row max and this thread's part of the row sum
 #pragma unroll
-    for (int j = 0; j < kTile / 4; ++j) {
-      const int k_pos = k0 + sub + 4 * j;
-      const bool ok = k_pos < L && (!causal || q_pos >= k_pos);
-      s[j] = ok ? s[j] * scale : kNeg;
-      mx = fmaxf(mx, s[j]);
-    }
-    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
-    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
-    const float m_next = fmaxf(m, mx);
-    const float alpha = expf(m - m_next);
-    float psum = 0.f;
+  for (int r = 0; r < 8; ++r)
 #pragma unroll
-    for (int j = 0; j < kTile / 4; ++j) {
-      const float p = s[j] > kNeg ? expf(s[j] - m_next) : 0.f;
-      psum += p;
-      sP[row * (kTile + 1) + sub + 4 * j] = p;
-    }
-    psum += __shfl_xor_sync(0xffffffffu, psum, 1);
-    psum += __shfl_xor_sync(0xffffffffu, psum, 2);
-    l = alpha * l + psum;
-    m = m_next;
-    __syncthreads();  // sV is loaded; a row's P is written by its lanes
+    for (int c = 0; c < 8; ++c) acc[r][c] = 0.f;
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    m[j] = kNeg;
+    l[j] = 0.f;
+  }
 
-    const float* prow = sP + row * (kTile + 1);
+  for (int step = 0; step < n_steps; ++step) {
+    sm90::cp_async_wait<kF32Ahead - 1>();  // this step's group has landed
+    __syncthreads();  // for every thread; all are done with the last step
+    load_step(step + kF32Ahead);
+    const int it = step / per, blk = step - it * per;
+    if (blk < nb) {
+      // S (+)= Q K^T over this block's 32 columns
+      const float* stage = sRing + (it * nb + blk) % kF32Ring * kF32Stage;
+      if (blk == 0) {
 #pragma unroll
-    for (int j = 0; j < kChunk / 4; ++j) acc[j] *= alpha;
+        for (int j = 0; j < 4; ++j)
+#pragma unroll
+          for (int i = 0; i < 4; ++i) s[j][i] = 0.f;
+      }
+      simt::f32_tile_product<1, 16>(s, stage + tq * kF32Row,
+                                    stage + (kTile + tk) * kF32Row);
+      continue;
+    }
+
+    // the online softmax on the S tile: masked where the k tile crosses
+    // the diagonal or the end of the sequence
+    const int k0 = (it0 + it) * kTile;
+    const bool edge = (causal && k0 + kTile > q0) || k0 + kTile > L;
+    float alpha[4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      float mx = kNeg;
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        float x = s[j][i] * scale;
+        if (edge) {
+          const int key = k0 + tk + 16 * i;
+          if (key >= L || (causal && key > q0 + tq + j)) x = kNeg;
+        }
+        s[j][i] = x;
+        mx = fmaxf(mx, x);
+      }
+#pragma unroll
+      for (int lanes = 1; lanes <= 8; lanes <<= 1)
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, lanes));
+      const float next = fmaxf(m[j], mx);
+      alpha[j] = expf(m[j] - next);
+      m[j] = next;
+      float sum = 0.f;
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const float p = s[j][i] > kNeg ? expf(s[j][i] - next) : 0.f;
+        s[j][i] = p;
+        sum += p;
+      }
+      l[j] = alpha[j] * l[j] + sum;
+    }
+    // P^T and alpha into shared memory, for the product tiles' rows
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      *reinterpret_cast<float4*>(sPT + (tk + 16 * i) * kF32PRow + tq) =
+          make_float4(s[0][i], s[1][i], s[2][i], s[3][i]);
+    if (tk == 0)
+      *reinterpret_cast<float4*>(sAlpha + tq) =
+          make_float4(alpha[0], alpha[1], alpha[2], alpha[3]);
+    __syncthreads();
+
+    // O[:, chunk] = alpha O[:, chunk] + P V[:, chunk]
+    if (!has_cols) continue;
+    const float4 a0 = *reinterpret_cast<const float4*>(sAlpha + pq);
+    const float4 a1 = *reinterpret_cast<const float4*>(sAlpha + pq + 4);
+    const float ar[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
+#pragma unroll
+    for (int r = 0; r < 8; ++r)
+#pragma unroll
+      for (int c = 0; c < 8; ++c) acc[r][c] *= ar[r];
 #pragma unroll 4
-    for (int c = 0; c < kTile; ++c) {
-      const float p = prow[c];
-      const float* vrow = sV + c * (kChunk + 1) + sub;
+    for (int key = 0; key < kTile; ++key) {
+      const float* prow = sPT + key * kF32PRow + pq;
+      const float* vrow = sV + key * kF32Chunk + pc;
+      const float4 p0 = *reinterpret_cast<const float4*>(prow);
+      const float4 p1 = *reinterpret_cast<const float4*>(prow + 4);
+      const float4 x0 = *reinterpret_cast<const float4*>(vrow);
+      const float4 x1 = *reinterpret_cast<const float4*>(vrow + 32);
+      const float pr[8] = {p0.x, p0.y, p0.z, p0.w, p1.x, p1.y, p1.z, p1.w};
+      const float vr[8] = {x0.x, x0.y, x0.z, x0.w, x1.x, x1.y, x1.z, x1.w};
 #pragma unroll
-      for (int j = 0; j < kChunk / 4; ++j)
-        acc[j] = fmaf(p, vrow[4 * j], acc[j]);
+      for (int r = 0; r < 8; ++r)
+#pragma unroll
+        for (int c = 0; c < 8; ++c) acc[r][c] = fmaf(pr[r], vr[c], acc[r][c]);
     }
   }
 
-  if (q_pos < L) {
-    // a row with no unmasked key has l == 0: store 0, not nan
-    const float inv = l == 0.f ? 0.f : 1.f / l;
-    float* orow = o + ((size_t)bh * L + q_pos) * D;
+  // l over the row's 16 owners; the lse, or this slab's m and l (chunk 0)
 #pragma unroll
-    for (int j = 0; j < kChunk / 4; ++j) {
-      const int col = d0 + sub + 4 * j;
-      if (col < D) orow[col] = acc[j] * inv;
+  for (int j = 0; j < 4; ++j)
+#pragma unroll
+    for (int lanes = 1; lanes <= 8; lanes <<= 1)
+      l[j] += __shfl_xor_sync(0xffffffffu, l[j], lanes);
+  const size_t stats = ((size_t)slab * heads + bh) * L;
+  if (tk == 0) {
+    *reinterpret_cast<float4*>(sL + tq) = make_float4(l[0], l[1], l[2], l[3]);
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int row = q0 + tq + j;
+      if (chunk != 0 || row >= L) continue;
+      if (slabs == 1) {
+        lse[(size_t)bh * L + row] = m[j] + logf(fmaxf(l[j], 1e-30f));
+      } else {
+        m_part[stats + row] = m[j];
+        l_part[stats + row] = l[j];
+      }
     }
-    if (sub == 0 && blockIdx.z == 0)
-      lse[(size_t)bh * L + q_pos] = m + logf(fmaxf(l, 1e-30f));
+  }
+  __syncthreads();
+  if (!has_cols) return;
+
+  // rows pq .. pq + 7 of the q tile, columns c0 + pc and c0 + pc + 32: into
+  // O divided by l (a row with no unmasked key has l == 0: 0, not nan), or
+  // into this slab's partial as they are
+  float* out = slabs == 1 ? o + (size_t)bh * L * D : o_part + stats * D;
+#pragma unroll
+  for (int r = 0; r < 8; ++r) {
+    const int row = q0 + pq + r;
+    if (row >= L) break;
+    float inv = 1.f;
+    if (slabs == 1) {
+      const float lr = sL[pq + r];
+      inv = lr == 0.f ? 0.f : 1.f / lr;
+    }
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int col = c0 + pc + 32 * h;
+      if (col < D)
+        *reinterpret_cast<float4*>(out + (size_t)row * D + col) =
+            make_float4(acc[r][4 * h] * inv, acc[r][4 * h + 1] * inv,
+                        acc[r][4 * h + 2] * inv, acc[r][4 * h + 3] * inv);
+    }
+  }
+}
+
+// the second launch of a split fp32 K1: each row of O and its lse from the
+// q tile's slabs of partials (o_part (slabs, B * Hq, L, D), m_part and
+// l_part (slabs, B * Hq, L)), merged in slab order: m = max m_s, l = sum
+// l_s e^(m_s - m), O = sum O_s e^(m_s - m) / l, lse = m + log l. A slab in
+// which a row has no unmasked key (m_s = -1e30, l_s = 0, O_s = 0) adds 0.
+// Memory-bound: it reads every slab's partial once.
+__global__ void __launch_bounds__(kF32Threads)
+flash_fwd_split_combine_kernel(const float4* __restrict__ o_part,
+                               const float* __restrict__ m_part,
+                               const float* __restrict__ l_part,
+                               float4* __restrict__ o,
+                               float* __restrict__ lse, int rows, int L,
+                               int D, int causal, int per_slab) {
+  const int per_row = D / 4;  // float4s of a row
+  const size_t total = (size_t)rows * per_row;
+  const int nq = (L + kTile - 1) / kTile;
+  for (size_t i = blockIdx.x * (size_t)blockDim.x + threadIdx.x; i < total;
+       i += (size_t)gridDim.x * blockDim.x) {
+    const size_t row = i / per_row;  // bh * L + query
+    const int tile = (int)(row % L) / kTile;
+    const int n = ((causal ? tile + 1 : nq) + per_slab - 1) / per_slab;
+    float m = kNeg;
+    for (int sl = 0; sl < n; ++sl)
+      m = fmaxf(m, m_part[(size_t)sl * rows + row]);
+    float l = 0.f;
+    float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
+    for (int sl = 0; sl < n; ++sl) {
+      const float w = expf(m_part[(size_t)sl * rows + row] - m);
+      const float4 x = o_part[(size_t)sl * total + i];
+      l += l_part[(size_t)sl * rows + row] * w;
+      acc.x += x.x * w;
+      acc.y += x.y * w;
+      acc.z += x.z * w;
+      acc.w += x.w * w;
+    }
+    const float inv = l == 0.f ? 0.f : 1.f / l;
+    o[i] = make_float4(acc.x * inv, acc.y * inv, acc.z * inv, acc.w * inv);
+    if (i % per_row == 0) lse[row] = m + logf(fmaxf(l, 1e-30f));
   }
 }
 
@@ -760,18 +849,6 @@ int prepare(Kernel kernel, size_t smem) {
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
 }
 
-template <int D>
-int launch_simt(const Args& a) {
-  const size_t smem = simt_smem_bytes<D>();
-  if (int err = prepare(flash_fwd_simt_kernel<D>, smem)) return err;
-  const dim3 grid((a.L + kTile - 1) / kTile, a.B * a.Hq);
-  flash_fwd_simt_kernel<D><<<grid, kThreads, smem, a.stream>>>(
-      static_cast<const float*>(a.q), static_cast<const float*>(a.k),
-      static_cast<const float*>(a.v), static_cast<float*>(a.o), a.lse, a.Hq,
-      a.Hkv, a.L, a.scale, a.causal);
-  return (int)cudaGetLastError();
-}
-
 // one block per (tile, head): tile-major, so the tile rank is the slow index
 template <typename T, int D>
 int launch_mma(const Args& a) {
@@ -785,15 +862,20 @@ int launch_mma(const Args& a) {
   return (int)cudaGetLastError();
 }
 
-int launch_general(const Args& a, int D) {
-  const size_t smem = general_smem_bytes();
-  if (int err = prepare(flash_fwd_general_kernel, smem)) return err;
-  const dim3 grid((a.L + kTile - 1) / kTile, a.B * a.Hq,
-                  (D + kChunk - 1) / kChunk);
-  flash_fwd_general_kernel<<<grid, kThreads, smem, a.stream>>>(
+// one block per (q tile, slab, chunk, head): tile-major, so the tile rank is
+// the slow index
+int launch_f32(const Args& a, int D, float* o_part, float* m_part,
+               float* l_part, int per_slab, int slabs) {
+  const size_t smem = f32_smem_bytes();
+  if (int err = prepare(flash_fwd_f32_kernel, smem)) return err;
+  const long long grid = (long long)((a.L + kTile - 1) / kTile) * slabs *
+                         ((D + kF32Chunk - 1) / kF32Chunk) * a.B * a.Hq;
+  if (grid > INT_MAX) return -1;
+  flash_fwd_f32_kernel<<<(int)grid, kF32Threads, smem, a.stream>>>(
       static_cast<const float*>(a.q), static_cast<const float*>(a.k),
-      static_cast<const float*>(a.v), static_cast<float*>(a.o), a.lse, a.Hq,
-      a.Hkv, a.L, D, a.scale, a.causal);
+      static_cast<const float*>(a.v), static_cast<float*>(a.o), a.lse, o_part,
+      m_part, l_part, a.Hq, a.Hkv, a.L, D, a.scale, a.causal, per_slab,
+      slabs);
   return (int)cudaGetLastError();
 }
 
@@ -818,11 +900,11 @@ int launch_general_mma(const Args& a, int D) {
 
 extern "C" {
 
-// dtype: 0 = float32 (SIMT), 1 = float16, 2 = bfloat16 (tensor cores); D in
-// {64, 128, 256}. Returns 0 on success, the cudaError_t of a refused launch, or -1
-// for arguments the kernel does not take (the Python wrapper checks them
+// K1 on tensor cores: dtype 1 = float16, 2 = bfloat16; D in {64, 128,
+// 256}. Returns 0 on success, the cudaError_t of a refused launch, or -1 for
+// arguments the kernel does not take (the Python wrapper checks them
 // first). q and o are (B, Hq, L, D), k and v (B, Hkv, L, D), lse (B, Hq, L)
-// fp32; all contiguous, and for bf16/fp16 q, k and v 16-byte aligned.
+// fp32; all contiguous, and q, k and v 16-byte aligned.
 int metisfl_flash_fwd(const void* q, const void* k, const void* v, void* o,
                       void* lse, int B, int Hq, int Hkv, int L, int D,
                       int dtype, int causal, float scale, void* stream) {
@@ -830,12 +912,6 @@ int metisfl_flash_fwd(const void* q, const void* k, const void* v, void* o,
   const Args a{q, k, v, o, static_cast<float*>(lse), B, Hq, Hkv, L, scale,
                causal, static_cast<cudaStream_t>(stream)};
   switch (dtype * 1000 + D) {
-    case 64:
-      return launch_simt<64>(a);
-    case 128:
-      return launch_simt<128>(a);
-    case 256:
-      return launch_simt<256>(a);
     case 1064:
       return launch_mma<__half, 64>(a);
     case 1128:
@@ -853,17 +929,52 @@ int metisfl_flash_fwd(const void* q, const void* k, const void* v, void* o,
   }
 }
 
-// K1 in fp32 at any head dim D >= 1 (SIMT, one block per 64-column chunk
-// of O), with metisfl_flash_fwd's arguments; no alignment is needed.
+// K1 in fp32 (dtype 0), register-tiled, at any head dim D that is a
+// multiple of 32 and at least 64 (the wrapper zero-pads to one), with
+// metisfl_flash_fwd's arguments and the split: each q tile's k tiles are
+// cut into slabs of per_slab (slabs for the longest tile). slabs = 1
+// writes o and lse; slabs > 1 writes fp32 partials, o_part (slabs, B, Hq,
+// L, D) unnormalised and m_part, l_part (slabs, B, Hq, L), which
+// metisfl_flash_fwd_split_combine then merges. The (B, H, L, D) tensors
+// contiguous and 16-byte aligned.
 int metisfl_flash_fwd_general(const void* q, const void* k, const void* v,
-                              void* o, void* lse, int B, int Hq, int Hkv,
-                              int L, int D, int dtype, int causal,
-                              float scale, void* stream) {
-  if (B < 1 || Hkv < 1 || Hq % Hkv != 0 || L < 1 || D < 1 || dtype != 0)
+                              void* o, void* lse, void* o_part, void* m_part,
+                              void* l_part, int B, int Hq, int Hkv, int L,
+                              int D, int dtype, int causal, int per_slab,
+                              int slabs, float scale, void* stream) {
+  if (B < 1 || Hkv < 1 || Hq % Hkv != 0 || L < 1 || dtype != 0 ||
+      D % kF32Block != 0 || D / kF32Block < kF32Ahead || per_slab < 1 ||
+      slabs < 1 ||
+      (slabs > 1 && (o_part == nullptr || m_part == nullptr ||
+                     l_part == nullptr)))
     return -1;
   const Args a{q, k, v, o, static_cast<float*>(lse), B, Hq, Hkv, L, scale,
                causal, static_cast<cudaStream_t>(stream)};
-  return launch_general(a, D);
+  return launch_f32(a, D, static_cast<float*>(o_part),
+                    static_cast<float*>(m_part), static_cast<float*>(l_part),
+                    per_slab, slabs);
+}
+
+// The second launch of a split fp32 K1: o (B, Hq, L, D) and lse (B, Hq, L)
+// from the partials of metisfl_flash_fwd_general with the same shapes,
+// causal and per_slab; D a multiple of 4, every tensor 16-byte aligned.
+int metisfl_flash_fwd_split_combine(const void* o_part, const void* m_part,
+                                    const void* l_part, void* o, void* lse,
+                                    int B, int Hq, int L, int D, int causal,
+                                    int per_slab, void* stream) {
+  if (B < 1 || Hq < 1 || L < 1 || D < 4 || D % 4 != 0 || per_slab < 1)
+    return -1;
+  const long long rows = (long long)B * Hq * L;
+  if (rows > INT_MAX) return -1;
+  const long long float4s = rows * D / 4;
+  const int grid = (int)std::min<long long>(
+      (float4s + kF32Threads - 1) / kF32Threads, 16384);
+  flash_fwd_split_combine_kernel<<<grid, kF32Threads, 0,
+                                   static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float4*>(o_part), static_cast<const float*>(m_part),
+      static_cast<const float*>(l_part), static_cast<float4*>(o),
+      static_cast<float*>(lse), (int)rows, L, D, causal, per_slab);
+  return (int)cudaGetLastError();
 }
 
 // K1 on tensor cores in bf16 (dtype 2) or fp16 (1) at any head dim D that

@@ -26,15 +26,15 @@ The Pallas kernels take any D, since their blocks span the whole head, and
 so do the wrappers. Which kernel takes which (dtype, D) is
 :func:`kernel_route`'s answer, a pure function of both:
 
-- the tuned kernels, built for a few head dims: K1 for 64, 128 and 256; K2
-  and K3 for 64, 128 and 256 in bf16/fp16 and for 64 and 128 in fp32 (K3
-  at D = 256 launches twice, once for dV and once for dK, since dK and dV
-  of its 64-row tile would take 256 fp32 registers a thread). Up to the
-  largest, the wrappers zero-pad q, k, v (and dO) along D to the next built
-  head dim, launch with the true D's scale, and slice O, dQ, dK and dV back
-  to D. That is exact: padded columns add 0 to Q·Kᵀ and to dO·Vᵀ, and
-  padded V, dO, Q and K columns only give output columns that are sliced
-  off. A built head dim makes no copy.
+- the tuned kernels, built for a few head dims: K1 for 64, 128 and 256 in
+  bf16/fp16; K2 and K3 for 64, 128 and 256 in bf16/fp16 and for 64 and 128
+  in fp32 (K3 at D = 256 launches twice, once for dV and once for dK, since
+  dK and dV of its 64-row tile would take 256 fp32 registers a thread). Up
+  to the largest, the wrappers zero-pad q, k, v (and dO) along D to the
+  next built head dim, launch with the true D's scale, and slice O, dQ, dK
+  and dV back to D. That is exact: padded columns add 0 to Q·Kᵀ and to
+  dO·Vᵀ, and padded V, dO, Q and K columns only give output columns that
+  are sliced off. A built head dim makes no copy.
 - beyond the builds in bf16/fp16, K1, K2 and K3 run on the general
   tensor-core kernels (:func:`flash_fwd_general_mma`,
   :func:`flash_bwd_dq_general_mma`, :func:`flash_bwd_dkv_general_mma`),
@@ -42,20 +42,23 @@ so do the wrappers. Which kernel takes which (dtype, D) is
   and give the grid an axis over 256-column chunks of the output (K3 also
   one over its two outputs); the wrappers zero-pad D to a multiple of 64
   the same way.
-- K3 in fp32 beyond its builds (D > 128, whose tuned SIMT tiles would need
-  more than the 227 KB of shared memory a block may use) runs on a
-  register-tiled SIMT kernel (:func:`flash_bwd_dkv_general`, D zero-padded
-  to a multiple of 32), with the same chunk and output axes, which cuts
-  long k tiles into slabs across blocks (:func:`dkv_split`) and sums their
-  fp32 partials in a second launch (:func:`flash_bwd_dkv_split_sum`).
-- the rest, K1 and K2 in fp32 beyond their builds (D > 256 and D > 128),
-  runs on the general SIMT kernels, one block per 64-column chunk of the
-  output and no padding (:func:`flash_fwd_general`,
-  :func:`flash_bwd_dq_general`).
+- K1 in fp32, at every D, and K3 in fp32 beyond its builds (D > 128, whose
+  tuned SIMT tiles would need more than the 227 KB of shared memory a
+  block may use) run on register-tiled SIMT kernels
+  (:func:`flash_fwd_general`, :func:`flash_bwd_dkv_general`; D
+  zero-padded to a multiple of 32), with a 256-column chunk axis (K3 also
+  one over its two outputs), which cut long tiles into slabs across blocks
+  (:func:`fwd_split`, :func:`dkv_split`) and merge or sum their fp32
+  partials in a second launch (:func:`flash_fwd_split_combine`,
+  :func:`flash_bwd_dkv_split_sum`).
+- the rest, K2 in fp32 beyond its builds (D > 128), runs on the general
+  SIMT kernel, one block per 64-column chunk of dQ and no padding
+  (:func:`flash_bwd_dq_general`).
 
 Each wrapper counts its own launches. The SIMT kernels carry b * H in
-gridDim.y, which stops at 65535, so the wrappers launch in batch chunks of
-at most 65535 // H batches.
+gridDim.y, which stops at 65535, so the wrappers of the tuned kernels, of
+the general tensor-core kernels and of the general SIMT K2 launch in batch
+chunks of at most 65535 // H batches.
 :func:`flash_attention` is differentiable: its autograd Function runs K1
 forward and K2/K3 backward, as the JAX package's custom VJP does.
 """
@@ -71,23 +74,25 @@ import torch
 
 _NEG = -1e30
 _DTYPE_CODES = {torch.float32: 0, torch.float16: 1, torch.bfloat16: 2}
-# the head dims each tuned kernel is instantiated for; a smaller D is
-# padded, a larger one goes to the general kernels
+# the head dims each tuned kernel is instantiated for (K1: bf16/fp16 only);
+# a smaller D is padded, a larger one goes to the general kernels
 _FWD_HEAD_DIMS = (64, 128, 256)
 _BWD_HEAD_DIMS = (64, 128, 256)
 _BWD_HEAD_DIMS_FP32 = (64, 128)
 # gridDim.y of the SIMT kernels carries b * H
 _MAX_GRID_Y = 65535
-# output columns of one block of the general kernels: the SIMT kernels'
-# 64-column chunks, the tensor-core kernels' and fp32 K3's 256 (their fp32
-# accumulator)
+# output columns of one block of the general kernels: the SIMT K2's
+# 64-column chunks, the tensor-core kernels' and the fp32 K1's and K3's 256
+# (their fp32 accumulator)
 _SIMT_CHUNK = 64
 _MMA_CHUNK = 256
-# rows of a k tile (and of a q step) of the fp32 K3 beyond its builds
+# rows of a q or k tile (and of a q step) of the register-tiled fp32 K1 and
+# K3
 _KV_TILE = 64
-# blocks per SM that the fp32 K3's split aims its grid at (one block fits
-# an SM at a time: several per SM let the longest-first order even them
-# out; on the H100, 8 beat 2 and 4 and matched 16, PERF.md)
+# blocks per SM that the fp32 K1's and K3's splits aim their grids at (one
+# block fits an SM at a time: several per SM let the longest-first order
+# even them out; on the H100, 8 beat 2 and 4 and matched 16 for K3,
+# PERF.md)
 _SPLIT_BLOCKS_PER_SM = 8
 
 _launch_lock = threading.Lock()
@@ -249,10 +254,11 @@ def mma_head_dim(D: int) -> int:
     return max(128, -(-D // 64) * 64)
 
 
-def dkv_head_dim(D: int) -> int:
-    """The head dim the fp32 K3 beyond its builds runs D at: the next
-    multiple of 32 (the width of its streamed block), and at least 64 (two
-    blocks, as :func:`mma_head_dim`)."""
+def f32_head_dim(D: int) -> int:
+    """The head dim the register-tiled fp32 kernels (K1 at every D, K3
+    beyond its builds) run D at: the next multiple of 32 (the width of
+    their streamed block), and at least 64 (two blocks, as
+    :func:`mma_head_dim`)."""
     return max(64, -(-D // 32) * 32)
 
 
@@ -282,6 +288,36 @@ def dkv_split(B: int, Hq: int, Hkv: int, L: int, D: int, causal: bool,
     return per_slab, -(-steps[0] // per_slab)
 
 
+def _fwd_slab_steps(L: int, causal: bool):
+    """The k tiles of each 64-row q tile of the fp32 K1: every k tile, or
+    up to the diagonal."""
+    nq = -(-L // _KV_TILE)
+    return [t + 1 if causal else nq for t in range(nq)]
+
+
+def fwd_split(B: int, Hq: int, L: int, D: int, causal: bool,
+              sms: int) -> Tuple[int, int]:
+    """``(per_slab, slabs)`` of the fp32 K1 at these shapes (D its padded
+    head dim) on a card of ``sms`` SMs. Where one block per q tile (and
+    head and chunk) fills the card, the grid is not split: ``(longest
+    tile's k tiles, 1)``, and each block writes O and the lse directly.
+    Else, as :func:`dkv_split`, each q tile's k tiles are cut into slabs of
+    ``per_slab``, one block each, so that the grid holds about
+    ``_SPLIT_BLOCKS_PER_SM`` blocks' work per SM; ``slabs`` is the longest
+    tile's count, and the blocks write partials that
+    :func:`flash_fwd_split_combine` merges. (On the H100 a grid that
+    fills the card ran 7-16% faster unsplit than split, PERF.md.) A pure
+    function of its arguments."""
+    steps = _fwd_slab_steps(L, causal)
+    blocks = B * Hq * -(-D // _MMA_CHUNK)  # per q tile and slab
+    longest = max(steps)
+    per_slab = max(1, -(-blocks * sum(steps)
+                        // (_SPLIT_BLOCKS_PER_SM * sms)))
+    if blocks * len(steps) >= sms or per_slab >= longest:
+        return longest, 1
+    return per_slab, -(-longest // per_slab)
+
+
 class Route(NamedTuple):
     """The kernel that a CUDA tensor's call launches."""
 
@@ -306,16 +342,20 @@ _WRAPPERS = {
 def kernel_route(kernel: str, dtype: torch.dtype, D: int) -> Route:
     """Which kernel ``kernel`` ("fwd" for K1, "dq" for K2, "dkv" for K3)
     launches on a CUDA tensor of ``dtype`` at head dim ``D``: a pure
-    function of the two, and the one the wrappers route by. A tuned build
-    where D fits one (padded to it); beyond, in bf16/fp16, the general
-    tensor-core kernels (padded to :func:`mma_head_dim`); in fp32, K3 on
-    its register-tiled kernel (padded to :func:`dkv_head_dim`, 256-column
-    chunks, two passes) and K1 and K2 on the general SIMT kernels
-    (unpadded)."""
+    function of the two, and the one the wrappers route by. K1 in fp32 at
+    every D: its register-tiled kernel (padded to :func:`f32_head_dim`,
+    256-column chunks). Otherwise a tuned build where D fits one (padded to
+    it); beyond, in bf16/fp16, the general tensor-core kernels (padded to
+    :func:`mma_head_dim`); in fp32, K3 on its register-tiled kernel (padded
+    to :func:`f32_head_dim`, 256-column chunks, two passes) and K2 on the
+    general SIMT kernel (unpadded)."""
     tuned, general, mma = _WRAPPERS[kernel]
+    passes = 2 if kernel == "dkv" else 1
+    if kernel == "fwd" and dtype == torch.float32:
+        Dp = f32_head_dim(D)
+        return Route(general, Dp, -(-Dp // _MMA_CHUNK), passes)
     builds = _FWD_HEAD_DIMS if kernel == "fwd" else bwd_head_dims(dtype)
     built = kernel_head_dim(D, builds)
-    passes = 2 if kernel == "dkv" else 1
     if built is not None:
         return Route(tuned, built, 1,
                      2 if kernel == "dkv" and built == 256 else 1)
@@ -323,7 +363,7 @@ def kernel_route(kernel: str, dtype: torch.dtype, D: int) -> Route:
         Dp = mma_head_dim(D)
         return Route(mma, Dp, -(-Dp // _MMA_CHUNK), passes)
     if kernel == "dkv":
-        Dp = dkv_head_dim(D)
+        Dp = f32_head_dim(D)
         return Route(general, Dp, -(-Dp // _MMA_CHUNK), passes)
     return Route(general, D, -(-D // _SIMT_CHUNK), 1)
 
@@ -419,8 +459,10 @@ _PTR, _INT, _FLOAT = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
     "flash_fwd": {
         "metisfl_flash_fwd": [_PTR] * 5 + [_INT] * 7 + [_FLOAT, _PTR],
-        "metisfl_flash_fwd_general": [_PTR] * 5 + [_INT] * 7
+        "metisfl_flash_fwd_general": [_PTR] * 8 + [_INT] * 9
         + [_FLOAT, _PTR],
+        "metisfl_flash_fwd_split_combine": [_PTR] * 5 + [_INT] * 6
+        + [_PTR],
         "metisfl_flash_fwd_general_mma": [_PTR] * 5 + [_INT] * 7
         + [_FLOAT, _PTR],
     },
@@ -504,11 +546,11 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """K1: ``(o, lse)`` for (B, Hq, L, D) q and (B, Hkv, L, D) k/v.
 
     CPU tensors run :func:`flash_attention_fwd_reference`. CUDA tensors
-    launch ``csrc/flash_fwd.cu`` on the current stream (tensor cores for
-    bf16/fp16, SIMT for fp32; D <= 256 padded to 64, 128 or 256, with q, k
-    and v 16-byte aligned there; contiguous) and raise on anything else;
-    D > 256 goes to :func:`flash_fwd_general_mma` in bf16/fp16 and to
-    :func:`flash_fwd_general` in fp32 (:func:`kernel_route`).
+    in bf16/fp16 launch ``csrc/flash_fwd.cu``'s tensor-core kernel on the
+    current stream (D <= 256 padded to 64, 128 or 256, with q, k and v
+    16-byte aligned there; contiguous) and raise on anything else; D > 256
+    goes to :func:`flash_fwd_general_mma`. fp32 goes, at every D, to the
+    register-tiled :func:`flash_fwd_general` (:func:`kernel_route`).
     ``flash_attention_fwd.launches`` counts this kernel's launches (one per
     batch chunk)."""
     if not _on_cuda(q):
@@ -546,27 +588,127 @@ def flash_fwd_general(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     :func:`flash_attention_fwd`.
 
     CPU tensors run :func:`flash_attention_fwd_reference`. CUDA tensors
-    launch ``csrc/flash_fwd.cu``'s general SIMT kernel (fp32, any D, one
-    block per 64-column chunk of O; no padding, no alignment) or raise.
-    :func:`flash_attention_fwd` routes fp32 at D > 256 here.
-    ``flash_fwd_general.launches`` counts launches (one per batch chunk)."""
+    are zero-padded along D to :func:`f32_head_dim` (exact, as for the
+    builds) and launch ``csrc/flash_fwd.cu``'s register-tiled SIMT kernel,
+    blocks of one (64-row q tile, slab of its k tiles, 256-column chunk of
+    O, head), with q, k and v 16-byte aligned and contiguous; or raise.
+    Where :func:`fwd_split` cuts the q tiles' k tiles into more than one
+    slab, the blocks write fp32 partials into scratch tensors and
+    :func:`flash_fwd_split_combine` merges them in a fixed order: no
+    atomics, the same bits on every run. :func:`flash_attention_fwd`
+    routes every fp32 D here. ``flash_fwd_general.launches`` counts this
+    kernel's launches (one per call)."""
     if not _on_cuda(q):
         return flash_attention_fwd_reference(q, k, v, causal)
     _check_cuda_inputs(q, k, v)
     _check_dtype("flash_fwd_general", q, (torch.float32,))
     B, Hq, L, D = q.shape
+    scale = 1.0 / math.sqrt(D)
+    Dk, (q, k, v) = pad_head_dim(q, k, v, head_dims=(f32_head_dim(D),))
+    _check_aligned(q=q, k=k, v=v)
+    sms = torch.cuda.get_device_properties(q.device).multi_processor_count
+    per_slab, slabs = fwd_split(B, Hq, L, Dk, causal, sms)
     o = torch.empty_like(q)
     lse = torch.empty((B, Hq, L), dtype=torch.float32, device=q.device)
-    for b0, b1 in _batch_chunks(B, Hq):
-        _launch("flash_fwd", "metisfl_flash_fwd_general", flash_fwd_general,
-                q.device, q[b0:b1].data_ptr(), k[b0:b1].data_ptr(),
-                v[b0:b1].data_ptr(), o[b0:b1].data_ptr(),
-                lse[b0:b1].data_ptr(),
-                *_shape_args(q[b0:b1], k, causal, 1.0 / math.sqrt(D)))
+    # the slabs' partials: O unnormalised, each row's max and sum
+    parts = (None, None, None)
+    if slabs > 1:
+        parts = (torch.empty((slabs,) + tuple(q.shape), dtype=torch.float32,
+                             device=q.device),
+                 *(torch.empty((slabs, B, Hq, L), dtype=torch.float32,
+                               device=q.device) for _ in range(2)))
+    *shapes, scale_arg = _shape_args(q, k, causal, scale)
+    _launch("flash_fwd", "metisfl_flash_fwd_general", flash_fwd_general,
+            q.device, q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+            lse.data_ptr(), *(None if t is None else t.data_ptr()
+                              for t in parts),
+            *shapes, per_slab, slabs, scale_arg)
+    if slabs > 1:
+        flash_fwd_split_combine(*parts, causal, per_slab, out=(o, lse))
+    if Dk != D:
+        o = o[..., :D].contiguous()
     return o, lse
 
 
 flash_fwd_general.launches = 0
+
+
+def fwd_split_combine_reference(o_part: torch.Tensor, m_part: torch.Tensor,
+                                l_part: torch.Tensor, causal: bool,
+                                per_slab: int
+                                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain PyTorch twin of the split fp32 K1's second launch: ``(o,
+    lse)`` from partials ``o_part`` (slabs, B, Hq, L, D), unnormalised, and
+    each row's max ``m_part`` and sum ``l_part`` (slabs, B, Hq, L). Each row
+    merges, in slab order, the slabs its 64-row q tile has
+    (``ceil(k tiles / per_slab)`` of :func:`_fwd_slab_steps`): m = max m_s,
+    l = Σ l_s·e^(m_s − m), o = Σ o_s·e^(m_s − m) / l (0 where l = 0), lse =
+    m + log l. The rest of the partials is never read."""
+    L = o_part.shape[3]
+    counts = torch.tensor([-(-n // per_slab) for n in _fwd_slab_steps(
+        L, causal)], device=o_part.device)
+    rows = counts.repeat_interleave(_KV_TILE)[:L]  # slabs of each row
+    m = m_part[0]
+    for slab in range(1, o_part.shape[0]):
+        m = torch.where(rows > slab, torch.maximum(m, m_part[slab]), m)
+    l = torch.zeros_like(m)
+    o = torch.zeros_like(o_part[0])
+    for slab in range(o_part.shape[0]):
+        has = rows > slab
+        w = torch.where(has, torch.exp(m_part[slab] - m), torch.zeros_like(m))
+        l = l + torch.where(has, l_part[slab] * w, torch.zeros_like(m))
+        o = o + torch.where(has[:, None], o_part[slab] * w[..., None],
+                            torch.zeros_like(o))
+    inv = torch.where(l == 0, torch.zeros_like(l), 1.0 / l)
+    return o * inv[..., None], m + torch.log(l.clamp_min(1e-30))
+
+
+def flash_fwd_split_combine(o_part: torch.Tensor, m_part: torch.Tensor,
+                            l_part: torch.Tensor, causal: bool,
+                            per_slab: int,
+                            out: Optional[Tuple[torch.Tensor,
+                                                torch.Tensor]] = None
+                            ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The split fp32 K1's second launch: ``(o, lse)``, (B, Hq, L, D) and
+    (B, Hq, L) fp32, from the partials that :func:`flash_fwd_general` wrote
+    with ``per_slab`` k tiles a slab; written into ``out`` where given. CPU
+    tensors run :func:`fwd_split_combine_reference`; CUDA tensors launch
+    ``csrc/flash_fwd.cu``'s combine kernel (each row's slabs merged in slab
+    order) or raise. ``flash_fwd_split_combine.launches`` counts
+    launches."""
+    if not _on_cuda(o_part):
+        return fwd_split_combine_reference(o_part, m_part, l_part, causal,
+                                           per_slab)
+    if (o_part.dtype != torch.float32 or o_part.dim() != 5
+            or not o_part.is_contiguous() or o_part.shape[-1] % 4):
+        raise ValueError(f"o_part must be a contiguous (slabs, B, Hq, L, D) "
+                         f"float32 tensor with D a multiple of 4, got "
+                         f"{tuple(o_part.shape)} {o_part.dtype}")
+    _, B, Hq, L, D = o_part.shape
+    for name, t in (("m_part", m_part), ("l_part", l_part)):
+        if (t.device != o_part.device or t.dtype != torch.float32
+                or t.shape != o_part.shape[:4] or not t.is_contiguous()):
+            raise ValueError(f"{name} must be a contiguous "
+                             f"{tuple(o_part.shape[:4])} float32 tensor on "
+                             f"{o_part.device}")
+    if out is None:
+        out = (torch.empty_like(o_part[0]), torch.empty_like(m_part[0]))
+    o, lse = out
+    for name, t, shape in (("o", o, o_part.shape[1:]),
+                           ("lse", lse, m_part.shape[1:])):
+        if (t.device != o_part.device or t.dtype != torch.float32
+                or t.shape != shape or not t.is_contiguous()):
+            raise ValueError(f"{name} must be a contiguous {tuple(shape)} "
+                             f"float32 tensor on {o_part.device}")
+    _check_aligned(o_part=o_part, o=o)
+    _launch("flash_fwd", "metisfl_flash_fwd_split_combine",
+            flash_fwd_split_combine, o_part.device, o_part.data_ptr(),
+            m_part.data_ptr(), l_part.data_ptr(), o.data_ptr(),
+            lse.data_ptr(), B, Hq, L, D, int(bool(causal)), per_slab)
+    return o, lse
+
+
+flash_fwd_split_combine.launches = 0
 
 
 def flash_fwd_general_mma(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -730,7 +872,7 @@ def flash_bwd_dkv_general(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                           ) -> Tuple[torch.Tensor, torch.Tensor]:
     """K3 in fp32 at any head dim on CUDA tensors, as
     :func:`flash_bwd_dkv`: q, k, v and dO zero-padded along D to
-    :func:`dkv_head_dim` (exact), then ``csrc/flash_bwd.cu``'s
+    :func:`f32_head_dim` (exact), then ``csrc/flash_bwd.cu``'s
     register-tiled SIMT kernel, blocks of one (64-row k tile, slab of its
     q steps, output, 256-column chunk, KV head), with the (B, H, L, D)
     tensors 16-byte aligned; or raises. Where :func:`dkv_split` cuts the k
@@ -746,7 +888,7 @@ def flash_bwd_dkv_general(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     Hkv = k.shape[1]
     scale = 1.0 / math.sqrt(D)
     Dk, (q, k, v, do) = pad_head_dim(q, k, v, do,
-                                     head_dims=(dkv_head_dim(D),))
+                                     head_dims=(f32_head_dim(D),))
     _check_aligned(q=q, k=k, v=v, do=do)
     sms = torch.cuda.get_device_properties(q.device).multi_processor_count
     per_slab, slabs = dkv_split(B, Hq, Hkv, L, Dk, causal, sms)

@@ -7,15 +7,18 @@ one NVIDIA GPU.
         --root build/turns/parent --root .
     python3 scripts/torch_kernel_turns.py --shape 2,8,2,1024,256 \
         --dtype float32 --root build/turns/parent --root .
+    python3 scripts/torch_kernel_turns.py --shape 2,8,8,1000,128 \
+        --dtype float32 --not-causal --kernels fwd --root a --root b
 
 Each checkout's ``metisfl_tpu_torch`` runs in a process of its own (its
 kernels built from its own ``csrc/`` into its own ``build/``), in the
 order A, B, B, A for two roots (``--turns 2``), so that two versions are
 compared on the same card within one call. Each run times
-``flash_attention_fwd``, ``flash_bwd_dq`` and ``flash_bwd_dkv`` at one
-shape and dtype, causal: ``--shape B,Hq,Hkv,L,D`` (default the training
-shape of ``chip_smoke.py``, B8·Hq16·Hkv4·L1024·D64) and ``--dtype``
-(bfloat16, float16 or float32; default bfloat16). It times them three
+``flash_attention_fwd``, ``flash_bwd_dq`` and ``flash_bwd_dkv`` (or those
+``--kernels`` names: fwd, dq, dkv) at one shape and dtype, causal unless
+``--not-causal``: ``--shape B,Hq,Hkv,L,D`` (default the training shape of
+``chip_smoke.py``, B8·Hq16·Hkv4·L1024·D64) and ``--dtype`` (bfloat16,
+float16 or float32; default bfloat16). It times them three
 ways: CUDA events around 20 back-to-back calls (``ms``, as chip_smoke's
 kernel rows), the profiler's device time per call (``device_ms``) and the
 host's time per call with no sync between calls (``host_ms``). Where
@@ -86,7 +89,8 @@ def _launches(fa):
             if callable(fn) and hasattr(fn, "launches")}
 
 
-def child(root: str, shape, dtype_name: str) -> int:
+def child(root: str, shape, dtype_name: str, causal: bool,
+          kernels) -> int:
     sys.path.insert(0, os.path.abspath(root))
     import importlib
 
@@ -100,17 +104,20 @@ def child(root: str, shape, dtype_name: str) -> int:
         np.float32)).to("cuda", getattr(torch, dtype_name))
         for s in ((B, Hq, L, D), (B, Hkv, L, D), (B, Hkv, L, D),
                   (B, Hq, L, D)))
-    o, lse = fa.flash_attention_fwd(q, k, v, True)
+    o, lse = fa.flash_attention_fwd(q, k, v, causal)
     delta = (do.float() * o.float()).sum(-1)
     calls = {
-        "flash_attention_fwd": lambda: fa.flash_attention_fwd(q, k, v, True),
-        "flash_bwd_dq": lambda: fa.flash_bwd_dq(q, k, v, do, lse, delta,
-                                                True),
-        "flash_bwd_dkv": lambda: fa.flash_bwd_dkv(q, k, v, do, lse, delta,
-                                                  True),
+        "flash_attention_fwd": ("fwd", lambda: fa.flash_attention_fwd(
+            q, k, v, causal)),
+        "flash_bwd_dq": ("dq", lambda: fa.flash_bwd_dq(q, k, v, do, lse,
+                                                       delta, causal)),
+        "flash_bwd_dkv": ("dkv", lambda: fa.flash_bwd_dkv(q, k, v, do, lse,
+                                                          delta, causal)),
     }
     out = {}
-    for name, fn in calls.items():
+    for name, (short, fn) in calls.items():
+        if short not in kernels:
+            continue
         before = _launches(fa)
         fn()
         torch.cuda.synchronize()
@@ -120,7 +127,7 @@ def child(root: str, shape, dtype_name: str) -> int:
             {"ms": _time_ms(torch, fn), "device_ms": _device_ms(torch, fn),
              "host_ms": _host_ms(torch, fn)} for _ in range(REPEATS)]}
     print(json.dumps({"turn": {"root": root, "shape": list(shape),
-                               "dtype": dtype_name, "causal": True,
+                               "dtype": dtype_name, "causal": causal,
                                "kernels": out}}),
           flush=True)
     return 0
@@ -140,13 +147,22 @@ def main() -> int:
     parser.add_argument("--dtype", default="bfloat16",
                         choices=("bfloat16", "float16", "float32"),
                         help="the inputs' dtype (default: %(default)s)")
+    parser.add_argument("--not-causal", action="store_true",
+                        help="time the kernels without the causal mask")
+    parser.add_argument("--kernels", default="fwd,dq,dkv",
+                        help="which of fwd, dq and dkv to time (default: "
+                             "%(default)s)")
     parser.add_argument("--child", help=argparse.SUPPRESS)
     args = parser.parse_args()
     shape = tuple(int(x) for x in args.shape.split(","))
     if len(shape) != 5:
         parser.error(f"--shape takes B,Hq,Hkv,L,D, got {args.shape!r}")
+    kernels = set(args.kernels.split(","))
+    if not kernels or not kernels <= {"fwd", "dq", "dkv"}:
+        parser.error(f"--kernels takes fwd, dq and dkv, got {args.kernels!r}")
     if args.child:
-        return child(args.child, shape, args.dtype)
+        return child(args.child, shape, args.dtype, not args.not_causal,
+                     kernels)
     import torch
 
     if not torch.cuda.is_available():
@@ -159,7 +175,8 @@ def main() -> int:
     for root in order:
         rc = subprocess.run([sys.executable, os.path.abspath(__file__),
                              "--shape", args.shape, "--dtype", args.dtype,
-                             "--child", root]).returncode
+                             "--kernels", args.kernels, "--child", root]
+                            + ["--not-causal"] * args.not_causal).returncode
         if rc:
             print(f"torch_kernel_turns: {root} exited {rc}", file=sys.stderr)
             return rc

@@ -342,16 +342,25 @@ _FWD_GPU_CASES = [
 def test_kernel_matches_plain_version_on_gpu(cuda_device, dtype, causal, B,
                                              Hq, Hkv, L, D):
     """The CUDA kernel against its plain twin on the card: o within the
-    dtype's ``_FWD_ATOL``, lse within 1e-3 (1e-4 in fp32). One launch."""
+    dtype's ``_FWD_ATOL``, lse within 1e-3 (1e-4 in fp32). One launch of
+    the kernel the dtype routes to (fp32: the register-tiled kernel, with
+    its combine where it splits)."""
+    from metisfl_tpu_torch.ops.flash_attention import kernel_route
+
     rng = np.random.default_rng(0)
     q = torch.from_numpy(rng.standard_normal((B, Hq, L, D)).astype(
         np.float32)).to(cuda_device, dtype)
     k, v = (torch.from_numpy(rng.standard_normal((B, Hkv, L, D)).astype(
         np.float32)).to(cuda_device, dtype) for _ in range(2))
-    before = flash_attention_fwd.launches
+    before = _launch_counts()
     o, lse = flash_attention_fwd(q, k, v, causal)
     torch.cuda.synchronize()
-    assert flash_attention_fwd.launches == before + 1
+    after = _launch_counts()
+    combine = _combine_launches(cuda_device, dtype, B, Hq, L, D, causal)
+    assert {n: after[n] - before[n] for n in after
+            if after[n] - before[n]} == {
+        kernel_route("fwd", dtype, D).wrapper: 1,
+        **({"flash_fwd_split_combine": 1} if combine else {})}
     o_ref, lse_ref = flash_attention_fwd_reference(q, k, v, causal)
     lse_atol = 1e-4 if dtype == torch.float32 else 1e-3
     assert o.dtype == dtype and lse.shape == (B, Hq, L)
@@ -596,10 +605,11 @@ def test_head_dim_padding_is_exact(causal, D, dtype):
     for K2 and K3 in bf16/fp16, 64 or 128 for K2 and K3 in fp32; beyond the
     builds, K1, K2 and K3 in bf16/fp16 the next multiple of 64 of the
     tensor-core general kernels, K3 in fp32 the next multiple of 32 of its
-    register-tiled kernel), run with the true
+    register-tiled kernel; K1 in fp32 at every D the next multiple of 32,
+    at least 64, of its register-tiled kernel), run with the true
     D's scale and sliced back, give the unpadded twins' o, lse, dq, dk and
     dv to 0 ulp, and 0 in every padded column. The fp32 SIMT general
-    kernels of K1 and K2 take D unpadded.
+    kernel of K2 takes D unpadded.
 
     The inputs are multiples of 1/8 in [-1, 1], exact in every dtype, so
     that every product and every sum over D (Q·Kᵀ, dO·Vᵀ) is exact in fp32
@@ -624,10 +634,10 @@ def test_head_dim_padding_is_exact(causal, D, dtype):
         dtype) for _ in range(2))
     scale = 1.0 / math.sqrt(D)
     fwd = kernel_route("fwd", dtype, D)
-    if D <= 256:
+    if dtype == torch.float32:
+        assert fwd.head_dim == max(64, -(-D // 32) * 32)
+    elif D <= 256:
         assert fwd.head_dim == next(d for d in (64, 128, 256) if D <= d)
-    elif dtype == torch.float32:
-        assert fwd.head_dim == D
     else:
         assert fwd.head_dim == -(-D // 64) * 64
     Dk, (qp, kp, vp) = pad_head_dim(q, k, v, head_dims=(fwd.head_dim,))
@@ -660,25 +670,25 @@ def test_head_dim_padding_is_exact(causal, D, dtype):
 # (dtype, D) -> the wrapper each of K1, K2, K3 routes to on the card, with
 # the head dim it runs at, its chunks along D and its passes
 _ROUTES = {
-    (torch.float32, 64): (("flash_attention_fwd", 64, 1, 1),
+    (torch.float32, 64): (("flash_fwd_general", 64, 1, 1),
                           ("flash_bwd_dq", 64, 1, 1),
                           ("flash_bwd_dkv", 64, 1, 1)),
-    (torch.float32, 200): (("flash_attention_fwd", 256, 1, 1),
+    (torch.float32, 200): (("flash_fwd_general", 224, 1, 1),
                            ("flash_bwd_dq_general", 200, 4, 1),
                            ("flash_bwd_dkv_general", 224, 1, 2)),
-    (torch.float32, 256): (("flash_attention_fwd", 256, 1, 1),
+    (torch.float32, 256): (("flash_fwd_general", 256, 1, 1),
                            ("flash_bwd_dq_general", 256, 4, 1),
                            ("flash_bwd_dkv_general", 256, 1, 2)),
-    (torch.float32, 257): (("flash_fwd_general", 257, 5, 1),
+    (torch.float32, 257): (("flash_fwd_general", 288, 2, 1),
                            ("flash_bwd_dq_general", 257, 5, 1),
                            ("flash_bwd_dkv_general", 288, 2, 2)),
-    (torch.float32, 320): (("flash_fwd_general", 320, 5, 1),
+    (torch.float32, 320): (("flash_fwd_general", 320, 2, 1),
                            ("flash_bwd_dq_general", 320, 5, 1),
                            ("flash_bwd_dkv_general", 320, 2, 2)),
-    (torch.float32, 512): (("flash_fwd_general", 512, 8, 1),
+    (torch.float32, 512): (("flash_fwd_general", 512, 2, 1),
                            ("flash_bwd_dq_general", 512, 8, 1),
                            ("flash_bwd_dkv_general", 512, 2, 2)),
-    (torch.float32, 1024): (("flash_fwd_general", 1024, 16, 1),
+    (torch.float32, 1024): (("flash_fwd_general", 1024, 4, 1),
                             ("flash_bwd_dq_general", 1024, 16, 1),
                             ("flash_bwd_dkv_general", 1024, 4, 2)),
 }
@@ -713,8 +723,10 @@ for _dtype in (torch.bfloat16, torch.float16):
 def test_kernel_route_names_the_kernel_for_each_dtype_and_head_dim(dtype,
                                                                    D):
     """``kernel_route`` is a pure function of (dtype, D), the one the
-    wrappers route by, and needs no GPU: fp32 beyond its builds goes, for
-    K1 and K2, to the SIMT general kernels (unpadded, 64-column chunks) and,
+    wrappers route by, and needs no GPU: K1 in fp32 goes at every D to its
+    register-tiled kernel (padded to a multiple of 32 and at least 64,
+    256-column chunks, one pass); fp32 beyond the backward's builds goes,
+    for K2, to the SIMT general kernel (unpadded, 64-column chunks) and,
     for K3, to its register-tiled kernel (padded to a multiple of 32,
     256-column chunks, two passes); bf16/fp16 above 256 to the tensor-core
     general kernels for K1, K2 and K3 (padded to a multiple of 64,
@@ -893,6 +905,188 @@ def test_split_partials_sum_to_the_dkv_twin(B, Hq, Hkv, L, causal,
     assert all(torch.equal(a, b) for a, b in zip(got, (dk, dv)))
 
 
+@pytest.mark.parametrize("D", [1, 8, 65, 100, 200, 257, 300])
+@pytest.mark.parametrize("causal", [False, True])
+def test_fp32_forward_padding_is_exact(causal, D):
+    """The fp32 K1 runs every D zero-padded to its route's head dim (the
+    next multiple of 32, at least 64: 64, 64, 96, 128, 224, 288, 320): the
+    padded twin, run with the true D's scale, gives the unpadded twin's o
+    and lse to 0 ulp, and 0 in every padded column of o. GQA (4 query heads
+    on 2 KV heads), ragged L = 37; inputs are multiples of 1/8, exact in
+    fp32, as in the padding test above."""
+    import math
+
+    from metisfl_tpu_torch.ops.flash_attention import (
+        kernel_route,
+        pad_head_dim,
+    )
+
+    rng = np.random.default_rng(D)
+    q = torch.from_numpy(rng.integers(-8, 9, (2, 4, 37, D)) / 8).float()
+    k, v = (torch.from_numpy(rng.integers(-8, 9, (2, 2, 37, D)) / 8).float()
+            for _ in range(2))
+    route = kernel_route("fwd", torch.float32, D)
+    assert route.wrapper == "flash_fwd_general"
+    assert route.head_dim == max(64, -(-D // 32) * 32) > D
+    Dk, (qp, kp, vp) = pad_head_dim(q, k, v, head_dims=(route.head_dim,))
+    assert qp.shape[-1] == Dk == route.head_dim
+    o, lse = flash_attention_fwd_reference(q, k, v, causal)
+    op, lsep = flash_attention_fwd_reference(qp, kp, vp, causal,
+                                             1.0 / math.sqrt(D))
+    assert torch.equal(op[..., :D], o) and torch.equal(lsep, lse)
+    assert not op[..., D:].any()
+
+
+@pytest.mark.parametrize("B,Hq,L,D,causal", [
+    (2, 8, 1024, 256, True), (2, 8, 1024, 256, False),
+    (2, 4, 256, 256, True), (2, 2, 256, 512, True),
+    (1, 4, 512, 512, True), (2, 8, 1000, 128, False),
+    (1, 8, 65, 224, True), (1, 4, 517, 608, False),
+    (64, 32, 4096, 1024, True)])
+@pytest.mark.parametrize("sms", [1, 132])
+def test_fwd_split_cuts_the_longest_tile_into_slabs(B, Hq, L, D, causal,
+                                                    sms):
+    """``fwd_split`` is a pure function of the shapes and the card's SM
+    count: ``slabs`` slabs of ``per_slab`` k tiles cover the longest q
+    tile (the last, when causal) and one slab fewer would not; a grid
+    whose blocks (one per q tile, head and 256-column chunk) fill the card
+    is not split; else no slab is longer than the work of about
+    ``_SPLIT_BLOCKS_PER_SM`` blocks per SM needs."""
+    from metisfl_tpu_torch.ops.flash_attention import (
+        _SPLIT_BLOCKS_PER_SM,
+        _fwd_slab_steps,
+        fwd_split,
+    )
+
+    steps = _fwd_slab_steps(L, causal)
+    assert len(steps) == -(-L // 64) and steps[-1] == max(steps)
+    assert steps == ([t + 1 for t in range(len(steps))] if causal
+                     else [len(steps)] * len(steps))
+    per_slab, slabs = fwd_split(B, Hq, L, D, causal, sms)
+    assert (per_slab, slabs) == fwd_split(B, Hq, L, D, causal, sms)
+    assert per_slab >= 1 and slabs >= 1
+    assert per_slab * slabs >= steps[-1] > per_slab * (slabs - 1)
+    blocks = B * Hq * -(-D // 256)
+    target = -(-blocks * sum(steps) // (_SPLIT_BLOCKS_PER_SM * sms))
+    fills = blocks * len(steps) >= sms
+    if slabs == 1:
+        assert per_slab == steps[-1]
+        assert fills or per_slab <= max(1, target)
+    else:
+        assert not fills and per_slab == max(1, target)
+
+
+def _fwd_split_partials(q, k, v, causal, per_slab):
+    """The split fp32 K1's partials, computed the way its blocks cut the
+    work (each 64-row q tile's k tiles, in slabs of ``per_slab``), from the
+    twin's dense scores: o_part (slabs, B, Hq, L, D) unnormalised, m_part
+    and l_part (slabs, B, Hq, L) each slab's own row max and sum; NaN
+    where a q tile has no such slab (never read)."""
+    from metisfl_tpu_torch.ops.flash_attention import (
+        _fwd_slab_steps,
+        _repeat_kv,
+        _scores,
+    )
+
+    B, Hq, L, D = q.shape
+    steps = _fwd_slab_steps(L, causal)
+    slabs = -(-max(steps) // per_slab)
+    s, _ = _scores(q, k, causal)
+    vf = _repeat_kv(v, Hq // k.shape[1])
+    o_part = torch.full((slabs, B, Hq, L, D), float("nan"))
+    m_part = torch.full((slabs, B, Hq, L), float("nan"))
+    l_part = torch.full((slabs, B, Hq, L), float("nan"))
+    for t, n in enumerate(steps):
+        rows = slice(64 * t, min(L, 64 * t + 64))
+        for slab in range(-(-n // per_slab)):
+            keys = slice(64 * slab * per_slab,
+                         min(L, 64 * min(n, (slab + 1) * per_slab)))
+            st = s[:, :, rows, keys]
+            m = st.amax(dim=-1)
+            p = torch.exp(st - m[..., None])  # masked: exp(-1e30 - m) = 0
+            m_part[slab, :, :, rows] = m
+            l_part[slab, :, :, rows] = p.sum(dim=-1)
+            o_part[slab, :, :, rows] = torch.einsum("bhqk,bhkd->bhqd", p,
+                                                    vf[:, :, keys])
+    return o_part, m_part, l_part
+
+
+@pytest.mark.parametrize("B,Hq,Hkv,L,causal,per_slab", [
+    (1, 4, 2, 130, True, 1), (1, 4, 2, 130, False, 2),
+    (2, 4, 1, 200, True, 3), (1, 2, 2, 65, True, 1),
+    (1, 8, 2, 129, False, 1)])
+def test_fwd_split_partials_combine_to_the_twin(jax_flash, B, Hq, Hkv, L,
+                                                causal, per_slab):
+    """The fp32 K1's split, emulated on the CPU: each slab's partial (the
+    blocks' cut of every q tile's k tiles, each with its own row max)
+    merged by the second launch's twin, which reads only the slabs each
+    tile has (the rest hold NaN), gives the unsplit twin's o and lse within
+    1e-6 × max|o| and max|lse|, and the Pallas forward's (interpret mode)
+    within ``ATOL``: GQA, ragged L and both masks included."""
+    from metisfl_tpu_torch.ops.flash_attention import (
+        flash_fwd_split_combine,
+        fwd_split_combine_reference,
+    )
+
+    jnp = jax_flash.jnp
+    q, k, v = _qkv(B=B, Hq=Hq, Hkv=Hkv, L=L, D=32, seed=L)
+    tq, tk, tv = (torch.from_numpy(a) for a in (q, k, v))
+    parts = _fwd_split_partials(tq, tk, tv, causal, per_slab)
+    o, lse = fwd_split_combine_reference(*parts, causal, per_slab)
+    assert bool(torch.isfinite(o).all()) and bool(torch.isfinite(lse).all())
+    want_o, want_lse = flash_attention_fwd_reference(tq, tk, tv, causal)
+    assert float((o - want_o).abs().max()) <= 1e-6 * float(
+        want_o.abs().max())
+    assert float((lse - want_lse).abs().max()) <= 1e-6 * float(
+        want_lse.abs().max())
+    o_ref, lse_ref = jax_flash._flash_forward(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), causal, None, None,
+        True)
+    lse_ref = np.asarray(lse_ref)[:, :L, 0].reshape(B, Hq, L)
+    np.testing.assert_allclose(o.numpy(), np.asarray(o_ref), atol=ATOL)
+    np.testing.assert_allclose(lse.numpy(), lse_ref, atol=ATOL)
+    # on CPU tensors the wrapper runs the twin, no launch
+    before = flash_fwd_split_combine.launches
+    got = flash_fwd_split_combine(*parts, causal, per_slab)
+    assert flash_fwd_split_combine.launches == before
+    assert all(torch.equal(a, b) for a, b in zip(got, (o, lse)))
+
+
+def test_combine_twin_takes_a_slab_with_no_unmasked_key():
+    """A slab in which a row has no unmasked key (m = -1e30, l = 0, o = 0)
+    adds nothing to that row, and a row with no unmasked key in any slab
+    comes out as o = 0 (not nan) with lse = -1e30 + log(1e-30), as in the
+    unsplit kernel."""
+    from metisfl_tpu_torch.ops.flash_attention import (
+        fwd_split_combine_reference,
+    )
+
+    rng = np.random.default_rng(3)
+    o_part = torch.from_numpy(rng.standard_normal((2, 1, 1, 70, 8)).astype(
+        np.float32))
+    m_part = torch.from_numpy(rng.standard_normal((2, 1, 1, 70)).astype(
+        np.float32))
+    l_part = torch.from_numpy(rng.uniform(1, 64, (2, 1, 1, 70)).astype(
+        np.float32))
+    # rows 0 and 1: slab 1 sees no key; row 1: slab 0 neither
+    o_part[1, ..., :2, :] = 0.0
+    m_part[1, ..., :2] = -1e30
+    l_part[1, ..., :2] = 0.0
+    o_part[0, ..., 1, :] = 0.0
+    m_part[0, ..., 1] = -1e30
+    l_part[0, ..., 1] = 0.0
+    o, lse = fwd_split_combine_reference(o_part, m_part, l_part, False, 1)
+    assert bool(torch.isfinite(o).all()) and bool(torch.isfinite(lse).all())
+    torch.testing.assert_close(o[..., 0, :], o_part[0, ..., 0, :]
+                               / l_part[0, ..., 0, None], rtol=1e-6, atol=0)
+    torch.testing.assert_close(
+        lse[..., 0], m_part[0, ..., 0] + torch.log(l_part[0, ..., 0]),
+        rtol=1e-6, atol=0)
+    assert not o[..., 1, :].any()
+    assert float(lse[..., 1]) == float(torch.tensor(-1e30) + torch.log(
+        torch.tensor(1e-30)))
+
+
 def test_kernel_head_dims_need_no_copy():
     from metisfl_tpu_torch.ops.flash_attention import (
         _FWD_HEAD_DIMS,
@@ -972,17 +1166,25 @@ _PADDED_GPU_CASES = [
 def test_kernels_at_padded_head_dims_and_large_grids_on_gpu(
         cuda_device, dtype, causal, B, Hq, Hkv, L, D, launches):
     """K1, K2 and K3 at head dims the kernels are not built for (padded to
-    64) and at B·Hq > 65535 (launched in batch chunks) against their twins
-    on the card, at the tolerances of the unpadded cases."""
+    64) and at B·Hq > 65535 (the tuned kernels launched in batch chunks;
+    the fp32 K1, on a 1-D grid, once, with its combine where it splits)
+    against their twins on the card, at the tolerances of the unpadded
+    cases."""
     q, k, v, o_ref, lse_ref, do = _cuda_bwd_inputs(cuda_device, dtype, B,
                                                    Hq, Hkv, L, D, causal)
-    before = (flash_attention_fwd.launches, flash_bwd_dq.launches,
-              flash_bwd_dkv.launches)
+    before = _launch_counts()
     o, lse = flash_attention_fwd(q, k, v, causal)
     got = flash_attention_bwd(q, k, v, o_ref, lse_ref, do, causal)
     torch.cuda.synchronize()
-    assert (flash_attention_fwd.launches, flash_bwd_dq.launches,
-            flash_bwd_dkv.launches) == tuple(n + launches for n in before)
+    after = _launch_counts()
+    fp32 = dtype == torch.float32
+    combine = _combine_launches(cuda_device, dtype, B, Hq, L, D, causal)
+    assert {n: after[n] - before[n] for n in after
+            if after[n] - before[n]} == {
+        "flash_fwd_general" if fp32 else "flash_attention_fwd":
+            1 if fp32 else launches,
+        "flash_bwd_dq": launches, "flash_bwd_dkv": launches,
+        **({"flash_fwd_split_combine": 1} if combine else {})}
     lse_atol = 1e-4 if dtype == torch.float32 else 1e-3
     assert o.shape == q.shape and o.is_contiguous()
     torch.testing.assert_close(o.float(), o_ref.float(),
@@ -1016,25 +1218,42 @@ def _launch_counts():
         flash_bwd_dq_general_mma,
         flash_fwd_general,
         flash_fwd_general_mma,
+        flash_fwd_split_combine,
     )
 
     return {fn.__name__: fn.launches for fn in (
         flash_attention_fwd, flash_bwd_dq, flash_bwd_dkv, flash_fwd_general,
         flash_bwd_dq_general, flash_bwd_dkv_general, flash_fwd_general_mma,
         flash_bwd_dkv_general_mma, flash_bwd_dq_general_mma,
-        flash_bwd_dkv_split_sum)}
+        flash_bwd_dkv_split_sum, flash_fwd_split_combine)}
+
+
+def _fwd_split_at(device, B, Hq, L, D, causal):
+    """``(per_slab, slabs)`` of the fp32 K1 at these shapes on
+    ``device``."""
+    from metisfl_tpu_torch.ops.flash_attention import f32_head_dim, fwd_split
+
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    return fwd_split(B, Hq, L, f32_head_dim(D), causal, sms)
+
+
+def _combine_launches(device, dtype, B, Hq, L, D, causal):
+    """1 where the fp32 K1 splits its q tiles at these shapes on
+    ``device`` (and so launches its combine), else 0."""
+    return int(dtype == torch.float32 and _fwd_split_at(
+        device, B, Hq, L, D, causal)[1] > 1)
 
 
 def _split_launches(device, B, Hq, Hkv, L, D, causal):
     """1 where the fp32 K3 beyond its builds splits its k tiles at these
     shapes on ``device`` (and so launches its sum), else 0."""
     from metisfl_tpu_torch.ops.flash_attention import (
-        dkv_head_dim,
+        f32_head_dim,
         dkv_split,
     )
 
     sms = torch.cuda.get_device_properties(device).multi_processor_count
-    return int(dkv_split(B, Hq, Hkv, L, dkv_head_dim(D), causal,
+    return int(dkv_split(B, Hq, Hkv, L, f32_head_dim(D), causal,
                          sms)[1] > 1)
 
 
@@ -1071,15 +1290,19 @@ def _check_fwd_bwd_on_gpu(dtype, causal, B, Hq, Hkv, L, D, device,
 def test_forward_kernel_at_head_dims_up_to_256_on_gpu(cuda_device, dtype,
                                                       causal, B, Hq, Hkv, L,
                                                       D):
-    """K1 against its twin at D = 256 (its own instantiation) and D = 200
-    (padded to it), one launch; the backward runs too: in bf16/fp16 on
-    K2's D = 256 build and K3's, once for dV and once for dK; in fp32 on
-    the general kernels (K3's split sum where it splits)."""
+    """K1 against its twin at D = 256 and D = 200 (padded to 256 in
+    bf16/fp16, to 224 in fp32), one launch; the backward runs too: in
+    bf16/fp16 on K2's D = 256 build and K3's, once for dV and once for dK;
+    in fp32 on the general kernels (K1's combine and K3's split sum where
+    they split)."""
     launched = _check_fwd_bwd_on_gpu(dtype, causal, B, Hq, Hkv, L, D,
                                      cuda_device)
     general = dtype == torch.float32
     assert launched == {
-        "flash_attention_fwd": 1, "flash_fwd_general": 0,
+        "flash_attention_fwd": int(not general),
+        "flash_fwd_general": int(general),
+        "flash_fwd_split_combine": _combine_launches(
+            cuda_device, dtype, B, Hq, L, D, causal),
         "flash_bwd_dq": 0 if general else 1,
         "flash_bwd_dkv": 0 if general else 2,
         "flash_bwd_dq_general": int(general),
@@ -1108,15 +1331,17 @@ def test_general_kernels_beyond_every_build_on_gpu(cuda_device, dtype,
                                                     causal, B, Hq, Hkv, L,
                                                     D):
     """K1, K2 and K3 at D > 256 go to the general kernels, one launch each
-    (on tensor cores in bf16/fp16; SIMT in fp32, K3 with its split sum
-    where it splits), and hold their twins at the tuned kernels'
-    tolerances."""
+    (on tensor cores in bf16/fp16; SIMT in fp32, K1 with its combine and K3
+    with its split sum where they split), and hold their twins at the
+    tuned kernels' tolerances."""
     launched = _check_fwd_bwd_on_gpu(dtype, causal, B, Hq, Hkv, L, D,
                                      cuda_device)
     mma = dtype != torch.float32
     assert launched == {
         "flash_attention_fwd": 0, "flash_bwd_dq": 0, "flash_bwd_dkv": 0,
         "flash_fwd_general": int(not mma),
+        "flash_fwd_split_combine": _combine_launches(
+            cuda_device, dtype, B, Hq, L, D, causal),
         "flash_bwd_dq_general": int(not mma),
         "flash_bwd_dkv_general": int(not mma),
         "flash_fwd_general_mma": int(mma),
@@ -1178,7 +1403,7 @@ def test_tensor_core_general_kernels_match_twins_on_gpu(cuda_device, dtype,
         "flash_fwd_general": 0, "flash_bwd_dq_general": 0,
         "flash_bwd_dkv_general": 0, "flash_fwd_general_mma": 1,
         "flash_bwd_dkv_general_mma": 1, "flash_bwd_dq_general_mma": 1,
-        "flash_bwd_dkv_split_sum": 0}
+        "flash_bwd_dkv_split_sum": 0, "flash_fwd_split_combine": 0}
 
 
 @pytest.mark.cuda
@@ -1267,7 +1492,7 @@ def test_autograd_takes_the_tensor_core_route_beyond_the_builds_on_gpu(
         "flash_fwd_general": 0, "flash_bwd_dq_general": 0,
         "flash_bwd_dkv_general": 0, "flash_fwd_general_mma": 1,
         "flash_bwd_dkv_general_mma": 1, "flash_bwd_dq_general_mma": 1,
-        "flash_bwd_dkv_split_sum": 0}
+        "flash_bwd_dkv_split_sum": 0, "flash_fwd_split_combine": 0}
     assert all(bool(torch.isfinite(t.grad).all()) for t in (q, k, v))
 
 
@@ -1368,3 +1593,130 @@ def test_split_sum_kernel_matches_twin_on_gpu(cuda_device, causal, group,
     want = dkv_split_sum_reference(part, group, causal, per_slab)
     for a, b in zip(got, want):
         assert bool(torch.isfinite(a).all()) and torch.equal(a, b)
+
+
+# (causal, B, Hq, Hkv, L, D, split): the register-tiled fp32 K1 across
+# padded head dims (1, 16, 100, 200 and 300 pad to 64, 64, 128, 224 and
+# 320; 600 to 608, a 96-column last chunk), one row, ragged L, GQA, on a
+# grid that the H100's 132 SMs split (B1·Hq4·Hkv2·L517: nine slabs of one
+# k tile) and on ones that fill it whole (B33·Hq16·Hkv4·L65 not causal,
+# B44·Hq16·Hkv4·L65 causal, the ragged B2·Hq8·Hkv2·L1000)
+_FP32_FWD_GPU_CASES = [
+    (causal, *shape, split)
+    for causal in (False, True)
+    for D in (1, 16, 64, 100, 128, 200, 256, 300, 512, 600)
+    for shape, split in (((1, 4, 2, 517, D), True),
+                         (((44 if causal else 33), 16, 4, 65, D), False))
+] + [(True, 1, 4, 4, 1, 64, False), (False, 2, 8, 2, 1000, 128, False)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("causal,B,Hq,Hkv,L,D,split", _FP32_FWD_GPU_CASES)
+def test_fp32_forward_kernel_matches_twin_on_gpu(cuda_device, causal, B, Hq,
+                                                 Hkv, L, D, split):
+    """The register-tiled fp32 K1 holds its twin, o and lse within 1e-4:
+    one launch, plus the combine where ``fwd_split`` cuts the q tiles'
+    k tiles (``split``, on the H100); D comes back unpadded."""
+    from metisfl_tpu_torch.ops.flash_attention import flash_fwd_general
+
+    assert (_fwd_split_at(cuda_device, B, Hq, L, D, causal)[1] > 1) == split
+    q, k, v, _, _, _ = _cuda_bwd_inputs(cuda_device, torch.float32, B, Hq,
+                                        Hkv, L, D, causal, seed=D)
+    before = _launch_counts()
+    o, lse = flash_fwd_general(q, k, v, causal)
+    torch.cuda.synchronize()
+    after = _launch_counts()
+    assert {n: after[n] - before[n] for n in after if after[n] - before[n]} \
+        == {"flash_fwd_general": 1,
+            **({"flash_fwd_split_combine": 1} if split else {})}
+    o_ref, lse_ref = flash_attention_fwd_reference(q, k, v, causal)
+    assert o.shape == q.shape and o.is_contiguous() and lse.shape == (B, Hq,
+                                                                       L)
+    torch.testing.assert_close(o, o_ref, atol=_FWD_ATOL[torch.float32],
+                               rtol=0)
+    torch.testing.assert_close(lse, lse_ref, atol=1e-4, rtol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("D", [128, 600])
+def test_fp32_forward_kernel_is_deterministic_on_gpu(cuda_device, causal, D):
+    """The fp32 K1 writes each partial once, from one block, and its
+    combine merges a row's slabs in slab order (no atomics): two runs give
+    the same bits, split (B1·Hq4·Hkv2·L517) and whole (B44·Hq16·Hkv4·L65,
+    B2·Hq8·Hkv2·L517)."""
+    from metisfl_tpu_torch.ops.flash_attention import flash_fwd_general
+
+    for B, Hq, Hkv, L in ((1, 4, 2, 517), (44, 16, 4, 65), (2, 8, 2, 517)):
+        q, k, v, _, _, _ = _cuda_bwd_inputs(cuda_device, torch.float32, B,
+                                            Hq, Hkv, L, D, causal, seed=3)
+        first = flash_fwd_general(q, k, v, causal)
+        second = flash_fwd_general(q, k, v, causal)
+        torch.cuda.synchronize()
+        for a, b in zip(first, second):
+            assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("causal,per_slab", [(True, 3), (False, 5),
+                                             (True, 1)])
+def test_fwd_combine_kernel_matches_twin_on_gpu(cuda_device, causal,
+                                                per_slab):
+    """The split fp32 K1's second launch against its twin on random
+    partials (B2·Hq4·L1000·D96; each row's m and l drawn, row 5 with no
+    unmasked key in its first slab): o within 1e-6 × max|twin|, lse within
+    a relative 1e-6 (the two round e^(m_s - m) and the products apart),
+    finite, reading no slab a q tile lacks (those hold NaN)."""
+    from metisfl_tpu_torch.ops.flash_attention import (
+        _fwd_slab_steps,
+        flash_fwd_split_combine,
+        fwd_split_combine_reference,
+    )
+
+    L, D = 1000, 96
+    counts = [-(-n // per_slab) for n in _fwd_slab_steps(L, causal)]
+    rng = np.random.default_rng(per_slab)
+    o_part = torch.from_numpy(rng.standard_normal(
+        (max(counts), 2, 4, L, D)).astype(np.float32))
+    m_part = torch.from_numpy(rng.standard_normal(
+        (max(counts), 2, 4, L)).astype(np.float32) * 4)
+    l_part = torch.from_numpy(rng.uniform(
+        1, 64, (max(counts), 2, 4, L)).astype(np.float32))
+    o_part[0, :, :, 5], m_part[0, :, :, 5], l_part[0, :, :, 5] = 0, -1e30, 0
+    for t, n in enumerate(counts):
+        for part in (o_part, m_part, l_part):
+            part[n:, :, :, 64 * t:64 * t + 64] = float("nan")
+    o_part, m_part, l_part = (t.to(cuda_device)
+                              for t in (o_part, m_part, l_part))
+    before = flash_fwd_split_combine.launches
+    got = flash_fwd_split_combine(o_part, m_part, l_part, causal, per_slab)
+    torch.cuda.synchronize()
+    assert flash_fwd_split_combine.launches == before + 1
+    want = fwd_split_combine_reference(o_part, m_part, l_part, causal,
+                                       per_slab)
+    assert all(bool(torch.isfinite(a).all()) for a in got)
+    assert float((got[0] - want[0]).abs().max()) <= 1e-6 * float(
+        want[0].abs().max())
+    torch.testing.assert_close(got[1], want[1], rtol=1e-6, atol=1e-6)
+
+
+@pytest.mark.cuda
+def test_fp32_forward_kernel_refuses_misaligned_views_on_gpu(cuda_device):
+    """At head dims that need no padding (64, 512), a misaligned q, k or v
+    never reaches the fp32 K1: the wrapper raises before a launch, and it
+    takes fp32 only."""
+    from metisfl_tpu_torch.ops.flash_attention import flash_fwd_general
+
+    before = _launch_counts()
+    for D in (64, 512):
+        q, k, v, _, _, _ = _cuda_bwd_inputs(cuda_device, torch.float32, 1, 4,
+                                            2, 65, D, True)
+        for args in ((_misaligned(q), k, v), (q, _misaligned(k), v),
+                     (q, k, _misaligned(v))):
+            with pytest.raises(ValueError, match="16-byte"):
+                flash_fwd_general(*args, True)
+            with pytest.raises(ValueError, match="16-byte"):
+                flash_attention_fwd(*args, True)
+    with pytest.raises(ValueError, match="float32"):
+        flash_fwd_general(q.bfloat16(), k.bfloat16(), v.bfloat16(), True)
+    assert _launch_counts() == before
