@@ -22,13 +22,15 @@ It drives the port only (it imports no jax and nothing of the JAX package):
    with the achieved TFLOP/s; then K1-K3 at head dims the kernels are not
    built for (the wrapper zero-pads them to 64: the
    ``examples/long_context.py`` shape B4·Hq4·L512·D16, D = 8 and D = 32)
-   and at B·Hq above the grid's 65535 (launched in batch chunks), K1-K3
-   at their head dim 256 builds (K3 in two passes), and the general
-   kernels beyond the builds (K1-K3 on tensor cores in bf16/fp16; in fp32
-   K2 SIMT, K1 at every D and K3 register-tiled, each with the second
-   launch that merges or sums its split, held to its own twin) at D = 512
-   in bf16 and fp32 and at fp32 D = 256 (B2·Hq8·Hkv2·L1024), the fp32 K1
-   also at the ragged B2·Hq8·L1000·D128; the tensor-core general kernels
+   and at B·Hq and at Hq above a grid's y axis of 65535 (B4100·Hq16 and
+   B1·Hq65536, one launch a call: every grid is 1-D), K1-K3 at their head
+   dim 256 builds (K3 in two passes), the general kernels beyond the
+   builds in bf16/fp16 (K1-K3 on tensor cores) and the register-tiled
+   fp32 K1-K3 at every D (each with the second launch that merges or sums
+   its split, held to its own twin) at D = 512 in bf16 and fp32, at fp32
+   D = 256 (B2·Hq8·Hkv2·L1024) and at the ragged fp32
+   B2·Hq8·L1000·D128; every case counts each wrapper's launches against
+   its route (``kernel_route``); the tensor-core general kernels
    at the card-filling B2·Hq16·Hkv4·L1024·D512 bf16 causal (the D = 256
    case at twice the head dim) and, for correctness only, at D = 320
    fp16, not causal, L = 1000, Hq8·Hkv2; then every wrapper the wide-heads path (5.) launches, at that
@@ -257,17 +259,20 @@ class Smoke:
             print(f"-- {name}: {time.perf_counter() - t0:.3f} s", flush=True)
 
 
-# the eleven kernel wrappers, by name: K1-K3, their fp32 kernels beyond the
-# builds (K1 at every D and K3 register-tiled, K2 SIMT), the general-D
-# tensor-core kernels of K1-K3, and the second launches of a split fp32 K3
-# and a split fp32 K1
+# the twelve kernel wrappers, by name: K1-K3, their register-tiled fp32
+# kernels (every D), the general-D tensor-core kernels of K1-K3, and the
+# second launches of a split fp32 K3, K1 and K2
 KERNEL_WRAPPERS = ("flash_attention_fwd", "flash_bwd_dq", "flash_bwd_dkv",
                    "flash_fwd_general", "flash_bwd_dq_general",
                    "flash_bwd_dkv_general", "flash_fwd_general_mma",
                    "flash_bwd_dkv_general_mma", "flash_bwd_dq_general_mma",
-                   "flash_bwd_dkv_split_sum", "flash_fwd_split_combine")
+                   "flash_bwd_dkv_split_sum", "flash_fwd_split_combine",
+                   "flash_bwd_dq_split_sum")
 SPLIT_SUM = "flash_bwd_dkv_split_sum"
 COMBINE = "flash_fwd_split_combine"
+DQ_SUM = "flash_bwd_dq_split_sum"
+# the second launches: rows of their own, with no SDPA yardstick
+SECOND_LAUNCHES = (SPLIT_SUM, COMBINE, DQ_SUM)
 # K1's wrappers: they also run where a block recomputes its forward
 FWD_WRAPPERS = ("flash_attention_fwd", "flash_fwd_general",
                 "flash_fwd_general_mma", COMBINE)
@@ -320,6 +325,102 @@ def fwd_split_at(B, Hq, L, D, causal):
     Dp = f32_head_dim(D)
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     return (*fwd_split(B, Hq, L, Dp, causal, sms), Dp)
+
+
+def dq_split_at(B, Hq, L, D, causal):
+    """``(per_slab, slabs, Dp)`` of the fp32 K2 at these shapes on this
+    card (slabs > 1: it launches ``DQ_SUM`` too)."""
+    import torch
+
+    from metisfl_tpu_torch.ops.flash_attention import dq_split, f32_head_dim
+
+    Dp = f32_head_dim(D)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    return (*dq_split(B, Hq, L, Dp, causal, sms), Dp)
+
+
+def per_call_launches(kernel, dtype_name, B, Hq, Hkv, L, D, causal):
+    """The launches one call of ``kernel`` ("fwd", "dq" or "dkv") makes at
+    these shapes on this card, by wrapper: its route's kernel once (K3's
+    D = 256 build once per pass), and the fp32 kernels' second launch
+    where they split."""
+    import torch
+
+    from metisfl_tpu_torch.ops.flash_attention import kernel_route
+
+    route = kernel_route(kernel, getattr(torch, dtype_name), D)
+    want = {route.wrapper: route.passes if route.wrapper == "flash_bwd_dkv"
+            else 1}
+    if dtype_name == "float32":
+        second, split = {
+            "fwd": (COMBINE, fwd_split_at(B, Hq, L, D, causal)),
+            "dq": (DQ_SUM, dq_split_at(B, Hq, L, D, causal)),
+            "dkv": (SPLIT_SUM, dkv_split_at(B, Hq, Hkv, L, D, causal)),
+        }[kernel]
+        if split[1] > 1:
+            want[second] = 1
+    return want
+
+
+def dq_sum_case(smoke, name, B, Hq, L, D, causal):
+    """The split fp32 K2's second launch against its twin on the card, on
+    random partials of the shape the split gives at (B, Hq, L, D), NaN in
+    every slab a q tile lacks (read by neither): the same sums in the same
+    slab order, so bit for bit (tolerance 0), twice; timed beside its
+    bound (the bytes of the slabs it reads and the output it writes) and
+    its twin. No single PyTorch call computes it (library_ms null)."""
+    import torch
+
+    from metisfl_tpu_torch.ops.flash_attention import (
+        _fwd_slab_steps,
+        dq_split_sum_reference,
+        flash_bwd_dq_split_sum,
+    )
+
+    per_slab, slabs, Dp = dq_split_at(B, Hq, L, D, causal)
+    counts = [-(-n // per_slab) for n in _fwd_slab_steps(L, causal)]
+    rng = np.random.default_rng(SEED + 11)
+    part = torch.from_numpy(rng.standard_normal(
+        (slabs, B, Hq, L, Dp)).astype(np.float32))
+    for t, n in enumerate(counts):
+        part[n:, :, :, 64 * t:64 * t + 64] = float("nan")
+    part = part.to("cuda")
+    before = flash_bwd_dq_split_sum.launches
+    got = flash_bwd_dq_split_sum(part, causal, per_slab)
+    got2 = flash_bwd_dq_split_sum(part, causal, per_slab)
+    torch.cuda.synchronize()
+    want = dq_split_sum_reference(part, causal, per_slab)
+    err = float((got - want).abs().max())
+    smoke.check(flash_bwd_dq_split_sum.launches == before + 2
+                and bool(torch.isfinite(got).all()) and err == 0.0,
+                f"{name}: {DQ_SUM} err {err:.3g} == 0 ({slabs} slabs of "
+                f"{per_slab} k tiles)")
+    smoke.check(torch.equal(got, got2),
+                f"{name}: two runs of {DQ_SUM} give bit-identical dQ")
+
+    def run():
+        return flash_bwd_dq_split_sum(part, causal, per_slab)
+
+    ms = time_ms(run)
+    rows = B * Hq * sum(min(64, L - 64 * t) * n for t, n in
+                        enumerate(counts))
+    nbytes = float(rows * Dp * 4 + B * Hq * L * Dp * 4)
+    record = {
+        "name": DQ_SUM, "case": name, "shape": [B, Hq, Hq, L, D],
+        "dtype": "float32", "causal": causal, "max_abs_err": err,
+        "per_slab": per_slab, "slabs": slabs,
+        "scratch_bytes": part.numel() * 4,
+        "kernel_ms": ms, "kernel_device_ms": device_ms(run),
+        "kernel_host_ms": host_ms(run),
+        "plain_ms": time_ms(lambda: dq_split_sum_reference(
+            part, causal, per_slab), iters=5),
+        "bound_ms": nbytes / PEAK_BYTES * 1e3, "bound_by": "bytes",
+        "library_ms": None, "library_device_ms": None,
+        "library_kernels": None, "flops": 0.0, "bytes": nbytes,
+        "tflops": 0.0,
+    }
+    print(json.dumps({"kernel_case": record}), flush=True)
+    return record
 
 
 def combine_case(smoke, name, B, Hq, L, D, causal):
@@ -488,12 +589,15 @@ def attention_case(smoke, name, B, Hq, Hkv, L, D, dtype_name, causal,
     torch.cuda.synchronize()
     launched = {n: c - before[n] for n, c in launch_counts().items() if
                 c - before[n]}
-    split = (kernel == "flash_fwd_general"
-             and fwd_split_at(B, Hq, L, D, causal)[1] > 1)
-    expected = {kernel} | ({COMBINE} if split else set())
-    smoke.check(set(launched) == expected,
-                f"{name}: the forward ran on {sorted(expected)}: launches "
-                f"{launched}")
+    # two calls, each on the route's kernel once (and the combine once
+    # where the fp32 K1 splits)
+    per_call = per_call_launches("fwd", dtype_name, B, Hq, Hkv, L, D,
+                                 causal)
+    split = COMBINE in per_call
+    expected = {n: 2 * c for n, c in per_call.items()}
+    smoke.check(kernel in per_call and launched == expected,
+                f"{name}: two forwards ran on {kernel}: launches "
+                f"{launched}, expected {expected}")
     o_ref, lse_ref = flash_attention_fwd_reference(q, k, v, causal)
     o_err = float((o.float() - o_ref.float()).abs().max())
     lse_err = float((lse - lse_ref).abs().max())
@@ -598,12 +702,18 @@ def backward_case(smoke, name, B, Hq, Hkv, L, D, dtype_name, causal,
     torch.cuda.synchronize()
     launched = {n: c - before[n] for n, c in launch_counts().items() if
                 c - before[n]}
-    split = (kernels[1] == "flash_bwd_dkv_general"
-             and dkv_split_at(B, Hq, Hkv, L, D, causal)[1] > 1)
-    expected = set(kernels) | ({SPLIT_SUM} if split else set())
-    smoke.check(set(launched) == expected,
-                f"{name}: the backward ran on {sorted(expected)}: launches "
-                f"{launched}")
+    # two calls of each, on the routes' kernels (K3's D = 256 build once
+    # per pass) and the split sums where the fp32 kernels split
+    per_call = {**per_call_launches("dq", dtype_name, B, Hq, Hkv, L, D,
+                                    causal),
+                **per_call_launches("dkv", dtype_name, B, Hq, Hkv, L, D,
+                                    causal)}
+    split = SPLIT_SUM in per_call
+    dq_split = DQ_SUM in per_call
+    expected = {n: 2 * c for n, c in per_call.items()}
+    smoke.check(set(kernels) <= set(per_call) and launched == expected,
+                f"{name}: two backwards ran on {list(kernels)}: launches "
+                f"{launched}, expected {expected}")
     want_dq = flash_bwd_dq_reference(q, k, v, do, lse, delta, causal)
     want_dk, want_dv = flash_bwd_dkv_reference(q, k, v, do, lse, delta,
                                                causal)
@@ -637,8 +747,12 @@ def backward_case(smoke, name, B, Hq, Hkv, L, D, dtype_name, causal,
     dq_ms, dkv_ms = time_ms(run_dq), time_ms(run_dkv)
     dq_device, dkv_device = device_ms(run_dq), device_ms(run_dkv)
     dq_host, dkv_host = host_ms(run_dq), host_ms(run_dkv)
-    # the split K3's device time by kernel: the tiles' and the sum's
-    dkv_kernels = None
+    # a split K2's or K3's device time by kernel: the tiles' and the sum's
+    dq_kernels = dkv_kernels = None
+    if dq_split:
+        profiled = profile_call(run_dq, top=4)
+        if isinstance(profiled, dict):
+            dq_kernels = profiled["top"]
     if split:
         profiled = profile_call(run_dkv, top=4)
         if isinstance(profiled, dict):
@@ -699,6 +813,8 @@ def backward_case(smoke, name, B, Hq, Hkv, L, D, dtype_name, causal,
             "flops": flops, "bytes": nbytes,
             "tflops": flops / (ms * 1e-3) / 1e12,
         })
+    if dq_kernels is not None:
+        records[0]["device_kernels"] = dq_kernels
     if dkv_kernels is not None:
         records[1]["device_kernels"] = dkv_kernels
     print(json.dumps({"kernel_case": records}), flush=True)
@@ -1917,8 +2033,8 @@ def multiprocess_phase(smoke, gpu):
 
 # dim 1024 with 4 heads (D = 256) in bf16 (K1-K3's D = 256 builds, K3 in
 # two passes), and with 2 heads (D = 512) in bf16 (the general tensor-core
-# K1-K3); both in fp32 (the register-tiled K1 with its combine, the
-# general SIMT K2, the register-tiled K3 with its split sum); depth 2, 2
+# K1-K3); both in fp32 (the register-tiled K1, K2 and K3 with the combine
+# and the split sums); depth 2, 2
 # Adam steps at batch 2 of 256 tokens
 WIDE_DEPTH, WIDE_STEPS, WIDE_BATCH, WIDE_LEN = 2, 2, 2, 256
 # B, Hq, Hkv, L, D of the kernel case that fills the card at D = 512: the
@@ -1928,9 +2044,10 @@ FULL_D512 = (2, 16, 4, 1024, 512)
 # fp32 K2/K3 case's shape
 FULL_D256_FP32 = (2, 8, 2, 1024, 256)
 # (label, heads, compute dtype, K1's wrapper, K2's and K3's wrappers): the
-# wrappers each head dim routes to (the fp32 K1's combine and K3's split
-# sum too, where they split: fwd_split_at, dkv_split_at); each also runs
-# as a kernel case at the path's own B·H·L·D
+# wrappers each head dim routes to (the fp32 K1's combine and K2's and K3's
+# split sums too, where they split: fwd_split_at, dq_split_at,
+# dkv_split_at); each also runs as a kernel case at the path's own
+# B·H·L·D
 WIDE_CASES = (
     ("d256_bf16", 4, "bfloat16", "flash_attention_fwd",
      ("flash_bwd_dq", "flash_bwd_dkv")),
@@ -1972,6 +2089,9 @@ def wide_heads_phase(smoke, gpu):
                 WIDE_BATCH, heads, heads, WIDE_LEN, DIM // heads,
                 True)[1] > 1:
             want[SPLIT_SUM] = steps
+        if dq == "flash_bwd_dq_general" and dq_split_at(
+                WIDE_BATCH, heads, WIDE_LEN, DIM // heads, True)[1] > 1:
+            want[DQ_SUM] = steps
         if fwd == "flash_fwd_general" and fwd_split_at(
                 WIDE_BATCH, heads, WIDE_LEN, DIM // heads, True)[1] > 1:
             want[COMBINE] = steps
@@ -2470,17 +2590,22 @@ def main() -> int:
         "kernel vs plain: flash_bwd_dq and flash_bwd_dkv at the training "
         "shape", backward_case, smoke, "flash_bwd", 8, 16, 4, TRAIN_LEN, 64,
         "bfloat16", True, 2e-2)
-    smoke.phase("kernel vs plain: flash_bwd ragged fp32 D=128",
-                backward_case, smoke, "flash_bwd_ragged_fp32", 2, 8, 8, 1000,
-                128, "float32", False, 1e-4)
+    # fp32 K2 and K3 at D <= 128 on their register-tiled kernels
+    general = ("flash_bwd_dq_general", "flash_bwd_dkv_general")
+    ragged_bwd = smoke.phase(
+        "kernel vs plain: flash_bwd ragged fp32 D=128", backward_case, smoke,
+        "flash_bwd_ragged_fp32", 2, 8, 8, 1000, 128, "float32", False, 1e-4,
+        general)
     # head dims the kernels are not built for (zero-padded to 64 in the
-    # wrapper), and B·Hq above gridDim.y's 65535 (launched in batch chunks)
+    # wrapper), and B·Hq and Hq above gridDim.y's 65535 (one launch a call:
+    # every grid is 1-D)
     for name, shape in (
             # examples/long_context.py's shape
             ("long_context_d16", (4, 4, 4, 512, 16)),
             ("d8", (2, 16, 4, 1024, 8)),
             ("d32", (2, 16, 4, 1024, 32)),
-            ("grid_b4100", (4100, 16, 4, 16, 64))):
+            ("grid_b4100", (4100, 16, 4, 16, 64)),
+            ("grid_hq65536", (1, 65536, 16384, 16, 64))):
         smoke.phase(f"kernel vs plain: flash_fwd {name}", attention_case,
                     smoke, f"flash_fwd_{name}", *shape, "bfloat16", True,
                     2e-2, 1e-3)
@@ -2495,11 +2620,10 @@ def main() -> int:
                 "flash_bwd_d256", 2, 16, 4, 1024, 256, "bfloat16", True,
                 2e-2)
     # beyond every build: the general kernels, K1-K3 on tensor cores in
-    # bf16/fp16; in fp32 K2 SIMT, K1 and K3 register-tiled (and the combine
-    # and the split sum, where they split)
-    general = ("flash_bwd_dq_general", "flash_bwd_dkv_general")
+    # bf16/fp16; in fp32 K1-K3 register-tiled (and the combine and the
+    # split sums, where they split)
     general_mma = ("flash_bwd_dq_general_mma", "flash_bwd_dkv_general_mma")
-    d512_fwd = {}
+    d512_fwd, d512_bwd = {}, {}
     for dtype_name, o_atol, lse_atol, rel, fwd, bwd in (
             ("bfloat16", 2e-2, 1e-3, 2e-2, "flash_fwd_general_mma",
              general_mma),
@@ -2509,13 +2633,14 @@ def main() -> int:
             f"kernel vs plain: flash_fwd d512 {tag}", attention_case, smoke,
             f"flash_fwd_general_d512_{tag}", 1, 4, 4, 512, 512, dtype_name,
             True, o_atol, lse_atol, fwd)
-        smoke.phase(
+        d512_bwd[tag] = smoke.phase(
             f"kernel vs plain: flash_bwd d512 {tag}", backward_case, smoke,
             f"flash_bwd_general_d512_{tag}", 1, 4, 4, 512, 512, dtype_name,
             True, rel, bwd)
-    smoke.phase("kernel vs plain: flash_bwd d256 fp32", backward_case, smoke,
-                "flash_bwd_general_d256_fp32", 2, 8, 2, 1024, 256, "float32",
-                True, 1e-4, general)
+    full_bwd_fp32 = smoke.phase(
+        "kernel vs plain: flash_bwd d256 fp32", backward_case, smoke,
+        "flash_bwd_general_d256_fp32", *FULL_D256_FP32, "float32", True,
+        1e-4, general)
     smoke.phase("kernel vs plain: the split sum at d256 fp32",
                 split_sum_case, smoke, "flash_bwd_split_sum_d256_fp32", 2,
                 8, 2, 1024, 256, True)
@@ -2528,6 +2653,9 @@ def main() -> int:
     d512_combine = smoke.phase(
         "kernel vs plain: the combine at d512 fp32", combine_case, smoke,
         "flash_fwd_combine_d512_fp32", 1, 4, 512, 512, True)
+    d512_dq_sum = smoke.phase(
+        "kernel vs plain: the dQ split sum at d512 fp32", dq_sum_case, smoke,
+        "flash_bwd_dq_sum_d512_fp32", 1, 4, 512, 512, True)
     # the D = 256 case's shape at twice the head dim, which fills the card:
     # the tensor-core general kernels beside the D = 256 builds
     full_cases = (
@@ -2553,13 +2681,19 @@ def main() -> int:
                                  if dtype_name == "bfloat16"
                                  else (1e-4, 1e-4, 1e-4))
         shape = (WIDE_BATCH, heads, heads, WIDE_LEN, DIM // heads)
-        sum_case = combine = None
+        sum_case = combine = dq_sum = None
         if bwd[1] == "flash_bwd_dkv_general" and dkv_split_at(
                 *shape, True)[1] > 1:
             sum_case = smoke.phase(
                 f"kernel vs plain: the split sum wide heads {label}",
                 split_sum_case, smoke, f"flash_bwd_split_sum_wide_{label}",
                 *shape, True)
+        if bwd[0] == "flash_bwd_dq_general" and dq_split_at(
+                *shape[:2], *shape[3:], True)[1] > 1:
+            dq_sum = smoke.phase(
+                f"kernel vs plain: the dQ split sum wide heads {label}",
+                dq_sum_case, smoke, f"flash_bwd_dq_sum_wide_{label}",
+                *shape[:2], *shape[3:], True)
         if fwd == "flash_fwd_general" and fwd_split_at(
                 *shape[:2], *shape[3:], True)[1] > 1:
             combine = smoke.phase(
@@ -2573,7 +2707,7 @@ def main() -> int:
             smoke.phase(f"kernel vs plain: flash_bwd wide heads {label}",
                         backward_case, smoke, f"flash_bwd_wide_{label}",
                         *shape, dtype_name, True, rel, bwd),
-            sum_case, combine)
+            sum_case, combine, dq_sum)
     sliced = smoke.phase("slice: Predict and Generate through the gateway",
                          slice_phase, smoke, gpu)
     torch.cuda.empty_cache()
@@ -2641,21 +2775,32 @@ def main() -> int:
              ragged_fp32),
             ("d512_fp32", "flash_fwd_general", "at_b1_hq4_l512_shape",
              d512_fwd.get("fp32")),
-            ("d512_fp32", COMBINE, "at_b1_hq4_l512_shape", d512_combine)):
+            ("d512_fp32", COMBINE, "at_b1_hq4_l512_shape", d512_combine),
+            ("d512_fp32", DQ_SUM, "at_b1_hq4_l512_shape", d512_dq_sum)):
         if record is not None:
             other_shapes.setdefault((label, wrapper), []).append(
                 (key, record))
+    # the fp32 K2 and K3 at the card-filling D = 256, ragged D = 128 and
+    # B1·Hq4·L512·D512 shapes
+    for label, key, records in (
+            ("d256_fp32", "at_card_filling_shape", full_bwd_fp32),
+            ("d256_fp32", "at_ragged_shape", ragged_bwd),
+            ("d512_fp32", "at_b1_hq4_l512_shape", d512_bwd.get("fp32"))):
+        for record in records or []:
+            other_shapes.setdefault((label, record["name"]), []).append(
+                (key, record))
     expected_rows = 3
     for label, _, _, fwd, bwd in WIDE_CASES:
-        fwd_record, bwd_records, sum_record, combine_record = (
+        fwd_record, bwd_records, sum_record, combine_record, dq_sum_record = (
             wide_cases[label])
         launched = wide_by_case.get(label, {}).get("launches", {})
-        expected_rows += 3 + (sum_record is not None) + (
-            combine_record is not None)
+        expected_rows += 3 + sum(r is not None for r in (
+            sum_record, combine_record, dq_sum_record))
         for wrapper, record, source, line in (
                 (fwd, fwd_record, "flash_fwd.cu", 76),
                 (COMBINE, combine_record, "flash_fwd.cu", 76),
                 (bwd[0], (bwd_records or [None])[0], "flash_bwd.cu", 126),
+                (DQ_SUM, dq_sum_record, "flash_bwd.cu", 126),
                 (bwd[1], (bwd_records or [None, None])[1], "flash_bwd.cu",
                  162),
                 (SPLIT_SUM, sum_record, "flash_bwd.cu", 162)):
@@ -2698,7 +2843,7 @@ def main() -> int:
                     "at_b1_hq4_l512_shape"):
             if key in record:
                 entry[key] = record[key]
-        if "case" in record and record["name"] not in (SPLIT_SUM, COMBINE):
+        if "case" in record and record["name"] not in SECOND_LAUNCHES:
             # K2/K3: SDPA's one backward call covers both
             entry["library_covers"] = "flash_bwd_dq+flash_bwd_dkv"
         for key in ("device_kernels", "per_slab", "slabs", "scratch_bytes"):

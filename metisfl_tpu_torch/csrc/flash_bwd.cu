@@ -62,37 +62,25 @@
 //     consumer warpgroups) and keeping a wgmma group in flight across the
 //     softmax; each step waits for its products before the next.
 //
-// Beyond the builds (above 256, and above 128 in fp32, whose SIMT tiles
-// would need 274 KB of shared memory and more at D = 256):
-//   - K2 and K3 in bf16/fp16: the general tensor-core kernels
-//     (flash_bwd_dq_general_mma_kernel, flash_bwd_dkv_general_mma_kernel,
-//     below; the wrappers zero-pad D to a multiple of 64), which stream Q,
-//     K, V and dO through shared memory 64 columns at a time and give the
-//     grid an axis over 256-column chunks of the output (K3 also one over
-//     its two outputs);
-//   - K3 in fp32: the register-tiled SIMT kernel
-//     (flash_bwd_dkv_general_kernel, below; D zero-padded to a multiple of
-//     32), with the same pass and chunk axes, which splits long k tiles
-//     across blocks and sums the slabs in a second launch;
-//   - K2 in fp32: the general SIMT kernel (flash_bwd_dq_general_kernel,
-//     below), for any D.
+// Beyond the builds in bf16/fp16 (above 256): the general tensor-core
+// kernels (flash_bwd_dq_general_mma_kernel, flash_bwd_dkv_general_mma_kernel,
+// below; the wrappers zero-pad D to a multiple of 64), which stream Q, K, V
+// and dO through shared memory 64 columns at a time and give the grid an
+// axis over 256-column chunks of the output (K3 also one over its two
+// outputs).
 //
-// fp32: the SIMT kernels (flash_bwd_*_simt_kernel), a deliberate choice by
-// dtype: TF32 tensor cores keep 10 bits of mantissa, which the fp32
-// tolerance and the JAX package's fp32 numerics do not allow.
-//   - Blocks of 256 threads; four threads own one row of the block's 64-row
-//     tile and split its 64 columns (and its D output columns) four ways.
-//     Operands are staged in shared memory with rows padded to D + 1 floats.
-//   - K2: one block per (64-row q tile, b * Hq + h). Q, dO, lse and delta
-//     are loaded once; a loop walks the K/V tiles (up to the diagonal when
-//     causal) and dQ stays in registers until one store.
-//   - K3: one block per (64-row k tile, b * Hkv + h_kv). K and V are loaded
-//     once; a loop walks the G query heads of the KV group and, within
-//     each, the q tiles from the first that overlaps the k tile (causal) to
-//     the last, with dK and dV in registers: no atomics.
-//   - Ragged L without padding: keys and queries at positions >= L are
-//     masked (P = 0, their lse is never read) and only rows < L are stored.
-//     The TPU path pads lse with a 1e30 sentinel instead.
+// fp32, at every D: register-tiled SIMT kernels (flash_bwd_dq_f32_kernel,
+// flash_bwd_dkv_general_kernel, below; D zero-padded to a multiple of 32,
+// at least 64), a deliberate choice by dtype: TF32 tensor cores keep 10
+// bits of mantissa, which the fp32 tolerance and the JAX package's fp32
+// numerics do not allow. They cut long tiles into slabs across blocks where
+// the grid does not fill the card and sum the slabs' fp32 partials in a
+// second launch (flash_bwd_split_sum_kernel). Ragged L without padding:
+// keys and queries at positions >= L are masked (P = 0, their lse is never
+// read) and only rows < L are stored; the TPU path pads lse with a 1e30
+// sentinel instead.
+//
+// Every launch is a 1-D grid, B * H included: no head count is too large.
 
 #include <algorithm>
 #include <climits>
@@ -109,242 +97,6 @@ namespace {
 
 constexpr int kTile = 64;      // rows of a q tile and of a k tile
 constexpr float kLog2e = 1.4426950408889634f;
-
-// ---------------------------------------------------------------------------
-// fp32: SIMT kernels
-
-constexpr int kThreads = 256;  // 4 threads per tile row
-constexpr int kCols = kTile / 4;  // tile columns per thread
-
-// rows [r0, r0 + kTile) of a (L, D) matrix into a tile with rows padded to
-// D + 1 floats (the four lanes of a row and the eight rows of a warp then
-// fall in distinct banks); rows >= L are zero
-template <int D>
-__device__ __forceinline__ void load_tile(float* dst, const float* src,
-                                          int r0, int L) {
-  for (int i = threadIdx.x; i < kTile * D; i += kThreads) {
-    const int r = i / D, d = i - (i / D) * D;
-    const int g = r0 + r;
-    dst[r * (D + 1) + d] = g < L ? src[(size_t)g * D + d] : 0.f;
-  }
-}
-
-template <int D>
-constexpr size_t dq_simt_smem_bytes() {
-  // Q, dO, K, V tiles and the dS tile
-  return sizeof(float) * (size_t)(4 * kTile * (D + 1) + kTile * (kTile + 1));
-}
-
-template <int D>
-constexpr size_t dkv_simt_smem_bytes() {
-  // K, V, Q, dO tiles, the P and dS tiles, and one tile's lse and delta
-  return sizeof(float) *
-         (size_t)(4 * kTile * (D + 1) + 2 * kTile * (kTile + 1) + 2 * kTile);
-}
-
-// K2 in fp32: dQ for one 64-row q tile of one (batch, query head).
-template <int D>
-__global__ void __launch_bounds__(kThreads)
-flash_bwd_dq_simt_kernel(const float* __restrict__ q,
-                         const float* __restrict__ k,
-                         const float* __restrict__ v,
-                         const float* __restrict__ dout,
-                         const float* __restrict__ lse,
-                         const float* __restrict__ delta,
-                         float* __restrict__ dq, int Hq, int Hkv, int L,
-                         float scale, int causal) {
-  extern __shared__ float smem[];
-  float* sQ = smem;                      // kTile x (D + 1)
-  float* sDO = sQ + kTile * (D + 1);     // kTile x (D + 1)
-  float* sK = sDO + kTile * (D + 1);     // kTile x (D + 1)
-  float* sV = sK + kTile * (D + 1);      // kTile x (D + 1)
-  float* sDS = sV + kTile * (D + 1);     // kTile x (kTile + 1)
-
-  const int tid = threadIdx.x;
-  const int row = tid >> 2;
-  const int sub = tid & 3;
-  const int bh = blockIdx.y;  // b * Hq + h
-  const int b = bh / Hq;
-  const int h = bh - b * Hq;
-  const int kvh = b * Hkv + h / (Hq / Hkv);
-  const int q0 = blockIdx.x * kTile;
-  const int q_pos = q0 + row;
-  const bool row_in = q_pos < L;
-
-  const float* kb = k + (size_t)kvh * L * D;
-  const float* vb = v + (size_t)kvh * L * D;
-  // a row past L takes no part: its P is 0 and its lse is never read
-  const float row_lse = row_in ? lse[(size_t)bh * L + q_pos] : 0.f;
-  const float row_delta = row_in ? delta[(size_t)bh * L + q_pos] : 0.f;
-
-  load_tile<D>(sQ, q + (size_t)bh * L * D, q0, L);
-  load_tile<D>(sDO, dout + (size_t)bh * L * D, q0, L);
-
-  float acc[D / 4];
-#pragma unroll
-  for (int j = 0; j < D / 4; ++j) acc[j] = 0.f;
-
-  const int k_end = causal ? min(L, q0 + kTile) : L;
-  for (int k0 = 0; k0 < k_end; k0 += kTile) {
-    __syncthreads();  // the previous step is done with sK / sV
-    load_tile<D>(sK, kb, k0, L);
-    load_tile<D>(sV, vb, k0, L);
-    __syncthreads();
-
-    float s[kCols], dp[kCols];
-#pragma unroll
-    for (int j = 0; j < kCols; ++j) s[j] = dp[j] = 0.f;
-    const float* qrow = sQ + row * (D + 1);
-    const float* dorow = sDO + row * (D + 1);
-#pragma unroll 4
-    for (int d = 0; d < D; ++d) {
-      const float qd = qrow[d];
-      const float dod = dorow[d];
-#pragma unroll
-      for (int j = 0; j < kCols; ++j) {
-        const int c = (sub + 4 * j) * (D + 1) + d;
-        s[j] = fmaf(qd, sK[c], s[j]);
-        dp[j] = fmaf(dod, sV[c], dp[j]);
-      }
-    }
-#pragma unroll
-    for (int j = 0; j < kCols; ++j) {
-      const int k_pos = k0 + sub + 4 * j;
-      const bool ok = row_in && k_pos < L && (!causal || q_pos >= k_pos);
-      const float p = ok ? expf(s[j] * scale - row_lse) : 0.f;
-      sDS[row * (kTile + 1) + sub + 4 * j] = p * (dp[j] - row_delta) * scale;
-    }
-    __syncwarp();  // a row's dS is written and read by the same four lanes
-
-    const float* dsrow = sDS + row * (kTile + 1);
-#pragma unroll 4
-    for (int c = 0; c < kTile; ++c) {
-      const float ds = dsrow[c];
-      const float* krow = sK + c * (D + 1) + sub;
-#pragma unroll
-      for (int j = 0; j < D / 4; ++j) acc[j] = fmaf(ds, krow[4 * j], acc[j]);
-    }
-  }
-
-  if (row_in) {
-    float* out = dq + ((size_t)bh * L + q_pos) * D + sub;
-#pragma unroll
-    for (int j = 0; j < D / 4; ++j) out[4 * j] = acc[j];
-  }
-}
-
-// K3 in fp32: dK and dV for one 64-row k tile of one (batch, KV head),
-// summed over the G query heads of its group.
-template <int D>
-__global__ void __launch_bounds__(kThreads)
-flash_bwd_dkv_simt_kernel(const float* __restrict__ q,
-                          const float* __restrict__ k,
-                          const float* __restrict__ v,
-                          const float* __restrict__ dout,
-                          const float* __restrict__ lse,
-                          const float* __restrict__ delta,
-                          float* __restrict__ dk, float* __restrict__ dv,
-                          int Hq, int Hkv, int L, float scale, int causal) {
-  extern __shared__ float smem[];
-  float* sK = smem;                        // kTile x (D + 1)
-  float* sV = sK + kTile * (D + 1);        // kTile x (D + 1)
-  float* sQ = sV + kTile * (D + 1);        // kTile x (D + 1)
-  float* sDO = sQ + kTile * (D + 1);       // kTile x (D + 1)
-  float* sP = sDO + kTile * (D + 1);       // kTile x (kTile + 1), [key][query]
-  float* sDS = sP + kTile * (kTile + 1);   // kTile x (kTile + 1), [key][query]
-  float* sLse = sDS + kTile * (kTile + 1); // kTile
-  float* sDelta = sLse + kTile;            // kTile
-
-  const int tid = threadIdx.x;
-  const int row = tid >> 2;  // key row inside the tile
-  const int sub = tid & 3;
-  const int bkv = blockIdx.y;  // b * Hkv + h_kv
-  const int b = bkv / Hkv;
-  const int hkv = bkv - b * Hkv;
-  const int G = Hq / Hkv;
-  const int k0 = blockIdx.x * kTile;
-  const int k_pos = k0 + row;
-  const bool row_in = k_pos < L;
-
-  load_tile<D>(sK, k + (size_t)bkv * L * D, k0, L);
-  load_tile<D>(sV, v + (size_t)bkv * L * D, k0, L);
-
-  float acc_k[D / 4], acc_v[D / 4];
-#pragma unroll
-  for (int j = 0; j < D / 4; ++j) acc_k[j] = acc_v[j] = 0.f;
-
-  // causal: q tiles before the k tile's first row see none of its keys
-  const int q_begin = causal ? k0 : 0;
-  for (int g = 0; g < G; ++g) {
-    const int bh = b * Hq + hkv * G + g;
-    const float* qb = q + (size_t)bh * L * D;
-    const float* dob = dout + (size_t)bh * L * D;
-    const float* lseb = lse + (size_t)bh * L;
-    const float* deltab = delta + (size_t)bh * L;
-    for (int q0 = q_begin; q0 < L; q0 += kTile) {
-      __syncthreads();  // the previous step is done with sQ / sDO / stats
-      load_tile<D>(sQ, qb, q0, L);
-      load_tile<D>(sDO, dob, q0, L);
-      if (tid < kTile) {
-        const int gq = q0 + tid;
-        sLse[tid] = gq < L ? lseb[gq] : 0.f;
-        sDelta[tid] = gq < L ? deltab[gq] : 0.f;
-      }
-      __syncthreads();
-
-      float s[kCols], dp[kCols];
-#pragma unroll
-      for (int j = 0; j < kCols; ++j) s[j] = dp[j] = 0.f;
-      const float* krow = sK + row * (D + 1);
-      const float* vrow = sV + row * (D + 1);
-#pragma unroll 4
-      for (int d = 0; d < D; ++d) {
-        const float kd = krow[d];
-        const float vd = vrow[d];
-#pragma unroll
-        for (int j = 0; j < kCols; ++j) {
-          const int c = (sub + 4 * j) * (D + 1) + d;
-          s[j] = fmaf(kd, sQ[c], s[j]);
-          dp[j] = fmaf(vd, sDO[c], dp[j]);
-        }
-      }
-#pragma unroll
-      for (int j = 0; j < kCols; ++j) {
-        const int c = sub + 4 * j;
-        const int q_pos = q0 + c;
-        const bool ok = row_in && q_pos < L && (!causal || q_pos >= k_pos);
-        const float p = ok ? expf(s[j] * scale - sLse[c]) : 0.f;
-        sP[row * (kTile + 1) + c] = p;
-        sDS[row * (kTile + 1) + c] = p * (dp[j] - sDelta[c]) * scale;
-      }
-      __syncwarp();  // a key row's P and dS are written and read by its lanes
-
-      const float* prow = sP + row * (kTile + 1);
-      const float* dsrow = sDS + row * (kTile + 1);
-#pragma unroll 2
-      for (int c = 0; c < kTile; ++c) {
-        const float p = prow[c];
-        const float ds = dsrow[c];
-        const float* dorow = sDO + c * (D + 1) + sub;
-        const float* qrow = sQ + c * (D + 1) + sub;
-#pragma unroll
-        for (int j = 0; j < D / 4; ++j) {
-          acc_v[j] = fmaf(p, dorow[4 * j], acc_v[j]);
-          acc_k[j] = fmaf(ds, qrow[4 * j], acc_k[j]);
-        }
-      }
-    }
-  }
-
-  if (row_in) {
-    const size_t at = ((size_t)bkv * L + k_pos) * D + sub;
-#pragma unroll
-    for (int j = 0; j < D / 4; ++j) {
-      dk[at + 4 * j] = acc_k[j];
-      dv[at + 4 * j] = acc_v[j];
-    }
-  }
-}
 
 // ---------------------------------------------------------------------------
 // bf16 / fp16: tensor-core kernels
@@ -1185,127 +937,8 @@ flash_bwd_dq_general_mma_kernel(const T* __restrict__ q,
 }
 
 // ---------------------------------------------------------------------------
-// fp32 beyond the builds: K2 (flash_bwd_dq_general_kernel, SIMT, any D)
-//
-// One block of 256 threads per (64-row q tile, b * Hq + h, 64-column chunk
-// of dQ): four threads own one row, as in the fp32 SIMT kernels. Each block
-// recomputes its tile's S and dP over the full D, 64 columns at a time
-// through shared memory, then accumulates only its own output chunk; the
-// chunks of one tile repeat the same S and dP, bit for bit. Bound: 6 D
-// operations a pair at SIMT's 67 TFLOP/s (at B2 Hq8 Hkv2 L1024 D256 causal
-// 12.9 GFLOP, 0.193 ms). The recompute of S and dP per output chunk makes
-// it right for any D, not fast.
-
-constexpr int kChunk = simt::kChunk;
-constexpr int kChunkTile = kTile * (kChunk + 1);  // floats of one tile
-
-constexpr size_t dq_general_smem_bytes() {
-  // Q, dO, K, V chunk tiles and the dS tile
-  return sizeof(float) * (size_t)(4 * kChunkTile + kTile * (kTile + 1));
-}
-
-// K2 in fp32 at any D: dQ columns [d0, d0 + kChunk) of one 64-row q tile of
-// one (batch, query head).
-__global__ void __launch_bounds__(kThreads)
-flash_bwd_dq_general_kernel(const float* __restrict__ q,
-                            const float* __restrict__ k,
-                            const float* __restrict__ v,
-                            const float* __restrict__ dout,
-                            const float* __restrict__ lse,
-                            const float* __restrict__ delta,
-                            float* __restrict__ dq, int Hq, int Hkv, int L,
-                            int D, float scale, int causal) {
-  extern __shared__ float smem[];
-  float* sQ = smem;
-  float* sDO = sQ + kChunkTile;
-  float* sK = sDO + kChunkTile;
-  float* sV = sK + kChunkTile;
-  float* sDS = sV + kChunkTile;  // kTile x (kTile + 1)
-
-  const int tid = threadIdx.x;
-  const int row = tid >> 2;
-  const int sub = tid & 3;
-  const int bh = blockIdx.y;  // b * Hq + h
-  const int b = bh / Hq;
-  const int kvh = b * Hkv + (bh - b * Hq) / (Hq / Hkv);
-  const int q0 = blockIdx.x * kTile;
-  const int d0 = blockIdx.z * kChunk;
-  const int q_pos = q0 + row;
-  const bool row_in = q_pos < L;
-
-  const float* qb = q + (size_t)bh * L * D;
-  const float* dob = dout + (size_t)bh * L * D;
-  const float* kb = k + (size_t)kvh * L * D;
-  const float* vb = v + (size_t)kvh * L * D;
-  const float row_lse = row_in ? lse[(size_t)bh * L + q_pos] : 0.f;
-  const float row_delta = row_in ? delta[(size_t)bh * L + q_pos] : 0.f;
-
-  float acc[kChunk / 4];
-#pragma unroll
-  for (int j = 0; j < kChunk / 4; ++j) acc[j] = 0.f;
-
-  const int k_end = causal ? min(L, q0 + kTile) : L;
-  for (int k0 = 0; k0 < k_end; k0 += kTile) {
-    float s[kCols], dp[kCols];
-#pragma unroll
-    for (int j = 0; j < kCols; ++j) s[j] = dp[j] = 0.f;
-    for (int c0 = 0; c0 < D; c0 += kChunk) {
-      __syncthreads();  // the previous step is done with the tiles
-      simt::load_chunk<kTile, kThreads>(sQ, qb, q0, L, c0, D);
-      simt::load_chunk<kTile, kThreads>(sDO, dob, q0, L, c0, D);
-      simt::load_chunk<kTile, kThreads>(sK, kb, k0, L, c0, D);
-      simt::load_chunk<kTile, kThreads>(sV, vb, k0, L, c0, D);
-      __syncthreads();
-      const float* qrow = sQ + row * (kChunk + 1);
-      const float* dorow = sDO + row * (kChunk + 1);
-#pragma unroll 4
-      for (int d = 0; d < kChunk; ++d) {
-        const float qd = qrow[d];
-        const float dod = dorow[d];
-#pragma unroll
-        for (int j = 0; j < kCols; ++j) {
-          const int c = (sub + 4 * j) * (kChunk + 1) + d;
-          s[j] = fmaf(qd, sK[c], s[j]);
-          dp[j] = fmaf(dod, sV[c], dp[j]);
-        }
-      }
-    }
-#pragma unroll
-    for (int j = 0; j < kCols; ++j) {
-      const int k_pos = k0 + sub + 4 * j;
-      const bool ok = row_in && k_pos < L && (!causal || q_pos >= k_pos);
-      const float p = ok ? expf(s[j] * scale - row_lse) : 0.f;
-      sDS[row * (kTile + 1) + sub + 4 * j] = p * (dp[j] - row_delta) * scale;
-    }
-    __syncthreads();  // everyone is done with sK before its output chunk
-    simt::load_chunk<kTile, kThreads>(sK, kb, k0, L, d0, D);
-    __syncthreads();
-
-    const float* dsrow = sDS + row * (kTile + 1);
-#pragma unroll 4
-    for (int c = 0; c < kTile; ++c) {
-      const float ds = dsrow[c];
-      const float* krow = sK + c * (kChunk + 1) + sub;
-#pragma unroll
-      for (int j = 0; j < kChunk / 4; ++j)
-        acc[j] = fmaf(ds, krow[4 * j], acc[j]);
-    }
-  }
-
-  if (row_in) {
-    float* out = dq + ((size_t)bh * L + q_pos) * D;
-#pragma unroll
-    for (int j = 0; j < kChunk / 4; ++j) {
-      const int col = d0 + sub + 4 * j;
-      if (col < D) out[col] = acc[j];
-    }
-  }
-}
-
-// ---------------------------------------------------------------------------
-// fp32 beyond the builds: K3 (flash_bwd_dkv_general_kernel), register-tiled
-// SIMT, for any D that is a multiple of 32 and at least 64 (the wrapper
-// zero-pads to one)
+// fp32: K3 (flash_bwd_dkv_general_kernel), register-tiled SIMT, for any D
+// that is a multiple of 32 and at least 64 (the wrapper zero-pads to one)
 //
 // Full fp32 FMAs, as the twin computes: single-pass TF32 keeps about three
 // decimal digits and would break the fp32 limit of 1e-4 x max|ref|
@@ -1324,7 +957,10 @@ flash_bwd_dq_general_kernel(const float* __restrict__ q,
 //     16-byte loads a query). A warp's threads are laid out 4 x 8 over
 //     each tile, so that one 16-byte load of a warp reads 128 bytes at most
 //     (one shared-memory wavefront). P^T or dS^T goes through shared
-//     memory ([query][key]) between the two.
+//     memory ([query][key]) between the two. Warps whose columns lie past
+//     D (D <= 192, or the last chunk) skip the product; at D <= 64 the
+//     product tiles are 8 keys x 4 columns of a 128-column chunk
+//     (kNarrowD), so that four warps, not two, share it.
 //   - Copies: K, Q (and V, dO in the dK pass) stream in 32-column blocks
 //     through a ring of kF32Ring stages filled by 16-byte cp.async, one
 //     group a step started kF32Ahead steps ahead, so the next blocks'
@@ -1340,7 +976,7 @@ flash_bwd_dq_general_kernel(const float* __restrict__ q,
 //     query heads of its group, member-major, times its q tiles) are cut
 //     into slabs of per_slab steps (the wrapper's dkv_split); a block per
 //     slab writes an fp32 partial into a scratch tensor, and a second
-//     launch (flash_bwd_dkv_split_sum_kernel) sums each row's slabs in
+//     launch (flash_bwd_split_sum_kernel) sums each row's slabs in
 //     slab order: no atomics, the same bits on every run. Where one slab
 //     covers every k tile the block writes dK or dV itself. The grid is
 //     tile-major with the first (longest causal) k tile first; a slab past
@@ -1369,14 +1005,22 @@ constexpr size_t dkv_general_smem_bytes() {
                                   kTile * kF32PRow + 2 * kTile);
 }
 
+// at D <= kNarrowD the fp32 K2's and K3's product tiles cover a 128-column
+// chunk, 8 x 4 a thread, so that twice as many warps hold columns of the
+// output: at D = 64 K2 ran 14% and K3 11% faster so, at D = 128 K3 3.5%
+// slower (PERF.md)
+constexpr int kNarrowD = 64;
+
 // S^T's 4 x 4 tile of a thread (simt::f32_tile_product): keys 16 (w % 4) +
 // (lane % 4) + 4 i and queries 32 (w / 4) + lane / 4 + 8 j of warp w, so
 // that one 16-byte load of a warp reads 4 key rows or 8 query rows, 128
 // bytes at most
 constexpr int kKeyStep = 4, kQueryStep = 8;
 
-// one block of the kernel below; kDkPass picks the output (dK, else dV)
-template <bool kDkPass>
+// one block of the kernel below; kDkPass picks the output (dK, else dV),
+// kNarrow a product tile of 8 keys x 4 columns on a 128-column chunk
+// (D <= kNarrowD), else 8 x 8 on 256
+template <bool kDkPass, bool kNarrow>
 __device__ __forceinline__ void dkv_general_block(
     const float* __restrict__ q, const float* __restrict__ k,
     const float* __restrict__ v, const float* __restrict__ dout,
@@ -1470,16 +1114,19 @@ __device__ __forceinline__ void dkv_general_block(
   // S^T tile: the first key and query (f32_tile_product)
   const int tk = 16 * (warp & 3) + (lane & 3);
   const int tq = 32 * (warp >> 2) + (lane >> 2);
-  // product tile: keys pk .. pk + 7, columns pc .. pc + 3 and pc + 32 ..
-  // pc + 35 of the chunk, so that one 16-byte load of a warp reads 4 P^T
-  // or 8 chunk pieces of one row, 128 bytes at most
+  // product tile: keys pk .. pk + 7, columns pc .. pc + 3 (and pc + 32 ..
+  // pc + 35 on a 256-column chunk), so that one 16-byte load of a warp
+  // reads 4 P^T or 8 chunk pieces of one row, 128 bytes at most
+  constexpr int kCols = kNarrow ? 4 : 8;   // columns a thread holds
+  constexpr int kPairCols = 8 * kCols;     // chunk columns of a warp pair
   const int pk = 32 * (warp & 1) + 8 * (lane & 3);
-  const int pc = 64 * (warp >> 1) + 4 * (lane >> 2);
-  float acc[8][8], s[4][4], dp[4][4];
+  const int pc = kPairCols * (warp >> 1) + 4 * (lane >> 2);
+  const bool has_cols = c0 + kPairCols * (warp >> 1) < D;
+  float acc[8][kCols], s[4][4], dp[4][4];
 #pragma unroll
   for (int r = 0; r < 8; ++r)
 #pragma unroll
-    for (int c = 0; c < 8; ++c) acc[r][c] = 0.f;
+    for (int c = 0; c < kCols; ++c) acc[r][c] = 0.f;
 
   for (int step = 0; step < n_steps; ++step) {
     sm90::cp_async_wait<kF32Ahead - 1>();  // this step's group has landed
@@ -1528,24 +1175,12 @@ __device__ __forceinline__ void dkv_general_block(
     __syncthreads();
 
     // dV[:, chunk] += P^T dO[:, chunk] or dK[:, chunk] += dS^T Q[:, chunk]
-#pragma unroll 4
-    for (int ql = 0; ql < kTile; ++ql) {
-      const float* prow = sP + ql * kF32PRow + pk;
-      const float* crow = sC + ql * kMmaChunk + pc;
-      const float4 p0 = *reinterpret_cast<const float4*>(prow);
-      const float4 p1 = *reinterpret_cast<const float4*>(prow + 4);
-      const float4 x0 = *reinterpret_cast<const float4*>(crow);
-      const float4 x1 = *reinterpret_cast<const float4*>(crow + 32);
-      const float pr[8] = {p0.x, p0.y, p0.z, p0.w, p1.x, p1.y, p1.z, p1.w};
-      const float cr[8] = {x0.x, x0.y, x0.z, x0.w, x1.x, x1.y, x1.z, x1.w};
-#pragma unroll
-      for (int r = 0; r < 8; ++r)
-#pragma unroll
-        for (int c = 0; c < 8; ++c) acc[r][c] = fmaf(pr[r], cr[c], acc[r][c]);
-    }
+    if (has_cols)
+      simt::f32_rows_product<kCols>(acc, sP + pk, kF32PRow, sC + pc,
+                                    kMmaChunk);
   }
 
-  // rows pk .. pk + 7 of the k tile, columns c0 + pc and c0 + pc + 32:
+  // rows pk .. pk + 7 of the k tile, columns c0 + pc (and c0 + pc + 32):
   // into dK or dV, or into this slab's partial
   float* out = slabs == 1
                    ? out_all + (size_t)bkv * L * D
@@ -1556,7 +1191,7 @@ __device__ __forceinline__ void dkv_general_block(
     const int row = k0 + pk + r;
     if (row >= L) break;
 #pragma unroll
-    for (int h = 0; h < 2; ++h) {
+    for (int h = 0; h < kCols / 4; ++h) {
       const int col = c0 + pc + 32 * h;
       if (col < D)
         *reinterpret_cast<float4*>(out + (size_t)row * D + col) =
@@ -1566,6 +1201,7 @@ __device__ __forceinline__ void dkv_general_block(
   }
 }
 
+template <bool kNarrow>
 __global__ void __launch_bounds__(kF32Threads, 1)
 flash_bwd_dkv_general_kernel(const float* __restrict__ q,
                              const float* __restrict__ k,
@@ -1583,39 +1219,271 @@ flash_bwd_dkv_general_kernel(const float* __restrict__ q,
   const int heads = gridDim.x / ((L + kTile - 1) / kTile * slabs * 2 *
                                  chunks);
   if (blockIdx.x / (heads * chunks) % 2)
-    dkv_general_block<true>(q, k, v, dout, lse, delta, dk, part, Hq, Hkv, L,
-                            D, scale, causal, per_slab, slabs);
+    dkv_general_block<true, kNarrow>(q, k, v, dout, lse, delta, dk, part, Hq,
+                                     Hkv, L, D, scale, causal, per_slab,
+                                     slabs);
   else
-    dkv_general_block<false>(q, k, v, dout, lse, delta, dv, part, Hq, Hkv,
-                             L, D, scale, causal, per_slab, slabs);
+    dkv_general_block<false, kNarrow>(q, k, v, dout, lse, delta, dv, part,
+                                      Hq, Hkv, L, D, scale, causal, per_slab,
+                                      slabs);
 }
 
-// the second launch of a split K3g: dV and dK, each row the sum of its k
-// tile's slabs from the partials (slabs, 2 = dV / dK, B * Hkv, L, D), in
-// slab order. Memory-bound: it reads every slab's partial once.
+// the second launch of a split fp32 K2 or K3: each row of each output the
+// sum of its tile's slabs of the partials (slabs, outs, heads, L, D), in
+// slab order (K3: outs 2, dV at 0 and dK at 1; K2: outs 1, dQ). A tile's
+// slabs follow from its steps: K3's k tile t has G (nt - t) q steps when
+// causal (its first tile the longest), K2's q tile t has t + 1 k tiles
+// (last_longest, G = 1), and every tile G nt when not causal. Memory-bound:
+// it reads every slab's partial once.
 __global__ void __launch_bounds__(kF32Threads)
-flash_bwd_dkv_split_sum_kernel(const float4* __restrict__ part,
-                               float4* __restrict__ dk,
-                               float4* __restrict__ dv, int heads, int L,
-                               int D, int G, int causal, int per_slab) {
+flash_bwd_split_sum_kernel(const float4* __restrict__ part,
+                           float4* __restrict__ out0,
+                           float4* __restrict__ out1, int outs, int heads,
+                           int L, int D, int G, int causal, int last_longest,
+                           int per_slab) {
   const size_t per_out = (size_t)heads * L * D / 4;  // float4s of an output
-  const int nk = (L + kTile - 1) / kTile;
+  const int nt = (L + kTile - 1) / kTile;
   for (size_t i = blockIdx.x * (size_t)blockDim.x + threadIdx.x;
-       i < 2 * per_out; i += (size_t)gridDim.x * blockDim.x) {
-    const int pass = i >= per_out;  // 0: dV, 1: dK
-    const size_t e = i - pass * per_out;
+       i < outs * per_out; i += (size_t)gridDim.x * blockDim.x) {
+    const int out = (int)(i / per_out);
+    const size_t e = i - out * per_out;
     const int tile = (int)(e * 4 / D % L) / kTile;
-    const int n = (G * (nk - (causal ? tile : 0)) + per_slab - 1) / per_slab;
-    const float4* src = part + pass * per_out + e;
+    const int steps = G * (!causal ? nt : last_longest ? tile + 1 : nt - tile);
+    const int n = (steps + per_slab - 1) / per_slab;
+    const float4* src = part + out * per_out + e;
     float4 sum = src[0];
     for (int sl = 1; sl < n; ++sl) {
-      const float4 x = src[(size_t)sl * 2 * per_out];
+      const float4 x = src[(size_t)sl * outs * per_out];
       sum.x += x.x;
       sum.y += x.y;
       sum.z += x.z;
       sum.w += x.w;
     }
-    (pass ? dk : dv)[e] = sum;
+    (out ? out1 : out0)[e] = sum;
+  }
+}
+
+// ---------------------------------------------------------------------------
+// fp32: K2 (flash_bwd_dq_f32_kernel), register-tiled SIMT, for any D that
+// is a multiple of 32 and at least 64 (the wrapper zero-pads to one)
+//
+// Full fp32 FMAs, as the twin computes (no TF32: fp32's limit is 1e-4). It
+// is the fp32 K3g's design above with queries and keys trading roles, on
+// the fp32 K1's grid and tiles (flash_fwd.cu):
+//   - A block of 256 threads owns one 64-row q tile of one b * Hq + h, one
+//     256-column chunk of dQ (the last chunk narrower where D is not a
+//     multiple of 256) and one slab of the tile's k tiles. The 1-D grid is
+//     tile-major, the longest causal q tile (the last, which sees every k
+//     tile) first.
+//   - S = Q K^T and dP = dO V^T of each 64-key step: Q, K, dO and V stream
+//     in 32-column blocks through the ring of simt.cuh (3 stages, loads two
+//     steps ahead, rows padded to 36 floats). Each thread owns a 4 x 4 tile
+//     of S and one of dP, queries 8 w + 4 (lane / 16) .. + 3 and keys
+//     lane % 16 + 16 i of warp w (simt::f32_tile_product), as the fp32
+//     K1's S; its four queries' lse and delta stay in registers.
+//   - dS = P (dP - delta) scale, P = exp(scale S - lse) masked past L and
+//     above the diagonal, goes through shared memory as dS^T ([key][query],
+//     rows padded to 68 floats, one 16-byte store per key).
+//   - dQ[:, chunk] += dS K[:, chunk]: each thread owns an 8 x 8 tile of the
+//     block's 64 x 256 fp32 dQ chunk (64 registers), as the fp32 K1's O:
+//     per key four 16-byte loads (8 dS, 8 K values) for 64 FMAs. K's chunk
+//     (64 keys x 256 columns) arrives in quarters with the last block steps
+//     of its k step. Warps whose columns lie past D skip the product; at
+//     D <= 64 the tiles are 8 x 4 of a 128-column chunk (kNarrowD), as in
+//     K3 above.
+//   - Work: S and dP once per chunk, dS K once: 4 D ceil(D / 256) + 2 D
+//     operations a (q, k) pair, the twin's 6 D at D <= 256.
+//   - Load balance as the fp32 K1: where one block per (q tile, chunk,
+//     head) cannot fill the card, a tile's k tiles are cut into slabs of
+//     per_slab (the wrapper's dq_split, fwd_split's rule); each block of a
+//     split grid writes an fp32 partial and flash_bwd_split_sum_kernel adds
+//     each row's slabs in slab order: no atomics, the same bits on every
+//     run. A slab past its tile's k tiles exits at once.
+//   - Shared memory: ring 108 KB, K's chunk 64 KB, dS^T 17 KB: 189 KB, one
+//     block an SM.
+//   - Bound: 6 D operations a pair at SIMT's 67 TFLOP/s (B2 Hq8 Hkv2 L1024
+//     D256 causal: 12.9 GFLOP, 0.193 ms). What holds it is K3g's limit: the
+//     4 x 4 tiles feed 2 FMAs per float moved from shared memory, the 8 x 8
+//     product 4, where an SM moves 32 floats a cycle to 128 FMA lanes
+//     (PERF.md).
+
+constexpr size_t dq_f32_smem_bytes() {
+  // the ring, K's chunk, dS^T
+  return sizeof(float) * (size_t)(kF32Ring * kF32Stage + kTile * kMmaChunk +
+                                  kTile * kF32PRow);
+}
+
+template <bool kNarrow>
+__global__ void __launch_bounds__(kF32Threads, 1)
+flash_bwd_dq_f32_kernel(const float* __restrict__ q,
+                        const float* __restrict__ k,
+                        const float* __restrict__ v,
+                        const float* __restrict__ dout,
+                        const float* __restrict__ lse,
+                        const float* __restrict__ delta,
+                        float* __restrict__ dq, float* __restrict__ part,
+                        int Hq, int Hkv, int L, int D, float scale,
+                        int causal, int per_slab, int slabs) {
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  float* sRing = reinterpret_cast<float*>(smem_raw);
+  float* sK = sRing + kF32Ring * kF32Stage;  // K's chunk, kTile x kMmaChunk
+  float* sDS = sK + kTile * kMmaChunk;       // dS^T, [key][query]
+
+  const int tid = threadIdx.x;
+  const int nq = (L + kTile - 1) / kTile;
+  const int nb = D / kF32Block;  // the blocks S and dP reduce over
+  const int chunks = (D + kMmaChunk - 1) / kMmaChunk;
+  const int heads = gridDim.x / (nq * slabs * chunks);  // B * Hq
+  const int bh = blockIdx.x % heads;
+  const int chunk = blockIdx.x / heads % chunks;
+  const int slab = blockIdx.x / (heads * chunks) % slabs;
+  const int rank = blockIdx.x / (heads * chunks * slabs);
+  // causal: the last q tile walks every k tile, so it goes first
+  const int q0 = (causal ? nq - 1 - rank : rank) * kTile;
+  // the q tile's k tiles (causal: up to the diagonal); this slab's share
+  const int n_k = causal ? q0 / kTile + 1 : nq;
+  const int it0 = slab * per_slab;
+  if (it0 >= n_k) return;  // the tile needs fewer slabs
+  const int n_it = min(per_slab, n_k - it0);
+  const int per = nb + 1;  // nb block steps and the dS / product step
+  const int n_steps = n_it * per;
+  const int c0 = chunk * kMmaChunk;
+  const int b = bh / Hq;
+  const int kvh = b * Hkv + (bh - b * Hq) / (Hq / Hkv);
+  const float* qb = q + (size_t)bh * L * D;
+  const float* dob = dout + (size_t)bh * L * D;
+  const float* kb = k + (size_t)kvh * L * D;
+  const float* vb = v + (size_t)kvh * L * D;
+
+  // one step's loads as one cp.async group (empty past the last step). A
+  // ring stage is refilled kF32Ring block steps after its last use; K's
+  // chunk quarters go with block steps max(kF32Ahead, nb - 3 + m), so all
+  // are started no earlier than the first step of their k step, after the
+  // last product read the previous chunk
+  auto load_step = [&](int step) {
+    if (step < n_steps) {
+      const int it = step / per, blk = step - it * per;
+      const int k0 = (it0 + it) * kTile;
+      if (blk < nb) {
+        float* stage = sRing + (it * nb + blk) % kF32Ring * kF32Stage;
+        const int col = kF32Block * blk;
+        load_f32_block(stage, qb, q0, L, D, col);
+        load_f32_block(stage + kTile * kF32Row, kb, k0, L, D, col);
+        load_f32_block(stage + 2 * kTile * kF32Row, dob, q0, L, D, col);
+        load_f32_block(stage + 3 * kTile * kF32Row, vb, k0, L, D, col);
+      }
+#pragma unroll
+      for (int m = 0; m < 4; ++m) {
+        if (blk != max(kF32Ahead, nb - 3 + m)) continue;
+        // keys [16 m, 16 m + 16) of the chunk, 64 16-byte pieces a row;
+        // keys past L and columns past D are zero
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const int i = tid + j * kF32Threads;
+          const int r = 16 * m + (i >> 6), col = c0 + 4 * (i & 63);
+          const bool ok = k0 + r < L && col < D;
+          sm90::cp_async_16(sK + r * kMmaChunk + 4 * (i & 63),
+                            kb + (ok ? (size_t)(k0 + r) * D + col : 0),
+                            ok ? 16 : 0);
+        }
+      }
+    }
+    sm90::cp_async_commit();
+  };
+  for (int step = 0; step < kF32Ahead; ++step) load_step(step);
+
+  const int warp = tid >> 5, lane = tid & 31;
+  // S and dP tiles: queries tq .. tq + 3, keys tk + 16 i (f32_tile_product)
+  const int tq = 8 * warp + 4 * (lane >> 4);
+  const int tk = lane & 15;
+  // product tile: queries pq .. pq + 7, columns pc .. pc + 3 (and pc + 32
+  // .. pc + 35 on a 256-column chunk); warps past D have none
+  constexpr int kCols = kNarrow ? 4 : 8;   // columns a thread holds
+  constexpr int kPairCols = 8 * kCols;     // chunk columns of a warp pair
+  const int pq = 32 * (warp & 1) + 8 * (lane & 3);
+  const int pc = kPairCols * (warp >> 1) + 4 * (lane >> 2);
+  const bool has_cols = c0 + kPairCols * (warp >> 1) < D;
+  // a query past L takes no part: its dQ row is never stored
+  float row_lse[4], row_delta[4];
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    const int row = q0 + tq + j;
+    row_lse[j] = row < L ? lse[(size_t)bh * L + row] : 0.f;
+    row_delta[j] = row < L ? delta[(size_t)bh * L + row] : 0.f;
+  }
+  float acc[8][kCols], s[4][4], dp[4][4];
+#pragma unroll
+  for (int r = 0; r < 8; ++r)
+#pragma unroll
+    for (int c = 0; c < kCols; ++c) acc[r][c] = 0.f;
+
+  for (int step = 0; step < n_steps; ++step) {
+    sm90::cp_async_wait<kF32Ahead - 1>();  // this step's group has landed
+    __syncthreads();  // for every thread; all are done with the last step
+    load_step(step + kF32Ahead);
+    const int it = step / per, blk = step - it * per;
+    if (blk < nb) {
+      // S (+)= Q K^T and dP (+)= dO V^T over this block's 32 columns
+      const float* stage = sRing + (it * nb + blk) % kF32Ring * kF32Stage;
+      if (blk == 0) {
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+#pragma unroll
+          for (int i = 0; i < 4; ++i) s[j][i] = dp[j][i] = 0.f;
+      }
+      simt::f32_tile_product<1, 16>(s, stage + tq * kF32Row,
+                                    stage + (kTile + tk) * kF32Row);
+      simt::f32_tile_product<1, 16>(dp, stage + (2 * kTile + tq) * kF32Row,
+                                    stage + (3 * kTile + tk) * kF32Row);
+      continue;
+    }
+
+    // dS^T = (P (dP - delta) scale)^T into shared memory, P = exp(scale s -
+    // lse) masked where the k tile crosses the diagonal or the end of the
+    // sequence
+    const int k0 = (it0 + it) * kTile;
+    const bool edge = (causal && k0 + kTile > q0) || k0 + kTile > L;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        float p = expf(s[j][i] * scale - row_lse[j]);
+        if (edge) {
+          const int key = k0 + tk + 16 * i;
+          if (key >= L || (causal && key > q0 + tq + j)) p = 0.f;
+        }
+        s[j][i] = p * (dp[j][i] - row_delta[j]) * scale;
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      *reinterpret_cast<float4*>(sDS + (tk + 16 * i) * kF32PRow + tq) =
+          make_float4(s[0][i], s[1][i], s[2][i], s[3][i]);
+    __syncthreads();
+
+    // dQ[:, chunk] += dS K[:, chunk]
+    if (has_cols)
+      simt::f32_rows_product<kCols>(acc, sDS + pq, kF32PRow, sK + pc,
+                                    kMmaChunk);
+  }
+  if (!has_cols) return;
+
+  // rows pq .. pq + 7 of the q tile, columns c0 + pc (and c0 + pc + 32):
+  // into dQ, or into this slab's partial
+  float* out = slabs == 1 ? dq + (size_t)bh * L * D
+                          : part + ((size_t)slab * heads + bh) * L * D;
+#pragma unroll
+  for (int r = 0; r < 8; ++r) {
+    const int row = q0 + pq + r;
+    if (row >= L) break;
+#pragma unroll
+    for (int h = 0; h < kCols / 4; ++h) {
+      const int col = c0 + pc + 32 * h;
+      if (col < D)
+        *reinterpret_cast<float4*>(out + (size_t)row * D + col) =
+            make_float4(acc[r][4 * h], acc[r][4 * h + 1], acc[r][4 * h + 2],
+                        acc[r][4 * h + 3]);
+    }
   }
 }
 
@@ -1638,39 +1506,14 @@ int prepare(Kernel kernel, size_t smem) {
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
 }
 
-template <int D>
-int launch_dq_simt(const Args& a) {
-  const size_t smem = dq_simt_smem_bytes<D>();
-  if (int err = prepare(flash_bwd_dq_simt_kernel<D>, smem)) return err;
-  const dim3 grid((a.L + kTile - 1) / kTile, a.B * a.Hq);
-  flash_bwd_dq_simt_kernel<D><<<grid, kThreads, smem, a.stream>>>(
-      static_cast<const float*>(a.q), static_cast<const float*>(a.k),
-      static_cast<const float*>(a.v), static_cast<const float*>(a.dout),
-      a.lse, a.delta, static_cast<float*>(a.out0), a.Hq, a.Hkv, a.L, a.scale,
-      a.causal);
-  return (int)cudaGetLastError();
-}
-
-template <int D>
-int launch_dkv_simt(const Args& a) {
-  const size_t smem = dkv_simt_smem_bytes<D>();
-  if (int err = prepare(flash_bwd_dkv_simt_kernel<D>, smem)) return err;
-  const dim3 grid((a.L + kTile - 1) / kTile, a.B * a.Hkv);
-  flash_bwd_dkv_simt_kernel<D><<<grid, kThreads, smem, a.stream>>>(
-      static_cast<const float*>(a.q), static_cast<const float*>(a.k),
-      static_cast<const float*>(a.v), static_cast<const float*>(a.dout),
-      a.lse, a.delta, static_cast<float*>(a.out0),
-      static_cast<float*>(a.out1), a.Hq, a.Hkv, a.L, a.scale, a.causal);
-  return (int)cudaGetLastError();
-}
-
 // one block per (tile, head): tile-major, so the tile rank is the slow index
 template <typename T, int D>
 int launch_dq_mma(const Args& a) {
   const size_t smem = dq_mma_smem_bytes<D>();
   if (int err = prepare(flash_bwd_dq_mma_kernel<T, D>, smem)) return err;
-  const int grid = (a.L + kTile - 1) / kTile * a.B * a.Hq;
-  flash_bwd_dq_mma_kernel<T, D><<<grid, kMmaThreads, smem, a.stream>>>(
+  const long long grid = (long long)((a.L + kTile - 1) / kTile) * a.B * a.Hq;
+  if (grid > INT_MAX) return -1;
+  flash_bwd_dq_mma_kernel<T, D><<<(int)grid, kMmaThreads, smem, a.stream>>>(
       static_cast<const T*>(a.q), static_cast<const T*>(a.k),
       static_cast<const T*>(a.v), static_cast<const T*>(a.dout), a.lse,
       a.delta, static_cast<T*>(a.out0), a.Hq, a.Hkv, a.L, a.scale, a.causal);
@@ -1682,9 +1525,11 @@ int launch_dkv_mma(const Args& a) {
   const size_t smem = dkv_mma_smem_bytes<D>();
   if (int err = prepare(flash_bwd_dkv_mma_kernel<T, D, kParts>, smem))
     return err;
-  const int grid = (a.L + kTile - 1) / kTile * a.B * a.Hkv;
+  const long long grid =
+      (long long)((a.L + kTile - 1) / kTile) * a.B * a.Hkv;
+  if (grid > INT_MAX) return -1;
   flash_bwd_dkv_mma_kernel<T, D, kParts>
-      <<<grid, kMmaThreads, smem, a.stream>>>(
+      <<<(int)grid, kMmaThreads, smem, a.stream>>>(
           static_cast<const T*>(a.q), static_cast<const T*>(a.k),
           static_cast<const T*>(a.v), static_cast<const T*>(a.dout), a.lse,
           a.delta, static_cast<T*>(a.out0), static_cast<T*>(a.out1), a.Hq,
@@ -1712,17 +1557,11 @@ int launch_mma(const Args& a, int D, bool dq, int parts) {
   return -1;
 }
 
-// dtype: 0 = float32 (SIMT; D in {64, 128}), 1 = float16, 2 = bfloat16
-// (tensor cores; D in {64, 128, 256}); parts (K3 only): kDk | kDv at D = 64
-// and 128, kDv or kDk at D = 256
+// dtype: 1 = float16, 2 = bfloat16 (tensor cores; D in {64, 128, 256});
+// parts (K3 only): kDk | kDv at D = 64 and 128, kDv or kDk at D = 256
 int dispatch(const Args& a, int D, int dtype, bool dq, int parts) {
   if (a.B < 1 || a.Hkv < 1 || a.Hq % a.Hkv != 0 || a.L < 1) return -1;
   switch (dtype) {
-    case 0:
-      if (D != 64 && D != 128) return -1;
-      if (dq) return D == 64 ? launch_dq_simt<64>(a) : launch_dq_simt<128>(a);
-      if (parts != (kDk | kDv)) return -1;
-      return D == 64 ? launch_dkv_simt<64>(a) : launch_dkv_simt<128>(a);
     case 1:
       return launch_mma<__half>(a, D, dq, parts);
     case 2:
@@ -1732,17 +1571,22 @@ int dispatch(const Args& a, int D, int dtype, bool dq, int parts) {
   }
 }
 
-int launch_dq_general(const Args& a, int D) {
-  const int tiles = (a.L + kTile - 1) / kTile;
-  const int chunks = (D + kChunk - 1) / kChunk;
-  const size_t smem = dq_general_smem_bytes();
-  if (int err = prepare(flash_bwd_dq_general_kernel, smem)) return err;
-  flash_bwd_dq_general_kernel<<<dim3(tiles, a.B * a.Hq, chunks), kThreads,
-                                smem, a.stream>>>(
+// one block per (q tile, slab, chunk, head): tile-major, so the tile rank
+// is the slow index
+int launch_dq_f32(const Args& a, int D, float* part, int per_slab,
+                  int slabs) {
+  const auto kernel = D <= kNarrowD ? flash_bwd_dq_f32_kernel<true>
+                                    : flash_bwd_dq_f32_kernel<false>;
+  const size_t smem = dq_f32_smem_bytes();
+  if (int err = prepare(kernel, smem)) return err;
+  const long long grid = (long long)((a.L + kTile - 1) / kTile) * slabs *
+                         ((D + kMmaChunk - 1) / kMmaChunk) * a.B * a.Hq;
+  if (grid > INT_MAX) return -1;
+  kernel<<<(int)grid, kF32Threads, smem, a.stream>>>(
       static_cast<const float*>(a.q), static_cast<const float*>(a.k),
       static_cast<const float*>(a.v), static_cast<const float*>(a.dout),
-      a.lse, a.delta, static_cast<float*>(a.out0), a.Hq, a.Hkv, a.L, D,
-      a.scale, a.causal);
+      a.lse, a.delta, static_cast<float*>(a.out0), part, a.Hq, a.Hkv, a.L, D,
+      a.scale, a.causal, per_slab, slabs);
   return (int)cudaGetLastError();
 }
 
@@ -1750,17 +1594,33 @@ int launch_dq_general(const Args& a, int D) {
 // tile rank is the slow index
 int launch_dkv_general(const Args& a, int D, float* part, int per_slab,
                        int slabs) {
+  const auto kernel = D <= kNarrowD ? flash_bwd_dkv_general_kernel<true>
+                                    : flash_bwd_dkv_general_kernel<false>;
   const size_t smem = dkv_general_smem_bytes();
-  if (int err = prepare(flash_bwd_dkv_general_kernel, smem)) return err;
+  if (int err = prepare(kernel, smem)) return err;
   const long long grid = (long long)((a.L + kTile - 1) / kTile) * slabs * 2 *
                          ((D + kMmaChunk - 1) / kMmaChunk) * a.B * a.Hkv;
   if (grid > INT_MAX) return -1;
-  flash_bwd_dkv_general_kernel<<<(int)grid, kF32Threads, smem, a.stream>>>(
+  kernel<<<(int)grid, kF32Threads, smem, a.stream>>>(
       static_cast<const float*>(a.q), static_cast<const float*>(a.k),
       static_cast<const float*>(a.v), static_cast<const float*>(a.dout),
       a.lse, a.delta, static_cast<float*>(a.out0),
       static_cast<float*>(a.out1), part, a.Hq, a.Hkv, a.L, D, a.scale,
       a.causal, per_slab, slabs);
+  return (int)cudaGetLastError();
+}
+
+// the split sum over (slabs, outs, heads, L, D) partials (see its kernel)
+int launch_split_sum(const void* part, void* out0, void* out1, int outs,
+                     int heads, int L, int D, int G, int causal,
+                     int last_longest, int per_slab, cudaStream_t stream) {
+  const long long float4s = (long long)outs * heads * L * D / 4;
+  const int grid = (int)std::min<long long>(
+      (float4s + kF32Threads - 1) / kF32Threads, 16384);
+  flash_bwd_split_sum_kernel<<<grid, kF32Threads, 0, stream>>>(
+      static_cast<const float4*>(part), static_cast<float4*>(out0),
+      static_cast<float4*>(out1), outs, heads, L, D, G, causal, last_longest,
+      per_slab);
   return (int)cudaGetLastError();
 }
 
@@ -1812,11 +1672,12 @@ bool mma_head_dim_ok(int D) { return D % kBlock == 0 && D / kBlock >= kAhead; }
 
 extern "C" {
 
-// K2. Returns 0 on success, the cudaError_t of a refused launch, or -1 for
+// K2 on tensor cores in bf16 (dtype 2) or fp16 (1), D in {64, 128, 256}.
+// Returns 0 on success, the cudaError_t of a refused launch, or -1 for
 // arguments the kernel does not take (the Python wrapper checks them first).
 // lse and delta are (B, Hq, L) fp32; q, dout and dq are (B, Hq, L, D);
-// k and v are (B, Hkv, L, D); all contiguous, and for bf16/fp16 the
-// (B, H, L, D) tensors 16-byte aligned.
+// k and v are (B, Hkv, L, D); all contiguous, and the (B, H, L, D) tensors
+// 16-byte aligned.
 int metisfl_flash_bwd_dq(const void* q, const void* k, const void* v,
                          const void* dout, const void* lse, const void* delta,
                          void* dq, int B, int Hq, int Hkv, int L, int D,
@@ -1841,18 +1702,39 @@ int metisfl_flash_bwd_dkv(const void* q, const void* k, const void* v,
   return dispatch(a, D, dtype, false, parts);
 }
 
-// K2 in fp32 (dtype 0) at any head dim D >= 1 (SIMT, one block per
-// 64-column chunk of dQ), with K2's arguments; no alignment is needed.
+// K2 in fp32 (dtype 0), register-tiled, at any head dim D that is a
+// multiple of 32 and at least 64 (the wrapper zero-pads to one), with K2's
+// arguments and the split: each q tile's k tiles are cut into slabs of
+// per_slab (slabs for the longest tile). slabs = 1 writes dq; slabs > 1
+// writes fp32 partials into part, (slabs, B * Hq, L, D), which
+// metisfl_flash_bwd_dq_split_sum then sums. The (B, H, L, D) tensors
+// contiguous and 16-byte aligned.
 int metisfl_flash_bwd_dq_general(const void* q, const void* k, const void* v,
                                  const void* dout, const void* lse,
-                                 const void* delta, void* dq, int B, int Hq,
-                                 int Hkv, int L, int D, int dtype, int causal,
-                                 float scale, void* stream) {
-  if (!general_shape_ok(B, Hq, Hkv, L, D) || dtype != 0) return -1;
+                                 const void* delta, void* dq, void* part,
+                                 int B, int Hq, int Hkv, int L, int D,
+                                 int dtype, int causal, int per_slab,
+                                 int slabs, float scale, void* stream) {
+  if (!general_shape_ok(B, Hq, Hkv, L, D) || dtype != 0 ||
+      D % kF32Block != 0 || D / kF32Block < kF32Ahead || per_slab < 1 ||
+      slabs < 1 || (slabs > 1 && part == nullptr))
+    return -1;
   const Args a{q, k, v, dout, static_cast<const float*>(lse),
                static_cast<const float*>(delta), dq, nullptr, B, Hq, Hkv, L,
                scale, causal, static_cast<cudaStream_t>(stream)};
-  return launch_dq_general(a, D);
+  return launch_dq_f32(a, D, static_cast<float*>(part), per_slab, slabs);
+}
+
+// The second launch of a split fp32 K2: dq (B, Hq, L, D) from the partials
+// of metisfl_flash_bwd_dq_general with the same shapes, causal and
+// per_slab; D a multiple of 4, every tensor 16-byte aligned.
+int metisfl_flash_bwd_dq_split_sum(const void* part, void* dq, int B, int Hq,
+                                   int L, int D, int causal, int per_slab,
+                                   void* stream) {
+  if (B < 1 || Hq < 1 || L < 1 || D < 4 || D % 4 != 0 || per_slab < 1)
+    return -1;
+  return launch_split_sum(part, dq, nullptr, 1, B * Hq, L, D, 1, causal, 1,
+                          per_slab, static_cast<cudaStream_t>(stream));
 }
 
 // K3 in fp32 (dtype 0) at any head dim D that is a multiple of 32 and at
@@ -1888,14 +1770,9 @@ int metisfl_flash_bwd_dkv_split_sum(const void* part, void* dk, void* dv,
                                     int causal, int per_slab, void* stream) {
   if (!general_shape_ok(B, Hq, Hkv, L, D) || D % 4 != 0 || per_slab < 1)
     return -1;
-  const long long float4s = 2LL * B * Hkv * L * D / 4;
-  const int grid = (int)std::min<long long>(
-      (float4s + kF32Threads - 1) / kF32Threads, 16384);
-  flash_bwd_dkv_split_sum_kernel<<<grid, kF32Threads, 0,
-                                   static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float4*>(part), static_cast<float4*>(dk),
-      static_cast<float4*>(dv), B * Hkv, L, D, Hq / Hkv, causal, per_slab);
-  return (int)cudaGetLastError();
+  // outputs in the partials' order: dV at 0, dK at 1
+  return launch_split_sum(part, dv, dk, 2, B * Hkv, L, D, Hq / Hkv, causal, 0,
+                          per_slab, static_cast<cudaStream_t>(stream));
 }
 
 // K3 on tensor cores in bf16 (dtype 2) or fp16 (1) at any head dim D that

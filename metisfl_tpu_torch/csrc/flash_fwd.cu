@@ -854,8 +854,9 @@ template <typename T, int D>
 int launch_mma(const Args& a) {
   const size_t smem = mma_smem_bytes<D>();
   if (int err = prepare(flash_fwd_mma_kernel<T, D>, smem)) return err;
-  const int grid = (a.L + kTile - 1) / kTile * a.B * a.Hq;
-  flash_fwd_mma_kernel<T, D><<<grid, kMmaThreads, smem, a.stream>>>(
+  const long long grid = (long long)((a.L + kTile - 1) / kTile) * a.B * a.Hq;
+  if (grid > INT_MAX) return -1;
+  flash_fwd_mma_kernel<T, D><<<(int)grid, kMmaThreads, smem, a.stream>>>(
       static_cast<const T*>(a.q), static_cast<const T*>(a.k),
       static_cast<const T*>(a.v), static_cast<T*>(a.o), a.lse, a.Hq, a.Hkv,
       a.L, a.scale, a.causal);

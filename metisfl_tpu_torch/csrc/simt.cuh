@@ -1,9 +1,8 @@
-// SIMT building blocks of the port's fp32 kernels beyond the builds (any D),
-// shared by the sources in this directory: the staging of a chunk of 64
-// columns of a row-major (L, D) fp32 matrix into a tile in shared memory
-// (the general K2), and the register-tiled kernels' 32-column blocks,
-// copied by cp.async, and their 4 x 4 outer-product tiles (the fp32 K1 in
-// flash_fwd.cu, the fp32 K3 in flash_bwd.cu).
+// SIMT building blocks of the port's register-tiled fp32 kernels, shared by
+// the sources in this directory: 32-column blocks of a row-major (L, D)
+// fp32 matrix copied by cp.async into shared memory, 4 x 4 outer-product
+// tiles over them (the fp32 K1 in flash_fwd.cu, the fp32 K2 and K3 in
+// flash_bwd.cu), and the 8-row product tiles of K2 and K3.
 
 #pragma once
 
@@ -12,23 +11,6 @@
 #include "sm90.cuh"
 
 namespace simt {
-
-constexpr int kChunk = 64;  // D columns staged at a time, and per output
-
-// rows [r0, r0 + ROWS) and columns [c0, c0 + kChunk) of a row-major (L, D)
-// matrix into a tile with rows padded to kChunk + 1 floats (the lanes of a
-// row and the rows of a warp then fall in distinct banks); what lies past L
-// or D is zero. Neighbouring threads read neighbouring columns.
-template <int ROWS, int THREADS>
-__device__ __forceinline__ void load_chunk(float* dst, const float* src,
-                                           int r0, int L, int c0, int D) {
-  for (int i = threadIdx.x; i < ROWS * kChunk; i += THREADS) {
-    const int r = i / kChunk, d = i % kChunk;
-    const int g = r0 + r, col = c0 + d;
-    dst[r * (kChunk + 1) + d] =
-        g < L && col < D ? src[(size_t)g * D + col] : 0.f;
-  }
-}
 
 // The register-tiled fp32 kernels: blocks of 256 threads stream 64-row,
 // 32-column blocks of their (L, D) inputs (D a multiple of 32) through a
@@ -84,6 +66,42 @@ __device__ __forceinline__ void f32_tile_product(float (&acc)[4][4],
         acc[i][j] = fmaf(x[i].z, y[j].z, acc[i][j]);
         acc[i][j] = fmaf(x[i].w, y[j].w, acc[i][j]);
       }
+  }
+}
+
+// acc[r][c] += sum over the kF32Rows rows k of a[k][r] b[k][c]: the 8 x
+// kCols product tile of a thread over two row-major blocks in shared memory
+// (the fp32 K2's dQ += dS K, the fp32 K3's dV += P^T dO and dK += dS^T Q).
+// a points at the thread's 8 values in row 0 (rows of a_ld floats), b at
+// its first column in row 0 (rows of b_ld floats); the thread's columns
+// are 0..3 and, for kCols = 8, 32..35, so that one 16-byte load of a warp
+// reads 8 neighbouring pieces of one row. Per row two 16-byte loads of a
+// and kCols / 4 of b feed 8 kCols FMAs.
+template <int kCols>
+__device__ __forceinline__ void f32_rows_product(float (&acc)[8][kCols],
+                                                 const float* a, int a_ld,
+                                                 const float* b, int b_ld) {
+  static_assert(kCols == 4 || kCols == 8, "4 or 8 columns a thread");
+#pragma unroll 4
+  for (int k = 0; k < kF32Rows; ++k) {
+    const float4 a0 = *reinterpret_cast<const float4*>(a + k * a_ld);
+    const float4 a1 = *reinterpret_cast<const float4*>(a + k * a_ld + 4);
+    const float ar[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
+    float br[kCols];
+#pragma unroll
+    for (int h = 0; h < kCols / 4; ++h) {
+      const float4 x =
+          *reinterpret_cast<const float4*>(b + k * b_ld + 32 * h);
+      br[4 * h] = x.x;
+      br[4 * h + 1] = x.y;
+      br[4 * h + 2] = x.z;
+      br[4 * h + 3] = x.w;
+    }
+#pragma unroll
+    for (int r = 0; r < 8; ++r)
+#pragma unroll
+      for (int c = 0; c < kCols; ++c)
+        acc[r][c] = fmaf(ar[r], br[c], acc[r][c]);
   }
 }
 

@@ -26,15 +26,15 @@ The Pallas kernels take any D, since their blocks span the whole head, and
 so do the wrappers. Which kernel takes which (dtype, D) is
 :func:`kernel_route`'s answer, a pure function of both:
 
-- the tuned kernels, built for a few head dims: K1 for 64, 128 and 256 in
-  bf16/fp16; K2 and K3 for 64, 128 and 256 in bf16/fp16 and for 64 and 128
-  in fp32 (K3 at D = 256 launches twice, once for dV and once for dK, since
-  dK and dV of its 64-row tile would take 256 fp32 registers a thread). Up
-  to the largest, the wrappers zero-pad q, k, v (and dO) along D to the
-  next built head dim, launch with the true D's scale, and slice O, dQ, dK
-  and dV back to D. That is exact: padded columns add 0 to Q·Kᵀ and to
-  dO·Vᵀ, and padded V, dO, Q and K columns only give output columns that
-  are sliced off. A built head dim makes no copy.
+- the tuned kernels, built for a few head dims in bf16/fp16: K1, K2 and
+  K3 for 64, 128 and 256 (K3 at D = 256 launches twice, once for dV and
+  once for dK, since dK and dV of its 64-row tile would take 256 fp32
+  registers a thread). Up to the largest, the wrappers zero-pad q, k, v
+  (and dO) along D to the next built head dim, launch with the true D's
+  scale, and slice O, dQ, dK and dV back to D. That is exact: padded
+  columns add 0 to Q·Kᵀ and to dO·Vᵀ, and padded V, dO, Q and K columns
+  only give output columns that are sliced off. A built head dim makes no
+  copy.
 - beyond the builds in bf16/fp16, K1, K2 and K3 run on the general
   tensor-core kernels (:func:`flash_fwd_general_mma`,
   :func:`flash_bwd_dq_general_mma`, :func:`flash_bwd_dkv_general_mma`),
@@ -42,23 +42,18 @@ so do the wrappers. Which kernel takes which (dtype, D) is
   and give the grid an axis over 256-column chunks of the output (K3 also
   one over its two outputs); the wrappers zero-pad D to a multiple of 64
   the same way.
-- K1 in fp32, at every D, and K3 in fp32 beyond its builds (D > 128, whose
-  tuned SIMT tiles would need more than the 227 KB of shared memory a
-  block may use) run on register-tiled SIMT kernels
-  (:func:`flash_fwd_general`, :func:`flash_bwd_dkv_general`; D
-  zero-padded to a multiple of 32), with a 256-column chunk axis (K3 also
-  one over its two outputs), which cut long tiles into slabs across blocks
-  (:func:`fwd_split`, :func:`dkv_split`) and merge or sum their fp32
-  partials in a second launch (:func:`flash_fwd_split_combine`,
+- in fp32, K1, K2 and K3 run at every D on register-tiled SIMT kernels
+  (:func:`flash_fwd_general`, :func:`flash_bwd_dq_general`,
+  :func:`flash_bwd_dkv_general`; D zero-padded to a multiple of 32, at
+  least 64), with a 256-column chunk axis (K3 also one over its two
+  outputs), which cut long tiles into slabs across blocks
+  (:func:`fwd_split`, :func:`dq_split`, :func:`dkv_split`) and merge or
+  sum their fp32 partials in a second launch
+  (:func:`flash_fwd_split_combine`, :func:`flash_bwd_dq_split_sum`,
   :func:`flash_bwd_dkv_split_sum`).
-- the rest, K2 in fp32 beyond its builds (D > 128), runs on the general
-  SIMT kernel, one block per 64-column chunk of dQ and no padding
-  (:func:`flash_bwd_dq_general`).
 
-Each wrapper counts its own launches. The SIMT kernels carry b * H in
-gridDim.y, which stops at 65535, so the wrappers of the tuned kernels, of
-the general tensor-core kernels and of the general SIMT K2 launch in batch
-chunks of at most 65535 // H batches.
+Each wrapper counts its own launches. Every kernel runs on a 1-D grid
+that carries b * H, so any head count launches at once.
 :func:`flash_attention` is differentiable: its autograd Function runs K1
 forward and K2/K3 backward, as the JAX package's custom VJP does.
 """
@@ -74,22 +69,17 @@ import torch
 
 _NEG = -1e30
 _DTYPE_CODES = {torch.float32: 0, torch.float16: 1, torch.bfloat16: 2}
-# the head dims each tuned kernel is instantiated for (K1: bf16/fp16 only);
-# a smaller D is padded, a larger one goes to the general kernels
+# the head dims each tuned kernel is instantiated for (bf16/fp16 only); a
+# smaller D is padded, a larger one goes to the general kernels
 _FWD_HEAD_DIMS = (64, 128, 256)
 _BWD_HEAD_DIMS = (64, 128, 256)
-_BWD_HEAD_DIMS_FP32 = (64, 128)
-# gridDim.y of the SIMT kernels carries b * H
-_MAX_GRID_Y = 65535
-# output columns of one block of the general kernels: the SIMT K2's
-# 64-column chunks, the tensor-core kernels' and the fp32 K1's and K3's 256
-# (their fp32 accumulator)
-_SIMT_CHUNK = 64
+# output columns of one block of the general kernels: the tensor-core
+# kernels' and the fp32 kernels' 256 (their fp32 accumulator)
 _MMA_CHUNK = 256
-# rows of a q or k tile (and of a q step) of the register-tiled fp32 K1 and
-# K3
+# rows of a q or k tile (and of a q step) of the register-tiled fp32
+# kernels
 _KV_TILE = 64
-# blocks per SM that the fp32 K1's and K3's splits aim their grids at (one
+# blocks per SM that the fp32 kernels' splits aim their grids at (one
 # block fits an SM at a time: several per SM let the longest-first order
 # even them out; on the H100, 8 beat 2 and 4 and matched 16 for K3,
 # PERF.md)
@@ -237,8 +227,9 @@ def _delta(o: torch.Tensor, do: torch.Tensor) -> torch.Tensor:
 
 
 def bwd_head_dims(dtype: torch.dtype) -> Tuple[int, ...]:
-    """The head dims K2 and K3 are built for in ``dtype``."""
-    return _BWD_HEAD_DIMS_FP32 if dtype == torch.float32 else _BWD_HEAD_DIMS
+    """The head dims K2 and K3 are built for in ``dtype``: none in fp32,
+    whose register-tiled kernels take every D."""
+    return () if dtype == torch.float32 else _BWD_HEAD_DIMS
 
 
 def kernel_head_dim(D: int, head_dims) -> Optional[int]:
@@ -255,10 +246,9 @@ def mma_head_dim(D: int) -> int:
 
 
 def f32_head_dim(D: int) -> int:
-    """The head dim the register-tiled fp32 kernels (K1 at every D, K3
-    beyond its builds) run D at: the next multiple of 32 (the width of
-    their streamed block), and at least 64 (two blocks, as
-    :func:`mma_head_dim`)."""
+    """The head dim the register-tiled fp32 kernels (K1, K2 and K3, at
+    every D) run D at: the next multiple of 32 (the width of their streamed
+    block), and at least 64 (two blocks, as :func:`mma_head_dim`)."""
     return max(64, -(-D // 32) * 32)
 
 
@@ -267,6 +257,12 @@ def _slab_steps(L: int, group: int, causal: bool):
     64-row k tile of the fp32 K3: every q tile, or from the diagonal on."""
     nk = -(-L // _KV_TILE)
     return [group * (nk - (t if causal else 0)) for t in range(nk)]
+
+
+def _slab_rows(counts, L: int, device) -> torch.Tensor:
+    """The slabs each of L rows has, from its 64-row tile's count."""
+    return torch.tensor(counts, device=device).repeat_interleave(
+        _KV_TILE)[:L]
 
 
 def dkv_split(B: int, Hq: int, Hkv: int, L: int, D: int, causal: bool,
@@ -318,6 +314,18 @@ def fwd_split(B: int, Hq: int, L: int, D: int, causal: bool,
     return per_slab, -(-longest // per_slab)
 
 
+def dq_split(B: int, Hq: int, L: int, D: int, causal: bool,
+             sms: int) -> Tuple[int, int]:
+    """``(per_slab, slabs)`` of the fp32 K2 at these shapes (D its padded
+    head dim) on a card of ``sms`` SMs. Its q tiles walk the k tiles that
+    the fp32 K1's do, one block per (q tile, 256-column chunk, head), so it
+    takes :func:`fwd_split`'s rule: unsplit where those blocks fill the
+    card, else slabs of ``per_slab`` k tiles whose partials
+    :func:`flash_bwd_dq_split_sum` adds up. A pure function of its
+    arguments."""
+    return fwd_split(B, Hq, L, D, causal, sms)
+
+
 class Route(NamedTuple):
     """The kernel that a CUDA tensor's call launches."""
 
@@ -342,16 +350,15 @@ _WRAPPERS = {
 def kernel_route(kernel: str, dtype: torch.dtype, D: int) -> Route:
     """Which kernel ``kernel`` ("fwd" for K1, "dq" for K2, "dkv" for K3)
     launches on a CUDA tensor of ``dtype`` at head dim ``D``: a pure
-    function of the two, and the one the wrappers route by. K1 in fp32 at
-    every D: its register-tiled kernel (padded to :func:`f32_head_dim`,
-    256-column chunks). Otherwise a tuned build where D fits one (padded to
-    it); beyond, in bf16/fp16, the general tensor-core kernels (padded to
-    :func:`mma_head_dim`); in fp32, K3 on its register-tiled kernel (padded
-    to :func:`f32_head_dim`, 256-column chunks, two passes) and K2 on the
-    general SIMT kernel (unpadded)."""
+    function of the two, and the one the wrappers route by. In fp32, at
+    every D, each kernel's register-tiled kernel (padded to
+    :func:`f32_head_dim`, 256-column chunks; K3 in two passes, dV and dK).
+    In bf16/fp16 a tuned build where D fits one (padded to it), beyond
+    them the general tensor-core kernels (padded to
+    :func:`mma_head_dim`)."""
     tuned, general, mma = _WRAPPERS[kernel]
     passes = 2 if kernel == "dkv" else 1
-    if kernel == "fwd" and dtype == torch.float32:
+    if dtype == torch.float32:
         Dp = f32_head_dim(D)
         return Route(general, Dp, -(-Dp // _MMA_CHUNK), passes)
     builds = _FWD_HEAD_DIMS if kernel == "fwd" else bwd_head_dims(dtype)
@@ -359,13 +366,8 @@ def kernel_route(kernel: str, dtype: torch.dtype, D: int) -> Route:
     if built is not None:
         return Route(tuned, built, 1,
                      2 if kernel == "dkv" and built == 256 else 1)
-    if dtype != torch.float32:
-        Dp = mma_head_dim(D)
-        return Route(mma, Dp, -(-Dp // _MMA_CHUNK), passes)
-    if kernel == "dkv":
-        Dp = f32_head_dim(D)
-        return Route(general, Dp, -(-Dp // _MMA_CHUNK), passes)
-    return Route(general, D, -(-D // _SIMT_CHUNK), 1)
+    Dp = mma_head_dim(D)
+    return Route(mma, Dp, -(-Dp // _MMA_CHUNK), passes)
 
 
 def _check_cuda_inputs(q, k, v, **same_as_q):
@@ -395,7 +397,7 @@ def _check_cuda_inputs(q, k, v, **same_as_q):
                          f"{tuple(q.shape)} in batch, length or head dim")
     if D < 1:
         raise ValueError(f"flash kernel takes head_dim >= 1, got {D}")
-    if L < 1 or B < 1 or Hq > _MAX_GRID_Y:
+    if L < 1 or B < 1:
         raise ValueError(f"shape {tuple(q.shape)} is outside the kernel's "
                          "grid")
 
@@ -413,12 +415,6 @@ def pad_head_dim(*tensors: torch.Tensor, head_dims: Tuple[int, ...]):
         return Dk, tensors
     return Dk, tuple(torch.nn.functional.pad(t, (0, Dk - D))
                      for t in tensors)
-
-
-def _batch_chunks(B: int, H: int):
-    """[b0, b1) batch ranges whose b * H fits gridDim.y."""
-    step = _MAX_GRID_Y // H
-    return [(b0, min(B, b0 + step)) for b0 in range(0, B, step)]
 
 
 # the dtypes of the tensor-core kernels
@@ -469,8 +465,10 @@ _SIGNATURES = {
     "flash_bwd": {
         "metisfl_flash_bwd_dq": [_PTR] * 7 + [_INT] * 7 + [_FLOAT, _PTR],
         "metisfl_flash_bwd_dkv": [_PTR] * 8 + [_INT] * 8 + [_FLOAT, _PTR],
-        "metisfl_flash_bwd_dq_general": [_PTR] * 7 + [_INT] * 7
+        "metisfl_flash_bwd_dq_general": [_PTR] * 8 + [_INT] * 9
         + [_FLOAT, _PTR],
+        "metisfl_flash_bwd_dq_split_sum": [_PTR] * 2 + [_INT] * 6
+        + [_PTR],
         "metisfl_flash_bwd_dkv_general": [_PTR] * 9 + [_INT] * 9
         + [_FLOAT, _PTR],
         "metisfl_flash_bwd_dkv_split_sum": [_PTR] * 3 + [_INT] * 7
@@ -552,7 +550,7 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     goes to :func:`flash_fwd_general_mma`. fp32 goes, at every D, to the
     register-tiled :func:`flash_fwd_general` (:func:`kernel_route`).
     ``flash_attention_fwd.launches`` counts this kernel's launches (one per
-    batch chunk)."""
+    call)."""
     if not _on_cuda(q):
         return flash_attention_fwd_reference(q, k, v, causal)
     _check_cuda_inputs(q, k, v)
@@ -567,12 +565,9 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     _check_aligned(q=q, k=k, v=v)
     o = torch.empty_like(q)
     lse = torch.empty((B, Hq, L), dtype=torch.float32, device=q.device)
-    for b0, b1 in _batch_chunks(B, Hq):
-        _launch("flash_fwd", "metisfl_flash_fwd", flash_attention_fwd,
-                q.device, q[b0:b1].data_ptr(), k[b0:b1].data_ptr(),
-                v[b0:b1].data_ptr(), o[b0:b1].data_ptr(),
-                lse[b0:b1].data_ptr(),
-                *_shape_args(q[b0:b1], k, causal, scale))
+    _launch("flash_fwd", "metisfl_flash_fwd", flash_attention_fwd, q.device,
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+            lse.data_ptr(), *_shape_args(q, k, causal, scale))
     if Dk != D:
         o = o[..., :D].contiguous()
     return o, lse
@@ -645,9 +640,8 @@ def fwd_split_combine_reference(o_part: torch.Tensor, m_part: torch.Tensor,
     l = Σ l_s·e^(m_s − m), o = Σ o_s·e^(m_s − m) / l (0 where l = 0), lse =
     m + log l. The rest of the partials is never read."""
     L = o_part.shape[3]
-    counts = torch.tensor([-(-n // per_slab) for n in _fwd_slab_steps(
-        L, causal)], device=o_part.device)
-    rows = counts.repeat_interleave(_KV_TILE)[:L]  # slabs of each row
+    rows = _slab_rows([-(-n // per_slab) for n in _fwd_slab_steps(
+        L, causal)], L, o_part.device)
     m = m_part[0]
     for slab in range(1, o_part.shape[0]):
         m = torch.where(rows > slab, torch.maximum(m, m_part[slab]), m)
@@ -723,8 +717,7 @@ def flash_fwd_general_mma(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     one block per (64-row q tile, 256-column chunk of O, head), with q, k
     and v 16-byte aligned and contiguous, or raise.
     :func:`flash_attention_fwd` routes bf16/fp16 at D > 256 here.
-    ``flash_fwd_general_mma.launches`` counts launches (one per batch
-    chunk)."""
+    ``flash_fwd_general_mma.launches`` counts launches (one per call)."""
     if not _on_cuda(q):
         return flash_attention_fwd_reference(q, k, v, causal)
     _check_cuda_inputs(q, k, v)
@@ -735,12 +728,10 @@ def flash_fwd_general_mma(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     _check_aligned(q=q, k=k, v=v)
     o = torch.empty_like(q)
     lse = torch.empty((B, Hq, L), dtype=torch.float32, device=q.device)
-    for b0, b1 in _batch_chunks(B, Hq):
-        _launch("flash_fwd", "metisfl_flash_fwd_general_mma",
-                flash_fwd_general_mma, q.device, q[b0:b1].data_ptr(),
-                k[b0:b1].data_ptr(), v[b0:b1].data_ptr(),
-                o[b0:b1].data_ptr(), lse[b0:b1].data_ptr(),
-                *_shape_args(q[b0:b1], k, causal, scale))
+    _launch("flash_fwd", "metisfl_flash_fwd_general_mma",
+            flash_fwd_general_mma, q.device, q.data_ptr(), k.data_ptr(),
+            v.data_ptr(), o.data_ptr(), lse.data_ptr(),
+            *_shape_args(q, k, causal, scale))
     if Dk != D:
         o = o[..., :D].contiguous()
     return o, lse
@@ -763,15 +754,15 @@ def flash_bwd_dq(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                  causal: bool = False) -> torch.Tensor:
     """K2 on CUDA tensors: dQ (B, Hq, L, D) in q.dtype from the forward's
     lse and δ = rowsum(dO∘O), both (B, Hq, L) fp32. Launches
-    ``csrc/flash_bwd.cu``'s dQ kernel (tensor cores for bf16/fp16 at
-    D <= 256, SIMT for fp32 at D <= 128; padded to the next built head dim
-    as in the forward, with q, k, v and do 16-byte aligned there) or
-    raises; a larger D goes to :func:`flash_bwd_dq_general_mma` in
-    bf16/fp16 and to :func:`flash_bwd_dq_general` in fp32
-    (:func:`kernel_route`). ``flash_bwd_dq.launches`` counts this kernel's
-    launches (one per batch chunk)."""
+    ``csrc/flash_bwd.cu``'s tensor-core dQ kernel for bf16/fp16 at D <= 256
+    (padded to the next built head dim as in the forward, with q, k, v and
+    do 16-byte aligned there) or raises; a larger D goes to
+    :func:`flash_bwd_dq_general_mma`, and fp32 at every D to
+    :func:`flash_bwd_dq_general` (:func:`kernel_route`).
+    ``flash_bwd_dq.launches`` counts this kernel's launches (one per
+    call)."""
     _bwd_inputs_on_cuda("flash_bwd_dq", q, k, v, do, lse, delta)
-    B, Hq, _, D = q.shape
+    D = q.shape[-1]
     route = kernel_route("dq", q.dtype, D)
     if route.wrapper == "flash_bwd_dq_general_mma":
         return flash_bwd_dq_general_mma(q, k, v, do, lse, delta, causal)
@@ -782,13 +773,10 @@ def flash_bwd_dq(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                                      head_dims=(route.head_dim,))
     _check_aligned(q=q, k=k, v=v, do=do)
     dq = torch.empty_like(q)
-    for b0, b1 in _batch_chunks(B, Hq):
-        _launch("flash_bwd", "metisfl_flash_bwd_dq", flash_bwd_dq, q.device,
-                q[b0:b1].data_ptr(), k[b0:b1].data_ptr(),
-                v[b0:b1].data_ptr(), do[b0:b1].data_ptr(),
-                lse[b0:b1].data_ptr(), delta[b0:b1].data_ptr(),
-                dq[b0:b1].data_ptr(),
-                *_shape_args(q[b0:b1], k, causal, scale))
+    _launch("flash_bwd", "metisfl_flash_bwd_dq", flash_bwd_dq, q.device,
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+            lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
+            *_shape_args(q, k, causal, scale))
     return dq if Dk == D else dq[..., :D].contiguous()
 
 
@@ -801,15 +789,15 @@ def flash_bwd_dkv(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                   ) -> Tuple[torch.Tensor, torch.Tensor]:
     """K3 on CUDA tensors: ``(dk, dv)`` (B, Hkv, L, D), each summed over
     the query heads of its KV group, without atomics (the same bits on
-    every run). Launches ``csrc/flash_bwd.cu``'s dK/dV kernel (tensor cores
-    for bf16/fp16 at D <= 256, SIMT for fp32 at D <= 128; padded as K2) or
-    raises; at D = 256 it launches twice, for dV and then for dK. A larger
-    D goes to :func:`flash_bwd_dkv_general_mma` in bf16/fp16 and to
-    :func:`flash_bwd_dkv_general` in fp32 (:func:`kernel_route`).
-    ``flash_bwd_dkv.launches`` counts this kernel's launches (one per batch
-    chunk and output pass)."""
+    every run). Launches ``csrc/flash_bwd.cu``'s tensor-core dK/dV kernel
+    for bf16/fp16 at D <= 256 (padded as K2) or raises; at D = 256 it
+    launches twice, for dV and then for dK. A larger D goes to
+    :func:`flash_bwd_dkv_general_mma`, and fp32 at every D to
+    :func:`flash_bwd_dkv_general` (:func:`kernel_route`).
+    ``flash_bwd_dkv.launches`` counts this kernel's launches (one per
+    output pass)."""
     _bwd_inputs_on_cuda("flash_bwd_dkv", q, k, v, do, lse, delta)
-    B, Hq, _, D = q.shape
+    D = q.shape[-1]
     route = kernel_route("dkv", q.dtype, D)
     if route.wrapper == "flash_bwd_dkv_general_mma":
         return flash_bwd_dkv_general_mma(q, k, v, do, lse, delta, causal)
@@ -823,15 +811,12 @@ def flash_bwd_dkv(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     dv = torch.empty_like(v)
     # D = 256: one pass for dV, one for dK (K3's registers hold one)
     passes = (_DV, _DK) if route.passes == 2 else (_DV | _DK,)
-    for b0, b1 in _batch_chunks(B, Hq):
-        *shapes, scale_arg = _shape_args(q[b0:b1], k, causal, scale)
-        for parts in passes:
-            _launch("flash_bwd", "metisfl_flash_bwd_dkv", flash_bwd_dkv,
-                    q.device, q[b0:b1].data_ptr(), k[b0:b1].data_ptr(),
-                    v[b0:b1].data_ptr(), do[b0:b1].data_ptr(),
-                    lse[b0:b1].data_ptr(), delta[b0:b1].data_ptr(),
-                    dk[b0:b1].data_ptr(), dv[b0:b1].data_ptr(), *shapes,
-                    parts, scale_arg)
+    *shapes, scale_arg = _shape_args(q, k, causal, scale)
+    for parts in passes:
+        _launch("flash_bwd", "metisfl_flash_bwd_dkv", flash_bwd_dkv, q.device,
+                q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+                lse.data_ptr(), delta.data_ptr(), dk.data_ptr(),
+                dv.data_ptr(), *shapes, parts, scale_arg)
     if Dk != D:
         dk, dv = dk[..., :D].contiguous(), dv[..., :D].contiguous()
     return dk, dv
@@ -845,25 +830,90 @@ def flash_bwd_dq_general(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          delta: torch.Tensor, causal: bool = False
                          ) -> torch.Tensor:
     """K2 in fp32 at any head dim on CUDA tensors, as :func:`flash_bwd_dq`:
-    ``csrc/flash_bwd.cu``'s general SIMT kernel (one block per 64-column
-    chunk of dQ; no padding, no alignment) or raises.
-    :func:`flash_bwd_dq` routes fp32 at D > 128 here.
-    ``flash_bwd_dq_general.launches`` counts launches."""
+    q, k, v and dO zero-padded along D to :func:`f32_head_dim` (exact),
+    then ``csrc/flash_bwd.cu``'s register-tiled SIMT kernel, blocks of one
+    (64-row q tile, slab of its k tiles, 256-column chunk of dQ, head), with
+    the (B, H, L, D) tensors 16-byte aligned; or raises. Where
+    :func:`dq_split` cuts the q tiles' k tiles into more than one slab, the
+    blocks write fp32 partials into a scratch tensor and
+    :func:`flash_bwd_dq_split_sum` adds them up in a fixed order: no
+    atomics, the same bits on every run. :func:`flash_bwd_dq` routes every
+    fp32 D here. ``flash_bwd_dq_general.launches`` counts this kernel's
+    launches (one per call)."""
     _bwd_inputs_on_cuda("flash_bwd_dq_general", q, k, v, do, lse, delta)
     _check_dtype("flash_bwd_dq_general", q, (torch.float32,))
-    B, Hq, _, D = q.shape
+    B, Hq, L, D = q.shape
+    scale = 1.0 / math.sqrt(D)
+    Dk, (q, k, v, do) = pad_head_dim(q, k, v, do,
+                                     head_dims=(f32_head_dim(D),))
+    _check_aligned(q=q, k=k, v=v, do=do)
+    sms = torch.cuda.get_device_properties(q.device).multi_processor_count
+    per_slab, slabs = dq_split(B, Hq, L, Dk, causal, sms)
     dq = torch.empty_like(q)
-    for b0, b1 in _batch_chunks(B, Hq):
-        _launch("flash_bwd", "metisfl_flash_bwd_dq_general",
-                flash_bwd_dq_general, q.device, q[b0:b1].data_ptr(),
-                k[b0:b1].data_ptr(), v[b0:b1].data_ptr(),
-                do[b0:b1].data_ptr(), lse[b0:b1].data_ptr(),
-                delta[b0:b1].data_ptr(), dq[b0:b1].data_ptr(),
-                *_shape_args(q[b0:b1], k, causal, 1.0 / math.sqrt(D)))
-    return dq
+    part = (torch.empty((slabs,) + tuple(q.shape), dtype=torch.float32,
+                        device=q.device) if slabs > 1 else None)
+    *shapes, scale_arg = _shape_args(q, k, causal, scale)
+    _launch("flash_bwd", "metisfl_flash_bwd_dq_general",
+            flash_bwd_dq_general, q.device, q.data_ptr(), k.data_ptr(),
+            v.data_ptr(), do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
+            dq.data_ptr(), None if part is None else part.data_ptr(),
+            *shapes, per_slab, slabs, scale_arg)
+    if part is not None:
+        flash_bwd_dq_split_sum(part, causal, per_slab, out=dq)
+    return dq if Dk == D else dq[..., :D].contiguous()
 
 
 flash_bwd_dq_general.launches = 0
+
+
+def dq_split_sum_reference(part: torch.Tensor, causal: bool,
+                           per_slab: int) -> torch.Tensor:
+    """Plain PyTorch twin of the split fp32 K2's second launch: dQ from
+    partials ``(slabs, B, Hq, L, D)``, each row the sum, in slab order, of
+    the slabs its 64-row q tile has (``ceil(k tiles / per_slab)`` of
+    :func:`_fwd_slab_steps`); the rest of ``part`` is never read."""
+    L = part.shape[3]
+    rows = _slab_rows([-(-n // per_slab) for n in _fwd_slab_steps(
+        L, causal)], L, part.device)
+    out = part[0].clone()
+    for slab in range(1, part.shape[0]):
+        has = (rows > slab)[:, None]
+        out = out + torch.where(has, part[slab], torch.zeros_like(out))
+    return out
+
+
+def flash_bwd_dq_split_sum(part: torch.Tensor, causal: bool, per_slab: int,
+                           out: Optional[torch.Tensor] = None
+                           ) -> torch.Tensor:
+    """The split fp32 K2's second launch: dQ (B, Hq, L, D) fp32 from the
+    partials ``(slabs, B, Hq, L, D)`` that :func:`flash_bwd_dq_general`
+    wrote with ``per_slab`` k tiles a slab; written into ``out`` where
+    given. CPU tensors run :func:`dq_split_sum_reference`; CUDA tensors
+    launch ``csrc/flash_bwd.cu``'s split sum (each row's slabs added in
+    slab order, the kernel the fp32 K3's sum launches too) or raise.
+    ``flash_bwd_dq_split_sum.launches`` counts launches."""
+    if not _on_cuda(part):
+        return dq_split_sum_reference(part, causal, per_slab)
+    if (part.dtype != torch.float32 or part.dim() != 5
+            or not part.is_contiguous() or part.shape[-1] % 4):
+        raise ValueError(f"part must be a contiguous (slabs, B, Hq, L, D) "
+                         f"float32 tensor with D a multiple of 4, got "
+                         f"{tuple(part.shape)} {part.dtype}")
+    _, B, Hq, L, D = part.shape
+    if out is None:
+        out = torch.empty_like(part[0])
+    if (out.device != part.device or out.dtype != torch.float32
+            or out.shape != part.shape[1:] or not out.is_contiguous()):
+        raise ValueError(f"out must be a contiguous {tuple(part.shape[1:])} "
+                         f"float32 tensor on {part.device}")
+    _check_aligned(part=part, out=out)
+    _launch("flash_bwd", "metisfl_flash_bwd_dq_split_sum",
+            flash_bwd_dq_split_sum, part.device, part.data_ptr(),
+            out.data_ptr(), B, Hq, L, D, int(bool(causal)), per_slab)
+    return out
+
+
+flash_bwd_dq_split_sum.launches = 0
 
 
 def flash_bwd_dkv_general(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -879,7 +929,7 @@ def flash_bwd_dkv_general(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     tiles into more than one slab, the blocks write fp32 partials into a
     scratch tensor and :func:`flash_bwd_dkv_split_sum` adds them up in a
     fixed order: no atomics, the same bits on every run.
-    :func:`flash_bwd_dkv` routes fp32 at D > 128 here.
+    :func:`flash_bwd_dkv` routes every fp32 D here.
     ``flash_bwd_dkv_general.launches`` counts this kernel's launches (one
     per call)."""
     _bwd_inputs_on_cuda("flash_bwd_dkv_general", q, k, v, do, lse, delta)
@@ -924,9 +974,8 @@ def dkv_split_sum_reference(part: torch.Tensor, group: int, causal: bool,
     has (``ceil(steps / per_slab)`` of :func:`_slab_steps`); the rest of
     ``part`` is never read."""
     L = part.shape[4]
-    counts = torch.tensor([-(-n // per_slab) for n in _slab_steps(
-        L, group, causal)], device=part.device)
-    rows = counts.repeat_interleave(_KV_TILE)[:L]  # slabs of each row
+    rows = _slab_rows([-(-n // per_slab) for n in _slab_steps(
+        L, group, causal)], L, part.device)
     out = part[0].clone()
     for slab in range(1, part.shape[0]):
         has = (rows > slab)[:, None]
@@ -944,7 +993,7 @@ def flash_bwd_dkv_split_sum(part: torch.Tensor, group: int, causal: bool,
     :func:`flash_bwd_dkv_general` wrote with ``per_slab`` q steps a slab,
     for ``group`` query heads per KV head; written into ``out`` where
     given. CPU tensors run :func:`dkv_split_sum_reference`; CUDA tensors
-    launch ``csrc/flash_bwd.cu``'s sum kernel (each row's slabs added in
+    launch ``csrc/flash_bwd.cu``'s split sum (each row's slabs added in
     slab order) or raise. ``flash_bwd_dkv_split_sum.launches`` counts
     launches."""
     if not _on_cuda(part):
@@ -988,26 +1037,22 @@ def flash_bwd_dkv_general_mma(q: torch.Tensor, k: torch.Tensor,
     (64-row k tile, output, 256-column chunk, KV head), without atomics,
     with the (B, H, L, D) tensors 16-byte aligned; or raises.
     :func:`flash_bwd_dkv` routes bf16/fp16 at D > 256 here.
-    ``flash_bwd_dkv_general_mma.launches`` counts launches (one per batch
-    chunk)."""
+    ``flash_bwd_dkv_general_mma.launches`` counts launches (one per
+    call)."""
     _bwd_inputs_on_cuda("flash_bwd_dkv_general_mma", q, k, v, do, lse,
                         delta)
     _check_dtype("flash_bwd_dkv_general_mma", q, _MMA_DTYPES)
-    B, Hq, _, D = q.shape
+    D = q.shape[-1]
     scale = 1.0 / math.sqrt(D)
     Dk, (q, k, v, do) = pad_head_dim(q, k, v, do,
                                      head_dims=(mma_head_dim(D),))
     _check_aligned(q=q, k=k, v=v, do=do)
     dk = torch.empty_like(k)
     dv = torch.empty_like(v)
-    for b0, b1 in _batch_chunks(B, Hq):
-        _launch("flash_bwd", "metisfl_flash_bwd_dkv_general_mma",
-                flash_bwd_dkv_general_mma, q.device, q[b0:b1].data_ptr(),
-                k[b0:b1].data_ptr(), v[b0:b1].data_ptr(),
-                do[b0:b1].data_ptr(), lse[b0:b1].data_ptr(),
-                delta[b0:b1].data_ptr(), dk[b0:b1].data_ptr(),
-                dv[b0:b1].data_ptr(),
-                *_shape_args(q[b0:b1], k, causal, scale))
+    _launch("flash_bwd", "metisfl_flash_bwd_dkv_general_mma",
+            flash_bwd_dkv_general_mma, q.device, q.data_ptr(), k.data_ptr(),
+            v.data_ptr(), do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
+            dk.data_ptr(), dv.data_ptr(), *_shape_args(q, k, causal, scale))
     if Dk != D:
         dk, dv = dk[..., :D].contiguous(), dv[..., :D].contiguous()
     return dk, dv
@@ -1027,23 +1072,20 @@ def flash_bwd_dq_general_mma(q: torch.Tensor, k: torch.Tensor,
     dQ, head), without atomics, with the (B, H, L, D) tensors 16-byte
     aligned; or raises. :func:`flash_bwd_dq` routes bf16/fp16 at D > 256
     here. ``flash_bwd_dq_general_mma.launches`` counts launches (one per
-    batch chunk)."""
+    call)."""
     _bwd_inputs_on_cuda("flash_bwd_dq_general_mma", q, k, v, do, lse,
                         delta)
     _check_dtype("flash_bwd_dq_general_mma", q, _MMA_DTYPES)
-    B, Hq, _, D = q.shape
+    D = q.shape[-1]
     scale = 1.0 / math.sqrt(D)
     Dk, (q, k, v, do) = pad_head_dim(q, k, v, do,
                                      head_dims=(mma_head_dim(D),))
     _check_aligned(q=q, k=k, v=v, do=do)
     dq = torch.empty_like(q)
-    for b0, b1 in _batch_chunks(B, Hq):
-        _launch("flash_bwd", "metisfl_flash_bwd_dq_general_mma",
-                flash_bwd_dq_general_mma, q.device, q[b0:b1].data_ptr(),
-                k[b0:b1].data_ptr(), v[b0:b1].data_ptr(),
-                do[b0:b1].data_ptr(), lse[b0:b1].data_ptr(),
-                delta[b0:b1].data_ptr(), dq[b0:b1].data_ptr(),
-                *_shape_args(q[b0:b1], k, causal, scale))
+    _launch("flash_bwd", "metisfl_flash_bwd_dq_general_mma",
+            flash_bwd_dq_general_mma, q.device, q.data_ptr(), k.data_ptr(),
+            v.data_ptr(), do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
+            dq.data_ptr(), *_shape_args(q, k, causal, scale))
     return dq if Dk == D else dq[..., :D].contiguous()
 
 

@@ -9,6 +9,8 @@ one NVIDIA GPU.
         --dtype float32 --root build/turns/parent --root .
     python3 scripts/torch_kernel_turns.py --shape 2,8,8,1000,128 \
         --dtype float32 --not-causal --kernels fwd --root a --root b
+    python3 scripts/torch_kernel_turns.py --shape 2,8,8,1000,64 \
+        --dtype float32 --not-causal --kernels dq,dkv --root a --root b
 
 Each checkout's ``metisfl_tpu_torch`` runs in a process of its own (its
 kernels built from its own ``csrc/`` into its own ``build/``), in the
@@ -24,8 +26,9 @@ kernel rows), the profiler's device time per call (``device_ms``) and the
 host's time per call with no sync between calls (``host_ms``). Where
 ``ms`` is near ``host_ms`` and above ``device_ms``, the host paces the
 calls. Each call's ``launched`` names the wrappers that launched under it
-(at a head dim beyond the builds the three route to the general kernels,
-which each checkout may route differently). It prints one ``{"turn": ...}``
+(each checkout may route a dtype and head dim to other kernels: in fp32
+the three route to the register-tiled kernels and their second launches,
+beyond the builds in bf16/fp16 to the general tensor-core kernels). It prints one ``{"turn": ...}``
 JSON line per run and the GPU's name and power limit; it imports no jax.
 """
 

@@ -427,18 +427,20 @@ def test_bwd_kernels_match_plain_version_on_gpu(cuda_device, dtype, causal,
                                                 given_delta):
     """K2 and K3 against their twin on the card (GQA where Hkv < Hq, ragged
     L where L is not a multiple of 64): each of dq, dk, dv within the
-    dtype's ``_BWD_REL`` × max|twin|. Each launches once."""
+    dtype's ``_BWD_REL`` × max|twin|. Each launches once, on the kernel
+    its route names (fp32: the register-tiled kernels, with their split
+    sums where they split)."""
     q, k, v, o, lse, do = _cuda_bwd_inputs(cuda_device, dtype, B, Hq, Hkv,
                                            L, D, causal)
     delta = None
     if given_delta:
         delta = torch.from_numpy(np.random.default_rng(L).standard_normal(
             lse.shape).astype(np.float32)).to(cuda_device)
-    before = (flash_bwd_dq.launches, flash_bwd_dkv.launches)
+    before = _launch_counts()
     got = flash_attention_bwd(q, k, v, o, lse, do, causal, delta=delta)
     torch.cuda.synchronize()
-    assert (flash_bwd_dq.launches, flash_bwd_dkv.launches) == (
-        before[0] + 1, before[1] + 1)
+    assert _launched(before) == _expected_launches(
+        cuda_device, dtype, B, Hq, Hkv, L, D, causal, fwd=False)
     want = flash_attention_bwd_reference(q, k, v, o, lse, do, causal,
                                          delta=delta)
     for name, a, b in zip(("dq", "dk", "dv"), got, want):
@@ -601,15 +603,12 @@ def test_twins_at_padded_head_dims_match_pallas(jax_flash, causal, D, dtype):
 def test_head_dim_padding_is_exact(causal, D, dtype):
     """The wrappers' padding path, with the twins in the kernels' place:
     q, k, v and dO zero-padded to the head dim of the kernel each call
-    routes to (``kernel_route``: the next build, 64, 128 or 256 for K1 and
-    for K2 and K3 in bf16/fp16, 64 or 128 for K2 and K3 in fp32; beyond the
-    builds, K1, K2 and K3 in bf16/fp16 the next multiple of 64 of the
-    tensor-core general kernels, K3 in fp32 the next multiple of 32 of its
-    register-tiled kernel; K1 in fp32 at every D the next multiple of 32,
-    at least 64, of its register-tiled kernel), run with the true
-    D's scale and sliced back, give the unpadded twins' o, lse, dq, dk and
-    dv to 0 ulp, and 0 in every padded column. The fp32 SIMT general
-    kernel of K2 takes D unpadded.
+    routes to (``kernel_route``: in bf16/fp16 the next build, 64, 128 or
+    256, and beyond the builds the next multiple of 64 of the tensor-core
+    general kernels; in fp32, for K1, K2 and K3 at every D, the next
+    multiple of 32, at least 64, of the register-tiled kernels), run with
+    the true D's scale and sliced back, give the unpadded twins' o, lse,
+    dq, dk and dv to 0 ulp, and 0 in every padded column.
 
     The inputs are multiples of 1/8 in [-1, 1], exact in every dtype, so
     that every product and every sum over D (Q·Kᵀ, dO·Vᵀ) is exact in fp32
@@ -650,7 +649,7 @@ def test_head_dim_padding_is_exact(causal, D, dtype):
     for kernel in ("dq", "dkv"):
         Dk = kernel_route(kernel, dtype, D).head_dim
         if Dk == D:
-            continue  # a general SIMT kernel or a build: no padding
+            continue  # the kernel's own head dim: no copy
         _, (qp, kp, vp, dop) = pad_head_dim(q, k, v, do, head_dims=(Dk,))
         if kernel == "dq":
             pairs = ((flash_bwd_dq_reference(qp, kp, vp, dop, lse, delta,
@@ -671,25 +670,28 @@ def test_head_dim_padding_is_exact(causal, D, dtype):
 # the head dim it runs at, its chunks along D and its passes
 _ROUTES = {
     (torch.float32, 64): (("flash_fwd_general", 64, 1, 1),
-                          ("flash_bwd_dq", 64, 1, 1),
-                          ("flash_bwd_dkv", 64, 1, 1)),
+                          ("flash_bwd_dq_general", 64, 1, 1),
+                          ("flash_bwd_dkv_general", 64, 1, 2)),
+    (torch.float32, 128): (("flash_fwd_general", 128, 1, 1),
+                           ("flash_bwd_dq_general", 128, 1, 1),
+                           ("flash_bwd_dkv_general", 128, 1, 2)),
     (torch.float32, 200): (("flash_fwd_general", 224, 1, 1),
-                           ("flash_bwd_dq_general", 200, 4, 1),
+                           ("flash_bwd_dq_general", 224, 1, 1),
                            ("flash_bwd_dkv_general", 224, 1, 2)),
     (torch.float32, 256): (("flash_fwd_general", 256, 1, 1),
-                           ("flash_bwd_dq_general", 256, 4, 1),
+                           ("flash_bwd_dq_general", 256, 1, 1),
                            ("flash_bwd_dkv_general", 256, 1, 2)),
     (torch.float32, 257): (("flash_fwd_general", 288, 2, 1),
-                           ("flash_bwd_dq_general", 257, 5, 1),
+                           ("flash_bwd_dq_general", 288, 2, 1),
                            ("flash_bwd_dkv_general", 288, 2, 2)),
     (torch.float32, 320): (("flash_fwd_general", 320, 2, 1),
-                           ("flash_bwd_dq_general", 320, 5, 1),
+                           ("flash_bwd_dq_general", 320, 2, 1),
                            ("flash_bwd_dkv_general", 320, 2, 2)),
     (torch.float32, 512): (("flash_fwd_general", 512, 2, 1),
-                           ("flash_bwd_dq_general", 512, 8, 1),
+                           ("flash_bwd_dq_general", 512, 2, 1),
                            ("flash_bwd_dkv_general", 512, 2, 2)),
     (torch.float32, 1024): (("flash_fwd_general", 1024, 4, 1),
-                            ("flash_bwd_dq_general", 1024, 16, 1),
+                            ("flash_bwd_dq_general", 1024, 4, 1),
                             ("flash_bwd_dkv_general", 1024, 4, 2)),
 }
 for _dtype in (torch.bfloat16, torch.float16):
@@ -723,15 +725,13 @@ for _dtype in (torch.bfloat16, torch.float16):
 def test_kernel_route_names_the_kernel_for_each_dtype_and_head_dim(dtype,
                                                                    D):
     """``kernel_route`` is a pure function of (dtype, D), the one the
-    wrappers route by, and needs no GPU: K1 in fp32 goes at every D to its
-    register-tiled kernel (padded to a multiple of 32 and at least 64,
-    256-column chunks, one pass); fp32 beyond the backward's builds goes,
-    for K2, to the SIMT general kernel (unpadded, 64-column chunks) and,
-    for K3, to its register-tiled kernel (padded to a multiple of 32,
-    256-column chunks, two passes); bf16/fp16 above 256 to the tensor-core
-    general kernels for K1, K2 and K3 (padded to a multiple of 64,
-    256-column chunks; K3 in two passes, dV and dK); each route names a
-    wrapper of the module."""
+    wrappers route by, and needs no GPU: in fp32 K1, K2 and K3 go at every
+    D to their register-tiled kernels (padded to a multiple of 32 and at
+    least 64, 256-column chunks; K3 in two passes, dV and dK); bf16/fp16
+    goes to the builds up to 256 and above to the tensor-core general
+    kernels for K1, K2 and K3 (padded to a multiple of 64, 256-column
+    chunks; K3 in two passes); each route names a wrapper of the
+    module."""
     import importlib
 
     from metisfl_tpu_torch.ops.flash_attention import kernel_route
@@ -749,7 +749,8 @@ def test_kernel_route_names_the_kernel_for_each_dtype_and_head_dim(dtype,
 def test_dq_route_beyond_the_builds_is_the_tensor_core_kernel(dtype, D):
     """In bf16/fp16 every head dim above 256 sends K2 to the general
     tensor-core kernel, padded to a multiple of 64, one pass, a block per
-    256-column chunk; never to the SIMT kernel, which is fp32 only."""
+    256-column chunk; never to the register-tiled kernel, which is fp32
+    only."""
     from metisfl_tpu_torch.ops.flash_attention import kernel_route
 
     route = kernel_route("dq", dtype, D)
@@ -1087,6 +1088,136 @@ def test_combine_twin_takes_a_slab_with_no_unmasked_key():
         torch.tensor(1e-30)))
 
 
+@pytest.mark.parametrize("B,Hq,L,D,causal", [
+    (2, 8, 1024, 256, True), (2, 8, 1024, 256, False),
+    (2, 4, 256, 256, True), (2, 2, 256, 512, True),
+    (1, 4, 512, 512, True), (2, 8, 1000, 128, False),
+    (1, 8, 65, 224, True), (1, 4, 517, 608, False),
+    (64, 32, 4096, 1024, True)])
+@pytest.mark.parametrize("sms", [1, 132])
+def test_dq_split_cuts_the_longest_tile_into_slabs(B, Hq, L, D, causal,
+                                                   sms):
+    """``dq_split`` is a pure function of the shapes and the card's SM
+    count: ``slabs`` slabs of ``per_slab`` k tiles cover the longest q
+    tile (the last, when causal) and one slab fewer would not; a grid
+    whose blocks (one per q tile, head and 256-column chunk) fill the card
+    is not split; else no slab is longer than the work of about
+    ``_SPLIT_BLOCKS_PER_SM`` blocks per SM needs. K2's q tiles walk the k
+    tiles of K1's, so the two splits agree."""
+    from metisfl_tpu_torch.ops.flash_attention import (
+        _SPLIT_BLOCKS_PER_SM,
+        _fwd_slab_steps,
+        dq_split,
+        fwd_split,
+    )
+
+    steps = _fwd_slab_steps(L, causal)
+    per_slab, slabs = dq_split(B, Hq, L, D, causal, sms)
+    assert (per_slab, slabs) == dq_split(B, Hq, L, D, causal, sms)
+    assert (per_slab, slabs) == fwd_split(B, Hq, L, D, causal, sms)
+    assert per_slab >= 1 and slabs >= 1
+    assert per_slab * slabs >= steps[-1] > per_slab * (slabs - 1)
+    blocks = B * Hq * -(-D // 256)
+    target = -(-blocks * sum(steps) // (_SPLIT_BLOCKS_PER_SM * sms))
+    fills = blocks * len(steps) >= sms
+    if slabs == 1:
+        assert per_slab == steps[-1]
+        assert fills or per_slab <= max(1, target)
+    else:
+        assert not fills and per_slab == max(1, target)
+
+
+def _dq_split_partials(q, k, v, do, lse, delta, causal, per_slab):
+    """The split fp32 K2's partials, computed the way its blocks cut the
+    work (each 64-row q tile's k tiles, in slabs of ``per_slab``), with the
+    twin's dense dS: (slabs, B, Hq, L, D), NaN where a q tile has no such
+    slab (never read)."""
+    from metisfl_tpu_torch.ops.flash_attention import (
+        _bwd_probs,
+        _fwd_slab_steps,
+        _repeat_kv,
+    )
+
+    B, Hq, L, D = q.shape
+    steps = _fwd_slab_steps(L, causal)
+    slabs = -(-max(steps) // per_slab)
+    _, ds = _bwd_probs(q, k, v, do, lse, delta, causal)
+    kf = _repeat_kv(k, Hq // k.shape[1])
+    part = torch.full((slabs, B, Hq, L, D), float("nan"))
+    for t, n in enumerate(steps):
+        rows = slice(64 * t, min(L, 64 * t + 64))
+        for slab in range(-(-n // per_slab)):
+            keys = slice(64 * slab * per_slab,
+                         min(L, 64 * min(n, (slab + 1) * per_slab)))
+            part[slab, :, :, rows] = torch.einsum(
+                "bhqk,bhkd->bhqd", ds[:, :, rows, keys], kf[:, :, keys])
+    return part
+
+
+@pytest.mark.parametrize("B,Hq,Hkv,L,causal,per_slab", [
+    (1, 4, 2, 130, True, 1), (1, 4, 2, 130, False, 2),
+    (2, 4, 1, 200, True, 3), (1, 2, 2, 65, True, 1),
+    (1, 8, 2, 129, False, 1)])
+def test_dq_split_partials_sum_to_the_twin(jax_flash, B, Hq, Hkv, L, causal,
+                                           per_slab):
+    """The fp32 K2's split, emulated on the CPU: each slab's partial (the
+    blocks' cut of every q tile's k tiles) summed by the second launch's
+    twin, which reads only the slabs each tile has (the rest hold NaN),
+    gives the unsplit twin's dQ within 1e-6 × max|dQ| and the Pallas
+    ``_dq_kernel``'s (interpret mode) within ``ATOL``: GQA, ragged L and
+    both masks included."""
+    from metisfl_tpu_torch.ops.flash_attention import (
+        _delta,
+        dq_split_sum_reference,
+        flash_bwd_dq_reference,
+        flash_bwd_dq_split_sum,
+    )
+
+    jnp = jax_flash.jnp
+    q, k, v, do = _bwd_inputs(seed=L, B=B, Hq=Hq, Hkv=Hkv, L=L, D=32)
+    tq, tk, tv, tdo = (torch.from_numpy(a) for a in (q, k, v, do))
+    o, lse = flash_attention_fwd_reference(tq, tk, tv, causal)
+    delta = _delta(o, tdo)
+    part = _dq_split_partials(tq, tk, tv, tdo, lse, delta, causal, per_slab)
+    dq = dq_split_sum_reference(part, causal, per_slab)
+    assert bool(torch.isfinite(dq).all())
+    want = flash_bwd_dq_reference(tq, tk, tv, tdo, lse, delta, causal)
+    assert float((dq - want).abs().max()) <= 1e-6 * float(want.abs().max())
+    o_ref, lse_ref = jax_flash._flash_forward(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), causal, None, None,
+        True)
+    lse_ref = np.asarray(lse_ref)[:, :L, 0].reshape(B, Hq, L)
+    dq_ref = jax_flash._flash_backward(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), o_ref, lse_ref,
+        jnp.asarray(do), causal, None, None, True)[0]
+    np.testing.assert_allclose(dq.numpy(), np.asarray(dq_ref), atol=ATOL)
+    # on CPU tensors the wrapper runs the twin, no launch
+    before = flash_bwd_dq_split_sum.launches
+    got = flash_bwd_dq_split_sum(part, causal, per_slab)
+    assert flash_bwd_dq_split_sum.launches == before
+    assert torch.equal(got, dq)
+
+
+def test_dq_sum_twin_reads_no_slab_a_causal_tile_lacks():
+    """With causal masking the first q tile has one k tile, so one slab:
+    its rows are the first slab's, whatever the others hold (NaN here);
+    the last tile's rows add every slab in slab order."""
+    from metisfl_tpu_torch.ops.flash_attention import dq_split_sum_reference
+
+    rng = np.random.default_rng(4)
+    part = torch.from_numpy(rng.standard_normal((3, 1, 2, 150, 8)).astype(
+        np.float32))
+    part[1:, :, :, :64] = float("nan")  # tile 0: one k tile, one slab
+    part[2:, :, :, 64:128] = float("nan")  # tile 1: two k tiles, two slabs
+    dq = dq_split_sum_reference(part, True, 1)
+    assert bool(torch.isfinite(dq).all())
+    assert torch.equal(dq[..., :64, :], part[0, ..., :64, :])
+    assert torch.equal(dq[..., 64:128, :],
+                       part[0, ..., 64:128, :] + part[1, ..., 64:128, :])
+    assert torch.equal(dq[..., 128:, :], part[0, ..., 128:, :]
+                       + part[1, ..., 128:, :] + part[2, ..., 128:, :])
+
+
 def test_kernel_head_dims_need_no_copy():
     from metisfl_tpu_torch.ops.flash_attention import (
         _FWD_HEAD_DIMS,
@@ -1102,10 +1233,12 @@ def test_kernel_head_dims_need_no_copy():
 def test_head_dims_beyond_the_kernels_are_refused_with_their_reason():
     """No head dim that the Pallas kernels take is refused on the card any
     more: each D goes to a tuned kernel (padded to its next built head dim:
-    K1 64/128/256, K2 and K3 64/128/256 in bf16/fp16 and 64/128 in fp32)
-    or, beyond the largest, to the general kernel. The input check runs
-    before any launch, so it is reachable on the CPU; it still refuses a
-    head dim of 0 and a grid it cannot launch."""
+    K1, K2 and K3 64/128/256 in bf16/fp16; none in fp32, whose
+    register-tiled kernels take every D) or, beyond the largest, to the
+    general kernel. The input check runs before any launch, so it is
+    reachable on the CPU; it still refuses a head dim of 0, and takes
+    65536 query heads, past the 65535 of a grid's y axis, since every
+    kernel runs on a 1-D grid."""
     from metisfl_tpu_torch.ops.flash_attention import (
         _FWD_HEAD_DIMS,
         _check_cuda_inputs,
@@ -1113,7 +1246,7 @@ def test_head_dims_beyond_the_kernels_are_refused_with_their_reason():
         kernel_head_dim,
     )
 
-    for D, fwd, bwd16, bwd32 in ((1, 64, 64, 64), (129, 256, 256, None),
+    for D, fwd, bwd16, bwd32 in ((1, 64, 64, None), (129, 256, 256, None),
                                  (256, 256, 256, None),
                                  (257, None, None, None),
                                  (512, None, None, None)):
@@ -1128,63 +1261,59 @@ def test_head_dims_beyond_the_kernels_are_refused_with_their_reason():
     with pytest.raises(ValueError, match="head_dim >= 1"):
         _check_cuda_inputs(q, q, q)
     q = torch.zeros(1, 65536, 1, 64, dtype=torch.bfloat16)
+    _check_cuda_inputs(q, q, q)
+    q = torch.zeros(0, 2, 8, 64, dtype=torch.bfloat16)
     with pytest.raises(ValueError, match="grid"):
         _check_cuda_inputs(q, q, q)
 
 
 @pytest.mark.parametrize("B,H", [(1, 16), (4096, 16), (4097, 16),
                                  (70000, 1), (3, 65535), (10, 40000)])
-def test_batch_chunks_fit_the_grid_and_cover_the_batch(B, H):
-    from metisfl_tpu_torch.ops.flash_attention import _batch_chunks
+def test_cuda_input_check_takes_any_batch_and_head_count(B, H):
+    """Every kernel carries b * H on its 1-D grid, so the input check takes
+    any (B, H), those past gridDim.y's 65535 included, for K1's and K2/K3's
+    inputs, with GQA; the tensors lie on ``meta`` (no memory)."""
+    from metisfl_tpu_torch.ops.flash_attention import _check_cuda_inputs
 
-    chunks = _batch_chunks(B, H)
-    assert chunks[0][0] == 0 and chunks[-1][1] == B
-    assert all(a[1] == b[0] for a, b in zip(chunks, chunks[1:]))
-    assert all(0 < (b1 - b0) * H <= 65535 for b0, b1 in chunks)
-    assert len(chunks) == -(-B // (65535 // H))
+    for dtype in (torch.float32, torch.bfloat16):
+        q = torch.empty(B, H, 1, 1, dtype=dtype, device="meta")
+        kv = torch.empty(B, 1, 1, 1, dtype=dtype, device="meta")
+        _check_cuda_inputs(q, q, q)
+        _check_cuda_inputs(q, kv, kv, do=q)
 
 
-# (dtype, causal, B, Hq, Hkv, L, D, launches): padded head dims, the
+# (dtype, causal, B, Hq, Hkv, L, D): padded head dims, the
 # examples/long_context.py shape (D = 16), and B·Hq above gridDim.y's 65535
-# (two batch chunks)
 _PADDED_GPU_CASES = [
-    (dtype, causal, 2, 8, 2, L, D, 1)
+    (dtype, causal, 2, 8, 2, L, D)
     for dtype in (torch.bfloat16, torch.float16, torch.float32)
     for causal in (False, True)
     for D in (8, 16, 32)
     for L in (65, 200)
 ] + [
-    (torch.bfloat16, True, 4, 4, 4, 512, 16, 1),
-    (torch.bfloat16, True, 4100, 16, 4, 16, 64, 2),
-    (torch.float32, False, 4100, 16, 4, 16, 32, 2),
+    (torch.bfloat16, True, 4, 4, 4, 512, 16),
+    (torch.bfloat16, True, 4100, 16, 4, 16, 64),
+    (torch.float32, False, 4100, 16, 4, 16, 32),
 ]
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("dtype,causal,B,Hq,Hkv,L,D,launches",
-                         _PADDED_GPU_CASES)
+@pytest.mark.parametrize("dtype,causal,B,Hq,Hkv,L,D", _PADDED_GPU_CASES)
 def test_kernels_at_padded_head_dims_and_large_grids_on_gpu(
-        cuda_device, dtype, causal, B, Hq, Hkv, L, D, launches):
+        cuda_device, dtype, causal, B, Hq, Hkv, L, D):
     """K1, K2 and K3 at head dims the kernels are not built for (padded to
-    64) and at B·Hq > 65535 (the tuned kernels launched in batch chunks;
-    the fp32 K1, on a 1-D grid, once, with its combine where it splits)
-    against their twins on the card, at the tolerances of the unpadded
-    cases."""
+    64 in bf16/fp16, to 64 in fp32) and at B·Hq > 65535 (every kernel on a
+    1-D grid: one launch each, the fp32 kernels with their combine or sum
+    where they split) against their twins on the card, at the tolerances
+    of the unpadded cases."""
     q, k, v, o_ref, lse_ref, do = _cuda_bwd_inputs(cuda_device, dtype, B,
                                                    Hq, Hkv, L, D, causal)
     before = _launch_counts()
     o, lse = flash_attention_fwd(q, k, v, causal)
     got = flash_attention_bwd(q, k, v, o_ref, lse_ref, do, causal)
     torch.cuda.synchronize()
-    after = _launch_counts()
-    fp32 = dtype == torch.float32
-    combine = _combine_launches(cuda_device, dtype, B, Hq, L, D, causal)
-    assert {n: after[n] - before[n] for n in after
-            if after[n] - before[n]} == {
-        "flash_fwd_general" if fp32 else "flash_attention_fwd":
-            1 if fp32 else launches,
-        "flash_bwd_dq": launches, "flash_bwd_dkv": launches,
-        **({"flash_fwd_split_combine": 1} if combine else {})}
+    assert _launched(before) == _expected_launches(cuda_device, dtype, B,
+                                                   Hq, Hkv, L, D, causal)
     lse_atol = 1e-4 if dtype == torch.float32 else 1e-3
     assert o.shape == q.shape and o.is_contiguous()
     torch.testing.assert_close(o.float(), o_ref.float(),
@@ -1216,6 +1345,7 @@ def _launch_counts():
         flash_bwd_dkv_split_sum,
         flash_bwd_dq_general,
         flash_bwd_dq_general_mma,
+        flash_bwd_dq_split_sum,
         flash_fwd_general,
         flash_fwd_general_mma,
         flash_fwd_split_combine,
@@ -1225,7 +1355,37 @@ def _launch_counts():
         flash_attention_fwd, flash_bwd_dq, flash_bwd_dkv, flash_fwd_general,
         flash_bwd_dq_general, flash_bwd_dkv_general, flash_fwd_general_mma,
         flash_bwd_dkv_general_mma, flash_bwd_dq_general_mma,
-        flash_bwd_dkv_split_sum, flash_fwd_split_combine)}
+        flash_bwd_dkv_split_sum, flash_fwd_split_combine,
+        flash_bwd_dq_split_sum)}
+
+
+def _launched(before):
+    """The launches each wrapper counted since ``before``, where any."""
+    after = _launch_counts()
+    return {n: after[n] - before[n] for n in after if after[n] - before[n]}
+
+
+def _expected_launches(device, dtype, B, Hq, Hkv, L, D, causal, fwd=True,
+                       bwd=True):
+    """The launches one K1 call (``fwd``) and one K2 and K3 call (``bwd``)
+    make at these shapes on ``device``, by ``kernel_route``: one each, K3's
+    D = 256 build two (dV, then dK), and the fp32 kernels' combine and
+    split sums where they split."""
+    from metisfl_tpu_torch.ops.flash_attention import kernel_route
+
+    want = {}
+    for kernel in ("fwd",) * fwd + ("dq", "dkv") * bwd:
+        route = kernel_route(kernel, dtype, D)
+        tuned = route.wrapper in ("flash_bwd_dq", "flash_bwd_dkv")
+        want[route.wrapper] = route.passes if tuned else 1
+    if dtype == torch.float32:
+        if fwd and _combine_launches(device, dtype, B, Hq, L, D, causal):
+            want["flash_fwd_split_combine"] = 1
+        if bwd and _dq_split_launches(device, B, Hq, L, D, causal):
+            want["flash_bwd_dq_split_sum"] = 1
+        if bwd and _split_launches(device, B, Hq, Hkv, L, D, causal):
+            want["flash_bwd_dkv_split_sum"] = 1
+    return want
 
 
 def _fwd_split_at(device, B, Hq, L, D, causal):
@@ -1244,9 +1404,18 @@ def _combine_launches(device, dtype, B, Hq, L, D, causal):
         device, B, Hq, L, D, causal)[1] > 1)
 
 
+def _dq_split_launches(device, B, Hq, L, D, causal):
+    """1 where the fp32 K2 splits its q tiles at these shapes on
+    ``device`` (and so launches its sum), else 0."""
+    from metisfl_tpu_torch.ops.flash_attention import dq_split, f32_head_dim
+
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    return int(dq_split(B, Hq, L, f32_head_dim(D), causal, sms)[1] > 1)
+
+
 def _split_launches(device, B, Hq, Hkv, L, D, causal):
-    """1 where the fp32 K3 beyond its builds splits its k tiles at these
-    shapes on ``device`` (and so launches its sum), else 0."""
+    """1 where the fp32 K3 splits its k tiles at these shapes on
+    ``device`` (and so launches its sum), else 0."""
     from metisfl_tpu_torch.ops.flash_attention import (
         f32_head_dim,
         dkv_split,
@@ -1293,8 +1462,8 @@ def test_forward_kernel_at_head_dims_up_to_256_on_gpu(cuda_device, dtype,
     """K1 against its twin at D = 256 and D = 200 (padded to 256 in
     bf16/fp16, to 224 in fp32), one launch; the backward runs too: in
     bf16/fp16 on K2's D = 256 build and K3's, once for dV and once for dK;
-    in fp32 on the general kernels (K1's combine and K3's split sum where
-    they split)."""
+    in fp32 on the register-tiled kernels (K1's combine and K2's and K3's
+    split sums where they split)."""
     launched = _check_fwd_bwd_on_gpu(dtype, causal, B, Hq, Hkv, L, D,
                                      cuda_device)
     general = dtype == torch.float32
@@ -1310,7 +1479,9 @@ def test_forward_kernel_at_head_dims_up_to_256_on_gpu(cuda_device, dtype,
         "flash_fwd_general_mma": 0, "flash_bwd_dkv_general_mma": 0,
         "flash_bwd_dq_general_mma": 0,
         "flash_bwd_dkv_split_sum": general and _split_launches(
-            cuda_device, B, Hq, Hkv, L, D, causal)}
+            cuda_device, B, Hq, Hkv, L, D, causal),
+        "flash_bwd_dq_split_sum": general and _dq_split_launches(
+            cuda_device, B, Hq, L, D, causal)}
 
 
 # (dtype, causal, B, Hq, Hkv, L, D): head dims beyond every build, on the
@@ -1331,9 +1502,9 @@ def test_general_kernels_beyond_every_build_on_gpu(cuda_device, dtype,
                                                     causal, B, Hq, Hkv, L,
                                                     D):
     """K1, K2 and K3 at D > 256 go to the general kernels, one launch each
-    (on tensor cores in bf16/fp16; SIMT in fp32, K1 with its combine and K3
-    with its split sum where they split), and hold their twins at the
-    tuned kernels' tolerances."""
+    (on tensor cores in bf16/fp16; register-tiled in fp32, K1 with its
+    combine and K2 and K3 with their split sums where they split), and
+    hold their twins at the tuned kernels' tolerances."""
     launched = _check_fwd_bwd_on_gpu(dtype, causal, B, Hq, Hkv, L, D,
                                      cuda_device)
     mma = dtype != torch.float32
@@ -1348,14 +1519,16 @@ def test_general_kernels_beyond_every_build_on_gpu(cuda_device, dtype,
         "flash_bwd_dkv_general_mma": int(mma),
         "flash_bwd_dq_general_mma": int(mma),
         "flash_bwd_dkv_split_sum": 0 if mma else _split_launches(
-            cuda_device, B, Hq, Hkv, L, D, causal)}
+            cuda_device, B, Hq, Hkv, L, D, causal),
+        "flash_bwd_dq_split_sum": 0 if mma else _dq_split_launches(
+            cuda_device, B, Hq, L, D, causal)}
 
 
 @pytest.mark.cuda
 def test_general_and_d256_kernels_are_deterministic_on_gpu(cuda_device):
     """The general kernels (bf16 D = 320: K1 and K3 on tensor cores; fp32
-    D = 256: SIMT) and K3's two-pass D = 256 build write each output once
-    from one block: two runs give the same bits."""
+    D = 256: register-tiled) and K3's two-pass D = 256 build write each
+    output once from one block: two runs give the same bits."""
     for dtype, D in ((torch.bfloat16, 256), (torch.bfloat16, 320),
                      (torch.float32, 256)):
         q, k, v, o, lse, do = _cuda_bwd_inputs(cuda_device, dtype, 1, 4, 2,
@@ -1403,7 +1576,8 @@ def test_tensor_core_general_kernels_match_twins_on_gpu(cuda_device, dtype,
         "flash_fwd_general": 0, "flash_bwd_dq_general": 0,
         "flash_bwd_dkv_general": 0, "flash_fwd_general_mma": 1,
         "flash_bwd_dkv_general_mma": 1, "flash_bwd_dq_general_mma": 1,
-        "flash_bwd_dkv_split_sum": 0, "flash_fwd_split_combine": 0}
+        "flash_bwd_dkv_split_sum": 0, "flash_fwd_split_combine": 0,
+        "flash_bwd_dq_split_sum": 0}
 
 
 @pytest.mark.cuda
@@ -1492,18 +1666,19 @@ def test_autograd_takes_the_tensor_core_route_beyond_the_builds_on_gpu(
         "flash_fwd_general": 0, "flash_bwd_dq_general": 0,
         "flash_bwd_dkv_general": 0, "flash_fwd_general_mma": 1,
         "flash_bwd_dkv_general_mma": 1, "flash_bwd_dq_general_mma": 1,
-        "flash_bwd_dkv_split_sum": 0, "flash_fwd_split_combine": 0}
+        "flash_bwd_dkv_split_sum": 0, "flash_fwd_split_combine": 0,
+        "flash_bwd_dq_split_sum": 0}
     assert all(bool(torch.isfinite(t.grad).all()) for t in (q, k, v))
 
 
-# (causal, B, Hq, Hkv, L, D): the fp32 K3 beyond its builds across padded
-# head dims (129, 200 and 300 pad to 160, 224 and 320; 600 to 608, a
-# 96-column last chunk), group sizes 1 and 4 (B2·Hq8·Hkv2: B·Hkv = 4, the
+# (causal, B, Hq, Hkv, L, D): the fp32 K3 across padded head dims (1 and 16
+# pad to 64, 100 to 128, 129, 200 and 300 to 160, 224 and 320; 600 to 608,
+# a 96-column last chunk), group sizes 1 and 4 (B2·Hq8·Hkv2: B·Hkv = 4, the
 # split path), one row, ragged and many tiles
 _FP32_DKV_GPU_CASES = [
     (causal, B, Hq, Hkv, L, D)
     for causal in (False, True)
-    for D in (129, 200, 256, 300, 512, 600)
+    for D in (1, 16, 64, 100, 128, 129, 200, 256, 300, 512, 600)
     for B, Hq, Hkv in ((1, 4, 4), (2, 8, 2))
     for L in (1, 65, 517)
 ]
@@ -1720,3 +1895,140 @@ def test_fp32_forward_kernel_refuses_misaligned_views_on_gpu(cuda_device):
     with pytest.raises(ValueError, match="float32"):
         flash_fwd_general(q.bfloat16(), k.bfloat16(), v.bfloat16(), True)
     assert _launch_counts() == before
+
+
+# (causal, B, Hq, Hkv, L, D, split): the register-tiled fp32 K2 across
+# padded head dims (1, 16, 100, 200 and 300 pad to 64, 64, 128, 224 and 320;
+# 600 to 608, a 96-column last chunk), one row, ragged L, GQA, on a grid
+# that the H100's 132 SMs split (B1·Hq4·Hkv2·L517: nine slabs of one k
+# tile) and on ones that fill it whole (B33·Hq16·Hkv4·L65 not causal,
+# B44·Hq16·Hkv4·L65 causal, the ragged B2·Hq8·Hkv2·L1000)
+_FP32_DQ_GPU_CASES = [
+    (causal, *shape, split)
+    for causal in (False, True)
+    for D in (1, 16, 64, 100, 128, 200, 256, 300, 512, 600)
+    for shape, split in (((1, 4, 2, 517, D), True),
+                         (((44 if causal else 33), 16, 4, 65, D), False))
+] + [(True, 1, 4, 4, 1, 64, False), (False, 2, 8, 2, 1000, 128, False)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("causal,B,Hq,Hkv,L,D,split", _FP32_DQ_GPU_CASES)
+def test_fp32_dq_general_kernel_matches_twin_on_gpu(cuda_device, causal, B,
+                                                     Hq, Hkv, L, D, split):
+    """The register-tiled fp32 K2 holds its twin within 1e-4 × max|twin|
+    (δ drawn apart from O, as the K3 cases): one launch, plus the split sum
+    where ``dq_split`` cuts the q tiles' k tiles (``split``, on the H100);
+    D comes back unpadded."""
+    from metisfl_tpu_torch.ops.flash_attention import (
+        flash_bwd_dq_general,
+        flash_bwd_dq_reference,
+    )
+
+    assert bool(_dq_split_launches(cuda_device, B, Hq, L, D, causal)) \
+        == split
+    q, k, v, _, lse, do = _cuda_bwd_inputs(cuda_device, torch.float32, B,
+                                           Hq, Hkv, L, D, causal, seed=D)
+    delta = torch.from_numpy(np.random.default_rng(L + D).standard_normal(
+        (B, Hq, L)).astype(np.float32)).to(cuda_device)
+    before = _launch_counts()
+    got = flash_bwd_dq_general(q, k, v, do, lse, delta, causal)
+    torch.cuda.synchronize()
+    assert _launched(before) == {
+        "flash_bwd_dq_general": 1,
+        **({"flash_bwd_dq_split_sum": 1} if split else {})}
+    want = flash_bwd_dq_reference(q, k, v, do, lse, delta, causal)
+    assert got.shape == want.shape == q.shape and got.is_contiguous()
+    scale = float(want.abs().max())
+    err = float((got - want).abs().max())
+    assert err <= _BWD_REL[torch.float32] * scale, (err, scale)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("D", [128, 600])
+def test_fp32_dq_general_kernel_is_deterministic_on_gpu(cuda_device, causal,
+                                                        D):
+    """The fp32 K2 writes each dQ chunk or partial once, from one block,
+    and its sum adds a row's slabs in slab order (no atomics): two runs
+    give the same bits, split (B1·Hq4·Hkv2·L517) and whole
+    (B44·Hq16·Hkv4·L65, B2·Hq8·Hkv2·L517)."""
+    from metisfl_tpu_torch.ops.flash_attention import flash_bwd_dq_general
+
+    for B, Hq, Hkv, L in ((1, 4, 2, 517), (44, 16, 4, 65), (2, 8, 2, 517)):
+        q, k, v, o, lse, do = _cuda_bwd_inputs(cuda_device, torch.float32,
+                                               B, Hq, Hkv, L, D, causal,
+                                               seed=3)
+        delta = (do * o).sum(-1)
+        first = flash_bwd_dq_general(q, k, v, do, lse, delta, causal)
+        second = flash_bwd_dq_general(q, k, v, do, lse, delta, causal)
+        torch.cuda.synchronize()
+        assert torch.equal(first, second)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("causal,per_slab", [(True, 3), (False, 5),
+                                             (True, 1)])
+def test_dq_split_sum_kernel_matches_twin_on_gpu(cuda_device, causal,
+                                                 per_slab):
+    """The split fp32 K2's second launch against its twin on random
+    partials (B2·Hq4·L1000·D96): the same sums in the same slab order, bit
+    for bit, reading no slab a q tile lacks (those hold NaN)."""
+    from metisfl_tpu_torch.ops.flash_attention import (
+        _fwd_slab_steps,
+        dq_split_sum_reference,
+        flash_bwd_dq_split_sum,
+    )
+
+    L = 1000
+    counts = [-(-n // per_slab) for n in _fwd_slab_steps(L, causal)]
+    part = torch.from_numpy(np.random.default_rng(per_slab).standard_normal(
+        (max(counts), 2, 4, L, 96)).astype(np.float32))
+    for t, n in enumerate(counts):
+        part[n:, :, :, 64 * t:64 * t + 64] = float("nan")
+    part = part.to(cuda_device)
+    before = flash_bwd_dq_split_sum.launches
+    got = flash_bwd_dq_split_sum(part, causal, per_slab)
+    torch.cuda.synchronize()
+    assert flash_bwd_dq_split_sum.launches == before + 1
+    want = dq_split_sum_reference(part, causal, per_slab)
+    assert bool(torch.isfinite(got).all()) and torch.equal(got, want)
+
+
+@pytest.mark.cuda
+def test_fp32_dq_general_kernel_refuses_misaligned_views_on_gpu(
+        cuda_device):
+    """At head dims that need no padding (64, 512), a misaligned q, k, v or
+    dO never reaches the fp32 K2: the wrapper (and flash_bwd_dq, which
+    routes fp32 to it) raises before a launch, and it takes fp32 only."""
+    from metisfl_tpu_torch.ops.flash_attention import flash_bwd_dq_general
+
+    before = _launch_counts()
+    for D in (64, 512):
+        q, k, v, o, lse, do = _cuda_bwd_inputs(cuda_device, torch.float32,
+                                               1, 4, 2, 65, D, True)
+        delta = (do * o).sum(-1)
+        for args in ((_misaligned(q), k, v, do), (q, _misaligned(k), v, do),
+                     (q, k, _misaligned(v), do), (q, k, v, _misaligned(do))):
+            with pytest.raises(ValueError, match="16-byte"):
+                flash_bwd_dq_general(*args, lse, delta, True)
+            with pytest.raises(ValueError, match="16-byte"):
+                flash_bwd_dq(*args, lse, delta, True)
+    with pytest.raises(ValueError, match="float32"):
+        flash_bwd_dq_general(q.bfloat16(), k.bfloat16(), v.bfloat16(),
+                             do.bfloat16(), lse, delta, True)
+    assert _launch_counts() == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_kernels_at_65536_query_heads_on_gpu(cuda_device, dtype):
+    """K1, K2 and K3 at Hq = 65536 (past gridDim.y's 65535; GQA on 16384 KV
+    heads, L16·D64) launch once each, on the 1-D grids that carry b * H,
+    and hold their twins at the unpadded cases' tolerances."""
+    launched = _check_fwd_bwd_on_gpu(dtype, True, 1, 65536, 16384, 16, 64,
+                                     cuda_device)
+    assert {n: c for n, c in launched.items() if c} == _expected_launches(
+        cuda_device, dtype, 1, 65536, 16384, 16, 64, True)
+    assert set(launched[n] for n in _expected_launches(
+        cuda_device, dtype, 1, 65536, 16384, 16, 64, True)) == {1}
