@@ -19,9 +19,14 @@ It drives the port only (it imports no jax and nothing of the JAX package):
    K1 (flash_fwd; tensor cores in bf16) at the serving and the training
    shapes, K2 and K3 (flash_bwd_dq, flash_bwd_dkv; tensor
    cores in bf16) at the training shape, each run twice for bit-identity,
-   with the achieved TFLOP/s; then K1-K3 at head dims the kernels are not
-   built for (the wrapper zero-pads them to 64: the
-   ``examples/long_context.py`` shape B4·Hq4·L512·D16, D = 8 and D = 32)
+   with the achieved TFLOP/s; then K1-K3 at small head dims (the
+   ``examples/long_context.py`` shape B4·Hq4·L512·D16, D = 8 and D = 32
+   at B2·Hq16·Hkv4·L1024: K1 and K3 on their D = 16 and 32 builds, which
+   read D in place, K3 with its split sum where ``dkv_mma_split`` cuts
+   its walks (D = 8 and 32; its bf16 sum also alone, bit for bit), and
+   the profiler must list no pad or copy kernel in a K1 or a K3 call; K2
+   padded to 64; and, for correctness only, fp16 D = 24, L = 1000,
+   Hq8·Hkv2, not causal)
    and at B·Hq and at Hq above a grid's y axis of 65535 (B4100·Hq16 and
    B1·Hq65536, one launch a call: every grid is 1-D), K1-K3 at their head
    dim 256 builds (K3 in two passes), the general kernels beyond the
@@ -33,10 +38,11 @@ It drives the port only (it imports no jax and nothing of the JAX package):
    its route (``kernel_route``); the tensor-core general kernels
    at the card-filling B2·Hq16·Hkv4·L1024·D512 bf16 causal (the D = 256
    case at twice the head dim) and, for correctness only, at D = 320
-   fp16, not causal, L = 1000, Hq8·Hkv2; then every wrapper the wide-heads path (5.) launches, at that
-   path's own B2·H·L256·D (D = 256 in bf16 and fp32, 512 in bf16 and
-   fp32); each case checks which wrapper launched and records which SDPA
-   kernels ran (the profiler's names: SDPA's backend);
+   fp16, not causal, L = 1000, Hq8·Hkv2; then every wrapper the
+   wide-heads path (5.) launches, at that path's own B2·H·L256·D (D = 16
+   and 32 in bf16, 256 in bf16 and fp32, 512 in bf16 and fp32); each case
+   checks which wrapper launched and records which SDPA kernels ran (the
+   profiler's names: SDPA's backend);
 4. serving slice: a full-width LlamaLite (vocab 32768, dim 1024, depth 8,
    heads 16, kv_heads 4, bf16 compute, flash attention) with seeded random
    weights, packed into a ModelBlob and installed in a ``ServingGateway``;
@@ -51,7 +57,8 @@ It drives the port only (it imports no jax and nothing of the JAX package):
    then evaluated; the trained weights go back out as a blob, and one
    batch's gradients through the flash path are held against the dense
    path's; then the wide-heads path: LlamaLite at depth 2 trained 2 steps
-   at head dims 256 and 512, each in bf16 and fp32, each launch checked
+   at head dims 16 and 32 in bf16 (64 and 32 heads) and 256 and 512, each
+   in bf16 and fp32, each launch checked
    against the kernel that head dim and dtype route to, gradients against
    the dense path's;
 6. federation slice: synchronous FedAvg rounds through the port's
@@ -339,11 +346,34 @@ def dq_split_at(B, Hq, L, D, causal):
     return (*dq_split(B, Hq, L, Dp, causal, sms), Dp)
 
 
+def dkv_mma_split_at(B, Hq, Hkv, L, causal):
+    """``(per_slab, slabs)`` of the tensor-core K3 at its D = 16 and 32
+    builds at these shapes on this card (slabs > 1: it launches
+    ``SPLIT_SUM`` too, into bf16/fp16)."""
+    import torch
+
+    from metisfl_tpu_torch.ops.flash_attention import dkv_mma_split
+
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    return dkv_mma_split(B, Hq, Hkv, L, causal, sms)
+
+
+def small_d_build(dtype_name, D):
+    """True where K1 and K3 run their D = 16 or 32 build in ``dtype_name``
+    at head dim D."""
+    import torch
+
+    from metisfl_tpu_torch.ops.flash_attention import kernel_route
+
+    route = kernel_route("dkv", getattr(torch, dtype_name), D)
+    return route.wrapper == "flash_bwd_dkv" and route.head_dim <= 32
+
+
 def per_call_launches(kernel, dtype_name, B, Hq, Hkv, L, D, causal):
     """The launches one call of ``kernel`` ("fwd", "dq" or "dkv") makes at
     these shapes on this card, by wrapper: its route's kernel once (K3's
     D = 256 build once per pass), and the fp32 kernels' second launch
-    where they split."""
+    where they split, and K3's at its D = 16 and 32 builds."""
     import torch
 
     from metisfl_tpu_torch.ops.flash_attention import kernel_route
@@ -351,6 +381,9 @@ def per_call_launches(kernel, dtype_name, B, Hq, Hkv, L, D, causal):
     route = kernel_route(kernel, getattr(torch, dtype_name), D)
     want = {route.wrapper: route.passes if route.wrapper == "flash_bwd_dkv"
             else 1}
+    if (kernel == "dkv" and small_d_build(dtype_name, D)
+            and dkv_mma_split_at(B, Hq, Hkv, L, causal)[1] > 1):
+        want[SPLIT_SUM] = 1
     if dtype_name == "float32":
         second, split = {
             "fwd": (COMBINE, fwd_split_at(B, Hq, L, D, causal)),
@@ -500,13 +533,17 @@ def combine_case(smoke, name, B, Hq, L, D, causal):
     return record
 
 
-def split_sum_case(smoke, name, B, Hq, Hkv, L, D, causal):
-    """The split fp32 K3's second launch against its twin on the card, on
-    random partials of the shape the split gives at (B, Hq, Hkv, L, D),
-    NaN in every slab a k tile lacks (read by neither): the same sums in
-    the same slab order, so bit for bit (tolerance 0), twice; timed beside
-    its bound (the bytes of the slabs it reads and the outputs it writes)
-    and its twin. No single PyTorch call computes it (library_ms null)."""
+def split_sum_case(smoke, name, B, Hq, Hkv, L, D, causal,
+                   dtype_name="float32"):
+    """The split K3's second launch against its twin on the card, on
+    random partials of the shape the split gives at (B, Hq, Hkv, L, D) in
+    ``dtype_name`` (fp32: the register-tiled K3's, fp32 outputs;
+    bf16/fp16: the D = 16 and 32 builds', the sums rounded to that dtype
+    once), NaN in every slab a k tile lacks (read by neither): the same
+    sums in the same slab order, so bit for bit (tolerance 0) against the
+    twin rounded alike, twice; timed beside its bound (the bytes of the
+    slabs it reads and the outputs it writes) and its twin. No single
+    PyTorch call computes it (library_ms null)."""
     import torch
 
     from metisfl_tpu_torch.ops.flash_attention import (
@@ -515,7 +552,11 @@ def split_sum_case(smoke, name, B, Hq, Hkv, L, D, causal):
         flash_bwd_dkv_split_sum,
     )
 
-    per_slab, slabs, Dp = dkv_split_at(B, Hq, Hkv, L, D, causal)
+    if dtype_name == "float32":
+        per_slab, slabs, Dp = dkv_split_at(B, Hq, Hkv, L, D, causal)
+    else:  # the D = 16 and 32 builds read D in place: partials D wide
+        (per_slab, slabs), Dp = dkv_mma_split_at(B, Hq, Hkv, L, causal), D
+    dtype = getattr(torch, dtype_name)
     group = Hq // Hkv
     counts = [-(-n // per_slab) for n in _slab_steps(L, group, causal)]
     rng = np.random.default_rng(SEED + 9)
@@ -524,12 +565,21 @@ def split_sum_case(smoke, name, B, Hq, Hkv, L, D, causal):
     for t, n in enumerate(counts):
         part[n:, :, :, :, 64 * t:64 * t + 64] = float("nan")
     part = part.to("cuda")
+
+    def outputs():
+        return tuple(torch.empty((B, Hkv, L, Dp), dtype=dtype, device="cuda")
+                     for _ in range(2))
+
     before = flash_bwd_dkv_split_sum.launches
-    got = flash_bwd_dkv_split_sum(part, group, causal, per_slab)
-    got2 = flash_bwd_dkv_split_sum(part, group, causal, per_slab)
+    got = flash_bwd_dkv_split_sum(part, group, causal, per_slab,
+                                  out=outputs())
+    got2 = flash_bwd_dkv_split_sum(part, group, causal, per_slab,
+                                   out=outputs())
     torch.cuda.synchronize()
-    want = dkv_split_sum_reference(part, group, causal, per_slab)
-    err = max(float((a - b).abs().max()) for a, b in zip(got, want))
+    want = [t.to(dtype) for t in dkv_split_sum_reference(part, group, causal,
+                                                         per_slab)]
+    err = max(float((a.float() - b.float()).abs().max())
+              for a, b in zip(got, want))
     smoke.check(flash_bwd_dkv_split_sum.launches == before + 2
                 and all(bool(torch.isfinite(a).all()) for a in got)
                 and err == 0.0,
@@ -539,16 +589,20 @@ def split_sum_case(smoke, name, B, Hq, Hkv, L, D, causal):
                 f"{name}: two runs of {SPLIT_SUM} give bit-identical dK "
                 "and dV")
 
+    out = outputs()
+
     def run():
-        return flash_bwd_dkv_split_sum(part, group, causal, per_slab)
+        return flash_bwd_dkv_split_sum(part, group, causal, per_slab,
+                                       out=out)
 
     ms = time_ms(run)
     rows = B * Hkv * sum(min(64, L - 64 * t) * n for t, n in
                          enumerate(counts))
-    nbytes = float(rows * Dp * 4 * 2 + 2 * B * Hkv * L * Dp * 4)
+    nbytes = float(rows * Dp * 4 * 2
+                   + 2 * B * Hkv * L * Dp * out[0].element_size())
     record = {
         "name": SPLIT_SUM, "case": name, "shape": [B, Hq, Hkv, L, D],
-        "dtype": "float32", "causal": causal, "max_abs_err": err,
+        "dtype": dtype_name, "causal": causal, "max_abs_err": err,
         "per_slab": per_slab, "slabs": slabs,
         "scratch_bytes": part.numel() * 4,
         "kernel_ms": ms, "kernel_device_ms": device_ms(run),
@@ -564,12 +618,33 @@ def split_sum_case(smoke, name, B, Hq, Hkv, L, D, causal):
     return record
 
 
+def own_kernels_check(smoke, name, label, fn, tries: int = 3):
+    """``PROFILED_CALLS`` calls of ``fn`` under the profiler: the device
+    kernels they run, which must all be the port's flash kernels (no pad,
+    copy or fill of PyTorch's around them); returns their names. A
+    profile that recorded no device work (a few µs of kernels can go
+    unrecorded) is taken again, up to ``tries`` times; none at all
+    fails."""
+    for _ in range(tries):
+        profiled = profile_call(
+            lambda: [fn() for _ in range(PROFILED_CALLS)], top=16)
+        names = ([row["kernel"] for row in profiled["top"]]
+                 if isinstance(profiled, dict) else [])
+        if names:
+            break
+    smoke.check(bool(names) and all("flash_" in n for n in names),
+                f"{name}: one {label} call runs only the port's kernels, no "
+                f"pad or copy: {names}")
+    return names
+
+
 def attention_case(smoke, name, B, Hq, Hkv, L, D, dtype_name, causal,
                    o_atol, lse_atol, kernel="flash_attention_fwd",
-                   timed=True):
+                   timed=True, own_kernels=False):
     """One kernel-vs-plain comparison, timed unless ``timed`` is false;
     returns its record. ``kernel`` names the wrapper that must have
-    launched."""
+    launched; ``own_kernels`` also checks that a call runs no kernel but
+    the port's (``own_kernels_check``)."""
     import torch
     import torch.nn.functional as F
 
@@ -607,6 +682,9 @@ def attention_case(smoke, name, B, Hq, Hkv, L, D, dtype_name, causal,
                 f"{lse_err:.3g} <= {lse_atol}")
     smoke.check(torch.equal(o, o2) and torch.equal(lse, lse2),
                 f"{name}: two runs of K1 give bit-identical o and lse")
+    call_kernels = (own_kernels_check(
+        smoke, name, "K1", lambda: flash_attention_fwd(q, k, v, causal))
+        if own_kernels else None)
     if not timed:
         return {"name": name, "shape": [B, Hq, Hkv, L, D],
                 "dtype": dtype_name, "causal": causal, "wrapper": kernel,
@@ -664,17 +742,21 @@ def attention_case(smoke, name, B, Hq, Hkv, L, D, dtype_name, causal,
     }
     if device_kernels is not None:
         record["device_kernels"] = device_kernels
+    if call_kernels is not None:
+        record["call_kernels"] = call_kernels
     print(json.dumps({"kernel_case": record}), flush=True)
     return record
 
 
 def backward_case(smoke, name, B, Hq, Hkv, L, D, dtype_name, causal,
                   rel_tol, kernels=("flash_bwd_dq", "flash_bwd_dkv"),
-                  timed=True):
+                  timed=True, own_kernels=False):
     """K2 and K3 against their plain versions on the card, each twice for
     bit-identity, timed unless ``timed`` is false; returns one record per
     kernel, named by ``kernels`` (the wrappers that must have launched,
-    with the split fp32 K3's sum where it splits at this shape)."""
+    with the split K3's sum where it splits at this shape).
+    ``own_kernels`` also checks that a K3 call runs no kernel but the
+    port's (``own_kernels_check``)."""
     import torch
     import torch.nn.functional as F
 
@@ -730,6 +812,10 @@ def backward_case(smoke, name, B, Hq, Hkv, L, D, dtype_name, causal,
                 f"{name}: two runs of K2 give bit-identical dQ")
     smoke.check(torch.equal(dk, dk2) and torch.equal(dv, dv2),
                 f"{name}: two runs of K3 give bit-identical dK and dV")
+    call_kernels = (own_kernels_check(
+        smoke, name, "K3", lambda: flash_bwd_dkv(q, k, v, do, lse, delta,
+                                                 causal))
+        if own_kernels else None)
     if not timed:
         return [{"name": kernel, "case": name, "shape": [B, Hq, Hkv, L, D],
                  "dtype": dtype_name, "causal": causal, "max_abs_err": err}
@@ -817,6 +903,8 @@ def backward_case(smoke, name, B, Hq, Hkv, L, D, dtype_name, causal,
         records[0]["device_kernels"] = dq_kernels
     if dkv_kernels is not None:
         records[1]["device_kernels"] = dkv_kernels
+    if call_kernels is not None:
+        records[1]["call_kernels"] = call_kernels
     print(json.dumps({"kernel_case": records}), flush=True)
     return records
 
@@ -2029,13 +2117,14 @@ def multiprocess_phase(smoke, gpu):
     return out
 
 
-# -- wide-heads path: LlamaLite training at head dims beyond the main path's
+# -- wide-heads path: LlamaLite training at head dims beside the main path's
 
-# dim 1024 with 4 heads (D = 256) in bf16 (K1-K3's D = 256 builds, K3 in
-# two passes), and with 2 heads (D = 512) in bf16 (the general tensor-core
-# K1-K3); both in fp32 (the register-tiled K1, K2 and K3 with the combine
-# and the split sums); depth 2, 2
-# Adam steps at batch 2 of 256 tokens
+# dim 1024 with 64 and 32 heads (D = 16 and 32) in bf16 (K1's and K3's D =
+# 16 and 32 builds, K3 unsplit at this shape; K2 padded to 64), with 4 heads
+# (D = 256) in bf16 (K1-K3's D = 256 builds, K3 in two passes), and with 2
+# heads (D = 512) in bf16 (the general tensor-core K1-K3); D = 256 and 512
+# also in fp32 (the register-tiled K1, K2 and K3 with the combine and the
+# split sums); depth 2, 2 Adam steps at batch 2 of 256 tokens
 WIDE_DEPTH, WIDE_STEPS, WIDE_BATCH, WIDE_LEN = 2, 2, 2, 256
 # B, Hq, Hkv, L, D of the kernel case that fills the card at D = 512: the
 # D = 256 case's shape at twice the head dim
@@ -2049,6 +2138,10 @@ FULL_D256_FP32 = (2, 8, 2, 1024, 256)
 # dkv_split_at); each also runs as a kernel case at the path's own
 # B·H·L·D
 WIDE_CASES = (
+    ("d16_bf16", 64, "bfloat16", "flash_attention_fwd",
+     ("flash_bwd_dq", "flash_bwd_dkv")),
+    ("d32_bf16", 32, "bfloat16", "flash_attention_fwd",
+     ("flash_bwd_dq", "flash_bwd_dkv")),
     ("d256_bf16", 4, "bfloat16", "flash_attention_fwd",
      ("flash_bwd_dq", "flash_bwd_dkv")),
     ("d256_fp32", 4, "float32", "flash_fwd_general",
@@ -2061,9 +2154,10 @@ WIDE_CASES = (
 
 
 def wide_heads_phase(smoke, gpu):
-    """LlamaLite training through ``TorchModelOps.train`` at D = 256 and
-    512: each launch lands on the kernel the head dim routes to, the loss
-    stays finite and one batch's gradients hold to the dense path's."""
+    """LlamaLite training through ``TorchModelOps.train`` at D = 16, 32,
+    256 and 512: each launch lands on the kernel the head dim routes to,
+    the loss stays finite and one batch's gradients hold to the dense
+    path's."""
     import torch
     import torch.nn.functional as F
 
@@ -2082,19 +2176,17 @@ def wide_heads_phase(smoke, gpu):
     out = {"depth": WIDE_DEPTH, "steps": WIDE_STEPS, "cases": {}}
     total = {name: 0 for name in KERNEL_WRAPPERS}
     for label, heads, dtype_name, fwd, (dq, dkv) in WIDE_CASES:
-        # K3's D = 256 build launches twice a step (dV, then dK)
-        want = {fwd: steps, dq: steps,
-                dkv: 2 * steps if dkv == "flash_bwd_dkv" else steps}
-        if dkv == "flash_bwd_dkv_general" and dkv_split_at(
-                WIDE_BATCH, heads, heads, WIDE_LEN, DIM // heads,
-                True)[1] > 1:
-            want[SPLIT_SUM] = steps
-        if dq == "flash_bwd_dq_general" and dq_split_at(
-                WIDE_BATCH, heads, WIDE_LEN, DIM // heads, True)[1] > 1:
-            want[DQ_SUM] = steps
-        if fwd == "flash_fwd_general" and fwd_split_at(
-                WIDE_BATCH, heads, WIDE_LEN, DIM // heads, True)[1] > 1:
-            want[COMBINE] = steps
+        # each step's K1, K2 and K3 calls, with their routes' second
+        # launches (K3's D = 256 build twice a step: dV, then dK)
+        shape = (WIDE_BATCH, heads, heads, WIDE_LEN, DIM // heads, True)
+        want = {}
+        for kernel in ("fwd", "dq", "dkv"):
+            for n, c in per_call_launches(kernel, dtype_name,
+                                          *shape).items():
+                want[n] = want.get(n, 0) + c * steps
+        smoke.check({fwd, dq, dkv} <= set(want),
+                    f"wide heads {label}: the routes name {sorted(want)}, "
+                    f"the path expects {fwd}, {dq} and {dkv}")
         # fp32 is the model's own compute dtype (None)
         dtype = None if dtype_name == "float32" else getattr(torch,
                                                              dtype_name)
@@ -2596,9 +2688,10 @@ def main() -> int:
         "kernel vs plain: flash_bwd ragged fp32 D=128", backward_case, smoke,
         "flash_bwd_ragged_fp32", 2, 8, 8, 1000, 128, "float32", False, 1e-4,
         general)
-    # head dims the kernels are not built for (zero-padded to 64 in the
-    # wrapper), and B·Hq and Hq above gridDim.y's 65535 (one launch a call:
-    # every grid is 1-D)
+    # small head dims (K1 and K3 on their D = 16 and 32 builds, reading D
+    # in place: a call runs no pad or copy; K2 padded to 64), and B·Hq and
+    # Hq above gridDim.y's 65535 (one launch a call: every grid is 1-D)
+    small_d = {}
     for name, shape in (
             # examples/long_context.py's shape
             ("long_context_d16", (4, 4, 4, 512, 16)),
@@ -2606,12 +2699,26 @@ def main() -> int:
             ("d32", (2, 16, 4, 1024, 32)),
             ("grid_b4100", (4100, 16, 4, 16, 64)),
             ("grid_hq65536", (1, 65536, 16384, 16, 64))):
-        smoke.phase(f"kernel vs plain: flash_fwd {name}", attention_case,
-                    smoke, f"flash_fwd_{name}", *shape, "bfloat16", True,
-                    2e-2, 1e-3)
-        smoke.phase(f"kernel vs plain: flash_bwd {name}", backward_case,
-                    smoke, f"flash_bwd_{name}", *shape, "bfloat16", True,
-                    2e-2)
+        own = shape[-1] <= 32
+        small_d[name] = (
+            smoke.phase(f"kernel vs plain: flash_fwd {name}", attention_case,
+                        smoke, f"flash_fwd_{name}", *shape, "bfloat16", True,
+                        2e-2, 1e-3, "flash_attention_fwd", True, own),
+            smoke.phase(f"kernel vs plain: flash_bwd {name}", backward_case,
+                        smoke, f"flash_bwd_{name}", *shape, "bfloat16", True,
+                        2e-2, ("flash_bwd_dq", "flash_bwd_dkv"), True, own))
+    # K3's split sum into bf16 at the d8 and d32 cases' split, bit for bit
+    smoke.phase("kernel vs plain: the split sum at d32 bf16", split_sum_case,
+                smoke, "flash_bwd_split_sum_d32_bf16", 2, 16, 4, 1024, 32,
+                True, "bfloat16")
+    # correctness only: the D = 32 build reading D = 24 in place, ragged L,
+    # GQA, fp16, not causal
+    smoke.phase("kernel vs plain: flash_fwd d24 fp16", attention_case,
+                smoke, "flash_fwd_d24_fp16", 2, 8, 2, 1000, 24, "float16",
+                False, 2e-3, 1e-3, "flash_attention_fwd", False, True)
+    smoke.phase("kernel vs plain: flash_bwd d24 fp16", backward_case,
+                smoke, "flash_bwd_d24_fp16", 2, 8, 2, 1000, 24, "float16",
+                False, 2e-3, ("flash_bwd_dq", "flash_bwd_dkv"), False, True)
     # the head dim 256 builds (K3 in two passes: dV, then dK)
     smoke.phase("kernel vs plain: flash_fwd d256", attention_case, smoke,
                 "flash_fwd_d256", 2, 16, 4, 1024, 256, "bfloat16", True,
@@ -2688,6 +2795,12 @@ def main() -> int:
                 f"kernel vs plain: the split sum wide heads {label}",
                 split_sum_case, smoke, f"flash_bwd_split_sum_wide_{label}",
                 *shape, True)
+        elif small_d_build(dtype_name, shape[-1]) and dkv_mma_split_at(
+                *shape[:4], True)[1] > 1:
+            sum_case = smoke.phase(
+                f"kernel vs plain: the split sum wide heads {label}",
+                split_sum_case, smoke, f"flash_bwd_split_sum_wide_{label}",
+                *shape, True, dtype_name)
         if bwd[0] == "flash_bwd_dq_general" and dq_split_at(
                 *shape[:2], *shape[3:], True)[1] > 1:
             dq_sum = smoke.phase(
@@ -2714,7 +2827,8 @@ def main() -> int:
     trained = smoke.phase("slice: LlamaLite training through TorchModelOps",
                           training_phase, smoke, gpu)
     torch.cuda.empty_cache()
-    wide = smoke.phase("slice: LlamaLite training at head dims 256 and 512",
+    wide = smoke.phase("slice: LlamaLite training at head dims 16, 32, 256 "
+                       "and 512",
                        wide_heads_phase, smoke, gpu)
     torch.cuda.empty_cache()
     federated = smoke.phase("slice: synchronous FedAvg rounds through "
@@ -2780,6 +2894,18 @@ def main() -> int:
         if record is not None:
             other_shapes.setdefault((label, wrapper), []).append(
                 (key, record))
+    # K1 and K3 on their D = 16 and 32 builds at the small-D cases' shapes
+    for label, key, case in (
+            ("d16_bf16", "at_long_context_d16_shape", "long_context_d16"),
+            ("d16_bf16", "at_d8_shape", "d8"),
+            ("d32_bf16", "at_d32_shape", "d32")):
+        fwd_record, bwd_records = small_d.get(case, (None, None))
+        for wrapper, record in (
+                ("flash_attention_fwd", fwd_record),
+                ("flash_bwd_dkv", (bwd_records or [None, None])[1])):
+            if record is not None:
+                other_shapes.setdefault((label, wrapper), []).append(
+                    (key, record))
     # the fp32 K2 and K3 at the card-filling D = 256, ragged D = 128 and
     # B1·Hq4·L512·D512 shapes
     for label, key, records in (
@@ -2816,7 +2942,8 @@ def main() -> int:
                         "kernel_device_ms", "kernel_host_ms", "plain_ms",
                         "bound_ms", "bound_by", "library_ms",
                         "library_device_ms", "library_kernels", "tflops",
-                        "device_kernels", "per_slab", "slabs")
+                        "device_kernels", "call_kernels", "per_slab",
+                        "slabs")
                     if k in other}
             rows.append((name, source, line, record,
                          sum(by_path.values()), by_path))
@@ -2840,7 +2967,8 @@ def main() -> int:
         if "wrapper" in record:
             entry["wrapper"] = record["wrapper"]
         for key in ("at_card_filling_shape", "at_ragged_shape",
-                    "at_b1_hq4_l512_shape"):
+                    "at_b1_hq4_l512_shape", "at_long_context_d16_shape",
+                    "at_d8_shape", "at_d32_shape"):
             if key in record:
                 entry[key] = record[key]
         if "case" in record and record["name"] not in SECOND_LAUNCHES:

@@ -50,6 +50,22 @@
 //     tiles first.
 //   - D = 128 in K3 streams 32-row q tiles, so that dK, dV (128 fp32 per
 //     thread) and the 64x32 S^T and dP^T fit in registers without spills.
+//   - K3 at D = 16 and 32 (bf16/fp16): a tile's row is one column block of
+//     32 or 64 bytes in wgmma's 32- and 64-byte swizzles (sm90.cuh), S^T
+//     and dP^T take D / 16 k-steps (one at D = 16) and dV += P^T dO and dK
+//     += dS^T Q are n = D products, so no step runs on zero columns; dK and
+//     dV are 8 + 8 or 16 + 16 fp32 a thread, q tiles stream 64 rows at a
+//     time, and a block takes 13 or 26 KB of shared memory. The build
+//     reads the caller's rows at their own length ld (a multiple of 8 up to
+//     D): cp.async zero-fills columns ld.. and only ld columns are stored,
+//     so D = 8 and 24 need no padded copy. A k tile's walk over the group's
+//     G query heads and its q tiles is long (G (L / 64 - t) steps for tile
+//     t, causal) while the grid, one block per (k tile, KV head), is under
+//     a wave at GQA shapes (B2 Hkv4 L1024: 128 blocks on 132 SMs). So the
+//     walk is cut into slabs of per_slab steps, one block each (the
+//     wrapper's dkv_mma_split, a function of the shape and the SM count),
+//     whose fp32 partials the split sum adds in slab order and rounds to
+//     the input dtype once (flash_bwd_split_sum_kernel<T>).
 //   - D = 256: K2 keeps its tiles (192 KB of shared memory; dQ is 128 fp32
 //     a thread, and ptxas spills about 96 bytes). K3 cannot hold dK and dV
 //     of its 64-row k tile (256 fp32 a thread), and wgmma's M edge of 64
@@ -105,7 +121,7 @@ constexpr int kMmaThreads = 128;  // one warpgroup; a warp owns 16 tile rows
 
 // K3 streams q tiles of kDkvBq<D> rows (see the note at the top)
 template <int D>
-constexpr int kDkvBq = D == 64 ? 64 : 32;
+constexpr int kDkvBq = D <= 64 ? 64 : 32;
 
 template <int D>
 constexpr size_t dq_mma_smem_bytes() {
@@ -315,8 +331,9 @@ __device__ __forceinline__ void dkv_probs(float (&s)[BQ / 2],
 }
 
 // K3: dK and dV for one 64-row k tile of one (batch, KV head), summed over
-// the G query heads of its group. kParts picks the outputs: kDv, kDk or
-// both (at D = 256 one launch per output, see the note at the top).
+// the G query heads of its group, or over one slab of that walk (see the
+// note at the top). kParts picks the outputs: kDv, kDk or both (at D = 256
+// one launch per output, see the note at the top).
 constexpr int kDv = 1, kDk = 2;
 
 template <typename T, int D, int kParts>
@@ -325,9 +342,13 @@ flash_bwd_dkv_mma_kernel(const T* __restrict__ q, const T* __restrict__ k,
                          const T* __restrict__ v, const T* __restrict__ dout,
                          const float* __restrict__ lse,
                          const float* __restrict__ delta, T* __restrict__ dk,
-                         T* __restrict__ dv, int Hq, int Hkv, int L,
-                         float scale, int causal) {
+                         T* __restrict__ dv, float* __restrict__ part,
+                         int Hq, int Hkv, int L, int ld, float scale,
+                         int causal, int per_slab, int slabs) {
   constexpr int BQ = kDkvBq<D>;
+  // dK's and dV's columns a wgmma makes (its N), and the bytes of a tile's
+  // rows in one column block (their swizzle)
+  constexpr int kN = sm90::block_cols<D>(), kW = sm90::block_bytes<D>();
   extern __shared__ __align__(1024) unsigned char smem_raw[];
   T* sK = reinterpret_cast<T*>(smem_raw);  // kTile x D, swizzled
   T* sV = sK + kTile * D;                  // kTile x D
@@ -339,10 +360,11 @@ flash_bwd_dkv_mma_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int g = lane >> 2, t = lane & 3;
   const int nk = (L + kTile - 1) / kTile;
-  const int heads = gridDim.x / nk;  // B * Hkv
+  const int heads = gridDim.x / (nk * slabs);  // B * Hkv
   const int bkv = blockIdx.x % heads;
+  const int slab = blockIdx.x / heads % slabs;
   // causal: the first k tile is seen by every q tile, so it goes first
-  const int k0 = (blockIdx.x / heads) * kTile;
+  const int k0 = (blockIdx.x / (heads * slabs)) * kTile;
   const int b = bkv / Hkv;
   const int G = Hq / Hkv;
   const int bh0 = b * Hq + (bkv - b * Hkv) * G;  // the group's first q head
@@ -350,15 +372,18 @@ flash_bwd_dkv_mma_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int nq = (L + BQ - 1) / BQ;
   const int q_first = causal ? k0 / BQ : 0;
   const int per = nq - q_first;  // q tiles per query head of the group
-  const int n_iter = G * per;    // member-major, as the TPU kernel's grid
+  // member-major, as the TPU kernel's grid; this block's slab of the walk
+  const int it0 = slab * per_slab;
+  const int it_end = min(G * per, it0 + per_slab);
+  if (it0 >= it_end) return;  // the tile has fewer slabs than the longest
 
   auto load_q = [&](int it, int stage) {
     const int bh = bh0 + it / per;
     const int q0 = (q_first + it % per) * BQ;
     sm90::load_tile_async<T, D, BQ, kMmaThreads>(
-        sQ + stage * BQ * D, q + (size_t)bh * L * D, q0, L);
+        sQ + stage * BQ * D, q + (size_t)bh * L * ld, q0, L, ld);
     sm90::load_tile_async<T, D, BQ, kMmaThreads>(
-        sDO + stage * BQ * D, dout + (size_t)bh * L * D, q0, L);
+        sDO + stage * BQ * D, dout + (size_t)bh * L * ld, q0, L, ld);
     if (threadIdx.x < BQ) {
       const int i = threadIdx.x, gq = q0 + i;
       const size_t at = (size_t)bh * L + (gq < L ? gq : 0);
@@ -368,10 +393,10 @@ flash_bwd_dkv_mma_kernel(const T* __restrict__ q, const T* __restrict__ k,
   };
 
   sm90::load_tile_async<T, D, kTile, kMmaThreads>(
-      sK, k + (size_t)bkv * L * D, k0, L);
+      sK, k + (size_t)bkv * L * ld, k0, L, ld);
   sm90::load_tile_async<T, D, kTile, kMmaThreads>(
-      sV, v + (size_t)bkv * L * D, k0, L);
-  load_q(0, 0);
+      sV, v + (size_t)bkv * L * ld, k0, L, ld);
+  load_q(it0, 0);
   sm90::cp_async_commit();
 
   // this thread's two key rows of the warp's 16: g and g + 8
@@ -382,13 +407,14 @@ flash_bwd_dkv_mma_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
   constexpr bool kWantDv = kParts & kDv, kWantDk = kParts & kDk;
   // an output this launch does not make keeps one unused block
-  float acc_dk[kWantDk ? D / 64 : 1][32], acc_dv[kWantDv ? D / 64 : 1][32];
+  float acc_dk[kWantDk ? D / kN : 1][kN / 2];
+  float acc_dv[kWantDv ? D / kN : 1][kN / 2];
   float s[BQ / 2], dp[BQ / 2];
 #pragma unroll
-  for (int i = 0; i < 32; ++i) {
+  for (int i = 0; i < kN / 2; ++i) {
     acc_dk[0][i] = acc_dv[0][i] = 0.f;
 #pragma unroll
-    for (int c = 1; c < D / 64; ++c) {
+    for (int c = 1; c < D / kN; ++c) {
       if constexpr (kWantDk) acc_dk[c][i] = 0.f;
       if constexpr (kWantDv) acc_dv[c][i] = 0.f;
     }
@@ -396,9 +422,9 @@ flash_bwd_dkv_mma_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
   for (int i = 0; i < BQ / 2; ++i) s[i] = dp[i] = 0.f;
 
-  for (int it = 0; it < n_iter; ++it) {
-    const int stage = it & 1;
-    if (it + 1 < n_iter) load_q(it + 1, stage ^ 1);
+  for (int it = it0; it < it_end; ++it) {
+    const int stage = (it - it0) & 1;
+    if (it + 1 < it_end) load_q(it + 1, stage ^ 1);
     sm90::cp_async_commit();
     sm90::cp_async_wait<1>();  // this stage (and K, V) have landed
     sm90::fence_proxy_async();
@@ -410,18 +436,19 @@ flash_bwd_dkv_mma_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const float* tLse = sLse + stage * BQ;
     const float* tDelta = sDelta + stage * BQ;
 
-    // S^T = K Q^T and dP^T = V dO^T, 64 keys x BQ queries, Q and dO read
-    // K-major
+    // S^T = K Q^T and dP^T = V dO^T, 64 keys x BQ queries in D / 16
+    // k-steps, Q and dO read K-major
     sm90::wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < D / 16; ++kk)
-      sm90::wgmma_ss<T, BQ>(s, sm90::desc_k_major<kTile>(k_smem, kk),
-                            sm90::desc_k_major<BQ>(q_smem, kk), kk > 0);
+      sm90::wgmma_ss<T, BQ>(s, sm90::desc_k_major<kTile, kW>(k_smem, kk),
+                            sm90::desc_k_major<BQ, kW>(q_smem, kk), kk > 0);
     if constexpr (kWantDk) {  // dV needs P alone
 #pragma unroll
       for (int kk = 0; kk < D / 16; ++kk)
-        sm90::wgmma_ss<T, BQ>(dp, sm90::desc_k_major<kTile>(v_smem, kk),
-                              sm90::desc_k_major<BQ>(do_smem, kk), kk > 0);
+        sm90::wgmma_ss<T, BQ>(dp, sm90::desc_k_major<kTile, kW>(v_smem, kk),
+                              sm90::desc_k_major<BQ, kW>(do_smem, kk),
+                              kk > 0);
     }
     sm90::wgmma_commit();
     sm90::wgmma_wait<0>();
@@ -433,7 +460,7 @@ flash_bwd_dkv_mma_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
     // dV += P^T dO and dK += dS^T Q, P and dS rounded to the input dtype
     // from registers; dO and Q read MN-major ([query][d], the reduction
-    // runs over query rows)
+    // runs over query rows), one n = kN wgmma per k16 step and block
     uint32_t ap[BQ / 16][4], ads[BQ / 16][4];
 #pragma unroll
     for (int kk = 0; kk < BQ / 16; ++kk) {
@@ -444,48 +471,61 @@ flash_bwd_dkv_mma_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
     for (int kk = 0; kk < BQ / 16; ++kk)
 #pragma unroll
-      for (int c = 0; c < D / 64; ++c) {
+      for (int c = 0; c < D / kN; ++c) {
         if constexpr (kWantDv)
-          sm90::wgmma_rs_mn<T>(acc_dv[c], ap[kk],
-                               sm90::desc_mn_major<BQ>(do_smem, 16 * kk, c));
+          sm90::wgmma_rs_mn<T>(
+              acc_dv[c], ap[kk],
+              sm90::desc_mn_major<BQ, kW>(do_smem, 16 * kk, c));
         if constexpr (kWantDk)
-          sm90::wgmma_rs_mn<T>(acc_dk[c], ads[kk],
-                               sm90::desc_mn_major<BQ>(q_smem, 16 * kk, c));
+          sm90::wgmma_rs_mn<T>(
+              acc_dk[c], ads[kk],
+              sm90::desc_mn_major<BQ, kW>(q_smem, 16 * kk, c));
       }
     sm90::wgmma_commit();
     sm90::wgmma_wait<0>();
 #pragma unroll
-    for (int c = 0; c < D / 64; ++c) {
+    for (int c = 0; c < D / kN; ++c) {
       if constexpr (kWantDv) sm90::fence_operands(acc_dv[c]);
       if constexpr (kWantDk) sm90::fence_operands(acc_dk[c]);
     }
     __syncthreads();  // done with this stage before it is refilled
   }
 
-  T* dk_out = dk + (size_t)bkv * L * D;
-  T* dv_out = dv + (size_t)bkv * L * D;
+  // the caller's ld columns, at its row stride: rounded into dk and dv, or
+  // (split) this slab's fp32 partials, (slabs, 2, B * Hkv, L, ld) with dV
+  // at 0 and dK at 1
+  const size_t head_at = (size_t)bkv * L * ld;
+  const size_t per_out = (size_t)heads * L * ld;
+  float* dv_part =
+      slabs > 1 ? part + (size_t)slab * 2 * per_out + head_at : nullptr;
+  float* dk_part = slabs > 1 ? dv_part + per_out : nullptr;
 #pragma unroll
-  for (int c = 0; c < D / 64; ++c)
+  for (int c = 0; c < D / kN; ++c)
 #pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      const int col = 64 * c + 8 * j + 2 * t;
-      if (key_a < L) {
-        const size_t at = (size_t)key_a * D + col;
-        if constexpr (kWantDk)
-          *reinterpret_cast<uint32_t*>(dk_out + at) =
-              sm90::pack2<T>(acc_dk[c][4 * j], acc_dk[c][4 * j + 1]);
-        if constexpr (kWantDv)
-          *reinterpret_cast<uint32_t*>(dv_out + at) =
-              sm90::pack2<T>(acc_dv[c][4 * j], acc_dv[c][4 * j + 1]);
-      }
-      if (key_b < L) {
-        const size_t at = (size_t)key_b * D + col;
-        if constexpr (kWantDk)
-          *reinterpret_cast<uint32_t*>(dk_out + at) =
-              sm90::pack2<T>(acc_dk[c][4 * j + 2], acc_dk[c][4 * j + 3]);
-        if constexpr (kWantDv)
-          *reinterpret_cast<uint32_t*>(dv_out + at) =
-              sm90::pack2<T>(acc_dv[c][4 * j + 2], acc_dv[c][4 * j + 3]);
+    for (int j = 0; j < kN / 8; ++j) {
+      const int col = kN * c + 8 * j + 2 * t;
+      if (col >= ld) continue;
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {  // rows key_a, then key_b
+        const int key = h ? key_b : key_a;
+        if (key >= L) continue;
+        const size_t at = (size_t)key * ld + col;
+        const int e = 4 * j + 2 * h;
+        if (slabs > 1) {
+          if constexpr (kWantDk)
+            *reinterpret_cast<float2*>(dk_part + at) =
+                make_float2(acc_dk[c][e], acc_dk[c][e + 1]);
+          if constexpr (kWantDv)
+            *reinterpret_cast<float2*>(dv_part + at) =
+                make_float2(acc_dv[c][e], acc_dv[c][e + 1]);
+        } else {
+          if constexpr (kWantDk)
+            *reinterpret_cast<uint32_t*>(dk + head_at + at) =
+                sm90::pack2<T>(acc_dk[c][e], acc_dk[c][e + 1]);
+          if constexpr (kWantDv)
+            *reinterpret_cast<uint32_t*>(dv + head_at + at) =
+                sm90::pack2<T>(acc_dv[c][e], acc_dv[c][e + 1]);
+        }
       }
     }
 }
@@ -1228,19 +1268,31 @@ flash_bwd_dkv_general_kernel(const float* __restrict__ q,
                                       slabs);
 }
 
-// the second launch of a split fp32 K2 or K3: each row of each output the
-// sum of its tile's slabs of the partials (slabs, outs, heads, L, D), in
-// slab order (K3: outs 2, dV at 0 and dK at 1; K2: outs 1, dQ). A tile's
-// slabs follow from its steps: K3's k tile t has G (nt - t) q steps when
-// causal (its first tile the longest), K2's q tile t has t + 1 k tiles
-// (last_longest, G = 1), and every tile G nt when not causal. Memory-bound:
-// it reads every slab's partial once.
+// four sums, stored in the output's type (16-bit: rounded to nearest once)
+__device__ __forceinline__ void store4(float* out, size_t e, float4 v) {
+  reinterpret_cast<float4*>(out)[e] = v;
+}
+
+template <typename T>
+__device__ __forceinline__ void store4(T* out, size_t e, float4 v) {
+  reinterpret_cast<uint2*>(out)[e] =
+      make_uint2(sm90::pack2<T>(v.x, v.y), sm90::pack2<T>(v.z, v.w));
+}
+
+// the second launch of a split K2 or K3: each row of each output the sum of
+// its tile's slabs of the fp32 partials (slabs, outs, heads, L, D), in slab
+// order (K3: outs 2, dV at 0 and dK at 1; K2: outs 1, dQ), stored in TOut
+// (fp32 for the fp32 kernels; bf16 or fp16, rounded once, for the
+// tensor-core K3 at D <= 32). A tile's slabs follow from its steps: K3's k
+// tile t has G (nt - t) q steps when causal (its first tile the longest),
+// K2's q tile t has t + 1 k tiles (last_longest, G = 1), and every tile G
+// nt when not causal. Memory-bound: it reads every slab's partial once.
+template <typename TOut>
 __global__ void __launch_bounds__(kF32Threads)
 flash_bwd_split_sum_kernel(const float4* __restrict__ part,
-                           float4* __restrict__ out0,
-                           float4* __restrict__ out1, int outs, int heads,
-                           int L, int D, int G, int causal, int last_longest,
-                           int per_slab) {
+                           TOut* __restrict__ out0, TOut* __restrict__ out1,
+                           int outs, int heads, int L, int D, int G,
+                           int causal, int last_longest, int per_slab) {
   const size_t per_out = (size_t)heads * L * D / 4;  // float4s of an output
   const int nt = (L + kTile - 1) / kTile;
   for (size_t i = blockIdx.x * (size_t)blockDim.x + threadIdx.x;
@@ -1259,7 +1311,7 @@ flash_bwd_split_sum_kernel(const float4* __restrict__ part,
       sum.z += x.z;
       sum.w += x.w;
     }
-    (out ? out1 : out0)[e] = sum;
+    store4(out ? out1 : out0, e, sum);
   }
 }
 
@@ -1498,6 +1550,9 @@ struct Args {
   float scale;
   int causal;
   cudaStream_t stream;
+  int ld = 0;  // the tuned K3: the caller's row length, at most D
+  float* part = nullptr;  // the tuned K3's split: its slabs' partials
+  int per_slab = 0, slabs = 1;
 };
 
 template <typename Kernel>
@@ -1520,20 +1575,22 @@ int launch_dq_mma(const Args& a) {
   return (int)cudaGetLastError();
 }
 
+// one block per (k tile, slab, KV head): tile-major, so the tile rank is
+// the slow index
 template <typename T, int D, int kParts>
 int launch_dkv_mma(const Args& a) {
   const size_t smem = dkv_mma_smem_bytes<D>();
   if (int err = prepare(flash_bwd_dkv_mma_kernel<T, D, kParts>, smem))
     return err;
   const long long grid =
-      (long long)((a.L + kTile - 1) / kTile) * a.B * a.Hkv;
+      (long long)((a.L + kTile - 1) / kTile) * a.slabs * a.B * a.Hkv;
   if (grid > INT_MAX) return -1;
   flash_bwd_dkv_mma_kernel<T, D, kParts>
       <<<(int)grid, kMmaThreads, smem, a.stream>>>(
           static_cast<const T*>(a.q), static_cast<const T*>(a.k),
           static_cast<const T*>(a.v), static_cast<const T*>(a.dout), a.lse,
-          a.delta, static_cast<T*>(a.out0), static_cast<T*>(a.out1), a.Hq,
-          a.Hkv, a.L, a.scale, a.causal);
+          a.delta, static_cast<T*>(a.out0), static_cast<T*>(a.out1), a.part,
+          a.Hq, a.Hkv, a.L, a.ld, a.scale, a.causal, a.per_slab, a.slabs);
   return (int)cudaGetLastError();
 }
 
@@ -1547,8 +1604,10 @@ int launch_mma(const Args& a, int D, bool dq, int parts) {
     }
     return -1;
   }
-  // D = 64 and 128 make dK and dV in one launch, D = 256 one per launch
+  // D <= 128 make dK and dV in one launch, D = 256 one per launch
   switch (D * 4 + parts) {
+    case 16 * 4 + (kDk | kDv): return launch_dkv_mma<T, 16, kDk | kDv>(a);
+    case 32 * 4 + (kDk | kDv): return launch_dkv_mma<T, 32, kDk | kDv>(a);
     case 64 * 4 + (kDk | kDv): return launch_dkv_mma<T, 64, kDk | kDv>(a);
     case 128 * 4 + (kDk | kDv): return launch_dkv_mma<T, 128, kDk | kDv>(a);
     case 256 * 4 + kDv: return launch_dkv_mma<T, 256, kDv>(a);
@@ -1557,8 +1616,9 @@ int launch_mma(const Args& a, int D, bool dq, int parts) {
   return -1;
 }
 
-// dtype: 1 = float16, 2 = bfloat16 (tensor cores; D in {64, 128, 256});
-// parts (K3 only): kDk | kDv at D = 64 and 128, kDv or kDk at D = 256
+// dtype: 1 = float16, 2 = bfloat16 (tensor cores; K2's D in {64, 128,
+// 256}, K3's in {16, 32, 64, 128, 256}); parts (K3 only): kDk | kDv at D <=
+// 128, kDv or kDk at D = 256
 int dispatch(const Args& a, int D, int dtype, bool dq, int parts) {
   if (a.B < 1 || a.Hkv < 1 || a.Hq % a.Hkv != 0 || a.L < 1) return -1;
   switch (dtype) {
@@ -1610,18 +1670,43 @@ int launch_dkv_general(const Args& a, int D, float* part, int per_slab,
   return (int)cudaGetLastError();
 }
 
-// the split sum over (slabs, outs, heads, L, D) partials (see its kernel)
-int launch_split_sum(const void* part, void* out0, void* out1, int outs,
-                     int heads, int L, int D, int G, int causal,
-                     int last_longest, int per_slab, cudaStream_t stream) {
+// the split sum over (slabs, outs, heads, L, D) partials (see its kernel),
+// into outputs of dtype 0 (fp32), 1 (fp16) or 2 (bf16)
+template <typename TOut>
+int launch_split_sum_as(const void* part, void* out0, void* out1, int outs,
+                        int heads, int L, int D, int G, int causal,
+                        int last_longest, int per_slab, cudaStream_t stream) {
   const long long float4s = (long long)outs * heads * L * D / 4;
   const int grid = (int)std::min<long long>(
       (float4s + kF32Threads - 1) / kF32Threads, 16384);
-  flash_bwd_split_sum_kernel<<<grid, kF32Threads, 0, stream>>>(
-      static_cast<const float4*>(part), static_cast<float4*>(out0),
-      static_cast<float4*>(out1), outs, heads, L, D, G, causal, last_longest,
+  flash_bwd_split_sum_kernel<TOut><<<grid, kF32Threads, 0, stream>>>(
+      static_cast<const float4*>(part), static_cast<TOut*>(out0),
+      static_cast<TOut*>(out1), outs, heads, L, D, G, causal, last_longest,
       per_slab);
   return (int)cudaGetLastError();
+}
+
+int launch_split_sum(const void* part, void* out0, void* out1, int outs,
+                     int heads, int L, int D, int G, int causal,
+                     int last_longest, int per_slab, int dtype,
+                     cudaStream_t stream) {
+  switch (dtype) {
+    case 0:
+      return launch_split_sum_as<float>(part, out0, out1, outs, heads, L, D,
+                                        G, causal, last_longest, per_slab,
+                                        stream);
+    case 1:
+      return launch_split_sum_as<__half>(part, out0, out1, outs, heads, L, D,
+                                         G, causal, last_longest, per_slab,
+                                         stream);
+    case 2:
+      return launch_split_sum_as<__nv_bfloat16>(part, out0, out1, outs,
+                                                heads, L, D, G, causal,
+                                                last_longest, per_slab,
+                                                stream);
+    default:
+      return -1;
+  }
 }
 
 // one block per (tile, pass, chunk, head): tile-major, so the tile rank is
@@ -1688,17 +1773,31 @@ int metisfl_flash_bwd_dq(const void* q, const void* k, const void* v,
   return dispatch(a, D, dtype, true, 0);
 }
 
-// K3. As K2, with dk and dv (B, Hkv, L, D) as outputs; parts = 1 makes dV
-// alone, 2 dK alone, 3 both (the output a launch does not make is not
-// touched).
+// K3. As K2, with dk and dv (B, Hkv, L, ld) as outputs, D the build (16,
+// 32, 64, 128 or 256) and ld <= D the caller's row length, a multiple of 8
+// (the build zero-fills columns ld..D - 1 in shared memory and stores ld
+// columns); parts = 1 makes dV alone, 2 dK alone, 3 both (the output a
+// launch does not make is not touched). The split: each k tile's walk over
+// (query head, q tile) is cut into slabs of per_slab steps (slabs for the
+// longest tile). slabs = 1 writes dk and dv; slabs > 1 (D <= 128, parts 3)
+// writes fp32 partials into part, (slabs, 2, B * Hkv, L, ld) with dV at
+// index 0 and dK at 1, which metisfl_flash_bwd_dkv_split_sum then sums.
 int metisfl_flash_bwd_dkv(const void* q, const void* k, const void* v,
                           const void* dout, const void* lse,
-                          const void* delta, void* dk, void* dv, int B,
-                          int Hq, int Hkv, int L, int D, int dtype,
-                          int causal, int parts, float scale, void* stream) {
-  const Args a{q, k, v, dout, static_cast<const float*>(lse),
-               static_cast<const float*>(delta), dk, dv, B, Hq, Hkv, L,
-               scale, causal, static_cast<cudaStream_t>(stream)};
+                          const void* delta, void* dk, void* dv, void* part,
+                          int B, int Hq, int Hkv, int L, int D, int ld,
+                          int dtype, int causal, int parts, int per_slab,
+                          int slabs, float scale, void* stream) {
+  if (ld < 8 || ld > D || ld % 8 != 0 || per_slab < 1 || slabs < 1 ||
+      (slabs > 1 && (part == nullptr || parts != (kDk | kDv))))
+    return -1;
+  Args a{q, k, v, dout, static_cast<const float*>(lse),
+         static_cast<const float*>(delta), dk, dv, B, Hq, Hkv, L,
+         scale, causal, static_cast<cudaStream_t>(stream)};
+  a.ld = ld;
+  a.part = static_cast<float*>(part);
+  a.per_slab = per_slab;
+  a.slabs = slabs;
   return dispatch(a, D, dtype, false, parts);
 }
 
@@ -1734,7 +1833,7 @@ int metisfl_flash_bwd_dq_split_sum(const void* part, void* dq, int B, int Hq,
   if (B < 1 || Hq < 1 || L < 1 || D < 4 || D % 4 != 0 || per_slab < 1)
     return -1;
   return launch_split_sum(part, dq, nullptr, 1, B * Hq, L, D, 1, causal, 1,
-                          per_slab, static_cast<cudaStream_t>(stream));
+                          per_slab, 0, static_cast<cudaStream_t>(stream));
 }
 
 // K3 in fp32 (dtype 0) at any head dim D that is a multiple of 32 and at
@@ -1762,17 +1861,20 @@ int metisfl_flash_bwd_dkv_general(const void* q, const void* k,
                             slabs);
 }
 
-// The second launch of a split fp32 K3: dv and dk (B, Hkv, L, D) from the
-// partials of metisfl_flash_bwd_dkv_general with the same shapes, causal
-// and per_slab; D a multiple of 4, every tensor 16-byte aligned.
+// The second launch of a split K3: dv and dk (B, Hkv, L, D) from the
+// partials of metisfl_flash_bwd_dkv_general (dtype 0, fp32 outputs) or of
+// a split metisfl_flash_bwd_dkv (dtype 1 fp16, 2 bf16, D its ld) with the
+// same shapes, causal and per_slab; D a multiple of 4, every tensor 16-byte
+// aligned.
 int metisfl_flash_bwd_dkv_split_sum(const void* part, void* dk, void* dv,
                                     int B, int Hq, int Hkv, int L, int D,
-                                    int causal, int per_slab, void* stream) {
+                                    int causal, int per_slab, int dtype,
+                                    void* stream) {
   if (!general_shape_ok(B, Hq, Hkv, L, D) || D % 4 != 0 || per_slab < 1)
     return -1;
   // outputs in the partials' order: dV at 0, dK at 1
   return launch_split_sum(part, dv, dk, 2, B * Hkv, L, D, Hq / Hkv, causal, 0,
-                          per_slab, static_cast<cudaStream_t>(stream));
+                          per_slab, dtype, static_cast<cudaStream_t>(stream));
 }
 
 // K3 on tensor cores in bf16 (dtype 2) or fp16 (1) at any head dim D that

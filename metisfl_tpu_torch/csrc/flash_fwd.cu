@@ -41,15 +41,25 @@
 //     own part of l, reduced over the row's lanes once, at the store.
 //   - O += P V: P rounded to the input dtype in registers is the A operand
 //     (that conversion is the TPU kernel's cast), V is read MN-major (the
-//     reduction runs over keys), one wgmma per 64-column block of D. O
-//     stays in fp32 registers (32 per thread at D = 64, 64 at D = 128, 128
-//     at D = 256) until one store.
-//   - Head dims 64, 128 and 256, the tile shapes unchanged (64-row q and
-//     K/V tiles): shared memory holds Q and two K/V stages in 40, 80 and
-//     160 KB, under the 227 KB a block may use. The wrapper pads any other
-//     D up to 256 to one of them; a larger D goes to the general tensor-core
-//     kernel (flash_fwd_general_mma_kernel, below), whose Q and K stream
-//     through shared memory 64 columns at a time, so that no D is too large.
+//     reduction runs over keys), one wgmma per k16 step of keys and
+//     64-column block of D (one n = D block below 64). O stays in fp32
+//     registers (8 per thread at D = 16, 16 at 32, 32 at 64, 64 at 128,
+//     128 at 256) until one store.
+//   - Head dims 16, 32, 64, 128 and 256, the tile shapes unchanged (64-row
+//     q and K/V tiles): shared memory holds Q and two K/V stages in 10, 20,
+//     40, 80 and 160 KB, under the 227 KB a block may use. At D = 16 and 32
+//     a tile's row is one column block of 32 or 64 bytes in wgmma's 32- and
+//     64-byte swizzles, S takes D / 16 k-steps (one at D = 16) and P V an
+//     n = D product, so no step runs on zero columns; the small blocks
+//     leave room for many on an SM. A build reads the caller's rows at
+//     their own length ld (a multiple of 8 up to D): cp.async zero-fills
+//     columns ld.. in shared memory and only ld columns of O are stored.
+//     The wrapper passes ld < D to the D = 16 and 32 builds, so D = 8 and
+//     24 need no padded copy; it pads any other D up to 256 to the next
+//     build (ld = D there); a D above 256 goes to the
+//     general tensor-core kernel (flash_fwd_general_mma_kernel, below),
+//     whose Q and K stream through shared memory 64 columns at a time, so
+//     that no D is too large.
 //   - Causal work is uneven (the last q tile walks every K tile), so the
 //     1-D grid hands out the longest tiles first. No atomics: the same bits
 //     on every run.
@@ -176,8 +186,11 @@ template <typename T, int D>
 __global__ void __launch_bounds__(kMmaThreads)
 flash_fwd_mma_kernel(const T* __restrict__ q, const T* __restrict__ k,
                      const T* __restrict__ v, T* __restrict__ o,
-                     float* __restrict__ lse, int Hq, int Hkv, int L,
+                     float* __restrict__ lse, int Hq, int Hkv, int L, int ld,
                      float scale, int causal) {
+  // O's columns a P V wgmma makes (its N), and the bytes of a tile's rows
+  // in one column block (their swizzle)
+  constexpr int kN = sm90::block_cols<D>(), kW = sm90::block_bytes<D>();
   extern __shared__ __align__(1024) unsigned char smem_raw[];
   T* sQ = reinterpret_cast<T*>(smem_raw);  // kTile x D, swizzled
   T* sK = sQ + kTile * D;                  // 2 stages x kTile x D
@@ -193,13 +206,14 @@ flash_fwd_mma_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int q0 = (causal ? nq - 1 - rank : rank) * kTile;
   const int b = bh / Hq;
   const int kvh = b * Hkv + (bh - b * Hq) / (Hq / Hkv);
-  const T* kb = k + (size_t)kvh * L * D;
-  const T* vb = v + (size_t)kvh * L * D;
+  // the caller's rows are ld <= D values (columns ld.. load as zeros)
+  const T* kb = k + (size_t)kvh * L * ld;
+  const T* vb = v + (size_t)kvh * L * ld;
 
   sm90::load_tile_async<T, D, kTile, kMmaThreads>(
-      sQ, q + (size_t)bh * L * D, q0, L);
-  sm90::load_tile_async<T, D, kTile, kMmaThreads>(sK, kb, 0, L);
-  sm90::load_tile_async<T, D, kTile, kMmaThreads>(sV, vb, 0, L);
+      sQ, q + (size_t)bh * L * ld, q0, L, ld);
+  sm90::load_tile_async<T, D, kTile, kMmaThreads>(sK, kb, 0, L, ld);
+  sm90::load_tile_async<T, D, kTile, kMmaThreads>(sV, vb, 0, L, ld);
   sm90::cp_async_commit();
 
   // this thread's two rows of the warp's 16: g and g + 8
@@ -207,13 +221,13 @@ flash_fwd_mma_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const float scale_log2 = scale * kLog2e;
   const uint32_t q_smem = sm90::smem_addr(sQ);
 
-  float acc_o[D / 64][32], s[32];
+  float acc_o[D / kN][kN / 2], s[32];
 #pragma unroll
-  for (int i = 0; i < 32; ++i) {
-    s[i] = 0.f;
+  for (int i = 0; i < 32; ++i) s[i] = 0.f;
 #pragma unroll
-    for (int c = 0; c < D / 64; ++c) acc_o[c][i] = 0.f;
-  }
+  for (int c = 0; c < D / kN; ++c)
+#pragma unroll
+    for (int i = 0; i < kN / 2; ++i) acc_o[c][i] = 0.f;
   // running max (base 2) and this thread's part of the running sum
   float m_a = kNeg, m_b = kNeg, l_a = 0.f, l_b = 0.f;
 
@@ -224,9 +238,9 @@ flash_fwd_mma_kernel(const T* __restrict__ q, const T* __restrict__ k,
     if (it + 1 < n_k) {
       const int next = (it + 1) * kTile;
       sm90::load_tile_async<T, D, kTile, kMmaThreads>(
-          sK + (stage ^ 1) * kTile * D, kb, next, L);
+          sK + (stage ^ 1) * kTile * D, kb, next, L, ld);
       sm90::load_tile_async<T, D, kTile, kMmaThreads>(
-          sV + (stage ^ 1) * kTile * D, vb, next, L);
+          sV + (stage ^ 1) * kTile * D, vb, next, L, ld);
     }
     sm90::cp_async_commit();
     sm90::cp_async_wait<1>();  // this stage (and Q) have landed
@@ -237,12 +251,13 @@ flash_fwd_mma_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const uint32_t k_smem = sm90::smem_addr(sK + stage * kTile * D);
     const uint32_t v_smem = sm90::smem_addr(sV + stage * kTile * D);
 
-    // S = Q K^T, 64 rows x 64 keys, K read K-major
+    // S = Q K^T, 64 rows x 64 keys in D / 16 k-steps, K read K-major
     sm90::wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < D / 16; ++kk)
-      sm90::wgmma_ss<T, kTile>(s, sm90::desc_k_major<kTile>(q_smem, kk),
-                               sm90::desc_k_major<kTile>(k_smem, kk), kk > 0);
+      sm90::wgmma_ss<T, kTile>(s, sm90::desc_k_major<kTile, kW>(q_smem, kk),
+                               sm90::desc_k_major<kTile, kW>(k_smem, kk),
+                               kk > 0);
     sm90::wgmma_commit();
     sm90::wgmma_wait<0>();
     sm90::fence_operands(s);
@@ -251,12 +266,14 @@ flash_fwd_mma_kernel(const T* __restrict__ q, const T* __restrict__ k,
     softmax_step(s, q0, k0, row_a, row_b, t, L, causal, scale_log2, m_a, m_b,
                  l_a, l_b, alpha_a, alpha_b);
 #pragma unroll
-    for (int c = 0; c < D / 64; ++c)
+    for (int c = 0; c < D / kN; ++c)
 #pragma unroll
-      for (int i = 0; i < 32; ++i) acc_o[c][i] *= (i & 2) ? alpha_b : alpha_a;
+      for (int i = 0; i < kN / 2; ++i)
+        acc_o[c][i] *= (i & 2) ? alpha_b : alpha_a;
 
     // O += P V, P rounded to the input dtype from registers; V read
-    // MN-major ([key][d], the reduction runs over keys)
+    // MN-major ([key][d], the reduction runs over keys), one n = kN wgmma
+    // per k16 step of keys and column block
     uint32_t ap[kTile / 16][4];
 #pragma unroll
     for (int kk = 0; kk < kTile / 16; ++kk)
@@ -265,30 +282,33 @@ flash_fwd_mma_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
     for (int kk = 0; kk < kTile / 16; ++kk)
 #pragma unroll
-      for (int c = 0; c < D / 64; ++c)
-        sm90::wgmma_rs_mn<T>(acc_o[c], ap[kk],
-                             sm90::desc_mn_major<kTile>(v_smem, 16 * kk, c));
+      for (int c = 0; c < D / kN; ++c)
+        sm90::wgmma_rs_mn<T>(
+            acc_o[c], ap[kk],
+            sm90::desc_mn_major<kTile, kW>(v_smem, 16 * kk, c));
     sm90::wgmma_commit();
     sm90::wgmma_wait<0>();
 #pragma unroll
-    for (int c = 0; c < D / 64; ++c) sm90::fence_operands(acc_o[c]);
+    for (int c = 0; c < D / kN; ++c) sm90::fence_operands(acc_o[c]);
     __syncthreads();  // done with this stage before it is refilled
   }
 
   float inv_a, inv_b;
   finish_rows(l_a, l_b, inv_a, inv_b);
-  T* out = o + (size_t)bh * L * D;
+  // only the caller's ld columns are stored, at its row stride
+  T* out = o + (size_t)bh * L * ld;
 #pragma unroll
-  for (int c = 0; c < D / 64; ++c)
+  for (int c = 0; c < D / kN; ++c)
 #pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      const int col = 64 * c + 8 * j + 2 * t;
+    for (int j = 0; j < kN / 8; ++j) {
+      const int col = kN * c + 8 * j + 2 * t;
+      if (col >= ld) continue;
       if (row_a < L)
-        *reinterpret_cast<uint32_t*>(out + (size_t)row_a * D + col) =
+        *reinterpret_cast<uint32_t*>(out + (size_t)row_a * ld + col) =
             sm90::pack2<T>(acc_o[c][4 * j] * inv_a,
                            acc_o[c][4 * j + 1] * inv_a);
       if (row_b < L)
-        *reinterpret_cast<uint32_t*>(out + (size_t)row_b * D + col) =
+        *reinterpret_cast<uint32_t*>(out + (size_t)row_b * ld + col) =
             sm90::pack2<T>(acc_o[c][4 * j + 2] * inv_b,
                            acc_o[c][4 * j + 3] * inv_b);
     }
@@ -838,6 +858,7 @@ struct Args {
   void* o;
   float* lse;
   int B, Hq, Hkv, L;
+  int ld;  // the tuned builds: the caller's row length, at most D
   float scale;
   int causal;
   cudaStream_t stream;
@@ -859,7 +880,7 @@ int launch_mma(const Args& a) {
   flash_fwd_mma_kernel<T, D><<<(int)grid, kMmaThreads, smem, a.stream>>>(
       static_cast<const T*>(a.q), static_cast<const T*>(a.k),
       static_cast<const T*>(a.v), static_cast<T*>(a.o), a.lse, a.Hq, a.Hkv,
-      a.L, a.scale, a.causal);
+      a.L, a.ld, a.scale, a.causal);
   return (int)cudaGetLastError();
 }
 
@@ -901,24 +922,37 @@ int launch_general_mma(const Args& a, int D) {
 
 extern "C" {
 
-// K1 on tensor cores: dtype 1 = float16, 2 = bfloat16; D in {64, 128,
-// 256}. Returns 0 on success, the cudaError_t of a refused launch, or -1 for
-// arguments the kernel does not take (the Python wrapper checks them
-// first). q and o are (B, Hq, L, D), k and v (B, Hkv, L, D), lse (B, Hq, L)
-// fp32; all contiguous, and q, k and v 16-byte aligned.
+// K1 on tensor cores: dtype 1 = float16, 2 = bfloat16; the build D in {16,
+// 32, 64, 128, 256}. Returns 0 on success, the cudaError_t of a refused
+// launch, or -1 for arguments the kernel does not take (the Python wrapper
+// checks them first). q and o are (B, Hq, L, ld), k and v (B, Hkv, L, ld),
+// lse (B, Hq, L) fp32, with ld <= D a multiple of 8 (the build zero-fills
+// columns ld..D - 1 in shared memory and stores ld columns of o); all
+// contiguous, and q, k and v 16-byte aligned.
 int metisfl_flash_fwd(const void* q, const void* k, const void* v, void* o,
                       void* lse, int B, int Hq, int Hkv, int L, int D,
-                      int dtype, int causal, float scale, void* stream) {
-  if (B < 1 || Hkv < 1 || Hq % Hkv != 0 || L < 1) return -1;
-  const Args a{q, k, v, o, static_cast<float*>(lse), B, Hq, Hkv, L, scale,
-               causal, static_cast<cudaStream_t>(stream)};
+                      int ld, int dtype, int causal, float scale,
+                      void* stream) {
+  if (B < 1 || Hkv < 1 || Hq % Hkv != 0 || L < 1 || ld < 8 || ld > D ||
+      ld % 8 != 0)
+    return -1;
+  const Args a{q, k, v, o, static_cast<float*>(lse), B, Hq, Hkv, L, ld,
+               scale, causal, static_cast<cudaStream_t>(stream)};
   switch (dtype * 1000 + D) {
+    case 1016:
+      return launch_mma<__half, 16>(a);
+    case 1032:
+      return launch_mma<__half, 32>(a);
     case 1064:
       return launch_mma<__half, 64>(a);
     case 1128:
       return launch_mma<__half, 128>(a);
     case 1256:
       return launch_mma<__half, 256>(a);
+    case 2016:
+      return launch_mma<__nv_bfloat16, 16>(a);
+    case 2032:
+      return launch_mma<__nv_bfloat16, 32>(a);
     case 2064:
       return launch_mma<__nv_bfloat16, 64>(a);
     case 2128:
@@ -949,8 +983,8 @@ int metisfl_flash_fwd_general(const void* q, const void* k, const void* v,
       (slabs > 1 && (o_part == nullptr || m_part == nullptr ||
                      l_part == nullptr)))
     return -1;
-  const Args a{q, k, v, o, static_cast<float*>(lse), B, Hq, Hkv, L, scale,
-               causal, static_cast<cudaStream_t>(stream)};
+  const Args a{q, k, v, o, static_cast<float*>(lse), B, Hq, Hkv, L, D,
+               scale, causal, static_cast<cudaStream_t>(stream)};
   return launch_f32(a, D, static_cast<float*>(o_part),
                     static_cast<float*>(m_part), static_cast<float*>(l_part),
                     per_slab, slabs);
@@ -989,8 +1023,8 @@ int metisfl_flash_fwd_general_mma(const void* q, const void* k,
   if (B < 1 || Hkv < 1 || Hq % Hkv != 0 || L < 1 || D % kBlock != 0 ||
       D / kBlock < kAhead)
     return -1;
-  const Args a{q, k, v, o, static_cast<float*>(lse), B, Hq, Hkv, L, scale,
-               causal, static_cast<cudaStream_t>(stream)};
+  const Args a{q, k, v, o, static_cast<float*>(lse), B, Hq, Hkv, L, D,
+               scale, causal, static_cast<cudaStream_t>(stream)};
   switch (dtype) {
     case 1: return launch_general_mma<__half>(a, D);
     case 2: return launch_general_mma<__nv_bfloat16>(a, D);

@@ -4,12 +4,17 @@
 // - cp.async: 16 bytes (or 4) per thread from device memory into shared
 //   memory, with a source size that zero-fills what lies past the tensor.
 // - Tiles in shared memory: a tile of ROWS rows and D 16-bit columns is
-//   stored as D / 64 column blocks, each ROWS rows of 128 bytes (64
-//   values), and 16-byte chunk c of a row r sits at chunk c ^ (r & 7) of
-//   its row: the 128-byte swizzle of wgmma's (and TMA's) SWIZZLE_128B mode,
-//   with every column block 1024-byte aligned. A block can also be loaded
-//   on its own from a matrix whose row stride is known only at run time
-//   (load_block_async), for the general head-dim kernels.
+//   stored as column blocks of ROWS rows each, W = block_bytes<D>() bytes a
+//   row: 128 bytes (64 values) for D >= 64, else the whole row (32 bytes at
+//   D = 16, 64 at D = 32). 16-byte chunk c of row r of a block sits at
+//   chunk c ^ s(r) of its row, where s(r) XORs address bits 7.. into bits
+//   4..: the 128-, 64- and 32-byte swizzles of wgmma's (and TMA's)
+//   SWIZZLE_128B/64B/32B modes (CUTLASS's Swizzle<3,4,3>, <2,4,3>,
+//   <1,4,3>), with every column block aligned to its 8-row pattern (1024,
+//   512 or 256 bytes). A block can also be loaded on its own from a matrix
+//   whose row stride is known only at run time (load_block_async), for the
+//   general head-dim kernels, and a tile from rows narrower than the tile
+//   (load_tile_async's ld: the columns past ld are zero-filled, never read).
 // - wgmma.mma_async m64nNk16 with fp32 accumulation, for bf16 and fp16
 //   operands, from one warpgroup (4 warps). B comes from shared memory
 //   through a matrix descriptor, read K-major (a tile stored [n][k]) or
@@ -20,11 +25,12 @@
 //   chunks, rounded to pairs, are the A operand of a 16-deep k step, the
 //   FlashAttention-2 reuse of P and dS straight from registers.
 //
-// Descriptor strides (checked on the card): K-major SWIZZLE_128B takes the
-// stride between 8-row groups (1024 bytes) as SBO and steps along k inside
-// the 128-byte row by 32 bytes a k16 step; MN-major takes the stride
-// between 8-row k groups (1024 bytes) as SBO, and LBO steps between
-// 64-column atoms along N (unused at N = 64).
+// Descriptor strides (checked on the card at all three widths): K-major
+// takes the stride between 8-row groups (8 W bytes) as SBO and steps along
+// k inside the W-byte row by 32 bytes a k16 step; MN-major takes the
+// stride between 8-row k groups (8 W bytes) as SBO, and LBO steps between
+// column blocks along N (unused where N is one block's width, as in every
+// call here).
 
 #pragma once
 
@@ -67,20 +73,43 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
-// byte offset of 16-byte chunk `chunk` (8 columns) of row `row` in a
-// swizzled tile of ROWS rows
-template <int ROWS>
-__device__ __forceinline__ uint32_t tile_chunk_bytes(int row, int chunk) {
-  return (uint32_t)((chunk >> 3) * ROWS * 128 + row * 128 +
-                    ((chunk ^ row) & 7) * 16);
+// columns of one column block of a tile D 16-bit values wide, and the bytes
+// of its rows (its swizzle: 128, 64 or 32)
+template <int D>
+__host__ __device__ constexpr int block_cols() {
+  static_assert(D == 16 || D == 32 || D % 64 == 0, "a tile width wgmma reads");
+  return D < 64 ? D : 64;
 }
 
-// rows [r0, r0 + ROWS) of a row-major (L, D) matrix into a swizzled tile,
-// one 16-byte cp.async per chunk; rows at or past L are zero and no byte
-// of them is read
+template <int D>
+__host__ __device__ constexpr int block_bytes() {
+  return 2 * block_cols<D>();
+}
+
+// the SWIZZLE mode of rows of W bytes, as a descriptor's bits 62-63 give it
+template <int W>
+__host__ __device__ constexpr uint64_t swizzle_mode() {
+  static_assert(W == 32 || W == 64 || W == 128, "a wgmma swizzle");
+  return W == 128 ? 1 : W == 64 ? 2 : 3;
+}
+
+// byte offset of 16-byte chunk `chunk` (8 columns) of row `row` in a
+// swizzled tile of ROWS rows whose column blocks have W-byte rows
+template <int ROWS, int W = 128>
+__device__ __forceinline__ uint32_t tile_chunk_bytes(int row, int chunk) {
+  constexpr int kChunks = W / 16;  // chunks of a block's row
+  const uint32_t o = (uint32_t)(row * W + (chunk % kChunks) * 16);
+  return (uint32_t)((chunk / kChunks) * ROWS * W) +
+         (o ^ ((o >> 3) & ((kChunks - 1) << 4)));
+}
+
+// rows [r0, r0 + ROWS) of a row-major (L, ld) matrix into a swizzled tile D
+// columns wide, one 16-byte cp.async per chunk; ld <= D is a multiple of 8
+// (16-byte rows). Rows at or past L and columns at or past ld are zero and
+// no byte of them is read.
 template <typename T, int D, int ROWS, int THREADS>
 __device__ __forceinline__ void load_tile_async(T* tile, const T* src, int r0,
-                                                int L) {
+                                                int L, int ld = D) {
   constexpr int kChunks = D / 8;
   static_assert(ROWS * kChunks % THREADS == 0, "whole chunks per thread");
 #pragma unroll
@@ -88,9 +117,11 @@ __device__ __forceinline__ void load_tile_async(T* tile, const T* src, int r0,
     const int i = threadIdx.x + j * THREADS;
     const int r = i / kChunks, c = i % kChunks;
     const int g = r0 + r;
-    const T* from = src + (size_t)(g < L ? g : 0) * D + c * 8;
-    cp_async_16(reinterpret_cast<char*>(tile) + tile_chunk_bytes<ROWS>(r, c),
-                from, g < L ? 16 : 0);
+    const bool in = g < L && c * 8 < ld;
+    const T* from = src + (size_t)(g < L ? g : 0) * ld + (in ? c * 8 : 0);
+    cp_async_16(reinterpret_cast<char*>(tile) +
+                    tile_chunk_bytes<ROWS, block_bytes<D>()>(r, c),
+                from, in ? 16 : 0);
   }
 }
 
@@ -143,26 +174,30 @@ __device__ __forceinline__ void fence_operands(float (&d)[R]) {
   for (int i = 0; i < R; ++i) asm volatile("" : "+f"(d[i])::"memory");
 }
 
+template <int W = 128>
 __device__ __forceinline__ uint64_t descriptor(uint32_t addr, uint32_t lbo,
                                                uint32_t sbo) {
   return (uint64_t)((addr & 0x3FFFF) >> 4) |
          ((uint64_t)((lbo >> 4) & 0x3FFF) << 16) |
-         ((uint64_t)((sbo >> 4) & 0x3FFF) << 32) | (1ull << 62);
+         ((uint64_t)((sbo >> 4) & 0x3FFF) << 32) | (swizzle_mode<W>() << 62);
 }
 
-// a tile of ROWS rows read K-major (rows are M or N, columns are k) at the
-// k16 step kk
-template <int ROWS>
+// a tile of ROWS rows (column blocks of W-byte rows) read K-major (rows are
+// M or N, columns are k) at the k16 step kk
+template <int ROWS, int W = 128>
 __device__ __forceinline__ uint64_t desc_k_major(uint32_t tile, int kk) {
-  return descriptor(tile + (kk >> 2) * ROWS * 128 + (kk & 3) * 32, 16, 1024);
+  constexpr int kSteps = W / 32;  // k16 steps in a block's row
+  return descriptor<W>(tile + (kk / kSteps) * ROWS * W + (kk % kSteps) * 32,
+                       16, 8 * W);
 }
 
-// a tile of ROWS rows read MN-major (rows are k, columns are N): the k16
-// step from row row0, the 64 columns of column block `block`
-template <int ROWS>
+// a tile of ROWS rows (column blocks of W-byte rows) read MN-major (rows are
+// k, columns are N): the k16 step from row row0, the W / 2 columns of
+// column block `block`
+template <int ROWS, int W = 128>
 __device__ __forceinline__ uint64_t desc_mn_major(uint32_t tile, int row0,
                                                   int block) {
-  return descriptor(tile + block * ROWS * 128 + row0 * 128, ROWS * 128, 1024);
+  return descriptor<W>(tile + block * ROWS * W + row0 * W, ROWS * W, 8 * W);
 }
 
 // d (64 x N) = or += A (64 x 16, K-major descriptor) * B (16 x N, K-major
@@ -171,9 +206,10 @@ template <typename T, int N>
 __device__ __forceinline__ void wgmma_ss(float (&d)[N / 2], uint64_t a,
                                          uint64_t b, int accumulate);
 
-// d (64 x 64) += A (64 x 16, registers) * B (16 x 64, MN-major descriptor)
-template <typename T>
-__device__ __forceinline__ void wgmma_rs_mn(float (&d)[32],
+// d (64 x N, R = N / 2 accumulators a thread; N = 16, 32 or 64) += A (64 x
+// 16, registers) * B (16 x N, MN-major descriptor)
+template <typename T, int R>
+__device__ __forceinline__ void wgmma_rs_mn(float (&d)[R],
                                             const uint32_t (&a)[4],
                                             uint64_t b);
 
@@ -254,7 +290,7 @@ __device__ __forceinline__ void wgmma_ss<__half, 32>(
 }
 
 template <>
-__device__ __forceinline__ void wgmma_rs_mn<__nv_bfloat16>(float (&d)[32],
+__device__ __forceinline__ void wgmma_rs_mn<__nv_bfloat16, 32>(float (&d)[32],
                                             const uint32_t (&a)[4],
                                             uint64_t b) {
   asm volatile(
@@ -277,7 +313,7 @@ __device__ __forceinline__ void wgmma_rs_mn<__nv_bfloat16>(float (&d)[32],
 }
 
 template <>
-__device__ __forceinline__ void wgmma_rs_mn<__half>(float (&d)[32],
+__device__ __forceinline__ void wgmma_rs_mn<__half, 32>(float (&d)[32],
                                             const uint32_t (&a)[4],
                                             uint64_t b) {
   asm volatile(
@@ -296,6 +332,64 @@ __device__ __forceinline__ void wgmma_rs_mn<__half>(float (&d)[32],
         "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
         "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
         "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_rs_mn<__nv_bfloat16, 16>(
+    float (&d)[16], const uint32_t (&a)[4], uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15"
+      "}, {%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_rs_mn<__half, 16>(
+    float (&d)[16], const uint32_t (&a)[4], uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.f16.f16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15"
+      "}, {%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_rs_mn<__nv_bfloat16, 8>(
+    float (&d)[8], const uint32_t (&a)[4], uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7"
+      "}, {%8, %9, %10, %11}, %12, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_rs_mn<__half, 8>(
+    float (&d)[8], const uint32_t (&a)[4], uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.f16.f16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7"
+      "}, {%8, %9, %10, %11}, %12, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
 }
 

@@ -26,15 +26,20 @@ The Pallas kernels take any D, since their blocks span the whole head, and
 so do the wrappers. Which kernel takes which (dtype, D) is
 :func:`kernel_route`'s answer, a pure function of both:
 
-- the tuned kernels, built for a few head dims in bf16/fp16: K1, K2 and
-  K3 for 64, 128 and 256 (K3 at D = 256 launches twice, once for dV and
-  once for dK, since dK and dV of its 64-row tile would take 256 fp32
-  registers a thread). Up to the largest, the wrappers zero-pad q, k, v
-  (and dO) along D to the next built head dim, launch with the true D's
-  scale, and slice O, dQ, dK and dV back to D. That is exact: padded
-  columns add 0 to Q·Kᵀ and to dO·Vᵀ, and padded V, dO, Q and K columns
-  only give output columns that are sliced off. A built head dim makes no
-  copy.
+- the tuned kernels, built for a few head dims in bf16/fp16: K1 and K3
+  for 16, 32, 64, 128 and 256, K2 for 64, 128 and 256 (K3 at D = 256
+  launches twice, once for dV and once for dK, since dK and dV of its
+  64-row tile would take 256 fp32 registers a thread; at D = 16 and 32 it
+  cuts its walk over each KV group into slabs, :func:`dkv_mma_split`, and
+  sums them in a second launch). The D = 16 and 32 builds read a D that
+  is a multiple of 8 in place (8, 24: their loads zero-fill the rest of
+  the build's columns in shared memory, and only D columns are stored).
+  Otherwise, up to the largest build, the wrappers zero-pad q, k, v (and
+  dO) along D to the next built head dim, launch with the true D's scale,
+  and slice O, dQ, dK and dV back to D (:func:`zero_pads`). That is
+  exact: padded columns add 0 to Q·Kᵀ and to dO·Vᵀ, and padded V, dO, Q
+  and K columns only give output columns that are sliced off. A built
+  head dim makes no copy.
 - beyond the builds in bf16/fp16, K1, K2 and K3 run on the general
   tensor-core kernels (:func:`flash_fwd_general_mma`,
   :func:`flash_bwd_dq_general_mma`, :func:`flash_bwd_dkv_general_mma`),
@@ -69,10 +74,16 @@ import torch
 
 _NEG = -1e30
 _DTYPE_CODES = {torch.float32: 0, torch.float16: 1, torch.bfloat16: 2}
-# the head dims each tuned kernel is instantiated for (bf16/fp16 only); a
-# smaller D is padded, a larger one goes to the general kernels
-_FWD_HEAD_DIMS = (64, 128, 256)
-_BWD_HEAD_DIMS = (64, 128, 256)
+# the head dims each tuned kernel is instantiated for (bf16/fp16 only): K1
+# and K3 from 16, K2 from 64; a D between builds runs on the next one (read
+# in place at the 16 and 32 builds where D is a multiple of 8, else padded),
+# a larger one goes to the general kernels
+_FWD_HEAD_DIMS = (16, 32, 64, 128, 256)
+_DQ_HEAD_DIMS = (64, 128, 256)
+_DKV_HEAD_DIMS = (16, 32, 64, 128, 256)
+# the builds that read the caller's rows at their own length (a multiple of
+# 8 values, 16 bytes), zero-filling the rest of the build's columns
+_IN_PLACE_HEAD_DIMS = (16, 32)
 # output columns of one block of the general kernels: the tensor-core
 # kernels' and the fp32 kernels' 256 (their fp32 accumulator)
 _MMA_CHUNK = 256
@@ -84,6 +95,14 @@ _KV_TILE = 64
 # even them out; on the H100, 8 beat 2 and 4 and matched 16 for K3,
 # PERF.md)
 _SPLIT_BLOCKS_PER_SM = 8
+# the same for the tensor-core K3 at D <= 32, whose small blocks (one
+# warpgroup, 13-26 KB of shared memory) share an SM several at a time
+_MMA_SPLIT_BLOCKS_PER_SM = 4
+# the fewest q steps a slab of that K3 walks: each slab writes its fp32
+# partials and the sum reads them back, which shorter slabs do not repay
+# (on the H100 slabs of 1-3 steps lost to the unsplit walk of 8 at
+# B4·H4·L512·D16, slabs of 5 lost to 9 at B2·Hq16·Hkv4·L1024, PERF.md)
+_MMA_MIN_SLAB_STEPS = 8
 
 _launch_lock = threading.Lock()
 
@@ -226,10 +245,12 @@ def _delta(o: torch.Tensor, do: torch.Tensor) -> torch.Tensor:
     return (do.to(acc) * o.to(acc)).sum(dim=-1)
 
 
-def bwd_head_dims(dtype: torch.dtype) -> Tuple[int, ...]:
-    """The head dims K2 and K3 are built for in ``dtype``: none in fp32,
-    whose register-tiled kernels take every D."""
-    return () if dtype == torch.float32 else _BWD_HEAD_DIMS
+def bwd_head_dims(dtype: torch.dtype, kernel: str) -> Tuple[int, ...]:
+    """The head dims K2 (``kernel`` "dq") or K3 ("dkv") is built for in
+    ``dtype``: none in fp32, whose register-tiled kernels take every D."""
+    if dtype == torch.float32:
+        return ()
+    return _DQ_HEAD_DIMS if kernel == "dq" else _DKV_HEAD_DIMS
 
 
 def kernel_head_dim(D: int, head_dims) -> Optional[int]:
@@ -265,6 +286,35 @@ def _slab_rows(counts, L: int, device) -> torch.Tensor:
         _KV_TILE)[:L]
 
 
+def _slabs(steps, blocks: int, sms: int, per_sm: int,
+           least: int = 1) -> Tuple[int, int]:
+    """``(per_slab, slabs)``: each tile's steps (``steps``, the longest
+    first) cut into slabs of ``per_slab`` (at least ``least``), one block
+    each of ``blocks`` per tile and slab, so that the grid holds about
+    ``per_sm`` blocks' work per SM; ``slabs`` is the longest tile's count,
+    1 where one slab already takes a whole tile."""
+    per_slab = max(least, -(-blocks * sum(steps) // (per_sm * sms)))
+    if per_slab >= steps[0]:
+        return steps[0], 1
+    return per_slab, -(-steps[0] // per_slab)
+
+
+def dkv_mma_split(B: int, Hq: int, Hkv: int, L: int, causal: bool,
+                  sms: int) -> Tuple[int, int]:
+    """``(per_slab, slabs)`` of the tensor-core K3 at its D = 16 and 32
+    builds at these shapes on a card of ``sms`` SMs. One block per (64-row
+    k tile, KV head) walks the group's query heads and their 64-row q tiles
+    (:func:`_slab_steps`), which leaves the card under one wave at GQA
+    shapes; so each walk is cut into slabs of ``per_slab`` steps, one
+    block each, aiming at ``_MMA_SPLIT_BLOCKS_PER_SM`` blocks' work per SM
+    with slabs of at least ``_MMA_MIN_SLAB_STEPS`` steps, whose fp32
+    partials :func:`flash_bwd_dkv_split_sum` adds up and rounds.
+    ``slabs == 1`` writes dK and dV directly. A pure function of its
+    arguments."""
+    return _slabs(_slab_steps(L, Hq // Hkv, causal), B * Hkv, sms,
+                  _MMA_SPLIT_BLOCKS_PER_SM, _MMA_MIN_SLAB_STEPS)
+
+
 def dkv_split(B: int, Hq: int, Hkv: int, L: int, D: int, causal: bool,
               sms: int) -> Tuple[int, int]:
     """``(per_slab, slabs)`` of the fp32 K3 beyond its builds at these
@@ -275,13 +325,9 @@ def dkv_split(B: int, Hq: int, Hkv: int, L: int, D: int, causal: bool,
     dK and dV directly; more writes partials that
     :func:`flash_bwd_dkv_split_sum` adds up. A pure function of its
     arguments."""
-    steps = _slab_steps(L, Hq // Hkv, causal)
     blocks = B * Hkv * 2 * -(-D // _MMA_CHUNK)  # per k tile and slab
-    per_slab = max(1, -(-blocks * sum(steps)
-                        // (_SPLIT_BLOCKS_PER_SM * sms)))
-    if per_slab >= steps[0]:
-        return steps[0], 1
-    return per_slab, -(-steps[0] // per_slab)
+    return _slabs(_slab_steps(L, Hq // Hkv, causal), blocks, sms,
+                  _SPLIT_BLOCKS_PER_SM)
 
 
 def _fwd_slab_steps(L: int, causal: bool):
@@ -353,21 +399,36 @@ def kernel_route(kernel: str, dtype: torch.dtype, D: int) -> Route:
     function of the two, and the one the wrappers route by. In fp32, at
     every D, each kernel's register-tiled kernel (padded to
     :func:`f32_head_dim`, 256-column chunks; K3 in two passes, dV and dK).
-    In bf16/fp16 a tuned build where D fits one (padded to it), beyond
-    them the general tensor-core kernels (padded to
-    :func:`mma_head_dim`)."""
+    In bf16/fp16 a tuned build where D fits one (K1 and K3: 16, 32, 64,
+    128, 256; K2: 64, 128, 256), beyond them the general tensor-core
+    kernels (padded to :func:`mma_head_dim`). :func:`zero_pads` says
+    whether the wrapper copies the inputs padded to the route's head
+    dim."""
     tuned, general, mma = _WRAPPERS[kernel]
     passes = 2 if kernel == "dkv" else 1
     if dtype == torch.float32:
         Dp = f32_head_dim(D)
         return Route(general, Dp, -(-Dp // _MMA_CHUNK), passes)
-    builds = _FWD_HEAD_DIMS if kernel == "fwd" else bwd_head_dims(dtype)
+    builds = (_FWD_HEAD_DIMS if kernel == "fwd"
+              else bwd_head_dims(dtype, kernel))
     built = kernel_head_dim(D, builds)
     if built is not None:
         return Route(tuned, built, 1,
                      2 if kernel == "dkv" and built == 256 else 1)
     Dp = mma_head_dim(D)
     return Route(mma, Dp, -(-Dp // _MMA_CHUNK), passes)
+
+
+def zero_pads(kernel: str, dtype: torch.dtype, D: int) -> bool:
+    """Whether the wrapper of ``kernel``'s route copies q, k, v (and dO)
+    zero-padded along D to the route's head dim (and slices the outputs
+    back): not at the route's own head dim, and not at K1's and K3's D =
+    16 and 32 builds where D is a multiple of 8, which read the caller's
+    rows at their own length and zero-fill the rest in shared memory. A
+    pure function of its arguments, as :func:`kernel_route` is."""
+    head_dim = kernel_route(kernel, dtype, D).head_dim
+    return D != head_dim and not (head_dim in _IN_PLACE_HEAD_DIMS
+                                  and D % 8 == 0)
 
 
 def _check_cuda_inputs(q, k, v, **same_as_q):
@@ -405,8 +466,8 @@ def _check_cuda_inputs(q, k, v, **same_as_q):
 def pad_head_dim(*tensors: torch.Tensor, head_dims: Tuple[int, ...]):
     """``(Dk, padded)``: each (B, H, L, D) tensor zero-padded along D to
     Dk, the next of ``head_dims`` (those one kernel is built for, such as
-    ``bwd_head_dims(dtype)``; D must not exceed the last); tensors already
-    at Dk come back as they are (no copy)."""
+    ``bwd_head_dims(dtype, kernel)``; D must not exceed the last); tensors
+    already at Dk come back as they are (no copy)."""
     D = tensors[0].shape[-1]
     Dk = kernel_head_dim(D, head_dims)
     if Dk is None:
@@ -454,7 +515,7 @@ _PTR, _INT, _FLOAT = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # C signatures: tensors and the stream as pointers, shapes as ints, scale
 _SIGNATURES = {
     "flash_fwd": {
-        "metisfl_flash_fwd": [_PTR] * 5 + [_INT] * 7 + [_FLOAT, _PTR],
+        "metisfl_flash_fwd": [_PTR] * 5 + [_INT] * 8 + [_FLOAT, _PTR],
         "metisfl_flash_fwd_general": [_PTR] * 8 + [_INT] * 9
         + [_FLOAT, _PTR],
         "metisfl_flash_fwd_split_combine": [_PTR] * 5 + [_INT] * 6
@@ -464,14 +525,14 @@ _SIGNATURES = {
     },
     "flash_bwd": {
         "metisfl_flash_bwd_dq": [_PTR] * 7 + [_INT] * 7 + [_FLOAT, _PTR],
-        "metisfl_flash_bwd_dkv": [_PTR] * 8 + [_INT] * 8 + [_FLOAT, _PTR],
+        "metisfl_flash_bwd_dkv": [_PTR] * 9 + [_INT] * 11 + [_FLOAT, _PTR],
         "metisfl_flash_bwd_dq_general": [_PTR] * 8 + [_INT] * 9
         + [_FLOAT, _PTR],
         "metisfl_flash_bwd_dq_split_sum": [_PTR] * 2 + [_INT] * 6
         + [_PTR],
         "metisfl_flash_bwd_dkv_general": [_PTR] * 9 + [_INT] * 9
         + [_FLOAT, _PTR],
-        "metisfl_flash_bwd_dkv_split_sum": [_PTR] * 3 + [_INT] * 7
+        "metisfl_flash_bwd_dkv_split_sum": [_PTR] * 3 + [_INT] * 8
         + [_PTR],
         "metisfl_flash_bwd_dkv_general_mma": [_PTR] * 8 + [_INT] * 7
         + [_FLOAT, _PTR],
@@ -481,6 +542,9 @@ _SIGNATURES = {
 }
 # K3's parts argument: the outputs one launch makes
 _DV, _DK = 1, 2
+# the tuned K3's slab arguments where it does not split: one slab as long
+# as any walk
+_UNSPLIT = (2 ** 31 - 1, 1)
 _ERROR_STRINGS = {"flash_fwd": "metisfl_cuda_error_string",
                   "flash_bwd": "metisfl_bwd_error_string"}
 
@@ -545,10 +609,12 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
     CPU tensors run :func:`flash_attention_fwd_reference`. CUDA tensors
     in bf16/fp16 launch ``csrc/flash_fwd.cu``'s tensor-core kernel on the
-    current stream (D <= 256 padded to 64, 128 or 256, with q, k and v
-    16-byte aligned there; contiguous) and raise on anything else; D > 256
-    goes to :func:`flash_fwd_general_mma`. fp32 goes, at every D, to the
-    register-tiled :func:`flash_fwd_general` (:func:`kernel_route`).
+    current stream at D <= 256, built for 16, 32, 64, 128 and 256 (the 16
+    and 32 builds read a D that is a multiple of 8 in place; any other D
+    is zero-padded to the next build, :func:`zero_pads`), with q, k and v
+    16-byte aligned there and contiguous, and raise on anything else; D >
+    256 goes to :func:`flash_fwd_general_mma`. fp32 goes, at every D, to
+    the register-tiled :func:`flash_fwd_general` (:func:`kernel_route`).
     ``flash_attention_fwd.launches`` counts this kernel's launches (one per
     call)."""
     if not _on_cuda(q):
@@ -561,14 +627,17 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if route.wrapper == "flash_fwd_general":
         return flash_fwd_general(q, k, v, causal)
     scale = 1.0 / math.sqrt(D)
-    Dk, (q, k, v) = pad_head_dim(q, k, v, head_dims=(route.head_dim,))
+    if zero_pads("fwd", q.dtype, D):
+        _, (q, k, v) = pad_head_dim(q, k, v, head_dims=(route.head_dim,))
     _check_aligned(q=q, k=k, v=v)
     o = torch.empty_like(q)
     lse = torch.empty((B, Hq, L), dtype=torch.float32, device=q.device)
+    # the build's head dim, then the length of the rows it reads and writes
+    B, Hq, Hkv, L, ld, *flags = _shape_args(q, k, causal, scale)
     _launch("flash_fwd", "metisfl_flash_fwd", flash_attention_fwd, q.device,
             q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-            lse.data_ptr(), *_shape_args(q, k, causal, scale))
-    if Dk != D:
+            lse.data_ptr(), B, Hq, Hkv, L, route.head_dim, ld, *flags)
+    if ld != D:
         o = o[..., :D].contiguous()
     return o, lse
 
@@ -790,8 +859,13 @@ def flash_bwd_dkv(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """K3 on CUDA tensors: ``(dk, dv)`` (B, Hkv, L, D), each summed over
     the query heads of its KV group, without atomics (the same bits on
     every run). Launches ``csrc/flash_bwd.cu``'s tensor-core dK/dV kernel
-    for bf16/fp16 at D <= 256 (padded as K2) or raises; at D = 256 it
-    launches twice, for dV and then for dK. A larger D goes to
+    for bf16/fp16 at D <= 256, built for 16, 32, 64, 128 and 256 (read in
+    place or padded as K1, :func:`zero_pads`) or raises; at D = 256 it
+    launches twice, for dV and then for dK. At the D = 16 and 32 builds,
+    where :func:`dkv_mma_split` cuts the k tiles' walks into slabs, the
+    blocks write fp32 partials into a scratch tensor and
+    :func:`flash_bwd_dkv_split_sum` adds them up in a fixed order and rounds
+    them to the input dtype. A larger D goes to
     :func:`flash_bwd_dkv_general_mma`, and fp32 at every D to
     :func:`flash_bwd_dkv_general` (:func:`kernel_route`).
     ``flash_bwd_dkv.launches`` counts this kernel's launches (one per
@@ -804,20 +878,35 @@ def flash_bwd_dkv(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if route.wrapper == "flash_bwd_dkv_general":
         return flash_bwd_dkv_general(q, k, v, do, lse, delta, causal)
     scale = 1.0 / math.sqrt(D)
-    Dk, (q, k, v, do) = pad_head_dim(q, k, v, do,
-                                     head_dims=(route.head_dim,))
+    if zero_pads("dkv", q.dtype, D):
+        _, (q, k, v, do) = pad_head_dim(q, k, v, do,
+                                        head_dims=(route.head_dim,))
     _check_aligned(q=q, k=k, v=v, do=do)
     dk = torch.empty_like(k)
     dv = torch.empty_like(v)
+    B, Hq, Hkv, L, ld, dtype, causal_arg, scale_arg = _shape_args(
+        q, k, causal, scale)
+    per_slab, slabs = _UNSPLIT
+    if route.head_dim in _IN_PLACE_HEAD_DIMS:
+        sms = torch.cuda.get_device_properties(
+            q.device).multi_processor_count
+        per_slab, slabs = dkv_mma_split(B, Hq, Hkv, L, causal, sms)
+    # the slabs' partials: dV at [:, 0], dK at [:, 1]
+    part = (torch.empty((slabs, 2) + tuple(k.shape), dtype=torch.float32,
+                        device=q.device) if slabs > 1 else None)
     # D = 256: one pass for dV, one for dK (K3's registers hold one)
     passes = (_DV, _DK) if route.passes == 2 else (_DV | _DK,)
-    *shapes, scale_arg = _shape_args(q, k, causal, scale)
     for parts in passes:
         _launch("flash_bwd", "metisfl_flash_bwd_dkv", flash_bwd_dkv, q.device,
                 q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
                 lse.data_ptr(), delta.data_ptr(), dk.data_ptr(),
-                dv.data_ptr(), *shapes, parts, scale_arg)
-    if Dk != D:
+                dv.data_ptr(), None if part is None else part.data_ptr(),
+                B, Hq, Hkv, L, route.head_dim, ld, dtype, causal_arg, parts,
+                per_slab, slabs, scale_arg)
+    if part is not None:
+        flash_bwd_dkv_split_sum(part, Hq // Hkv, causal, per_slab,
+                                out=(dk, dv))
+    if ld != D:
         dk, dv = dk[..., :D].contiguous(), dv[..., :D].contiguous()
     return dk, dv
 
@@ -988,16 +1077,23 @@ def flash_bwd_dkv_split_sum(part: torch.Tensor, group: int, causal: bool,
                             out: Optional[Tuple[torch.Tensor,
                                                 torch.Tensor]] = None
                             ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The split fp32 K3's second launch: ``(dk, dv)`` (B, Hkv, L, D) fp32
-    from the partials ``(slabs, 2, B, Hkv, L, D)`` that
-    :func:`flash_bwd_dkv_general` wrote with ``per_slab`` q steps a slab,
-    for ``group`` query heads per KV head; written into ``out`` where
-    given. CPU tensors run :func:`dkv_split_sum_reference`; CUDA tensors
+    """The split K3's second launch: ``(dk, dv)`` (B, Hkv, L, D) from the
+    fp32 partials ``(slabs, 2, B, Hkv, L, D)`` that
+    :func:`flash_bwd_dkv_general` (fp32) or :func:`flash_bwd_dkv` (its
+    bf16/fp16 D = 16 and 32 builds) wrote with ``per_slab`` q steps a slab,
+    for ``group`` query heads per KV head; written into ``out`` where given,
+    whose dtype (fp32, bf16 or fp16, default fp32) the sums are rounded to
+    once. CPU tensors run :func:`dkv_split_sum_reference`; CUDA tensors
     launch ``csrc/flash_bwd.cu``'s split sum (each row's slabs added in
     slab order) or raise. ``flash_bwd_dkv_split_sum.launches`` counts
     launches."""
     if not _on_cuda(part):
-        return dkv_split_sum_reference(part, group, causal, per_slab)
+        dk, dv = dkv_split_sum_reference(part, group, causal, per_slab)
+        if out is None:
+            return dk, dv
+        out[0].copy_(dk)
+        out[1].copy_(dv)
+        return out
     if (part.dtype != torch.float32 or part.dim() != 6
             or part.shape[1] != 2 or not part.is_contiguous()
             or part.shape[-1] % 4):
@@ -1009,16 +1105,17 @@ def flash_bwd_dkv_split_sum(part: torch.Tensor, group: int, causal: bool,
         out = (torch.empty_like(part[0, 1]), torch.empty_like(part[0, 0]))
     dk, dv = out
     for name, t in (("dk", dk), ("dv", dv)):
-        if (t.device != part.device or t.dtype != torch.float32
-                or t.shape != part.shape[2:] or not t.is_contiguous()):
+        if (t.device != part.device or t.dtype not in _DTYPE_CODES
+                or t.dtype != dk.dtype or t.shape != part.shape[2:]
+                or not t.is_contiguous()):
             raise ValueError(f"{name} must be a contiguous "
-                             f"{tuple(part.shape[2:])} float32 tensor on "
-                             f"{part.device}")
+                             f"{tuple(part.shape[2:])} float32, float16 or "
+                             f"bfloat16 tensor on {part.device}, as dk")
     _check_aligned(part=part, dk=dk, dv=dv)
     _launch("flash_bwd", "metisfl_flash_bwd_dkv_split_sum",
             flash_bwd_dkv_split_sum, part.device, part.data_ptr(),
             dk.data_ptr(), dv.data_ptr(), B, Hkv * group, Hkv, L, D,
-            int(bool(causal)), per_slab)
+            int(bool(causal)), per_slab, _DTYPE_CODES[dk.dtype])
     return dk, dv
 
 

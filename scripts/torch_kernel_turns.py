@@ -11,6 +11,8 @@ one NVIDIA GPU.
         --dtype float32 --not-causal --kernels fwd --root a --root b
     python3 scripts/torch_kernel_turns.py --shape 2,8,8,1000,64 \
         --dtype float32 --not-causal --kernels dq,dkv --root a --root b
+    python3 scripts/torch_kernel_turns.py --shape 4,4,4,512,16 \
+        --kernels fwd,dkv --breakdown --sdpa --turns 1 --root .
 
 Each checkout's ``metisfl_tpu_torch`` runs in a process of its own (its
 kernels built from its own ``csrc/`` into its own ``build/``), in the
@@ -28,8 +30,14 @@ host's time per call with no sync between calls (``host_ms``). Where
 calls. Each call's ``launched`` names the wrappers that launched under it
 (each checkout may route a dtype and head dim to other kernels: in fp32
 the three route to the register-tiled kernels and their second launches,
-beyond the builds in bf16/fp16 to the general tensor-core kernels). It prints one ``{"turn": ...}``
-JSON line per run and the GPU's name and power limit; it imports no jax.
+beyond the builds in bf16/fp16 to the general tensor-core kernels).
+``--breakdown`` adds each call's device kernels by the profiler (name,
+device ms and launches per call: the flash kernel beside any pad or copy
+around it), and ``--sdpa`` times ``scaled_dot_product_attention`` on the
+same inputs, its forward and one call of its backward (the yardstick,
+which the port never calls), with its kernels' names. It prints one
+``{"turn": ...}`` JSON line per run and the GPU's name and power limit; it
+imports no jax.
 """
 
 from __future__ import annotations
@@ -75,6 +83,54 @@ def _device_ms(torch, fn):
     return total / 1e3 / ITERS if total else None
 
 
+def _breakdown(torch, fn):
+    """Device kernels of one call of ``fn``, by the profiler over ITERS
+    calls: name, device ms per call and launches per call, longest first."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(ITERS):
+            fn()
+        torch.cuda.synchronize()
+    rows = [{"kernel": evt.key[:100],
+             "device_ms": float(evt.self_device_time_total) / 1e3 / ITERS,
+             "per_call": int(evt.count) / ITERS}
+            for evt in prof.key_averages()
+            if evt.device_type == DeviceType.CUDA
+            and evt.self_device_time_total > 0]
+    return sorted(rows, key=lambda r: -r["device_ms"])
+
+
+def _sdpa(torch, q, k, v, do, causal, kernels):
+    """SDPA's forward and one call of its backward on the same inputs:
+    events, the profiler's device time and its kernels, per call."""
+    import torch.nn.functional as F
+
+    gqa = q.shape[1] != k.shape[1]
+    calls = {}
+    if "fwd" in kernels:
+        calls["sdpa_fwd"] = lambda: F.scaled_dot_product_attention(
+            q, k, v, is_causal=causal, enable_gqa=gqa)
+    if kernels & {"dq", "dkv"}:
+        qg, kg, vg = (t.detach().requires_grad_() for t in (q, k, v))
+        o = F.scaled_dot_product_attention(qg, kg, vg, is_causal=causal,
+                                           enable_gqa=gqa)
+        calls["sdpa_bwd"] = lambda: torch.autograd.grad(
+            o, (qg, kg, vg), do, retain_graph=True)
+    timed = {}
+    for name, fn in calls.items():
+        try:
+            timed[name] = {"ms": _time_ms(torch, fn),
+                           "device_ms": _device_ms(torch, fn),
+                           "kernels": _breakdown(torch, fn)}
+        except RuntimeError as exc:  # a backend that refuses the shape
+            timed[name] = {"error": str(exc)[:300]}
+    return timed
+
+
 def _host_ms(torch, fn):
     fn()
     torch.cuda.synchronize()
@@ -93,7 +149,7 @@ def _launches(fa):
 
 
 def child(root: str, shape, dtype_name: str, causal: bool,
-          kernels) -> int:
+          kernels, breakdown: bool = False, sdpa: bool = False) -> int:
     sys.path.insert(0, os.path.abspath(root))
     import importlib
 
@@ -129,10 +185,13 @@ def child(root: str, shape, dtype_name: str, causal: bool,
         out[name] = {"launched": launched, "readings": [
             {"ms": _time_ms(torch, fn), "device_ms": _device_ms(torch, fn),
              "host_ms": _host_ms(torch, fn)} for _ in range(REPEATS)]}
-    print(json.dumps({"turn": {"root": root, "shape": list(shape),
-                               "dtype": dtype_name, "causal": causal,
-                               "kernels": out}}),
-          flush=True)
+        if breakdown:
+            out[name]["device_kernels"] = _breakdown(torch, fn)
+    turn = {"root": root, "shape": list(shape), "dtype": dtype_name,
+            "causal": causal, "kernels": out}
+    if sdpa:
+        turn["library"] = _sdpa(torch, q, k, v, do, causal, kernels)
+    print(json.dumps({"turn": turn}), flush=True)
     return 0
 
 
@@ -155,6 +214,11 @@ def main() -> int:
     parser.add_argument("--kernels", default="fwd,dq,dkv",
                         help="which of fwd, dq and dkv to time (default: "
                              "%(default)s)")
+    parser.add_argument("--breakdown", action="store_true",
+                        help="add each call's device kernels (profiler)")
+    parser.add_argument("--sdpa", action="store_true",
+                        help="time scaled_dot_product_attention's forward "
+                             "and backward on the same inputs")
     parser.add_argument("--child", help=argparse.SUPPRESS)
     args = parser.parse_args()
     shape = tuple(int(x) for x in args.shape.split(","))
@@ -165,7 +229,7 @@ def main() -> int:
         parser.error(f"--kernels takes fwd, dq and dkv, got {args.kernels!r}")
     if args.child:
         return child(args.child, shape, args.dtype, not args.not_causal,
-                     kernels)
+                     kernels, args.breakdown, args.sdpa)
     import torch
 
     if not torch.cuda.is_available():
@@ -179,7 +243,9 @@ def main() -> int:
         rc = subprocess.run([sys.executable, os.path.abspath(__file__),
                              "--shape", args.shape, "--dtype", args.dtype,
                              "--kernels", args.kernels, "--child", root]
-                            + ["--not-causal"] * args.not_causal).returncode
+                            + ["--not-causal"] * args.not_causal
+                            + ["--breakdown"] * args.breakdown
+                            + ["--sdpa"] * args.sdpa).returncode
         if rc:
             print(f"torch_kernel_turns: {root} exited {rc}", file=sys.stderr)
             return rc

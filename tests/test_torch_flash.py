@@ -553,24 +553,36 @@ def test_autograd_runs_all_three_kernels_on_gpu(cuda_device):
 BF16_BWD_REL = 2.0 ** -7
 
 
+# fp16 against the Pallas kernels, as bf16 above with fp16's 10 mantissa
+# bits: o within one fp16 ulp in [0.5, 1), dq, dk, dv within one ulp of
+# their largest magnitude
+FP16_FWD_ATOL = 2.0 ** -11
+FP16_BWD_REL = 2.0 ** -10
+
+
 @pytest.mark.parametrize("D,dtype", [
     pytest.param(D, torch.float32, id=str(D))
     for D in (8, 16, 32, 256, 320, 512)] + [
-    pytest.param(D, torch.bfloat16, id=f"{D}-bf16") for D in (320, 384)])
+    pytest.param(D, torch.bfloat16, id=f"{D}-bf16")
+    for D in (8, 16, 32, 320, 384)] + [
+    pytest.param(D, torch.float16, id=f"{D}-fp16") for D in (8, 16, 32)])
 @pytest.mark.parametrize("causal", [False, True])
 def test_twins_at_padded_head_dims_match_pallas(jax_flash, causal, D, dtype):
     """The Pallas kernels take any D (their blocks span the head); the
-    twins, which the CPU path runs and the padded and general kernels are
-    held to, give the Pallas forward's o and lse and its backward's dq, dk,
-    dv (interpret mode) at D = 8, 16, 32, 256 (K2/K3's largest build), 320
-    and 512 (the general kernels), B1·Hq4·Hkv2·L40 fp32 (to ``ATOL``); and
-    in bf16 at D = 320 and 384, where the general tensor-core kernels take
-    K1 and K3: o within ``BF16_FWD_ATOL`` (the bf16 forward test's), lse
-    (fp32 from exact bf16 inputs) within ``ATOL``, dq, dk, dv within
-    ``BF16_BWD_REL`` × max|ref|."""
+    twins, which the CPU path runs and the small-D, padded and general
+    kernels are held to, give the Pallas forward's o and lse and its
+    backward's dq, dk, dv (interpret mode) at D = 8, 16, 32, 256 (K2/K3's
+    largest build), 320 and 512 (the general kernels), B1·Hq4·Hkv2·L40
+    fp32 (to ``ATOL``); in bf16 at D = 8, 16 and 32, where K1 and K3 run
+    their D = 16 and 32 builds, and at 320 and 384, where the general
+    tensor-core kernels take K1 and K3: o within ``BF16_FWD_ATOL`` (the
+    bf16 forward test's), lse (fp32 from exact bf16 inputs) within
+    ``ATOL``, dq, dk, dv within ``BF16_BWD_REL`` × max|ref|; and in fp16
+    at D = 8, 16 and 32 within ``FP16_FWD_ATOL`` and ``FP16_BWD_REL``."""
     jnp = jax_flash.jnp
     q, k, v, do = _bwd_inputs(L=40, D=D)
-    jdt = jnp.float32 if dtype == torch.float32 else jnp.bfloat16
+    jdt = {torch.float32: jnp.float32, torch.bfloat16: jnp.bfloat16,
+           torch.float16: jnp.float16}[dtype]
     jq, jk, jv, jdo = (jnp.asarray(a, jdt) for a in (q, k, v, do))
     o_ref, lse_ref = jax_flash._flash_forward(jq, jk, jv, causal, None,
                                               None, True)
@@ -581,7 +593,9 @@ def test_twins_at_padded_head_dims_match_pallas(jax_flash, causal, D, dtype):
     tq, tk, tv, tdo = (torch.from_numpy(a).to(dtype) for a in (q, k, v, do))
     o, lse = flash_attention_fwd(tq, tk, tv, causal)
     assert o.dtype == dtype
-    o_atol = ATOL if dtype == torch.float32 else BF16_FWD_ATOL
+    o_atol, bwd_rel = {torch.float32: (ATOL, None),
+                       torch.bfloat16: (BF16_FWD_ATOL, BF16_BWD_REL),
+                       torch.float16: (FP16_FWD_ATOL, FP16_BWD_REL)}[dtype]
     np.testing.assert_allclose(o.float().numpy(),
                                np.asarray(o_ref.astype(jnp.float32)),
                                atol=o_atol, rtol=0)
@@ -591,7 +605,7 @@ def test_twins_at_padded_head_dims_match_pallas(jax_flash, causal, D, dtype):
         assert a.shape == b.shape and a.dtype == dtype, name
         b = np.asarray(b.astype(jnp.float32))
         atol = ATOL if dtype == torch.float32 else (
-            BF16_BWD_REL * float(np.abs(b).max()))
+            bwd_rel * float(np.abs(b).max()))
         np.testing.assert_allclose(a.float().numpy(), b, atol=atol, rtol=0,
                                    err_msg=name)
 
@@ -603,12 +617,15 @@ def test_twins_at_padded_head_dims_match_pallas(jax_flash, causal, D, dtype):
 def test_head_dim_padding_is_exact(causal, D, dtype):
     """The wrappers' padding path, with the twins in the kernels' place:
     q, k, v and dO zero-padded to the head dim of the kernel each call
-    routes to (``kernel_route``: in bf16/fp16 the next build, 64, 128 or
-    256, and beyond the builds the next multiple of 64 of the tensor-core
-    general kernels; in fp32, for K1, K2 and K3 at every D, the next
-    multiple of 32, at least 64, of the register-tiled kernels), run with
-    the true D's scale and sliced back, give the unpadded twins' o, lse,
-    dq, dk and dv to 0 ulp, and 0 in every padded column.
+    routes to (``kernel_route``: in bf16/fp16 the next build, K1 and K3 16,
+    32, 64, 128 or 256 and K2 64, 128 or 256, and beyond the builds the
+    next multiple of 64 of the tensor-core general kernels; in fp32, for
+    K1, K2 and K3 at every D, the next multiple of 32, at least 64, of the
+    register-tiled kernels), run with the true D's scale and sliced back,
+    give the unpadded twins' o, lse, dq, dk and dv to 0 ulp, and 0 in every
+    padded column. (The D = 16 and 32 builds zero-fill those columns in
+    shared memory instead of a padded copy, where D is a multiple of 8:
+    the same arithmetic.)
 
     The inputs are multiples of 1/8 in [-1, 1], exact in every dtype, so
     that every product and every sum over D (Q·Kᵀ, dO·Vᵀ) is exact in fp32
@@ -636,7 +653,11 @@ def test_head_dim_padding_is_exact(causal, D, dtype):
     if dtype == torch.float32:
         assert fwd.head_dim == max(64, -(-D // 32) * 32)
     elif D <= 256:
-        assert fwd.head_dim == next(d for d in (64, 128, 256) if D <= d)
+        assert fwd.head_dim == next(d for d in (16, 32, 64, 128, 256)
+                                    if D <= d)
+        assert kernel_route("dkv", dtype, D).head_dim == fwd.head_dim
+        assert kernel_route("dq", dtype, D).head_dim == next(
+            d for d in (64, 128, 256) if D <= d)
     else:
         assert fwd.head_dim == -(-D // 64) * 64
     Dk, (qp, kp, vp) = pad_head_dim(q, k, v, head_dims=(fwd.head_dim,))
@@ -696,6 +717,21 @@ _ROUTES = {
 }
 for _dtype in (torch.bfloat16, torch.float16):
     _ROUTES.update({
+        (_dtype, 8): (("flash_attention_fwd", 16, 1, 1),
+                      ("flash_bwd_dq", 64, 1, 1),
+                      ("flash_bwd_dkv", 16, 1, 1)),
+        (_dtype, 16): (("flash_attention_fwd", 16, 1, 1),
+                       ("flash_bwd_dq", 64, 1, 1),
+                       ("flash_bwd_dkv", 16, 1, 1)),
+        (_dtype, 24): (("flash_attention_fwd", 32, 1, 1),
+                       ("flash_bwd_dq", 64, 1, 1),
+                       ("flash_bwd_dkv", 32, 1, 1)),
+        (_dtype, 32): (("flash_attention_fwd", 32, 1, 1),
+                       ("flash_bwd_dq", 64, 1, 1),
+                       ("flash_bwd_dkv", 32, 1, 1)),
+        (_dtype, 40): (("flash_attention_fwd", 64, 1, 1),
+                       ("flash_bwd_dq", 64, 1, 1),
+                       ("flash_bwd_dkv", 64, 1, 1)),
         (_dtype, 64): (("flash_attention_fwd", 64, 1, 1),
                        ("flash_bwd_dq", 64, 1, 1),
                        ("flash_bwd_dkv", 64, 1, 1)),
@@ -728,10 +764,10 @@ def test_kernel_route_names_the_kernel_for_each_dtype_and_head_dim(dtype,
     wrappers route by, and needs no GPU: in fp32 K1, K2 and K3 go at every
     D to their register-tiled kernels (padded to a multiple of 32 and at
     least 64, 256-column chunks; K3 in two passes, dV and dK); bf16/fp16
-    goes to the builds up to 256 and above to the tensor-core general
-    kernels for K1, K2 and K3 (padded to a multiple of 64, 256-column
-    chunks; K3 in two passes); each route names a wrapper of the
-    module."""
+    goes to the builds up to 256 (K1 and K3 from 16, K2 from 64) and above
+    to the tensor-core general kernels for K1, K2 and K3 (padded to a
+    multiple of 64, 256-column chunks; K3 in two passes); each route names
+    a wrapper of the module."""
     import importlib
 
     from metisfl_tpu_torch.ops.flash_attention import kernel_route
@@ -1224,10 +1260,82 @@ def test_kernel_head_dims_need_no_copy():
         pad_head_dim,
     )
 
-    for D in (64, 128, 256):
+    for D in (16, 32, 64, 128, 256):
         q = torch.zeros(1, 2, 8, D)
         Dk, (same,) = pad_head_dim(q, head_dims=_FWD_HEAD_DIMS)
         assert Dk == D and same is q
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+def test_small_head_dims_read_in_place_while_k2_pads(dtype):
+    """``zero_pads`` is a pure function of (kernel, dtype, D), as
+    ``kernel_route`` is: K1 and K3 run a D <= 32 that is a multiple of 8
+    on their D = 16 and 32 builds without a padded copy (the builds
+    zero-fill the rest of their columns in shared memory), while K2, built
+    from 64, still pads to 64; a D that is not a multiple of 8 (rows that
+    are not 16-byte multiples) pads for all three, fp32 pads to its
+    register-tiled kernels' 64, and a built head dim makes no copy."""
+    from metisfl_tpu_torch.ops.flash_attention import (
+        kernel_route,
+        zero_pads,
+    )
+
+    for D in (8, 16, 24, 32):
+        assert not zero_pads("fwd", dtype, D)
+        assert not zero_pads("dkv", dtype, D)
+        assert zero_pads("dq", dtype, D)
+        assert kernel_route("dq", dtype, D).head_dim == 64
+        assert kernel_route("fwd", dtype, D).head_dim == (16 if D <= 16
+                                                          else 32)
+    for D in (1, 4, 12, 20, 31, 40, 100):
+        assert all(zero_pads(kernel, dtype, D)
+                   for kernel in ("fwd", "dq", "dkv"))
+    for D in (64, 128, 256):
+        assert not any(zero_pads(kernel, dtype, D)
+                       for kernel in ("fwd", "dq", "dkv"))
+    for D in (8, 16, 32):
+        assert all(zero_pads(kernel, torch.float32, D)
+                   for kernel in ("fwd", "dq", "dkv"))
+
+
+@pytest.mark.parametrize("B,Hq,Hkv,L,causal", [
+    (4, 4, 4, 512, True), (2, 16, 4, 1024, True), (2, 16, 4, 1024, False),
+    (2, 8, 2, 1000, False), (64, 4, 4, 128, True), (1, 8, 2, 1000, True)])
+@pytest.mark.parametrize("sms", [1, 132])
+def test_dkv_mma_split_cuts_the_longest_walk_into_slabs(B, Hq, Hkv, L,
+                                                        causal, sms):
+    """The tensor-core K3's split at D <= 32, a pure function of the shape
+    and the SM count: ``per_slab`` q steps a slab (a 64-row q tile of one
+    query head of the group), ``slabs`` the longest k tile's count, so
+    that every k tile's walk (``_slab_steps``) is covered and no slab is
+    empty at the longest tile, and no slab shorter than
+    ``_MMA_MIN_SLAB_STEPS``; one slab, as long as that walk, where the
+    grid already holds the work (one SM, or many heads at a short L) or
+    the walk is no longer than the shortest slab."""
+    from metisfl_tpu_torch.ops.flash_attention import (
+        _MMA_MIN_SLAB_STEPS,
+        _MMA_SPLIT_BLOCKS_PER_SM,
+        _slab_steps,
+        dkv_mma_split,
+    )
+
+    steps = _slab_steps(L, Hq // Hkv, causal)
+    per_slab, slabs = dkv_mma_split(B, Hq, Hkv, L, causal, sms)
+    assert per_slab * slabs >= steps[0] > per_slab * (slabs - 1)
+    assert max(steps) == steps[0]
+    work, target = B * Hkv * sum(steps), _MMA_SPLIT_BLOCKS_PER_SM * sms
+    if slabs == 1:
+        assert per_slab == steps[0]
+        assert (work > target * (steps[0] - 1)
+                or steps[0] <= _MMA_MIN_SLAB_STEPS)
+    else:
+        # the least per_slab, down to the shortest slab, that keeps to the
+        # target's blocks of work per SM
+        assert per_slab >= _MMA_MIN_SLAB_STEPS
+        assert per_slab * target >= work
+        assert (work > (per_slab - 1) * target
+                or per_slab == _MMA_MIN_SLAB_STEPS)
+    assert dkv_mma_split(B, Hq, Hkv, L, causal, sms) == (per_slab, slabs)
 
 
 def test_head_dims_beyond_the_kernels_are_refused_with_their_reason():
@@ -1246,17 +1354,20 @@ def test_head_dims_beyond_the_kernels_are_refused_with_their_reason():
         kernel_head_dim,
     )
 
-    for D, fwd, bwd16, bwd32 in ((1, 64, 64, None), (129, 256, 256, None),
-                                 (256, 256, 256, None),
-                                 (257, None, None, None),
-                                 (512, None, None, None)):
+    for D, fwd, dq16, dkv16 in ((1, 16, 64, 16), (129, 256, 256, 256),
+                                (256, 256, 256, 256),
+                                (257, None, None, None),
+                                (512, None, None, None)):
         q = torch.zeros(1, 2, 8, D, dtype=torch.bfloat16)
         _check_cuda_inputs(q, q, q)
         _check_cuda_inputs(q, q, q, do=q)
         assert kernel_head_dim(D, _FWD_HEAD_DIMS) == fwd
-        assert kernel_head_dim(D, bwd_head_dims(torch.bfloat16)) == bwd16
-        assert kernel_head_dim(D, bwd_head_dims(torch.float16)) == bwd16
-        assert kernel_head_dim(D, bwd_head_dims(torch.float32)) == bwd32
+        for dtype in (torch.bfloat16, torch.float16):
+            assert kernel_head_dim(D, bwd_head_dims(dtype, "dq")) == dq16
+            assert kernel_head_dim(D, bwd_head_dims(dtype, "dkv")) == dkv16
+        for kernel in ("dq", "dkv"):
+            assert kernel_head_dim(D, bwd_head_dims(torch.float32,
+                                                    kernel)) is None
     q = torch.zeros(1, 2, 8, 0, dtype=torch.bfloat16)
     with pytest.raises(ValueError, match="head_dim >= 1"):
         _check_cuda_inputs(q, q, q)
@@ -1301,8 +1412,9 @@ _PADDED_GPU_CASES = [
 @pytest.mark.parametrize("dtype,causal,B,Hq,Hkv,L,D", _PADDED_GPU_CASES)
 def test_kernels_at_padded_head_dims_and_large_grids_on_gpu(
         cuda_device, dtype, causal, B, Hq, Hkv, L, D):
-    """K1, K2 and K3 at head dims the kernels are not built for (padded to
-    64 in bf16/fp16, to 64 in fp32) and at B·Hq > 65535 (every kernel on a
+    """K1, K2 and K3 at small head dims (in bf16/fp16 K1 and K3 on their D
+    = 16 and 32 builds, K3 with its split sum where it splits, K2 padded to
+    64; all padded to 64 in fp32) and at B·Hq > 65535 (every kernel on a
     1-D grid: one launch each, the fp32 kernels with their combine or sum
     where they split) against their twins on the card, at the tolerances
     of the unpadded cases."""
@@ -1325,6 +1437,112 @@ def test_kernels_at_padded_head_dims_and_large_grids_on_gpu(
         scale = float(b.float().abs().max())
         err = float((a.float() - b.float()).abs().max())
         assert err <= _BWD_REL[dtype] * scale, (name, err, scale)
+
+
+# (dtype, causal, B, Hq, Hkv, L, D): K1's and K3's D = 16 and 32 builds in
+# bf16/fp16, D a multiple of 8 read in place (8, 16, 24, 32) and D = 12
+# padded to 16, GQA Hq8·Hkv2 at a ragged L = 77 and L = 1000 (K3's walks
+# split into slabs), and many heads at a short L (B64·Hq4·L128: one slab)
+_SMALL_D_GPU_CASES = [
+    (dtype, causal, 2, 8, 2, L, D)
+    for dtype in (torch.bfloat16, torch.float16)
+    for causal in (False, True)
+    for D in (8, 12, 16, 24, 32)
+    for L in (77, 1000)
+] + [(torch.bfloat16, True, 64, 4, 4, 128, 16),
+     (torch.float16, False, 64, 4, 4, 128, 32)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,causal,B,Hq,Hkv,L,D", _SMALL_D_GPU_CASES)
+def test_small_head_dim_builds_match_twins_on_gpu(cuda_device, dtype, causal,
+                                                  B, Hq, Hkv, L, D):
+    """K1 and K3 on their D = 16 and 32 builds (K2 on its 64 build, padded)
+    against their twins on the card, at the tolerances of the built head
+    dims: o within ``_FWD_ATOL``, lse within 1e-3, dq, dk, dv within
+    ``_BWD_REL`` × max|twin|. Each call launches what its route names (K3
+    its split sum where ``dkv_mma_split`` splits), and two runs give the
+    same bits: the split's slabs are summed in a fixed order."""
+    q, k, v, o_ref, lse_ref, do = _cuda_bwd_inputs(cuda_device, dtype, B,
+                                                   Hq, Hkv, L, D, causal)
+    before = _launch_counts()
+    runs = [(flash_attention_fwd(q, k, v, causal),
+             flash_attention_bwd(q, k, v, o_ref, lse_ref, do, causal))
+            for _ in range(2)]
+    torch.cuda.synchronize()
+    once = _expected_launches(cuda_device, dtype, B, Hq, Hkv, L, D, causal)
+    assert once.get("flash_bwd_dkv") == 1 and "flash_attention_fwd" in once
+    assert _launched(before) == {n: 2 * c for n, c in once.items()}
+    (o, lse), got = runs[0]
+    assert o.dtype == dtype and o.shape == q.shape and o.is_contiguous()
+    torch.testing.assert_close(o.float(), o_ref.float(),
+                               atol=_FWD_ATOL[dtype], rtol=0)
+    torch.testing.assert_close(lse, lse_ref, atol=1e-3, rtol=0)
+    want = flash_attention_bwd_reference(q, k, v, o_ref, lse_ref, do, causal)
+    for name, a, b in zip(("dq", "dk", "dv"), got, want):
+        assert a.dtype == dtype and a.shape == b.shape, name
+        assert a.is_contiguous(), name
+        scale = float(b.float().abs().max())
+        err = float((a.float() - b.float()).abs().max())
+        assert err <= _BWD_REL[dtype] * scale, (name, err, scale)
+    (o2, lse2), got2 = runs[1]
+    assert torch.equal(o, o2) and torch.equal(lse, lse2)
+    for a, b in zip(got, got2):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("causal,group,per_slab", [
+    (True, 4, 9), (False, 4, 5), (True, 1, 2)])
+def test_split_sum_kernel_rounds_to_16_bits_on_gpu(cuda_device, dtype,
+                                                   causal, group, per_slab):
+    """The split sum into bf16/fp16 outputs (the tensor-core K3's second
+    launch at D <= 32) against its twin rounded to the same dtype, on
+    random partials (B2·Hkv2·L1000·D24): the same fp32 sums in the same
+    slab order, rounded to nearest once, so bit for bit, reading no slab a
+    tile lacks (those hold NaN)."""
+    from metisfl_tpu_torch.ops.flash_attention import (
+        _slab_steps,
+        dkv_split_sum_reference,
+        flash_bwd_dkv_split_sum,
+    )
+
+    L = 1000
+    counts = [-(-n // per_slab) for n in _slab_steps(L, group, causal)]
+    part = torch.from_numpy(np.random.default_rng(per_slab).standard_normal(
+        (counts[0], 2, 2, 2, L, 24)).astype(np.float32))
+    for t, n in enumerate(counts):
+        part[n:, :, :, :, 64 * t:64 * t + 64] = float("nan")
+    part = part.to(cuda_device)
+    out = tuple(torch.empty(part.shape[2:], dtype=dtype, device=cuda_device)
+                for _ in range(2))
+    before = flash_bwd_dkv_split_sum.launches
+    got = flash_bwd_dkv_split_sum(part, group, causal, per_slab, out=out)
+    torch.cuda.synchronize()
+    assert flash_bwd_dkv_split_sum.launches == before + 1
+    want = dkv_split_sum_reference(part, group, causal, per_slab)
+    for a, b in zip(got, want):
+        assert a.dtype == dtype and torch.equal(a, b.to(dtype))
+
+
+def test_split_sum_twin_rounds_into_a_16_bit_out():
+    """On the CPU the split sum runs its twin and, given bf16 outputs,
+    rounds the fp32 sums into them, as the kernel does."""
+    from metisfl_tpu_torch.ops.flash_attention import (
+        dkv_split_sum_reference,
+        flash_bwd_dkv_split_sum,
+    )
+
+    part = torch.from_numpy(np.random.default_rng(3).standard_normal(
+        (3, 2, 1, 2, 130, 16)).astype(np.float32))
+    out = tuple(torch.empty(part.shape[2:], dtype=torch.bfloat16)
+                for _ in range(2))
+    got = flash_bwd_dkv_split_sum(part, 2, True, 2, out=out)
+    want = dkv_split_sum_reference(part, 2, True, 2)
+    assert got[0] is out[0] and got[1] is out[1]
+    for a, b in zip(got, want):
+        assert torch.equal(a, b.to(torch.bfloat16))
 
 
 # (dtype, causal, B, Hq, Hkv, L, D): K1 at the head dim 256 instantiation
@@ -1370,7 +1588,7 @@ def _expected_launches(device, dtype, B, Hq, Hkv, L, D, causal, fwd=True,
     """The launches one K1 call (``fwd``) and one K2 and K3 call (``bwd``)
     make at these shapes on ``device``, by ``kernel_route``: one each, K3's
     D = 256 build two (dV, then dK), and the fp32 kernels' combine and
-    split sums where they split."""
+    split sums where they split, and K3's at its D = 16 and 32 builds."""
     from metisfl_tpu_torch.ops.flash_attention import kernel_route
 
     want = {}
@@ -1385,7 +1603,25 @@ def _expected_launches(device, dtype, B, Hq, Hkv, L, D, causal, fwd=True,
             want["flash_bwd_dq_split_sum"] = 1
         if bwd and _split_launches(device, B, Hq, Hkv, L, D, causal):
             want["flash_bwd_dkv_split_sum"] = 1
+    elif bwd and _mma_split_launches(device, dtype, B, Hq, Hkv, L, D, causal):
+        want["flash_bwd_dkv_split_sum"] = 1
     return want
+
+
+def _mma_split_launches(device, dtype, B, Hq, Hkv, L, D, causal):
+    """1 where the tensor-core K3 runs a D = 16 or 32 build and splits its
+    walks at these shapes on ``device`` (and so launches its sum), else
+    0."""
+    from metisfl_tpu_torch.ops.flash_attention import (
+        dkv_mma_split,
+        kernel_route,
+    )
+
+    route = kernel_route("dkv", dtype, D)
+    if route.wrapper != "flash_bwd_dkv" or route.head_dim > 32:
+        return 0
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    return int(dkv_mma_split(B, Hq, Hkv, L, causal, sms)[1] > 1)
 
 
 def _fwd_split_at(device, B, Hq, L, D, causal):
