@@ -21,15 +21,17 @@ It drives the port only (it imports no jax and nothing of the JAX package):
    cores in bf16) at the training shape, each run twice for bit-identity,
    with the achieved TFLOP/s; then K1-K3 at small head dims (the
    ``examples/long_context.py`` shape B4·Hq4·L512·D16, D = 8 and D = 32
-   at B2·Hq16·Hkv4·L1024: K1 and K3 on their D = 16 and 32 builds, which
-   read D in place, K3 with its split sum where ``dkv_mma_split`` cuts
-   its walks (D = 8 and 32; its bf16 sum also alone, bit for bit), and
-   the profiler must list no pad or copy kernel in a K1 or a K3 call; K2
-   padded to 64; and, for correctness only, fp16 D = 24, L = 1000,
-   Hq8·Hkv2, not causal)
+   at B2·Hq16·Hkv4·L1024: K1, K2 and K3 on their D = 16 and 32 builds,
+   which read D in place, K3 with its split sum where ``dkv_mma_split``
+   cuts its walks (D = 8 and 32; its bf16 sum also alone, bit for bit),
+   and the profiler must list no pad or copy kernel in a K1, K2 or K3
+   call; and, for correctness only, fp16 D = 24, L = 1000, Hq8·Hkv2, not
+   causal)
    and at B·Hq and at Hq above a grid's y axis of 65535 (B4100·Hq16 and
    B1·Hq65536, one launch a call: every grid is 1-D), K1-K3 at their head
-   dim 256 builds (K3 in two passes), the general kernels beyond the
+   dim 256 builds (K3 in one launch of two warpgroups, with its split sum
+   where ``dkv_mma_split`` cuts its walks; no pad or copy in a K2 or K3
+   call), the general kernels beyond the
    builds in bf16/fp16 (K1-K3 on tensor cores) and the register-tiled
    fp32 K1-K3 at every D (each with the second launch that merges or sums
    its split, held to its own twin) at D = 512 in bf16 and fp32, at fp32
@@ -346,43 +348,49 @@ def dq_split_at(B, Hq, L, D, causal):
     return (*dq_split(B, Hq, L, Dp, causal, sms), Dp)
 
 
-def dkv_mma_split_at(B, Hq, Hkv, L, causal):
-    """``(per_slab, slabs)`` of the tensor-core K3 at its D = 16 and 32
-    builds at these shapes on this card (slabs > 1: it launches
+def dkv_mma_split_at(B, Hq, Hkv, L, D, causal):
+    """``(per_slab, slabs)`` of the tensor-core K3 at its D = 16, 32 or 256
+    build ``D`` at these shapes on this card (slabs > 1: it launches
     ``SPLIT_SUM`` too, into bf16/fp16)."""
     import torch
 
     from metisfl_tpu_torch.ops.flash_attention import dkv_mma_split
 
     sms = torch.cuda.get_device_properties(0).multi_processor_count
-    return dkv_mma_split(B, Hq, Hkv, L, causal, sms)
+    return dkv_mma_split(B, Hq, Hkv, L, D, causal, sms)
 
 
-def small_d_build(dtype_name, D):
-    """True where K1 and K3 run their D = 16 or 32 build in ``dtype_name``
-    at head dim D."""
+def mma_split_build(dtype_name, D):
+    """The build (16, 32 or 256) that K3 runs head dim D on in
+    ``dtype_name`` where that build splits its walks (``dkv_mma_split``),
+    else None."""
     import torch
 
-    from metisfl_tpu_torch.ops.flash_attention import kernel_route
+    from metisfl_tpu_torch.ops.flash_attention import (
+        _MMA_SPLIT_BLOCKS_PER_SM,
+        kernel_route,
+    )
 
     route = kernel_route("dkv", getattr(torch, dtype_name), D)
-    return route.wrapper == "flash_bwd_dkv" and route.head_dim <= 32
+    if (route.wrapper == "flash_bwd_dkv"
+            and route.head_dim in _MMA_SPLIT_BLOCKS_PER_SM):
+        return route.head_dim
+    return None
 
 
 def per_call_launches(kernel, dtype_name, B, Hq, Hkv, L, D, causal):
     """The launches one call of ``kernel`` ("fwd", "dq" or "dkv") makes at
-    these shapes on this card, by wrapper: its route's kernel once (K3's
-    D = 256 build once per pass), and the fp32 kernels' second launch
-    where they split, and K3's at its D = 16 and 32 builds."""
+    these shapes on this card, by wrapper: its route's kernel once, and the
+    fp32 kernels' second launch where they split, and K3's at its D = 16,
+    32 and 256 builds."""
     import torch
 
     from metisfl_tpu_torch.ops.flash_attention import kernel_route
 
     route = kernel_route(kernel, getattr(torch, dtype_name), D)
-    want = {route.wrapper: route.passes if route.wrapper == "flash_bwd_dkv"
-            else 1}
-    if (kernel == "dkv" and small_d_build(dtype_name, D)
-            and dkv_mma_split_at(B, Hq, Hkv, L, causal)[1] > 1):
+    want = {route.wrapper: 1}
+    build = mma_split_build(dtype_name, D) if kernel == "dkv" else None
+    if build and dkv_mma_split_at(B, Hq, Hkv, L, build, causal)[1] > 1:
         want[SPLIT_SUM] = 1
     if dtype_name == "float32":
         second, split = {
@@ -538,8 +546,8 @@ def split_sum_case(smoke, name, B, Hq, Hkv, L, D, causal,
     """The split K3's second launch against its twin on the card, on
     random partials of the shape the split gives at (B, Hq, Hkv, L, D) in
     ``dtype_name`` (fp32: the register-tiled K3's, fp32 outputs;
-    bf16/fp16: the D = 16 and 32 builds', the sums rounded to that dtype
-    once), NaN in every slab a k tile lacks (read by neither): the same
+    bf16/fp16: the D = 16, 32 and 256 builds', the sums rounded to that
+    dtype once), NaN in every slab a k tile lacks (read by neither): the same
     sums in the same slab order, so bit for bit (tolerance 0) against the
     twin rounded alike, twice; timed beside its bound (the bytes of the
     slabs it reads and the outputs it writes) and its twin. No single
@@ -554,8 +562,10 @@ def split_sum_case(smoke, name, B, Hq, Hkv, L, D, causal,
 
     if dtype_name == "float32":
         per_slab, slabs, Dp = dkv_split_at(B, Hq, Hkv, L, D, causal)
-    else:  # the D = 16 and 32 builds read D in place: partials D wide
-        (per_slab, slabs), Dp = dkv_mma_split_at(B, Hq, Hkv, L, causal), D
+    else:  # the builds read D in place: partials D wide
+        per_slab, slabs = dkv_mma_split_at(
+            B, Hq, Hkv, L, mma_split_build(dtype_name, D), causal)
+        Dp = D
     dtype = getattr(torch, dtype_name)
     group = Hq // Hkv
     counts = [-(-n // per_slab) for n in _slab_steps(L, group, causal)]
@@ -755,8 +765,8 @@ def backward_case(smoke, name, B, Hq, Hkv, L, D, dtype_name, causal,
     bit-identity, timed unless ``timed`` is false; returns one record per
     kernel, named by ``kernels`` (the wrappers that must have launched,
     with the split K3's sum where it splits at this shape).
-    ``own_kernels`` also checks that a K3 call runs no kernel but the
-    port's (``own_kernels_check``)."""
+    ``own_kernels`` also checks that a K2 call and a K3 call each run no
+    kernel but the port's (``own_kernels_check``)."""
     import torch
     import torch.nn.functional as F
 
@@ -812,10 +822,14 @@ def backward_case(smoke, name, B, Hq, Hkv, L, D, dtype_name, causal,
                 f"{name}: two runs of K2 give bit-identical dQ")
     smoke.check(torch.equal(dk, dk2) and torch.equal(dv, dv2),
                 f"{name}: two runs of K3 give bit-identical dK and dV")
-    call_kernels = (own_kernels_check(
-        smoke, name, "K3", lambda: flash_bwd_dkv(q, k, v, do, lse, delta,
-                                                 causal))
-        if own_kernels else None)
+    dq_call_kernels = dkv_call_kernels = None
+    if own_kernels:
+        dq_call_kernels = own_kernels_check(
+            smoke, name, "K2", lambda: flash_bwd_dq(q, k, v, do, lse, delta,
+                                                    causal))
+        dkv_call_kernels = own_kernels_check(
+            smoke, name, "K3", lambda: flash_bwd_dkv(q, k, v, do, lse, delta,
+                                                     causal))
     if not timed:
         return [{"name": kernel, "case": name, "shape": [B, Hq, Hkv, L, D],
                  "dtype": dtype_name, "causal": causal, "max_abs_err": err}
@@ -903,8 +917,9 @@ def backward_case(smoke, name, B, Hq, Hkv, L, D, dtype_name, causal,
         records[0]["device_kernels"] = dq_kernels
     if dkv_kernels is not None:
         records[1]["device_kernels"] = dkv_kernels
-    if call_kernels is not None:
-        records[1]["call_kernels"] = call_kernels
+    for record, names in zip(records, (dq_call_kernels, dkv_call_kernels)):
+        if names is not None:
+            record["call_kernels"] = names
     print(json.dumps({"kernel_case": records}), flush=True)
     return records
 
@@ -2119,15 +2134,18 @@ def multiprocess_phase(smoke, gpu):
 
 # -- wide-heads path: LlamaLite training at head dims beside the main path's
 
-# dim 1024 with 64 and 32 heads (D = 16 and 32) in bf16 (K1's and K3's D =
-# 16 and 32 builds, K3 unsplit at this shape; K2 padded to 64), with 4 heads
-# (D = 256) in bf16 (K1-K3's D = 256 builds, K3 in two passes), and with 2
-# heads (D = 512) in bf16 (the general tensor-core K1-K3); D = 256 and 512
-# also in fp32 (the register-tiled K1, K2 and K3 with the combine and the
-# split sums); depth 2, 2 Adam steps at batch 2 of 256 tokens
+# dim 1024 with 64 and 32 heads (D = 16 and 32) in bf16 (K1's, K2's and
+# K3's D = 16 and 32 builds, K3 unsplit at this shape), with 4 heads (D =
+# 256) in bf16 (K1-K3's D = 256 builds, K3 in one launch of two
+# warpgroups), and with 2 heads (D = 512) in bf16 (the general tensor-core
+# K1-K3); D = 256 and 512 also in fp32 (the register-tiled K1, K2 and K3
+# with the combine and the split sums); depth 2, 2 Adam steps at batch 2 of
+# 256 tokens
 WIDE_DEPTH, WIDE_STEPS, WIDE_BATCH, WIDE_LEN = 2, 2, 2, 256
-# B, Hq, Hkv, L, D of the kernel case that fills the card at D = 512: the
-# D = 256 case's shape at twice the head dim
+# B, Hq, Hkv, L, D of the bf16 kernel cases at the D = 256 builds, and of
+# the case that fills the card at D = 512: the D = 256 case's shape at
+# twice the head dim
+FULL_D256 = (2, 16, 4, 1024, 256)
 FULL_D512 = (2, 16, 4, 1024, 512)
 # B, Hq, Hkv, L, D of the fp32 K1 case that fills the card at D = 256: the
 # fp32 K2/K3 case's shape
@@ -2177,7 +2195,7 @@ def wide_heads_phase(smoke, gpu):
     total = {name: 0 for name in KERNEL_WRAPPERS}
     for label, heads, dtype_name, fwd, (dq, dkv) in WIDE_CASES:
         # each step's K1, K2 and K3 calls, with their routes' second
-        # launches (K3's D = 256 build twice a step: dV, then dK)
+        # launches
         shape = (WIDE_BATCH, heads, heads, WIDE_LEN, DIM // heads, True)
         want = {}
         for kernel in ("fwd", "dq", "dkv"):
@@ -2688,9 +2706,9 @@ def main() -> int:
         "kernel vs plain: flash_bwd ragged fp32 D=128", backward_case, smoke,
         "flash_bwd_ragged_fp32", 2, 8, 8, 1000, 128, "float32", False, 1e-4,
         general)
-    # small head dims (K1 and K3 on their D = 16 and 32 builds, reading D
-    # in place: a call runs no pad or copy; K2 padded to 64), and B·Hq and
-    # Hq above gridDim.y's 65535 (one launch a call: every grid is 1-D)
+    # small head dims (K1, K2 and K3 on their D = 16 and 32 builds, reading
+    # D in place: a call runs no pad or copy), and B·Hq and Hq above
+    # gridDim.y's 65535 (one launch a call: every grid is 1-D)
     small_d = {}
     for name, shape in (
             # examples/long_context.py's shape
@@ -2719,13 +2737,20 @@ def main() -> int:
     smoke.phase("kernel vs plain: flash_bwd d24 fp16", backward_case,
                 smoke, "flash_bwd_d24_fp16", 2, 8, 2, 1000, 24, "float16",
                 False, 2e-3, ("flash_bwd_dq", "flash_bwd_dkv"), False, True)
-    # the head dim 256 builds (K3 in two passes: dV, then dK)
+    # the head dim 256 builds (K3 in one launch of two warpgroups, with its
+    # split sum where dkv_mma_split cuts its walks: a K2 or K3 call runs no
+    # pad or copy)
     smoke.phase("kernel vs plain: flash_fwd d256", attention_case, smoke,
-                "flash_fwd_d256", 2, 16, 4, 1024, 256, "bfloat16", True,
-                2e-2, 1e-3)
-    smoke.phase("kernel vs plain: flash_bwd d256", backward_case, smoke,
-                "flash_bwd_d256", 2, 16, 4, 1024, 256, "bfloat16", True,
-                2e-2)
+                "flash_fwd_d256", *FULL_D256, "bfloat16", True, 2e-2, 1e-3)
+    d256_bwd = smoke.phase(
+        "kernel vs plain: flash_bwd d256", backward_case, smoke,
+        "flash_bwd_d256", *FULL_D256, "bfloat16", True, 2e-2,
+        ("flash_bwd_dq", "flash_bwd_dkv"), True, True)
+    if dkv_mma_split_at(*FULL_D256[:4], 256, True)[1] > 1:
+        smoke.phase(
+            "kernel vs plain: the split sum at d256 bf16", split_sum_case,
+            smoke, "flash_bwd_split_sum_d256_bf16", *FULL_D256, True,
+            "bfloat16")
     # beyond every build: the general kernels, K1-K3 on tensor cores in
     # bf16/fp16; in fp32 K1-K3 register-tiled (and the combine and the
     # split sums, where they split)
@@ -2795,8 +2820,9 @@ def main() -> int:
                 f"kernel vs plain: the split sum wide heads {label}",
                 split_sum_case, smoke, f"flash_bwd_split_sum_wide_{label}",
                 *shape, True)
-        elif small_d_build(dtype_name, shape[-1]) and dkv_mma_split_at(
-                *shape[:4], True)[1] > 1:
+        elif mma_split_build(dtype_name, shape[-1]) and dkv_mma_split_at(
+                *shape[:4], mma_split_build(dtype_name, shape[-1]),
+                True)[1] > 1:
             sum_case = smoke.phase(
                 f"kernel vs plain: the split sum wide heads {label}",
                 split_sum_case, smoke, f"flash_bwd_split_sum_wide_{label}",
@@ -2894,7 +2920,8 @@ def main() -> int:
         if record is not None:
             other_shapes.setdefault((label, wrapper), []).append(
                 (key, record))
-    # K1 and K3 on their D = 16 and 32 builds at the small-D cases' shapes
+    # K1, K2 and K3 on their D = 16 and 32 builds at the small-D cases'
+    # shapes
     for label, key, case in (
             ("d16_bf16", "at_long_context_d16_shape", "long_context_d16"),
             ("d16_bf16", "at_d8_shape", "d8"),
@@ -2902,10 +2929,15 @@ def main() -> int:
         fwd_record, bwd_records = small_d.get(case, (None, None))
         for wrapper, record in (
                 ("flash_attention_fwd", fwd_record),
+                ("flash_bwd_dq", (bwd_records or [None, None])[0]),
                 ("flash_bwd_dkv", (bwd_records or [None, None])[1])):
             if record is not None:
                 other_shapes.setdefault((label, wrapper), []).append(
                     (key, record))
+    # K2 and K3 on their D = 256 builds at the B2·Hq16·Hkv4·L1024 case
+    for record in d256_bwd or []:
+        other_shapes.setdefault(("d256_bf16", record["name"]), []).append(
+            ("at_d256_shape", record))
     # the fp32 K2 and K3 at the card-filling D = 256, ragged D = 128 and
     # B1·Hq4·L512·D512 shapes
     for label, key, records in (
@@ -2968,7 +3000,7 @@ def main() -> int:
             entry["wrapper"] = record["wrapper"]
         for key in ("at_card_filling_shape", "at_ragged_shape",
                     "at_b1_hq4_l512_shape", "at_long_context_d16_shape",
-                    "at_d8_shape", "at_d32_shape"):
+                    "at_d8_shape", "at_d32_shape", "at_d256_shape"):
             if key in record:
                 entry[key] = record[key]
         if "case" in record and record["name"] not in SECOND_LAUNCHES:

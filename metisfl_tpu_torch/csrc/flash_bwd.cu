@@ -21,11 +21,13 @@
 // 35 us; each moves about 60 MB (18 us at 3.35 TB/s). So both are bound by
 // the tensor cores' rate, and every product has to run on them.
 //
-// bf16 and fp16: tensor-core kernels (flash_bwd_*_mma_kernel).
+// bf16 and fp16: tensor-core kernels (flash_bwd_*_mma_kernel, and
+// flash_bwd_dkv_mma_256_kernel for K3 at D = 256).
 //   - Every product is wgmma.mma_async m64nNk16 with fp32 accumulation,
 //     issued by one warpgroup of 4 warps for the block's 64-row tile (warp
-//     w owns rows 16 w..16 w + 15). Both operands of QK^T and dO V^T come
-//     from shared memory through matrix descriptors (sm90.cuh); P and dS
+//     w owns rows 16 w..16 w + 15; K3 at D = 256 has two warpgroups).
+//     Both operands of QK^T and dO V^T come from shared memory through
+//     matrix descriptors (sm90.cuh); P and dS
 //     are rounded to the input dtype in registers and are the A operand of
 //     the next product: that conversion is the TPU kernels' cast.
 //   - K3 computes S^T = K Q^T and dP^T = V dO^T with key rows as M, so P^T
@@ -50,33 +52,44 @@
 //     tiles first.
 //   - D = 128 in K3 streams 32-row q tiles, so that dK, dV (128 fp32 per
 //     thread) and the 64x32 S^T and dP^T fit in registers without spills.
-//   - K3 at D = 16 and 32 (bf16/fp16): a tile's row is one column block of
-//     32 or 64 bytes in wgmma's 32- and 64-byte swizzles (sm90.cuh), S^T
-//     and dP^T take D / 16 k-steps (one at D = 16) and dV += P^T dO and dK
-//     += dS^T Q are n = D products, so no step runs on zero columns; dK and
-//     dV are 8 + 8 or 16 + 16 fp32 a thread, q tiles stream 64 rows at a
-//     time, and a block takes 13 or 26 KB of shared memory. The build
-//     reads the caller's rows at their own length ld (a multiple of 8 up to
-//     D): cp.async zero-fills columns ld.. and only ld columns are stored,
-//     so D = 8 and 24 need no padded copy. A k tile's walk over the group's
-//     G query heads and its q tiles is long (G (L / 64 - t) steps for tile
-//     t, causal) while the grid, one block per (k tile, KV head), is under
-//     a wave at GQA shapes (B2 Hkv4 L1024: 128 blocks on 132 SMs). So the
-//     walk is cut into slabs of per_slab steps, one block each (the
-//     wrapper's dkv_mma_split, a function of the shape and the SM count),
-//     whose fp32 partials the split sum adds in slab order and rounds to
-//     the input dtype once (flash_bwd_split_sum_kernel<T>).
+//   - K2 and K3 at D = 16 and 32 (bf16/fp16): a tile's row is one column
+//     block of 32 or 64 bytes in wgmma's 32- and 64-byte swizzles
+//     (sm90.cuh), S and dP (K3: S^T and dP^T) take D / 16 k-steps (one at
+//     D = 16) and dQ += dS K (K3: dV += P^T dO and dK += dS^T Q) are n = D
+//     products, so no step runs on zero columns; dQ is 8 or 16 fp32 a
+//     thread (K3: dK and dV 8 + 8 or 16 + 16), and a block takes 12 or 24
+//     KB of shared memory (K3: 13 or 26). The builds read the caller's rows
+//     at their own length ld (a multiple of 8 up to D): cp.async zero-fills
+//     columns ld.. and only ld columns are stored, so D = 8 and 24 need no
+//     padded copy. K2's grid (one block per q tile and query head) is left
+//     whole. K3's walk of a k tile over the group's G query heads and its q
+//     tiles is long (G (L / 64 - t) steps for tile t, causal) while its
+//     grid, one block per (k tile, KV head), is under a wave at GQA shapes
+//     (B2 Hkv4 L1024: 128 blocks on 132 SMs). So the walk is cut into slabs
+//     of per_slab steps, one block each (the wrapper's dkv_mma_split, a
+//     function of the shape, the build and the SM count), whose fp32
+//     partials the split sum adds in slab order and rounds to the input
+//     dtype once (flash_bwd_split_sum_kernel<T>).
 //   - D = 256: K2 keeps its tiles (192 KB of shared memory; dQ is 128 fp32
-//     a thread, and ptxas spills about 96 bytes). K3 cannot hold dK and dV
-//     of its 64-row k tile (256 fp32 a thread), and wgmma's M edge of 64
-//     rules out a 32-row k tile, so it launches twice over the same grid:
-//     once for dV (S^T alone, then P^T dO) and once for dK (S^T and dP^T,
-//     then dS^T Q), each holding 128 fp32 of one output a thread (the
-//     kParts template argument). The price is S^T computed twice: 10 D
-//     operations a (q, k) pair instead of 8.
-//   - Not yet: TMA loads, warp specialisation (a producer warp and two
-//     consumer warpgroups) and keeping a wgmma group in flight across the
-//     softmax; each step waits for its products before the next.
+//     a thread, and ptxas spills 48 bytes). K3 cannot hold dK and dV of its
+//     64-row k tile in one warpgroup (256 fp32 a thread), and wgmma's M
+//     edge of 64 rules out a 32-row k tile; so two warpgroups share the
+//     block, one per output, each holding 128 fp32 a thread
+//     (flash_bwd_dkv_mma_256_kernel, 256 threads, one block an SM).
+//     Warpgroup 0 computes S^T = K Q^T and warpgroup 1 dP^T = V dO^T at
+//     the same time, 64 keys x 64 queries in 16 k-steps each; warpgroup 0
+//     forms P and hands it, in fp32, to warpgroup 1 through 16 KB of
+//     shared memory (thread i writes, thread i + 128 reads, ordered by a
+//     named barrier), so that dS = P (dP - delta) scale is the
+//     one-warpgroup kernels' to the bit; then dV += P^T dO and dK += dS^T
+//     Q run side by side. Per (q, k) pair that is 8 D operations, and Q and
+//     dO are streamed once (64-row q tiles, two stages: 209 KB of shared
+//     memory); one launch per output would compute S^T twice (10 D a
+//     pair) and stream Q and dO twice. A k tile's walk is cut into slabs
+//     as at D <= 32, aiming at one block's work per SM.
+//   - Not yet: TMA loads, a producer warp, and keeping a wgmma group in
+//     flight across the softmax; each step waits for its products before
+//     the next.
 //
 // Beyond the builds in bf16/fp16 (above 256): the general tensor-core
 // kernels (flash_bwd_dq_general_mma_kernel, flash_bwd_dkv_general_mma_kernel,
@@ -136,6 +149,20 @@ constexpr size_t dkv_mma_smem_bytes() {
          4 * (size_t)(2 * 2 * kDkvBq<D>);
 }
 
+// K3 at D = 256: two warpgroups, one per output, over q tiles of kDkv256Bq
+// rows (see the note at the top)
+constexpr int kDkv256Threads = 2 * kMmaThreads;
+constexpr int kDkv256Bq = 64;
+
+constexpr size_t dkv_mma_256_smem_bytes() {
+  // D <= 128's layout at D = 256 and BQ = 64 (192 KB of tiles), then P
+  // handed from one warpgroup to the other (BQ / 2 fp32 a thread)
+  return 2 * (size_t)(2 * kTile * 256 + 2 * 2 * kDkv256Bq * 256) +
+         4 * (size_t)(2 * 2 * kDkv256Bq) +
+         4 * (size_t)(kMmaThreads * kDkv256Bq / 2);
+}
+static_assert(dkv_mma_256_smem_bytes() <= 232448, "fits an SM's 227 KB");
+
 // K2's dS of one (64-row q tile, BK-key step), from the S and dP fragments
 // (queries row_a and row_b as rows, keys k0.. as columns, in wgmma's
 // accumulator layout; each row's lse, times log2 e, and delta in
@@ -164,14 +191,25 @@ __device__ __forceinline__ void dq_probs(const float (&s)[BK / 2],
   }
 }
 
-// K2: dQ for one 64-row q tile of one (batch, query head).
+// K2: dQ for one 64-row q tile of one (batch, query head), D the build
+// and ld <= D the caller's row length (see the note at the top)
 template <typename T, int D>
 __global__ void __launch_bounds__(kMmaThreads)
 flash_bwd_dq_mma_kernel(const T* __restrict__ q, const T* __restrict__ k,
                         const T* __restrict__ v, const T* __restrict__ dout,
                         const float* __restrict__ lse,
                         const float* __restrict__ delta, T* __restrict__ dq,
-                        int Hq, int Hkv, int L, float scale, int causal) {
+                        int Hq, int Hkv, int L, int ld_arg, float scale,
+                        int causal) {
+  // dQ's columns a wgmma makes (its N), and the bytes of a tile's rows in
+  // one column block (their swizzle)
+  constexpr int kN = sm90::block_cols<D>(), kW = sm90::block_bytes<D>();
+  // the rows' length: the caller's at the builds that read in place (D =
+  // 16 and 32), D itself from 64, where a stride known at compile time
+  // keeps those builds' registers (a runtime one took D = 64 from 128 to
+  // 151, a fourth block an SM to three, and K2 at the training shape a
+  // third slower, PERF.md)
+  const int ld = D < 64 ? ld_arg : D;
   extern __shared__ __align__(1024) unsigned char smem_raw[];
   T* sQ = reinterpret_cast<T*>(smem_raw);  // kTile x D, swizzled
   T* sDO = sQ + kTile * D;                 // kTile x D
@@ -188,15 +226,15 @@ flash_bwd_dq_mma_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int q0 = (causal ? nq - 1 - rank : rank) * kTile;
   const int b = bh / Hq;
   const int kvh = b * Hkv + (bh - b * Hq) / (Hq / Hkv);
-  const T* kb = k + (size_t)kvh * L * D;
-  const T* vb = v + (size_t)kvh * L * D;
+  const T* kb = k + (size_t)kvh * L * ld;
+  const T* vb = v + (size_t)kvh * L * ld;
 
   sm90::load_tile_async<T, D, kTile, kMmaThreads>(
-      sQ, q + (size_t)bh * L * D, q0, L);
+      sQ, q + (size_t)bh * L * ld, q0, L, ld);
   sm90::load_tile_async<T, D, kTile, kMmaThreads>(
-      sDO, dout + (size_t)bh * L * D, q0, L);
-  sm90::load_tile_async<T, D, kTile, kMmaThreads>(sK, kb, 0, L);
-  sm90::load_tile_async<T, D, kTile, kMmaThreads>(sV, vb, 0, L);
+      sDO, dout + (size_t)bh * L * ld, q0, L, ld);
+  sm90::load_tile_async<T, D, kTile, kMmaThreads>(sK, kb, 0, L, ld);
+  sm90::load_tile_async<T, D, kTile, kMmaThreads>(sV, vb, 0, L, ld);
   sm90::cp_async_commit();
 
   // this thread's two rows of the warp's 16: g and g + 8
@@ -213,13 +251,13 @@ flash_bwd_dq_mma_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const uint32_t q_smem = sm90::smem_addr(sQ);
   const uint32_t do_smem = sm90::smem_addr(sDO);
 
-  float acc_dq[D / 64][32], s[32], dp[32];
+  float acc_dq[D / kN][kN / 2], s[32], dp[32];
 #pragma unroll
-  for (int i = 0; i < 32; ++i) {
-    s[i] = dp[i] = 0.f;
+  for (int i = 0; i < 32; ++i) s[i] = dp[i] = 0.f;
 #pragma unroll
-    for (int c = 0; c < D / 64; ++c) acc_dq[c][i] = 0.f;
-  }
+  for (int c = 0; c < D / kN; ++c)
+#pragma unroll
+    for (int i = 0; i < kN / 2; ++i) acc_dq[c][i] = 0.f;
 
   const int k_end = causal ? min(L, q0 + kTile) : L;
   const int n_k = (k_end + kTile - 1) / kTile;
@@ -228,9 +266,9 @@ flash_bwd_dq_mma_kernel(const T* __restrict__ q, const T* __restrict__ k,
     if (it + 1 < n_k) {
       const int next = (it + 1) * kTile;
       sm90::load_tile_async<T, D, kTile, kMmaThreads>(
-          sK + (stage ^ 1) * kTile * D, kb, next, L);
+          sK + (stage ^ 1) * kTile * D, kb, next, L, ld);
       sm90::load_tile_async<T, D, kTile, kMmaThreads>(
-          sV + (stage ^ 1) * kTile * D, vb, next, L);
+          sV + (stage ^ 1) * kTile * D, vb, next, L, ld);
     }
     sm90::cp_async_commit();
     sm90::cp_async_wait<1>();  // this stage (and Q, dO) have landed
@@ -241,16 +279,19 @@ flash_bwd_dq_mma_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const uint32_t k_smem = sm90::smem_addr(sK + stage * kTile * D);
     const uint32_t v_smem = sm90::smem_addr(sV + stage * kTile * D);
 
-    // S = Q K^T and dP = dO V^T, 64 rows x 64 keys, K and V read K-major
+    // S = Q K^T and dP = dO V^T, 64 rows x 64 keys in D / 16 k-steps, K
+    // and V read K-major
     sm90::wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < D / 16; ++kk)
-      sm90::wgmma_ss<T, kTile>(s, sm90::desc_k_major<kTile>(q_smem, kk),
-                               sm90::desc_k_major<kTile>(k_smem, kk), kk > 0);
+      sm90::wgmma_ss<T, kTile>(s, sm90::desc_k_major<kTile, kW>(q_smem, kk),
+                               sm90::desc_k_major<kTile, kW>(k_smem, kk),
+                               kk > 0);
 #pragma unroll
     for (int kk = 0; kk < D / 16; ++kk)
-      sm90::wgmma_ss<T, kTile>(dp, sm90::desc_k_major<kTile>(do_smem, kk),
-                               sm90::desc_k_major<kTile>(v_smem, kk), kk > 0);
+      sm90::wgmma_ss<T, kTile>(dp, sm90::desc_k_major<kTile, kW>(do_smem, kk),
+                               sm90::desc_k_major<kTile, kW>(v_smem, kk),
+                               kk > 0);
     sm90::wgmma_commit();
     sm90::wgmma_wait<0>();
     sm90::fence_operands(s);
@@ -260,7 +301,8 @@ flash_bwd_dq_mma_kernel(const T* __restrict__ q, const T* __restrict__ k,
                     row_b, t, L, causal, scale, scale_log2);
 
     // dQ += dS K, dS rounded to the input dtype from registers; K read
-    // MN-major ([key][d], the reduction runs over keys)
+    // MN-major ([key][d], the reduction runs over keys), one n = kN wgmma
+    // per k16 step and column block
     uint32_t ads[kTile / 16][4];
 #pragma unroll
     for (int kk = 0; kk < kTile / 16; ++kk)
@@ -269,29 +311,49 @@ flash_bwd_dq_mma_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
     for (int kk = 0; kk < kTile / 16; ++kk)
 #pragma unroll
-      for (int c = 0; c < D / 64; ++c)
+      for (int c = 0; c < D / kN; ++c)
         sm90::wgmma_rs_mn<T>(acc_dq[c], ads[kk],
-                             sm90::desc_mn_major<kTile>(k_smem, 16 * kk, c));
+                             sm90::desc_mn_major<kTile, kW>(k_smem, 16 * kk,
+                                                            c));
     sm90::wgmma_commit();
     sm90::wgmma_wait<0>();
 #pragma unroll
-    for (int c = 0; c < D / 64; ++c) sm90::fence_operands(acc_dq[c]);
+    for (int c = 0; c < D / kN; ++c) sm90::fence_operands(acc_dq[c]);
     __syncthreads();  // done with this stage before it is refilled
   }
 
-  T* out = dq + (size_t)bh * L * D;
+  // the caller's ld columns, at its row stride
+  T* out = dq + (size_t)bh * L * ld;
 #pragma unroll
-  for (int c = 0; c < D / 64; ++c)
+  for (int c = 0; c < D / kN; ++c)
 #pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      const int col = 64 * c + 8 * j + 2 * t;
+    for (int j = 0; j < kN / 8; ++j) {
+      const int col = kN * c + 8 * j + 2 * t;
+      if (col >= ld) continue;
       if (row_a < L)
-        *reinterpret_cast<uint32_t*>(out + (size_t)row_a * D + col) =
+        *reinterpret_cast<uint32_t*>(out + (size_t)row_a * ld + col) =
             sm90::pack2<T>(acc_dq[c][4 * j], acc_dq[c][4 * j + 1]);
       if (row_b < L)
-        *reinterpret_cast<uint32_t*>(out + (size_t)row_b * D + col) =
+        *reinterpret_cast<uint32_t*>(out + (size_t)row_b * ld + col) =
             sm90::pack2<T>(acc_dq[c][4 * j + 2], acc_dq[c][4 * j + 3]);
     }
+}
+
+// K3's P of one S^T element (key k_pos, query q_pos; the query's lse):
+// exp(scale s - lse), 0 past L and above the diagonal on tiles that cross
+// either (edge)
+__device__ __forceinline__ float dkv_prob(float s, float lse, bool edge,
+                                          int q_pos, int k_pos, int L,
+                                          int causal, float scale_log2) {
+  const float p = exp2f(s * scale_log2 - lse * kLog2e);
+  return edge && (q_pos >= L || (causal && q_pos < k_pos)) ? 0.f : p;
+}
+
+// whether a (64-row k tile, BQ-row q tile) crosses the causal diagonal or
+// the end of the sequence: only those tiles are masked
+template <int BQ>
+__device__ __forceinline__ bool dkv_edge(int q0, int k0, int L, int causal) {
+  return (causal && q0 < k0 + kTile) || q0 + BQ > L;
 }
 
 // K3's P^T and dS^T of one (64-row k tile, BQ-row q tile), from the S^T and
@@ -308,7 +370,7 @@ __device__ __forceinline__ void dkv_probs(float (&s)[BQ / 2],
                                           int key_a, int key_b, int t, int L,
                                           int causal, float scale,
                                           float scale_log2) {
-  const bool edge = (causal && q0 < k0 + kTile) || q0 + BQ > L;
+  const bool edge = dkv_edge<BQ>(q0, k0, L, causal);
 #pragma unroll
   for (int j = 0; j < BQ / 8; ++j) {
     const int col = 8 * j + 2 * t;
@@ -318,25 +380,56 @@ __device__ __forceinline__ void dkv_probs(float (&s)[BQ / 2],
     for (int e = 0; e < 4; ++e) {
       const int i = 4 * j + e;
       const bool odd = e & 1;
-      float p = exp2f(s[i] * scale_log2 - (odd ? ls.y : ls.x) * kLog2e);
-      if (edge) {
-        const int q_pos = q0 + col + odd;
-        const int k_pos = e >= 2 ? key_b : key_a;
-        if (q_pos >= L || (causal && q_pos < k_pos)) p = 0.f;
-      }
+      const float p = dkv_prob(s[i], odd ? ls.y : ls.x, edge,
+                               q0 + col + odd, e >= 2 ? key_b : key_a, L,
+                               causal, scale_log2);
       dp[i] = p * (dp[i] - (odd ? dl.y : dl.x)) * scale;
       s[i] = p;
     }
   }
 }
 
-// K3: dK and dV for one 64-row k tile of one (batch, KV head), summed over
-// the G query heads of its group, or over one slab of that walk (see the
-// note at the top). kParts picks the outputs: kDv, kDk or both (at D = 256
-// one launch per output, see the note at the top).
-constexpr int kDv = 1, kDk = 2;
+// the caller's ld columns of one output of a k tile (acc in wgmma's
+// accumulator layout, keys key_a and key_b as rows) at its row stride:
+// rounded into out, or (split) this slab's fp32 partial, output `which` of
+// (slabs, 2, B * Hkv, L, ld) with dV at 0 and dK at 1
+template <typename T, int D, int kN>
+__device__ __forceinline__ void dkv_store(const float (&acc)[D / kN][kN / 2],
+                                          T* out, float* part, int which,
+                                          int bkv, int heads, int slab,
+                                          int slabs, int key_a, int key_b,
+                                          int t, int L, int ld) {
+  const size_t head_at = (size_t)bkv * L * ld;
+  const size_t per_out = (size_t)heads * L * ld;
+  float* const to = slabs > 1
+      ? part + ((size_t)slab * 2 + which) * per_out + head_at
+      : nullptr;
+#pragma unroll
+  for (int c = 0; c < D / kN; ++c)
+#pragma unroll
+    for (int j = 0; j < kN / 8; ++j) {
+      const int col = kN * c + 8 * j + 2 * t;
+      if (col >= ld) continue;
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {  // rows key_a, then key_b
+        const int key = h ? key_b : key_a;
+        if (key >= L) continue;
+        const size_t at = (size_t)key * ld + col;
+        const int e = 4 * j + 2 * h;
+        if (slabs > 1)
+          *reinterpret_cast<float2*>(to + at) =
+              make_float2(acc[c][e], acc[c][e + 1]);
+        else
+          *reinterpret_cast<uint32_t*>(out + head_at + at) =
+              sm90::pack2<T>(acc[c][e], acc[c][e + 1]);
+      }
+    }
+}
 
-template <typename T, int D, int kParts>
+// K3 at D <= 128: dK and dV for one 64-row k tile of one (batch, KV head),
+// summed over the G query heads of its group, or over one slab of that walk
+// (see the note at the top)
+template <typename T, int D>
 __global__ void __launch_bounds__(kMmaThreads)
 flash_bwd_dkv_mma_kernel(const T* __restrict__ q, const T* __restrict__ k,
                          const T* __restrict__ v, const T* __restrict__ dout,
@@ -405,20 +498,12 @@ flash_bwd_dkv_mma_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const uint32_t k_smem = sm90::smem_addr(sK);
   const uint32_t v_smem = sm90::smem_addr(sV);
 
-  constexpr bool kWantDv = kParts & kDv, kWantDk = kParts & kDk;
-  // an output this launch does not make keeps one unused block
-  float acc_dk[kWantDk ? D / kN : 1][kN / 2];
-  float acc_dv[kWantDv ? D / kN : 1][kN / 2];
+  float acc_dk[D / kN][kN / 2], acc_dv[D / kN][kN / 2];
   float s[BQ / 2], dp[BQ / 2];
 #pragma unroll
-  for (int i = 0; i < kN / 2; ++i) {
-    acc_dk[0][i] = acc_dv[0][i] = 0.f;
+  for (int c = 0; c < D / kN; ++c)
 #pragma unroll
-    for (int c = 1; c < D / kN; ++c) {
-      if constexpr (kWantDk) acc_dk[c][i] = 0.f;
-      if constexpr (kWantDv) acc_dv[c][i] = 0.f;
-    }
-  }
+    for (int i = 0; i < kN / 2; ++i) acc_dk[c][i] = acc_dv[c][i] = 0.f;
 #pragma unroll
   for (int i = 0; i < BQ / 2; ++i) s[i] = dp[i] = 0.f;
 
@@ -443,13 +528,10 @@ flash_bwd_dkv_mma_kernel(const T* __restrict__ q, const T* __restrict__ k,
     for (int kk = 0; kk < D / 16; ++kk)
       sm90::wgmma_ss<T, BQ>(s, sm90::desc_k_major<kTile, kW>(k_smem, kk),
                             sm90::desc_k_major<BQ, kW>(q_smem, kk), kk > 0);
-    if constexpr (kWantDk) {  // dV needs P alone
 #pragma unroll
-      for (int kk = 0; kk < D / 16; ++kk)
-        sm90::wgmma_ss<T, BQ>(dp, sm90::desc_k_major<kTile, kW>(v_smem, kk),
-                              sm90::desc_k_major<BQ, kW>(do_smem, kk),
-                              kk > 0);
-    }
+    for (int kk = 0; kk < D / 16; ++kk)
+      sm90::wgmma_ss<T, BQ>(dp, sm90::desc_k_major<kTile, kW>(v_smem, kk),
+                            sm90::desc_k_major<BQ, kW>(do_smem, kk), kk > 0);
     sm90::wgmma_commit();
     sm90::wgmma_wait<0>();
     sm90::fence_operands(s);
@@ -464,70 +546,217 @@ flash_bwd_dkv_mma_kernel(const T* __restrict__ q, const T* __restrict__ k,
     uint32_t ap[BQ / 16][4], ads[BQ / 16][4];
 #pragma unroll
     for (int kk = 0; kk < BQ / 16; ++kk) {
-      if constexpr (kWantDv) sm90::acc_to_a<T>(ap[kk], s + 8 * kk);
-      if constexpr (kWantDk) sm90::acc_to_a<T>(ads[kk], dp + 8 * kk);
+      sm90::acc_to_a<T>(ap[kk], s + 8 * kk);
+      sm90::acc_to_a<T>(ads[kk], dp + 8 * kk);
     }
     sm90::wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < BQ / 16; ++kk)
 #pragma unroll
       for (int c = 0; c < D / kN; ++c) {
-        if constexpr (kWantDv)
-          sm90::wgmma_rs_mn<T>(
-              acc_dv[c], ap[kk],
-              sm90::desc_mn_major<BQ, kW>(do_smem, 16 * kk, c));
-        if constexpr (kWantDk)
-          sm90::wgmma_rs_mn<T>(
-              acc_dk[c], ads[kk],
-              sm90::desc_mn_major<BQ, kW>(q_smem, 16 * kk, c));
+        sm90::wgmma_rs_mn<T>(
+            acc_dv[c], ap[kk],
+            sm90::desc_mn_major<BQ, kW>(do_smem, 16 * kk, c));
+        sm90::wgmma_rs_mn<T>(
+            acc_dk[c], ads[kk],
+            sm90::desc_mn_major<BQ, kW>(q_smem, 16 * kk, c));
       }
     sm90::wgmma_commit();
     sm90::wgmma_wait<0>();
 #pragma unroll
     for (int c = 0; c < D / kN; ++c) {
-      if constexpr (kWantDv) sm90::fence_operands(acc_dv[c]);
-      if constexpr (kWantDk) sm90::fence_operands(acc_dk[c]);
+      sm90::fence_operands(acc_dv[c]);
+      sm90::fence_operands(acc_dk[c]);
     }
     __syncthreads();  // done with this stage before it is refilled
   }
 
-  // the caller's ld columns, at its row stride: rounded into dk and dv, or
-  // (split) this slab's fp32 partials, (slabs, 2, B * Hkv, L, ld) with dV
-  // at 0 and dK at 1
-  const size_t head_at = (size_t)bkv * L * ld;
-  const size_t per_out = (size_t)heads * L * ld;
-  float* dv_part =
-      slabs > 1 ? part + (size_t)slab * 2 * per_out + head_at : nullptr;
-  float* dk_part = slabs > 1 ? dv_part + per_out : nullptr;
+  dkv_store<T, D, kN>(acc_dv, dv, part, 0, bkv, heads, slab, slabs, key_a,
+                      key_b, t, L, ld);
+  dkv_store<T, D, kN>(acc_dk, dk, part, 1, bkv, heads, slab, slabs, key_a,
+                      key_b, t, L, ld);
+}
+
+// K3 at D = 256: dK and dV of one 64-row k tile of one (batch, KV head),
+// summed over the group's query heads or one slab of that walk, in one
+// pass by two warpgroups (see the note at the top): warpgroup 0 computes
+// S^T = K Q^T, forms P, hands it to warpgroup 1 through shared memory and
+// makes dV += P^T dO; warpgroup 1 computes dP^T = V dO^T meanwhile, forms
+// dS from P and makes dK += dS^T Q. Each holds its output in 128 fp32 a
+// thread, and both read the same q tile of Q and dO from the ring.
+template <typename T>
+__global__ void __launch_bounds__(kDkv256Threads, 1)
+flash_bwd_dkv_mma_256_kernel(const T* __restrict__ q,
+                             const T* __restrict__ k,
+                             const T* __restrict__ v,
+                             const T* __restrict__ dout,
+                             const float* __restrict__ lse,
+                             const float* __restrict__ delta,
+                             T* __restrict__ dk, T* __restrict__ dv,
+                             float* __restrict__ part, int Hq, int Hkv, int L,
+                             int ld, float scale, int causal, int per_slab,
+                             int slabs) {
+  constexpr int D = 256, BQ = kDkv256Bq, kN = sm90::block_cols<D>();
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  T* sK = reinterpret_cast<T*>(smem_raw);  // kTile x D, swizzled
+  T* sV = sK + kTile * D;                  // kTile x D
+  T* sQ = sV + kTile * D;                  // 2 stages x BQ x D
+  T* sDO = sQ + 2 * BQ * D;                // 2 stages x BQ x D
+  float* sLse = reinterpret_cast<float*>(sDO + 2 * BQ * D);  // 2 x BQ
+  float* sDelta = sLse + 2 * BQ;                              // 2 x BQ
+  // P handed from warpgroup 0 to 1: thread i's BQ / 2 values as BQ / 8
+  // float4s, the j-th at j * kMmaThreads + i
+  float4* sP = reinterpret_cast<float4*>(sDelta + 2 * BQ);
+
+  // 0: S^T, P and dV; 1: dP^T, dS and dK
+  const int wg = threadIdx.x / kMmaThreads, tid = threadIdx.x % kMmaThreads;
+  const int lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const int nk = (L + kTile - 1) / kTile;
+  const int heads = gridDim.x / (nk * slabs);  // B * Hkv
+  const int bkv = blockIdx.x % heads;
+  const int slab = blockIdx.x / heads % slabs;
+  // causal: the first k tile is seen by every q tile, so it goes first
+  const int k0 = (blockIdx.x / (heads * slabs)) * kTile;
+  const int b = bkv / Hkv;
+  const int G = Hq / Hkv;
+  const int bh0 = b * Hq + (bkv - b * Hkv) * G;  // the group's first q head
+
+  const int nq = (L + BQ - 1) / BQ;
+  const int q_first = causal ? k0 / BQ : 0;
+  const int per = nq - q_first;  // q tiles per query head of the group
+  // member-major, as the TPU kernel's grid; this block's slab of the walk
+  const int it0 = slab * per_slab;
+  const int it_end = min(G * per, it0 + per_slab);
+  if (it0 >= it_end) return;  // the tile has fewer slabs than the longest
+
+  auto load_q = [&](int it, int stage) {
+    const int bh = bh0 + it / per;
+    const int q0 = (q_first + it % per) * BQ;
+    sm90::load_tile_async<T, D, BQ, kDkv256Threads>(
+        sQ + stage * BQ * D, q + (size_t)bh * L * ld, q0, L, ld);
+    sm90::load_tile_async<T, D, BQ, kDkv256Threads>(
+        sDO + stage * BQ * D, dout + (size_t)bh * L * ld, q0, L, ld);
+    if (threadIdx.x < BQ) {
+      const int i = threadIdx.x, gq = q0 + i;
+      const size_t at = (size_t)bh * L + (gq < L ? gq : 0);
+      sm90::cp_async_4(sLse + stage * BQ + i, lse + at, gq < L ? 4 : 0);
+      sm90::cp_async_4(sDelta + stage * BQ + i, delta + at, gq < L ? 4 : 0);
+    }
+  };
+
+  sm90::load_tile_async<T, D, kTile, kDkv256Threads>(
+      sK, k + (size_t)bkv * L * ld, k0, L, ld);
+  sm90::load_tile_async<T, D, kTile, kDkv256Threads>(
+      sV, v + (size_t)bkv * L * ld, k0, L, ld);
+  load_q(it0, 0);
+  sm90::cp_async_commit();
+
+  // this thread's two key rows of its warp's 16: g and g + 8
+  const int key_a = k0 + warp * 16 + g, key_b = key_a + 8;
+  const float scale_log2 = scale * kLog2e;
+  // the first product's A (K, or V) and B (Q, or dO) and the output's B
+  // (dO for dV, Q for dK): one code path for both warpgroups
+  const uint32_t kv_smem = sm90::smem_addr(wg ? sV : sK);
+  T* const sFirst = wg ? sDO : sQ;
+  T* const sSecond = wg ? sQ : sDO;
+
+  float acc[D / kN][kN / 2];  // dV (warpgroup 0) or dK (1)
+  float s[BQ / 2];            // S^T, then P (0); dP^T, then dS (1)
 #pragma unroll
   for (int c = 0; c < D / kN; ++c)
 #pragma unroll
-    for (int j = 0; j < kN / 8; ++j) {
-      const int col = kN * c + 8 * j + 2 * t;
-      if (col >= ld) continue;
+    for (int i = 0; i < kN / 2; ++i) acc[c][i] = 0.f;
 #pragma unroll
-      for (int h = 0; h < 2; ++h) {  // rows key_a, then key_b
-        const int key = h ? key_b : key_a;
-        if (key >= L) continue;
-        const size_t at = (size_t)key * ld + col;
-        const int e = 4 * j + 2 * h;
-        if (slabs > 1) {
-          if constexpr (kWantDk)
-            *reinterpret_cast<float2*>(dk_part + at) =
-                make_float2(acc_dk[c][e], acc_dk[c][e + 1]);
-          if constexpr (kWantDv)
-            *reinterpret_cast<float2*>(dv_part + at) =
-                make_float2(acc_dv[c][e], acc_dv[c][e + 1]);
-        } else {
-          if constexpr (kWantDk)
-            *reinterpret_cast<uint32_t*>(dk + head_at + at) =
-                sm90::pack2<T>(acc_dk[c][e], acc_dk[c][e + 1]);
-          if constexpr (kWantDv)
-            *reinterpret_cast<uint32_t*>(dv + head_at + at) =
-                sm90::pack2<T>(acc_dv[c][e], acc_dv[c][e + 1]);
+  for (int i = 0; i < BQ / 2; ++i) s[i] = 0.f;
+
+  for (int it = it0; it < it_end; ++it) {
+    const int stage = (it - it0) & 1;
+    if (it + 1 < it_end) load_q(it + 1, stage ^ 1);
+    sm90::cp_async_commit();
+    sm90::cp_async_wait<1>();  // this stage (and K, V) have landed
+    sm90::fence_proxy_async();
+    __syncthreads();
+
+    const int q0 = (q_first + it % per) * BQ;
+    const uint32_t first_smem = sm90::smem_addr(sFirst + stage * BQ * D);
+    const uint32_t second_smem = sm90::smem_addr(sSecond + stage * BQ * D);
+    const float* tLse = sLse + stage * BQ;
+    const float* tDelta = sDelta + stage * BQ;
+
+    // S^T = K Q^T (0) or dP^T = V dO^T (1), 64 keys x BQ queries in 16
+    // k-steps, Q and dO read K-major
+    sm90::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk)
+      sm90::wgmma_ss<T, BQ>(s, sm90::desc_k_major<kTile>(kv_smem, kk),
+                            sm90::desc_k_major<BQ>(first_smem, kk), kk > 0);
+    sm90::wgmma_commit();
+    sm90::wgmma_wait<0>();
+    sm90::fence_operands(s);
+
+    const bool edge = dkv_edge<BQ>(q0, k0, L, causal);
+    if (wg == 0) {
+      // P, in fp32 to warpgroup 1 (its dS is then the one-warpgroup
+      // kernels' to the bit), and rounded below for dV
+#pragma unroll
+      for (int j = 0; j < BQ / 8; ++j) {
+        const int col = 8 * j + 2 * t;
+        const float2 ls = *reinterpret_cast<const float2*>(tLse + col);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const bool odd = e & 1;
+          s[4 * j + e] = dkv_prob(s[4 * j + e], odd ? ls.y : ls.x, edge,
+                                  q0 + col + odd, e >= 2 ? key_b : key_a, L,
+                                  causal, scale_log2);
         }
+        sP[j * kMmaThreads + tid] = make_float4(s[4 * j], s[4 * j + 1],
+                                                s[4 * j + 2], s[4 * j + 3]);
+      }
+      sm90::named_barrier_arrive(1, kDkv256Threads);
+    } else {
+      sm90::named_barrier_sync(1, kDkv256Threads);  // P has landed
+#pragma unroll
+      for (int j = 0; j < BQ / 8; ++j) {
+        const float2 dl =
+            *reinterpret_cast<const float2*>(tDelta + 8 * j + 2 * t);
+        const float4 p = sP[j * kMmaThreads + tid];
+        float* dp = s + 4 * j;
+        dp[0] = p.x * (dp[0] - dl.x) * scale;
+        dp[1] = p.y * (dp[1] - dl.y) * scale;
+        dp[2] = p.z * (dp[2] - dl.x) * scale;
+        dp[3] = p.w * (dp[3] - dl.y) * scale;
       }
     }
+
+    // dV += P^T dO (0) or dK += dS^T Q (1), P or dS rounded to the input
+    // dtype from registers; dO and Q read MN-major, one n = 64 wgmma per
+    // k16 step and column block
+    uint32_t a[BQ / 16][4];
+#pragma unroll
+    for (int kk = 0; kk < BQ / 16; ++kk) sm90::acc_to_a<T>(a[kk], s + 8 * kk);
+    sm90::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < BQ / 16; ++kk)
+#pragma unroll
+      for (int c = 0; c < D / kN; ++c)
+        sm90::wgmma_rs_mn<T>(acc[c], a[kk],
+                             sm90::desc_mn_major<BQ>(second_smem, 16 * kk,
+                                                     c));
+    sm90::wgmma_commit();
+    sm90::wgmma_wait<0>();
+#pragma unroll
+    for (int c = 0; c < D / kN; ++c) sm90::fence_operands(acc[c]);
+    // done with this stage and with P before either is refilled
+    __syncthreads();
+  }
+
+  if (wg == 0)
+    dkv_store<T, D, kN>(acc, dv, part, 0, bkv, heads, slab, slabs, key_a,
+                        key_b, t, L, ld);
+  else
+    dkv_store<T, D, kN>(acc, dk, part, 1, bkv, heads, slab, slabs, key_a,
+                        key_b, t, L, ld);
 }
 
 // ---------------------------------------------------------------------------
@@ -535,16 +764,15 @@ flash_bwd_dkv_mma_kernel(const T* __restrict__ q, const T* __restrict__ k,
 // (flash_bwd_dkv_general_mma_kernel), for any D that is a multiple of 64
 // (the wrapper zero-pads to one, as it pads to the builds)
 //
-// It starts from the two-pass design at D = 256, where one launch makes dV
-// and another dK, each holding 128 fp32 of one output a thread. At D = 512
-// the resident K and V tiles alone (128 KB) and dK's or dV's 512 columns
-// (256 fp32 a thread) do not fit. So:
+// One pass makes dV and another dK, each holding 128 fp32 of one output a
+// thread. At D = 512 the resident K and V tiles alone (128 KB) and dK's or
+// dV's 512 columns (256 fp32 a thread) do not fit. So:
 //   - The grid is (64-row k tile, pass, 256-column chunk of the output,
 //     b * Hkv) in one launch, tile-major with the first (longest causal)
 //     k tiles first: the dV pass makes dV[:, c0:c0 + 256] and the dK pass
 //     dK[:, c0:c0 + 256] of one k tile, each in 128 fp32 registers a
 //     thread, over the G query heads of the group and their 32-row q tiles
-//     (kGenBq, as K3 at D = 128 and 256).
+//     (kGenBq, as K3 at D = 128).
 //   - S^T = K Q^T (and in the dK pass dP^T = V dO^T) reduce over the full D
 //     on wgmma (m64n32k16, every operand K-major), one 64-column block of
 //     K, Q (V, dO) at a time through a ring of kRing stages filled by
@@ -1550,7 +1778,7 @@ struct Args {
   float scale;
   int causal;
   cudaStream_t stream;
-  int ld = 0;  // the tuned K3: the caller's row length, at most D
+  int ld = 0;  // the tuned K2 and K3: the caller's row length, at most D
   float* part = nullptr;  // the tuned K3's split: its slabs' partials
   int per_slab = 0, slabs = 1;
 };
@@ -1571,61 +1799,72 @@ int launch_dq_mma(const Args& a) {
   flash_bwd_dq_mma_kernel<T, D><<<(int)grid, kMmaThreads, smem, a.stream>>>(
       static_cast<const T*>(a.q), static_cast<const T*>(a.k),
       static_cast<const T*>(a.v), static_cast<const T*>(a.dout), a.lse,
-      a.delta, static_cast<T*>(a.out0), a.Hq, a.Hkv, a.L, a.scale, a.causal);
+      a.delta, static_cast<T*>(a.out0), a.Hq, a.Hkv, a.L, a.ld, a.scale,
+      a.causal);
   return (int)cudaGetLastError();
 }
 
 // one block per (k tile, slab, KV head): tile-major, so the tile rank is
 // the slow index
-template <typename T, int D, int kParts>
-int launch_dkv_mma(const Args& a) {
-  const size_t smem = dkv_mma_smem_bytes<D>();
-  if (int err = prepare(flash_bwd_dkv_mma_kernel<T, D, kParts>, smem))
-    return err;
+template <typename T, typename Kernel>
+int launch_dkv_kernel(Kernel kernel, size_t smem, int threads,
+                      const Args& a) {
+  if (int err = prepare(kernel, smem)) return err;
   const long long grid =
       (long long)((a.L + kTile - 1) / kTile) * a.slabs * a.B * a.Hkv;
   if (grid > INT_MAX) return -1;
-  flash_bwd_dkv_mma_kernel<T, D, kParts>
-      <<<(int)grid, kMmaThreads, smem, a.stream>>>(
-          static_cast<const T*>(a.q), static_cast<const T*>(a.k),
-          static_cast<const T*>(a.v), static_cast<const T*>(a.dout), a.lse,
-          a.delta, static_cast<T*>(a.out0), static_cast<T*>(a.out1), a.part,
-          a.Hq, a.Hkv, a.L, a.ld, a.scale, a.causal, a.per_slab, a.slabs);
+  kernel<<<(int)grid, threads, smem, a.stream>>>(
+      static_cast<const T*>(a.q), static_cast<const T*>(a.k),
+      static_cast<const T*>(a.v), static_cast<const T*>(a.dout), a.lse,
+      a.delta, static_cast<T*>(a.out0), static_cast<T*>(a.out1), a.part,
+      a.Hq, a.Hkv, a.L, a.ld, a.scale, a.causal, a.per_slab, a.slabs);
   return (int)cudaGetLastError();
 }
 
+// D = 256 on its two-warpgroup kernel
+template <typename T, int D>
+int launch_dkv_mma(const Args& a) {
+  if constexpr (D == 256)
+    return launch_dkv_kernel<T>(flash_bwd_dkv_mma_256_kernel<T>,
+                                dkv_mma_256_smem_bytes(), kDkv256Threads, a);
+  else
+    return launch_dkv_kernel<T>(flash_bwd_dkv_mma_kernel<T, D>,
+                                dkv_mma_smem_bytes<D>(), kMmaThreads, a);
+}
+
 template <typename T>
-int launch_mma(const Args& a, int D, bool dq, int parts) {
+int launch_mma(const Args& a, int D, bool dq) {
   if (dq) {
     switch (D) {
+      case 16: return launch_dq_mma<T, 16>(a);
+      case 32: return launch_dq_mma<T, 32>(a);
       case 64: return launch_dq_mma<T, 64>(a);
       case 128: return launch_dq_mma<T, 128>(a);
       case 256: return launch_dq_mma<T, 256>(a);
     }
     return -1;
   }
-  // D <= 128 make dK and dV in one launch, D = 256 one per launch
-  switch (D * 4 + parts) {
-    case 16 * 4 + (kDk | kDv): return launch_dkv_mma<T, 16, kDk | kDv>(a);
-    case 32 * 4 + (kDk | kDv): return launch_dkv_mma<T, 32, kDk | kDv>(a);
-    case 64 * 4 + (kDk | kDv): return launch_dkv_mma<T, 64, kDk | kDv>(a);
-    case 128 * 4 + (kDk | kDv): return launch_dkv_mma<T, 128, kDk | kDv>(a);
-    case 256 * 4 + kDv: return launch_dkv_mma<T, 256, kDv>(a);
-    case 256 * 4 + kDk: return launch_dkv_mma<T, 256, kDk>(a);
+  switch (D) {
+    case 16: return launch_dkv_mma<T, 16>(a);
+    case 32: return launch_dkv_mma<T, 32>(a);
+    case 64: return launch_dkv_mma<T, 64>(a);
+    case 128: return launch_dkv_mma<T, 128>(a);
+    case 256: return launch_dkv_mma<T, 256>(a);
   }
   return -1;
 }
 
-// dtype: 1 = float16, 2 = bfloat16 (tensor cores; K2's D in {64, 128,
-// 256}, K3's in {16, 32, 64, 128, 256}); parts (K3 only): kDk | kDv at D <=
-// 128, kDv or kDk at D = 256
-int dispatch(const Args& a, int D, int dtype, bool dq, int parts) {
-  if (a.B < 1 || a.Hkv < 1 || a.Hq % a.Hkv != 0 || a.L < 1) return -1;
+// dtype: 1 = float16, 2 = bfloat16 (tensor cores; K2's and K3's D in {16,
+// 32, 64, 128, 256}); ld in 8..D, a multiple of 8
+int dispatch(const Args& a, int D, int dtype, bool dq) {
+  if (a.B < 1 || a.Hkv < 1 || a.Hq % a.Hkv != 0 || a.L < 1 || a.ld < 8 ||
+      a.ld > D || a.ld % 8 != 0)
+    return -1;
   switch (dtype) {
     case 1:
-      return launch_mma<__half>(a, D, dq, parts);
+      return launch_mma<__half>(a, D, dq);
     case 2:
-      return launch_mma<__nv_bfloat16>(a, D, dq, parts);
+      return launch_mma<__nv_bfloat16>(a, D, dq);
     default:
       return -1;
   }
@@ -1757,39 +1996,39 @@ bool mma_head_dim_ok(int D) { return D % kBlock == 0 && D / kBlock >= kAhead; }
 
 extern "C" {
 
-// K2 on tensor cores in bf16 (dtype 2) or fp16 (1), D in {64, 128, 256}.
-// Returns 0 on success, the cudaError_t of a refused launch, or -1 for
-// arguments the kernel does not take (the Python wrapper checks them first).
-// lse and delta are (B, Hq, L) fp32; q, dout and dq are (B, Hq, L, D);
-// k and v are (B, Hkv, L, D); all contiguous, and the (B, H, L, D) tensors
-// 16-byte aligned.
+// K2 on tensor cores in bf16 (dtype 2) or fp16 (1), D the build (16, 32,
+// 64, 128 or 256) and ld the caller's row length: at D = 16 and 32 a
+// multiple of 8 up to D (the build zero-fills columns ld..D - 1 in shared
+// memory and stores ld columns), from 64 D itself. Returns 0 on success,
+// the cudaError_t of a refused launch, or -1 for arguments the kernel does
+// not take (the Python wrapper checks them first). lse and delta are (B, Hq, L) fp32; q, dout and dq are (B, Hq, L,
+// ld); k and v are (B, Hkv, L, ld); all contiguous, and the (B, H, L, ld)
+// tensors 16-byte aligned.
 int metisfl_flash_bwd_dq(const void* q, const void* k, const void* v,
                          const void* dout, const void* lse, const void* delta,
                          void* dq, int B, int Hq, int Hkv, int L, int D,
-                         int dtype, int causal, float scale, void* stream) {
-  const Args a{q, k, v, dout, static_cast<const float*>(lse),
-               static_cast<const float*>(delta), dq, nullptr, B, Hq, Hkv, L,
-               scale, causal, static_cast<cudaStream_t>(stream)};
-  return dispatch(a, D, dtype, true, 0);
+                         int ld, int dtype, int causal, float scale,
+                         void* stream) {
+  if (D >= 64 && ld != D) return -1;  // those builds read rows of D
+  Args a{q, k, v, dout, static_cast<const float*>(lse),
+         static_cast<const float*>(delta), dq, nullptr, B, Hq, Hkv, L,
+         scale, causal, static_cast<cudaStream_t>(stream)};
+  a.ld = ld;
+  return dispatch(a, D, dtype, true);
 }
 
-// K3. As K2, with dk and dv (B, Hkv, L, ld) as outputs, D the build (16,
-// 32, 64, 128 or 256) and ld <= D the caller's row length, a multiple of 8
-// (the build zero-fills columns ld..D - 1 in shared memory and stores ld
-// columns); parts = 1 makes dV alone, 2 dK alone, 3 both (the output a
-// launch does not make is not touched). The split: each k tile's walk over
-// (query head, q tile) is cut into slabs of per_slab steps (slabs for the
-// longest tile). slabs = 1 writes dk and dv; slabs > 1 (D <= 128, parts 3)
+// K3. As K2, with dk and dv (B, Hkv, L, ld) as outputs. The split: each k
+// tile's walk over (query head, q tile) is cut into slabs of per_slab
+// steps (slabs for the longest tile). slabs = 1 writes dk and dv; slabs > 1
 // writes fp32 partials into part, (slabs, 2, B * Hkv, L, ld) with dV at
 // index 0 and dK at 1, which metisfl_flash_bwd_dkv_split_sum then sums.
 int metisfl_flash_bwd_dkv(const void* q, const void* k, const void* v,
                           const void* dout, const void* lse,
                           const void* delta, void* dk, void* dv, void* part,
                           int B, int Hq, int Hkv, int L, int D, int ld,
-                          int dtype, int causal, int parts, int per_slab,
-                          int slabs, float scale, void* stream) {
-  if (ld < 8 || ld > D || ld % 8 != 0 || per_slab < 1 || slabs < 1 ||
-      (slabs > 1 && (part == nullptr || parts != (kDk | kDv))))
+                          int dtype, int causal, int per_slab, int slabs,
+                          float scale, void* stream) {
+  if (per_slab < 1 || slabs < 1 || (slabs > 1 && part == nullptr))
     return -1;
   Args a{q, k, v, dout, static_cast<const float*>(lse),
          static_cast<const float*>(delta), dk, dv, B, Hq, Hkv, L,
@@ -1798,7 +2037,7 @@ int metisfl_flash_bwd_dkv(const void* q, const void* k, const void* v,
   a.part = static_cast<float*>(part);
   a.per_slab = per_slab;
   a.slabs = slabs;
-  return dispatch(a, D, dtype, false, parts);
+  return dispatch(a, D, dtype, false);
 }
 
 // K2 in fp32 (dtype 0), register-tiled, at any head dim D that is a

@@ -153,6 +153,18 @@ __device__ __forceinline__ void fence_proxy_async() {
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 }
 
+// named barrier `id` (1-15; 0 is __syncthreads') over `threads` threads,
+// a multiple of 32: arrive signals without waiting, sync waits until all
+// have arrived; shared-memory writes before an arrive are seen by the
+// threads that sync (the producer / consumer hand-off between warpgroups)
+__device__ __forceinline__ void named_barrier_arrive(int id, int threads) {
+  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+
+__device__ __forceinline__ void named_barrier_sync(int id, int threads) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+
 // orders register writes before the wgmma that read them
 __device__ __forceinline__ void wgmma_fence() {
   asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");

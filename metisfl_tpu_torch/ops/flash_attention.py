@@ -26,14 +26,15 @@ The Pallas kernels take any D, since their blocks span the whole head, and
 so do the wrappers. Which kernel takes which (dtype, D) is
 :func:`kernel_route`'s answer, a pure function of both:
 
-- the tuned kernels, built for a few head dims in bf16/fp16: K1 and K3
-  for 16, 32, 64, 128 and 256, K2 for 64, 128 and 256 (K3 at D = 256
-  launches twice, once for dV and once for dK, since dK and dV of its
-  64-row tile would take 256 fp32 registers a thread; at D = 16 and 32 it
-  cuts its walk over each KV group into slabs, :func:`dkv_mma_split`, and
-  sums them in a second launch). The D = 16 and 32 builds read a D that
-  is a multiple of 8 in place (8, 24: their loads zero-fill the rest of
-  the build's columns in shared memory, and only D columns are stored).
+- the tuned kernels, built for 16, 32, 64, 128 and 256 in bf16/fp16
+  (K3 at D = 256 makes dK and dV in one launch with two warpgroups, one
+  per output, since both outputs of its 64-row tile would take 256 fp32
+  registers a thread; at D = 16, 32 and 256 it cuts its walk over each
+  KV group into slabs where the grid would not fill the card,
+  :func:`dkv_mma_split`, and sums them in a second launch). The D = 16
+  and 32 builds read a D that is a multiple of 8 in place (8, 24: their
+  loads zero-fill the rest of the build's columns in shared memory, and
+  only D columns are stored).
   Otherwise, up to the largest build, the wrappers zero-pad q, k, v (and
   dO) along D to the next built head dim, launch with the true D's scale,
   and slice O, dQ, dK and dV back to D (:func:`zero_pads`). That is
@@ -74,12 +75,12 @@ import torch
 
 _NEG = -1e30
 _DTYPE_CODES = {torch.float32: 0, torch.float16: 1, torch.bfloat16: 2}
-# the head dims each tuned kernel is instantiated for (bf16/fp16 only): K1
-# and K3 from 16, K2 from 64; a D between builds runs on the next one (read
-# in place at the 16 and 32 builds where D is a multiple of 8, else padded),
-# a larger one goes to the general kernels
+# the head dims each tuned kernel is instantiated for (bf16/fp16 only); a D
+# between builds runs on the next one (read in place at the 16 and 32 builds
+# where D is a multiple of 8, else padded), a larger one goes to the
+# general kernels
 _FWD_HEAD_DIMS = (16, 32, 64, 128, 256)
-_DQ_HEAD_DIMS = (64, 128, 256)
+_DQ_HEAD_DIMS = (16, 32, 64, 128, 256)
 _DKV_HEAD_DIMS = (16, 32, 64, 128, 256)
 # the builds that read the caller's rows at their own length (a multiple of
 # 8 values, 16 bytes), zero-filling the rest of the build's columns
@@ -95,9 +96,11 @@ _KV_TILE = 64
 # even them out; on the H100, 8 beat 2 and 4 and matched 16 for K3,
 # PERF.md)
 _SPLIT_BLOCKS_PER_SM = 8
-# the same for the tensor-core K3 at D <= 32, whose small blocks (one
-# warpgroup, 13-26 KB of shared memory) share an SM several at a time
-_MMA_SPLIT_BLOCKS_PER_SM = 4
+# the same for the tensor-core K3 at the builds whose walks it splits (q
+# steps of 64 rows), by build: at D <= 32 small blocks (one warpgroup, 13-26
+# KB of shared memory) share an SM several at a time; at D = 256 one block
+# (two warpgroups, 209 KB) takes a whole SM
+_MMA_SPLIT_BLOCKS_PER_SM = {16: 4, 32: 4, 256: 1}
 # the fewest q steps a slab of that K3 walks: each slab writes its fp32
 # partials and the sum reads them back, which shorter slabs do not repay
 # (on the H100 slabs of 1-3 steps lost to the unsplit walk of 8 at
@@ -299,20 +302,21 @@ def _slabs(steps, blocks: int, sms: int, per_sm: int,
     return per_slab, -(-steps[0] // per_slab)
 
 
-def dkv_mma_split(B: int, Hq: int, Hkv: int, L: int, causal: bool,
+def dkv_mma_split(B: int, Hq: int, Hkv: int, L: int, D: int, causal: bool,
                   sms: int) -> Tuple[int, int]:
-    """``(per_slab, slabs)`` of the tensor-core K3 at its D = 16 and 32
-    builds at these shapes on a card of ``sms`` SMs. One block per (64-row
-    k tile, KV head) walks the group's query heads and their 64-row q tiles
+    """``(per_slab, slabs)`` of the tensor-core K3 at its D = 16, 32 and
+    256 builds (``D``, a key of ``_MMA_SPLIT_BLOCKS_PER_SM``) at these
+    shapes on a card of ``sms`` SMs. One block per (64-row k tile, KV
+    head) walks the group's query heads and their 64-row q tiles
     (:func:`_slab_steps`), which leaves the card under one wave at GQA
-    shapes; so each walk is cut into slabs of ``per_slab`` steps, one
-    block each, aiming at ``_MMA_SPLIT_BLOCKS_PER_SM`` blocks' work per SM
-    with slabs of at least ``_MMA_MIN_SLAB_STEPS`` steps, whose fp32
-    partials :func:`flash_bwd_dkv_split_sum` adds up and rounds.
-    ``slabs == 1`` writes dK and dV directly. A pure function of its
-    arguments."""
+    shapes, the first k tile's walk the longest when causal; so each walk
+    is cut into slabs of ``per_slab`` steps, one block each, aiming at
+    ``_MMA_SPLIT_BLOCKS_PER_SM[D]`` blocks' work per SM with slabs of at
+    least ``_MMA_MIN_SLAB_STEPS`` steps, whose fp32 partials
+    :func:`flash_bwd_dkv_split_sum` adds up and rounds. ``slabs == 1``
+    writes dK and dV directly. A pure function of its arguments."""
     return _slabs(_slab_steps(L, Hq // Hkv, causal), B * Hkv, sms,
-                  _MMA_SPLIT_BLOCKS_PER_SM, _MMA_MIN_SLAB_STEPS)
+                  _MMA_SPLIT_BLOCKS_PER_SM[D], _MMA_MIN_SLAB_STEPS)
 
 
 def dkv_split(B: int, Hq: int, Hkv: int, L: int, D: int, causal: bool,
@@ -378,7 +382,7 @@ class Route(NamedTuple):
     wrapper: str  # the wrapper that launches it and counts the launch
     head_dim: int  # the D it runs at (zero-padded from the caller's)
     chunks: int  # blocks along the output's head dim, for each tile
-    passes: int  # outputs made one at a time (K3: dV, then dK)
+    passes: int  # outputs made one at a time (the fp32 K3: dV, then dK)
 
 
 # the wrappers of each kernel: (tuned builds, general fp32, general
@@ -399,11 +403,11 @@ def kernel_route(kernel: str, dtype: torch.dtype, D: int) -> Route:
     function of the two, and the one the wrappers route by. In fp32, at
     every D, each kernel's register-tiled kernel (padded to
     :func:`f32_head_dim`, 256-column chunks; K3 in two passes, dV and dK).
-    In bf16/fp16 a tuned build where D fits one (K1 and K3: 16, 32, 64,
-    128, 256; K2: 64, 128, 256), beyond them the general tensor-core
-    kernels (padded to :func:`mma_head_dim`). :func:`zero_pads` says
-    whether the wrapper copies the inputs padded to the route's head
-    dim."""
+    In bf16/fp16 a tuned build where D fits one (16, 32, 64, 128, 256;
+    each makes its outputs in one pass), beyond them the general
+    tensor-core kernels (padded to :func:`mma_head_dim`; K3 in two
+    passes). :func:`zero_pads` says whether the wrapper copies the inputs
+    padded to the route's head dim."""
     tuned, general, mma = _WRAPPERS[kernel]
     passes = 2 if kernel == "dkv" else 1
     if dtype == torch.float32:
@@ -413,8 +417,7 @@ def kernel_route(kernel: str, dtype: torch.dtype, D: int) -> Route:
               else bwd_head_dims(dtype, kernel))
     built = kernel_head_dim(D, builds)
     if built is not None:
-        return Route(tuned, built, 1,
-                     2 if kernel == "dkv" and built == 256 else 1)
+        return Route(tuned, built, 1, 1)
     Dp = mma_head_dim(D)
     return Route(mma, Dp, -(-Dp // _MMA_CHUNK), passes)
 
@@ -422,10 +425,11 @@ def kernel_route(kernel: str, dtype: torch.dtype, D: int) -> Route:
 def zero_pads(kernel: str, dtype: torch.dtype, D: int) -> bool:
     """Whether the wrapper of ``kernel``'s route copies q, k, v (and dO)
     zero-padded along D to the route's head dim (and slices the outputs
-    back): not at the route's own head dim, and not at K1's and K3's D =
-    16 and 32 builds where D is a multiple of 8, which read the caller's
-    rows at their own length and zero-fill the rest in shared memory. A
-    pure function of its arguments, as :func:`kernel_route` is."""
+    back): not at the route's own head dim, and not at the D = 16 and 32
+    builds (K1, K2 and K3) where D is a multiple of 8, which read the
+    caller's rows at their own length and zero-fill the rest in shared
+    memory. A pure function of its arguments, as :func:`kernel_route`
+    is."""
     head_dim = kernel_route(kernel, dtype, D).head_dim
     return D != head_dim and not (head_dim in _IN_PLACE_HEAD_DIMS
                                   and D % 8 == 0)
@@ -524,8 +528,8 @@ _SIGNATURES = {
         + [_FLOAT, _PTR],
     },
     "flash_bwd": {
-        "metisfl_flash_bwd_dq": [_PTR] * 7 + [_INT] * 7 + [_FLOAT, _PTR],
-        "metisfl_flash_bwd_dkv": [_PTR] * 9 + [_INT] * 11 + [_FLOAT, _PTR],
+        "metisfl_flash_bwd_dq": [_PTR] * 7 + [_INT] * 8 + [_FLOAT, _PTR],
+        "metisfl_flash_bwd_dkv": [_PTR] * 9 + [_INT] * 10 + [_FLOAT, _PTR],
         "metisfl_flash_bwd_dq_general": [_PTR] * 8 + [_INT] * 9
         + [_FLOAT, _PTR],
         "metisfl_flash_bwd_dq_split_sum": [_PTR] * 2 + [_INT] * 6
@@ -540,8 +544,6 @@ _SIGNATURES = {
         + [_FLOAT, _PTR],
     },
 }
-# K3's parts argument: the outputs one launch makes
-_DV, _DK = 1, 2
 # the tuned K3's slab arguments where it does not split: one slab as long
 # as any walk
 _UNSPLIT = (2 ** 31 - 1, 1)
@@ -823,11 +825,11 @@ def flash_bwd_dq(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                  causal: bool = False) -> torch.Tensor:
     """K2 on CUDA tensors: dQ (B, Hq, L, D) in q.dtype from the forward's
     lse and δ = rowsum(dO∘O), both (B, Hq, L) fp32. Launches
-    ``csrc/flash_bwd.cu``'s tensor-core dQ kernel for bf16/fp16 at D <= 256
-    (padded to the next built head dim as in the forward, with q, k, v and
-    do 16-byte aligned there) or raises; a larger D goes to
-    :func:`flash_bwd_dq_general_mma`, and fp32 at every D to
-    :func:`flash_bwd_dq_general` (:func:`kernel_route`).
+    ``csrc/flash_bwd.cu``'s tensor-core dQ kernel for bf16/fp16 at D <= 256,
+    built for 16, 32, 64, 128 and 256 (read in place or padded as K1,
+    :func:`zero_pads`, with q, k, v and do 16-byte aligned there) or
+    raises; a larger D goes to :func:`flash_bwd_dq_general_mma`, and fp32
+    at every D to :func:`flash_bwd_dq_general` (:func:`kernel_route`).
     ``flash_bwd_dq.launches`` counts this kernel's launches (one per
     call)."""
     _bwd_inputs_on_cuda("flash_bwd_dq", q, k, v, do, lse, delta)
@@ -838,15 +840,18 @@ def flash_bwd_dq(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if route.wrapper == "flash_bwd_dq_general":
         return flash_bwd_dq_general(q, k, v, do, lse, delta, causal)
     scale = 1.0 / math.sqrt(D)
-    Dk, (q, k, v, do) = pad_head_dim(q, k, v, do,
-                                     head_dims=(route.head_dim,))
+    if zero_pads("dq", q.dtype, D):
+        _, (q, k, v, do) = pad_head_dim(q, k, v, do,
+                                        head_dims=(route.head_dim,))
     _check_aligned(q=q, k=k, v=v, do=do)
     dq = torch.empty_like(q)
+    # the build's head dim, then the length of the rows it reads and writes
+    B, Hq, Hkv, L, ld, *flags = _shape_args(q, k, causal, scale)
     _launch("flash_bwd", "metisfl_flash_bwd_dq", flash_bwd_dq, q.device,
             q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
-            lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
-            *_shape_args(q, k, causal, scale))
-    return dq if Dk == D else dq[..., :D].contiguous()
+            lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), B, Hq, Hkv, L,
+            route.head_dim, ld, *flags)
+    return dq if ld == D else dq[..., :D].contiguous()
 
 
 flash_bwd_dq.launches = 0
@@ -860,16 +865,16 @@ def flash_bwd_dkv(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     the query heads of its KV group, without atomics (the same bits on
     every run). Launches ``csrc/flash_bwd.cu``'s tensor-core dK/dV kernel
     for bf16/fp16 at D <= 256, built for 16, 32, 64, 128 and 256 (read in
-    place or padded as K1, :func:`zero_pads`) or raises; at D = 256 it
-    launches twice, for dV and then for dK. At the D = 16 and 32 builds,
-    where :func:`dkv_mma_split` cuts the k tiles' walks into slabs, the
-    blocks write fp32 partials into a scratch tensor and
+    place or padded as K1, :func:`zero_pads`; D = 256 on two warpgroups,
+    one per output) or raises. At the D = 16, 32 and 256 builds, where
+    :func:`dkv_mma_split` cuts the k tiles' walks into slabs, the blocks
+    write fp32 partials into a scratch tensor and
     :func:`flash_bwd_dkv_split_sum` adds them up in a fixed order and rounds
     them to the input dtype. A larger D goes to
     :func:`flash_bwd_dkv_general_mma`, and fp32 at every D to
     :func:`flash_bwd_dkv_general` (:func:`kernel_route`).
     ``flash_bwd_dkv.launches`` counts this kernel's launches (one per
-    output pass)."""
+    call)."""
     _bwd_inputs_on_cuda("flash_bwd_dkv", q, k, v, do, lse, delta)
     D = q.shape[-1]
     route = kernel_route("dkv", q.dtype, D)
@@ -887,22 +892,20 @@ def flash_bwd_dkv(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     B, Hq, Hkv, L, ld, dtype, causal_arg, scale_arg = _shape_args(
         q, k, causal, scale)
     per_slab, slabs = _UNSPLIT
-    if route.head_dim in _IN_PLACE_HEAD_DIMS:
+    if route.head_dim in _MMA_SPLIT_BLOCKS_PER_SM:
         sms = torch.cuda.get_device_properties(
             q.device).multi_processor_count
-        per_slab, slabs = dkv_mma_split(B, Hq, Hkv, L, causal, sms)
+        per_slab, slabs = dkv_mma_split(B, Hq, Hkv, L, route.head_dim,
+                                        causal, sms)
     # the slabs' partials: dV at [:, 0], dK at [:, 1]
     part = (torch.empty((slabs, 2) + tuple(k.shape), dtype=torch.float32,
                         device=q.device) if slabs > 1 else None)
-    # D = 256: one pass for dV, one for dK (K3's registers hold one)
-    passes = (_DV, _DK) if route.passes == 2 else (_DV | _DK,)
-    for parts in passes:
-        _launch("flash_bwd", "metisfl_flash_bwd_dkv", flash_bwd_dkv, q.device,
-                q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
-                lse.data_ptr(), delta.data_ptr(), dk.data_ptr(),
-                dv.data_ptr(), None if part is None else part.data_ptr(),
-                B, Hq, Hkv, L, route.head_dim, ld, dtype, causal_arg, parts,
-                per_slab, slabs, scale_arg)
+    _launch("flash_bwd", "metisfl_flash_bwd_dkv", flash_bwd_dkv, q.device,
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+            lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+            None if part is None else part.data_ptr(), B, Hq, Hkv, L,
+            route.head_dim, ld, dtype, causal_arg, per_slab, slabs,
+            scale_arg)
     if part is not None:
         flash_bwd_dkv_split_sum(part, Hq // Hkv, causal, per_slab,
                                 out=(dk, dv))
@@ -1080,13 +1083,13 @@ def flash_bwd_dkv_split_sum(part: torch.Tensor, group: int, causal: bool,
     """The split K3's second launch: ``(dk, dv)`` (B, Hkv, L, D) from the
     fp32 partials ``(slabs, 2, B, Hkv, L, D)`` that
     :func:`flash_bwd_dkv_general` (fp32) or :func:`flash_bwd_dkv` (its
-    bf16/fp16 D = 16 and 32 builds) wrote with ``per_slab`` q steps a slab,
-    for ``group`` query heads per KV head; written into ``out`` where given,
-    whose dtype (fp32, bf16 or fp16, default fp32) the sums are rounded to
-    once. CPU tensors run :func:`dkv_split_sum_reference`; CUDA tensors
-    launch ``csrc/flash_bwd.cu``'s split sum (each row's slabs added in
-    slab order) or raise. ``flash_bwd_dkv_split_sum.launches`` counts
-    launches."""
+    bf16/fp16 D = 16, 32 and 256 builds) wrote with ``per_slab`` q steps a
+    slab, for ``group`` query heads per KV head; written into ``out`` where
+    given, whose dtype (fp32, bf16 or fp16, default fp32) the sums are
+    rounded to once. CPU tensors run :func:`dkv_split_sum_reference`; CUDA
+    tensors launch ``csrc/flash_bwd.cu``'s split sum (each row's slabs
+    added in slab order) or raise. ``flash_bwd_dkv_split_sum.launches``
+    counts launches."""
     if not _on_cuda(part):
         dk, dv = dkv_split_sum_reference(part, group, causal, per_slab)
         if out is None:

@@ -617,15 +617,15 @@ def test_twins_at_padded_head_dims_match_pallas(jax_flash, causal, D, dtype):
 def test_head_dim_padding_is_exact(causal, D, dtype):
     """The wrappers' padding path, with the twins in the kernels' place:
     q, k, v and dO zero-padded to the head dim of the kernel each call
-    routes to (``kernel_route``: in bf16/fp16 the next build, K1 and K3 16,
-    32, 64, 128 or 256 and K2 64, 128 or 256, and beyond the builds the
+    routes to (``kernel_route``: in bf16/fp16 the next build, 16, 32, 64,
+    128 or 256 for K1, K2 and K3, and beyond the builds the
     next multiple of 64 of the tensor-core general kernels; in fp32, for
     K1, K2 and K3 at every D, the next multiple of 32, at least 64, of the
     register-tiled kernels), run with the true D's scale and sliced back,
     give the unpadded twins' o, lse, dq, dk and dv to 0 ulp, and 0 in every
-    padded column. (The D = 16 and 32 builds zero-fill those columns in
-    shared memory instead of a padded copy, where D is a multiple of 8:
-    the same arithmetic.)
+    padded column. (The D = 16 and 32 builds of K1, K2 and K3 zero-fill
+    those columns in shared memory instead of a padded copy, where D is a
+    multiple of 8: the same arithmetic.)
 
     The inputs are multiples of 1/8 in [-1, 1], exact in every dtype, so
     that every product and every sum over D (Q·Kᵀ, dO·Vᵀ) is exact in fp32
@@ -656,8 +656,7 @@ def test_head_dim_padding_is_exact(causal, D, dtype):
         assert fwd.head_dim == next(d for d in (16, 32, 64, 128, 256)
                                     if D <= d)
         assert kernel_route("dkv", dtype, D).head_dim == fwd.head_dim
-        assert kernel_route("dq", dtype, D).head_dim == next(
-            d for d in (64, 128, 256) if D <= d)
+        assert kernel_route("dq", dtype, D).head_dim == fwd.head_dim
     else:
         assert fwd.head_dim == -(-D // 64) * 64
     Dk, (qp, kp, vp) = pad_head_dim(q, k, v, head_dims=(fwd.head_dim,))
@@ -718,16 +717,16 @@ _ROUTES = {
 for _dtype in (torch.bfloat16, torch.float16):
     _ROUTES.update({
         (_dtype, 8): (("flash_attention_fwd", 16, 1, 1),
-                      ("flash_bwd_dq", 64, 1, 1),
+                      ("flash_bwd_dq", 16, 1, 1),
                       ("flash_bwd_dkv", 16, 1, 1)),
         (_dtype, 16): (("flash_attention_fwd", 16, 1, 1),
-                       ("flash_bwd_dq", 64, 1, 1),
+                       ("flash_bwd_dq", 16, 1, 1),
                        ("flash_bwd_dkv", 16, 1, 1)),
         (_dtype, 24): (("flash_attention_fwd", 32, 1, 1),
-                       ("flash_bwd_dq", 64, 1, 1),
+                       ("flash_bwd_dq", 32, 1, 1),
                        ("flash_bwd_dkv", 32, 1, 1)),
         (_dtype, 32): (("flash_attention_fwd", 32, 1, 1),
-                       ("flash_bwd_dq", 64, 1, 1),
+                       ("flash_bwd_dq", 32, 1, 1),
                        ("flash_bwd_dkv", 32, 1, 1)),
         (_dtype, 40): (("flash_attention_fwd", 64, 1, 1),
                        ("flash_bwd_dq", 64, 1, 1),
@@ -737,10 +736,10 @@ for _dtype in (torch.bfloat16, torch.float16):
                        ("flash_bwd_dkv", 64, 1, 1)),
         (_dtype, 200): (("flash_attention_fwd", 256, 1, 1),
                         ("flash_bwd_dq", 256, 1, 1),
-                        ("flash_bwd_dkv", 256, 1, 2)),
+                        ("flash_bwd_dkv", 256, 1, 1)),
         (_dtype, 256): (("flash_attention_fwd", 256, 1, 1),
                         ("flash_bwd_dq", 256, 1, 1),
-                        ("flash_bwd_dkv", 256, 1, 2)),
+                        ("flash_bwd_dkv", 256, 1, 1)),
         (_dtype, 257): (("flash_fwd_general_mma", 320, 2, 1),
                         ("flash_bwd_dq_general_mma", 320, 2, 1),
                         ("flash_bwd_dkv_general_mma", 320, 2, 2)),
@@ -764,8 +763,9 @@ def test_kernel_route_names_the_kernel_for_each_dtype_and_head_dim(dtype,
     wrappers route by, and needs no GPU: in fp32 K1, K2 and K3 go at every
     D to their register-tiled kernels (padded to a multiple of 32 and at
     least 64, 256-column chunks; K3 in two passes, dV and dK); bf16/fp16
-    goes to the builds up to 256 (K1 and K3 from 16, K2 from 64) and above
-    to the tensor-core general kernels for K1, K2 and K3 (padded to a
+    goes to the builds up to 256 (16, 32, 64, 128 and 256 for K1, K2 and
+    K3; K3's D = 256 build in one pass) and above to the tensor-core
+    general kernels for K1, K2 and K3 (padded to a
     multiple of 64, 256-column chunks; K3 in two passes); each route names
     a wrapper of the module."""
     import importlib
@@ -1269,24 +1269,22 @@ def test_kernel_head_dims_need_no_copy():
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
 def test_small_head_dims_read_in_place_while_k2_pads(dtype):
     """``zero_pads`` is a pure function of (kernel, dtype, D), as
-    ``kernel_route`` is: K1 and K3 run a D <= 32 that is a multiple of 8
-    on their D = 16 and 32 builds without a padded copy (the builds
-    zero-fill the rest of their columns in shared memory), while K2, built
-    from 64, still pads to 64; a D that is not a multiple of 8 (rows that
-    are not 16-byte multiples) pads for all three, fp32 pads to its
-    register-tiled kernels' 64, and a built head dim makes no copy."""
+    ``kernel_route`` is: K1, K2 and K3 run a D <= 32 that is a multiple of
+    8 on their D = 16 and 32 builds without a padded copy (the builds
+    zero-fill the rest of their columns in shared memory); a D that is not
+    a multiple of 8 (rows that are not 16-byte multiples) pads for all
+    three, fp32 pads to its register-tiled kernels' 64, and a built head
+    dim makes no copy."""
     from metisfl_tpu_torch.ops.flash_attention import (
         kernel_route,
         zero_pads,
     )
 
     for D in (8, 16, 24, 32):
-        assert not zero_pads("fwd", dtype, D)
-        assert not zero_pads("dkv", dtype, D)
-        assert zero_pads("dq", dtype, D)
-        assert kernel_route("dq", dtype, D).head_dim == 64
-        assert kernel_route("fwd", dtype, D).head_dim == (16 if D <= 16
-                                                          else 32)
+        for kernel in ("fwd", "dq", "dkv"):
+            assert not zero_pads(kernel, dtype, D)
+            assert kernel_route(kernel, dtype, D).head_dim == (
+                16 if D <= 16 else 32)
     for D in (1, 4, 12, 20, 31, 40, 100):
         assert all(zero_pads(kernel, dtype, D)
                    for kernel in ("fwd", "dq", "dkv"))
@@ -1302,16 +1300,20 @@ def test_small_head_dims_read_in_place_while_k2_pads(dtype):
     (4, 4, 4, 512, True), (2, 16, 4, 1024, True), (2, 16, 4, 1024, False),
     (2, 8, 2, 1000, False), (64, 4, 4, 128, True), (1, 8, 2, 1000, True)])
 @pytest.mark.parametrize("sms", [1, 132])
-def test_dkv_mma_split_cuts_the_longest_walk_into_slabs(B, Hq, Hkv, L,
+@pytest.mark.parametrize("D", [16, 32, 256])
+def test_dkv_mma_split_cuts_the_longest_walk_into_slabs(D, B, Hq, Hkv, L,
                                                         causal, sms):
-    """The tensor-core K3's split at D <= 32, a pure function of the shape
-    and the SM count: ``per_slab`` q steps a slab (a 64-row q tile of one
-    query head of the group), ``slabs`` the longest k tile's count, so
-    that every k tile's walk (``_slab_steps``) is covered and no slab is
-    empty at the longest tile, and no slab shorter than
-    ``_MMA_MIN_SLAB_STEPS``; one slab, as long as that walk, where the
-    grid already holds the work (one SM, or many heads at a short L) or
-    the walk is no longer than the shortest slab."""
+    """The tensor-core K3's split at its D = 16, 32 and 256 builds, a pure
+    function of the shape, the build and the SM count: ``per_slab`` q
+    steps a slab (a 64-row q tile of one query head of the group),
+    ``slabs`` the longest k tile's count, so that every k tile's walk
+    (``_slab_steps``) is covered and no slab is empty at the longest tile,
+    and no slab shorter than ``_MMA_MIN_SLAB_STEPS``; one slab, as long as
+    that walk, where the grid already holds the work (one SM, or many
+    heads at a short L) or the walk is no longer than the shortest slab.
+    The build sets the blocks' work per SM it aims at
+    (``_MMA_SPLIT_BLOCKS_PER_SM``: several small blocks share an SM at D
+    <= 32, one takes it at 256)."""
     from metisfl_tpu_torch.ops.flash_attention import (
         _MMA_MIN_SLAB_STEPS,
         _MMA_SPLIT_BLOCKS_PER_SM,
@@ -1320,10 +1322,10 @@ def test_dkv_mma_split_cuts_the_longest_walk_into_slabs(B, Hq, Hkv, L,
     )
 
     steps = _slab_steps(L, Hq // Hkv, causal)
-    per_slab, slabs = dkv_mma_split(B, Hq, Hkv, L, causal, sms)
+    per_slab, slabs = dkv_mma_split(B, Hq, Hkv, L, D, causal, sms)
     assert per_slab * slabs >= steps[0] > per_slab * (slabs - 1)
     assert max(steps) == steps[0]
-    work, target = B * Hkv * sum(steps), _MMA_SPLIT_BLOCKS_PER_SM * sms
+    work, target = B * Hkv * sum(steps), _MMA_SPLIT_BLOCKS_PER_SM[D] * sms
     if slabs == 1:
         assert per_slab == steps[0]
         assert (work > target * (steps[0] - 1)
@@ -1335,13 +1337,14 @@ def test_dkv_mma_split_cuts_the_longest_walk_into_slabs(B, Hq, Hkv, L,
         assert per_slab * target >= work
         assert (work > (per_slab - 1) * target
                 or per_slab == _MMA_MIN_SLAB_STEPS)
-    assert dkv_mma_split(B, Hq, Hkv, L, causal, sms) == (per_slab, slabs)
+    assert dkv_mma_split(B, Hq, Hkv, L, D, causal, sms) == (per_slab,
+                                                            slabs)
 
 
 def test_head_dims_beyond_the_kernels_are_refused_with_their_reason():
     """No head dim that the Pallas kernels take is refused on the card any
     more: each D goes to a tuned kernel (padded to its next built head dim:
-    K1, K2 and K3 64/128/256 in bf16/fp16; none in fp32, whose
+    K1, K2 and K3 16/32/64/128/256 in bf16/fp16; none in fp32, whose
     register-tiled kernels take every D) or, beyond the largest, to the
     general kernel. The input check runs before any launch, so it is
     reachable on the CPU; it still refuses a head dim of 0, and takes
@@ -1354,7 +1357,7 @@ def test_head_dims_beyond_the_kernels_are_refused_with_their_reason():
         kernel_head_dim,
     )
 
-    for D, fwd, dq16, dkv16 in ((1, 16, 64, 16), (129, 256, 256, 256),
+    for D, fwd, dq16, dkv16 in ((1, 16, 16, 16), (129, 256, 256, 256),
                                 (256, 256, 256, 256),
                                 (257, None, None, None),
                                 (512, None, None, None)):
@@ -1412,9 +1415,9 @@ _PADDED_GPU_CASES = [
 @pytest.mark.parametrize("dtype,causal,B,Hq,Hkv,L,D", _PADDED_GPU_CASES)
 def test_kernels_at_padded_head_dims_and_large_grids_on_gpu(
         cuda_device, dtype, causal, B, Hq, Hkv, L, D):
-    """K1, K2 and K3 at small head dims (in bf16/fp16 K1 and K3 on their D
-    = 16 and 32 builds, K3 with its split sum where it splits, K2 padded to
-    64; all padded to 64 in fp32) and at B·Hq > 65535 (every kernel on a
+    """K1, K2 and K3 at small head dims (in bf16/fp16 on their D = 16 and
+    32 builds, K3 with its split sum where it splits; all padded to 64 in
+    fp32) and at B·Hq > 65535 (every kernel on a
     1-D grid: one launch each, the fp32 kernels with their combine or sum
     where they split) against their twins on the card, at the tolerances
     of the unpadded cases."""
@@ -1439,9 +1442,9 @@ def test_kernels_at_padded_head_dims_and_large_grids_on_gpu(
         assert err <= _BWD_REL[dtype] * scale, (name, err, scale)
 
 
-# (dtype, causal, B, Hq, Hkv, L, D): K1's and K3's D = 16 and 32 builds in
-# bf16/fp16, D a multiple of 8 read in place (8, 16, 24, 32) and D = 12
-# padded to 16, GQA Hq8·Hkv2 at a ragged L = 77 and L = 1000 (K3's walks
+# (dtype, causal, B, Hq, Hkv, L, D): K1's, K2's and K3's D = 16 and 32
+# builds in bf16/fp16, D a multiple of 8 read in place (8, 16, 24, 32) and
+# D = 12 padded to 16, GQA Hq8·Hkv2 at a ragged L = 77 and L = 1000 (K3's walks
 # split into slabs), and many heads at a short L (B64·Hq4·L128: one slab)
 _SMALL_D_GPU_CASES = [
     (dtype, causal, 2, 8, 2, L, D)
@@ -1457,8 +1460,8 @@ _SMALL_D_GPU_CASES = [
 @pytest.mark.parametrize("dtype,causal,B,Hq,Hkv,L,D", _SMALL_D_GPU_CASES)
 def test_small_head_dim_builds_match_twins_on_gpu(cuda_device, dtype, causal,
                                                   B, Hq, Hkv, L, D):
-    """K1 and K3 on their D = 16 and 32 builds (K2 on its 64 build, padded)
-    against their twins on the card, at the tolerances of the built head
+    """K1, K2 and K3 on their D = 16 and 32 builds against their twins on
+    the card, at the tolerances of the built head
     dims: o within ``_FWD_ATOL``, lse within 1e-3, dq, dk, dv within
     ``_BWD_REL`` × max|twin|. Each call launches what its route names (K3
     its split sum where ``dkv_mma_split`` splits), and two runs give the
@@ -1489,6 +1492,110 @@ def test_small_head_dim_builds_match_twins_on_gpu(cuda_device, dtype, causal,
     assert torch.equal(o, o2) and torch.equal(lse, lse2)
     for a, b in zip(got, got2):
         assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("D", [8, 16, 24, 32])
+@pytest.mark.parametrize("causal", [False, True])
+def test_k2_small_head_dim_builds_match_twin_on_gpu(cuda_device, causal, D,
+                                                    dtype):
+    """K2 on its D = 16 and 32 builds, reading D = 8, 16, 24 and 32 in
+    place, against its twin on the card at GQA B2·Hq8·Hkv2 and a ragged
+    L = 1000: one launch of ``flash_bwd_dq`` and nothing else (no pad, no
+    copy, no second launch), dq within ``_BWD_REL`` × max|twin|, and two
+    runs give the same bits."""
+    from metisfl_tpu_torch.ops.flash_attention import flash_bwd_dq_reference
+
+    q, k, v, o, lse, do = _cuda_bwd_inputs(cuda_device, dtype, 2, 8, 2, 1000,
+                                           D, causal)
+    delta = (do.float() * o.float()).sum(-1)
+    before = _launch_counts()
+    first = flash_bwd_dq(q, k, v, do, lse, delta, causal)
+    second = flash_bwd_dq(q, k, v, do, lse, delta, causal)
+    torch.cuda.synchronize()
+    assert _launched(before) == {"flash_bwd_dq": 2}
+    assert first.shape == q.shape and first.is_contiguous()
+    want = flash_bwd_dq_reference(q, k, v, do, lse, delta, causal)
+    scale = float(want.float().abs().max())
+    err = float((first.float() - want.float()).abs().max())
+    assert err <= _BWD_REL[dtype] * scale, (err, scale)
+    assert torch.equal(first, second)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("L", [77, 1000])
+@pytest.mark.parametrize("causal", [False, True])
+def test_k3_d256_build_matches_twin_on_gpu(cuda_device, causal, L, dtype):
+    """K3's D = 256 build (two warpgroups: dV and dK of a k tile in one
+    pass) against its twin on the card at GQA B2·Hq8·Hkv2 and a ragged L:
+    one launch of ``flash_bwd_dkv`` a call, and its split sum where
+    ``dkv_mma_split`` cuts the walks; dk and dv within ``_BWD_REL`` ×
+    max|twin|, and two runs give the same bits."""
+    from metisfl_tpu_torch.ops.flash_attention import flash_bwd_dkv_reference
+
+    q, k, v, o, lse, do = _cuda_bwd_inputs(cuda_device, dtype, 2, 8, 2, L,
+                                           256, causal)
+    delta = (do.float() * o.float()).sum(-1)
+    before = _launch_counts()
+    first = flash_bwd_dkv(q, k, v, do, lse, delta, causal)
+    second = flash_bwd_dkv(q, k, v, do, lse, delta, causal)
+    torch.cuda.synchronize()
+    once = _expected_launches(cuda_device, dtype, 2, 8, 2, L, 256, causal,
+                              fwd=False)
+    once.pop("flash_bwd_dq")
+    assert once.get("flash_bwd_dkv") == 1
+    assert _launched(before) == {n: 2 * c for n, c in once.items()}
+    want = flash_bwd_dkv_reference(q, k, v, do, lse, delta, causal)
+    for name, a, b in zip(("dk", "dv"), first, want):
+        assert a.dtype == dtype and a.shape == b.shape, name
+        scale = float(b.float().abs().max())
+        err = float((a.float() - b.float()).abs().max())
+        assert err <= _BWD_REL[dtype] * scale, (name, err, scale)
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D", [16, 24])
+def test_k2_small_head_dim_builds_refuse_misaligned_views_on_gpu(
+        cuda_device, D):
+    """A misaligned q or do never reaches K2's D = 16 and 32 builds, which
+    read the caller's rows in place: the wrapper raises before a launch."""
+    q, k, v, o, lse, do = _cuda_bwd_inputs(cuda_device, torch.bfloat16, 1,
+                                           4, 2, 65, D, True)
+    delta = (do.float() * o.float()).sum(-1)
+    before = flash_bwd_dq.launches
+    with pytest.raises(ValueError, match="16-byte"):
+        flash_bwd_dq(_misaligned(q), k, v, do, lse, delta, True)
+    with pytest.raises(ValueError, match="16-byte"):
+        flash_bwd_dq(q, k, v, _misaligned(do), lse, delta, True)
+    assert flash_bwd_dq.launches == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D,ld", [(32, 0), (32, 4), (32, 12), (32, 40),
+                                  (16, 24), (64, 72), (64, 32), (128, 64)])
+def test_dq_entry_refuses_a_bad_row_length_on_gpu(cuda_device, D, ld):
+    """``metisfl_flash_bwd_dq`` takes the caller's row length ld beside the
+    build D and returns -1, launching nothing, for an ld outside 8..D or
+    not a multiple of 8 (as ``metisfl_flash_bwd_dkv`` does), and for an ld
+    other than D at the builds from 64, which read rows of D; its pointers
+    are never read."""
+    from metisfl_tpu_torch.ops.flash_attention import _DTYPE_CODES, _library
+
+    lib = _library("flash_bwd")
+    err = lib.metisfl_flash_bwd_dq(
+        None, None, None, None, None, None, None, 1, 4, 2, 64, D, ld,
+        _DTYPE_CODES[torch.bfloat16], 1, 0.25, None)
+    assert err == -1
+    if 8 <= ld <= D and ld % 8 == 0:
+        return  # K3's builds take rows shorter than D at every D
+    err = lib.metisfl_flash_bwd_dkv(
+        None, None, None, None, None, None, None, None, None, 1, 4, 2, 64,
+        D, ld, _DTYPE_CODES[torch.bfloat16], 1, 1, 1, 0.25, None)
+    assert err == -1
 
 
 @pytest.mark.cuda
@@ -1524,6 +1631,89 @@ def test_split_sum_kernel_rounds_to_16_bits_on_gpu(cuda_device, dtype,
     want = dkv_split_sum_reference(part, group, causal, per_slab)
     for a, b in zip(got, want):
         assert a.dtype == dtype and torch.equal(a, b.to(dtype))
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("D,pads", [(D, True) for D in range(1, 8)] + [
+    (8, False), (12, True), (16, False), (24, False), (32, False),
+    (40, True)])
+def test_k2_reads_small_head_dims_in_place(dtype, D, pads):
+    """K2's D = 16 and 32 builds read a D that is a multiple of 8 (16-byte
+    rows) in place, as K1's and K3's do: ``zero_pads("dq", ...)`` is False
+    at D = 8, 16, 24 and 32, and True at 1-7 and 12 (rows that are not
+    16-byte multiples, padded to the 16 build) and 40 (padded to 64)."""
+    from metisfl_tpu_torch.ops.flash_attention import kernel_route, zero_pads
+
+    assert zero_pads("dq", dtype, D) is pads
+    assert kernel_route("dq", dtype, D).head_dim == next(
+        d for d in (16, 32, 64) if D <= d)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("D", [8, 16, 24, 32])
+@pytest.mark.parametrize("causal", [False, True])
+def test_k2_twin_at_small_head_dims_matches_pallas_dq(jax_flash, causal, D,
+                                                      dtype):
+    """The K2 twin, which the card's D = 16 and 32 builds are held to,
+    gives the Pallas backward's dq (``_dq_kernel`` in interpret mode) at
+    D = 8, 16, 24 and 32, GQA B1·Hq4·Hkv2 at a ragged L = 1000, from the
+    Pallas forward's o and lse: within ``BF16_BWD_REL`` (fp16
+    ``FP16_BWD_REL``) × max|ref|, the bf16 and fp16 twin tests'
+    tolerances (both round dS before dS·K, summed in other orders)."""
+    from metisfl_tpu_torch.ops.flash_attention import (
+        _delta,
+        flash_bwd_dq_reference,
+    )
+
+    jnp = jax_flash.jnp
+    q, k, v, do = _bwd_inputs(L=1000, D=D)
+    jdt = {torch.bfloat16: jnp.bfloat16, torch.float16: jnp.float16}[dtype]
+    jq, jk, jv, jdo = (jnp.asarray(a, jdt) for a in (q, k, v, do))
+    o_ref, lse_ref = jax_flash._flash_forward(jq, jk, jv, causal, None,
+                                              None, True)
+    B, H, L, _ = q.shape
+    lse_ref = np.asarray(lse_ref)[:, :L, 0].reshape(B, H, L)
+    want = np.asarray(jax_flash._flash_backward(
+        jq, jk, jv, o_ref, lse_ref, jdo, causal, None, None,
+        True)[0].astype(jnp.float32))
+    tq, tk, tv, tdo = (torch.from_numpy(a).to(dtype) for a in (q, k, v, do))
+    o = torch.from_numpy(np.array(o_ref.astype(jnp.float32))).to(dtype)
+    got = flash_bwd_dq_reference(tq, tk, tv, tdo,
+                                 torch.from_numpy(np.array(lse_ref)),
+                                 _delta(o, tdo), causal)
+    assert got.shape == tq.shape and got.dtype == dtype
+    rel = BF16_BWD_REL if dtype == torch.bfloat16 else FP16_BWD_REL
+    np.testing.assert_allclose(got.float().numpy(), want,
+                               atol=rel * float(np.abs(want).max()), rtol=0)
+
+
+@pytest.mark.parametrize("B,Hq,Hkv,L,causal", [
+    (2, 16, 4, 1024, True), (2, 16, 4, 1024, False), (1, 8, 2, 1000, True),
+    (2, 8, 2, 300, True), (1, 4, 1, 517, False), (2, 4, 4, 256, True)])
+@pytest.mark.parametrize("sms", [1, 132])
+def test_dkv_mma_split_at_256_covers_every_step_once(B, Hq, Hkv, L, causal,
+                                                     sms):
+    """K3's D = 256 build cut as its blocks cut the work: block (k tile t,
+    slab s) walks steps [s·per_slab, min(steps_t, (s + 1)·per_slab)) of
+    the tile's walk over the group's query heads and 64-row q tiles
+    (``_slab_steps``), and exits at once where that is empty. Every step of
+    every tile lies in exactly one block, each tile has at least one
+    non-empty slab, ``slabs`` >= 1, and the split sum reads exactly the
+    slabs each tile has (``ceil(steps_t / per_slab)``)."""
+    from metisfl_tpu_torch.ops.flash_attention import (
+        _slab_steps,
+        dkv_mma_split,
+    )
+
+    per_slab, slabs = dkv_mma_split(B, Hq, Hkv, L, 256, causal, sms)
+    assert per_slab >= 1 and slabs >= 1
+    for steps in _slab_steps(L, Hq // Hkv, causal):
+        seen = []
+        for slab in range(slabs):
+            seen += range(slab * per_slab, min(steps, (slab + 1) * per_slab))
+        assert sorted(seen) == list(range(steps))
+        nonempty = sum(slab * per_slab < steps for slab in range(slabs))
+        assert nonempty == -(-steps // per_slab) >= 1
 
 
 def test_split_sum_twin_rounds_into_a_16_bit_out():
@@ -1586,16 +1776,14 @@ def _launched(before):
 def _expected_launches(device, dtype, B, Hq, Hkv, L, D, causal, fwd=True,
                        bwd=True):
     """The launches one K1 call (``fwd``) and one K2 and K3 call (``bwd``)
-    make at these shapes on ``device``, by ``kernel_route``: one each, K3's
-    D = 256 build two (dV, then dK), and the fp32 kernels' combine and
-    split sums where they split, and K3's at its D = 16 and 32 builds."""
+    make at these shapes on ``device``, by ``kernel_route``: one each, and
+    the fp32 kernels' combine and split sums where they split, and K3's at
+    its D = 16, 32 and 256 builds."""
     from metisfl_tpu_torch.ops.flash_attention import kernel_route
 
     want = {}
     for kernel in ("fwd",) * fwd + ("dq", "dkv") * bwd:
-        route = kernel_route(kernel, dtype, D)
-        tuned = route.wrapper in ("flash_bwd_dq", "flash_bwd_dkv")
-        want[route.wrapper] = route.passes if tuned else 1
+        want[kernel_route(kernel, dtype, D).wrapper] = 1
     if dtype == torch.float32:
         if fwd and _combine_launches(device, dtype, B, Hq, L, D, causal):
             want["flash_fwd_split_combine"] = 1
@@ -1609,19 +1797,22 @@ def _expected_launches(device, dtype, B, Hq, Hkv, L, D, causal, fwd=True,
 
 
 def _mma_split_launches(device, dtype, B, Hq, Hkv, L, D, causal):
-    """1 where the tensor-core K3 runs a D = 16 or 32 build and splits its
-    walks at these shapes on ``device`` (and so launches its sum), else
-    0."""
+    """1 where the tensor-core K3 runs a D = 16, 32 or 256 build and splits
+    its walks at these shapes on ``device`` (and so launches its sum),
+    else 0."""
     from metisfl_tpu_torch.ops.flash_attention import (
+        _MMA_SPLIT_BLOCKS_PER_SM,
         dkv_mma_split,
         kernel_route,
     )
 
     route = kernel_route("dkv", dtype, D)
-    if route.wrapper != "flash_bwd_dkv" or route.head_dim > 32:
+    if (route.wrapper != "flash_bwd_dkv"
+            or route.head_dim not in _MMA_SPLIT_BLOCKS_PER_SM):
         return 0
     sms = torch.cuda.get_device_properties(device).multi_processor_count
-    return int(dkv_mma_split(B, Hq, Hkv, L, causal, sms)[1] > 1)
+    return int(dkv_mma_split(B, Hq, Hkv, L, route.head_dim, causal,
+                             sms)[1] > 1)
 
 
 def _fwd_split_at(device, B, Hq, L, D, causal):
@@ -1697,9 +1888,10 @@ def test_forward_kernel_at_head_dims_up_to_256_on_gpu(cuda_device, dtype,
                                                       D):
     """K1 against its twin at D = 256 and D = 200 (padded to 256 in
     bf16/fp16, to 224 in fp32), one launch; the backward runs too: in
-    bf16/fp16 on K2's D = 256 build and K3's, once for dV and once for dK;
-    in fp32 on the register-tiled kernels (K1's combine and K2's and K3's
-    split sums where they split)."""
+    bf16/fp16 on K2's D = 256 build and K3's, one launch that makes dK and
+    dV (with its split sum where it splits); in fp32 on the register-tiled
+    kernels (K1's combine and K2's and K3's split sums where they
+    split)."""
     launched = _check_fwd_bwd_on_gpu(dtype, causal, B, Hq, Hkv, L, D,
                                      cuda_device)
     general = dtype == torch.float32
@@ -1709,13 +1901,15 @@ def test_forward_kernel_at_head_dims_up_to_256_on_gpu(cuda_device, dtype,
         "flash_fwd_split_combine": _combine_launches(
             cuda_device, dtype, B, Hq, L, D, causal),
         "flash_bwd_dq": 0 if general else 1,
-        "flash_bwd_dkv": 0 if general else 2,
+        "flash_bwd_dkv": int(not general),
         "flash_bwd_dq_general": int(general),
         "flash_bwd_dkv_general": int(general),
         "flash_fwd_general_mma": 0, "flash_bwd_dkv_general_mma": 0,
         "flash_bwd_dq_general_mma": 0,
-        "flash_bwd_dkv_split_sum": general and _split_launches(
-            cuda_device, B, Hq, Hkv, L, D, causal),
+        "flash_bwd_dkv_split_sum": _split_launches(
+            cuda_device, B, Hq, Hkv, L, D, causal) if general
+        else _mma_split_launches(cuda_device, dtype, B, Hq, Hkv, L, D,
+                                 causal),
         "flash_bwd_dq_split_sum": general and _dq_split_launches(
             cuda_device, B, Hq, L, D, causal)}
 
@@ -1763,8 +1957,9 @@ def test_general_kernels_beyond_every_build_on_gpu(cuda_device, dtype,
 @pytest.mark.cuda
 def test_general_and_d256_kernels_are_deterministic_on_gpu(cuda_device):
     """The general kernels (bf16 D = 320: K1 and K3 on tensor cores; fp32
-    D = 256: register-tiled) and K3's two-pass D = 256 build write each
-    output once from one block: two runs give the same bits."""
+    D = 256: register-tiled) and K3's D = 256 build (two warpgroups, its
+    slabs summed in a fixed order) write each output once: two runs give
+    the same bits."""
     for dtype, D in ((torch.bfloat16, 256), (torch.bfloat16, 320),
                      (torch.float32, 256)):
         q, k, v, o, lse, do = _cuda_bwd_inputs(cuda_device, dtype, 1, 4, 2,
