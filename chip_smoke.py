@@ -29,9 +29,10 @@ It drives the port only (it imports no jax and nothing of the JAX package):
    causal)
    and at B·Hq and at Hq above a grid's y axis of 65535 (B4100·Hq16 and
    B1·Hq65536, one launch a call: every grid is 1-D), K1-K3 at their head
-   dim 256 builds (K3 in one launch of two warpgroups, with its split sum
-   where ``dkv_mma_split`` cuts its walks; no pad or copy in a K2 or K3
-   call), the general kernels beyond the
+   dim 256 builds (each on two warpgroups a block; K3 with its split sum
+   where ``dkv_mma_split`` cuts its walks; no pad or copy in a K1, K2 or
+   K3 call; and, for correctness only, L = 1000 fp16 not causal and L =
+   65 bf16 causal at Hq8·Hkv2), the general kernels beyond the
    builds in bf16/fp16 (K1-K3 on tensor cores) and the register-tiled
    fp32 K1-K3 at every D (each with the second launch that merges or sums
    its split, held to its own twin) at D = 512 in bf16 and fp32, at fp32
@@ -231,10 +232,10 @@ def device_ms(fn):
     long as its kernels (K1 and SDPA's forward take tens of µs), CUDA
     events around eager calls also count the host's pace; this does not."""
     profiled = profile_call(lambda: [fn() for _ in range(PROFILED_CALLS)],
-                            top=2)
+                            top=2, calls=PROFILED_CALLS)
     if not isinstance(profiled, dict):
         return None
-    return profiled["device_ms"] / PROFILED_CALLS
+    return profiled["per_call_ms"]
 
 
 def kernel_names(fn, top: int = 3):
@@ -2601,13 +2602,16 @@ def _leaves(node):
         yield node
 
 
-def profile_call(fn, top: int = 8):
+def profile_call(fn, top: int = 8, calls: int = 1):
     """Device time by kernel over one call of ``fn`` under
     ``torch.profiler``, beside the call's wall time. Only device events
     (kernels, copies) are summed; ``idle_share`` is the part of the wall
     time with no device work (the profiler's own host cost included, so
-    it reads high). A profiler that records no device time reports "not
-    measured"."""
+    it reads high). ``per_call_ms`` is the device time of one of the
+    ``calls`` that ``fn`` makes: each kernel's mean time times its
+    launches a call, so that a record the profiler drops (it sometimes
+    loses one of 20) does not read as a faster call. A profiler that
+    records no device time reports "not measured"."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -2631,7 +2635,10 @@ def profile_call(fn, top: int = 8):
         return "not measured (no device time recorded)"
     rows.sort(reverse=True)
     device_ms = sum(r[0] for r in rows)
+    per_call_ms = sum(ms / c * max(1, round(c / calls))
+                      for ms, _, c in rows if c)
     return {"wall_ms": wall_ms, "device_ms": device_ms,
+            "per_call_ms": per_call_ms,
             "idle_share": max(0.0, 1.0 - device_ms / wall_ms),
             "top": [{"kernel": k[:80], "ms": ms, "calls": c,
                      "share": ms / device_ms} for ms, k, c in rows[:top]]}
@@ -2737,11 +2744,26 @@ def main() -> int:
     smoke.phase("kernel vs plain: flash_bwd d24 fp16", backward_case,
                 smoke, "flash_bwd_d24_fp16", 2, 8, 2, 1000, 24, "float16",
                 False, 2e-3, ("flash_bwd_dq", "flash_bwd_dkv"), False, True)
-    # the head dim 256 builds (K3 in one launch of two warpgroups, with its
-    # split sum where dkv_mma_split cuts its walks: a K2 or K3 call runs no
-    # pad or copy)
-    smoke.phase("kernel vs plain: flash_fwd d256", attention_case, smoke,
-                "flash_fwd_d256", *FULL_D256, "bfloat16", True, 2e-2, 1e-3)
+    # the head dim 256 builds (K1 on two warpgroups over 128-row q tiles,
+    # K2 on two with dQ split by columns, K3 in one launch of two, with its
+    # split sum where dkv_mma_split cuts its walks: a K1, K2 or K3 call runs
+    # no pad or copy)
+    d256_fwd = smoke.phase(
+        "kernel vs plain: flash_fwd d256", attention_case, smoke,
+        "flash_fwd_d256", *FULL_D256, "bfloat16", True, 2e-2, 1e-3,
+        "flash_attention_fwd", True, True)
+    # correctness only, at the edges of those blocks: a ragged L past a
+    # 128-row tile, not causal, in fp16; L = 65 causal in bf16, where
+    # warpgroup 1 of K1's one q tile holds one row
+    for name, L, dtype_name, causal, o_atol, rel in (
+            ("d256_l1000_fp16", 1000, "float16", False, 2e-3, 2e-3),
+            ("d256_l65_bf16", 65, "bfloat16", True, 2e-2, 2e-2)):
+        smoke.phase(f"kernel vs plain: flash_fwd {name}", attention_case,
+                    smoke, f"flash_fwd_{name}", 2, 8, 2, L, 256, dtype_name,
+                    causal, o_atol, 1e-3, "flash_attention_fwd", False)
+        smoke.phase(f"kernel vs plain: flash_bwd {name}", backward_case,
+                    smoke, f"flash_bwd_{name}", 2, 8, 2, L, 256, dtype_name,
+                    causal, rel, ("flash_bwd_dq", "flash_bwd_dkv"), False)
     d256_bwd = smoke.phase(
         "kernel vs plain: flash_bwd d256", backward_case, smoke,
         "flash_bwd_d256", *FULL_D256, "bfloat16", True, 2e-2,
@@ -2934,10 +2956,12 @@ def main() -> int:
             if record is not None:
                 other_shapes.setdefault((label, wrapper), []).append(
                     (key, record))
-    # K2 and K3 on their D = 256 builds at the B2·Hq16·Hkv4·L1024 case
-    for record in d256_bwd or []:
-        other_shapes.setdefault(("d256_bf16", record["name"]), []).append(
-            ("at_d256_shape", record))
+    # K1, K2 and K3 on their D = 256 builds at the B2·Hq16·Hkv4·L1024 case
+    for wrapper, record in ([("flash_attention_fwd", d256_fwd)] + [
+            (r["name"], r) for r in d256_bwd or []]):
+        if record is not None:
+            other_shapes.setdefault(("d256_bf16", wrapper), []).append(
+                ("at_d256_shape", record))
     # the fp32 K2 and K3 at the card-filling D = 256, ragged D = 128 and
     # B1·Hq4·L512·D512 shapes
     for label, key, records in (

@@ -22,10 +22,12 @@
 // the tensor cores' rate, and every product has to run on them.
 //
 // bf16 and fp16: tensor-core kernels (flash_bwd_*_mma_kernel, and
-// flash_bwd_dkv_mma_256_kernel for K3 at D = 256).
+// flash_bwd_dq_mma_256_kernel and flash_bwd_dkv_mma_256_kernel for K2 and
+// K3 at D = 256).
 //   - Every product is wgmma.mma_async m64nNk16 with fp32 accumulation,
 //     issued by one warpgroup of 4 warps for the block's 64-row tile (warp
-//     w owns rows 16 w..16 w + 15; K3 at D = 256 has two warpgroups).
+//     w owns rows 16 w..16 w + 15; K2 and K3 at D = 256 have two
+//     warpgroups).
 //     Both operands of QK^T and dO V^T come from shared memory through
 //     matrix descriptors (sm90.cuh); P and dS
 //     are rounded to the input dtype in registers and are the A operand of
@@ -70,8 +72,25 @@
 //     function of the shape, the build and the SM count), whose fp32
 //     partials the split sum adds in slab order and rounds to the input
 //     dtype once (flash_bwd_split_sum_kernel<T>).
-//   - D = 256: K2 keeps its tiles (192 KB of shared memory; dQ is 128 fp32
-//     a thread, and ptxas spills 48 bytes). K3 cannot hold dK and dV of its
+//   - D = 256, K2 (flash_bwd_dq_mma_256_kernel): one warpgroup would hold
+//     dQ (128 fp32 a thread) beside S, dP and dS, past 255 registers. Two
+//     warpgroups share the block, 256 threads, one block an SM, and split
+//     dQ by columns, 64 fp32 a thread each. Warpgroup 0 holds Q and
+//     warpgroup 1 dO in registers as the A operand of their 16 k-steps (64
+//     registers: S = Q K^T and dP = dO V^T then read only K and V from
+//     shared memory, half the bytes of reading both operands there); they
+//     run side by side. Warpgroup 0 forms P and hands it in fp32 to
+//     warpgroup 1 through 16 KB of shared memory (thread i writes, thread
+//     i + 128 reads, behind named barrier 1), which forms dS = P (dP -
+//     delta) scale as the one-warpgroup kernels do and hands it back
+//     rounded to the input dtype, as dQ's A operand (barrier 2): dS is
+//     theirs to the bit. Each warpgroup then makes dQ[:, 128 w..128 w +
+//     127] += dS K[:, same], K read MN-major, in the one-warpgroup
+//     kernel's order. 6 D operations a (q, k) pair, no recompute. Q and dO
+//     arrive through the third stage of a three-stage K/V ring (192 KB,
+//     loads two k tiles ahead), which they leave once in registers: 208 KB
+//     of shared memory, 238 registers, no spill.
+//   - D = 256, K3: it cannot hold dK and dV of its
 //     64-row k tile in one warpgroup (256 fp32 a thread), and wgmma's M
 //     edge of 64 rules out a 32-row k tile; so two warpgroups share the
 //     block, one per output, each holding 128 fp32 a thread
@@ -87,9 +106,12 @@
 //     memory); one launch per output would compute S^T twice (10 D a
 //     pair) and stream Q and dO twice. A k tile's walk is cut into slabs
 //     as at D <= 32, aiming at one block's work per SM.
-//   - Not yet: TMA loads, a producer warp, and keeping a wgmma group in
-//     flight across the softmax; each step waits for its products before
-//     the next.
+//   - Not yet: TMA loads (with multicast to the blocks that read one K/V
+//     tile, which K2 at D = 256 reads from L2 for every 64 query rows), a
+//     producer warp, and keeping a wgmma group in flight across the
+//     softmax or across steps (ptxas serialized K2's products when its dQ
+//     product ran on into the next step); each step waits for its products
+//     before the next.
 //
 // Beyond the builds in bf16/fp16 (above 256): the general tensor-core
 // kernels (flash_bwd_dq_general_mma_kernel, flash_bwd_dkv_general_mma_kernel,
@@ -163,12 +185,57 @@ constexpr size_t dkv_mma_256_smem_bytes() {
 }
 static_assert(dkv_mma_256_smem_bytes() <= 232448, "fits an SM's 227 KB");
 
+// K2 at D = 256: two warpgroups over a 64-row q tile, dQ split by columns
+// (see the note at the top); named barriers 1 (P handed to warpgroup 1)
+// and 2 (dS handed back), 0 being __syncthreads'
+constexpr int kDq256Threads = 2 * kMmaThreads;
+constexpr int kPBarrier = 1, kDsBarrier = 2;
+constexpr int kDq256Stages = 3;  // k tiles in flight: loads two ahead
+
+constexpr size_t dq_mma_256_smem_bytes() {
+  // three stages of K and V tiles (192 KB; Q and dO pass through the last),
+  // then P and dS handed between the warpgroups (kTile / 2 fp32 a thread)
+  return 2 * (size_t)(kDq256Stages * 2 * kTile * 256) +
+         4 * (size_t)(kMmaThreads * kTile / 2);
+}
+static_assert(dq_mma_256_smem_bytes() <= 232448, "fits an SM's 227 KB");
+
 // K2's dS of one (64-row q tile, BK-key step), from the S and dP fragments
 // (queries row_a and row_b as rows, keys k0.. as columns, in wgmma's
 // accumulator layout; each row's lse, times log2 e, and delta in
 // registers): dp becomes dS = P (dP - delta) scale with P = exp(scale s -
 // lse), masked on steps that cross the diagonal or the end of the
 // sequence.
+template <int BK>
+__device__ __forceinline__ bool dq_edge(int q0, int k0, int L, int causal) {
+  return (causal && k0 + BK > q0) || k0 + BK > L;
+}
+
+// K2's P of element i of an S fragment (keys k0.. as columns, this
+// thread's rows row_a and row_b, their lse times log2 e): exp2(scale log2(e)
+// s - lse), 0 past L and above the diagonal on steps that cross either
+// (edge)
+__device__ __forceinline__ float dq_prob(float s, int i, float lse_a,
+                                         float lse_b, bool edge, int k0,
+                                         int row_a, int row_b, int t, int L,
+                                         int causal, float scale_log2) {
+  const bool hi = i & 2;
+  float p = exp2f(s * scale_log2 - (hi ? lse_b : lse_a));
+  if (edge) {
+    const int k_pos = k0 + 8 * (i >> 2) + 2 * t + (i & 1);
+    const int q_pos = hi ? row_b : row_a;
+    if (k_pos >= L || (causal && k_pos > q_pos)) p = 0.f;
+  }
+  return p;
+}
+
+// dS = P (dP - delta) scale of element i (rows row_a, row_b as above)
+__device__ __forceinline__ float dq_ds(float p, float dp, int i,
+                                       float delta_a, float delta_b,
+                                       float scale) {
+  return p * (dp - ((i & 2) ? delta_b : delta_a)) * scale;
+}
+
 template <int BK>
 __device__ __forceinline__ void dq_probs(const float (&s)[BK / 2],
                                          float (&dp)[BK / 2], float lse_a,
@@ -177,18 +244,12 @@ __device__ __forceinline__ void dq_probs(const float (&s)[BK / 2],
                                          int row_a, int row_b, int t, int L,
                                          int causal, float scale,
                                          float scale_log2) {
-  const bool edge = (causal && k0 + BK > q0) || k0 + BK > L;
+  const bool edge = dq_edge<BK>(q0, k0, L, causal);
 #pragma unroll
-  for (int i = 0; i < BK / 2; ++i) {
-    const bool hi = i & 2;
-    float p = exp2f(s[i] * scale_log2 - (hi ? lse_b : lse_a));
-    if (edge) {
-      const int k_pos = k0 + 8 * (i >> 2) + 2 * t + (i & 1);
-      const int q_pos = hi ? row_b : row_a;
-      if (k_pos >= L || (causal && k_pos > q_pos)) p = 0.f;
-    }
-    dp[i] = p * (dp[i] - (hi ? delta_b : delta_a)) * scale;
-  }
+  for (int i = 0; i < BK / 2; ++i)
+    dp[i] = dq_ds(dq_prob(s[i], i, lse_a, lse_b, edge, k0, row_a, row_b, t,
+                          L, causal, scale_log2),
+                  dp[i], i, delta_a, delta_b, scale);
 }
 
 // K2: dQ for one 64-row q tile of one (batch, query head), D the build
@@ -336,6 +397,209 @@ flash_bwd_dq_mma_kernel(const T* __restrict__ q, const T* __restrict__ k,
       if (row_b < L)
         *reinterpret_cast<uint32_t*>(out + (size_t)row_b * ld + col) =
             sm90::pack2<T>(acc_dq[c][4 * j + 2], acc_dq[c][4 * j + 3]);
+    }
+}
+
+// K2 at D = 256: dQ of one 64-row q tile of one (batch, query head) in one
+// pass by two warpgroups (see the note at the top). Warpgroup 0 holds Q and
+// warpgroup 1 dO as wgmma A operands in registers; per k tile warpgroup 0
+// computes S = Q K^T and forms P while warpgroup 1 computes dP = dO V^T,
+// takes P through shared memory, forms dS and hands it back rounded; then
+// each makes its half of dQ's columns, dQ[:, 128 w .. 128 w + 127] += dS
+// K[:, same], in 64 fp32 a thread.
+template <typename T>
+__global__ void __launch_bounds__(kDq256Threads, 1)
+flash_bwd_dq_mma_256_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                            const T* __restrict__ v,
+                            const T* __restrict__ dout,
+                            const float* __restrict__ lse,
+                            const float* __restrict__ delta,
+                            T* __restrict__ dq, int Hq, int Hkv, int L, int,
+                            float scale, int causal) {
+  constexpr int D = 256, kN = sm90::block_cols<D>();
+  constexpr int kHalf = D / kN / 2;  // column blocks of a warpgroup's dQ
+  constexpr int kStage = 2 * kTile * D;  // a stage: a K tile, a V tile
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  // kDq256Stages stages of a K and a V tile (kTile x D, swizzled); Q and
+  // dO arrive in the last before they move to registers
+  T* sKV = reinterpret_cast<T*>(smem_raw);
+  // P from warpgroup 0 to 1 (thread i's kTile / 2 values as kTile / 8
+  // float4s, the j-th at j * kMmaThreads + i), then dS back, rounded (its
+  // A operand, a uint4 a k16 step, at the same places)
+  float4* sX = reinterpret_cast<float4*>(sKV + kDq256Stages * kStage);
+
+  // 0: S and P; 1: dP and dS (each warp's warpgroup, known to the compiler
+  // as the same across the warp)
+  const int wg = __shfl_sync(0xffffffffu, (int)threadIdx.x / kMmaThreads, 0);
+  const int tid = threadIdx.x % kMmaThreads;
+  const int lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const int nq = (L + kTile - 1) / kTile;
+  const int heads = gridDim.x / nq;  // B * Hq
+  const int bh = blockIdx.x % heads;
+  const int rank = blockIdx.x / heads;
+  // causal: the last q tile walks every k tile, so it goes first
+  const int q0 = (causal ? nq - 1 - rank : rank) * kTile;
+  const int b = bh / Hq;
+  const int kvh = b * Hkv + (bh - b * Hq) / (Hq / Hkv);
+  const T* kb = k + (size_t)kvh * L * D;
+  const T* vb = v + (size_t)kvh * L * D;
+  const int k_end = causal ? min(L, q0 + kTile) : L;
+  const int n_k = (k_end + kTile - 1) / kTile;
+
+  // k tile `it` into its stage, as one cp.async group (empty past the last)
+  auto load_kv = [&](int it) {
+    if (it < n_k) {
+      T* stage = sKV + it % kDq256Stages * kStage;
+      sm90::load_tile_async<T, D, kTile, kDq256Threads>(stage, kb,
+                                                        it * kTile, L);
+      sm90::load_tile_async<T, D, kTile, kDq256Threads>(
+          stage + kTile * D, vb, it * kTile, L);
+    }
+    sm90::cp_async_commit();
+  };
+  // Q and dO into the last stage, with the first k tile; then the second
+  T* const sQ = sKV + (kDq256Stages - 1) * kStage;
+  sm90::load_tile_async<T, D, kTile, kDq256Threads>(
+      sQ, q + (size_t)bh * L * D, q0, L);
+  sm90::load_tile_async<T, D, kTile, kDq256Threads>(
+      sQ + kTile * D, dout + (size_t)bh * L * D, q0, L);
+  load_kv(0);
+  load_kv(1);
+
+  // this thread's two rows of its warp's 16: g and g + 8; a row past L
+  // takes no part: it is never stored
+  const int row_a = q0 + warp * 16 + g, row_b = row_a + 8;
+  const float* lse_bh = lse + (size_t)bh * L;
+  const float* delta_bh = delta + (size_t)bh * L;
+  const float lse_a = row_a < L ? lse_bh[row_a] * kLog2e : 0.f;
+  const float lse_b = row_b < L ? lse_bh[row_b] * kLog2e : 0.f;
+  const float delta_a = row_a < L ? delta_bh[row_a] : 0.f;
+  const float delta_b = row_b < L ? delta_bh[row_b] : 0.f;
+  const float scale_log2 = scale * kLog2e;
+
+  // the first product's A, Q (0) or dO (1), as 16 k16 steps in registers
+  uint32_t a_first[D / 16][4];
+  sm90::cp_async_wait<1>();  // Q, dO and the first k tile have landed
+  __syncthreads();
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk)
+    sm90::tile_to_a<kTile>(a_first[kk], sQ + wg * kTile * D, warp * 16 + g,
+                           t, kk);
+
+  float acc[kHalf][kN / 2];  // dQ's columns 128 wg ..
+  float s[32];               // S, then P (0); dP, then dS (1)
+#pragma unroll
+  for (int c = 0; c < kHalf; ++c)
+#pragma unroll
+    for (int i = 0; i < kN / 2; ++i) acc[c][i] = 0.f;
+#pragma unroll
+  for (int i = 0; i < 32; ++i) s[i] = 0.f;
+
+  for (int it = 0; it < n_k; ++it) {
+    // for every thread: k tile it has landed (k tile it + 1 may be in
+    // flight), and both warpgroups are done with the stage of k tile it -
+    // 1 (at it = 0: Q and dO), which takes k tile it + 2, and with the
+    // hand-off buffer
+    sm90::cp_async_wait<1>();
+    sm90::fence_proxy_async();
+    __syncthreads();
+    load_kv(it + 2);
+
+    const int k0 = it * kTile;
+    const T* stage = sKV + it % kDq256Stages * kStage;
+    const uint32_t k_smem = sm90::smem_addr(stage);
+    // the first product's B: K (0) or V (1)
+    const uint32_t b_smem = k_smem + wg * kTile * D * (uint32_t)sizeof(T);
+
+    // S = Q K^T (0) or dP = dO V^T (1), 64 rows x 64 keys in 16 k-steps,
+    // A from registers, K and V read K-major
+    sm90::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk)
+      sm90::wgmma_rs<T>(s, a_first[kk], sm90::desc_k_major<kTile>(b_smem, kk),
+                        kk > 0);
+    sm90::wgmma_commit();
+    sm90::wgmma_wait<0>();
+    sm90::fence_operands(s);
+
+    // dS rounded to the input dtype, dQ's A operand
+    uint32_t ads[kTile / 16][4];
+    const bool edge = dq_edge<kTile>(q0, k0, L, causal);
+    uint4* const sXa = reinterpret_cast<uint4*>(sX);
+    if (wg == 0) {
+      // P, in fp32 to warpgroup 1; dS back, rounded (the one-warpgroup
+      // kernel's to the bit)
+#pragma unroll
+      for (int j = 0; j < kTile / 8; ++j) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          s[4 * j + e] = dq_prob(s[4 * j + e], 4 * j + e, lse_a, lse_b, edge,
+                                 k0, row_a, row_b, t, L, causal, scale_log2);
+        sX[j * kMmaThreads + tid] =
+            make_float4(s[4 * j], s[4 * j + 1], s[4 * j + 2], s[4 * j + 3]);
+      }
+      sm90::named_barrier_arrive(kPBarrier, kDq256Threads);
+      sm90::named_barrier_sync(kDsBarrier, kDq256Threads);  // dS has landed
+#pragma unroll
+      for (int kk = 0; kk < kTile / 16; ++kk) {
+        const uint4 a = sXa[kk * kMmaThreads + tid];
+        ads[kk][0] = a.x;
+        ads[kk][1] = a.y;
+        ads[kk][2] = a.z;
+        ads[kk][3] = a.w;
+      }
+    } else {
+      sm90::named_barrier_sync(kPBarrier, kDq256Threads);  // P has landed
+#pragma unroll
+      for (int j = 0; j < kTile / 8; ++j) {
+        const float4 p = sX[j * kMmaThreads + tid];
+        float* ds = s + 4 * j;
+        ds[0] = dq_ds(p.x, ds[0], 4 * j, delta_a, delta_b, scale);
+        ds[1] = dq_ds(p.y, ds[1], 4 * j + 1, delta_a, delta_b, scale);
+        ds[2] = dq_ds(p.z, ds[2], 4 * j + 2, delta_a, delta_b, scale);
+        ds[3] = dq_ds(p.w, ds[3], 4 * j + 3, delta_a, delta_b, scale);
+      }
+#pragma unroll
+      for (int kk = 0; kk < kTile / 16; ++kk) {
+        sm90::acc_to_a<T>(ads[kk], s + 8 * kk);
+        sXa[kk * kMmaThreads + tid] =
+            make_uint4(ads[kk][0], ads[kk][1], ads[kk][2], ads[kk][3]);
+      }
+      sm90::named_barrier_arrive(kDsBarrier, kDq256Threads);
+    }
+
+    // dQ[:, this half] += dS K[:, this half]; K read MN-major, one n = 64
+    // wgmma per k16 step and column block, in the one-warpgroup kernel's
+    // order
+#pragma unroll
+    for (int c = 0; c < kHalf; ++c) sm90::fence_operands(acc[c]);
+    sm90::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < kTile / 16; ++kk)
+#pragma unroll
+      for (int c = 0; c < kHalf; ++c)
+        sm90::wgmma_rs_mn<T>(
+            acc[c], ads[kk],
+            sm90::desc_mn_major<kTile>(k_smem, 16 * kk, kHalf * wg + c));
+    sm90::wgmma_commit();
+    sm90::wgmma_wait<0>();
+#pragma unroll
+    for (int c = 0; c < kHalf; ++c) sm90::fence_operands(acc[c]);
+  }
+
+  T* out = dq + (size_t)bh * L * D;
+#pragma unroll
+  for (int c = 0; c < kHalf; ++c)
+#pragma unroll
+    for (int j = 0; j < kN / 8; ++j) {
+      const int col = kN * (kHalf * wg + c) + 8 * j + 2 * t;
+      if (row_a < L)
+        *reinterpret_cast<uint32_t*>(out + (size_t)row_a * D + col) =
+            sm90::pack2<T>(acc[c][4 * j], acc[c][4 * j + 1]);
+      if (row_b < L)
+        *reinterpret_cast<uint32_t*>(out + (size_t)row_b * D + col) =
+            sm90::pack2<T>(acc[c][4 * j + 2], acc[c][4 * j + 3]);
     }
 }
 
@@ -1790,18 +2054,28 @@ int prepare(Kernel kernel, size_t smem) {
 }
 
 // one block per (tile, head): tile-major, so the tile rank is the slow index
-template <typename T, int D>
-int launch_dq_mma(const Args& a) {
-  const size_t smem = dq_mma_smem_bytes<D>();
-  if (int err = prepare(flash_bwd_dq_mma_kernel<T, D>, smem)) return err;
+template <typename T, typename Kernel>
+int launch_dq_kernel(Kernel kernel, size_t smem, int threads, const Args& a) {
+  if (int err = prepare(kernel, smem)) return err;
   const long long grid = (long long)((a.L + kTile - 1) / kTile) * a.B * a.Hq;
   if (grid > INT_MAX) return -1;
-  flash_bwd_dq_mma_kernel<T, D><<<(int)grid, kMmaThreads, smem, a.stream>>>(
+  kernel<<<(int)grid, threads, smem, a.stream>>>(
       static_cast<const T*>(a.q), static_cast<const T*>(a.k),
       static_cast<const T*>(a.v), static_cast<const T*>(a.dout), a.lse,
       a.delta, static_cast<T*>(a.out0), a.Hq, a.Hkv, a.L, a.ld, a.scale,
       a.causal);
   return (int)cudaGetLastError();
+}
+
+// D = 256 on its two-warpgroup kernel
+template <typename T, int D>
+int launch_dq_mma(const Args& a) {
+  if constexpr (D == 256)
+    return launch_dq_kernel<T>(flash_bwd_dq_mma_256_kernel<T>,
+                               dq_mma_256_smem_bytes(), kDq256Threads, a);
+  else
+    return launch_dq_kernel<T>(flash_bwd_dq_mma_kernel<T, D>,
+                               dq_mma_smem_bytes<D>(), kMmaThreads, a);
 }
 
 // one block per (k tile, slab, KV head): tile-major, so the tile rank is

@@ -45,9 +45,9 @@
 //     64-column block of D (one n = D block below 64). O stays in fp32
 //     registers (8 per thread at D = 16, 16 at 32, 32 at 64, 64 at 128,
 //     128 at 256) until one store.
-//   - Head dims 16, 32, 64, 128 and 256, the tile shapes unchanged (64-row
-//     q and K/V tiles): shared memory holds Q and two K/V stages in 10, 20,
-//     40, 80 and 160 KB, under the 227 KB a block may use. At D = 16 and 32
+//   - Head dims 16, 32, 64 and 128 on this kernel, the tile shapes
+//     unchanged (64-row q and K/V tiles): shared memory holds Q and two K/V
+//     stages in 10, 20, 40 and 80 KB. At D = 16 and 32
 //     a tile's row is one column block of 32 or 64 bytes in wgmma's 32- and
 //     64-byte swizzles, S takes D / 16 k-steps (one at D = 16) and P V an
 //     n = D product, so no step runs on zero columns; the small blocks
@@ -60,13 +60,36 @@
 //     general tensor-core kernel (flash_fwd_general_mma_kernel, below),
 //     whose Q and K stream through shared memory 64 columns at a time, so
 //     that no D is too large.
+//   - D = 256 (flash_fwd_mma_256_kernel): O is 128 fp32 a thread, so one
+//     warpgroup of this kernel filled an SM's registers (255, spilling)
+//     and its 160 KB of shared memory, and ran alone on the SM: nothing
+//     covered its softmax, and each K/V tile was read from L2 for 64 query
+//     rows. The D = 256 build is a block of two warpgroups over a 128-row q
+//     tile: warpgroup w owns rows 64 w..64 w + 63 with its own O, m and l,
+//     both read one K/V stage (every tile read once for 128 rows; 192 KB:
+//     Q 64 KB and two stages, one block an SM), and they take turns to
+//     issue S = Q K^T through two named barriers, so that one's softmax
+//     runs while the other's products do (FlashAttention-3's ping-pong,
+//     without its producer warp). Each row's sequence of products, masks
+//     and softmax steps is the 64-row kernel's, so O and lse keep its
+//     bits. Warpgroup 1's rows need one K tile more on a causal diagonal
+//     (warpgroup 0 skips it), and a warpgroup whose rows lie past L stores
+//     nothing; both stay in every barrier. Where 128-row tiles would leave
+//     SMs idle that 64-row ones fill (B2 Hq4 L256; causal grids up to about
+//     one longest walk of work per SM), the caller asks for 64-row tiles,
+//     warpgroup 1 idle: twice the blocks, each the one-warpgroup kernel's
+//     walk (fwd_rows in ops/flash_attention.py, from timings of both).
+//     Issue, turn and wait of each product group are one branch-free
+//     stretch of code, and O's rescale is fenced before the P V products:
+//     ptxas otherwise serializes every wgmma of the kernel (PERF.md). 225
+//     registers, no spill.
 //   - Causal work is uneven (the last q tile walks every K tile), so the
 //     1-D grid hands out the longest tiles first. No atomics: the same bits
 //     on every run.
-//   - Not yet: TMA loads, warp specialisation (a producer warp and two
-//     consumer warpgroups in ping-pong), keeping the next tile's Q K^T in
-//     flight across this tile's softmax, and staging O through shared
-//     memory for 16-byte stores; each step waits for its products.
+//   - Not yet: TMA loads and a producer warp (the K/V loads cost ~17% of
+//     the D = 256 build, PERF.md), keeping the next tile's Q K^T in flight
+//     across this tile's softmax (32 more registers a thread), and staging
+//     O through shared memory for 16-byte stores.
 //
 // fp32: one register-tiled SIMT kernel for every D (flash_fwd_f32_kernel,
 // below), a deliberate choice by dtype: TF32 tensor cores keep 10 bits of
@@ -167,13 +190,18 @@ __device__ __forceinline__ void finish_rows(float& l_a, float& l_b,
   inv_b = l_b == 0.f ? 0.f : 1.f / l_b;
 }
 
-// lse = m ln 2 + log l of rows row_a and row_b, from one lane of the four
+// lse = m ln 2 + log l of rows row_a and row_b, from one lane of the four;
+// m ln 2 rounded before the sum (never fused into one FMA, which ptxas
+// would do in some kernels and not in others), so every build gives the
+// same bits
 __device__ __forceinline__ void store_lse(float* lse_bh, int row_a, int row_b,
                                           int L, int t, float m_a, float m_b,
                                           float l_a, float l_b) {
   if (t != 0) return;
-  if (row_a < L) lse_bh[row_a] = m_a * kLn2 + logf(fmaxf(l_a, 1e-30f));
-  if (row_b < L) lse_bh[row_b] = m_b * kLn2 + logf(fmaxf(l_b, 1e-30f));
+  if (row_a < L)
+    lse_bh[row_a] = __fmul_rn(m_a, kLn2) + logf(fmaxf(l_a, 1e-30f));
+  if (row_b < L)
+    lse_bh[row_b] = __fmul_rn(m_b, kLn2) + logf(fmaxf(l_b, 1e-30f));
 }
 
 template <int D>
@@ -315,15 +343,192 @@ flash_fwd_mma_kernel(const T* __restrict__ q, const T* __restrict__ k,
   store_lse(lse + (size_t)bh * L, row_a, row_b, L, t, m_a, m_b, l_a, l_b);
 }
 
+// K1 at D = 256: two warpgroups over a 128-row q tile (see the note at the
+// top); its softmax, row sums and stores are the 64-row kernel's
+constexpr int kMma256Threads = 2 * kMmaThreads;
+constexpr int kMma256Rows = 2 * kTile;  // q rows of a block
+// named barriers 2 and 3: warpgroup w waits on 2 + w for its turn to issue
+// S = Q K^T (0 is __syncthreads')
+constexpr int kTurnBarrier = 2;
+
+constexpr size_t mma_256_smem_bytes() {
+  // the resident 128-row Q tile, two stages of K and V tiles (16-bit values)
+  return 2 * (size_t)(kMma256Rows * 256 + 2 * 2 * kTile * 256);
+}
+static_assert(mma_256_smem_bytes() <= 232448, "fits an SM's 227 KB");
+
+// rows: the q rows of a block, kMma256Rows, or kTile (warpgroup 1 then has
+// no rows), the caller's choice (fwd_rows in ops/flash_attention.py)
+template <typename T>
+__global__ void __launch_bounds__(kMma256Threads, 1)
+flash_fwd_mma_256_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                         const T* __restrict__ v, T* __restrict__ o,
+                         float* __restrict__ lse, int Hq, int Hkv, int L,
+                         int ld, float scale, int causal, int rows) {
+  constexpr int D = 256, kN = sm90::block_cols<D>();
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  // two kTile x D tiles, swizzled: warpgroup w's rows at w kTile D
+  T* sQ = reinterpret_cast<T*>(smem_raw);
+  T* sK = sQ + kMma256Rows * D;  // 2 stages x kTile x D
+  T* sV = sK + 2 * kTile * D;    // 2 stages x kTile x D
+
+  // the warpgroup, known to the compiler as the same across each warp
+  const int wg = __shfl_sync(0xffffffffu, (int)threadIdx.x / kMmaThreads, 0);
+  const int tid = threadIdx.x % kMmaThreads;
+  const int lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const int nq = (L + rows - 1) / rows;
+  const int heads = gridDim.x / nq;  // B * Hq
+  const int bh = blockIdx.x % heads;
+  const int rank = blockIdx.x / heads;
+  // causal: the last q tile walks every K tile, so it goes first
+  const int q0 = (causal ? nq - 1 - rank : rank) * rows;
+  const int qw = q0 + wg * kTile;  // this warpgroup's first row
+  const int b = bh / Hq;
+  const int kvh = b * Hkv + (bh - b * Hq) / (Hq / Hkv);
+  const T* qb = q + (size_t)bh * L * ld;
+  const T* kb = k + (size_t)kvh * L * ld;
+  const T* vb = v + (size_t)kvh * L * ld;
+
+  // the block's rows of Q (past them, or past L, zeros that read nothing)
+  const int q_end = min(L, q0 + rows);
+  sm90::load_tile_async<T, D, kTile, kMma256Threads>(sQ, qb, q0, q_end, ld);
+  sm90::load_tile_async<T, D, kTile, kMma256Threads>(sQ + kTile * D, qb,
+                                                     q0 + kTile, q_end, ld);
+  sm90::load_tile_async<T, D, kTile, kMma256Threads>(sK, kb, 0, L, ld);
+  sm90::load_tile_async<T, D, kTile, kMma256Threads>(sV, vb, 0, L, ld);
+  sm90::cp_async_commit();
+
+  // the K tiles this warpgroup's rows need (causal: up to their diagonal;
+  // none where it has no rows, or they lie wholly past L), and the
+  // block's: its last warpgroup's
+  const int n_own =
+      qw >= q_end ? 0
+                  : ((causal ? min(L, qw + kTile) : L) + kTile - 1) / kTile;
+  const int n_k = ((causal ? q_end : L) + kTile - 1) / kTile;
+
+  // this thread's two rows of its warp's 16: g and g + 8
+  const int row_a = qw + warp * 16 + g, row_b = row_a + 8;
+  const float scale_log2 = scale * kLog2e;
+  const uint32_t q_smem = sm90::smem_addr(sQ + wg * kTile * D);
+
+  float acc_o[D / kN][kN / 2], s[32];
+#pragma unroll
+  for (int i = 0; i < 32; ++i) s[i] = 0.f;
+#pragma unroll
+  for (int c = 0; c < D / kN; ++c)
+#pragma unroll
+    for (int i = 0; i < kN / 2; ++i) acc_o[c][i] = 0.f;
+  float m_a = kNeg, m_b = kNeg, l_a = 0.f, l_b = 0.f;
+
+  // warpgroup 0 issues the first S
+  if (wg == 1) sm90::named_barrier_arrive(kTurnBarrier, kMma256Threads);
+  for (int it = 0; it < n_k; ++it) {
+    const int stage = it & 1;
+    sm90::cp_async_wait<0>();  // this stage (and Q) have landed
+    sm90::fence_proxy_async();
+    __syncthreads();  // for every thread; both are done with the last stage
+    if (it + 1 < n_k) {
+      const int next = (it + 1) * kTile;
+      sm90::load_tile_async<T, D, kTile, kMma256Threads>(
+          sK + (stage ^ 1) * kTile * D, kb, next, L, ld);
+      sm90::load_tile_async<T, D, kTile, kMma256Threads>(
+          sV + (stage ^ 1) * kTile * D, vb, next, L, ld);
+    }
+    sm90::cp_async_commit();
+
+    const int k0 = it * kTile;
+    const bool active = it < n_own;
+    const uint32_t k_smem = sm90::smem_addr(sK + stage * kTile * D);
+    const uint32_t v_smem = sm90::smem_addr(sV + stage * kTile * D);
+
+    // S = Q K^T in turns: warpgroup 1's products queue behind warpgroup
+    // 0's, so that each one's softmax runs while the other's products do.
+    // After its S is issued a warpgroup gives the other its turn (warpgroup
+    // 0 takes none after the last tile); issue, turn and wait stay in one
+    // branch-free stretch of code
+    sm90::named_barrier_sync(kTurnBarrier + wg, kMma256Threads);
+    const bool pass = wg == 0 || it + 1 < n_k;
+    if (!active) {  // warpgroup 0 past its diagonal, or rows past L
+      sm90::named_barrier_arrive_if(pass, kTurnBarrier + (wg ^ 1),
+                                    kMma256Threads);
+      continue;
+    }
+    sm90::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk)
+      sm90::wgmma_ss<T, kTile>(s, sm90::desc_k_major<kTile>(q_smem, kk),
+                               sm90::desc_k_major<kTile>(k_smem, kk),
+                               kk > 0);
+    sm90::wgmma_commit();
+    sm90::named_barrier_arrive_if(pass, kTurnBarrier + (wg ^ 1),
+                                  kMma256Threads);
+    sm90::wgmma_wait<0>();
+    sm90::fence_operands(s);
+
+    float alpha_a, alpha_b;
+    softmax_step(s, qw, k0, row_a, row_b, t, L, causal, scale_log2, m_a, m_b,
+                 l_a, l_b, alpha_a, alpha_b);
+#pragma unroll
+    for (int c = 0; c < D / kN; ++c)
+#pragma unroll
+      for (int i = 0; i < kN / 2; ++i)
+        acc_o[c][i] *= (i & 2) ? alpha_b : alpha_a;
+
+    // O += P V, P rounded to the input dtype from registers, V read
+    // MN-major. O's rescaling is fenced in before the products start, so
+    // that no instruction writes an accumulator while they run
+    uint32_t ap[kTile / 16][4];
+#pragma unroll
+    for (int kk = 0; kk < kTile / 16; ++kk)
+      sm90::acc_to_a<T>(ap[kk], s + 8 * kk);
+#pragma unroll
+    for (int c = 0; c < D / kN; ++c) sm90::fence_operands(acc_o[c]);
+    sm90::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < kTile / 16; ++kk)
+#pragma unroll
+      for (int c = 0; c < D / kN; ++c)
+        sm90::wgmma_rs_mn<T>(acc_o[c], ap[kk],
+                             sm90::desc_mn_major<kTile>(v_smem, 16 * kk, c));
+    sm90::wgmma_commit();
+    sm90::wgmma_wait<0>();
+#pragma unroll
+    for (int c = 0; c < D / kN; ++c) sm90::fence_operands(acc_o[c]);
+  }
+
+  if (n_own == 0) return;  // no rows of this block, or none before L
+  float inv_a, inv_b;
+  finish_rows(l_a, l_b, inv_a, inv_b);
+  T* out = o + (size_t)bh * L * ld;
+#pragma unroll
+  for (int c = 0; c < D / kN; ++c)
+#pragma unroll
+    for (int j = 0; j < kN / 8; ++j) {
+      const int col = kN * c + 8 * j + 2 * t;
+      if (col >= ld) continue;
+      if (row_a < L)
+        *reinterpret_cast<uint32_t*>(out + (size_t)row_a * ld + col) =
+            sm90::pack2<T>(acc_o[c][4 * j] * inv_a,
+                           acc_o[c][4 * j + 1] * inv_a);
+      if (row_b < L)
+        *reinterpret_cast<uint32_t*>(out + (size_t)row_b * ld + col) =
+            sm90::pack2<T>(acc_o[c][4 * j + 2] * inv_b,
+                           acc_o[c][4 * j + 3] * inv_b);
+    }
+  store_lse(lse + (size_t)bh * L, row_a, row_b, L, t, m_a, m_b, l_a, l_b);
+}
+
 // ---------------------------------------------------------------------------
 // bf16 / fp16 beyond the builds: tensor-core kernel
 // (flash_fwd_general_mma_kernel), for any D that is a multiple of 64 (the
 // wrapper zero-pads to one, as it pads to the builds)
 //
 // The D = 256 build holds Q resident and O's 256 columns in 128 fp32
-// registers a thread. At D = 512, Q (64 KB), two K stages (128 KB) and two V
-// stages (128 KB) would not fit the 227 KB of shared memory a block may use,
-// and O would need 256 registers a thread. So:
+// registers a thread (two warpgroups, 128 q rows). At D = 512, Q (64 KB),
+// two K stages (128 KB) and two V stages (128 KB) would not fit the 227 KB
+// of shared memory a block may use, and O would need 256 registers a
+// thread. So:
 //   - The grid gets an axis over 256-column chunks of O (kMmaChunk, the D =
 //     256 build's accumulator): one block of one warpgroup per (64-row q
 //     tile, chunk, b * Hq + h), tile-major with the longest causal tiles
@@ -859,6 +1064,7 @@ struct Args {
   float* lse;
   int B, Hq, Hkv, L;
   int ld;  // the tuned builds: the caller's row length, at most D
+  int rows;  // q rows of a block of the D = 256 build: 64 or 128
   float scale;
   int causal;
   cudaStream_t stream;
@@ -881,6 +1087,23 @@ int launch_mma(const Args& a) {
       static_cast<const T*>(a.q), static_cast<const T*>(a.k),
       static_cast<const T*>(a.v), static_cast<T*>(a.o), a.lse, a.Hq, a.Hkv,
       a.L, a.ld, a.scale, a.causal);
+  return (int)cudaGetLastError();
+}
+
+// D = 256 on its two-warpgroup kernel, over q tiles of the caller's rows:
+// 128, or 64 (warpgroup 1 idle) where the caller's rule (fwd_rows in
+// ops/flash_attention.py) keeps a small grid's blocks
+template <typename T>
+int launch_mma_256(const Args& a) {
+  const size_t smem = mma_256_smem_bytes();
+  if (int err = prepare(flash_fwd_mma_256_kernel<T>, smem)) return err;
+  const long long grid =
+      (long long)((a.L + a.rows - 1) / a.rows) * a.B * a.Hq;
+  if (grid > INT_MAX) return -1;
+  flash_fwd_mma_256_kernel<T><<<(int)grid, kMma256Threads, smem, a.stream>>>(
+      static_cast<const T*>(a.q), static_cast<const T*>(a.k),
+      static_cast<const T*>(a.v), static_cast<T*>(a.o), a.lse, a.Hq, a.Hkv,
+      a.L, a.ld, a.scale, a.causal, a.rows);
   return (int)cudaGetLastError();
 }
 
@@ -928,16 +1151,17 @@ extern "C" {
 // checks them first). q and o are (B, Hq, L, ld), k and v (B, Hkv, L, ld),
 // lse (B, Hq, L) fp32, with ld <= D a multiple of 8 (the build zero-fills
 // columns ld..D - 1 in shared memory and stores ld columns of o); all
-// contiguous, and q, k and v 16-byte aligned.
+// contiguous, and q, k and v 16-byte aligned. rows: the q rows of a block,
+// 64, or 128 at the D = 256 build (two warpgroups of 64).
 int metisfl_flash_fwd(const void* q, const void* k, const void* v, void* o,
                       void* lse, int B, int Hq, int Hkv, int L, int D,
-                      int ld, int dtype, int causal, float scale,
-                      void* stream) {
+                      int ld, int rows, int dtype, int causal,
+                      float scale, void* stream) {
   if (B < 1 || Hkv < 1 || Hq % Hkv != 0 || L < 1 || ld < 8 || ld > D ||
-      ld % 8 != 0)
+      ld % 8 != 0 || (rows != kTile && (rows != kMma256Rows || D != 256)))
     return -1;
   const Args a{q, k, v, o, static_cast<float*>(lse), B, Hq, Hkv, L, ld,
-               scale, causal, static_cast<cudaStream_t>(stream)};
+               rows, scale, causal, static_cast<cudaStream_t>(stream)};
   switch (dtype * 1000 + D) {
     case 1016:
       return launch_mma<__half, 16>(a);
@@ -948,7 +1172,7 @@ int metisfl_flash_fwd(const void* q, const void* k, const void* v, void* o,
     case 1128:
       return launch_mma<__half, 128>(a);
     case 1256:
-      return launch_mma<__half, 256>(a);
+      return launch_mma_256<__half>(a);
     case 2016:
       return launch_mma<__nv_bfloat16, 16>(a);
     case 2032:
@@ -958,7 +1182,7 @@ int metisfl_flash_fwd(const void* q, const void* k, const void* v, void* o,
     case 2128:
       return launch_mma<__nv_bfloat16, 128>(a);
     case 2256:
-      return launch_mma<__nv_bfloat16, 256>(a);
+      return launch_mma_256<__nv_bfloat16>(a);
     default:
       return -1;
   }
@@ -984,7 +1208,7 @@ int metisfl_flash_fwd_general(const void* q, const void* k, const void* v,
                      l_part == nullptr)))
     return -1;
   const Args a{q, k, v, o, static_cast<float*>(lse), B, Hq, Hkv, L, D,
-               scale, causal, static_cast<cudaStream_t>(stream)};
+               kTile, scale, causal, static_cast<cudaStream_t>(stream)};
   return launch_f32(a, D, static_cast<float*>(o_part),
                     static_cast<float*>(m_part), static_cast<float*>(l_part),
                     per_slab, slabs);
@@ -1024,7 +1248,7 @@ int metisfl_flash_fwd_general_mma(const void* q, const void* k,
       D / kBlock < kAhead)
     return -1;
   const Args a{q, k, v, o, static_cast<float*>(lse), B, Hq, Hkv, L, D,
-               scale, causal, static_cast<cudaStream_t>(stream)};
+               kTile, scale, causal, static_cast<cudaStream_t>(stream)};
   switch (dtype) {
     case 1: return launch_general_mma<__half>(a, D);
     case 2: return launch_general_mma<__nv_bfloat16>(a, D);

@@ -165,6 +165,17 @@ __device__ __forceinline__ void named_barrier_sync(int id, int threads) {
   asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
 }
 
+// named_barrier_arrive where `when` holds (the same across each warp), as
+// one predicated instruction: no branch splits the code around it (ptxas
+// serializes the wgmma of a kernel whose in-flight products span a branch)
+__device__ __forceinline__ void named_barrier_arrive_if(bool when, int id,
+                                                        int threads) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %0, 0;\n@p bar.arrive %1, %2;\n}\n"
+      ::"r"((int)when), "r"(id), "r"(threads)
+      : "memory");
+}
+
 // orders register writes before the wgmma that read them
 __device__ __forceinline__ void wgmma_fence() {
   asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
@@ -301,6 +312,59 @@ __device__ __forceinline__ void wgmma_ss<__half, 32>(
       : "l"(a), "l"(b), "r"(accumulate));
 }
 
+// d (64 x 64) = or += A (64 x 16, registers) * B (16 x 64, K-major
+// descriptor)
+template <typename T>
+__device__ __forceinline__ void wgmma_rs(float (&d)[32],
+                                         const uint32_t (&a)[4], uint64_t b,
+                                         int accumulate);
+
+template <>
+__device__ __forceinline__ void wgmma_rs<__nv_bfloat16>(
+    float (&d)[32], const uint32_t (&a)[4], uint64_t b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b),
+        "r"(accumulate));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_rs<__half>(
+    float (&d)[32], const uint32_t (&a)[4], uint64_t b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.f16.f16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b),
+        "r"(accumulate));
+}
+
 template <>
 __device__ __forceinline__ void wgmma_rs_mn<__nv_bfloat16, 32>(float (&d)[32],
                                             const uint32_t (&a)[4],
@@ -429,6 +493,24 @@ __device__ __forceinline__ void acc_to_a(uint32_t (&a)[4], const float* c) {
   a[1] = pack2<T>(c[2], c[3]);
   a[2] = pack2<T>(c[4], c[5]);
   a[3] = pack2<T>(c[6], c[7]);
+}
+
+// the A operand of k16 step kk (columns 16 kk..) for this thread's rows
+// r and r + 8 of a 64-row tile stored as load_tile_async stores it (t =
+// lane % 4), read from shared memory: the registers acc_to_a would make
+// from those rows' values
+template <int ROWS>
+__device__ __forceinline__ void tile_to_a(uint32_t (&a)[4], const void* tile,
+                                          int r, int t, int kk) {
+  const char* base = static_cast<const char*>(tile);
+  a[0] = *reinterpret_cast<const uint32_t*>(
+      base + tile_chunk_bytes<ROWS>(r, 2 * kk) + 4 * t);
+  a[1] = *reinterpret_cast<const uint32_t*>(
+      base + tile_chunk_bytes<ROWS>(r + 8, 2 * kk) + 4 * t);
+  a[2] = *reinterpret_cast<const uint32_t*>(
+      base + tile_chunk_bytes<ROWS>(r, 2 * kk + 1) + 4 * t);
+  a[3] = *reinterpret_cast<const uint32_t*>(
+      base + tile_chunk_bytes<ROWS>(r + 8, 2 * kk + 1) + 4 * t);
 }
 
 }  // namespace sm90

@@ -27,9 +27,11 @@ so do the wrappers. Which kernel takes which (dtype, D) is
 :func:`kernel_route`'s answer, a pure function of both:
 
 - the tuned kernels, built for 16, 32, 64, 128 and 256 in bf16/fp16
-  (K3 at D = 256 makes dK and dV in one launch with two warpgroups, one
-  per output, since both outputs of its 64-row tile would take 256 fp32
-  registers a thread; at D = 16, 32 and 256 it cuts its walk over each
+  (at D = 256 each runs two warpgroups a block: K1 over a 128-row q tile,
+  64 rows each, so that a K/V tile is read once for 128 rows; K2 with
+  dQ's columns split between them; K3 one per output, since both outputs
+  of its 64-row tile would take 256 fp32 registers a thread. At D = 16,
+  32 and 256 K3 cuts its walk over each
   KV group into slabs where the grid would not fill the card,
   :func:`dkv_mma_split`, and sums them in a second launch). The D = 16
   and 32 builds read a D that is a multiple of 8 in place (8, 24: their
@@ -67,6 +69,8 @@ forward and K2/K3 backward, as the JAX package's custom VJP does.
 from __future__ import annotations
 
 import ctypes
+import functools
+import heapq
 import math
 import threading
 from typing import Dict, NamedTuple, Optional, Tuple
@@ -106,6 +110,12 @@ _MMA_SPLIT_BLOCKS_PER_SM = {16: 4, 32: 4, 256: 1}
 # (on the H100 slabs of 1-3 steps lost to the unsplit walk of 8 at
 # B4·H4·L512·D16, slabs of 5 lost to 9 at B2·Hq16·Hkv4·L1024, PERF.md)
 _MMA_MIN_SLAB_STEPS = 8
+# the time of a k step of K1's D = 256 build over a 128-row q tile (two
+# warpgroups' products on one K/V tile) against one over a 64-row tile
+# (warpgroup 1 idle), each block alone on its SM: 1.16 where the 128-row
+# grid leaves SMs idle, 1.43 on a full card (H100, PERF.md); all 26
+# measured choices of :func:`fwd_rows` hold for any value in 1.07-1.37
+_FWD_256_STEP_COST = 1.2
 
 _launch_lock = threading.Lock()
 
@@ -364,6 +374,46 @@ def fwd_split(B: int, Hq: int, L: int, D: int, causal: bool,
     return per_slab, -(-longest // per_slab)
 
 
+def _makespan(walks, sms: int) -> int:
+    """The steps until a grid's last block ends when the card hands out its
+    blocks (their ``walks``, in grid order) each to the SM that frees
+    first, one block an SM at a time."""
+    free = [0] * min(sms, len(walks))
+    for walk in walks:
+        heapq.heapreplace(free, free[0] + walk)
+    return max(free)
+
+
+@functools.lru_cache(maxsize=256)
+def fwd_rows(B: int, Hq: int, L: int, D: int, causal: bool,
+             sms: int) -> int:
+    """The q rows of a block of the tensor-core K1 at build ``D`` on a
+    card of ``sms`` SMs: 64, but at the D = 256 build 128 (two warpgroups
+    over one 128-row tile, each K/V tile read once for both) where that
+    grid ends first. One block fills an SM in either mode, so each grid
+    ends when its busiest SM does (:func:`_makespan`, longest tiles first as
+    the kernel orders them), a 128-row block's k step taking
+    ``_FWD_256_STEP_COST`` times a 64-row one's. 64-row blocks win where
+    they spread the walks over SMs that 128-row ones leave idle (B2·Hq4·L256
+    and, causal, up to about one longest walk of work per SM); a grid with
+    more than two longest walks of work per SM takes 128 rows without the
+    count. A pure function of its arguments."""
+    if D != 256:
+        return _KV_TILE
+    heads = B * Hq
+    steps = _fwd_slab_steps(L, causal)  # the k tiles of each 64-row tile
+    if heads * sum(steps) > 2 * sms * max(steps):
+        return 2 * _KV_TILE
+    # a 128-row tile walks the k tiles of its second 64-row tile
+    tall = [steps[min(t + 1, len(steps) - 1)]
+            for t in range(0, len(steps), 2)]
+    spans = [_makespan([s for s in sorted(walks, reverse=True)
+                        for _ in range(heads)], sms)
+             for walks in (steps, tall)]
+    return 2 * _KV_TILE if spans[0] > _FWD_256_STEP_COST * spans[1] \
+        else _KV_TILE
+
+
 def dq_split(B: int, Hq: int, L: int, D: int, causal: bool,
              sms: int) -> Tuple[int, int]:
     """``(per_slab, slabs)`` of the fp32 K2 at these shapes (D its padded
@@ -519,7 +569,7 @@ _PTR, _INT, _FLOAT = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # C signatures: tensors and the stream as pointers, shapes as ints, scale
 _SIGNATURES = {
     "flash_fwd": {
-        "metisfl_flash_fwd": [_PTR] * 5 + [_INT] * 8 + [_FLOAT, _PTR],
+        "metisfl_flash_fwd": [_PTR] * 5 + [_INT] * 9 + [_FLOAT, _PTR],
         "metisfl_flash_fwd_general": [_PTR] * 8 + [_INT] * 9
         + [_FLOAT, _PTR],
         "metisfl_flash_fwd_split_combine": [_PTR] * 5 + [_INT] * 6
@@ -613,7 +663,8 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     in bf16/fp16 launch ``csrc/flash_fwd.cu``'s tensor-core kernel on the
     current stream at D <= 256, built for 16, 32, 64, 128 and 256 (the 16
     and 32 builds read a D that is a multiple of 8 in place; any other D
-    is zero-padded to the next build, :func:`zero_pads`), with q, k and v
+    is zero-padded to the next build, :func:`zero_pads`; D = 256 on two
+    warpgroups over 128-row q tiles, :func:`fwd_rows`), with q, k and v
     16-byte aligned there and contiguous, and raise on anything else; D >
     256 goes to :func:`flash_fwd_general_mma`. fp32 goes, at every D, to
     the register-tiled :func:`flash_fwd_general` (:func:`kernel_route`).
@@ -634,11 +685,14 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     _check_aligned(q=q, k=k, v=v)
     o = torch.empty_like(q)
     lse = torch.empty((B, Hq, L), dtype=torch.float32, device=q.device)
-    # the build's head dim, then the length of the rows it reads and writes
+    # the build's head dim, the length of the rows it reads and writes, and
+    # the q rows of a block
     B, Hq, Hkv, L, ld, *flags = _shape_args(q, k, causal, scale)
+    sms = torch.cuda.get_device_properties(q.device).multi_processor_count
+    rows = fwd_rows(B, Hq, L, route.head_dim, bool(causal), sms)
     _launch("flash_fwd", "metisfl_flash_fwd", flash_attention_fwd, q.device,
             q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-            lse.data_ptr(), B, Hq, Hkv, L, route.head_dim, ld, *flags)
+            lse.data_ptr(), B, Hq, Hkv, L, route.head_dim, ld, rows, *flags)
     if ld != D:
         o = o[..., :D].contiguous()
     return o, lse
@@ -827,7 +881,8 @@ def flash_bwd_dq(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     lse and δ = rowsum(dO∘O), both (B, Hq, L) fp32. Launches
     ``csrc/flash_bwd.cu``'s tensor-core dQ kernel for bf16/fp16 at D <= 256,
     built for 16, 32, 64, 128 and 256 (read in place or padded as K1,
-    :func:`zero_pads`, with q, k, v and do 16-byte aligned there) or
+    :func:`zero_pads`, with q, k, v and do 16-byte aligned there; D = 256
+    on two warpgroups that split dQ's columns) or
     raises; a larger D goes to :func:`flash_bwd_dq_general_mma`, and fp32
     at every D to :func:`flash_bwd_dq_general` (:func:`kernel_route`).
     ``flash_bwd_dq.launches`` counts this kernel's launches (one per

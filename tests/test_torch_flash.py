@@ -560,27 +560,35 @@ FP16_FWD_ATOL = 2.0 ** -11
 FP16_BWD_REL = 2.0 ** -10
 
 
-@pytest.mark.parametrize("D,dtype", [
-    pytest.param(D, torch.float32, id=str(D))
+@pytest.mark.parametrize("D,dtype,L", [
+    pytest.param(D, torch.float32, 40, id=str(D))
     for D in (8, 16, 32, 256, 320, 512)] + [
-    pytest.param(D, torch.bfloat16, id=f"{D}-bf16")
-    for D in (8, 16, 32, 320, 384)] + [
-    pytest.param(D, torch.float16, id=f"{D}-fp16") for D in (8, 16, 32)])
+    pytest.param(D, torch.bfloat16, 40, id=f"{D}-bf16")
+    for D in (8, 16, 32, 256, 320, 384)] + [
+    pytest.param(D, torch.float16, 40, id=f"{D}-fp16")
+    for D in (8, 16, 32, 256)] + [
+    pytest.param(256, dtype, 130, id=f"256-{name}-L130")
+    for dtype, name in ((torch.bfloat16, "bf16"), (torch.float16, "fp16"))])
 @pytest.mark.parametrize("causal", [False, True])
-def test_twins_at_padded_head_dims_match_pallas(jax_flash, causal, D, dtype):
+def test_twins_at_padded_head_dims_match_pallas(jax_flash, causal, D, dtype,
+                                                L):
     """The Pallas kernels take any D (their blocks span the head); the
     twins, which the CPU path runs and the small-D, padded and general
     kernels are held to, give the Pallas forward's o and lse and its
-    backward's dq, dk, dv (interpret mode) at D = 8, 16, 32, 256 (K2/K3's
-    largest build), 320 and 512 (the general kernels), B1·Hq4·Hkv2·L40
-    fp32 (to ``ATOL``); in bf16 at D = 8, 16 and 32, where K1 and K3 run
-    their D = 16 and 32 builds, and at 320 and 384, where the general
+    backward's dq, dk, dv (interpret mode) at D = 8, 16, 32, 256 (the
+    largest build of K1, K2 and K3), 320 and 512 (the general kernels),
+    B1·Hq4·Hkv2·L40 fp32 (to ``ATOL``); in bf16 at D = 8, 16 and 32, where
+    K1 and K3 run their D = 16 and 32 builds, at 256, where all three run
+    their two-warpgroup builds, and at 320 and 384, where the general
     tensor-core kernels take K1 and K3: o within ``BF16_FWD_ATOL`` (the
     bf16 forward test's), lse (fp32 from exact bf16 inputs) within
     ``ATOL``, dq, dk, dv within ``BF16_BWD_REL`` × max|ref|; and in fp16
-    at D = 8, 16 and 32 within ``FP16_FWD_ATOL`` and ``FP16_BWD_REL``."""
+    at D = 8, 16, 32 and 256 within ``FP16_FWD_ATOL`` and
+    ``FP16_BWD_REL``. At D = 256 in bf16 and fp16 also at L = 130, past a
+    128-row q tile of K1's build (and the Pallas kernels' 128-key
+    blocks)."""
     jnp = jax_flash.jnp
-    q, k, v, do = _bwd_inputs(L=40, D=D)
+    q, k, v, do = _bwd_inputs(L=L, D=D)
     jdt = {torch.float32: jnp.float32, torch.bfloat16: jnp.bfloat16,
            torch.float16: jnp.float16}[dtype]
     jq, jk, jv, jdo = (jnp.asarray(a, jdt) for a in (q, k, v, do))
@@ -1011,6 +1019,73 @@ def test_fwd_split_cuts_the_longest_tile_into_slabs(B, Hq, L, D, causal,
         assert fills or per_slab <= max(1, target)
     else:
         assert not fills and per_slab == max(1, target)
+
+
+# (B, Hq, L, causal) of K1's D = 256 build timed with 64- and 128-row q
+# tiles on an H100 (132 SMs; scripts/torch_fwd_rows.py, PERF.md), and the
+# rows of the faster: 64-row tiles while they spread the walks over SMs
+# that 128-row ones leave idle
+_FWD_ROWS_TIMED = [
+    (2, 4, 256, True, 64), (2, 4, 256, False, 64),
+    (1, 2, 1024, True, 64), (1, 2, 1024, False, 64),
+    (1, 4, 1024, True, 64), (1, 4, 1024, False, 64),
+    (1, 6, 1024, True, 64), (1, 6, 1024, False, 64),
+    (1, 8, 1024, True, 64), (1, 8, 1024, False, 64),
+    (1, 9, 1024, True, 64), (1, 9, 1024, False, 128),
+    (1, 10, 1024, True, 64), (1, 10, 1024, False, 128),
+    (1, 12, 1024, True, 64), (1, 12, 1024, False, 128),
+    (2, 8, 1000, True, 64), (2, 8, 1000, False, 128),
+    (1, 16, 1024, True, 64), (1, 16, 1024, False, 128),
+    (1, 20, 1024, True, 128), (1, 20, 1024, False, 128),
+    (2, 16, 1024, True, 128), (2, 16, 1024, False, 128)]
+
+
+@pytest.mark.parametrize("B,Hq,L,causal,rows", _FWD_ROWS_TIMED)
+def test_fwd_rows_picks_the_faster_tile_of_the_d256_build(B, Hq, L, causal,
+                                                          rows):
+    """``fwd_rows`` on a 132-SM card picks, at each timed shape, the q rows
+    that ran faster there; a pure function of its arguments, 64 at every
+    other build."""
+    from metisfl_tpu_torch.ops.flash_attention import fwd_rows
+
+    assert fwd_rows(B, Hq, L, 256, causal, 132) == rows
+    assert fwd_rows.__wrapped__(B, Hq, L, 256, causal, 132) == rows
+    for D in (16, 32, 64, 128):
+        assert fwd_rows(B, Hq, L, D, causal, 132) == 64
+
+
+@pytest.mark.parametrize("walks,sms,span", [
+    ([3, 3, 3], 2, 6), ([4, 1, 1, 1, 1], 2, 4), ([5, 4, 3, 2, 1], 1, 15),
+    ([16] * 132, 132, 16), ([16] * 133, 132, 32), ([2, 2], 8, 2)])
+def test_makespan_hands_each_block_to_the_sm_that_frees_first(walks, sms,
+                                                              span):
+    """``_makespan``: blocks in grid order, each to the SM that frees
+    first, one at a time an SM; the grid ends with its busiest SM."""
+    from metisfl_tpu_torch.ops.flash_attention import _makespan
+
+    assert _makespan(walks, sms) == span
+
+
+@pytest.mark.parametrize("B,Hq,L,causal", [
+    (4100, 16, 16, True), (1, 65536, 16, False), (64, 32, 4096, True),
+    (1, 1, 1, True), (1, 1, 65536, True), (3, 5, 777, False)])
+@pytest.mark.parametrize("sms", [1, 132])
+def test_fwd_rows_takes_128_rows_where_the_card_is_full(B, Hq, L, causal,
+                                                       sms):
+    """Past two longest walks of work per SM the 128-row tiles' two
+    warpgroups always pay (each K/V tile read once for 128 rows): 128
+    without a count; else 64 or 128 by the two grids' makespans."""
+    from metisfl_tpu_torch.ops.flash_attention import (
+        _fwd_slab_steps,
+        fwd_rows,
+    )
+
+    steps = _fwd_slab_steps(L, causal)
+    rows = fwd_rows(B, Hq, L, 256, causal, sms)
+    if B * Hq * sum(steps) > 2 * sms * max(steps):
+        assert rows == 128
+    else:
+        assert rows in (64, 128)
 
 
 def _fwd_split_partials(q, k, v, causal, per_slab):
@@ -1557,6 +1632,111 @@ def test_k3_d256_build_matches_twin_on_gpu(cuda_device, causal, L, dtype):
         assert torch.equal(a, b)
 
 
+# (Hq, Hkv) and L of the D = 256 builds of K1 and K2 on the card: a group
+# of 4 and none; one row, the edges of a 64-row warpgroup's rows and of
+# K1's 128-row q tile (warpgroup 1 of the last tile with no row, one, or
+# all), and a ragged many
+_D256_GPU_HEADS = [(8, 2), (4, 4)]
+_D256_GPU_LENGTHS = [1, 63, 64, 65, 127, 128, 129, 1000]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows", [64, 128])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("L", _D256_GPU_LENGTHS)
+@pytest.mark.parametrize("Hq,Hkv", _D256_GPU_HEADS)
+@pytest.mark.parametrize("B", [2, 40])
+@pytest.mark.parametrize("causal", [False, True])
+def test_k1_d256_build_matches_twin_on_gpu(cuda_device, monkeypatch, causal,
+                                           B, Hq, Hkv, L, dtype, rows):
+    """K1's D = 256 build against its twin on the card, in each of its
+    modes: 128-row q tiles (two warpgroups) and 64-row ones (warpgroup 1
+    idle), set through ``fwd_rows``, which the wrapper asks with the shape
+    and the card's SM count. One launch of ``flash_attention_fwd`` a call
+    and nothing else, o within ``_FWD_ATOL``, lse within 1e-3, and two runs
+    give the same bits."""
+    fa = importlib.import_module("metisfl_tpu_torch.ops.flash_attention")
+    asked = []
+
+    def forced(*args):
+        asked.append(args)
+        return rows
+
+    monkeypatch.setattr(fa, "fwd_rows", forced)
+    sms = torch.cuda.get_device_properties(
+        cuda_device).multi_processor_count
+    q, k, v, o_ref, lse_ref, _ = _cuda_bwd_inputs(cuda_device, dtype, B, Hq,
+                                                  Hkv, L, 256, causal)
+    before = _launch_counts()
+    o, lse = flash_attention_fwd(q, k, v, causal)
+    o2, lse2 = flash_attention_fwd(q, k, v, causal)
+    torch.cuda.synchronize()
+    assert asked == [(B, Hq, L, 256, causal, sms)] * 2
+    assert _launched(before) == {"flash_attention_fwd": 2}
+    assert o.dtype == dtype and o.shape == q.shape and o.is_contiguous()
+    torch.testing.assert_close(o.float(), o_ref.float(),
+                               atol=_FWD_ATOL[dtype], rtol=0)
+    torch.testing.assert_close(lse, lse_ref, atol=1e-3, rtol=0)
+    assert torch.equal(o, o2) and torch.equal(lse, lse2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("L", _D256_GPU_LENGTHS)
+@pytest.mark.parametrize("Hq,Hkv", _D256_GPU_HEADS)
+@pytest.mark.parametrize("causal", [False, True])
+def test_k2_d256_build_matches_twin_on_gpu(cuda_device, causal, Hq, Hkv, L,
+                                           dtype):
+    """K2's D = 256 build (two warpgroups, dQ split by columns, P and dS
+    handed between them in fp32) against its twin on the card at B2: one
+    launch of ``flash_bwd_dq`` a call and nothing else, dq within
+    ``_BWD_REL`` × max|twin|, and two runs give the same bits. δ is drawn
+    apart from O (as in ``_BWD_GPU_CASES``), so that dP − δ is no
+    cancellation noise where a row sees one key."""
+    from metisfl_tpu_torch.ops.flash_attention import flash_bwd_dq_reference
+
+    q, k, v, _, lse, do = _cuda_bwd_inputs(cuda_device, dtype, 2, Hq, Hkv,
+                                           L, 256, causal)
+    delta = torch.from_numpy(np.random.default_rng(9).standard_normal(
+        lse.shape).astype(np.float32)).to(cuda_device)
+    before = _launch_counts()
+    first = flash_bwd_dq(q, k, v, do, lse, delta, causal)
+    second = flash_bwd_dq(q, k, v, do, lse, delta, causal)
+    torch.cuda.synchronize()
+    assert _launched(before) == {"flash_bwd_dq": 2}
+    assert first.dtype == dtype and first.shape == q.shape
+    want = flash_bwd_dq_reference(q, k, v, do, lse, delta, causal)
+    scale = float(want.float().abs().max())
+    err = float((first.float() - want.float()).abs().max())
+    assert err <= _BWD_REL[dtype] * scale, (err, scale)
+    assert torch.equal(first, second)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+def test_k1_k2_d256_builds_at_65536_query_heads_on_gpu(cuda_device, dtype):
+    """K1 and K2 on their D = 256 builds at B1·Hq65536·Hkv16384·L16, past
+    gridDim.y's 65535 on their 1-D grids: one launch each, within their
+    twins' tolerances."""
+    from metisfl_tpu_torch.ops.flash_attention import flash_bwd_dq_reference
+
+    q, k, v, o_ref, lse_ref, do = _cuda_bwd_inputs(
+        cuda_device, dtype, 1, 65536, 16384, 16, 256, True)
+    delta = (do.float() * o_ref.float()).sum(-1)
+    before = _launch_counts()
+    o, lse = flash_attention_fwd(q, k, v, True)
+    dq = flash_bwd_dq(q, k, v, do, lse_ref, delta, True)
+    torch.cuda.synchronize()
+    assert _launched(before) == {"flash_attention_fwd": 1, "flash_bwd_dq": 1}
+    torch.testing.assert_close(o.float(), o_ref.float(),
+                               atol=_FWD_ATOL[dtype], rtol=0)
+    torch.testing.assert_close(lse, lse_ref, atol=1e-3, rtol=0)
+    want = flash_bwd_dq_reference(q, k, v, do, lse_ref, delta, True)
+    scale = float(want.float().abs().max())
+    err = float((dq.float() - want.float()).abs().max())
+    assert err <= _BWD_REL[dtype] * scale, (err, scale)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("D", [16, 24])
 def test_k2_small_head_dim_builds_refuse_misaligned_views_on_gpu(
@@ -1595,6 +1775,22 @@ def test_dq_entry_refuses_a_bad_row_length_on_gpu(cuda_device, D, ld):
     err = lib.metisfl_flash_bwd_dkv(
         None, None, None, None, None, None, None, None, None, 1, 4, 2, 64,
         D, ld, _DTYPE_CODES[torch.bfloat16], 1, 1, 1, 0.25, None)
+    assert err == -1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D,rows", [(256, 0), (256, 32), (256, 96),
+                                    (256, 256), (128, 128), (64, 128),
+                                    (16, 128)])
+def test_fwd_entry_refuses_rows_a_build_lacks_on_gpu(cuda_device, D, rows):
+    """``metisfl_flash_fwd`` takes the q rows of a block: 64 at every
+    build, 128 at the D = 256 build alone; any other returns -1, launching
+    nothing (its pointers are never read)."""
+    from metisfl_tpu_torch.ops.flash_attention import _DTYPE_CODES, _library
+
+    err = _library("flash_fwd").metisfl_flash_fwd(
+        None, None, None, None, None, 1, 4, 2, 64, D, D, rows,
+        _DTYPE_CODES[torch.bfloat16], 1, 0.25, None)
     assert err == -1
 
 
