@@ -101,12 +101,30 @@ It drives the port only (it imports no jax and nothing of the JAX package):
    native against the numpy fold of the same three models, in turns;
    (b) the CNN with a process per learner for 2 rounds on ``store:
    remote``, served by a ``python -m metisfl_tpu_torch.store.server``
-   process on a disk store, which must exit 0 on SIGTERM.
+   process on a disk store, which must exit 0 on SIGTERM;
+9. rules (run after 6): (a) the LlamaLite round of 6 in process under
+   ``aggregation.rule: median`` with the controller on the card, whose
+   K1-K3 launches are counted as in 6 and whose community model must
+   equal the median re-applied to its 3 uplinks bit for bit, its
+   controller's H2D, combine and D2H printed; (b) each of the eleven
+   rules' ``aggregate`` on those 3 full-width uplinks, on the card (the
+   robust rules from the host uplinks, the others from trees of tensors
+   on the card) against the CPU path: bit for bit for the median, the
+   trimmed mean of 3 and Krum, the others within ``RULES_REL_TOL``, each
+   timed in H2D, combine and D2H beside the CPU path's time; (c) the CNN
+   of 6 in process, 2 rounds under each of fedrec, fednova, fedadam and
+   multikrum, each round's community model bit for bit the rule replayed
+   over the recorded uplinks; (d) the CNN with a process per learner, 1
+   round, learner 1's endpoint ``127.0.0.2``: shipped its recipe and
+   launched through ``ssh``/``scp`` stand-ins on ``PATH`` that run here
+   (the machine has no second host, and the phase's lines say so), every
+   process exiting 0 and the ShutDown RPC reaching it at that hostname.
 
 It prints a ``{"federation": {...}}`` line (round walls and their split,
 ms per step, blob bytes, launches), a ``{"multiprocess": {...}}`` line
 (the same with a process per learner, and each process's peak device
-memory), ``{"wide_heads": ...}`` and ``{"store": ...}`` lines, a
+memory), ``{"wide_heads": ...}``, ``{"store": ...}`` and ``{"rules": ...}``
+lines, a
 ``{"kernels": [...]}`` line (each kernel's launches by path: K1-K3 at
 D = 64 on the main paths, and a row per wide-heads case and wrapper with
 its launches there, each measured at its path's shape: the tensor-core
@@ -1848,12 +1866,15 @@ def _npz(path):
 
 
 def run_multiprocess(smoke, label, kind, shards, test, train, eval_cfg,
-                     rounds, template, model_store=None, before_shutdown=None):
+                     rounds, template, model_store=None, before_shutdown=None,
+                     hosts=None):
     """One DriverSession federation of ``len(shards)`` learner processes
     and a controller process (on ``model_store``, default in memory;
-    ``before_shutdown()`` runs after the last round); returns (statistics,
+    ``before_shutdown()`` runs after the last round; ``hosts``, one per
+    learner, its endpoint's hostname, default local); returns (statistics,
     per-learner records, learner ids by index, workdir, the final
-    community blob, walls)."""
+    community blob, walls). With ``hosts`` the walls also hold the
+    endpoints the learners registered."""
     from metisfl_tpu_torch.config import (
         AggregationConfig,
         FederationConfig,
@@ -1880,7 +1901,8 @@ def run_multiprocess(smoke, label, kind, shards, test, train, eval_cfg,
         train=train, eval=eval_cfg,
         termination=TerminationConfig(federation_rounds=rounds),
         model_store=model_store or ModelStoreConfig(),
-        learners=[LearnerEndpoint() for _ in shards])
+        learners=[LearnerEndpoint(hostname=h)
+                  for h in hosts or ["localhost"] * len(shards)])
     session = DriverSession(config, template, recipes, workdir=workdir,
                             device=DEVICE)
     client = None
@@ -1909,6 +1931,7 @@ def run_multiprocess(smoke, label, kind, shards, test, train, eval_cfg,
         stats = session.monitor_federation(poll_every_s=0.25)
         run_s = time.perf_counter() - t1
         final = client.get_community_model()
+        endpoints = client.list_learners()
         if before_shutdown is not None:
             before_shutdown()
     finally:
@@ -1930,6 +1953,8 @@ def run_multiprocess(smoke, label, kind, shards, test, train, eval_cfg,
                 f"{label}: every learner's engine ran on {DEVICE}: "
                 f"{[r['device'] for r in records]}")
     walls = {"boot_s": boot_s, "rounds_s": run_s, "shutdown_s": shutdown_s}
+    if hosts:
+        walls["endpoints"] = endpoints
     return stats, records, ids, workdir, final, walls
 
 
@@ -2594,6 +2619,483 @@ def store_cnn_remote(smoke):
     return out
 
 
+# -- rules phase: the controller's other aggregation rules, the robust ones
+# combining on the card, and learners launched over ssh
+
+RULE_NAMES = ("fedavg", "fedstride", "fedrec", "fednova", "fedavgm",
+              "fedadam", "fedyogi", "median", "trimmed_mean", "krum",
+              "multikrum")
+ROBUST_RULES = ("median", "trimmed_mean", "krum", "multikrum")
+# the server optimizers' learning rate in this phase (the default 1.0
+# moves every weight by about 1 on a cold Adam step)
+RULES_SERVER_LR = 0.1
+# the card's combine against the CPU path on the same LlamaLite uplinks,
+# max |card - cpu| over max|w| per tensor: bit for bit for the median,
+# the trimmed mean of 3 (the median) and Krum (a picked uplink); the folds
+# (an f32 accumulator over 3 models, summed in another order on the card)
+# within 1e-6; the server optimizers within 1e-4 (their step divides the
+# pseudo-gradient by sqrt(v) + tau, which multiplies an accumulator's last
+# bit by up to 1/tau = 1e3 at the learning rate above); MultiKrum's float64
+# mean within 1e-7 (its cast back to f32 is the only rounding)
+RULES_REL_TOL = {"fedavg": 1e-6, "fedstride": 1e-6, "fedrec": 1e-6,
+                 "fednova": 1e-6, "fedavgm": 1e-4, "fedadam": 1e-4,
+                 "fedyogi": 1e-4, "median": 0.0, "trimmed_mean": 0.0,
+                 "krum": 0.0, "multikrum": 1e-7}
+# CNN federations of the phase: 2 rounds under each of these rules
+RULES_CNN = ("fedrec", "fednova", "fedadam", "multikrum")
+RULES_CNN_ROUNDS = 2
+# the non-local hostname of the ssh launch: this machine, by another name
+SSH_HOST = "127.0.0.2"
+
+
+def sync():
+    import torch
+
+    if DEVICE == "cuda":
+        torch.cuda.synchronize()
+
+
+def empty_cache():
+    import torch
+
+    if DEVICE == "cuda":
+        torch.cuda.empty_cache()
+
+
+def build_rule(name, device):
+    """The port's rule as the controller builds it (hyperparameters of
+    this phase; the robust rules on ``device``)."""
+    from metisfl_tpu_torch.aggregation import make_aggregation_rule
+
+    kwargs = {}
+    if name in ("fedavgm", "fedadam", "fedyogi"):
+        kwargs["learning_rate"] = RULES_SERVER_LR
+    if name in ROBUST_RULES:
+        kwargs["device"] = device
+    return make_aggregation_rule(name, **kwargs)
+
+
+def rule_aggregate(rule, name, models, scales, steps, seed=None):
+    """One aggregation as the controller runs it (the stateful rules
+    seeded with ``seed``; FedNova with ``steps``)."""
+    if seed is not None and hasattr(rule, "seed_community"):
+        rule.seed_community(seed)
+    pairs = [([m], s) for m, s in zip(models, scales)]
+    if name == "fednova":
+        return rule.aggregate(pairs, steps=steps)
+    if name in ("fedstride", "fedrec"):
+        return rule.aggregate(pairs, learner_ids=[f"L{i}" for i in
+                                                  range(len(pairs))])
+    return rule.aggregate(pairs)
+
+
+def rel_diff(got, want):
+    """max over tensors of max|got - want| / max|want|."""
+    worst = 0.0
+    for k in want:
+        w = np.asarray(want[k]).astype(np.float64)
+        g = np.asarray(got[k]).astype(np.float64)
+        worst = max(worst, float(np.abs(g - w).max())
+                    / max(float(np.abs(w).max()), 1e-30))
+    return worst
+
+
+def same_bits(got, want):
+    return sorted(got) == sorted(want) and all(
+        np.asarray(got[k]).dtype == np.asarray(want[k]).dtype
+        and np.asarray(got[k]).tobytes() == np.asarray(want[k]).tobytes()
+        for k in want)
+
+
+def rules_on_uplinks(smoke, uplinks, scales, steps, seed):
+    """Each rule's ``aggregate`` on the full-width LlamaLite uplinks, on
+    the card and on the CPU path, timed in H2D, combine and D2H. The
+    robust rules take the host uplinks as the controller hands them over
+    and report their own stages; the folds take the uplinks as trees of
+    tensors on the card (the H2D here), fold there, and come back (the
+    server optimizers' and FedNova's step runs on the host inside the
+    combine)."""
+    import torch
+
+    from metisfl_tpu_torch.tensor.pytree import as_tensor, to_numpy
+
+    out = {}
+    for name in RULE_NAMES:
+        rule = build_rule(name, DEVICE)
+        if name in ROBUST_RULES:
+            got = rule_aggregate(rule, name, uplinks, scales, steps, seed)
+            timing = dict(rule.last_timing)
+        else:
+            sync()
+            t0 = time.perf_counter()
+            on_card = [{k: as_tensor(v).to(DEVICE) for k, v in m.items()}
+                       for m in uplinks]
+            sync()
+            t1 = time.perf_counter()
+            result = rule_aggregate(rule, name, on_card, scales, steps,
+                                    seed)
+            sync()
+            t2 = time.perf_counter()
+            got = {k: to_numpy(v) if torch.is_tensor(v) else np.asarray(v)
+                   for k, v in result.items()}
+            t3 = time.perf_counter()
+            del on_card, result
+            timing = {"device": DEVICE, "h2d_ms": (t1 - t0) * 1e3,
+                      "combine_ms": (t2 - t1) * 1e3,
+                      "d2h_ms": (t3 - t2) * 1e3}
+        t0 = time.perf_counter()
+        want = rule_aggregate(build_rule(name, "cpu"), name, uplinks, scales,
+                              steps, seed)
+        cpu_ms = (time.perf_counter() - t0) * 1e3
+        empty_cache()
+        rel = rel_diff(got, want)
+        exact = same_bits(got, want)
+        tol = RULES_REL_TOL[name]
+        smoke.check(exact if tol == 0.0 else (rel <= tol and sorted(got)
+                                              == sorted(want)),
+                    f"rules: {name} on the card against its CPU path: "
+                    f"{'bit for bit' if exact else f'max rel {rel:.3g}'} "
+                    f"(<= {tol if tol else 'bit for bit'}); "
+                    f"{timing['device']} H2D {timing['h2d_ms']:.1f} ms, "
+                    f"combine {timing['combine_ms']:.1f} ms, D2H "
+                    f"{timing['d2h_ms']:.1f} ms; CPU path {cpu_ms:.1f} ms")
+        if name in ROBUST_RULES:
+            smoke.check(timing["device"].startswith(DEVICE),
+                        f"rules: {name} combined on {timing['device']}")
+        out[name] = {**timing, "cpu_path_ms": cpu_ms, "max_rel": rel,
+                     "bit_exact": exact}
+        del got, want
+    return out
+
+
+def replay_rule(name, seed, rounds_of_uplinks, scales_of_rounds,
+                steps_of_rounds):
+    """A fresh rule of ``name`` (the robust ones on the card) driven
+    through the recorded rounds as the controller drove it; returns each
+    round's community."""
+    rule = build_rule(name, DEVICE)
+    if hasattr(rule, "seed_community"):
+        rule.seed_community(seed)
+    outs = []
+    for ups, scales, steps in zip(rounds_of_uplinks, scales_of_rounds,
+                                  steps_of_rounds):
+        ids = list(ups)
+        pairs = [([ups[lid]], scales[lid]) for lid in ids]
+        if name == "fednova":
+            outs.append(rule.aggregate(pairs, steps=[steps[lid]
+                                                     for lid in ids]))
+        elif name in ("fedstride", "fedrec"):
+            outs.append(rule.aggregate(pairs, learner_ids=ids))
+        else:
+            outs.append(rule.aggregate(pairs))
+    return outs
+
+
+def recorded_rounds(probe, stats, rounds, scaler_name, steps_per_task):
+    """The uplinks of each round in the order the controller folded them,
+    their scales as its scaler weighs them, and their local steps."""
+    from metisfl_tpu_torch.scaling import make_scaler
+    from metisfl_tpu_torch.tensor import ModelBlob
+    from metisfl_tpu_torch.tensor.pytree import to_numpy
+
+    sizes = {learner.learner_id: len(learner.datasets["train"])
+             for learner in probe.fed.learners}
+    scaler = make_scaler(scaler_name)
+    ups, scales, steps = [], [], []
+    for r in range(rounds):
+        selected = stats["round_metadata"][r]["selected_learners"]
+        ups.append({lid: {n: to_numpy(t) for n, t in ModelBlob.from_bytes(
+            probe.uplinks[r][lid]).tensors} for lid in selected})
+        scales.append(scaler({lid: {"num_train_examples": sizes[lid],
+                                    "completed_batches": steps_per_task}
+                              for lid in selected}))
+        steps.append({lid: float(steps_per_task) for lid in selected})
+    return ups, scales, steps
+
+
+def parse_blob(blob):
+    from metisfl_tpu_torch.tensor import ModelBlob
+    from metisfl_tpu_torch.tensor.pytree import to_numpy
+
+    return {n: to_numpy(t) for n, t in ModelBlob.from_bytes(blob).tensors}
+
+
+def ssh_shims(bindir):
+    """``ssh`` and ``scp`` stand-ins that run here: the card's machine has
+    no second host. ssh drops its options and runs the remote command
+    with ``sh -c``; scp copies to the same path (one filesystem). Each
+    call is appended to ``<bindir>/calls``."""
+    os.makedirs(bindir, exist_ok=True)
+    calls = os.path.join(bindir, "calls")
+    with open(os.path.join(bindir, "ssh"), "w") as f:
+        f.write("#!/bin/sh\n"
+                f'echo "ssh $*" >> "{calls}"\n'
+                'while [ "$1" != "${1#-}" ]; do case "$1" in -p) shift 2;; '
+                '*) shift;; esac; done\n'
+                'shift\n'
+                'exec sh -c "$1"\n')
+    with open(os.path.join(bindir, "scp"), "w") as f:
+        f.write("#!/bin/sh\n"
+                f'echo "scp $*" >> "{calls}"\n'
+                'while [ "$1" != "${1#-}" ]; do case "$1" in -P) shift 2;; '
+                '*) shift;; esac; done\n'
+                'src="$1"; dst="${2#*:}"\n'
+                'mkdir -p "$(dirname "$dst")"\n'
+                'if [ "$src" -ef "$dst" ]; then exit 0; fi\n'
+                'exec cp "$src" "$dst"\n')
+    for name in ("ssh", "scp"):
+        path = os.path.join(bindir, name)
+        os.chmod(path, 0o755)
+    return calls
+
+
+def rules_phase(smoke, gpu, fedavg_llama_walls):
+    """(a) one in-process LlamaLite round under ``median`` with the
+    controller on the card: its community against the rule re-applied to
+    the round's uplinks, K1-K3 counted in the learners' training; (b) each
+    of the eleven rules on those three full-width uplinks, on the card
+    against the CPU path; (c) the CNN federation in process, 2 rounds
+    under each of fedrec, fednova, fedadam and multikrum, each round's
+    community against the rule replayed over the recorded uplinks; (d) the
+    multi-process CNN round with one learner endpoint on a non-local
+    hostname, launched through ssh/scp shims."""
+    import torch
+
+    from metisfl_tpu_torch.comm import TrainParams
+    from metisfl_tpu_torch.config import (
+        AggregationConfig,
+        EvalConfig,
+        FederationConfig,
+        TerminationConfig,
+    )
+    from metisfl_tpu_torch.driver import InProcessFederation
+    from metisfl_tpu_torch.models import ArrayDataset, TorchModelOps
+    from metisfl_tpu_torch.models.zoo import FashionMnistCNN, LlamaLite
+    from metisfl_tpu_torch.ops.flash_attention import (
+        flash_attention_fwd,
+        flash_bwd_dkv,
+        flash_bwd_dq,
+    )
+    from metisfl_tpu_torch.tensor import pack_model
+
+    out = {"learners": FED_LEARNERS}
+    # (a) full-width LlamaLite, 1 round under median, the controller on
+    # the card
+    llama = dict(vocab_size=VOCAB, dim=DIM, depth=DEPTH, heads=HEADS,
+                 kv_heads=KV_HEADS, dtype=torch.bfloat16)
+    variables = random_variables(LlamaLite(**llama, device="meta"), SEED)
+    seed = parse_blob(pack_model(variables))
+    tokens = np.random.default_rng(SEED + 5).integers(
+        0, VOCAB, (FED_LEARNERS * FED_ROWS + FED_EVAL_ROWS, TRAIN_LEN + 1)
+    ).astype(np.int32)
+    test = ArrayDataset(tokens[-FED_EVAL_ROWS:, :-1],
+                        tokens[-FED_EVAL_ROWS:, 1:])
+    cfg = FederationConfig(
+        aggregation=AggregationConfig(rule="median",
+                                      scaler="train_dataset_size"),
+        train=TrainParams(batch_size=TRAIN_BATCH, local_steps=FED_STEPS,
+                          optimizer="adam", learning_rate=1e-4),
+        eval=EvalConfig(batch_size=TRAIN_BATCH, datasets=["test"],
+                        metrics=["loss", "accuracy"]),
+        termination=TerminationConfig(federation_rounds=1))
+    fed = InProcessFederation(cfg, device=DEVICE)
+    for i in range(FED_LEARNERS):
+        rows = tokens[i * FED_ROWS:(i + 1) * FED_ROWS]
+        ops = TorchModelOps(LlamaLite(**llama, use_flash=True),
+                            variables=variables, device=DEVICE)
+        fed.add_learner(ops, ArrayDataset(rows[:, :-1], rows[:, 1:],
+                                          seed=SEED + i),
+                        test_dataset=test)
+    fed.seed_model(variables)
+    del variables
+    counters = (flash_attention_fwd, flash_bwd_dq, flash_bwd_dkv)
+    for fn in counters:
+        fn.launches = 0
+    probe, stats = run_federation(fed)
+    sync()
+    k1, k2, k3 = (fn.launches for fn in counters)
+    train_launches = FED_LEARNERS * FED_STEPS * DEPTH
+    eval_launches = FED_LEARNERS * -(-FED_EVAL_ROWS // TRAIN_BATCH) * DEPTH
+    smoke.check(k2 == k3 == train_launches
+                and k1 == train_launches + eval_launches,
+                f"rules median round: K2 {k2} and K3 {k3} launches = "
+                f"learners x steps x depth = {train_launches}; K1 {k1} = "
+                f"{train_launches} + {eval_launches} (evaluation)")
+    meta = stats["round_metadata"][0]
+    device_ms = meta["aggregation_device_ms"]
+    smoke.check(str(device_ms.get("device", "")).startswith(DEVICE)
+                and fed.controller._aggregator.device.type == DEVICE,
+                f"rules median round: the controller combined on "
+                f"{device_ms.get('device')}: H2D "
+                f"{device_ms.get('h2d_ms', 0):.1f} ms, combine "
+                f"{device_ms.get('combine_ms', 0):.1f} ms, D2H "
+                f"{device_ms.get('d2h_ms', 0):.1f} ms")
+    ups, scales_r, steps_r = recorded_rounds(probe, stats, 1,
+                                             "train_dataset_size", FED_STEPS)
+    community = parse_blob(probe.communities[0])
+    again = replay_rule("median", seed, ups, scales_r, steps_r)[0]
+    smoke.check(same_bits(community, again),
+                "rules median round: the community model equals the median "
+                "re-applied on the card to the 3 stored uplinks, bit for "
+                "bit")
+    split = probe.split(stats)[0]
+    out["median_llama"] = {
+        "round_wall_s": split["wall_s"], "split": split,
+        "aggregation_device_ms": device_ms,
+        "fedavg_round_wall_s": fedavg_llama_walls,
+        "launches": {"flash_fwd": k1, "flash_bwd_dq": k2,
+                     "flash_bwd_dkv": k3}}
+    print(f"rules median round: wall {split['wall_s']:.3f} s (fedavg in "
+          f"the federation phase: {fedavg_llama_walls} s); fold stage "
+          f"{split['controller_s']['fold']:.3f} s", flush=True)
+    del fed, probe, community, again
+    empty_cache()
+
+    # (b) every rule on those uplinks, the card against the CPU path
+    models = [ups[0][lid] for lid in ups[0]]
+    scales = [scales_r[0][lid] for lid in ups[0]]
+    steps = [steps_r[0][lid] for lid in ups[0]]
+    out["uplinks"] = {
+        "models": len(models),
+        "params": int(sum(np.asarray(v).size for v in models[0].values())),
+        "bytes": int(sum(np.asarray(v).nbytes for v in models[0].values()))}
+    out["rules"] = rules_on_uplinks(smoke, models, scales, steps, seed)
+    del models, ups, seed
+    empty_cache()
+
+    # (c) the CNN federation under four more rules, the controller on the
+    # card
+    x, y = synthetic_image_classification(
+        FED_LEARNERS * CNN_EXAMPLES + CNN_TEST, noise=CNN_NOISE, seed=SEED)
+    test = ArrayDataset(x[-CNN_TEST:], y[-CNN_TEST:])
+    template = TorchModelOps(FashionMnistCNN(), rng_seed=SEED,
+                             device="cpu").get_variables()
+    cnn_seed = parse_blob(pack_model(template))
+    out["cnn"] = {}
+    for rule in RULES_CNN:
+        extra = ({"server_learning_rate": RULES_SERVER_LR}
+                 if rule == "fedadam" else {})
+        cfg = FederationConfig(
+            aggregation=AggregationConfig(rule=rule,
+                                          scaler="train_dataset_size",
+                                          **extra),
+            train=TrainParams(batch_size=CNN_BATCH, local_steps=CNN_STEPS,
+                              optimizer="sgd", learning_rate=0.05),
+            eval=EvalConfig(batch_size=256, datasets=["test"],
+                            metrics=["loss", "accuracy"]),
+            termination=TerminationConfig(
+                federation_rounds=RULES_CNN_ROUNDS))
+        fed = InProcessFederation(cfg, device=DEVICE)
+        for i in range(FED_LEARNERS):
+            ops = TorchModelOps(FashionMnistCNN(), device=DEVICE,
+                                variables=template)
+            part = slice(i * CNN_EXAMPLES, (i + 1) * CNN_EXAMPLES)
+            fed.add_learner(ops, ArrayDataset(x[part], y[part],
+                                              seed=SEED + i),
+                            test_dataset=test)
+        fed.seed_model(template)
+        probe, stats = run_federation(fed)
+        ups, scales_r, steps_r = recorded_rounds(
+            probe, stats, RULES_CNN_ROUNDS, "train_dataset_size", CNN_STEPS)
+        replayed = replay_rule(rule, cnn_seed, ups, scales_r, steps_r)
+        same = all(same_bits(parse_blob(probe.communities[r]), replayed[r])
+                   for r in range(RULES_CNN_ROUNDS))
+        acc = _accuracies(stats)
+        smoke.check(stats["global_iteration"] >= RULES_CNN_ROUNDS and same
+                    and all(np.isfinite(acc)),
+                    f"rules cnn {rule}: {RULES_CNN_ROUNDS} rounds, each "
+                    "community equal bit for bit to the rule replayed over "
+                    f"the recorded uplinks; accuracy {acc}")
+        out["cnn"][rule] = {
+            "test_accuracy": acc,
+            "round_wall_s": [m["completed_at"] - m["started_at"]
+                             for m in stats["round_metadata"]
+                             [:RULES_CNN_ROUNDS]],
+            "aggregation_ms": [m["aggregation_duration_ms"]
+                               for m in stats["round_metadata"]
+                               [:RULES_CNN_ROUNDS]],
+            "aggregation_device_ms": [m["aggregation_device_ms"]
+                                      for m in stats["round_metadata"]
+                                      [:RULES_CNN_ROUNDS]]}
+        del fed, probe
+        empty_cache()
+
+    # (d) the multi-process CNN round, learner 1 on a non-local hostname
+    # through the ssh/scp shims
+    out["ssh"] = ssh_round(smoke)
+    out["gpu"] = gpu
+    print(json.dumps({"rules": out}), flush=True)
+    return out
+
+
+def ssh_round(smoke):
+    """One CNN round with a process per learner through DriverSession,
+    learner 1's endpoint ``SSH_HOST``: it is shipped its recipe and
+    launched through the ``ssh``/``scp`` shims (this machine has no second
+    host), and the shutdown must reach it at that hostname."""
+    for name in ("grpc", "cloudpickle"):
+        try:
+            __import__(name)
+        except ImportError:
+            smoke.failures.append(f"rules ssh: {name} missing")
+            return None
+    from metisfl_tpu_torch.comm import TrainParams
+    from metisfl_tpu_torch.config import EvalConfig
+    from metisfl_tpu_torch.models import TorchModelOps
+    from metisfl_tpu_torch.models.zoo import FashionMnistCNN
+
+    x, y = synthetic_image_classification(
+        FED_LEARNERS * CNN_EXAMPLES + CNN_TEST, noise=CNN_NOISE, seed=SEED)
+    shards = [(x[i * CNN_EXAMPLES:(i + 1) * CNN_EXAMPLES],
+               y[i * CNN_EXAMPLES:(i + 1) * CNN_EXAMPLES])
+              for i in range(FED_LEARNERS)]
+    test = (x[-CNN_TEST:], y[-CNN_TEST:])
+    template = TorchModelOps(FashionMnistCNN(), rng_seed=SEED,
+                             device="cpu").get_variables()
+    hosts = ["localhost"] * FED_LEARNERS
+    hosts[1] = SSH_HOST
+    bindir = os.path.join(MP_DIR, "ssh_shims")
+    calls = ssh_shims(bindir)
+    saved_path = os.environ["PATH"]
+    os.environ["PATH"] = bindir + os.pathsep + saved_path
+    print(f"rules ssh: learner 1 at {SSH_HOST} through ssh/scp shims in "
+          f"{bindir} that run here (no second host)", flush=True)
+    try:
+        stats, records, ids, workdir, final, walls = run_multiprocess(
+            smoke, "rules ssh cnn", "cnn", shards, test,
+            TrainParams(batch_size=CNN_BATCH, local_steps=CNN_STEPS,
+                        optimizer="sgd", learning_rate=0.05),
+            EvalConfig(batch_size=256, datasets=["test"],
+                       metrics=["loss", "accuracy"]),
+            1, template, hosts=hosts)
+        check_mp_folds(smoke, "rules ssh cnn", stats, ids, workdir,
+                       [len(s[0]) for s in shards], final, 1)
+        with open(calls) as f:
+            lines = f.read().splitlines()
+        with open(os.path.join(workdir, "learner_1.log")) as f:
+            shut = "learner ShutDown RPC received" in f.read()
+        remote = [ep for ep in walls["endpoints"]
+                  if ep["hostname"] == SSH_HOST]
+        launched = [line for line in lines if line.startswith(
+            f"ssh {SSH_HOST}") and "metisfl_tpu_torch.learner" in line]
+        shipped = [line for line in lines if line.startswith("scp")
+                   and "learner_1_recipe.pkl" in line]
+        smoke.check(len(remote) == 1 and len(launched) == 1
+                    and len(shipped) == 1 and shut,
+                    f"rules ssh: learner 1 registered at "
+                    f"{[ep['hostname'] for ep in remote]}, was shipped its "
+                    f"recipe ({len(shipped)} scp) and launched over ssh "
+                    f"({len(launched)}), and the ShutDown RPC reached it "
+                    f"({shut}); ran ssh/scp shims, not a remote host")
+        return {"shims": True, "host": SSH_HOST,
+                "endpoints": walls["endpoints"], "ssh_calls": len(lines),
+                "boot_s": walls["boot_s"], "rounds_s": walls["rounds_s"],
+                "shutdown_s": walls["shutdown_s"]}
+    finally:
+        os.environ["PATH"] = saved_path
+        shutil.rmtree(MP_DIR, ignore_errors=True)
+
+
 def _leaves(node):
     if isinstance(node, dict):
         for v in node.values():
@@ -2882,6 +3384,11 @@ def main() -> int:
     federated = smoke.phase("slice: synchronous FedAvg rounds through "
                             "InProcessFederation", federation_phase, smoke,
                             gpu)
+    torch.cuda.empty_cache()
+    ruled = smoke.phase(
+        "slice: the other aggregation rules (the robust ones on the card) "
+        "and a learner launched over ssh", rules_phase, smoke, gpu,
+        ((federated or {}).get("llama") or {}).get("round_wall_s"))
     # the phase's processes need the card's memory: this process keeps only
     # its CUDA context
     torch.cuda.empty_cache()
@@ -2903,20 +3410,25 @@ def main() -> int:
     serve_k1 = (sliced or {}).get("flash_launches", 0)
     # the store phase's counts, by wrapper name
     store_launches = ((stored or {}).get("llama") or {}).get("launches", {})
+    # the rules phase's median round
+    rules_launches = ((ruled or {}).get("median_llama") or {}).get(
+        "launches", {})
     rows = []
     if main_case is not None:
         by_path = {"serve": serve_k1,
                    "train": train_launches.get("flash_fwd", 0),
                    "federation": fed_launches.get("flash_fwd", 0),
                    "multiprocess": mp_launches.get("flash_fwd", 0),
-                   "store": store_launches.get("flash_attention_fwd", 0)}
+                   "store": store_launches.get("flash_attention_fwd", 0),
+                   "rules": rules_launches.get("flash_fwd", 0)}
         rows.append(("flash_fwd", "flash_fwd.cu", 76, main_case,
                      sum(by_path.values()), by_path))
     for record, line in zip(bwd_cases or [], (126, 162)):
         by_path = {"train": train_launches.get(record["name"], 0),
                    "federation": fed_launches.get(record["name"], 0),
                    "multiprocess": mp_launches.get(record["name"], 0),
-                   "store": store_launches.get(record["name"], 0)}
+                   "store": store_launches.get(record["name"], 0),
+                   "rules": rules_launches.get(record["name"], 0)}
         rows.append((record["name"], "flash_bwd.cu", line, record,
                      sum(by_path.values()), by_path))
     # the wide-heads path, a row per head dim and wrapper: its launches in

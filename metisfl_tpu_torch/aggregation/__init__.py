@@ -1,19 +1,64 @@
-"""Aggregation rules. The port has FedAvg; the JAX package's other rules
-(FedStride, FedRec, SCAFFOLD, FedNova, the server optimizers, the robust
-rules, secure aggregation) are not ported yet (ROADMAP.md Queue 1 item
-3c), and ``FederationConfig`` refuses them by name."""
+"""Aggregation rules: the JAX package's registry without ``scaffold``
+(ROADMAP.md Queue 1 item 3e) and ``secure_agg`` (3c), which
+``FederationConfig`` refuses by name.
+
+- :class:`FedAvg`: the weighted average, folded block by block;
+- :class:`FedStride`, :class:`FedRec`: the reference's rolling averages;
+- :class:`FedNova`: normalized averaging for uneven local step counts;
+- :class:`ServerOpt`: FedAvgM / FedAdam / FedYogi server optimizers;
+- :class:`CoordinateMedian`, :class:`TrimmedMean`, :class:`Krum`: the
+  byzantine-robust rules, which run on a device (``DEVICE_RULES``).
+"""
+
+import functools
 
 from metisfl_tpu_torch.aggregation.fedavg import FedAvg
+from metisfl_tpu_torch.aggregation.fednova import FedNova
+from metisfl_tpu_torch.aggregation.robust import (
+    CoordinateMedian,
+    Krum,
+    TrimmedMean,
+)
+from metisfl_tpu_torch.aggregation.rolling import FedRec, FedStride
+from metisfl_tpu_torch.aggregation.serveropt import ServerOpt
 
-AGGREGATION_RULES = {"fedavg": FedAvg}
+AGGREGATION_RULES = {
+    "fedavg": FedAvg,
+    "fedstride": FedStride,
+    "fedrec": FedRec,
+    "fednova": FedNova,
+    "fedavgm": functools.partial(ServerOpt, "fedavgm"),
+    "fedadam": functools.partial(ServerOpt, "fedadam"),
+    "fedyogi": functools.partial(ServerOpt, "fedyogi"),
+    "median": CoordinateMedian,
+    "trimmed_mean": TrimmedMean,
+    "krum": Krum,
+    "multikrum": functools.partial(Krum, name="multikrum"),
+}
+
+# the rules that combine on a device (their ``device`` argument)
+DEVICE_RULES = ("median", "trimmed_mean", "krum", "multikrum")
 
 
-def make_aggregation_rule(name: str, **kwargs) -> FedAvg:
+def make_aggregation_rule(name: str, **kwargs):
     try:
-        return AGGREGATION_RULES[name.lower()](**kwargs)
+        cls = AGGREGATION_RULES[name.lower()]
     except KeyError:
         raise ValueError(f"unknown aggregation rule {name!r}; have "
                          f"{sorted(AGGREGATION_RULES)}") from None
+    return cls(**kwargs)
 
 
-__all__ = ["FedAvg", "AGGREGATION_RULES", "make_aggregation_rule"]
+__all__ = [
+    "AGGREGATION_RULES",
+    "DEVICE_RULES",
+    "CoordinateMedian",
+    "FedAvg",
+    "FedNova",
+    "FedRec",
+    "FedStride",
+    "Krum",
+    "ServerOpt",
+    "TrimmedMean",
+    "make_aggregation_rule",
+]

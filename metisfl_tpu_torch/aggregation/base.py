@@ -18,6 +18,11 @@ first attempt logs which fold serves, and :func:`fold_backend` reports
 which one the last host fold ran. Trees of torch tensors fold where they
 live, with torch ops. A weighted sum is a memory-bound streaming op with
 no TPU kernel behind it, so no device kernel serves here.
+
+The per-contribution kernels ``scaled_init``/``scaled_add``/``scaled_sub``
+(and their host twins ``np_scaled_*``) serve the rolling rules (FedStride,
+FedRec): host trees fold in the JAX package's numpy ops and accumulator
+dtypes, so the same inputs in the same order give the same bits.
 """
 
 from __future__ import annotations
@@ -29,7 +34,12 @@ from typing import Any, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from metisfl_tpu_torch.tensor.pytree import tree_leaves, tree_map
+from metisfl_tpu_torch.tensor.pytree import (
+    as_tensor,
+    to_numpy,
+    tree_leaves,
+    tree_map,
+)
 
 logger = logging.getLogger("metisfl_tpu_torch.aggregation")
 
@@ -44,6 +54,28 @@ def is_host_tree(tree) -> bool:
     leaves = tree_leaves(tree)
     return bool(leaves) and all(isinstance(leaf, np.ndarray)
                                 for leaf in leaves)
+
+
+def host_array(x) -> np.ndarray:
+    """A leaf as a host numpy array (tensors copied off their device)."""
+    return to_numpy(x) if isinstance(x, torch.Tensor) else np.asarray(x)
+
+
+def np_dtype(leaf) -> np.dtype:
+    """A leaf's dtype as numpy names it (a tensor's without copying its
+    data off the device)."""
+    if isinstance(leaf, torch.Tensor):
+        return to_numpy(leaf.detach().reshape(-1)[:0]).dtype
+    return np.asarray(leaf).dtype
+
+
+def is_wide_tree(tree) -> bool:
+    """True when any leaf is 64-bit (f64, i64, u64): the trees the JAX
+    package reduces on the host in float64 under its default x32 mode
+    (its ``use_numpy_fold``), which the robust rules copy."""
+    return any((leaf.dtype in _TORCH_WIDE) if isinstance(leaf, torch.Tensor)
+               else (np.asarray(leaf).dtype in _WIDE)
+               for leaf in tree_leaves(tree))
 
 
 # -- host numpy fold ---------------------------------------------------------
@@ -144,9 +176,32 @@ def np_stacked_scaled_add(acc: Optional[Pytree], block: Sequence[Pytree],
     return out
 
 
-def np_finalize(acc: Pytree, z, dtypes: Tuple[str, ...]) -> Pytree:
-    """community = acc / z cast to the storage ``dtypes`` (leaf order);
-    integer leaves round half to even (``np.rint``)."""
+def np_scaled_init(model: Pytree, scale) -> Pytree:
+    """acc = scale · model in the accumulator dtype (host numpy)."""
+    return tree_map(
+        lambda x: np.asarray(x, _np_acc_dtype(np.asarray(x).dtype)) * scale,
+        model)
+
+
+def np_scaled_add(acc: Pytree, model: Pytree, scale) -> Pytree:
+    """acc + scale · model (host numpy)."""
+    return tree_map(lambda a, x: a + np.asarray(x, a.dtype) * scale,
+                    acc, model)
+
+
+def np_scaled_sub(acc: Pytree, model: Pytree, scale) -> Pytree:
+    """acc - scale · model (host numpy)."""
+    return tree_map(lambda a, x: a - np.asarray(x, a.dtype) * scale,
+                    acc, model)
+
+
+def np_finalize(acc: Pytree, z, dtypes: Optional[Tuple[str, ...]] = None,
+                like: Optional[Pytree] = None) -> Pytree:
+    """community = acc / z cast to the storage ``dtypes`` (leaf order), or
+    to the dtypes of ``like``'s leaves; integer leaves round half to even
+    (``np.rint``)."""
+    if dtypes is None:
+        dtypes = tuple(str(np_dtype(x)) for x in tree_leaves(like))
     it = iter(dtypes)
 
     def fin(a):
@@ -163,6 +218,28 @@ def np_finalize(acc: Pytree, z, dtypes: Tuple[str, ...]) -> Pytree:
 
 def _acc_dtype(dtype: torch.dtype) -> torch.dtype:
     return torch.float64 if dtype in _TORCH_WIDE else torch.float32
+
+
+def scaled_init(model: Pytree, scale) -> Pytree:
+    """acc = scale · model in the accumulator dtype, where the leaves
+    live."""
+    def init(x):
+        x = as_tensor(x)
+        return x.to(_acc_dtype(x.dtype)) * scale
+
+    return tree_map(init, model)
+
+
+def scaled_add(acc: Pytree, model: Pytree, scale) -> Pytree:
+    """acc + scale · model, where the leaves live."""
+    return tree_map(lambda a, x: a + as_tensor(x).to(a.dtype) * scale,
+                    acc, model)
+
+
+def scaled_sub(acc: Pytree, model: Pytree, scale) -> Pytree:
+    """acc - scale · model, where the leaves live."""
+    return tree_map(lambda a, x: a - as_tensor(x).to(a.dtype) * scale,
+                    acc, model)
 
 
 def stacked_scaled_add(acc: Optional[Pytree], block: Sequence[Pytree],
@@ -182,9 +259,13 @@ def stacked_scaled_add(acc: Optional[Pytree], block: Sequence[Pytree],
     return tree_map(fold, acc, *block)
 
 
-def finalize(acc: Pytree, z, dtypes: Tuple[torch.dtype, ...]) -> Pytree:
-    """community = acc / z cast to the storage ``dtypes``; integer leaves
-    round half to even (``torch.round``, like ``np.rint``)."""
+def finalize(acc: Pytree, z, dtypes: Optional[Tuple[torch.dtype, ...]] = None,
+             like: Optional[Pytree] = None) -> Pytree:
+    """community = acc / z cast to the storage ``dtypes``, or to the dtypes
+    of ``like``'s leaves; integer leaves round half to even
+    (``torch.round``, like ``np.rint``)."""
+    if dtypes is None:
+        dtypes = tuple(as_tensor(x).dtype for x in tree_leaves(like))
     it = iter(dtypes)
 
     def fin(a):

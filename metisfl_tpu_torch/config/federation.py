@@ -1,7 +1,9 @@
 """Federation and serving configuration: copies of the JAX package's
 dataclasses (``config/federation.py``) with the fields the port reads.
 
-``FederationConfig`` covers the synchronous FedAvg round over the
+``FederationConfig`` covers the synchronous round under FedAvg and the
+JAX package's other plaintext rules (FedStride, FedRec, FedNova, the
+server optimizers and the robust rules), over the
 in-memory, disk, cached-disk and remote stores (with parallel ingest),
 with the controller's endpoint, the learners' endpoints,
 the transport's settings and TLS for the multi-process federation. It
@@ -20,6 +22,7 @@ import typing
 from dataclasses import dataclass, field
 from typing import List
 
+from metisfl_tpu_torch.aggregation import AGGREGATION_RULES
 from metisfl_tpu_torch.comm.codec import dumps, loads
 from metisfl_tpu_torch.comm.messages import TrainParams
 from metisfl_tpu_torch.comm.ssl import SSLConfig
@@ -84,11 +87,25 @@ class TreeAggregationConfig:
 
 @dataclass
 class AggregationConfig:
-    rule: str = "fedavg"
+    rule: str = "fedavg"                     # fedavg | fedstride | fedrec |
+                                             # fednova | fedavgm | fedadam |
+                                             # fedyogi | median |
+                                             # trimmed_mean | krum |
+                                             # multikrum
+    # server-optimizer hyperparameters (fedavgm / fedadam / fedyogi only)
+    server_learning_rate: float = 1.0
+    server_beta1: float = 0.9
+    server_beta2: float = 0.99
+    server_tau: float = 1e-3
     scaler: str = "train_dataset_size"       # participants | train_dataset_size | batches
     stride_length: int = 0                   # 0 → all models in one block
     # how many learners train per round (1.0 = all)
     participation_ratio: float = 1.0
+    # byzantine-robust rules (aggregation/robust.py): tail fraction each
+    # side for trimmed_mean; assumed byzantine count for krum/multikrum
+    # (0 derives the largest tolerable (n-3)//2 from the cohort)
+    trim_ratio: float = 0.1
+    byzantine_f: int = 0
     streaming: bool = False
     tree: TreeAggregationConfig = field(default_factory=TreeAggregationConfig)
 
@@ -201,8 +218,14 @@ class FederationConfig:
             raise not_ported("secure aggregation", "3c")
         if agg.rule.lower() == "scaffold":
             raise not_ported("SCAFFOLD", "3e")
-        if agg.rule.lower() != "fedavg":
-            raise not_ported(f"aggregation rule {agg.rule!r}", "3c")
+        if agg.rule.lower() not in AGGREGATION_RULES:
+            raise ValueError(f"unknown aggregation rule {agg.rule!r}; have "
+                             f"{sorted(AGGREGATION_RULES)}")
+        if (agg.rule.lower() == "trimmed_mean"
+                and not 0.0 <= agg.trim_ratio < 0.5):
+            # the JAX package's TrimmedMean refuses it when the controller
+            # builds the rule; here before any process starts
+            raise ValueError("trim_ratio must be in [0, 0.5)")
         if agg.streaming:
             raise not_ported("aggregation.streaming", "3c")
         if agg.tree.enabled or agg.tree.distributed:

@@ -5,7 +5,9 @@ configuration arrives as one file, a codec-serialized ``FederationConfig``
 (``.bin``, what ``DriverSession`` writes) or YAML. The controller serves on
 ``--port`` (else the config's ``controller_port``; 0 binds an ephemeral
 port) and prints ``METISFL_TPU_CONTROLLER_READY port=<port>`` once it
-serves. SIGTERM, SIGINT or the ShutDown RPC stop it. The whole config
+serves. ``--device`` (default ``cuda``) is where the robust rules
+combine the cohort; a robust rule on ``cuda`` with no GPU refuses to
+start. SIGTERM, SIGINT or the ShutDown RPC stop it. The whole config
 reaches the controller, its ``model_store`` block included: the store
 (in memory, disk, cached disk, or a ``python -m
 metisfl_tpu_torch.store.server`` at ``host``:``port``) and the ingest
@@ -39,6 +41,9 @@ def main(argv=None) -> int:
     parser.add_argument("--port", type=int, default=None,
                         help="overrides the config's controller_port "
                              "(0 = an ephemeral port)")
+    parser.add_argument("--device", default="cuda",
+                        help="where the robust rules combine the cohort "
+                             "(cuda or cpu)")
     parser.add_argument("--resume", action="store_true",
                         help="not ported (ROADMAP.md Queue 1 item 3f)")
     parser.add_argument("--standby", action="store_true",
@@ -58,7 +63,7 @@ def main(argv=None) -> int:
         with open(args.config, "rb") as f:
             config = FederationConfig.from_wire(f.read())
     controller = Controller(config, lambda record: RpcLearnerProxy(
-        record, ssl=config.ssl, comm=config.comm))
+        record, ssl=config.ssl, comm=config.comm), device=args.device)
     server = ControllerServer(
         controller, host=args.host,
         port=config.controller_port if args.port is None else args.port,

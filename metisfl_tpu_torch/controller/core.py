@@ -1,13 +1,25 @@
-"""Federation controller: the synchronous FedAvg round.
+"""Federation controller: the synchronous round under every ported rule.
 
 The port's copy of the JAX package's ``controller/core.py``, trimmed to
-the synchronous FedAvg path: the learner registry (join, rejoin, leave),
-the train-task lifecycle, the model store (in memory, on disk, cached, or
-remote) with its parallel-ingest plane, stride-blocked FedAvg aggregation
-on the host, round metadata, community-model evaluation and re-dispatch.
-The controller does no device work: wire blobs are parsed into numpy and
-folded on the host (aggregation/base.py); a round's device work is its
-learners' training.
+the synchronous path: the learner registry (join, rejoin, leave), the
+train-task lifecycle, the model store (in memory, on disk, cached, or
+remote) with its parallel-ingest plane, aggregation, round metadata,
+community-model evaluation and re-dispatch.
+
+Aggregation dispatches as the JAX controller does, by the rule's kind:
+the fold rules (FedAvg, FedNova with each learner's ``completed_batches``
+as its local steps, and the server optimizers over the FedAvg fold) fold
+stride block by stride block on the host; the rolling rules (FedStride,
+reset every round, and FedRec, whose state lives across rounds) fold
+each block into their rolling state; the robust rules (median, trimmed
+mean, Krum, MultiKrum) take the whole cohort in one call. Wire blobs are
+parsed into numpy and every fold runs on the host (aggregation/base.py);
+the robust rules stack the cohort on the controller's ``device``
+(``cuda`` unless the caller asks for the CPU), combine it there and
+bring the community model back (aggregation/robust.py). Rules with state
+across rounds (FedNova, the server optimizers) start from the seeded
+community model and commit a round's step only once its community model
+is installed, so an aggregation-failure retry does not step twice.
 
 Parallel ingest (``model_store.ingest_workers > 0``, store/ingest.py):
 a completion enqueues its model and returns; the writer pool persists it
@@ -26,8 +38,9 @@ still go out.
 Not ported yet (ROADMAP.md Queue 1 items 3c-3g and 4): the round-state WAL,
 checkpoints and the hot standby, deadlines, quorum and dispatch retries,
 churn scoring and quarantine, the registry, the streaming and tree tiers,
-secure aggregation, SCAFFOLD, int8q/top-k uplinks, ``describe`` and every
-telemetry plane. The config (config/federation.py) refuses them.
+secure aggregation, SCAFFOLD, int8q/top-k uplinks, the health plane's
+advisory scores, ``describe`` and every telemetry plane. The config
+(config/federation.py) refuses them.
 """
 
 from __future__ import annotations
@@ -48,8 +61,9 @@ from functools import partial
 from typing import (Any, Callable, Dict, List, Optional, Protocol, Sequence)
 
 import numpy as np
+import torch
 
-from metisfl_tpu_torch.aggregation import make_aggregation_rule
+from metisfl_tpu_torch.aggregation import DEVICE_RULES, make_aggregation_rule
 from metisfl_tpu_torch.comm.messages import (
     EvalResult,
     EvalTask,
@@ -128,6 +142,9 @@ class RoundMetadata:
     aggregation_block_duration_ms: List[float] = field(default_factory=list)
     # select + fold + community blob encode
     aggregation_duration_ms: float = 0.0
+    # the robust rules: where they combined, and their H2D, combine and
+    # D2H times (aggregation/robust.py ``last_timing``)
+    aggregation_device_ms: Dict[str, Any] = field(default_factory=dict)
     # of which the community blob encode
     community_pack_duration_ms: float = 0.0
     dispatch_duration_ms: float = 0.0
@@ -162,7 +179,8 @@ class Controller:
     _MAX_AGG_FAILURES = 10
 
     def __init__(self, config: FederationConfig,
-                 proxy_factory: Callable[[LearnerRecord], LearnerProxy]):
+                 proxy_factory: Callable[[LearnerRecord], LearnerProxy],
+                 device: str = "cuda"):
         self.config = config
         self._proxy_factory = proxy_factory
         self._lock = threading.RLock()
@@ -172,7 +190,8 @@ class Controller:
         self.controller_epoch = uuid.uuid4().hex
 
         agg = config.aggregation
-        self._aggregator = make_aggregation_rule(agg.rule)
+        self.device = torch.device(device)
+        self._aggregator = self._make_rule(config)
         self._scaler = make_scaler(agg.scaler)
         self._selector = make_selector("scheduled_cardinality")
         self._scheduler = make_scheduler(config.protocol)
@@ -211,6 +230,29 @@ class Controller:
                                         thread_name_prefix="ctrl-sched")
         self._shutdown = threading.Event()
         self._agg_failures = 0
+
+    def _make_rule(self, config: FederationConfig):
+        """The configured rule with its hyperparameters; the robust rules
+        run on the controller's device, which must exist."""
+        agg = config.aggregation
+        rule = agg.rule.lower()
+        kwargs: Dict[str, Any] = {}
+        if rule in ("fedavgm", "fedadam", "fedyogi"):
+            kwargs = dict(learning_rate=agg.server_learning_rate,
+                          beta1=agg.server_beta1, beta2=agg.server_beta2,
+                          tau=agg.server_tau)
+        elif rule == "trimmed_mean":
+            kwargs = dict(trim_ratio=agg.trim_ratio)
+        elif rule in ("krum", "multikrum"):
+            kwargs = dict(byzantine_f=agg.byzantine_f)
+        if rule in DEVICE_RULES:
+            if self.device.type == "cuda" and not torch.cuda.is_available():
+                raise RuntimeError(
+                    f"the {rule} rule combines on the controller's device "
+                    f"{self.device}, and no CUDA device is available; pass "
+                    "device='cpu' (--device cpu) to combine on the CPU")
+            kwargs["device"] = self.device
+        return make_aggregation_rule(rule, **kwargs)
 
     # ------------------------------------------------------------------ #
     # lifecycle
@@ -329,6 +371,11 @@ class Controller:
                 "metisfl_tpu_torch yet (ROADMAP.md Queue 1 item 3c)")
         with self._lock:
             self._community_blob = bytes(blob_bytes)
+            if blob.tensors and hasattr(self._aggregator, "seed_community"):
+                # FedNova and the server optimizers step from the seeded
+                # model (a replacement mid-run re-anchors them)
+                self._aggregator.seed_community(
+                    {name: to_numpy(t) for name, t in blob.tensors})
 
     def community_model_bytes(self) -> Optional[bytes]:
         with self._lock:
@@ -521,9 +568,10 @@ class Controller:
             }
 
     def _compute_community_model(self, selected: Sequence[str]) -> None:
-        """Stride-blocked FedAvg over the store: only one block of
-        ``stride_length`` models (plus the accumulator) is resident at a
-        time."""
+        """Aggregate the selected cohort from the store by the rule's kind
+        (module docstring); the store is read one block of
+        ``stride_length`` models at a time, and the fold rules keep only
+        that block (plus their accumulator) resident."""
         t0 = time.perf_counter()
         drain_ms = 0.0
         if self._ingest is not None:
@@ -535,33 +583,77 @@ class Controller:
                 raise RuntimeError("ingest drain fence timed out; store "
                                    "lineage would be torn")
             drain_ms = (time.perf_counter() - t0) * 1e3
-        lineage_k = self._aggregator.required_lineage
+        agg = self._aggregator
+        lineage_k = agg.required_lineage
         stride = self.config.aggregation.stride_length or len(selected) or 1
         metadata = self._scaling_metadata(selected)
         scales = self._scaler(metadata)
         ids = [lid for lid in selected if lid in scales]
         block_sizes: List[int] = []
         block_ms: List[float] = []
-        self._aggregator.reset()
-        accumulated = 0
         select_ms = 0.0
-        for i in range(0, len(ids), stride):
-            b0 = time.perf_counter()
-            block = ids[i: i + stride]
-            picked = self._store.select(block, k=lineage_k)
-            select_ms += (time.perf_counter() - b0) * 1e3
-            pairs = [(picked[lid], scales[lid]) for lid in block
-                     if lid in picked]
+
+        def blocks():
+            """(block ids, present ids, their (lineage, scale) pairs) per
+            stride block, each block's select and handling timed."""
+            nonlocal select_ms
+            for i in range(0, len(ids), stride):
+                b0 = time.perf_counter()
+                block = ids[i: i + stride]
+                picked = self._store.select(block, k=lineage_k)
+                select_ms += (time.perf_counter() - b0) * 1e3
+                present = [lid for lid in block if lid in picked]
+                yield block, present, [(picked[lid], scales[lid])
+                                       for lid in present]
+                block_sizes.append(len(block))
+                block_ms.append((time.perf_counter() - b0) * 1e3)
+
+        # FedStride's state is one round's; FedRec's lives across rounds
+        if agg.name == "fedstride":
+            agg.reset()
+        community = None
+        device_ms: Dict[str, Any] = {}
+        if getattr(agg, "requires_full_cohort", False):
+            # robust rules: a median cannot fold stride-wise; every
+            # selected model enters one combine
+            pairs, present_ids = [], []
+            for _, present, block_pairs in blocks():
+                pairs += block_pairs
+                present_ids += present
             if pairs:
-                self._aggregator.accumulate(pairs)
+                community = agg.aggregate(pairs, learner_ids=present_ids)
+                device_ms = dict(agg.last_timing)
+        elif hasattr(agg, "accumulate"):
+            # fold rules: FedAvg, FedNova, and the server optimizers over
+            # the FedAvg fold (their step runs once, inside result())
+            agg.reset()
+            accumulated = 0
+            needs_steps = getattr(agg, "needs_local_steps", False)
+            for _, present, pairs in blocks():
+                if not pairs:
+                    continue
+                if needs_steps:
+                    # fednova: each learner's completed local steps (one
+                    # optimizer step per batch)
+                    steps = [max(1.0, float(metadata.get(lid, {}).get(
+                        "completed_batches", 0.0)) or 1.0)
+                        for lid in present]
+                    agg.accumulate(pairs, steps=steps)
+                else:
+                    agg.accumulate(pairs)
                 accumulated += len(pairs)
-            block_sizes.append(len(block))
-            block_ms.append((time.perf_counter() - b0) * 1e3)
-        if not accumulated:
+            if accumulated:
+                community = agg.result()
+            agg.reset()
+        else:
+            # rolling rules (fedstride / fedrec): each block updates the
+            # rolling state, whose community model the last block returns
+            for _, present, pairs in blocks():
+                if pairs:
+                    community = agg.aggregate(pairs, learner_ids=present)
+        if community is None:
             logger.warning("no stored models for cohort %s", list(selected))
             return
-        community = self._aggregator.result()
-        self._aggregator.reset()
         p0 = time.perf_counter()
         blob = self._community_to_blob(community)
         pack_ms = (time.perf_counter() - p0) * 1e3
@@ -573,6 +665,9 @@ class Controller:
                 sizes[key] += q[key]
         with self._lock:
             self._community_blob = blob
+            # the stateful rules' step of this round counts from here on
+            if hasattr(agg, "commit"):
+                agg.commit()
             meta = self._current_meta
             meta.selected_learners = list(selected)
             meta.scales = {lid: round(float(w), 6)
@@ -580,6 +675,7 @@ class Controller:
             meta.aggregation_block_sizes = block_sizes
             meta.aggregation_block_duration_ms = block_ms
             meta.aggregation_duration_ms = agg_ms
+            meta.aggregation_device_ms = device_ms
             meta.community_pack_duration_ms = pack_ms
             meta.ingest_drain_duration_ms = drain_ms
             meta.store_select_duration_ms = select_ms

@@ -4,7 +4,8 @@ The port's copy of the JAX package's ``driver/inprocess.py``: real
 training and real aggregation over direct-call proxies, with every model
 round-tripped through the ModelBlob wire bytes as a remote federation
 would. Each learner's engine runs on the device its caller chose
-(``TorchModelOps(..., device="cuda")`` by default).
+(``TorchModelOps(..., device="cuda")`` by default); ``device`` (``cuda``
+by default) is the controller's, where the robust rules combine.
 """
 
 from __future__ import annotations
@@ -57,7 +58,7 @@ class _DirectLearnerProxy:
 class InProcessFederation:
     """Wire a controller and learners with direct proxies and run rounds."""
 
-    def __init__(self, config: FederationConfig):
+    def __init__(self, config: FederationConfig, device: str = "cuda"):
         term = config.termination
         if term.execution_cutoff_mins > 0 or term.metric_cutoff_score > 0:
             raise NotImplementedError(
@@ -67,7 +68,8 @@ class InProcessFederation:
         self.config = config
         self._learners_by_port: Dict[int, Learner] = {}
         self._proxies: List[_DirectLearnerProxy] = []
-        self.controller = Controller(config, self._make_proxy)
+        self.controller = Controller(config, self._make_proxy,
+                                     device=device)
         self.learners: List[Learner] = []
 
     def _make_proxy(self, record: LearnerRecord) -> LearnerProxy:

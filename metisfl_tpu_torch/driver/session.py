@@ -1,24 +1,37 @@
 """DriverSession: a multi-process federation run from the user's script.
 
 The port's copy of the JAX package's ``driver/session.py``, cut down to
-the synchronous FedAvg federation on localhost processes: it writes the
-config, boots the controller (``python -m metisfl_tpu_torch.controller``),
-waits for it to answer, ships the seed model, launches one learner process
-per recipe (``python -m metisfl_tpu_torch.learner``), watches the three
-termination criteria (rounds, wall clock, a community metric), collects
-the statistics and shuts every process down. Models and data travel as
-one cloudpickled recipe per learner and one ModelBlob; the statistics land
-in ``experiment.json``.
+the synchronous federation: it writes the config, boots the controller
+(``python -m metisfl_tpu_torch.controller``), waits for it to answer,
+ships the seed model, launches one learner process per recipe (``python
+-m metisfl_tpu_torch.learner``), watches the three termination criteria
+(rounds, wall clock, a community metric), collects the statistics and
+shuts every process down. Models and data travel as one cloudpickled
+recipe per learner and one ModelBlob; the statistics land in
+``experiment.json``.
+
+Each process runs where its endpoint says: ``""``, ``localhost`` and
+``127.0.0.1`` as a local subprocess (:class:`LocalLauncher`), any other
+host over ``ssh`` (:class:`SSHLauncher`, the reference's fabric bootstrap),
+after ``scp`` has copied its files (the config, the learner's recipe,
+the TLS pair) to the same absolute paths there. The remote host is
+assumed to hold the repo at the same path (``PYTHONPATH`` names the local
+package root) and an interpreter named by the launcher's ``python``. A
+process's output comes back through the local ``ssh`` client into
+``<workdir>/<name>.log``, which is where the controller's ephemeral port
+is read. At shutdown every learner is dialled at the endpoint it
+registered with the controller (or its configured host and logged port),
+and one that does not serve yet is stopped where it runs (over ssh for a
+remote one), never by signalling the local ``ssh`` client alone.
 
 The port's controller dispatches no train task after
 ``termination.federation_rounds`` rounds, so the rounds criterion ends an
 idle federation; the two cutoffs end one mid-round.
 
 Not ported, and raising ``NotImplementedError`` with the ROADMAP.md Queue 1
-item: :class:`SSHLauncher` (remote hosts, 3h), ``resume`` and the
-controller's supervision and hot standby (3f), secure-aggregation key
-material (3c, refused by the config), serving (5), and trace and
-post-mortem collection (4).
+item: ``resume`` and the controller's supervision and hot standby (3f),
+secure-aggregation key material (3c, refused by the config), serving (5),
+and trace and post-mortem collection (4).
 """
 
 from __future__ import annotations
@@ -27,6 +40,7 @@ import json
 import logging
 import os
 import re
+import shlex
 import subprocess
 import sys
 import tempfile
@@ -57,6 +71,8 @@ class _Proc:
     name: str
     process: subprocess.Popen
     log_path: str
+    # what launched it (stops it where it runs)
+    launcher: Any = None
 
 
 def _terminate_process(process: subprocess.Popen,
@@ -94,24 +110,105 @@ class LocalLauncher:
             process = subprocess.Popen(
                 list(argv), stdout=log, stderr=subprocess.STDOUT,
                 env={**os.environ, **env})
-        return _Proc(name, process, log_path)
+        return _Proc(name, process, log_path, self)
+
+    def stop(self, proc: _Proc) -> None:
+        """Ask the process to exit (SIGTERM)."""
+        if proc.process.poll() is None:
+            proc.process.terminate()
 
 
 class SSHLauncher:
-    """Launching on remote hosts over ssh is not ported."""
+    """Launch federation processes on a remote host over ``ssh`` (the
+    reference's fabric path, driver_session.py:506-582). The repo and the
+    interpreter ``python`` must exist at the same paths on the host;
+    :meth:`ship` copies files to it. ``ssh_options`` go to every ``ssh``
+    (and, translated, ``scp``) call."""
 
-    def __init__(self, *args, **kwargs):
-        raise not_ported("SSHLauncher (learners on remote hosts)", "3h")
+    def __init__(self, host: str, workdir: str, python: str = "python3",
+                 ssh_options: Sequence[str] = ()):
+        self.host = host
+        self.workdir = workdir
+        self.python = python
+        self.ssh_options = list(ssh_options)
+
+    def command(self, argv: Sequence[str], env: Dict[str, str]) -> List[str]:
+        """``ssh [options] host 'K=V ... argv'``."""
+        env_prefix = " ".join(f"{k}={shlex.quote(v)}" for k, v in env.items())
+        remote_cmd = (f"{env_prefix} "
+                      f"{' '.join(shlex.quote(a) for a in argv)}").strip()
+        return ["ssh", *self.ssh_options, self.host, remote_cmd]
+
+    def _scp_options(self) -> List[str]:
+        """``ssh_options`` translated for scp: the same flags but the port
+        (``ssh -p`` is ``scp -P``; to scp, ``-p`` preserves times and the
+        port number would parse as a stray source operand)."""
+        out: List[str] = []
+        it = iter(self.ssh_options)
+        for opt in it:
+            if opt == "-p":
+                out += ["-P", next(it, "")]
+            else:
+                out.append(opt)
+        return out
+
+    def ship_commands(self, paths: Sequence[str]) -> List[List[str]]:
+        """Commands that copy local files to the same absolute paths on
+        the host: one ``mkdir -p`` over ssh for their directories, then one
+        ``scp`` per file."""
+        dirs = sorted({os.path.dirname(os.path.abspath(p)) for p in paths})
+        mkdir = " && ".join(f"mkdir -p {shlex.quote(d)}" for d in dirs)
+        cmds: List[List[str]] = [["ssh", *self.ssh_options, self.host, mkdir]]
+        scp_opts = self._scp_options()
+        for p in paths:
+            p = os.path.abspath(p)
+            cmds.append(["scp", "-q", *scp_opts, p, f"{self.host}:{p}"])
+        return cmds
+
+    def ship(self, paths: Sequence[str]) -> None:
+        for cmd in self.ship_commands(paths):
+            subprocess.run(cmd, check=True)
+
+    def _pid_path(self, name: str) -> str:
+        return os.path.join(self.workdir, f"{name}.pid")
+
+    def launch(self, name: str, argv: Sequence[str],
+               env: Dict[str, str]) -> _Proc:
+        """Run ``argv`` on the host; its output streams back through the
+        local ssh client into ``<workdir>/<name>.log``. The remote shell
+        records its pid in ``<workdir>/<name>.pid`` there and execs the
+        process, so :meth:`stop` can signal it where it runs."""
+        log_path = os.path.join(self.workdir, f"{name}.log")
+        words = [f"{k}={shlex.quote(v)}" for k, v in env.items()]
+        words += [shlex.quote(a) for a in argv]
+        remote = (f"echo $$ > {shlex.quote(self._pid_path(name))} && "
+                  f"exec env {' '.join(words)}")
+        with open(log_path, "w") as log:
+            process = subprocess.Popen(
+                ["ssh", *self.ssh_options, self.host, remote], stdout=log,
+                stderr=subprocess.STDOUT)
+        return _Proc(name, process, log_path, self)
+
+    def stop(self, proc: _Proc) -> None:
+        """SIGTERM the process on the host (signalling the local ssh client
+        would leave it running there)."""
+        pid = shlex.quote(self._pid_path(proc.name))
+        subprocess.run(
+            ["ssh", *self.ssh_options, self.host,
+             f"test -f {pid} && kill -TERM \"$(cat {pid})\""],
+            check=False, timeout=30, stdout=subprocess.DEVNULL,
+            stderr=subprocess.DEVNULL)
 
 
 class DriverSession:
-    """Run a multi-process federation on localhost.
+    """Run a multi-process federation on its endpoints' hosts.
 
     ``learner_recipes``: one zero-argument callable per learner returning
     ``(model_ops, train_ds, val_ds, test_ds)``, run inside the learner's
     process. ``device`` is where every learner's engine must run
     (``cuda`` unless the caller says otherwise; a learner whose recipe
-    built its engine elsewhere refuses to start)."""
+    built its engine elsewhere refuses to start) and where the controller
+    runs the robust rules."""
 
     _LOCAL_HOSTS = ("", "localhost", "127.0.0.1")
 
@@ -135,7 +232,7 @@ class DriverSession:
         os.makedirs(self.workdir, exist_ok=True)
         self.learner_env = learner_env or {}
         self.device = device
-        self._launcher = LocalLauncher(self.workdir)
+        self._local_launcher = LocalLauncher(self.workdir)
         self._procs: List[_Proc] = []
         self._client: Optional[ControllerClient] = None
         self._config_path = ""
@@ -145,10 +242,18 @@ class DriverSession:
     # bootstrap
     # ------------------------------------------------------------------ #
 
-    def _check_local(self, hostname: str, what: str) -> None:
-        if hostname not in self._LOCAL_HOSTS:
-            raise not_ported(f"{what} on remote host {hostname!r} "
-                             "(SSHLauncher)", "3h")
+    def _launcher_for(self, hostname: str):
+        """The local launcher for ``""``, ``localhost`` and ``127.0.0.1``,
+        ssh for any other host."""
+        if hostname in self._LOCAL_HOSTS:
+            return self._local_launcher
+        return SSHLauncher(hostname, self.workdir)
+
+    def _ssl_files(self) -> List[str]:
+        if not self.config.ssl.enabled:
+            return []
+        return [p for p in (self.config.ssl.cert_path,
+                            self.config.ssl.key_path) if p]
 
     def _endpoint(self, idx: int) -> LearnerEndpoint:
         if idx < len(self.config.learners):
@@ -169,9 +274,6 @@ class DriverSession:
         """Boot the controller, wait until it answers, ship the seed model,
         then launch the learners."""
         ctrl_host = self.config.controller_host or "localhost"
-        self._check_local(ctrl_host, "the controller")
-        for idx in range(len(self.learner_recipes)):
-            self._check_local(self._endpoint(idx).hostname, "a learner")
         if self.config.ssl.enabled and not self.config.ssl.cert_path:
             # the federation's self-signed pair, made on first boot
             from metisfl_tpu_torch.comm.ssl import generate_self_signed
@@ -185,10 +287,11 @@ class DriverSession:
         with open(self._config_path, "wb") as f:
             f.write(self.config.to_wire())
 
-        proc = self._launch("controller", [
+        proc = self._launch("controller", ctrl_host, [
             "-m", "metisfl_tpu_torch.controller",
             "--config", self._config_path,
-            "--port", str(self.config.controller_port)])
+            "--port", str(self.config.controller_port),
+            "--device", self.device], ship=[self._config_path])
         deadline = time.time() + health_retries * health_sleep_s
         if not self.config.controller_port:
             # an ephemeral port: the controller prints the one it bound
@@ -204,13 +307,19 @@ class DriverSession:
             self.launch_learner(idx)
         self._started_at = time.time()
 
-    def _launch(self, name: str, args: Sequence[str],
-                env: Optional[Dict[str, str]] = None) -> _Proc:
+    def _launch(self, name: str, host: str, args: Sequence[str],
+                env: Optional[Dict[str, str]] = None,
+                ship: Sequence[str] = ()) -> _Proc:
+        """Start ``python args`` on ``host`` with the launcher's own
+        interpreter; over ssh, ``ship`` and the TLS files are copied there
+        first."""
+        launcher = self._launcher_for(host)
+        if isinstance(launcher, SSHLauncher):
+            launcher.ship([*ship, *self._ssl_files()])
         env = {**self._base_env(), **(env or {})}
         # a relaunch replaces the tracked process of the same name
         self._procs = [p for p in self._procs if p.name != name]
-        proc = self._launcher.launch(name, [self._launcher.python, *args],
-                                     env)
+        proc = launcher.launch(name, [launcher.python, *args], env)
         self._procs.append(proc)
         return proc
 
@@ -245,13 +354,14 @@ class DriverSession:
         itself."""
         ep = self._endpoint(idx)
         name = f"learner_{idx}"
+        recipe_path = self._recipe_path(idx)
         args = ["-m", "metisfl_tpu_torch.learner",
                 "--controller-host",
                 self.config.controller_host or "localhost",
                 "--controller-port", str(self.config.controller_port),
                 "--advertise-host", ep.hostname or "localhost",
                 "--port", str(ep.port),
-                "--recipe", self._recipe_path(idx),
+                "--recipe", recipe_path,
                 "--device", self.device,
                 "--rpc-deadline-s", str(self.config.comm.default_deadline_s),
                 "--credentials-dir",
@@ -259,7 +369,8 @@ class DriverSession:
         if self.config.ssl.enabled:
             args += ["--ssl-cert", self.config.ssl.cert_path,
                      "--ssl-key", self.config.ssl.key_path]
-        return self._launch(name, args, self.learner_env)
+        return self._launch(name, ep.hostname or "localhost", args,
+                            self.learner_env, ship=[recipe_path])
 
     def _wait_healthy(self, deadline: float, sleep_s: float) -> None:
         last_exc: Optional[Exception] = None
@@ -384,37 +495,63 @@ class DriverSession:
     def collect_traces(self, dest: Optional[str] = None):
         raise not_ported("trace and post-mortem collection", "4")
 
+    @staticmethod
+    def _stop(proc: _Proc) -> None:
+        """Ask a process to exit where it runs (never raising)."""
+        try:
+            proc.launcher.stop(proc)
+        except Exception:  # noqa: BLE001 - the local process is killed next
+            logger.warning("stopping %s where it runs failed", proc.name)
+
     def _wait(self, procs: Sequence[_Proc], deadline: float) -> None:
         for proc in procs:
             try:
                 proc.process.wait(timeout=max(0.5, deadline - time.time()))
             except subprocess.TimeoutExpired:
                 logger.warning("%s did not exit; terminating it", proc.name)
+                self._stop(proc)
                 _terminate_process(proc.process)
+
+    def _shut_down_learner(self, hostname: str, port: int) -> None:
+        client = RpcClient(hostname, port, LEARNER_SERVICE, retries=0,
+                           ssl=self.config.ssl)
+        try:
+            client.call("ShutDown", b"", timeout=5.0, wait_ready=False)
+        except Exception:  # noqa: BLE001 - the learner may be gone
+            pass
+        finally:
+            client.close()
 
     def shutdown_federation(self, timeout_s: float = 30.0) -> None:
         """Stop every learner, and once they have exited (each leaves the
         federation on the way out), the controller; a process still
-        running after ``timeout_s`` is terminated. A learner that serves
-        (its log names its port, joined or not) gets the ShutDown RPC; one
-        still starting gets SIGTERM, which it answers by exiting."""
+        running after ``timeout_s`` is stopped where it runs and its local
+        process terminated. Learners get the ShutDown RPC at the endpoints
+        they registered with the controller and at their configured host
+        and logged port (a learner that serves but has not joined); one
+        still starting is stopped by its launcher (SIGTERM, over ssh for a
+        remote one), which it answers by exiting."""
         deadline = time.time() + timeout_s
         learners = [p for p in self._procs if p.name != "controller"]
+        dialled = set()
+        if self._client is not None:
+            try:
+                dialled = {(ep["hostname"], int(ep["port"]))
+                           for ep in self._client.list_learners(timeout=5.0)}
+            except Exception:  # noqa: BLE001 - the controller is gone
+                pass
+        for hostname, port in sorted(dialled):
+            self._shut_down_learner(hostname, port)
         for proc in learners:
             if proc.process.poll() is not None:
                 continue
+            idx = int(proc.name.rsplit("_", 1)[1])
+            host = self._endpoint(idx).hostname or "localhost"
             port = self._logged_port(proc, _LEARNER_READY)
             if port is None:
-                proc.process.terminate()
-                continue
-            client = RpcClient("localhost", port, LEARNER_SERVICE,
-                               retries=0, ssl=self.config.ssl)
-            try:
-                client.call("ShutDown", b"", timeout=5.0, wait_ready=False)
-            except Exception:  # noqa: BLE001 - the learner may be gone
-                pass
-            finally:
-                client.close()
+                self._stop(proc)
+            elif (host, port) not in dialled:
+                self._shut_down_learner(host, port)
         self._wait(learners, deadline)
         if self._client is not None:
             try:

@@ -18,6 +18,7 @@ from __future__ import annotations
 
 import os
 import struct
+import warnings
 import zlib
 from dataclasses import dataclass, field
 from typing import Dict, Iterator, List, Tuple
@@ -73,16 +74,19 @@ _NP_BITCAST = {"bfloat16": (np.uint16, torch.bfloat16),
                "float8_e5m2": (np.uint8, getattr(torch, "float8_e5m2", None))}
 
 
-def as_tensor(x) -> torch.Tensor:
+def as_tensor(x, read_only: bool = False) -> torch.Tensor:
     """A leaf as a torch tensor: tensors pass through; numpy arrays (and
     anything ``np.asarray`` takes) convert without changing their bits,
-    bf16/fp8 from ml_dtypes included."""
+    bf16/fp8 from ml_dtypes included. A read-only array is copied, since
+    torch tensors are writable, unless ``read_only`` is set: then the
+    tensor views it, and the caller must only read it (a copy to the
+    device, for one)."""
     if isinstance(x, torch.Tensor):
         return x
     arr = np.asarray(x)
     if arr.dtype.byteorder == ">":  # the wire is little-endian (spec.py)
         arr = arr.astype(arr.dtype.newbyteorder("="))
-    if not arr.flags.writeable:  # torch tensors are always writable
+    if not arr.flags.writeable and not read_only:
         arr = arr.copy()
     # reshape: ascontiguousarray promotes a 0-d array to 1-d
     contig = np.ascontiguousarray(arr).reshape(arr.shape)
@@ -91,8 +95,12 @@ def as_tensor(x) -> torch.Tensor:
         int_dtype, torch_dtype = bitcast
         if torch_dtype is None:
             raise TypeError(f"this torch has no {arr.dtype.name} dtype")
-        return torch.from_numpy(contig.view(int_dtype)).view(torch_dtype)
-    return torch.from_numpy(contig)
+        contig = contig.view(int_dtype)
+    with warnings.catch_warnings():
+        # a read_only view: torch warns that its memory is not writable
+        warnings.simplefilter("ignore", UserWarning)
+        tensor = torch.from_numpy(contig)
+    return tensor if bitcast is None else tensor.view(torch_dtype)
 
 
 def to_numpy(t: torch.Tensor) -> np.ndarray:
@@ -389,6 +397,18 @@ def tree_leaves(tree) -> list:
     """The leaves of a nested dict/list/tuple tree in JAX's flattening
     order (dict keys sorted); leaves stay as they are (numpy or torch)."""
     return [leaf for _, leaf in _flatten(tree)]
+
+
+def tree_paths(tree) -> list:
+    """The key paths of a tree's leaves in flattening order: two trees
+    with equal paths have the same structure."""
+    return [path for path, _ in _flatten(tree)]
+
+
+def tree_unflatten(like, leaves):
+    """``leaves`` (in flattening order) in the structure of ``like``."""
+    it = iter(leaves)
+    return tree_map(lambda _: next(it), like)
 
 
 def tree_map(fn, tree, *rest):

@@ -1,0 +1,233 @@
+"""The SSH launcher of the port's DriverSession, mirroring
+tests/test_deploy.py: the ssh command's shape, the launcher picked per
+endpoint, the scp commands with ssh's ``-p`` as ``-P``, and launches
+through ``ssh``/``scp`` shims on ``PATH`` that run locally (there is no
+second host here). Then a 2-learner MLP round on the CPU in which one
+learner's endpoint is ``127.0.0.2``, a non-local name for this machine:
+its recipe is shipped, it launches through the shims, the round
+completes, every process exits 0, and the ShutDown RPC reaches it at
+that hostname. Every subprocess wait is bounded (60 s, and the
+federation's own 120 s wall-clock cutoff).
+"""
+
+import os
+import stat
+import subprocess
+import sys
+import time
+
+import numpy as np
+
+from metisfl_tpu_torch.comm import TrainParams
+from metisfl_tpu_torch.config import (
+    EvalConfig,
+    FederationConfig,
+    LearnerEndpoint,
+    TerminationConfig,
+)
+from metisfl_tpu_torch.driver.session import (
+    DriverSession,
+    LocalLauncher,
+    SSHLauncher,
+)
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+REMOTE = "127.0.0.2"
+
+
+def test_ssh_command_shape():
+    launcher = SSHLauncher("worker1", "/tmp/w", python="python3",
+                           ssh_options=["-o", "BatchMode=yes"])
+    cmd = launcher.command(
+        ["python3", "-m", "metisfl_tpu_torch.learner", "--port", "0"],
+        {"PYTHONPATH": "/srv/repo"})
+    assert cmd[:4] == ["ssh", "-o", "BatchMode=yes", "worker1"]
+    assert cmd[4].startswith("PYTHONPATH=/srv/repo ")
+    assert "python3 -m metisfl_tpu_torch.learner --port 0" in cmd[4]
+
+
+def test_launcher_selected_per_endpoint(tmp_path):
+    cfg = FederationConfig(learners=[
+        LearnerEndpoint(hostname="localhost"),
+        LearnerEndpoint(hostname="10.0.0.5"),
+    ])
+    session = DriverSession(
+        cfg, {"params": {"w": np.zeros(2, np.float32)}},
+        [lambda: None, lambda: None], workdir=str(tmp_path), device="cpu")
+    for host in ("localhost", "", "127.0.0.1"):
+        assert isinstance(session._launcher_for(host), LocalLauncher)
+    remote = session._launcher_for("10.0.0.5")
+    assert isinstance(remote, SSHLauncher)
+    assert remote.host == "10.0.0.5" and remote.workdir == str(tmp_path)
+
+
+def test_ssh_ship_commands_same_absolute_paths(tmp_path):
+    launcher = SSHLauncher("worker1", "/tmp/w", ssh_options=["-p", "2222"])
+    recipe = str(tmp_path / "r.pkl")
+    cert = str(tmp_path / "tls" / "cert.pem")
+    cmds = launcher.ship_commands([recipe, cert])
+    # one mkdir over ssh covering both parent dirs, then one scp per file;
+    # the ssh port flag -p must translate to scp's -P
+    assert cmds[0][:4] == ["ssh", "-p", "2222", "worker1"]
+    assert f"mkdir -p {tmp_path}" in cmds[0][4]
+    assert f"mkdir -p {tmp_path / 'tls'}" in cmds[0][4]
+    assert cmds[1] == ["scp", "-q", "-P", "2222", recipe, f"worker1:{recipe}"]
+    assert cmds[2] == ["scp", "-q", "-P", "2222", cert, f"worker1:{cert}"]
+
+
+def _install_shims(bindir, remote_root=None):
+    """Fake ``ssh`` (drops its options, takes <host> <cmd>, runs the
+    command here) and ``scp`` (copies to ``$REMOTE_ROOT<path>``, or to the
+    path itself when REMOTE_ROOT is unset); each call is appended to
+    ``<bindir>/calls``."""
+    bindir.mkdir()
+    calls = bindir / "calls"
+    (bindir / "ssh").write_text(
+        "#!/bin/sh\n"
+        f'echo "ssh $*" >> "{calls}"\n'
+        'while [ "$1" != "${1#-}" ]; do case "$1" in -p) shift 2;; '
+        '*) shift;; esac; done\n'
+        'shift\n'
+        'exec sh -c "$1"\n')
+    (bindir / "scp").write_text(
+        "#!/bin/sh\n"
+        f'echo "scp $*" >> "{calls}"\n'
+        'while [ "$1" != "${1#-}" ]; do case "$1" in -P) shift 2;; '
+        '*) shift;; esac; done\n'
+        'src="$1"; dst="${2#*:}"\n'
+        'mkdir -p "$REMOTE_ROOT$(dirname "$dst")"\n'
+        'if [ "$src" -ef "$REMOTE_ROOT$dst" ]; then exit 0; fi\n'
+        'exec cp "$src" "$REMOTE_ROOT$dst"\n')
+    for shim in ("ssh", "scp"):
+        path = bindir / shim
+        path.chmod(path.stat().st_mode | stat.S_IEXEC)
+    return calls
+
+
+def test_ssh_launcher_end_to_end_with_path_shim(tmp_path, monkeypatch):
+    """ship and launch through the shims: the files land at their
+    absolute paths under the fake remote root, and the remote command
+    runs with its environment; stop() signals the process where it runs
+    through ssh (its pid file), not the local ssh client."""
+    bindir = tmp_path / "bin"
+    remote_root = tmp_path / "remote"
+    _install_shims(bindir)
+    monkeypatch.setenv("PATH", f"{bindir}:{os.environ['PATH']}")
+    monkeypatch.setenv("REMOTE_ROOT", str(remote_root))
+
+    launcher = SSHLauncher("testhost", str(tmp_path),
+                           ssh_options=["-p", "2222"])
+    payload = tmp_path / "cfg" / "federation.bin"
+    payload.parent.mkdir()
+    payload.write_bytes(b"\x01\x02\x03")
+    for cmd in launcher.ship_commands([str(payload)]):
+        subprocess.run(cmd, check=True, timeout=60)
+    shipped = remote_root / str(payload).lstrip("/")
+    assert shipped.read_bytes() == b"\x01\x02\x03"
+
+    proc = launcher.launch(
+        "probe", [sys.executable, "-c",
+                  "import os; print('ssh-probe', os.environ['FED_MARK'])"],
+        env={"FED_MARK": "ok42"})
+    assert proc.process.wait(timeout=60) == 0
+    assert "ssh-probe ok42" in open(proc.log_path).read()
+
+    sleeper = launcher.launch(
+        "sleeper", [sys.executable, "-c",
+                    "import time; print('up', flush=True); time.sleep(60)"],
+        env={})
+    deadline = time.time() + 60
+    while "up" not in open(sleeper.log_path).read():
+        assert time.time() < deadline and sleeper.process.poll() is None
+        time.sleep(0.05)
+    launcher.stop(sleeper)
+    assert sleeper.process.wait(timeout=60) == -15  # SIGTERM, at its pid
+
+
+def _recipe(x, y, test, seed):
+    def recipe():
+        from metisfl_tpu_torch.models import ArrayDataset, TorchModelOps
+        from metisfl_tpu_torch.models.zoo import MLP
+        return (TorchModelOps(MLP(6, (16,), 3), rng_seed=0, device="cpu"),
+                ArrayDataset(x, y, seed=seed), None, ArrayDataset(*test))
+
+    return recipe
+
+
+def test_a_learner_on_a_remote_endpoint_runs_through_ssh(tmp_path,
+                                                         monkeypatch):
+    import cloudpickle
+
+    from metisfl_tpu_torch.models import TorchModelOps
+    from metisfl_tpu_torch.models.zoo import MLP
+
+    bindir = tmp_path / "bin"
+    calls = _install_shims(bindir)
+    monkeypatch.setenv("PATH", f"{bindir}:{os.environ['PATH']}")
+    # one host, one filesystem: the shipped files land on themselves
+    monkeypatch.delenv("REMOTE_ROOT", raising=False)
+
+    rng = np.random.default_rng(7)
+    w = rng.standard_normal((6, 3)).astype(np.float32)
+
+    def draw(n):
+        x = rng.standard_normal((n, 6)).astype(np.float32)
+        return x, np.argmax(x @ w, axis=-1).astype(np.int32)
+
+    shards, test = [draw(60), draw(60)], draw(60)
+    config = FederationConfig(
+        controller_port=0,
+        train=TrainParams(batch_size=16, local_steps=2, learning_rate=0.1),
+        eval=EvalConfig(batch_size=64, datasets=["test"]),
+        # the rounds end the run; the wall clock bounds it
+        termination=TerminationConfig(federation_rounds=1,
+                                      execution_cutoff_mins=2.0),
+        learners=[LearnerEndpoint(hostname="localhost"),
+                  LearnerEndpoint(hostname=REMOTE)])
+    template = TorchModelOps(MLP(6, (16,), 3), rng_seed=0,
+                             device="cpu").get_variables()
+    session = DriverSession(config, template,
+                            [_recipe(x, y, test, i)
+                             for i, (x, y) in enumerate(shards)],
+                            workdir=str(tmp_path / "run"), device="cpu")
+    assert isinstance(session._launcher_for(REMOTE), SSHLauncher)
+    dialled = []
+    shut_down = session._shut_down_learner
+
+    def record(hostname, port):
+        dialled.append((hostname, port))
+        shut_down(hostname, port)
+
+    session._shut_down_learner = record
+    module = sys.modules[__name__]
+    cloudpickle.register_pickle_by_value(module)
+    try:
+        session.initialize_federation(health_retries=120)
+        stats = session.monitor_federation(poll_every_s=0.2,
+                                           eval_drain_timeout_s=30.0)
+        endpoints = session._client.list_learners(timeout=10.0)
+    finally:
+        cloudpickle.unregister_pickle_by_value(module)
+        session.shutdown_federation(timeout_s=60.0)
+    assert stats["global_iteration"] >= 1
+    assert len(stats["round_metadata"][0]["selected_learners"]) == 2
+    assert session.process_exit_codes() == {
+        "controller": 0, "learner_0": 0, "learner_1": 0}
+    # the remote learner registered, and was dialled, at its hostname
+    remote = [(ep["hostname"], ep["port"]) for ep in endpoints
+              if ep["hostname"] == REMOTE]
+    assert len(remote) == 1 and remote[0] in dialled
+    assert not any(h == "localhost" and p == remote[0][1]
+                   for h, p in dialled)
+    log = open(tmp_path / "run" / "learner_1.log").read()
+    assert "learner ShutDown RPC received" in log
+    # it was launched over ssh after its recipe was shipped, and only it
+    recipe = str(tmp_path / "run" / "learner_1_recipe.pkl")
+    lines = open(calls).read().splitlines()
+    scp = [i for i, line in enumerate(lines)
+           if line.startswith("scp") and f"{REMOTE}:{recipe}" in line]
+    launch = [i for i, line in enumerate(lines)
+              if line.startswith(f"ssh {REMOTE}")
+              and "metisfl_tpu_torch.learner" in line]
+    assert scp and launch and scp[0] < launch[0]
+    assert not any("learner_0" in line for line in lines)

@@ -213,7 +213,8 @@ def _run(fed, recorder, rounds=ROUNDS, evals=True):
 
 
 def _port_federation(shards, test, template, config=None):
-    fed = InProcessFederation(config or _port_config())
+    # the controller's robust rules combine on the CPU here
+    fed = InProcessFederation(config or _port_config(), device="cpu")
     for x, y in shards:
         i = len(fed.learners)
         ops = TorchModelOps(MLP(6, (16,), 3), variables=template,
@@ -243,22 +244,23 @@ def _accuracy(stats, round_id):
             sorted(entry["evaluations"].items())]
 
 
-def _federations_match(port_config=None, jax_config=None):
-    """The 3-learner x ROUNDS federation through both packages: the same
-    cohorts and scales, communities within COMMUNITY_ATOL, the same
+def _federations_match(port_config=None, jax_config=None, rounds=ROUNDS):
+    """The 3-learner x ``rounds`` federation through both packages: the
+    same cohorts and scales, communities within COMMUNITY_ATOL, the same
     accuracies, and the port learns. Returns the largest community
     difference over all rounds and tensors."""
     shards, test = _arrays(3)
     template = _jax_template(shards[0][0])
     port_rec, jax_rec = _Recorder(), _Recorder()
     port = _run(_port_federation(shards, test, template, port_config),
-                port_rec)
-    ref = _run(_jax_federation(shards, test, template, jax_config), jax_rec)
+                port_rec, rounds=rounds)
+    ref = _run(_jax_federation(shards, test, template, jax_config), jax_rec,
+               rounds=rounds)
     worst = 0.0
-    assert port["global_iteration"] >= ROUNDS
-    assert ref["global_iteration"] >= ROUNDS
+    assert port["global_iteration"] >= rounds
+    assert ref["global_iteration"] >= rounds
     assert port["learners"] == ref["learners"]
-    for r in range(ROUNDS):
+    for r in range(rounds):
         port_meta, ref_meta = port["round_metadata"][r], ref["round_metadata"][r]
         assert port_meta["selected_learners"] == ref_meta["selected_learners"]
         assert len(port_meta["selected_learners"]) == 3
@@ -276,12 +278,44 @@ def _federations_match(port_config=None, jax_config=None):
         assert [round(a * n_test) for a in _accuracy(port, r)] == [
             round(a * n_test) for a in _accuracy(ref, r)]
     # and it learns: the last round's community beats the first
-    assert np.mean(_accuracy(port, ROUNDS - 1)) > np.mean(_accuracy(port, 0))
+    assert np.mean(_accuracy(port, rounds - 1)) > np.mean(_accuracy(port, 0))
     return worst
 
 
 def test_sync_federation_matches_the_jax_package(numpy_fold):
     _federations_match()
+
+
+# the other rules, each with the JAX package's config fields (a server
+# learning rate below the default 1.0, whose first Adam step moves every
+# weight by about 1, far past what two rounds of this task learn)
+RULE_CASES = {
+    "fedrec": {},
+    "fednova": {},
+    "fedadam": {"server_learning_rate": 0.1},
+    "median": {},
+    "trimmed_mean": {},
+    "multikrum": {},
+}
+
+
+@pytest.mark.parametrize("rule", sorted(RULE_CASES))
+def test_sync_federation_matches_the_jax_package_under_each_rule(
+        numpy_fold, rule):
+    """ROUNDS rounds under ``rule`` in both packages'
+    InProcessFederation, held as the FedAvg federation is
+    (COMMUNITY_ATOL, and the port learns: here as under FedAvg, the
+    accuracy needs the third round to rise); the port's controller
+    combines the robust rules on the CPU."""
+    rounds = ROUNDS
+    port_cfg, jax_cfg = _port_config(), _jax_config()
+    port_cfg.aggregation = AggregationConfig(
+        rule=rule, scaler="participants", **RULE_CASES[rule])
+    jax_cfg.aggregation = JaxAggregationConfig(
+        rule=rule, scaler="participants", **RULE_CASES[rule])
+    port_cfg.termination.federation_rounds = rounds
+    jax_cfg.termination.federation_rounds = rounds
+    _federations_match(port_cfg, jax_cfg, rounds=rounds)
 
 
 def test_sync_federation_matches_the_jax_package_on_the_native_fold(
@@ -567,10 +601,6 @@ UNSUPPORTED = {
     "protocol_buffered": lambda: FederationConfig(
         protocol="asynchronous_buffered"),
     "secure": lambda: FederationConfig(secure=SecureAggConfig(enabled=True)),
-    "rule_fedstride": lambda: FederationConfig(
-        aggregation=AggregationConfig(rule="fedstride")),
-    "rule_fedadam": lambda: FederationConfig(
-        aggregation=AggregationConfig(rule="fedadam")),
     "rule_scaffold": lambda: FederationConfig(
         aggregation=AggregationConfig(rule="scaffold")),
     "streaming": lambda: FederationConfig(
@@ -614,6 +644,26 @@ UNSUPPORTED = {
 def test_unsupported_config_raises(name):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         UNSUPPORTED[name]()
+
+
+# ported since the configurations above were refused
+SUPPORTED = {
+    "rule_fedstride": lambda: FederationConfig(
+        aggregation=AggregationConfig(rule="fedstride")),
+    "rule_fedadam": lambda: FederationConfig(
+        aggregation=AggregationConfig(rule="fedadam")),
+}
+
+
+@pytest.mark.parametrize("name", sorted(SUPPORTED))
+def test_ported_config_is_accepted(name):
+    rule = name.split("_", 1)[1]
+    assert SUPPORTED[name]().aggregation.rule == rule
+    fed = InProcessFederation(SUPPORTED[name]())
+    try:
+        assert fed.controller._aggregator.name == rule
+    finally:
+        fed.shutdown()
 
 
 @pytest.mark.parametrize("store", ["in_memory", "disk", "cached_disk",

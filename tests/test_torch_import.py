@@ -92,7 +92,8 @@ def test_sources_reference_neither_jax_nor_the_jax_package():
 
 @pytest.mark.parametrize("script", ["chip_smoke.py",
                                     "scripts/torch_kernel_turns.py",
-                                    "scripts/torch_fwd_rows.py"])
+                                    "scripts/torch_fwd_rows.py",
+                                    "scripts/torch_round_turns.py"])
 def test_card_scripts_reference_neither_jax_nor_the_jax_package(script):
     """The scripts that run on the card, where jax is not installed."""
     with open(os.path.join(REPO, script), encoding="utf-8") as fh:

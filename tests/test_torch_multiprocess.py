@@ -436,20 +436,23 @@ def test_driver_session_passes_the_store_settings_through(tmp_path):
 def test_what_is_not_ported_is_refused_before_any_process_starts(tmp_path):
     from metisfl_tpu_torch.config import LearnerEndpoint
     from metisfl_tpu_torch.controller.__main__ import main as controller_main
-    from metisfl_tpu_torch.driver.session import SSHLauncher
+    from metisfl_tpu_torch.driver.session import LocalLauncher, SSHLauncher
 
     template = TorchModelOps(MLP(6, (16,), 3), rng_seed=0,
                              device="cpu").get_variables()
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        SSHLauncher("remote-host", str(tmp_path))
+    # the SSH launcher is ported: it is built, and picked for a remote
+    # endpoint (tests/test_torch_deploy.py launches through it)
+    launcher = SSHLauncher("remote-host", str(tmp_path))
+    assert (launcher.host, launcher.workdir) == ("remote-host", str(tmp_path))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         DriverSession(FederationConfig(), template, [], resume=True)
     remote = DriverSession(
         FederationConfig(learners=[LearnerEndpoint(hostname="node-7")]),
         template, [_mlp_recipe(*_arrays((8,))[0][0], None, 0)],
         workdir=str(tmp_path))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        remote.initialize_federation()
+    picked = remote._launcher_for(remote._endpoint(0).hostname)
+    assert isinstance(picked, SSHLauncher) and picked.host == "node-7"
+    assert isinstance(remote._launcher_for("localhost"), LocalLauncher)
     assert remote.process_exit_codes() == {}
     for refused in (remote.serving_client, remote.collect_traces):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
