@@ -1732,7 +1732,8 @@ MP_DIR = os.path.join(REPO, "build", "chip_smoke_multiprocess")
 MP_TIMEOUT_S = 600.0
 
 
-def mp_recipe(kind, x, y, test_x, test_y, seed, device, out_dir, gate):
+def mp_recipe(kind, x, y, test_x, test_y, seed, device, out_dir, gate,
+              hold=""):
     """A learner recipe for ``DriverSession``: the engine on ``device``,
     wrapped to record what the phase checks without work on the timed
     path. It keeps a reference to each community model a train task
@@ -1740,7 +1741,8 @@ def mp_recipe(kind, x, y, test_x, test_y, seed, device, out_dir, gate):
     exactly ``TrainOutput.variables``), notes each stage's start and end,
     and at process exit writes them, the process's peak device memory and
     its K1-K3 launches into ``out_dir``. Training waits for ``gate``, so
-    that round 0's cohort is every learner."""
+    that round 0's cohort is every learner, and with ``hold`` every task
+    after the first waits for that file too."""
 
     def recipe():
         import atexit
@@ -1805,7 +1807,9 @@ def mp_recipe(kind, x, y, test_x, test_y, seed, device, out_dir, gate):
 
         def timed_train(dataset, params, *args, **kwargs):
             deadline = time.time() + MP_TIMEOUT_S
-            while not os.path.exists(gate) and time.time() < deadline:
+            files = [gate] + ([hold] if hold and rec["train"] else [])
+            while (not all(os.path.exists(f) for f in files)
+                   and time.time() < deadline):
                 time.sleep(0.05)
             t0 = time.time()
             out = train(dataset, params, *args, **kwargs)
@@ -3096,6 +3100,495 @@ def ssh_round(smoke):
         shutil.rmtree(MP_DIR, ignore_errors=True)
 
 
+# -- the controller's tiers and secure aggregation --------------------------
+
+# the tree tier's branch on the LlamaLite round
+TIERS_BRANCH = 2
+# the masked community against the float64 mean of the plaintext uplinks:
+# the fixed point rounds each value to 2^-41 (the JAX package's
+# tests/test_secure_agg.py tolerance)
+MASK_ATOL = 1e-9
+# the CKKS community against the plain weighted mean (its tests/test_ckks.py)
+CKKS_ATOL = 1e-5
+# the tree tier against the flat fold on real-valued uplinks: f32 sums
+# reassociated, relative to max|w| per tensor
+TREE_REL = 1e-6
+# the CNN rounds with processes of (d) (learner 0 leaves in round 1) and (e)
+SECURE_MP_ROUNDS, CKKS_MP_ROUNDS = 2, 1
+
+
+class PlainSums:
+    """Probes the learners' secure backends: each ``encrypt`` call's wall
+    and thread CPU seconds, by learner and round (mask generation with the
+    fixed-point encode; the learners of one process share its
+    interpreter, so the wall counts the others' turns too), and the
+    float64 sum over learners of the plaintext each call receives, by
+    round and tensor index."""
+
+    def __init__(self, backends):
+        self.seconds = {}        # (learner index, round) -> wall s
+        self.cpu_seconds = {}    # (learner index, round) -> thread CPU s
+        self.sums = {}           # round -> {tensor index: float64 sum}
+        self._lock = threading.Lock()
+        for i, backend in enumerate(backends):
+            self._wrap(i, backend)
+
+    def _wrap(self, i, backend):
+        encrypt = backend.encrypt
+        counter = {}
+
+        def probed(values):
+            rid = getattr(backend, "_round_id", 0)
+            t = counter.get(rid, 0)
+            counter[rid] = t + 1
+            t0, c0 = time.perf_counter(), time.thread_time()
+            out = encrypt(values)
+            dt, dc = time.perf_counter() - t0, time.thread_time() - c0
+            plain = np.asarray(values, np.float64)
+            with self._lock:
+                key = (i, rid)
+                self.seconds[key] = self.seconds.get(key, 0.0) + dt
+                self.cpu_seconds[key] = self.cpu_seconds.get(key, 0.0) + dc
+                sums = self.sums.setdefault(rid, {})
+                sums[t] = plain.copy() if t not in sums else sums[t] + plain
+            return out
+
+        backend.encrypt = probed
+
+
+def opaque_payloads(blob):
+    """A secure community blob's float64 payloads in wire order."""
+    from metisfl_tpu_torch.tensor import ModelBlob
+
+    return [np.frombuffer(payload, np.float64)
+            for _, (payload, _) in ModelBlob.from_bytes(blob).opaque.items()]
+
+
+def tiers_secure_phase(smoke, gpu):
+    """(a) the in-process full-width LlamaLite round on the store path and
+    under ``aggregation.streaming`` (fedavg), the same seeds; (b) the same
+    round under the tree tier at branch 2; (c) under ``scheme: masking``
+    with streaming (masked uplinks fold on arrival, the barrier settles);
+    (d) the FashionMNIST CNN with a process per learner under masking and
+    streaming, learner 0 leaving mid-round 1, its masks recovered from a
+    survivor; (e) the CNN with processes under ``scheme: ckks`` with the
+    driver's keygen. CKKS runs on the CNN, not LlamaLite: its ciphertexts
+    take 2 uint64 words a value, about 3 GB an uplink at 189 M parameters
+    (four times the plain blob), through the learners, the controller and
+    the gRPC transport of every round."""
+    import torch
+
+    from metisfl_tpu_torch.aggregation import FedAvg
+    from metisfl_tpu_torch.aggregation.streaming import StreamingAggregator
+    from metisfl_tpu_torch.aggregation.tree import TreeReducer
+    from metisfl_tpu_torch.comm import TrainParams
+    from metisfl_tpu_torch.config import (
+        AggregationConfig,
+        EvalConfig,
+        FederationConfig,
+        TerminationConfig,
+    )
+    from metisfl_tpu_torch.config.federation import (
+        SecureAggConfig,
+        TreeAggregationConfig,
+    )
+    from metisfl_tpu_torch.driver import InProcessFederation
+    from metisfl_tpu_torch.models import ArrayDataset, TorchModelOps
+    from metisfl_tpu_torch.models.zoo import LlamaLite
+    from metisfl_tpu_torch.ops.flash_attention import (
+        flash_attention_fwd,
+        flash_bwd_dkv,
+        flash_bwd_dq,
+    )
+    from metisfl_tpu_torch.scaling import make_scaler, raw_weight
+    from metisfl_tpu_torch.secure import MaskingBackend
+
+    out = {"learners": FED_LEARNERS}
+    llama = dict(vocab_size=VOCAB, dim=DIM, depth=DEPTH, heads=HEADS,
+                 kv_heads=KV_HEADS, dtype=torch.bfloat16)
+    variables = random_variables(LlamaLite(**llama, device="meta"), SEED)
+    tokens = np.random.default_rng(SEED + 5).integers(
+        0, VOCAB, (FED_LEARNERS * FED_ROWS + FED_EVAL_ROWS, TRAIN_LEN + 1)
+    ).astype(np.int32)
+    test = ArrayDataset(tokens[-FED_EVAL_ROWS:, :-1],
+                        tokens[-FED_EVAL_ROWS:, 1:])
+    sizes = {}
+
+    def llama_round(aggregation, secure=None, backends=None,
+                    controller_backend=None):
+        """One LlamaLite round in process (equal shards of FED_ROWS rows,
+        so masking's uniform scales hold)."""
+        cfg = FederationConfig(
+            aggregation=aggregation,
+            secure=secure or SecureAggConfig(),
+            train=TrainParams(batch_size=TRAIN_BATCH, local_steps=FED_STEPS,
+                              optimizer="adam", learning_rate=1e-4),
+            eval=EvalConfig(batch_size=TRAIN_BATCH, datasets=["test"],
+                            metrics=["loss", "accuracy"]),
+            termination=TerminationConfig(federation_rounds=1))
+        fed = InProcessFederation(cfg, device=DEVICE,
+                                  secure_backend=controller_backend)
+        for i in range(FED_LEARNERS):
+            rows = tokens[i * FED_ROWS:(i + 1) * FED_ROWS]
+            ops = TorchModelOps(LlamaLite(**llama, use_flash=True),
+                                variables=variables, device=DEVICE)
+            learner = fed.add_learner(
+                ops, ArrayDataset(rows[:, :-1], rows[:, 1:], seed=SEED + i),
+                test_dataset=test,
+                secure_backend=None if backends is None else backends[i])
+            sizes[learner.port] = len(rows)
+        fed.seed_model(variables)
+        return fed
+
+    def finish(label, fed, probe, stats):
+        sync()
+        meta = stats["round_metadata"][0]
+        losses = [v["loss"] for v in meta["train_metrics"].values()]
+        eval_losses = _accuracies(stats, "loss")
+        smoke.check(stats["global_iteration"] >= 1 and len(losses) ==
+                    FED_LEARNERS and all(np.isfinite(losses + eval_losses)),
+                    f"{label}: the round completed; train losses "
+                    f"{[round(v, 4) for v in losses]} and community eval "
+                    f"losses {[round(v, 4) for v in eval_losses]} finite")
+        split = probe.split(stats)[0]
+        print(f"{label}: round wall {split['wall_s']:.3f} s, fold stage "
+              f"{split['controller_s']['fold']:.3f} s", flush=True)
+        return split
+
+    counters = (flash_attention_fwd, flash_bwd_dq, flash_bwd_dkv)
+    for fn in counters:
+        fn.launches = 0
+
+    # (a) the store path, then streaming, the same seeds
+    fed = llama_round(AggregationConfig(scaler="train_dataset_size"))
+    probe, stats = run_federation(fed)
+    check_folds(smoke, "tiers store", probe, stats, 1, f64_rel=FED_F64_REL)
+    out["store"] = finish("tiers store", fed, probe, stats)
+    del fed, probe
+    empty_cache()
+
+    fed = llama_round(AggregationConfig(scaler="train_dataset_size",
+                                        streaming=True))
+    ctrl = fed.controller
+    stream = ctrl._streaming
+    folds, finished, selects = [], [], []
+    fold, finish_stream, select = stream.fold, stream.finish, \
+        ctrl._store.select
+
+    def recorded_fold(learner_id, model, weight):
+        folds.append((learner_id, weight))
+        return fold(learner_id, model, weight)
+
+    def recorded_finish(selected):
+        finished.append(stream.stats())
+        return finish_stream(selected)
+
+    def recorded_select(*args, **kwargs):
+        selects.append(args)
+        return select(*args, **kwargs)
+
+    stream.fold, stream.finish = recorded_fold, recorded_finish
+    ctrl._store.select = recorded_select
+    probe, stats = run_federation(fed)
+    selected = stats["round_metadata"][0]["selected_learners"]
+    smoke.check(len(finished) == 1 and finished[0]["folded"] ==
+                FED_LEARNERS == len(selected) and not selects
+                and not ctrl._store.learner_ids(),
+                f"tiers streaming: the stream engaged: {finished[:1]} "
+                f"folded at the barrier for a cohort of {len(selected)}, "
+                f"{len(selects)} store selects, "
+                f"{len(ctrl._store.learner_ids())} stored models")
+    again = StreamingAggregator(FedAvg(), stride=0)
+    for lid, weight in folds:
+        again.fold(lid, parse_blob(probe.uplinks[0][lid]), weight)
+    by_id = {lid: sizes[int(lid.rsplit("_", 1)[1])] for lid, _ in folds}
+    smoke.check(
+        same_bits(parse_blob(probe.communities[0]), again.finish(selected))
+        and [w for _, w in folds] == [
+            raw_weight("train_dataset_size", {"num_train_examples":
+                                              by_id[lid]})
+            for lid, _ in folds],
+        f"tiers streaming: the community model equals a re-fold of the "
+        f"{len(folds)} recorded uplinks in the order the round folded "
+        f"them ({[lid for lid, _ in folds]}), bit for bit")
+    out["streaming"] = finish("tiers streaming", fed, probe, stats)
+    out["streaming"]["fold_order"] = [lid for lid, _ in folds]
+    del fed, ctrl, stream, probe, again
+    empty_cache()
+
+    # (b) the tree tier at branch TIERS_BRANCH
+    fed = llama_round(AggregationConfig(
+        scaler="train_dataset_size",
+        tree=TreeAggregationConfig(enabled=True, branch=TIERS_BRANCH)))
+    probe, stats = run_federation(fed)
+    meta = stats["round_metadata"][0]
+    selected = meta["selected_learners"]
+    scales = make_scaler("train_dataset_size")(
+        {lid: {"num_train_examples": sizes[int(lid.rsplit("_", 1)[1])]}
+         for lid in selected})
+    ups = {lid: parse_blob(probe.uplinks[0][lid]) for lid in selected}
+    replay = TreeReducer(branch=TIERS_BRANCH)
+    try:
+        want, parts = replay.reduce(
+            selected, scales,
+            lambda block: {lid: [ups[lid]] for lid in block})
+    finally:
+        replay.shutdown()
+    got = parse_blob(probe.communities[0])
+    flat = FedAvg().aggregate([([ups[lid]], scales[lid])
+                               for lid in selected])
+    tree_rel = rel_diff(got, flat)
+    smoke.check(same_bits(got, want) and meta["aggregation_block_sizes"]
+                == [p.count for p in parts],
+                f"tiers tree: the community model equals TreeReducer "
+                f"(branch {TIERS_BRANCH}) replayed over the {len(ups)} "
+                f"recorded uplinks, bit for bit; slices "
+                f"{meta['aggregation_block_sizes']}")
+    smoke.check(tree_rel <= TREE_REL,
+                f"tiers tree: within {tree_rel:.3g} x max|w| of the flat "
+                f"FedAvg fold (<= {TREE_REL})")
+    out["tree"] = finish("tiers tree", fed, probe, stats)
+    out["tree"]["rel_to_flat"] = tree_rel
+    del fed, probe, ups, want, got, flat
+    empty_cache()
+
+    # (c) masking with streaming: masked uplinks fold on arrival
+    secret = "chip-smoke-" + str(SEED)
+    backends = [MaskingBackend(secret, i, FED_LEARNERS)
+                for i in range(FED_LEARNERS)]
+    plain = PlainSums(backends)
+    fed = llama_round(
+        AggregationConfig(rule="secure_agg", scaler="participants",
+                          streaming=True),
+        SecureAggConfig(enabled=True, scheme="masking",
+                        num_parties=FED_LEARNERS),
+        backends, MaskingBackend(num_parties=FED_LEARNERS))
+    settle = fed.controller._settle_masked
+    settled = []
+
+    def timed_settle(*args):
+        t0 = time.perf_counter()
+        try:
+            return settle(*args)
+        finally:
+            settled.append(time.perf_counter() - t0)
+
+    fed.controller._settle_masked = timed_settle
+    probe, stats = run_federation(fed)
+    k1, k2, k3 = (fn.launches for fn in counters)
+    payloads = opaque_payloads(probe.communities[0])
+    sums = plain.sums[0]
+    worst = max(float(np.abs(p - sums[t] / FED_LEARNERS).max())
+                for t, p in enumerate(payloads))
+    smoke.check(len(payloads) == len(sums) and worst <= MASK_ATOL
+                and len(settled) == 1,
+                f"tiers masking: the settled community is within "
+                f"{worst:.3g} of the float64 mean of the {FED_LEARNERS} "
+                f"learners' plaintext uplinks (<= {MASK_ATOL}), over "
+                f"{len(payloads)} tensors")
+    gen = [plain.seconds[(i, 0)] for i in range(FED_LEARNERS)]
+    gen_cpu = [plain.cpu_seconds[(i, 0)] for i in range(FED_LEARNERS)]
+    out["masking"] = finish("tiers masking", fed, probe, stats)
+    out["masking"].update({
+        "mask_generation_s": gen, "mask_generation_cpu_s": gen_cpu,
+        "settlement_s": settled,
+        "max_abs_to_f64_mean": worst,
+        "uplink_bytes": stats["round_metadata"][0]["uplink_bytes"]})
+    print(f"tiers masking: mask generation {[round(g, 3) for g in gen]} s "
+          f"a learner ({[round(g, 3) for g in gen_cpu]} s of its thread's "
+          f"CPU), settlement {[round(s, 3) for s in settled]} s, "
+          f"round wall {out['masking']['wall_s']:.3f} s against streaming "
+          f"{out['streaming']['wall_s']:.3f} s", flush=True)
+    del fed, probe, backends, plain, payloads, sums
+    empty_cache()
+
+    per_round = FED_LEARNERS * FED_STEPS * DEPTH
+    eval_per_round = FED_LEARNERS * -(-FED_EVAL_ROWS // TRAIN_BATCH) * DEPTH
+    rounds = 4
+    smoke.check(k2 == k3 == rounds * per_round
+                and k1 == rounds * (per_round + eval_per_round),
+                f"tiers llama: K2 {k2} and K3 {k3} launches = {rounds} "
+                f"rounds x learners x steps x depth = {rounds * per_round}; "
+                f"K1 {k1} = {rounds * per_round} + "
+                f"{rounds * eval_per_round} (evaluation)")
+    out["launches"] = {"flash_fwd": k1, "flash_bwd_dq": k2,
+                       "flash_bwd_dkv": k3}
+    del variables
+
+    # (d), (e): the CNN with a process per learner
+    for name in ("grpc", "cloudpickle"):
+        try:
+            __import__(name)
+        except ImportError:
+            smoke.failures.append(f"tiers processes: {name} missing")
+            out["gpu"] = gpu
+            return out
+    out["masking_processes"] = secure_processes(smoke, "masking")
+    out["ckks_processes"] = secure_processes(smoke, "ckks")
+    out["gpu"] = gpu
+    print(json.dumps({"tiers_secure": out}), flush=True)
+    return out
+
+
+def secure_processes(smoke, scheme):
+    """The CNN with a controller process and a process per learner through
+    DriverSession. ``masking``: with streaming, SECURE_MP_ROUNDS rounds;
+    learner 0 leaves the federation (through the controller, with its
+    saved credentials) while its round-1 task waits, the round settles
+    with the two survivors, and one of them discloses learner 0's
+    residual masks (``RecoverMasks``). ``ckks``: CKKS_MP_ROUNDS rounds,
+    the driver's keygen; the community decrypts to the plain FedAvg."""
+    from metisfl_tpu_torch.comm import TrainParams
+    from metisfl_tpu_torch.config import (
+        AggregationConfig,
+        EvalConfig,
+        FederationConfig,
+        TerminationConfig,
+    )
+    from metisfl_tpu_torch.config.federation import SecureAggConfig
+    from metisfl_tpu_torch.controller.service import ControllerClient
+    from metisfl_tpu_torch.driver import DriverSession
+    from metisfl_tpu_torch.learner.__main__ import load_credentials
+    from metisfl_tpu_torch.models import TorchModelOps
+    from metisfl_tpu_torch.models.zoo import FashionMnistCNN
+    from metisfl_tpu_torch.secure.ckks import CKKSBackend
+    from metisfl_tpu_torch.tensor import ModelBlob
+
+    label = f"tiers {scheme} cnn"
+    masking = scheme == "masking"
+    rounds = SECURE_MP_ROUNDS if masking else CKKS_MP_ROUNDS
+    x, y = synthetic_image_classification(
+        FED_LEARNERS * CNN_EXAMPLES + CNN_TEST, noise=CNN_NOISE, seed=SEED)
+    sizes = [CNN_EXAMPLES] * FED_LEARNERS if masking else [
+        CNN_EXAMPLES // 2, CNN_EXAMPLES, CNN_EXAMPLES]
+    workdir = os.path.join(MP_DIR, f"tiers_{scheme}")
+    shutil.rmtree(workdir, ignore_errors=True)
+    os.makedirs(workdir)
+    gate, hold = (os.path.join(workdir, "gate"),
+                  os.path.join(workdir, "hold"))
+    recipes = []
+    for i in range(FED_LEARNERS):
+        lo = i * CNN_EXAMPLES
+        out_dir = os.path.join(workdir, f"record_{i}")
+        os.makedirs(out_dir)
+        recipes.append(mp_recipe(
+            "cnn", x[lo:lo + sizes[i]], y[lo:lo + sizes[i]], x[-CNN_TEST:],
+            y[-CNN_TEST:], SEED + i, DEVICE, out_dir, gate,
+            hold=hold if masking and i == 0 else ""))
+    config = FederationConfig(
+        controller_port=0,
+        aggregation=AggregationConfig(
+            rule="secure_agg",
+            scaler="participants" if masking else "train_dataset_size",
+            streaming=masking),
+        secure=SecureAggConfig(enabled=True, scheme=scheme),
+        train=TrainParams(batch_size=CNN_BATCH, local_steps=CNN_STEPS,
+                          optimizer="sgd", learning_rate=0.05),
+        eval=EvalConfig(batch_size=256, datasets=["test"],
+                        metrics=["loss", "accuracy"]),
+        termination=TerminationConfig(federation_rounds=rounds))
+    template = TorchModelOps(FashionMnistCNN(), rng_seed=SEED,
+                             device="cpu").get_variables()
+    session = DriverSession(config, template, recipes, workdir=workdir,
+                            device=DEVICE)
+    client = None
+    t0 = time.perf_counter()
+    left = None
+    try:
+        session.initialize_federation(
+            health_retries=int(MP_TIMEOUT_S / 0.5), health_sleep_s=0.5)
+        client = ControllerClient("localhost", config.controller_port)
+        deadline = time.time() + MP_TIMEOUT_S
+        while len(client.list_learners()) < FED_LEARNERS:
+            session._check_procs_alive()
+            if time.time() > deadline:
+                raise RuntimeError(f"{label}: learners never all joined")
+            time.sleep(0.1)
+        ports = {}
+        for i in range(FED_LEARNERS):
+            with open(os.path.join(workdir, f"learner_{i}.log")) as f:
+                ports[int(re.search(r"LEARNER_READY port=(\d+)",
+                                    f.read()).group(1))] = i
+        index = {ep["learner_id"]: ports[ep["port"]]
+                 for ep in client.list_learners()}
+        boot_s = time.perf_counter() - t0
+        open(gate, "w").close()
+        t1 = time.perf_counter()
+        if masking:
+            while client.get_runtime_metadata(tail=1)[
+                    "global_iteration"] < 1:
+                session._check_procs_alive()
+                if time.time() > deadline:
+                    raise RuntimeError(f"{label}: round 0 never completed")
+                time.sleep(0.1)
+            # learner 0 leaves while its round-1 task waits on ``hold``
+            learner_id, token = load_credentials(
+                os.path.join(workdir, "learner_0_creds"))
+            left = client.leave(learner_id, token)
+            open(hold, "w").close()
+        stats = session.monitor_federation(poll_every_s=0.25)
+        run_s = time.perf_counter() - t1
+        final = client.get_community_model()
+    finally:
+        open(hold, "w").close()
+        if client is not None:
+            client.close()
+        t2 = time.perf_counter()
+        session.shutdown_federation(timeout_s=MP_TIMEOUT_S)
+        shutdown_s = time.perf_counter() - t2
+    codes = session.process_exit_codes()
+    smoke.check(len(codes) == FED_LEARNERS + 1
+                and all(c == 0 for c in codes.values()),
+                f"{label}: every process exits 0 after shutdown_federation "
+                f"{codes}")
+    with open(os.path.join(workdir, "controller.log")) as f:
+        recovered = f.read().count("masking dropout recovery")
+    metas = stats["round_metadata"][:rounds]
+    cohorts = [sorted(index[lid] for lid in m["selected_learners"])
+               for m in metas]
+    last = cohorts[-1]
+    ups = [_npz(os.path.join(workdir, f"record_{i}", f"up_{rounds - 1}.npz"))
+           for i in last]
+    entries = ModelBlob.from_bytes(final).opaque
+    if masking:
+        want = [np.mean([u[n].astype(np.float64).ravel() for u in ups],
+                        axis=0) for n in entries]
+        got = [np.frombuffer(p, np.float64) for p, _ in entries.values()]
+        tol = MASK_ATOL
+        smoke.check(left and cohorts == [[0, 1, 2], [1, 2]]
+                    and recovered >= 1,
+                    f"{label}: learner 0 left mid-round 1 ({left}); cohorts "
+                    f"{cohorts}; a survivor disclosed its masks "
+                    f"({recovered} recoveries in the controller's log)")
+    else:
+        w = [sizes[i] for i in last]
+        want = [sum(wi * u[n].astype(np.float64).ravel()
+                    for wi, u in zip(w, ups)) / sum(w) for n in entries]
+        learner = CKKSBackend(key_dir=config.secure.key_dir, role="learner")
+        got = [learner.decrypt(p, spec.size) for p, spec in entries.values()]
+        tol = CKKS_ATOL
+        smoke.check(cohorts == [[0, 1, 2]] and os.path.exists(
+                        os.path.join(config.secure.key_dir, "sk.bin")),
+                    f"{label}: the driver made the keys in "
+                    f"{config.secure.key_dir}; cohort {cohorts}")
+    worst = max(float(np.abs(g - wv).max()) for g, wv in zip(got, want))
+    smoke.check(len(got) == len(want) and worst <= tol,
+                f"{label}: the community of round {rounds - 1} is within "
+                f"{worst:.3g} of the plain float64 "
+                f"{'mean' if masking else 'weighted mean'} of its "
+                f"{len(ups)} recorded uplinks (<= {tol})")
+    out = {"rounds": rounds, "cohorts": cohorts, "recoveries": recovered,
+           "max_abs": worst, "boot_s": boot_s, "rounds_s": run_s,
+           "shutdown_s": shutdown_s, "community_bytes": len(final),
+           "round_wall_s": [m["completed_at"] - m["started_at"]
+                            for m in metas],
+           "uplink_bytes": [m["uplink_bytes"] for m in metas]}
+    print(f"{label}: round walls {[round(w, 3) for w in out['round_wall_s']]}"
+          f" s", flush=True)
+    shutil.rmtree(MP_DIR, ignore_errors=True)
+    return out
+
+
 def _leaves(node):
     if isinstance(node, dict):
         for v in node.values():
@@ -3399,6 +3892,11 @@ def main() -> int:
     stored = smoke.phase(
         "slice: the model-store layer (cached disk with parallel ingest, "
         "remote) and the native host fold", store_phase, smoke, gpu)
+    torch.cuda.empty_cache()
+    tiered = smoke.phase(
+        "slice: the controller's streaming and tree tiers, and secure "
+        "aggregation (masking with dropout recovery, CKKS)",
+        tiers_secure_phase, smoke, gpu)
 
     # launches on each path that runs a kernel (each path's counts set to
     # 0 just before it and read just after): K1 on every path
@@ -3413,6 +3911,8 @@ def main() -> int:
     # the rules phase's median round
     rules_launches = ((ruled or {}).get("median_llama") or {}).get(
         "launches", {})
+    # the tiers phase's four LlamaLite rounds
+    tiers_launches = (tiered or {}).get("launches", {})
     rows = []
     if main_case is not None:
         by_path = {"serve": serve_k1,
@@ -3420,7 +3920,8 @@ def main() -> int:
                    "federation": fed_launches.get("flash_fwd", 0),
                    "multiprocess": mp_launches.get("flash_fwd", 0),
                    "store": store_launches.get("flash_attention_fwd", 0),
-                   "rules": rules_launches.get("flash_fwd", 0)}
+                   "rules": rules_launches.get("flash_fwd", 0),
+                   "tiers": tiers_launches.get("flash_fwd", 0)}
         rows.append(("flash_fwd", "flash_fwd.cu", 76, main_case,
                      sum(by_path.values()), by_path))
     for record, line in zip(bwd_cases or [], (126, 162)):
@@ -3428,7 +3929,8 @@ def main() -> int:
                    "federation": fed_launches.get(record["name"], 0),
                    "multiprocess": mp_launches.get(record["name"], 0),
                    "store": store_launches.get(record["name"], 0),
-                   "rules": rules_launches.get(record["name"], 0)}
+                   "rules": rules_launches.get(record["name"], 0),
+                   "tiers": tiers_launches.get(record["name"], 0)}
         rows.append((record["name"], "flash_bwd.cu", line, record,
                      sum(by_path.values()), by_path))
     # the wide-heads path, a row per head dim and wrapper: its launches in

@@ -1,13 +1,15 @@
 """Aggregation rules: the JAX package's registry without ``scaffold``
-(ROADMAP.md Queue 1 item 3e) and ``secure_agg`` (3c), which
-``FederationConfig`` refuses by name.
+(ROADMAP.md Queue 1 item 3e), which ``FederationConfig`` refuses by name.
 
 - :class:`FedAvg`: the weighted average, folded block by block;
 - :class:`FedStride`, :class:`FedRec`: the reference's rolling averages;
 - :class:`FedNova`: normalized averaging for uneven local step counts;
 - :class:`ServerOpt`: FedAvgM / FedAdam / FedYogi server optimizers;
 - :class:`CoordinateMedian`, :class:`TrimmedMean`, :class:`Krum`: the
-  byzantine-robust rules, which run on a device (``DEVICE_RULES``).
+  byzantine-robust rules, which run on a device (``DEVICE_RULES``);
+- :class:`SecureAgg`: the weighted average over encrypted or masked
+  payloads (``secure_agg``; the controller builds it over the secure
+  backend when ``secure.enabled``).
 """
 
 import functools
@@ -20,6 +22,7 @@ from metisfl_tpu_torch.aggregation.robust import (
     TrimmedMean,
 )
 from metisfl_tpu_torch.aggregation.rolling import FedRec, FedStride
+from metisfl_tpu_torch.aggregation.secure import SecureAgg
 from metisfl_tpu_torch.aggregation.serveropt import ServerOpt
 
 AGGREGATION_RULES = {
@@ -34,6 +37,7 @@ AGGREGATION_RULES = {
     "trimmed_mean": TrimmedMean,
     "krum": Krum,
     "multikrum": functools.partial(Krum, name="multikrum"),
+    "secure_agg": SecureAgg,
 }
 
 # the rules that combine on a device (their ``device`` argument)
@@ -58,6 +62,7 @@ __all__ = [
     "FedRec",
     "FedStride",
     "Krum",
+    "SecureAgg",
     "ServerOpt",
     "TrimmedMean",
     "make_aggregation_rule",

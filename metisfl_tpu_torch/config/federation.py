@@ -3,7 +3,8 @@ dataclasses (``config/federation.py``) with the fields the port reads.
 
 ``FederationConfig`` covers the synchronous round under FedAvg and the
 JAX package's other plaintext rules (FedStride, FedRec, FedNova, the
-server optimizers and the robust rules), over the
+server optimizers and the robust rules), secure aggregation (masking,
+CKKS, identity), the streaming and in-process tree tiers, over the
 in-memory, disk, cached-disk and remote stores (with parallel ingest),
 with the controller's endpoint, the learners' endpoints,
 the transport's settings and TLS for the multi-process federation. It
@@ -79,9 +80,15 @@ class SchedulingConfig:
 
 @dataclass
 class TreeAggregationConfig:
-    """The tree-aggregation tier (not ported: ``enabled`` raises)."""
+    """The tree-aggregation tier (aggregation/tree.py): the cohort split
+    into ``branch`` slices folded in worker threads, then the partials
+    folded at the root, for the weighted-sum rules on the store path.
+    The distributed tier (``distributed``: slice aggregator processes) is
+    not ported and raises."""
 
     enabled: bool = False
+    branch: int = 8
+    workers: int = 0                         # 0 → min(branch, cpu_count)
     distributed: bool = False
 
 
@@ -106,6 +113,10 @@ class AggregationConfig:
     # (0 derives the largest tolerable (n-3)//2 from the cohort)
     trim_ratio: float = 0.1
     byzantine_f: int = 0
+    # streaming aggregation (aggregation/streaming.py): fold each accepted
+    # uplink on arrival, no store round trip, for fedavg / fedstride /
+    # fedrec where the lineage permits (other rules fall back to the
+    # store path); under masking, masked uplinks fold on arrival
     streaming: bool = False
     tree: TreeAggregationConfig = field(default_factory=TreeAggregationConfig)
 
@@ -131,9 +142,20 @@ class ModelStoreConfig:
 
 @dataclass
 class SecureAggConfig:
-    """Secure aggregation (not ported: ``enabled`` raises)."""
+    """Secure aggregation (aggregation/secure.py, secure/)."""
 
     enabled: bool = False
+    scheme: str = "masking"                  # masking | ckks | identity
+    key_dir: str = ""
+    # masking: the party count the controller settles against; the driver
+    # fills it in (secrets travel only in per-learner secure files)
+    num_parties: int = 0
+    # the Bonawitz threshold t: never unmask a partial sum of fewer
+    # surviving parties than this
+    min_recovery_parties: int = 2
+    # 0: every pair masks (the complete graph); k > 0: the deterministic
+    # ring k-regular mask graph (secure/distributed.py mask_partners)
+    mask_neighbors: int = 0
 
 
 @dataclass
@@ -214,8 +236,32 @@ class FederationConfig:
         if self.protocol != "synchronous":
             raise not_ported(f"protocol {self.protocol!r}", "3f")
         agg, sched, train = self.aggregation, self.scheduling, self.train
-        if self.secure.enabled or agg.rule.lower() == "secure_agg":
-            raise not_ported("secure aggregation", "3c")
+        secure = self.secure
+        masking = secure.enabled and secure.scheme == "masking"
+        if secure.enabled and agg.rule != "secure_agg":
+            raise ValueError("secure aggregation requires aggregation.rule "
+                             "== 'secure_agg'")
+        if agg.rule == "secure_agg" and not secure.enabled:
+            raise ValueError("aggregation.rule 'secure_agg' requires "
+                             "secure.enabled")
+        if secure.enabled and secure.scheme not in ("masking", "ckks",
+                                                    "identity"):
+            raise ValueError(f"unknown secure scheme {secure.scheme!r}")
+        if masking and agg.scaler != "participants":
+            # MaskingBackend refuses non-uniform scales at aggregation
+            raise ValueError(
+                "masking secure aggregation requires uniform scales: set "
+                f"aggregation.scaler: participants (got {agg.scaler!r})")
+        if secure.mask_neighbors < 0:
+            raise ValueError("secure.mask_neighbors must be >= 0 (0 = "
+                             "complete pairwise mask graph)")
+        if agg.streaming and secure.enabled and not masking:
+            # ciphertexts need the full-cohort combine; masked sums fold
+            # on arrival
+            raise ValueError(
+                "aggregation.streaming with secure aggregation requires "
+                f"secure.scheme: masking (scheme={secure.scheme!r} "
+                "ciphertexts cannot fold on arrival)")
         if agg.rule.lower() == "scaffold":
             raise not_ported("SCAFFOLD", "3e")
         if agg.rule.lower() not in AGGREGATION_RULES:
@@ -226,10 +272,13 @@ class FederationConfig:
             # the JAX package's TrimmedMean refuses it when the controller
             # builds the rule; here before any process starts
             raise ValueError("trim_ratio must be in [0, 0.5)")
-        if agg.streaming:
-            raise not_ported("aggregation.streaming", "3c")
-        if agg.tree.enabled or agg.tree.distributed:
-            raise not_ported("the tree-aggregation tier", "3c")
+        if agg.tree.distributed:
+            raise not_ported("the distributed tree tier "
+                             "(aggregation.tree.distributed)", "3c")
+        if agg.tree.enabled and agg.tree.branch < 2:
+            raise ValueError("aggregation.tree.branch must be >= 2")
+        if agg.tree.workers < 0:
+            raise ValueError("aggregation.tree.workers must be >= 0")
         if not 0.0 < agg.participation_ratio <= 1.0:
             raise ValueError("participation_ratio must be in (0, 1]")
         if self.model_store.store not in _STORES:

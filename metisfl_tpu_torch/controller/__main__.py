@@ -7,7 +7,9 @@ configuration arrives as one file, a codec-serialized ``FederationConfig``
 port) and prints ``METISFL_TPU_CONTROLLER_READY port=<port>`` once it
 serves. ``--device`` (default ``cuda``) is where the robust rules
 combine the cohort; a robust rule on ``cuda`` with no GPU refuses to
-start. SIGTERM, SIGINT or the ShutDown RPC stop it. The whole config
+start. Under ``secure.enabled`` it builds the controller's keyless
+secure backend (masking: the party count, from ``secure.num_parties`` or
+the configured learners). SIGTERM, SIGINT or the ShutDown RPC stop it. The whole config
 reaches the controller, its ``model_store`` block included: the store
 (in memory, disk, cached disk, or a ``python -m
 metisfl_tpu_torch.store.server`` at ``host``:``port``) and the ingest
@@ -31,6 +33,23 @@ from metisfl_tpu_torch.controller.service import (
     ControllerServer,
     RpcLearnerProxy,
 )
+from metisfl_tpu_torch.secure import make_backend
+
+
+def secure_backend_of(config, parser):
+    """The controller's secure backend (None without secure aggregation):
+    it can combine payloads and never decrypt them."""
+    if not config.secure.enabled:
+        return None
+    kwargs = {}
+    if config.secure.scheme == "masking":
+        num_parties = config.secure.num_parties or len(config.learners)
+        if num_parties <= 0:
+            parser.error("masking secure aggregation needs "
+                         "secure.num_parties (the driver fills it in) or a "
+                         "configured learner list")
+        kwargs["num_parties"] = num_parties
+    return make_backend(config.secure, role="controller", **kwargs)
 
 
 def main(argv=None) -> int:
@@ -63,7 +82,8 @@ def main(argv=None) -> int:
         with open(args.config, "rb") as f:
             config = FederationConfig.from_wire(f.read())
     controller = Controller(config, lambda record: RpcLearnerProxy(
-        record, ssl=config.ssl, comm=config.comm), device=args.device)
+        record, ssl=config.ssl, comm=config.comm), device=args.device,
+        secure_backend=secure_backend_of(config, parser))
     server = ControllerServer(
         controller, host=args.host,
         port=config.controller_port if args.port is None else args.port,

@@ -27,6 +27,25 @@ and applies the result's metadata only once the write lands; aggregation
 drains the pipeline before any select, and a departing learner's queued
 writes are drained before its lineage is erased.
 
+The two other ingest tiers of the JAX controller: streaming
+(``aggregation.streaming``, aggregation/streaming.py) folds each accepted
+uplink on arrival and finalizes at barrier release with no store read,
+for fedavg, fedstride and fedrec (anything else falls back to the store
+path, logged); the tree tier (``aggregation.tree.enabled``,
+aggregation/tree.py) folds the store path's cohort in ``branch`` slices
+on worker threads, for fedavg and fedstride.
+
+Secure aggregation (``secure.enabled``, rule ``secure_agg``): uplinks are
+opaque (CKKS ciphertexts, masked fixed-point words, or identity float64
+bytes) and the community model stays opaque; :class:`SecureAgg` combines
+them over the backend the caller passes (``secure_backend``), which holds
+no decryption capability. Under ``scheme: masking`` a round whose cohort
+misses registered mask parties asks one survivor for the dropped
+parties' residual (``recover_masks``) and subtracts it; with
+``aggregation.streaming`` masked uplinks fold on arrival as modular
+uint64 sums (secure/distributed.py) and the barrier settles them
+(secure/recovery.py).
+
 Concurrency as in the JAX package: RPC threads only validate and enqueue;
 one scheduling worker owns all round logic, so a completion ack never
 waits on aggregation, and state needs one lock.
@@ -37,9 +56,10 @@ still go out.
 
 Not ported yet (ROADMAP.md Queue 1 items 3c-3g and 4): the round-state WAL,
 checkpoints and the hot standby, deadlines, quorum and dispatch retries,
-churn scoring and quarantine, the registry, the streaming and tree tiers,
-secure aggregation, SCAFFOLD, int8q/top-k uplinks, the health plane's
-advisory scores, ``describe`` and every telemetry plane. The config
+churn scoring and quarantine, the registry, the distributed slice tier,
+SCAFFOLD, client-level DP, int8q/top-k uplinks, the health plane's
+advisory scores and every telemetry plane (the secure plane's fold,
+settlement and recovery metrics among them). The config
 (config/federation.py) refuses them.
 """
 
@@ -60,10 +80,15 @@ from dataclasses import dataclass, field
 from functools import partial
 from typing import (Any, Callable, Dict, List, Optional, Protocol, Sequence)
 
-import numpy as np
 import torch
 
 from metisfl_tpu_torch.aggregation import DEVICE_RULES, make_aggregation_rule
+from metisfl_tpu_torch.aggregation.secure import SecureAgg
+from metisfl_tpu_torch.aggregation.streaming import (
+    StreamingAggregator,
+    streaming_supported,
+)
+from metisfl_tpu_torch.aggregation.tree import TreeReducer
 from metisfl_tpu_torch.comm.messages import (
     EvalResult,
     EvalTask,
@@ -73,12 +98,14 @@ from metisfl_tpu_torch.comm.messages import (
     TrainTask,
 )
 from metisfl_tpu_torch.config import FederationConfig
-from metisfl_tpu_torch.scaling import make_scaler
+from metisfl_tpu_torch.scaling import make_scaler, raw_weight
 from metisfl_tpu_torch.scheduling import make_scheduler
+from metisfl_tpu_torch.secure import recovery
+from metisfl_tpu_torch.secure.distributed import MaskedStreamingAggregator
 from metisfl_tpu_torch.selection import make_selector
 from metisfl_tpu_torch.store import IngestPipeline, make_store
 from metisfl_tpu_torch.tensor.pytree import ModelBlob, to_numpy
-from metisfl_tpu_torch.tensor.spec import quantify
+from metisfl_tpu_torch.tensor.spec import TensorKind, TensorSpec, quantify
 
 logger = logging.getLogger("metisfl_tpu_torch.controller")
 
@@ -123,6 +150,9 @@ class LearnerRecord:
     num_test_examples: int = 0
     # completed batches of the stored model's task (the batches scaler)
     completed_batches: int = 0
+    # the masking party index it joined with (-1: not a masking party),
+    # which maps its id to its mask streams in a settlement
+    party_index: int = -1
     proxy: Optional[LearnerProxy] = None
 
 
@@ -180,7 +210,7 @@ class Controller:
 
     def __init__(self, config: FederationConfig,
                  proxy_factory: Callable[[LearnerRecord], LearnerProxy],
-                 device: str = "cuda"):
+                 device: str = "cuda", secure_backend=None):
         self.config = config
         self._proxy_factory = proxy_factory
         self._lock = threading.RLock()
@@ -191,7 +221,13 @@ class Controller:
 
         agg = config.aggregation
         self.device = torch.device(device)
-        self._aggregator = self._make_rule(config)
+        if config.secure.enabled:
+            if secure_backend is None:
+                raise ValueError("secure aggregation enabled but no "
+                                 "backend given")
+            self._aggregator = SecureAgg(secure_backend)
+        else:
+            self._aggregator = self._make_rule(config)
         self._scaler = make_scaler(agg.scaler)
         self._selector = make_selector("scheduled_cardinality")
         self._scheduler = make_scheduler(config.protocol)
@@ -217,6 +253,34 @@ class Controller:
             self._ingest = IngestPipeline(
                 self._store, store_cfg.ingest_workers,
                 on_insert=self._note_ingest_insert, accept=self.is_member)
+        # streaming: fold accepted uplinks on arrival for the weighted-sum
+        # rules; what cannot stream falls back to the store path (secure
+        # payloads stream through the masked stream below)
+        self._streaming: Optional[StreamingAggregator] = None
+        if agg.streaming and not config.secure.enabled:
+            if streaming_supported(self._aggregator.name, config.protocol,
+                                   config.secure.enabled, lineage,
+                                   required,
+                                   checkpointed=bool(config.checkpoint.dir)):
+                self._streaming = StreamingAggregator(
+                    self._aggregator, stride=agg.stride_length)
+            else:
+                logger.info(
+                    "aggregation.streaming requested but rule=%s/"
+                    "protocol=%s/lineage=%d does not support it; using the "
+                    "store path", self._aggregator.name, config.protocol,
+                    lineage)
+        # the tree tier: O(branch) fan-in for the store path
+        self._tree: Optional[TreeReducer] = None
+        if agg.tree.enabled:
+            self._tree = TreeReducer(branch=agg.tree.branch,
+                                     workers=agg.tree.workers)
+        # masked streaming: under scheme: masking with streaming the
+        # controller folds masked uplinks on arrival as modular sums
+        self._masked_stream: Optional[MaskedStreamingAggregator] = None
+        if (config.secure.enabled and config.secure.scheme == "masking"
+                and agg.streaming):
+            self._masked_stream = MaskedStreamingAggregator()
 
         # the community model's wire bytes
         self._community_blob: Optional[bytes] = None
@@ -265,6 +329,8 @@ class Controller:
         # before the store's own shutdown
         if self._ingest is not None:
             self._ingest.shutdown()
+        if self._tree is not None:
+            self._tree.shutdown()
         self._store.shutdown()
 
     # ------------------------------------------------------------------ #
@@ -297,6 +363,9 @@ class Controller:
                     record.num_train_examples = request.num_train_examples
                     record.num_val_examples = request.num_val_examples
                     record.num_test_examples = request.num_test_examples
+            if record is not None:
+                record.party_index = int(request.capabilities.get(
+                    "party_index", record.party_index))
             rejoined = record is not None
             if record is None:
                 learner_id = (f"L{len(self._tokens)}_{request.hostname}_"
@@ -307,7 +376,9 @@ class Controller:
                     hostname=request.hostname, port=request.port,
                     num_train_examples=request.num_train_examples,
                     num_val_examples=request.num_val_examples,
-                    num_test_examples=request.num_test_examples)
+                    num_test_examples=request.num_test_examples,
+                    party_index=int(request.capabilities.get(
+                        "party_index", -1)))
                 self._learners[learner_id] = record
                 self._tokens[learner_id] = token
             record.proxy = self._proxy_factory(record)
@@ -337,6 +408,11 @@ class Controller:
             logger.error("ingest drain for departing %s timed out; its "
                          "queued writes will be gate-dropped", learner_id)
         self._store.erase([learner_id])
+        if self._streaming is not None and not self._shutdown.is_set():
+            # subtract its streamed contribution on the scheduling worker
+            # (the fold state is single-threaded)
+            self._pool.submit(self._guard, self._streaming.forget,
+                              learner_id)
         logger.info("learner %s left", learner_id)
         # the departed learner may have been the last one the barrier
         # waited on: no later completion would re-check it
@@ -363,12 +439,9 @@ class Controller:
     # ------------------------------------------------------------------ #
 
     def set_community_model(self, blob_bytes: bytes) -> None:
-        """Seed (or overwrite) the community model from wire bytes."""
+        """Seed (or overwrite) the community model from wire bytes (a secure
+        federation's may be opaque)."""
         blob = ModelBlob.from_bytes(blob_bytes)
-        if blob.opaque:
-            raise NotImplementedError(
-                "encrypted community models are not ported to "
-                "metisfl_tpu_torch yet (ROADMAP.md Queue 1 item 3c)")
         with self._lock:
             self._community_blob = bytes(blob_bytes)
             if blob.tensors and hasattr(self._aggregator, "seed_community"):
@@ -426,8 +499,10 @@ class Controller:
             self._current_meta.train_received_at[result.learner_id] = start
             self._current_meta.uplink_bytes[result.learner_id] = len(
                 result.model)
+        blob = None
         try:
-            model = self._parse_result_model(result)
+            blob = ModelBlob.from_bytes(result.model)
+            model = self._parse_result_model(result, blob)
         except ValueError as exc:
             # a malformed payload costs its own contribution, not the round
             logger.warning("dropping malformed result from %s for task %s: "
@@ -436,7 +511,29 @@ class Controller:
                 self._current_meta.errors.append(
                     f"malformed result from {result.learner_id}: {exc}")
             model = None
-        if model is not None and self._ingest is not None:
+        if model is not None and self._masked_stream is not None:
+            # masked streaming: the raw masked blob folds on arrival as a
+            # modular uint64 sum; an uplink of another round carries dead
+            # masks (streams are round-keyed) and never enters the sum
+            folded = False
+            if blob.opaque:
+                try:
+                    folded = self._masked_stream.fold(
+                        result.learner_id, dict(blob.opaque),
+                        result.round_id)
+                except ValueError as exc:
+                    logger.warning("unfoldable masked uplink from %s: %s",
+                                   result.learner_id, exc)
+            if not folded:
+                logger.info("masked uplink from %s dropped (another "
+                            "round's or malformed)", result.learner_id)
+                model = None
+        elif model is not None and self._streaming is not None:
+            # streaming: the accepted uplink folds straight into the
+            # community accumulator, no store round trip
+            if not self._stream_fold(result, model):
+                model = None
+        elif model is not None and self._ingest is not None:
             # enqueue and go on: the writer records the write's own time
             # (_note_ingest_insert) and applies the result's metadata only
             # when the write lands (_ingest_landed); aggregation fences on
@@ -444,8 +541,11 @@ class Controller:
             self._ingest.submit(result.learner_id, model,
                                 on_success=partial(self._ingest_landed,
                                                    result))
+            model = None
         elif model is not None:
             self._store.insert(result.learner_id, model)
+        if model is not None:
+            # the step count pairs with the stored (or streamed) model
             with self._lock:
                 record.completed_batches = result.completed_batches
         with self._lock:
@@ -493,16 +593,45 @@ class Controller:
             logger.info("round abandoned (dispatched cohort left); "
                         "re-dispatching")
             self._scheduler.reset()
+            self._abandon_streams()
             self._dispatch_train(self._sample_cohort())
 
-    def _parse_result_model(self, result: TaskResult) -> Dict[str, np.ndarray]:
-        """Uplink wire bytes → flat ``{name: np.ndarray}`` (host numpy: the
-        store and the fold stay on the host)."""
-        blob = ModelBlob.from_bytes(result.model)
-        if blob.opaque:
-            raise ValueError("opaque (encrypted/masked) payloads are not "
-                             "ported")
+    def _abandon_streams(self) -> None:
+        """Drop the round's streamed fold state (an abandoned or failed
+        round re-dispatches clean; FedRec's rolling state stays)."""
+        if self._streaming is not None:
+            self._streaming.abandon()
+        if self._masked_stream is not None:
+            self._masked_stream.abandon()
+
+    def _parse_result_model(self, result: TaskResult, blob: ModelBlob):
+        """An uplink (``blob`` parsed from its wire bytes) → flat ``{name:
+        np.ndarray}`` (host numpy: the store and the fold stay on the
+        host); under secure aggregation an opaque uplink stays its wire
+        bytes."""
+        if self.config.secure.enabled and blob.opaque:
+            return result.model
         return {name: to_numpy(t) for name, t in blob.tensors}
+
+    def _stream_fold(self, result: TaskResult, model) -> bool:
+        """Fold one accepted uplink into the streaming accumulator with
+        its raw weight (the cohort's normalizer is unknown until barrier
+        release; ``finish`` divides by Σw). Returns False when nothing was
+        accepted (a payload that is not a tensor tree)."""
+        if not isinstance(model, dict) or not model:
+            return False
+        with self._lock:
+            record = self._learners.get(result.learner_id)
+            if record is None:
+                return False
+            entry = {"num_train_examples": record.num_train_examples,
+                     "completed_batches": result.completed_batches}
+        weight = raw_weight(self.config.aggregation.scaler, entry)
+        if weight <= 0.0:
+            # the batch scalers would give it scale 0: accept, fold nothing
+            return True
+        self._streaming.fold(result.learner_id, model, weight)
+        return True
 
     # ------------------------------------------------------------------ #
     # round close
@@ -517,6 +646,8 @@ class Controller:
             self._compute_community_model(selected)
         except Exception as exc:
             self._agg_failures += 1
+            # the retry starts from a clean round
+            self._abandon_streams()
             with self._lock:
                 self._current_meta.errors.append(
                     f"aggregation failed: {exc!r}")
@@ -568,10 +699,12 @@ class Controller:
             }
 
     def _compute_community_model(self, selected: Sequence[str]) -> None:
-        """Aggregate the selected cohort from the store by the rule's kind
-        (module docstring); the store is read one block of
-        ``stride_length`` models at a time, and the fold rules keep only
-        that block (plus their accumulator) resident."""
+        """Aggregate the selected cohort by the path and the rule's kind
+        (module docstring): the masked stream's settlement, the secure
+        combine, the plain stream's finish, or the store, read one block
+        of ``stride_length`` models at a time (the fold rules keep only
+        that block and their accumulator resident; the tree tier one
+        sub-block per slice worker)."""
         t0 = time.perf_counter()
         drain_ms = 0.0
         if self._ingest is not None:
@@ -608,21 +741,81 @@ class Controller:
                 block_sizes.append(len(block))
                 block_ms.append((time.perf_counter() - b0) * 1e3)
 
-        # FedStride's state is one round's; FedRec's lives across rounds
-        if agg.name == "fedstride":
-            agg.reset()
-        community = None
-        device_ms: Dict[str, Any] = {}
-        if getattr(agg, "requires_full_cohort", False):
-            # robust rules: a median cannot fold stride-wise; every
-            # selected model enters one combine
+        def collect_all():
+            """(pairs, present ids) of the whole cohort, for the rules
+            that combine it in one call."""
             pairs, present_ids = [], []
             for _, present, block_pairs in blocks():
                 pairs += block_pairs
                 present_ids += present
+            return pairs, present_ids
+
+        def finish_stream(stream, *args):
+            """A stream's finish, recorded as one block of its folds."""
+            b0 = time.perf_counter()
+            folded = stream.stats()["folded"]
+            out = stream.finish(*args)
+            block_sizes.append(folded)
+            block_ms.append((time.perf_counter() - b0) * 1e3)
+            return out
+
+        # FedStride's state is one round's (under streaming it holds the
+        # round's folds, and finish() resets it); FedRec's lives across
+        # rounds
+        if agg.name == "fedstride" and self._streaming is None:
+            agg.reset()
+        secure = self.config.secure
+        community = None
+        device_ms: Dict[str, Any] = {}
+        if self._masked_stream is not None:
+            # the round's masked sums accumulated on arrival: reconcile
+            # the contributors against the mask parties and settle
+            snap = finish_stream(self._masked_stream, selected)
+            if snap is not None:
+                community = self._settle_masked(*snap)
+        elif secure.enabled:
+            # opaque payloads: one combine over the whole cohort (masks
+            # cancel only across every party, or with a recovered residual)
+            pairs, present_ids = collect_all()
+            if pairs:
+                parsed = self._parse_secure(pairs)
+                correction = None
+                if secure.scheme == "masking":
+                    correction = self._masking_dropout_correction(
+                        present_ids, parsed)
+                community = agg.aggregate(parsed, correction=correction)
+        elif self._streaming is not None:
+            # the community model is already accumulated: finalize it,
+            # zero store reads
+            community = finish_stream(self._streaming, selected)
+        elif getattr(agg, "requires_full_cohort", False):
+            # robust rules: a median cannot fold stride-wise; every
+            # selected model enters one combine
+            pairs, present_ids = collect_all()
             if pairs:
                 community = agg.aggregate(pairs, learner_ids=present_ids)
                 device_ms = dict(agg.last_timing)
+        elif self._tree is not None and agg.name in ("fedavg", "fedstride"):
+            # the tree tier: slice folds on worker threads, O(branch) root
+            # fan-in; stride_length 0 passes through, so the tier bounds
+            # each worker by its own sub-block
+            select_times: List[float] = []
+
+            def fetch(block):
+                b0 = time.perf_counter()
+                picked = self._store.select(block, k=lineage_k)
+                select_times.append((time.perf_counter() - b0) * 1e3)
+                return picked
+
+            reduced = self._tree.reduce(
+                ids, scales, fetch,
+                stride=self.config.aggregation.stride_length)
+            select_ms = sum(select_times)
+            if reduced is not None:
+                community, partials = reduced
+                for part in partials:
+                    block_sizes.append(part.count)
+                    block_ms.append(round(part.duration_ms, 3))
         elif hasattr(agg, "accumulate"):
             # fold rules: FedAvg, FedNova, and the server optimizers over
             # the FedAvg fold (their step runs once, inside result())
@@ -659,10 +852,11 @@ class Controller:
         pack_ms = (time.perf_counter() - p0) * 1e3
         agg_ms = (time.perf_counter() - t0) * 1e3
         sizes = {"values": 0, "non_zeros": 0, "zeros": 0, "bytes": 0}
-        for arr in community.values():
-            q = quantify(arr)
-            for key in sizes:
-                sizes[key] += q[key]
+        if not secure.enabled:
+            for arr in community.values():
+                q = quantify(arr)
+                for key in sizes:
+                    sizes[key] += q[key]
         with self._lock:
             self._community_blob = blob
             # the stateful rules' step of this round counts from here on
@@ -681,8 +875,131 @@ class Controller:
             meta.store_select_duration_ms = select_ms
             meta.model_size = sizes
 
-    def _community_to_blob(self, community: Dict[str, np.ndarray]) -> bytes:
+    def _community_to_blob(self, community: Dict[str, Any]) -> bytes:
+        if self.config.secure.enabled:
+            return ModelBlob(opaque=dict(community)).to_bytes()
         return ModelBlob(tensors=list(community.items())).to_bytes()
+
+    # -- secure aggregation ----------------------------------------------
+
+    def _parse_secure(self, pairs):
+        """Stored secure uplinks (wire bytes) → their opaque entries."""
+        parsed = []
+        for lineage, scale in pairs:
+            models = []
+            for item in lineage:
+                if isinstance(item, (bytes, bytearray)):
+                    models.append(dict(ModelBlob.from_bytes(item).opaque))
+                else:
+                    models.append(item)
+            parsed.append((models, scale))
+        return parsed
+
+    def _mask_parties(self, ids: Sequence[str]):
+        """(party index of each registered id of ``ids``, the party count
+        to settle against: ``secure.num_parties``, which the driver fills
+        in, else one more than the largest registered index)."""
+        with self._lock:
+            idx_of = {lid: self._learners[lid].party_index
+                      for lid in ids if lid in self._learners}
+            registered = {r.party_index for r in self._learners.values()
+                          if r.party_index >= 0}
+        n = self.config.secure.num_parties or (
+            max(registered) + 1 if registered else 0)
+        return idx_of, n
+
+    def _settle_masked(self, sums, specs, contributors):
+        """Settle a round's masked streamed sums (secure/recovery.py) into
+        the opaque community payload: reconcile the contributors against
+        the mask parties, recover dropouts from one survivor, unmask, and
+        wrap the float64 payloads as SecureAgg's output. Raises when the
+        cohort cannot settle, so the aggregation-failure retry re-runs the
+        round clean."""
+        cfg = self.config.secure
+        idx_of, n = self._mask_parties(contributors)
+        missing = [lid for lid in contributors if lid not in idx_of]
+        if missing:
+            raise RuntimeError(
+                f"masked contributors {missing} have no registration "
+                "record; their party indices are unknown and the sum "
+                "cannot settle")
+        if n <= 0:
+            raise RuntimeError(
+                "mask settlement needs the party count (secure.num_parties"
+                " or the joined capabilities['party_index'] values)")
+
+        def recover_fn(rid, surviving, dropped, lengths):
+            return self._request_mask_recovery(
+                rid, surviving, dropped, lengths, list(contributors))
+
+        payloads, report = recovery.settle(
+            sums, idx_of, n, max(2, cfg.min_recovery_parties),
+            self.global_iteration, recover_fn)
+        if report.recovered:
+            logger.info("round %d settled with %d dropped parties "
+                        "recovered in %.3f ms", report.round_id,
+                        len(report.dropped), report.duration_ms)
+        return {name: (payload, TensorSpec(tuple(specs[name].shape),
+                                           specs[name].dtype,
+                                           TensorKind.CIPHERTEXT))
+                for name, payload in payloads.items()}
+
+    def _request_mask_recovery(self, round_id, surviving, dropped, lengths,
+                               candidates):
+        """Ask the surviving learners, one at a time, for the dropped
+        parties' residual (``recover_masks``; the learner enforces the
+        privacy thresholds). Returns the per-tensor correction, None when
+        the transport cannot recover, and raises when every survivor
+        refused or failed."""
+        last_error = None
+        for lid in candidates:
+            with self._lock:
+                record = self._learners.get(lid)
+            if record is None or record.proxy is None:
+                continue
+            if not hasattr(record.proxy, "recover_masks"):
+                return None
+            try:
+                corrections = record.proxy.recover_masks(
+                    int(round_id), list(surviving), list(dropped),
+                    list(lengths))
+            except Exception as exc:  # noqa: BLE001 - try the next one
+                last_error = exc
+                continue
+            logger.warning("masking dropout recovery: %s computed residuals "
+                           "for dropped parties %s (surviving %d)", lid,
+                           list(dropped), len(surviving))
+            return corrections
+        raise RuntimeError(f"masking dropout recovery failed on every "
+                           f"survivor: {last_error!r}")
+
+    def _masking_dropout_correction(self, present_ids, parsed):
+        """The store path's dropout recovery: where the cohort misses
+        registered mask parties, one survivor's residual for them, as
+        ``{tensor name: bytes}``; None when nobody dropped or the party
+        indices are unknown (the combine then needs every party). Raises
+        below the survivor threshold."""
+        idx_of, n = self._mask_parties(present_ids)
+        surviving = sorted(idx_of.values())
+        if n <= 0 or not surviving or -1 in surviving:
+            return None
+        if len(surviving) == n:
+            return None
+        min_parties = max(2, self.config.secure.min_recovery_parties)
+        if len(surviving) < min_parties:
+            raise RuntimeError(
+                f"masking dropout recovery needs >= {min_parties} surviving "
+                f"parties, have {len(surviving)}")
+        dropped = sorted(set(range(n)) - set(surviving))
+        first = parsed[0][0][0]
+        names = list(first)
+        lengths = [int(first[name][1].size) for name in names]
+        corrections = self._request_mask_recovery(
+            self.global_iteration, surviving, dropped, lengths,
+            list(present_ids))
+        if corrections is None:
+            return None
+        return dict(zip(names, corrections))
 
     # -- dispatch ---------------------------------------------------------
 
@@ -700,6 +1017,10 @@ class Controller:
                            "tasks")
             return
         t0 = time.perf_counter()
+        if self._masked_stream is not None:
+            # mask streams are round-keyed: a fold of another round's
+            # uplink into this round's sum would never cancel
+            self._masked_stream.begin_round(self.global_iteration)
         self._scheduler.notify_dispatched(list(learner_ids))
         with self._lock:
             if not self._current_meta.started_at:
@@ -822,6 +1143,10 @@ class Controller:
                     set(self._current_meta.train_submitted_at)
                     - set(self._current_meta.train_received_at)),
                 "community_model_bytes": len(blob) if blob else 0,
+                **({"streaming": self._streaming.stats()}
+                   if self._streaming is not None else {}),
+                **({"secure_stream": self._masked_stream.stats()}
+                   if self._masked_stream is not None else {}),
             }
 
     def get_statistics(self) -> dict:

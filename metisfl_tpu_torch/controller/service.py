@@ -10,8 +10,9 @@ health, a status snapshot and shutdown. Each server builds its
 constructed and the gRPC server only in :meth:`ControllerServer.start`, so
 the handlers can be driven by direct calls where grpc is not installed.
 
-Not ported: the registry methods (ROADMAP.md Queue 1 item 3g),
-``GetMetrics`` (item 4) and the masks-recovery request (item 3c).
+The controller's proxy of a learner also asks it for a masking dropout
+residual (``RecoverMasks``). Not ported: the registry methods (ROADMAP.md
+Queue 1 item 3g) and ``GetMetrics`` (item 4).
 """
 
 from __future__ import annotations
@@ -78,6 +79,16 @@ class RpcLearnerProxy:
             callback=lambda raw: callback(EvalResult.from_wire(raw)),
             error_callback=lambda exc: logger.warning(
                 "EvaluateModel on %s failed: %s", self._learner_id, exc))
+
+    def recover_masks(self, round_id: int, surviving, dropped,
+                      lengths) -> list:
+        """Blocking masking-dropout recovery: the learner computes the
+        dropped parties' residual masks."""
+        raw = self._client.call("RecoverMasks", dumps(
+            {"round_id": int(round_id), "surviving": list(surviving),
+             "dropped": list(dropped), "lengths": list(lengths)}),
+            timeout=60.0, wait_ready=False)
+        return loads(raw)["corrections"]
 
 
 class ControllerServer:

@@ -5,7 +5,9 @@ training and real aggregation over direct-call proxies, with every model
 round-tripped through the ModelBlob wire bytes as a remote federation
 would. Each learner's engine runs on the device its caller chose
 (``TorchModelOps(..., device="cuda")`` by default); ``device`` (``cuda``
-by default) is the controller's, where the robust rules combine.
+by default) is the controller's, where the robust rules combine. Under
+secure aggregation the controller takes a keyless ``secure_backend`` and
+each learner its own (``add_learner(..., secure_backend=)``).
 """
 
 from __future__ import annotations
@@ -37,6 +39,11 @@ class _DirectLearnerProxy:
     def run_task(self, task: TrainTask) -> None:
         self._get_learner().run_task(task)
 
+    def recover_masks(self, round_id: int, surviving, dropped,
+                      lengths) -> list:
+        return self._get_learner().recover_masks(round_id, surviving,
+                                                 dropped, lengths)
+
     def evaluate(self, task: EvalTask, callback) -> None:
         learner = self._get_learner()
 
@@ -58,7 +65,8 @@ class _DirectLearnerProxy:
 class InProcessFederation:
     """Wire a controller and learners with direct proxies and run rounds."""
 
-    def __init__(self, config: FederationConfig, device: str = "cuda"):
+    def __init__(self, config: FederationConfig, device: str = "cuda",
+                 secure_backend=None):
         term = config.termination
         if term.execution_cutoff_mins > 0 or term.metric_cutoff_score > 0:
             raise NotImplementedError(
@@ -69,7 +77,8 @@ class InProcessFederation:
         self._learners_by_port: Dict[int, Learner] = {}
         self._proxies: List[_DirectLearnerProxy] = []
         self.controller = Controller(config, self._make_proxy,
-                                     device=device)
+                                     device=device,
+                                     secure_backend=secure_backend)
         self.learners: List[Learner] = []
 
     def _make_proxy(self, record: LearnerRecord) -> LearnerProxy:
@@ -79,7 +88,7 @@ class InProcessFederation:
         return proxy
 
     def add_learner(self, model_ops, train_dataset, val_dataset=None,
-                    test_dataset=None) -> Learner:
+                    test_dataset=None, secure_backend=None) -> Learner:
         port = 50100 + len(self.learners)
         learner = Learner(
             model_ops=model_ops,
@@ -88,6 +97,7 @@ class InProcessFederation:
             test_dataset=test_dataset,
             port=port,
             controller=self.controller,
+            secure_backend=secure_backend,
         )
         self._learners_by_port[port] = learner
         self.learners.append(learner)

@@ -13,8 +13,9 @@ recipe per learner and one ModelBlob; the statistics land in
 Each process runs where its endpoint says: ``""``, ``localhost`` and
 ``127.0.0.1`` as a local subprocess (:class:`LocalLauncher`), any other
 host over ``ssh`` (:class:`SSHLauncher`, the reference's fabric bootstrap),
-after ``scp`` has copied its files (the config, the learner's recipe,
-the TLS pair) to the same absolute paths there. The remote host is
+after ``scp`` has copied its files (the config, the learner's recipe and
+secure-aggregation material, the TLS pair) to the same absolute paths
+there. The remote host is
 assumed to hold the repo at the same path (``PYTHONPATH`` names the local
 package root) and an interpreter named by the launcher's ``python``. A
 process's output comes back through the local ``ssh`` client into
@@ -24,14 +25,21 @@ registered with the controller (or its configured host and logged port),
 and one that does not serve yet is stopped where it runs (over ssh for a
 remote one), never by signalling the local ``ssh`` client alone.
 
+Secure aggregation: before the controller boots, the driver makes each
+learner's material (CKKS keys in ``<workdir>/he_keys`` unless
+``secure.key_dir`` names a directory that holds them, or one masking
+federation secret with a party index per learner, and ``secure.
+num_parties``) and writes it to ``<workdir>/learner_<i>_secure.bin``,
+which the learner reads through ``--secure-config``. The controller's
+config carries no decryption capability.
+
 The port's controller dispatches no train task after
 ``termination.federation_rounds`` rounds, so the rounds criterion ends an
 idle federation; the two cutoffs end one mid-round.
 
 Not ported, and raising ``NotImplementedError`` with the ROADMAP.md Queue 1
 item: ``resume`` and the controller's supervision and hot standby (3f),
-secure-aggregation key material (3c, refused by the config), serving (5),
-and trace and post-mortem collection (4).
+serving (5), and trace and post-mortem collection (4).
 """
 
 from __future__ import annotations
@@ -40,6 +48,7 @@ import json
 import logging
 import os
 import re
+import secrets
 import shlex
 import subprocess
 import sys
@@ -51,6 +60,7 @@ from typing import Any, Callable, Dict, List, Optional, Sequence
 import cloudpickle
 import numpy as np
 
+from metisfl_tpu_torch.comm.codec import dumps as codec_dumps
 from metisfl_tpu_torch.comm.rpc import RpcClient
 from metisfl_tpu_torch.config import FederationConfig, LearnerEndpoint
 from metisfl_tpu_torch.config.federation import not_ported
@@ -255,6 +265,52 @@ class DriverSession:
         return [p for p in (self.config.ssl.cert_path,
                             self.config.ssl.key_path) if p]
 
+    def _secure_path(self, idx: int) -> str:
+        return os.path.join(self.workdir, f"learner_{idx}_secure.bin")
+
+    def _prepare_secure(self) -> None:
+        """Make and write each learner's secure-aggregation material (the
+        reference's driver-side keygen and key shipping): CKKS keys, or the
+        masking federation secret with each learner's party index. The
+        controller's config learns only the scheme and the party count."""
+        cfg = self.config.secure
+        if not cfg.enabled:
+            return
+        n = len(self.learner_recipes)
+        if cfg.scheme == "ckks":
+            key_dir = cfg.key_dir or os.path.join(self.workdir, "he_keys")
+            if not os.path.exists(os.path.join(key_dir, "sk.bin")):
+                from metisfl_tpu_torch.secure.ckks import generate_keys
+                generate_keys(key_dir)
+            cfg.key_dir = key_dir
+            files = [{"scheme": "ckks", "key_dir": key_dir, "kwargs": {}}] * n
+        elif cfg.scheme == "masking":
+            cfg.num_parties = n
+            secret = secrets.token_hex(32)
+            files = [{"scheme": "masking", "kwargs": {
+                "federation_secret": secret, "party_index": idx,
+                "num_parties": n, "min_parties": cfg.min_recovery_parties,
+                "neighbors": cfg.mask_neighbors}} for idx in range(n)]
+        else:  # identity
+            files = [{"scheme": cfg.scheme, "kwargs": {}}] * n
+        for idx, payload in enumerate(files):
+            path = self._secure_path(idx)
+            with open(path, "wb") as f:
+                f.write(codec_dumps(payload))
+            os.chmod(path, 0o600)
+
+    def _secure_files(self, idx: int) -> List[str]:
+        """The files learner ``idx`` needs for secure aggregation (shipped
+        with its recipe to a remote host)."""
+        if not self.config.secure.enabled:
+            return []
+        files = [self._secure_path(idx)]
+        if self.config.secure.scheme == "ckks":
+            key_dir = self.config.secure.key_dir
+            files += [os.path.join(key_dir, "pk.bin"),
+                      os.path.join(key_dir, "sk.bin")]
+        return files
+
     def _endpoint(self, idx: int) -> LearnerEndpoint:
         if idx < len(self.config.learners):
             return self.config.learners[idx]
@@ -271,8 +327,9 @@ class DriverSession:
 
     def initialize_federation(self, health_retries: int = 60,
                               health_sleep_s: float = 0.5) -> None:
-        """Boot the controller, wait until it answers, ship the seed model,
-        then launch the learners."""
+        """Make the secure material, boot the controller, wait until it
+        answers, ship the seed model, then launch the learners."""
+        self._prepare_secure()
         ctrl_host = self.config.controller_host or "localhost"
         if self.config.ssl.enabled and not self.config.ssl.cert_path:
             # the federation's self-signed pair, made on first boot
@@ -369,8 +426,11 @@ class DriverSession:
         if self.config.ssl.enabled:
             args += ["--ssl-cert", self.config.ssl.cert_path,
                      "--ssl-key", self.config.ssl.key_path]
+        if self.config.secure.enabled:
+            args += ["--secure-config", self._secure_path(idx)]
         return self._launch(name, ep.hostname or "localhost", args,
-                            self.learner_env, ship=[recipe_path])
+                            self.learner_env,
+                            ship=[recipe_path, *self._secure_files(idx)])
 
     def _wait_healthy(self, deadline: float, sleep_s: float) -> None:
         last_exc: Optional[Exception] = None

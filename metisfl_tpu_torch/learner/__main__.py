@@ -2,7 +2,11 @@
 
 The port's copy of the JAX package's ``learner/__main__.py``. The model
 and the data arrive as a cloudpickled recipe: a zero-argument callable
-returning ``(model_ops, train_ds, val_ds, test_ds)``, run in this process.
+returning ``(model_ops, train_ds, val_ds, test_ds[, secure_backend])``,
+run in this process. Without a backend in the recipe, ``--secure-config``
+names the secure-aggregation material the driver wrote for this learner
+(a codec file: the scheme, the CKKS key directory, or the masking
+secret and party index).
 The engine runs where the recipe put it (``TorchModelOps`` defaults to
 ``cuda``); ``--device`` (default ``cuda``) names the device the caller
 expects, and a recipe whose engine is elsewhere is refused rather than
@@ -15,9 +19,9 @@ until a ShutDown RPC, SIGTERM or SIGINT, and leaves the federation on
 the way out. Its identity (learner id and token) persists in
 ``--credentials-dir``, so a restarted learner rejoins as itself.
 
-Not ported: the secure-aggregation material (ROADMAP.md Queue 1 item 3c),
-the controller's standby endpoint (3f), multi-host learners (9), and the
-telemetry and post-mortem directories (4).
+Not ported: the controller's standby endpoint (ROADMAP.md Queue 1 item
+3f), multi-host learners (9), and the telemetry and post-mortem
+directories (4).
 """
 
 from __future__ import annotations
@@ -33,12 +37,13 @@ import sys
 import cloudpickle
 import torch
 
+from metisfl_tpu_torch.comm.codec import loads as codec_loads
 from metisfl_tpu_torch.comm.ssl import SSLConfig
-from metisfl_tpu_torch.config import CommConfig
-from metisfl_tpu_torch.config.federation import not_ported
+from metisfl_tpu_torch.config import CommConfig, SecureAggConfig
 from metisfl_tpu_torch.controller.service import ControllerClient
 from metisfl_tpu_torch.learner.learner import Learner
 from metisfl_tpu_torch.learner.service import LearnerServer
+from metisfl_tpu_torch.secure import make_backend
 
 _CREDS_NAME = "credentials.json"
 logger = logging.getLogger("metisfl_tpu_torch.learner")
@@ -84,6 +89,9 @@ def main(argv=None) -> int:
     parser.add_argument("--credentials-dir", default="",
                         help="persist learner_id/auth_token here for "
                              "restarts")
+    parser.add_argument("--secure-config", default="",
+                        help="this learner's secure-aggregation material "
+                             "(written by the driver)")
     parser.add_argument("--ssl-cert", default="",
                         help="federation TLS cert (enables TLS)")
     parser.add_argument("--ssl-key", default="")
@@ -106,8 +114,14 @@ def main(argv=None) -> int:
     model_ops, train_ds = built[0], built[1]
     val_ds = built[2] if len(built) > 2 else None
     test_ds = built[3] if len(built) > 3 else None
-    if len(built) > 4 and built[4] is not None:
-        raise not_ported("secure-aggregation backends", "3c")
+    secure_backend = built[4] if len(built) > 4 else None
+    if secure_backend is None and args.secure_config:
+        with open(args.secure_config, "rb") as f:
+            sc = codec_loads(f.read())
+        secure_backend = make_backend(
+            SecureAggConfig(enabled=True, scheme=sc["scheme"],
+                            key_dir=sc.get("key_dir", "")),
+            role="learner", **sc.get("kwargs", {}))
     want = torch.device(args.device)
     if model_ops.device.type != want.type:
         parser.error(f"the recipe's engine is on {model_ops.device}, but "
@@ -135,6 +149,7 @@ def main(argv=None) -> int:
         test_dataset=test_ds,
         hostname=args.advertise_host or socket.gethostname(),
         controller=controller,
+        secure_backend=secure_backend,
     )
     server = LearnerServer(learner, host=args.host, port=args.port, ssl=ssl)
     port = server.start()

@@ -1,18 +1,26 @@
 """Learner runtime: runs train and eval tasks against local data.
 
 The port's copy of the JAX package's ``learner/learner.py`` for the
-synchronous FedAvg round: join the federation, run a train task on one
-worker thread (a new task cancels the running one between steps), ship the
+synchronous round: join the federation, run a train task on one worker
+thread (a new task cancels the running one between steps), ship the
 trained weights back as a ModelBlob, and evaluate community models. The
 engine is a :class:`~metisfl_tpu_torch.models.ops.TorchModelOps` on the
 device its caller chose; weights move by value through the wire blob.
 
+Secure aggregation: with a ``secure_backend`` (secure/) the learner
+encrypts or masks every uplink tensor from its float64 values, in the
+tensor order of the wire, and decrypts an opaque community model into
+the engine's dtypes; a masking backend starts each train task's round
+(``begin_round``), joins with its party index, and computes a dropped
+party's residual on request (:meth:`Learner.recover_masks`). The backend
+is host numpy: no secure work runs on the card.
+
 Not ported yet, and refused when a task asks for them
 (``NotImplementedError`` from :meth:`Learner.run_task` or
 :meth:`Learner.evaluate`): SCAFFOLD control variates, client-level DP,
-secure (encrypted or masked) uplinks, int8q/top-k uplinks, FedBN local
-tensors and ship-only-trainable subsets (ROADMAP.md Queue 1 item 3e);
-controller-failover re-attach and telemetry (items 3f and 4).
+int8q/top-k uplinks, FedBN local tensors and ship-only-trainable subsets
+(ROADMAP.md Queue 1 item 3e); controller-failover re-attach and telemetry
+(items 3f and 4).
 """
 
 from __future__ import annotations
@@ -22,6 +30,8 @@ import threading
 import time
 from concurrent.futures import ThreadPoolExecutor
 from typing import Dict, Optional, Protocol
+
+import torch
 
 from metisfl_tpu_torch.comm.messages import (
     EvalResult,
@@ -38,9 +48,15 @@ from metisfl_tpu_torch.tensor.pytree import (
     named_tensors_to_pytree,
     narrow_tensors,
     pytree_to_named_tensors,
+    tensor_from_float64,
     tree_map,
+    wire_dtype_of,
 )
-from metisfl_tpu_torch.tensor.spec import resolve_ship_dtype
+from metisfl_tpu_torch.tensor.spec import (
+    TensorKind,
+    TensorSpec,
+    resolve_ship_dtype,
+)
 
 logger = logging.getLogger("metisfl_tpu_torch.learner")
 
@@ -87,8 +103,10 @@ class Learner:
         test_dataset: Optional[ArrayDataset] = None,
         hostname: str = "localhost",
         port: int = 0,
+        secure_backend=None,
     ):
         self.model_ops = model_ops
+        self.secure_backend = secure_backend
         self.datasets: Dict[str, Optional[ArrayDataset]] = {
             "train": train_dataset,
             "valid": val_dataset,
@@ -117,6 +135,13 @@ class Learner:
 
     def join_federation(self, previous_id: str = "",
                         auth_token: str = "") -> JoinReply:
+        capabilities = {}
+        party_index = getattr(self.secure_backend, "party_index", None)
+        if party_index is not None and hasattr(self.secure_backend,
+                                               "recovery_correction"):
+            # masking: the controller maps learner ids to mask parties to
+            # ask for a dropped party's residual
+            capabilities["party_index"] = int(party_index)
         reply = self.controller.join(JoinRequest(
             hostname=self.hostname,
             port=self.port,
@@ -125,6 +150,7 @@ class Learner:
             num_test_examples=len(self.datasets["test"] or []),
             previous_id=previous_id,
             auth_token=auth_token,
+            capabilities=capabilities,
         ))
         self.learner_id = reply.learner_id
         self.auth_token = reply.auth_token
@@ -141,11 +167,18 @@ class Learner:
 
     def _load_model(self, blob_bytes: bytes):
         """Wire blob → variables tree of (CPU) tensors in the engine's
-        training dtypes (a community model may arrive narrower)."""
+        training dtypes (a community model may arrive narrower, or opaque
+        under secure aggregation: decrypted into its plaintext dtypes)."""
         blob = ModelBlob.from_bytes(blob_bytes)
+        named = blob.tensors
         if blob.opaque:
-            raise _not_ported("encrypted or masked community models", "3c")
-        tree = named_tensors_to_pytree(blob.tensors, self._dtypes_like)
+            if self.secure_backend is None:
+                raise RuntimeError("received an encrypted model without a "
+                                   "secure backend")
+            named = [(name, tensor_from_float64(
+                spec, self.secure_backend.decrypt(payload, spec.size)))
+                for name, (payload, spec) in blob.opaque.items()]
+        tree = named_tensors_to_pytree(named, self._dtypes_like)
         return tree_map(lambda a, dt: a if a.dtype == dt else a.to(dt),
                         tree, self._dtypes_like)
 
@@ -155,6 +188,17 @@ class Learner:
         if variables is None:
             variables = self.model_ops.get_variables()
         named = pytree_to_named_tensors(variables)
+        if self.secure_backend is not None:
+            # one payload per tensor, in the wire's tensor order (a masking
+            # backend derives each tensor's mask from its position)
+            opaque = {}
+            for name, t in named:
+                t = as_tensor(t).detach().cpu()
+                values = t.to(torch.float64).reshape(-1).numpy()
+                opaque[name] = (self.secure_backend.encrypt(values),
+                                TensorSpec(tuple(t.shape), wire_dtype_of(t),
+                                           TensorKind.CIPHERTEXT))
+            return ModelBlob(opaque=opaque).to_bytes()
         if ship_dtype:
             named = narrow_tensors(named, ship_dtype)
         return ModelBlob(tensors=named).to_bytes()
@@ -184,6 +228,10 @@ class Learner:
             self.model_ops.set_variables(self._load_model(task.model))
             out = self.model_ops.train(self.datasets["train"], params,
                                        cancel_event=self._cancel)
+            # masking: the round keys the task's mask streams
+            if self.secure_backend is not None and hasattr(
+                    self.secure_backend, "begin_round"):
+                self.secure_backend.begin_round(task.round_id)
             if self._cancel.is_set():
                 logger.info("%s: task %s cancelled", self.learner_id,
                             task.task_id)
@@ -236,6 +284,18 @@ class Learner:
             evaluations=evaluations,
             duration_ms=(time.time() - t0) * 1e3,
         )
+
+    def recover_masks(self, round_id: int, surviving, dropped,
+                      lengths) -> list:
+        """Masking dropout recovery: the dropped parties' residual mask of
+        round ``round_id``, which any survivor can compute from the
+        federation secret; the controller subtracts it from the partial
+        sum. The backend refuses what would disclose a payload."""
+        backend = self.secure_backend
+        if backend is None or not hasattr(backend, "recovery_correction"):
+            raise RuntimeError("this learner has no masking backend")
+        return backend.recovery_correction(round_id, list(surviving),
+                                           list(dropped), list(lengths))
 
     def shutdown(self) -> None:
         self._shutdown.set()

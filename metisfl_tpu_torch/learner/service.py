@@ -2,15 +2,15 @@
 
 The port's copy of the JAX package's ``learner/service.py``, with its
 service and method names: RunTask (acks at once; training runs on the
-learner's own thread), EvaluateModel (blocking), health and shutdown. The
+learner's own thread), EvaluateModel (blocking), RecoverMasks (masking
+dropout recovery: the dropped parties' residual), health and shutdown. The
 services are built when the server is constructed and the gRPC server
 only in :meth:`LearnerServer.start`, so the handlers can be driven by
 direct calls where grpc is not installed.
 
 Not ported: ``RunInference`` (the port's ``Learner`` has no infer task
-yet; ROADMAP.md Queue 1 item 5), ``RecoverMasks`` (item 3c) and
-``GetMetrics`` (item 4). The first two answer with an error that names
-the item.
+yet; ROADMAP.md Queue 1 item 5), which answers with an error that names
+the item, and ``GetMetrics`` (item 4).
 """
 
 from __future__ import annotations
@@ -19,7 +19,7 @@ import logging
 import threading
 from typing import List, Optional
 
-from metisfl_tpu_torch.comm.codec import dumps
+from metisfl_tpu_torch.comm.codec import dumps, loads
 from metisfl_tpu_torch.comm.health import (
     NOT_SERVING,
     SERVING,
@@ -71,7 +71,11 @@ class LearnerServer:
         raise not_ported("the learner's inference task", "5")
 
     def _recover_masks(self, raw: bytes) -> bytes:
-        raise not_ported("masking dropout recovery", "3c")
+        req = loads(raw)
+        corrections = self.learner.recover_masks(
+            req["round_id"], req["surviving"], req["dropped"],
+            req["lengths"])
+        return dumps({"corrections": corrections})
 
     def _health(self, raw: bytes) -> bytes:
         return dumps({"status": "SERVING",

@@ -1,10 +1,11 @@
 """Native (C++) host components, built with ``g++`` at first use (the
-port's copy of the loader half of the JAX package's ``native/__init__.py``;
-its CKKS library waits for secure aggregation, ROADMAP.md Queue 1 item
-3c).
+port's copy of the JAX package's ``native/__init__.py``).
 
 - ``hostfold.cc``: the streaming weighted fold of host-path aggregation
-  (``aggregation/base.py``).
+  (``aggregation/base.py``);
+- ``ckks.cc``: the coefficient-packed RLWE scheme of CKKS secure
+  aggregation (``secure/ckks.py``). The port never loads the JAX
+  package's prebuilt copy: it builds its own.
 
 Each library builds into ``build/metisfl_tpu_torch/`` beside the package
 with the JAX package's flags (``-O3 -std=c++17 -march=native -shared
@@ -120,4 +121,38 @@ def load_hostfold() -> ctypes.CDLL:
                            ctypes.c_long, ctypes.c_long, ctypes.c_int]
         lib.hostfold_selftest.restype = ctypes.c_int
         _libs["hostfold"] = lib
+        return lib
+
+
+def load_ckks() -> ctypes.CDLL:
+    """The CKKS library with typed signatures."""
+    with _lock:
+        if "ckks" in _libs:
+            return _libs["ckks"]
+        lib = _load("ckks")
+        lib.ckks_n.restype = ctypes.c_long
+        lib.ckks_ciphertext_size.restype = ctypes.c_long
+        lib.ckks_ciphertext_size.argtypes = [ctypes.c_long]
+        lib.ckks_keygen.restype = ctypes.c_int
+        lib.ckks_keygen.argtypes = [ctypes.c_char_p]
+        lib.ckks_open.restype = ctypes.c_void_p
+        lib.ckks_open.argtypes = [ctypes.c_char_p, ctypes.c_int]
+        lib.ckks_close.argtypes = [ctypes.c_void_p]
+        lib.ckks_has_secret.restype = ctypes.c_int
+        lib.ckks_has_secret.argtypes = [ctypes.c_void_p]
+        lib.ckks_encrypt.restype = ctypes.c_long
+        lib.ckks_encrypt.argtypes = [
+            ctypes.c_void_p, ctypes.POINTER(ctypes.c_double), ctypes.c_long,
+            ctypes.POINTER(ctypes.c_ubyte), ctypes.c_long]
+        lib.ckks_weighted_sum.restype = ctypes.c_long
+        lib.ckks_weighted_sum.argtypes = [
+            ctypes.POINTER(ctypes.c_char_p), ctypes.POINTER(ctypes.c_long),
+            ctypes.POINTER(ctypes.c_double), ctypes.c_long,
+            ctypes.POINTER(ctypes.c_ubyte), ctypes.c_long]
+        lib.ckks_decrypt.restype = ctypes.c_long
+        lib.ckks_decrypt.argtypes = [
+            ctypes.c_void_p, ctypes.POINTER(ctypes.c_ubyte), ctypes.c_long,
+            ctypes.POINTER(ctypes.c_double), ctypes.c_long]
+        lib.ckks_selftest.restype = ctypes.c_int
+        _libs["ckks"] = lib
         return lib

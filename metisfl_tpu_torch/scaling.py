@@ -48,8 +48,8 @@ SCALERS: Dict[str, Callable[[Metadata], Dict[str, float]]] = {
 
 def raw_weight(scaler_name: str, entry: Mapping[str, float]) -> float:
     """Unnormalized contribution weight for ONE learner — a fold of
-    uplinks as they arrive (the JAX package's streaming path, not ported
-    yet) happens before the cohort (and therefore the normalizer Σw) is
+    uplinks as they arrive (the streaming tier, aggregation/streaming.py)
+    happens before the cohort (and therefore the normalizer Σw) is
     known, so it uses raw weights and divides by z = Σw at finalize.
     Proportional to the batch scalers above within any one round (the
     community model is identical up to fp reassociation).

@@ -141,6 +141,23 @@ def tensor_from_payload(spec: TensorSpec, payload) -> torch.Tensor:
         spec.shape)
 
 
+def tensor_from_float64(spec: TensorSpec, values) -> torch.Tensor:
+    """Decoded float64 values (a secure payload's plaintext) as a CPU
+    tensor of ``spec``'s dtype and shape, rounded as numpy rounds them:
+    straight from float64 where numpy has the dtype, through float32 for
+    bf16 and fp8 (as ml_dtypes casts)."""
+    dtype = _WIRE_TO_TORCH.get(spec.dtype)
+    if dtype is None:
+        raise ValueError(f"wire dtype {spec.dtype!r} has no torch dtype here")
+    values = np.asarray(values, np.float64)
+    try:
+        np_dtype = torch.empty(0, dtype=dtype).numpy().dtype
+    except TypeError:
+        return torch.from_numpy(values.astype(np.float32)).to(dtype).reshape(
+            spec.shape)
+    return torch.from_numpy(values.astype(np_dtype)).reshape(spec.shape)
+
+
 def _escape(part: str) -> str:
     # '/' joins path components; escape literal '/' (and the escape char) so
     # {'a': {'b': x}} and {'a/b': y} can never collide.

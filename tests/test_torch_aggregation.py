@@ -278,12 +278,12 @@ def test_aggregate_rejects_empty_and_result_before_accumulate():
 
 
 @pytest.mark.parametrize("name", ["fedstride", "fedrec", "scaffold",
-                                  "fedadam", "median", "krum", "secure_agg"])
+                                  "fedadam", "median", "krum"])
 def test_other_rules_are_not_ported(name):
-    """FederationConfig refuses the rules still unported (scaffold, 3e;
-    secure_agg, 3c) by name, and the factory does not know them; the
-    ported ones are accepted by the config and built by the factory."""
-    if name in ("scaffold", "secure_agg"):
+    """FederationConfig refuses the rule still unported (scaffold, 3e) by
+    name, and the factory does not know it; the ported ones are accepted
+    by the config and built by the factory."""
+    if name == "scaffold":
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             FederationConfig(aggregation=AggregationConfig(rule=name))
         with pytest.raises(ValueError, match="unknown aggregation rule"):

@@ -50,7 +50,6 @@ from metisfl_tpu_torch.config import (
     FederationConfig,
     ModelStoreConfig,
     SchedulingConfig,
-    SecureAggConfig,
     TerminationConfig,
     TreeAggregationConfig,
 )
@@ -600,13 +599,12 @@ UNSUPPORTED = {
     "protocol_asynchronous": lambda: FederationConfig(protocol="asynchronous"),
     "protocol_buffered": lambda: FederationConfig(
         protocol="asynchronous_buffered"),
-    "secure": lambda: FederationConfig(secure=SecureAggConfig(enabled=True)),
     "rule_scaffold": lambda: FederationConfig(
         aggregation=AggregationConfig(rule="scaffold")),
-    "streaming": lambda: FederationConfig(
-        aggregation=AggregationConfig(streaming=True)),
-    "tree": lambda: FederationConfig(aggregation=AggregationConfig(
-        tree=TreeAggregationConfig(enabled=True))),
+    # the in-process tree tier is ported; its distributed tier is not
+    "tree_distributed": lambda: FederationConfig(
+        aggregation=AggregationConfig(tree=TreeAggregationConfig(
+            enabled=True, distributed=True))),
     # the stores are ported; what stays refused around them is the disk
     # store's checkpoints (3f) and the distributed tree tier that the JAX
     # package refuses beside parallel ingest (3c)
