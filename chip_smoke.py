@@ -118,13 +118,40 @@ It drives the port only (it imports no jax and nothing of the JAX package):
    round, learner 1's endpoint ``127.0.0.2``: shipped its recipe and
    launched through ``ssh``/``scp`` stand-ins on ``PATH`` that run here
    (the machine has no second host, and the phase's lines say so), every
-   process exiting 0 and the ShutDown RPC reaching it at that hostname.
+   process exiting 0 and the ShutDown RPC reaching it at that hostname;
+10. tiers (after 8): the in-process LlamaLite round on the store path,
+   under streaming, under the tree tier at branch 2 and under masking with
+   streaming; the CNN with processes under masking (a learner leaving
+   mid-round, its masks recovered) and under CKKS. The LlamaLite rounds
+   of 9 and 10 run at full width and depth ``CUT_DEPTH`` (2), for the
+   script's time;
+11. uplinks: in-process LlamaLite rounds at full width (3 learners,
+   equal shards), the int8q round at full depth and every other round at
+   depth ``CUT_DEPTH``: (a) two slice aggregator processes (``python -m
+   metisfl_tpu_torch.aggregation.slice``, booted by
+   ``DriverSession.start_slices``) under ``tree: {branch 2,
+   distributed}``, 2 rounds: the root store sees no insert and no select,
+   each slice's spool holds its learners' round-1 uplinks, each community
+   is a ``TreeReducer`` fold of its recorded uplinks in sorted-id order,
+   a slice acks one 755 MB uplink submitted alone (timed), and the
+   round-1 uplinks replayed through a fresh reducer, undisturbed and with
+   slice 1 SIGKILLed after its first ack, give the same bits (the kill
+   run re-homes); (b) SCAFFOLD over SGD steps, 2 rounds: ``c`` against a
+   numpy replay of its fold, ``c - c_i`` reaching each engine in round 1,
+   the weights a FedAvg re-fold; (c) an int8q uplink under a bf16
+   downlink and a topk16 uplink: the controller's dequantized or
+   densified tensors against a numpy replay of the wire blobs, the
+   community their re-fold; (d) client-level DP without noise (each
+   update's norm <= the clip) and with it (the noise's norm against sigma
+   x sqrt(n)); (e) a LoRA round under ``ship_tensor_regex``: only the
+   adapters travel, each frozen base bit-identical. It prints the
+   submit, spool, fold and round seconds and the bytes of every variant.
 
 It prints a ``{"federation": {...}}`` line (round walls and their split,
 ms per step, blob bytes, launches), a ``{"multiprocess": {...}}`` line
 (the same with a process per learner, and each process's peak device
-memory), ``{"wide_heads": ...}``, ``{"store": ...}`` and ``{"rules": ...}``
-lines, a
+memory), ``{"wide_heads": ...}``, ``{"store": ...}``, ``{"rules": ...}``,
+``{"tiers_secure": ...}`` and ``{"uplinks": ...}`` lines, a
 ``{"kernels": [...]}`` line (each kernel's launches by path: K1-K3 at
 D = 64 on the main paths, and a row per wide-heads case and wrapper with
 its launches there, each measured at its path's shape: the tensor-core
@@ -180,6 +207,10 @@ FED_ROUNDS, FED_STEPS, FED_ROWS, FED_EVAL_ROWS = 1, 2, 16, 8
 # multiprocess phase: the LlamaLite federation above with a process per
 # learner, 2 rounds (in process it runs 1, for the script's time)
 MP_ROUNDS = 2
+# the rules and tiers phases and parts of the uplinks phase run their
+# LlamaLite rounds at full width but this depth (a 390 MB blob against the 755 MB
+# one), for the script's time
+CUT_DEPTH = 2
 # the community model against a float64 weighted mean of the uplinks,
 # relative to max|w| per tensor (an f32 accumulator over 3 models)
 FED_F64_REL = 1e-6
@@ -1303,7 +1334,9 @@ class RoundProbe:
                 (ops, "set_variables", "load_flax_variables"),
                 (ops, "train", "train_call"),
                 (ops, "get_variables", "weights_copy_out"),
-                (learner, "_dump_model", "blob_pack")):
+                (learner, "_dump_model", "blob_pack"),
+                # a top-k uplink packs here instead
+                (learner, "_dump_sparse", "blob_pack")):
             self._wrap(obj, name, self._record(i, stage))
 
     def split(self, stats):
@@ -2854,10 +2887,11 @@ def ssh_shims(bindir):
 
 
 def rules_phase(smoke, gpu, fedavg_llama_walls):
-    """(a) one in-process LlamaLite round under ``median`` with the
-    controller on the card: its community against the rule re-applied to
-    the round's uplinks, K1-K3 counted in the learners' training; (b) each
-    of the eleven rules on those three full-width uplinks, on the card
+    """(a) one in-process LlamaLite round (full width, depth
+    ``CUT_DEPTH``) under ``median`` with the controller on the card: its
+    community against the rule re-applied to the round's uplinks, K1-K3
+    counted in the learners' training; (b) each of the eleven rules on
+    those three full-width uplinks, on the card
     against the CPU path; (c) the CNN federation in process, 2 rounds
     under each of fedrec, fednova, fedadam and multikrum, each round's
     community against the rule replayed over the recorded uplinks; (d) the
@@ -2885,7 +2919,7 @@ def rules_phase(smoke, gpu, fedavg_llama_walls):
     out = {"learners": FED_LEARNERS}
     # (a) full-width LlamaLite, 1 round under median, the controller on
     # the card
-    llama = dict(vocab_size=VOCAB, dim=DIM, depth=DEPTH, heads=HEADS,
+    llama = dict(vocab_size=VOCAB, dim=DIM, depth=CUT_DEPTH, heads=HEADS,
                  kv_heads=KV_HEADS, dtype=torch.bfloat16)
     variables = random_variables(LlamaLite(**llama, device="meta"), SEED)
     seed = parse_blob(pack_model(variables))
@@ -2918,8 +2952,9 @@ def rules_phase(smoke, gpu, fedavg_llama_walls):
     probe, stats = run_federation(fed)
     sync()
     k1, k2, k3 = (fn.launches for fn in counters)
-    train_launches = FED_LEARNERS * FED_STEPS * DEPTH
-    eval_launches = FED_LEARNERS * -(-FED_EVAL_ROWS // TRAIN_BATCH) * DEPTH
+    train_launches = FED_LEARNERS * FED_STEPS * CUT_DEPTH
+    eval_launches = (FED_LEARNERS * -(-FED_EVAL_ROWS // TRAIN_BATCH)
+                     * CUT_DEPTH)
     smoke.check(k2 == k3 == train_launches
                 and k1 == train_launches + eval_launches,
                 f"rules median round: K2 {k2} and K3 {k3} launches = "
@@ -2949,8 +2984,9 @@ def rules_phase(smoke, gpu, fedavg_llama_walls):
         "fedavg_round_wall_s": fedavg_llama_walls,
         "launches": {"flash_fwd": k1, "flash_bwd_dq": k2,
                      "flash_bwd_dkv": k3}}
-    print(f"rules median round: wall {split['wall_s']:.3f} s (fedavg in "
-          f"the federation phase: {fedavg_llama_walls} s); fold stage "
+    print(f"rules median round (depth {CUT_DEPTH}): wall "
+          f"{split['wall_s']:.3f} s (fedavg in the federation phase, depth "
+          f"{DEPTH}: {fedavg_llama_walls} s); fold stage "
           f"{split['controller_s']['fold']:.3f} s", flush=True)
     del fed, probe, community, again
     empty_cache()
@@ -3165,8 +3201,9 @@ def opaque_payloads(blob):
 
 
 def tiers_secure_phase(smoke, gpu):
-    """(a) the in-process full-width LlamaLite round on the store path and
-    under ``aggregation.streaming`` (fedavg), the same seeds; (b) the same
+    """(a) the in-process full-width LlamaLite round (depth ``CUT_DEPTH``)
+    on the store path and under ``aggregation.streaming`` (fedavg), the
+    same seeds; (b) the same
     round under the tree tier at branch 2; (c) under ``scheme: masking``
     with streaming (masked uplinks fold on arrival, the barrier settles);
     (d) the FashionMNIST CNN with a process per learner under masking and
@@ -3204,7 +3241,7 @@ def tiers_secure_phase(smoke, gpu):
     from metisfl_tpu_torch.secure import MaskingBackend
 
     out = {"learners": FED_LEARNERS}
-    llama = dict(vocab_size=VOCAB, dim=DIM, depth=DEPTH, heads=HEADS,
+    llama = dict(vocab_size=VOCAB, dim=DIM, depth=CUT_DEPTH, heads=HEADS,
                  kv_heads=KV_HEADS, dtype=torch.bfloat16)
     variables = random_variables(LlamaLite(**llama, device="meta"), SEED)
     tokens = np.random.default_rng(SEED + 5).integers(
@@ -3402,8 +3439,9 @@ def tiers_secure_phase(smoke, gpu):
     del fed, probe, backends, plain, payloads, sums
     empty_cache()
 
-    per_round = FED_LEARNERS * FED_STEPS * DEPTH
-    eval_per_round = FED_LEARNERS * -(-FED_EVAL_ROWS // TRAIN_BATCH) * DEPTH
+    per_round = FED_LEARNERS * FED_STEPS * CUT_DEPTH
+    eval_per_round = (FED_LEARNERS * -(-FED_EVAL_ROWS // TRAIN_BATCH)
+                      * CUT_DEPTH)
     rounds = 4
     smoke.check(k2 == k3 == rounds * per_round
                 and k1 == rounds * (per_round + eval_per_round),
@@ -3586,6 +3624,595 @@ def secure_processes(smoke, scheme):
     print(f"{label}: round walls {[round(w, 3) for w in out['round_wall_s']]}"
           f" s", flush=True)
     shutil.rmtree(MP_DIR, ignore_errors=True)
+    return out
+
+
+# uplinks phase: the distributed slice tier and the uplink variants on
+# in-process LlamaLite rounds (3 learners, equal FED_ROWS-row shards)
+UPLINKS_DIR = os.path.join(REPO, "build", "chip_smoke_uplinks")
+UPLINKS_BRANCH = 2
+# client-level DP: the clip bound, and the noise multiplier of the noised
+# round. A shipped update is the clipped delta (norm <= clip) plus the
+# noise, so its norm brackets the noise's within +-clip: at sigma =
+# DP_NOISE x DP_CLIP and n ~ 1.9e8 coordinates that bracket is 0.07% of
+# sigma x sqrt(n), and the chi distribution's own spread ~5e-5
+DP_CLIP, DP_NOISE = 1.0, 0.1
+DP_NORM_REL = 0.01
+LORA_RANK = 8
+
+
+def float_norm(tree, base=None):
+    """sqrt(sum of squares) over the floating leaves of a flat tree (minus
+    ``base``), in float64."""
+    total = 0.0
+    for k, v in tree.items():
+        v = np.asarray(v)
+        if not np.issubdtype(v.dtype, np.floating):
+            continue
+        v = v.astype(np.float64)
+        if base is not None:
+            v = v - np.asarray(base[k]).astype(np.float64)
+        total += float(np.dot(v.ravel(), v.ravel()))
+    return float(np.sqrt(total))
+
+
+def wrap(obj, name, after=None, before=None):
+    """Replace ``obj.name`` by a call that runs ``before(*args)`` first and
+    ``after(result, seconds, *args)`` once it returns; returns the
+    original."""
+    fn = getattr(obj, name)
+
+    def wrapped(*args, **kwargs):
+        if before is not None:
+            before(*args, **kwargs)
+        t0 = time.perf_counter()
+        out = fn(*args, **kwargs)
+        if after is not None:
+            after(out, time.perf_counter() - t0, *args, **kwargs)
+        return out
+
+    setattr(obj, name, wrapped)
+    return fn
+
+
+def uplinks_phase(smoke, gpu, tree_wall_s=None):
+    """The distributed slice tier and the uplink variants, on in-process
+    LlamaLite rounds at full width (3 learners, equal shards): (a) two
+    slice aggregator processes, booted by ``DriverSession.start_slices``,
+    under ``tree: {branch 2, distributed}``, 2 rounds (round 0's tasks go
+    out as the learners join, before any assignment, and fold at the
+    root's residual buffer; round 1's cohort goes through the slices), one
+    full-depth 755 MB uplink submitted to a slice as the controller
+    submits, then the recorded round-1 uplinks replayed through a fresh
+    reducer, undisturbed and with slice 1 SIGKILLed after its first ack;
+    (b) SCAFFOLD, 2 rounds of SGD steps; (c) an int8q uplink under a bf16
+    downlink, then a topk16 uplink; (d) client-level DP without noise,
+    then with it; (e) a LoRA round under ``ship_tensor_regex``. The int8q
+    round runs at full depth, every other round at depth ``CUT_DEPTH``.
+    ``tree_wall_s`` is the tiers phase's in-process tree round (depth
+    ``CUT_DEPTH``), the distributed round's comparison. Every check holds
+    the port to a numpy replay of what it recorded."""
+    import gc
+    import resource
+
+    import torch
+
+    from metisfl_tpu_torch.aggregation import FedAvg
+    from metisfl_tpu_torch.aggregation.base import np_finalize
+    from metisfl_tpu_torch.aggregation.distributed import (
+        DistributedSliceReducer,
+    )
+    from metisfl_tpu_torch.aggregation.slice import read_spool
+    from metisfl_tpu_torch.aggregation.tree import (
+        _DEFAULT_SUBBLOCK,
+        TreeReducer,
+    )
+    from metisfl_tpu_torch.comm import TrainParams
+    from metisfl_tpu_torch.comm.codec import dumps
+    from metisfl_tpu_torch.config import (
+        AggregationConfig,
+        EvalConfig,
+        FederationConfig,
+        TerminationConfig,
+    )
+    from metisfl_tpu_torch.config.federation import TreeAggregationConfig
+    from metisfl_tpu_torch.controller import core as controller_core
+    from metisfl_tpu_torch.driver import DriverSession, InProcessFederation
+    from metisfl_tpu_torch.models import ArrayDataset, TorchModelOps
+    from metisfl_tpu_torch.models.zoo import LlamaLite
+    from metisfl_tpu_torch.ops.flash_attention import (
+        flash_attention_fwd,
+        flash_bwd_dkv,
+        flash_bwd_dq,
+    )
+    from metisfl_tpu_torch.scaling import make_scaler
+    from metisfl_tpu_torch.store.durable import atomic_write
+    from metisfl_tpu_torch.tensor import pack_model
+    from metisfl_tpu_torch.tensor.quantize import dequantize_named
+    from metisfl_tpu_torch.tensor.sparse import densify_named
+
+    out = {"learners": FED_LEARNERS}
+    llama = dict(vocab_size=VOCAB, dim=DIM, heads=HEADS, kv_heads=KV_HEADS,
+                 dtype=torch.bfloat16)
+    # full depth for the int8q round and the timed 755 MB hop to a slice;
+    # every other round at CUT_DEPTH, for the script's time
+    seeds = {depth: random_variables(
+        LlamaLite(**llama, depth=depth, device="meta"), SEED)
+        for depth in (DEPTH, CUT_DEPTH)}
+    blobs = {depth: pack_model(seeds[depth]) for depth in seeds}
+    flats = {depth: parse_blob(blob) for depth, blob in blobs.items()}
+    sizes = {depth: len(blob) for depth, blob in blobs.items()}
+    blob_bytes = sizes[DEPTH]
+    out["blob_bytes"] = sizes
+    # the seconds of each part, (a) to (e)
+    part_s, t_part = {}, [time.perf_counter()]
+
+    def part_done(name):
+        now = time.perf_counter()
+        part_s[name] = now - t_part[0]
+        t_part[0] = now
+        print(f"uplinks {name}: {part_s[name]:.3f} s", flush=True)
+
+    tokens = np.random.default_rng(SEED + 5).integers(
+        0, VOCAB, (FED_LEARNERS * FED_ROWS + FED_EVAL_ROWS, TRAIN_LEN + 1)
+    ).astype(np.int32)
+    test = ArrayDataset(tokens[-FED_EVAL_ROWS:, :-1],
+                        tokens[-FED_EVAL_ROWS:, 1:])
+    scaler = make_scaler("train_dataset_size")
+    shutil.rmtree(UPLINKS_DIR, ignore_errors=True)
+    os.makedirs(UPLINKS_DIR)
+
+    def llama_round(train, aggregation=None, rounds=1, lora=0, seed=None,
+                    depth=DEPTH):
+        """A LlamaLite federation of ``rounds`` rounds in process; ``train``
+        overrides the round's TrainParams (2 Adam steps at 1e-4)."""
+        seed = seed or seeds[depth]
+        depths_run.extend([depth] * rounds)
+        cfg = FederationConfig(
+            aggregation=aggregation or AggregationConfig(
+                scaler="train_dataset_size"),
+            train=TrainParams(**{
+                "batch_size": TRAIN_BATCH, "local_steps": FED_STEPS,
+                "optimizer": "adam", "learning_rate": 1e-4, **train}),
+            eval=EvalConfig(batch_size=TRAIN_BATCH, datasets=["test"],
+                            metrics=["loss", "accuracy"]),
+            termination=TerminationConfig(federation_rounds=rounds))
+        fed = InProcessFederation(cfg, device=DEVICE)
+        for i in range(FED_LEARNERS):
+            rows = tokens[i * FED_ROWS:(i + 1) * FED_ROWS]
+            ops = TorchModelOps(
+                LlamaLite(**llama, depth=depth, lora_rank=lora,
+                          use_flash=True),
+                variables=seed, device=DEVICE,
+                trainable_regex="lora_" if lora else "")
+            fed.add_learner(ops, ArrayDataset(rows[:, :-1], rows[:, 1:],
+                                              seed=SEED + i),
+                            test_dataset=test)
+        fed.seed_model(seed)
+        return fed
+
+    def scales_of(selected):
+        return scaler({lid: {"num_train_examples": FED_ROWS}
+                       for lid in selected})
+
+    def task_bytes(fed):
+        """Each learner's downlink bytes per task: (model, control)."""
+        seen = {}
+        for learner in fed.learners:
+            wrap(learner, "run_task", before=lambda task, ln=learner:
+                 seen.setdefault(ln.port, []).append(
+                     (len(task.model), len(task.control))))
+        return seen
+
+    def summary(label, probe, stats, r=0):
+        split = probe.split(stats)[r]
+        meta = stats["round_metadata"][r]
+        losses = [v["loss"] for v in meta["train_metrics"].values()]
+        smoke.check(len(losses) == FED_LEARNERS
+                    and all(np.isfinite(losses)),
+                    f"{label}: round {r} completed, train losses "
+                    f"{[round(v, 4) for v in losses]} finite")
+        print(f"{label}: round {r} wall {split['wall_s']:.3f} s, fold "
+              f"stage {split['controller_s']['fold']:.3f} s, uplinks "
+              f"{sorted(meta['uplink_bytes'].values())} bytes", flush=True)
+        return split
+
+    def release():
+        gc.collect()
+        empty_cache()
+
+    counters = (flash_attention_fwd, flash_bwd_dq, flash_bwd_dkv)
+    for fn in counters:
+        fn.launches = 0
+    depths_run = []   # the depth of every round the phase runs
+
+    # (a) the distributed slice tier: the fleet booted as DriverSession
+    # boots it, the controller in this process
+    fleet = DriverSession(FederationConfig(aggregation=AggregationConfig(
+        scaler="train_dataset_size", tree=TreeAggregationConfig(
+            enabled=True, branch=UPLINKS_BRANCH, distributed=True))),
+        {}, [], workdir=UPLINKS_DIR, device=DEVICE)
+    try:
+        specs = fleet.start_slices()
+        fed = llama_round({}, fleet.config.aggregation, rounds=2,
+                          depth=CUT_DEPTH)
+        ctrl = fed.controller
+        touched, submits, reduces = [], [], []
+        for name in ("insert", "select"):
+            wrap(ctrl._store, name, before=lambda *a, _n=name, **k:
+                 touched.append(_n))
+        wrap(ctrl._slices, "submit", after=lambda res, dt, *a, **k:
+             submits.append((dt, res)))
+        wrap(ctrl._slices, "reduce", after=lambda res, dt, *a, **k:
+             reduces.append(dt))
+        probe, stats = run_federation(fed)
+        selected = stats["round_metadata"][1]["selected_learners"]
+        ids = sorted(selected)
+        scales = scales_of(ids)
+        smoke.check(not touched and not ctrl._store.learner_ids(),
+                    f"uplinks distributed: the root store saw no insert and "
+                    f"no select ({touched[:3]}), holds "
+                    f"{len(ctrl._store.learner_ids())} models")
+        # round 0 folded at the root (its tasks had no slice yet), round
+        # 1 through the slices: each a TreeReducer fold of the recorded
+        # uplinks in sorted-id order
+        ups = [{lid: parse_blob(probe.uplinks[r][lid]) for lid in
+                stats["round_metadata"][r]["selected_learners"]}
+               for r in range(2)]
+        root = TreeReducer._fold_slice(
+            sorted(ups[0]), scales_of(ups[0]),
+            lambda block: {lid: [ups[0][lid]] for lid in block},
+            _DEFAULT_SUBBLOCK)
+        replay = TreeReducer(branch=UPLINKS_BRANCH)
+        try:
+            want, parts = replay.reduce(
+                ids, scales, lambda block: {lid: [ups[1][lid]]
+                                            for lid in block})
+        finally:
+            replay.shutdown()
+        round1 = parse_blob(probe.communities[1])
+        smoke.check(
+            same_bits(parse_blob(probe.communities[0]),
+                      np_finalize(root.acc, root.z, dtypes=root.dtypes))
+            and same_bits(round1, want),
+            f"uplinks distributed: round 0 equals the root's fold of its "
+            f"{len(ups[0])} uplinks, round 1 TreeReducer (branch "
+            f"{UPLINKS_BRANCH}) over its {len(ids)} recorded uplinks in "
+            f"sorted-id order (slices {[p.count for p in parts]}), bit for "
+            "bit")
+        per = -(-len(ids) // UPLINKS_BRANCH)
+        spooled_ok = True
+        for i, spec in enumerate(specs):
+            spool = read_spool(spec["spool_dir"])
+            group = ids[i * per:(i + 1) * per]
+            spooled_ok &= sorted(spool) == group and all(
+                spool[lid] == probe.uplinks[1][lid] for lid in group)
+        groups = [ids[i * per:(i + 1) * per] for i in range(UPLINKS_BRANCH)]
+        smoke.check(spooled_ok,
+                    f"uplinks distributed: each slice's spool holds its "
+                    f"learners' round-1 uplinks byte for byte ({groups})")
+        # the hop at full depth: the 755 MB seed submitted to a slice as
+        # the controller submits an uplink (encode, chunked gRPC, the
+        # slice's parse and spool write before the ack), then forgotten
+        hop = DistributedSliceReducer(TreeAggregationConfig(
+            enabled=True, branch=UPLINKS_BRANCH, distributed=True,
+            slices=specs))
+        try:
+            hop.assign(["hop"])
+            t0 = time.perf_counter()
+            hop_held = hop.submit("hop", flats[DEPTH], 2)
+            hop_s = time.perf_counter() - t0
+            hop.forget("hop")
+        finally:
+            hop.shutdown()
+        smoke.check(hop_held, f"uplinks distributed: a slice acked the "
+                    f"{blob_bytes}-byte uplink")
+        # one full-depth spool record written as a slice writes it (warm)
+        record = dumps({"learner_id": ids[0], "round": 1,
+                        "model": blobs.pop(DEPTH)})
+        t0 = time.perf_counter()
+        atomic_write(os.path.join(UPLINKS_DIR, "spool_probe.bin"), record,
+                     prefix=".up_")
+        spool_s = time.perf_counter() - t0
+        os.unlink(os.path.join(UPLINKS_DIR, "spool_probe.bin"))
+        del record
+        # what the replays below need is parsed: free the round's blobs
+        probe.uplinks.clear()
+        ups[0] = None
+        split = summary("uplinks distributed", probe, stats, 1)
+        meta = stats["round_metadata"][1]
+        slice_submits = [dt for dt, held in submits[-len(ids):]]
+        out["distributed"] = {
+            "round0": probe.split(stats)[0], "round1": split,
+            "submit_s": [dt for dt, _ in submits],
+            "submit_to_slice": [held for _, held in submits],
+            "hop_submit_s": hop_s, "spool_write_s": spool_s,
+            "slice_fold_ms": meta["aggregation_block_duration_ms"],
+            "reduce_s": reduces, "tree_round_s": tree_wall_s}
+        print(f"uplinks distributed: controller -> slice submit {hop_s:.3f} "
+              f"s a {blob_bytes}-byte uplink, spool write {spool_s:.3f} s "
+              f"(warm); at depth {CUT_DEPTH}: submit "
+              f"{[round(dt, 3) for dt in slice_submits]} s a "
+              f"{sizes[CUT_DEPTH]}-byte uplink, slice folds "
+              f"{meta['aggregation_block_duration_ms']} ms, root fan-in "
+              f"(reduce) {[round(r, 3) for r in reduces]} s, round 1 wall "
+              f"{split['wall_s']:.3f} s against the tiers phase's tree round "
+              f"{tree_wall_s} s", flush=True)
+
+        def replay_round(kill):
+            red = DistributedSliceReducer(TreeAggregationConfig(
+                enabled=True, branch=UPLINKS_BRANCH, distributed=True,
+                slices=specs))
+            try:
+                red.assign(ids)
+
+                def submit(i):
+                    lid = ids[i]
+                    red.submit(lid, ups[1][lid], 1)
+                    if kill and red._base_owner(lid) == 1:
+                        # SIGKILL after its first ack
+                        doomed = next(p.process for p in fleet._procs
+                                      if p.name == "slice_1")
+                        doomed.kill()
+                        doomed.wait(timeout=30)
+
+                # the uplinks land together, as a round's do
+                run_concurrently(submit, len(ids))
+                t0 = time.perf_counter()
+                community, _, errors = red.reduce(ids, scales, round_id=1)
+                return (community, red.describe(), errors,
+                        time.perf_counter() - t0)
+            finally:
+                red.shutdown()
+
+        calm, calm_desc, _, calm_s = replay_round(False)
+        killed, kill_desc, kill_errors, kill_s = replay_round(True)
+        smoke.check(
+            same_bits(calm, killed) and same_bits(calm, round1)
+            and kill_desc["rehomed_total"] >= 1
+            and calm_desc["rehomed_total"] == 0,
+            f"uplinks distributed: the replay with slice 1 SIGKILLed after "
+            f"its first ack re-homed ({kill_desc['rehomed_total']} re-home, "
+            f"{kill_errors}) and equals the undisturbed replay "
+            f"({calm_desc['rehomed_total']} re-homes) and the round, bit "
+            "for bit")
+        out["distributed"].update({"replay_reduce_s": calm_s,
+                                   "kill_reduce_s": kill_s})
+        print(f"uplinks distributed: replay reduce {calm_s:.3f} s, with "
+              f"the kill and re-home {kill_s:.3f} s", flush=True)
+    finally:
+        fleet.stop_slices()
+    del fed, ctrl, probe, ups, want, round1, calm, killed, blobs
+    release()
+
+    part_done("(a) distributed")
+
+    # (b) SCAFFOLD over SGD steps: round 1 is the first with a nonzero c
+    fed = llama_round({"optimizer": "sgd", "learning_rate": 1e-3},
+                      AggregationConfig(rule="scaffold",
+                                        scaler="train_dataset_size"),
+                      rounds=2, depth=CUT_DEPTH)
+    ctrl = fed.controller
+    deltas, cs, cohorts, offsets = {}, [], [], {}
+    wrap(ctrl, "task_completed", before=lambda result: deltas.setdefault(
+        result.round_id, {}).__setitem__(result.learner_id,
+                                         result.control_delta))
+
+    def after_fold(_, dt, cohort):
+        with ctrl._lock:
+            cs.append({k: v.copy() for k, v in ctrl._scaffold_c.items()})
+        cohorts.append(list(cohort))
+
+    wrap(ctrl, "_fold_scaffold_controls", after=after_fold)
+    for learner in fed.learners:
+        wrap(learner.model_ops, "train", before=lambda *a, ln=learner,
+             grad_offset=None, **k: offsets.setdefault(ln.port, []).append(
+                 max(float(np.abs(x).max()) for x in
+                     _leaves(grad_offset))))
+    downs = task_bytes(fed)
+    probe, stats = run_federation(fed)
+    n_active = FED_LEARNERS
+    c = None
+    replay_ok = len(cs) == 2
+    for r in range(min(2, len(cs))):
+        total = {}
+        for lid in cohorts[r]:
+            if lid not in deltas.get(r, {}):
+                continue
+            for name, arr in parse_blob(deltas[r][lid]).items():
+                total[name] = total.get(name, 0.0) + np.asarray(
+                    arr, np.float32)
+        if c is None:
+            c = {n: np.zeros_like(a) for n, a in total.items()}
+        c = {n: c[n] + total[n] / n_active for n in c}
+        replay_ok &= same_bits(cs[r], c)
+    smoke.check(replay_ok,
+                f"uplinks scaffold: c after each of {len(cs)} rounds equals "
+                "a numpy replay of the fold over the recorded control "
+                "deltas, bit for bit")
+    first = [offs[0] for offs in offsets.values()]
+    second = [offs[1] for offs in offsets.values() if len(offs) > 1]
+    smoke.check(len(second) == FED_LEARNERS and max(first) == 0.0
+                and min(second) > 0.0,
+                f"uplinks scaffold: grad_offset c - c_i reached each "
+                f"engine: max|offset| round 0 {first}, round 1 {second}")
+    check_folds(smoke, "uplinks scaffold", probe, stats, 2)
+    ups_bytes = {r: {lid: len(probe.uplinks[r][lid]) + len(deltas[r][lid])
+                     for lid in deltas.get(r, {})} for r in range(2)}
+    out["scaffold"] = {
+        "rounds": [summary("uplinks scaffold", probe, stats, r)
+                   for r in range(2)],
+        "downlink_bytes": {str(p): v for p, v in downs.items()},
+        "uplink_bytes_with_control": ups_bytes,
+        "max_offset": {"round0": first, "round1": second}}
+    print(f"uplinks scaffold: downlink (model, control) bytes "
+          f"{list(downs.values())}, uplink + control delta "
+          f"{[sorted(v.values()) for v in ups_bytes.values()]}", flush=True)
+    del fed, ctrl, probe, deltas, cs, c
+    release()
+
+    part_done("(b) scaffold")
+
+    # (c) the uplink ladder: int8q under a bf16 downlink, then topk16
+    for label, train, depth in (("int8q", {"ship_dtype": "int8q",
+                                           "downlink_dtype": "bf16"}, DEPTH),
+                                ("topk16", {"ship_dtype": "topk16"},
+                                 CUT_DEPTH)):
+        fed = llama_round(train, depth=depth)
+        ctrl = fed.controller
+        parsed, host_s = {}, {"decode": []}
+        wrap(ctrl, "_parse_result_model", after=lambda res, dt, result,
+             blob: parsed.__setitem__(result.learner_id, res))
+        decode_name = ("dequantize_named" if label == "int8q"
+                       else "densify_named")
+        saved = getattr(controller_core, decode_name)
+        wrap(controller_core, decode_name,
+             after=lambda res, dt, *a: host_s["decode"].append(dt))
+        encode_s = []
+        for learner in fed.learners:
+            wrap(learner, "_dump_sparse" if label == "topk16"
+                 else "_dump_model",
+                 after=lambda res, dt, *a, **k: encode_s.append(dt))
+        downs = task_bytes(fed)
+        try:
+            probe, stats = run_federation(fed)
+        finally:
+            setattr(controller_core, decode_name, saved)
+        selected = stats["round_metadata"][0]["selected_learners"]
+
+        def replay_decode(i):
+            wire = parse_blob(probe.uplinks[0][selected[i]])
+            return same_bits(parsed[selected[i]], dequantize_named(wire)
+                             if label == "int8q" else
+                             densify_named(wire, flats[depth]))
+
+        decoded_ok = all(run_concurrently(replay_decode, len(selected))[0])
+        scales = scales_of(selected)
+        refold = FedAvg().aggregate([([parsed[lid]], scales[lid])
+                                     for lid in selected])
+        smoke.check(decoded_ok and same_bits(
+            parse_blob(probe.communities[0]), refold),
+            f"uplinks {label}: the controller's "
+            f"{'dequantized' if label == 'int8q' else 'densified'} tensors "
+            f"equal a numpy replay over the {len(selected)} recorded wire "
+            "blobs, and the community is their FedAvg re-fold, bit for bit")
+        meta = stats["round_metadata"][0]
+        out[label] = {
+            "depth": depth,
+            "round": summary(f"uplinks {label}", probe, stats),
+            "uplink_bytes": meta["uplink_bytes"],
+            "downlink_bytes": [v[0][0] for v in downs.values()],
+            "learner_encode_s": encode_s,
+            "controller_decode_s": host_s["decode"]}
+        print(f"uplinks {label}: uplink "
+              f"{sorted(meta['uplink_bytes'].values())} and downlink "
+              f"{out[label]['downlink_bytes']} bytes against the "
+              f"{sizes[depth]}-byte blob (depth {depth}); learner "
+              f"{'quantize' if label == 'int8q' else 'sparsify'} "
+              f"{[round(v, 3) for v in encode_s]} s, controller "
+              f"{'dequantize' if label == 'int8q' else 'densify'} "
+              f"{[round(v, 3) for v in host_s['decode']]} s", flush=True)
+        del fed, ctrl, probe, parsed, refold
+        release()
+
+    part_done("(c) int8q and topk16")
+
+    # (d) client-level DP, without noise, then with it. A shipped update
+    # is the clipped delta (norm <= clip) plus the noise, so the noise's
+    # norm lies within clip of the shipped update's
+    cut_flat = flats[CUT_DEPTH]
+    coords = sum(int(a.size) for a in cut_flat.values()
+                 if np.issubdtype(a.dtype, np.floating))
+    for noise in (0.0, DP_NOISE):
+        fed = llama_round({"dp_clip_norm": DP_CLIP,
+                           "dp_noise_multiplier": noise}, depth=CUT_DEPTH)
+        probe, stats = run_federation(fed)
+        label = f"uplinks dp noise {noise}"
+        norms = [float_norm(parse_blob(blob), cut_flat)
+                 for blob in probe.uplinks[0].values()]
+        if noise == 0.0:
+            smoke.check(len(norms) == FED_LEARNERS
+                        and all(n <= DP_CLIP * (1 + 1e-6) for n in norms),
+                        f"{label}: each shipped update's norm "
+                        f"{[round(n, 6) for n in norms]} <= clip "
+                        f"{DP_CLIP} x (1 + 1e-6)")
+        else:
+            expect = noise * DP_CLIP * np.sqrt(coords)
+            rel = [max(abs((n - DP_CLIP) / expect - 1.0),
+                       abs((n + DP_CLIP) / expect - 1.0)) for n in norms]
+            smoke.check(len(rel) == FED_LEARNERS
+                        and max(rel) <= DP_NORM_REL,
+                        f"{label}: each learner's noise norm is within "
+                        f"{[f'{v:.2e}' for v in rel]} of sigma x sqrt(n) = "
+                        f"{expect:.4f} (<= {DP_NORM_REL}; n = {coords})")
+        out[f"dp_{noise}"] = {"round": summary(label, probe, stats),
+                              "update_norms": norms}
+        del fed, probe
+        release()
+
+    part_done("(d) dp")
+
+    # (e) ship-only LoRA: only the adapters federate
+    def named(tree, prefix=""):
+        if not isinstance(tree, dict):
+            return {prefix: np.asarray(tree)}
+        out_named = {}
+        for key, sub in tree.items():
+            out_named.update(named(sub, f"{prefix}/{key}" if prefix
+                                   else key))
+        return out_named
+
+    lora_vars = random_variables(
+        LlamaLite(**llama, depth=CUT_DEPTH, lora_rank=LORA_RANK,
+                  device="meta"), SEED + 1)
+    fed = llama_round({"ship_tensor_regex": "lora_"}, lora=LORA_RANK,
+                      seed=lora_vars, depth=CUT_DEPTH)
+    ctrl = fed.controller
+    lora_names = sorted(n for n in named(lora_vars) if "lora_" in n)
+    base = {n: a for n, a in named(lora_vars).items() if "lora_" not in n}
+    seeded_subset = sorted(parse_blob(ctrl.community_model_bytes()))
+    probe, stats = run_federation(fed)
+    up_names = [sorted(parse_blob(b)) for b in probe.uplinks[0].values()]
+    smoke.check(seeded_subset == lora_names
+                and all(names == lora_names for names in up_names)
+                and sorted(parse_blob(probe.communities[0])) == lora_names,
+                f"uplinks ship-only: the seed, the {len(up_names)} uplinks "
+                f"and the community hold only the {len(lora_names)} LoRA "
+                "tensors")
+    frozen_ok = all(
+        same_bits({n: a for n, a in named(
+            learner.model_ops.get_variables()).items()
+            if "lora_" not in n}, base)
+        for learner in fed.learners)
+    smoke.check(frozen_ok, "uplinks ship-only: each learner's frozen base "
+                f"({len(base)} tensors) is bit-identical to the seed's")
+    meta = stats["round_metadata"][0]
+    out["ship_only"] = {"round": summary("uplinks ship-only", probe, stats),
+                        "uplink_bytes": meta["uplink_bytes"]}
+    print(f"uplinks ship-only: uplink "
+          f"{sorted(meta['uplink_bytes'].values())} bytes (depth "
+          f"{CUT_DEPTH}; the full-depth blob is {blob_bytes} bytes)",
+          flush=True)
+    del fed, ctrl, probe, lora_vars, base
+    release()
+
+    part_done("(e) ship-only")
+    out["part_s"] = part_s
+    k1, k2, k3 = (fn.launches for fn in counters)
+    train_k = FED_LEARNERS * FED_STEPS * sum(depths_run)
+    eval_k = FED_LEARNERS * -(-FED_EVAL_ROWS // TRAIN_BATCH) * sum(depths_run)
+    smoke.check(k2 == k3 == train_k and k1 == train_k + eval_k,
+                f"uplinks llama: K2 {k2} and K3 {k3} launches = learners x "
+                f"steps x the depths of the {len(depths_run)} rounds "
+                f"{depths_run} = {train_k}; K1 {k1} = {train_k} + {eval_k} "
+                "(evaluation)")
+    out["launches"] = {"flash_fwd": k1, "flash_bwd_dq": k2,
+                       "flash_bwd_dkv": k3}
+    out["peak_rss_kb"] = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss
+    print(f"uplinks: peak RSS {out['peak_rss_kb']} kB", flush=True)
+    shutil.rmtree(UPLINKS_DIR, ignore_errors=True)
+    out["gpu"] = gpu
+    print(json.dumps({"uplinks": out}, default=str), flush=True)
     return out
 
 
@@ -3897,6 +4524,12 @@ def main() -> int:
         "slice: the controller's streaming and tree tiers, and secure "
         "aggregation (masking with dropout recovery, CKKS)",
         tiers_secure_phase, smoke, gpu)
+    empty_cache()
+    uplinked = smoke.phase(
+        "slice: the distributed slice tier (slice aggregator processes, "
+        "spool, re-homing) and the uplink variants (SCAFFOLD, int8q, "
+        "top-k, bf16 downlink, DP, ship-only)", uplinks_phase, smoke, gpu,
+        ((tiered or {}).get("tree") or {}).get("wall_s"))
 
     # launches on each path that runs a kernel (each path's counts set to
     # 0 just before it and read just after): K1 on every path
@@ -3913,6 +4546,8 @@ def main() -> int:
         "launches", {})
     # the tiers phase's four LlamaLite rounds
     tiers_launches = (tiered or {}).get("launches", {})
+    # the uplinks phase's nine
+    uplinks_launches = (uplinked or {}).get("launches", {})
     rows = []
     if main_case is not None:
         by_path = {"serve": serve_k1,
@@ -3921,7 +4556,8 @@ def main() -> int:
                    "multiprocess": mp_launches.get("flash_fwd", 0),
                    "store": store_launches.get("flash_attention_fwd", 0),
                    "rules": rules_launches.get("flash_fwd", 0),
-                   "tiers": tiers_launches.get("flash_fwd", 0)}
+                   "tiers": tiers_launches.get("flash_fwd", 0),
+                   "uplinks": uplinks_launches.get("flash_fwd", 0)}
         rows.append(("flash_fwd", "flash_fwd.cu", 76, main_case,
                      sum(by_path.values()), by_path))
     for record, line in zip(bwd_cases or [], (126, 162)):
@@ -3930,7 +4566,8 @@ def main() -> int:
                    "multiprocess": mp_launches.get(record["name"], 0),
                    "store": store_launches.get(record["name"], 0),
                    "rules": rules_launches.get(record["name"], 0),
-                   "tiers": tiers_launches.get(record["name"], 0)}
+                   "tiers": tiers_launches.get(record["name"], 0),
+                   "uplinks": uplinks_launches.get(record["name"], 0)}
         rows.append((record["name"], "flash_bwd.cu", line, record,
                      sum(by_path.values()), by_path))
     # the wide-heads path, a row per head dim and wrapper: its launches in

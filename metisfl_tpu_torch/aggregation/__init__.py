@@ -1,7 +1,8 @@
-"""Aggregation rules: the JAX package's registry without ``scaffold``
-(ROADMAP.md Queue 1 item 3e), which ``FederationConfig`` refuses by name.
+"""Aggregation rules: the JAX package's registry.
 
 - :class:`FedAvg`: the weighted average, folded block by block;
+- :class:`Scaffold`: FedAvg's fold, with the control variates around it
+  (the learner and the controller);
 - :class:`FedStride`, :class:`FedRec`: the reference's rolling averages;
 - :class:`FedNova`: normalized averaging for uneven local step counts;
 - :class:`ServerOpt`: FedAvgM / FedAdam / FedYogi server optimizers;
@@ -14,7 +15,7 @@
 
 import functools
 
-from metisfl_tpu_torch.aggregation.fedavg import FedAvg
+from metisfl_tpu_torch.aggregation.fedavg import FedAvg, Scaffold
 from metisfl_tpu_torch.aggregation.fednova import FedNova
 from metisfl_tpu_torch.aggregation.robust import (
     CoordinateMedian,
@@ -27,6 +28,7 @@ from metisfl_tpu_torch.aggregation.serveropt import ServerOpt
 
 AGGREGATION_RULES = {
     "fedavg": FedAvg,
+    "scaffold": Scaffold,
     "fedstride": FedStride,
     "fedrec": FedRec,
     "fednova": FedNova,
@@ -62,6 +64,7 @@ __all__ = [
     "FedRec",
     "FedStride",
     "Krum",
+    "Scaffold",
     "SecureAgg",
     "ServerOpt",
     "TrimmedMean",

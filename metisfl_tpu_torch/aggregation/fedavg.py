@@ -79,3 +79,15 @@ class FedAvg:
         out = self.result()
         self.reset()
         return out
+
+
+class Scaffold(FedAvg):
+    """SCAFFOLD (Karimireddy et al.): the weights fold exactly as FedAvg's;
+    the control variates live around the fold. Learners correct their
+    local gradients by ``c - c_i`` and ship control deltas
+    (learner/learner.py); the controller folds the cohort's deltas into
+    the server variate ``c`` and ships ``c`` with every task
+    (controller/core.py ``_fold_scaffold_controls``). The rule name
+    selects that protocol over the stride-blocked weight fold."""
+
+    name = "scaffold"

@@ -34,18 +34,22 @@ Bits against the JAX package:
   makes its median NaN;
 - ``_trim`` trims at least one model from each tail at n ≥ 3, as the JAX
   rule does (at n = 3 the trimmed mean is the median);
-- Krum's scores are translated by the first model before the fp32 Gram
-  product (distances do not change; the vectors shrink to the updates,
-  so ``|a|² + |b|² - 2 a·b`` cancels far less), the Gram product's
-  upper triangle is mirrored so equal distances score equal, TF32 is off
-  for it, and the selection is ``np.argsort`` of the n scores on the
-  host, as in the JAX package; MultiKrum's mean runs in float64 in the
-  order of the selection and is cast on the host (``np_finalize``).
+- Krum's scores are translated by the first model (distances do not
+  change; the vectors shrink to the updates, so ``|a|² + |b|² - 2 a·b``
+  cancels far less), then the Gram product runs in float64, column
+  chunk by chunk, and its upper triangle is mirrored so equal distances
+  score equal; the selection is ``np.argsort`` of the n scores on the
+  host, as in the JAX package. The JAX package's Gram product is fp32: at
+  LlamaLite size (1e8 coordinates, three learners' near-equal updates)
+  its rounding is larger than the gaps between the distances, so the
+  card's and the CPU's fp32 products picked different models; in
+  float64 both pick by the distances. MultiKrum's mean runs in float64
+  in the order of the selection and is cast on the host
+  (``np_finalize``).
 """
 
 from __future__ import annotations
 
-import contextlib
 import logging
 import time
 from typing import Dict, List, Optional, Sequence
@@ -92,31 +96,25 @@ def trimmed_mean_leaf(s: torch.Tensor, trim: int) -> torch.Tensor:
     return kept.sum(dim=0) / count
 
 
-@contextlib.contextmanager
-def _fp32_matmul(device: torch.device):
-    """fp32 matmuls in full fp32 on the GPU, whatever the process set."""
-    if device.type != "cuda":
-        yield
-        return
-    saved = torch.backends.cuda.matmul.allow_tf32
-    torch.backends.cuda.matmul.allow_tf32 = False
-    try:
-        yield
-    finally:
-        torch.backends.cuda.matmul.allow_tf32 = saved
+# columns of Krum's float64 Gram product per matmul (bounds the float64
+# copy of the cohort to n x this)
+_KRUM_CHUNK = 1 << 22
 
 
 def krum_scores(flat: torch.Tensor, f: int) -> np.ndarray:
     """``flat``: (n, d) fp32 model vectors, on any device; overwritten
     (translated by its first row). Returns the (n,) Krum scores on the
     host (lower = more central): each model's summed squared distance to
-    its n − f − 2 nearest others, all distances from one Gram product."""
+    its n − f − 2 nearest others, all distances from one float64 Gram
+    product."""
     n = flat.shape[0]
     flat.sub_(flat[0].clone())
-    sq = (flat * flat).sum(dim=1)
-    with _fp32_matmul(flat.device):
-        gram = flat @ flat.T
+    gram = torch.zeros((n, n), dtype=torch.float64, device=flat.device)
+    for start in range(0, flat.shape[1], _KRUM_CHUNK):
+        x = flat[:, start:start + _KRUM_CHUNK].double()
+        gram += x @ x.T
     gram = torch.triu(gram) + torch.triu(gram, 1).T
+    sq = torch.diagonal(gram)
     d2 = sq[:, None] + sq[None, :] - 2.0 * gram
     d2.fill_diagonal_(float("inf"))
     k = max(1, n - f - 2)

@@ -143,8 +143,8 @@ class TrainTask(Message):
     global_iteration: int = 0
     model: bytes = b""          # ModelBlob wire bytes (community model)
     params: TrainParams = field(default_factory=TrainParams)
-    # SCAFFOLD fields, kept so a task fits both packages' learners; the
-    # port's learner refuses a task that sets them
+    # SCAFFOLD: the rule is on, and the server control variate's blob
+    # (empty until the first cohort's deltas fold in)
     scaffold: bool = False
     control: bytes = b""
     controller_epoch: str = ""

@@ -2,11 +2,13 @@
 dataclasses (``config/federation.py``) with the fields the port reads.
 
 ``FederationConfig`` covers the synchronous round under FedAvg and the
-JAX package's other plaintext rules (FedStride, FedRec, FedNova, the
-server optimizers and the robust rules), secure aggregation (masking,
-CKKS, identity), the streaming and in-process tree tiers, over the
-in-memory, disk, cached-disk and remote stores (with parallel ingest),
-with the controller's endpoint, the learners' endpoints,
+JAX package's other plaintext rules (SCAFFOLD, FedStride, FedRec, FedNova,
+the server optimizers and the robust rules), secure aggregation (masking,
+CKKS, identity), the streaming tier and the tree tier in process or over
+slice aggregator processes, the uplink variants (int8q and top-k uplinks,
+a narrowed downlink, client-level DP, FedBN local tensors and ship-only
+subsets), over the in-memory, disk, cached-disk and remote stores (with
+parallel ingest), with the controller's endpoint, the learners' endpoints,
 the transport's settings and TLS for the multi-process federation. It
 travels to the controller process as codec bytes (``to_wire``) or YAML
 (:func:`load_config`). It refuses at construction what the port does not
@@ -21,12 +23,17 @@ from __future__ import annotations
 import dataclasses
 import typing
 from dataclasses import dataclass, field
-from typing import List
+import re
+from typing import Any, Dict, List
+
+import numpy as np
 
 from metisfl_tpu_torch.aggregation import AGGREGATION_RULES
 from metisfl_tpu_torch.comm.codec import dumps, loads
 from metisfl_tpu_torch.comm.messages import TrainParams
 from metisfl_tpu_torch.comm.ssl import SSLConfig
+from metisfl_tpu_torch.tensor.quantize import SHIP_INT8Q
+from metisfl_tpu_torch.tensor.sparse import parse_topk
 from metisfl_tpu_torch.tensor.spec import resolve_ship_dtype
 
 
@@ -83,18 +90,31 @@ class TreeAggregationConfig:
     """The tree-aggregation tier (aggregation/tree.py): the cohort split
     into ``branch`` slices folded in worker threads, then the partials
     folded at the root, for the weighted-sum rules on the store path.
-    The distributed tier (``distributed``: slice aggregator processes) is
-    not ported and raises."""
+    ``distributed`` turns the branches into slice aggregator processes
+    (aggregation/slice.py, the controller side aggregation/
+    distributed.py): each owns a contiguous slice of the cohort, receives
+    its learners' uplinks over gRPC, spools them before the ack and ships
+    one partial fold; a dead aggregator's slice re-homes mid-round."""
 
     enabled: bool = False
     branch: int = 8
     workers: int = 0                         # 0 → min(branch, cpu_count)
     distributed: bool = False
+    # slice endpoints [{name, host, port, spool_dir}]; DriverSession fills
+    # one per branch when left empty
+    slices: List[Dict[str, Any]] = field(default_factory=list)
+    # DriverSession's aggregators' spool root ("" → <workdir>/slices)
+    spool_dir: str = ""
+    # submit retries (doubling backoff) before an unreachable aggregator
+    # is probed and its slice re-homed
+    rehome_retries: int = 3
+    rehome_backoff_s: float = 0.2
 
 
 @dataclass
 class AggregationConfig:
-    rule: str = "fedavg"                     # fedavg | fedstride | fedrec |
+    rule: str = "fedavg"                     # fedavg | scaffold |
+                                             # fedstride | fedrec |
                                              # fednova | fedavgm | fedadam |
                                              # fedyogi | median |
                                              # trimmed_mean | krum |
@@ -233,11 +253,10 @@ class FederationConfig:
     def __post_init__(self):
         if self.protocol not in _PROTOCOLS:
             raise ValueError(f"unknown protocol {self.protocol!r}")
-        if self.protocol != "synchronous":
-            raise not_ported(f"protocol {self.protocol!r}", "3f")
         agg, sched, train = self.aggregation, self.scheduling, self.train
         secure = self.secure
         masking = secure.enabled and secure.scheme == "masking"
+        rule = agg.rule.lower()
         if secure.enabled and agg.rule != "secure_agg":
             raise ValueError("secure aggregation requires aggregation.rule "
                              "== 'secure_agg'")
@@ -262,59 +281,180 @@ class FederationConfig:
                 "aggregation.streaming with secure aggregation requires "
                 f"secure.scheme: masking (scheme={secure.scheme!r} "
                 "ciphertexts cannot fold on arrival)")
-        if agg.rule.lower() == "scaffold":
-            raise not_ported("SCAFFOLD", "3e")
-        if agg.rule.lower() not in AGGREGATION_RULES:
+        if rule not in AGGREGATION_RULES:
             raise ValueError(f"unknown aggregation rule {agg.rule!r}; have "
                              f"{sorted(AGGREGATION_RULES)}")
-        if (agg.rule.lower() == "trimmed_mean"
-                and not 0.0 <= agg.trim_ratio < 0.5):
+        if rule == "trimmed_mean" and not 0.0 <= agg.trim_ratio < 0.5:
             # the JAX package's TrimmedMean refuses it when the controller
             # builds the rule; here before any process starts
             raise ValueError("trim_ratio must be in [0, 0.5)")
-        if agg.tree.distributed:
-            raise not_ported("the distributed tree tier "
-                             "(aggregation.tree.distributed)", "3c")
         if agg.tree.enabled and agg.tree.branch < 2:
             raise ValueError("aggregation.tree.branch must be >= 2")
         if agg.tree.workers < 0:
             raise ValueError("aggregation.tree.workers must be >= 0")
+        if agg.tree.distributed:
+            self._check_distributed(masking)
         if not 0.0 < agg.participation_ratio <= 1.0:
             raise ValueError("participation_ratio must be in (0, 1]")
         if self.model_store.store not in _STORES:
             raise ValueError(f"unknown store {self.model_store.store!r}")
         if self.model_store.ingest_workers < 0:
             raise ValueError("model_store.ingest_workers must be >= 0")
-        if self.checkpoint.dir:
-            raise not_ported("controller checkpoints", "3f")
-        if self.round_deadline_secs > 0:
-            raise not_ported("round deadlines", "3f")
         if sched.quorum < 0:
             raise ValueError("scheduling.quorum must be >= 0")
-        if sched.quorum > 0:
-            raise not_ported("quorum barriers", "3f")
         term = self.termination
         if term.federation_rounds < 0:
             raise ValueError("termination.federation_rounds must be >= 0")
         if term.execution_cutoff_mins < 0 or term.metric_cutoff_score < 0:
             raise ValueError("termination cutoffs must be >= 0")
+        self._check_uplink(rule)
+        # what the port does not do yet, once the values are known valid
+        if self.protocol != "synchronous":
+            raise not_ported(f"protocol {self.protocol!r}", "3f")
+        if self.checkpoint.dir:
+            raise not_ported("controller checkpoints", "3f")
+        if self.round_deadline_secs > 0:
+            raise not_ported("round deadlines", "3f")
+        if sched.quorum > 0:
+            raise not_ported("quorum barriers", "3f")
         if any(ep.world_size > 1 for ep in self.learners):
             raise not_ported("multi-host learners (world_size > 1)", "9")
+
+    def _check_distributed(self, masking: bool) -> None:
+        """The distributed tier's capability matrix (the JAX package's):
+        it is the tree tier's topology; masked sums fold key-free at the
+        slices, ciphertexts do not; plaintext uplinks fold at their slice,
+        not in a controller stream; there is no root store to ingest into;
+        only the weighted-sum rules slice-fold."""
+        agg = self.aggregation
+        tree = agg.tree
+        if not tree.enabled:
+            raise ValueError("aggregation.tree.distributed requires "
+                             "aggregation.tree.enabled")
+        if self.secure.enabled and not masking:
+            raise ValueError(
+                "aggregation.tree.distributed with secure aggregation "
+                "requires secure.scheme: masking (masked partial sums fold "
+                f"key-free at the slices; scheme={self.secure.scheme!r} "
+                "payloads need the one-combine path)")
+        if agg.streaming and not masking:
+            raise ValueError(
+                "aggregation.tree.distributed with aggregation.streaming "
+                "requires masking secure aggregation (plaintext uplinks fold "
+                "at their slice aggregator, not in the controller's stream)")
+        if self.model_store.ingest_workers > 0:
+            raise ValueError(
+                "aggregation.tree.distributed is incompatible with "
+                "model_store.ingest_workers (uplinks bypass the root store)")
+        if agg.rule.lower() not in ("fedavg", "scaffold", "fedstride",
+                                    "secure_agg"):
+            raise ValueError(
+                "aggregation.tree.distributed requires a weighted-sum rule "
+                "(fedavg/scaffold/fedstride) or masked secure_agg, not "
+                f"{agg.rule!r}")
+        if tree.rehome_retries < 0:
+            raise ValueError("aggregation.tree.rehome_retries must be >= 0")
+        if tree.rehome_retries > 0 and tree.rehome_backoff_s <= 0.0:
+            raise ValueError("aggregation.tree.rehome_backoff_s must be > 0 "
+                             "when rehome_retries is armed")
+
+    def _check_uplink(self, rule: str) -> None:
+        """SCAFFOLD, client-level DP and the uplink and downlink encodings:
+        the JAX package's checks, with its error types."""
+        train, secure = self.train, self.secure
         if train.dp_noise_multiplier < 0.0 or train.dp_clip_norm < 0.0:
             raise ValueError("dp_clip_norm and dp_noise_multiplier must be "
                              ">= 0")
-        if train.dp_clip_norm > 0.0 or train.dp_noise_multiplier > 0.0:
-            raise not_ported("client-level differential privacy", "3e")
+        if rule == "scaffold":
+            if secure.enabled:
+                raise ValueError(
+                    "scaffold is incompatible with secure aggregation: "
+                    "control deltas are not encrypted/masked")
+            if train.dp_clip_norm > 0.0:
+                raise ValueError(
+                    "scaffold is incompatible with dp_clip_norm: control "
+                    "deltas are not privatized, so the DP guarantee would "
+                    "not cover them")
+            if train.optimizer.lower() != "sgd":
+                # the variate update divides by K*lr, the inverse of a
+                # plain SGD step
+                raise ValueError(
+                    "scaffold requires optimizer='sgd' (the control-variate "
+                    "update c_i+ = c_i - c + (x - y)/(K*lr) assumes plain "
+                    "SGD local steps)")
+        if train.dp_noise_multiplier > 0.0 and train.dp_clip_norm <= 0.0:
+            raise ValueError(
+                "dp_noise_multiplier > 0 requires dp_clip_norm > 0 "
+                "(noise scales with the clip bound)")
+        topk = None
         if train.ship_dtype:
-            name = train.ship_dtype.lower()
-            if name == "int8q" or name.startswith("topk"):
-                raise not_ported(f"ship_dtype {train.ship_dtype!r}", "3e")
-            # an unknown name is a ValueError, as in the JAX package
-            resolve_ship_dtype(train.ship_dtype)
+            topk = parse_topk(train.ship_dtype)
+            int8q = train.ship_dtype.lower() == SHIP_INT8Q
+            if not int8q and topk is None:
+                # an unknown name is a ValueError before any training
+                resolve_ship_dtype(train.ship_dtype)
+            if (int8q or topk is not None) and secure.enabled:
+                raise ValueError(
+                    f"ship_dtype={train.ship_dtype!r} is incompatible with "
+                    "secure aggregation (HE/masking payloads have their own "
+                    "fixed-point encoding)")
+            if topk is not None and self.protocol.startswith("asynchronous"):
+                # the controller densifies against the dispatched model
+                raise ValueError(
+                    "ship_dtype='topk...' requires a synchronous or "
+                    "semi_synchronous protocol (async advances the "
+                    "community model mid-task, breaking sparse-update "
+                    "reconstruction)")
+        if train.local_tensor_regex:
+            _compiles("local_tensor_regex", train.local_tensor_regex)
+            if secure.enabled:
+                raise ValueError(
+                    "local_tensor_regex is incompatible with secure "
+                    "aggregation (partial trees break the uniform-shape "
+                    "masking/HE payload contract)")
+            if rule in ("fedavgm", "fedadam", "fedyogi", "fednova",
+                        "scaffold"):
+                raise ValueError(
+                    f"local_tensor_regex is incompatible with rule="
+                    f"{rule!r}: stateful server rules track a full model "
+                    "tree, but local tensors drop out of the aggregate "
+                    "after round 1")
+            if train.dp_clip_norm > 0.0:
+                raise ValueError(
+                    "local_tensor_regex is incompatible with client-level "
+                    "DP: the clip norm covers the full update, so local "
+                    "tensors would consume the sensitivity budget")
+        if train.ship_tensor_regex:
+            _compiles("ship_tensor_regex", train.ship_tensor_regex)
+            if train.local_tensor_regex:
+                raise ValueError(
+                    "ship_tensor_regex and local_tensor_regex cannot "
+                    "combine: one selects the federated subset, the other "
+                    "retains a local subset — pick one partition")
+            if rule == "scaffold":
+                raise ValueError(
+                    "ship_tensor_regex is incompatible with rule='scaffold' "
+                    "(control variates span the full model tree)")
+            if train.dp_clip_norm > 0.0:
+                raise ValueError(
+                    "ship_tensor_regex is incompatible with client-level "
+                    "DP: the clip norm covers the full update while only "
+                    "the subset ships")
         if train.downlink_dtype:
-            raise not_ported("downlink_dtype", "3e")
-        if train.local_tensor_regex or train.ship_tensor_regex:
-            raise not_ported("local_tensor_regex / ship_tensor_regex", "3e")
+            target = np.dtype(resolve_ship_dtype(train.downlink_dtype))
+            if np.issubdtype(target, np.integer) or target == np.bool_:
+                raise ValueError(
+                    f"downlink_dtype {train.downlink_dtype!r} must be a "
+                    "float dtype (integer state never narrows)")
+            if secure.enabled:
+                raise ValueError(
+                    "downlink_dtype is incompatible with secure aggregation "
+                    "(the broadcast is an opaque ciphertext payload)")
+            if topk is not None:
+                raise ValueError(
+                    "downlink_dtype cannot combine with ship_dtype='topk...'"
+                    ": sparse updates reconstruct against the controller's "
+                    "exact f32 community model")
 
     def to_wire(self) -> bytes:
         return dumps(_to_plain(self))
@@ -322,6 +462,13 @@ class FederationConfig:
     @classmethod
     def from_wire(cls, buf) -> "FederationConfig":
         return _from_plain(cls, loads(buf))
+
+
+def _compiles(field_name: str, pattern: str) -> None:
+    try:
+        re.compile(pattern)
+    except re.error as exc:
+        raise ValueError(f"{field_name} does not compile: {exc}") from None
 
 
 def _to_plain(obj):

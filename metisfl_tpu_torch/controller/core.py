@@ -27,13 +27,30 @@ and applies the result's metadata only once the write lands; aggregation
 drains the pipeline before any select, and a departing learner's queued
 writes are drained before its lineage is erased.
 
-The two other ingest tiers of the JAX controller: streaming
+The other ingest tiers of the JAX controller: streaming
 (``aggregation.streaming``, aggregation/streaming.py) folds each accepted
 uplink on arrival and finalizes at barrier release with no store read,
 for fedavg, fedstride and fedrec (anything else falls back to the store
 path, logged); the tree tier (``aggregation.tree.enabled``,
 aggregation/tree.py) folds the store path's cohort in ``branch`` slices
-on worker threads, for fedavg and fedstride.
+on worker threads, for fedavg, scaffold and fedstride; the distributed
+tier (``aggregation.tree.distributed``, aggregation/distributed.py)
+forwards each accepted uplink to its slice aggregator process instead of
+the store and fans in one partial per slice at barrier release (the root
+store sees no insert and no select). Its slices are assigned when a
+round's cohort is dispatched together; a learner's first task, dispatched
+when it joins, has no slice yet, so round 0 folds at the root's residual
+buffer, as in the JAX package.
+
+SCAFFOLD (rule ``scaffold``): each task carries the server control variate
+``c``, each result a control delta; after the weights' FedAvg fold the
+controller adds the cohort's deltas over the active learner count to
+``c``. The uplink variants: an ``int8q`` uplink is dequantized and a
+``topk`` one densified against the dispatched community model as it
+lands; ``downlink_dtype`` narrows the dispatched blob (encoded once per
+community model); under ``ship_tensor_regex`` the community model holds
+only the federated subset from the seed on. The tasks carry both tensor
+regexes.
 
 Secure aggregation (``secure.enabled``, rule ``secure_agg``): uplinks are
 opaque (CKKS ciphertexts, masked fixed-point words, or identity float64
@@ -54,13 +71,12 @@ After ``termination.federation_rounds`` rounds (0 = no limit) the
 controller dispatches no more train tasks; the last round's evaluations
 still go out.
 
-Not ported yet (ROADMAP.md Queue 1 items 3c-3g and 4): the round-state WAL,
-checkpoints and the hot standby, deadlines, quorum and dispatch retries,
-churn scoring and quarantine, the registry, the distributed slice tier,
-SCAFFOLD, client-level DP, int8q/top-k uplinks, the health plane's
-advisory scores and every telemetry plane (the secure plane's fold,
-settlement and recovery metrics among them). The config
-(config/federation.py) refuses them.
+Not ported yet (ROADMAP.md Queue 1 items 3f, 3g and 4): the round-state
+WAL, checkpoints (SCAFFOLD's ``c`` among their state) and the hot standby,
+deadlines, quorum and dispatch retries, churn scoring and quarantine, the
+registry, the health plane's advisory scores and every telemetry plane
+(the secure plane's fold, settlement and recovery metrics, the slice
+tier's among them). The config (config/federation.py) refuses them.
 """
 
 from __future__ import annotations
@@ -70,6 +86,7 @@ import logging
 import math
 import os
 import random
+import re
 import resource
 import tempfile
 import threading
@@ -78,11 +95,14 @@ import uuid
 from concurrent.futures import ThreadPoolExecutor
 from dataclasses import dataclass, field
 from functools import partial
-from typing import (Any, Callable, Dict, List, Optional, Protocol, Sequence)
+from typing import (Any, Callable, Dict, List, Optional, Protocol, Sequence,
+                    Tuple)
 
+import numpy as np
 import torch
 
 from metisfl_tpu_torch.aggregation import DEVICE_RULES, make_aggregation_rule
+from metisfl_tpu_torch.aggregation.distributed import DistributedSliceReducer
 from metisfl_tpu_torch.aggregation.secure import SecureAgg
 from metisfl_tpu_torch.aggregation.streaming import (
     StreamingAggregator,
@@ -105,7 +125,19 @@ from metisfl_tpu_torch.secure.distributed import MaskedStreamingAggregator
 from metisfl_tpu_torch.selection import make_selector
 from metisfl_tpu_torch.store import IngestPipeline, make_store
 from metisfl_tpu_torch.tensor.pytree import ModelBlob, to_numpy
-from metisfl_tpu_torch.tensor.spec import TensorKind, TensorSpec, quantify
+from metisfl_tpu_torch.tensor.quantize import SHIP_INT8Q, dequantize_named
+from metisfl_tpu_torch.tensor.sparse import densify_named, parse_topk
+from metisfl_tpu_torch.tensor.spec import (
+    TensorKind,
+    TensorSpec,
+    narrow_named,
+    quantify,
+    resolve_ship_dtype,
+)
+
+# the rules whose community is a plain weighted sum (the tree tiers fold
+# them slice by slice)
+_WEIGHTED_SUM_RULES = ("fedavg", "scaffold", "fedstride")
 
 logger = logging.getLogger("metisfl_tpu_torch.controller")
 
@@ -275,12 +307,45 @@ class Controller:
         if agg.tree.enabled:
             self._tree = TreeReducer(branch=agg.tree.branch,
                                      workers=agg.tree.workers)
-        # masked streaming: under scheme: masking with streaming the
-        # controller folds masked uplinks on arrival as modular sums
+        # the distributed tier: the tree's branches as slice aggregator
+        # processes; uplinks go to their slice over gRPC, the root folds
+        # O(branch) partials. The in-process tree above stays built as the
+        # fallback where the rule cannot slice-fold.
+        self._slices: Optional[DistributedSliceReducer] = None
+        masked_tier = (config.secure.enabled
+                       and config.secure.scheme == "masking")
+        if agg.tree.distributed and agg.tree.slices:
+            if (self._aggregator.name in _WEIGHTED_SUM_RULES
+                    and not config.secure.enabled) or masked_tier:
+                # masked mode: slices fold the raw masked blobs as modular
+                # uint64 sums (key-free; the masks cancel at the root's
+                # settlement), on arrival under streaming
+                self._slices = DistributedSliceReducer(
+                    agg.tree, ssl=config.ssl, comm=config.comm,
+                    masked=masked_tier,
+                    stream=masked_tier and agg.streaming)
+            else:
+                logger.info(
+                    "aggregation.tree.distributed requested but rule=%s "
+                    "cannot slice-fold; using the in-process path",
+                    self._aggregator.name)
+        # masked streaming: under scheme: masking with streaming and no
+        # slice tier the controller folds masked uplinks on arrival as
+        # modular sums (with slices, they fold at the slices)
         self._masked_stream: Optional[MaskedStreamingAggregator] = None
-        if (config.secure.enabled and config.secure.scheme == "masking"
-                and agg.streaming):
+        if masked_tier and agg.streaming and self._slices is None:
             self._masked_stream = MaskedStreamingAggregator()
+        # SCAFFOLD: the server control variate c (name -> f32 array), its
+        # wire bytes (encoded once per c) and the cohort's latest
+        # unconsumed control deltas (learner_id -> blob)
+        self._scaffold_c: Optional[Dict[str, np.ndarray]] = None
+        self._scaffold_c_blob: Optional[bytes] = None
+        self._scaffold_deltas: Dict[str, bytes] = {}
+        # the community model as host arrays (top-k uplinks densify
+        # against it) and the narrowed downlink of one community blob,
+        # (full-width blob, narrowed bytes)
+        self._community_flat: Optional[Dict[str, np.ndarray]] = None
+        self._downlink_cache: Optional[Tuple[bytes, bytes]] = None
 
         # the community model's wire bytes
         self._community_blob: Optional[bytes] = None
@@ -331,6 +396,9 @@ class Controller:
             self._ingest.shutdown()
         if self._tree is not None:
             self._tree.shutdown()
+        if self._slices is not None:
+            # the clients close; DriverSession owns the processes
+            self._slices.shutdown()
         self._store.shutdown()
 
     # ------------------------------------------------------------------ #
@@ -408,6 +476,10 @@ class Controller:
             logger.error("ingest drain for departing %s timed out; its "
                          "queued writes will be gate-dropped", learner_id)
         self._store.erase([learner_id])
+        if self._slices is not None:
+            # prune its held model from every live slice and the root's
+            # residual buffer
+            self._slices.forget(learner_id)
         if self._streaming is not None and not self._shutdown.is_set():
             # subtract its streamed contribution on the scheduling worker
             # (the fold state is single-threaded)
@@ -440,15 +512,30 @@ class Controller:
 
     def set_community_model(self, blob_bytes: bytes) -> None:
         """Seed (or overwrite) the community model from wire bytes (a secure
-        federation's may be opaque)."""
+        federation's may be opaque). Under ``ship_tensor_regex`` the
+        controller keeps only the federated subset from the seed on, so
+        round 1's dispatch is already subset-sized."""
         blob = ModelBlob.from_bytes(blob_bytes)
+        ship_regex = self.config.train.ship_tensor_regex
+        if ship_regex and blob.tensors:
+            subset = [(n, t) for n, t in blob.tensors
+                      if re.search(ship_regex, n)]
+            if not subset:
+                raise ValueError(
+                    f"ship_tensor_regex {ship_regex!r} matches no tensor "
+                    "in the seeded model: nothing would ever federate")
+            if len(subset) != len(blob.tensors):
+                blob = ModelBlob(tensors=subset)
+                blob_bytes = blob.to_bytes()
         with self._lock:
             self._community_blob = bytes(blob_bytes)
-            if blob.tensors and hasattr(self._aggregator, "seed_community"):
-                # FedNova and the server optimizers step from the seeded
-                # model (a replacement mid-run re-anchors them)
-                self._aggregator.seed_community(
-                    {name: to_numpy(t) for name, t in blob.tensors})
+            if blob.tensors:
+                self._community_flat = {name: to_numpy(t)
+                                        for name, t in blob.tensors}
+                if hasattr(self._aggregator, "seed_community"):
+                    # FedNova and the server optimizers step from the
+                    # seeded model (a replacement mid-run re-anchors them)
+                    self._aggregator.seed_community(self._community_flat)
 
     def community_model_bytes(self) -> Optional[bytes]:
         with self._lock:
@@ -488,7 +575,7 @@ class Controller:
         with self._lock:
             if learner_id not in self._learners:
                 return
-        self._dispatch_train([learner_id])
+        self._dispatch_train([learner_id], fresh_round=False)
 
     def _handle_completed(self, result: TaskResult) -> None:
         start = time.time()
@@ -499,6 +586,9 @@ class Controller:
             self._current_meta.train_received_at[result.learner_id] = start
             self._current_meta.uplink_bytes[result.learner_id] = len(
                 result.model)
+            if result.control_delta:
+                self._scaffold_deltas[result.learner_id] = \
+                    result.control_delta
         blob = None
         try:
             blob = ModelBlob.from_bytes(result.model)
@@ -533,6 +623,12 @@ class Controller:
             # community accumulator, no store round trip
             if not self._stream_fold(result, model):
                 model = None
+        elif model is not None and self._slices is not None:
+            # the distributed tier: the uplink goes to its slice aggregator
+            # (the root never stores it); submit never drops an accepted
+            # uplink: a dead owner re-homes, the last resort is the root's
+            # residual buffer
+            self._slices.submit(result.learner_id, model, result.round_id)
         elif model is not None and self._ingest is not None:
             # enqueue and go on: the writer records the write's own time
             # (_note_ingest_insert) and applies the result's metadata only
@@ -611,7 +707,21 @@ class Controller:
         bytes."""
         if self.config.secure.enabled and blob.opaque:
             return result.model
-        return {name: to_numpy(t) for name, t in blob.tensors}
+        tensors = {name: to_numpy(t) for name, t in blob.tensors}
+        # the uplink encodings, gated on the config (never sniffed from the
+        # payload, so a tensor that happens to carry a companion suffix is
+        # never mangled)
+        ship = self.config.train.ship_dtype
+        if ship.lower() == SHIP_INT8Q:
+            tensors = dequantize_named(tensors)
+        elif parse_topk(ship) is not None:
+            # dense = the dispatched community model + the scattered
+            # update: under the synchronous protocol the community model
+            # has not moved since the task's dispatch
+            with self._lock:
+                community = dict(self._community_flat or {})
+            tensors = densify_named(tensors, community)
+        return tensors
 
     def _stream_fold(self, result: TaskResult, model) -> bool:
         """Fold one accepted uplink into the streaming accumulator with
@@ -661,6 +771,10 @@ class Controller:
                 self._dispatch_train(self._sample_cohort())
             return
         self._agg_failures = 0
+        if self._slices is not None:
+            # the root's residual buffer is folded; the slices keep their
+            # latest model per learner, as the store keeps lineage
+            self._slices.round_complete()
         self._send_eval_tasks()
         with self._lock:
             self.global_iteration += 1
@@ -773,6 +887,19 @@ class Controller:
             snap = finish_stream(self._masked_stream, selected)
             if snap is not None:
                 community = self._settle_masked(*snap)
+        elif self._slices is not None and self._slices.masked:
+            # the masked sums accumulated at the slices: one masked
+            # partial per slice, combined and settled at the root
+            b0 = time.perf_counter()
+            reduced = self._slices.reduce_masked(ids, self.global_iteration)
+            if reduced is not None:
+                m_sums, m_specs, m_present, slice_errors = reduced
+                block_sizes.append(len(m_present))
+                block_ms.append((time.perf_counter() - b0) * 1e3)
+                if slice_errors:
+                    with self._lock:
+                        self._current_meta.errors.extend(slice_errors)
+                community = self._settle_masked(m_sums, m_specs, m_present)
         elif secure.enabled:
             # opaque payloads: one combine over the whole cohort (masks
             # cancel only across every party, or with a recovered residual)
@@ -795,7 +922,24 @@ class Controller:
             if pairs:
                 community = agg.aggregate(pairs, learner_ids=present_ids)
                 device_ms = dict(agg.last_timing)
-        elif self._tree is not None and agg.name in ("fedavg", "fedstride"):
+        elif self._slices is not None:
+            # the distributed tier: one FoldPartial per slice (a slice that
+            # died since its uplinks re-homes inside reduce); the rule gate
+            # ran at construction
+            if agg.name == "fedstride":
+                agg.reset()  # its rolling state is unused here
+            reduced = self._slices.reduce(
+                ids, scales, stride=self.config.aggregation.stride_length,
+                round_id=self.global_iteration)
+            if reduced is not None:
+                community, partials, slice_errors = reduced
+                for part in partials:
+                    block_sizes.append(part.count)
+                    block_ms.append(round(part.duration_ms, 3))
+                if slice_errors:
+                    with self._lock:
+                        self._current_meta.errors.extend(slice_errors)
+        elif self._tree is not None and agg.name in _WEIGHTED_SUM_RULES:
             # the tree tier: slice folds on worker threads, O(branch) root
             # fan-in; stride_length 0 passes through, so the tier bounds
             # each worker by its own sub-block
@@ -847,6 +991,8 @@ class Controller:
         if community is None:
             logger.warning("no stored models for cohort %s", list(selected))
             return
+        if agg.name == "scaffold":
+            self._fold_scaffold_controls(ids)
         p0 = time.perf_counter()
         blob = self._community_to_blob(community)
         pack_ms = (time.perf_counter() - p0) * 1e3
@@ -859,6 +1005,8 @@ class Controller:
                     sizes[key] += q[key]
         with self._lock:
             self._community_blob = blob
+            if not secure.enabled:
+                self._community_flat = community
             # the stateful rules' step of this round counts from here on
             if hasattr(agg, "commit"):
                 agg.commit()
@@ -879,6 +1027,44 @@ class Controller:
         if self.config.secure.enabled:
             return ModelBlob(opaque=dict(community)).to_bytes()
         return ModelBlob(tensors=list(community.items())).to_bytes()
+
+    # -- SCAFFOLD ---------------------------------------------------------
+
+    def _pack_scaffold_c(self) -> bytes:
+        """The server control variate's wire bytes (empty until the first
+        cohort's deltas fold in: learners read empty as zeros), encoded
+        once per ``c``. Call with ``self._lock`` held."""
+        if self._scaffold_c is None:
+            return b""
+        if self._scaffold_c_blob is None:
+            self._scaffold_c_blob = ModelBlob(
+                tensors=sorted(self._scaffold_c.items())).to_bytes()
+        return self._scaffold_c_blob
+
+    def _fold_scaffold_controls(self, cohort: Sequence[str]) -> None:
+        """c += (1/N) Σ the cohort's control deltas (SCAFFOLD's server
+        update, |S|/N times the mean over S; N = the active learners). Host
+        numpy float32, in the JAX package's order: bit for bit."""
+        with self._lock:
+            blobs = [self._scaffold_deltas.pop(lid)
+                     for lid in cohort if lid in self._scaffold_deltas]
+            n_active = max(1, len(self._learners))
+        if not blobs:
+            return
+        total: Dict[str, np.ndarray] = {}
+        for raw in blobs:
+            for name, t in ModelBlob.from_bytes(raw).tensors:
+                arr = np.asarray(to_numpy(t), np.float32)
+                total[name] = total.get(name, 0.0) + arr
+        with self._lock:
+            if self._scaffold_c is None:
+                self._scaffold_c = {n: np.zeros_like(a)
+                                    for n, a in total.items()}
+            for name, summed in total.items():
+                if name in self._scaffold_c:
+                    self._scaffold_c[name] = (
+                        self._scaffold_c[name] + summed / n_active)
+            self._scaffold_c_blob = None
 
     # -- secure aggregation ----------------------------------------------
 
@@ -1003,20 +1189,48 @@ class Controller:
 
     # -- dispatch ---------------------------------------------------------
 
-    def _dispatch_train(self, learner_ids: Sequence[str]) -> None:
+    def _dispatch_blob(self) -> Optional[bytes]:
+        """The community blob as dispatched: ``downlink_dtype`` narrows its
+        floating tensors (bf16 halves the broadcast), encoded once per
+        community model; the controller's own state stays full width."""
+        with self._lock:
+            blob = self._community_blob
+            target = self.config.train.downlink_dtype
+            if blob is None or not target or self.config.secure.enabled:
+                return blob
+            cached = self._downlink_cache
+            if cached is not None and cached[0] is blob:
+                return cached[1]
+        named = [(n, to_numpy(t))
+                 for n, t in ModelBlob.from_bytes(blob).tensors]
+        narrowed = ModelBlob(tensors=narrow_named(
+            named, resolve_ship_dtype(target))).to_bytes()
+        with self._lock:
+            self._downlink_cache = (blob, narrowed)
+        return narrowed
+
+    def _dispatch_train(self, learner_ids: Sequence[str],
+                        fresh_round: bool = True) -> None:
         """Send the community model to ``learner_ids`` as train tasks; the
         dispatched set is the round barrier. Nothing is sent once
-        ``termination.federation_rounds`` rounds have completed."""
+        ``termination.federation_rounds`` rounds have completed.
+        ``fresh_round``: a round's cohort dispatched together (not a
+        joining learner's first task), which the distributed tier splits
+        into its slices."""
         limit = self.config.termination.federation_rounds
         with self._lock:
             if 0 < limit <= self.global_iteration:
                 return
-            blob = self._community_blob
+        blob = self._dispatch_blob()
         if blob is None:
             logger.warning("no community model yet; cannot dispatch train "
                            "tasks")
             return
         t0 = time.perf_counter()
+        if self._slices is not None and fresh_round:
+            # contiguous slices of the sorted cohort over every configured
+            # aggregator (a relaunched one revives here)
+            self._slices.assign(list(learner_ids))
         if self._masked_stream is not None:
             # mask streams are round-keyed: a fold of another round's
             # uplink into this round's sum would never cancel
@@ -1040,6 +1254,8 @@ class Controller:
                     global_iteration=self.global_iteration,
                     model=blob,
                     params=params,
+                    scaffold=self._aggregator.name == "scaffold",
+                    control=self._pack_scaffold_c(),
                     controller_epoch=self.controller_epoch,
                 )
                 self._current_meta.train_submitted_at[lid] = time.time()
@@ -1081,6 +1297,8 @@ class Controller:
                 batch_size=cfg.batch_size,
                 datasets=list(cfg.datasets),
                 metrics=list(cfg.metrics),
+                local_tensor_regex=self.config.train.local_tensor_regex,
+                ship_tensor_regex=self.config.train.ship_tensor_regex,
                 controller_epoch=self.controller_epoch,
             )
             with self._lock:
@@ -1128,6 +1346,7 @@ class Controller:
     def describe(self) -> dict:
         """A live snapshot: the round, the protocol, the learners and the
         community model's size."""
+        slices = self._slices.describe() if self._slices is not None else None
         with self._lock:
             blob = self._community_blob
             return {
@@ -1147,6 +1366,7 @@ class Controller:
                    if self._streaming is not None else {}),
                 **({"secure_stream": self._masked_stream.stats()}
                    if self._masked_stream is not None else {}),
+                **({"slices": slices} if slices is not None else {}),
             }
 
     def get_statistics(self) -> dict:

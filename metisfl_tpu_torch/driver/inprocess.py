@@ -7,7 +7,10 @@ would. Each learner's engine runs on the device its caller chose
 (``TorchModelOps(..., device="cuda")`` by default); ``device`` (``cuda``
 by default) is the controller's, where the robust rules combine. Under
 secure aggregation the controller takes a keyless ``secure_backend`` and
-each learner its own (``add_learner(..., secure_backend=)``).
+each learner its own (``add_learner(..., secure_backend=)``). Under
+``aggregation.tree.distributed`` the controller dials the slice
+aggregators that ``tree.slices`` names, as the config gives them (the
+caller boots them, e.g. ``python -m metisfl_tpu_torch.aggregation.slice``).
 """
 
 from __future__ import annotations

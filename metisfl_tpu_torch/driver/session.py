@@ -33,13 +33,25 @@ num_parties``) and writes it to ``<workdir>/learner_<i>_secure.bin``,
 which the learner reads through ``--secure-config``. The controller's
 config carries no decryption capability.
 
+The distributed slice tier (``aggregation.tree.distributed``): before the
+config is written DriverSession gives each of ``branch`` slice aggregators a
+localhost port and a spool directory under ``<workdir>/slices`` (unless
+``tree.slices`` lists the fleet), boots them (``python -m
+metisfl_tpu_torch.aggregation.slice --config <file> --index <i>``) and
+waits until each answers its health check, all before the controller, so
+round 1's first uplink never meets a half-up slice. While the federation
+runs, a slice process that died is relaunched with a doubling backoff
+(its spool reloads; the controller re-adopts it at a later round's
+assignment); at shutdown each gets the ShutDown RPC and is reaped.
+
 The port's controller dispatches no train task after
 ``termination.federation_rounds`` rounds, so the rounds criterion ends an
 idle federation; the two cutoffs end one mid-round.
 
 Not ported, and raising ``NotImplementedError`` with the ROADMAP.md Queue 1
 item: ``resume`` and the controller's supervision and hot standby (3f),
-serving (5), and trace and post-mortem collection (4).
+the fault-injected slice kills (3f), serving (5), and trace and
+post-mortem collection (4).
 """
 
 from __future__ import annotations
@@ -50,6 +62,7 @@ import os
 import re
 import secrets
 import shlex
+import socket
 import subprocess
 import sys
 import tempfile
@@ -60,7 +73,9 @@ from typing import Any, Callable, Dict, List, Optional, Sequence
 import cloudpickle
 import numpy as np
 
+from metisfl_tpu_torch.aggregation.slice import SLICE_SERVICE
 from metisfl_tpu_torch.comm.codec import dumps as codec_dumps
+from metisfl_tpu_torch.comm.health import probe_health
 from metisfl_tpu_torch.comm.rpc import RpcClient
 from metisfl_tpu_torch.config import FederationConfig, LearnerEndpoint
 from metisfl_tpu_torch.config.federation import not_ported
@@ -247,6 +262,11 @@ class DriverSession:
         self._client: Optional[ControllerClient] = None
         self._config_path = ""
         self._started_at = 0.0
+        # slice aggregator supervision: relaunches so far and the earliest
+        # time of the next, per slice index
+        self._slice_restarts: Dict[int, int] = {}
+        self._slice_restart_after: Dict[int, float] = {}
+        self._shutting_down = False
 
     # ------------------------------------------------------------------ #
     # bootstrap
@@ -339,10 +359,10 @@ class DriverSession:
                 hosts=[h for h in self.config.ssl.hosts
                        if h not in self._LOCAL_HOSTS])
             self.config.ssl.cert_path, self.config.ssl.key_path = cert, key
-        self._config_path = os.path.join(self.workdir,
-                                         "federation_config.bin")
-        with open(self._config_path, "wb") as f:
-            f.write(self.config.to_wire())
+        if self._slices_distributed():
+            self.start_slices()
+        else:
+            self._write_config()
 
         proc = self._launch("controller", ctrl_host, [
             "-m", "metisfl_tpu_torch.controller",
@@ -363,6 +383,127 @@ class DriverSession:
         for idx in range(len(self.learner_recipes)):
             self.launch_learner(idx)
         self._started_at = time.time()
+
+    def _write_config(self) -> None:
+        self._config_path = os.path.join(self.workdir,
+                                         "federation_config.bin")
+        with open(self._config_path, "wb") as f:
+            f.write(self.config.to_wire())
+
+    def start_slices(self) -> List[dict]:
+        """Boot the distributed tree's slice aggregator fleet and wait until
+        every slice answers its health check; returns ``tree.slices``. The
+        fleet's endpoints and spools are fixed before the config is
+        written: the file tells the slices where to serve and the
+        controller where to dial. :meth:`initialize_federation` calls this
+        before the controller boots; a caller that runs the controller
+        itself may call it alone, and :meth:`stop_slices` after."""
+        self._plan_slices()
+        self._write_config()
+        for idx in range(len(self.config.aggregation.tree.slices)):
+            self._launch_slice(idx)
+        self._wait_slices_healthy()
+        return self.config.aggregation.tree.slices
+
+    def stop_slices(self, timeout_s: float = 30.0) -> None:
+        """Send each slice aggregator the ShutDown RPC and wait for its
+        process; one still running after ``timeout_s`` is terminated."""
+        deadline = time.time() + timeout_s
+        slices = [p for p in self._procs if p.name.startswith("slice_")]
+        for spec in (self.config.aggregation.tree.slices
+                     if slices else []):
+            # the same fail-fast ShutDown as the learners'
+            client = RpcClient(spec.get("host", "localhost"), spec["port"],
+                               SLICE_SERVICE, retries=0, ssl=self.config.ssl)
+            try:
+                client.call("ShutDown", b"", timeout=5.0, wait_ready=False)
+            except Exception:  # noqa: BLE001 - already gone
+                pass
+            finally:
+                client.close()
+        self._wait(slices, deadline)
+
+    def _slices_distributed(self) -> bool:
+        tree = self.config.aggregation.tree
+        return tree.enabled and tree.distributed
+
+    def _plan_slices(self) -> None:
+        """One localhost endpoint and spool directory per branch, unless
+        ``tree.slices`` lists the fleet (a remote controller needs that: a
+        port probed here says nothing about another host)."""
+        tree = self.config.aggregation.tree
+        if not tree.slices:
+            if (self.config.controller_host
+                    or "localhost") not in self._LOCAL_HOSTS:
+                raise ValueError(
+                    "aggregation.tree.distributed on remote host "
+                    f"{self.config.controller_host!r} requires explicit "
+                    "aggregation.tree.slices endpoints")
+            tree.spool_dir = tree.spool_dir or os.path.join(self.workdir,
+                                                            "slices")
+            for idx in range(tree.branch):
+                with socket.socket() as sock:
+                    sock.bind(("127.0.0.1", 0))
+                    port = sock.getsockname()[1]
+                tree.slices.append({
+                    "name": f"slice_{idx}", "host": "localhost",
+                    "port": port,
+                    "spool_dir": os.path.join(tree.spool_dir,
+                                              f"slice_{idx}")})
+        for spec in tree.slices:
+            if spec.get("spool_dir"):
+                os.makedirs(spec["spool_dir"], exist_ok=True)
+
+    def _launch_slice(self, idx: int) -> _Proc:
+        """(Re)launch slice aggregator ``idx`` where the controller runs. A
+        relaunch needs no handoff: its spool persists and the controller
+        re-adopts it at a later round's assignment."""
+        return self._launch(
+            f"slice_{idx}", self.config.controller_host or "localhost",
+            ["-m", "metisfl_tpu_torch.aggregation.slice",
+             "--config", self._config_path, "--index", str(idx)],
+            ship=[self._config_path])
+
+    def _wait_slices_healthy(self, retries: int = 60,
+                             sleep_s: float = 0.5) -> None:
+        pending = list(self.config.aggregation.tree.slices)
+        for _ in range(retries):
+            pending = [
+                spec for spec in pending
+                if probe_health(spec["host"], spec["port"], SLICE_SERVICE,
+                                ssl=self.config.ssl) != "SERVING"]
+            if not pending:
+                return
+            self._check_procs_alive()
+            time.sleep(sleep_s)
+        raise RuntimeError(
+            f"slice aggregator(s) never became healthy: "
+            f"{[s.get('name') for s in pending]}")
+
+    def _supervise_slices(self) -> bool:
+        """Relaunch a slice aggregator process that died (backoff doubling
+        from 0.5 s up to 30 s per slice). The federation does not wait for
+        it: the controller has re-homed its slice. Returns True when a
+        relaunch happened."""
+        if not self._slices_distributed() or self._shutting_down:
+            return False
+        restarted = False
+        for idx in range(len(self.config.aggregation.tree.slices)):
+            proc = next((p for p in self._procs
+                         if p.name == f"slice_{idx}"), None)
+            if proc is None or proc.process.poll() is None:
+                continue
+            if time.time() < self._slice_restart_after.get(idx, 0.0):
+                continue
+            restarts = self._slice_restarts.get(idx, 0) + 1
+            self._slice_restarts[idx] = restarts
+            self._slice_restart_after[idx] = time.time() + min(
+                30.0, 0.5 * (2 ** (restarts - 1)))
+            logger.warning("slice aggregator %d died (exit %s); supervised "
+                           "relaunch %d", idx, proc.process.poll(), restarts)
+            self._launch_slice(idx)
+            restarted = True
+        return restarted
 
     def _launch(self, name: str, host: str, args: Sequence[str],
                 env: Optional[Dict[str, str]] = None,
@@ -446,8 +587,11 @@ class DriverSession:
         raise RuntimeError(f"controller never became healthy: {last_exc}")
 
     def _check_procs_alive(self) -> None:
-        """Raise with the log's tail if any process exited non-zero."""
+        """Raise with the log's tail if any process exited non-zero (a
+        slice aggregator is supervised instead, once the federation runs)."""
         for proc in self._procs:
+            if proc.name.startswith("slice_") and self._started_at:
+                continue
             code = proc.process.poll()
             if code is not None and code != 0:
                 with open(proc.log_path) as f:
@@ -471,6 +615,7 @@ class DriverSession:
         poll_failures = 0
         while True:
             time.sleep(poll_every_s)
+            self._supervise_slices()
             self._check_procs_alive()
             try:
                 # fail fast on a dead controller (short deadline, no wait
@@ -584,7 +729,8 @@ class DriverSession:
 
     def shutdown_federation(self, timeout_s: float = 30.0) -> None:
         """Stop every learner, and once they have exited (each leaves the
-        federation on the way out), the controller; a process still
+        federation on the way out), the slice aggregators, then the
+        controller; a process still
         running after ``timeout_s`` is stopped where it runs and its local
         process terminated. Learners get the ShutDown RPC at the endpoints
         they registered with the controller and at their configured host
@@ -592,7 +738,8 @@ class DriverSession:
         still starting is stopped by its launcher (SIGTERM, over ssh for a
         remote one), which it answers by exiting."""
         deadline = time.time() + timeout_s
-        learners = [p for p in self._procs if p.name != "controller"]
+        self._shutting_down = True
+        learners = [p for p in self._procs if p.name.startswith("learner_")]
         dialled = set()
         if self._client is not None:
             try:
@@ -613,6 +760,7 @@ class DriverSession:
             elif (host, port) not in dialled:
                 self._shut_down_learner(host, port)
         self._wait(learners, deadline)
+        self.stop_slices(max(0.0, deadline - time.time()))
         if self._client is not None:
             try:
                 self._client.shutdown_controller()

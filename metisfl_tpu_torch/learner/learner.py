@@ -7,6 +7,24 @@ trained weights back as a ModelBlob, and evaluate community models. The
 engine is a :class:`~metisfl_tpu_torch.models.ops.TorchModelOps` on the
 device its caller chose; weights move by value through the wire blob.
 
+The uplink variants, host numpy as in the JAX package:
+
+- SCAFFOLD (``task.scaffold``): the server variate ``c`` rides on the
+  task; the learner trains with ``c - c_i`` added to every gradient and
+  ships the control delta of its Option-II update
+  ``c_i+ = c_i - c + (x - y) / (K lr)`` (SGD local steps assumed).
+- Client-level DP (``dp_clip_norm``, ``dp_noise_multiplier``): the update
+  is clipped and noised (secure/dp.py) before anything else touches it.
+- ``ship_dtype``: a float dtype narrows the uplink; ``int8q`` quantizes it
+  (tensor/quantize.py); ``topk<D>`` ships the update's top entries with
+  an error-feedback residual kept across rounds (tensor/sparse.py),
+  against the exact wire tensors of the dispatched model.
+- ``local_tensor_regex`` (FedBN): matching tensors never ship and keep
+  this learner's values across community installs.
+- ``ship_tensor_regex``: only matching tensors ship; the community blob
+  carries that subset, and the rest is filled from the engine's base
+  (every learner holds the same frozen base).
+
 Secure aggregation: with a ``secure_backend`` (secure/) the learner
 encrypts or masks every uplink tensor from its float64 values, in the
 tensor order of the wire, and decrypts an opaque community model into
@@ -15,22 +33,20 @@ the engine's dtypes; a masking backend starts each train task's round
 party's residual on request (:meth:`Learner.recover_masks`). The backend
 is host numpy: no secure work runs on the card.
 
-Not ported yet, and refused when a task asks for them
-(``NotImplementedError`` from :meth:`Learner.run_task` or
-:meth:`Learner.evaluate`): SCAFFOLD control variates, client-level DP,
-int8q/top-k uplinks, FedBN local tensors and ship-only-trainable subsets
-(ROADMAP.md Queue 1 item 3e); controller-failover re-attach and telemetry
-(items 3f and 4).
+Not ported yet: controller-failover re-attach and telemetry (ROADMAP.md
+Queue 1 items 3f and 4).
 """
 
 from __future__ import annotations
 
 import logging
+import re
 import threading
 import time
 from concurrent.futures import ThreadPoolExecutor
 from typing import Dict, Optional, Protocol
 
+import numpy as np
 import torch
 
 from metisfl_tpu_torch.comm.messages import (
@@ -42,6 +58,7 @@ from metisfl_tpu_torch.comm.messages import (
     TrainTask,
 )
 from metisfl_tpu_torch.models.dataset import ArrayDataset
+from metisfl_tpu_torch.secure.dp import privatize_update
 from metisfl_tpu_torch.tensor.pytree import (
     ModelBlob,
     as_tensor,
@@ -49,9 +66,12 @@ from metisfl_tpu_torch.tensor.pytree import (
     narrow_tensors,
     pytree_to_named_tensors,
     tensor_from_float64,
+    to_numpy,
     tree_map,
     wire_dtype_of,
 )
+from metisfl_tpu_torch.tensor.quantize import SHIP_INT8Q, quantize_named
+from metisfl_tpu_torch.tensor.sparse import parse_topk, sparsify_update
 from metisfl_tpu_torch.tensor.spec import (
     TensorKind,
     TensorSpec,
@@ -69,28 +89,37 @@ class ControllerProxy(Protocol):
     def task_completed(self, result: TaskResult) -> bool: ...
 
 
-def _not_ported(what: str, item: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported to metisfl_tpu_torch yet (ROADMAP.md Queue 1 "
-        f"item {item})")
-
-
 def check_train_task(task: TrainTask) -> None:
-    """Refuse a train task that asks for a branch the port lacks, and a
-    ship dtype whose name is unknown (``ValueError``), before any
-    training is paid for."""
+    """Refuse, before any training is paid for, a task whose ship dtype
+    or tensor regex cannot work (``ValueError``): an unknown dtype name, a
+    malformed top-k denominator, a regex that does not compile."""
     params = task.params
-    if task.scaffold or task.control:
-        raise _not_ported("SCAFFOLD", "3e")
-    if params.dp_clip_norm > 0.0 or params.dp_noise_multiplier > 0.0:
-        raise _not_ported("client-level differential privacy", "3e")
-    if params.local_tensor_regex or params.ship_tensor_regex:
-        raise _not_ported("local_tensor_regex / ship_tensor_regex", "3e")
     if params.ship_dtype:
-        name = params.ship_dtype.lower()
-        if name == "int8q" or name.startswith("topk"):
-            raise _not_ported(f"ship_dtype {params.ship_dtype!r}", "3e")
-        resolve_ship_dtype(params.ship_dtype)
+        if (params.ship_dtype.lower() != SHIP_INT8Q
+                and parse_topk(params.ship_dtype) is None):
+            resolve_ship_dtype(params.ship_dtype)
+    for field_name in ("local_tensor_regex", "ship_tensor_regex"):
+        pattern = getattr(params, field_name)
+        if pattern:
+            try:
+                re.compile(pattern)
+            except re.error as exc:
+                raise ValueError(
+                    f"{field_name} does not compile: {exc}") from None
+
+
+def _host(tree):
+    """A tree of tensors (or arrays) as host numpy arrays."""
+    return tree_map(lambda a: to_numpy(a) if isinstance(a, torch.Tensor)
+                    else np.asarray(a), tree)
+
+
+def _named_copies(tree):
+    """``[(name, numpy copy)]`` of a variables tree (the engine's arrays on
+    the CPU share its parameters' memory, which training updates in
+    place)."""
+    return [(n, np.array(to_numpy(t)))
+            for n, t in pytree_to_named_tensors(tree)]
 
 
 class Learner:
@@ -126,8 +155,31 @@ class Learner:
         # the engine's variables tree with each leaf's torch dtype: the
         # structure wire tensors are rebuilt into, and the training dtypes
         # a narrower community blob is widened back to
-        self._dtypes_like = tree_map(lambda a: as_tensor(a).dtype,
-                                     model_ops.get_variables())
+        initial = model_ops.get_variables()
+        self._dtypes_like = tree_map(lambda a: as_tensor(a).dtype, initial)
+        # the same tree as f32 meta tensors (shapes, no memory)
+        self._shapes_like = tree_map(
+            lambda a: torch.empty(np.shape(a), device="meta"), initial)
+        self._names = [n for n, _ in pytree_to_named_tensors(
+            self._shapes_like)]
+        # SCAFFOLD's client variate c_i (params-shaped f32, zeros until the
+        # first scaffold task; in memory only, as in the JAX package)
+        self._scaffold_ci = None
+        # top-k uplinks' error-feedback residuals {tensor name: flat f32}
+        self._ef_residual: Dict[str, np.ndarray] = {}
+        # FedBN (local_tensor_regex): the learner's own copies of its local
+        # tensors, refreshed on the train thread after each task (evals run
+        # concurrently with training and read only this dict), and the
+        # regex they were taken under
+        self._local_regex: str = ""
+        self._local_values: Dict[str, np.ndarray] = {}
+        self._snapshot_regex: str = ""
+        # ship-only subsets (ship_tensor_regex): the tensors that never
+        # federate, taken from the engine once (its frozen base), which
+        # fill every community blob's missing names
+        self._ship_regex: str = ""
+        self._frozen_base: Optional[tuple] = None   # (regex, {name: array})
+        self._warned_unfrozen = False
 
     # ------------------------------------------------------------------ #
     # membership
@@ -165,10 +217,14 @@ class Learner:
     # model wire I/O
     # ------------------------------------------------------------------ #
 
-    def _load_model(self, blob_bytes: bytes):
+    def _load_model(self, blob_bytes: bytes, with_wire: bool = False):
         """Wire blob → variables tree of (CPU) tensors in the engine's
         training dtypes (a community model may arrive narrower, or opaque
-        under secure aggregation: decrypted into its plaintext dtypes)."""
+        under secure aggregation: decrypted into its plaintext dtypes),
+        with this learner's local tensors and the frozen base merged in.
+        With ``with_wire`` also the wire-dtype tensors by name as numpy,
+        which a top-k update differences against (the controller densifies
+        against those exact values)."""
         blob = ModelBlob.from_bytes(blob_bytes)
         named = blob.tensors
         if blob.opaque:
@@ -178,16 +234,106 @@ class Learner:
             named = [(name, tensor_from_float64(
                 spec, self.secure_backend.decrypt(payload, spec.size)))
                 for name, (payload, spec) in blob.opaque.items()]
-        tree = named_tensors_to_pytree(named, self._dtypes_like)
-        return tree_map(lambda a, dt: a if a.dtype == dt else a.to(dt),
+        named = self._merge_frozen(self._merge_local(named))
+        tree = named_tensors_to_pytree(
+            [(n, as_tensor(t)) for n, t in named], self._dtypes_like)
+        tree = tree_map(lambda a, dt: a if a.dtype == dt else a.to(dt),
                         tree, self._dtypes_like)
+        if with_wire:
+            return tree, {n: to_numpy(as_tensor(t)) for n, t in named}
+        return tree
+
+    def _merge_local(self, named):
+        """FedBN: the local tensors a community blob leaves out, from this
+        learner's own copies."""
+        if not self._local_regex:
+            return named
+        have = {n for n, _ in named}
+        return list(named) + [(n, a) for n, a in self._local_values.items()
+                              if n not in have]
+
+    def _merge_frozen(self, named):
+        """Ship-only subsets: the names a community blob leaves out that
+        never federate, from the frozen base. Only non-matching names fill
+        in, so a blob missing a federated tensor still fails."""
+        if not self._ship_regex:
+            return named
+        have = {n for n, _ in named}
+        return list(named) + [(n, a) for n, a in self._base().items()
+                              if n not in have]
+
+    def _base(self) -> Dict[str, np.ndarray]:
+        """The engine's tensors outside ``ship_tensor_regex``, copied once
+        per regex, before the first install that needs them: under the
+        engine's ``trainable_regex`` freeze they never change."""
+        if self._frozen_base is None or self._frozen_base[0] != \
+                self._ship_regex:
+            self._frozen_base = (self._ship_regex, {
+                name: arr for name, arr in _named_copies(
+                    self.model_ops.get_variables())
+                if not re.search(self._ship_regex, name)})
+        return self._frozen_base[1]
+
+    def _snapshot_local(self) -> None:
+        """Refresh the local tensors' copies from the engine (on the train
+        thread, with no step in flight)."""
+        if not self._local_regex:
+            self._local_values, self._snapshot_regex = {}, ""
+            return
+        self._local_values = {
+            name: arr for name, arr in _named_copies(
+                self.model_ops.get_variables())
+            if re.search(self._local_regex, name)}
+        self._snapshot_regex = self._local_regex
+
+    def _adopt_local_regex(self, regex: str) -> None:
+        """Take the FedBN regex from an eval task (a learner that has not
+        trained yet still receives round-2+ blobs without its local
+        tensors) and snapshot its local tensors from the engine if none
+        were taken under it (a train task's own snapshot, taken after its
+        steps, supersedes this one)."""
+        if regex:
+            self._local_regex = regex
+        if not self._local_regex or self._snapshot_regex == self._local_regex:
+            return
+        with self._task_lock:
+            self._snapshot_local()
+
+    def _keep_ship(self, named):
+        """Uplink filter: only ``ship_tensor_regex`` matches federate."""
+        if not self._ship_regex:
+            return named
+        kept = [(n, a) for n, a in named if re.search(self._ship_regex, n)]
+        if not kept:
+            raise ValueError(
+                f"ship_tensor_regex {self._ship_regex!r} matches no "
+                "tensor: nothing would ever be aggregated")
+        return kept
+
+    def _drop_local(self, named):
+        """Uplink filter: local tensors never ship."""
+        if not self._local_regex:
+            return named
+        kept = [(n, a) for n, a in named
+                if not re.search(self._local_regex, n)]
+        if not kept:
+            raise ValueError(
+                f"local_tensor_regex {self._local_regex!r} matches every "
+                "tensor: nothing would ever be aggregated")
+        return kept
+
+    def _shipped(self, variables):
+        """The named tensors of ``variables`` that ship."""
+        return self._keep_ship(self._drop_local(
+            pytree_to_named_tensors(variables)))
 
     def _dump_model(self, ship_dtype: str = "", variables=None) -> bytes:
-        """The engine's weights (or ``variables``) as wire bytes, floating
-        tensors narrowed to ``ship_dtype`` when one is set."""
+        """The engine's weights (or ``variables``) as wire bytes: the
+        shipped tensors, floating ones narrowed to ``ship_dtype`` or
+        quantized under ``int8q``."""
         if variables is None:
             variables = self.model_ops.get_variables()
-        named = pytree_to_named_tensors(variables)
+        named = self._shipped(variables)
         if self.secure_backend is not None:
             # one payload per tensor, in the wire's tensor order (a masking
             # backend derives each tensor's mask from its position)
@@ -199,9 +345,60 @@ class Learner:
                                 TensorSpec(tuple(t.shape), wire_dtype_of(t),
                                            TensorKind.CIPHERTEXT))
             return ModelBlob(opaque=opaque).to_bytes()
-        if ship_dtype:
+        if ship_dtype and ship_dtype.lower() == SHIP_INT8Q:
+            # int8 absmax: 4x less uplink than f32; the controller
+            # dequantizes before it folds
+            named = quantize_named([(n, to_numpy(t)) for n, t in named])
+        elif ship_dtype:
             named = narrow_tensors(named, ship_dtype)
         return ModelBlob(tensors=named).to_bytes()
+
+    def _dump_sparse(self, wire_ref, variables, denom: int) -> bytes:
+        """The top-k update against the dispatched model's wire tensors,
+        with the error-feedback residual carried across rounds."""
+        named = [(n, to_numpy(t)) for n, t in self._shipped(variables)]
+        return ModelBlob(tensors=sparsify_update(
+            named, wire_ref, denom, self._ef_residual)).to_bytes()
+
+    # -- SCAFFOLD ---------------------------------------------------------
+
+    def _scaffold_offset(self, control_bytes: bytes):
+        """(c, c - c_i) for this task, params-shaped f32 numpy trees. An
+        empty control blob means c is still zero; c_i starts at zero."""
+        shapes = self._shapes_like["params"]
+
+        def zeros():
+            return tree_map(lambda m: np.zeros(tuple(m.shape), np.float32),
+                            shapes)
+
+        if control_bytes:
+            blob = ModelBlob.from_bytes(control_bytes)
+            c = named_tensors_to_pytree(blob.tensors, shapes)
+            c = tree_map(lambda a: np.asarray(to_numpy(a), np.float32), c)
+        else:
+            c = zeros()
+        if self._scaffold_ci is None:
+            self._scaffold_ci = zeros()
+        offset = tree_map(lambda a, b: a - b, c, self._scaffold_ci)
+        return c, offset
+
+    def _scaffold_update(self, incoming, trained, params_cfg,
+                         completed_steps: int, c) -> bytes:
+        """Option-II variate update (Karimireddy et al., eq. 4):
+        c_i+ = c_i - c + (x - y_i) / (K lr); ships dc = c_i+ - c_i. Host
+        numpy float32 in the JAX package's order (the division stays off
+        the card)."""
+        k_lr = max(1, completed_steps) * float(params_cfg.learning_rate)
+        x, y = incoming["params"], trained["params"]
+        ci = self._scaffold_ci
+        ci_new = tree_map(
+            lambda ci_l, c_l, x_l, y_l: ci_l - c_l
+            + (np.asarray(x_l, np.float32) - np.asarray(y_l, np.float32))
+            / k_lr,
+            ci, c, x, y)
+        dc = tree_map(lambda a, b: a - b, ci_new, ci)
+        self._scaffold_ci = ci_new
+        return ModelBlob(tensors=pytree_to_named_tensors(dc)).to_bytes()
 
     # ------------------------------------------------------------------ #
     # task execution
@@ -209,8 +406,8 @@ class Learner:
 
     def run_task(self, task: TrainTask) -> None:
         """Non-blocking: cancels any running training, schedules this one.
-        A task asking for an unported branch raises here, on the caller's
-        thread, before anything is scheduled."""
+        A task that cannot work (``check_train_task``) raises here, on the
+        caller's thread, before anything is scheduled."""
         if self._shutdown.is_set():
             return
         check_train_task(task)
@@ -225,9 +422,49 @@ class Learner:
         self._cancel.clear()
         try:
             params = task.params
-            self.model_ops.set_variables(self._load_model(task.model))
+            # the regexes before the load: round-2+ community blobs leave
+            # out the local tensors and the frozen base, which the load
+            # merges back
+            self._local_regex = params.local_tensor_regex
+            if self._local_regex != self._snapshot_regex:
+                with self._task_lock:
+                    self._snapshot_local()
+            self._ship_regex = params.ship_tensor_regex
+            # fail before paying for training: a regex that keeps nothing
+            # to aggregate
+            self._keep_ship(self._drop_local([(n, None)
+                                              for n in self._names]))
+            if self._ship_regex and not self._warned_unfrozen and not \
+                    getattr(self.model_ops, "_trainable_regex", ""):
+                self._warned_unfrozen = True
+                logger.warning(
+                    "%s: ship_tensor_regex=%r but the engine freezes "
+                    "nothing (trainable_regex): tensors that never ship "
+                    "train and are reset on every install", self.learner_id,
+                    self._ship_regex)
+            topk = parse_topk(params.ship_dtype) if params.ship_dtype \
+                else None
+            wire_ref = None
+            if topk is not None and self.secure_backend is None:
+                incoming, wire_ref = self._load_model(task.model,
+                                                      with_wire=True)
+            else:
+                incoming = self._load_model(task.model)
+            self.model_ops.set_variables(incoming)
+            grad_offset = scaffold_c = None
+            if task.scaffold or task.control:
+                scaffold_c, grad_offset = self._scaffold_offset(task.control)
+            elif self._scaffold_ci is not None:
+                # the federation stopped running scaffold: a stale variate
+                # must not keep correcting gradients
+                self._scaffold_ci = None
             out = self.model_ops.train(self.datasets["train"], params,
-                                       cancel_event=self._cancel)
+                                       cancel_event=self._cancel,
+                                       grad_offset=grad_offset)
+            # training moved the local tensors (e.g. normalization
+            # statistics): refresh the copies evals and later merges read
+            with self._task_lock:
+                self._snapshot_local()
             # masking: the round keys the task's mask streams
             if self.secure_backend is not None and hasattr(
                     self.secure_backend, "begin_round"):
@@ -238,8 +475,23 @@ class Learner:
                 return
             # TrainOutput.variables already holds the trained weights on
             # the host: ship those rather than copying them out again
-            model_bytes = self._dump_model(ship_dtype=params.ship_dtype,
-                                           variables=out.variables)
+            trained = out.variables
+            control_delta = b""
+            if scaffold_c is not None:
+                control_delta = self._scaffold_update(
+                    _host(incoming), trained, params, out.completed_steps,
+                    scaffold_c)
+            if params.dp_clip_norm > 0.0:
+                # client-level DP: clip and noise the update before any
+                # encryption, masking or narrowing
+                trained = privatize_update(
+                    trained, _host(incoming), params.dp_clip_norm,
+                    params.dp_noise_multiplier)
+            if wire_ref is not None:
+                model_bytes = self._dump_sparse(wire_ref, trained, topk)
+            else:
+                model_bytes = self._dump_model(ship_dtype=params.ship_dtype,
+                                               variables=trained)
             result = TaskResult(
                 task_id=task.task_id,
                 learner_id=self.learner_id,
@@ -254,6 +506,7 @@ class Learner:
                 processing_ms_per_step=out.ms_per_step,
                 train_metrics=out.train_metrics,
                 epoch_metrics=out.epoch_metrics,
+                control_delta=control_delta,
             )
             if not self.controller.task_completed(result):
                 logger.warning("%s: completion for task %s rejected",
@@ -265,10 +518,12 @@ class Learner:
     def evaluate(self, task: EvalTask) -> EvalResult:
         """Blocking community-model evaluation over the requested
         datasets, on an explicit variables tree so a training task running
-        meanwhile keeps the engine's own weights."""
-        if task.local_tensor_regex or task.ship_tensor_regex:
-            raise _not_ported("local_tensor_regex / ship_tensor_regex", "3e")
+        meanwhile keeps the engine's own weights. The task's regexes say
+        which tensors the community blob leaves out (a task without them
+        clears them)."""
         t0 = time.time()
+        self._adopt_local_regex(task.local_tensor_regex)
+        self._ship_regex = task.ship_tensor_regex
         variables = self._load_model(task.model)
         evaluations: Dict[str, Dict[str, float]] = {}
         for name in task.datasets:

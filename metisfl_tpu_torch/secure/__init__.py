@@ -8,8 +8,8 @@
   ``native/ckks.cc``.
 
 Every backend is host numpy: the secure planes never touch the card.
-Client-level differential privacy (``secure/dp.py`` in the JAX package)
-is not ported yet (ROADMAP.md Queue 1 item 3e).
+Client-level differential privacy (``secure/dp.py``) clips and noises a
+learner's update before any of them encrypts it.
 """
 
 from metisfl_tpu_torch.secure.identity import IdentityBackend

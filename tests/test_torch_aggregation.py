@@ -24,6 +24,7 @@ from metisfl_tpu.aggregation.fedavg import FedAvg as JaxFedAvg
 from metisfl_tpu_torch.aggregation import FedAvg, make_aggregation_rule
 from metisfl_tpu_torch.aggregation import base as port_base
 from metisfl_tpu_torch.aggregation.base import is_host_tree
+from metisfl_tpu_torch.comm import TrainParams
 from metisfl_tpu_torch.config import AggregationConfig, FederationConfig
 from metisfl_tpu_torch.tensor.pytree import as_tensor, tree_map, to_numpy
 
@@ -280,15 +281,12 @@ def test_aggregate_rejects_empty_and_result_before_accumulate():
 @pytest.mark.parametrize("name", ["fedstride", "fedrec", "scaffold",
                                   "fedadam", "median", "krum"])
 def test_other_rules_are_not_ported(name):
-    """FederationConfig refuses the rule still unported (scaffold, 3e) by
-    name, and the factory does not know it; the ported ones are accepted
-    by the config and built by the factory."""
+    """Every rule of the JAX package is ported: the config accepts it and
+    the factory builds it (scaffold wants SGD local steps, as there)."""
     if name == "scaffold":
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            FederationConfig(aggregation=AggregationConfig(rule=name))
-        with pytest.raises(ValueError, match="unknown aggregation rule"):
-            make_aggregation_rule(name)
-        return
+        with pytest.raises(ValueError, match="optimizer='sgd'"):
+            FederationConfig(aggregation=AggregationConfig(rule=name),
+                             train=TrainParams(optimizer="adam"))
     cfg = FederationConfig(aggregation=AggregationConfig(rule=name))
     assert cfg.aggregation.rule == name
     kwargs = {"device": "cpu"} if name in ("median", "krum") else {}

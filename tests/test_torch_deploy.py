@@ -6,8 +6,10 @@ second host here). Then a 2-learner MLP round on the CPU in which one
 learner's endpoint is ``127.0.0.2``, a non-local name for this machine:
 its recipe is shipped, it launches through the shims, the round
 completes, every process exits 0, and the ShutDown RPC reaches it at
-that hostname. Every subprocess wait is bounded (60 s, and the
-federation's own 120 s wall-clock cutoff).
+that hostname. Training waits for a gate file that the test writes once
+both learners have joined, so round 0's cohort is both. Every
+subprocess wait is bounded (60 s, and the federation's own 120 s
+wall-clock cutoff).
 """
 
 import os
@@ -144,12 +146,26 @@ def test_ssh_launcher_end_to_end_with_path_shim(tmp_path, monkeypatch):
     assert sleeper.process.wait(timeout=60) == -15  # SIGTERM, at its pid
 
 
-def _recipe(x, y, test, seed):
+def _recipe(x, y, test, seed, gate):
+    """A learner whose training waits (at most 60 s) for ``gate`` to
+    exist."""
     def recipe():
+        import os
+        import time
+
         from metisfl_tpu_torch.models import ArrayDataset, TorchModelOps
         from metisfl_tpu_torch.models.zoo import MLP
-        return (TorchModelOps(MLP(6, (16,), 3), rng_seed=0, device="cpu"),
-                ArrayDataset(x, y, seed=seed), None, ArrayDataset(*test))
+        ops = TorchModelOps(MLP(6, (16,), 3), rng_seed=0, device="cpu")
+        train = ops.train
+
+        def gated(*args, **kwargs):
+            deadline = time.time() + 60
+            while not os.path.exists(gate) and time.time() < deadline:
+                time.sleep(0.05)
+            return train(*args, **kwargs)
+
+        ops.train = gated
+        return ops, ArrayDataset(x, y, seed=seed), None, ArrayDataset(*test)
 
     return recipe
 
@@ -186,8 +202,9 @@ def test_a_learner_on_a_remote_endpoint_runs_through_ssh(tmp_path,
                   LearnerEndpoint(hostname=REMOTE)])
     template = TorchModelOps(MLP(6, (16,), 3), rng_seed=0,
                              device="cpu").get_variables()
+    gate = str(tmp_path / "gate")
     session = DriverSession(config, template,
-                            [_recipe(x, y, test, i)
+                            [_recipe(x, y, test, i, gate)
                              for i, (x, y) in enumerate(shards)],
                             workdir=str(tmp_path / "run"), device="cpu")
     assert isinstance(session._launcher_for(REMOTE), SSHLauncher)
@@ -203,6 +220,12 @@ def test_a_learner_on_a_remote_endpoint_runs_through_ssh(tmp_path,
     cloudpickle.register_pickle_by_value(module)
     try:
         session.initialize_federation(health_retries=120)
+        # hold training until both learners have joined
+        deadline = time.time() + 60
+        while len(session._client.list_learners(timeout=10.0)) < 2:
+            assert time.time() < deadline, "the learners never both joined"
+            time.sleep(0.1)
+        open(gate, "w").close()
         stats = session.monitor_federation(poll_every_s=0.2,
                                            eval_drain_timeout_s=30.0)
         endpoints = session._client.list_learners(timeout=10.0)

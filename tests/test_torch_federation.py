@@ -57,7 +57,7 @@ from metisfl_tpu_torch.driver import InProcessFederation
 from metisfl_tpu_torch.learner import Learner
 from metisfl_tpu_torch.models import ArrayDataset, TorchModelOps
 from metisfl_tpu_torch.models.zoo import MLP, FashionMnistCNN
-from metisfl_tpu_torch.tensor import ModelBlob
+from metisfl_tpu_torch.tensor import ModelBlob, pack_model
 from metisfl_tpu_torch.tensor.pytree import to_numpy
 
 ROUNDS = 3
@@ -599,37 +599,16 @@ UNSUPPORTED = {
     "protocol_asynchronous": lambda: FederationConfig(protocol="asynchronous"),
     "protocol_buffered": lambda: FederationConfig(
         protocol="asynchronous_buffered"),
-    "rule_scaffold": lambda: FederationConfig(
-        aggregation=AggregationConfig(rule="scaffold")),
-    # the in-process tree tier is ported; its distributed tier is not
-    "tree_distributed": lambda: FederationConfig(
-        aggregation=AggregationConfig(tree=TreeAggregationConfig(
-            enabled=True, distributed=True))),
     # the stores are ported; what stays refused around them is the disk
-    # store's checkpoints (3f) and the distributed tree tier that the JAX
-    # package refuses beside parallel ingest (3c)
+    # store's checkpoints (3f)
     "store_disk": lambda: FederationConfig(
         model_store=ModelStoreConfig(store="disk"),
         checkpoint=CheckpointConfig(dir="ckpt")),
-    "store_remote": lambda: FederationConfig(
-        model_store=ModelStoreConfig(store="remote", ingest_workers=2),
-        aggregation=AggregationConfig(tree=TreeAggregationConfig(
-            enabled=True, distributed=True))),
     "checkpoint": lambda: FederationConfig(
         checkpoint=CheckpointConfig(dir="ckpt")),
-    "ship_int8q": lambda: FederationConfig(
-        train=TrainParams(ship_dtype="int8q")),
-    "ship_topk": lambda: FederationConfig(
-        train=TrainParams(ship_dtype="topk100")),
-    "dp_clip": lambda: FederationConfig(
-        train=TrainParams(dp_clip_norm=1.0)),
-    "dp_noise": lambda: FederationConfig(
-        train=TrainParams(dp_clip_norm=1.0, dp_noise_multiplier=0.5)),
     "quorum": lambda: FederationConfig(
         scheduling=SchedulingConfig(quorum=2)),
     "deadline": lambda: FederationConfig(round_deadline_secs=5.0),
-    "local_tensors": lambda: FederationConfig(
-        train=TrainParams(local_tensor_regex="batch_stats")),
     # DriverSession watches the cutoffs; the in-process federation cannot
     "cutoff_wall_clock": lambda: InProcessFederation(FederationConfig(
         termination=TerminationConfig(execution_cutoff_mins=5.0))),
@@ -650,18 +629,46 @@ SUPPORTED = {
         aggregation=AggregationConfig(rule="fedstride")),
     "rule_fedadam": lambda: FederationConfig(
         aggregation=AggregationConfig(rule="fedadam")),
+    "rule_scaffold": lambda: FederationConfig(
+        aggregation=AggregationConfig(rule="scaffold")),
+    # the distributed tree tier, with the slices a driver fills in
+    "tree_distributed": lambda: FederationConfig(
+        aggregation=AggregationConfig(tree=TreeAggregationConfig(
+            enabled=True, distributed=True))),
+    "ship_int8q": lambda: FederationConfig(
+        train=TrainParams(ship_dtype="int8q")),
+    "ship_topk": lambda: FederationConfig(
+        train=TrainParams(ship_dtype="topk100")),
+    "dp_clip": lambda: FederationConfig(
+        train=TrainParams(dp_clip_norm=1.0)),
+    "dp_noise": lambda: FederationConfig(
+        train=TrainParams(dp_clip_norm=1.0, dp_noise_multiplier=0.5)),
+    "local_tensors": lambda: FederationConfig(
+        train=TrainParams(local_tensor_regex="batch_stats")),
 }
 
 
 @pytest.mark.parametrize("name", sorted(SUPPORTED))
 def test_ported_config_is_accepted(name):
-    rule = name.split("_", 1)[1]
-    assert SUPPORTED[name]().aggregation.rule == rule
-    fed = InProcessFederation(SUPPORTED[name]())
+    cfg = SUPPORTED[name]()
+    assert FederationConfig.from_wire(cfg.to_wire()) == cfg
+    if name.startswith("rule_"):
+        assert cfg.aggregation.rule == name.split("_", 1)[1]
+    fed = InProcessFederation(cfg)
     try:
-        assert fed.controller._aggregator.name == rule
+        assert fed.controller._aggregator.name == cfg.aggregation.rule
     finally:
         fed.shutdown()
+
+
+def test_the_distributed_tier_beside_parallel_ingest_is_a_value_error():
+    """The JAX package's refusal: distributed uplinks bypass the root
+    store, so there is nothing to ingest."""
+    with pytest.raises(ValueError, match="ingest_workers"):
+        FederationConfig(
+            model_store=ModelStoreConfig(store="remote", ingest_workers=2),
+            aggregation=AggregationConfig(tree=TreeAggregationConfig(
+                enabled=True, distributed=True)))
 
 
 @pytest.mark.parametrize("store", ["in_memory", "disk", "cached_disk",
@@ -680,18 +687,44 @@ def test_every_store_is_accepted(store):
         FederationConfig(model_store=ModelStoreConfig(store="redis"))
 
 
+class _Reports:
+    def __init__(self):
+        self.results = []
+        self.done = threading.Event()
+
+    def task_completed(self, result):
+        self.results.append(result)
+        self.done.set()
+        return True
+
+
 @pytest.mark.parametrize("field,task", [
     ("scaffold", TrainTask(scaffold=True)),
     ("dp", TrainTask(params=TrainParams(dp_clip_norm=1.0))),
     ("int8q", TrainTask(params=TrainParams(ship_dtype="int8q"))),
 ])
 def test_unsupported_train_task_raises_before_training(field, task):
+    """These tasks were refused before the uplink variants were ported:
+    now each trains and reports. What still raises before training, on
+    the caller's thread, is a ship dtype that names nothing."""
     shards, _ = _arrays(1)
     ops = TorchModelOps(MLP(6, (16,), 3), device="cpu")
-    learner = Learner(ops, ArrayDataset(*shards[0]), controller=None)
+    reports = _Reports()
+    learner = Learner(ops, ArrayDataset(*shards[0]), controller=reports)
     try:
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            learner.run_task(task)
+        task.model = pack_model(ops.get_variables())
+        task.params.local_steps = 1
+        task.params.batch_size = 4
+        learner.run_task(task)
+        assert reports.done.wait(60)
+        result = reports.results[0]
+        names = ModelBlob.from_bytes(result.model).names
+        assert bool(result.control_delta) == (field == "scaffold")
+        assert any(n.endswith("#qscale") for n in names) == (
+            field == "int8q")
+        with pytest.raises(ValueError, match="ship_dtype"):
+            learner.run_task(TrainTask(params=TrainParams(
+                ship_dtype="int9q")))
     finally:
         learner.shutdown()
 

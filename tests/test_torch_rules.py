@@ -290,6 +290,34 @@ def test_krum_scores_are_translation_invariant():
     np.testing.assert_allclose(got, want, rtol=1e-4)
 
 
+def test_krum_scores_hold_float64_distances_at_a_near_tie():
+    """Three learners' near-equal updates over 2e6 coordinates: the
+    distances differ by ~1e-3 relative, about what an fp32 Gram product
+    of this length gets wrong. The float64 product (over several column
+    chunks) holds the float64 distances to 1e-12, so its pick is the
+    distances' pick on any device."""
+    rng = np.random.default_rng(11)
+    base = rng.standard_normal(2_000_000).astype(np.float32)
+    flat = np.stack([base + np.float32(1e-3) * rng.standard_normal(
+        base.size).astype(np.float32) for _ in range(3)])
+    # the rule translates by the first model in fp32 (the same rounding
+    # on every device), then measures in float64
+    moved = (flat - flat[0]).astype(np.float64)
+    exact = np.array([[np.sum((moved[i] - moved[j]) ** 2)
+                       for j in range(3)] for i in range(3)])
+    np.fill_diagonal(exact, np.inf)
+    want = np.sort(exact, axis=1)[:, :1].sum(axis=1)
+    saved = port_robust._KRUM_CHUNK
+    port_robust._KRUM_CHUNK = 300_000
+    try:
+        got = port_robust.krum_scores(torch.from_numpy(flat.copy()), 0)
+    finally:
+        port_robust._KRUM_CHUNK = saved
+    np.testing.assert_allclose(got, want, rtol=1e-12)
+    _, port_r = _build("krum")
+    assert port_r._order(got, 3) == [int(np.argsort(want)[0])]
+
+
 def test_equal_distances_score_equal():
     """The Gram product's mirrored triangle: a tie is a tie, and argsort
     picks the lower index, as the JAX package's does."""

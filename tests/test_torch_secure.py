@@ -576,16 +576,27 @@ def test_secure_config_checks_match_the_jax_package(name):
 
 
 def test_the_distributed_tier_and_dp_still_refuse():
+    """Masking with streaming over the distributed tier, and DP, are
+    ported; what still refuses is what the JAX package refuses: CKKS
+    ciphertexts over the slices, and DP noise with no clip bound."""
     from metisfl_tpu_torch.config.federation import TreeAggregationConfig
 
-    with pytest.raises(NotImplementedError, match="item 3c"):
+    cfg = FederationConfig(
+        aggregation=AggregationConfig(
+            rule="secure_agg", scaler="participants", streaming=True,
+            tree=TreeAggregationConfig(enabled=True, distributed=True)),
+        secure=SecureAggConfig(enabled=True))
+    assert FederationConfig.from_wire(cfg.to_wire()) == cfg
+    with pytest.raises(ValueError, match="secure.scheme: masking"):
         FederationConfig(
             aggregation=AggregationConfig(
-                rule="secure_agg", scaler="participants", streaming=True,
+                rule="secure_agg", scaler="participants",
                 tree=TreeAggregationConfig(enabled=True, distributed=True)),
-            secure=SecureAggConfig(enabled=True))
-    with pytest.raises(NotImplementedError, match="item 3e"):
-        FederationConfig(train=TrainParams(dp_clip_norm=1.0))
+            secure=SecureAggConfig(enabled=True, scheme="ckks"))
+    assert FederationConfig(
+        train=TrainParams(dp_clip_norm=1.0)).train.dp_clip_norm == 1.0
+    with pytest.raises(ValueError, match="dp_clip_norm > 0"):
+        FederationConfig(train=TrainParams(dp_noise_multiplier=1.0))
     cfg = _configs("port")["masking_streaming"]()
     assert FederationConfig.from_wire(cfg.to_wire()) == cfg
 
