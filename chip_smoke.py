@@ -126,8 +126,8 @@ It drives the port only (it imports no jax and nothing of the JAX package):
    of 9 and 10 run at full width and depth ``CUT_DEPTH`` (2), for the
    script's time;
 11. uplinks: in-process LlamaLite rounds at full width (3 learners,
-   equal shards), the int8q round at full depth and every other round at
-   depth ``CUT_DEPTH``: (a) two slice aggregator processes (``python -m
+   equal shards), every round at depth ``CUT_DEPTH`` (one 755 MB uplink
+   at full depth is submitted to a slice alone): (a) two slice aggregator processes (``python -m
    metisfl_tpu_torch.aggregation.slice``, booted by
    ``DriverSession.start_slices``) under ``tree: {branch 2,
    distributed}``, 2 rounds: the root store sees no insert and no select,
@@ -296,6 +296,15 @@ def kernel_names(fn, top: int = 3):
     return [row["kernel"] for row in profiled["top"]]
 
 
+# the script's own seconds outside the federations' rounds: per
+# in-process federation, construction to its first dispatch, the rounds
+# (first dispatch to the last round's close), the wait for evaluations,
+# and its shutdown; and each random_variables call and re-fold check
+SETUP = {"federations": [], "random_variables": [], "pack_seed": [],
+         "check_folds": [], "process_boots": [], "profiles": []}
+CURRENT_PHASE = [""]
+
+
 class Smoke:
     def __init__(self):
         self.failures = []
@@ -307,6 +316,8 @@ class Smoke:
 
     def phase(self, name, fn, *args):
         print(f"== {name}", flush=True)
+        CURRENT_PHASE[0] = name.split(":")[0] if name.startswith(
+            "kernel") else name[:40]
         t0 = time.perf_counter()
         try:
             return fn(*args)
@@ -979,6 +990,7 @@ def random_variables(module, seed: int):
     kernels N(0, 1/fan_in), embeddings N(0, 1), norm scales one."""
     from metisfl_tpu_torch.models.convert import flax_name
 
+    t0 = time.perf_counter()
     rng = np.random.default_rng(seed)
     tree = {}
     for name, p in module.named_parameters():
@@ -995,7 +1007,39 @@ def random_variables(module, seed: int):
         for part in parents:
             node = node.setdefault(part, {})
         node[last] = arr
+    SETUP["random_variables"].append(
+        (CURRENT_PHASE[0], round(time.perf_counter() - t0, 3)))
     return tree
+
+
+# the full-width LlamaLite's seeded variables and their packed blob, per
+# depth, made once per script and shared by every phase that seeds that
+# model (no phase writes into them)
+_SEEDS = {}
+
+
+def llama_seed(depth):
+    """(variables, blob) of the full-width LlamaLite at ``depth`` from
+    ``SEED``; the first call makes them, later calls share them."""
+    if depth not in _SEEDS:
+        from metisfl_tpu_torch.models.zoo import LlamaLite
+        from metisfl_tpu_torch.tensor import pack_model
+
+        variables = random_variables(LlamaLite(
+            vocab_size=VOCAB, dim=DIM, depth=depth, heads=HEADS,
+            kv_heads=KV_HEADS, device="meta"), SEED)
+        t0 = time.perf_counter()
+        blob = pack_model(variables)
+        SETUP["pack_seed"].append((depth, round(time.perf_counter() - t0,
+                                                3)))
+        _SEEDS[depth] = (variables, blob)
+    return _SEEDS[depth]
+
+
+def seed_federation(fed, blob):
+    """Seed an in-process federation's controller with a packed blob (what
+    ``seed_model`` does after packing the variables)."""
+    fed.controller.set_community_model(blob)
 
 
 def run_concurrently(fn, n):
@@ -1032,10 +1076,9 @@ def slice_phase(smoke, gpu):
     cfg = dict(vocab_size=VOCAB, dim=DIM, depth=DEPTH, heads=HEADS,
                kv_heads=KV_HEADS, dtype=torch.bfloat16)
     t0 = time.perf_counter()
-    variables = random_variables(LlamaLite(**cfg, device="meta"), SEED)
+    variables, blob = llama_seed(DEPTH)
     n_params = sum(a.size for a in _leaves(variables))
-    blob = pack_model(variables)
-    ops = TorchModelOps(LlamaLite(**cfg, use_flash=True),
+    ops = TorchModelOps(LlamaLite(**cfg, use_flash=True, device=DEVICE),
                         variables=variables, device=DEVICE)
     gateway = ServingGateway(
         ops, ServingConfig(max_batch=MAX_BATCH, max_wait_ms=50.0,
@@ -1150,9 +1193,8 @@ def training_phase(smoke, gpu):
     cfg = dict(vocab_size=VOCAB, dim=DIM, depth=DEPTH, heads=HEADS,
                kv_heads=KV_HEADS, dtype=torch.bfloat16)
     t0 = time.perf_counter()
-    variables = random_variables(LlamaLite(**cfg, device="meta"), SEED)
-    blob = pack_model(variables)
-    ops = TorchModelOps(LlamaLite(**cfg, use_flash=True),
+    variables, blob = llama_seed(DEPTH)
+    ops = TorchModelOps(LlamaLite(**cfg, use_flash=True, device=DEVICE),
                         variables=ModelBlob.from_bytes(blob).tensors,
                         device=DEVICE)
     del variables
@@ -1377,13 +1419,23 @@ class RoundProbe:
         return out
 
 
-def run_federation(fed, timeout_s=600.0):
+def run_federation(fed, timeout_s=600.0, settle=None):
     """Start ``fed``, wait for its ``termination.federation_rounds`` rounds
-    and every learner's evaluation of each, shut it down; returns (probe,
-    statistics)."""
+    and every learner's evaluation of each (and ``settle()``, when given),
+    shut it down; returns (probe, statistics)."""
     probe = RoundProbe(fed)
     rounds = probe.rounds
     n = len(fed.learners)
+    first = []
+    dispatch = fed.controller._dispatch_train
+
+    def first_dispatch(*args, **kwargs):
+        if not first:
+            first.append(time.perf_counter())
+        return dispatch(*args, **kwargs)
+
+    fed.controller._dispatch_train = first_dispatch
+    clock = {"phase": CURRENT_PHASE[0]}
 
     def evaluated():
         entries = fed.statistics()["community_evaluations"]
@@ -1391,13 +1443,25 @@ def run_federation(fed, timeout_s=600.0):
 
     try:
         t0 = time.perf_counter()
+        born = getattr(fed, "_smoke_born", t0)
         fed.start()
-        ok = (fed.wait_for_rounds(rounds, timeout_s)
-              and fed.wait_until(evaluated, timeout_s))
-        wall = time.perf_counter() - t0
+        ok = fed.wait_for_rounds(rounds, timeout_s)
+        t_rounds = time.perf_counter()
+        ok = ok and fed.wait_until(evaluated, timeout_s)
+        if ok and settle is not None:
+            settle()
+        t_evals = time.perf_counter()
+        wall = t_evals - t0
         stats = fed.statistics()
     finally:
+        t_down = time.perf_counter()
         fed.shutdown()
+        clock["shutdown_s"] = round(time.perf_counter() - t_down, 3)
+    t_first = first[0] if first else t0
+    clock.update(construct_to_first_dispatch_s=round(t_first - born, 3),
+                 rounds_s=round(t_rounds - t_first, 3),
+                 eval_wait_s=round(t_evals - t_rounds, 3))
+    SETUP["federations"].append(clock)
     if not ok:
         raise RuntimeError(f"federation did not complete {rounds} rounds "
                            f"with evaluations in {timeout_s} s")
@@ -1405,11 +1469,40 @@ def run_federation(fed, timeout_s=600.0):
     return probe, stats
 
 
+def f64_mean_rel_err(got, models, weights):
+    """The largest, over tensors, of max|got - mean| / max|mean|, where
+    mean = Σ wᵢ·modelᵢ / Σ w in float64: the same operations in the same
+    order as numpy's, on ``DEVICE`` (the division by a 0-d tensor, so the
+    card divides as the host does)."""
+    import warnings
+
+    import torch
+
+    worst = 0.0
+    total = torch.tensor(float(sum(weights)), dtype=torch.float64,
+                         device=DEVICE)
+
+    def dev(arr):
+        with warnings.catch_warnings():
+            # blob views are read-only; the copy to the card leaves them so
+            warnings.simplefilter("ignore")
+            return torch.from_numpy(np.asarray(arr)).to(
+                DEVICE, torch.float64)
+
+    for k in got:
+        mean = sum(w * dev(m[k]) for w, m in zip(weights, models))
+        mean = mean / total
+        scale = max(float(mean.abs().max()), 1e-30)
+        worst = max(worst, float((dev(got[k]) - mean).abs().max()) / scale)
+    return worst
+
+
 def check_folds(smoke, label, probe, stats, rounds, f64_rel=None):
     """Each round's community model against an independent FedAvg of the
     uplinks its cohort shipped (re-read from the wire bytes, scaled as the
     controller's scaler scales them): bit for bit, and, with ``f64_rel``,
-    within ``f64_rel`` x max|w| of a float64 numpy weighted mean."""
+    within ``f64_rel`` x max|w| of a float64 weighted mean (computed on
+    ``DEVICE``, by :func:`f64_mean_rel_err`)."""
     from metisfl_tpu_torch.aggregation import FedAvg
     from metisfl_tpu_torch.scaling import make_scaler
     from metisfl_tpu_torch.tensor import ModelBlob
@@ -1418,6 +1511,7 @@ def check_folds(smoke, label, probe, stats, rounds, f64_rel=None):
     def parse(blob):
         return {n: to_numpy(t) for n, t in ModelBlob.from_bytes(blob).tensors}
 
+    t0 = time.perf_counter()
     sizes = {learner.learner_id: len(learner.datasets["train"])
              for learner in probe.fed.learners}
     scaler = make_scaler(probe.fed.config.aggregation.scaler)
@@ -1437,17 +1531,13 @@ def check_folds(smoke, label, probe, stats, rounds, f64_rel=None):
                     f"FedAvg re-fold of the {len(ups)} shipped blobs, bit "
                     "for bit")
         if f64_rel is not None:
-            for k in want:
-                mean = sum(scales[lid] * m[k].astype(np.float64)
-                           for lid, m in zip(selected, ups))
-                mean /= sum(scales.values())
-                scale = max(float(np.abs(mean).max()), 1e-30)
-                worst_f64 = max(worst_f64, float(np.abs(
-                    got[k].astype(np.float64) - mean).max()) / scale)
+            worst_f64 = max(worst_f64, f64_mean_rel_err(
+                got, ups, [scales[lid] for lid in selected]))
     if f64_rel is not None:
         smoke.check(worst_f64 <= f64_rel,
                     f"{label}: community within {worst_f64:.3g} x max|w| of "
                     f"the float64 weighted mean (<= {f64_rel})")
+    SETUP["check_folds"].append((label, round(time.perf_counter() - t0, 3)))
     return worst_f64
 
 
@@ -1537,7 +1627,7 @@ def federation_phase(smoke, gpu, label="federation", make_federation=None):
     # (b) full-width LlamaLite: 3 learners x FED_ROUNDS of 2 Adam steps
     llama = dict(vocab_size=VOCAB, dim=DIM, depth=DEPTH, heads=HEADS,
                  kv_heads=KV_HEADS, dtype=torch.bfloat16)
-    variables = random_variables(LlamaLite(**llama, device="meta"), SEED)
+    variables, seed_blob = llama_seed(DEPTH)
 
     def llama_config(rounds):
         return FederationConfig(
@@ -1558,12 +1648,16 @@ def federation_phase(smoke, gpu, label="federation", make_federation=None):
         fed = make_federation(llama_config(rounds))
         for i in range(FED_LEARNERS):
             rows = tokens[i * FED_ROWS:(i + 1) * FED_ROWS]
-            ops = TorchModelOps(LlamaLite(**llama, use_flash=True),
+            ops = TorchModelOps(LlamaLite(**llama, use_flash=True,
+                                          device=DEVICE),
                                 variables=variables, device=DEVICE)
             fed.add_learner(ops, ArrayDataset(rows[:, :-1], rows[:, 1:],
                                               seed=SEED + i),
                             test_dataset=test)
-        fed.seed_model(variables)
+        if hasattr(fed, "controller"):
+            seed_federation(fed, seed_blob)
+        else:
+            fed.seed_model(variables)
         return fed
 
     t0 = time.perf_counter()
@@ -1897,6 +1991,36 @@ def mp_recipe(kind, x, y, test_x, test_y, seed, device, out_dir, gate,
     return recipe
 
 
+def note_boot(label, workdir, started):
+    """A process federation's boot timeline, from its logs: each process's
+    first logged line and the controller's join lines, in seconds after
+    ``started`` (``time.time()`` before ``initialize_federation``)."""
+    import datetime
+
+    stamp = re.compile(r"^(\d{4}-\d\d-\d\d \d\d:\d\d:\d\d,\d{3}) ")
+
+    def seconds(line):
+        found = stamp.match(line)
+        if not found:
+            return None
+        t = datetime.datetime.strptime(found.group(1),
+                                       "%Y-%m-%d %H:%M:%S,%f").timestamp()
+        return round(t - started, 3)
+
+    boot = {"label": label}
+    for name in sorted(os.listdir(workdir)):
+        if not name.endswith(".log"):
+            continue
+        with open(os.path.join(workdir, name)) as f:
+            lines = f.read().splitlines()
+        first = next((t for t in map(seconds, lines) if t is not None), None)
+        boot[name[:-4]] = first
+        if name == "controller.log":
+            boot["joined"] = [seconds(line) for line in lines
+                              if " joined (" in line]
+    SETUP["process_boots"].append(boot)
+
+
 def _npz(path):
     with np.load(path) as data:
         return {k: data[k] for k in data.files}
@@ -1944,6 +2068,7 @@ def run_multiprocess(smoke, label, kind, shards, test, train, eval_cfg,
                             device=DEVICE)
     client = None
     t0 = time.perf_counter()
+    started = time.time()
     try:
         session.initialize_federation(
             health_retries=int(MP_TIMEOUT_S / 0.5), health_sleep_s=0.5)
@@ -1954,6 +2079,7 @@ def run_multiprocess(smoke, label, kind, shards, test, train, eval_cfg,
             if time.time() > deadline:
                 raise RuntimeError(f"{label}: learners never all joined")
             time.sleep(0.1)
+        note_boot(label, workdir, started)
         ports = {}
         for i in range(len(shards)):
             with open(os.path.join(workdir, f"learner_{i}.log")) as f:
@@ -2136,9 +2262,7 @@ def multiprocess_phase(smoke, gpu):
           f"{[round(s['wall_s'], 3) for s in split]} s", flush=True)
 
     # (b) full-width LlamaLite, the federation phase's data and settings
-    variables = random_variables(LlamaLite(
-        vocab_size=VOCAB, dim=DIM, depth=DEPTH, heads=HEADS,
-        kv_heads=KV_HEADS, dtype=torch.bfloat16, device="meta"), SEED)
+    variables, _ = llama_seed(DEPTH)
     tokens = np.random.default_rng(SEED + 5).integers(
         0, VOCAB, (FED_LEARNERS * FED_ROWS + FED_EVAL_ROWS, TRAIN_LEN + 1)
     ).astype(np.int32)
@@ -2434,7 +2558,7 @@ def store_phase(smoke, gpu):
     # (a) LlamaLite, 3 learners x 1 round of 2 Adam steps
     llama = dict(vocab_size=VOCAB, dim=DIM, depth=DEPTH, heads=HEADS,
                  kv_heads=KV_HEADS, dtype=torch.bfloat16)
-    variables = random_variables(LlamaLite(**llama, device="meta"), SEED)
+    variables, seed_blob = llama_seed(DEPTH)
     tokens = np.random.default_rng(SEED + 5).integers(
         0, VOCAB, (FED_LEARNERS * FED_ROWS + FED_EVAL_ROWS, TRAIN_LEN + 1)
     ).astype(np.int32)
@@ -2455,11 +2579,12 @@ def store_phase(smoke, gpu):
         for i in range(FED_LEARNERS):
             rows = tokens[i * FED_ROWS:(i + 1) * FED_ROWS]
             fed.add_learner(
-                TorchModelOps(LlamaLite(**llama, use_flash=True),
+                TorchModelOps(LlamaLite(**llama, use_flash=True,
+                                        device=DEVICE),
                               variables=variables, device=DEVICE),
                 ArrayDataset(rows[:, :-1], rows[:, 1:], seed=SEED + i),
                 test_dataset=test)
-        fed.seed_model(variables)
+        seed_federation(fed, seed_blob)
         del variables
         fences = FenceProbe(fed.controller)
         store = fed.controller._store
@@ -2921,8 +3046,8 @@ def rules_phase(smoke, gpu, fedavg_llama_walls):
     # the card
     llama = dict(vocab_size=VOCAB, dim=DIM, depth=CUT_DEPTH, heads=HEADS,
                  kv_heads=KV_HEADS, dtype=torch.bfloat16)
-    variables = random_variables(LlamaLite(**llama, device="meta"), SEED)
-    seed = parse_blob(pack_model(variables))
+    variables, seed_blob = llama_seed(CUT_DEPTH)
+    seed = parse_blob(seed_blob)
     tokens = np.random.default_rng(SEED + 5).integers(
         0, VOCAB, (FED_LEARNERS * FED_ROWS + FED_EVAL_ROWS, TRAIN_LEN + 1)
     ).astype(np.int32)
@@ -2939,12 +3064,13 @@ def rules_phase(smoke, gpu, fedavg_llama_walls):
     fed = InProcessFederation(cfg, device=DEVICE)
     for i in range(FED_LEARNERS):
         rows = tokens[i * FED_ROWS:(i + 1) * FED_ROWS]
-        ops = TorchModelOps(LlamaLite(**llama, use_flash=True),
+        ops = TorchModelOps(LlamaLite(**llama, use_flash=True,
+                                      device=DEVICE),
                             variables=variables, device=DEVICE)
         fed.add_learner(ops, ArrayDataset(rows[:, :-1], rows[:, 1:],
                                           seed=SEED + i),
                         test_dataset=test)
-    fed.seed_model(variables)
+    seed_federation(fed, seed_blob)
     del variables
     counters = (flash_attention_fwd, flash_bwd_dq, flash_bwd_dkv)
     for fn in counters:
@@ -3243,7 +3369,7 @@ def tiers_secure_phase(smoke, gpu):
     out = {"learners": FED_LEARNERS}
     llama = dict(vocab_size=VOCAB, dim=DIM, depth=CUT_DEPTH, heads=HEADS,
                  kv_heads=KV_HEADS, dtype=torch.bfloat16)
-    variables = random_variables(LlamaLite(**llama, device="meta"), SEED)
+    variables, seed_blob = llama_seed(CUT_DEPTH)
     tokens = np.random.default_rng(SEED + 5).integers(
         0, VOCAB, (FED_LEARNERS * FED_ROWS + FED_EVAL_ROWS, TRAIN_LEN + 1)
     ).astype(np.int32)
@@ -3267,14 +3393,15 @@ def tiers_secure_phase(smoke, gpu):
                                   secure_backend=controller_backend)
         for i in range(FED_LEARNERS):
             rows = tokens[i * FED_ROWS:(i + 1) * FED_ROWS]
-            ops = TorchModelOps(LlamaLite(**llama, use_flash=True),
+            ops = TorchModelOps(LlamaLite(**llama, use_flash=True,
+                                          device=DEVICE),
                                 variables=variables, device=DEVICE)
             learner = fed.add_learner(
                 ops, ArrayDataset(rows[:, :-1], rows[:, 1:], seed=SEED + i),
                 test_dataset=test,
                 secure_backend=None if backends is None else backends[i])
             sizes[learner.port] = len(rows)
-        fed.seed_model(variables)
+        seed_federation(fed, seed_blob)
         return fed
 
     def finish(label, fed, probe, stats):
@@ -3531,6 +3658,7 @@ def secure_processes(smoke, scheme):
                             device=DEVICE)
     client = None
     t0 = time.perf_counter()
+    started = time.time()
     left = None
     try:
         session.initialize_federation(
@@ -3542,6 +3670,7 @@ def secure_processes(smoke, scheme):
             if time.time() > deadline:
                 raise RuntimeError(f"{label}: learners never all joined")
             time.sleep(0.1)
+        note_boot(label, workdir, started)
         ports = {}
         for i in range(FED_LEARNERS):
             with open(os.path.join(workdir, f"learner_{i}.log")) as f:
@@ -3687,8 +3816,9 @@ def uplinks_phase(smoke, gpu, tree_wall_s=None):
     reducer, undisturbed and with slice 1 SIGKILLed after its first ack;
     (b) SCAFFOLD, 2 rounds of SGD steps; (c) an int8q uplink under a bf16
     downlink, then a topk16 uplink; (d) client-level DP without noise,
-    then with it; (e) a LoRA round under ``ship_tensor_regex``. The int8q
-    round runs at full depth, every other round at depth ``CUT_DEPTH``.
+    then with it; (e) a LoRA round under ``ship_tensor_regex``. Every
+    round runs at depth ``CUT_DEPTH``; one full-depth uplink is submitted
+    to a slice alone.
     ``tree_wall_s`` is the tiers phase's in-process tree round (depth
     ``CUT_DEPTH``), the distributed round's comparison. Every check holds
     the port to a numpy replay of what it recorded."""
@@ -3734,12 +3864,11 @@ def uplinks_phase(smoke, gpu, tree_wall_s=None):
     out = {"learners": FED_LEARNERS}
     llama = dict(vocab_size=VOCAB, dim=DIM, heads=HEADS, kv_heads=KV_HEADS,
                  dtype=torch.bfloat16)
-    # full depth for the int8q round and the timed 755 MB hop to a slice;
-    # every other round at CUT_DEPTH, for the script's time
-    seeds = {depth: random_variables(
-        LlamaLite(**llama, depth=depth, device="meta"), SEED)
-        for depth in (DEPTH, CUT_DEPTH)}
-    blobs = {depth: pack_model(seeds[depth]) for depth in seeds}
+    # full depth for the timed 755 MB hop to a slice; every round at
+    # CUT_DEPTH, for the script's time
+    seeds, blobs = {}, {}
+    for depth in (DEPTH, CUT_DEPTH):
+        seeds[depth], blobs[depth] = llama_seed(depth)
     flats = {depth: parse_blob(blob) for depth, blob in blobs.items()}
     sizes = {depth: len(blob) for depth, blob in blobs.items()}
     blob_bytes = sizes[DEPTH]
@@ -3782,13 +3911,16 @@ def uplinks_phase(smoke, gpu, tree_wall_s=None):
             rows = tokens[i * FED_ROWS:(i + 1) * FED_ROWS]
             ops = TorchModelOps(
                 LlamaLite(**llama, depth=depth, lora_rank=lora,
-                          use_flash=True),
+                          use_flash=True, device=DEVICE),
                 variables=seed, device=DEVICE,
                 trainable_regex="lora_" if lora else "")
             fed.add_learner(ops, ArrayDataset(rows[:, :-1], rows[:, 1:],
                                               seed=SEED + i),
                             test_dataset=test)
-        fed.seed_model(seed)
+        if seed is seeds[depth]:
+            seed_federation(fed, llama_seed(depth)[1])
+        else:
+            fed.seed_model(seed)
         return fed
 
     def scales_of(selected):
@@ -4055,7 +4187,8 @@ def uplinks_phase(smoke, gpu, tree_wall_s=None):
 
     # (c) the uplink ladder: int8q under a bf16 downlink, then topk16
     for label, train, depth in (("int8q", {"ship_dtype": "int8q",
-                                           "downlink_dtype": "bf16"}, DEPTH),
+                                           "downlink_dtype": "bf16"},
+                                 CUT_DEPTH),
                                 ("topk16", {"ship_dtype": "topk16"},
                                  CUT_DEPTH)):
         fed = llama_round(train, depth=depth)
@@ -4225,6 +4358,16 @@ def _leaves(node):
 
 
 def profile_call(fn, top: int = 8, calls: int = 1):
+    """:func:`profile_one` of ``fn``, its seconds in ``SETUP``."""
+    t0 = time.perf_counter()
+    try:
+        return profile_one(fn, top, calls)
+    finally:
+        SETUP["profiles"].append((CURRENT_PHASE[0],
+                                  round(time.perf_counter() - t0, 3)))
+
+
+def profile_one(fn, top: int = 8, calls: int = 1):
     """Device time by kernel over one call of ``fn`` under
     ``torch.profiler``, beside the call's wall time. Only device events
     (kernels, copies) are summed; ``idle_share`` is the part of the wall
@@ -4309,6 +4452,15 @@ def main() -> int:
                         or "Compiling entry" in line):
                     print(f"  {name}: {line.strip()}")
         return libs
+
+    from metisfl_tpu_torch.driver import InProcessFederation
+    construct = InProcessFederation.__init__
+
+    def stamped(fed, *args, **kwargs):
+        fed._smoke_born = time.perf_counter()
+        construct(fed, *args, **kwargs)
+
+    InProcessFederation.__init__ = stamped
 
     if smoke.phase("build", build_kernels) is None:
         print("\n".join(smoke.failures), file=sys.stderr)
@@ -4701,6 +4853,7 @@ def main() -> int:
     if len(kernels) < expected_rows:
         smoke.failures.append("a kernel of the path has no measured row")
     print(f"phases done in {time.perf_counter() - started:.3f} s")
+    print(json.dumps({"setup": SETUP}))
     print(json.dumps({"kernels": kernels}))
     print(gpu, flush=True)
     if smoke.failures:
