@@ -145,13 +145,34 @@ It drives the port only (it imports no jax and nothing of the JAX package):
    update's norm <= the clip) and with it (the noise's norm against sigma
    x sqrt(n)); (e) a LoRA round under ``ship_tensor_regex``: only the
    adapters travel, each frozen base bit-identical. It prints the
-   submit, spool, fold and round seconds and the bytes of every variant.
+   submit, spool, fold and round seconds and the bytes of every variant;
+12. rounds (round control): in-process LlamaLite rounds at full width and
+   depth ``CUT_DEPTH`` through K1-K3 (every launch counted against the
+   steps trained and the evaluations run): (a) ``asynchronous_buffered``
+   (buffer 2, staleness decay 0.5, a learner held until two fills
+   closed), 3 fills, each a numpy replay of the damped fold bit for bit,
+   the held learner's uplink at least one round stale; (b) quorum 2 of an
+   over-provisioned dispatch on the streaming tier, the straggler's late
+   uplink dropped unfolded; (c) ``semi_synchronous``, round 1's step
+   budgets ``recompute_steps`` on round 0's ms per step, each run whole;
+   (d) a round deadline under masking with streaming (the CNN in
+   process), the two survivors settled through ``RecoverMasks`` within
+   1e-9 of their float64 mean; (e) ``DriverSession`` with a process per
+   CNN learner and chaos armed by ``process`` (the controller's fifth
+   RunTask dropped, learner 2 slowed): the retry's replacement, the
+   failed learner's churn score and quarantine, every process exiting 0;
+   (f) ``driver/crossdevice.py``: 512 virtual clients under churn at
+   quorum 12 against the no-churn control, and ``run_slice_smoke`` with a
+   slice aggregator killed mid-round.
 
 It prints a ``{"federation": {...}}`` line (round walls and their split,
 ms per step, blob bytes, launches), a ``{"multiprocess": {...}}`` line
 (the same with a process per learner, and each process's peak device
 memory), ``{"wide_heads": ...}``, ``{"store": ...}``, ``{"rules": ...}``,
-``{"tiers_secure": ...}`` and ``{"uplinks": ...}`` lines, a
+``{"tiers_secure": ...}``, ``{"uplinks": ...}`` and ``{"rounds": ...}``
+lines, a ``{"setup": ...}`` line (the script's seconds outside the
+rounds: set-up per in-process federation, the seeds, the fold checks,
+each process federation's boot from its logs, the profiles), a
 ``{"kernels": [...]}`` line (each kernel's launches by path: K1-K3 at
 D = 64 on the main paths, and a row per wide-heads case and wrapper with
 its launches there, each measured at its path's shape: the tensor-core
@@ -188,6 +209,8 @@ PROFILE_ROUND = "--profile-round" in sys.argv[1:]
 VOCAB, DIM, DEPTH, HEADS, KV_HEADS = 32768, 1024, 8, 16, 4
 PREDICT_REQUESTS, PREDICT_LEN = 8, 1024
 GEN_REQUESTS, PROMPT_LEN, NEW_TOKENS = 4, 128, 64
+# the profiled solo decode's tokens (each decode step is the same work)
+PROFILE_TOKENS = 8
 MAX_BATCH, SLOTS, MAX_LEN = 4, 4, 512
 # training slice: bench_mfu's traffic (random tokens, y = the next token)
 TRAIN_ROWS, TRAIN_LEN, TRAIN_BATCH, TRAIN_STEPS = 16, 1024, 8, 6
@@ -985,11 +1008,21 @@ def backward_case(smoke, name, B, Hq, Hkv, L, D, dtype_name, causal,
     return records
 
 
+# random_variables' trees by (parameter names and shapes, seed): a model
+# of the same shapes seeded the same is made once per script (no phase
+# writes into the arrays)
+_VARIABLES = {}
+
+
 def random_variables(module, seed: int):
     """Flax-named numpy weights for ``module``'s parameter shapes: dense
     kernels N(0, 1/fan_in), embeddings N(0, 1), norm scales one."""
     from metisfl_tpu_torch.models.convert import flax_name
 
+    key = (seed, tuple((name, tuple(p.shape))
+                       for name, p in module.named_parameters()))
+    if key in _VARIABLES:
+        return _VARIABLES[key]
     t0 = time.perf_counter()
     rng = np.random.default_rng(seed)
     tree = {}
@@ -1009,6 +1042,7 @@ def random_variables(module, seed: int):
         node[last] = arr
     SETUP["random_variables"].append(
         (CURRENT_PHASE[0], round(time.perf_counter() - t0, 3)))
+    _VARIABLES[key] = tree
     return tree
 
 
@@ -1157,9 +1191,13 @@ def slice_phase(smoke, gpu):
         token_agree = float(np.mean([np.mean(g[0] == s)
                                      for g, s in zip(gens, solos)]))
         if DEVICE == "cuda":
+            # a solo decode of PROFILE_TOKENS (the profiler's trace of all
+            # NEW_TOKENS took 31 s to read back on an H100)
             out["generate_solo_profile"] = profile_call(
-                lambda: ops.generate(prompts[0][None], NEW_TOKENS,
+                lambda: ops.generate(prompts[0][None], PROFILE_TOKENS,
                                      max_len=MAX_LEN))
+            if isinstance(out["generate_solo_profile"], dict):
+                out["generate_solo_profile"]["tokens"] = PROFILE_TOKENS
         out.update(generate_requests_equal_solo=sum(same),
                    generate_token_agreement=token_agree,
                    decode=gateway.describe()["decode"]["stable"])
@@ -1486,8 +1524,8 @@ def f64_mean_rel_err(got, models, weights):
         with warnings.catch_warnings():
             # blob views are read-only; the copy to the card leaves them so
             warnings.simplefilter("ignore")
-            return torch.from_numpy(np.asarray(arr)).to(
-                DEVICE, torch.float64)
+            return torch.from_numpy(np.asarray(arr)).to(DEVICE).to(
+                torch.float64)
 
     for k in got:
         mean = sum(w * dev(m[k]) for w, m in zip(weights, models))
@@ -1524,9 +1562,7 @@ def check_folds(smoke, label, probe, stats, rounds, f64_rel=None):
         want = FedAvg().aggregate([([m], scales[lid])
                                    for lid, m in zip(selected, ups)])
         got = parse(probe.communities[r])
-        same = sorted(got) == sorted(want) and all(
-            got[k].dtype == want[k].dtype
-            and got[k].tobytes() == want[k].tobytes() for k in want)
+        same = same_bits(got, want)
         smoke.check(same, f"{label} round {r}: community model equals a "
                     f"FedAvg re-fold of the {len(ups)} shipped blobs, bit "
                     "for bit")
@@ -2398,7 +2434,7 @@ def wide_heads_phase(smoke, gpu):
         cfg = dict(vocab_size=VOCAB, dim=DIM, depth=WIDE_DEPTH, heads=heads,
                    kv_heads=heads, dtype=dtype)
         variables = random_variables(LlamaLite(**cfg, device="meta"), SEED)
-        ops = TorchModelOps(LlamaLite(**cfg, use_flash=True),
+        ops = TorchModelOps(LlamaLite(**cfg, use_flash=True, device=DEVICE),
                             variables=variables, device=DEVICE)
         reset_launches()
         result = ops.train(data, TrainParams(
@@ -2863,10 +2899,14 @@ def rel_diff(got, want):
 
 
 def same_bits(got, want):
+    """The same names, dtypes, shapes and bytes (compared in place)."""
+    def raw(arr):
+        return np.ascontiguousarray(np.asarray(arr)).view(np.uint8)
+
     return sorted(got) == sorted(want) and all(
         np.asarray(got[k]).dtype == np.asarray(want[k]).dtype
-        and np.asarray(got[k]).tobytes() == np.asarray(want[k]).tobytes()
-        for k in want)
+        and np.shape(got[k]) == np.shape(want[k])
+        and np.array_equal(raw(got[k]), raw(want[k])) for k in want)
 
 
 def rules_on_uplinks(smoke, uplinks, scales, steps, seed):
@@ -4349,6 +4389,587 @@ def uplinks_phase(smoke, gpu, tree_wall_s=None):
     return out
 
 
+# -- the rounds phase: round control (protocols, quorum, deadlines, retries,
+# churn, chaos) on the card
+
+ROUNDS_DIR = os.path.join(REPO, "build", "chip_smoke_rounds")
+# (a) the buffered protocol's buffer and damping, and its fills
+BUFFER_SIZE, STALENESS_DECAY, BUFFER_FILLS = 2, 0.5, 3
+# (b) the quorum and the over-provisioned dispatch: ceil(2 x 1.5) = all 3
+QUORUM, OVERPROVISION = 2, 0.5
+# (d) the deadline of the masked round, past the survivors' CNN round
+MASK_DEADLINE_S = 3.0
+# (e) learner processes, two dispatched a round after the joins' round 0
+CHAOS_LEARNERS, CHAOS_ROUNDS, CHAOS_STEPS = 4, 3, 5
+# (f) the cross-device harness and the slice-kill gate
+XD_CLIENTS, XD_ROUNDS, XD_QUORUM = 512, 5, 12
+XD_TOLERANCE = 0.2
+
+
+def wait_for(predicate, timeout_s, what):
+    deadline = time.time() + timeout_s
+    while not predicate():
+        if time.time() > deadline:
+            raise RuntimeError(f"timed out waiting for {what}")
+        time.sleep(0.02)
+
+
+def rounds_recipe(x, y, test_x, test_y, seed, device, gate):
+    """A CNN learner for the chaos part: training waits for ``gate`` (so
+    round 0's cohort is every learner) and then 0.3 s more, so a failed
+    dispatch's retry (0.05 s backoff) lands before its round's uplinks."""
+
+    def recipe():
+        import os
+        import time
+
+        from metisfl_tpu_torch.models import ArrayDataset, TorchModelOps
+        from metisfl_tpu_torch.models.zoo import FashionMnistCNN
+
+        ops = TorchModelOps(FashionMnistCNN(), rng_seed=seed, device=device)
+        train = ops.train
+
+        def gated(*args, **kwargs):
+            deadline = time.time() + MP_TIMEOUT_S
+            while not os.path.exists(gate) and time.time() < deadline:
+                time.sleep(0.05)
+            time.sleep(0.3)
+            return train(*args, **kwargs)
+
+        ops.train = gated
+        return (ops, ArrayDataset(x, y, seed=seed), None,
+                ArrayDataset(test_x, test_y))
+
+    return recipe
+
+
+def rounds_phase(smoke, gpu):
+    """Round control on the card. In-process LlamaLite rounds at full width
+    and depth ``CUT_DEPTH`` (3 learners of ``FED_ROWS`` rows, 2 Adam steps
+    of batch 8 x 1024 through K1-K3): (a) ``asynchronous_buffered``,
+    buffer 2, staleness decay 0.5, learner 2 held until two fills closed,
+    3 fills, each community a numpy replay of the damped fold bit for bit;
+    (b) ``synchronous`` at quorum 2 with over-provisioning 0.5 on the
+    streaming tier, learner 2 held past the quorum, its late uplink
+    dropped unfolded; (c) ``semi_synchronous`` (lambda 1.0), 2 rounds,
+    round 1's step budgets ``recompute_steps`` on round 0's ms per step.
+    Then (d) the CNN in process under masking with streaming and a round
+    deadline, learner 2 held past it: the two survivors settle through
+    ``RecoverMasks``; (e) ``DriverSession`` with a process per CNN
+    learner and chaos by ``process``: the controller's fifth RunTask
+    dropped (dispatch retries 1, max_dispatch_failures 1, quarantine
+    score 0.25) and learner 2 slowed 3x; (f) the cross-device harness
+    (512 virtual clients, 5 rounds, 30% dropout, a flapper and a
+    partition at quorum 12) against its no-churn control, and
+    ``run_slice_smoke`` with a slice aggregator killed mid-round."""
+    import gc
+
+    import torch
+
+    from metisfl_tpu_torch.aggregation import FedAvg
+    from metisfl_tpu_torch.comm import TrainParams
+    from metisfl_tpu_torch.config import (
+        AggregationConfig,
+        ChaosConfig,
+        EvalConfig,
+        FederationConfig,
+        LearnerEndpoint,
+        SchedulingConfig,
+        SecureAggConfig,
+        TerminationConfig,
+    )
+    from metisfl_tpu_torch.controller.service import ControllerClient
+    from metisfl_tpu_torch.driver import DriverSession, InProcessFederation
+    from metisfl_tpu_torch.driver.crossdevice import (
+        ChurnScenario,
+        run_scenario,
+        run_slice_smoke,
+    )
+    from metisfl_tpu_torch.models import ArrayDataset, TorchModelOps
+    from metisfl_tpu_torch.models.zoo import FashionMnistCNN, LlamaLite
+    from metisfl_tpu_torch.ops.flash_attention import (
+        flash_attention_fwd,
+        flash_bwd_dkv,
+        flash_bwd_dq,
+    )
+    from metisfl_tpu_torch.scheduling import SemiSynchronousScheduler
+    from metisfl_tpu_torch.secure import MaskingBackend
+
+    out = {"learners": FED_LEARNERS, "depth": CUT_DEPTH}
+    part_s, t_part = {}, [time.perf_counter()]
+
+    def part_done(name):
+        now = time.perf_counter()
+        part_s[name] = now - t_part[0]
+        t_part[0] = now
+        print(f"rounds {name}: {part_s[name]:.3f} s", flush=True)
+
+    llama = dict(vocab_size=VOCAB, dim=DIM, depth=CUT_DEPTH, heads=HEADS,
+                 kv_heads=KV_HEADS, dtype=torch.bfloat16)
+    variables, seed_blob = llama_seed(CUT_DEPTH)
+    tokens = np.random.default_rng(SEED + 5).integers(
+        0, VOCAB, (FED_LEARNERS * FED_ROWS + FED_EVAL_ROWS, TRAIN_LEN + 1)
+    ).astype(np.int32)
+    test = ArrayDataset(tokens[-FED_EVAL_ROWS:, :-1],
+                        tokens[-FED_EVAL_ROWS:, 1:])
+    eval_batches = -(-FED_EVAL_ROWS // TRAIN_BATCH)
+    counters = (flash_attention_fwd, flash_bwd_dq, flash_bwd_dkv)
+    for fn in counters:
+        fn.launches = 0
+    # every train call's completed steps and every evaluation, over the
+    # LlamaLite rounds: their K1-K3 launches follow
+    steps_run, evals_run = [], []
+
+    def llama_federation(protocol, rounds, aggregation=None, **top):
+        cfg = FederationConfig(
+            protocol=protocol,
+            aggregation=aggregation or AggregationConfig(
+                scaler="train_dataset_size"),
+            train=TrainParams(batch_size=TRAIN_BATCH, local_steps=FED_STEPS,
+                              optimizer="adam", learning_rate=1e-4),
+            eval=EvalConfig(batch_size=TRAIN_BATCH, datasets=["test"],
+                            metrics=["loss", "accuracy"]),
+            termination=TerminationConfig(federation_rounds=rounds), **top)
+        fed = InProcessFederation(cfg, device=DEVICE)
+        for i in range(FED_LEARNERS):
+            rows = tokens[i * FED_ROWS:(i + 1) * FED_ROWS]
+            ops = TorchModelOps(LlamaLite(**llama, use_flash=True,
+                                          device=DEVICE),
+                                variables=variables, device=DEVICE)
+            wrap(ops, "train", after=lambda res, dt, *a, **k:
+                 steps_run.append(res.completed_steps))
+            wrap(ops, "evaluate", after=lambda res, dt, *a, **k:
+                 evals_run.append(1))
+            fed.add_learner(ops, ArrayDataset(rows[:, :-1], rows[:, 1:],
+                                              seed=SEED + i),
+                            test_dataset=test)
+        seed_federation(fed, seed_blob)
+        return fed
+
+    def idle(fed):
+        """Every learner's training done (nothing left to launch)."""
+        return all(ln._current_future is None or ln._current_future.done()
+                   for ln in fed.learners)
+
+    def hold(fed, i, until, timeout_s=300.0):
+        """Learner ``i``'s training waits until ``until()``."""
+        ops = fed.learners[i].model_ops
+        train = ops.train
+
+        def held(*args, **kwargs):
+            wait_for(until, timeout_s, f"learner {i}'s release")
+            return train(*args, **kwargs)
+
+        ops.train = held
+
+    def record_uplinks(ctrl):
+        """(blob, task round) of each learner's latest uplink, as the
+        scheduling worker handles it, and a snapshot per aggregation: the
+        cohort, the round, and the uplinks the store path folds."""
+        latest, folds = {}, []
+
+        def before_handle(result):
+            latest[result.learner_id] = (result.model, result.round_id)
+
+        def before_compute(selected):
+            folds.append((list(selected), ctrl.global_iteration,
+                          {lid: latest[lid] for lid in selected}))
+
+        wrap(ctrl, "_handle_completed", before=before_handle)
+        wrap(ctrl, "_compute_community_model", before=before_compute)
+        return folds
+
+    # (a) FedBuff: buffer 2 over 3 learners, learner 2 held until two
+    # fills closed, so its round-0 uplink lands two rounds stale; the
+    # others' tasks after fill 2 wait for it, so fill 3 holds it
+    fed = llama_federation(
+        "asynchronous_buffered", BUFFER_FILLS,
+        AggregationConfig(scaler="train_dataset_size",
+                          staleness_decay=STALENESS_DECAY),
+        scheduling=SchedulingConfig(buffer_size=BUFFER_SIZE))
+    ctrl = fed.controller
+    late = fed.learners[2]
+    late_landed = threading.Event()
+    wrap(ctrl, "_handle_completed", after=lambda res, dt, result:
+         late_landed.set() if result.learner_id == late.learner_id else None)
+    hold(fed, 2, lambda: ctrl.global_iteration >= 2)
+    for i in (0, 1):
+        ops = fed.learners[i].model_ops
+        train = ops.train
+
+        def after_two(*args, _train=train, **kwargs):
+            if ctrl.global_iteration >= 2:
+                wait_for(late_landed.is_set, 300.0, "learner 2's uplink")
+            return _train(*args, **kwargs)
+
+        ops.train = after_two
+    folds = record_uplinks(ctrl)
+    probe, stats = run_federation(
+        fed, settle=lambda: wait_for(lambda: idle(fed), 300.0,
+                                     "the learners' last tasks"))
+    metas = stats["round_metadata"]
+    replay_ok = len(folds) == len(probe.communities) == BUFFER_FILLS
+    replayed = []
+    for (selected, gi, ups), blob in zip(folds, probe.communities):
+        # the scaler's weights (equal shards), damped by (1 + s)^-decay and
+        # renormalized, then the FedAvg host fold
+        n = {lid: float(FED_ROWS) for lid in selected}
+        total = sum(n.values())
+        scales = {lid: n[lid] / total for lid in selected}
+        stale = {lid: float(max(0, gi - ups[lid][1])) for lid in selected}
+        damped = {lid: w * ((1.0 + stale[lid]) ** -STALENESS_DECAY
+                            if stale[lid] > 0 else 1.0)
+                  for lid, w in scales.items()}
+        z = sum(damped.values())
+        damped = {lid: w / z for lid, w in damped.items()}
+        want = FedAvg().aggregate([([parse_blob(ups[lid][0])], damped[lid])
+                                   for lid in selected])
+        replay_ok = replay_ok and same_bits(parse_blob(blob), want)
+        replayed.append({"selected": selected, "staleness": stale,
+                         "scales": damped})
+    staleness = [m["staleness"] for m in metas[:BUFFER_FILLS]]
+    late_stale = max((s.get(late.learner_id, 0.0) for s in staleness),
+                     default=0.0)
+    smoke.check(replay_ok and stats["global_iteration"] == BUFFER_FILLS,
+                f"rounds buffered: {stats['global_iteration']} buffer fills "
+                f"of {BUFFER_SIZE}, each community a numpy replay of the "
+                "staleness-damped fold of its recorded uplinks, bit for bit "
+                f"(cohorts {[r['selected'] for r in replayed]})")
+    smoke.check(late_stale >= 1 and all(
+        s == {k: v for k, v in r["staleness"].items() if v}
+        for s, r in zip(staleness, replayed)),
+        f"rounds buffered: the held learner's uplink landed {late_stale} "
+        f"round(s) stale; the staleness recorded per fill {staleness} "
+        "matches the replay")
+    out["buffered"] = {"fills": stats["global_iteration"],
+                       "staleness": staleness,
+                       "scales": [m["scales"] for m in metas],
+                       "cohorts": [m["selected_learners"] for m in metas],
+                       "wall_s": stats["wall_s"]}
+    del fed, ctrl, probe, folds
+    gc.collect()
+    empty_cache()
+    part_done("(a) buffered")
+
+    # (b) quorum 2 of an over-provisioned dispatch (all 3) on the
+    # streaming tier; learner 2 trains only after the round closed
+    fed = llama_federation(
+        "synchronous", 1,
+        AggregationConfig(scaler="train_dataset_size", streaming=True),
+        scheduling=SchedulingConfig(quorum=QUORUM,
+                                    overprovision=OVERPROVISION))
+    ctrl = fed.controller
+    late = fed.learners[2]
+    late_done = threading.Event()
+    wrap(ctrl, "_handle_completed", after=lambda res, dt, result:
+         late_done.set() if result.learner_id == late.learner_id else None)
+    hold(fed, 2, lambda: ctrl.global_iteration >= 1)
+    folded = []
+    wrap(ctrl._streaming, "fold",
+         before=lambda lid, model, weight: folded.append(lid))
+    probe, stats = run_federation(
+        fed, settle=lambda: wait_for(late_done.is_set, 300.0,
+                                     "the straggler's late uplink"))
+    meta = stats["round_metadata"][0]
+    cohort = meta["selected_learners"]
+    dispatched = sorted(meta["train_submitted_at"])
+    smoke.check(len(dispatched) == FED_LEARNERS and len(cohort) == QUORUM
+                and late.learner_id not in cohort,
+                f"rounds quorum: {len(dispatched)} dispatched "
+                f"(ceil({QUORUM} x {1 + OVERPROVISION})), the cohort is the "
+                f"first {QUORUM} reporters {cohort}")
+    ups = [parse_blob(probe.uplinks[0][lid]) for lid in cohort]
+    want = FedAvg().aggregate([([m], 1.0 / len(ups)) for m in ups])
+    smoke.check(same_bits(parse_blob(probe.communities[0]), want),
+                "rounds quorum: the streamed community is the re-fold of "
+                "the 2 reporters' uplinks, bit for bit")
+    smoke.check(late.learner_id in probe.uplinks[0]
+                and late.learner_id not in folded
+                and sorted(folded) == sorted(cohort),
+                f"rounds quorum: the straggler's late uplink arrived and was "
+                f"dropped as stale, never folded (folded {sorted(folded)})")
+    out["quorum"] = {"dispatched": dispatched, "cohort": cohort,
+                     "dropped": [late.learner_id],
+                     "wall_s": meta["completed_at"] - meta["started_at"]}
+    del fed, ctrl, probe, ups, want
+    gc.collect()
+    empty_cache()
+    part_done("(b) quorum")
+
+    # (c) semi-synchronous, lambda 1.0, 2 rounds
+    fed = llama_federation("semi_synchronous", 2, semi_sync_lambda=1.0)
+    ctrl = fed.controller
+    steps_by = {}
+    for learner in fed.learners:
+        wrap(learner.model_ops, "train", after=lambda res, dt, *a,
+             lid=learner, **k: steps_by.setdefault(lid.learner_id, []).append(
+                 res.completed_steps))
+    tasks = {}
+    for learner in fed.learners:
+        wrap(learner, "run_task", before=lambda task: tasks.setdefault(
+            task.learner_id, []).append(task.params.local_steps))
+    probe, stats = run_federation(fed)
+    ms0 = probe.ms_per_step[0]
+    timings = {lid: {"ms_per_step": ms,
+                     "steps_per_epoch": max(1.0, FED_ROWS / TRAIN_BATCH)}
+               for lid, ms in ms0.items()}
+    budgets = SemiSynchronousScheduler(lambda_=1.0).recompute_steps(timings)
+    ran = {lid: steps[1] for lid, steps in steps_by.items()}
+    budgeted = {lid: steps[1] for lid, steps in tasks.items()}
+    smoke.check(len(budgets) == FED_LEARNERS and budgeted == budgets,
+                f"rounds semi-sync: round 1's step budgets {budgeted} are "
+                f"recompute_steps on round 0's ms per step "
+                f"{ {k: round(v, 3) for k, v in ms0.items()} }")
+    smoke.check(ran == budgets,
+                f"rounds semi-sync: each learner ran its budget {ran}")
+    out["semi_sync"] = {"ms_per_step": ms0, "budgets": budgets, "ran": ran,
+                        "round_wall_s": [m["completed_at"] - m["started_at"]
+                                         for m in stats["round_metadata"]]}
+    del fed, ctrl, probe
+    gc.collect()
+    empty_cache()
+    sync()
+    k1, k2, k3 = (fn.launches for fn in counters)
+    train_k = sum(steps_run) * CUT_DEPTH
+    eval_k = len(evals_run) * eval_batches * CUT_DEPTH
+    smoke.check(k2 == k3 == train_k and k1 == train_k + eval_k,
+                f"rounds llama: K2 {k2} and K3 {k3} launches = the "
+                f"{sum(steps_run)} steps trained x depth = {train_k}; K1 "
+                f"{k1} = {train_k} + {eval_k} ({len(evals_run)} "
+                "evaluations)")
+    out["launches"] = {"flash_fwd": k1, "flash_bwd_dq": k2,
+                       "flash_bwd_dkv": k3}
+    out["expected_launches"] = {"flash_fwd": train_k + eval_k,
+                                "flash_bwd_dq": train_k,
+                                "flash_bwd_dkv": train_k}
+    part_done("(c) semi-sync")
+
+    # (d) a round deadline under masking with streaming, the CNN in process:
+    # learner 2 trains only after the deadline settled the round
+    x, y = synthetic_image_classification(
+        FED_LEARNERS * CNN_EXAMPLES + CNN_TEST, noise=CNN_NOISE, seed=SEED)
+    cnn_test = ArrayDataset(x[-CNN_TEST:], y[-CNN_TEST:])
+    backends = [MaskingBackend("chip-smoke-rounds", i, FED_LEARNERS)
+                for i in range(FED_LEARNERS)]
+    plain = {}
+
+    def probe_plain(i, backend):
+        encrypt = backend.encrypt
+
+        def probed(values):
+            plain.setdefault((i, getattr(backend, "_round_id", 0)),
+                             []).append(
+                np.asarray(values, np.float64).copy())
+            return encrypt(values)
+
+        backend.encrypt = probed
+
+    for i, backend in enumerate(backends):
+        probe_plain(i, backend)
+    fed = InProcessFederation(FederationConfig(
+        aggregation=AggregationConfig(rule="secure_agg",
+                                      scaler="participants", streaming=True),
+        secure=SecureAggConfig(enabled=True, scheme="masking",
+                               num_parties=FED_LEARNERS),
+        round_deadline_secs=MASK_DEADLINE_S,
+        train=TrainParams(batch_size=CNN_BATCH, local_steps=CNN_STEPS,
+                          optimizer="sgd", learning_rate=0.05),
+        eval=EvalConfig(batch_size=256, datasets=["test"],
+                        metrics=["loss", "accuracy"]),
+        termination=TerminationConfig(federation_rounds=1)), device=DEVICE,
+        secure_backend=MaskingBackend(num_parties=FED_LEARNERS))
+    template = None
+    for i in range(FED_LEARNERS):
+        ops = TorchModelOps(FashionMnistCNN(), rng_seed=SEED, device=DEVICE,
+                            variables=template)
+        template = template or ops.get_variables()
+        part = slice(i * CNN_EXAMPLES, (i + 1) * CNN_EXAMPLES)
+        fed.add_learner(ops, ArrayDataset(x[part], y[part], seed=SEED + i),
+                        test_dataset=cnn_test, secure_backend=backends[i])
+    fed.seed_model(template)
+    ctrl = fed.controller
+    late = fed.learners[2]
+    late_done = threading.Event()
+    wrap(ctrl, "_handle_completed", after=lambda res, dt, result:
+         late_done.set() if result.learner_id == late.learner_id else None)
+    joined = lambda: len(ctrl.active_learners()) == FED_LEARNERS  # noqa
+    for i in (0, 1):
+        hold(fed, i, joined)
+    hold(fed, 2, lambda: ctrl.global_iteration >= 1)
+    recovered = []
+    for learner in fed.learners:
+        wrap(learner, "recover_masks", after=lambda res, dt, rid, surviving,
+             dropped, lengths, ln=learner: recovered.append(
+                 (ln.learner_id, list(surviving), list(dropped))))
+    t0 = time.perf_counter()
+    probe, stats = run_federation(
+        fed, settle=lambda: wait_for(late_done.is_set, 120.0,
+                                     "the held learner's late uplink"))
+    meta = stats["round_metadata"][0]
+    survivors = sorted(meta["selected_learners"])
+    index = {ln.learner_id: i for i, ln in enumerate(fed.learners)}
+    payloads = opaque_payloads(probe.communities[0])
+    mean = [(plain[(index[survivors[0]], 0)][t]
+             + plain[(index[survivors[1]], 0)][t]) / 2.0
+            for t in range(len(payloads))] if len(survivors) == 2 else []
+    worst = max((float(np.abs(p - m).max())
+                 for p, m in zip(payloads, mean)), default=float("inf"))
+    smoke.check(survivors == sorted(ln.learner_id for ln in fed.learners[:2])
+                and len(recovered) == 1
+                and list(recovered[0][1:]) == [[0, 1], [2]],
+                f"rounds deadline: the {MASK_DEADLINE_S} s deadline released "
+                f"the 2 survivors {survivors}; RecoverMasks answered "
+                f"{recovered}")
+    smoke.check(len(mean) == len(payloads) and worst <= MASK_ATOL,
+                f"rounds deadline: the settled community is within "
+                f"{worst:.3g} of the survivors' float64 mean (<= {MASK_ATOL})")
+    out["deadline"] = {"survivors": survivors, "dropped": [late.learner_id],
+                       "recovered": recovered, "max_abs_err": worst,
+                       "wall_s": time.perf_counter() - t0}
+    del fed, ctrl, probe, backends, plain
+    gc.collect()
+    empty_cache()
+    part_done("(d) deadline")
+
+    # (e) DriverSession: chaos armed by process, the retry ladder, churn
+    workdir = os.path.join(ROUNDS_DIR, "chaos")
+    shutil.rmtree(workdir, ignore_errors=True)
+    os.makedirs(workdir)
+    gate = os.path.join(workdir, "gate")
+    shards = [(x[i * CNN_EXAMPLES:(i + 1) * CNN_EXAMPLES],
+               y[i * CNN_EXAMPLES:(i + 1) * CNN_EXAMPLES])
+              for i in range(CHAOS_LEARNERS)]
+    config = FederationConfig(
+        controller_port=0,
+        aggregation=AggregationConfig(scaler="participants",
+                                      participation_ratio=0.5),
+        scheduling=SchedulingConfig(dispatch_retries=1, retry_backoff_s=0.05,
+                                    quarantine_score=0.25,
+                                    quarantine_s=600.0),
+        max_dispatch_failures=1,
+        chaos=ChaosConfig(enabled=True, seed=SEED, rules=[
+            {"fault": "drop", "side": "client", "method": "RunTask",
+             "process": "controller", "after_calls": CHAOS_LEARNERS,
+             "max_fires": 1},
+            {"fault": "slow", "factor": 3.0, "process": "learner_2"}]),
+        train=TrainParams(batch_size=CNN_BATCH, local_steps=CHAOS_STEPS,
+                          optimizer="sgd", learning_rate=0.05),
+        eval=EvalConfig(batch_size=256, datasets=["test"],
+                        metrics=["loss", "accuracy"]),
+        termination=TerminationConfig(federation_rounds=CHAOS_ROUNDS),
+        learners=[LearnerEndpoint() for _ in shards])
+    template = TorchModelOps(FashionMnistCNN(), rng_seed=SEED,
+                             device="cpu").get_variables()
+    session = DriverSession(
+        config, template,
+        [rounds_recipe(sx, sy, x[-CNN_TEST:], y[-CNN_TEST:], SEED + i,
+                       DEVICE, gate) for i, (sx, sy) in enumerate(shards)],
+        workdir=workdir, device=DEVICE)
+    client = described = None
+    started = time.time()
+    try:
+        session.initialize_federation(
+            health_retries=int(MP_TIMEOUT_S / 0.5), health_sleep_s=0.5)
+        client = ControllerClient("localhost", config.controller_port)
+        wait_for(lambda: len(client.list_learners()) == CHAOS_LEARNERS,
+                 MP_TIMEOUT_S, "the chaos learners' joins")
+        note_boot("rounds chaos", workdir, started)
+        with open(gate, "w"):
+            pass
+        stats = session.monitor_federation(poll_every_s=0.25)
+        described = client.describe_federation()
+    finally:
+        if client is not None:
+            client.close()
+        session.shutdown_federation(timeout_s=MP_TIMEOUT_S)
+    codes = session.process_exit_codes()
+    with open(os.path.join(workdir, "controller.log")) as f:
+        ctrl_log = f.read()
+    retries = re.findall(r"dispatch retry 1: replacing unreachable (\S+) "
+                         r"with (\S+)", ctrl_log)
+    metas = stats["round_metadata"]
+    failed, replacement = retries[0] if len(retries) == 1 else ("", "")
+    later = [sorted(m["train_submitted_at"]) for m in metas[2:CHAOS_ROUNDS]]
+    smoke.check(len(retries) == 1 and len(metas) >= CHAOS_ROUNDS
+                and sorted(metas[1]["train_submitted_at"]) == sorted(
+                    {failed, replacement, *metas[1]["selected_learners"]})
+                and replacement in metas[1]["selected_learners"]
+                and failed not in metas[1]["selected_learners"],
+                f"rounds chaos: the controller's dropped RunTask to "
+                f"{failed} was retried, {replacement} dispatched in its place "
+                f"(round 1 dispatched {sorted(metas[1]['train_submitted_at'])}"
+                f", cohort {metas[1]['selected_learners']})")
+    rows = {r["learner_id"]: r for r in (described or {}).get("learners", [])}
+    quarantined = (described or {}).get("scheduling", {}).get(
+        "quarantined", [])
+    smoke.check(rows.get(failed, {}).get("churn_score", 0.0) > 0.0
+                and quarantined == [failed]
+                and all(failed not in ids for ids in later),
+                f"rounds chaos: {failed}'s churn score rose to "
+                f"{rows.get(failed, {}).get('churn_score')} and it sits out "
+                f"quarantined {quarantined}: rounds 2-{CHAOS_ROUNDS - 1} "
+                f"dispatched {later}")
+    with open(os.path.join(workdir, "learner_2.log")) as f:
+        slowed = "slowing train task by 3.0x" in f.read()
+    smoke.check(slowed and len(codes) == CHAOS_LEARNERS + 1
+                and all(c == 0 for c in codes.values()),
+                f"rounds chaos: learner_2 ran its slow fault ({slowed}); "
+                f"every process exits 0 {codes}")
+    out["chaos"] = {"failed": failed, "replacement": replacement,
+                    "retries": len(retries), "quarantined": quarantined,
+                    "churn": {k: r.get("churn_score") for k, r in
+                              rows.items()},
+                    "dispatched": [sorted(m["train_submitted_at"])
+                                   for m in metas],
+                    "exit_codes": codes}
+    part_done("(e) chaos")
+
+    # (f) the cross-device harness, and the slice-kill gate
+    scenario = ChurnScenario(seed=SEED, clients=XD_CLIENTS, rounds=XD_ROUNDS,
+                             quorum=XD_QUORUM, overprovision=1.0,
+                             dropout=0.3, flappers=1, partitioned=1)
+    churn = run_scenario(scenario)
+    control = run_scenario(ChurnScenario(
+        seed=SEED, clients=XD_CLIENTS, rounds=XD_ROUNDS, quorum=XD_QUORUM,
+        overprovision=1.0, dropout=0.0, flappers=0, partitioned=0))
+    gap = abs(churn["accuracy"] - control["accuracy"])
+    smoke.check(churn["ok"] and control["ok"] and gap <= XD_TOLERANCE
+                and all(r >= XD_QUORUM
+                        for r in churn["reporters_per_round"])
+                and churn["faults"]["dropped"] > 0
+                and churn["faults"]["flapped"] >= 1
+                and churn["faults"]["partitioned"] >= 1,
+                f"rounds crossdevice: {XD_CLIENTS} virtual clients, "
+                f"{churn['rounds_completed']} rounds at quorum "
+                f"{churn['reporters_per_round']}, faults {churn['faults']}; "
+                f"accuracy {churn['accuracy']} against the control's "
+                f"{control['accuracy']} (gap {gap:.4f} <= {XD_TOLERANCE})")
+    slices = run_slice_smoke(clients=12, rounds=2, slices=2, seed=SEED)
+    kill = slices["kill"].get("slices") or {}
+    smoke.check(slices["ok"],
+                f"rounds crossdevice: run_slice_smoke killed a slice "
+                f"aggregator mid-round ({kill.get('killed')}), it re-homed "
+                f"({kill.get('rehomed_total')}), and the community equals "
+                f"the undisturbed control's bits ({slices['bit_identical']})")
+    out["crossdevice"] = {
+        "churn": {k: churn[k] for k in ("rounds_completed", "accuracy",
+                                        "reporters_per_round", "faults",
+                                        "wall_s")},
+        "control": {k: control[k] for k in ("accuracy", "wall_s")},
+        "slice_smoke": {"ok": slices["ok"], "killed": kill.get("killed"),
+                        "rehomed_total": kill.get("rehomed_total"),
+                        "bit_identical": slices["bit_identical"],
+                        "kill_wall_s": slices["kill"]["wall_s"],
+                        "control_wall_s": slices["control"]["wall_s"]}}
+    part_done("(f) crossdevice")
+    shutil.rmtree(ROUNDS_DIR, ignore_errors=True)
+    out["part_s"] = part_s
+    out["gpu"] = gpu
+    print(json.dumps({"rounds": out}), flush=True)
+    return out
+
+
+
 def _leaves(node):
     if isinstance(node, dict):
         for v in node.values():
@@ -4682,6 +5303,11 @@ def main() -> int:
         "spool, re-homing) and the uplink variants (SCAFFOLD, int8q, "
         "top-k, bf16 downlink, DP, ship-only)", uplinks_phase, smoke, gpu,
         ((tiered or {}).get("tree") or {}).get("wall_s"))
+    empty_cache()
+    rounded = smoke.phase(
+        "slice: round control (buffered, quorum, semi-synchronous, a "
+        "deadline under masking, chaos through DriverSession, the "
+        "cross-device harness)", rounds_phase, smoke, gpu)
 
     # launches on each path that runs a kernel (each path's counts set to
     # 0 just before it and read just after): K1 on every path
@@ -4700,6 +5326,8 @@ def main() -> int:
     tiers_launches = (tiered or {}).get("launches", {})
     # the uplinks phase's nine
     uplinks_launches = (uplinked or {}).get("launches", {})
+    # the rounds phase's buffered, quorum and semi-synchronous rounds
+    rounds_launches = (rounded or {}).get("launches", {})
     rows = []
     if main_case is not None:
         by_path = {"serve": serve_k1,
@@ -4709,7 +5337,8 @@ def main() -> int:
                    "store": store_launches.get("flash_attention_fwd", 0),
                    "rules": rules_launches.get("flash_fwd", 0),
                    "tiers": tiers_launches.get("flash_fwd", 0),
-                   "uplinks": uplinks_launches.get("flash_fwd", 0)}
+                   "uplinks": uplinks_launches.get("flash_fwd", 0),
+                   "rounds": rounds_launches.get("flash_fwd", 0)}
         rows.append(("flash_fwd", "flash_fwd.cu", 76, main_case,
                      sum(by_path.values()), by_path))
     for record, line in zip(bwd_cases or [], (126, 162)):
@@ -4719,7 +5348,8 @@ def main() -> int:
                    "store": store_launches.get(record["name"], 0),
                    "rules": rules_launches.get(record["name"], 0),
                    "tiers": tiers_launches.get(record["name"], 0),
-                   "uplinks": uplinks_launches.get(record["name"], 0)}
+                   "uplinks": uplinks_launches.get(record["name"], 0),
+                   "rounds": rounds_launches.get(record["name"], 0)}
         rows.append((record["name"], "flash_bwd.cu", line, record,
                      sum(by_path.values()), by_path))
     # the wide-heads path, a row per head dim and wrapper: its launches in

@@ -20,9 +20,13 @@ chunked method and remembers to use it for that method from then on.
 :class:`BytesService` and the services built on it import, and their
 handlers can be called directly, on a machine without grpc.
 
+Fault injection (``metisfl_tpu_torch.chaos``): every client call (unary,
+chunked and async) and every server handler runs the process's injector,
+when one is armed, on its payload; when none is, that costs one attribute
+read.
+
 Not ported: the per-method metrics, ``CollectTelemetry`` and per-peer byte
-attribution (ROADMAP.md Queue 1 item 4), and the fault-injection hooks
-(item 3f).
+attribution (ROADMAP.md Queue 1 item 4).
 """
 
 from __future__ import annotations
@@ -32,6 +36,8 @@ import logging
 import time
 from concurrent import futures
 from typing import Callable, Dict, Optional
+
+from metisfl_tpu_torch import chaos as _chaos
 
 logger = logging.getLogger("metisfl_tpu_torch.rpc")
 
@@ -111,11 +117,12 @@ class BytesService:
         method_handlers = {}
         for name, fn in self.handlers.items():
             method_handlers[name] = grpc.unary_unary_rpc_method_handler(
-                self._wrap(fn), request_deserializer=_identity,
+                self._wrap(name, fn), request_deserializer=_identity,
                 response_serializer=_identity)
             method_handlers[name + _CHUNK_SUFFIX] = (
                 grpc.stream_stream_rpc_method_handler(
-                    self._wrap_chunked(fn), request_deserializer=_identity,
+                    self._wrap_chunked(name, fn),
+                    request_deserializer=_identity,
                     response_serializer=_identity))
         return grpc.method_handlers_generic_handler(self.service_name,
                                                     method_handlers)
@@ -125,7 +132,7 @@ class BytesService:
         import grpc
 
         code = getattr(exc, "code", None)
-        if callable(code):  # RpcError-shaped
+        if callable(code):  # RpcError-shaped (a chaos FaultInjected too)
             try:
                 code = code()
             except Exception:  # noqa: BLE001 - fall through to INTERNAL
@@ -142,12 +149,17 @@ class BytesService:
         context.abort(grpc.StatusCode.INTERNAL,
                       f"{type(exc).__name__}: {exc}")
 
-    @staticmethod
-    def _wrap(fn: Callable[[bytes], bytes]):
+    def _wrap(self, method: str, fn: Callable[[bytes], bytes]):
+        service = self.service_name
+
         def handler(request: bytes, context) -> bytes:
             import grpc
 
             try:
+                inj = _chaos.get()
+                if inj is not None:
+                    request = inj.intercept("server", service, method,
+                                            request)
                 result = fn(request)
             except Exception as exc:  # noqa: BLE001 - becomes a status
                 BytesService._abort(context, exc)
@@ -159,13 +171,19 @@ class BytesService:
 
         return handler
 
-    @staticmethod
-    def _wrap_chunked(fn: Callable[[bytes], bytes]):
+    def _wrap_chunked(self, method: str, fn: Callable[[bytes], bytes]):
+        service = self.service_name
+
         def handler(request_iter, context):
             try:
                 # draining the stream can itself fail (the client cancelled
                 # mid-upload): it is reported like a handler error
-                result = fn(b"".join(request_iter))
+                request = b"".join(request_iter)
+                inj = _chaos.get()
+                if inj is not None:
+                    request = inj.intercept("server", service, method,
+                                            request)
+                result = fn(request)
             except Exception as exc:  # noqa: BLE001 - becomes a status
                 BytesService._abort(context, exc)
             yield from _iter_chunks(result)
@@ -273,16 +291,18 @@ class RpcClient:
         attempt = 0
         while True:
             try:
+                inj = _chaos.get()
+                send = (payload if inj is None else inj.intercept(
+                    "client", self.service_name, method, payload))
                 if chunked:
-                    return self._call_chunked(method, payload, timeout,
+                    return self._call_chunked(method, send, timeout,
                                               wait_ready)
                 fn = self._channel.unary_unary(
                     f"/{self.service_name}/{method}",
                     request_serializer=_identity,
                     response_deserializer=_identity)
-                return fn(payload, timeout=timeout,
-                          wait_for_ready=wait_ready)
-            except grpc.RpcError as exc:
+                return fn(send, timeout=timeout, wait_for_ready=wait_ready)
+            except (grpc.RpcError, _chaos.FaultInjected) as exc:
                 if not chunked and self._oversize(exc):
                     chunked = True
                     self._chunked_methods.add(method)
@@ -346,6 +366,12 @@ class RpcClient:
         if timeout is None:
             timeout = self.default_deadline_s
         outer: "futures.Future" = futures.Future()
+        inj = _chaos.get()
+        if inj is not None:
+            # chaos fires on the caller's thread: a drop raises here, which
+            # the dispatch paths count as a failed dispatch
+            payload = inj.intercept("client", self.service_name, method,
+                                    payload)
         if (len(payload) > STREAM_THRESHOLD
                 or method in self._chunked_methods):
             self._async_chunked(method, payload, callback, error_callback,

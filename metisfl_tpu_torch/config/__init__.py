@@ -3,6 +3,7 @@ package's ``config`` dataclasses, with the fields the port reads."""
 
 from metisfl_tpu_torch.config.federation import (
     AggregationConfig,
+    ChaosConfig,
     CheckpointConfig,
     CommConfig,
     EvalConfig,
@@ -22,7 +23,8 @@ from metisfl_tpu_torch.comm.ssl import SSLConfig
 __all__ = [
     "FederationConfig", "AggregationConfig", "TreeAggregationConfig",
     "SchedulingConfig", "ModelStoreConfig", "SecureAggConfig",
-    "TerminationConfig", "CheckpointConfig", "EvalConfig", "ServingConfig",
+    "TerminationConfig", "CheckpointConfig", "ChaosConfig", "EvalConfig",
+    "ServingConfig",
     "ServingDecodeConfig", "CommConfig", "LearnerEndpoint", "SSLConfig",
     "load_config",
 ]

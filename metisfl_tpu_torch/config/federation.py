@@ -1,8 +1,12 @@
 """Federation and serving configuration: copies of the JAX package's
 dataclasses (``config/federation.py``) with the fields the port reads.
 
-``FederationConfig`` covers the synchronous round under FedAvg and the
-JAX package's other plaintext rules (SCAFFOLD, FedStride, FedRec, FedNova,
+``FederationConfig`` covers every protocol of the JAX package
+(synchronous with quorum barriers and over-provisioned dispatch,
+semi-synchronous, asynchronous and buffered asynchronous, with round
+deadlines, dispatch retries, churn scoring with quarantine and staleness
+damping), the chaos injector's rules, FedAvg and the JAX package's other
+plaintext rules (SCAFFOLD, FedStride, FedRec, FedNova,
 the server optimizers and the robust rules), secure aggregation (masking,
 CKKS, identity), the streaming tier and the tree tier in process or over
 slice aggregator processes, the uplink variants (int8q and top-k uplinks,
@@ -79,10 +83,38 @@ class TerminationConfig:
 
 @dataclass
 class SchedulingConfig:
-    """Round scheduling. The port runs the full-cohort barrier
-    (``quorum`` 0)."""
+    """Churn-tolerant round scheduling: quorum barriers, the buffered
+    protocol's buffer size, churn-aware admission and bounded dispatch
+    retries. The defaults reduce each controller path to one attribute
+    check and keep rounds bit-identical to the plain barriers."""
 
+    # K-of-N quorum for sync/semi-sync rounds: the round releases the
+    # moment `quorum` dispatched learners reported (the reporters are the
+    # cohort; the stragglers' tasks expire as at a deadline). 0 = the
+    # full-cohort barrier, and so is any quorum >= the dispatched size.
     quorum: int = 0
+    # with a quorum, each round dispatches ceil(quorum * (1 +
+    # overprovision)) learners
+    overprovision: float = 0.0
+    # protocol=asynchronous_buffered: aggregation triggers per fill of a
+    # buffer of this many reporters
+    buffer_size: int = 10
+    # churn/flap scores (selection.py ChurnTracker), an EWMA of leave,
+    # flap-rejoin and failed-dispatch events per learner
+    churn_tracking: bool = True
+    churn_alpha: float = 0.3
+    # a churn event lifting a learner's score past this excludes it from
+    # cohort sampling for quarantine_s seconds (0 = never quarantine)
+    quarantine_score: float = 0.0
+    quarantine_s: float = 30.0
+    # a provably failed train dispatch drops the learner from the round
+    # barrier and dispatches a replacement after retry_backoff_s (doubling
+    # per retry), up to this many retries a round (0 = off)
+    dispatch_retries: int = 0
+    retry_backoff_s: float = 0.5
+    # consecutive round deadlines with no reporter before the round halts
+    # with a lineage error (0 = re-dispatch forever)
+    max_empty_redispatch: int = 8
 
 
 @dataclass
@@ -128,6 +160,10 @@ class AggregationConfig:
     stride_length: int = 0                   # 0 → all models in one block
     # how many learners train per round (1.0 = all)
     participation_ratio: float = 1.0
+    # staleness damping: each contribution's weight times (1 +
+    # staleness)^-decay, renormalized (0 = off; staleness is 0 under a
+    # synchronous barrier)
+    staleness_decay: float = 0.0
     # byzantine-robust rules (aggregation/robust.py): tail fraction each
     # side for trimmed_mean; assumed byzantine count for krum/multikrum
     # (0 derives the largest tolerable (n-3)//2 from the cohort)
@@ -186,6 +222,19 @@ class CheckpointConfig:
 
 
 @dataclass
+class ChaosConfig:
+    """Deterministic fault injection (metisfl_tpu_torch/chaos). ``rules``
+    are ``FaultRule`` dicts; each may carry ``process`` (``controller``,
+    ``learner``, ``learner_<idx>``, ``slice``, ``slice_<idx>``): the driver
+    filters the rules per subprocess and arms them through the
+    ``METISFL_TPU_CHAOS`` env var."""
+
+    enabled: bool = False
+    seed: int = 0
+    rules: List[Dict[str, Any]] = field(default_factory=list)
+
+
+@dataclass
 class EvalConfig:
     batch_size: int = 256
     datasets: List[str] = field(default_factory=lambda: ["test"])
@@ -216,8 +265,7 @@ class LearnerEndpoint:
     world_size: int = 1
 
 
-# names the JAX package accepts (the protocols beyond synchronous are not
-# ported yet)
+# the protocols of the JAX package
 _PROTOCOLS = ("synchronous", "semi_synchronous", "asynchronous",
               "asynchronous_buffered")
 _STORES = ("in_memory", "disk", "cached_disk", "remote")
@@ -231,9 +279,20 @@ def not_ported(what: str, item: str) -> NotImplementedError:
 
 @dataclass
 class FederationConfig:
-    protocol: str = "synchronous"
-    # straggler deadline for a round (0 = none; deadlines not ported)
+    protocol: str = "synchronous"            # synchronous |
+                                             # semi_synchronous |
+                                             # asynchronous |
+                                             # asynchronous_buffered
+    semi_sync_lambda: float = 1.0
+    semi_sync_recompute_every_round: bool = False
+    # straggler deadline for sync/semi-sync rounds: a dispatched learner
+    # that has not reported within this many seconds is dropped from the
+    # barrier and the round goes on with whoever reported (0 = none)
     round_deadline_secs: float = 0.0
+    # after this many consecutive failed train dispatches a learner is
+    # left out of cohort sampling until it completes a task or rejoins
+    # (0 = off)
+    max_dispatch_failures: int = 3
     scheduling: SchedulingConfig = field(default_factory=SchedulingConfig)
     aggregation: AggregationConfig = field(default_factory=AggregationConfig)
     model_store: ModelStoreConfig = field(default_factory=ModelStoreConfig)
@@ -243,6 +302,7 @@ class FederationConfig:
     train: TrainParams = field(default_factory=TrainParams)
     eval: EvalConfig = field(default_factory=EvalConfig)
     comm: CommConfig = field(default_factory=CommConfig)
+    chaos: ChaosConfig = field(default_factory=ChaosConfig)
     ssl: SSLConfig = field(default_factory=SSLConfig)
     # the controller's endpoint; DriverSession binds an ephemeral port and
     # reads it back when controller_port is 0
@@ -251,12 +311,19 @@ class FederationConfig:
     learners: List[LearnerEndpoint] = field(default_factory=list)
 
     def __post_init__(self):
-        if self.protocol not in _PROTOCOLS:
-            raise ValueError(f"unknown protocol {self.protocol!r}")
         agg, sched, train = self.aggregation, self.scheduling, self.train
         secure = self.secure
         masking = secure.enabled and secure.scheme == "masking"
         rule = agg.rule.lower()
+        if masking and self.protocol.startswith("asynchronous"):
+            # pairwise masks cancel only across one round barrier
+            raise ValueError(
+                "masking secure aggregation requires protocol: synchronous "
+                "or semi_synchronous (pairwise masks only cancel across "
+                "one round barrier). For an asynchronous secure federation "
+                "use scheme: ckks")
+        if self.protocol not in _PROTOCOLS:
+            raise ValueError(f"unknown protocol {self.protocol!r}")
         if secure.enabled and agg.rule != "secure_agg":
             raise ValueError("secure aggregation requires aggregation.rule "
                              "== 'secure_agg'")
@@ -300,8 +367,15 @@ class FederationConfig:
             raise ValueError(f"unknown store {self.model_store.store!r}")
         if self.model_store.ingest_workers < 0:
             raise ValueError("model_store.ingest_workers must be >= 0")
-        if sched.quorum < 0:
-            raise ValueError("scheduling.quorum must be >= 0")
+        self._check_scheduling()
+        if agg.staleness_decay < 0.0:
+            raise ValueError("staleness_decay must be >= 0")
+        if masking and agg.staleness_decay > 0.0:
+            # damping makes the scales non-uniform, and masks cancel only
+            # under uniform scales
+            raise ValueError(
+                "staleness_decay is incompatible with masking secure "
+                "aggregation (masks only cancel under uniform scales)")
         term = self.termination
         if term.federation_rounds < 0:
             raise ValueError("termination.federation_rounds must be >= 0")
@@ -309,16 +383,60 @@ class FederationConfig:
             raise ValueError("termination cutoffs must be >= 0")
         self._check_uplink(rule)
         # what the port does not do yet, once the values are known valid
-        if self.protocol != "synchronous":
-            raise not_ported(f"protocol {self.protocol!r}", "3f")
         if self.checkpoint.dir:
             raise not_ported("controller checkpoints", "3f")
-        if self.round_deadline_secs > 0:
-            raise not_ported("round deadlines", "3f")
-        if sched.quorum > 0:
-            raise not_ported("quorum barriers", "3f")
         if any(ep.world_size > 1 for ep in self.learners):
             raise not_ported("multi-host learners (world_size > 1)", "9")
+
+    def _check_scheduling(self) -> None:
+        """The JAX package's scheduling checks, with its error types."""
+        sched = self.scheduling
+        if sched.quorum < 0:
+            raise ValueError("scheduling.quorum must be >= 0")
+        if sched.quorum > 0 and self.protocol.startswith("asynchronous"):
+            # the asynchronous protocols have no barrier a quorum could
+            # shorten
+            raise ValueError(
+                "scheduling.quorum requires a synchronous or "
+                "semi-synchronous protocol (asynchronous rounds have no "
+                "barrier; use scheduling.buffer_size for "
+                "asynchronous_buffered)")
+        if sched.overprovision < 0.0:
+            raise ValueError("scheduling.overprovision must be >= 0")
+        if sched.overprovision > 0.0 and sched.quorum <= 0:
+            raise ValueError(
+                "scheduling.overprovision requires scheduling.quorum > 0 "
+                "(over-provisioning sizes the quorum dispatch)")
+        if sched.buffer_size < 1:
+            raise ValueError("scheduling.buffer_size must be >= 1")
+        if not 0.0 < sched.churn_alpha <= 1.0:
+            raise ValueError("scheduling.churn_alpha must be in (0, 1]")
+        if sched.quarantine_score < 0.0:
+            raise ValueError("scheduling.quarantine_score must be >= 0")
+        if sched.quarantine_score > 0.0 and sched.quarantine_s <= 0.0:
+            raise ValueError(
+                "scheduling.quarantine_s must be > 0 when quarantine is "
+                "armed (a zero-length quarantine never excludes anyone)")
+        if sched.quarantine_score > 0.0 and not sched.churn_tracking:
+            raise ValueError(
+                "scheduling.quarantine_score requires churn_tracking "
+                "(quarantine is driven by the churn scores)")
+        if sched.dispatch_retries < 0:
+            raise ValueError("scheduling.dispatch_retries must be >= 0")
+        if sched.dispatch_retries > 0 and sched.retry_backoff_s <= 0.0:
+            raise ValueError(
+                "scheduling.retry_backoff_s must be > 0 when "
+                "dispatch_retries is armed")
+        if sched.max_empty_redispatch < 0:
+            raise ValueError("scheduling.max_empty_redispatch must be >= 0")
+        if self.chaos.enabled:
+            # a misspelt fault fails here, not when it would fire
+            from metisfl_tpu_torch.chaos.injector import ChaosInjector
+            try:
+                ChaosInjector.from_spec({"seed": self.chaos.seed,
+                                         "rules": self.chaos.rules})
+            except (TypeError, ValueError) as exc:
+                raise ValueError(f"invalid chaos rule: {exc}") from None
 
     def _check_distributed(self, masking: bool) -> None:
         """The distributed tier's capability matrix (the JAX package's):

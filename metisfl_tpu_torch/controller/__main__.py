@@ -15,6 +15,9 @@ reaches the controller, its ``model_store`` block included: the store
 metisfl_tpu_torch.store.server`` at ``host``:``port``) and the ingest
 writers are built in this process.
 
+A ``METISFL_TPU_CHAOS`` spec in the environment arms the chaos injector
+(metisfl_tpu_torch/chaos) at start.
+
 Not ported: ``--standby`` (the hot standby) and ``--resume`` (restore from
 a checkpoint), ROADMAP.md Queue 1 item 3f.
 """
@@ -26,6 +29,7 @@ import logging
 import signal
 import sys
 
+from metisfl_tpu_torch import chaos
 from metisfl_tpu_torch.config import FederationConfig, load_config
 from metisfl_tpu_torch.config.federation import not_ported
 from metisfl_tpu_torch.controller.core import Controller
@@ -76,6 +80,7 @@ def main(argv=None) -> int:
     logging.basicConfig(
         level=logging.INFO,
         format="%(asctime)s %(name)s %(levelname)s %(message)s")
+    chaos.install_from_env()
     if args.config.endswith((".yaml", ".yml")):
         config = load_config(args.config)
     else:

@@ -1,10 +1,32 @@
-"""Federation controller: the synchronous round under every ported rule.
+"""Federation controller: rounds under every protocol and ported rule.
 
-The port's copy of the JAX package's ``controller/core.py``, trimmed to
-the synchronous path: the learner registry (join, rejoin, leave), the
-train-task lifecycle, the model store (in memory, on disk, cached, or
-remote) with its parallel-ingest plane, aggregation, round metadata,
-community-model evaluation and re-dispatch.
+The port's copy of the JAX package's ``controller/core.py``: the learner
+registry (join, rejoin, leave), the train-task lifecycle, the model store
+(in memory, on disk, cached, or remote) with its parallel-ingest plane,
+aggregation, round metadata, community-model evaluation and re-dispatch.
+
+Round control, as in the JAX package. The protocols (scheduling.py): the
+synchronous barrier, with a ``scheduling.quorum`` releasing at K
+reporters out of an over-provisioned dispatch (the stragglers' tasks
+expire, so their late uplinks never advance the next round's barrier);
+the semi-synchronous one, whose per-learner step budgets are recomputed
+from the learners' ``ms_per_step`` after a round; the asynchronous one,
+which releases each reporter alone; and the buffered one, which folds per
+``buffer_size`` reporters and re-dispatches each reporter at once. A
+contribution's staleness (the rounds the community model advanced since
+its task's dispatch) damps its weight under ``aggregation.
+staleness_decay``. ``round_deadline_secs`` arms a timer per round: at its
+end the unreported tasks expire and the round goes on with the reporters
+(under masking, settled through ``RecoverMasks``), or re-dispatches, and
+after ``scheduling.max_empty_redispatch`` empty deadlines in a row halts
+until an uplink arrives. A provably failed dispatch counts against the
+learner (``max_dispatch_failures`` leaves it out of the sampling) and,
+under ``scheduling.dispatch_retries``, drops it from the barrier and
+dispatches a replacement after a doubling backoff. ``ChurnTracker``
+(selection.py) scores leaves, flap rejoins and failed dispatches, and
+quarantines a learner past ``scheduling.quarantine_score``. Cohorts and
+replacements are drawn from the global ``random``, as the JAX package
+draws them. ``shutdown()`` cancels every deadline and retry timer.
 
 Aggregation dispatches as the JAX controller does, by the rule's kind:
 the fold rules (FedAvg, FedNova with each learner's ``completed_batches``
@@ -68,13 +90,14 @@ one scheduling worker owns all round logic, so a completion ack never
 waits on aggregation, and state needs one lock.
 
 After ``termination.federation_rounds`` rounds (0 = no limit) the
-controller dispatches no more train tasks; the last round's evaluations
-still go out.
+controller dispatches no more train tasks and schedules no completion (a
+task still in flight under the asynchronous protocols reports, and its
+model is kept), so a run ends after that many community models under
+every protocol; the last round's evaluations still go out.
 
 Not ported yet (ROADMAP.md Queue 1 items 3f, 3g and 4): the round-state
 WAL, checkpoints (SCAFFOLD's ``c`` among their state) and the hot standby,
-deadlines, quorum and dispatch retries, churn scoring and quarantine, the
-registry, the health plane's advisory scores and every telemetry plane
+the registry, the health plane's advisory scores and every telemetry plane
 (the secure plane's fold, settlement and recovery metrics, the slice
 tier's among them). The config (config/federation.py) refuses them.
 """
@@ -118,11 +141,19 @@ from metisfl_tpu_torch.comm.messages import (
     TrainTask,
 )
 from metisfl_tpu_torch.config import FederationConfig
-from metisfl_tpu_torch.scaling import make_scaler, raw_weight
-from metisfl_tpu_torch.scheduling import make_scheduler
+from metisfl_tpu_torch.scaling import (
+    apply_staleness_decay,
+    make_scaler,
+    raw_weight,
+    staleness_factor,
+)
+from metisfl_tpu_torch.scheduling import (
+    SemiSynchronousScheduler,
+    make_scheduler,
+)
 from metisfl_tpu_torch.secure import recovery
 from metisfl_tpu_torch.secure.distributed import MaskedStreamingAggregator
-from metisfl_tpu_torch.selection import make_selector
+from metisfl_tpu_torch.selection import ChurnTracker, make_selector
 from metisfl_tpu_torch.store import IngestPipeline, make_store
 from metisfl_tpu_torch.tensor.pytree import ModelBlob, to_numpy
 from metisfl_tpu_torch.tensor.quantize import SHIP_INT8Q, dequantize_named
@@ -181,7 +212,16 @@ class LearnerRecord:
     num_val_examples: int = 0
     num_test_examples: int = 0
     # completed batches of the stored model's task (the batches scaler)
+    # and the latest task's ms per step (the semi-synchronous budgets)
     completed_batches: int = 0
+    ms_per_step: float = 0.0
+    # consecutive failed train dispatches (reset on completion and rejoin)
+    dispatch_failures: int = 0
+    # the round the latest accepted contribution was dispatched from (its
+    # staleness under the asynchronous protocols)
+    last_result_round: int = -1
+    # the semi-synchronous step budget (0: the config's local_steps)
+    local_steps_override: int = 0
     # the masking party index it joined with (-1: not a masking party),
     # which maps its id to its mask streams in a settlement
     party_index: int = -1
@@ -210,8 +250,11 @@ class RoundMetadata:
     # of which the community blob encode
     community_pack_duration_ms: float = 0.0
     dispatch_duration_ms: float = 0.0
-    # the contribution weights applied this round
+    # the contribution weights applied this round (after staleness damping)
     scales: Dict[str, float] = field(default_factory=dict)
+    # per uplink, the rounds the community model advanced between its
+    # task's dispatch and this aggregate (nonzero entries only)
+    staleness: Dict[str, float] = field(default_factory=dict)
     # per uplink: blob parse + store insert (with parallel ingest: blob
     # parse + enqueue)
     model_insertion_duration_ms: Dict[str, float] = field(default_factory=dict)
@@ -262,7 +305,32 @@ class Controller:
             self._aggregator = self._make_rule(config)
         self._scaler = make_scaler(agg.scaler)
         self._selector = make_selector("scheduled_cardinality")
-        self._scheduler = make_scheduler(config.protocol)
+        sched_cfg = config.scheduling
+        if config.protocol == "semi_synchronous":
+            self._scheduler = make_scheduler(
+                "semi_synchronous", lambda_=config.semi_sync_lambda,
+                recompute_every_round=config.semi_sync_recompute_every_round,
+                quorum=sched_cfg.quorum)
+        elif config.protocol == "asynchronous_buffered":
+            self._scheduler = make_scheduler(
+                "asynchronous_buffered", buffer_size=sched_cfg.buffer_size)
+        elif config.protocol == "synchronous":
+            self._scheduler = make_scheduler("synchronous",
+                                             quorum=sched_cfg.quorum)
+        else:
+            self._scheduler = make_scheduler(config.protocol)
+        # the quorum barrier: 0 = the full-cohort barrier, and every quorum
+        # path below is one attribute check
+        self._quorum = (sched_cfg.quorum
+                        if config.protocol in ("synchronous",
+                                               "semi_synchronous") else 0)
+        # churn-aware admission: None when opted out
+        self._churn: Optional[ChurnTracker] = None
+        if sched_cfg.churn_tracking:
+            self._churn = ChurnTracker(
+                alpha=sched_cfg.churn_alpha,
+                quarantine_score=sched_cfg.quarantine_score,
+                quarantine_s=sched_cfg.quarantine_s)
         required = self._aggregator.required_lineage
         store_cfg = config.model_store
         lineage = max(store_cfg.lineage_length or required, required)
@@ -293,7 +361,8 @@ class Controller:
             if streaming_supported(self._aggregator.name, config.protocol,
                                    config.secure.enabled, lineage,
                                    required,
-                                   checkpointed=bool(config.checkpoint.dir)):
+                                   checkpointed=bool(config.checkpoint.dir),
+                                   buffer_size=sched_cfg.buffer_size):
                 self._streaming = StreamingAggregator(
                     self._aggregator, stride=agg.stride_length)
             else:
@@ -359,6 +428,22 @@ class Controller:
                                         thread_name_prefix="ctrl-sched")
         self._shutdown = threading.Event()
         self._agg_failures = 0
+        # train tasks dispatched and not yet reported (task_id ->
+        # learner_id), and the expired ones whose late uplinks are stored
+        # but never advance a barrier (a bounded ordered set)
+        self._tasks_in_flight: Dict[str, str] = {}
+        self._expired_tasks: Dict[str, None] = {}
+        # each fresh round's dispatch bumps the serial, so a deadline or
+        # retry timer of a closed round never acts on the next one
+        self._round_serial = 0
+        self._deadline_timer: Optional[threading.Timer] = None
+        # consecutive round deadlines with no reporter; the halt they
+        # trigger lifts when an uplink arrives
+        self._empty_deadlines = 0
+        self._halted_no_reporters = False
+        # dispatch retries used this round, and their live backoff timers
+        self._dispatch_retries_used = 0
+        self._retry_timers: Dict[threading.Timer, None] = {}
 
     def _make_rule(self, config: FederationConfig):
         """The configured rule with its hyperparameters; the robust rules
@@ -389,7 +474,22 @@ class Controller:
 
     def shutdown(self) -> None:
         self._shutdown.set()
+        with self._lock:
+            if self._deadline_timer is not None:
+                self._deadline_timer.cancel()
+            for timer in list(self._retry_timers):
+                timer.cancel()
+            self._retry_timers.clear()
         self._pool.shutdown(wait=True)
+        # a round task that was draining on the pool may have armed a timer
+        # between the cancel above and the flag reaching it: no timer
+        # outlives shutdown
+        with self._lock:
+            if self._deadline_timer is not None:
+                self._deadline_timer.cancel()
+            for timer in list(self._retry_timers):
+                timer.cancel()
+            self._retry_timers.clear()
         # ingest workers write INTO the store: stop them (bounded drain)
         # before the store's own shutdown
         if self._ingest is not None:
@@ -434,6 +534,8 @@ class Controller:
             if record is not None:
                 record.party_index = int(request.capabilities.get(
                     "party_index", record.party_index))
+                # a fresh endpoint: assume it is live
+                record.dispatch_failures = 0
             rejoined = record is not None
             if record is None:
                 learner_id = (f"L{len(self._tokens)}_{request.hostname}_"
@@ -453,6 +555,8 @@ class Controller:
         logger.info("learner %s %s (%d train examples)", record.learner_id,
                     "rejoined" if rejoined else "joined",
                     record.num_train_examples)
+        if rejoined:
+            self._note_churn(record.learner_id, "flap_rejoin")
         if not self._shutdown.is_set():
             self._pool.submit(self._guard, self._schedule_initial,
                               record.learner_id)
@@ -467,6 +571,10 @@ class Controller:
             if record is None or record.auth_token != auth_token:
                 return False
             del self._learners[learner_id]
+            # its tasks can never complete
+            for tid in [t for t, lid in self._tasks_in_flight.items()
+                        if lid == learner_id]:
+                del self._tasks_in_flight[tid]
         # drain the departing learner's queued writes BEFORE the erase: a
         # write landing after it would resurrect the lineage
         if (self._ingest is not None
@@ -486,11 +594,27 @@ class Controller:
             self._pool.submit(self._guard, self._streaming.forget,
                               learner_id)
         logger.info("learner %s left", learner_id)
+        # churn memory survives the leave: a flapper's history is the signal
+        self._note_churn(learner_id, "leave")
         # the departed learner may have been the last one the barrier
         # waited on: no later completion would re-check it
         if not self._shutdown.is_set():
             self._pool.submit(self._guard, self._handle_membership_change)
         return True
+
+    def _note_churn(self, learner_id: str, event: str) -> None:
+        """Fold one membership event into the learner's churn score; logs
+        a quarantine when the score newly crosses the threshold. One
+        attribute check when churn tracking is off."""
+        if self._churn is None:
+            return
+        was_quarantined = self._churn.quarantined(learner_id)
+        score = self._churn.note(learner_id, event)
+        if not was_quarantined and self._churn.quarantined(learner_id):
+            logger.warning(
+                "learner %s quarantined for %.1fs (churn score %.2f >= "
+                "%.2f after %s)", learner_id, self._churn.quarantine_s,
+                score, self._churn.quarantine_score, event)
 
     def active_learners(self) -> List[str]:
         with self._lock:
@@ -541,6 +665,27 @@ class Controller:
         with self._lock:
             return self._community_blob
 
+    def resume_round(self) -> bool:
+        """Dispatch a fresh round to a sampled cohort, for a controller
+        seeded after its learners joined (their join dispatches found no
+        model): the cross-device harness starts its first sampled round
+        so. False when there is no community model or no learner."""
+        with self._lock:
+            ready = (self._community_blob is not None
+                     and bool(self._learners))
+        if not ready or self._shutdown.is_set():
+            return False
+        self._pool.submit(self._guard, self._resume_dispatch)
+        return True
+
+    def _resume_dispatch(self) -> None:
+        if self._shutdown.is_set():
+            return
+        self._scheduler.reset()
+        cohort = self._sample_cohort()
+        if cohort:
+            self._dispatch_train(cohort)
+
     # ------------------------------------------------------------------ #
     # task completion (RPC thread → scheduling worker)
     # ------------------------------------------------------------------ #
@@ -583,12 +728,36 @@ class Controller:
             record = self._learners.get(result.learner_id)
             if record is None:
                 return
-            self._current_meta.train_received_at[result.learner_id] = start
-            self._current_meta.uplink_bytes[result.learner_id] = len(
-                result.model)
+            record.dispatch_failures = 0  # provably reachable
+            if result.processing_ms_per_step > 0:
+                record.ms_per_step = result.processing_ms_per_step
+            self._tasks_in_flight.pop(result.task_id, None)
+            # a completion of a task that a deadline or a quorum expired,
+            # or that another controller incarnation dispatched: its model
+            # is kept (fresh lineage for later rounds) but it advances no
+            # barrier and stays out of this round's metadata
+            stale = (result.task_id in self._expired_tasks
+                     or bool(result.controller_epoch
+                             and result.controller_epoch
+                             != self.controller_epoch))
+            self._expired_tasks.pop(result.task_id, None)
+            if not stale:
+                self._current_meta.train_received_at[result.learner_id] = \
+                    start
+                self._current_meta.uplink_bytes[result.learner_id] = len(
+                    result.model)
             if result.control_delta:
                 self._scaffold_deltas[result.learner_id] = \
                     result.control_delta
+        # a delivered uplink is the churn score's decay tick
+        self._note_churn(result.learner_id, "completion")
+        if stale and parse_topk(self.config.train.ship_dtype) is not None:
+            # a top-k payload is a delta against the community model at its
+            # dispatch, which has since moved: it cannot be rebuilt
+            logger.info("late topk completion from %s for expired task %s "
+                        "dropped (its reference model advanced)",
+                        result.learner_id, result.task_id)
+            return
         blob = None
         try:
             blob = ModelBlob.from_bytes(result.model)
@@ -601,12 +770,14 @@ class Controller:
                 self._current_meta.errors.append(
                     f"malformed result from {result.learner_id}: {exc}")
             model = None
+        deferred_meta = False
         if model is not None and self._masked_stream is not None:
             # masked streaming: the raw masked blob folds on arrival as a
-            # modular uint64 sum; an uplink of another round carries dead
-            # masks (streams are round-keyed) and never enters the sum
+            # modular uint64 sum; a stale uplink or one of another round
+            # carries dead masks (streams are round-keyed) and never enters
+            # the sum
             folded = False
-            if blob.opaque:
+            if blob.opaque and not stale:
                 try:
                     folded = self._masked_stream.fold(
                         result.learner_id, dict(blob.opaque),
@@ -615,13 +786,13 @@ class Controller:
                     logger.warning("unfoldable masked uplink from %s: %s",
                                    result.learner_id, exc)
             if not folded:
-                logger.info("masked uplink from %s dropped (another "
+                logger.info("masked uplink from %s dropped (stale, another "
                             "round's or malformed)", result.learner_id)
                 model = None
         elif model is not None and self._streaming is not None:
             # streaming: the accepted uplink folds straight into the
             # community accumulator, no store round trip
-            if not self._stream_fold(result, model):
+            if not self._stream_fold(result, model, stale):
                 model = None
         elif model is not None and self._slices is not None:
             # the distributed tier: the uplink goes to its slice aggregator
@@ -637,27 +808,64 @@ class Controller:
             self._ingest.submit(result.learner_id, model,
                                 on_success=partial(self._ingest_landed,
                                                    result))
-            model = None
+            deferred_meta = True
         elif model is not None:
             self._store.insert(result.learner_id, model)
-        if model is not None:
-            # the step count pairs with the stored (or streamed) model
+        if model is not None and not deferred_meta:
+            # the step count and the round pair with the stored (or
+            # streamed) model
             with self._lock:
                 record.completed_batches = result.completed_batches
-        with self._lock:
-            meta = self._current_meta
-            meta.model_insertion_duration_ms[result.learner_id] = (
-                (time.time() - start) * 1e3)
-            finite = finite_metrics(result.train_metrics)
-            if finite:
-                meta.train_metrics[result.learner_id] = finite
-            if isinstance(result.epoch_metrics, (list, tuple)):
-                meta.epoch_metrics[result.learner_id] = [
-                    finite_metrics(epoch) for epoch in result.epoch_metrics]
+                record.last_result_round = result.round_id
+        if not stale:
+            with self._lock:
+                meta = self._current_meta
+                meta.model_insertion_duration_ms[result.learner_id] = (
+                    (time.time() - start) * 1e3)
+                finite = finite_metrics(result.train_metrics)
+                if finite:
+                    meta.train_metrics[result.learner_id] = finite
+                if isinstance(result.epoch_metrics, (list, tuple)):
+                    meta.epoch_metrics[result.learner_id] = [
+                        finite_metrics(epoch)
+                        for epoch in result.epoch_metrics]
+        if self._halted_no_reporters:
+            # the no-reporter halt lifts on evidence of life: a delivered
+            # uplink (stale or not: the halt expired every task)
+            self._halted_no_reporters = False
+            self._empty_deadlines = 0
+            logger.warning("completion from %s after the no-reporter halt; "
+                           "resuming dispatch", result.learner_id)
+            self._scheduler.reset()
+            self._abandon_streams()
+            self._dispatch_train(self._sample_cohort())
+            return
+        if stale:
+            logger.info("late completion from %s for expired task %s kept "
+                        "but not scheduled", result.learner_id,
+                        result.task_id)
+            return
+        limit = self.config.termination.federation_rounds
+        if 0 < limit <= self.global_iteration:
+            # the run is over: under the asynchronous protocols a task in
+            # flight at the last community still reports; it is kept, and
+            # no community past the limit is made
+            logger.info("completion from %s after the last round kept but "
+                        "not scheduled", result.learner_id)
+            return
         to_schedule = self._scheduler.schedule_next(
             result.learner_id, self.active_learners())
-        if to_schedule:
-            self._complete_round(to_schedule)
+        if not to_schedule:
+            if getattr(self._scheduler, "redispatch_on_completion", False):
+                # buffered async: the reporter trains on against the
+                # current community model while the buffer fills
+                self._dispatch_train([result.learner_id], fresh_round=False)
+            return
+        if self._quorum > 0:
+            # quorum release: the tasks still in flight belong to the round
+            # that just closed
+            self._expire_unreported(to_schedule)
+        self._complete_round(to_schedule)
 
     def _ingest_landed(self, result: TaskResult, ms: float) -> None:
         """Ingest-write success hook (on the writer, strictly before the
@@ -668,6 +876,7 @@ class Controller:
             record = self._learners.get(result.learner_id)
             if record is not None:
                 record.completed_batches = result.completed_batches
+                record.last_result_round = result.round_id
 
     def _note_ingest_insert(self, learner_id: str, ms: float) -> None:
         """The writer's own insert time, recorded against the round the
@@ -682,6 +891,8 @@ class Controller:
             return
         cohort = self._scheduler.handle_leave(active)
         if cohort:
+            if self._quorum > 0:
+                self._expire_unreported(cohort)
             self._complete_round(cohort)
         elif self._scheduler.round_stalled(active):
             # every dispatched learner departed: abandon the round and
@@ -691,6 +902,119 @@ class Controller:
             self._scheduler.reset()
             self._abandon_streams()
             self._dispatch_train(self._sample_cohort())
+
+    def _expire_tasks_locked(self, pending: Dict[str, str]) -> None:
+        """Move ``pending`` (task_id -> learner_id) to the bounded expired
+        set: one definition for the quorum and deadline triggers. Call with
+        ``self._lock`` held."""
+        for tid in pending:
+            self._tasks_in_flight.pop(tid, None)
+        self._expired_tasks.update(dict.fromkeys(pending))
+        while len(self._expired_tasks) > 512:
+            self._expired_tasks.pop(next(iter(self._expired_tasks)))
+
+    def _expire_unreported(self, cohort: Sequence[str]) -> None:
+        """Quorum release: every task still in flight to a learner outside
+        the releasing cohort belongs to the round that just closed; expire
+        it, so the straggler's late uplink is kept but never advances the
+        next round's barrier."""
+        cohort_set = set(cohort)
+        with self._lock:
+            pending = {tid: lid for tid, lid in self._tasks_in_flight.items()
+                       if lid not in cohort_set}
+            if not pending:
+                return
+            self._expire_tasks_locked(pending)
+        logger.info("quorum reached: expiring %d straggler task(s) from %s",
+                    len(pending), sorted(set(pending.values())))
+
+    # -- round deadline ---------------------------------------------------
+
+    def _arm_round_deadline(self, restart: bool = True) -> None:
+        """Start (or restart) the round's straggler timer after a dispatch
+        (the synchronous, semi-synchronous and buffered protocols).
+        ``restart=False`` (a single learner's dispatch) arms only where no
+        timer is live, so a learner rejoining inside the window cannot
+        postpone the deadline."""
+        deadline = self.config.round_deadline_secs
+        if deadline <= 0 or self._scheduler.name == "asynchronous":
+            return
+        with self._lock:
+            # shutdown() cancels the live timer under this lock: no timer
+            # is armed after it
+            if self._shutdown.is_set():
+                return
+            if (not restart and self._deadline_timer is not None
+                    and self._deadline_timer.is_alive()):
+                return
+            serial = self._round_serial
+            if self._deadline_timer is not None:
+                self._deadline_timer.cancel()
+
+            def _fire():
+                if self._shutdown.is_set():
+                    return
+                try:
+                    self._pool.submit(self._guard, self._handle_deadline,
+                                      serial)
+                except RuntimeError:  # the pool is shut down
+                    pass
+
+            timer = threading.Timer(deadline, _fire)
+            timer.daemon = True
+            self._deadline_timer = timer
+            timer.start()
+
+    def _handle_deadline(self, serial: int) -> None:
+        """The round's deadline passed: expire the unreported tasks and go
+        on with whoever reported, or re-dispatch if nobody did (halting
+        after ``scheduling.max_empty_redispatch`` such deadlines)."""
+        if self._shutdown.is_set():
+            return
+        with self._lock:
+            if serial != self._round_serial:
+                return  # the round already completed
+            pending = dict(self._tasks_in_flight)
+            self._expire_tasks_locked(pending)
+        cohort = self._scheduler.expire_pending(self.active_learners())
+        dropped = sorted(set(pending.values()))
+        if cohort:
+            logger.warning(
+                "round deadline (%.1fs) expired; aggregating %d reporter(s), "
+                "dropping stragglers %s", self.config.round_deadline_secs,
+                len(cohort), dropped)
+            # under masking the partial cohort settles through the dropout
+            # recovery; where it cannot, aggregation fails and the round is
+            # re-dispatched
+            self._complete_round(cohort)
+            if (getattr(self._scheduler, "redispatch_on_completion", False)
+                    and dropped and not self._shutdown.is_set()):
+                # buffered async: the expired learners would idle for the
+                # rest of the run
+                revive = self._idle_reporters(dropped)
+                if revive:
+                    self._dispatch_train(revive, fresh_round=False)
+            return
+        self._empty_deadlines += 1
+        limit = self.config.scheduling.max_empty_redispatch
+        if limit > 0 and self._empty_deadlines >= limit:
+            # nobody reported for `limit` deadline windows in a row: halt
+            # instead of re-dispatching forever; a delivered uplink resumes
+            # dispatch (_handle_completed)
+            reason = (f"{self._empty_deadlines} consecutive round "
+                      f"deadlines expired with no reporters "
+                      f"(last dropped: {dropped})")
+            logger.error("halting re-dispatch: %s", reason)
+            self._halted_no_reporters = True
+            with self._lock:
+                self._current_meta.errors.append(f"round halted: {reason}")
+            return
+        logger.warning(
+            "round deadline (%.1fs) expired with no reporters (%s); "
+            "re-dispatching (%d/%s)", self.config.round_deadline_secs,
+            dropped, self._empty_deadlines, limit or "unbounded")
+        self._abandon_streams()
+        self._dispatch_train(self._sample_cohort())
 
     def _abandon_streams(self) -> None:
         """Drop the round's streamed fold state (an abandoned or failed
@@ -723,11 +1047,19 @@ class Controller:
             tensors = densify_named(tensors, community)
         return tensors
 
-    def _stream_fold(self, result: TaskResult, model) -> bool:
+    def _stream_fold(self, result: TaskResult, model, stale: bool) -> bool:
         """Fold one accepted uplink into the streaming accumulator with
         its raw weight (the cohort's normalizer is unknown until barrier
-        release; ``finish`` divides by Σw). Returns False when nothing was
-        accepted (a payload that is not a tensor tree)."""
+        release; ``finish`` divides by Σw), damped by its staleness under
+        ``staleness_decay``. Returns False when nothing was accepted (a
+        stale uplink on a round-scoped rule: the stream keeps no store to
+        park it in; a payload that is not a tensor tree)."""
+        if stale and self._streaming.rule_name != "fedrec":
+            # fedavg and fedstride sums are round-scoped, and the round
+            # this model belongs to was closed (FedRec wants the newest)
+            logger.info("late completion from %s dropped (the streaming "
+                        "path keeps no store lineage)", result.learner_id)
+            return False
         if not isinstance(model, dict) or not model:
             return False
         with self._lock:
@@ -740,6 +1072,11 @@ class Controller:
         if weight <= 0.0:
             # the batch scalers would give it scale 0: accept, fold nothing
             return True
+        decay = self.config.aggregation.staleness_decay
+        if decay > 0.0:
+            # the dispatch-version lag, damped as the store path damps it
+            staleness = max(0, self.global_iteration - result.round_id)
+            weight *= staleness_factor(staleness, decay)
         self._streaming.fold(result.learner_id, model, weight)
         return True
 
@@ -766,11 +1103,17 @@ class Controller:
                              "halting re-dispatch", self._agg_failures, exc)
                 return
             logger.warning("aggregation failed (%r); re-dispatching", exc)
-            if not self._shutdown.is_set():
+            if self._shutdown.is_set():
+                return
+            if self._scheduler.name.startswith("asynchronous"):
+                # the reporters would wait forever for a round that aborted
+                self._dispatch_train(self._idle_reporters(cohort))
+            else:
                 self._scheduler.reset()
                 self._dispatch_train(self._sample_cohort())
             return
         self._agg_failures = 0
+        self._empty_deadlines = 0
         if self._slices is not None:
             # the root's residual buffer is folded; the slices keep their
             # latest model per learner, as the store keeps lineage
@@ -784,19 +1127,86 @@ class Controller:
             self.round_metadata.append(self._current_meta)
             self._current_meta = RoundMetadata(
                 global_iteration=self.global_iteration)
+        self._maybe_recompute_semisync()
         if self._shutdown.is_set():
             return
-        self._dispatch_train(self._sample_cohort())
+        if self._scheduler.name.startswith("asynchronous"):
+            # async: re-dispatch the reporters that are idle (the buffered
+            # protocol re-dispatched most of them as they uplinked)
+            next_ids = self._idle_reporters(cohort)
+        else:
+            next_ids = self._sample_cohort()
+        self._dispatch_train(next_ids)
+
+    def _idle_reporters(self, cohort: Sequence[str]) -> List[str]:
+        """The cohort's active members without a task in flight: the only
+        ones an asynchronous re-dispatch may target."""
+        active = set(self.active_learners())
+        with self._lock:
+            busy = set(self._tasks_in_flight.values())
+        return [lid for lid in cohort if lid in active and lid not in busy]
+
+    def _admission_pool(self) -> List[str]:
+        """Dispatchable learners: active, under ``max_dispatch_failures``
+        consecutive failed dispatches, and not quarantined. It never
+        empties: where every learner looks dead, it keeps them all; where
+        every one is quarantined, it keeps the pool."""
+        limit = self.config.max_dispatch_failures
+        with self._lock:
+            pool = [lid for lid, r in self._learners.items()
+                    if limit <= 0 or r.dispatch_failures < limit]
+            if not pool:
+                pool = list(self._learners.keys())
+        if self._churn is not None:
+            quarantined = set(self._churn.quarantined_ids())
+            if quarantined:
+                healthy = [lid for lid in pool if lid not in quarantined]
+                if healthy:
+                    pool = healthy
+        return pool
 
     def _sample_cohort(self) -> List[str]:
-        """Next round's participants (``participation_ratio`` of the
-        active learners; the barrier is the dispatched sample)."""
-        pool = self.active_learners()
+        """Next round's participants from the admission pool: with a quorum
+        ``ceil(quorum * (1 + overprovision))`` of them (the expected
+        dropout still leaves a quorum), else ``participation_ratio`` of
+        them. The barrier is the dispatched sample."""
+        pool = self._admission_pool()
+        if self._quorum > 0:
+            k = math.ceil(self._quorum
+                          * (1.0 + self.config.scheduling.overprovision))
+            k = max(1, min(len(pool), k))
+            if k >= len(pool):
+                return pool
+            return random.sample(pool, k)
         ratio = self.config.aggregation.participation_ratio
         if ratio >= 1.0 or not pool:
             return pool
         k = max(1, int(round(ratio * len(pool))))
         return random.sample(pool, k)
+
+    def _maybe_recompute_semisync(self) -> None:
+        """Semi-synchronous: the next rounds' per-learner step budgets from
+        the learners' recorded ms per step."""
+        if not isinstance(self._scheduler, SemiSynchronousScheduler):
+            return
+        batch = self.config.train.batch_size
+        with self._lock:
+            timings = {
+                lid: {
+                    "ms_per_step": r.ms_per_step,
+                    "steps_per_epoch": max(
+                        1.0, r.num_train_examples / max(1, batch)),
+                }
+                for lid, r in self._learners.items()
+            }
+        overrides = self._scheduler.recompute_steps(timings)
+        if not overrides:
+            return
+        with self._lock:
+            for lid, steps in overrides.items():
+                if lid in self._learners:
+                    self._learners[lid].local_steps_override = steps
+        logger.info("semi-sync step budgets: %s", overrides)
 
     # -- aggregation ------------------------------------------------------
 
@@ -806,7 +1216,10 @@ class Controller:
         with self._lock:
             return {
                 lid: {"num_train_examples": r.num_train_examples,
-                      "completed_batches": r.completed_batches}
+                      "completed_batches": r.completed_batches,
+                      "staleness": float(max(
+                          0, self.global_iteration - r.last_result_round))
+                      if r.last_result_round >= 0 else 0.0}
                 for lid, r in ((lid, self._learners.get(lid))
                                for lid in selected)
                 if r is not None
@@ -835,6 +1248,9 @@ class Controller:
         stride = self.config.aggregation.stride_length or len(selected) or 1
         metadata = self._scaling_metadata(selected)
         scales = self._scaler(metadata)
+        decay = self.config.aggregation.staleness_decay
+        if decay > 0.0:
+            scales = apply_staleness_decay(scales, metadata, decay)
         ids = [lid for lid in selected if lid in scales]
         block_sizes: List[int] = []
         block_ms: List[float] = []
@@ -1014,6 +1430,9 @@ class Controller:
             meta.selected_learners = list(selected)
             meta.scales = {lid: round(float(w), 6)
                            for lid, w in scales.items()}
+            meta.staleness = {lid: float(m["staleness"])
+                              for lid, m in metadata.items()
+                              if m.get("staleness")}
             meta.aggregation_block_sizes = block_sizes
             meta.aggregation_block_duration_ms = block_ms
             meta.aggregation_duration_ms = agg_ms
@@ -1215,8 +1634,11 @@ class Controller:
         dispatched set is the round barrier. Nothing is sent once
         ``termination.federation_rounds`` rounds have completed.
         ``fresh_round``: a round's cohort dispatched together (not a
-        joining learner's first task), which the distributed tier splits
-        into its slices."""
+        joining learner's first task, a replacement or an asynchronous
+        reporter's next task): it renews the round's retry budget, bumps
+        the round serial that fences the deadline and retry timers,
+        (re)starts the deadline, and the distributed tier splits it into
+        its slices."""
         limit = self.config.termination.federation_rounds
         with self._lock:
             if 0 < limit <= self.global_iteration:
@@ -1227,10 +1649,14 @@ class Controller:
                            "tasks")
             return
         t0 = time.perf_counter()
-        if self._slices is not None and fresh_round:
-            # contiguous slices of the sorted cohort over every configured
-            # aggregator (a relaunched one revives here)
-            self._slices.assign(list(learner_ids))
+        if fresh_round:
+            with self._lock:
+                self._dispatch_retries_used = 0
+                self._round_serial += 1
+            if self._slices is not None:
+                # contiguous slices of the sorted cohort over every
+                # configured aggregator (a relaunched one revives here)
+                self._slices.assign(list(learner_ids))
         if self._masked_stream is not None:
             # mask streams are round-keyed: a fold of another round's
             # uplink into this round's sum would never cancel
@@ -1245,6 +1671,8 @@ class Controller:
                 if record is None:
                     continue
                 params = dataclasses.replace(self.config.train)
+                if record.local_steps_override:
+                    params.local_steps = record.local_steps_override
                 # no device-utilization plane in the port
                 params.device_stats = False
                 task = TrainTask(
@@ -1258,15 +1686,127 @@ class Controller:
                     control=self._pack_scaffold_c(),
                     controller_epoch=self.controller_epoch,
                 )
+                self._tasks_in_flight[task.task_id] = lid
                 self._current_meta.train_submitted_at[lid] = time.time()
                 proxy = record.proxy
             try:
-                proxy.run_task(task)
-            except Exception:
+                if hasattr(proxy, "run_task_with_callback"):
+                    # an asynchronous transport reports a failed dispatch
+                    # through the callback
+                    proxy.run_task_with_callback(
+                        task, lambda exc, lid=lid, tid=task.task_id:
+                        self._note_dispatch_failure(lid, exc, tid))
+                else:
+                    proxy.run_task(task)
+            except Exception as exc:
+                # counted against the learner; the round relies on the
+                # deadline, membership changes and the retries
                 logger.exception("train dispatch to %s failed", lid)
+                self._note_dispatch_failure(lid, exc, task.task_id)
         with self._lock:
             self._current_meta.dispatch_duration_ms += (
                 (time.perf_counter() - t0) * 1e3)
+        self._arm_round_deadline(restart=fresh_round)
+
+    def _note_dispatch_failure(self, learner_id: str, exc: Exception,
+                               task_id: str = "") -> None:
+        with self._lock:
+            if task_id:
+                # the task never reached the learner: no completion pops it
+                self._tasks_in_flight.pop(task_id, None)
+            record = self._learners.get(learner_id)
+            if record is None:
+                return
+            record.dispatch_failures += 1
+            count = record.dispatch_failures
+        limit = self.config.max_dispatch_failures
+        if limit > 0 and count == limit:
+            logger.warning(
+                "learner %s unreachable after %d failed dispatches (%r); "
+                "left out of cohort sampling until it reports or rejoins",
+                learner_id, count, exc)
+        self._note_churn(learner_id, "dispatch_failure")
+        self._maybe_retry_dispatch(learner_id)
+
+    def _maybe_retry_dispatch(self, failed_id: str) -> None:
+        """Bounded dispatch retry (``scheduling.dispatch_retries``): a
+        provably failed dispatch schedules a replacement after a doubling
+        backoff, up to the round's budget. Off, a failed dispatch stalls
+        the round until its deadline."""
+        cfg = self.config.scheduling
+        if cfg.dispatch_retries <= 0 or self._shutdown.is_set():
+            return
+        with self._lock:
+            if self._dispatch_retries_used >= cfg.dispatch_retries:
+                return
+            self._dispatch_retries_used += 1
+            attempt = self._dispatch_retries_used
+            # a timer armed for round N never acts on round N+1
+            serial = self._round_serial
+        delay = cfg.retry_backoff_s * (2 ** (attempt - 1))
+
+        def _fire():
+            with self._lock:
+                self._retry_timers.pop(timer, None)
+            if self._shutdown.is_set():
+                return
+            try:
+                self._pool.submit(self._guard, self._retry_dispatch,
+                                  failed_id, attempt, serial)
+            except RuntimeError:  # the pool is shut down
+                pass
+
+        timer = threading.Timer(delay, _fire)
+        timer.daemon = True
+        with self._lock:
+            if self._shutdown.is_set():
+                return
+            self._retry_timers[timer] = None
+        timer.start()
+
+    def _retry_dispatch(self, failed_id: str, attempt: int,
+                        serial: int = 0) -> None:
+        """After the backoff, on the scheduling worker: drop the dead
+        endpoint from the round barrier and dispatch a replacement learner
+        in its place, so the reporters stay at strength."""
+        if self._shutdown.is_set():
+            return
+        with self._lock:
+            if serial != self._round_serial:
+                return  # the round that armed this retry closed
+            busy = set(self._tasks_in_flight.values())
+            record = self._learners.get(failed_id)
+            healed = record is not None and record.dispatch_failures == 0
+        if failed_id in busy or healed:
+            # the endpoint healed since (a completion or a rejoin): its
+            # contribution is deliverable, or delivered
+            return
+        drop = getattr(self._scheduler, "drop_dispatched", None)
+        released: List[str] = []
+        if drop is not None:
+            released = drop(failed_id, self.active_learners())
+        dispatched: set = set()
+        getter = getattr(self._scheduler, "dispatched_ids", None)
+        if getter is not None:
+            dispatched = getter()
+        pool = [lid for lid in self._admission_pool()
+                if lid != failed_id and lid not in dispatched
+                and lid not in busy]
+        replacement = random.choice(pool) if pool else ""
+        if released:
+            # dropping the dead endpoint met the barrier: finish the round
+            # instead of growing it by a replacement
+            if self._quorum > 0:
+                self._expire_unreported(released)
+            self._complete_round(released)
+            return
+        if not replacement:
+            logger.warning("dispatch retry %d for %s: no replacement "
+                           "learner available", attempt, failed_id)
+            return
+        logger.info("dispatch retry %d: replacing unreachable %s with %s",
+                    attempt, failed_id, replacement)
+        self._dispatch_train([replacement], fresh_round=False)
 
     def _send_eval_tasks(self) -> None:
         """Evaluate the new community model on every learner; results land
@@ -1344,19 +1884,38 @@ class Controller:
             return self._snapshot_evaluations(tail)
 
     def describe(self) -> dict:
-        """A live snapshot: the round, the protocol, the learners and the
-        community model's size."""
+        """A live snapshot: the round, the protocol, the learners (with
+        their liveness, and churn scores where tracked), the tasks in
+        flight and the community model's size; a ``scheduling`` section
+        where a quorum, dispatch retries, the buffered protocol or a
+        quarantine is armed."""
         slices = self._slices.describe() if self._slices is not None else None
+        churn_scores: Dict[str, float] = {}
+        quarantined: set = set()
+        if self._churn is not None:
+            churn_scores = self._churn.scores()
+            quarantined = set(self._churn.quarantined_ids())
+        sched_cfg = self.config.scheduling
+        limit = self.config.max_dispatch_failures
         with self._lock:
             blob = self._community_blob
-            return {
+            snapshot = {
                 "global_iteration": self.global_iteration,
                 "protocol": self.config.protocol,
                 "controller_epoch": self.controller_epoch,
-                "learners": [{"learner_id": r.learner_id,
-                              "hostname": r.hostname, "port": r.port,
-                              "num_train_examples": r.num_train_examples}
-                             for r in self._learners.values()],
+                "learners": [
+                    {"learner_id": r.learner_id, "hostname": r.hostname,
+                     "port": r.port,
+                     "num_train_examples": r.num_train_examples,
+                     # liveness mirrors the admission pool's rule
+                     "live": limit <= 0 or r.dispatch_failures < limit,
+                     "dispatch_failures": r.dispatch_failures,
+                     "last_result_round": r.last_result_round,
+                     **({"churn_score": round(
+                         churn_scores.get(r.learner_id, 0.0), 4),
+                         "quarantined": r.learner_id in quarantined}
+                        if self._churn is not None else {})}
+                    for r in self._learners.values()],
                 # dispatched this round and not yet reported back
                 "in_flight": sorted(
                     set(self._current_meta.train_submitted_at)
@@ -1368,6 +1927,24 @@ class Controller:
                    if self._masked_stream is not None else {}),
                 **({"slices": slices} if slices is not None else {}),
             }
+            if (self._quorum > 0 or sched_cfg.dispatch_retries > 0
+                    or self._scheduler.name == "asynchronous_buffered"
+                    or quarantined):
+                section: Dict[str, Any] = {}
+                if self._quorum > 0:
+                    section["quorum"] = self._quorum
+                    section["overprovision"] = sched_cfg.overprovision
+                if self._scheduler.name == "asynchronous_buffered":
+                    section["buffer_size"] = self._scheduler.buffer_size
+                    section["buffer_pending"] = self._scheduler.pending()
+                if sched_cfg.dispatch_retries > 0:
+                    section["dispatch_retries_used"] = \
+                        self._dispatch_retries_used
+                    section["dispatch_retries"] = sched_cfg.dispatch_retries
+                if quarantined:
+                    section["quarantined"] = sorted(quarantined)
+                snapshot["scheduling"] = section
+            return snapshot
 
     def get_statistics(self) -> dict:
         with self._lock:

@@ -72,6 +72,15 @@ class RpcLearnerProxy:
             error_callback=lambda exc: logger.warning(
                 "RunTask to %s failed: %s", self._learner_id, exc))
 
+    def run_task_with_callback(self, task: TrainTask, on_error) -> None:
+        """Dispatch with failure notification, for the controller's
+        liveness accounting: ``wait_ready=False`` surfaces UNAVAILABLE
+        from a dead endpoint at once, and the timeout bounds a connected
+        peer that does not answer."""
+        self._client.call_async("RunTask", task.to_wire(),
+                                error_callback=on_error, timeout=60.0,
+                                wait_ready=False)
+
     def evaluate(self, task: EvalTask,
                  callback: Callable[[EvalResult], None]) -> None:
         self._client.call_async(

@@ -1,10 +1,10 @@
 """DriverSession: a multi-process federation run from the user's script.
 
-The port's copy of the JAX package's ``driver/session.py``, cut down to
-the synchronous federation: it writes the config, boots the controller
-(``python -m metisfl_tpu_torch.controller``), waits for it to answer,
-ships the seed model, launches one learner process per recipe (``python
--m metisfl_tpu_torch.learner``), watches the three termination criteria
+The port's copy of the JAX package's ``driver/session.py``: it writes the
+config, boots the controller (``python -m metisfl_tpu_torch.controller``)
+and one learner process per recipe (``python -m
+metisfl_tpu_torch.learner``), waits for the controller to answer, ships
+the seed model, watches the three termination criteria
 (rounds, wall clock, a community metric), collects the statistics and
 shuts every process down. Models and data travel as one cloudpickled
 recipe per learner and one ModelBlob; the statistics land in
@@ -15,7 +15,11 @@ Each process runs where its endpoint says: ``""``, ``localhost`` and
 host over ``ssh`` (:class:`SSHLauncher`, the reference's fabric bootstrap),
 after ``scp`` has copied its files (the config, the learner's recipe and
 secure-aggregation material, the TLS pair) to the same absolute paths
-there. The remote host is
+there. Where the controller runs on this host, the learners boot beside
+it (``--wait-for-model``: each joins once the controller holds the seed
+model, so round 0's tasks go out as they join); under a remote
+controller they are launched after the seed model is shipped. The remote
+host is
 assumed to hold the repo at the same path (``PYTHONPATH`` names the local
 package root) and an interpreter named by the launcher's ``python``. A
 process's output comes back through the local ``ssh`` client into
@@ -44,14 +48,18 @@ runs, a slice process that died is relaunched with a doubling backoff
 (its spool reloads; the controller re-adopts it at a later round's
 assignment); at shutdown each gets the ShutDown RPC and is reaped.
 
+Chaos (``chaos.enabled``): each original controller, learner and slice
+process gets the rules whose ``process`` selector names it (``controller``,
+``learner``, ``learner_<i>``, ``slice``, ``slice_<i>``, or none for every
+process) through the ``METISFL_TPU_CHAOS`` env var; a relaunch runs clean.
+
 The port's controller dispatches no train task after
 ``termination.federation_rounds`` rounds, so the rounds criterion ends an
 idle federation; the two cutoffs end one mid-round.
 
 Not ported, and raising ``NotImplementedError`` with the ROADMAP.md Queue 1
 item: ``resume`` and the controller's supervision and hot standby (3f),
-the fault-injected slice kills (3f), serving (5), and trace and
-post-mortem collection (4).
+serving (5), and trace and post-mortem collection (4).
 """
 
 from __future__ import annotations
@@ -74,6 +82,7 @@ import cloudpickle
 import numpy as np
 
 from metisfl_tpu_torch.aggregation.slice import SLICE_SERVICE
+from metisfl_tpu_torch.chaos import ENV_VAR as CHAOS_ENV_VAR
 from metisfl_tpu_torch.comm.codec import dumps as codec_dumps
 from metisfl_tpu_torch.comm.health import probe_health
 from metisfl_tpu_torch.comm.rpc import RpcClient
@@ -98,6 +107,14 @@ class _Proc:
     log_path: str
     # what launched it (stops it where it runs)
     launcher: Any = None
+
+
+def _free_port() -> int:
+    """A port that is free on this host now (the controller binds it a
+    moment later)."""
+    with socket.socket() as sock:
+        sock.bind(("", 0))
+        return sock.getsockname()[1]
 
 
 def _terminate_process(process: subprocess.Popen,
@@ -267,6 +284,8 @@ class DriverSession:
         self._slice_restarts: Dict[int, int] = {}
         self._slice_restart_after: Dict[int, float] = {}
         self._shutting_down = False
+        # chaos arms original incarnations only (_chaos_env)
+        self._chaos_armed: set = set()
 
     # ------------------------------------------------------------------ #
     # bootstrap
@@ -336,6 +355,26 @@ class DriverSession:
             return self.config.learners[idx]
         return LearnerEndpoint()
 
+    def _chaos_env(self, process: str,
+                   idx: Optional[int] = None) -> Dict[str, str]:
+        """The ``METISFL_TPU_CHAOS`` env of one subprocess: the configured
+        chaos rules whose ``process`` selector matches (empty = every
+        process; ``learner`` = any learner; ``learner_<idx>`` = one; the
+        same for ``slice``). Only the original incarnation of a process is
+        armed: a relaunch runs clean, so a kill rule cannot re-fire on
+        every restart."""
+        cfg = self.config.chaos
+        name = process if idx is None else f"{process}_{idx}"
+        if not cfg.enabled or not cfg.rules or name in self._chaos_armed:
+            return {}
+        self._chaos_armed.add(name)
+        wanted = {"", process, name}
+        rules = [r for r in cfg.rules if r.get("process", "") in wanted]
+        if not rules:
+            return {}
+        return {CHAOS_ENV_VAR: json.dumps({"seed": cfg.seed,
+                                           "rules": rules})}
+
     def _base_env(self) -> Dict[str, str]:
         # the package importable in the children whatever their cwd
         import metisfl_tpu_torch
@@ -347,10 +386,17 @@ class DriverSession:
 
     def initialize_federation(self, health_retries: int = 60,
                               health_sleep_s: float = 0.5) -> None:
-        """Make the secure material, boot the controller, wait until it
-        answers, ship the seed model, then launch the learners."""
+        """Make the secure material, boot the controller and (under a local
+        controller, at once) the learners, wait until the controller
+        answers, ship the seed model; the learners join once it holds the
+        model."""
         self._prepare_secure()
         ctrl_host = self.config.controller_host or "localhost"
+        # a local controller's port is known before it boots, so the
+        # learners' interpreters, recipes and devices start beside it
+        early = ctrl_host in self._LOCAL_HOSTS
+        if early and not self.config.controller_port:
+            self.config.controller_port = _free_port()
         if self.config.ssl.enabled and not self.config.ssl.cert_path:
             # the federation's self-signed pair, made on first boot
             from metisfl_tpu_torch.comm.ssl import generate_self_signed
@@ -368,7 +414,11 @@ class DriverSession:
             "-m", "metisfl_tpu_torch.controller",
             "--config", self._config_path,
             "--port", str(self.config.controller_port),
-            "--device", self.device], ship=[self._config_path])
+            "--device", self.device], env=self._chaos_env("controller"),
+            ship=[self._config_path])
+        if early:
+            for idx in range(len(self.learner_recipes)):
+                self.launch_learner(idx, wait_for_model=True)
         deadline = time.time() + health_retries * health_sleep_s
         if not self.config.controller_port:
             # an ephemeral port: the controller prints the one it bound
@@ -380,8 +430,9 @@ class DriverSession:
                                         comm=self.config.comm)
         self._wait_healthy(deadline, health_sleep_s)
         self._client.replace_community_model(self.initial_blob)
-        for idx in range(len(self.learner_recipes)):
-            self.launch_learner(idx)
+        if not early:
+            for idx in range(len(self.learner_recipes)):
+                self.launch_learner(idx)
         self._started_at = time.time()
 
     def _write_config(self) -> None:
@@ -462,7 +513,7 @@ class DriverSession:
             f"slice_{idx}", self.config.controller_host or "localhost",
             ["-m", "metisfl_tpu_torch.aggregation.slice",
              "--config", self._config_path, "--index", str(idx)],
-            ship=[self._config_path])
+            env=self._chaos_env("slice", idx), ship=[self._config_path])
 
     def _wait_slices_healthy(self, retries: int = 60,
                              sleep_s: float = 0.5) -> None:
@@ -545,11 +596,12 @@ class DriverSession:
                 cloudpickle.dump(self.learner_recipes[idx], f)
         return path
 
-    def launch_learner(self, idx: int) -> _Proc:
+    def launch_learner(self, idx: int, wait_for_model: bool = False) -> _Proc:
         """(Re)launch learner ``idx``. Its port comes from its endpoint or
         is ephemeral (the learner reports it on join); its credentials
         persist in the workdir, so a relaunched learner rejoins as
-        itself."""
+        itself. ``wait_for_model``: it joins only once the controller
+        holds a community model."""
         ep = self._endpoint(idx)
         name = f"learner_{idx}"
         recipe_path = self._recipe_path(idx)
@@ -569,8 +621,11 @@ class DriverSession:
                      "--ssl-key", self.config.ssl.key_path]
         if self.config.secure.enabled:
             args += ["--secure-config", self._secure_path(idx)]
+        if wait_for_model:
+            args.append("--wait-for-model")
         return self._launch(name, ep.hostname or "localhost", args,
-                            self.learner_env,
+                            {**self.learner_env,
+                             **self._chaos_env("learner", idx)},
                             ship=[recipe_path, *self._secure_files(idx)])
 
     def _wait_healthy(self, deadline: float, sleep_s: float) -> None:

@@ -13,11 +13,16 @@ expects, and a recipe whose engine is elsewhere is refused rather than
 run there.
 
 The learner binds ``--port`` (0 = ephemeral), prints
-``METISFL_TPU_LEARNER_READY port=<port>``, joins the controller and
+``METISFL_TPU_LEARNER_READY port=<port>``, (with ``--wait-for-model``,
+once the controller holds a community model) joins the controller and
 prints ``METISFL_TPU_LEARNER_JOINED id=<id> rejoined=<bool>``; it serves
 until a ShutDown RPC, SIGTERM or SIGINT, and leaves the federation on
 the way out. Its identity (learner id and token) persists in
 ``--credentials-dir``, so a restarted learner rejoins as itself.
+
+A ``METISFL_TPU_CHAOS`` spec in the environment arms the chaos injector
+(metisfl_tpu_torch/chaos) at start; its ``slow`` rules stretch each train
+task.
 
 Not ported: the controller's standby endpoint (ROADMAP.md Queue 1 item
 3f), multi-host learners (9), and the telemetry and post-mortem
@@ -33,10 +38,12 @@ import os
 import signal
 import socket
 import sys
+import time
 
 import cloudpickle
 import torch
 
+from metisfl_tpu_torch import chaos
 from metisfl_tpu_torch.comm.codec import loads as codec_loads
 from metisfl_tpu_torch.comm.ssl import SSLConfig
 from metisfl_tpu_torch.config import CommConfig, SecureAggConfig
@@ -71,6 +78,23 @@ def save_credentials(creds_dir: str, learner_id: str,
     os.replace(tmp, path)
 
 
+def wait_for_model(controller, timeout_s: float = 600.0,
+                   poll_s: float = 0.2) -> None:
+    """Block until the controller answers with a community model (a join
+    before the seed model would get no task), at most ``timeout_s``."""
+    deadline = time.time() + timeout_s
+    while time.time() < deadline:
+        try:
+            if controller.describe_federation(timeout=10.0).get(
+                    "community_model_bytes"):
+                return
+        except Exception:  # noqa: BLE001 - not serving yet: poll again
+            pass
+        time.sleep(poll_s)
+    logger.warning("no community model after %.0f s; joining anyway",
+                   timeout_s)
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser("metisfl_tpu_torch.learner")
     parser.add_argument("--controller-host", default="localhost")
@@ -95,6 +119,10 @@ def main(argv=None) -> int:
     parser.add_argument("--ssl-cert", default="",
                         help="federation TLS cert (enables TLS)")
     parser.add_argument("--ssl-key", default="")
+    parser.add_argument("--wait-for-model", action="store_true",
+                        help="join only once the controller holds a "
+                             "community model (a learner booted beside "
+                             "its controller)")
     parser.add_argument("--rpc-deadline-s", type=float, default=None,
                         help="default RPC deadline toward the controller "
                              "(<= 0 = unbounded; omitted = the transport's "
@@ -107,6 +135,7 @@ def main(argv=None) -> int:
     logging.basicConfig(
         level=logging.INFO,
         format="%(asctime)s %(name)s %(levelname)s %(message)s")
+    chaos.install_from_env()
 
     with open(args.recipe, "rb") as f:
         recipe = cloudpickle.load(f)
@@ -155,6 +184,8 @@ def main(argv=None) -> int:
     port = server.start()
     print(f"METISFL_TPU_LEARNER_READY port={port}", flush=True)
     try:
+        if args.wait_for_model:
+            wait_for_model(controller)
         reply = learner.join_federation(previous_id=previous_id,
                                         auth_token=auth_token)
         if args.credentials_dir:

@@ -49,6 +49,7 @@ from typing import Dict, Optional, Protocol
 import numpy as np
 import torch
 
+from metisfl_tpu_torch import chaos as _chaos
 from metisfl_tpu_torch.comm.messages import (
     EvalResult,
     EvalTask,
@@ -458,9 +459,19 @@ class Learner:
                 # the federation stopped running scaffold: a stale variate
                 # must not keep correcting gradients
                 self._scaffold_ci = None
+            t_train = time.perf_counter()
             out = self.model_ops.train(self.datasets["train"], params,
                                        cancel_event=self._cancel,
                                        grad_offset=grad_offset)
+            # the chaos ``slow`` fault: stretch this task's wall-clock by
+            # the armed factor (a slow survivor, which only deadlines and
+            # quorum barriers defend against); one attribute read when off
+            injector = _chaos.get()
+            if injector is not None:
+                slow = injector.train_slowdown()
+                if slow > 1.0:
+                    time.sleep(min(300.0, (time.perf_counter() - t_train)
+                                   * (slow - 1.0)))
             # training moved the local tensors (e.g. normalization
             # statistics): refresh the copies evals and later merges read
             with self._task_lock:

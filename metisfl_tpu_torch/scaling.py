@@ -30,6 +30,35 @@ def train_dataset_size_scaler(metadata: Metadata) -> Dict[str, float]:
     return {lid: s / total for lid, s in sizes.items()}
 
 
+def staleness_factor(staleness: float, decay: float) -> float:
+    """The polynomial staleness damping kernel: ``(1 + s)^-decay``
+    (FedAsync / FedBuff staleness-aware scaling). ``staleness`` is the
+    dispatch-version lag: how many rounds the community model advanced
+    between the task's dispatch and its uplink landing (0 under a
+    synchronous barrier). One definition shared by the batch path
+    (:func:`apply_staleness_decay`) and the streaming fold."""
+    if decay <= 0.0 or staleness <= 0.0:
+        return 1.0
+    return (1.0 + float(staleness)) ** -float(decay)
+
+
+def apply_staleness_decay(scales: Dict[str, float], metadata: Metadata,
+                          decay: float) -> Dict[str, float]:
+    """Down-weight stale contributions: scale *= (1 + staleness)^-decay,
+    renormalized. ``metadata[lid]["staleness"]`` is how many rounds behind
+    the current community model a learner's latest contribution was
+    computed (0 for everyone under a synchronous barrier: a no-op)."""
+    damped = {
+        lid: w * staleness_factor(
+            float(metadata[lid].get("staleness", 0.0)), decay)
+        for lid, w in scales.items()
+    }
+    total = sum(damped.values())
+    if total <= 0.0:
+        return scales
+    return {lid: w / total for lid, w in damped.items()}
+
+
 def batches_scaler(metadata: Metadata) -> Dict[str, float]:
     """Weights proportional to completed batches in the last task."""
     batches = {lid: float(m.get("completed_batches", 0)) for lid, m in metadata.items()}

@@ -254,3 +254,117 @@ def test_a_learner_on_a_remote_endpoint_runs_through_ssh(tmp_path,
               and "metisfl_tpu_torch.learner" in line]
     assert scp and launch and scp[0] < launch[0]
     assert not any("learner_0" in line for line in lines)
+
+
+def _slow_recipe(x, y, test, seed, gate):
+    """A learner whose training waits for ``gate`` and then takes 0.3 s
+    more, so a failed dispatch's retry (0.05 s backoff) lands before any
+    uplink of its round."""
+    inner = _recipe(x, y, test, seed, gate)
+
+    def recipe():
+        import time
+
+        built = inner()
+        train = built[0].train
+
+        def slow(*args, **kwargs):
+            time.sleep(0.3)
+            return train(*args, **kwargs)
+
+        built[0].train = slow
+        return built
+
+    return recipe
+
+
+def test_driver_arms_chaos_by_process_and_the_retry_ladder_replaces(
+        tmp_path):
+    """Four learner processes, participation 0.5 (two dispatched a round
+after round 0, which the joins dispatch to all four). Chaos by
+    ``process``: the controller's fifth RunTask (round 1's first
+    dispatch; the four before it are the joins') is dropped on its client
+    side, and learner 2's tasks run 3x slower. The failed dispatch counts
+    against its learner (max_dispatch_failures 1) and quarantines it
+    (quarantine_score 0.25); the retry dispatches a replacement in its
+    round; it sits out every later round; every process exits 0."""
+    import cloudpickle
+
+    from metisfl_tpu_torch.config import AggregationConfig, SchedulingConfig
+    from metisfl_tpu_torch.config.federation import ChaosConfig
+    from metisfl_tpu_torch.models import TorchModelOps
+    from metisfl_tpu_torch.models.zoo import MLP
+
+    rng = np.random.default_rng(3)
+    w = rng.standard_normal((6, 3)).astype(np.float32)
+
+    def draw(n):
+        x = rng.standard_normal((n, 6)).astype(np.float32)
+        return x, np.argmax(x @ w, axis=-1).astype(np.int32)
+
+    shards, test = [draw(40) for _ in range(4)], draw(40)
+    config = FederationConfig(
+        controller_port=0,
+        aggregation=AggregationConfig(scaler="participants",
+                                      participation_ratio=0.5),
+        scheduling=SchedulingConfig(dispatch_retries=1,
+                                    retry_backoff_s=0.05,
+                                    quarantine_score=0.25,
+                                    quarantine_s=120.0),
+        max_dispatch_failures=1,
+        chaos=ChaosConfig(enabled=True, seed=5, rules=[
+            {"fault": "drop", "side": "client", "method": "RunTask",
+             "process": "controller", "after_calls": 4, "max_fires": 1},
+            {"fault": "slow", "factor": 3.0, "process": "learner_2"}]),
+        train=TrainParams(batch_size=16, local_steps=2, learning_rate=0.1),
+        eval=EvalConfig(batch_size=64, datasets=["test"]),
+        termination=TerminationConfig(federation_rounds=4,
+                                      execution_cutoff_mins=2.0),
+        learners=[LearnerEndpoint() for _ in shards])
+    template = TorchModelOps(MLP(6, (16,), 3), rng_seed=0,
+                             device="cpu").get_variables()
+    gate = str(tmp_path / "gate")
+    session = DriverSession(config, template,
+                            [_slow_recipe(x, y, test, i, gate)
+                             for i, (x, y) in enumerate(shards)],
+                            workdir=str(tmp_path / "run"), device="cpu")
+    module = sys.modules[__name__]
+    cloudpickle.register_pickle_by_value(module)
+    try:
+        session.initialize_federation(health_retries=120)
+        deadline = time.time() + 60
+        while len(session._client.list_learners(timeout=10.0)) < 4:
+            assert time.time() < deadline, "the learners never all joined"
+            time.sleep(0.1)
+        open(gate, "w").close()
+        stats = session.monitor_federation(poll_every_s=0.2,
+                                           eval_drain_timeout_s=30.0)
+    finally:
+        cloudpickle.unregister_pickle_by_value(module)
+        session.shutdown_federation(timeout_s=60.0)
+    assert session.process_exit_codes() == {
+        "controller": 0, "learner_0": 0, "learner_1": 0, "learner_2": 0,
+        "learner_3": 0}
+    run = tmp_path / "run"
+    ctrl_log = open(run / "controller.log").read()
+    retries = [line for line in ctrl_log.splitlines()
+               if "dispatch retry 1: replacing unreachable" in line]
+    assert len(retries) == 1, ctrl_log[-3000:]
+    failed, replacement = retries[0].split("unreachable ")[1].split(
+        " with ")
+    assert "quarantined" in ctrl_log and failed in ctrl_log
+    metas = stats["round_metadata"]
+    assert stats["global_iteration"] >= 4
+    # round 1: two dispatched, one of them failed, one replacement
+    assert set(metas[1]["train_submitted_at"]) == {
+        failed, replacement, *metas[1]["selected_learners"]}
+    assert len(metas[1]["train_submitted_at"]) == 3
+    assert failed not in metas[1]["selected_learners"]
+    assert replacement in metas[1]["selected_learners"]
+    for meta in metas[2:4]:
+        assert failed not in meta["train_submitted_at"]
+        assert len(meta["selected_learners"]) == 2
+    # chaos reached learner 2 only: its log shows the slow fault
+    assert "slowing train task by 3.0x" in open(run / "learner_2.log").read()
+    for idx in (0, 1, 3):
+        assert "chaos" not in open(run / f"learner_{idx}.log").read()

@@ -594,11 +594,6 @@ def test_completion_with_a_bad_token_is_rejected():
 # -- unsupported configurations ---------------------------------------------
 
 UNSUPPORTED = {
-    "protocol_semi_synchronous": lambda: FederationConfig(
-        protocol="semi_synchronous"),
-    "protocol_asynchronous": lambda: FederationConfig(protocol="asynchronous"),
-    "protocol_buffered": lambda: FederationConfig(
-        protocol="asynchronous_buffered"),
     # the stores are ported; what stays refused around them is the disk
     # store's checkpoints (3f)
     "store_disk": lambda: FederationConfig(
@@ -606,9 +601,6 @@ UNSUPPORTED = {
         checkpoint=CheckpointConfig(dir="ckpt")),
     "checkpoint": lambda: FederationConfig(
         checkpoint=CheckpointConfig(dir="ckpt")),
-    "quorum": lambda: FederationConfig(
-        scheduling=SchedulingConfig(quorum=2)),
-    "deadline": lambda: FederationConfig(round_deadline_secs=5.0),
     # DriverSession watches the cutoffs; the in-process federation cannot
     "cutoff_wall_clock": lambda: InProcessFederation(FederationConfig(
         termination=TerminationConfig(execution_cutoff_mins=5.0))),
@@ -625,6 +617,15 @@ def test_unsupported_config_raises(name):
 
 # ported since the configurations above were refused
 SUPPORTED = {
+    # round control: every protocol, quorum barriers and deadlines
+    "protocol_semi_synchronous": lambda: FederationConfig(
+        protocol="semi_synchronous"),
+    "protocol_asynchronous": lambda: FederationConfig(protocol="asynchronous"),
+    "protocol_buffered": lambda: FederationConfig(
+        protocol="asynchronous_buffered"),
+    "quorum": lambda: FederationConfig(
+        scheduling=SchedulingConfig(quorum=2)),
+    "deadline": lambda: FederationConfig(round_deadline_secs=5.0),
     "rule_fedstride": lambda: FederationConfig(
         aggregation=AggregationConfig(rule="fedstride")),
     "rule_fedadam": lambda: FederationConfig(

@@ -62,7 +62,10 @@ def test_every_module_imports_without_jax():
             "metisfl_tpu_torch.aggregation.distributed",
             "metisfl_tpu_torch.tensor.quantize",
             "metisfl_tpu_torch.tensor.sparse",
-            "metisfl_tpu_torch.secure.dp"} <= set(names)
+            "metisfl_tpu_torch.secure.dp",
+            "metisfl_tpu_torch.chaos",
+            "metisfl_tpu_torch.chaos.injector",
+            "metisfl_tpu_torch.driver.crossdevice"} <= set(names)
     code = (
         "import importlib, json, sys\n"
         f"for name in {names!r}:\n"
