@@ -80,19 +80,22 @@ It drives the port only (it imports no jax and nothing of the JAX package):
    ``--profile-round`` one more LlamaLite round runs under the profiler;
 7. multiprocess: the same two federations through ``DriverSession``, a
    controller process and one process per learner on the card, over
-   localhost gRPC (the LlamaLite blobs, 755 MB, on the chunked path both
-   ways). The learner recipes record each round's uplinks, the community
-   model each learner received, stage times, peak device memory and
-   K1-K3 launches, and write them at process exit; each community model
-   is held bit for bit against a re-fold of its round's uplinks, K1-K3
-   must launch 72/48/48 times per LlamaLite round across the learner
-   processes, the CNN's accuracy must rise, and every process must exit 0
-   after ``shutdown_federation``. Where grpc or cloudpickle is not
+   localhost gRPC; the LlamaLite one at depth ``CUT_DEPTH`` with 2
+   learners, the hot standby and the registry armed (its 390 MB blobs on
+   the chunked path both ways; it is the failover phase's control, and
+   stays failover-silent). The learner recipes record each round's
+   uplinks, the community model each learner received, stage times, peak
+   device memory and K1-K3 launches, and write them at process exit; each
+   community model is held bit for bit against a re-fold of its round's
+   uplinks, K1-K3 must launch 12/8/8 times per LlamaLite round across the
+   learner processes, the CNN's accuracy must rise, and every process
+   must exit 0 after ``shutdown_federation``. Where grpc or cloudpickle is not
    installed it prints ``multiprocess: not run: ...`` and runs the rounds
    through the port's gRPC services' handlers, called directly, instead;
-8. store: (a) the LlamaLite round in process on ``model_store.store:
-   cached_disk`` (a 256 MB cache, below one 755 MB model, so select reads
-   the mmapped file) with 3 ingest writers and a root in a temporary
+8. store: (a) the LlamaLite round (depth ``CUT_DEPTH``) in process on
+   ``model_store.store: cached_disk`` (a 256 MB cache, below one 390 MB
+   model, so select reads the mmapped file) with 3 ingest writers and a
+   root in a temporary
    directory: the host fold must be the native one (``fold_backend()``),
    the community bit-identical to a re-fold of the uplinks and within
    1e-6 x max|w| of a float64 mean, each stored ``.blob`` a v3 blob of its
@@ -122,7 +125,8 @@ It drives the port only (it imports no jax and nothing of the JAX package):
 10. tiers (after 8): the in-process LlamaLite round on the store path,
    under streaming, under the tree tier at branch 2 and under masking with
    streaming; the CNN with processes under masking (a learner leaving
-   mid-round, its masks recovered) and under CKKS. The LlamaLite rounds
+   mid-round, its masks recovered) and, at the same time, under CKKS. The
+   LlamaLite rounds
    of 9 and 10 run at full width and depth ``CUT_DEPTH`` (2), for the
    script's time;
 11. uplinks: in-process LlamaLite rounds at full width (3 learners,
@@ -163,14 +167,31 @@ It drives the port only (it imports no jax and nothing of the JAX package):
    failed learner's churn score and quarantine, every process exiting 0;
    (f) ``driver/crossdevice.py``: 512 virtual clients under churn at
    quorum 12 against the no-churn control, and ``run_slice_smoke`` with a
-   slice aggregator killed mid-round.
+   slice aggregator killed mid-round;
+13. failover (controller checkpoints and ``--resume``, the hot standby,
+   the driver's supervision, the registry): one LlamaLite Adam step
+   (full width, depth ``CUT_DEPTH``) trained twice from one blob ships
+   the same uplink bytes; (a) in process, 2 LlamaLite learners, 3 rounds
+   with checkpoints and the registry on, each evaluated: the controller
+   shut down after round 1 and replaced from ``restore_checkpoint()``,
+   the learners re-attaching on its new epoch, ``resume_round()``;
+   rounds 2-3's versions bit for bit the undisturbed control's, the
+   lineage the control's, ids and tokens kept; a ``ServingGateway``
+   syncs the stable version from the restored controller and answers 8
+   Predicts through K1 within 0.1 of the dense path; (b) the multiprocess
+   phase's LlamaLite federation with the controller killed by the chaos
+   injector at its first uplink: the standby promotes once, the
+   round-pinned versions are the multiprocess phase's (the control's)
+   bits; (c) the CNN (no dropout) with a process per learner, the same
+   kill without a standby: the driver relaunches the controller with
+   ``--resume`` once, the versions are a control run's bits.
 
 It prints a ``{"federation": {...}}`` line (round walls and their split,
 ms per step, blob bytes, launches), a ``{"multiprocess": {...}}`` line
 (the same with a process per learner, and each process's peak device
 memory), ``{"wide_heads": ...}``, ``{"store": ...}``, ``{"rules": ...}``,
-``{"tiers_secure": ...}``, ``{"uplinks": ...}`` and ``{"rounds": ...}``
-lines, a ``{"setup": ...}`` line (the script's seconds outside the
+``{"tiers_secure": ...}``, ``{"uplinks": ...}``, ``{"rounds": ...}`` and
+``{"failover": ...}`` lines, a ``{"setup": ...}`` line (the script's seconds outside the
 rounds: set-up per in-process federation, the seeds, the fold checks,
 each process federation's boot from its logs, the profiles), a
 ``{"kernels": [...]}`` line (each kernel's launches by path: K1-K3 at
@@ -228,8 +249,12 @@ CNN_ROUNDS, CNN_EXAMPLES, CNN_TEST, CNN_BATCH, CNN_STEPS = 3, 600, 600, 32, 20
 CNN_NOISE = 1.0
 FED_ROUNDS, FED_STEPS, FED_ROWS, FED_EVAL_ROWS = 1, 2, 16, 8
 # multiprocess phase: the LlamaLite federation above with a process per
-# learner, 2 rounds (in process it runs 1, for the script's time)
+# learner, 2 rounds (in process it runs 1, for the script's time), at depth
+# CUT_DEPTH with 2 learners and the hot standby and the registry armed: it
+# is the control the failover phase's kill run (b) is held to, bit for bit
+# (two learners keep the fold's bits free of the join order)
 MP_ROUNDS = 2
+MP_LLAMA_LEARNERS = 2
 # the rules and tiers phases and parts of the uplinks phase run their
 # LlamaLite rounds at full width but this depth (a 390 MB blob against the 755 MB
 # one), for the script's time
@@ -1896,7 +1921,7 @@ MP_TIMEOUT_S = 600.0
 
 
 def mp_recipe(kind, x, y, test_x, test_y, seed, device, out_dir, gate,
-              hold=""):
+              hold="", depth=DEPTH):
     """A learner recipe for ``DriverSession``: the engine on ``device``,
     wrapped to record what the phase checks without work on the timed
     path. It keeps a reference to each community model a train task
@@ -1905,7 +1930,9 @@ def mp_recipe(kind, x, y, test_x, test_y, seed, device, out_dir, gate,
     and at process exit writes them, the process's peak device memory and
     its K1-K3 launches into ``out_dir``. Training waits for ``gate``, so
     that round 0's cohort is every learner, and with ``hold`` every task
-    after the first waits for that file too."""
+    after the first waits for that file too. ``kind``: ``cnn``, ``cnn0``
+    (the CNN without dropout: a round re-run after a failover draws the
+    engine's next dropout stream) or ``llama`` (at ``depth``)."""
 
     def recipe():
         import atexit
@@ -1931,8 +1958,10 @@ def mp_recipe(kind, x, y, test_x, test_y, seed, device, out_dir, gate,
         torch.backends.cudnn.allow_tf32 = False
         if kind == "cnn":
             module = FashionMnistCNN()
+        elif kind == "cnn0":
+            module = FashionMnistCNN(dropout_rate=0.0)
         else:
-            module = LlamaLite(vocab_size=VOCAB, dim=DIM, depth=DEPTH,
+            module = LlamaLite(vocab_size=VOCAB, dim=DIM, depth=depth,
                                heads=HEADS, kv_heads=KV_HEADS,
                                dtype=torch.bfloat16, use_flash=True)
         ops = TorchModelOps(module, rng_seed=seed, device=device)
@@ -2062,16 +2091,52 @@ def _npz(path):
         return {k: data[k] for k in data.files}
 
 
+class Background:
+    """``fn(*args, **kwargs)`` on a thread of its own: ``result()`` joins
+    it and returns what it returned (or raises what it raised); ``wall_s``
+    is its seconds."""
+
+    def __init__(self, fn, *args, **kwargs):
+        self._box = {}
+        self.wall_s = None
+
+        def run():
+            t = time.perf_counter()
+            try:
+                self._box["result"] = fn(*args, **kwargs)
+            except Exception as exc:  # noqa: BLE001 - raised by result()
+                self._box["error"] = exc
+            self.wall_s = time.perf_counter() - t
+
+        self._thread = threading.Thread(target=run, daemon=True)
+        self._thread.start()
+
+    def result(self):
+        self._thread.join()
+        if "error" in self._box:
+            raise self._box["error"]
+        return self._box["result"]
+
+
 def run_multiprocess(smoke, label, kind, shards, test, train, eval_cfg,
                      rounds, template, model_store=None, before_shutdown=None,
-                     hosts=None):
+                     hosts=None, depth=DEPTH, config_extra=None,
+                     release=None):
     """One DriverSession federation of ``len(shards)`` learner processes
     and a controller process (on ``model_store``, default in memory;
     ``before_shutdown()`` runs after the last round; ``hosts``, one per
-    learner, its endpoint's hostname, default local); returns (statistics,
-    per-learner records, learner ids by index, workdir, the final
-    community blob, walls). With ``hosts`` the walls also hold the
-    endpoints the learners registered."""
+    learner, its endpoint's hostname, default local; ``config_extra``,
+    more FederationConfig fields); returns (statistics, per-learner
+    records, learner ids by index, workdir, the final community blob,
+    walls). With ``release`` (a ``threading.Event``) the federation boots
+    and its learners join, and the rounds start once it is set: a
+    federation booted beside other work. With ``hosts`` the walls also
+    hold the endpoints the learners registered; with the registry on, the sha256 of each round's pinned
+    version (``version_sha256``); under a hot standby whether it promoted
+    (the driver's handoff and the promoted process's own log line) and
+    its promotion seconds; the controller's supervised relaunches."""
+    import hashlib
+
     from metisfl_tpu_torch.config import (
         AggregationConfig,
         FederationConfig,
@@ -2091,7 +2156,7 @@ def run_multiprocess(smoke, label, kind, shards, test, train, eval_cfg,
         out_dir = os.path.join(workdir, f"record_{i}")
         os.makedirs(out_dir)
         recipes.append(mp_recipe(kind, x, y, test[0], test[1], SEED + i,
-                                 DEVICE, out_dir, gate))
+                                 DEVICE, out_dir, gate, depth=depth))
     config = FederationConfig(
         controller_port=0,
         aggregation=AggregationConfig(scaler="train_dataset_size"),
@@ -2099,16 +2164,20 @@ def run_multiprocess(smoke, label, kind, shards, test, train, eval_cfg,
         termination=TerminationConfig(federation_rounds=rounds),
         model_store=model_store or ModelStoreConfig(),
         learners=[LearnerEndpoint(hostname=h)
-                  for h in hosts or ["localhost"] * len(shards)])
+                  for h in hosts or ["localhost"] * len(shards)],
+        **(config_extra or {}))
+    standby = config.controller.standby.enabled
     session = DriverSession(config, template, recipes, workdir=workdir,
                             device=DEVICE)
     client = None
     t0 = time.perf_counter()
     started = time.time()
+    versions = {}
     try:
         session.initialize_federation(
             health_retries=int(MP_TIMEOUT_S / 0.5), health_sleep_s=0.5)
-        client = ControllerClient("localhost", config.controller_port)
+        # the driver's own client (it redials a promoted standby)
+        client = session._client
         deadline = time.time() + MP_TIMEOUT_S
         while len(client.list_learners()) < len(shards):
             session._check_procs_alive()
@@ -2124,23 +2193,37 @@ def run_multiprocess(smoke, label, kind, shards, test, train, eval_cfg,
         ids = {ports[ep["port"]]: ep["learner_id"]
                for ep in client.list_learners()}
         boot_s = time.perf_counter() - t0
+        if release is not None:
+            release.wait(MP_TIMEOUT_S)
         with open(gate, "w"):
             pass
+        gate_at = time.time()
         t1 = time.perf_counter()
         stats = session.monitor_federation(poll_every_s=0.25)
         run_s = time.perf_counter() - t1
         final = client.get_community_model()
         endpoints = client.list_learners()
+        if config.registry.enabled:
+            # round-pinned versions: version k is round k-1's aggregate
+            for version in range(1, rounds + 1):
+                raw = client.get_registered_model(version=version,
+                                                  timeout=60.0)
+                versions[version] = hashlib.sha256(raw or b"").hexdigest()
+                smoke.check(bool(raw), f"{label}: version {version} is "
+                            "registered")
+        promoted = session._standby_promoted
+        promoted_logged = session.standby_promoted_in_log()
         if before_shutdown is not None:
             before_shutdown()
     finally:
-        if client is not None:
-            client.close()
         t2 = time.perf_counter()
         session.shutdown_federation(timeout_s=MP_TIMEOUT_S)
         shutdown_s = time.perf_counter() - t2
     codes = session.process_exit_codes()
-    smoke.check(len(codes) == len(shards) + 1
+    # the warm standby is a process of its own until it takes over, and
+    # then the controller (the killed primary is no longer tracked)
+    expected = len(shards) + 1 + (1 if standby and not promoted else 0)
+    smoke.check(len(codes) == expected
                 and all(c == 0 for c in codes.values()),
                 f"{label}: every process exits 0 after shutdown_federation "
                 f"{codes}")
@@ -2151,9 +2234,22 @@ def run_multiprocess(smoke, label, kind, shards, test, train, eval_cfg,
     smoke.check(all(r["device"].startswith(DEVICE) for r in records),
                 f"{label}: every learner's engine ran on {DEVICE}: "
                 f"{[r['device'] for r in records]}")
-    walls = {"boot_s": boot_s, "rounds_s": run_s, "shutdown_s": shutdown_s}
+    walls = {"boot_s": boot_s, "rounds_s": run_s, "shutdown_s": shutdown_s,
+             "restarts": session._controller_restarts, "gate_at": gate_at}
     if hosts:
         walls["endpoints"] = endpoints
+    if versions:
+        walls["version_sha256"] = versions
+    if standby:
+        walls.update(promoted=promoted, promoted_logged=promoted_logged)
+        log = os.path.join(workdir, "standby.log")
+        if os.path.exists(log):
+            with open(log) as f:
+                text = f.read()
+            found = re.search(r"promoted in ([0-9.]+)s", text)
+            walls["promote_s"] = float(found.group(1)) if found else None
+            walls["standby_promotions"] = text.count(
+                "METISFL_TPU_CONTROLLER_PROMOTED")
     return stats, records, ids, workdir, final, walls
 
 
@@ -2197,7 +2293,7 @@ def check_mp_folds(smoke, label, stats, ids, workdir, sizes, final, rounds):
         del want, gots
 
 
-def mp_split(stats, records, ids, rounds):
+def mp_split(stats, records, ids, rounds, gate_at=0.0):
     """Per round: the wall and its stages. Learner stages come from the
     learner's own clock and the controller's round metadata (one host, one
     clock): downlink = dispatch to the start of the blob's parse
@@ -2206,7 +2302,9 @@ def mp_split(stats, records, ids, rounds):
     copy-out included), blob pack, and uplink = the end of the pack to
     the controller's ingest (result envelope encode, send, decode).
     Controller stages: ingest (blob parse and store insert) per uplink,
-    fold, and the community blob pack."""
+    fold, and the community blob pack. A round's wall starts no earlier
+    than ``gate_at``, when training was let go (round 0's tasks go out as
+    the learners join)."""
     out = []
     for r in range(rounds):
         meta = stats["round_metadata"][r]
@@ -2231,7 +2329,8 @@ def mp_split(stats, records, ids, rounds):
         pack = meta["community_pack_duration_ms"] / 1e3
         out.append({
             "round": r,
-            "wall_s": meta["completed_at"] - meta["started_at"],
+            "wall_s": meta["completed_at"] - max(meta["started_at"],
+                                                 gate_at),
             "learners": learners,
             "controller_s": {
                 "ingest_per_uplink": float(np.mean(list(
@@ -2244,12 +2343,59 @@ def mp_split(stats, records, ids, rounds):
     return out
 
 
+def mp_llama_run(smoke, label, kill, release=None):
+    """The multiprocess phase's LlamaLite federation: ``MP_LLAMA_LEARNERS``
+    learner processes at full width and depth ``CUT_DEPTH``, ``MP_ROUNDS``
+    rounds, the hot standby and the registry armed; with ``kill`` the
+    chaos injector kills the controller at its first MarkTaskCompleted
+    (mid-round, uplinks in the air). Returns ``run_multiprocess``'s."""
+    from metisfl_tpu_torch.comm import TrainParams
+    from metisfl_tpu_torch.config import (
+        ChaosConfig,
+        CommConfig,
+        ControllerConfig,
+        ControllerStandbyConfig,
+        EvalConfig,
+        FailoverConfig,
+        RegistryConfig,
+    )
+
+    variables, _ = llama_seed(CUT_DEPTH)
+    tokens = np.random.default_rng(SEED + 5).integers(
+        0, VOCAB, (FED_LEARNERS * FED_ROWS + FED_EVAL_ROWS, TRAIN_LEN + 1)
+    ).astype(np.int32)
+    shards = [(tokens[i * FED_ROWS:(i + 1) * FED_ROWS, :-1],
+               tokens[i * FED_ROWS:(i + 1) * FED_ROWS, 1:])
+              for i in range(MP_LLAMA_LEARNERS)]
+    test = (tokens[-FED_EVAL_ROWS:, :-1], tokens[-FED_EVAL_ROWS:, 1:])
+    return run_multiprocess(
+        smoke, label, "llama", shards, test,
+        TrainParams(batch_size=TRAIN_BATCH, local_steps=FED_STEPS,
+                    optimizer="adam", learning_rate=1e-4),
+        EvalConfig(batch_size=TRAIN_BATCH, datasets=["test"],
+                   metrics=["loss", "accuracy"]),
+        MP_ROUNDS, variables, depth=CUT_DEPTH, config_extra=dict(
+            comm=CommConfig(**FO_COMM),
+            # the standby takes over a dead controller; no relaunch, so no
+            # per-round checkpoint (each holds the 390 MB community model
+            # and the registry's heads): the WAL's snapshots suffice
+            failover=FailoverConfig(supervise_controller=False),
+            registry=RegistryConfig(enabled=True, retention=16),
+            controller=ControllerConfig(standby=ControllerStandbyConfig(
+                enabled=True, **STANDBY)),
+            chaos=ChaosConfig(enabled=kill, seed=SEED,
+                              rules=[KILL_RULE] if kill else [])),
+        release=release)
+
+
 def multiprocess_phase(smoke, gpu):
     """(a) the CNN and (b) the full-width LlamaLite federation of the
-    federation phase, each with one controller process and one process per
-    learner on ``DEVICE``, over localhost gRPC through DriverSession. The
-    blobs of (b) (755 MB) travel the chunked path both ways. Without grpc
-    or cloudpickle the phase cannot run; the wire phase takes its place."""
+    federation phase (at depth ``CUT_DEPTH`` with 2 learners, the hot
+    standby and the registry armed: the failover phase's control), each
+    with one controller process and one process per learner on
+    ``DEVICE``, over localhost gRPC through DriverSession. The blobs of (b)
+    (390 MB) travel the chunked path both ways. Without grpc or
+    cloudpickle the phase cannot run; the wire phase takes its place."""
     for name in ("grpc", "cloudpickle"):
         try:
             __import__(name)
@@ -2265,6 +2411,10 @@ def multiprocess_phase(smoke, gpu):
     from metisfl_tpu_torch.models.zoo import FashionMnistCNN, LlamaLite
 
     out = {"learners": FED_LEARNERS}
+    # (b) boots while (a) runs: its processes import, reach the card and
+    # join, and its rounds start once (a) is done
+    release = threading.Event()
+    llama_run = Background(mp_llama_run, smoke, "mp llama", False, release)
     # (a) FashionMNIST CNN, the federation phase's data and settings
     x, y = synthetic_image_classification(
         FED_LEARNERS * CNN_EXAMPLES + CNN_TEST, noise=CNN_NOISE, seed=SEED)
@@ -2274,13 +2424,16 @@ def multiprocess_phase(smoke, gpu):
     test = (x[-CNN_TEST:], y[-CNN_TEST:])
     template = TorchModelOps(FashionMnistCNN(), rng_seed=SEED,
                              device="cpu").get_variables()
-    stats, records, ids, workdir, final, walls = run_multiprocess(
-        smoke, "mp cnn", "cnn", shards, test,
-        TrainParams(batch_size=CNN_BATCH, local_steps=CNN_STEPS,
-                    optimizer="sgd", learning_rate=0.05),
-        EvalConfig(batch_size=256, datasets=["test"],
-                   metrics=["loss", "accuracy"]),
-        CNN_ROUNDS, template)
+    try:
+        stats, records, ids, workdir, final, walls = run_multiprocess(
+            smoke, "mp cnn", "cnn", shards, test,
+            TrainParams(batch_size=CNN_BATCH, local_steps=CNN_STEPS,
+                        optimizer="sgd", learning_rate=0.05),
+            EvalConfig(batch_size=256, datasets=["test"],
+                       metrics=["loss", "accuracy"]),
+            CNN_ROUNDS, template)
+    finally:
+        release.set()
     check_mp_folds(smoke, "mp cnn", stats, ids, workdir,
                    [len(s[0]) for s in shards], final, CNN_ROUNDS)
     acc = _accuracies(stats)
@@ -2297,30 +2450,20 @@ def multiprocess_phase(smoke, gpu):
     print(f"mp cnn: round walls "
           f"{[round(s['wall_s'], 3) for s in split]} s", flush=True)
 
-    # (b) full-width LlamaLite, the federation phase's data and settings
-    variables, _ = llama_seed(DEPTH)
-    tokens = np.random.default_rng(SEED + 5).integers(
-        0, VOCAB, (FED_LEARNERS * FED_ROWS + FED_EVAL_ROWS, TRAIN_LEN + 1)
-    ).astype(np.int32)
-    shards = [(tokens[i * FED_ROWS:(i + 1) * FED_ROWS, :-1],
-               tokens[i * FED_ROWS:(i + 1) * FED_ROWS, 1:])
-              for i in range(FED_LEARNERS)]
-    test = (tokens[-FED_EVAL_ROWS:, :-1], tokens[-FED_EVAL_ROWS:, 1:])
-    stats, records, ids, workdir, final, walls = run_multiprocess(
-        smoke, "mp llama", "llama", shards, test,
-        TrainParams(batch_size=TRAIN_BATCH, local_steps=FED_STEPS,
-                    optimizer="adam", learning_rate=1e-4),
-        EvalConfig(batch_size=TRAIN_BATCH, datasets=["test"],
-                   metrics=["loss", "accuracy"]),
-        MP_ROUNDS, variables)
-    del variables
+    # (b) full-width LlamaLite at depth CUT_DEPTH, the federation phase's
+    # data and settings, with the hot standby and the registry armed
+    stats, records, ids, workdir, final, walls = llama_run.result()
+    smoke.check(not walls["promoted"] and not walls["standby_promotions"],
+                "mp llama: failover-silent (the standby never promoted, and "
+                "exits 0 at shutdown)")
     check_mp_folds(smoke, "mp llama", stats, ids, workdir,
-                   [len(s[0]) for s in shards], final, MP_ROUNDS)
+                   [FED_ROWS] * MP_LLAMA_LEARNERS, final, MP_ROUNDS)
     launches = {name: sum(r["launches"][name] for r in records)
                 for name in ("flash_attention_fwd", "flash_bwd_dq",
                              "flash_bwd_dkv")}
-    train_launches = FED_LEARNERS * FED_STEPS * DEPTH
-    eval_launches = FED_LEARNERS * -(-FED_EVAL_ROWS // TRAIN_BATCH) * DEPTH
+    train_launches = MP_LLAMA_LEARNERS * FED_STEPS * CUT_DEPTH
+    eval_launches = (MP_LLAMA_LEARNERS * -(-FED_EVAL_ROWS // TRAIN_BATCH)
+                     * CUT_DEPTH)
     k1, k2, k3 = (launches[n] / MP_ROUNDS for n in launches)
     smoke.check(k2 == k3 == train_launches
                 and k1 == train_launches + eval_launches,
@@ -2330,13 +2473,15 @@ def multiprocess_phase(smoke, gpu):
                 f"{eval_launches} (evaluation)")
     losses = [v["loss"] for m in stats["round_metadata"][:MP_ROUNDS]
               for v in m["train_metrics"].values()]
-    smoke.check(len(losses) == FED_LEARNERS * MP_ROUNDS
+    smoke.check(len(losses) == MP_LLAMA_LEARNERS * MP_ROUNDS
                 and all(np.isfinite(losses)),
                 f"mp llama: train losses {[round(v, 4) for v in losses]} "
                 "finite")
-    split = mp_split(stats, records, ids, MP_ROUNDS)
+    # it was released after the CNN's federation: its round 0 starts then
+    split = mp_split(stats, records, ids, MP_ROUNDS, walls["gate_at"])
     out["llama"] = {
-        "rounds": MP_ROUNDS, "steps": FED_STEPS,
+        "rounds": MP_ROUNDS, "steps": FED_STEPS, "depth": CUT_DEPTH,
+        "learners": MP_LLAMA_LEARNERS,
         "round_wall_s": [s["wall_s"] for s in split], "split": split,
         **walls, "blob_bytes": len(final),
         "launches": {"flash_fwd": launches["flash_attention_fwd"],
@@ -2567,9 +2712,9 @@ def time_folds(uplinks, scales):
 
 
 def store_phase(smoke, gpu):
-    """(a) the full-width LlamaLite federation in process on a cached disk
-    store with parallel ingest, and the native fold; (b) the CNN with a
-    process per learner on a remote store."""
+    """(a) the full-width LlamaLite federation (depth ``CUT_DEPTH``) in
+    process on a cached disk store with parallel ingest, and the native
+    fold; (b) the CNN with a process per learner on a remote store."""
     import tempfile
 
     import torch
@@ -2590,11 +2735,11 @@ def store_phase(smoke, gpu):
     from metisfl_tpu_torch.tensor import ModelBlob
     from metisfl_tpu_torch.tensor.pytree import read_named_arrays, to_numpy
 
-    out = {}
+    out = {"depth": CUT_DEPTH}
     # (a) LlamaLite, 3 learners x 1 round of 2 Adam steps
-    llama = dict(vocab_size=VOCAB, dim=DIM, depth=DEPTH, heads=HEADS,
+    llama = dict(vocab_size=VOCAB, dim=DIM, depth=CUT_DEPTH, heads=HEADS,
                  kv_heads=KV_HEADS, dtype=torch.bfloat16)
-    variables, seed_blob = llama_seed(DEPTH)
+    variables, seed_blob = llama_seed(CUT_DEPTH)
     tokens = np.random.default_rng(SEED + 5).integers(
         0, VOCAB, (FED_LEARNERS * FED_ROWS + FED_EVAL_ROWS, TRAIN_LEN + 1)
     ).astype(np.int32)
@@ -2644,10 +2789,12 @@ def store_phase(smoke, gpu):
                     and fed.controller._ingest.errors()[0] == 0,
                     f"store llama: each of the {len(writes)} uplinks was "
                     "written by the ingest pool, with no error")
-        smoke.check(store.cache_misses >= FED_LEARNERS
+        smoke.check(len(seed_blob) > STORE_CACHE_MB << 20
+                    and store.cache_misses >= FED_LEARNERS
                     and store._cached_total == 0,
-                    f"store llama: select read every 755 MB model from "
-                    f"its mmapped file ({store.cache_misses} cache misses; "
+                    f"store llama: select read every {len(seed_blob)}-byte "
+                    f"model from its mmapped file ({store.cache_misses} "
+                    f"cache misses; "
                     f"{store._cached_total} bytes cached of a "
                     f"{STORE_CACHE_MB} MB budget)")
         worst = check_folds(smoke, "store llama", probe, stats, 1,
@@ -3628,8 +3775,11 @@ def tiers_secure_phase(smoke, gpu):
             smoke.failures.append(f"tiers processes: {name} missing")
             out["gpu"] = gpu
             return out
+    # the two federations at once: each holds its own gate and hold files,
+    # and their processes boot side by side
+    ckks = Background(secure_processes, smoke, "ckks")
     out["masking_processes"] = secure_processes(smoke, "masking")
-    out["ckks_processes"] = secure_processes(smoke, "ckks")
+    out["ckks_processes"] = ckks.result()
     out["gpu"] = gpu
     print(json.dumps({"tiers_secure": out}), flush=True)
     return out
@@ -3792,7 +3942,8 @@ def secure_processes(smoke, scheme):
            "uplink_bytes": [m["uplink_bytes"] for m in metas]}
     print(f"{label}: round walls {[round(w, 3) for w in out['round_wall_s']]}"
           f" s", flush=True)
-    shutil.rmtree(MP_DIR, ignore_errors=True)
+    # its own directory only: the other scheme's federation may still run
+    shutil.rmtree(workdir, ignore_errors=True)
     return out
 
 
@@ -4970,6 +5121,402 @@ def rounds_phase(smoke, gpu):
 
 
 
+# -- failover: checkpoints and --resume, the hot standby, the driver's
+# supervised relaunch, and the registry's stable version served
+
+FAILOVER_DIR = os.path.join(REPO, "build", "chip_smoke_failover")
+# (a) in process: 2 LlamaLite learners, 3 rounds, the controller replaced
+# from its checkpoint after round 1
+FO_LEARNERS, FO_ROUNDS = 2, 3
+# (c) the CNN (without dropout) with a process per learner
+FO_CNN_LEARNERS, FO_CNN_ROUNDS, FO_CNN_EXAMPLES, FO_CNN_STEPS = 2, 2, 300, 10
+# the hot standby's escalation (the JAX package's controller-kill gate's):
+# 1.5 s of WAL stall, then 2 failed health probes 0.25 s apart
+STANDBY = dict(stale_after_s=1.5, probe_interval_s=0.25, probe_failures=2)
+# the controller killed at its first uplink: mid-round, with the uplinks
+# in the air
+KILL_RULE = {"process": "controller", "side": "server", "fault": "kill",
+             "method": "MarkTaskCompleted", "max_fires": 1}
+# the failover federations' transport: a call to a dead controller gives
+# up after 3 UNAVAILABLE retries 0.5 s apart (the default is 10, 1 s
+# apart) and redials (the standby) or re-attaches (a relaunch)
+FO_COMM = dict(retries=3, retry_sleep_s=0.5)
+
+
+def failover_phase(smoke, gpu, mp_llama):
+    """Failover and the registry on the card. First one LlamaLite Adam
+    step (full width, depth ``CUT_DEPTH``) trained twice from one blob,
+    its uplink bytes compared: every bit compare below rests on it. (a) In
+    process, 2 LlamaLite learners at full width and depth ``CUT_DEPTH``,
+    ``fedavg``, checkpoints and the registry on, each round evaluated: a
+    control of 3 rounds, and a run whose controller is shut down once
+    round 1 closed and its evaluations were folded, replaced by a fresh
+    ``Controller`` from ``restore_checkpoint()``; the learners re-attach
+    on the new epoch and ``resume_round()`` goes on. Rounds 2-3's versions
+    must be the control's bits, the lineage (ids, rounds, parents,
+    channels, the stable head) the control's, the learners' ids and tokens
+    unchanged; then a ``ServingGateway`` syncs the stable version from the
+    restored controller (``DirectRegistrySource``) and answers a Predict
+    burst through K1 within ``LOGITS_ATOL`` of the dense path. (b) The
+    multiprocess phase's LlamaLite federation again, with the controller
+    killed at its first uplink: the standby promotes exactly once, every
+    round completes, each round-pinned version is the multiprocess phase's
+    (the control's) bits, every tracked process exits 0. (c) The CNN
+    with a process per learner, no standby, the same kill under the
+    driver's supervision: one relaunch with ``--resume``, the learners
+    keep their ids, the versions equal a control run's."""
+    import hashlib
+
+    import torch
+
+    from metisfl_tpu_torch.comm import TrainParams
+    from metisfl_tpu_torch.config import (
+        AggregationConfig,
+        ChaosConfig,
+        CheckpointConfig,
+        CommConfig,
+        EvalConfig,
+        FailoverConfig,
+        FederationConfig,
+        RegistryConfig,
+        ServingConfig,
+        TerminationConfig,
+    )
+    from metisfl_tpu_torch.controller import Controller
+    from metisfl_tpu_torch.driver import InProcessFederation
+    from metisfl_tpu_torch.models import (
+        ArrayDataset,
+        TorchModelOps,
+        load_flax_variables,
+    )
+    from metisfl_tpu_torch.models.zoo import FashionMnistCNN, LlamaLite
+    from metisfl_tpu_torch.serving import (
+        DirectRegistrySource,
+        ServingGateway,
+    )
+    from metisfl_tpu_torch.tensor import ModelBlob, pack_model, unpack_model
+
+    out = {"depth": CUT_DEPTH}
+    part_s, t_part = {}, [time.perf_counter()]
+
+    def part_done(name):
+        now = time.perf_counter()
+        part_s[name] = now - t_part[0]
+        t_part[0] = now
+        print(f"failover {name}: {part_s[name]:.3f} s", flush=True)
+
+    shutil.rmtree(FAILOVER_DIR, ignore_errors=True)
+    os.makedirs(FAILOVER_DIR)
+    llama = dict(vocab_size=VOCAB, dim=DIM, depth=CUT_DEPTH, heads=HEADS,
+                 kv_heads=KV_HEADS, dtype=torch.bfloat16)
+    variables, seed_blob = llama_seed(CUT_DEPTH)
+    tokens = np.random.default_rng(SEED + 5).integers(
+        0, VOCAB, (FED_LEARNERS * FED_ROWS + FED_EVAL_ROWS, TRAIN_LEN + 1)
+    ).astype(np.int32)
+    test = ArrayDataset(tokens[-FED_EVAL_ROWS:, :-1],
+                        tokens[-FED_EVAL_ROWS:, 1:])
+    sha = lambda raw: hashlib.sha256(raw or b"").hexdigest()  # noqa: E731
+    # the process federations of (b) and (c) run beside the in-process
+    # parts: their processes boot, and wait on each other, while the card
+    # runs the rest. (b) first, the longest; (c) after the determinism
+    # check, so the boots of the two do not all share the host at once
+    # (b) the hot standby: the multiprocess phase's federation, its
+    # controller killed at the first uplink
+    part_b = Background(mp_llama_run, smoke, "failover llama", True)
+    # (c) the driver's supervised relaunch: the CNN, no standby; the kill
+    # run and its control at once
+    x, y = synthetic_image_classification(
+        FO_CNN_LEARNERS * FO_CNN_EXAMPLES, noise=CNN_NOISE, seed=SEED + 9)
+    shards = [(x[i * FO_CNN_EXAMPLES:(i + 1) * FO_CNN_EXAMPLES],
+               y[i * FO_CNN_EXAMPLES:(i + 1) * FO_CNN_EXAMPLES])
+              for i in range(FO_CNN_LEARNERS)]
+    template = TorchModelOps(FashionMnistCNN(dropout_rate=0.0),
+                             rng_seed=SEED, device="cpu").get_variables()
+
+    def cnn_run(kill):
+        return Background(
+            run_multiprocess, smoke,
+            "failover cnn " + ("kill" if kill else "control"), "cnn0",
+            shards, shards[0],
+            TrainParams(batch_size=CNN_BATCH, local_steps=FO_CNN_STEPS,
+                        optimizer="sgd", learning_rate=0.05),
+            EvalConfig(every_n_rounds=0), FO_CNN_ROUNDS, template,
+            config_extra=dict(
+                comm=CommConfig(**FO_COMM),
+                registry=RegistryConfig(enabled=True, retention=16),
+                failover=FailoverConfig(restart_backoff_s=0.5),
+                chaos=ChaosConfig(enabled=kill, seed=SEED,
+                                  rules=[KILL_RULE] if kill else [])))
+
+    # one Adam step, twice, from one blob: the uplink's bytes
+    ops = TorchModelOps(LlamaLite(**llama, use_flash=True, device=DEVICE),
+                        variables=variables, device=DEVICE)
+    rows = tokens[:FED_ROWS]
+    data = ArrayDataset(rows[:, :-1], rows[:, 1:], seed=SEED)
+    step = TrainParams(batch_size=TRAIN_BATCH, local_steps=1,
+                       optimizer="adam", learning_rate=1e-4)
+    uplinks = []
+    for _ in range(2):
+        ops.set_variables(unpack_model(seed_blob, ops.get_variables()))
+        uplinks.append(pack_model(ops.train(data, step).variables))
+    smoke.check(uplinks[0] == uplinks[1],
+                f"failover: one LlamaLite Adam step from one blob ships the "
+                f"same {len(uplinks[0])} uplink bytes twice (sha256 "
+                f"{sha(uplinks[0])[:16]})")
+    out["step_uplink_sha256"] = [sha(u) for u in uplinks]
+    del ops, uplinks
+    empty_cache()
+    part_done("determinism")
+    parts_c = {kill: cnn_run(kill) for kill in (True, False)}
+
+    # (a) checkpoint and --resume, in process
+    reset_launches()
+
+    def fo_config(rounds, ckpt_dir=""):
+        return FederationConfig(
+            aggregation=AggregationConfig(scaler="train_dataset_size"),
+            train=TrainParams(batch_size=TRAIN_BATCH, local_steps=FED_STEPS,
+                              optimizer="adam", learning_rate=1e-4),
+            eval=EvalConfig(batch_size=TRAIN_BATCH, datasets=["test"],
+                            metrics=["loss", "accuracy"]),
+            termination=TerminationConfig(federation_rounds=rounds),
+            checkpoint=CheckpointConfig(dir=ckpt_dir),
+            registry=RegistryConfig(enabled=True, retention=8))
+
+    def gated(fed, version):
+        """Version ``version``'s gate ran (its evaluations all folded)."""
+        infos = [v for v in fed.controller.describe_registry().get(
+            "versions", []) if v["version"] == version]
+        return bool(infos and infos[0]["gate"])
+
+    def fo_federation(rounds, ckpt_dir=""):
+        """A learner trains round r + 1 once version r's gate ran (r, the
+        rounds its controller completed): a version's parent is then the
+        stable head its evaluation decided, in every run."""
+        fed = InProcessFederation(fo_config(rounds, ckpt_dir),
+                                  device=DEVICE)
+
+        def before(*args, **kwargs):
+            done = fed.controller.global_iteration
+            if done:
+                wait_for(lambda: gated(fed, done), 300.0,
+                         f"version {done}'s gate")
+
+        for i in range(FO_LEARNERS):
+            rows = tokens[i * FED_ROWS:(i + 1) * FED_ROWS]
+            ops = TorchModelOps(LlamaLite(**llama, use_flash=True,
+                                          device=DEVICE),
+                                variables=variables, device=DEVICE)
+            wrap(ops, "train", before=before)
+            fed.add_learner(ops, ArrayDataset(rows[:, :-1], rows[:, 1:],
+                                              seed=SEED + i),
+                            test_dataset=test)
+        seed_federation(fed, seed_blob)
+        return fed
+
+    def lineage(ctrl):
+        desc = ctrl.describe_registry()
+        return {"stable": desc["stable"], "candidate": desc["candidate"],
+                "versions": [(v["version"], v["round"], v["parent"],
+                              v["channel"]) for v in desc["versions"]]}
+
+    def capture(fed, into):
+        wait_for(lambda: gated(fed, FO_ROUNDS), 300.0, "the last gate")
+        ctrl = fed.controller
+        into.update(lineage=lineage(ctrl), sha={
+            v: sha(ctrl.registered_model(v)) for v in range(1, FO_ROUNDS + 1)})
+
+    # the control (it keeps no checkpoint; the kill run's does) beside the
+    # kill run, on the card at once: each round's bits are the same in any
+    # process, whatever else runs
+    control = {}
+    control_fed = fo_federation(FO_ROUNDS)
+    control_run = Background(run_federation, control_fed,
+                             settle=lambda: capture(control_fed, control))
+
+    t0 = time.perf_counter()
+    ckpt = os.path.join(FAILOVER_DIR, "ckpt_kill")
+    fed = fo_federation(1, ckpt)
+    gateway = None
+    try:
+        fed.start()
+        wait_for(lambda: fed.controller.global_iteration >= 1, 600.0,
+                 "round 1")
+        wait_for(lambda: gated(fed, 1), 300.0, "version 1's gate")
+        ctrl1 = fed.controller
+        identities = sorted((ln.learner_id, ln.auth_token)
+                            for ln in fed.learners)
+        epoch1 = ctrl1.controller_epoch
+        # the crash: only the checkpoint survives it (written after the
+        # executor drained, so the folded evaluation is in it)
+        ctrl1.shutdown()
+        ctrl1.save_checkpoint()
+        t1 = time.perf_counter()
+        # the new incarnation needs no checkpoint of its own here
+        ctrl2 = Controller(fo_config(FO_ROUNDS), fed._make_proxy,
+                           device=DEVICE)
+        restored = ctrl2.restore_checkpoint(ckpt)
+        restore_s = time.perf_counter() - t1
+        fed.controller = ctrl2
+        for learner in fed.learners:
+            learner.controller = ctrl2
+        smoke.check(restored and ctrl2.global_iteration == 1
+                    and ctrl2.controller_epoch != epoch1,
+                    f"failover (a): a fresh controller restored the "
+                    f"checkpoint at round {ctrl2.global_iteration} in "
+                    f"{restore_s:.3f} s, under a new epoch")
+        smoke.check(ctrl2.resume_round(), "failover (a): resume_round() "
+                    "re-dispatched the round")
+        wait_for(lambda: ctrl2.global_iteration >= FO_ROUNDS, 600.0,
+                 f"round {FO_ROUNDS}")
+        resumed_wall = time.perf_counter() - t1
+        resumed = {}
+        capture(fed, resumed)
+        control_run.result()
+        del control_fed
+        with ctrl2._lock:
+            registry = sorted((lid, r.auth_token)
+                              for lid, r in ctrl2._learners.items())
+        kept = sorted((ln.learner_id, ln.auth_token) for ln in fed.learners)
+        smoke.check(registry == identities == kept
+                    and all(ln.controller_epoch == ctrl2.controller_epoch
+                            for ln in fed.learners),
+                    "failover (a): the learners re-attached on the new "
+                    "epoch with their ids and tokens unchanged "
+                    f"{[lid for lid, _ in identities]}")
+        same = [resumed["sha"][v] == control["sha"][v]
+                for v in range(2, FO_ROUNDS + 1)]
+        smoke.check(all(same),
+                    f"failover (a): versions 2-{FO_ROUNDS} (rounds 2-"
+                    f"{FO_ROUNDS}) are the control's bits {same}")
+        smoke.check(resumed["lineage"] == control["lineage"],
+                    f"failover (a): the lineage (ids, rounds, parents, "
+                    f"channels, stable head) is the control's "
+                    f"{resumed['lineage']}")
+        # the gateway serves the restored controller's stable version
+        stable = ctrl2.describe_registry()["stable"]
+        serve_ops = TorchModelOps(LlamaLite(**llama, use_flash=True,
+                                            device=DEVICE),
+                                  variables=variables, device=DEVICE)
+        gateway = ServingGateway(serve_ops, ServingConfig(
+            max_batch=MAX_BATCH, max_wait_ms=50.0), device=DEVICE)
+        installed = gateway.sync(DirectRegistrySource(ctrl2))
+        smoke.check(stable > 0 and installed.get("stable") == stable,
+                    f"failover (a): the gateway installed the stable "
+                    f"version v{stable} ({installed})")
+        rows = np.random.default_rng(SEED + 1).integers(
+            0, VOCAB, (PREDICT_REQUESTS, 1, PREDICT_LEN)).astype(np.int32)
+        gateway.predict(rows[0], key="warmup")
+        import importlib
+        fa = importlib.import_module(
+            "metisfl_tpu_torch.ops.flash_attention")
+        before_k1 = fa.flash_attention_fwd.launches
+        serve_ops.forward_calls = 0
+        replies, predict_wall = run_concurrently(
+            lambda i: gateway.predict(rows[i], key=f"user-{i}"),
+            PREDICT_REQUESTS)
+        k1 = fa.flash_attention_fwd.launches - before_k1
+        forwards = serve_ops.forward_calls
+        smoke.check(all(r[1] == stable and r[2] == "stable"
+                        and r[0].shape == (1, PREDICT_LEN, VOCAB)
+                        and np.isfinite(r[0]).all() for r in replies)
+                    and k1 == CUT_DEPTH * forwards and forwards > 0,
+                    f"failover (a): {PREDICT_REQUESTS} Predicts from v"
+                    f"{stable}, finite, {k1} K1 launches = {CUT_DEPTH} per "
+                    f"forward x {forwards} forwards")
+        dense = load_flax_variables(
+            LlamaLite(**llama, use_flash=False, device=DEVICE),
+            ModelBlob.from_bytes(ctrl2.registered_model(stable)).tensors
+        ).eval()
+        with torch.no_grad():
+            want = dense(torch.as_tensor(rows[0], device=DEVICE)
+                         ).cpu().numpy()
+        err = float(np.abs(replies[0][0] - want).max())
+        smoke.check(err <= LOGITS_ATOL,
+                    f"failover (a): the stable version's Predict vs the "
+                    f"dense path: max abs err {err:.4g} <= {LOGITS_ATOL}")
+        del dense, want
+        out["a"] = {"restore_s": restore_s,
+                    "resumed_rounds_s": resumed_wall,
+                    "wall_s": time.perf_counter() - t0,
+                    "stable_version": stable, "lineage": resumed["lineage"],
+                    "version_sha256": resumed["sha"],
+                    "predict_wall_s": predict_wall,
+                    "predict_k1_launches": k1,
+                    "predict_vs_dense_max_abs_err": err}
+    finally:
+        if gateway is not None:
+            gateway.shutdown()
+        fed.shutdown()
+    launches_a = launch_counts()
+    del fed
+    empty_cache()
+    part_done("a (the control beside the resumed run)")
+
+    control_sha = (mp_llama or {}).get("version_sha256") or {}
+    stats, records, ids, workdir, _, walls = part_b.result()
+    wall_b = part_b.wall_s
+    smoke.check(walls["promoted"] and walls["promoted_logged"]
+                and walls["standby_promotions"] == 1,
+                f"failover (b): the standby promoted exactly once "
+                f"({walls['promote_s']} s from the decision to serving) and "
+                "the driver handed the controller endpoint over")
+    smoke.check(stats["global_iteration"] >= MP_ROUNDS
+                and sorted(stats["learners"]) == sorted(ids.values()),
+                f"failover (b): all {MP_ROUNDS} rounds completed, the "
+                "learners kept their ids")
+    got = {int(k): v for k, v in walls.get("version_sha256", {}).items()}
+    want = {int(k): v for k, v in control_sha.items()}
+    smoke.check(bool(want) and got == want,
+                f"failover (b): each round-pinned version is the control's "
+                f"bits (the multiprocess phase's run) {sorted(got)}")
+    launches_b = {name: sum(r["launches"][name] for r in records)
+                  for name in ("flash_attention_fwd", "flash_bwd_dq",
+                               "flash_bwd_dkv")}
+    out["b"] = {**walls, "rounds": stats["global_iteration"],
+                "wall_s": wall_b}
+    part_done("b standby (joined)")
+
+    runs = {}
+    for kill in (True, False):
+        stats, _, ids, _, _, walls = parts_c[kill].result()
+        wall = parts_c[kill].wall_s
+        runs[kill] = (stats, ids, dict(walls, wall_s=wall))
+    stats, ids, walls = runs[True]
+    with open(os.path.join(MP_DIR, "failover cnn kill",
+                           "controller.log")) as f:
+        relaunched = "restored checkpoint" in f.read()
+    smoke.check(walls["restarts"] == 1 and relaunched
+                and runs[False][2]["restarts"] == 0,
+                "failover (c): the driver relaunched the killed controller "
+                "once with --resume (it restored its checkpoint); the "
+                "control never")
+    smoke.check(stats["global_iteration"] >= FO_CNN_ROUNDS
+                and sorted(stats["learners"]) == sorted(ids.values()),
+                f"failover (c): all {FO_CNN_ROUNDS} rounds completed, the "
+                "learners kept their ids")
+    got, want = walls.get("version_sha256"), runs[False][2].get(
+        "version_sha256")
+    smoke.check(bool(want) and got == want,
+                "failover (c): each round-pinned version is the control "
+                "run's bits")
+    out["c"] = {"kill": walls, "control": runs[False][2]}
+    shutil.rmtree(MP_DIR, ignore_errors=True)
+    shutil.rmtree(FAILOVER_DIR, ignore_errors=True)
+    part_done("c relaunch (joined)")
+
+    out["launches"] = {"flash_fwd": launches_a["flash_attention_fwd"]
+                       + launches_b["flash_attention_fwd"],
+                       "flash_bwd_dq": launches_a["flash_bwd_dq"]
+                       + launches_b["flash_bwd_dq"],
+                       "flash_bwd_dkv": launches_a["flash_bwd_dkv"]
+                       + launches_b["flash_bwd_dkv"]}
+    out["part_s"] = part_s
+    out["gpu"] = gpu
+    print(json.dumps({"failover": out}), flush=True)
+    return out
+
+
 def _leaves(node):
     if isinstance(node, dict):
         for v in node.values():
@@ -5308,6 +5855,11 @@ def main() -> int:
         "slice: round control (buffered, quorum, semi-synchronous, a "
         "deadline under masking, chaos through DriverSession, the "
         "cross-device harness)", rounds_phase, smoke, gpu)
+    empty_cache()
+    failed_over = smoke.phase(
+        "slice: failover and the registry (checkpoint and --resume, the "
+        "hot standby, the supervised relaunch, the stable version served)",
+        failover_phase, smoke, gpu, (multiprocess or {}).get("llama"))
 
     # launches on each path that runs a kernel (each path's counts set to
     # 0 just before it and read just after): K1 on every path
@@ -5328,6 +5880,9 @@ def main() -> int:
     uplinks_launches = (uplinked or {}).get("launches", {})
     # the rounds phase's buffered, quorum and semi-synchronous rounds
     rounds_launches = (rounded or {}).get("launches", {})
+    # the failover phase's in-process rounds, its gateway's Predicts and
+    # its killed federation's learner processes
+    failover_launches = (failed_over or {}).get("launches", {})
     rows = []
     if main_case is not None:
         by_path = {"serve": serve_k1,
@@ -5338,7 +5893,8 @@ def main() -> int:
                    "rules": rules_launches.get("flash_fwd", 0),
                    "tiers": tiers_launches.get("flash_fwd", 0),
                    "uplinks": uplinks_launches.get("flash_fwd", 0),
-                   "rounds": rounds_launches.get("flash_fwd", 0)}
+                   "rounds": rounds_launches.get("flash_fwd", 0),
+                   "failover": failover_launches.get("flash_fwd", 0)}
         rows.append(("flash_fwd", "flash_fwd.cu", 76, main_case,
                      sum(by_path.values()), by_path))
     for record, line in zip(bwd_cases or [], (126, 162)):
@@ -5349,7 +5905,8 @@ def main() -> int:
                    "rules": rules_launches.get(record["name"], 0),
                    "tiers": tiers_launches.get(record["name"], 0),
                    "uplinks": uplinks_launches.get(record["name"], 0),
-                   "rounds": rounds_launches.get(record["name"], 0)}
+                   "rounds": rounds_launches.get(record["name"], 0),
+                   "failover": failover_launches.get(record["name"], 0)}
         rows.append((record["name"], "flash_bwd.cu", line, record,
                      sum(by_path.values()), by_path))
     # the wide-heads path, a row per head dim and wrapper: its launches in

@@ -17,21 +17,27 @@ time); the correction runs once a round on the host in fp32 numpy, the
 JAX package's code line for line. With uniform τ it is FedAvg. The
 controller passes each learner's ``completed_batches`` as ``steps``
 (``needs_local_steps``). Like :class:`ServerOpt`, :meth:`result` stages
-the new previous model and :meth:`commit` installs it. Not ported:
-``export_state``/``restore_state`` (ROADMAP.md Queue 1 item 3f).
+the new previous model and :meth:`commit` installs it, and
+:meth:`export_state`/:meth:`restore_state` carry the model it steps from
+through a controller checkpoint.
 """
 
 from __future__ import annotations
 
 import threading
-from typing import Optional, Sequence, Tuple
+from typing import Any, Dict, Optional, Sequence, Tuple
 
 import numpy as np
 
 from metisfl_tpu_torch.aggregation.base import Pytree, host_array
 from metisfl_tpu_torch.aggregation.fedavg import FedAvg
-from metisfl_tpu_torch.aggregation.serveropt import check_structure, to_f32
+from metisfl_tpu_torch.aggregation.serveropt import (
+    check_structure,
+    to_f32,
+    unpack_f32,
+)
 from metisfl_tpu_torch.tensor.pytree import (
+    pack_model,
     tree_leaves,
     tree_map,
     tree_unflatten,
@@ -97,6 +103,25 @@ class FedNova:
             if self._staged is not None:
                 self._prev = self._staged
                 self._staged = None
+
+    # -- persistence (controller checkpoint) --------------------------------
+
+    def export_state(self) -> Dict[str, Any]:
+        with self._state_lock:
+            out: Dict[str, Any] = {"rule": self.name}
+            if self._prev is not None:
+                out["prev"] = pack_model(self._prev)
+            return out
+
+    def restore_state(self, state: Dict[str, Any]) -> None:
+        if state.get("rule") not in (None, self.name):
+            raise ValueError(
+                f"checkpoint aggregation state is for {state.get('rule')!r},"
+                f" this rule is {self.name!r}")
+        with self._state_lock:
+            if state.get("prev"):
+                self._prev = unpack_f32(state["prev"])
+            self._staged = None
 
     # -- the normalized step -----------------------------------------------
 

@@ -15,8 +15,9 @@ federated_recency.cc):
 
 Host numpy trees (every wire-arrived model) fold on the host with the JAX
 package's numpy kernels; trees of torch tensors fold where they live
-(aggregation/base.py). Not ported: ``export_scales``/``rehydrate``, the
-checkpoint half of the JAX rules (ROADMAP.md Queue 1 item 3f).
+(aggregation/base.py). Across a controller restart the rolling state
+rebuilds from the checkpointed contribution scales and the store's
+lineage heads (:meth:`export_scales`, :meth:`rehydrate`).
 """
 
 from __future__ import annotations
@@ -110,6 +111,34 @@ class _RollingBase:
             raise ValueError("fold_result called with no contributions")
         template = next(iter(self._state.contributions.values()))[1]
         return self._community(template)
+
+    # -- checkpoint / resume ----------------------------------------------
+
+    def export_scales(self) -> Dict[str, float]:
+        """``learner_id -> scale`` of every counted contribution: the part
+        of the rolling state the model store cannot give back (the models
+        are its lineage heads)."""
+        return {lid: scale
+                for lid, (scale, _) in self._state.contributions.items()}
+
+    def rehydrate(self, store, scales: Dict[str, float]) -> int:
+        """Rebuild ``wc_scaled`` and ``z`` after a controller restart from
+        the store's lineage and the checkpointed scales: each learner's
+        newest stored model (lineage[0]) re-enters the sum, so a model
+        inserted between the checkpoint and the crash is adopted, as the
+        uninterrupted run's recency rule would. Returns the contributions
+        restored (a learner whose models the store did not keep, as an
+        in-memory store after a restart, is skipped)."""
+        self.reset()
+        picked = store.select(list(scales), k=1)  # only the head re-enters
+        restored = 0
+        for lid, scale in scales.items():
+            lineage = picked.get(lid)
+            if not lineage:
+                continue
+            self._add(lid, lineage[0], float(scale))
+            restored += 1
+        return restored
 
     def aggregate(
         self,

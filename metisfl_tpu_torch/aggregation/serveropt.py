@@ -18,22 +18,26 @@ package's code line for line, so the same average gives the same bits.
   model (:meth:`seed_community`, from the controller) is stepped from;
 - :meth:`result` stages the new state, and :meth:`commit` installs it
   once the controller has installed the community model, so a retried
-  round does not step twice.
-
-Not ported: ``export_state``/``restore_state`` (controller checkpoints,
-ROADMAP.md Queue 1 item 3f).
+  round does not step twice;
+- :meth:`export_state` and :meth:`restore_state` carry the committed
+  moments, the step counter and the model it steps from through a
+  controller checkpoint, as ModelBlobs named like the JAX package's, so
+  a resumed run takes the steps of an uninterrupted one.
 """
 
 from __future__ import annotations
 
 import threading
-from typing import Optional, Sequence, Tuple
+from typing import Any, Dict, Optional, Sequence, Tuple
 
 import numpy as np
 
 from metisfl_tpu_torch.aggregation.base import Pytree, host_array
 from metisfl_tpu_torch.aggregation.fedavg import FedAvg
 from metisfl_tpu_torch.tensor.pytree import (
+    ModelBlob,
+    pack_model,
+    to_numpy,
     tree_leaves,
     tree_map,
     tree_paths,
@@ -48,6 +52,13 @@ def to_f32(x) -> np.ndarray:
     x = host_array(x)
     return x if np.issubdtype(x.dtype, np.integer) \
         else np.asarray(x, np.float32)
+
+
+def unpack_f32(blob: bytes) -> Dict[str, np.ndarray]:
+    """A checkpointed state blob as the flat ``{name: fp32 array}`` tree
+    the rules keep (integer tensors keep their dtype)."""
+    return {name: to_f32(to_numpy(t))
+            for name, t in ModelBlob.from_bytes(blob).tensors}
 
 
 def check_structure(state: Pytree, avg: Pytree, what: str) -> None:
@@ -114,6 +125,36 @@ class ServerOpt:
             if self._staged is not None:
                 self._prev, self._m, self._v, self._step = self._staged
                 self._staged = None
+
+    # -- persistence (controller checkpoint) --------------------------------
+
+    def export_state(self) -> Dict[str, Any]:
+        """The committed optimizer state: the rule, the step counter, and
+        the model it steps from and the moments as ModelBlobs."""
+        with self._state_lock:
+            out: Dict[str, Any] = {"opt": self.opt, "step": self._step}
+            if self._prev is not None:
+                out["prev"] = pack_model(self._prev)
+            if self._m is not None:
+                out["m"] = pack_model(self._m)
+                out["v"] = pack_model(self._v)
+            return out
+
+    def restore_state(self, state: Dict[str, Any]) -> None:
+        """Install an :meth:`export_state` (of this package or the JAX
+        package's rule); a state of another optimizer raises."""
+        if state.get("opt") not in (None, self.opt):
+            raise ValueError(
+                f"checkpoint server-opt state is for {state.get('opt')!r}, "
+                f"this rule is {self.opt!r}")
+        with self._state_lock:
+            self._step = int(state.get("step", 0))
+            if state.get("prev"):
+                self._prev = unpack_f32(state["prev"])
+            if state.get("m"):
+                self._m = unpack_f32(state["m"])
+                self._v = unpack_f32(state["v"])
+            self._staged = None
 
     # -- server step -------------------------------------------------------
 

@@ -6,10 +6,15 @@ from metisfl_tpu_torch.config.federation import (
     ChaosConfig,
     CheckpointConfig,
     CommConfig,
+    ControllerConfig,
+    ControllerStandbyConfig,
     EvalConfig,
+    FailoverConfig,
     FederationConfig,
     LearnerEndpoint,
     ModelStoreConfig,
+    PromotionConfig,
+    RegistryConfig,
     SchedulingConfig,
     SecureAggConfig,
     ServingConfig,
@@ -26,5 +31,6 @@ __all__ = [
     "TerminationConfig", "CheckpointConfig", "ChaosConfig", "EvalConfig",
     "ServingConfig",
     "ServingDecodeConfig", "CommConfig", "LearnerEndpoint", "SSLConfig",
-    "load_config",
+    "FailoverConfig", "ControllerConfig", "ControllerStandbyConfig",
+    "PromotionConfig", "RegistryConfig", "load_config",
 ]

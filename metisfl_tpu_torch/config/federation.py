@@ -13,7 +13,10 @@ slice aggregator processes, the uplink variants (int8q and top-k uplinks,
 a narrowed downlink, client-level DP, FedBN local tensors and ship-only
 subsets), over the in-memory, disk, cached-disk and remote stores (with
 parallel ingest), with the controller's endpoint, the learners' endpoints,
-the transport's settings and TLS for the multi-process federation. It
+the transport's settings and TLS for the multi-process federation, and the
+failover and lifecycle planes: controller checkpoints, the driver's
+supervision of the controller, the hot standby with its round-state WAL,
+and the model registry with its promotion gate. It
 travels to the controller process as codec bytes (``to_wire``) or YAML
 (:func:`load_config`). It refuses at construction what the port does not
 do yet: a request for a protocol, rule, tier, uplink encoding or
@@ -64,6 +67,9 @@ class ServingConfig:
     # deterministic canary: requests whose key hashes into the lowest
     # canary_percent slots route to the candidate channel (0 = all stable)
     canary_percent: float = 0.0
+    # registry poll period: how often ``start_sync`` compares the channel
+    # heads against the registry
+    poll_every_s: float = 1.0
     decode: ServingDecodeConfig = field(default_factory=ServingDecodeConfig)
 
 
@@ -216,9 +222,100 @@ class SecureAggConfig:
 
 @dataclass
 class CheckpointConfig:
-    """Controller checkpoints (not ported: a ``dir`` raises)."""
+    """Controller checkpoints (``Controller.save_checkpoint``): the
+    community model, the round counter and lineage, the learner registry
+    with its tokens, the rules' state across rounds and the model
+    registry, written every ``every_n_rounds`` rounds and at the seed and
+    membership changes."""
 
-    dir: str = ""
+    dir: str = ""                            # "" → checkpointing disabled
+    every_n_rounds: int = 1
+
+
+@dataclass
+class FailoverConfig:
+    """The driver's supervision of the controller process: a controller
+    that dies mid-run is relaunched with ``--resume`` (the checkpoint
+    restores the community model, the round counter and the learner
+    registry with its tokens, so rejoining learners are recognized as
+    themselves), at most ``max_controller_restarts`` times, the backoff
+    doubling per restart."""
+
+    supervise_controller: bool = True
+    max_controller_restarts: int = 3
+    restart_backoff_s: float = 1.0
+
+
+@dataclass
+class ControllerStandbyConfig:
+    """The controller's hot standby (controller/wal.py and ``python -m
+    metisfl_tpu_torch.controller --standby``). When enabled, the primary
+    appends registry deltas and round-state snapshots to a write-ahead log
+    under ``wal_dir`` (atomic rename before the ack) and the driver boots
+    a warm standby that tails it: WAL tail stale past ``stale_after_s`` →
+    grpc.health.v1 probe of the primary → ``probe_failures`` consecutive
+    non-SERVING verdicts → promote (restore the WAL state, serve on its
+    own pinned port, re-dispatch the abandoned round)."""
+
+    enabled: bool = False
+    host: str = "localhost"
+    # the standby's gRPC port (0: the driver picks a free one and ships it
+    # to every peer, so the two-endpoint redial is pinned up front)
+    port: int = 0
+    # the WAL directory the primary and the standby share (empty: the
+    # driver puts it under its workdir)
+    wal_dir: str = ""
+    # seconds without WAL progress before the standby probes the primary
+    stale_after_s: float = 3.0
+    # the standby's tail-loop poll period
+    probe_interval_s: float = 0.5
+    # consecutive non-SERVING health probes that trigger promotion
+    probe_failures: int = 3
+
+
+@dataclass
+class ControllerConfig:
+    """Controller-process settings beyond ``controller_host``/``_port``."""
+
+    standby: ControllerStandbyConfig = field(
+        default_factory=ControllerStandbyConfig)
+
+
+@dataclass
+class PromotionConfig:
+    """The model registry's promotion gate (registry/registry.py): a
+    candidate moves to the ``stable`` channel only when every enabled rule
+    passes; ``auto=false`` leaves promotion to the operator
+    (``PromoteVersion``)."""
+
+    auto: bool = True
+    # the "<dataset>/<metric>" key of the folded community evaluation
+    # compared against the stable version; loss/error-like metrics improve
+    # downward, the others upward, and the candidate must not regress past
+    # min_delta
+    metric: str = "test/accuracy"
+    min_delta: float = 0.0
+    # refuse a version whose evaluation has not reported back
+    require_eval: bool = True
+    # refuse a version whose source round scored an update anomalous
+    forbid_anomalies: bool = True
+    # the source round's divergence scores at ``divergence_quantile`` must
+    # stay <= max_divergence (0 = rule off)
+    max_divergence: float = 0.0
+    divergence_quantile: float = 0.9
+
+
+@dataclass
+class RegistryConfig:
+    """The versioned community-model registry (registry/registry.py): each
+    aggregated round registers a candidate version, the gate above
+    promotes it to ``stable``, with rollback and retention GC; its lineage
+    rides in the controller checkpoint."""
+
+    enabled: bool = False
+    # retired and candidate versions kept beyond the channel heads
+    retention: int = 5
+    promotion: PromotionConfig = field(default_factory=PromotionConfig)
 
 
 @dataclass
@@ -299,11 +396,14 @@ class FederationConfig:
     secure: SecureAggConfig = field(default_factory=SecureAggConfig)
     termination: TerminationConfig = field(default_factory=TerminationConfig)
     checkpoint: CheckpointConfig = field(default_factory=CheckpointConfig)
+    registry: RegistryConfig = field(default_factory=RegistryConfig)
     train: TrainParams = field(default_factory=TrainParams)
     eval: EvalConfig = field(default_factory=EvalConfig)
     comm: CommConfig = field(default_factory=CommConfig)
     chaos: ChaosConfig = field(default_factory=ChaosConfig)
     ssl: SSLConfig = field(default_factory=SSLConfig)
+    failover: FailoverConfig = field(default_factory=FailoverConfig)
+    controller: ControllerConfig = field(default_factory=ControllerConfig)
     # the controller's endpoint; DriverSession binds an ephemeral port and
     # reads it back when controller_port is 0
     controller_host: str = "localhost"
@@ -382,9 +482,8 @@ class FederationConfig:
         if term.execution_cutoff_mins < 0 or term.metric_cutoff_score < 0:
             raise ValueError("termination cutoffs must be >= 0")
         self._check_uplink(rule)
+        self._check_failover()
         # what the port does not do yet, once the values are known valid
-        if self.checkpoint.dir:
-            raise not_ported("controller checkpoints", "3f")
         if any(ep.world_size > 1 for ep in self.learners):
             raise not_ported("multi-host learners (world_size > 1)", "9")
 
@@ -437,6 +536,52 @@ class FederationConfig:
                                          "rules": self.chaos.rules})
             except (TypeError, ValueError) as exc:
                 raise ValueError(f"invalid chaos rule: {exc}") from None
+
+    def _check_failover(self) -> None:
+        """The JAX package's failover, standby and registry checks, with
+        its error types."""
+        if self.failover.max_controller_restarts < 0:
+            raise ValueError("failover.max_controller_restarts must be >= 0")
+        standby = self.controller.standby
+        if standby.enabled:
+            if standby.stale_after_s <= 0.0:
+                raise ValueError(
+                    "controller.standby.stale_after_s must be > 0 (a zero "
+                    "staleness window probes a healthy primary every tick)")
+            if standby.probe_interval_s <= 0.0:
+                raise ValueError(
+                    "controller.standby.probe_interval_s must be > 0")
+            if standby.probe_failures < 1:
+                raise ValueError(
+                    "controller.standby.probe_failures must be >= 1 "
+                    "(promotion must require at least one probe verdict)")
+            if standby.port < 0:
+                raise ValueError("controller.standby.port must be >= 0")
+        elif standby.wal_dir:
+            # a WAL on a disabled standby replicates to nobody
+            raise ValueError(
+                "controller.standby.wal_dir requires "
+                "controller.standby.enabled (the WAL exists to keep a "
+                "standby promote-ready)")
+        registry = self.registry
+        if registry.enabled and self.secure.enabled and (
+                self.secure.scheme != "masking"):
+            # ciphertext could never be served; masking's settled output
+            # is the public plain aggregate
+            raise ValueError(
+                "registry requires a decodable community model: secure "
+                f"scheme {self.secure.scheme!r} registers opaque "
+                "ciphertext — use scheme: masking, whose settled output "
+                "is the public plain aggregate and composes with the "
+                "registry")
+        if registry.enabled and registry.retention < 1:
+            raise ValueError("registry.retention must be >= 1")
+        if registry.enabled:
+            q = registry.promotion.divergence_quantile
+            if not 0.0 < q <= 1.0:
+                raise ValueError(
+                    "registry.promotion.divergence_quantile must be in "
+                    "(0, 1]")
 
     def _check_distributed(self, masking: bool) -> None:
         """The distributed tier's capability matrix (the JAX package's):

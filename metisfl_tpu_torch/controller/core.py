@@ -95,16 +95,45 @@ task still in flight under the asynchronous protocols reports, and its
 model is kept), so a run ends after that many community models under
 every protocol; the last round's evaluations still go out.
 
-Not ported yet (ROADMAP.md Queue 1 items 3f, 3g and 4): the round-state
-WAL, checkpoints (SCAFFOLD's ``c`` among their state) and the hot standby,
-the registry, the health plane's advisory scores and every telemetry plane
-(the secure plane's fold, settlement and recovery metrics, the slice
-tier's among them). The config (config/federation.py) refuses them.
+Failover, as in the JAX package. ``checkpoint.dir`` turns on checkpoints
+(:meth:`Controller.save_checkpoint`): the community model, the round
+counter and lineage, the learner registry with its tokens and party
+indices, FedRec's contribution scales, the server optimizers' and
+FedNova's state, SCAFFOLD's ``c`` and the model registry, written at the
+seed, at membership changes (coalesced on the scheduling worker) and
+every ``every_n_rounds`` rounds. :meth:`restore_checkpoint` builds the
+state back into a fresh controller, whose new ``controller_epoch`` tells
+the learners to re-attach, and :meth:`resume_round` re-dispatches the
+abandoned round. Under ``controller.standby`` the same state goes to the
+round-state WAL (controller/wal.py) as snapshots, with each join and
+leave appended before its ack, for the hot standby's
+:meth:`restore_from_wal`. A completion of another incarnation's task is
+kept but never advances a barrier, so a re-run round is the undisturbed
+run's bits. A learner has one train task in flight: a dispatch to a
+learner that has one (the re-dispatch of a rejoin while it trains)
+supersedes it, and the superseded task's result is kept but counts for no
+round (a deliberate divergence: the JAX controller folds it into the next
+round). Checkpoints cross packages both ways.
+
+The model registry (``registry.enabled``, registry/): each aggregated
+round registers a candidate version; the round's community evaluation,
+once every learner's digest landed, runs the promotion gate; the
+controller serves the lineage (:meth:`describe_registry`,
+:meth:`registered_model`) and the operator's :meth:`promote_version` and
+:meth:`rollback_version`.
+
+Not ported yet (ROADMAP.md Queue 1 item 4): the health plane (its
+advisory scores, the round's ``health`` snapshot, which the registry's
+gate reads as ``{}``, and the checkpoint's ``health`` and
+``metrics_budget`` keys) and every telemetry plane (the secure plane's
+fold, settlement and recovery metrics, the slice tier's, the WAL's and
+the failover's among them).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import hashlib
 import logging
 import math
 import os
@@ -132,6 +161,8 @@ from metisfl_tpu_torch.aggregation.streaming import (
     streaming_supported,
 )
 from metisfl_tpu_torch.aggregation.tree import TreeReducer
+from metisfl_tpu_torch.comm.codec import dumps as codec_dumps
+from metisfl_tpu_torch.comm.codec import loads as codec_loads
 from metisfl_tpu_torch.comm.messages import (
     EvalResult,
     EvalTask,
@@ -141,6 +172,8 @@ from metisfl_tpu_torch.comm.messages import (
     TrainTask,
 )
 from metisfl_tpu_torch.config import FederationConfig
+from metisfl_tpu_torch.controller.wal import JOIN, LEAVE, RoundStateLog
+from metisfl_tpu_torch.registry import CHANNEL_STABLE, ModelRegistry
 from metisfl_tpu_torch.scaling import (
     apply_staleness_decay,
     make_scaler,
@@ -155,6 +188,7 @@ from metisfl_tpu_torch.secure import recovery
 from metisfl_tpu_torch.secure.distributed import MaskedStreamingAggregator
 from metisfl_tpu_torch.selection import ChurnTracker, make_selector
 from metisfl_tpu_torch.store import IngestPipeline, make_store
+from metisfl_tpu_torch.store import durable as _durable
 from metisfl_tpu_torch.tensor.pytree import ModelBlob, to_numpy
 from metisfl_tpu_torch.tensor.quantize import SHIP_INT8Q, dequantize_named
 from metisfl_tpu_torch.tensor.sparse import densify_named, parse_topk
@@ -171,6 +205,24 @@ from metisfl_tpu_torch.tensor.spec import (
 _WEIGHTED_SUM_RULES = ("fedavg", "scaffold", "fedstride")
 
 logger = logging.getLogger("metisfl_tpu_torch.controller")
+
+# the learners' dispatch-to-completion EWMAs (straggler analytics, carried
+# through checkpoints)
+_EWMA_ALPHA = 0.3
+
+# RoundMetadata fields of the port alone: the JAX controller rebuilds its
+# records with ``RoundMetadata(**m)``, so a checkpoint it can restore
+# leaves them out
+_PORT_ONLY_META = ("aggregation_device_ms", "community_pack_duration_ms",
+                   "ingest_write_duration_ms", "ingest_drain_duration_ms",
+                   "store_select_duration_ms")
+
+
+def _ewma(prev: float, observation: float) -> float:
+    """The first observation seeds the average; later ones blend in."""
+    if prev <= 0.0:
+        return observation
+    return _EWMA_ALPHA * observation + (1.0 - _EWMA_ALPHA) * prev
 
 
 def finite_metrics(metrics: Any) -> Dict[str, float]:
@@ -225,6 +277,9 @@ class LearnerRecord:
     # the masking party index it joined with (-1: not a masking party),
     # which maps its id to its mask streams in a settlement
     party_index: int = -1
+    # EWMA dispatch-to-completion seconds of its train and eval tasks
+    ewma_train_s: float = 0.0
+    ewma_eval_s: float = 0.0
     proxy: Optional[LearnerProxy] = None
 
 
@@ -270,6 +325,10 @@ class RoundMetadata:
     train_metrics: Dict[str, Dict[str, float]] = field(default_factory=dict)
     epoch_metrics: Dict[str, List[Dict[str, float]]] = field(
         default_factory=dict)
+    # the model registry: the version this round's aggregate registered
+    # as, and the stable head at round close (0 with the registry off)
+    registered_version: int = 0
+    stable_version: int = 0
     errors: List[str] = field(default_factory=list)
 
     def to_dict(self) -> dict:
@@ -433,6 +492,9 @@ class Controller:
         # but never advance a barrier (a bounded ordered set)
         self._tasks_in_flight: Dict[str, str] = {}
         self._expired_tasks: Dict[str, None] = {}
+        # task_id -> dispatch time, in step with the two maps above (the
+        # train EWMAs)
+        self._task_dispatched_at: Dict[str, float] = {}
         # each fresh round's dispatch bumps the serial, so a deadline or
         # retry timer of a closed round never acts on the next one
         self._round_serial = 0
@@ -444,6 +506,24 @@ class Controller:
         # dispatch retries used this round, and their live backoff timers
         self._dispatch_retries_used = 0
         self._retry_timers: Dict[threading.Timer, None] = {}
+        # no checkpoint while a restore replays the community model through
+        # set_community_model; one queued save covers a burst of requests
+        self._in_restore = False
+        self._ckpt_queued = False
+        # the hot standby's round-state WAL: registry deltas land on the
+        # join/leave path before the ack, snapshots ride the coalesced save
+        # with the checkpoint; None without a standby
+        self._wal = None
+        standby = config.controller.standby
+        if standby.enabled and standby.wal_dir:
+            self._wal = RoundStateLog(standby.wal_dir)
+        # the model registry; None when off (the round close is then one
+        # attribute check)
+        self._registry = None
+        if config.registry.enabled:
+            self._registry = ModelRegistry(
+                config.registry, config_hash=hashlib.sha256(
+                    config.to_wire()).hexdigest()[:16])
 
     def _make_rule(self, config: FederationConfig):
         """The configured rule with its hyperparameters; the robust rules
@@ -499,6 +579,8 @@ class Controller:
         if self._slices is not None:
             # the clients close; DriverSession owns the processes
             self._slices.shutdown()
+        if self._registry is not None:
+            self._registry.shutdown()
         self._store.shutdown()
 
     # ------------------------------------------------------------------ #
@@ -560,6 +642,10 @@ class Controller:
         if not self._shutdown.is_set():
             self._pool.submit(self._guard, self._schedule_initial,
                               record.learner_id)
+        # a controller crash before the next checkpoint must not forget
+        # this learner's identity and token
+        self._wal_join(record)
+        self._checkpoint_async()
         return JoinReply(learner_id=record.learner_id, auth_token=token,
                          rejoined=rejoined,
                          controller_epoch=self.controller_epoch)
@@ -575,6 +661,10 @@ class Controller:
             for tid in [t for t, lid in self._tasks_in_flight.items()
                         if lid == learner_id]:
                 del self._tasks_in_flight[tid]
+                self._task_dispatched_at.pop(tid, None)
+        # the standby forgets it too, before the ack: a promoted registry
+        # resurrecting a departed learner would ghost the barrier
+        self._wal_leave(learner_id)
         # drain the departing learner's queued writes BEFORE the erase: a
         # write landing after it would resurrect the lineage
         if (self._ingest is not None
@@ -660,16 +750,79 @@ class Controller:
                     # FedNova and the server optimizers step from the
                     # seeded model (a replacement mid-run re-anchors them)
                     self._aggregator.seed_community(self._community_flat)
+        # the per-round checkpoint starts after round 1: a crash during it
+        # must still restore a model to train from
+        self._checkpoint_async()
+
+    def _wal_join(self, record: LearnerRecord) -> None:
+        """Append the learner's registry entry to the WAL on the join path,
+        before the JoinReply: a learner the primary acked exists in a
+        promoted standby as itself (same id, token, party index). A failed
+        append is logged, not raised: a disk hiccup must not refuse the
+        join."""
+        if self._wal is None:
+            return
+        try:
+            self._wal.append(JOIN, self._learner_entry(record))
+        except Exception:  # noqa: BLE001 - best-effort durability
+            logger.exception("WAL join append for %s failed",
+                             record.learner_id)
+
+    def _wal_leave(self, learner_id: str) -> None:
+        """Append a leave delta before the leave ack (see _wal_join)."""
+        if self._wal is None:
+            return
+        try:
+            self._wal.append(LEAVE, {"learner_id": learner_id})
+        except Exception:  # noqa: BLE001 - best-effort durability
+            logger.exception("WAL leave append for %s failed", learner_id)
+
+    def _checkpoint_async(self) -> None:
+        """Queue a round-state save on the scheduling worker (off the RPC
+        path, ordered with the round logic): the checkpoint file under
+        ``checkpoint.dir`` and a WAL snapshot under a standby, from one
+        state capture. While a save is queued further requests are no-ops:
+        the queued save captures the state when it runs. Nothing happens
+        with neither sink armed, during a restore or after shutdown."""
+        if ((not self.config.checkpoint.dir and self._wal is None)
+                or self._in_restore or self._shutdown.is_set()):
+            return
+        with self._lock:
+            if self._ckpt_queued:
+                return
+            self._ckpt_queued = True
+
+        def _save():
+            with self._lock:
+                self._ckpt_queued = False
+            try:
+                state = self._checkpoint_state()
+                if self.config.checkpoint.dir:
+                    self.save_checkpoint(state=state)
+                if self._wal is not None:
+                    self._wal.snapshot(state)
+            except Exception:  # noqa: BLE001 - best-effort durability
+                logger.exception("round-state save failed")
+
+        try:
+            self._pool.submit(self._guard, _save)
+        except RuntimeError:  # the pool is shut down
+            with self._lock:
+                self._ckpt_queued = False
 
     def community_model_bytes(self) -> Optional[bytes]:
         with self._lock:
             return self._community_blob
 
     def resume_round(self) -> bool:
-        """Dispatch a fresh round to a sampled cohort, for a controller
-        seeded after its learners joined (their join dispatches found no
-        model): the cross-device harness starts its first sampled round
-        so. False when there is no community model or no learner."""
+        """Dispatch a fresh round to a sampled cohort: the restored cohort
+        after a checkpoint or WAL restore (the crash abandoned the round
+        in flight; its tasks carry the dead epoch, and their completions,
+        if any arrive, are kept but fold into no barrier), or a controller
+        seeded after its learners joined (the cross-device harness starts
+        its first sampled round so). False when there is no community
+        model or no learner; rejoining learners then start rounds through
+        their own first dispatch."""
         with self._lock:
             ready = (self._community_blob is not None
                      and bool(self._learners))
@@ -684,6 +837,8 @@ class Controller:
         self._scheduler.reset()
         cohort = self._sample_cohort()
         if cohort:
+            logger.info("resuming round %d: dispatching to %s",
+                        self.global_iteration, cohort)
             self._dispatch_train(cohort)
 
     # ------------------------------------------------------------------ #
@@ -732,6 +887,12 @@ class Controller:
             if result.processing_ms_per_step > 0:
                 record.ms_per_step = result.processing_ms_per_step
             self._tasks_in_flight.pop(result.task_id, None)
+            dispatched_at = self._task_dispatched_at.pop(result.task_id, 0.0)
+            if dispatched_at:
+                # an expired task's late arrival counts too: a straggler's
+                # is the observation the score needs
+                record.ewma_train_s = _ewma(record.ewma_train_s,
+                                            max(0.0, start - dispatched_at))
             # a completion of a task that a deadline or a quorum expired,
             # or that another controller incarnation dispatched: its model
             # is kept (fresh lineage for later rounds) but it advances no
@@ -912,6 +1073,10 @@ class Controller:
         self._expired_tasks.update(dict.fromkeys(pending))
         while len(self._expired_tasks) > 512:
             self._expired_tasks.pop(next(iter(self._expired_tasks)))
+        keep = set(self._tasks_in_flight) | set(self._expired_tasks)
+        self._task_dispatched_at = {
+            tid: t for tid, t in self._task_dispatched_at.items()
+            if tid in keep}
 
     def _expire_unreported(self, cohort: Sequence[str]) -> None:
         """Quorum release: every task still in flight to a learner outside
@@ -1118,6 +1283,7 @@ class Controller:
             # the root's residual buffer is folded; the slices keep their
             # latest model per learner, as the store keeps lineage
             self._slices.round_complete()
+        self._register_round_version()
         self._send_eval_tasks()
         with self._lock:
             self.global_iteration += 1
@@ -1127,6 +1293,13 @@ class Controller:
             self.round_metadata.append(self._current_meta)
             self._current_meta = RoundMetadata(
                 global_iteration=self.global_iteration)
+        ckpt = self.config.checkpoint
+        if ckpt.dir and self.global_iteration % max(
+                1, ckpt.every_n_rounds) == 0:
+            try:
+                self.save_checkpoint()
+            except Exception:  # noqa: BLE001 - the round goes on
+                logger.exception("checkpoint save failed")
         self._maybe_recompute_semisync()
         if self._shutdown.is_set():
             return
@@ -1675,6 +1848,16 @@ class Controller:
                     params.local_steps = record.local_steps_override
                 # no device-utilization plane in the port
                 params.device_stats = False
+                # one task in flight per learner: a learner drops its running
+                # task for a new one, so the result of a task this dispatch
+                # replaces (a rejoin's re-dispatch while it trains) is kept
+                # but advances no barrier, or it would count in the next
+                # round
+                superseded = {tid: owner for tid, owner
+                              in self._tasks_in_flight.items()
+                              if owner == lid}
+                if superseded:
+                    self._expire_tasks_locked(superseded)
                 task = TrainTask(
                     task_id=uuid.uuid4().hex,
                     learner_id=lid,
@@ -1687,6 +1870,7 @@ class Controller:
                     controller_epoch=self.controller_epoch,
                 )
                 self._tasks_in_flight[task.task_id] = lid
+                self._task_dispatched_at[task.task_id] = time.time()
                 self._current_meta.train_submitted_at[lid] = time.time()
                 proxy = record.proxy
             try:
@@ -1714,6 +1898,7 @@ class Controller:
             if task_id:
                 # the task never reached the learner: no completion pops it
                 self._tasks_in_flight.pop(task_id, None)
+                self._task_dispatched_at.pop(task_id, None)
             record = self._learners.get(learner_id)
             if record is None:
                 return
@@ -1848,13 +2033,298 @@ class Controller:
                         entry=entry, meta=meta):
                 with self._lock:
                     entry["evaluations"][lid] = result.evaluations
-                    meta.eval_received_at[lid] = time.time()
+                    now = time.time()
+                    meta.eval_received_at[lid] = now
+                    rec = self._learners.get(lid)
+                    sent = meta.eval_submitted_at.get(lid, 0.0)
+                    if rec is not None and sent:
+                        rec.ewma_eval_s = _ewma(rec.ewma_eval_s,
+                                                max(0.0, now - sent))
+                # outside the controller lock: the fold takes the
+                # registry's
+                if self._registry is not None:
+                    self._note_registry_eval(entry, expected=len(learners))
 
             try:
                 record.proxy.evaluate(task, _digest)
             except Exception:
                 logger.exception("eval dispatch to %s failed",
                                  record.learner_id)
+
+    # ------------------------------------------------------------------ #
+    # checkpoint / resume
+    # ------------------------------------------------------------------ #
+
+    _CKPT_NAME = "controller_ckpt.bin"
+
+    def _checkpoint_state(self) -> Dict[str, Any]:
+        """One capture of everything a round's bits depend on: the
+        community model, the round counter and lineage, the learner
+        registry with its tokens (a restarted controller recognizes
+        rejoining learners as themselves, with their party indices), the
+        rules' state, SCAFFOLD's ``c`` and the model registry. The
+        checkpoint file and the WAL snapshot share it, so a promoted
+        standby restores what ``--resume`` restores. The JAX package's
+        keys and encodings: its controller restores this state too."""
+        with self._lock:
+            state = {
+                "global_iteration": self.global_iteration,
+                "community_blob": self._community_blob or b"",
+                "round_metadata": [
+                    {k: v for k, v in m.to_dict().items()
+                     if k not in _PORT_ONLY_META}
+                    for m in self.round_metadata],
+                "community_evaluations": self._snapshot_evaluations(),
+                "learners": [self._learner_entry(r)
+                             for r in self._learners.values()],
+            }
+            # FedRec's scales rebuild its rolling sums from the store's
+            # lineage (aggregation/rolling.py rehydrate)
+            if hasattr(self._aggregator, "export_scales"):
+                state["agg_scales"] = self._aggregator.export_scales()
+            # the server optimizers' moments and FedNova's previous model
+            if hasattr(self._aggregator, "export_state"):
+                state["agg_state"] = self._aggregator.export_state()
+            if self._scaffold_c is not None:
+                state["scaffold_c"] = self._pack_scaffold_c()
+        if self._registry is not None:
+            # the channel heads and rollback target survive a failover, or
+            # serving would lose its promoted model; outside the controller
+            # lock (the export takes the registry's own)
+            state["registry"] = self._registry.export_state()
+        return state
+
+    @staticmethod
+    def _learner_entry(r: LearnerRecord) -> Dict[str, Any]:
+        """A learner's serialized registry entry: one shape for the
+        checkpoint, the WAL snapshot and the WAL's join delta, so the
+        replay merge and the restore agree field for field."""
+        return {"learner_id": r.learner_id,
+                "auth_token": r.auth_token,
+                "hostname": r.hostname,
+                "port": r.port,
+                "num_train_examples": r.num_train_examples,
+                "num_val_examples": r.num_val_examples,
+                "num_test_examples": r.num_test_examples,
+                "completed_batches": r.completed_batches,
+                "ms_per_step": float(r.ms_per_step),
+                "last_result_round": r.last_result_round,
+                "party_index": r.party_index,
+                "local_steps_override": r.local_steps_override,
+                "ewma_train_s": float(r.ewma_train_s),
+                "ewma_eval_s": float(r.ewma_eval_s)}
+
+    def save_checkpoint(self, path: Optional[str] = None,
+                        state: Optional[Dict[str, Any]] = None) -> str:
+        """Write the checkpoint (``state``, or a fresh capture) to ``path``
+        (default ``<checkpoint.dir>/controller_ckpt.bin``) as one codec
+        envelope, atomically (store/durable.py)."""
+        if path is None:
+            path = os.path.join(self.config.checkpoint.dir, self._CKPT_NAME)
+        if state is None:
+            state = self._checkpoint_state()
+        buf = codec_dumps(state)
+        os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+        _durable.atomic_write(path, buf, prefix=".ckpt_")
+        return path
+
+    def restore_checkpoint(self, path: Optional[str] = None) -> bool:
+        """Restore from :meth:`save_checkpoint`'s file (``path`` or the
+        config's directory); False when there is none (a fresh start)."""
+        if path is None:
+            path = self.config.checkpoint.dir
+        if os.path.isdir(path):
+            path = os.path.join(path, self._CKPT_NAME)
+        if not os.path.exists(path):
+            return False
+        with open(path, "rb") as f:
+            state = codec_loads(f.read())
+        self._restore_state(state)
+        with self._lock:
+            n_learners = len(self._learners)
+        logger.info("restored checkpoint %s at round %d (%d learner(s) in "
+                    "the registry, epoch %s)", path, self.global_iteration,
+                    n_learners, self.controller_epoch[:8])
+        return True
+
+    def restore_from_wal(self) -> bool:
+        """The hot standby's restore at promotion: the WAL's latest
+        snapshot merged with every registry delta after it, restored as
+        ``--resume`` restores a checkpoint. False when the log is empty
+        (the primary died before anything durable happened: the standby
+        serves a fresh federation and the learners re-attach by joining)."""
+        if self._wal is None:
+            return False
+        snapshot, deltas = self._wal.replay()
+        state = RoundStateLog.merge(snapshot, deltas)
+        if state is None:
+            return False
+        self._restore_state(state)
+        with self._lock:
+            n_learners = len(self._learners)
+        logger.info("restored WAL round state at round %d (%d learner(s), "
+                    "%d registry delta(s) past the snapshot, epoch %s)",
+                    self.global_iteration, n_learners, len(deltas),
+                    self.controller_epoch[:8])
+        return True
+
+    def _restore_state(self, state: Dict[str, Any]) -> None:
+        """Apply one ``_checkpoint_state``-shaped dict (of either package)
+        to this fresh controller; fields this package does not know are
+        dropped."""
+        blob = state.get("community_blob") or None
+        meta_fields = {f.name for f in dataclasses.fields(RoundMetadata)}
+        with self._lock:
+            self.global_iteration = int(state["global_iteration"])
+            self.round_metadata = [
+                RoundMetadata(**{k: v for k, v in m.items()
+                                 if k in meta_fields})
+                for m in state.get("round_metadata", [])]
+            self.community_evaluations = list(
+                state.get("community_evaluations", []))
+            self._current_meta = RoundMetadata(
+                global_iteration=self.global_iteration)
+        known_fields = {f.name for f in dataclasses.fields(LearnerRecord)}
+        for entry in state.get("learners", []):
+            record = LearnerRecord(**{k: v for k, v in entry.items()
+                                      if k in known_fields})
+            try:
+                # the learners may have outlived the controller: a working
+                # proxy re-dispatches the abandoned round at once; a dead
+                # endpoint fails its dispatch and heals on re-attach
+                record.proxy = self._proxy_factory(record)
+            except Exception:  # noqa: BLE001 - rebuilt on rejoin
+                logger.warning("could not rebuild the proxy of %s; waiting "
+                               "for its re-attach", record.learner_id)
+            with self._lock:
+                self._learners[record.learner_id] = record
+                self._tokens[record.learner_id] = record.auth_token
+        if blob:
+            self._in_restore = True
+            try:
+                self.set_community_model(blob)
+            finally:
+                self._in_restore = False
+        agg_scales = state.get("agg_scales")
+        if agg_scales and hasattr(self._aggregator, "rehydrate"):
+            # without this FedRec's rolling sum would restart from nothing
+            # and a straggler's earlier contribution count twice
+            restored = self._aggregator.rehydrate(self._store, agg_scales)
+            logger.info("rehydrated %d/%d rolling contributions from the "
+                        "store", restored, len(agg_scales))
+        scaffold_c = state.get("scaffold_c")
+        if scaffold_c:
+            with self._lock:
+                self._scaffold_c = {
+                    name: np.asarray(to_numpy(arr), np.float32)
+                    for name, arr in ModelBlob.from_bytes(scaffold_c).tensors}
+                self._scaffold_c_blob = None
+        agg_state = state.get("agg_state")
+        if agg_state and hasattr(self._aggregator, "restore_state"):
+            # the server optimizers resume the uninterrupted run's steps
+            self._aggregator.restore_state(agg_state)
+        registry_state = state.get("registry")
+        if registry_state and self._registry is not None:
+            # version ids stay monotonic across incarnations, and the
+            # gateway's next poll sees the stable head it served before
+            self._registry.restore_state(registry_state)
+
+    # ------------------------------------------------------------------ #
+    # model lifecycle (registry/)
+    # ------------------------------------------------------------------ #
+
+    def _register_round_version(self) -> None:
+        """Register the round that just aggregated as a candidate version
+        and record it in ``RoundMetadata``; on the scheduling worker, with
+        ``global_iteration`` still naming the round. Never raises (the
+        lifecycle must not trip the aggregation-failure retry)."""
+        if self._registry is None:
+            return
+        try:
+            with self._lock:
+                blob = self._community_blob
+            if blob is None:
+                return
+            # the round's health snapshot: {} until the health plane is
+            # ported (ROADMAP.md Queue 1 item 4)
+            info = self._registry.register(self.global_iteration, blob, {})
+            stable = self._registry.head(CHANNEL_STABLE)
+            with self._lock:
+                self._current_meta.registered_version = info.version
+                self._current_meta.stable_version = (
+                    stable.version if stable is not None else 0)
+        except Exception:  # noqa: BLE001 - the lifecycle never fails a round
+            logger.exception("model version registration failed")
+
+    def _note_registry_eval(self, entry: Dict[str, Any],
+                            expected: int = 0) -> None:
+        """Fold a round's community evaluation into its registered version
+        (``{"<dataset>/<metric>": mean over learners}``); under
+        ``promotion.auto`` the gate runs only once all ``expected``
+        digests landed, so one fast learner's partial mean never promotes
+        a model the whole cohort would reject. Never raises."""
+        if self._registry is None:
+            return
+        try:
+            with self._lock:
+                evals = {lid: dict(v)
+                         for lid, v in entry["evaluations"].items()}
+                round_id = int(entry["global_iteration"])
+            per: Dict[str, List[float]] = {}
+            for learner_evals in evals.values():
+                for ds, metrics in learner_evals.items():
+                    for name, value in metrics.items():
+                        try:
+                            per.setdefault(f"{ds}/{name}", []).append(
+                                float(value))
+                        except (TypeError, ValueError):
+                            continue
+            if not per:
+                return
+            folded = {k: sum(v) / len(v) for k, v in per.items()}
+            promoted = self._registry.note_eval(
+                round_id, folded, gate=len(evals) >= expected)
+            if promoted is not None:
+                logger.info("round %d eval promoted model version v%d to "
+                            "stable", round_id, promoted.version)
+        except Exception:  # noqa: BLE001 - an eval digest never breaks
+            logger.exception("registry eval fold failed")
+
+    def describe_registry(self) -> Dict[str, Any]:
+        """The registry's snapshot (DescribeRegistry, the gateway's polls);
+        ``{"enabled": False}`` when off."""
+        if self._registry is None:
+            return {"enabled": False}
+        return self._registry.describe()
+
+    def registered_model(self, version: int = 0,
+                         channel: str = "") -> Optional[bytes]:
+        """A registered version's blob, by id or by channel head."""
+        if self._registry is None:
+            return None
+        if not version and channel:
+            head = self._registry.head(channel)
+            if head is None:
+                return None
+            version = head.version
+        return self._registry.blob(version) if version else None
+
+    def promote_version(self, version: int, force: bool = False):
+        if self._registry is None:
+            raise ValueError("model registry is not enabled")
+        info = self._registry.promote(version, force=force)
+        # the new stable head must survive a crash before the next round's
+        # checkpoint (the queued save captures the promoted state)
+        self._checkpoint_async()
+        return info
+
+    def rollback_version(self):
+        if self._registry is None:
+            raise ValueError("model registry is not enabled")
+        info = self._registry.rollback()
+        if info is not None:
+            self._checkpoint_async()
+        return info
 
     # ------------------------------------------------------------------ #
     # lineage
@@ -1927,6 +2397,9 @@ class Controller:
                    if self._masked_stream is not None else {}),
                 **({"slices": slices} if slices is not None else {}),
             }
+            if self._registry is not None:
+                # channel heads and the version lineage
+                snapshot["registry"] = self._registry.describe()
             if (self._quorum > 0 or sched_cfg.dispatch_retries > 0
                     or self._scheduler.name == "asynchronous_buffered"
                     or quarantined):

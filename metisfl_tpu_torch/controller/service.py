@@ -11,8 +11,12 @@ constructed and the gRPC server only in :meth:`ControllerServer.start`, so
 the handlers can be driven by direct calls where grpc is not installed.
 
 The controller's proxy of a learner also asks it for a masking dropout
-residual (``RecoverMasks``). Not ported: the registry methods (ROADMAP.md
-Queue 1 item 3g) and ``GetMetrics`` (item 4).
+residual (``RecoverMasks``). The model registry's surface: its snapshot
+(``DescribeRegistry``), a version's blob by id or channel
+(``GetRegisteredModel``), and the operator's ``PromoteVersion`` and
+``RollbackVersion``, which answer ``{"ok": false, "error"}`` rather than
+fail when the gate refuses or the registry is off. Not ported:
+``GetMetrics`` (ROADMAP.md Queue 1 item 4).
 """
 
 from __future__ import annotations
@@ -124,6 +128,10 @@ class ControllerServer:
                 "ListLearners": self._list_learners,
                 "GetHealthStatus": self._health,
                 "DescribeFederation": self._describe,
+                "DescribeRegistry": self._describe_registry,
+                "GetRegisteredModel": self._get_registered_model,
+                "PromoteVersion": self._promote_version,
+                "RollbackVersion": self._rollback_version,
                 "ShutDown": self._shutdown_rpc,
             }, role="controller"),
         ]
@@ -177,6 +185,35 @@ class ControllerServer:
     def _describe(self, raw: bytes) -> bytes:
         return dumps(self.controller.describe())
 
+    def _describe_registry(self, raw: bytes) -> bytes:
+        return dumps(self.controller.describe_registry())
+
+    def _get_registered_model(self, raw: bytes) -> bytes:
+        req = loads(raw) if raw else {}
+        blob = self.controller.registered_model(
+            version=int(req.get("version", 0) or 0),
+            channel=str(req.get("channel", "") or ""))
+        return blob or b""
+
+    def _promote_version(self, raw: bytes) -> bytes:
+        req = loads(raw)
+        try:
+            info = self.controller.promote_version(
+                int(req["version"]), force=bool(req.get("force", False)))
+        except ValueError as exc:
+            # a refused gate is an answer, not a transport error
+            return dumps({"ok": False, "error": str(exc)})
+        return dumps({"ok": True, "version": info.to_dict()})
+
+    def _rollback_version(self, raw: bytes) -> bytes:
+        try:
+            info = self.controller.rollback_version()
+        except ValueError as exc:
+            return dumps({"ok": False, "error": str(exc)})
+        if info is None:
+            return dumps({"ok": False, "error": "nothing to roll back to"})
+        return dumps({"ok": True, "version": info.to_dict()})
+
     def _shutdown_rpc(self, raw: bytes) -> bytes:
         # ack first, then tear down off the RPC thread
         threading.Thread(target=self.stop, daemon=True).start()
@@ -216,9 +253,8 @@ class ControllerClient:
     ``standby`` is a second ``(host, port)`` of the controller: a call that
     has spent the transport's own UNAVAILABLE retries probes both
     endpoints (grpc.health.v1, the primary first) and is re-issued once
-    against whichever answers SERVING. Without it a call is exactly one
-    ``RpcClient.call``. (The port has no hot standby yet, ROADMAP.md
-    Queue 1 item 3f; the client keeps the two-endpoint contract.)"""
+    against whichever answers SERVING: the promoted hot standby after the
+    primary died. Without it a call is exactly one ``RpcClient.call``."""
 
     def __init__(self, host: str, port: int, ssl=None, comm=None,
                  standby: Optional[tuple] = None):
@@ -340,6 +376,34 @@ class ControllerClient:
         """A live snapshot: round, protocol, learners, in-flight tasks."""
         return loads(self._call("DescribeFederation", b"", timeout=timeout,
                                 wait_ready=wait_ready, idempotent=True))
+
+    def describe_registry(self, timeout: Optional[float] = None,
+                          wait_ready: bool = True) -> dict:
+        """The registry's snapshot (channel heads and retained lineage);
+        ``{"enabled": False}`` when off. The gateway polls it fail-fast."""
+        return loads(self._call("DescribeRegistry", b"", timeout=timeout,
+                                wait_ready=wait_ready, idempotent=True))
+
+    def get_registered_model(self, version: int = 0, channel: str = "",
+                             timeout: Optional[float] = None) -> bytes:
+        """A registered version's blob by id or channel (b'' when absent)."""
+        return self._call(
+            "GetRegisteredModel",
+            dumps({"version": int(version), "channel": channel}),
+            timeout=timeout, idempotent=True)
+
+    def promote_version(self, version: int, force: bool = False,
+                        timeout: Optional[float] = None) -> dict:
+        """``{"ok": bool, ...}``: a refused gate comes back as ``ok`` false
+        with its reasons."""
+        return loads(self._call(
+            "PromoteVersion", dumps({"version": int(version),
+                                     "force": bool(force)}),
+            timeout=timeout))
+
+    def rollback_version(self, timeout: Optional[float] = None) -> dict:
+        return loads(self._call("RollbackVersion", dumps({}),
+                                timeout=timeout))
 
     def list_methods(self, timeout: float = 5.0) -> dict:
         """The service's methods and transport capabilities (JSON)."""

@@ -37,10 +37,13 @@ CLI::
     # line, non-zero exit on a failed round or an accuracy gap beyond
     # --tolerance
     python -m metisfl_tpu_torch.driver.crossdevice --slice-smoke
+    # the controller-kill gate (driver/ha_smoke.py): a hot standby
+    # promotes, the versions equal the control's bits
+    python -m metisfl_tpu_torch.driver.crossdevice --controller-smoke \
+        [--device cpu]
 
 Not ported: the telemetry planes the JAX harness can arm (the cardinality
-budget and the alert smoke, ROADMAP.md Queue 1 item 4) and the
-controller-kill gate (``--controller-smoke``, item 3f).
+budget and the alert smoke, ROADMAP.md Queue 1 item 4).
 """
 
 from __future__ import annotations
@@ -72,10 +75,7 @@ from metisfl_tpu_torch.config import (
     FederationConfig,
     SchedulingConfig,
 )
-from metisfl_tpu_torch.config.federation import (
-    TreeAggregationConfig,
-    not_ported,
-)
+from metisfl_tpu_torch.config.federation import TreeAggregationConfig
 from metisfl_tpu_torch.controller.core import Controller, LearnerRecord
 from metisfl_tpu_torch.tensor.pytree import ModelBlob, pack_model, to_numpy
 
@@ -566,12 +566,23 @@ def main(argv: Optional[List[str]] = None) -> int:
                         help="run driver/secure_smoke.py's masked "
                              "federation against its plain control")
     parser.add_argument("--controller-smoke", action="store_true",
-                        help="not ported (ROADMAP.md Queue 1 item 3f)")
+                        help="run the controller-kill gate instead: a gRPC "
+                             "federation with a warm --standby, the "
+                             "controller killed mid-round; fails unless the "
+                             "standby promotes, every round completes and "
+                             "the versions equal the same-seed control's "
+                             "bits")
+    parser.add_argument("--device", default="cuda",
+                        help="the learners' device for --controller-smoke "
+                             "(cuda or cpu)")
     args = parser.parse_args(argv)
 
     if args.controller_smoke:
-        raise not_ported("the controller-kill gate (--controller-smoke)",
-                         "3f")
+        from metisfl_tpu_torch.driver.ha_smoke import run_ha_smoke
+        out = run_ha_smoke(rounds=min(args.rounds, 3), seed=args.seed,
+                           timeout_s=args.timeout, device=args.device)
+        print(json.dumps(out))
+        return 0 if out["ok"] else 1
     if args.secure_smoke:
         from metisfl_tpu_torch.driver.secure_smoke import run_secure_smoke
         out = run_secure_smoke(seed=args.seed)

@@ -48,18 +48,35 @@ runs, a slice process that died is relaunched with a doubling backoff
 (its spool reloads; the controller re-adopts it at a later round's
 assignment); at shutdown each gets the ShutDown RPC and is reaped.
 
-Chaos (``chaos.enabled``): each original controller, learner and slice
-process gets the rules whose ``process`` selector names it (``controller``,
-``learner``, ``learner_<i>``, ``slice``, ``slice_<i>``, or none for every
-process) through the ``METISFL_TPU_CHAOS`` env var; a relaunch runs clean.
+Chaos (``chaos.enabled``): each original controller, standby, learner and
+slice process gets the rules whose ``process`` selector names it
+(``controller``, ``standby``, ``learner``, ``learner_<i>``, ``slice``,
+``slice_<i>``, or none for every process) through the ``METISFL_TPU_CHAOS``
+env var; a relaunch runs clean, so a kill rule cannot re-fire on every
+restart and a failover can be shown to converge.
+
+Controller failover. Under ``failover.supervise_controller`` (the
+default) the checkpoint directory defaults to ``<workdir>/checkpoint``,
+and a controller that dies while the federation runs is relaunched with
+``--resume`` on its port after a doubling backoff, at most
+``max_controller_restarts`` times (the learners re-attach on the new
+epoch). Under ``controller.standby`` the standby's port and WAL directory
+(``<workdir>/wal``) are pinned before the config is written, the warm
+standby boots right behind the primary, and every learner and the
+driver's own client hold both endpoints; a dead primary is never
+relaunched: the driver waits for the standby to promote itself (probe
+driven) and hands the controller endpoint over to it. A warm standby that
+dies is relaunched within the same budget; a second controller death
+after the handoff fails the run. ``resume=True`` boots the controller
+with ``--resume`` and ships the seed model only when the checkpoint held
+no round.
 
 The port's controller dispatches no train task after
 ``termination.federation_rounds`` rounds, so the rounds criterion ends an
 idle federation; the two cutoffs end one mid-round.
 
 Not ported, and raising ``NotImplementedError`` with the ROADMAP.md Queue 1
-item: ``resume`` and the controller's supervision and hot standby (3f),
-serving (5), and trace and post-mortem collection (4).
+item: serving (5), and trace and post-mortem collection (4).
 """
 
 from __future__ import annotations
@@ -89,6 +106,7 @@ from metisfl_tpu_torch.comm.rpc import RpcClient
 from metisfl_tpu_torch.config import FederationConfig, LearnerEndpoint
 from metisfl_tpu_torch.config.federation import not_ported
 from metisfl_tpu_torch.controller.service import (
+    CONTROLLER_SERVICE,
     LEARNER_SERVICE,
     ControllerClient,
 )
@@ -97,6 +115,7 @@ from metisfl_tpu_torch.tensor.pytree import pack_model
 logger = logging.getLogger("metisfl_tpu_torch.driver")
 
 _CONTROLLER_READY = re.compile(r"METISFL_TPU_CONTROLLER_READY port=(\d+)")
+_PROMOTED = "METISFL_TPU_CONTROLLER_PROMOTED"
 _LEARNER_READY = re.compile(r"METISFL_TPU_LEARNER_READY port=(\d+)")
 
 
@@ -250,7 +269,8 @@ class DriverSession:
     process. ``device`` is where every learner's engine must run
     (``cuda`` unless the caller says otherwise; a learner whose recipe
     built its engine elsewhere refuses to start) and where the controller
-    runs the robust rules."""
+    runs the robust rules. ``resume``: the controller restores
+    ``checkpoint.dir`` before it serves (module docstring)."""
 
     _LOCAL_HOSTS = ("", "localhost", "127.0.0.1")
 
@@ -264,10 +284,8 @@ class DriverSession:
         resume: bool = False,
         device: str = "cuda",
     ):
-        if resume:
-            raise not_ported("resuming a federation from a checkpoint",
-                             "3f")
         self.config = config
+        self.resume = resume
         self.initial_blob = pack_model(initial_model_variables)
         self.learner_recipes = list(learner_recipes)
         self.workdir = workdir or tempfile.mkdtemp(prefix="metisfl_torch_")
@@ -286,6 +304,14 @@ class DriverSession:
         self._shutting_down = False
         # chaos arms original incarnations only (_chaos_env)
         self._chaos_armed: set = set()
+        # the controller's supervision: relaunches so far; the standby's
+        # relaunches while warm and the earliest time of the next; whether
+        # the controller endpoint was handed over to a promoted standby
+        # (there is no third incarnation after that)
+        self._controller_restarts = 0
+        self._standby_restarts = 0
+        self._standby_restart_after = 0.0
+        self._standby_promoted = False
 
     # ------------------------------------------------------------------ #
     # bootstrap
@@ -386,17 +412,41 @@ class DriverSession:
 
     def initialize_federation(self, health_retries: int = 60,
                               health_sleep_s: float = 0.5) -> None:
-        """Make the secure material, boot the controller and (under a local
-        controller, at once) the learners, wait until the controller
-        answers, ship the seed model; the learners join once it holds the
-        model."""
+        """Make the secure material, boot the controller (and its standby)
+        and (under a local controller, at once) the learners, wait until
+        the controller answers, ship the seed model; the learners join
+        once it holds the model."""
         self._prepare_secure()
         ctrl_host = self.config.controller_host or "localhost"
         # a local controller's port is known before it boots, so the
-        # learners' interpreters, recipes and devices start beside it
+        # learners' interpreters, recipes and devices start beside it; a
+        # supervised relaunch binds the same port
         early = ctrl_host in self._LOCAL_HOSTS
         if early and not self.config.controller_port:
             self.config.controller_port = _free_port()
+        # supervision restores from a checkpoint: default its directory
+        # into the workdir
+        if (self.config.failover.supervise_controller
+                and not self.config.checkpoint.dir):
+            self.config.checkpoint.dir = os.path.join(self.workdir,
+                                                      "checkpoint")
+        if self.config.checkpoint.dir:
+            os.makedirs(self.config.checkpoint.dir, exist_ok=True)
+        # the standby's endpoint and WAL directory, pinned before the config
+        # is written: the controller appends to the WAL, the standby tails
+        # it, and every peer holds both endpoints from the start
+        standby = self.config.controller.standby
+        if standby.enabled:
+            if not standby.wal_dir:
+                standby.wal_dir = os.path.join(self.workdir, "wal")
+            os.makedirs(standby.wal_dir, exist_ok=True)
+            if not standby.port:
+                if (standby.host or "localhost") not in self._LOCAL_HOSTS:
+                    raise ValueError(
+                        "controller.standby on remote host "
+                        f"{standby.host!r} requires an explicit "
+                        "controller.standby.port")
+                standby.port = _free_port()
         if self.config.ssl.enabled and not self.config.ssl.cert_path:
             # the federation's self-signed pair, made on first boot
             from metisfl_tpu_torch.comm.ssl import generate_self_signed
@@ -410,12 +460,10 @@ class DriverSession:
         else:
             self._write_config()
 
-        proc = self._launch("controller", ctrl_host, [
-            "-m", "metisfl_tpu_torch.controller",
-            "--config", self._config_path,
-            "--port", str(self.config.controller_port),
-            "--device", self.device], env=self._chaos_env("controller"),
-            ship=[self._config_path])
+        proc = self._launch_controller(resume=self.resume)
+        if standby.enabled:
+            # right behind the primary, so it tails the WAL from record one
+            self._launch_standby()
         if early:
             for idx in range(len(self.learner_recipes)):
                 self.launch_learner(idx, wait_for_model=True)
@@ -424,16 +472,194 @@ class DriverSession:
             # an ephemeral port: the controller prints the one it bound
             self.config.controller_port = self._wait_ready_port(proc,
                                                                 deadline)
-        self._client = ControllerClient(ctrl_host,
-                                        self.config.controller_port,
-                                        ssl=self.config.ssl,
-                                        comm=self.config.comm)
+        self._client = ControllerClient(
+            ctrl_host, self.config.controller_port, ssl=self.config.ssl,
+            comm=self.config.comm, standby=self._standby_endpoint())
         self._wait_healthy(deadline, health_sleep_s)
-        self._client.replace_community_model(self.initial_blob)
+        # the seed model, unless the controller resumed a checkpointed
+        # round (it reports its restored round counter)
+        if not (self.resume
+                and self._client.get_statistics()["global_iteration"] > 0):
+            self._client.replace_community_model(self.initial_blob)
         if not early:
             for idx in range(len(self.learner_recipes)):
                 self.launch_learner(idx)
         self._started_at = time.time()
+
+    def _standby_endpoint(self) -> Optional[tuple]:
+        """The warm standby's ``(host, port)`` for the peers' two-endpoint
+        clients; None without one, or once it took over."""
+        standby = self.config.controller.standby
+        if not standby.enabled or self._standby_promoted:
+            return None
+        return (standby.host or "localhost", standby.port)
+
+    def _launch_controller(self, resume: bool = False) -> _Proc:
+        """(Re)launch the controller on its port; ``resume`` restores the
+        checkpoint and re-dispatches the abandoned round."""
+        args = ["-m", "metisfl_tpu_torch.controller",
+                "--config", self._config_path,
+                "--port", str(self.config.controller_port),
+                "--device", self.device]
+        if resume:
+            args.append("--resume")
+        return self._launch("controller",
+                            self.config.controller_host or "localhost", args,
+                            env=self._chaos_env("controller"),
+                            ship=[self._config_path])
+
+    def _launch_standby(self) -> _Proc:
+        """(Re)launch the warm standby (``--standby``): it tails the WAL and
+        promotes itself when the primary dies; the driver only observes
+        the promotion."""
+        standby = self.config.controller.standby
+        return self._launch("standby", standby.host or "localhost", [
+            "-m", "metisfl_tpu_torch.controller",
+            "--config", self._config_path,
+            "--port", str(standby.port),
+            "--device", self.device,
+            "--standby"], env=self._chaos_env("standby"),
+            ship=[self._config_path])
+
+    def _supervise_controller(self) -> bool:
+        """A controller process that died while the federation runs: hand
+        over to the hot standby (under ``controller.standby``), or relaunch
+        it with ``--resume`` within the restart budget, after a doubling
+        backoff. True when a relaunch or a handoff happened; raises once the
+        budget is spent or no standby is left (a controller that crashes
+        every time must fail the run, not loop)."""
+        ctrl = next((p for p in self._procs if p.name == "controller"), None)
+        if (ctrl is None or self._shutting_down
+                or ctrl.process.poll() is None):
+            return False
+        if self.config.controller.standby.enabled:
+            # the primary is never relaunched: the standby takes over
+            return self._failover_to_standby(ctrl)
+        fo = self.config.failover
+        if not fo.supervise_controller:
+            return False  # _check_procs_alive reports the death
+        code = ctrl.process.poll()
+        if self._controller_restarts >= fo.max_controller_restarts:
+            raise RuntimeError(
+                f"controller died (exit {code}) with the restart budget "
+                f"({fo.max_controller_restarts}) spent; log tail:\n"
+                f"{self._log_tail(ctrl)}")
+        self._controller_restarts += 1
+        backoff = fo.restart_backoff_s * (2 ** (self._controller_restarts
+                                                - 1))
+        logger.warning(
+            "controller died (exit %s); supervised restart %d/%d with "
+            "--resume in %.1fs", code, self._controller_restarts,
+            fo.max_controller_restarts, backoff)
+        time.sleep(backoff)
+        self._launch_controller(resume=True)
+        try:
+            self._wait_healthy(time.time() + 30.0, 0.5)
+        except RuntimeError as exc:
+            # the relaunch died too: spend the budget across supervision
+            # cycles rather than abort with restarts left
+            if self._controller_restarts >= fo.max_controller_restarts:
+                raise
+            logger.warning("relaunched controller not healthy (%s); "
+                           "supervision will retry", exc)
+            return True
+        logger.info("controller restarted and healthy (restart %d)",
+                    self._controller_restarts)
+        return True
+
+    def _failover_to_standby(self, ctrl: _Proc) -> bool:
+        """A controller death under a hot standby: wait (bounded) until the
+        standby's self-promotion answers SERVING for the controller
+        service, then move ``controller_host``/``_port`` to it, so the
+        shutdown and any learner relaunch follow; live peers redial on
+        their own. A dead standby, or a second controller death after the
+        handoff, is a double fault and fails the run."""
+        code = ctrl.process.poll()
+        standby = self.config.controller.standby
+        host = standby.host or "localhost"
+        sb = next((p for p in self._procs if p.name == "standby"), None)
+        if self._standby_promoted or sb is None or (
+                sb.process.poll() is not None):
+            raise RuntimeError(
+                f"controller died (exit {code}) with no live standby left "
+                f"(double fault); log tail:\n{self._log_tail(ctrl)}")
+        logger.warning("controller died (exit %s); waiting for standby "
+                       "%s:%d to promote", code, host, standby.port)
+        # one staleness window, the probe escalation, and room for the
+        # WAL restore
+        budget = (standby.stale_after_s
+                  + standby.probe_interval_s * (standby.probe_failures + 2)
+                  + 30.0)
+        t0 = time.monotonic()
+        while time.monotonic() - t0 < budget:
+            if sb.process.poll() is not None:
+                break  # died while promoting: the double fault below
+            if probe_health(host, standby.port, CONTROLLER_SERVICE,
+                            ssl=self.config.ssl,
+                            comm=self.config.comm) == "SERVING":
+                waited = time.monotonic() - t0
+                self.config.controller_host = host
+                self.config.controller_port = standby.port
+                self._standby_promoted = True
+                # the promoted standby is the controller now: the shutdown
+                # waits on it and its death is the double fault above
+                self._procs = [p for p in self._procs
+                               if p.name != "controller"]
+                sb.name = "controller"
+                logger.warning(
+                    "standby promoted at %s:%d after %.1fs; controller "
+                    "endpoint handed over", host, standby.port, waited)
+                return True
+            time.sleep(min(1.0, standby.probe_interval_s))
+        raise RuntimeError(
+            f"controller died (exit {code}) and the standby at "
+            f"{host}:{standby.port} never promoted within {budget:.0f}s; "
+            f"standby log tail:\n{self._log_tail(sb)}")
+
+    def _supervise_standby(self) -> bool:
+        """A warm standby that died is relaunched (it re-tails the WAL),
+        within ``max_controller_restarts`` and a capped doubling backoff;
+        past the budget the federation runs on without a standby (the next
+        controller death is fatal). It never fails the run: the standby is
+        redundancy, not the service."""
+        standby = self.config.controller.standby
+        if (not standby.enabled or self._standby_promoted
+                or self._shutting_down):
+            return False
+        sb = next((p for p in self._procs if p.name == "standby"), None)
+        if sb is None or sb.process.poll() is None:
+            return False
+        if time.time() < self._standby_restart_after:
+            return False
+        code = sb.process.poll()
+        fo = self.config.failover
+        if self._standby_restarts >= fo.max_controller_restarts:
+            logger.error(
+                "standby died (exit %s) with its relaunch budget (%d) spent;"
+                " going on WITHOUT a standby: the next controller death is "
+                "fatal", code, fo.max_controller_restarts)
+            self._procs = [p for p in self._procs if p.name != "standby"]
+            return False
+        self._standby_restarts += 1
+        backoff = fo.restart_backoff_s * (2 ** (self._standby_restarts - 1))
+        self._standby_restart_after = time.time() + min(backoff, 60.0)
+        logger.warning("standby died (exit %s); relaunch %d/%d", code,
+                       self._standby_restarts, fo.max_controller_restarts)
+        self._launch_standby()
+        return True
+
+    @staticmethod
+    def _log_tail(proc: _Proc, chars: int = 2000) -> str:
+        with open(proc.log_path) as f:
+            return f.read()[-chars:]
+
+    def standby_promoted_in_log(self) -> bool:
+        """Whether the promoted controller's own log says it promoted (the
+        standby prints ``METISFL_TPU_CONTROLLER_PROMOTED`` when it serves)."""
+        proc = next((p for p in self._procs if p.name == "controller"),
+                    None)
+        return (self._standby_promoted and proc is not None
+                and _PROMOTED in self._log_tail(proc, 1 << 20))
 
     def _write_config(self) -> None:
         self._config_path = os.path.join(self.workdir,
@@ -614,6 +840,8 @@ class DriverSession:
                 "--recipe", recipe_path,
                 "--device", self.device,
                 "--rpc-deadline-s", str(self.config.comm.default_deadline_s),
+                "--rpc-retries", str(self.config.comm.retries),
+                "--rpc-retry-sleep-s", str(self.config.comm.retry_sleep_s),
                 "--credentials-dir",
                 os.path.join(self.workdir, f"{name}_creds")]
         if self.config.ssl.enabled:
@@ -623,6 +851,10 @@ class DriverSession:
             args += ["--secure-config", self._secure_path(idx)]
         if wait_for_model:
             args.append("--wait-for-model")
+        standby = self._standby_endpoint()
+        if standby is not None:
+            args += ["--standby-host", standby[0],
+                     "--standby-port", str(standby[1])]
         return self._launch(name, ep.hostname or "localhost", args,
                             {**self.learner_env,
                              **self._chaos_env("learner", idx)},
@@ -641,18 +873,23 @@ class DriverSession:
             time.sleep(sleep_s)
         raise RuntimeError(f"controller never became healthy: {last_exc}")
 
-    def _check_procs_alive(self) -> None:
-        """Raise with the log's tail if any process exited non-zero (a
-        slice aggregator is supervised instead, once the federation runs)."""
+    def _check_procs_alive(self, skip: Sequence[str] = ()) -> None:
+        """Raise with the log's tail if any process not in ``skip`` exited
+        non-zero. A slice aggregator is supervised instead once the
+        federation runs, and under a hot standby a controller or standby
+        death is a failover, which the supervision handles."""
+        skip = tuple(skip)
+        if self.config.controller.standby.enabled:
+            skip += ("controller", "standby")
         for proc in self._procs:
-            if proc.name.startswith("slice_") and self._started_at:
+            if proc.name in skip or (proc.name.startswith("slice_")
+                                     and self._started_at):
                 continue
             code = proc.process.poll()
             if code is not None and code != 0:
-                with open(proc.log_path) as f:
-                    tail = f.read()[-2000:]
                 raise RuntimeError(
-                    f"{proc.name} exited with code {code}; log tail:\n{tail}")
+                    f"{proc.name} exited with code {code}; log tail:\n"
+                    f"{self._log_tail(proc)}")
 
     # ------------------------------------------------------------------ #
     # monitoring
@@ -670,8 +907,20 @@ class DriverSession:
         poll_failures = 0
         while True:
             time.sleep(poll_every_s)
+            # a dead controller first: relaunched, handed over, or (with
+            # the supervision off) reported by the liveness check below
+            self._supervise_controller()
+            self._supervise_standby()
             self._supervise_slices()
-            self._check_procs_alive()
+            skip = (("controller",)
+                    if self.config.failover.supervise_controller else ())
+            if self.config.chaos.enabled:
+                # a kill rule names its victim up front: its death is the
+                # fault under test, which the failover must absorb
+                skip += tuple(
+                    str(r["process"]) for r in self.config.chaos.rules
+                    if r.get("fault") == "kill" and r.get("process"))
+            self._check_procs_alive(skip=skip)
             try:
                 # fail fast on a dead controller (short deadline, no wait
                 # for ready); the lineage RPCs are tail-bounded
@@ -816,6 +1065,14 @@ class DriverSession:
                 self._shut_down_learner(host, port)
         self._wait(learners, deadline)
         self.stop_slices(max(0.0, deadline - time.time()))
+        for proc in self._procs:
+            if proc.name == "standby" and proc.process.poll() is None:
+                # the warm standby has no ShutDown RPC: SIGTERM is its clean
+                # exit, sent before the primary stops, or the primary's
+                # stop would read as a WAL stall and the standby promote
+                # into the shutdown
+                self._stop(proc)
+                self._wait([proc], deadline)
         if self._client is not None:
             try:
                 self._client.shutdown_controller()

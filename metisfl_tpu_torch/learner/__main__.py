@@ -18,15 +18,19 @@ once the controller holds a community model) joins the controller and
 prints ``METISFL_TPU_LEARNER_JOINED id=<id> rejoined=<bool>``; it serves
 until a ShutDown RPC, SIGTERM or SIGINT, and leaves the federation on
 the way out. Its identity (learner id and token) persists in
-``--credentials-dir``, so a restarted learner rejoins as itself.
+``--credentials-dir``, so a restarted learner rejoins as itself; it is
+saved again after every re-attach (a controller that lost its registry
+hands out a new id, which the next restart must present).
+``--standby-host``/``--standby-port`` name the controller's hot standby:
+a call that spends its UNAVAILABLE retries on the primary is re-issued
+against whichever endpoint answers SERVING.
 
 A ``METISFL_TPU_CHAOS`` spec in the environment arms the chaos injector
 (metisfl_tpu_torch/chaos) at start; its ``slow`` rules stretch each train
 task.
 
-Not ported: the controller's standby endpoint (ROADMAP.md Queue 1 item
-3f), multi-host learners (9), and the telemetry and post-mortem
-directories (4).
+Not ported: multi-host learners (ROADMAP.md Queue 1 item 9), and the
+telemetry and post-mortem directories (4).
 """
 
 from __future__ import annotations
@@ -99,6 +103,11 @@ def main(argv=None) -> int:
     parser = argparse.ArgumentParser("metisfl_tpu_torch.learner")
     parser.add_argument("--controller-host", default="localhost")
     parser.add_argument("--controller-port", type=int, required=True)
+    parser.add_argument("--standby-host", default="",
+                        help="the controller's hot standby: a call that "
+                             "spends its UNAVAILABLE retries re-resolves to "
+                             "whichever endpoint answers SERVING")
+    parser.add_argument("--standby-port", type=int, default=0)
     parser.add_argument("--host", default="0.0.0.0")
     parser.add_argument("--advertise-host", default="",
                         help="hostname the controller dials back")
@@ -127,6 +136,12 @@ def main(argv=None) -> int:
                         help="default RPC deadline toward the controller "
                              "(<= 0 = unbounded; omitted = the transport's "
                              "default)")
+    parser.add_argument("--rpc-retries", type=int, default=None,
+                        help="UNAVAILABLE retries of a call toward the "
+                             "controller, and probe rounds of a redial "
+                             "(omitted = the transport's default)")
+    parser.add_argument("--rpc-retry-sleep-s", type=float, default=None,
+                        help="seconds between those retries")
     args = parser.parse_args(argv)
     # stopped before it serves (loading the recipe takes seconds), the
     # learner has nothing to leave or drain: exit at once, cleanly
@@ -167,10 +182,23 @@ def main(argv=None) -> int:
             logger.info("found persisted credentials for %s; rejoining",
                         previous_id)
     comm = None
-    if args.rpc_deadline_s is not None:
-        comm = CommConfig(default_deadline_s=args.rpc_deadline_s)
-    controller = ControllerClient(args.controller_host,
-                                  args.controller_port, ssl=ssl, comm=comm)
+    if (args.rpc_deadline_s, args.rpc_retries,
+            args.rpc_retry_sleep_s) != (None, None, None):
+        # the config's comm section, as the driver forwards it
+        defaults = CommConfig()
+        comm = CommConfig(
+            default_deadline_s=(defaults.default_deadline_s
+                                if args.rpc_deadline_s is None
+                                else args.rpc_deadline_s),
+            retries=(defaults.retries if args.rpc_retries is None
+                     else args.rpc_retries),
+            retry_sleep_s=(defaults.retry_sleep_s
+                           if args.rpc_retry_sleep_s is None
+                           else args.rpc_retry_sleep_s))
+    controller = ControllerClient(
+        args.controller_host, args.controller_port, ssl=ssl, comm=comm,
+        standby=((args.standby_host or "localhost", args.standby_port)
+                 if args.standby_port else None))
     learner = Learner(
         model_ops=model_ops,
         train_dataset=train_ds,
@@ -183,6 +211,9 @@ def main(argv=None) -> int:
     server = LearnerServer(learner, host=args.host, port=args.port, ssl=ssl)
     port = server.start()
     print(f"METISFL_TPU_LEARNER_READY port={port}", flush=True)
+    if args.credentials_dir:
+        learner.on_join = lambda reply: save_credentials(
+            args.credentials_dir, reply.learner_id, reply.auth_token)
     try:
         if args.wait_for_model:
             wait_for_model(controller)

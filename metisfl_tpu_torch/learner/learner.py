@@ -33,18 +33,27 @@ the engine's dtypes; a masking backend starts each train task's round
 party's residual on request (:meth:`Learner.recover_masks`). The backend
 is host numpy: no secure work runs on the card.
 
-Not ported yet: controller-failover re-attach and telemetry (ROADMAP.md
-Queue 1 items 3f and 4).
+Controller failover: the learner remembers the ``controller_epoch`` it
+joined under. A task stamped with another epoch (a restarted or promoted
+controller) makes it re-attach first (:meth:`Learner.reattach`: join
+again with its id and token, which a restored registry recognizes); a
+completion the controller rejects or cannot take makes it re-attach and
+resubmit once under the refreshed credentials. ``on_join`` sees every
+re-attach's reply (the learner process saves its credentials there). A
+learner that left on purpose never re-attaches.
+
+Not ported yet: telemetry (ROADMAP.md Queue 1 item 4).
 """
 
 from __future__ import annotations
 
+import dataclasses
 import logging
 import re
 import threading
 import time
 from concurrent.futures import ThreadPoolExecutor
-from typing import Dict, Optional, Protocol
+from typing import Callable, Dict, Optional, Protocol
 
 import numpy as np
 import torch
@@ -147,6 +156,18 @@ class Learner:
         self.port = port
         self.learner_id: str = ""
         self.auth_token: str = ""
+        # the controller incarnation joined under: a task of another epoch
+        # means the controller restarted, and the learner re-attaches
+        self.controller_epoch: str = ""
+        # called with the JoinReply after every re-attach (the learner
+        # process saves its credentials there)
+        self.on_join: Optional[Callable[[JoinReply], None]] = None
+        # the bounded re-attach loop
+        self.reattach_retries = 10
+        self.reattach_backoff_s = 1.0
+        # a deliberate leave: a straggling completion rejected after it
+        # must not re-register the learner (reset by the next join)
+        self._left = False
         self._executor = ThreadPoolExecutor(max_workers=1,
                                             thread_name_prefix="learner-train")
         self._cancel = threading.Event()
@@ -207,12 +228,99 @@ class Learner:
         ))
         self.learner_id = reply.learner_id
         self.auth_token = reply.auth_token
+        if reply.controller_epoch:
+            self.controller_epoch = reply.controller_epoch
+        self._left = False
         return reply
 
     def leave_federation(self) -> bool:
         if not self.learner_id:
             return False
+        self._left = True
         return self.controller.leave(self.learner_id, self.auth_token)
+
+    # ------------------------------------------------------------------ #
+    # controller-failover re-attach
+    # ------------------------------------------------------------------ #
+
+    def reattach(self, reason: str) -> bool:
+        """Join again as ourselves after losing the controller (a
+        completion rejected or undeliverable, or a task of another epoch).
+        A controller that restored its registry keeps our identity, party
+        index included; one that lost it gives a new identity, which we
+        adopt and hand to ``on_join``."""
+        previous_id, token = self.learner_id, self.auth_token
+        for attempt in range(1, max(1, self.reattach_retries) + 1):
+            if self._shutdown.is_set():
+                return False
+            try:
+                reply = self.join_federation(previous_id=previous_id,
+                                             auth_token=token)
+            except Exception as exc:  # noqa: BLE001 - retried
+                logger.warning("%s: re-attach attempt %d/%d failed: %s",
+                               previous_id, attempt, self.reattach_retries,
+                               exc)
+                self._shutdown.wait(self.reattach_backoff_s)
+                continue
+            logger.info(
+                "%s: re-attached to controller (epoch %s, rejoined=%s, "
+                "reason=%s)", self.learner_id,
+                (reply.controller_epoch or "?")[:8], reply.rejoined, reason)
+            if self.on_join is not None:
+                try:
+                    self.on_join(reply)
+                except Exception:  # noqa: BLE001 - persistence best-effort
+                    logger.exception("on_join callback failed")
+            return True
+        logger.error("%s: re-attach gave up after %d attempts (reason=%s)",
+                     previous_id, self.reattach_retries, reason)
+        return False
+
+    def _check_controller_epoch(self, task_epoch: str) -> None:
+        """A task stamped with another controller incarnation than the one
+        we joined: the controller restarted, so refresh the registration
+        instead of trusting the stale one."""
+        if (task_epoch and self.controller_epoch
+                and task_epoch != self.controller_epoch):
+            logger.warning(
+                "%s: task from controller epoch %s but joined under %s; "
+                "re-attaching", self.learner_id, task_epoch[:8],
+                self.controller_epoch[:8])
+            self.reattach("epoch_mismatch")
+
+    def _report_completion(self, result: TaskResult) -> bool:
+        """Deliver a TaskResult through a controller crash between the
+        dispatch and the completion: on a transport failure or a rejection,
+        re-attach and resubmit once under the refreshed credentials (the
+        new incarnation keeps the model as a late contribution)."""
+        try:
+            if self.controller.task_completed(result):
+                return True
+            if self._left or self._shutdown.is_set():
+                # rejected because we left or stop: not a controller fault
+                return False
+            reason = "completion_rejected"
+            logger.warning("%s: completion for task %s rejected; "
+                           "re-attaching", self.learner_id, result.task_id)
+        except Exception as exc:  # noqa: BLE001 - a transport failure
+            if self._left or self._shutdown.is_set():
+                return False
+            reason = "completion_unavailable"
+            logger.warning("%s: completion for task %s undeliverable (%s); "
+                           "re-attaching", self.learner_id, result.task_id,
+                           exc)
+        if not self.reattach(reason):
+            logger.error("%s: dropping the result of task %s (re-attach "
+                         "failed)", self.learner_id, result.task_id)
+            return False
+        result = dataclasses.replace(result, learner_id=self.learner_id,
+                                     auth_token=self.auth_token)
+        try:
+            return bool(self.controller.task_completed(result))
+        except Exception:  # noqa: BLE001 - the round deadline recovers
+            logger.exception("%s: completion resubmit failed for task %s",
+                             self.learner_id, result.task_id)
+            return False
 
     # ------------------------------------------------------------------ #
     # model wire I/O
@@ -422,6 +530,9 @@ class Learner:
     def _run_train_task(self, task: TrainTask) -> None:
         self._cancel.clear()
         try:
+            # before paying for training: a task of a restarted controller
+            # refreshes the registration first
+            self._check_controller_epoch(task.controller_epoch)
             params = task.params
             # the regexes before the load: round-2+ community blobs leave
             # out the local tensors and the frozen base, which the load
@@ -519,9 +630,7 @@ class Learner:
                 epoch_metrics=out.epoch_metrics,
                 control_delta=control_delta,
             )
-            if not self.controller.task_completed(result):
-                logger.warning("%s: completion for task %s rejected",
-                               self.learner_id, task.task_id)
+            self._report_completion(result)
         except Exception:
             logger.exception("%s: training task %s failed",
                              self.learner_id, task.task_id)
@@ -533,6 +642,7 @@ class Learner:
         which tensors the community blob leaves out (a task without them
         clears them)."""
         t0 = time.time()
+        self._check_controller_epoch(task.controller_epoch)
         self._adopt_local_regex(task.local_tensor_regex)
         self._ship_regex = task.ship_tensor_regex
         variables = self._load_model(task.model)

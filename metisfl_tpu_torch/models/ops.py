@@ -13,6 +13,13 @@ SCAFFOLD ``grad_offset`` added to the gradients, as the JAX engine does.
 PyTorch runs eagerly, so the JAX engine's compiled step and its fused
 ``lax.scan`` chunks have no counterpart: ``scan_chunk`` only sets how many
 steps run between host syncs.
+
+A step is deterministic on the card, as the JAX engine's is: the same
+weights and batches give the same bits in any process, which a failover's
+re-run round relies on. The flash kernels, ``F.embedding``'s backward and
+cuBLAS are; cuDNN's convolutions are once ``torch.backends.cudnn.
+deterministic`` is set (its default backward algorithms add with atomics),
+which an engine on a CUDA device sets.
 """
 
 from __future__ import annotations
@@ -135,6 +142,9 @@ class TorchModelOps:
                  loss: Union[str, Callable] = "softmax_cross_entropy",
                  trainable_regex: str = ""):
         self.device = resolve_device(device)
+        if self.device.type == "cuda":
+            # deterministic convolution algorithms (module docstring)
+            torch.backends.cudnn.deterministic = True
         self.module = module.to(self.device).eval()
         if variables is not None:
             load_flax_variables(self.module, variables)

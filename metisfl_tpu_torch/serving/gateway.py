@@ -16,6 +16,14 @@ The torch side of the JAX package's ``serving/gateway.py``:
 - **Canary.** Requests carry a routing key; ``crc32(key) % 10000`` below
   ``canary_percent * 100`` routes to the ``candidate`` channel when one is
   installed. Deterministic: a key always lands on the same side.
+- **Registry sync.** :meth:`ServingGateway.sync` compares the channel heads
+  of a registry source with what is installed and hot-swaps the changed
+  ones; :meth:`ServingGateway.start_sync` polls on a background thread
+  every ``poll_every_s``, its first poll phased by ``initial_delay_s``
+  (replicas stagger so that a promotion rolls through a fleet one at a
+  time). The sources: :class:`DirectRegistrySource` (a controller in this
+  process) and :class:`ControllerRegistrySource` (a ``ControllerClient``,
+  which redials a promoted standby).
 
 Metrics, events and trace spans join with the telemetry slice.
 """
@@ -185,6 +193,39 @@ class MicroBatcher:
         self._worker.join(timeout=30.0)
 
 
+# --------------------------------------------------------------------- #
+# registry sources (where the gateway learns of promoted versions)
+# --------------------------------------------------------------------- #
+
+class DirectRegistrySource:
+    """In-process source: reads a live controller."""
+
+    def __init__(self, controller):
+        self._controller = controller
+
+    def describe(self) -> Dict[str, Any]:
+        return self._controller.describe_registry()
+
+    def blob(self, version: int) -> Optional[bytes]:
+        return self._controller.registered_model(version)
+
+
+class ControllerRegistrySource:
+    """RPC source: polls the controller's ``DescribeRegistry`` and
+    ``GetRegisteredModel`` (fail-fast, as the driver's polls are)."""
+
+    def __init__(self, client):
+        self._client = client
+
+    def describe(self) -> Dict[str, Any]:
+        return self._client.describe_registry(timeout=15.0,
+                                              wait_ready=False)
+
+    def blob(self, version: int) -> Optional[bytes]:
+        return self._client.get_registered_model(version=version,
+                                                 timeout=60.0)
+
+
 class ServingGateway:
     """Serve inference over registry channels. ``model_ops`` (a
     ``TorchModelOps``) supplies the architecture and the forward;
@@ -212,6 +253,10 @@ class ServingGateway:
         self._requests = 0
         self._shut_down = False
         self._started_at = time.time()
+        # the registry poller (start_sync)
+        self._sync_stop = threading.Event()
+        self._sync_thread: Optional[threading.Thread] = None
+        self._last_sync_error = ""
 
     # -- model install / hot-swap ------------------------------------- #
 
@@ -285,6 +330,31 @@ class ServingGateway:
             if blob:
                 self.install(channel, head, blob)
         return self.installed()
+
+    def start_sync(self, source, poll_every_s: Optional[float] = None,
+                   initial_delay_s: float = 0.0) -> None:
+        """Poll ``source`` on a background thread (a gateway process's main
+        loop) every ``poll_every_s`` (default the config's), the first poll
+        after ``initial_delay_s``. A failed poll is logged and retried at
+        the next tick; :meth:`shutdown` stops the thread."""
+        period = (self.config.poll_every_s if poll_every_s is None
+                  else poll_every_s)
+
+        def _loop():
+            if initial_delay_s > 0.0:
+                self._sync_stop.wait(initial_delay_s)
+            while not self._sync_stop.is_set():
+                try:
+                    self.sync(source)
+                    self._last_sync_error = ""
+                except Exception as exc:  # noqa: BLE001 - keep polling
+                    self._last_sync_error = str(exc)
+                    logger.warning("registry sync failed: %s", exc)
+                self._sync_stop.wait(max(0.05, period))
+
+        self._sync_thread = threading.Thread(target=_loop, daemon=True,
+                                             name="serving-sync")
+        self._sync_thread.start()
 
     # -- request path --------------------------------------------------- #
 
@@ -436,6 +506,9 @@ class ServingGateway:
         return out
 
     def shutdown(self) -> None:
+        self._sync_stop.set()
+        if self._sync_thread is not None:
+            self._sync_thread.join(timeout=10.0)
         with self._lock:
             self._shut_down = True
             batchers = list(self._batchers.values())

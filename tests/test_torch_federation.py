@@ -594,13 +594,6 @@ def test_completion_with_a_bad_token_is_rejected():
 # -- unsupported configurations ---------------------------------------------
 
 UNSUPPORTED = {
-    # the stores are ported; what stays refused around them is the disk
-    # store's checkpoints (3f)
-    "store_disk": lambda: FederationConfig(
-        model_store=ModelStoreConfig(store="disk"),
-        checkpoint=CheckpointConfig(dir="ckpt")),
-    "checkpoint": lambda: FederationConfig(
-        checkpoint=CheckpointConfig(dir="ckpt")),
     # DriverSession watches the cutoffs; the in-process federation cannot
     "cutoff_wall_clock": lambda: InProcessFederation(FederationConfig(
         termination=TerminationConfig(execution_cutoff_mins=5.0))),
@@ -617,6 +610,12 @@ def test_unsupported_config_raises(name):
 
 # ported since the configurations above were refused
 SUPPORTED = {
+    # controller checkpoints, beside the disk store too (failover)
+    "store_disk": lambda: FederationConfig(
+        model_store=ModelStoreConfig(store="disk"),
+        checkpoint=CheckpointConfig(dir="ckpt")),
+    "checkpoint": lambda: FederationConfig(
+        checkpoint=CheckpointConfig(dir="ckpt")),
     # round control: every protocol, quorum barriers and deadlines
     "protocol_semi_synchronous": lambda: FederationConfig(
         protocol="semi_synchronous"),

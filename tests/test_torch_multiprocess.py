@@ -444,8 +444,9 @@ def test_what_is_not_ported_is_refused_before_any_process_starts(tmp_path):
     # endpoint (tests/test_torch_deploy.py launches through it)
     launcher = SSHLauncher("remote-host", str(tmp_path))
     assert (launcher.host, launcher.workdir) == ("remote-host", str(tmp_path))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        DriverSession(FederationConfig(), template, [], resume=True)
+    # resume is ported: the session boots its controller with --resume
+    assert DriverSession(FederationConfig(), template, [], resume=True,
+                         workdir=str(tmp_path / "resumed")).resume
     remote = DriverSession(
         FederationConfig(learners=[LearnerEndpoint(hostname="node-7")]),
         template, [_mlp_recipe(*_arrays((8,))[0][0], None, 0)],
@@ -459,9 +460,13 @@ def test_what_is_not_ported_is_refused_before_any_process_starts(tmp_path):
             refused()
     cfg = tmp_path / "federation_config.bin"
     cfg.write_bytes(FederationConfig().to_wire())
+    # --standby and --resume are ported: each refuses a config without
+    # what it needs (the standby and its WAL; a checkpoint directory)
+    # before any server starts
     for flag in ("--standby", "--resume"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            controller_main(["--config", str(cfg), flag])
+        with pytest.raises(SystemExit) as exc:
+            controller_main(["--config", str(cfg), flag, "--device", "cpu"])
+        assert exc.value.code == 2
 
 
 def test_learner_refuses_an_engine_off_the_expected_device(tmp_path):
