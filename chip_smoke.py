@@ -184,14 +184,33 @@ It drives the port only (it imports no jax and nothing of the JAX package):
    round-pinned versions are the multiprocess phase's (the control's)
    bits; (c) the CNN (no dropout) with a process per learner, the same
    kill without a standby: the driver relaunches the controller with
-   ``--resume`` once, the versions are a control run's bits.
+   ``--resume`` once, the versions are a control run's bits;
+14. telemetry (the health plane and the registry's gate, the wire
+   planes, serving's exposition): (a) in process, 3 LlamaLite learners
+   at full width and depth ``CUT_DEPTH``, 2 rounds, telemetry at its
+   defaults, the registry gating each round's evaluation, learner 2's
+   round-1 update scaled by ``TEL_FACTOR``: round 1's health names it
+   and round 0's none, ``UpdateAnomalous`` and its divergence series,
+   round 1's version held back as a candidate for the anomaly with
+   stable on round 0's, each round's health a fresh ``HealthMonitor``'s
+   on the recorded calls bit for bit, ``observe_update`` and
+   ``complete_round`` timed; (b), inside the multiprocess phase's
+   LlamaLite federation (telemetry on, round 0's tasks profiled): one
+   span tree a round across the processes, every ``GetMetrics`` parsed
+   with the byte counters equal to the blobs shipped, the controller's
+   journal in order, each learner's device stats from the card, a
+   ``torch.profiler`` capture naming K1-K3; inside the failover phase,
+   the kill runs' post-mortem bundles and ``ControllerFailover`` once per
+   role; (c), inside the serve phase, the gateway's exposition counting
+   its Predicts and Generate tokens.
 
 It prints a ``{"federation": {...}}`` line (round walls and their split,
 ms per step, blob bytes, launches), a ``{"multiprocess": {...}}`` line
 (the same with a process per learner, and each process's peak device
 memory), ``{"wide_heads": ...}``, ``{"store": ...}``, ``{"rules": ...}``,
 ``{"tiers_secure": ...}``, ``{"uplinks": ...}``, ``{"rounds": ...}`` and
-``{"failover": ...}`` lines, a ``{"setup": ...}`` line (the script's seconds outside the
+``{"failover": ...}``, ``{"telemetry_wire": ...}`` and ``{"telemetry":
+...}`` lines, a ``{"setup": ...}`` line (the script's seconds outside the
 rounds: set-up per in-process federation, the seeds, the fold checks,
 each process federation's boot from its logs, the profiles), a
 ``{"kernels": [...]}`` line (each kernel's launches by path: K1-K3 at
@@ -207,6 +226,7 @@ line. It exits non-zero without a GPU, or outside a checkout.
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
 import re
@@ -1095,6 +1115,16 @@ def llama_seed(depth):
     return _SEEDS[depth]
 
 
+def health_off():
+    """The telemetry section of the in-process LlamaLite federations whose
+    checks do not read the learning-health plane: the plane off. Its host
+    seconds on every plain uplink (0.5-1.5 s at depth 2) are measured in
+    the federation, multiprocess, failover and telemetry phases."""
+    from metisfl_tpu_torch.config import HealthConfig, TelemetryConfig
+
+    return TelemetryConfig(health=HealthConfig(enabled=False))
+
+
 def seed_federation(fed, blob):
     """Seed an in-process federation's controller with a packed blob (what
     ``seed_model`` does after packing the variables)."""
@@ -1125,12 +1155,21 @@ def run_concurrently(fn, n):
 def slice_phase(smoke, gpu):
     import torch
 
+    from metisfl_tpu_torch import telemetry
     from metisfl_tpu_torch.config import ServingConfig, ServingDecodeConfig
     from metisfl_tpu_torch.models import TorchModelOps, load_flax_variables
     from metisfl_tpu_torch.models.zoo import LlamaLite
     from metisfl_tpu_torch.ops.flash_attention import flash_attention_fwd
     from metisfl_tpu_torch.serving import ServingGateway
     from metisfl_tpu_torch.tensor import pack_model
+
+    def served():
+        """(requests, decode tokens) on the stable channel so far."""
+        parsed = telemetry.parse_exposition(telemetry.render_metrics())
+        stable = (("channel", "stable"),)
+        return (parsed.get("serving_requests_total", {}).get(stable, 0.0),
+                parsed.get("serving_decode_tokens_total", {}).get(stable,
+                                                                  0.0))
 
     cfg = dict(vocab_size=VOCAB, dim=DIM, depth=DEPTH, heads=HEADS,
                kv_heads=KV_HEADS, dtype=torch.bfloat16)
@@ -1145,6 +1184,7 @@ def slice_phase(smoke, gpu):
                                                       max_len=MAX_LEN)),
         device=DEVICE)
     gateway.install("stable", 1, blob)
+    served_before = served()
     print(f"model: {n_params} params, blob {len(blob)} bytes, built and "
           f"installed in {time.perf_counter() - t0:.3f} s", flush=True)
     out = {"params": n_params}
@@ -1226,6 +1266,19 @@ def slice_phase(smoke, gpu):
         out.update(generate_requests_equal_solo=sum(same),
                    generate_token_agreement=token_agree,
                    decode=gateway.describe()["decode"]["stable"])
+        # (c) of the telemetry phase: the gateway's exposition counts its
+        # own traffic (the warm-up, the Predicts, the Generates)
+        t3 = time.perf_counter()
+        requests, tokens = (after - before for after, before in zip(
+            served(), served_before))
+        want = (1 + PREDICT_REQUESTS + GEN_REQUESTS,
+                GEN_REQUESTS * NEW_TOKENS)
+        smoke.check((requests, tokens) == want,
+                    f"serve: the gateway's exposition counts its requests "
+                    f"and decode tokens on the stable channel "
+                    f"{(requests, tokens)} = {want}")
+        out.update(exposition_requests=requests, exposition_tokens=tokens,
+                   telemetry_check_s=time.perf_counter() - t3)
         print(f"generate: {sum(same)}/{GEN_REQUESTS} requests equal a solo "
               f"generate; token agreement {token_agree:.4f}", flush=True)
     finally:
@@ -1499,6 +1552,13 @@ def run_federation(fed, timeout_s=600.0, settle=None):
 
     fed.controller._dispatch_train = first_dispatch
     clock = {"phase": CURRENT_PHASE[0]}
+    # the learning-health plane's host seconds on the scheduling worker
+    health = fed.controller._health
+    health_s = {"observe_update": [], "complete_round": []}
+    if health is not None:
+        for name, times in health_s.items():
+            wrap(health, name,
+                 after=lambda res, dt, *a, _t=times, **k: _t.append(dt))
 
     def evaluated():
         entries = fed.statistics()["community_evaluations"]
@@ -1529,6 +1589,7 @@ def run_federation(fed, timeout_s=600.0, settle=None):
         raise RuntimeError(f"federation did not complete {rounds} rounds "
                            f"with evaluations in {timeout_s} s")
     stats["wall_s"] = wall
+    stats["health_s"] = health_s
     return probe, stats
 
 
@@ -1771,9 +1832,14 @@ def federation_phase(smoke, gpu, label="federation", make_federation=None):
         "f64_rel_err": worst,
         "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9
         if DEVICE == "cuda" else None,
+        "health_s": stats["health_s"],
     }
+    observed = [round(t, 3) for t in stats["health_s"]["observe_update"]]
+    folded = [round(t, 3) for t in stats["health_s"]["complete_round"]]
     print(f"llama {label}: round walls "
-          f"{[round(s['wall_s'], 3) for s in split]} s", flush=True)
+          f"{[round(s['wall_s'], 3) for s in split]} s; health "
+          f"observe_update {observed} s per {out['llama']['blob_bytes']}"
+          f"-byte uplink, complete_round {folded} s", flush=True)
     del fed, probe
     if PROFILE_ROUND and DEVICE == "cuda":
         # with --profile-round: one more round, on a fresh federation,
@@ -2121,7 +2187,7 @@ class Background:
 def run_multiprocess(smoke, label, kind, shards, test, train, eval_cfg,
                      rounds, template, model_store=None, before_shutdown=None,
                      hosts=None, depth=DEPTH, config_extra=None,
-                     release=None):
+                     release=None, telemetry=False):
     """One DriverSession federation of ``len(shards)`` learner processes
     and a controller process (on ``model_store``, default in memory;
     ``before_shutdown()`` runs after the last round; ``hosts``, one per
@@ -2134,7 +2200,10 @@ def run_multiprocess(smoke, label, kind, shards, test, train, eval_cfg,
     hold the endpoints the learners registered; with the registry on, the sha256 of each round's pinned
     version (``version_sha256``); under a hot standby whether it promoted
     (the driver's handoff and the promoted process's own log line) and
-    its promotion seconds; the controller's supervised relaunches."""
+    its promotion seconds; the controller's supervised relaunches. With
+    ``telemetry`` the walls also hold ``telemetry``: the controller's and
+    each learner's ``GetMetrics`` text, scraped after the last round, and
+    ``DriverSession.collect_traces``' file, with the seconds they took."""
     import hashlib
 
     from metisfl_tpu_torch.config import (
@@ -2213,6 +2282,22 @@ def run_multiprocess(smoke, label, kind, shards, test, train, eval_cfg,
                             "registered")
         promoted = session._standby_promoted
         promoted_logged = session.standby_promoted_in_log()
+        scraped = None
+        if telemetry:
+            from metisfl_tpu_torch.comm.rpc import RpcClient
+            from metisfl_tpu_torch.controller.service import LEARNER_SERVICE
+
+            t3 = time.perf_counter()
+            scraped = {"controller": client.get_metrics(timeout=60.0),
+                       "learners": {}}
+            for port, i in ports.items():
+                learner = RpcClient("localhost", port, LEARNER_SERVICE)
+                try:
+                    scraped["learners"][ids[i]] = learner.call(
+                        "GetMetrics", b"", timeout=60.0).decode("utf-8")
+                finally:
+                    learner.close()
+            scraped["scrape_s"] = time.perf_counter() - t3
         if before_shutdown is not None:
             before_shutdown()
     finally:
@@ -2240,6 +2325,11 @@ def run_multiprocess(smoke, label, kind, shards, test, train, eval_cfg,
         walls["endpoints"] = endpoints
     if versions:
         walls["version_sha256"] = versions
+    if scraped is not None:
+        t4 = time.perf_counter()
+        scraped["traces"] = session.collect_traces()
+        scraped["collect_s"] = time.perf_counter() - t4
+        walls["telemetry"] = scraped
     if standby:
         walls.update(promoted=promoted, promoted_logged=promoted_logged)
         log = os.path.join(workdir, "standby.log")
@@ -2343,12 +2433,200 @@ def mp_split(stats, records, ids, rounds, gate_at=0.0):
     return out
 
 
-def mp_llama_run(smoke, label, kill, release=None):
+# the kernels a torch.profiler capture of a LlamaLite training step must
+# name: K1, K2 and K3's bf16 D = 64 builds
+PROFILED_KERNELS = ("flash_fwd_mma_kernel", "flash_bwd_dq_mma_kernel",
+                    "flash_bwd_dkv_mma_kernel")
+
+
+def read_events(path_glob):
+    """Every event record of the journals matching ``path_glob``, in each
+    file's order."""
+    import glob
+
+    records = []
+    for path in sorted(glob.glob(path_glob)):
+        with open(path) as f:
+            for line in f:
+                line = line.strip()
+                if line:
+                    records.append(json.loads(line))
+    return records
+
+
+def check_wire_telemetry(smoke, label, stats, ids, workdir, scraped,
+                         blob_bytes):
+    """The wire planes of a process federation (``run_multiprocess`` with
+    ``telemetry``): one span tree per round rooted at the controller's
+    round span with every learner's ``learner.train`` under it; the
+    controller's and each learner's ``GetMetrics`` parsed, the uplink and
+    downlink byte counters equal to the blobs the rounds shipped; the
+    controller's journal holding the joins, rounds, dispatches and
+    completions in order; each learner's device stats from the card; and
+    the ``torch.profiler`` captures of round 0's tasks naming K1-K3."""
+    import glob
+
+    from metisfl_tpu_torch.telemetry import parse_exposition
+    from metisfl_tpu_torch.telemetry.__main__ import load_spans
+
+    out = {"scrape_s": scraped["scrape_s"],
+           "collect_s": scraped["collect_s"]}
+    learners = sorted(ids.values())
+    metas = stats["round_metadata"][:MP_ROUNDS]
+    # the span trees
+    spans = load_spans([scraped["traces"]]) if scraped["traces"] else []
+    by_id = {sp["span"]: sp for sp in spans}
+
+    def root_of(sp):
+        seen = set()
+        while sp.get("parent") and sp["parent"] in by_id:
+            if sp["span"] in seen:
+                break
+            seen.add(sp["span"])
+            sp = by_id[sp["parent"]]
+        return sp
+
+    trees = []
+    for r in range(MP_ROUNDS):
+        roots = [sp for sp in spans if sp["name"] == "round"
+                 and not sp.get("parent")
+                 and (sp.get("attrs") or {}).get("round") == r]
+        trains = [sp for sp in spans if sp["name"] == "learner.train"
+                  and (sp.get("attrs") or {}).get("round") == r]
+        under = sorted({sp["attrs"].get("learner") for sp in trains
+                        if roots and root_of(sp) is roots[0]})
+        trees.append({"round": r, "roots": len(roots),
+                      "services": sorted({sp["service"] for sp in spans
+                                          if roots and sp["trace"]
+                                          == roots[0]["trace"]}),
+                      "train_spans_under_root": under})
+        smoke.check(len(roots) == 1 and roots[0]["service"] == "controller"
+                    and under == learners,
+                    f"{label} round {r}: one span tree rooted at the "
+                    f"controller's round span, each learner's train span "
+                    f"under it (the context crossed gRPC): {trees[-1]}")
+    out["trees"] = trees
+    out["spans"] = len(spans)
+    # the expositions
+    parsed = {}
+    for who, text in [("controller", scraped["controller"])] + sorted(
+            scraped["learners"].items()):
+        try:
+            parsed[who] = parse_exposition(text)
+        except ValueError as exc:
+            parsed[who] = None
+            smoke.check(False, f"{label}: {who}'s GetMetrics does not parse: "
+                        f"{exc}")
+    out["series"] = {who: (sum(len(v) for v in p.values()) if p else 0)
+                     for who, p in parsed.items()}
+    ctrl = parsed.get("controller") or {}
+    uplinks = sum(len(m["uplink_bytes"]) for m in metas)
+    uplink_series = ctrl.get("uplink_bytes_total", {})
+    uplink_total = sum(uplink_series.values())
+    smoke.check(uplink_total == uplinks * blob_bytes
+                == sum(sum(m["uplink_bytes"].values()) for m in metas),
+                f"{label}: the controller's uplink_bytes_total "
+                f"{uplink_total} = {uplinks} uplinks x {blob_bytes} blob "
+                "bytes")
+    downlinks = sum(len(m["train_submitted_at"]) + len(m["eval_submitted_at"])
+                    for m in metas)
+    downlink_total = sum(ctrl.get("downlink_bytes_total", {}).values())
+    smoke.check(downlink_total == downlinks * blob_bytes,
+                f"{label}: the controller's downlink_bytes_total "
+                f"{downlink_total} = {downlinks} train and eval dispatches x "
+                f"{blob_bytes} blob bytes")
+    for lid in learners:
+        got = parsed.get(lid) or {}
+        tasks = sum(v for k, v in got.get("learner_tasks_total", {}).items()
+                    if ("outcome", "completed") in k)
+        sent = sum(v for k, v in got.get("rpc_client_bytes_total",
+                                         {}).items()
+                   if ("method", "MarkTaskCompleted") in k
+                   and ("direction", "sent") in k)
+        smoke.check(tasks == MP_ROUNDS and sent >= MP_ROUNDS * blob_bytes,
+                    f"{label}: {lid}'s GetMetrics parses: {tasks} completed "
+                    f"train tasks, {sent} bytes sent in its completions >= "
+                    f"{MP_ROUNDS} x {blob_bytes}")
+    out["uplink_bytes_total"] = uplink_total
+    out["downlink_bytes_total"] = downlink_total
+    # the controller's journal, in order
+    events = read_events(os.path.join(workdir, "telemetry",
+                                      "controller-*-events.jsonl"))
+    kinds = [e["kind"] for e in events]
+    at = {}
+    for i, e in enumerate(events):
+        at.setdefault((e["kind"], e.get("round"), e.get("learner_id")), i)
+    ordered = True
+    for lid in learners:
+        joined = at.get(("learner_joined", None, lid))
+        first = min((i for i, e in enumerate(events)
+                     if e["kind"] == "task_dispatched"
+                     and e.get("learner_id") == lid), default=None)
+        ordered &= joined is not None and first is not None \
+            and joined < first
+    for r in range(MP_ROUNDS):
+        started = at.get(("round_started", r, None))
+        done = at.get(("aggregation_done", r, None))
+        dispatched = [i for i, e in enumerate(events)
+                      if e["kind"] == "task_dispatched" and e["round"] == r]
+        completed = [i for i, e in enumerate(events)
+                     if e["kind"] == "task_completed" and e["round"] == r
+                     and not e.get("stale")]
+        ordered &= (started is not None and done is not None
+                    and len(completed) == len(learners)
+                    and started < min(dispatched)
+                    and max(dispatched) < min(completed)
+                    and max(completed) < done)
+    smoke.check(ordered,
+                f"{label}: the controller's journal holds the joins, each "
+                "round's start, dispatches, completions and aggregation, in "
+                f"order ({len(events)} events: "
+                f"{sorted(set(kinds))})")
+    out["events"] = len(events)
+    # the device stats the learners shipped (the round profiles)
+    stats_ok, device = True, {}
+    for m in metas:
+        for lid in learners:
+            dev = ((m.get("profile") or {}).get("learners", {}).get(
+                lid, {}).get("device") or {})
+            device.setdefault(lid, []).append(dev)
+            stats_ok &= (dev.get("step_ms_ewma", 0.0) > 0.0
+                         and 0.0 < dev.get("mfu", 0.0) <= 1.0
+                         and dev.get("hbm_peak_bytes", 0) > blob_bytes)
+    smoke.check(stats_ok,
+                f"{label}: each learner's device_stats from the card: "
+                "step_ms_ewma > 0, MFU in (0, 1], device-memory peak > the "
+                f"{blob_bytes}-byte blob: {device}")
+    out["device_stats"] = device
+    # the profiler captures of round 0's tasks
+    captures = sorted(glob.glob(os.path.join(
+        workdir, "telemetry", "jaxprof", "round0", "*", "*",
+        "trace.json")))
+    named = {}
+    for path in captures:
+        with open(path) as f:
+            text = f.read()
+        named[os.path.basename(os.path.dirname(os.path.dirname(path)))] = {
+            k: k in text for k in PROFILED_KERNELS}
+    smoke.check(bool(named) and all(all(v.values())
+                                    for v in named.values()),
+                f"{label}: the torch.profiler capture of each round-0 task "
+                f"names K1-K3's kernels: {named}")
+    out["profiler_captures"] = {k: sorted(v) for k, v in named.items()}
+    print(json.dumps({"telemetry_wire": out}), flush=True)
+    return out
+
+
+
+def mp_llama_run(smoke, label, kill, release=None, telemetry=False):
     """The multiprocess phase's LlamaLite federation: ``MP_LLAMA_LEARNERS``
     learner processes at full width and depth ``CUT_DEPTH``, ``MP_ROUNDS``
     rounds, the hot standby and the registry armed; with ``kill`` the
     chaos injector kills the controller at its first MarkTaskCompleted
-    (mid-round, uplinks in the air). Returns ``run_multiprocess``'s."""
+    (mid-round, uplinks in the air). With ``telemetry`` round 0's tasks
+    carry a ``profile_dir`` (a ``torch.profiler`` capture each) and the
+    run's metrics and traces are collected (``run_multiprocess``).
+    Returns ``run_multiprocess``'s."""
     from metisfl_tpu_torch.comm import TrainParams
     from metisfl_tpu_torch.config import (
         ChaosConfig,
@@ -2357,7 +2635,9 @@ def mp_llama_run(smoke, label, kill, release=None):
         ControllerStandbyConfig,
         EvalConfig,
         FailoverConfig,
+        ProfileConfig,
         RegistryConfig,
+        TelemetryConfig,
     )
 
     variables, _ = llama_seed(CUT_DEPTH)
@@ -2384,8 +2664,11 @@ def mp_llama_run(smoke, label, kill, release=None):
             controller=ControllerConfig(standby=ControllerStandbyConfig(
                 enabled=True, **STANDBY)),
             chaos=ChaosConfig(enabled=kill, seed=SEED,
-                              rules=[KILL_RULE] if kill else [])),
-        release=release)
+                              rules=[KILL_RULE] if kill else []),
+            # a profiler capture on round 0's tasks (round % N == 0)
+            telemetry=TelemetryConfig(profile=ProfileConfig(
+                trace_every_rounds=MP_ROUNDS if telemetry else 0))),
+        release=release, telemetry=telemetry)
 
 
 def multiprocess_phase(smoke, gpu):
@@ -2414,7 +2697,8 @@ def multiprocess_phase(smoke, gpu):
     # (b) boots while (a) runs: its processes import, reach the card and
     # join, and its rounds start once (a) is done
     release = threading.Event()
-    llama_run = Background(mp_llama_run, smoke, "mp llama", False, release)
+    llama_run = Background(mp_llama_run, smoke, "mp llama", False, release,
+                           True)
     # (a) FashionMNIST CNN, the federation phase's data and settings
     x, y = synthetic_image_classification(
         FED_LEARNERS * CNN_EXAMPLES + CNN_TEST, noise=CNN_NOISE, seed=SEED)
@@ -2477,6 +2761,10 @@ def multiprocess_phase(smoke, gpu):
                 and all(np.isfinite(losses)),
                 f"mp llama: train losses {[round(v, 4) for v in losses]} "
                 "finite")
+    t_tel = time.perf_counter()
+    wire = check_wire_telemetry(smoke, "mp llama", stats, ids, workdir,
+                                walls.pop("telemetry"), len(final))
+    wire["check_s"] = time.perf_counter() - t_tel
     # it was released after the CNN's federation: its round 0 starts then
     split = mp_split(stats, records, ids, MP_ROUNDS, walls["gate_at"])
     out["llama"] = {
@@ -2491,6 +2779,7 @@ def multiprocess_phase(smoke, gpu):
                                "flash_bwd_dkv": k3},
         "train_losses": losses,
         "peak_memory_gb": [r["peak_memory_gb"] for r in records],
+        "telemetry": wire,
     }
     print(f"mp llama: round walls "
           f"{[round(s['wall_s'], 3) for s in split]} s", flush=True)
@@ -2711,7 +3000,7 @@ def time_folds(uplinks, scales):
     return times, rel
 
 
-def store_phase(smoke, gpu):
+def store_in_process(smoke, gpu):
     """(a) the full-width LlamaLite federation (depth ``CUT_DEPTH``) in
     process on a cached disk store with parallel ingest, and the native
     fold; (b) the CNN with a process per learner on a remote store."""
@@ -2748,6 +3037,7 @@ def store_phase(smoke, gpu):
     root = tempfile.mkdtemp(prefix="chip_smoke_store_")
     try:
         fed = InProcessFederation(FederationConfig(
+            telemetry=health_off(),
             aggregation=AggregationConfig(scaler="train_dataset_size"),
             train=TrainParams(batch_size=TRAIN_BATCH, local_steps=FED_STEPS,
                               optimizer="adam", learning_rate=1e-4),
@@ -2856,7 +3146,19 @@ def store_phase(smoke, gpu):
         shutil.rmtree(root, ignore_errors=True)
     if DEVICE == "cuda":
         torch.cuda.empty_cache()
-    out["cnn"] = store_cnn_remote(smoke)
+    return out
+
+
+def store_phase(smoke, gpu):
+    """:func:`store_in_process`, with (b) booted beside it and its rounds
+    run after it."""
+    release = threading.Event()
+    remote = Background(store_cnn_remote, smoke, release)
+    try:
+        out = store_in_process(smoke, gpu)
+    finally:
+        release.set()
+    out["cnn"] = remote.result()
     out["gpu"] = gpu
     print(json.dumps({"store": out}), flush=True)
     return out
@@ -2873,7 +3175,7 @@ def remote_learner_ids(port):
         client.shutdown()
 
 
-def store_cnn_remote(smoke):
+def store_cnn_remote(smoke, release=None):
     """(b) the CNN federation with a process per learner, its model store
     a ``python -m metisfl_tpu_torch.store.server`` process on a disk
     store."""
@@ -2931,7 +3233,8 @@ def store_cnn_remote(smoke):
             STORE_CNN_ROUNDS, template,
             model_store=ModelStoreConfig(store="remote", host="localhost",
                                          port=port),
-            before_shutdown=lambda: held.extend(remote_learner_ids(port)))
+            before_shutdown=lambda: held.extend(remote_learner_ids(port)),
+            release=release)
         check_mp_folds(smoke, "store cnn", stats, ids, workdir,
                        [len(s[0]) for s in shards], final, STORE_CNN_ROUNDS)
         acc = _accuracies(stats)
@@ -3198,7 +3501,7 @@ def ssh_shims(bindir):
     return calls
 
 
-def rules_phase(smoke, gpu, fedavg_llama_walls):
+def rules_in_process(smoke, gpu, fedavg_llama_walls):
     """(a) one in-process LlamaLite round (full width, depth
     ``CUT_DEPTH``) under ``median`` with the controller on the card: its
     community against the rule re-applied to the round's uplinks, K1-K3
@@ -3241,6 +3544,7 @@ def rules_phase(smoke, gpu, fedavg_llama_walls):
     test = ArrayDataset(tokens[-FED_EVAL_ROWS:, :-1],
                         tokens[-FED_EVAL_ROWS:, 1:])
     cfg = FederationConfig(
+        telemetry=health_off(),
         aggregation=AggregationConfig(rule="median",
                                       scaler="train_dataset_size"),
         train=TrainParams(batch_size=TRAIN_BATCH, local_steps=FED_STEPS,
@@ -3373,15 +3677,26 @@ def rules_phase(smoke, gpu, fedavg_llama_walls):
         del fed, probe
         empty_cache()
 
-    # (d) the multi-process CNN round, learner 1 on a non-local hostname
-    # through the ssh/scp shims
-    out["ssh"] = ssh_round(smoke)
+    return out
+
+
+def rules_phase(smoke, gpu, fedavg_llama_walls):
+    """:func:`rules_in_process`, with (d) the multi-process CNN round
+    (learner 1 on a non-local hostname through the ssh/scp shims) booted
+    beside it, its round run after it."""
+    release = threading.Event()
+    ssh = Background(ssh_round, smoke, release)
+    try:
+        out = rules_in_process(smoke, gpu, fedavg_llama_walls)
+    finally:
+        release.set()
+    out["ssh"] = ssh.result()
     out["gpu"] = gpu
     print(json.dumps({"rules": out}), flush=True)
     return out
 
 
-def ssh_round(smoke):
+def ssh_round(smoke, release=None):
     """One CNN round with a process per learner through DriverSession,
     learner 1's endpoint ``SSH_HOST``: it is shipped its recipe and
     launched through the ``ssh``/``scp`` shims (this machine has no second
@@ -3420,7 +3735,7 @@ def ssh_round(smoke):
                         optimizer="sgd", learning_rate=0.05),
             EvalConfig(batch_size=256, datasets=["test"],
                        metrics=["loss", "accuracy"]),
-            1, template, hosts=hosts)
+            1, template, hosts=hosts, release=release)
         check_mp_folds(smoke, "rules ssh cnn", stats, ids, workdir,
                        [len(s[0]) for s in shards], final, 1)
         with open(calls) as f:
@@ -3569,6 +3884,7 @@ def tiers_secure_phase(smoke, gpu):
         """One LlamaLite round in process (equal shards of FED_ROWS rows,
         so masking's uniform scales hold)."""
         cfg = FederationConfig(
+            telemetry=health_off(),
             aggregation=aggregation,
             secure=secure or SecureAggConfig(),
             train=TrainParams(batch_size=TRAIN_BATCH, local_steps=FED_STEPS,
@@ -4089,6 +4405,7 @@ def uplinks_phase(smoke, gpu, tree_wall_s=None):
         seed = seed or seeds[depth]
         depths_run.extend([depth] * rounds)
         cfg = FederationConfig(
+            telemetry=health_off(),
             aggregation=aggregation or AggregationConfig(
                 scaler="train_dataset_size"),
             train=TrainParams(**{
@@ -4566,9 +4883,11 @@ def wait_for(predicate, timeout_s, what):
 
 
 def rounds_recipe(x, y, test_x, test_y, seed, device, gate):
-    """A CNN learner for the chaos part: training waits for ``gate`` (so
-    round 0's cohort is every learner) and then 0.3 s more, so a failed
-    dispatch's retry (0.05 s backoff) lands before its round's uplinks."""
+    """A CNN learner for the chaos part: a train task waits for ``gate``
+    (so round 0's cohort is every learner) as it installs the community
+    model, before its training, whose time the ``slow`` fault stretches;
+    training takes 0.3 s more, so a failed dispatch's retry (0.05 s
+    backoff) lands before its round's uplinks."""
 
     def recipe():
         import os
@@ -4578,23 +4897,150 @@ def rounds_recipe(x, y, test_x, test_y, seed, device, gate):
         from metisfl_tpu_torch.models.zoo import FashionMnistCNN
 
         ops = TorchModelOps(FashionMnistCNN(), rng_seed=seed, device=device)
-        train = ops.train
+        install, train = ops.set_variables, ops.train
 
         def gated(*args, **kwargs):
             deadline = time.time() + MP_TIMEOUT_S
             while not os.path.exists(gate) and time.time() < deadline:
                 time.sleep(0.05)
+            return install(*args, **kwargs)
+
+        def delayed(*args, **kwargs):
             time.sleep(0.3)
             return train(*args, **kwargs)
 
-        ops.train = gated
+        ops.set_variables = gated
+        ops.train = delayed
         return (ops, ArrayDataset(x, y, seed=seed), None,
                 ArrayDataset(test_x, test_y))
 
     return recipe
 
 
+def rounds_chaos(smoke, release):
+    """(e) of the rounds phase: ``DriverSession`` with a process per CNN
+    learner and chaos by ``process``. It boots at once and its rounds
+    start once ``release`` is set (the phase's in-process parts first)."""
+    from metisfl_tpu_torch.comm import TrainParams
+    from metisfl_tpu_torch.config import (
+        AggregationConfig,
+        ChaosConfig,
+        EvalConfig,
+        FederationConfig,
+        LearnerEndpoint,
+        SchedulingConfig,
+        TerminationConfig,
+    )
+    from metisfl_tpu_torch.controller.service import ControllerClient
+    from metisfl_tpu_torch.driver import DriverSession
+    from metisfl_tpu_torch.models import TorchModelOps
+    from metisfl_tpu_torch.models.zoo import FashionMnistCNN
+
+    x, y = synthetic_image_classification(
+        FED_LEARNERS * CNN_EXAMPLES + CNN_TEST, noise=CNN_NOISE, seed=SEED)
+    # (e) DriverSession: chaos armed by process, the retry ladder, churn
+    workdir = os.path.join(ROUNDS_DIR, "chaos")
+    shutil.rmtree(workdir, ignore_errors=True)
+    os.makedirs(workdir)
+    gate = os.path.join(workdir, "gate")
+    shards = [(x[i * CNN_EXAMPLES:(i + 1) * CNN_EXAMPLES],
+               y[i * CNN_EXAMPLES:(i + 1) * CNN_EXAMPLES])
+              for i in range(CHAOS_LEARNERS)]
+    config = FederationConfig(
+        controller_port=0,
+        aggregation=AggregationConfig(scaler="participants",
+                                      participation_ratio=0.5),
+        scheduling=SchedulingConfig(dispatch_retries=1, retry_backoff_s=0.05,
+                                    quarantine_score=0.25,
+                                    quarantine_s=600.0),
+        max_dispatch_failures=1,
+        chaos=ChaosConfig(enabled=True, seed=SEED, rules=[
+            {"fault": "drop", "side": "client", "method": "RunTask",
+             "process": "controller", "after_calls": CHAOS_LEARNERS,
+             "max_fires": 1},
+            {"fault": "slow", "factor": 3.0, "process": "learner_2"}]),
+        train=TrainParams(batch_size=CNN_BATCH, local_steps=CHAOS_STEPS,
+                          optimizer="sgd", learning_rate=0.05),
+        eval=EvalConfig(batch_size=256, datasets=["test"],
+                        metrics=["loss", "accuracy"]),
+        termination=TerminationConfig(federation_rounds=CHAOS_ROUNDS),
+        learners=[LearnerEndpoint() for _ in shards])
+    template = TorchModelOps(FashionMnistCNN(), rng_seed=SEED,
+                             device="cpu").get_variables()
+    session = DriverSession(
+        config, template,
+        [rounds_recipe(sx, sy, x[-CNN_TEST:], y[-CNN_TEST:], SEED + i,
+                       DEVICE, gate) for i, (sx, sy) in enumerate(shards)],
+        workdir=workdir, device=DEVICE)
+    client = described = None
+    started = time.time()
+    try:
+        session.initialize_federation(
+            health_retries=int(MP_TIMEOUT_S / 0.5), health_sleep_s=0.5)
+        client = ControllerClient("localhost", config.controller_port)
+        wait_for(lambda: len(client.list_learners()) == CHAOS_LEARNERS,
+                 MP_TIMEOUT_S, "the chaos learners' joins")
+        note_boot("rounds chaos", workdir, started)
+        release.wait(MP_TIMEOUT_S)
+        with open(gate, "w"):
+            pass
+        stats = session.monitor_federation(poll_every_s=0.25)
+        described = client.describe_federation()
+    finally:
+        if client is not None:
+            client.close()
+        session.shutdown_federation(timeout_s=MP_TIMEOUT_S)
+    codes = session.process_exit_codes()
+    with open(os.path.join(workdir, "controller.log")) as f:
+        ctrl_log = f.read()
+    retries = re.findall(r"dispatch retry 1: replacing unreachable (\S+) "
+                         r"with (\S+)", ctrl_log)
+    metas = stats["round_metadata"]
+    failed, replacement = retries[0] if len(retries) == 1 else ("", "")
+    later = [sorted(m["train_submitted_at"]) for m in metas[2:CHAOS_ROUNDS]]
+    smoke.check(len(retries) == 1 and len(metas) >= CHAOS_ROUNDS
+                and sorted(metas[1]["train_submitted_at"]) == sorted(
+                    {failed, replacement, *metas[1]["selected_learners"]})
+                and replacement in metas[1]["selected_learners"]
+                and failed not in metas[1]["selected_learners"],
+                f"rounds chaos: the controller's dropped RunTask to "
+                f"{failed} was retried, {replacement} dispatched in its place "
+                f"(round 1 dispatched {sorted(metas[1]['train_submitted_at'])}"
+                f", cohort {metas[1]['selected_learners']})")
+    rows = {r["learner_id"]: r for r in (described or {}).get("learners", [])}
+    quarantined = (described or {}).get("scheduling", {}).get(
+        "quarantined", [])
+    smoke.check(rows.get(failed, {}).get("churn_score", 0.0) > 0.0
+                and quarantined == [failed]
+                and all(failed not in ids for ids in later),
+                f"rounds chaos: {failed}'s churn score rose to "
+                f"{rows.get(failed, {}).get('churn_score')} and it sits out "
+                f"quarantined {quarantined}: rounds 2-{CHAOS_ROUNDS - 1} "
+                f"dispatched {later}")
+    with open(os.path.join(workdir, "learner_2.log")) as f:
+        slowed = "slowing train task by 3.0x" in f.read()
+    smoke.check(slowed and len(codes) == CHAOS_LEARNERS + 1
+                and all(c == 0 for c in codes.values()),
+                f"rounds chaos: learner_2 ran its slow fault ({slowed}); "
+                f"every process exits 0 {codes}")
+    return {"failed": failed, "replacement": replacement,
+            "retries": len(retries), "quarantined": quarantined,
+            "churn": {k: r.get("churn_score") for k, r in rows.items()},
+            "dispatched": [sorted(m["train_submitted_at"]) for m in metas],
+            "exit_codes": codes}
+
+
 def rounds_phase(smoke, gpu):
+    """(e) boots beside the rest of the phase: see :func:`rounds_parts`."""
+    release = threading.Event()
+    chaos = Background(rounds_chaos, smoke, release)
+    try:
+        return rounds_parts(smoke, gpu, chaos, release)
+    finally:
+        release.set()
+
+
+def rounds_parts(smoke, gpu, chaos, release):
     """Round control on the card. In-process LlamaLite rounds at full width
     and depth ``CUT_DEPTH`` (3 learners of ``FED_ROWS`` rows, 2 Adam steps
     of batch 8 x 1024 through K1-K3): (a) ``asynchronous_buffered``,
@@ -4607,7 +5053,8 @@ def rounds_phase(smoke, gpu):
     Then (d) the CNN in process under masking with streaming and a round
     deadline, learner 2 held past it: the two survivors settle through
     ``RecoverMasks``; (e) ``DriverSession`` with a process per CNN
-    learner and chaos by ``process``: the controller's fifth RunTask
+    learner and chaos by ``process`` (:func:`rounds_chaos`, booted at the
+    phase's start by ``rounds_phase``): the controller's fifth RunTask
     dropped (dispatch retries 1, max_dispatch_failures 1, quarantine
     score 0.25) and learner 2 slowed 3x; (f) the cross-device harness
     (512 virtual clients, 5 rounds, 30% dropout, a flapper and a
@@ -4621,16 +5068,13 @@ def rounds_phase(smoke, gpu):
     from metisfl_tpu_torch.comm import TrainParams
     from metisfl_tpu_torch.config import (
         AggregationConfig,
-        ChaosConfig,
         EvalConfig,
         FederationConfig,
-        LearnerEndpoint,
         SchedulingConfig,
         SecureAggConfig,
         TerminationConfig,
     )
-    from metisfl_tpu_torch.controller.service import ControllerClient
-    from metisfl_tpu_torch.driver import DriverSession, InProcessFederation
+    from metisfl_tpu_torch.driver import InProcessFederation
     from metisfl_tpu_torch.driver.crossdevice import (
         ChurnScenario,
         run_scenario,
@@ -4673,6 +5117,7 @@ def rounds_phase(smoke, gpu):
 
     def llama_federation(protocol, rounds, aggregation=None, **top):
         cfg = FederationConfig(
+            telemetry=health_off(),
             protocol=protocol,
             aggregation=aggregation or AggregationConfig(
                 scaler="train_dataset_size"),
@@ -4982,97 +5427,9 @@ def rounds_phase(smoke, gpu):
     empty_cache()
     part_done("(d) deadline")
 
-    # (e) DriverSession: chaos armed by process, the retry ladder, churn
-    workdir = os.path.join(ROUNDS_DIR, "chaos")
-    shutil.rmtree(workdir, ignore_errors=True)
-    os.makedirs(workdir)
-    gate = os.path.join(workdir, "gate")
-    shards = [(x[i * CNN_EXAMPLES:(i + 1) * CNN_EXAMPLES],
-               y[i * CNN_EXAMPLES:(i + 1) * CNN_EXAMPLES])
-              for i in range(CHAOS_LEARNERS)]
-    config = FederationConfig(
-        controller_port=0,
-        aggregation=AggregationConfig(scaler="participants",
-                                      participation_ratio=0.5),
-        scheduling=SchedulingConfig(dispatch_retries=1, retry_backoff_s=0.05,
-                                    quarantine_score=0.25,
-                                    quarantine_s=600.0),
-        max_dispatch_failures=1,
-        chaos=ChaosConfig(enabled=True, seed=SEED, rules=[
-            {"fault": "drop", "side": "client", "method": "RunTask",
-             "process": "controller", "after_calls": CHAOS_LEARNERS,
-             "max_fires": 1},
-            {"fault": "slow", "factor": 3.0, "process": "learner_2"}]),
-        train=TrainParams(batch_size=CNN_BATCH, local_steps=CHAOS_STEPS,
-                          optimizer="sgd", learning_rate=0.05),
-        eval=EvalConfig(batch_size=256, datasets=["test"],
-                        metrics=["loss", "accuracy"]),
-        termination=TerminationConfig(federation_rounds=CHAOS_ROUNDS),
-        learners=[LearnerEndpoint() for _ in shards])
-    template = TorchModelOps(FashionMnistCNN(), rng_seed=SEED,
-                             device="cpu").get_variables()
-    session = DriverSession(
-        config, template,
-        [rounds_recipe(sx, sy, x[-CNN_TEST:], y[-CNN_TEST:], SEED + i,
-                       DEVICE, gate) for i, (sx, sy) in enumerate(shards)],
-        workdir=workdir, device=DEVICE)
-    client = described = None
-    started = time.time()
-    try:
-        session.initialize_federation(
-            health_retries=int(MP_TIMEOUT_S / 0.5), health_sleep_s=0.5)
-        client = ControllerClient("localhost", config.controller_port)
-        wait_for(lambda: len(client.list_learners()) == CHAOS_LEARNERS,
-                 MP_TIMEOUT_S, "the chaos learners' joins")
-        note_boot("rounds chaos", workdir, started)
-        with open(gate, "w"):
-            pass
-        stats = session.monitor_federation(poll_every_s=0.25)
-        described = client.describe_federation()
-    finally:
-        if client is not None:
-            client.close()
-        session.shutdown_federation(timeout_s=MP_TIMEOUT_S)
-    codes = session.process_exit_codes()
-    with open(os.path.join(workdir, "controller.log")) as f:
-        ctrl_log = f.read()
-    retries = re.findall(r"dispatch retry 1: replacing unreachable (\S+) "
-                         r"with (\S+)", ctrl_log)
-    metas = stats["round_metadata"]
-    failed, replacement = retries[0] if len(retries) == 1 else ("", "")
-    later = [sorted(m["train_submitted_at"]) for m in metas[2:CHAOS_ROUNDS]]
-    smoke.check(len(retries) == 1 and len(metas) >= CHAOS_ROUNDS
-                and sorted(metas[1]["train_submitted_at"]) == sorted(
-                    {failed, replacement, *metas[1]["selected_learners"]})
-                and replacement in metas[1]["selected_learners"]
-                and failed not in metas[1]["selected_learners"],
-                f"rounds chaos: the controller's dropped RunTask to "
-                f"{failed} was retried, {replacement} dispatched in its place "
-                f"(round 1 dispatched {sorted(metas[1]['train_submitted_at'])}"
-                f", cohort {metas[1]['selected_learners']})")
-    rows = {r["learner_id"]: r for r in (described or {}).get("learners", [])}
-    quarantined = (described or {}).get("scheduling", {}).get(
-        "quarantined", [])
-    smoke.check(rows.get(failed, {}).get("churn_score", 0.0) > 0.0
-                and quarantined == [failed]
-                and all(failed not in ids for ids in later),
-                f"rounds chaos: {failed}'s churn score rose to "
-                f"{rows.get(failed, {}).get('churn_score')} and it sits out "
-                f"quarantined {quarantined}: rounds 2-{CHAOS_ROUNDS - 1} "
-                f"dispatched {later}")
-    with open(os.path.join(workdir, "learner_2.log")) as f:
-        slowed = "slowing train task by 3.0x" in f.read()
-    smoke.check(slowed and len(codes) == CHAOS_LEARNERS + 1
-                and all(c == 0 for c in codes.values()),
-                f"rounds chaos: learner_2 ran its slow fault ({slowed}); "
-                f"every process exits 0 {codes}")
-    out["chaos"] = {"failed": failed, "replacement": replacement,
-                    "retries": len(retries), "quarantined": quarantined,
-                    "churn": {k: r.get("churn_score") for k, r in
-                              rows.items()},
-                    "dispatched": [sorted(m["train_submitted_at"])
-                                   for m in metas],
-                    "exit_codes": codes}
+    # (e) booted at the phase's start: its rounds run now
+    release.set()
+    out["chaos"] = chaos.result()
     part_done("(e) chaos")
 
     # (f) the cross-device harness, and the slice-kill gate
@@ -5222,6 +5579,12 @@ def failover_phase(smoke, gpu, mp_llama):
     # check, so the boots of the two do not all share the host at once
     # (b) the hot standby: the multiprocess phase's federation, its
     # controller killed at the first uplink
+    from metisfl_tpu_torch.driver.ha_smoke import (
+        driver_failovers,
+        failover_events,
+    )
+
+    driver_before = driver_failovers()
     part_b = Background(mp_llama_run, smoke, "failover llama", True)
     # (c) the driver's supervised relaunch: the CNN, no standby; the kill
     # run and its control at once
@@ -5501,6 +5864,9 @@ def failover_phase(smoke, gpu, mp_llama):
                 "failover (c): each round-pinned version is the control "
                 "run's bits")
     out["c"] = {"kill": walls, "control": runs[False][2]}
+    out["telemetry"] = failover_telemetry(smoke, driver_before,
+                                          driver_failovers(),
+                                          failover_events)
     shutil.rmtree(MP_DIR, ignore_errors=True)
     shutil.rmtree(FAILOVER_DIR, ignore_errors=True)
     part_done("c relaunch (joined)")
@@ -5514,6 +5880,275 @@ def failover_phase(smoke, gpu, mp_llama):
     out["part_s"] = part_s
     out["gpu"] = gpu
     print(json.dumps({"failover": out}), flush=True)
+    return out
+
+
+def failover_telemetry(smoke, driver_before, driver_after, failover_events):
+    """The failover phase's telemetry: the kill runs' post-mortem bundles
+    (the chaos-killed controller's in (b) and (c), the driver's at the
+    standby handoff of (b) and the relaunch of (c); the driver's recorder
+    is this process's, armed by whichever session booted last, so its
+    bundles are looked for in every workdir) and ``ControllerFailover``
+    once per role (the promoted standby's journal, the driver's
+    counter)."""
+    import glob
+
+    from metisfl_tpu_torch.telemetry import postmortem
+
+    t0 = time.perf_counter()
+    out = {}
+    for part, label in (("b", "failover llama"), ("c", "failover cnn kill")):
+        bundles = postmortem.load_bundles(
+            [os.path.join(MP_DIR, label, "postmortem")])
+        kills = [b for b in bundles if b["reason"] == "chaos_kill"
+                 and b["service"] == "controller"]
+        smoke.check(len(kills) == 1 and kills[0]["events"]
+                    and "metrics" in kills[0],
+                    f"failover ({part}): the chaos-killed controller left "
+                    f"one post-mortem bundle with its event tail and "
+                    f"metrics ({[b['reason'] for b in bundles]})")
+        out[f"{part}_bundles"] = sorted(
+            f"{b['service']}:{b['reason']}" for b in bundles)
+    driver = postmortem.load_bundles(sorted(set(glob.glob(os.path.join(
+        MP_DIR, "*", "postmortem")))))
+    reasons = sorted(b["reason"] for b in driver
+                     if b["service"] == "driver")
+    smoke.check(reasons == ["failover_handoff", "failover_relaunch"],
+                f"failover: the driver's bundles at the standby handoff "
+                f"(b) and the supervised relaunch (c): {reasons}")
+    by_role = failover_events(os.path.join(MP_DIR, "failover llama"))
+    driver_count = driver_after - driver_before
+    smoke.check(by_role == {"standby": 1} and driver_count == 1,
+                f"failover (b): ControllerFailover once per role: the "
+                f"promoted standby's journal {by_role}, the driver's "
+                f"controller_failover_total{{role=driver}} +{driver_count}")
+    out.update(standby_events=by_role, driver_failovers=driver_count,
+               driver_bundles=reasons, check_s=time.perf_counter() - t0)
+    return out
+
+
+# the telemetry phase's in-process federation: rounds, and the factor that
+# scales learner TEL_OUTLIER's round-1 update (through the wrap hook)
+TEL_ROUNDS, TEL_FACTOR, TEL_OUTLIER = 2, 8.0, 2
+
+
+def _scaled_update(trained, base, factor):
+    """``base + factor * (trained - base)``, leaf by leaf, in float32; with
+    no ``factor``, a copy of ``trained``."""
+    if isinstance(trained, dict):
+        return {k: _scaled_update(trained[k], (base or {}).get(k), factor)
+                for k in trained}
+    if factor is None:
+        return np.array(trained, np.float32)
+    t = np.asarray(trained, np.float32)
+    b = np.asarray(base, np.float32)
+    return b + np.float32(factor) * (t - b)
+
+
+def telemetry_phase(smoke, gpu, wire=None, served=None):
+    """The telemetry planes on the card. (a) In process: LlamaLite at full
+    width and depth ``CUT_DEPTH``, 3 learners, ``TEL_ROUNDS`` rounds of
+    ``fedavg`` with the registry on and an evaluation a round, telemetry
+    at its defaults; in round 1 learner ``TEL_OUTLIER`` ships its update
+    scaled by ``TEL_FACTOR``. Round 1's health names it anomalous and
+    round 0's names none, an ``UpdateAnomalous`` event and its
+    ``learner_divergence_score`` series are there, the registry leaves
+    round 1's version a candidate with the gate's anomaly reason while
+    stable stays round 0's, and each round's health equals a fresh
+    ``HealthMonitor`` re-run on the recorded uplinks, bit for bit; each
+    ``observe_update`` (one 390 MB uplink) and ``complete_round`` is
+    timed. (b) and (c) ran inside the multiprocess and serve phases
+    (``check_wire_telemetry``, the gateway's exposition), and the
+    failover phase's kill runs' post-mortems and failover counts in that
+    phase: their seconds are summed here."""
+    import torch
+
+    from metisfl_tpu_torch import telemetry
+    from metisfl_tpu_torch.comm import TrainParams
+    from metisfl_tpu_torch.config import (
+        AggregationConfig,
+        EvalConfig,
+        FederationConfig,
+        RegistryConfig,
+        TerminationConfig,
+    )
+    from metisfl_tpu_torch.driver import InProcessFederation
+    from metisfl_tpu_torch.models import ArrayDataset, TorchModelOps
+    from metisfl_tpu_torch.models.zoo import LlamaLite
+    from metisfl_tpu_torch.telemetry import events as tevents
+    from metisfl_tpu_torch.telemetry.health import HealthMonitor
+
+    t0 = time.perf_counter()
+    variables, seed_blob = llama_seed(CUT_DEPTH)
+    tokens = np.random.default_rng(SEED + 5).integers(
+        0, VOCAB, (FED_LEARNERS * FED_ROWS + FED_EVAL_ROWS, TRAIN_LEN + 1)
+    ).astype(np.int32)
+    test = ArrayDataset(tokens[-FED_EVAL_ROWS:, :-1],
+                        tokens[-FED_EVAL_ROWS:, 1:])
+    config = FederationConfig(
+        aggregation=AggregationConfig(rule="fedavg",
+                                      scaler="train_dataset_size"),
+        train=TrainParams(batch_size=TRAIN_BATCH, local_steps=FED_STEPS,
+                          optimizer="adam", learning_rate=1e-4),
+        eval=EvalConfig(batch_size=TRAIN_BATCH, datasets=["test"],
+                        metrics=["loss", "accuracy"]),
+        termination=TerminationConfig(federation_rounds=TEL_ROUNDS),
+        registry=RegistryConfig(enabled=True, retention=8))
+    smoke.check(config.telemetry.enabled and config.telemetry.health.enabled
+                and config.registry.promotion.forbid_anomalies,
+                "telemetry (a): telemetry, the health plane and the gate's "
+                "anomaly rule are on by default")
+    fed = InProcessFederation(config, device=DEVICE)
+    monitor = fed.controller._health
+    # the monitor's calls, in the controller's order, for the replay
+    calls, observe_s, complete_s = [], [], []
+    note, observe, complete = (monitor.note_community,
+                               monitor.observe_update,
+                               monitor.complete_round)
+
+    def noted(community):
+        calls.append(("note", community))
+        return note(community)
+
+    def observed(lid, model, reference, train_metrics=None):
+        t = time.perf_counter()
+        out = observe(lid, model, reference, train_metrics=train_metrics)
+        observe_s.append(time.perf_counter() - t)
+        calls.append(("observe", lid, model, reference, train_metrics))
+        return out
+
+    def completed(round_no, community, scales):
+        t = time.perf_counter()
+        out = complete(round_no, community, scales)
+        complete_s.append(time.perf_counter() - t)
+        calls.append(("complete", round_no, community, scales))
+        return out
+
+    monitor.note_community = noted
+    monitor.observe_update = observed
+    monitor.complete_round = completed
+    llama = dict(vocab_size=VOCAB, dim=DIM, depth=CUT_DEPTH, heads=HEADS,
+                 kv_heads=KV_HEADS, dtype=torch.bfloat16)
+    for i in range(FED_LEARNERS):
+        rows = tokens[i * FED_ROWS:(i + 1) * FED_ROWS]
+        ops = TorchModelOps(LlamaLite(**llama, use_flash=True,
+                                      device=DEVICE),
+                            variables=variables, device=DEVICE)
+        if i == TEL_OUTLIER:
+            train = ops.train
+            tasks = []
+
+            def outlier(dataset, params, *args, _ops=ops, _train=train,
+                        _tasks=tasks, **kwargs):
+                # a copy: on the CPU the engine's arrays share the
+                # parameters' memory, which training updates in place
+                base = (_scaled_update(_ops.get_variables(), {}, None)
+                        if _tasks else None)
+                out = _train(dataset, params, *args, **kwargs)
+                if base is not None:
+                    out = dataclasses.replace(out, variables=_scaled_update(
+                        out.variables, base, TEL_FACTOR))
+                _tasks.append(1)
+                return out
+
+            ops.train = outlier
+        fed.add_learner(ops, ArrayDataset(rows[:, :-1], rows[:, 1:],
+                                          seed=SEED + i),
+                        test_dataset=test)
+    seed_federation(fed, seed_blob)
+    ctrl = fed.controller
+    seq0 = (tevents.tail(1) or [{"seq": 0}])[-1]["seq"]
+    reset_launches()
+
+    def gated():
+        infos = {v["version"]: v for v in ctrl.describe_registry().get(
+            "versions", [])}
+        return all(infos.get(v, {}).get("gate") for v in
+                   range(1, TEL_ROUNDS + 1))
+
+    probe, stats = run_federation(fed, settle=lambda: wait_for(
+        gated, 300.0, "every version's gate"))
+    launches = launch_counts()
+    outlier_id = fed.learners[TEL_OUTLIER].learner_id
+    metas = stats["round_metadata"][:TEL_ROUNDS]
+    anomalous = [m["health"].get("anomalous") for m in metas]
+    smoke.check(anomalous == [[], [outlier_id]],
+                f"telemetry (a): round 0's health names no anomalous "
+                f"learner, round 1's the outlier {outlier_id} (update x"
+                f"{TEL_FACTOR}): {anomalous}")
+    events = tevents.tail_since(seq0)
+    flagged = [e for e in events if e["kind"] == "update_anomalous"]
+    smoke.check([e["learner_id"] for e in flagged] == [outlier_id]
+                and flagged[0]["round"] == 1,
+                f"telemetry (a): one UpdateAnomalous event, for "
+                f"{outlier_id} in round 1: {flagged}")
+    parsed = telemetry.parse_exposition(telemetry.render_metrics())
+    score = parsed.get("learner_divergence_score", {}).get(
+        (("learner", outlier_id),), 0.0)
+    threshold = config.telemetry.health.anomaly_threshold
+    smoke.check(score >= threshold,
+                f"telemetry (a): learner_divergence_score{{learner="
+                f"{outlier_id}}} {score:.4f} >= {threshold} in the "
+                "exposition")
+    desc = ctrl.describe_registry()
+    versions = {v["version"]: v for v in desc["versions"]}
+    v2 = versions.get(2, {})
+    reasons = (v2.get("gate") or {}).get("reasons", [])
+    smoke.check(desc["stable"] == 1 and v2.get("channel") == "candidate"
+                and v2.get("round") == 1
+                and any("anomalous" in r and outlier_id in r
+                        for r in reasons),
+                f"telemetry (a): the gate held round 1's version back "
+                f"(candidate, reasons {reasons}); stable stays v"
+                f"{desc['stable']} (round 0's)")
+    # the re-run: a fresh monitor fed the recorded calls in their order
+    replay = HealthMonitor(alpha=config.telemetry.health.alpha,
+                           anomaly_threshold=threshold)
+    replayed = []
+    for call in calls:
+        if call[0] == "note":
+            replay.note_community(call[1])
+        elif call[0] == "observe":
+            replay.observe_update(call[1], call[2], call[3],
+                                  train_metrics=call[4])
+        else:
+            replayed.append(replay.complete_round(*call[1:])[0])
+    same = (len(replayed) == TEL_ROUNDS and json.dumps(
+        replayed, sort_keys=True) == json.dumps(
+        [m["health"] for m in metas], sort_keys=True))
+    smoke.check(same,
+                f"telemetry (a): each round's health equals a fresh "
+                f"HealthMonitor re-run on its {len(calls)} recorded calls, "
+                "bit for bit")
+    del calls, replay, replayed
+    k2 = FED_LEARNERS * TEL_ROUNDS * FED_STEPS * CUT_DEPTH
+    k1 = k2 + (FED_LEARNERS * TEL_ROUNDS * -(-FED_EVAL_ROWS // TRAIN_BATCH)
+               * CUT_DEPTH)
+    got = (launches["flash_attention_fwd"], launches["flash_bwd_dq"],
+           launches["flash_bwd_dkv"])
+    smoke.check(got == (k1, k2, k2),
+                f"telemetry (a): K1/K2/K3 launches {got} = ({k1}, {k2}, "
+                f"{k2}): learners x rounds x steps x depth, K1 also per "
+                "evaluation batch")
+    out = {"depth": CUT_DEPTH, "rounds": TEL_ROUNDS,
+           "factor": TEL_FACTOR, "blob_bytes": len(seed_blob),
+           "health": [m["health"].get("anomalous") for m in metas],
+           "observe_update_s": observe_s, "complete_round_s": complete_s,
+           "round_wall_s": stats["wall_s"], "registry": desc["stable"],
+           "launches": {"flash_fwd": got[0], "flash_bwd_dq": got[1],
+                        "flash_bwd_dkv": got[2]}}
+    print(f"telemetry (a): observe_update {[round(x, 3) for x in observe_s]}"
+          f" s per {len(seed_blob)}-byte uplink, complete_round "
+          f"{[round(x, 3) for x in complete_s]} s", flush=True)
+    del fed, probe
+    empty_cache()
+    out["part_s"] = {"a": time.perf_counter() - t0,
+                     "b": (wire or {}).get("check_s", 0.0)
+                     + (wire or {}).get("scrape_s", 0.0)
+                     + (wire or {}).get("collect_s", 0.0),
+                     "c": (served or {}).get("telemetry_check_s", 0.0)}
+    out["gpu"] = gpu
+    print(json.dumps({"telemetry": out}), flush=True)
     return out
 
 
@@ -5860,6 +6495,12 @@ def main() -> int:
         "slice: failover and the registry (checkpoint and --resume, the "
         "hot standby, the supervised relaunch, the stable version served)",
         failover_phase, smoke, gpu, (multiprocess or {}).get("llama"))
+    empty_cache()
+    telemetried = smoke.phase(
+        "slice: the telemetry planes (the health plane and the registry's "
+        "gate, the wire planes with processes, serving's exposition)",
+        telemetry_phase, smoke, gpu,
+        ((multiprocess or {}).get("llama") or {}).get("telemetry"), sliced)
 
     # launches on each path that runs a kernel (each path's counts set to
     # 0 just before it and read just after): K1 on every path
@@ -5883,6 +6524,8 @@ def main() -> int:
     # the failover phase's in-process rounds, its gateway's Predicts and
     # its killed federation's learner processes
     failover_launches = (failed_over or {}).get("launches", {})
+    # the telemetry phase's in-process rounds
+    telemetry_launches = (telemetried or {}).get("launches", {})
     rows = []
     if main_case is not None:
         by_path = {"serve": serve_k1,
@@ -5894,7 +6537,8 @@ def main() -> int:
                    "tiers": tiers_launches.get("flash_fwd", 0),
                    "uplinks": uplinks_launches.get("flash_fwd", 0),
                    "rounds": rounds_launches.get("flash_fwd", 0),
-                   "failover": failover_launches.get("flash_fwd", 0)}
+                   "failover": failover_launches.get("flash_fwd", 0),
+                   "telemetry": telemetry_launches.get("flash_fwd", 0)}
         rows.append(("flash_fwd", "flash_fwd.cu", 76, main_case,
                      sum(by_path.values()), by_path))
     for record, line in zip(bwd_cases or [], (126, 162)):
@@ -5906,7 +6550,8 @@ def main() -> int:
                    "tiers": tiers_launches.get(record["name"], 0),
                    "uplinks": uplinks_launches.get(record["name"], 0),
                    "rounds": rounds_launches.get(record["name"], 0),
-                   "failover": failover_launches.get(record["name"], 0)}
+                   "failover": failover_launches.get(record["name"], 0),
+                   "telemetry": telemetry_launches.get(record["name"], 0)}
         rows.append((record["name"], "flash_bwd.cu", line, record,
                      sum(by_path.values()), by_path))
     # the wide-heads path, a row per head dim and wrapper: its launches in

@@ -32,8 +32,10 @@ The slices ship their learners' uplink accounting as mergeable sketches
 (``telemetry/sketch.py``) in every fold reply; :meth:`describe` merges
 O(branch) of them.
 
-Not ported yet: the tier's failure and re-homing metrics, its events and
-spans (ROADMAP.md Queue 1 item 4).
+Telemetry, the JAX package's: the slice-failure counter and the
+re-homing histogram, the ``SliceAggregatorLost``/``SliceRehomed`` events,
+and the fold fan-in under the caller's span (the ``FoldPartial`` RPCs
+carry the round's aggregate span to the slices).
 """
 
 from __future__ import annotations
@@ -57,11 +59,24 @@ from metisfl_tpu_torch.aggregation.tree import (
     SlicePartial,
     TreeReducer,
 )
+from metisfl_tpu_torch import telemetry as _tel
 from metisfl_tpu_torch.secure.distributed import MaskedAccumulator
+from metisfl_tpu_torch.telemetry import events as _tevents
+from metisfl_tpu_torch.telemetry import metrics as _tmetrics
+from metisfl_tpu_torch.telemetry import trace as _ttrace
 from metisfl_tpu_torch.telemetry.sketch import QuantileDigest, SpaceSaving
 from metisfl_tpu_torch.tensor.pytree import ModelBlob, to_numpy, tree_map
 
 logger = logging.getLogger("metisfl_tpu_torch.aggregation.distributed")
+
+_REG = _tmetrics.registry()
+_M_SLICE_FAILURES = _REG.counter(
+    _tel.M_SLICE_FAILURES_TOTAL,
+    "Slice aggregator RPC failures observed by the controller", ("slice",))
+_M_REHOMING = _REG.histogram(
+    _tel.M_SLICE_REHOMING_SECONDS,
+    "Dead-slice re-homing duration: death confirmation through spool "
+    "recovery and re-pointing")
 
 # consecutive RPC failures before a grpc.health.v1 probe decides the
 # aggregator is dead
@@ -330,6 +345,7 @@ class DistributedSliceReducer:
                 return
             st.failures += 1
             failures = st.failures
+        _M_SLICE_FAILURES.inc(slice=st.name)
         logger.warning("slice aggregator %s RPC failed (%d consecutive): "
                        "%s", st.name, failures, exc)
         if failures < STALE_FAILURES:
@@ -365,6 +381,8 @@ class DistributedSliceReducer:
                        reason: str, t0: float) -> None:
         logger.warning("slice aggregator %s lost after %d failures",
                        st.name, st.failures)
+        _tevents.emit(_tevents.SliceAggregatorLost, slice=st.name,
+                      failures=st.failures)
         alive = [i for i in self._alive_indices() if i != st.index]
         target = alive[0] if alive else ROOT
         target_name = self._slices[target].name if target != ROOT else "root"
@@ -402,7 +420,11 @@ class DistributedSliceReducer:
         with self._lock:
             st.redirect = target
         duration = time.perf_counter() - t0
+        _M_REHOMING.observe(duration)
         self.rehomed_total += 1
+        _tevents.emit(_tevents.SliceRehomed, slice=st.name,
+                      target=target_name, round=int(round_id),
+                      recovered=recovered, lost=lost, reason=reason)
         logger.warning(
             "slice %s re-homed to %s in %.3fs: %d spooled uplink(s) "
             "recovered, %d lost (%s)", st.name, target_name, duration,
@@ -582,11 +604,16 @@ class DistributedSliceReducer:
         for lid in ids:
             groups.setdefault(self._base_owner(lid), []).append(lid)
         order = sorted(groups, key=lambda i: (i == ROOT, i))
+        # the caller's span, captured on its thread: the fold pool's
+        # threads start with empty contextvars
+        trace_ctx = _ttrace.current_context()
 
         def _fold(idx):
-            if idx == ROOT:
-                return self._fold_masked_root(groups[idx], round_id), None
-            return self._fold_masked_group(idx, groups[idx], round_id)
+            with _ttrace.use_context(trace_ctx):
+                if idx == ROOT:
+                    return self._fold_masked_root(groups[idx],
+                                                  round_id), None
+                return self._fold_masked_group(idx, groups[idx], round_id)
 
         futures = {idx: self._executor().submit(_fold, idx)
                    for idx in order}
@@ -647,10 +674,13 @@ class DistributedSliceReducer:
         for lid in ids:
             groups.setdefault(self._base_owner(lid), []).append(lid)
         order = sorted(groups, key=lambda i: (i == ROOT, i))
+        # the caller's span (the round's aggregate), captured on its thread
+        trace_ctx = _ttrace.current_context()
 
         def _fold(idx):
-            return self._fold_group(idx, groups[idx], scales, subblock,
-                                    round_id)
+            with _ttrace.use_context(trace_ctx):
+                return self._fold_group(idx, groups[idx], scales, subblock,
+                                        round_id)
 
         futures = {idx: self._executor().submit(_fold, idx)
                    for idx in order}

@@ -132,9 +132,10 @@ class _RobustBase:
     """The whole-cohort shell: advisory scores, the 64-bit host path, the
     device check and the timing of the three stages.
 
-    ``advisory_scores`` (the health plane's divergence scores, ROADMAP.md
-    Queue 1 item 4) are recorded on ``last_advisory`` and logged; the
-    combine is the same with or without them."""
+    ``advisory_scores`` (the health plane's divergence scores, passed by
+    the controller under ``telemetry.health.advisory``) are recorded on
+    ``last_advisory`` and logged; the combine is the same with or without
+    them."""
 
     required_lineage = 1
     requires_full_cohort = True

@@ -27,8 +27,10 @@ Host numpy only. Entry point::
         --spool-dir /tmp/slices/slice_0 --name slice_0
     # or as DriverSession boots it: --config federation_config.bin --index 0
 
-Not ported yet: the ``GetMetrics`` method and the slice's metrics and
-spans (ROADMAP.md Queue 1 item 4).
+Telemetry, the JAX package's: the uplink, held-model and masked-fold
+metrics, a ``slice.fold`` span under the ``FoldPartial`` server span, and
+``GetMetrics``; with ``--config`` the process applies the config's
+``telemetry`` section.
 """
 
 from __future__ import annotations
@@ -44,10 +46,13 @@ from typing import Any, Dict, List, Optional
 
 import numpy as np
 
+from metisfl_tpu_torch import telemetry as _tel
 from metisfl_tpu_torch.aggregation.tree import _DEFAULT_SUBBLOCK, TreeReducer
 from metisfl_tpu_torch.comm.codec import dumps, loads
 from metisfl_tpu_torch.secure.distributed import MaskedAccumulator
 from metisfl_tpu_torch.store import durable as _durable
+from metisfl_tpu_torch.telemetry import metrics as _tmetrics
+from metisfl_tpu_torch.telemetry import trace as _ttrace
 from metisfl_tpu_torch.telemetry.sketch import QuantileDigest, SpaceSaving
 from metisfl_tpu_torch.tensor.pytree import ModelBlob, to_numpy
 
@@ -59,6 +64,21 @@ SLICE_SERVICE = "metisfl_tpu.SliceAggregator"
 # stream-mode accumulators kept per round id (mask streams are
 # round-keyed: older rounds' sums can never settle)
 _STREAM_ROUNDS_KEPT = 4
+
+_REG = _tmetrics.registry()
+_M_UPLINKS = _REG.counter(
+    _tel.M_SLICE_UPLINKS_TOTAL,
+    "Uplinks accepted (spooled + held) by this slice aggregator")
+_M_HELD = _REG.gauge(
+    _tel.M_SLICE_HELD_MODELS,
+    "Learner models currently held fold-ready by this slice aggregator")
+_M_MASKED_UPLINKS = _REG.counter(
+    _tel.M_SECURE_MASKED_UPLINKS_TOTAL,
+    "Masked (secure-agg) uplinks accepted by this process")
+_M_MASKED_FOLDS = _REG.counter(
+    _tel.M_SECURE_MASKED_FOLDS_TOTAL,
+    "Masked partial folds performed, by tier",
+    labelnames=("tier",))
 
 
 def spool_path(spool_dir: str, learner_id: str) -> str:
@@ -135,6 +155,7 @@ class SliceAggregator:
             if self._models or self._masked:
                 logger.info("slice %s reloaded %d spooled model(s)",
                             name, len(self._models) + len(self._masked))
+                _M_HELD.set(len(self._models) + len(self._masked))
         # the slice's per-client uplink rollup, shipped as mergeable
         # sketches in every fold reply
         self._bytes_digest = QuantileDigest()
@@ -177,6 +198,10 @@ class SliceAggregator:
             self._uplinks += 1
             self._bytes_digest.add(float(len(blob)))
             self._top_bytes.update(learner_id, float(len(blob)))
+        _M_UPLINKS.inc()
+        if masked:
+            _M_MASKED_UPLINKS.inc()
+        _M_HELD.set(held)
         return held
 
     def forget(self, learner_ids) -> int:
@@ -192,6 +217,8 @@ class SliceAggregator:
                 if self._masked.pop(lid, None) is not None:
                     dropped += 1
                 self._top_bytes.drop(lid)
+            held = len(self._models) + len(self._masked)
+        _M_HELD.set(held)
         if self.spool_dir:
             for lid in learner_ids:
                 try:
@@ -215,8 +242,11 @@ class SliceAggregator:
             return {lid: [snapshot[lid]] for lid in block
                     if lid in snapshot}
 
-        partial = TreeReducer._fold_slice(list(ids), scales, fetch,
-                                          int(stride) or _DEFAULT_SUBBLOCK)
+        # the named fold span under the FoldPartial server span
+        with _ttrace.span("slice.fold",
+                          attrs={"slice": self.name, "ids": len(ids)}):
+            partial = TreeReducer._fold_slice(list(ids), scales, fetch,
+                                              int(stride) or _DEFAULT_SUBBLOCK)
         reply: Dict[str, Any] = {
             "ok": True,
             "count": partial.count,
@@ -257,6 +287,7 @@ class SliceAggregator:
                     continue
                 out.fold(lid, held[1])
         sums, specs, present = out.snapshot()
+        _M_MASKED_FOLDS.inc(tier="slice")
         reply: Dict[str, Any] = {
             "ok": True,
             "masked": True,
@@ -305,6 +336,7 @@ class SliceServer:
             "Forget": self._forget,
             "DescribeSlice": self._describe,
             "GetHealthStatus": self._health_rpc,
+            "GetMetrics": self._get_metrics,
             "ShutDown": self._shutdown_rpc,
         }, role="slice"))
         self._shutdown_event = threading.Event()
@@ -339,6 +371,9 @@ class SliceServer:
 
     def _describe(self, raw: bytes) -> bytes:
         return dumps(self.aggregator.stats())
+
+    def _get_metrics(self, raw: bytes) -> bytes:
+        return _tel.render_metrics().encode("utf-8")
 
     def _health_rpc(self, raw: bytes) -> bytes:
         return dumps({"status": "SERVING", "name": self.aggregator.name})
@@ -464,6 +499,8 @@ def main(argv: Optional[List[str]] = None) -> int:
         spool_dir = spool_dir or str(spec.get("spool_dir", ""))
         name = name or str(spec.get("name", ""))
         ssl = config.ssl
+        _tel.apply_config(config.telemetry,
+                          service=name or f"slice_{args.index}")
     name = name or f"slice_{os.getpid()}"
     server = SliceServer(spool_dir=spool_dir, name=name, host=host,
                          port=port, ssl=ssl)

@@ -36,8 +36,10 @@ Faults:
 - ``partition``: calls between ``after_s`` and ``after_s + window_s``
   (from the rule's first eligible call) raise UNAVAILABLE.
 
-The telemetry plane's fault counter, events and kill post-mortem are not
-ported (ROADMAP.md Queue 1 item 4); every fire is logged.
+Every fire is logged, counted (``chaos_faults_injected_total``) and
+journaled (``FaultInjected``); a ``kill`` first dumps the process's
+post-mortem bundle (telemetry/postmortem.py, where the flight recorder is
+armed).
 """
 
 from __future__ import annotations
@@ -51,7 +53,15 @@ import time
 from dataclasses import dataclass, field
 from typing import Dict, List, Optional
 
+from metisfl_tpu_torch import telemetry as _tel
+from metisfl_tpu_torch.telemetry import events as _tevents
+from metisfl_tpu_torch.telemetry import metrics as _tmetrics
+
 logger = logging.getLogger("metisfl_tpu_torch.chaos")
+
+_M_FAULTS = _tmetrics.registry().counter(
+    _tel.M_CHAOS_FAULTS_INJECTED_TOTAL, "Faults fired by the chaos injector",
+    ("fault", "side", "method"))
 
 ENV_VAR = "METISFL_TPU_CHAOS"
 
@@ -181,9 +191,17 @@ class ChaosInjector:
                         if not (start <= elapsed < start + window):
                             continue  # outside the partition window
                 rule.fired += 1
+            _M_FAULTS.inc(fault=rule.fault, side=side, method=method)
+            _tevents.emit(_tevents.FaultInjected, fault=rule.fault,
+                          side=side, method=method)
             logger.warning("chaos: firing %s on %s %s/%s (fire %d)",
                            rule.fault, side, service, method, rule.fired)
             if rule.fault == "kill":
+                # the flight recorder first: the dying process's event ring
+                # and open spans are the post-mortem this kill exists for
+                from metisfl_tpu_torch.telemetry import postmortem
+                postmortem.dump("chaos_kill",
+                                extra={"method": method, "side": side})
                 # flush the warning before dying: a diagnosable crash
                 logging.shutdown()
                 os._exit(_KILL_EXIT_CODE)
@@ -216,6 +234,9 @@ class ChaosInjector:
                 if rule.prob < 1.0 and self._rng.random() >= rule.prob:
                     continue
                 rule.fired += 1
+            _M_FAULTS.inc(fault="slow", side="learner", method="Train")
+            _tevents.emit(_tevents.FaultInjected, fault="slow",
+                          side="learner", method="Train")
             factor = max(factor, rule.factor or 2.0)
         if factor > 1.0:
             logger.warning("chaos: slowing train task by %.1fx", factor)

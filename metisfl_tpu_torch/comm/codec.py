@@ -8,16 +8,88 @@ they travel as ModelBlob bytes (``tensor/pytree.py``) in ``bytes`` fields.
 The bytes equal the JAX codec's for every value, so processes of either
 package read each other's messages.
 
-Not ported: the codec's metrics, trace events and per-learner attribution
-(ROADMAP.md Queue 1 item 4).
+Telemetry (the JAX package's): encode/decode duration and byte metrics, a
+trace event for payloads of 256 KiB and more, and per-learner attribution
+(``attributed``/``attribute``) that the controller's cost profiles diff
+per round.
 """
 
 from __future__ import annotations
 
+import contextlib
+import contextvars
 import struct
-from typing import Any
+import threading
+import time
+from typing import Any, Dict, Tuple
 
 import numpy as np
+
+from metisfl_tpu_torch import telemetry as _tel
+from metisfl_tpu_torch.telemetry import metrics as _tmetrics
+from metisfl_tpu_torch.telemetry import trace as _ttrace
+
+# codec hot-path telemetry: histograms always (cheap), spans only for
+# payloads big enough to matter in a round trace — every tiny ack would
+# otherwise flood the JSONL sink
+_M_CODEC = _tmetrics.registry().histogram(
+    _tel.M_CODEC_DURATION_SECONDS, "Message codec encode/decode time", ("op",))
+_M_CODEC_BYTES = _tmetrics.registry().counter(
+    _tel.M_CODEC_BYTES_TOTAL, "Message codec bytes by operation", ("op",))
+_SPAN_MIN_BYTES = 1 << 18
+
+# Per-learner codec attribution (performance observatory): call sites
+# that know which learner a message belongs to wrap the encode in
+# ``attributed(learner_id)`` (or report a self-timed decode via
+# ``attribute``), and the time lands in a labeled counter + the process
+# totals the profile collector diffs per round. Series are pruned on
+# learner leave (``prune_attribution``) — bounded cardinality under
+# churn, the same posture as the controller's per-learner gauges.
+_M_CODEC_LEARNER = _tmetrics.registry().counter(
+    _tel.M_CODEC_LEARNER_SECONDS,
+    "Codec encode/decode seconds attributed to one learner's messages",
+    ("learner", "op"), budget_label="learner")
+_ATTR: "contextvars.ContextVar[str]" = contextvars.ContextVar(
+    "metisfl_tpu_torch_codec_attr", default="")
+_ATTR_LOCK = threading.Lock()
+_ATTR_TOTALS: Dict[Tuple[str, str], float] = {}
+
+
+@contextlib.contextmanager
+def attributed(learner_id: str):
+    """Attribute every dumps/loads inside the block to ``learner_id``."""
+    token = _ATTR.set(learner_id or "")
+    try:
+        yield
+    finally:
+        _ATTR.reset(token)
+
+
+def attribute(learner_id: str, op: str, seconds: float) -> None:
+    """Record codec time for a learner's message (post-hoc form, for
+    decode sites that only learn the learner id FROM the decode)."""
+    if not learner_id or not _tmetrics.enabled():
+        return
+    _M_CODEC_LEARNER.inc(seconds, learner=learner_id, op=op)
+    with _ATTR_LOCK:
+        key = (learner_id, op)
+        _ATTR_TOTALS[key] = _ATTR_TOTALS.get(key, 0.0) + seconds
+
+
+def attributed_totals() -> Dict[Tuple[str, str], float]:
+    """Cumulative attributed seconds ``{(learner_id, op): s}`` — the
+    profile collector snapshots this per round and diffs."""
+    with _ATTR_LOCK:
+        return dict(_ATTR_TOTALS)
+
+
+def prune_attribution(learner_id: str) -> None:
+    for op in ("encode", "decode"):
+        _M_CODEC_LEARNER.remove(learner=learner_id, op=op)
+    with _ATTR_LOCK:
+        for key in [k for k in _ATTR_TOTALS if k[0] == learner_id]:
+            del _ATTR_TOTALS[key]
+
 
 _T_NONE = 0x00
 _T_FALSE = 0x01
@@ -107,8 +179,21 @@ def _encode(out: bytearray, value: Any) -> None:
 
 def dumps(value: Any) -> bytes:
     out = bytearray()
+    if not _tmetrics.enabled():
+        _encode(out, value)
+        return bytes(out)
+    t0 = time.perf_counter()
     _encode(out, value)
-    return bytes(out)
+    buf = bytes(out)
+    elapsed = time.perf_counter() - t0
+    _M_CODEC.observe(elapsed, op="encode")
+    _M_CODEC_BYTES.inc(len(buf), op="encode")
+    lid = _ATTR.get()
+    if lid:
+        attribute(lid, "encode", elapsed)
+    if len(buf) >= _SPAN_MIN_BYTES:
+        _ttrace.event("codec.encode", elapsed, attrs={"bytes": len(buf)})
+    return buf
 
 
 def _read_varint(view: memoryview, offset: int) -> tuple[int, int]:
@@ -184,6 +269,23 @@ def _decode(view: memoryview, offset: int, depth: int = 0
 
 def loads(buf) -> Any:
     """Decode one value; trailing bytes are a framing error and raise."""
+    if not _tmetrics.enabled():
+        return _loads(buf)
+    t0 = time.perf_counter()
+    value = _loads(buf)
+    elapsed = time.perf_counter() - t0
+    nbytes = memoryview(buf).nbytes
+    _M_CODEC.observe(elapsed, op="decode")
+    _M_CODEC_BYTES.inc(nbytes, op="decode")
+    lid = _ATTR.get()
+    if lid:
+        attribute(lid, "decode", elapsed)
+    if nbytes >= _SPAN_MIN_BYTES:
+        _ttrace.event("codec.decode", elapsed, attrs={"bytes": nbytes})
+    return value
+
+
+def _loads(buf) -> Any:
     view = memoryview(buf)
     value, offset = _decode(view, 0)
     if offset != len(view):

@@ -8,11 +8,11 @@ every field keeps its name, the bytes equal the JAX package's for the same
 values, and a learner or controller of either package reads the other's
 messages, over the wire or by attribute in one process.
 
-Fields that matter only to the JAX engine are kept so that one task's
-parameters fit both engines: ``profile_dir`` and ``profile_steps`` are
-ignored (``torch.profiler`` is driven from outside), ``device_stats`` is
-read by the learner, and ``scan_chunk`` changes only how often the host
-waits for the device, never the result. The transport fields (``ship_*``,
+Fields keep their meaning in both engines: ``profile_dir`` and
+``profile_steps`` arm a ``torch.profiler`` capture of that many training
+steps here, ``device_stats`` asks the learner for its device stats, and
+``scan_chunk`` changes only how often the host waits for the device, never
+the result. The transport fields (``ship_*``,
 ``downlink_dtype``, ``local_tensor_regex``, ``dp_*``) are read by the
 learner and the aggregation slices.
 """
@@ -91,7 +91,8 @@ class TrainParams(Message):
     # weight on sown auxiliary losses (MoE router load balancing); the
     # port's LlamaLite has no MoE yet, so nothing reads it
     moe_aux_weight: float = 0.01
-    # the JAX engine's jax.profiler capture; ignored here
+    # a profiler capture of profile_steps steady-state steps into this
+    # directory ("" = none; the learner namespaces it by its id)
     profile_dir: str = ""
     profile_steps: int = 3
     # per-task device utilization report (learner)

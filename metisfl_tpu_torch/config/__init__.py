@@ -9,16 +9,23 @@ from metisfl_tpu_torch.config.federation import (
     ControllerConfig,
     ControllerStandbyConfig,
     EvalConfig,
+    EventsConfig,
+    FabricConfig,
     FailoverConfig,
     FederationConfig,
+    HealthConfig,
     LearnerEndpoint,
     ModelStoreConfig,
+    ProfConfig,
+    ProfileConfig,
     PromotionConfig,
     RegistryConfig,
+    RuntimeConfig,
     SchedulingConfig,
     SecureAggConfig,
     ServingConfig,
     ServingDecodeConfig,
+    TelemetryConfig,
     TerminationConfig,
     TreeAggregationConfig,
     load_config,
@@ -32,5 +39,7 @@ __all__ = [
     "ServingConfig",
     "ServingDecodeConfig", "CommConfig", "LearnerEndpoint", "SSLConfig",
     "FailoverConfig", "ControllerConfig", "ControllerStandbyConfig",
-    "PromotionConfig", "RegistryConfig", "load_config",
+    "PromotionConfig", "RegistryConfig", "TelemetryConfig", "EventsConfig",
+    "HealthConfig", "ProfileConfig", "ProfConfig", "RuntimeConfig",
+    "FabricConfig", "load_config",
 ]

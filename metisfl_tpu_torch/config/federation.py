@@ -340,6 +340,195 @@ class EvalConfig:
 
 
 @dataclass
+class EventsConfig:
+    """Structured event journal (telemetry/events.py): typed federation
+    events (joins, rounds, dispatches, retries, faults) in a bounded
+    in-memory ring + JSONL sink (under ``telemetry.dir``). The ring tail
+    rides in ``DescribeFederation`` snapshots and post-mortem bundles.
+    ``enabled=false`` makes every emit call site a one-attribute-check
+    no-op (telemetry.enabled=false implies it)."""
+
+    enabled: bool = True
+    ring_size: int = 512
+
+
+@dataclass
+class HealthConfig:
+    """Learning-health plane (telemetry/health.py): per-uplink update
+    statistics (norms, cohort alignment), per-learner EWMA divergence
+    scores (cohort-median/MAD robust z, the convergence analogue of the
+    straggler score), and per-round convergence snapshots. Controller-
+    side and host-numpy only; ``enabled=false`` leaves the uplink hot
+    path at one attribute check (secure aggregation implies off — the
+    payloads are opaque ciphertext)."""
+
+    enabled: bool = True
+    # EWMA blend for per-learner divergence scores (~last 3-4 rounds
+    # dominate, matching the straggler analytics)
+    alpha: float = 0.3
+    # robust-z threshold past which an uplink emits UpdateAnomalous
+    anomaly_threshold: float = 3.0
+    # advisory hook: pass the scores to selection + robust aggregation
+    # (informational — results are bit-identical either way; the rules
+    # record/log which flagged learners entered the cohort)
+    advisory: bool = False
+
+
+@dataclass
+class ProfileConfig:
+    """Performance observatory (telemetry/profile.py): typed per-round
+    cost profiles on the controller (phase waterfall, per-learner
+    uplink/downlink wire bytes + codec attribution, store/aggregation
+    time), device-utilization capture in the learner train loop
+    (step-time EWMA, achieved MFU, HBM watermark, shipped back in
+    ``TaskResult.device_stats``), and flag-gated periodic ``jax.profiler``
+    trace capture (``torch.profiler`` in the port). ``enabled=false``
+    leaves every hot path at one attribute check (no collector
+    constructed, no device stats shipped)."""
+
+    enabled: bool = True
+    # arm a torch.profiler capture on the dispatched tasks every N rounds
+    # (0 = never); sessions land under <dir>/jaxprof/round<N>/ in
+    # collision-free per-capture subdirs
+    trace_every_rounds: int = 0
+    # RoundProfile JSONL sink dir ("" → telemetry.dir, next to traces)
+    dir: str = ""
+
+
+@dataclass
+class ProfConfig:
+    """Continuous profiling plane (telemetry/prof.py; accepted and not
+    ported yet, ROADMAP.md Queue 1 item 4b): an always-on
+    stack sampler per process (daemon thread over
+    ``sys._current_frames()``) folding into a bounded mergeable
+    folded-stack table, plus instrumented wrappers on the hot locks
+    (controller registry, store lineage/LRU, ingest, slice reducer,
+    serving queue, fleet collector) recording wait-time histograms and
+    per-site contention counters. Profiles ride ``CollectTelemetry``
+    and each RoundProfile carries the per-round folded-stack delta.
+    ``enabled=false``: no sampler thread, and the lock factories
+    hand back raw ``threading`` locks — zero wrapper cost."""
+
+    enabled: bool = True
+    # sampling frequency; 67 Hz is deliberately off-harmonic with the
+    # 1/10/100 ms periods federation work is built from (GWP posture)
+    hz: float = 67.0
+    # folded-stack table budget: top-`budget` stacks keep exact labels,
+    # the crowd collapses into the SpaceSaving eviction floor — fleet
+    # profiles stay O(budget) however long the process runs
+    budget: int = 512
+
+
+@dataclass
+class RuntimeConfig:
+    """Accelerator runtime observability (telemetry/runtime.py; accepted
+    and not ported yet, 4b): XLA
+    compile tracking (``jax.monitoring`` duration listener + the
+    ``monitored_jit`` attribution wrappers on the jit entrypoints we
+    own), cold-vs-recompile classification with storm events, and
+    device/host memory accounting sampled on the prof cadence.
+    ``enabled=false`` installs no listener, wrapped jits pass straight
+    through at one attribute check, and the ``CollectTelemetry``
+    section is an ``{"enabled": false}`` stub."""
+
+    enabled: bool = True
+    # per-fn compile-row budget: this many names stay exact, the crowd
+    # folds into the "_other" row
+    budget: int = 256
+    # memory-sample gate on the prof sampler cadence (seconds): a 67 Hz
+    # sampler costs one memory walk per this interval, not 67/s
+    mem_every_s: float = 1.0
+    # a recompile storm = storm_threshold recompiles of ONE function
+    # inside storm_window_s (emits a jax_recompile_storm event, muted
+    # per function for one window)
+    storm_window_s: float = 10.0
+    storm_threshold: int = 4
+
+
+@dataclass
+class FabricConfig:
+    """Fleet telemetry fabric (telemetry/fabric.py; accepted and not
+    ported yet, 4b — every server answers ``CollectTelemetry`` with the
+    ``{"enabled": false}`` stub): the
+    ``CollectTelemetry`` cursor-pull RPC every role-carrying endpoint
+    answers, and the driver-side :class:`FleetCollector` that polls the
+    fleet with jitter, corrects per-peer clock skew NTP-style, and
+    streams the merged span timeline into ``traces.jsonl`` live.
+    ``enabled=false`` leaves every server at one attribute check (the
+    handler answers a stub and the finished-span ring is disabled)."""
+
+    enabled: bool = True
+    # collector poll period (seconds) and its relative jitter in [0, 1)
+    # — jitter de-correlates N collectors against one fleet
+    poll_every_s: float = 2.0
+    jitter: float = 0.3
+    # clock-offset EWMA blend and the RTT gate: an offset sample is
+    # accepted only when its round trip stays within rtt_gate × the
+    # best RTT seen for that peer (a congested exchange can be off by
+    # rtt/2)
+    offset_alpha: float = 0.2
+    rtt_gate: float = 3.0
+    # per-process finished-span ring the cursor pulls read from
+    # (0 → the trace module's default, 4096)
+    span_ring: int = 0
+    # causal critical-path attribution (telemetry/causal.py) over the
+    # merged span buffer: refresh per sweep, export the heaviest edges
+    # as round_critical_path_seconds{edge} and the snapshot's crit row.
+    # False skips the walk (span collection itself is unaffected).
+    critical_path: bool = True
+    # how many heaviest edges each summary/gauge keeps
+    critical_path_edges: int = 5
+
+
+@dataclass
+class TelemetryConfig:
+    """Federation-wide observability (metisfl_tpu_torch/telemetry): trace spans
+    + metrics registry + event journal. ``enabled=false`` opts the whole
+    subsystem out (instrument call sites become attribute-check no-ops)."""
+
+    enabled: bool = True
+    # JSONL trace-sink directory. "" → spans are not persisted (ids and
+    # durations still flow into RoundMetadata); the driver fills this in
+    # with <workdir>/telemetry so controller + learner files stitch.
+    dir: str = ""
+    # Cardinality budget for the per-learner metric families
+    # (docs/OBSERVABILITY.md "Telemetry at scale"): past this many
+    # series a family collapses to quantile series + top-K offender
+    # series + a distinct count (mergeable sketches, telemetry/
+    # sketch.py), bounding exposition / describe() / checkpoint at
+    # O(budget) however large the fleet. 0 (default) = exact series,
+    # today's behavior bit-identically.
+    cardinality_budget: int = 0
+    # SLO alert rules (the JAX package's telemetry/alerts.py; not ported
+    # yet, 4b: a non-empty list is refused). Empty (default) constructs
+    # no engine.
+    alerts: List[Dict[str, Any]] = field(default_factory=list)
+    # alert-engine evaluation cadence (also the sampling period of the
+    # bounded time-series ring behind status --watch sparklines)
+    alerts_interval_s: float = 1.0
+    # optional plain-HTTP /metrics listener on the controller (0 = off);
+    # learners take --metrics-port on their CLI instead (N learners on
+    # one host cannot share a configured port)
+    http_port: int = 0
+    # event journal (telemetry/events.py)
+    events: EventsConfig = field(default_factory=EventsConfig)
+    # learning-health plane (telemetry/health.py)
+    health: HealthConfig = field(default_factory=HealthConfig)
+    # performance observatory (telemetry/profile.py)
+    profile: ProfileConfig = field(default_factory=ProfileConfig)
+    # fleet telemetry fabric (telemetry/fabric.py)
+    fabric: FabricConfig = field(default_factory=FabricConfig)
+    # continuous profiling plane (telemetry/prof.py)
+    prof: ProfConfig = field(default_factory=ProfConfig)
+    # accelerator runtime observability (telemetry/runtime.py)
+    runtime: RuntimeConfig = field(default_factory=RuntimeConfig)
+    # flight-recorder bundle directory (telemetry/postmortem.py): crash /
+    # chaos-kill / failover post-mortems land here. "" → recorder off;
+    # the driver fills this in with <workdir>/postmortem.
+    postmortem_dir: str = ""
+
+
+@dataclass
 class CommConfig:
     """Transport settings (``comm/rpc.py`` ``RpcClient``): the deadline of
     a call that passes ``timeout=None`` (``<= 0`` = unbounded), and how
@@ -404,6 +593,7 @@ class FederationConfig:
     ssl: SSLConfig = field(default_factory=SSLConfig)
     failover: FailoverConfig = field(default_factory=FailoverConfig)
     controller: ControllerConfig = field(default_factory=ControllerConfig)
+    telemetry: TelemetryConfig = field(default_factory=TelemetryConfig)
     # the controller's endpoint; DriverSession binds an ephemeral port and
     # reads it back when controller_port is 0
     controller_host: str = "localhost"
@@ -483,9 +673,12 @@ class FederationConfig:
             raise ValueError("termination cutoffs must be >= 0")
         self._check_uplink(rule)
         self._check_failover()
+        self._check_telemetry()
         # what the port does not do yet, once the values are known valid
         if any(ep.world_size > 1 for ep in self.learners):
             raise not_ported("multi-host learners (world_size > 1)", "9")
+        if self.telemetry.alerts:
+            raise not_ported("SLO alert rules (telemetry.alerts)", "4b")
 
     def _check_scheduling(self) -> None:
         """The JAX package's scheduling checks, with its error types."""
@@ -536,6 +729,78 @@ class FederationConfig:
                                          "rules": self.chaos.rules})
             except (TypeError, ValueError) as exc:
                 raise ValueError(f"invalid chaos rule: {exc}") from None
+
+    def _check_telemetry(self) -> None:
+        """The JAX package's telemetry checks, with its error types (the
+        fabric, profiler and runtime sections are checked though the port
+        does not run them yet, so a YAML valid for one package is valid for
+        the other)."""
+        if not 0.0 < self.telemetry.health.alpha <= 1.0:
+            # a typo'd blend weight would silently freeze (0) or unsmooth
+            # (>1 oscillates) every divergence score
+            raise ValueError("telemetry.health.alpha must be in (0, 1]")
+        if self.telemetry.health.anomaly_threshold <= 0.0:
+            # threshold 0 would flag EVERY above-median update anomalous
+            raise ValueError(
+                "telemetry.health.anomaly_threshold must be > 0")
+        if self.telemetry.profile.trace_every_rounds < 0:
+            # a negative period would silently never fire via the modulo
+            raise ValueError(
+                "telemetry.profile.trace_every_rounds must be >= 0")
+        if self.telemetry.cardinality_budget < 0:
+            raise ValueError("telemetry.cardinality_budget must be >= 0")
+        fab = self.telemetry.fabric
+        if fab.poll_every_s <= 0.0:
+            raise ValueError("telemetry.fabric.poll_every_s must be > 0")
+        if not 0.0 <= fab.jitter < 1.0:
+            raise ValueError("telemetry.fabric.jitter must be in [0, 1)")
+        if not 0.0 < fab.offset_alpha <= 1.0:
+            # same posture as the other EWMA blends: a typo'd weight
+            # would silently freeze or unsmooth every offset estimate
+            raise ValueError(
+                "telemetry.fabric.offset_alpha must be in (0, 1]")
+        if fab.rtt_gate < 1.0:
+            # a gate under 1 rejects even the best-RTT sample — the
+            # estimator would never converge
+            raise ValueError("telemetry.fabric.rtt_gate must be >= 1")
+        if fab.span_ring < 0:
+            raise ValueError("telemetry.fabric.span_ring must be >= 0")
+        if fab.critical_path_edges < 1:
+            # 0 edges is an attribution that attributes nothing — turn
+            # the walk off with critical_path=false instead
+            raise ValueError(
+                "telemetry.fabric.critical_path_edges must be >= 1")
+        pr = self.telemetry.prof
+        if pr.enabled:
+            if not 0.0 < pr.hz <= 1000.0:
+                # 0 would park the sampler thread in a busy loop's
+                # degenerate cousin (wait(inf)); past 1 kHz the sampler
+                # IS the workload it claims to measure
+                raise ValueError(
+                    "telemetry.prof.hz must be in (0, 1000]")
+            if pr.budget < 16:
+                # a tiny table thrashes the SpaceSaving floor and every
+                # profile becomes eviction noise
+                raise ValueError("telemetry.prof.budget must be >= 16")
+        rt = self.telemetry.runtime
+        if rt.enabled:
+            # the silently-armed-nothing posture: a knob that would make
+            # the plane record nothing (or storm-mute everything) must
+            # fail at config time, not "run" blind
+            if rt.budget < 8:
+                raise ValueError("telemetry.runtime.budget must be >= 8")
+            if rt.mem_every_s <= 0.0:
+                raise ValueError(
+                    "telemetry.runtime.mem_every_s must be > 0")
+            if rt.storm_window_s <= 0.0:
+                raise ValueError(
+                    "telemetry.runtime.storm_window_s must be > 0")
+            if rt.storm_threshold < 2:
+                # 1 would flag every single recompile as a "storm"
+                raise ValueError(
+                    "telemetry.runtime.storm_threshold must be >= 2")
+        if self.telemetry.alerts_interval_s <= 0.0:
+            raise ValueError("telemetry.alerts_interval_s must be > 0")
 
     def _check_failover(self) -> None:
         """The JAX package's failover, standby and registry checks, with

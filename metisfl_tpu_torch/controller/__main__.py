@@ -35,12 +35,23 @@ registry), serves it on its own pinned port (every peer knows both
 endpoints), prints ``METISFL_TPU_CONTROLLER_PROMOTED port=<port>`` and
 re-dispatches the abandoned round. It prints
 ``METISFL_TPU_CONTROLLER_STANDBY_READY port=<port>`` once it tails, and
-exits 0 on SIGTERM while warm.
+exits 0 on SIGTERM while warm. The standby keeps the WAL-lag gauge, and a
+promotion counts ``controller_failover_total{role="standby"}``, observes
+the promote seconds and emits ``ControllerFailover``.
+
+Telemetry: the config's ``telemetry`` section is applied at start
+(``telemetry.apply_config``: metrics, spans and events into
+``telemetry.dir``, post-mortems into ``telemetry.postmortem_dir``), and
+``telemetry.http_port`` > 0 serves ``/metrics`` over plain HTTP. The
+planes the port does not run yet (the fleet fabric, the stack sampler,
+the runtime plane; ROADMAP.md Queue 1 item 4b) are named once in the log
+when the config turns them on.
 """
 
 from __future__ import annotations
 
 import argparse
+import hashlib
 import logging
 import signal
 import sys
@@ -48,6 +59,7 @@ import threading
 import time
 
 from metisfl_tpu_torch import chaos
+from metisfl_tpu_torch import telemetry
 from metisfl_tpu_torch.config import FederationConfig, load_config
 from metisfl_tpu_torch.controller.core import Controller
 from metisfl_tpu_torch.controller.service import (
@@ -56,6 +68,8 @@ from metisfl_tpu_torch.controller.service import (
     RpcLearnerProxy,
 )
 from metisfl_tpu_torch.secure import make_backend
+from metisfl_tpu_torch.telemetry import events as tevents
+from metisfl_tpu_torch.telemetry import metrics as tmetrics
 
 
 def secure_backend_of(config, parser):
@@ -89,7 +103,32 @@ def _serve(server: ControllerServer) -> None:
     server.wait_for_shutdown()
 
 
-def standby_main(args, config, parser) -> int:
+def start_telemetry(config, service: str, host: str):
+    """Apply the config's telemetry section to this process; returns the
+    ``/metrics`` listener (None without ``telemetry.http_port``)."""
+    telemetry.apply_config(
+        config.telemetry, service=service,
+        config_hash=hashlib.sha256(config.to_wire()).hexdigest()[:16])
+    unported = telemetry.unported_planes(config.telemetry)
+    if unported:
+        logging.getLogger("metisfl_tpu_torch.telemetry").info(
+            "telemetry planes %s are on in the config and not ported to "
+            "metisfl_tpu_torch yet (ROADMAP.md Queue 1 item 4b); nothing "
+            "depends on them", ", ".join(unported))
+    if config.telemetry.enabled and config.telemetry.http_port > 0:
+        from metisfl_tpu_torch.telemetry.httpd import start_metrics_http
+        return start_metrics_http(config.telemetry.http_port, host=host)
+    return None
+
+
+def stop_telemetry(metrics_http) -> None:
+    if metrics_http is not None:
+        metrics_http.close()
+    telemetry.trace.flush()
+    telemetry.events.flush()
+
+
+def standby_main(args, config, parser, metrics_http=None) -> int:
     """The warm standby: tail, escalate, promote (module docstring)."""
     from metisfl_tpu_torch.comm.health import (
         NOT_SERVING,
@@ -126,11 +165,19 @@ def standby_main(args, config, parser) -> int:
     last_progress = time.monotonic()
     failures = 0
     promoted = False
+    # the records that landed in the primary's WAL inside one probe tick
+    # (0 = caught up)
+    lag_gauge = tmetrics.registry().gauge(
+        telemetry.M_CONTROLLER_WAL_LAG_RECORDS,
+        "Standby tail position behind the primary's WAL head (records "
+        "observed landing per probe tick; 0 = caught up)")
+    lag_gauge.set(0.0)
     while not stop.is_set():
         stop.wait(standby.probe_interval_s)
         if stop.is_set():
             break
         seq = wal.poll()
+        lag_gauge.set(float(max(0, seq - last_seq)))
         if seq != last_seq:
             last_seq, last_progress, failures = seq, time.monotonic(), 0
             continue
@@ -154,6 +201,7 @@ def standby_main(args, config, parser) -> int:
             break
     if not promoted:  # a clean stop while warm
         idle.stop()
+        stop_telemetry(metrics_http)
         return 0
     # promote: the full controller on the same pinned port (peers redial a
     # known endpoint); every client's bounded UNAVAILABLE retry covers the
@@ -168,14 +216,28 @@ def standby_main(args, config, parser) -> int:
                               ssl=config.ssl)
     port = server.start()
     promote_s = time.monotonic() - t0
+    n_learners = len(controller.active_learners())
+    reg = tmetrics.registry()
+    reg.counter(telemetry.M_CONTROLLER_FAILOVER_TOTAL,
+                "Standby promotions to controller, by role of the "
+                "emitting process", ("role",)).inc(role="standby")
+    reg.histogram(telemetry.M_CONTROLLER_FAILOVER_PROMOTE_SECONDS,
+                  "Wall-clock from promotion decision to the promoted "
+                  "controller serving").observe(promote_s)
+    tevents.emit(tevents.ControllerFailover, role="standby",
+                 host=standby.host, port=port,
+                 round=controller.global_iteration, learners=n_learners,
+                 wal_records=last_seq, promote_s=round(promote_s, 4),
+                 reason="wal_stale_probe_failed")
     print(f"METISFL_TPU_CONTROLLER_PROMOTED port={port}", flush=True)
     log.warning("promoted in %.3fs at round %d (%d learner(s) restored, "
                 "%d WAL records)", promote_s, controller.global_iteration,
-                len(controller.active_learners()), last_seq)
+                n_learners, last_seq)
     if restored:
         # the new controller_epoch makes the surviving learners re-attach
         controller.resume_round()
     _serve(server)
+    stop_telemetry(metrics_http)
     return 0
 
 
@@ -208,8 +270,10 @@ def main(argv=None) -> int:
     else:
         with open(args.config, "rb") as f:
             config = FederationConfig.from_wire(f.read())
+    metrics_http = start_telemetry(
+        config, "standby" if args.standby else "controller", args.host)
     if args.standby:
-        return standby_main(args, config, parser)
+        return standby_main(args, config, parser, metrics_http)
     if args.resume and not config.checkpoint.dir:
         parser.error("--resume requires config.checkpoint.dir")
     controller = build_controller(config, parser, args.device)
@@ -231,6 +295,7 @@ def main(argv=None) -> int:
         # back in through the live server
         controller.resume_round()
     _serve(server)
+    stop_telemetry(metrics_http)
     return 0
 
 

@@ -122,12 +122,19 @@ controller serves the lineage (:meth:`describe_registry`,
 :meth:`registered_model`) and the operator's :meth:`promote_version` and
 :meth:`rollback_version`.
 
-Not ported yet (ROADMAP.md Queue 1 item 4): the health plane (its
-advisory scores, the round's ``health`` snapshot, which the registry's
-gate reads as ``{}``, and the checkpoint's ``health`` and
-``metrics_budget`` keys) and every telemetry plane (the secure plane's
-fold, settlement and recovery metrics, the slice tier's, the WAL's and
-the failover's among them).
+Telemetry, as in the JAX package (its families, labels, event types and
+span names): the round-lifecycle, phase, uplink, churn, WAL and secure
+metrics; the journal's events; a ``round`` span per round (its trace id
+derived from the round serial) with its dispatch, wait, select, aggregate
+and close spans, under which the learners' spans stitch through the
+dispatch RPCs; the learning-health plane (telemetry/health.py, on by
+default, off under secure aggregation), whose per-round snapshot lands in
+``RoundMetadata.health`` and is what the registry's promotion gate reads,
+and whose divergence scores go to the selector and the robust rules under
+``telemetry.health.advisory``; the cost profiles (telemetry/profile.py)
+with the learners' device stats; the cardinality budget's digests
+(``RoundMetadata.metrics_digest``). The checkpoint carries the health
+plane's state and the collapsed families (``health``, ``metrics_budget``).
 """
 
 from __future__ import annotations
@@ -189,6 +196,12 @@ from metisfl_tpu_torch.secure.distributed import MaskedStreamingAggregator
 from metisfl_tpu_torch.selection import ChurnTracker, make_selector
 from metisfl_tpu_torch.store import IngestPipeline, make_store
 from metisfl_tpu_torch.store import durable as _durable
+from metisfl_tpu_torch import telemetry as _tel
+from metisfl_tpu_torch.telemetry import events as _tevents
+from metisfl_tpu_torch.telemetry import metrics as _tmetrics
+from metisfl_tpu_torch.telemetry import profile as _tprofile
+from metisfl_tpu_torch.telemetry import trace as _ttrace
+from metisfl_tpu_torch.telemetry.health import HealthMonitor, finite_metrics
 from metisfl_tpu_torch.tensor.pytree import ModelBlob, to_numpy
 from metisfl_tpu_torch.tensor.quantize import SHIP_INT8Q, dequantize_named
 from metisfl_tpu_torch.tensor.sparse import densify_named, parse_topk
@@ -205,6 +218,70 @@ from metisfl_tpu_torch.tensor.spec import (
 _WEIGHTED_SUM_RULES = ("fedavg", "scaffold", "fedstride")
 
 logger = logging.getLogger("metisfl_tpu_torch.controller")
+
+# Round-lifecycle metrics (the JAX controller's families and labels),
+# scraped live through GetMetrics / the /metrics listener.
+_REG = _tmetrics.registry()
+_M_ROUND_DURATION = _REG.histogram(
+    _tel.M_ROUND_DURATION_SECONDS, "Federation round wall-clock")
+_M_ROUNDS = _REG.counter(_tel.M_ROUNDS_TOTAL, "Completed federation rounds")
+_M_PHASE = _REG.histogram(
+    _tel.M_ROUND_PHASE_DURATION_SECONDS,
+    "Per-phase round durations (dispatch/wait_uplinks/select/aggregate/"
+    "aggregate_block/store_insert/close)", ("phase",))
+_M_UPLINK = _REG.counter(
+    _tel.M_UPLINK_BYTES_TOTAL, "Model bytes received from learners",
+    ("learner",), budget_label="learner")
+_M_ACTIVE_LEARNERS = _REG.gauge(
+    _tel.M_CONTROLLER_ACTIVE_LEARNERS, "Currently registered learners")
+_M_AGG_FAILURES = _REG.counter(
+    _tel.M_AGGREGATION_FAILURES_TOTAL, "Aggregation attempts that raised")
+_M_STRAGGLER = _REG.gauge(
+    _tel.M_LEARNER_STRAGGLER_SCORE,
+    "Round-relative straggler score: EWMA train duration over the "
+    "cohort median (1.0 = typical, >1 = slower)", ("learner",),
+    budget_label="learner")
+_M_DIVERGENCE = _REG.gauge(
+    _tel.M_LEARNER_DIVERGENCE_SCORE,
+    "Learning-health divergence score: EWMA of the cohort-median/MAD "
+    "robust z of each update's deviation from the cohort mean "
+    "(0 = typical, higher = pulling against the cohort)", ("learner",),
+    budget_label="learner")
+_M_ROUND_UPDATE_NORM = _REG.gauge(
+    _tel.M_ROUND_UPDATE_NORM,
+    "L2 norm of the latest community-model update (telemetry/health.py)")
+_M_DROPPED = _REG.counter(
+    _tel.M_LEARNER_DROPPED_TOTAL,
+    "Learner contributions dropped from rounds, by cause "
+    "(deadline straggler, quorum straggler, leave, quarantine)",
+    ("reason",))
+_M_DISPATCH_RETRIES = _REG.counter(
+    _tel.M_DISPATCH_RETRIES_TOTAL,
+    "Failed train dispatches retried to replacement learners "
+    "(scheduling.dispatch_retries)")
+_M_REDISPATCH = _REG.counter(
+    _tel.M_ROUNDS_REDISPATCHED_TOTAL,
+    "Rounds abandoned and re-dispatched to a fresh cohort (no-reporter "
+    "deadline, whole-cohort departure, aggregation-failure retry)")
+_M_CHURN = _REG.gauge(
+    _tel.M_LEARNER_CHURN_SCORE,
+    "Churn/flap score: EWMA of leave, flap-rejoin, and failed-dispatch "
+    "events (0 = stable, approaching 1 = flapping; selection.py "
+    "ChurnTracker)", ("learner",), budget_label="learner")
+_M_WAL_RECORDS = _REG.counter(
+    _tel.M_CONTROLLER_WAL_RECORDS_TOTAL,
+    "Hot-standby round-state WAL records appended, by kind "
+    "(snapshot/join/leave; controller/wal.py)", ("kind",))
+_M_SECURE_SETTLEMENT = _REG.histogram(
+    _tel.M_SECURE_SETTLEMENT_SECONDS,
+    "Mask settlement duration: contributor reconciliation through "
+    "residual disclosure and fixed-point decode")
+_M_SECURE_RECOVERED = _REG.counter(
+    _tel.M_SECURE_RECOVERED_PARTIES_TOTAL,
+    "Dropped mask parties recovered via seed-share disclosure")
+_M_SECURE_FOLDS = _REG.counter(
+    _tel.M_SECURE_MASKED_FOLDS_TOTAL,
+    "Masked partial folds performed, by tier", ("tier",))
 
 # the learners' dispatch-to-completion EWMAs (straggler analytics, carried
 # through checkpoints)
@@ -223,22 +300,6 @@ def _ewma(prev: float, observation: float) -> float:
     if prev <= 0.0:
         return observation
     return _EWMA_ALPHA * observation + (1.0 - _EWMA_ALPHA) * prev
-
-
-def finite_metrics(metrics: Any) -> Dict[str, float]:
-    """A learner-shipped metric mapping filtered down to finite floats
-    (a zero-step task ships loss=NaN; nothing here may raise)."""
-    if not isinstance(metrics, dict):
-        return {}
-    out: Dict[str, float] = {}
-    for key, value in metrics.items():
-        try:
-            f = float(value)
-        except (TypeError, ValueError):
-            continue
-        if math.isfinite(f):
-            out[str(key)] = f
-    return out
 
 
 class LearnerProxy(Protocol):
@@ -322,13 +383,25 @@ class RoundMetadata:
     model_size: Dict[str, int] = field(default_factory=dict)
     uplink_bytes: Dict[str, int] = field(default_factory=dict)
     peak_rss_kb: int = 0
+    # the round's barrier wait (the wait_uplinks span; an aggregation
+    # retry's second wait adds to it)
+    wait_duration_ms: float = 0.0
     train_metrics: Dict[str, Dict[str, float]] = field(default_factory=dict)
     epoch_metrics: Dict[str, List[Dict[str, float]]] = field(
         default_factory=dict)
+    # the learning-health snapshot (telemetry/health.py; {} with the plane
+    # off or under secure aggregation): what the registry's gate reads
+    health: Dict[str, Any] = field(default_factory=dict)
     # the model registry: the version this round's aggregate registered
     # as, and the stable head at round close (0 with the registry off)
     registered_version: int = 0
     stable_version: int = 0
+    # the round's cost profile (telemetry/profile.py RoundProfile; {} with
+    # the profile plane off)
+    profile: Dict[str, Any] = field(default_factory=dict)
+    # the collapsed per-learner families' digests at round close ({} below
+    # the cardinality budget, or with it off)
+    metrics_digest: Dict[str, Any] = field(default_factory=dict)
     errors: List[str] = field(default_factory=list)
 
     def to_dict(self) -> dict:
@@ -524,6 +597,35 @@ class Controller:
             self._registry = ModelRegistry(
                 config.registry, config_hash=hashlib.sha256(
                     config.to_wire()).hexdigest()[:16])
+        tel = config.telemetry
+        # the learning-health plane: None when opted out or under secure
+        # aggregation (opaque payloads), so the uplink path is one
+        # attribute check
+        self._health: Optional[HealthMonitor] = None
+        if tel.enabled and tel.health.enabled and not config.secure.enabled:
+            self._health = HealthMonitor(
+                alpha=tel.health.alpha,
+                anomaly_threshold=tel.health.anomaly_threshold)
+        self._health_advisory = bool(self._health is not None
+                                     and tel.health.advisory)
+        # the cost profiles: None when opted out
+        self._profile: Optional[_tprofile.ProfileCollector] = None
+        if tel.enabled and tel.profile.enabled:
+            self._profile = _tprofile.ProfileCollector(
+                tel.profile, telemetry_dir=tel.dir, service="controller")
+            # the flight recorder snapshots the active collector's tail
+            _tprofile.set_collector(self._profile)
+        # the cardinality budget: past it the per-learner families serve
+        # sketches and the checkpoint persists digests (0 = exact)
+        self._cardinality_budget = (int(tel.cardinality_budget)
+                                    if tel.enabled else 0)
+        if self._cardinality_budget > 0:
+            _REG.set_cardinality_budget(self._cardinality_budget)
+        # the round's trace root and its barrier-wait span
+        self._round_span = None
+        self._wait_span = None
+        # the straggler median of a collapsed gauge family, once a round
+        self._straggler_median_cache: Optional[float] = None
 
     def _make_rule(self, config: FederationConfig):
         """The configured rule with its hyperparameters; the robust rules
@@ -581,6 +683,10 @@ class Controller:
             self._slices.shutdown()
         if self._registry is not None:
             self._registry.shutdown()
+        if self._profile is not None:
+            if _tprofile.collector() is self._profile:
+                _tprofile.set_collector(None)
+            self._profile.close()
         self._store.shutdown()
 
     # ------------------------------------------------------------------ #
@@ -634,9 +740,13 @@ class Controller:
                 self._learners[learner_id] = record
                 self._tokens[learner_id] = token
             record.proxy = self._proxy_factory(record)
+            _M_ACTIVE_LEARNERS.set(len(self._learners))
         logger.info("learner %s %s (%d train examples)", record.learner_id,
                     "rejoined" if rejoined else "joined",
                     record.num_train_examples)
+        _tevents.emit(_tevents.LearnerJoined, learner_id=record.learner_id,
+                      hostname=record.hostname, port=record.port,
+                      rejoined=rejoined)
         if rejoined:
             self._note_churn(record.learner_id, "flap_rejoin")
         if not self._shutdown.is_set():
@@ -657,6 +767,8 @@ class Controller:
             if record is None or record.auth_token != auth_token:
                 return False
             del self._learners[learner_id]
+            _M_ACTIVE_LEARNERS.set(len(self._learners))
+            proxy = record.proxy
             # its tasks can never complete
             for tid in [t for t, lid in self._tasks_in_flight.items()
                         if lid == learner_id]:
@@ -674,6 +786,11 @@ class Controller:
             logger.error("ingest drain for departing %s timed out; its "
                          "queued writes will be gate-dropped", learner_id)
         self._store.erase([learner_id])
+        # the proxy stops attributing bytes before the series are pruned,
+        # so an in-flight call's completion cannot mint them again
+        if proxy is not None and hasattr(proxy, "detach_peer"):
+            proxy.detach_peer()
+        self._prune_learner_series(learner_id)
         if self._slices is not None:
             # prune its held model from every live slice and the root's
             # residual buffer
@@ -684,6 +801,8 @@ class Controller:
             self._pool.submit(self._guard, self._streaming.forget,
                               learner_id)
         logger.info("learner %s left", learner_id)
+        _tevents.emit(_tevents.LearnerLost, learner_id=learner_id)
+        _M_DROPPED.inc(reason="leave")
         # churn memory survives the leave: a flapper's history is the signal
         self._note_churn(learner_id, "leave")
         # the departed learner may have been the last one the barrier
@@ -692,15 +811,33 @@ class Controller:
             self._pool.submit(self._guard, self._handle_membership_change)
         return True
 
+    def _prune_learner_series(self, learner_id: str) -> None:
+        """Drop a departed learner's per-learner metric series (one
+        central call over every family with a learner or peer label) and
+        the planes' own state for it."""
+        _tel.prune_learner(learner_id)
+        if self._health is not None:
+            self._health.drop(learner_id)
+        if self._profile is not None:
+            self._profile.drop(learner_id)
+
     def _note_churn(self, learner_id: str, event: str) -> None:
-        """Fold one membership event into the learner's churn score; logs
-        a quarantine when the score newly crosses the threshold. One
-        attribute check when churn tracking is off."""
+        """Fold one membership event into the learner's churn score: the
+        gauge, and a quarantine event and drop count when the score newly
+        crosses the threshold. One attribute check when churn tracking is
+        off."""
         if self._churn is None:
             return
         was_quarantined = self._churn.quarantined(learner_id)
         score = self._churn.note(learner_id, event)
+        with self._lock:
+            if learner_id in self._learners:
+                _M_CHURN.set(round(score, 4), learner=learner_id)
         if not was_quarantined and self._churn.quarantined(learner_id):
+            _M_DROPPED.inc(reason="quarantine")
+            _tevents.emit(_tevents.LearnerQuarantined,
+                          learner_id=learner_id, score=round(score, 4),
+                          until_s=self._churn.quarantine_s)
             logger.warning(
                 "learner %s quarantined for %.1fs (churn score %.2f >= "
                 "%.2f after %s)", learner_id, self._churn.quarantine_s,
@@ -713,6 +850,16 @@ class Controller:
     def is_member(self, learner_id: str) -> bool:
         with self._lock:
             return learner_id in self._learners
+
+    def attribute_decode(self, learner_id: str, seconds: float) -> None:
+        """Codec decode time attributed to a learner under the registry
+        lock: leave() deletes the record under it and prunes after, so
+        this never mints a pruned series again."""
+        from metisfl_tpu_torch.comm import codec as _codec
+
+        with self._lock:
+            if learner_id in self._learners:
+                _codec.attribute(learner_id, "decode", seconds)
 
     def learner_endpoints(self) -> List[Dict[str, Any]]:
         """Registered endpoints with the ports learners reported on join."""
@@ -750,6 +897,9 @@ class Controller:
                     # FedNova and the server optimizers step from the
                     # seeded model (a replacement mid-run re-anchors them)
                     self._aggregator.seed_community(self._community_flat)
+        if self._health is not None and blob.tensors:
+            # the health plane's delta reference starts at the seed
+            self._health.note_community(dict(self._community_flat))
         # the per-round checkpoint starts after round 1: a crash during it
         # must still restore a model to train from
         self._checkpoint_async()
@@ -764,6 +914,7 @@ class Controller:
             return
         try:
             self._wal.append(JOIN, self._learner_entry(record))
+            _M_WAL_RECORDS.inc(kind="join")
         except Exception:  # noqa: BLE001 - best-effort durability
             logger.exception("WAL join append for %s failed",
                              record.learner_id)
@@ -774,6 +925,7 @@ class Controller:
             return
         try:
             self._wal.append(LEAVE, {"learner_id": learner_id})
+            _M_WAL_RECORDS.inc(kind="leave")
         except Exception:  # noqa: BLE001 - best-effort durability
             logger.exception("WAL leave append for %s failed", learner_id)
 
@@ -801,6 +953,7 @@ class Controller:
                     self.save_checkpoint(state=state)
                 if self._wal is not None:
                     self._wal.snapshot(state)
+                    _M_WAL_RECORDS.inc(kind="snapshot")
             except Exception:  # noqa: BLE001 - best-effort durability
                 logger.exception("round-state save failed")
 
@@ -910,6 +1063,16 @@ class Controller:
             if result.control_delta:
                 self._scaffold_deltas[result.learner_id] = \
                     result.control_delta
+            # under the lock: leave() deletes the record under it and
+            # prunes the series after, so this cannot resurrect them
+            _M_UPLINK.inc(len(result.model), learner=result.learner_id)
+            if self._profile is not None and result.device_stats:
+                self._profile.note_device(result.learner_id,
+                                          result.device_stats)
+        _tevents.emit(_tevents.TaskCompleted, task_id=result.task_id,
+                      learner_id=result.learner_id, round=result.round_id,
+                      stale=stale, uplink_bytes=len(result.model))
+        self._update_straggler_gauge(completed=result.learner_id)
         # a delivered uplink is the churn score's decay tick
         self._note_churn(result.learner_id, "completion")
         if stale and parse_topk(self.config.train.ship_dtype) is not None:
@@ -946,7 +1109,9 @@ class Controller:
                 except ValueError as exc:
                     logger.warning("unfoldable masked uplink from %s: %s",
                                    result.learner_id, exc)
-            if not folded:
+            if folded:
+                _M_SECURE_FOLDS.inc(tier="stream")
+            else:
                 logger.info("masked uplink from %s dropped (stale, another "
                             "round's or malformed)", result.learner_id)
                 model = None
@@ -959,8 +1124,16 @@ class Controller:
             # the distributed tier: the uplink goes to its slice aggregator
             # (the root never stores it); submit never drops an accepted
             # uplink: a dead owner re-homes, the last resort is the root's
-            # residual buffer
-            self._slices.submit(result.learner_id, model, result.round_id)
+            # residual buffer. Parented on the uplink's server span where
+            # one is active (learner train -> uplink RPC -> slice submit)
+            fwd_sp = _ttrace.span(
+                "round.slice_submit",
+                parent=_ttrace.current_context() or self._round_span,
+                attrs={"learner": result.learner_id})
+            with fwd_sp, fwd_sp.activate():
+                self._slices.submit(result.learner_id, model,
+                                    result.round_id)
+            _M_PHASE.observe(fwd_sp.duration_ms / 1e3, phase="slice_submit")
         elif model is not None and self._ingest is not None:
             # enqueue and go on: the writer records the write's own time
             # (_note_ingest_insert) and applies the result's metadata only
@@ -971,13 +1144,38 @@ class Controller:
                                                    result))
             deferred_meta = True
         elif model is not None:
-            self._store.insert(result.learner_id, model)
+            insert_sp = _ttrace.span(
+                "round.store_insert",
+                parent=_ttrace.current_context() or self._round_span,
+                attrs={"learner": result.learner_id})
+            with insert_sp:
+                self._store.insert(result.learner_id, model)
+            _M_PHASE.observe(insert_sp.duration_ms / 1e3,
+                             phase="store_insert")
+            if self._profile is not None:
+                self._profile.note_store_insert(result.learner_id,
+                                                insert_sp.duration_ms)
         if model is not None and not deferred_meta:
             # the step count and the round pair with the stored (or
             # streamed) model
             with self._lock:
                 record.completed_batches = result.completed_batches
                 record.last_result_round = result.round_id
+        if self._health is not None and isinstance(model, dict) and model:
+            # this uplink's learning-health statistics (host numpy, read
+            # only) against the live community model: under the
+            # synchronous protocols the model the task trained from. The
+            # dict is replaced, never mutated in place, so it is read
+            # uncopied
+            with self._lock:
+                reference = self._community_flat or {}
+            try:
+                self._health.observe_update(
+                    result.learner_id, model, reference,
+                    train_metrics=result.train_metrics)
+            except Exception:  # noqa: BLE001 - telemetry is never fatal
+                logger.exception("health statistics failed for %s",
+                                 result.learner_id)
         if not stale:
             with self._lock:
                 meta = self._current_meta
@@ -1042,9 +1240,12 @@ class Controller:
     def _note_ingest_insert(self, learner_id: str, ms: float) -> None:
         """The writer's own insert time, recorded against the round the
         write lands in."""
+        _M_PHASE.observe(ms / 1e3, phase="store_insert")
         with self._lock:
             if learner_id in self._learners:
                 self._current_meta.ingest_write_duration_ms[learner_id] = ms
+                if self._profile is not None:
+                    self._profile.note_store_insert(learner_id, ms)
 
     def _handle_membership_change(self) -> None:
         active = self.active_learners()
@@ -1060,6 +1261,7 @@ class Controller:
             # dispatch a fresh sample to the survivors
             logger.info("round abandoned (dispatched cohort left); "
                         "re-dispatching")
+            _M_REDISPATCH.inc()
             self._scheduler.reset()
             self._abandon_streams()
             self._dispatch_train(self._sample_cohort())
@@ -1090,8 +1292,10 @@ class Controller:
             if not pending:
                 return
             self._expire_tasks_locked(pending)
+        dropped = sorted(set(pending.values()))
+        _M_DROPPED.inc(len(dropped), reason="quorum")
         logger.info("quorum reached: expiring %d straggler task(s) from %s",
-                    len(pending), sorted(set(pending.values())))
+                    len(pending), dropped)
 
     # -- round deadline ---------------------------------------------------
 
@@ -1143,6 +1347,8 @@ class Controller:
             self._expire_tasks_locked(pending)
         cohort = self._scheduler.expire_pending(self.active_learners())
         dropped = sorted(set(pending.values()))
+        if dropped:
+            _M_DROPPED.inc(len(dropped), reason="deadline")
         if cohort:
             logger.warning(
                 "round deadline (%.1fs) expired; aggregating %d reporter(s), "
@@ -1173,11 +1379,26 @@ class Controller:
             self._halted_no_reporters = True
             with self._lock:
                 self._current_meta.errors.append(f"round halted: {reason}")
+                round_sp, self._round_span = self._round_span, None
+                # the wait ends with its round: left open, the first round
+                # after a resume would book the halt as its wait
+                wait_sp, self._wait_span = self._wait_span, None
+            _tevents.emit(_tevents.RoundHalted,
+                          round=self.global_iteration, reason=reason)
+            if wait_sp is not None:
+                wait_sp.end()
+                with self._lock:
+                    self._current_meta.wait_duration_ms += \
+                        wait_sp.duration_ms
+            if round_sp is not None:
+                round_sp.set_attr("error", f"halted: {reason}")
+                round_sp.end()
             return
         logger.warning(
             "round deadline (%.1fs) expired with no reporters (%s); "
             "re-dispatching (%d/%s)", self.config.round_deadline_secs,
             dropped, self._empty_deadlines, limit or "unbounded")
+        _M_REDISPATCH.inc()
         self._abandon_streams()
         self._dispatch_train(self._sample_cohort())
 
@@ -1242,7 +1463,12 @@ class Controller:
             # the dispatch-version lag, damped as the store path damps it
             staleness = max(0, self.global_iteration - result.round_id)
             weight *= staleness_factor(staleness, decay)
+        t0 = time.perf_counter()
         self._streaming.fold(result.learner_id, model, weight)
+        fold_ms = (time.perf_counter() - t0) * 1e3
+        _M_PHASE.observe(fold_ms / 1e3, phase="stream_fold")
+        if self._profile is not None:
+            self._profile.note_phase("stream_fold", fold_ms)
         return True
 
     # ------------------------------------------------------------------ #
@@ -1253,10 +1479,37 @@ class Controller:
         """Select, aggregate, record metadata, evaluate, re-dispatch. An
         aggregation failure is recorded and the round re-dispatched (after
         ``_MAX_AGG_FAILURES`` in a row, dispatch halts)."""
-        selected = self._selector.select(cohort, self.active_learners())
+        # the barrier released: close the wait span
+        with self._lock:
+            wait_sp, self._wait_span = self._wait_span, None
+        if wait_sp is not None:
+            wait_sp.end()
+            _M_PHASE.observe(wait_sp.duration_ms / 1e3, phase="wait_uplinks")
+            with self._lock:
+                # an aggregation retry's second wait adds to the round's
+                self._current_meta.wait_duration_ms += wait_sp.duration_ms
+        if self._profile is not None:
+            self._profile.note_mark("wait_end")
+        select_sp = _ttrace.span("round.select", parent=self._round_span,
+                                 attrs={"cohort": len(cohort)})
+        with select_sp:
+            if self._health_advisory:
+                # advisory only: the selector records the scores, its
+                # choice is unchanged
+                selected = self._selector.select(
+                    cohort, self.active_learners(),
+                    advisory_scores=self._health.scores())
+            else:
+                selected = self._selector.select(cohort,
+                                                 self.active_learners())
+        _M_PHASE.observe(select_sp.duration_ms / 1e3, phase="select")
+        if self._profile is not None:
+            self._profile.note_phase("select", select_sp.duration_ms)
+            self._profile.note_mark("select_end")
         try:
             self._compute_community_model(selected)
         except Exception as exc:
+            _M_AGG_FAILURES.inc()
             self._agg_failures += 1
             # the retry starts from a clean round
             self._abandon_streams()
@@ -1266,10 +1519,18 @@ class Controller:
             if self._agg_failures >= self._MAX_AGG_FAILURES:
                 logger.error("aggregation failed %d consecutive times (%r); "
                              "halting re-dispatch", self._agg_failures, exc)
+                # the halted round's trace goes to the sink
+                with self._lock:
+                    round_sp, self._round_span = self._round_span, None
+                if round_sp is not None:
+                    round_sp.set_attr("error",
+                                      f"aggregation halted: {exc!r}")
+                    round_sp.end()
                 return
             logger.warning("aggregation failed (%r); re-dispatching", exc)
             if self._shutdown.is_set():
                 return
+            _M_REDISPATCH.inc()
             if self._scheduler.name.startswith("asynchronous"):
                 # the reporters would wait forever for a round that aborted
                 self._dispatch_train(self._idle_reporters(cohort))
@@ -1283,16 +1544,47 @@ class Controller:
             # the root's residual buffer is folded; the slices keep their
             # latest model per learner, as the store keeps lineage
             self._slices.round_complete()
+        if self._profile is not None:
+            self._profile.note_mark("aggregate_end")
+        with self._lock:
+            agg_ms = self._current_meta.aggregation_duration_ms
+        _tevents.emit(_tevents.AggregationDone,
+                      round=self.global_iteration,
+                      selected=len(selected), duration_ms=round(agg_ms, 3))
+        # round close: the health fold, the version registration, the
+        # digests and the eval dispatch (the waterfall's last phase)
+        close_sp = _ttrace.span("round.close", parent=self._round_span)
+        self._fold_round_health()
         self._register_round_version()
+        self._note_round_telemetry()
         self._send_eval_tasks()
+        close_ms = close_sp.end()
+        _M_PHASE.observe(close_ms / 1e3, phase="close")
+        profile_record = None
         with self._lock:
             self.global_iteration += 1
             self._current_meta.completed_at = time.time()
             self._current_meta.peak_rss_kb = resource.getrusage(
                 resource.RUSAGE_SELF).ru_maxrss
+            round_wall_s = max(0.0, self._current_meta.completed_at
+                               - self._current_meta.started_at)
+            if self._profile is not None:
+                # cheap dict building under the lock; the sink write after
+                profile_record = self._profile.assemble_round(
+                    self._current_meta, close_ms=close_ms)
+                self._current_meta.profile = profile_record
             self.round_metadata.append(self._current_meta)
             self._current_meta = RoundMetadata(
                 global_iteration=self.global_iteration)
+            self._straggler_median_cache = None
+            round_sp, self._round_span = self._round_span, None
+        if round_sp is not None:
+            round_sp.set_attr("learners", len(selected))
+            round_sp.end()
+        if profile_record is not None:
+            self._profile.persist(profile_record)
+        _M_ROUND_DURATION.observe(round_wall_s)
+        _M_ROUNDS.inc()
         ckpt = self.config.checkpoint
         if ckpt.dir and self.global_iteration % max(
                 1, ckpt.every_n_rounds) == 0:
@@ -1310,6 +1602,101 @@ class Controller:
         else:
             next_ids = self._sample_cohort()
         self._dispatch_train(next_ids)
+
+    def _note_round_telemetry(self) -> None:
+        """The collapsed per-learner families' digests into
+        ``RoundMetadata.metrics_digest`` (one attribute check below the
+        cardinality budget). Never raises."""
+        if self._cardinality_budget <= 0:
+            return
+        try:
+            digest: Dict[str, Any] = {}
+            for family in _REG.budget_families():
+                summary = family.sketch_summary()
+                if summary is not None:
+                    digest[family.name] = summary
+            if digest:
+                with self._lock:
+                    self._current_meta.metrics_digest = digest
+        except Exception:  # noqa: BLE001 - telemetry never fails a round
+            logger.exception("round-close metrics digest failed")
+
+    def _fold_round_health(self) -> None:
+        """The learning-health cohort fold of the round that just
+        aggregated: the snapshot into ``RoundMetadata.health`` (which the
+        registry's gate reads), the divergence and update-norm gauges, and
+        the ``UpdateAnomalous``/``RoundHealth`` events. On the scheduling
+        worker with ``global_iteration`` still naming the round; never
+        raises."""
+        if self._health is None:
+            return
+        try:
+            with self._lock:
+                # replaced, never mutated in place: read uncopied
+                community = self._community_flat or {}
+                scales = dict(self._current_meta.scales)
+            health, anomalies = self._health.complete_round(
+                self.global_iteration, community, scales)
+            with self._lock:
+                self._current_meta.health = health
+                for lid, score in health["divergence_score"].items():
+                    if lid in self._learners:
+                        _M_DIVERGENCE.set(score, learner=lid)
+            _M_ROUND_UPDATE_NORM.set(health["round_update_norm"])
+            for anomaly in anomalies:
+                logger.warning(
+                    "learner %s update anomalous in round %d (robust z "
+                    "%.2f >= %.2f; divergence score %.2f)",
+                    anomaly["learner_id"], anomaly["round"], anomaly["raw"],
+                    self._health.anomaly_threshold, anomaly["score"])
+                _tevents.emit(_tevents.UpdateAnomalous, **anomaly)
+            _tevents.emit(
+                _tevents.RoundHealth, round=health["round"],
+                update_norm=health["round_update_norm"],
+                effective_step=health["effective_step"],
+                participation_entropy=health["participation_entropy"],
+                anomalous=len(anomalies))
+        except Exception:  # noqa: BLE001 - telemetry never fails a round
+            logger.exception("round health fold failed")
+
+    def _straggler_scores(self) -> Dict[str, float]:
+        """Each learner's EWMA train duration over the registry median
+        (1.0 = typical, >1 = slower, 0.0 = not observed yet). Call with
+        ``self._lock`` held."""
+        from statistics import median
+
+        ewmas = {lid: r.ewma_train_s for lid, r in self._learners.items()}
+        positive = [v for v in ewmas.values() if v > 0.0]
+        mid = median(positive) if positive else 0.0
+        return {lid: (v / mid if (v > 0.0 and mid > 0.0) else 0.0)
+                for lid, v in ewmas.items()}
+
+    def _update_straggler_gauge(self, completed: Optional[str] = None
+                                ) -> None:
+        # under the controller lock: leave() deletes the record under it and
+        # prunes the series after
+        with self._lock:
+            if completed is not None and _M_STRAGGLER.collapsed():
+                # a collapsed family (past the cardinality budget): only
+                # the reporter's score is observed, against the median of
+                # the observed EWMAs, computed once a round
+                record = self._learners.get(completed)
+                if record is None or record.ewma_train_s <= 0.0:
+                    return
+                mid = self._straggler_median_cache
+                if mid is None:
+                    from statistics import median
+
+                    positive = [r.ewma_train_s
+                                for r in self._learners.values()
+                                if r.ewma_train_s > 0.0]
+                    mid = median(positive) if positive else 0.0
+                    self._straggler_median_cache = mid
+                score = record.ewma_train_s / mid if mid > 0.0 else 0.0
+                _M_STRAGGLER.set(round(score, 4), learner=completed)
+                return
+            for lid, score in self._straggler_scores().items():
+                _M_STRAGGLER.set(round(score, 4), learner=lid)
 
     def _idle_reporters(self, cohort: Sequence[str]) -> List[str]:
         """The cohort's active members without a task in flight: the only
@@ -1404,7 +1791,19 @@ class Controller:
         combine, the plain stream's finish, or the store, read one block
         of ``stride_length`` models at a time (the fold rules keep only
         that block and their accumulator resident; the tree tier one
-        sub-block per slice worker)."""
+        sub-block per slice worker). Under a ``round.aggregate`` span with
+        one ``round.agg_block`` span per block."""
+        agg_sp = _ttrace.span("round.aggregate", parent=self._round_span,
+                              attrs={"rule": self._aggregator.name,
+                                     "selected": len(selected)})
+        try:
+            self._compute_community_model_traced(selected, agg_sp)
+        finally:
+            agg_sp.end()
+            _M_PHASE.observe(agg_sp.duration_ms / 1e3, phase="aggregate")
+
+    def _compute_community_model_traced(self, selected: Sequence[str],
+                                        agg_sp) -> None:
         t0 = time.perf_counter()
         drain_ms = 0.0
         if self._ingest is not None:
@@ -1416,6 +1815,9 @@ class Controller:
                 raise RuntimeError("ingest drain fence timed out; store "
                                    "lineage would be torn")
             drain_ms = (time.perf_counter() - t0) * 1e3
+            _M_PHASE.observe(drain_ms / 1e3, phase="ingest_drain")
+            if self._profile is not None:
+                self._profile.note_phase("ingest_drain", drain_ms)
         agg = self._aggregator
         lineage_k = agg.required_lineage
         stride = self.config.aggregation.stride_length or len(selected) or 1
@@ -1429,20 +1831,27 @@ class Controller:
         block_ms: List[float] = []
         select_ms = 0.0
 
+        def note_block(size: int, ms: float) -> None:
+            block_sizes.append(size)
+            block_ms.append(ms)
+            _M_PHASE.observe(ms / 1e3, phase="aggregate_block")
+
         def blocks():
             """(block ids, present ids, their (lineage, scale) pairs) per
             stride block, each block's select and handling timed."""
             nonlocal select_ms
             for i in range(0, len(ids), stride):
-                b0 = time.perf_counter()
                 block = ids[i: i + stride]
+                sp = _ttrace.span("round.agg_block", parent=agg_sp,
+                                  attrs={"size": len(block)})
+                b0 = time.perf_counter()
                 picked = self._store.select(block, k=lineage_k)
                 select_ms += (time.perf_counter() - b0) * 1e3
                 present = [lid for lid in block if lid in picked]
                 yield block, present, [(picked[lid], scales[lid])
                                        for lid in present]
-                block_sizes.append(len(block))
-                block_ms.append((time.perf_counter() - b0) * 1e3)
+                sp.end()
+                note_block(len(block), sp.duration_ms)
 
         def collect_all():
             """(pairs, present ids) of the whole cohort, for the rules
@@ -1455,11 +1864,12 @@ class Controller:
 
         def finish_stream(stream, *args):
             """A stream's finish, recorded as one block of its folds."""
-            b0 = time.perf_counter()
             folded = stream.stats()["folded"]
-            out = stream.finish(*args)
-            block_sizes.append(folded)
-            block_ms.append((time.perf_counter() - b0) * 1e3)
+            sp = _ttrace.span("round.agg_block", parent=agg_sp,
+                              attrs={"size": folded})
+            with sp:
+                out = stream.finish(*args)
+            note_block(folded, sp.duration_ms)
             return out
 
         # FedStride's state is one round's (under streaming it holds the
@@ -1479,12 +1889,16 @@ class Controller:
         elif self._slices is not None and self._slices.masked:
             # the masked sums accumulated at the slices: one masked
             # partial per slice, combined and settled at the root
-            b0 = time.perf_counter()
-            reduced = self._slices.reduce_masked(ids, self.global_iteration)
+            slice_sp = _ttrace.span(
+                "round.slice_reduce", parent=agg_sp,
+                attrs={"cohort": len(ids), "masked": True})
+            with slice_sp, slice_sp.activate():
+                reduced = self._slices.reduce_masked(ids,
+                                                     self.global_iteration)
+            _M_SECURE_FOLDS.inc(tier="root")
             if reduced is not None:
                 m_sums, m_specs, m_present, slice_errors = reduced
-                block_sizes.append(len(m_present))
-                block_ms.append((time.perf_counter() - b0) * 1e3)
+                note_block(len(m_present), slice_sp.duration_ms)
                 if slice_errors:
                     with self._lock:
                         self._current_meta.errors.extend(slice_errors)
@@ -1509,7 +1923,12 @@ class Controller:
             # selected model enters one combine
             pairs, present_ids = collect_all()
             if pairs:
-                community = agg.aggregate(pairs, learner_ids=present_ids)
+                # the advisory hook records which flagged learners entered
+                # the cohort; the combine is the same either way
+                advisory = (self._health.scores() if self._health_advisory
+                            else None)
+                community = agg.aggregate(pairs, learner_ids=present_ids,
+                                          advisory_scores=advisory)
                 device_ms = dict(agg.last_timing)
         elif self._slices is not None:
             # the distributed tier: one FoldPartial per slice (a slice that
@@ -1517,14 +1936,17 @@ class Controller:
             # ran at construction
             if agg.name == "fedstride":
                 agg.reset()  # its rolling state is unused here
-            reduced = self._slices.reduce(
-                ids, scales, stride=self.config.aggregation.stride_length,
-                round_id=self.global_iteration)
+            slice_sp = _ttrace.span("round.slice_reduce", parent=agg_sp,
+                                    attrs={"cohort": len(ids)})
+            with slice_sp, slice_sp.activate():
+                reduced = self._slices.reduce(
+                    ids, scales,
+                    stride=self.config.aggregation.stride_length,
+                    round_id=self.global_iteration)
             if reduced is not None:
                 community, partials, slice_errors = reduced
                 for part in partials:
-                    block_sizes.append(part.count)
-                    block_ms.append(round(part.duration_ms, 3))
+                    note_block(part.count, round(part.duration_ms, 3))
                 if slice_errors:
                     with self._lock:
                         self._current_meta.errors.extend(slice_errors)
@@ -1540,15 +1962,18 @@ class Controller:
                 select_times.append((time.perf_counter() - b0) * 1e3)
                 return picked
 
-            reduced = self._tree.reduce(
-                ids, scales, fetch,
-                stride=self.config.aggregation.stride_length)
+            tree_sp = _ttrace.span("round.tree_reduce", parent=agg_sp,
+                                   attrs={"cohort": len(ids),
+                                          "branch": self._tree.branch})
+            with tree_sp:
+                reduced = self._tree.reduce(
+                    ids, scales, fetch,
+                    stride=self.config.aggregation.stride_length)
             select_ms = sum(select_times)
             if reduced is not None:
                 community, partials = reduced
                 for part in partials:
-                    block_sizes.append(part.count)
-                    block_ms.append(round(part.duration_ms, 3))
+                    note_block(part.count, round(part.duration_ms, 3))
         elif hasattr(agg, "accumulate"):
             # fold rules: FedAvg, FedNova, and the server optimizers over
             # the FedAvg fold (their step runs once, inside result())
@@ -1614,6 +2039,8 @@ class Controller:
             meta.ingest_drain_duration_ms = drain_ms
             meta.store_select_duration_ms = select_ms
             meta.model_size = sizes
+        if self._profile is not None and select_ms:
+            self._profile.note_store_select(select_ms)
 
     def _community_to_blob(self, community: Dict[str, Any]) -> bytes:
         if self.config.secure.enabled:
@@ -1713,6 +2140,15 @@ class Controller:
         payloads, report = recovery.settle(
             sums, idx_of, n, max(2, cfg.min_recovery_parties),
             self.global_iteration, recover_fn)
+        _M_SECURE_SETTLEMENT.observe(report.duration_ms / 1e3)
+        if report.recovered:
+            _M_SECURE_RECOVERED.inc(len(report.dropped))
+        _tevents.emit(
+            _tevents.SecureSettlement, round=self.global_iteration,
+            contributors=len(report.contributors),
+            dropped=len(report.dropped), recovered=report.recovered,
+            tier="stream" if self._masked_stream is not None else "slice",
+            duration_ms=round(report.duration_ms, 3))
         if report.recovered:
             logger.info("round %d settled with %d dropped parties "
                         "recovered in %.3f ms", report.round_id,
@@ -1747,6 +2183,9 @@ class Controller:
             logger.warning("masking dropout recovery: %s computed residuals "
                            "for dropped parties %s (surviving %d)", lid,
                            list(dropped), len(surviving))
+            _tevents.emit(_tevents.SecureMasksRecovered,
+                          round=int(round_id), survivor=lid,
+                          surviving=len(surviving), dropped=len(dropped))
             return corrections
         raise RuntimeError(f"masking dropout recovery failed on every "
                            f"survivor: {last_error!r}")
@@ -1837,60 +2276,106 @@ class Controller:
         self._scheduler.notify_dispatched(list(learner_ids))
         with self._lock:
             if not self._current_meta.started_at:
+                # the round's first dispatch starts it; its span is the
+                # root of the round's trace, its id derived from the round
+                # serial (a retry's dispatch bumped the serial, so its tree
+                # never collides with the aborted attempt's)
                 self._current_meta.started_at = time.time()
-        for lid in learner_ids:
-            with self._lock:
-                record = self._learners.get(lid)
-                if record is None:
-                    continue
-                params = dataclasses.replace(self.config.train)
-                if record.local_steps_override:
-                    params.local_steps = record.local_steps_override
-                # no device-utilization plane in the port
-                params.device_stats = False
-                # one task in flight per learner: a learner drops its running
-                # task for a new one, so the result of a task this dispatch
-                # replaces (a rejoin's re-dispatch while it trains) is kept
-                # but advances no barrier, or it would count in the next
-                # round
-                superseded = {tid: owner for tid, owner
-                              in self._tasks_in_flight.items()
-                              if owner == lid}
-                if superseded:
-                    self._expire_tasks_locked(superseded)
-                task = TrainTask(
-                    task_id=uuid.uuid4().hex,
-                    learner_id=lid,
-                    round_id=self.global_iteration,
-                    global_iteration=self.global_iteration,
-                    model=blob,
-                    params=params,
-                    scaffold=self._aggregator.name == "scaffold",
-                    control=self._pack_scaffold_c(),
-                    controller_epoch=self.controller_epoch,
-                )
-                self._tasks_in_flight[task.task_id] = lid
-                self._task_dispatched_at[task.task_id] = time.time()
-                self._current_meta.train_submitted_at[lid] = time.time()
-                proxy = record.proxy
-            try:
-                if hasattr(proxy, "run_task_with_callback"):
-                    # an asynchronous transport reports a failed dispatch
-                    # through the callback
-                    proxy.run_task_with_callback(
-                        task, lambda exc, lid=lid, tid=task.task_id:
-                        self._note_dispatch_failure(lid, exc, tid))
-                else:
-                    proxy.run_task(task)
-            except Exception as exc:
-                # counted against the learner; the round relies on the
-                # deadline, membership changes and the retries
-                logger.exception("train dispatch to %s failed", lid)
-                self._note_dispatch_failure(lid, exc, task.task_id)
+                self._round_span = _ttrace.span(
+                    "round", parent=None,
+                    trace_id=_ttrace.round_trace_id(self._round_serial),
+                    attrs={"round": self.global_iteration,
+                           "serial": self._round_serial})
+                _tevents.emit(_tevents.RoundStarted,
+                              round=self.global_iteration,
+                              cohort=len(learner_ids))
+            round_span = self._round_span
+        # a torch.profiler capture on this round's tasks when it is due
+        profile_trace_dir = ""
+        if self._profile is not None:
+            profile_trace_dir = self._profile.trace_target(
+                self.global_iteration)
+        dispatch_sp = _ttrace.span("round.dispatch", parent=round_span,
+                                   attrs={"learners": len(learner_ids)})
+        with dispatch_sp, dispatch_sp.activate():
+            for lid in learner_ids:
+                self._dispatch_one(lid, blob, profile_trace_dir)
+        _M_PHASE.observe(dispatch_sp.duration_ms / 1e3, phase="dispatch")
         with self._lock:
             self._current_meta.dispatch_duration_ms += (
                 (time.perf_counter() - t0) * 1e3)
+            if self._wait_span is None and learner_ids:
+                # passive: the wait measures the barrier, not a cause
+                self._wait_span = _ttrace.span("round.wait_uplinks",
+                                               parent=round_span,
+                                               attrs={"passive": True})
+        if self._profile is not None:
+            # the round's first dispatch end (a rejoin's re-dispatch lands
+            # inside the wait and must not move it)
+            self._profile.note_mark("dispatch_end", first=True)
         self._arm_round_deadline(restart=fresh_round)
+
+    def _dispatch_one(self, lid: str, blob: bytes,
+                      profile_trace_dir: str) -> None:
+        """One learner's train task, under the dispatch span."""
+        with self._lock:
+            record = self._learners.get(lid)
+            if record is None:
+                return
+            params = dataclasses.replace(self.config.train)
+            if record.local_steps_override:
+                params.local_steps = record.local_steps_override
+            if self._profile is None:
+                # the learner's device-stats path is then one check
+                params.device_stats = False
+            elif profile_trace_dir and not params.profile_dir:
+                params.profile_dir = profile_trace_dir
+            # one task in flight per learner: a learner drops its running
+            # task for a new one, so the result of a task this dispatch
+            # replaces (a rejoin's re-dispatch while it trains) is kept
+            # but advances no barrier, or it would count in the next
+            # round
+            superseded = {tid: owner for tid, owner
+                          in self._tasks_in_flight.items()
+                          if owner == lid}
+            if superseded:
+                self._expire_tasks_locked(superseded)
+            task = TrainTask(
+                task_id=uuid.uuid4().hex,
+                learner_id=lid,
+                round_id=self.global_iteration,
+                global_iteration=self.global_iteration,
+                model=blob,
+                params=params,
+                scaffold=self._aggregator.name == "scaffold",
+                control=self._pack_scaffold_c(),
+                controller_epoch=self.controller_epoch,
+            )
+            self._tasks_in_flight[task.task_id] = lid
+            self._task_dispatched_at[task.task_id] = time.time()
+            self._current_meta.train_submitted_at[lid] = time.time()
+            proxy = record.proxy
+            if self._profile is not None:
+                # under the lock, as the uplink counter
+                self._profile.note_downlink(lid, len(blob))
+        # journaled before the send: a send that kills the process still
+        # shows in the flight recorder
+        _tevents.emit(_tevents.TaskDispatched, task_id=task.task_id,
+                      learner_id=lid, round=task.round_id)
+        try:
+            if hasattr(proxy, "run_task_with_callback"):
+                # an asynchronous transport reports a failed dispatch
+                # through the callback
+                proxy.run_task_with_callback(
+                    task, lambda exc, lid=lid, tid=task.task_id:
+                    self._note_dispatch_failure(lid, exc, tid))
+            else:
+                proxy.run_task(task)
+        except Exception as exc:
+            # counted against the learner; the round relies on the
+            # deadline, membership changes and the retries
+            logger.exception("train dispatch to %s failed", lid)
+            self._note_dispatch_failure(lid, exc, task.task_id)
 
     def _note_dispatch_failure(self, learner_id: str, exc: Exception,
                                task_id: str = "") -> None:
@@ -1978,6 +2463,9 @@ class Controller:
                 if lid != failed_id and lid not in dispatched
                 and lid not in busy]
         replacement = random.choice(pool) if pool else ""
+        _M_DISPATCH_RETRIES.inc()
+        _tevents.emit(_tevents.DispatchRetried, learner_id=failed_id,
+                      replacement=replacement, attempt=attempt)
         if released:
             # dropping the dead endpoint met the barrier: finish the round
             # instead of growing it by a replacement
@@ -2013,6 +2501,9 @@ class Controller:
                                  "evaluations": {}}
         with self._lock:
             self.community_evaluations.append(entry)
+        eval_sp = _ttrace.span("round.eval_dispatch",
+                               parent=self._round_span,
+                               attrs={"learners": len(learners)})
         for record in learners:
             task = EvalTask(
                 task_id=uuid.uuid4().hex,
@@ -2046,10 +2537,19 @@ class Controller:
                     self._note_registry_eval(entry, expected=len(learners))
 
             try:
-                record.proxy.evaluate(task, _digest)
+                with eval_sp.activate():
+                    record.proxy.evaluate(task, _digest)
+                if self._profile is not None:
+                    # eval broadcasts are downlink bytes too; attributed
+                    # only to a learner still registered
+                    with self._lock:
+                        if record.learner_id in self._learners:
+                            self._profile.note_downlink(record.learner_id,
+                                                        len(blob))
             except Exception:
                 logger.exception("eval dispatch to %s failed",
                                  record.learner_id)
+        eval_sp.end()
 
     # ------------------------------------------------------------------ #
     # checkpoint / resume
@@ -2087,11 +2587,20 @@ class Controller:
                 state["agg_state"] = self._aggregator.export_state()
             if self._scaffold_c is not None:
                 state["scaffold_c"] = self._pack_scaffold_c()
+            if self._health is not None:
+                # the divergence scores must not reset to "everyone is
+                # typical" after a crash
+                state["health"] = self._health.export_state()
         if self._registry is not None:
             # the channel heads and rollback target survive a failover, or
             # serving would lose its promoted model; outside the controller
             # lock (the export takes the registry's own)
             state["registry"] = self._registry.export_state()
+        if self._cardinality_budget > 0:
+            # the collapsed families persist as sketches (O(budget) bytes)
+            budget_state = _REG.budget_state()
+            if budget_state:
+                state["metrics_budget"] = budget_state
         return state
 
     @staticmethod
@@ -2199,6 +2708,7 @@ class Controller:
             with self._lock:
                 self._learners[record.learner_id] = record
                 self._tokens[record.learner_id] = record.auth_token
+                _M_ACTIVE_LEARNERS.set(len(self._learners))
         if blob:
             self._in_restore = True
             try:
@@ -2228,6 +2738,16 @@ class Controller:
             # version ids stay monotonic across incarnations, and the
             # gateway's next poll sees the stable head it served before
             self._registry.restore_state(registry_state)
+        metrics_budget = state.get("metrics_budget")
+        if metrics_budget and self._cardinality_budget > 0:
+            _REG.restore_budget_state(metrics_budget)
+        health_state = state.get("health")
+        if health_state and self._health is not None:
+            self._health.restore_state(health_state)
+            with self._lock:
+                for lid, score in self._health.scores().items():
+                    if lid in self._learners:
+                        _M_DIVERGENCE.set(round(score, 4), learner=lid)
 
     # ------------------------------------------------------------------ #
     # model lifecycle (registry/)
@@ -2243,11 +2763,13 @@ class Controller:
         try:
             with self._lock:
                 blob = self._community_blob
+                # the round's health snapshot, which the gate reads ({}
+                # with the health plane off)
+                health = dict(self._current_meta.health)
             if blob is None:
                 return
-            # the round's health snapshot: {} until the health plane is
-            # ported (ROADMAP.md Queue 1 item 4)
-            info = self._registry.register(self.global_iteration, blob, {})
+            info = self._registry.register(self.global_iteration, blob,
+                                           health)
             stable = self._registry.head(CHANNEL_STABLE)
             with self._lock:
                 self._current_meta.registered_version = info.version
@@ -2353,13 +2875,21 @@ class Controller:
         with self._lock:
             return self._snapshot_evaluations(tail)
 
-    def describe(self) -> dict:
+    def describe(self, event_tail: int = 50) -> dict:
         """A live snapshot: the round, the protocol, the learners (with
-        their liveness, and churn scores where tracked), the tasks in
-        flight and the community model's size; a ``scheduling`` section
-        where a quorum, dispatch retries, the buffered protocol or a
-        quarantine is armed."""
+        their liveness, straggler scores, divergence scores where the
+        health plane is on and churn scores where tracked), the tasks in
+        flight, the community model's size and the event journal's tail;
+        a ``scheduling`` section where a quorum, dispatch retries, the
+        buffered protocol or a quarantine is armed; the latest round's
+        ``health`` snapshot and cost ``profile`` where those planes are
+        on."""
         slices = self._slices.describe() if self._slices is not None else None
+        div_scores: Dict[str, float] = {}
+        div_last: Dict[str, Dict[str, Any]] = {}
+        if self._health is not None:
+            div_scores = self._health.scores()
+            div_last = self._health.last_stats()
         churn_scores: Dict[str, float] = {}
         quarantined: set = set()
         if self._churn is not None:
@@ -2369,6 +2899,7 @@ class Controller:
         limit = self.config.max_dispatch_failures
         with self._lock:
             blob = self._community_blob
+            stragglers = self._straggler_scores()
             snapshot = {
                 "global_iteration": self.global_iteration,
                 "protocol": self.config.protocol,
@@ -2381,6 +2912,15 @@ class Controller:
                      "live": limit <= 0 or r.dispatch_failures < limit,
                      "dispatch_failures": r.dispatch_failures,
                      "last_result_round": r.last_result_round,
+                     "ewma_train_s": round(r.ewma_train_s, 3),
+                     "ewma_eval_s": round(r.ewma_eval_s, 3),
+                     "straggler_score": round(
+                         stragglers.get(r.learner_id, 0.0), 4),
+                     **({"divergence_score": round(
+                         div_scores.get(r.learner_id, 0.0), 4),
+                         "last_update_norm": div_last.get(
+                             r.learner_id, {}).get("update_norm", 0.0)}
+                        if self._health is not None else {}),
                      **({"churn_score": round(
                          churn_scores.get(r.learner_id, 0.0), 4),
                          "quarantined": r.learner_id in quarantined}
@@ -2391,6 +2931,7 @@ class Controller:
                     set(self._current_meta.train_submitted_at)
                     - set(self._current_meta.train_received_at)),
                 "community_model_bytes": len(blob) if blob else 0,
+                "events": _tevents.tail(event_tail) if event_tail else [],
                 **({"streaming": self._streaming.stats()}
                    if self._streaming is not None else {}),
                 **({"secure_stream": self._masked_stream.stats()}
@@ -2400,6 +2941,12 @@ class Controller:
             if self._registry is not None:
                 # channel heads and the version lineage
                 snapshot["registry"] = self._registry.describe()
+            if self._health is not None:
+                # the latest round's convergence snapshot ({} before round 1)
+                snapshot["health"] = self._health.snapshot()
+            if self._profile is not None:
+                # the latest round's cost profile
+                snapshot["profile"] = self._profile.summary()
             if (self._quorum > 0 or sched_cfg.dispatch_retries > 0
                     or self._scheduler.name == "asynchronous_buffered"
                     or quarantined):

@@ -15,8 +15,11 @@ residual (``RecoverMasks``). The model registry's surface: its snapshot
 (``DescribeRegistry``), a version's blob by id or channel
 (``GetRegisteredModel``), and the operator's ``PromoteVersion`` and
 ``RollbackVersion``, which answer ``{"ok": false, "error"}`` rather than
-fail when the gate refuses or the registry is off. Not ported:
-``GetMetrics`` (ROADMAP.md Queue 1 item 4).
+fail when the gate refuses or the registry is off. ``GetMetrics``
+answers the process registry's Prometheus exposition, and
+``DescribeFederation`` takes the event tail's length. With the cost
+profiles on, the learner proxy attributes its wire bytes and codec time
+to the learner (``rpc_peer_bytes_total``, ``codec_learner_seconds_total``).
 """
 
 from __future__ import annotations
@@ -27,6 +30,7 @@ import threading
 import time
 from typing import Callable, List, Optional
 
+from metisfl_tpu_torch.comm import codec as _codec
 from metisfl_tpu_torch.comm.codec import dumps, loads
 from metisfl_tpu_torch.comm.health import (
     NOT_SERVING,
@@ -43,6 +47,8 @@ from metisfl_tpu_torch.comm.messages import (
 )
 from metisfl_tpu_torch.comm.rpc import BytesService, RpcClient, RpcServer
 from metisfl_tpu_torch.controller.core import Controller, LearnerRecord
+from metisfl_tpu_torch.telemetry import profile as _tprofile
+from metisfl_tpu_torch.telemetry import render_metrics
 
 logger = logging.getLogger("metisfl_tpu_torch.controller.service")
 
@@ -65,14 +71,27 @@ class RpcLearnerProxy:
 
     def __init__(self, record: LearnerRecord, ssl=None, comm=None):
         self._learner_id = record.learner_id
+        # with the cost profiles on (a collector is active before any
+        # proxy exists), the channel's bytes are attributed to the learner
+        profiled = _tprofile.collector() is not None
         self._client = RpcClient(record.hostname, record.port,
                                  LEARNER_SERVICE, ssl=ssl,
+                                 peer=record.learner_id if profiled else "",
                                  **comm_kwargs(comm))
+
+    @staticmethod
+    def _to_wire_attributed(task) -> bytes:
+        """The envelope's encode, attributed to its learner where the cost
+        profiles are on."""
+        if _tprofile.collector() is None:
+            return task.to_wire()
+        with _codec.attributed(task.learner_id):
+            return task.to_wire()
 
     def run_task(self, task: TrainTask) -> None:
         # RunTask acks at once (the learner trains on its own thread)
         self._client.call_async(
-            "RunTask", task.to_wire(),
+            "RunTask", self._to_wire_attributed(task),
             error_callback=lambda exc: logger.warning(
                 "RunTask to %s failed: %s", self._learner_id, exc))
 
@@ -81,14 +100,14 @@ class RpcLearnerProxy:
         liveness accounting: ``wait_ready=False`` surfaces UNAVAILABLE
         from a dead endpoint at once, and the timeout bounds a connected
         peer that does not answer."""
-        self._client.call_async("RunTask", task.to_wire(),
+        self._client.call_async("RunTask", self._to_wire_attributed(task),
                                 error_callback=on_error, timeout=60.0,
                                 wait_ready=False)
 
     def evaluate(self, task: EvalTask,
                  callback: Callable[[EvalResult], None]) -> None:
         self._client.call_async(
-            "EvaluateModel", task.to_wire(),
+            "EvaluateModel", self._to_wire_attributed(task),
             callback=lambda raw: callback(EvalResult.from_wire(raw)),
             error_callback=lambda exc: logger.warning(
                 "EvaluateModel on %s failed: %s", self._learner_id, exc))
@@ -102,6 +121,12 @@ class RpcLearnerProxy:
              "dropped": list(dropped), "lengths": list(lengths)}),
             timeout=60.0, wait_ready=False)
         return loads(raw)["corrections"]
+
+    def detach_peer(self) -> None:
+        """Stop attributing this channel's bytes to the learner: called on
+        leave before the per-peer series are pruned, so an in-flight call's
+        completion cannot mint them again."""
+        self._client.peer = ""
 
 
 class ControllerServer:
@@ -127,6 +152,7 @@ class ControllerServer:
                 "GetEvaluationLineage": self._get_evaluation_lineage,
                 "ListLearners": self._list_learners,
                 "GetHealthStatus": self._health,
+                "GetMetrics": self._get_metrics,
                 "DescribeFederation": self._describe,
                 "DescribeRegistry": self._describe_registry,
                 "GetRegisteredModel": self._get_registered_model,
@@ -151,7 +177,16 @@ class ControllerServer:
                                                   req["auth_token"])})
 
     def _mark_completed(self, raw: bytes) -> bytes:
-        ok = self.controller.task_completed(TaskResult.from_wire(raw))
+        if _tprofile.collector() is None:
+            result = TaskResult.from_wire(raw)
+        else:
+            # the decode reveals the learner only once it ran: the time is
+            # attributed after it, gated on membership
+            t0 = time.perf_counter()
+            result = TaskResult.from_wire(raw)
+            self.controller.attribute_decode(result.learner_id,
+                                             time.perf_counter() - t0)
+        ok = self.controller.task_completed(result)
         return dumps({"ok": ok})
 
     def _replace_model(self, raw: bytes) -> bytes:
@@ -182,8 +217,12 @@ class ControllerServer:
         return dumps({"status": "SERVING",
                       "learners": self.controller.active_learners()})
 
+    def _get_metrics(self, raw: bytes) -> bytes:
+        return render_metrics().encode("utf-8")
+
     def _describe(self, raw: bytes) -> bytes:
-        return dumps(self.controller.describe())
+        tail = int(loads(raw).get("event_tail", 50)) if raw else 50
+        return dumps(self.controller.describe(event_tail=tail))
 
     def _describe_registry(self, raw: bytes) -> bytes:
         return dumps(self.controller.describe_registry())
@@ -371,11 +410,20 @@ class ControllerClient:
         return loads(self._call("GetHealthStatus", b"", timeout=timeout,
                                 idempotent=True))
 
-    def describe_federation(self, timeout: Optional[float] = None,
+    def get_metrics(self, timeout: float = 5.0) -> str:
+        """The controller's Prometheus text exposition (GetMetrics)."""
+        return self._call("GetMetrics", b"", timeout=timeout,
+                          idempotent=True).decode("utf-8")
+
+    def describe_federation(self, event_tail: int = 50,
+                            timeout: Optional[float] = None,
                             wait_ready: bool = True) -> dict:
-        """A live snapshot: round, protocol, learners, in-flight tasks."""
-        return loads(self._call("DescribeFederation", b"", timeout=timeout,
-                                wait_ready=wait_ready, idempotent=True))
+        """A live snapshot: round, protocol, learners, in-flight tasks and
+        the last ``event_tail`` journal events."""
+        return loads(self._call("DescribeFederation",
+                                dumps({"event_tail": int(event_tail)}),
+                                timeout=timeout, wait_ready=wait_ready,
+                                idempotent=True))
 
     def describe_registry(self, timeout: Optional[float] = None,
                           wait_ready: bool = True) -> dict:

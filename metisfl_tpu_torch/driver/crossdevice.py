@@ -42,8 +42,12 @@ CLI::
     python -m metisfl_tpu_torch.driver.crossdevice --controller-smoke \
         [--device cpu]
 
-Not ported: the telemetry planes the JAX harness can arm (the cardinality
-budget and the alert smoke, ROADMAP.md Queue 1 item 4).
+The harness measures scheduling, not observability: the health and
+profile planes stay off, as in the JAX harness. ``--budget`` arms the
+cardinality budget (the per-learner metric families collapse to sketches
+past that many series; the result's ``telemetry`` section reports one
+scrape's series, bytes and the collapsed families). Not ported: the JAX
+harness's alert smoke (ROADMAP.md Queue 1 item 4b).
 """
 
 from __future__ import annotations
@@ -73,7 +77,10 @@ from metisfl_tpu_torch.config import (
     AggregationConfig,
     EvalConfig,
     FederationConfig,
+    HealthConfig,
+    ProfileConfig,
     SchedulingConfig,
+    TelemetryConfig,
 )
 from metisfl_tpu_torch.config.federation import TreeAggregationConfig
 from metisfl_tpu_torch.controller.core import Controller, LearnerRecord
@@ -118,6 +125,9 @@ class ChurnScenario:
     slices: int = 0
     # kill aggregator 0 while round `slice_kill_round` waits on uplinks
     slice_kill: bool = False
+    # > 0: telemetry.cardinality_budget, so the per-learner metric families
+    # collapse to sketches past this many series
+    cardinality_budget: int = 0
     slice_kill_round: int = 1
     # simulation plumbing
     workers: int = 8
@@ -191,6 +201,13 @@ class CrossDeviceHarness:
                 staleness_decay=0.5 if s.buffer_size > 0 else 0.0,
                 **agg_kwargs),
             eval=EvalConfig(every_n_rounds=0),
+            # scheduling, not observability, is measured: a 1024-client
+            # round costs controller bookkeeping only (the budget is the
+            # plane under test)
+            telemetry=TelemetryConfig(
+                health=HealthConfig(enabled=False),
+                profile=ProfileConfig(enabled=False),
+                cardinality_budget=s.cardinality_budget),
         )
         self.controller = Controller(self.config, self._make_proxy,
                                      device="cpu")
@@ -414,6 +431,26 @@ class CrossDeviceHarness:
         pred = np.argmax(x @ weights["w"] + weights["b"], axis=-1)
         return float(np.mean(pred == y))
 
+    def _telemetry_stats(self) -> Optional[Dict[str, Any]]:
+        """One scrape's series and bytes, and which families collapsed;
+        None when the budget is not armed."""
+        if self.scenario.cardinality_budget <= 0:
+            return None
+        from metisfl_tpu_torch import telemetry as _tel
+
+        text = _tel.render_metrics()
+        collapsed = sorted(
+            f.name for f in _tel.registry().budget_families()
+            if f.collapsed())
+        return {
+            "budget": self.scenario.cardinality_budget,
+            "exposition_bytes": len(text),
+            "exposition_series": sum(
+                1 for line in text.splitlines()
+                if line and not line.startswith("#")),
+            "collapsed_families": collapsed,
+        }
+
     def run(self) -> Dict[str, Any]:
         s = self.scenario
         # the controller samples cohorts and replacements from the global
@@ -463,6 +500,7 @@ class CrossDeviceHarness:
             completed = self.controller.global_iteration
             metas = self.controller.get_runtime_metadata()
             acc = self.accuracy()
+            telemetry_out = self._telemetry_stats()
             slices_out = None
             if s.slices > 0:
                 raw = self.controller.community_model_bytes() or b""
@@ -480,6 +518,8 @@ class CrossDeviceHarness:
         rss1 = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss
         reporters = [len(m.get("train_received_at", {})) for m in metas]
         return {
+            **({"telemetry": telemetry_out}
+               if telemetry_out is not None else {}),
             **({"slices": slices_out} if slices_out is not None else {}),
             "clients": s.clients,
             "protocol": self.config.protocol,
@@ -554,6 +594,10 @@ def main(argv: Optional[List[str]] = None) -> int:
                         help="max |accuracy(churn) - accuracy(no churn)|")
     parser.add_argument("--skip-control", action="store_true",
                         help="skip the no-churn same-seed control run")
+    parser.add_argument("--budget", type=int, default=0,
+                        help=">0: arm telemetry.cardinality_budget (the "
+                             "per-learner metric families collapse to "
+                             "sketches past this many series)")
     parser.add_argument("--slice-smoke", action="store_true",
                         help="run the slice-kill gate instead: slice "
                              "aggregator processes, one killed mid-round; "
@@ -600,7 +644,8 @@ def main(argv: Optional[List[str]] = None) -> int:
         seed=args.seed, clients=args.clients, rounds=args.rounds,
         quorum=args.quorum, overprovision=args.overprovision,
         dropout=args.dropout, buffer_size=args.buffer,
-        round_deadline_secs=args.deadline, timeout_s=args.timeout)
+        round_deadline_secs=args.deadline, timeout_s=args.timeout,
+        cardinality_budget=args.budget)
     churn = run_scenario(scenario)
     out: Dict[str, Any] = {"churn": churn}
     ok = churn["ok"]

@@ -10,6 +10,9 @@ the dispatch, with uplinks in the air. The gate passes iff:
   grpc.health.v1 escalation) and the driver hands the controller endpoint
   over (``session._standby_promoted``, and the promoted process's log
   says ``METISFL_TPU_CONTROLLER_PROMOTED``);
+- ``ControllerFailover`` fired for both roles: the promoted standby's
+  journal holds ``role=standby`` and the driver counts
+  ``controller_failover_total{role="driver"}``;
 - every round completes without an operator;
 - each round's registered community model is bit for bit the same-seed
   undisturbed control run's, which also has the standby armed and never
@@ -20,10 +23,8 @@ community head: the federation keeps aggregating until shutdown, while
 version ``k`` is exactly round ``k``'s aggregate in both runs. Two
 learners keep the root fold order-free at the bit level (IEEE addition
 commutes), so arrival order cannot move the bits; what the gate pins is
-that promotion rebuilt the round state the bits depend on.
-
-Not ported: the JAX gate's ``controller_failover`` event and metric
-counts per role (ROADMAP.md Queue 1 item 4).
+that promotion rebuilt the round state the bits depend on. The control
+must be failover-silent: no promotion, no event, no driver count.
 
 Run it::
 
@@ -33,13 +34,47 @@ Run it::
 
 from __future__ import annotations
 
+import glob
 import hashlib
+import json
 import os
 import tempfile
 import time
 from typing import Any, Dict, Optional
 
 import numpy as np
+
+
+def failover_events(workdir: str) -> Dict[str, int]:
+    """``controller_failover`` events by role in every event journal under
+    ``<workdir>/telemetry`` (the promoted standby writes its own; the
+    driver's, in this process, are counted from the metrics registry)."""
+    counts: Dict[str, int] = {}
+    pattern = os.path.join(workdir, "telemetry", "*-events.jsonl")
+    for path in glob.glob(pattern):
+        try:
+            with open(path) as f:
+                for line in f:
+                    try:
+                        rec = json.loads(line)
+                    except ValueError:
+                        continue
+                    if rec.get("kind") == "controller_failover":
+                        role = str(rec.get("role", "?"))
+                        counts[role] = counts.get(role, 0) + 1
+        except OSError:
+            continue
+    return counts
+
+
+def driver_failovers() -> float:
+    """This process's ``controller_failover_total{role="driver"}``."""
+    from metisfl_tpu_torch import telemetry
+
+    series = telemetry.parse_exposition(telemetry.render_metrics()).get(
+        "controller_failover_total", {})
+    return sum(v for labels, v in series.items()
+               if ("role", "driver") in labels)
 
 
 def _recipe(idx: int, x, y, device: str):
@@ -100,6 +135,7 @@ def _run_one(workdir: str, seed: int, rounds: int, kill: bool,
              "method": "MarkTaskCompleted", "max_fires": 1}]
             if kill else [])),
     )
+    base_driver = driver_failovers()
     session = DriverSession(config, template, recipes, workdir=workdir,
                             device=device)
     t0 = time.time()
@@ -131,6 +167,8 @@ def _run_one(workdir: str, seed: int, rounds: int, kill: bool,
         "learners": learners,
         "promoted": promoted,
         "promoted_logged": promoted_logged,
+        "failover_events": failover_events(workdir),
+        "driver_failovers": driver_failovers() - base_driver,
         "exit_codes": session.process_exit_codes(),
         "model_sha256": blobs,
         "missing_versions": missing,
@@ -145,8 +183,9 @@ def run_ha_smoke(rounds: int = 3, seed: int = 7, timeout_s: float = 240.0,
     """The kill run (the controller killed at its first uplink) against
     the same-seed undisturbed control, both with the standby armed.
     Passes iff the kill run promoted (and its promoted process logged it)
-    and completed, the control never promoted, and every round-pinned
-    community model matches bit for bit."""
+    and completed with ``controller_failover`` fired for both roles, the
+    control stayed failover-silent, and every round-pinned community
+    model matches bit for bit."""
     root = workdir or tempfile.mkdtemp(prefix="metisfl_torch_ha_")
     kill = _run_one(os.path.join(root, "kill"), seed, rounds, kill=True,
                     timeout_s=timeout_s, device=device)
@@ -156,7 +195,11 @@ def run_ha_smoke(rounds: int = 3, seed: int = 7, timeout_s: float = 240.0,
                      and kill["model_sha256"] == control["model_sha256"])
     ok = (kill["ok"] and control["ok"]
           and kill["promoted"] and kill["promoted_logged"]
+          and kill["failover_events"].get("standby", 0) >= 1
+          and kill["driver_failovers"] >= 1
           and not control["promoted"]
+          and not control["failover_events"]
+          and control["driver_failovers"] == 0
           and bit_identical)
     return {"kill": kill, "control": control,
             "bit_identical": bit_identical, "workdir": root, "ok": ok}

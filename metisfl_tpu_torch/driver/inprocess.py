@@ -11,6 +11,13 @@ each learner its own (``add_learner(..., secure_backend=)``). Under
 ``aggregation.tree.distributed`` the controller dials the slice
 aggregators that ``tree.slices`` names, as the config gives them (the
 caller boots them, e.g. ``python -m metisfl_tpu_torch.aggregation.slice``).
+
+One process, one telemetry context: the controller's round spans and the
+learners' train spans share the registry and the sink, as in the JAX
+package. The metrics and the journal follow this config's switches; the
+tracer is reconfigured only when the config says something (a sink
+directory, or an opt-out), so a default config keeps a sink the host
+process set up.
 """
 
 from __future__ import annotations
@@ -77,6 +84,20 @@ class InProcessFederation:
                 "(driver/session.py, ROADMAP.md Queue 1 item 3a); the "
                 "in-process federation cannot watch them")
         self.config = config
+        from metisfl_tpu_torch import telemetry
+        from metisfl_tpu_torch.telemetry import events as _tevents
+        from metisfl_tpu_torch.telemetry import metrics as _tmetrics
+        from metisfl_tpu_torch.telemetry import trace as _ttrace
+        tel = config.telemetry
+        _tmetrics.set_enabled(tel.enabled)
+        _tevents.set_enabled(tel.enabled and tel.events.enabled)
+        if tel.events.ring_size:
+            _tevents.journal().set_ring_size(tel.events.ring_size)
+        if not tel.enabled or tel.dir:
+            telemetry.apply_config(tel, service="inprocess")
+        else:
+            # a prior opt-out run in this process must not stick
+            _ttrace.set_enabled(True)
         self._learners_by_port: Dict[int, Learner] = {}
         self._proxies: List[_DirectLearnerProxy] = []
         self.controller = Controller(config, self._make_proxy,

@@ -75,8 +75,19 @@ The port's controller dispatches no train task after
 ``termination.federation_rounds`` rounds, so the rounds criterion ends an
 idle federation; the two cutoffs end one mid-round.
 
+Telemetry: the span sinks and the post-mortem directory default into the
+workdir (``<workdir>/telemetry``, ``<workdir>/postmortem``) and reach the
+learners as ``--telemetry-dir``/``--postmortem-dir``; the driver arms its
+own flight recorder, so a supervised relaunch or a standby handoff leaves a
+driver-side bundle beside its ``FailoverBegan`` event, and the handoff
+counts ``controller_failover_total{role="driver"}`` and emits
+``ControllerFailover``. :meth:`DriverSession.collect_traces` merges every
+local process's span file into ``<workdir>/traces.jsonl`` (render it with
+``python -m metisfl_tpu_torch.telemetry``), and
+:meth:`DriverSession.collect_postmortems` gathers the bundles.
+
 Not ported, and raising ``NotImplementedError`` with the ROADMAP.md Queue 1
-item: serving (5), and trace and post-mortem collection (4).
+item: serving (5). The fleet fabric's live span stream is item 4b.
 """
 
 from __future__ import annotations
@@ -98,6 +109,7 @@ from typing import Any, Callable, Dict, List, Optional, Sequence
 import cloudpickle
 import numpy as np
 
+from metisfl_tpu_torch import telemetry as _tel
 from metisfl_tpu_torch.aggregation.slice import SLICE_SERVICE
 from metisfl_tpu_torch.chaos import ENV_VAR as CHAOS_ENV_VAR
 from metisfl_tpu_torch.comm.codec import dumps as codec_dumps
@@ -110,9 +122,20 @@ from metisfl_tpu_torch.controller.service import (
     LEARNER_SERVICE,
     ControllerClient,
 )
+from metisfl_tpu_torch.telemetry import events as _tevents
+from metisfl_tpu_torch.telemetry import metrics as _tmetrics
+from metisfl_tpu_torch.telemetry import postmortem as _tpostmortem
 from metisfl_tpu_torch.tensor.pytree import pack_model
 
 logger = logging.getLogger("metisfl_tpu_torch.driver")
+
+_M_CTRL_RESTARTS = _tmetrics.registry().counter(
+    _tel.M_CONTROLLER_RESTARTS_TOTAL,
+    "Supervised controller relaunches with --resume (driver side)")
+_M_CTRL_FAILOVER = _tmetrics.registry().counter(
+    _tel.M_CONTROLLER_FAILOVER_TOTAL,
+    "Standby promotions to controller, by role of the emitting process",
+    ("role",))
 
 _CONTROLLER_READY = re.compile(r"METISFL_TPU_CONTROLLER_READY port=(\d+)")
 _PROMOTED = "METISFL_TPU_CONTROLLER_PROMOTED"
@@ -410,6 +433,22 @@ class DriverSession:
             p for p in (pkg_root, os.environ.get("PYTHONPATH", "")) if p)
         return {"PYTHONPATH": pythonpath}
 
+    def _prepare_telemetry(self) -> None:
+        """The span sinks and the post-mortem directory default into the
+        workdir, so the controller's and the learners' spans stitch into
+        one tree on disk; the driver arms its own flight recorder."""
+        tel = self.config.telemetry
+        if not tel.enabled:
+            return
+        if not tel.dir:
+            tel.dir = os.path.join(self.workdir, "telemetry")
+        os.makedirs(tel.dir, exist_ok=True)
+        if not tel.postmortem_dir:
+            tel.postmortem_dir = os.path.join(self.workdir, "postmortem")
+        os.makedirs(tel.postmortem_dir, exist_ok=True)
+        _tpostmortem.configure(tel.postmortem_dir, service="driver",
+                               install_hooks=False)
+
     def initialize_federation(self, health_retries: int = 60,
                               health_sleep_s: float = 0.5) -> None:
         """Make the secure material, boot the controller (and its standby)
@@ -417,6 +456,7 @@ class DriverSession:
         the controller answers, ship the seed model; the learners join
         once it holds the model."""
         self._prepare_secure()
+        self._prepare_telemetry()
         ctrl_host = self.config.controller_host or "localhost"
         # a local controller's port is known before it boots, so the
         # learners' interpreters, recipes and devices start beside it; a
@@ -551,8 +591,16 @@ class DriverSession:
             "controller died (exit %s); supervised restart %d/%d with "
             "--resume in %.1fs", code, self._controller_restarts,
             fo.max_controller_restarts, backoff)
+        # the supervisor's own record of when it saw the death and what it
+        # did about it
+        _tevents.emit(_tevents.FailoverBegan,
+                      restart=self._controller_restarts, exit_code=code)
+        _tpostmortem.dump("failover_relaunch",
+                          extra={"exit_code": code,
+                                 "restart": self._controller_restarts})
         time.sleep(backoff)
         self._launch_controller(resume=True)
+        _M_CTRL_RESTARTS.inc()
         try:
             self._wait_healthy(time.time() + 30.0, 0.5)
         except RuntimeError as exc:
@@ -585,6 +633,8 @@ class DriverSession:
                 f"(double fault); log tail:\n{self._log_tail(ctrl)}")
         logger.warning("controller died (exit %s); waiting for standby "
                        "%s:%d to promote", code, host, standby.port)
+        _tevents.emit(_tevents.FailoverBegan, restart=1, exit_code=code)
+        _tpostmortem.dump("failover_handoff", extra={"exit_code": code})
         # one staleness window, the probe escalation, and room for the
         # WAL restore
         budget = (standby.stale_after_s
@@ -606,6 +656,11 @@ class DriverSession:
                 self._procs = [p for p in self._procs
                                if p.name != "controller"]
                 sb.name = "controller"
+                _M_CTRL_FAILOVER.inc(role="driver")
+                _tevents.emit(_tevents.ControllerFailover, role="driver",
+                              host=host, port=standby.port,
+                              promote_s=round(waited, 4),
+                              reason=f"controller_exit_{code}")
                 logger.warning(
                     "standby promoted at %s:%d after %.1fs; controller "
                     "endpoint handed over", host, standby.port, waited)
@@ -849,6 +904,16 @@ class DriverSession:
                      "--ssl-key", self.config.ssl.key_path]
         if self.config.secure.enabled:
             args += ["--secure-config", self._secure_path(idx)]
+        tel = self.config.telemetry
+        if not tel.enabled:
+            args.append("--telemetry-off")
+        else:
+            if tel.dir:
+                args += ["--telemetry-dir", tel.dir]
+            if not tel.events.enabled:
+                args.append("--events-off")
+            if tel.postmortem_dir:
+                args += ["--postmortem-dir", tel.postmortem_dir]
         if wait_for_model:
             args.append("--wait-for-model")
         standby = self._standby_endpoint()
@@ -1001,8 +1066,59 @@ class DriverSession:
     def serving_client(self):
         raise not_ported("serving beside a DriverSession federation", "5")
 
-    def collect_traces(self, dest: Optional[str] = None):
-        raise not_ported("trace and post-mortem collection", "4")
+    def collect_traces(self, dest: Optional[str] = None) -> Optional[str]:
+        """Merge every local process's sink file under ``telemetry.dir``
+        (spans, and the event journals beside them, which the trace viewer
+        skips) into ``traces.jsonl`` (default in the workdir); None when
+        there is nothing to collect. Remote learners keep their files on their host
+        (the fleet fabric that streams them is item 4b)."""
+        if not self.config.telemetry.enabled:
+            return None
+        import glob as _glob
+        tel_dir = self.config.telemetry.dir
+        files = (sorted(_glob.glob(os.path.join(tel_dir, "*.jsonl")))
+                 if tel_dir and os.path.isdir(tel_dir) else [])
+        if not files:
+            return None
+        dest = dest or os.path.join(self.workdir, "traces.jsonl")
+        with open(dest, "w") as out:
+            for name in files:
+                try:
+                    with open(name) as f:
+                        out.write(f.read())
+                except OSError:
+                    logger.warning("could not collect trace file %s", name)
+        return dest
+
+    def collect_postmortems(self) -> List[str]:
+        """The post-mortem bundles, collected into ``<workdir>/postmortem``
+        (where the processes write them unless ``telemetry.postmortem_dir``
+        points elsewhere, in which case they are copied in)."""
+        src = self.config.telemetry.postmortem_dir
+        if not (self.config.telemetry.enabled and src
+                and os.path.isdir(src)):
+            return []
+        import glob as _glob
+        import shutil as _shutil
+        dest = os.path.join(self.workdir, "postmortem")
+        paths = sorted(_glob.glob(os.path.join(src, "*.json")))
+        if os.path.abspath(src) != os.path.abspath(dest) and paths:
+            os.makedirs(dest, exist_ok=True)
+            collected = []
+            for p in paths:
+                target = os.path.join(dest, os.path.basename(p))
+                try:
+                    _shutil.copyfile(p, target)
+                    collected.append(target)
+                except OSError:
+                    logger.warning("could not collect bundle %s", p)
+            paths = collected
+        if paths:
+            logger.warning(
+                "%d post-mortem bundle(s) in %s: render with python -m "
+                "metisfl_tpu_torch.telemetry --postmortem %s",
+                len(paths), dest, dest)
+        return paths
 
     @staticmethod
     def _stop(proc: _Proc) -> None:

@@ -29,8 +29,14 @@ A ``METISFL_TPU_CHAOS`` spec in the environment arms the chaos injector
 (metisfl_tpu_torch/chaos) at start; its ``slow`` rules stretch each train
 task.
 
-Not ported: multi-host learners (ROADMAP.md Queue 1 item 9), and the
-telemetry and post-mortem directories (4).
+Telemetry: ``--telemetry-dir`` is the span and event sink (the driver
+points it at ``<workdir>/telemetry``), ``--postmortem-dir`` arms the
+flight recorder (a chaos kill or a crash leaves a bundle there),
+``--telemetry-off`` and ``--events-off`` forward the config's switches,
+and ``--metrics-port`` > 0 serves ``/metrics`` over plain HTTP beside the
+``GetMetrics`` RPC.
+
+Not ported: multi-host learners (ROADMAP.md Queue 1 item 9).
 """
 
 from __future__ import annotations
@@ -47,10 +53,11 @@ import time
 import cloudpickle
 import torch
 
-from metisfl_tpu_torch import chaos
+from metisfl_tpu_torch import chaos, telemetry
 from metisfl_tpu_torch.comm.codec import loads as codec_loads
 from metisfl_tpu_torch.comm.ssl import SSLConfig
 from metisfl_tpu_torch.config import CommConfig, SecureAggConfig
+from metisfl_tpu_torch.config.federation import EventsConfig, TelemetryConfig
 from metisfl_tpu_torch.controller.service import ControllerClient
 from metisfl_tpu_torch.learner.learner import Learner
 from metisfl_tpu_torch.learner.service import LearnerServer
@@ -142,15 +149,48 @@ def main(argv=None) -> int:
                              "(omitted = the transport's default)")
     parser.add_argument("--rpc-retry-sleep-s", type=float, default=None,
                         help="seconds between those retries")
+    parser.add_argument("--telemetry-dir", default="",
+                        help="span and event sink directory (the driver "
+                             "points this at <workdir>/telemetry)")
+    parser.add_argument("--telemetry-off", action="store_true",
+                        help="no spans, metrics or events (the config's "
+                             "telemetry.enabled=false, forwarded by the "
+                             "driver)")
+    parser.add_argument("--events-off", action="store_true",
+                        help="no event journal (telemetry.events.enabled="
+                             "false)")
+    parser.add_argument("--postmortem-dir", default="",
+                        help="post-mortem bundle directory (the driver "
+                             "points this at <workdir>/postmortem)")
+    parser.add_argument("--metrics-port", type=int, default=0,
+                        help="plain-HTTP /metrics port (0 = off; GetMetrics "
+                             "answers either way)")
     args = parser.parse_args(argv)
     # stopped before it serves (loading the recipe takes seconds), the
     # learner has nothing to leave or drain: exit at once, cleanly
     signal.signal(signal.SIGTERM, lambda *_: sys.exit(0))
 
+    telemetry.apply_config(
+        TelemetryConfig(enabled=not args.telemetry_off,
+                        dir=args.telemetry_dir,
+                        events=EventsConfig(enabled=not args.events_off),
+                        postmortem_dir=args.postmortem_dir),
+        service=f"learner-{args.port or os.getpid()}")
+    metrics_http = None
+    if not args.telemetry_off and args.metrics_port > 0:
+        from metisfl_tpu_torch.telemetry.httpd import start_metrics_http
+        metrics_http = start_metrics_http(args.metrics_port, host=args.host)
+
     logging.basicConfig(
         level=logging.INFO,
         format="%(asctime)s %(name)s %(levelname)s %(message)s")
     chaos.install_from_env()
+    unported = telemetry.unported_planes(TelemetryConfig(
+        enabled=not args.telemetry_off))
+    if unported:
+        logger.info("telemetry planes %s are not ported to metisfl_tpu_torch "
+                    "yet (ROADMAP.md Queue 1 item 4b); nothing depends on "
+                    "them", ", ".join(unported))
 
     with open(args.recipe, "rb") as f:
         recipe = cloudpickle.load(f)
@@ -237,6 +277,10 @@ def main(argv=None) -> int:
         raise
     finally:
         controller.close()
+        if metrics_http is not None:
+            metrics_http.close()
+        telemetry.trace.flush()
+        telemetry.events.flush()
     return 0
 
 

@@ -42,13 +42,21 @@ resubmit once under the refreshed credentials. ``on_join`` sees every
 re-attach's reply (the learner process saves its credentials there). A
 learner that left on purpose never re-attaches.
 
-Not ported yet: telemetry (ROADMAP.md Queue 1 item 4).
+Telemetry, the JAX package's: the train, step, compile, task, eval,
+re-attach and mask-generation metrics; a ``learner.train`` span per task
+parented under the dispatch's trace context (the controller's round span,
+carried over gRPC or in process) with its load, train-steps and dump
+spans, and a ``learner.eval`` span; ``EpochChanged`` events; the device
+stats (``DeviceMonitor``: step-time EWMA, MFU over the card's peak, the
+device-memory high-water mark) in ``TaskResult.device_stats``; and a
+``torch.profiler`` capture under ``TrainParams.profile_dir``, per learner.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import logging
+import os
 import re
 import threading
 import time
@@ -59,6 +67,7 @@ import numpy as np
 import torch
 
 from metisfl_tpu_torch import chaos as _chaos
+from metisfl_tpu_torch import telemetry as _tel
 from metisfl_tpu_torch.comm.messages import (
     EvalResult,
     EvalTask,
@@ -82,6 +91,10 @@ from metisfl_tpu_torch.tensor.pytree import (
 )
 from metisfl_tpu_torch.tensor.quantize import SHIP_INT8Q, quantize_named
 from metisfl_tpu_torch.tensor.sparse import parse_topk, sparsify_update
+from metisfl_tpu_torch.telemetry import events as _tevents
+from metisfl_tpu_torch.telemetry import metrics as _tmetrics
+from metisfl_tpu_torch.telemetry import profile as _tprofile
+from metisfl_tpu_torch.telemetry import trace as _ttrace
 from metisfl_tpu_torch.tensor.spec import (
     TensorKind,
     TensorSpec,
@@ -89,6 +102,31 @@ from metisfl_tpu_torch.tensor.spec import (
 )
 
 logger = logging.getLogger("metisfl_tpu_torch.learner")
+
+_REG = _tmetrics.registry()
+_M_TRAIN_DURATION = _REG.histogram(
+    _tel.M_LEARNER_TRAIN_DURATION_SECONDS, "End-to-end train-task time")
+_M_TRAIN_STEP_MS = _REG.histogram(
+    _tel.M_LEARNER_STEP_MILLISECONDS, "Median per-optimizer-step time",
+    buckets=(0.1, 0.25, 0.5, 1, 2.5, 5, 10, 25, 50, 100, 250, 500, 1000,
+             5000))
+_M_JIT_COMPILE = _REG.histogram(
+    _tel.M_LEARNER_JIT_COMPILE_SECONDS,
+    "Estimated jit-compile overhead per train task (task wall-clock "
+    "minus steps x steady-state step time)")
+_M_TASKS = _REG.counter(
+    _tel.M_LEARNER_TASKS_TOTAL, "Train tasks by outcome",
+    ("outcome",))
+_M_EVALS = _REG.histogram(
+    _tel.M_LEARNER_EVAL_DURATION_SECONDS, "Community-model evaluation time")
+_M_REATTACH = _REG.counter(
+    _tel.M_LEARNER_REATTACH_TOTAL,
+    "Re-attach joins after a controller crash/restart was detected",
+    ("reason",))
+_M_MASK_GEN = _REG.histogram(
+    _tel.M_SECURE_MASK_GEN_SECONDS,
+    "Secure-uplink encode time per train task: fixed-point encoding + "
+    "pairwise mask stream generation (secure/distributed.py)")
 
 
 class ControllerProxy(Protocol):
@@ -202,6 +240,8 @@ class Learner:
         self._ship_regex: str = ""
         self._frozen_base: Optional[tuple] = None   # (regex, {name: array})
         self._warned_unfrozen = False
+        # the device stats' monitor, built on the first task that asks
+        self._device_monitor = None
 
     # ------------------------------------------------------------------ #
     # membership
@@ -229,6 +269,14 @@ class Learner:
         self.learner_id = reply.learner_id
         self.auth_token = reply.auth_token
         if reply.controller_epoch:
+            if (self.controller_epoch
+                    and reply.controller_epoch != self.controller_epoch):
+                # which controller each of this learner's tasks belonged to
+                _tevents.emit(_tevents.EpochChanged,
+                              learner_id=reply.learner_id,
+                              old_epoch=self.controller_epoch[:8],
+                              new_epoch=reply.controller_epoch[:8],
+                              reason="join_reply")
             self.controller_epoch = reply.controller_epoch
         self._left = False
         return reply
@@ -262,6 +310,7 @@ class Learner:
                                exc)
                 self._shutdown.wait(self.reattach_backoff_s)
                 continue
+            _M_REATTACH.inc(reason=reason)
             logger.info(
                 "%s: re-attached to controller (epoch %s, rejoined=%s, "
                 "reason=%s)", self.learner_id,
@@ -286,6 +335,11 @@ class Learner:
                 "%s: task from controller epoch %s but joined under %s; "
                 "re-attaching", self.learner_id, task_epoch[:8],
                 self.controller_epoch[:8])
+            _tevents.emit(_tevents.EpochChanged,
+                          learner_id=self.learner_id,
+                          old_epoch=self.controller_epoch[:8],
+                          new_epoch=task_epoch[:8],
+                          reason="task_envelope")
             self.reattach("epoch_mismatch")
 
     def _report_completion(self, result: TaskResult) -> bool:
@@ -446,6 +500,7 @@ class Learner:
         if self.secure_backend is not None:
             # one payload per tensor, in the wire's tensor order (a masking
             # backend derives each tensor's mask from its position)
+            t0 = time.perf_counter()
             opaque = {}
             for name, t in named:
                 t = as_tensor(t).detach().cpu()
@@ -453,6 +508,7 @@ class Learner:
                 opaque[name] = (self.secure_backend.encrypt(values),
                                 TensorSpec(tuple(t.shape), wire_dtype_of(t),
                                            TensorKind.CIPHERTEXT))
+            _M_MASK_GEN.observe(time.perf_counter() - t0)
             return ModelBlob(opaque=opaque).to_bytes()
         if ship_dtype and ship_dtype.lower() == SHIP_INT8Q:
             # int8 absmax: 4x less uplink than f32; the controller
@@ -520,15 +576,28 @@ class Learner:
         if self._shutdown.is_set():
             return
         check_train_task(task)
+        # the dispatch's span context (the controller's round, over gRPC
+        # metadata or in process) travels to the train thread explicitly
+        trace_ctx = _ttrace.current_context()
         with self._task_lock:
             if (self._current_future is not None
                     and not self._current_future.done()):
                 self._cancel.set()
             self._current_future = self._executor.submit(
-                self._run_train_task, task)
+                self._train_and_report, task, trace_ctx)
 
-    def _run_train_task(self, task: TrainTask) -> None:
+    def _train_and_report(self, task: TrainTask, trace_ctx=None) -> None:
         self._cancel.clear()
+        task_sp = _ttrace.span(
+            "learner.train", parent=trace_ctx,
+            attrs={"task_id": task.task_id, "round": task.round_id,
+                   "learner": self.learner_id})
+        with task_sp, task_sp.activate():
+            self._run_train_task(task, task_sp)
+        # the whole task: load, train, dump and report
+        _M_TRAIN_DURATION.observe(task_sp.duration_ms / 1e3)
+
+    def _run_train_task(self, task: TrainTask, task_sp) -> None:
         try:
             # before paying for training: a task of a restarted controller
             # refreshes the registration first
@@ -554,15 +623,25 @@ class Learner:
                     "nothing (trainable_regex): tensors that never ship "
                     "train and are reset on every install", self.learner_id,
                     self._ship_regex)
+            if params.profile_dir:
+                # a subdirectory per learner keeps the captures
+                # attributable (each capture has its own session dir)
+                params = dataclasses.replace(
+                    params, profile_dir=os.path.join(
+                        params.profile_dir,
+                        self.learner_id or f"port_{self.port}"))
             topk = parse_topk(params.ship_dtype) if params.ship_dtype \
                 else None
             wire_ref = None
-            if topk is not None and self.secure_backend is None:
-                incoming, wire_ref = self._load_model(task.model,
-                                                      with_wire=True)
-            else:
-                incoming = self._load_model(task.model)
-            self.model_ops.set_variables(incoming)
+            load_sp = _ttrace.span("learner.load_model",
+                                   attrs={"bytes": len(task.model)})
+            with load_sp:
+                if topk is not None and self.secure_backend is None:
+                    incoming, wire_ref = self._load_model(task.model,
+                                                          with_wire=True)
+                else:
+                    incoming = self._load_model(task.model)
+                self.model_ops.set_variables(incoming)
             grad_offset = scaffold_c = None
             if task.scaffold or task.control:
                 scaffold_c, grad_offset = self._scaffold_offset(task.control)
@@ -570,10 +649,22 @@ class Learner:
                 # the federation stopped running scaffold: a stale variate
                 # must not keep correcting gradients
                 self._scaffold_ci = None
-            t_train = time.perf_counter()
-            out = self.model_ops.train(self.datasets["train"], params,
-                                       cancel_event=self._cancel,
-                                       grad_offset=grad_offset)
+            train_sp = _ttrace.span("learner.train_steps")
+            with train_sp:
+                out = self.model_ops.train(self.datasets["train"], params,
+                                           cancel_event=self._cancel,
+                                           grad_offset=grad_offset)
+                train_sp.set_attr("steps", out.completed_steps)
+                train_sp.set_attr("ms_per_step", round(out.ms_per_step, 3))
+                # the task's wall-clock past its steady-state steps: the
+                # warm-up (allocator, kernel builds), the JAX package's
+                # compile estimate
+                compile_s = max(0.0, train_sp.duration_ms / 1e3
+                                - out.completed_steps * out.ms_per_step / 1e3)
+                train_sp.set_attr("jit_compile_s_est", round(compile_s, 3))
+            if out.completed_steps > 0 and out.ms_per_step > 0:
+                _M_TRAIN_STEP_MS.observe(out.ms_per_step)
+                _M_JIT_COMPILE.observe(compile_s)
             # the chaos ``slow`` fault: stretch this task's wall-clock by
             # the armed factor (a slow survivor, which only deadlines and
             # quorum barriers defend against); one attribute read when off
@@ -581,8 +672,12 @@ class Learner:
             if injector is not None:
                 slow = injector.train_slowdown()
                 if slow > 1.0:
-                    time.sleep(min(300.0, (time.perf_counter() - t_train)
+                    time.sleep(min(300.0, (train_sp.duration_ms / 1e3)
                                    * (slow - 1.0)))
+            device_stats = {}
+            if (params.device_stats and out.completed_steps > 0
+                    and out.ms_per_step > 0):
+                device_stats = self._capture_device_stats(params, out)
             # training moved the local tensors (e.g. normalization
             # statistics): refresh the copies evals and later merges read
             with self._task_lock:
@@ -594,6 +689,8 @@ class Learner:
             if self._cancel.is_set():
                 logger.info("%s: task %s cancelled", self.learner_id,
                             task.task_id)
+                _M_TASKS.inc(outcome="cancelled")
+                task_sp.set_attr("outcome", "cancelled")
                 return
             # TrainOutput.variables already holds the trained weights on
             # the host: ship those rather than copying them out again
@@ -609,11 +706,15 @@ class Learner:
                 trained = privatize_update(
                     trained, _host(incoming), params.dp_clip_norm,
                     params.dp_noise_multiplier)
-            if wire_ref is not None:
-                model_bytes = self._dump_sparse(wire_ref, trained, topk)
-            else:
-                model_bytes = self._dump_model(ship_dtype=params.ship_dtype,
-                                               variables=trained)
+            dump_sp = _ttrace.span("learner.dump_model")
+            with dump_sp:
+                if wire_ref is not None:
+                    model_bytes = self._dump_sparse(wire_ref, trained, topk)
+                else:
+                    model_bytes = self._dump_model(
+                        ship_dtype=params.ship_dtype, variables=trained)
+                dump_sp.set_attr("bytes", len(model_bytes))
+            task_sp.set_attr("uplink_bytes", len(model_bytes))
             result = TaskResult(
                 task_id=task.task_id,
                 learner_id=self.learner_id,
@@ -629,11 +730,36 @@ class Learner:
                 train_metrics=out.train_metrics,
                 epoch_metrics=out.epoch_metrics,
                 control_delta=control_delta,
+                device_stats=device_stats,
             )
             self._report_completion(result)
+            _M_TASKS.inc(outcome="completed")
+            task_sp.set_attr("outcome", "completed")
         except Exception:
+            _M_TASKS.inc(outcome="failed")
+            task_sp.set_attr("outcome", "failed")
             logger.exception("%s: training task %s failed",
                              self.learner_id, task.task_id)
+
+    def _capture_device_stats(self, params, out) -> Dict[str, float]:
+        """One train task's device stats: the step-time EWMA, the MFU
+        from the engine's FLOPs estimate, the device-memory high-water
+        mark. Never raises."""
+        try:
+            if self._device_monitor is None:
+                self._device_monitor = _tprofile.DeviceMonitor(
+                    device=getattr(self.model_ops, "device", None))
+            flops = 0.0
+            step_flops = getattr(self.model_ops, "step_flops", None)
+            if callable(step_flops):
+                flops = float(step_flops(params.batch_size))
+            return self._device_monitor.observe(
+                steps=out.completed_steps, ms_per_step=out.ms_per_step,
+                flops_per_step=flops)
+        except Exception:  # noqa: BLE001 - telemetry never fails a task
+            logger.exception("%s: device-stats capture failed",
+                             self.learner_id)
+            return {}
 
     def evaluate(self, task: EvalTask) -> EvalResult:
         """Blocking community-model evaluation over the requested
@@ -642,17 +768,23 @@ class Learner:
         which tensors the community blob leaves out (a task without them
         clears them)."""
         t0 = time.time()
-        self._check_controller_epoch(task.controller_epoch)
-        self._adopt_local_regex(task.local_tensor_regex)
-        self._ship_regex = task.ship_tensor_regex
-        variables = self._load_model(task.model)
-        evaluations: Dict[str, Dict[str, float]] = {}
-        for name in task.datasets:
-            ds = self.datasets.get(name)
-            if ds is None or len(ds) == 0:
-                continue
-            evaluations[name] = self.model_ops.evaluate(
-                ds, task.batch_size, task.metrics, variables=variables)
+        eval_sp = _ttrace.span(
+            "learner.eval", attrs={"task_id": task.task_id,
+                                   "round": task.round_id,
+                                   "learner": self.learner_id})
+        with eval_sp, eval_sp.activate():
+            self._check_controller_epoch(task.controller_epoch)
+            self._adopt_local_regex(task.local_tensor_regex)
+            self._ship_regex = task.ship_tensor_regex
+            variables = self._load_model(task.model)
+            evaluations: Dict[str, Dict[str, float]] = {}
+            for name in task.datasets:
+                ds = self.datasets.get(name)
+                if ds is None or len(ds) == 0:
+                    continue
+                evaluations[name] = self.model_ops.evaluate(
+                    ds, task.batch_size, task.metrics, variables=variables)
+        _M_EVALS.observe(eval_sp.duration_ms / 1e3)
         return EvalResult(
             task_id=task.task_id,
             learner_id=self.learner_id,

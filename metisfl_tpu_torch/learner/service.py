@@ -3,14 +3,15 @@
 The port's copy of the JAX package's ``learner/service.py``, with its
 service and method names: RunTask (acks at once; training runs on the
 learner's own thread), EvaluateModel (blocking), RecoverMasks (masking
-dropout recovery: the dropped parties' residual), health and shutdown. The
+dropout recovery: the dropped parties' residual), health, ``GetMetrics``
+(the process registry's Prometheus exposition) and shutdown. The
 services are built when the server is constructed and the gRPC server
 only in :meth:`LearnerServer.start`, so the handlers can be driven by
 direct calls where grpc is not installed.
 
 Not ported: ``RunInference`` (the port's ``Learner`` has no infer task
 yet; ROADMAP.md Queue 1 item 5), which answers with an error that names
-the item, and ``GetMetrics`` (item 4).
+the item.
 """
 
 from __future__ import annotations
@@ -30,6 +31,7 @@ from metisfl_tpu_torch.comm.rpc import BytesService, RpcServer
 from metisfl_tpu_torch.config.federation import not_ported
 from metisfl_tpu_torch.controller.service import LEARNER_SERVICE
 from metisfl_tpu_torch.learner.learner import Learner
+from metisfl_tpu_torch.telemetry import render_metrics
 
 logger = logging.getLogger("metisfl_tpu_torch.learner.service")
 
@@ -49,6 +51,7 @@ class LearnerServer:
                 "RunInference": self._infer,
                 "RecoverMasks": self._recover_masks,
                 "GetHealthStatus": self._health,
+                "GetMetrics": self._get_metrics,
                 "ShutDown": self._shutdown_rpc,
             }, role="learner"),
         ]
@@ -76,6 +79,9 @@ class LearnerServer:
             req["round_id"], req["surviving"], req["dropped"],
             req["lengths"])
         return dumps({"corrections": corrections})
+
+    def _get_metrics(self, raw: bytes) -> bytes:
+        return render_metrics().encode("utf-8")
 
     def _health(self, raw: bytes) -> bytes:
         return dumps({"status": "SERVING",

@@ -48,6 +48,7 @@ from metisfl_tpu_torch.models.dataset import ArrayDataset
 from metisfl_tpu_torch.models.generate import generate as _generate
 from metisfl_tpu_torch.models.optimizers import apply_updates, make_optimizer
 from metisfl_tpu_torch.models.zoo.transformer import Dropout, init_params
+from metisfl_tpu_torch.telemetry import profile as _tprofile
 from metisfl_tpu_torch.tensor.pytree import as_tensor, pytree_to_named_tensors
 
 logger = logging.getLogger("metisfl_tpu_torch.models")
@@ -230,7 +231,11 @@ class TorchModelOps:
         """Exactly ``local_steps`` optimizer steps (or ``ceil(local_epochs
         · steps_per_epoch)`` of them) over ``dataset.infinite_batches``.
         ``grad_offset``: optional params-shaped tree ADDED to every step's
-        gradients (SCAFFOLD c − c_i). The module is left in eval mode."""
+        gradients (SCAFFOLD c − c_i). The module is left in eval mode.
+        With ``params_cfg.profile_dir`` set, the chunks from the second
+        step on through ``profile_steps`` steps run under a
+        ``torch.profiler`` capture (telemetry/profile.py
+        ``device_tracer``), one capture per call."""
         steps_per_epoch = max(1, len(dataset) // max(1, params_cfg.batch_size))
         if params_cfg.local_steps > 0:
             total_steps = params_cfg.local_steps
@@ -285,10 +290,17 @@ class TorchModelOps:
         for m in dropouts:
             m.generator = masks
         self.module.train()
+        # the profiler capture: past the first (warm-up) step when there is
+        # more than one, for profile_steps steps, as the JAX engine traces
+        tracer = _tprofile.device_tracer(params_cfg.profile_dir)
+        profile_from = 1 if total_steps > 1 else 0
+        profile_until = profile_from + max(1, params_cfg.profile_steps)
         try:
             while completed < total_steps:
                 if cancel_event is not None and cancel_event.is_set():
                     break
+                if completed >= profile_from:
+                    tracer.start()  # a no-op when inert or captured
                 n = min(chunk, total_steps - completed)
                 t0 = time.perf_counter()
                 pending = [step(*next(stream)) for _ in range(n)]
@@ -309,7 +321,12 @@ class TorchModelOps:
                             or completed == total_steps):
                         self._flush(epoch_losses, epoch_metrics, losses,
                                     accs)
+                if tracer.active and completed >= profile_until:
+                    tracer.stop()
         finally:
+            # exception-safe: a capture left open would wedge the next
+            # task's
+            tracer.stop()
             for m in dropouts:
                 m.generator = None
             self.module.eval()

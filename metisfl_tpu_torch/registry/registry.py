@@ -17,16 +17,18 @@ every aggregated round into a versioned, promotable, servable artifact:
 - :meth:`rollback` restores the previous stable head; :meth:`gc` retires
   and erases versions beyond ``retention``.
 
-The health rules read the source round's ``health`` snapshot. The port
-has no health plane yet (ROADMAP.md Queue 1 item 4), so the controller
-registers every round with ``{}``: the anomaly and divergence rules pass,
-as they do in the JAX package with its health plane off.
+The health rules read the source round's ``health`` snapshot, which the
+controller's learning-health plane takes at round close (on by default,
+as in the JAX package; with it off, or under secure aggregation, the
+snapshot is ``{}`` and the anomaly and divergence rules pass).
 
 One lock guards the metadata; the blob bytes live in the store, which has
 its own. The whole state round-trips through :meth:`export_state` and
 :meth:`restore_state`, so the lineage survives a controller ``--resume``
-inside the controller checkpoint. Not ported: the registry's gauges and
-its ``VersionRegistered``/``Promoted``/``RolledBack`` events (item 4).
+inside the controller checkpoint. Telemetry, the JAX package's: the
+version, promotion and rollback counters, a per-version state gauge, and
+the ``VersionRegistered``/``VersionPromoted``/``VersionRolledBack``
+events.
 """
 
 from __future__ import annotations
@@ -38,9 +40,24 @@ import time
 from dataclasses import asdict, dataclass, field
 from typing import Any, Dict, List, Optional, Tuple
 
+from metisfl_tpu_torch import telemetry as _tel
 from metisfl_tpu_torch.store import make_store
+from metisfl_tpu_torch.telemetry import events as _tevents
+from metisfl_tpu_torch.telemetry import metrics as _tmetrics
 
 logger = logging.getLogger("metisfl_tpu_torch.registry")
+
+_REG = _tmetrics.registry()
+_M_VERSIONS = _REG.counter(
+    _tel.M_REGISTRY_VERSIONS_TOTAL, "Model versions registered")
+_M_STATE = _REG.gauge(
+    _tel.M_REGISTRY_VERSION_STATE,
+    "Per-version lifecycle state (2 = stable head, 1 = candidate head, "
+    "0 = retained, series removed at GC)", ("version",))
+_M_PROMOTIONS = _REG.counter(
+    _tel.M_REGISTRY_PROMOTIONS_TOTAL, "Versions promoted to stable")
+_M_ROLLBACKS = _REG.counter(
+    _tel.M_REGISTRY_ROLLBACKS_TOTAL, "Stable-channel rollbacks")
 
 CHANNEL_CANDIDATE = "candidate"
 CHANNEL_STABLE = "stable"
@@ -122,6 +139,10 @@ class ModelRegistry:
                 # superseded, never promoted: plain retained version now
                 self._versions[previous_candidate].channel = ""
         self._store.insert(self._blob_key(version), bytes(blob))
+        _M_VERSIONS.inc()
+        self._refresh_state_gauges()
+        _tevents.emit(_tevents.VersionRegistered, version=version,
+                      round=int(round_id), parent=info.parent)
         logger.info("registered model version v%d (round %d, parent v%d)",
                     version, round_id, info.parent)
         self.gc()
@@ -244,6 +265,12 @@ class ModelRegistry:
             info.channel = CHANNEL_STABLE
             info.gate = {"passed": True, "reasons": [],
                          "forced": bool(force)}
+            round_id = info.round
+        _M_PROMOTIONS.inc()
+        self._refresh_state_gauges()
+        _tevents.emit(_tevents.VersionPromoted, version=version,
+                      round=round_id, previous_stable=previous,
+                      forced=bool(force))
         logger.info("promoted model version v%d to stable (was v%d)",
                     version, previous)
         self.gc()
@@ -264,6 +291,10 @@ class ModelRegistry:
             self._heads[CHANNEL_STABLE] = target
             self._previous_stable = 0  # one level: no rollback ping-pong
             info.channel = CHANNEL_STABLE
+        _M_ROLLBACKS.inc()
+        self._refresh_state_gauges()
+        _tevents.emit(_tevents.VersionRolledBack, version=target,
+                      rolled_back_from=current)
         logger.warning("rolled stable back to v%d (was v%d)", target,
                        current)
         return info
@@ -287,6 +318,7 @@ class ModelRegistry:
                 del self._versions[v]
         for v in retire:
             self._store.erase([self._blob_key(v)])
+            _M_STATE.remove(version=f"v{v}")
             logger.info("registry GC retired model version v%d", v)
         return retire
 
@@ -367,10 +399,20 @@ class ModelRegistry:
         for key, blob in (state.get("blobs") or {}).items():
             if blob:
                 self._store.insert(self._blob_key(int(key)), bytes(blob))
+        self._refresh_state_gauges()
         logger.info("restored registry: %d version(s), stable=v%d, "
                     "candidate=v%d", len(self._versions),
                     self._heads.get(CHANNEL_STABLE, 0),
                     self._heads.get(CHANNEL_CANDIDATE, 0))
+
+    def _refresh_state_gauges(self) -> None:
+        with self._lock:
+            stable = self._heads.get(CHANNEL_STABLE, 0)
+            candidate = self._heads.get(CHANNEL_CANDIDATE, 0)
+            versions = list(self._versions)
+        for v in versions:
+            _M_STATE.set(2 if v == stable else 1 if v == candidate else 0,
+                         version=f"v{v}")
 
     def shutdown(self) -> None:
         self._store.shutdown()

@@ -6,8 +6,9 @@ scheduled learners the aggregation uses ALL active learners' latest models;
 otherwise exactly the scheduled set. :class:`ChurnTracker` scores each
 learner's churn (an EWMA of leave, flap-rejoin and failed-dispatch events)
 and optionally quarantines flapping learners, which cohort sampling
-consults. The health plane's advisory scores are not ported (ROADMAP.md
-Queue 1 item 4).
+consults. The selector records the health plane's advisory divergence
+scores (``telemetry.health.advisory``) without letting them change its
+choice.
 """
 
 from __future__ import annotations
@@ -20,8 +21,17 @@ from typing import Dict, List, Optional, Sequence
 class ScheduledCardinalitySelector:
     name = "scheduled_cardinality"
 
-    def select(self, scheduled: Sequence[str],
-               active: Sequence[str]) -> List[str]:
+    def __init__(self):
+        # the latest advisory divergence scores the controller handed over
+        # (telemetry.health.advisory): recorded for operators and tests;
+        # the choice is deliberately unaffected by them
+        self.last_advisory_scores: Optional[Dict[str, float]] = None
+
+    def select(self, scheduled: Sequence[str], active: Sequence[str],
+               advisory_scores: Optional[Dict[str, float]] = None,
+               ) -> List[str]:
+        if advisory_scores is not None:
+            self.last_advisory_scores = dict(advisory_scores)
         if len(scheduled) < 2:
             return list(active)
         return [lid for lid in scheduled if lid in set(active)]

@@ -16,6 +16,10 @@ request is dropped, and every reply reports the version that decoded it.
 Greedy only by contract; output equals a solo
 :func:`metisfl_tpu_torch.models.generate.generate` call at the same
 ``max_len``.
+
+Telemetry, the JAX package's: queue depth, active slots, emitted tokens
+and the tokens/s EWMA per channel, and a ``decode.slot`` span per request
+(enqueue to retire) parented on the submitter's ``serving.generate``.
 """
 
 from __future__ import annotations
@@ -29,9 +33,30 @@ from typing import Any, Dict, List, Optional
 
 import numpy as np
 
+from metisfl_tpu_torch import telemetry as _tel
 from metisfl_tpu_torch.models.generate import SlotDecoder
+from metisfl_tpu_torch.telemetry import metrics as _tmetrics
+from metisfl_tpu_torch.telemetry import trace as _ttrace
 
 logger = logging.getLogger("metisfl_tpu_torch.serving")
+
+_REG = _tmetrics.registry()
+_M_DECODE_QUEUE = _REG.gauge(
+    _tel.M_SERVING_DECODE_QUEUE_DEPTH,
+    "Generation requests queued for a free decode slot, per channel "
+    "(series removed when the channel's decode engine closes)",
+    ("channel",))
+_M_DECODE_SLOTS = _REG.gauge(
+    _tel.M_SERVING_DECODE_ACTIVE_SLOTS,
+    "Decode slots currently occupied by in-flight sequences, per channel",
+    ("channel",))
+_M_DECODE_TOKENS = _REG.counter(
+    _tel.M_SERVING_DECODE_TOKENS_TOTAL,
+    "Tokens emitted by the continuous-batching decode loop", ("channel",))
+_M_DECODE_TPS = _REG.gauge(
+    _tel.M_SERVING_DECODE_TOKENS_PER_SEC,
+    "EWMA decode throughput (tokens/s across all active slots), per "
+    "channel", ("channel",))
 
 PAD_ID = 0
 
@@ -39,7 +64,8 @@ PAD_ID = 0
 class _GenPending:
     """One queued generation request + the future its caller blocks on."""
 
-    __slots__ = ("prompt", "max_new", "eos_id", "future")
+    __slots__ = ("prompt", "max_new", "eos_id", "future", "enqueued_at",
+                 "admitted_step", "trace_ctx")
 
     def __init__(self, prompt: np.ndarray, max_new: int,
                  eos_id: Optional[int]):
@@ -47,6 +73,10 @@ class _GenPending:
         self.max_new = int(max_new)
         self.eos_id = eos_id
         self.future: "futures.Future" = futures.Future()
+        self.enqueued_at = time.perf_counter()
+        self.admitted_step = -1
+        # the submitter's span context: slots retire on the loop's thread
+        self.trace_ctx = _ttrace.current_context()
 
 
 class _Slot:
@@ -127,6 +157,7 @@ class ContinuousBatcher:
                                                       "closed"))
                 return req.future
             self._queue.append(req)
+            _M_DECODE_QUEUE.set(len(self._queue), channel=self.channel)
             self._cv.notify()
         return req.future
 
@@ -149,6 +180,7 @@ class ContinuousBatcher:
         while free and self._queue:
             admitted.append(self._queue.popleft())
             free -= 1
+        _M_DECODE_QUEUE.set(len(self._queue), channel=self.channel)
         return admitted
 
     def _retire(self, idx: int, slot: _Slot) -> None:
@@ -156,6 +188,16 @@ class ContinuousBatcher:
         req = slot.req
         out = np.full((req.max_new,), PAD_ID, np.int32)
         out[: len(slot.tokens)] = slot.tokens
+        if req.trace_ctx is not None:
+            # enqueue to retire, parented on the submitter's
+            # serving.generate span: the queue wait and the slot's occupancy
+            _ttrace.event(
+                "decode.slot", time.perf_counter() - req.enqueued_at,
+                parent=req.trace_ctx,
+                attrs={"channel": self.channel,
+                       "admitted_step": req.admitted_step,
+                       "retired_step": self.steps,
+                       "tokens": len(slot.tokens)})
         if not req.future.done():
             req.future.set_result((out, slot.version))
 
@@ -198,8 +240,10 @@ class ContinuousBatcher:
         for req in admitted:
             idx = next(i for i, s in enumerate(self._slots) if s is None)
             first = self._decoder.prefill(model, idx, req.prompt)
+            req.admitted_step = self.steps
             slot = _Slot(req, first, int(req.prompt.size), version)
             self.tokens_emitted += 1
+            _M_DECODE_TOKENS.inc(channel=self.channel)
             if ((req.eos_id is not None and first == req.eos_id)
                     or req.max_new == 1):
                 self._retire(idx, slot)
@@ -207,6 +251,7 @@ class ContinuousBatcher:
                 self._slots[idx] = slot
         active = [(i, s) for i, s in enumerate(self._slots)
                   if s is not None]
+        _M_DECODE_SLOTS.set(len(active), channel=self.channel)
         if not active:
             return
         # 2. one decode step for the whole in-flight batch (free rows carry
@@ -221,12 +266,14 @@ class ContinuousBatcher:
         step_s = max(time.perf_counter() - t0, 1e-9)
         self._tps_ewma = (0.8 * self._tps_ewma
                           + 0.2 * (len(active) / step_s))
+        _M_DECODE_TPS.set(round(self._tps_ewma, 3), channel=self.channel)
         for i, s in active:
             tok = int(nxt[i])
             s.tokens.append(tok)
             s.last_tok = tok
             s.position += 1
             self.tokens_emitted += 1
+            _M_DECODE_TOKENS.inc(channel=self.channel)
             done = (len(s.tokens) >= s.req.max_new
                     or (s.req.eos_id is not None and tok == s.req.eos_id))
             if done:
@@ -260,3 +307,6 @@ class ContinuousBatcher:
             self._closed = True
             self._cv.notify_all()
         self._worker.join(timeout=60.0)
+        _M_DECODE_QUEUE.remove(channel=self.channel)
+        _M_DECODE_SLOTS.remove(channel=self.channel)
+        _M_DECODE_TPS.remove(channel=self.channel)

@@ -25,7 +25,11 @@ The torch side of the JAX package's ``serving/gateway.py``:
   process) and :class:`ControllerRegistrySource` (a ``ControllerClient``,
   which redials a promoted standby).
 
-Metrics, events and trace spans join with the telemetry slice.
+Telemetry, the JAX package's: requests by served channel, request
+latency, batch rows, queue depth, the installed version and swaps per
+channel, ``ServingSwapped`` events, and ``serving.predict``/
+``serving.generate`` spans. The locks are plain ``threading`` locks, what
+the JAX package hands out with ``telemetry.prof.enabled=false``.
 """
 
 from __future__ import annotations
@@ -40,11 +44,37 @@ from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 
+from metisfl_tpu_torch import telemetry as _tel
 from metisfl_tpu_torch.models.ops import resolve_device
 from metisfl_tpu_torch.serving.decode import ContinuousBatcher
+from metisfl_tpu_torch.telemetry import events as _tevents
+from metisfl_tpu_torch.telemetry import metrics as _tmetrics
+from metisfl_tpu_torch.telemetry import trace as _ttrace
 from metisfl_tpu_torch.tensor.pytree import ModelBlob, pytree_to_named_tensors
 
 logger = logging.getLogger("metisfl_tpu_torch.serving")
+
+_REG = _tmetrics.registry()
+_M_REQUESTS = _REG.counter(
+    _tel.M_SERVING_REQUESTS_TOTAL, "Inference requests by routed channel",
+    ("channel",))
+_M_LATENCY = _REG.histogram(
+    _tel.M_SERVING_REQUEST_LATENCY_SECONDS,
+    "End-to-end request latency (enqueue -> reply)")
+_M_BATCH_ROWS = _REG.histogram(
+    _tel.M_SERVING_BATCH_ROWS,
+    "Rows per executed micro-batch (occupancy of the max_batch bucket)",
+    buckets=(1, 2, 4, 8, 16, 32, 64, 128, 256, 512, 1024))
+_M_VERSION = _REG.gauge(
+    _tel.M_SERVING_MODEL_VERSION,
+    "Registry version currently installed per channel", ("channel",))
+_M_SWAPS = _REG.counter(
+    _tel.M_SERVING_SWAPS_TOTAL, "Hot-swaps by channel", ("channel",))
+_M_QUEUE_DEPTH = _REG.gauge(
+    _tel.M_SERVING_QUEUE_DEPTH,
+    "Requests currently queued per micro-batcher channel — the occupancy "
+    "signal the round cost profile and fleet scale-out key on (series "
+    "removed when the channel's batcher closes)", ("channel",))
 
 # registry channel names (the JAX package's registry/registry.py)
 CHANNEL_CANDIDATE = "candidate"
@@ -111,6 +141,7 @@ class MicroBatcher:
                     RuntimeError("batcher closed"))
                 return pending.future
             self._queue.append(pending)
+            _M_QUEUE_DEPTH.set(len(self._queue), channel=self.name)
             self._cv.notify()
         return pending.future
 
@@ -142,6 +173,7 @@ class MicroBatcher:
                 item = self._queue.pop(0)
                 rows += len(item.rows)
                 batch.append(item)
+            _M_QUEUE_DEPTH.set(len(self._queue), channel=self.name)
             return batch
 
     def _loop(self) -> None:
@@ -165,6 +197,7 @@ class MicroBatcher:
     def _execute(self, batch: List[_Pending]) -> None:
         try:
             rows = np.concatenate([p.rows for p in batch], axis=0)
+            _M_BATCH_ROWS.observe(len(rows))
             outs = self._run_batch(rows)
         except Exception as exc:  # noqa: BLE001 - surfaced per request
             for p in batch:
@@ -191,6 +224,8 @@ class MicroBatcher:
             self._closed = True
             self._cv.notify_all()
         self._worker.join(timeout=30.0)
+        # a closed channel's depth series must not linger at its last value
+        _M_QUEUE_DEPTH.remove(channel=self.name)
 
 
 # --------------------------------------------------------------------- #
@@ -287,7 +322,11 @@ class ServingGateway:
             # in-flight generations finish on the pair they captured,
             # queued ones drain onto this one (serving/decode.py)
             decoder.swap(int(version), model)
+        _M_VERSION.set(int(version), channel=channel)
         if previous != version:
+            _M_SWAPS.inc(channel=channel)
+            _tevents.emit(_tevents.ServingSwapped, channel=channel,
+                          version=int(version), previous=previous)
             logger.info("serving %s hot-swapped to v%d (was v%d)",
                         channel, version, previous)
 
@@ -300,6 +339,7 @@ class ServingGateway:
             # channel still finish on their captured pair
             decoder.close()
         if gone is not None:
+            _M_VERSION.remove(channel=channel)
             logger.info("serving %s uninstalled (was v%d)", channel,
                         gone[0])
 
@@ -417,11 +457,18 @@ class ServingGateway:
                 timeout_s: float = 60.0) -> Tuple[np.ndarray, int, str]:
         """Route, micro-batch, and run one request. Returns
         ``(outputs, served version, channel)``."""
+        t0 = time.perf_counter()
         channel = self._route(key)
-        outs, (version, served_channel) = self._batcher_for(
-            channel).submit(np.asarray(x)).result(timeout=timeout_s)
+        # the batcher runs on its own thread: the span brackets submit to
+        # result on this one, the request's true wait
+        with _ttrace.span("serving.predict", attrs={"channel": channel}):
+            outs, (version, served_channel) = self._batcher_for(
+                channel).submit(np.asarray(x)).result(timeout=timeout_s)
         with self._lock:
             self._requests += 1
+        # labelled by what served it (a canary degraded to stable)
+        _M_REQUESTS.inc(channel=served_channel)
+        _M_LATENCY.observe(time.perf_counter() - t0)
         return outs, version, served_channel
 
     def _decoder_for(self, channel: str) -> ContinuousBatcher:
@@ -451,22 +498,30 @@ class ServingGateway:
         """Route one generation request through the continuous-batching
         decode loop. Returns ``(tokens, served version, channel)``: tokens
         are the (max_new_tokens,) greedy continuation, pad after eos."""
+        t0 = time.perf_counter()
         channel = self._route(key)
-        try:
-            tokens, version = self._decoder_for(channel).submit(
-                prompt, max_new_tokens, eos_id=eos_id).result(
-                    timeout=timeout_s)
-        except RuntimeError:
-            # the candidate was uninstalled between routing and decode:
-            # degrade the canary request to stable, predict()'s rule
-            if channel != CHANNEL_CANDIDATE:
-                raise
-            channel = self._route("")
-            tokens, version = self._decoder_for(channel).submit(
-                prompt, max_new_tokens, eos_id=eos_id).result(
-                    timeout=timeout_s)
+        # activated: the decode loop retires slots on its own thread, so
+        # the decoder's submit captures this context for its slot span
+        gen_sp = _ttrace.span("serving.generate", attrs={"channel": channel})
+        with gen_sp, gen_sp.activate():
+            try:
+                tokens, version = self._decoder_for(channel).submit(
+                    prompt, max_new_tokens, eos_id=eos_id).result(
+                        timeout=timeout_s)
+            except RuntimeError:
+                # the candidate was uninstalled between routing and
+                # decode: degrade the canary request to stable,
+                # predict()'s rule
+                if channel != CHANNEL_CANDIDATE:
+                    raise
+                channel = self._route("")
+                tokens, version = self._decoder_for(channel).submit(
+                    prompt, max_new_tokens, eos_id=eos_id).result(
+                        timeout=timeout_s)
         with self._lock:
             self._requests += 1
+        _M_REQUESTS.inc(channel=channel)
+        _M_LATENCY.observe(time.perf_counter() - t0)
         return tokens, version, channel
 
     # -- status --------------------------------------------------------- #

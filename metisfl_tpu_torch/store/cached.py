@@ -10,10 +10,9 @@ select reads the mmapped file.
 Concurrency: lineage mutations are serialized per learner by the base
 class (store/base.py); the LRU spans learners, so it takes its OWN lock
 (``_cache_lock``, always acquired AFTER a learner lock, never before —
-no ordering cycle). The JAX package's cache gauges (resident bytes and
-entries, hit and miss counters in its telemetry registry) are not ported
-(ROADMAP.md Queue 1 item 4); ``cache_hits`` and ``cache_misses`` count
-here.
+no ordering cycle). The cache publishes the JAX package's gauges and
+counters (resident bytes and entries, hits and misses); ``cache_hits``
+and ``cache_misses`` count on the instance too.
 """
 
 from __future__ import annotations
@@ -25,8 +24,20 @@ from typing import Any, List, Tuple
 import numpy as np
 import torch
 
+from metisfl_tpu_torch import telemetry as _tel
 from metisfl_tpu_torch.store.base import EvictionPolicy
 from metisfl_tpu_torch.store.disk import _MISS, DiskModelStore
+from metisfl_tpu_torch.telemetry import metrics as _tmetrics
+
+_REG = _tmetrics.registry()
+_M_CACHE_HITS = _REG.counter(
+    _tel.M_STORE_CACHE_HITS_TOTAL, "Model-store cache hits")
+_M_CACHE_MISSES = _REG.counter(
+    _tel.M_STORE_CACHE_MISSES_TOTAL, "Model-store cache misses (disk reads)")
+_M_CACHE_BYTES = _REG.gauge(
+    _tel.M_STORE_CACHE_RESIDENT_BYTES, "Decoded models resident in the cache")
+_M_CACHE_ENTRIES = _REG.gauge(
+    _tel.M_STORE_CACHE_ENTRIES, "Models resident in the cache")
 
 
 def _value_nbytes(value: Any) -> int:
@@ -82,12 +93,19 @@ class CachedDiskStore(DiskModelStore):
             while self._cached_total > self.cache_bytes and self._cache:
                 _, (evicted_bytes, _) = self._cache.popitem(last=False)
                 self._cached_total -= evicted_bytes
+            self._publish_gauges()
+
+    def _publish_gauges(self) -> None:
+        """Call with ``_cache_lock`` held."""
+        _M_CACHE_BYTES.set(self._cached_total)
+        _M_CACHE_ENTRIES.set(len(self._cache))
 
     def _cache_drop_learner(self, learner_id: str) -> None:
         with self._cache_lock:
             for key in [k for k in self._cache if k[0] == learner_id]:
                 nbytes, _ = self._cache.pop(key)
                 self._cached_total -= nbytes
+            self._publish_gauges()
 
     # -- DiskModelStore overrides -----------------------------------------
     def _append(self, learner_id: str, model: Any) -> int:
@@ -103,8 +121,10 @@ class CachedDiskStore(DiskModelStore):
             if cached is not None:
                 self._cache.move_to_end((learner_id, seq))
                 self.cache_hits += 1
+                _M_CACHE_HITS.inc()
                 return cached[1]
             self.cache_misses += 1
+            _M_CACHE_MISSES.inc()
             return _MISS
 
     def _cache_store(self, learner_id: str, seq: int, value: Any) -> None:
@@ -135,3 +155,4 @@ class CachedDiskStore(DiskModelStore):
                 dropped = self._cache.pop((learner_id, seq), None)
                 if dropped is not None:
                     self._cached_total -= dropped[0]
+            self._publish_gauges()

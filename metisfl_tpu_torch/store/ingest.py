@@ -26,8 +26,10 @@ Semantics:
   before the write, so a queued write whose learner left in between is
   dropped.
 
-The JAX package's trace and lock-profiling spans around the write are
-not ported (ROADMAP.md Queue 1 item 4).
+Each landed write records a ``round.store_insert`` span parented on the
+uplink that queued it (the span context travels with the queue entry).
+The JAX package's lock profiling around the queue is not ported (ROADMAP.md
+Queue 1 item 4b).
 """
 
 from __future__ import annotations
@@ -37,6 +39,8 @@ import threading
 import time
 from concurrent.futures import ThreadPoolExecutor
 from typing import Any, Callable, Dict, List, Optional, Tuple
+
+from metisfl_tpu_torch.telemetry import trace as _trace
 
 from metisfl_tpu_torch.store.base import ModelStore
 
@@ -77,6 +81,9 @@ class IngestPipeline:
         controller applies the result's metadata there, so a failed
         (fail-soft) write never pairs fresh metadata with the learner's
         older stored model."""
+        # the uplink's span context, captured on the enqueueing thread:
+        # the worker's contextvars are empty
+        trace_ctx = _trace.current_context()
         with self._cond:
             if self._closed:
                 raise RuntimeError("ingest pipeline is shut down")
@@ -87,7 +94,8 @@ class IngestPipeline:
             self._pending[learner_id] = self._pending.get(learner_id, 0) + 1
             self._pending_total += 1
         try:
-            self._pool.submit(self._write, learner_id, model, on_success)
+            self._pool.submit(self._write, learner_id, model, on_success,
+                              trace_ctx)
         except BaseException:
             # a shutdown racing this submit: roll the counters back so
             # drain() fences don't wait on a write that will never run
@@ -106,7 +114,8 @@ class IngestPipeline:
 
     # -- worker ------------------------------------------------------------
     def _write(self, learner_id: str, model: Any,
-               on_success: Optional[Callable[[float], None]]) -> None:
+               on_success: Optional[Callable[[float], None]],
+               trace_ctx=None) -> None:
         t0 = time.perf_counter()
         ok = True
         try:
@@ -126,6 +135,10 @@ class IngestPipeline:
                 self._last_errors.append(f"{learner_id}: {exc!r}")
                 del self._last_errors[:-8]
         ms = (time.perf_counter() - t0) * 1e3
+        if ok and trace_ctx is not None:
+            # the write's span, parented on the uplink that queued it
+            _trace.event("round.store_insert", ms / 1e3, parent=trace_ctx,
+                         attrs={"learner": learner_id, "ingest": True})
         if ok:
             # success callbacks run BEFORE the pending decrement so a
             # drain() fence returning implies their effects are visible

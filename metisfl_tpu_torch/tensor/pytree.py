@@ -26,6 +26,9 @@ from typing import Dict, Iterator, List, Tuple
 import numpy as np
 import torch
 
+from metisfl_tpu_torch import telemetry as _tel
+from metisfl_tpu_torch.telemetry import metrics as _tmetrics
+
 from metisfl_tpu_torch.tensor.spec import (
     DType,
     TensorKind,
@@ -46,6 +49,13 @@ _MAGIC = b"MTFB"  # metisfl-tpu federated blob
 # is zero and never verified (accepted only with allow_nocrc=True)
 _BLOB_VERSION = 2
 _BLOB_VERSION_NOCRC = 3
+
+# Payloads rejected by the integrity framing (length or checksum). The RPC
+# layer surfaces the ValueError as INVALID_ARGUMENT; the controller's
+# malformed-result path drops the contribution without stalling the round.
+_M_CORRUPT = _tmetrics.registry().counter(
+    _tel.M_CORRUPT_PAYLOADS_TOTAL,
+    "Model blobs rejected by length/checksum integrity framing")
 
 _TORCH_TO_WIRE = {
     torch.float32: DType.F32,
@@ -288,6 +298,7 @@ def blob_entries(buf, allow_nocrc: bool = False
     version, count = struct.unpack_from("<BI", view, 4)
     offset = 9
     if version == _BLOB_VERSION_NOCRC and not allow_nocrc:
+        _M_CORRUPT.inc()
         raise ValueError(
             "unchecksummed v3 model blob rejected outside the store "
             "read path (wire payloads must carry the v2 crc framing)")
@@ -295,15 +306,18 @@ def blob_entries(buf, allow_nocrc: bool = False
         try:
             body_len, crc = struct.unpack_from("<QI", view, offset)
         except struct.error:
+            _M_CORRUPT.inc()
             raise ValueError("truncated model blob header") from None
         offset += 12
         body = view[offset:]
         if len(body) != body_len:
+            _M_CORRUPT.inc()
             raise ValueError(
                 f"model blob length mismatch (framed {body_len} body "
                 f"bytes, have {len(body)}) — truncated or spliced "
                 "payload")
         if version == _BLOB_VERSION and zlib.crc32(body) != crc:
+            _M_CORRUPT.inc()
             raise ValueError(
                 "model blob checksum mismatch — corrupt payload "
                 "rejected before deserialization")

@@ -109,10 +109,8 @@ def _harness(tmp_path, tag, rule="fedavg", dispatched=None, jax=False,
             CheckpointConfig as JaxCheckpointConfig,
             EvalConfig as JaxEvalConfig,
             FederationConfig as JaxFederationConfig,
-            HealthConfig as JaxHealthConfig,
             ModelStoreConfig as JaxModelStoreConfig,
             RegistryConfig as JaxRegistryConfig,
-            TelemetryConfig as JaxTelemetryConfig,
         )
         from metisfl_tpu.controller.core import Controller as JaxController
 
@@ -123,11 +121,7 @@ def _harness(tmp_path, tag, rule="fedavg", dispatched=None, jax=False,
             eval=JaxEvalConfig(**kw["eval"]),
             model_store=JaxModelStoreConfig(**kw["model_store"]),
             checkpoint=JaxCheckpointConfig(**kw["checkpoint"]),
-            registry=JaxRegistryConfig(enabled=registry, retention=3),
-            # the port has no health plane yet: its registry registers
-            # every round with the {} the JAX one sees with the plane off
-            telemetry=JaxTelemetryConfig(
-                health=JaxHealthConfig(enabled=False)))
+            registry=JaxRegistryConfig(enabled=registry, retention=3))
         return JaxController(
             config, lambda record: _RecordingProxy(record, dispatched))
     config = FederationConfig(
@@ -433,10 +427,10 @@ def test_both_controllers_checkpoint_the_same_state(tmp_path, rule):
         finally:
             ctrl.shutdown()
     port, jax = states
-    # the JAX package's planes the port has not ported write no key here
-    jax.pop("health", None)
-    jax.pop("metrics_budget", None)
     assert set(port) == set(jax)
+    # the health plane's state (scores, last uplink summaries, the latest
+    # round snapshot) is the JAX controller's, bit for bit
+    assert port["health"] == jax["health"]
     assert _normalized(port) == _normalized(jax)
     assert port["community_blob"] == jax["community_blob"]
     assert port["registry"]["blobs"] == jax["registry"]["blobs"]

@@ -69,7 +69,17 @@ def test_every_module_imports_without_jax():
             "metisfl_tpu_torch.controller.wal",
             "metisfl_tpu_torch.registry",
             "metisfl_tpu_torch.registry.registry",
-            "metisfl_tpu_torch.driver.ha_smoke"} <= set(names)
+            "metisfl_tpu_torch.driver.ha_smoke",
+            "metisfl_tpu_torch.telemetry",
+            "metisfl_tpu_torch.telemetry.__main__",
+            "metisfl_tpu_torch.telemetry.metrics",
+            "metisfl_tpu_torch.telemetry.trace",
+            "metisfl_tpu_torch.telemetry.events",
+            "metisfl_tpu_torch.telemetry.health",
+            "metisfl_tpu_torch.telemetry.postmortem",
+            "metisfl_tpu_torch.telemetry.httpd",
+            "metisfl_tpu_torch.telemetry.profile",
+            "metisfl_tpu_torch.stats"} <= set(names)
     code = (
         "import importlib, json, sys\n"
         f"for name in {names!r}:\n"

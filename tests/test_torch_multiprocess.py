@@ -455,9 +455,12 @@ def test_what_is_not_ported_is_refused_before_any_process_starts(tmp_path):
     assert isinstance(picked, SSHLauncher) and picked.host == "node-7"
     assert isinstance(remote._launcher_for("localhost"), LocalLauncher)
     assert remote.process_exit_codes() == {}
-    for refused in (remote.serving_client, remote.collect_traces):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            refused()
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        remote.serving_client()
+    # trace collection is ported: before any process wrote a span there is
+    # nothing to collect, and no post-mortem bundle
+    assert remote.collect_traces() is None
+    assert remote.collect_postmortems() == []
     cfg = tmp_path / "federation_config.bin"
     cfg.write_bytes(FederationConfig().to_wire())
     # --standby and --resume are ported: each refuses a config without

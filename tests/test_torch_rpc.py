@@ -205,8 +205,12 @@ def test_list_methods(port_server):
     client = RpcClient("127.0.0.1", port, "test.Echo")
     reply = json.loads(client.call("ListMethods", b""))
     assert reply["service"] == "test.Echo" and reply["role"] == "test"
+    # a role-carrying service also answers CollectTelemetry, with the
+    # stub of a JAX server whose telemetry fabric is off
     assert {m["name"] for m in reply["methods"]} == {
-        "Echo", "Boom", "Bad", "ListMethods"}
+        "Echo", "Boom", "Bad", "ListMethods", "CollectTelemetry"}
+    assert json.loads(client.call("CollectTelemetry", b"")) == {
+        "enabled": False}
     client.close()
 
 
