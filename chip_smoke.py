@@ -89,7 +89,20 @@ It drives the port only (it imports no jax and nothing of the JAX package):
    community model is held bit for bit against a re-fold of its round's
    uplinks, K1-K3 must launch 12/8/8 times per LlamaLite round across the
    learner processes, the CNN's accuracy must rise, and every process
-   must exit 0 after ``shutdown_federation``. Where grpc or cloudpickle is not
+   must exit 0 after ``shutdown_federation``. The LlamaLite federation
+   also arms the serving fleet (two gateway replica processes and the
+   router, booted beside the learners; ``fleet_checks``): once both
+   replicas installed the registry's stable version, (a) 8 concurrent
+   Predicts of 256 tokens through ``serving_client()`` on keys each
+   replica owns, within 0.1 of a dense forward of the stable blob and
+   timed beside an in-process gateway, (b) each replica's K1 launches =
+   ``CUT_DEPTH`` x its forwards on the card, (c) two Generates of 32
+   tokens equal to the in-process gateway's greedy decode and a solo
+   batch-1 decode, (d) a replica
+   SIGKILLed under a burst of Predicts with no request failing, the
+   router's retries counted, the driver's relaunch re-pinned to stable,
+   and (e) ``run_inference`` on a learner within 0.1 of the dense path
+   with its K1 launches counted. Where grpc or cloudpickle is not
    installed it prints ``multiprocess: not run: ...`` and runs the rounds
    through the port's gRPC services' handlers, called directly, instead;
 8. store: (a) the LlamaLite round (depth ``CUT_DEPTH``) in process on
@@ -207,7 +220,9 @@ It drives the port only (it imports no jax and nothing of the JAX package):
 It prints a ``{"federation": {...}}`` line (round walls and their split,
 ms per step, blob bytes, launches), a ``{"multiprocess": {...}}`` line
 (the same with a process per learner, and each process's peak device
-memory), ``{"wide_heads": ...}``, ``{"store": ...}``, ``{"rules": ...}``,
+memory), a ``{"serving_fleet": ...}`` line (the serving processes' boot
+seconds, promotion to install, the Predicts through the router beside the
+in-process gateway, Generate tokens/s, the kill), ``{"wide_heads": ...}``, ``{"store": ...}``, ``{"rules": ...}``,
 ``{"tiers_secure": ...}``, ``{"uplinks": ...}``, ``{"rounds": ...}`` and
 ``{"failover": ...}``, ``{"telemetry_wire": ...}`` and ``{"telemetry":
 ...}`` lines, a ``{"setup": ...}`` line (the script's seconds outside the
@@ -1998,13 +2013,20 @@ def mp_recipe(kind, x, y, test_x, test_y, seed, device, out_dir, gate,
     that round 0's cohort is every learner, and with ``hold`` every task
     after the first waits for that file too. ``kind``: ``cnn``, ``cnn0``
     (the CNN without dropout: a round re-run after a failover draws the
-    engine's next dropout stream) or ``llama`` (at ``depth``)."""
+    engine's next dropout stream) or ``llama`` (at ``depth``). Its
+    ``infer`` calls (the learner's RunInference) count their forwards and
+    K1 launches apart. Run by a serving gateway (``python -m
+    metisfl_tpu_torch.serving``, which uses only the engine) it records
+    nothing of the learner's: after each ``infer`` call (each micro-batch's
+    forward) it rewrites ``serving_<pid>.json`` in ``out_dir`` with the
+    process's device, forwards and K1 launches."""
 
     def recipe():
         import atexit
         import copy
         import json
         import os
+        import sys
         import time
 
         import numpy as np
@@ -2031,8 +2053,35 @@ def mp_recipe(kind, x, y, test_x, test_y, seed, device, out_dir, gate,
                                heads=HEADS, kv_heads=KV_HEADS,
                                dtype=torch.bfloat16, use_flash=True)
         ops = TorchModelOps(module, rng_seed=seed, device=device)
+        infer = ops.infer
+        counts = {"forwards": 0, "k1": 0}
+
+        def counted_infer(*args, **kwargs):
+            k1, forwards = flash_attention_fwd.launches, ops.forward_calls
+            out = infer(*args, **kwargs)
+            counts["forwards"] += ops.forward_calls - forwards
+            counts["k1"] += flash_attention_fwd.launches - k1
+            return out
+
+        ops.infer = counted_infer
+        if os.path.basename(os.path.dirname(sys.argv[0])) == "serving":
+            path = os.path.join(out_dir, f"serving_{os.getpid()}.json")
+
+            def serving_infer(*args, **kwargs):
+                out = counted_infer(*args, **kwargs)
+                with open(path + ".tmp", "w") as f:
+                    json.dump({"pid": os.getpid(), "device": str(
+                        next(module.parameters()).device),
+                        "launches": flash_attention_fwd.launches,
+                        **counts}, f)
+                os.replace(path + ".tmp", path)
+                return out
+
+            ops.infer = serving_infer
+            return (ops, ArrayDataset(x, y, seed=seed), None,
+                    ArrayDataset(test_x, test_y))
         rec = {"set_variables": [], "train": [], "evaluate": [],
-               "blob_parse": [], "blob_pack": []}
+               "blob_parse": [], "blob_pack": [], "infer": counts}
         downs, ups = [], []
         # the learner parses every community blob it receives and packs
         # every uplink with these (this process's class, timed in place)
@@ -2187,7 +2236,7 @@ class Background:
 def run_multiprocess(smoke, label, kind, shards, test, train, eval_cfg,
                      rounds, template, model_store=None, before_shutdown=None,
                      hosts=None, depth=DEPTH, config_extra=None,
-                     release=None, telemetry=False):
+                     release=None, telemetry=False, serve=None):
     """One DriverSession federation of ``len(shards)`` learner processes
     and a controller process (on ``model_store``, default in memory;
     ``before_shutdown()`` runs after the last round; ``hosts``, one per
@@ -2203,7 +2252,10 @@ def run_multiprocess(smoke, label, kind, shards, test, train, eval_cfg,
     its promotion seconds; the controller's supervised relaunches. With
     ``telemetry`` the walls also hold ``telemetry``: the controller's and
     each learner's ``GetMetrics`` text, scraped after the last round, and
-    ``DriverSession.collect_traces``' file, with the seconds they took."""
+    ``DriverSession.collect_traces``' file, with the seconds they took.
+    With ``serve`` (the config's serving plane armed) the walls also hold
+    ``serving``: what ``serve(session, workdir)`` returned, run after the
+    rounds with the federation and its serving processes still up."""
     import hashlib
 
     from metisfl_tpu_torch.config import (
@@ -2250,6 +2302,8 @@ def run_multiprocess(smoke, label, kind, shards, test, train, eval_cfg,
         deadline = time.time() + MP_TIMEOUT_S
         while len(client.list_learners()) < len(shards):
             session._check_procs_alive()
+            # a serving process's boot, seen within a tick of its READY line
+            session.serving_ready()
             if time.time() > deadline:
                 raise RuntimeError(f"{label}: learners never all joined")
             time.sleep(0.1)
@@ -2298,6 +2352,7 @@ def run_multiprocess(smoke, label, kind, shards, test, train, eval_cfg,
                 finally:
                     learner.close()
             scraped["scrape_s"] = time.perf_counter() - t3
+        served = serve(session, workdir) if serve is not None else None
         if before_shutdown is not None:
             before_shutdown()
     finally:
@@ -2307,7 +2362,8 @@ def run_multiprocess(smoke, label, kind, shards, test, train, eval_cfg,
     codes = session.process_exit_codes()
     # the warm standby is a process of its own until it takes over, and
     # then the controller (the killed primary is no longer tracked)
-    expected = len(shards) + 1 + (1 if standby and not promoted else 0)
+    expected = (len(shards) + 1 + (1 if standby and not promoted else 0)
+                + len(session._serving_proc_names()))
     smoke.check(len(codes) == expected
                 and all(c == 0 for c in codes.values()),
                 f"{label}: every process exits 0 after shutdown_federation "
@@ -2323,6 +2379,8 @@ def run_multiprocess(smoke, label, kind, shards, test, train, eval_cfg,
              "restarts": session._controller_restarts, "gate_at": gate_at}
     if hosts:
         walls["endpoints"] = endpoints
+    if serve is not None:
+        walls["serving"] = served
     if versions:
         walls["version_sha256"] = versions
     if scraped is not None:
@@ -2618,15 +2676,18 @@ def check_wire_telemetry(smoke, label, stats, ids, workdir, scraped,
 
 
 
-def mp_llama_run(smoke, label, kill, release=None, telemetry=False):
+def mp_llama_run(smoke, label, kill, release=None, telemetry=False,
+                 serving=False):
     """The multiprocess phase's LlamaLite federation: ``MP_LLAMA_LEARNERS``
     learner processes at full width and depth ``CUT_DEPTH``, ``MP_ROUNDS``
     rounds, the hot standby and the registry armed; with ``kill`` the
     chaos injector kills the controller at its first MarkTaskCompleted
     (mid-round, uplinks in the air). With ``telemetry`` round 0's tasks
     carry a ``profile_dir`` (a ``torch.profiler`` capture each) and the
-    run's metrics and traces are collected (``run_multiprocess``).
-    Returns ``run_multiprocess``'s."""
+    run's metrics and traces are collected (``run_multiprocess``). With
+    ``serving`` the serving fleet is armed (``fleet_serving_config``) and
+    ``fleet_checks`` runs after the rounds. Returns
+    ``run_multiprocess``'s."""
     from metisfl_tpu_torch.comm import TrainParams
     from metisfl_tpu_torch.config import (
         ChaosConfig,
@@ -2667,8 +2728,383 @@ def mp_llama_run(smoke, label, kill, release=None, telemetry=False):
                               rules=[KILL_RULE] if kill else []),
             # a profiler capture on round 0's tasks (round % N == 0)
             telemetry=TelemetryConfig(profile=ProfileConfig(
-                trace_every_rounds=MP_ROUNDS if telemetry else 0))),
-        release=release, telemetry=telemetry)
+                trace_every_rounds=MP_ROUNDS if telemetry else 0)),
+            **({"serving": fleet_serving_config()} if serving else {})),
+        release=release, telemetry=telemetry,
+        serve=((lambda session, workdir: fleet_checks(
+            smoke, label, session, workdir)) if serving else None))
+
+
+# the serving fleet armed on the multiprocess phase's LlamaLite federation:
+# two gateway replica processes and the router, booted by DriverSession
+# beside the learners; Predicts of 256 tokens (one reply carries 256 x
+# 32768 fp32 logits, 32 MiB, across two gRPC hops), Generates of 32 new
+# tokens after a 128-token prompt, a burst of Predicts on 4 threads that
+# runs on for SERVE_AFTER_KILL_S after one replica is SIGKILLed, and the
+# learner's RunInference over 2 rows
+SERVE_REQUESTS, SERVE_LEN = 8, 256
+SERVE_GENERATES, SERVE_NEW_TOKENS = 2, 32
+SERVE_BURST_THREADS, SERVE_AFTER_KILL_S = 4, 3.0
+SERVE_INFER_ROWS = 2
+SERVE_TIMEOUT_S = 300.0
+
+
+def fleet_serving_config():
+    from metisfl_tpu_torch.config import ServingConfig, ServingFleetConfig
+    return ServingConfig(enabled=True, max_batch=8, poll_every_s=1.0,
+                         fleet=ServingFleetConfig(enabled=True, replicas=2,
+                                                  min_replicas=1,
+                                                  max_replicas=2))
+
+
+def timed_calls(fn, n):
+    """``fn(i)`` for i < n on n threads at once: (results, wall seconds,
+    each call's seconds)."""
+    lat = [None] * n
+
+    def call(i):
+        t = time.perf_counter()
+        out = fn(i)
+        lat[i] = time.perf_counter() - t
+        return out
+
+    results, wall = run_concurrently(call, n)
+    return results, wall, lat
+
+
+def percentiles_ms(seconds):
+    ms = np.sort(np.asarray(seconds, np.float64)) * 1e3
+    return {"p50_ms": float(np.percentile(ms, 50)),
+            "p99_ms": float(np.percentile(ms, 99))}
+
+
+def fleet_checks(smoke, label, session, workdir):
+    """Serving on the federation of ``mp_llama_run`` (``serve``): (a) once
+    every replica installed the registry's stable version, 8 concurrent
+    Predicts through ``serving_client()`` (the router) on keys that the
+    port's HashRing gives to each replica, each reply from the stable
+    version within ``LOGITS_ATOL`` of a dense forward of the stable blob;
+    (b) each replica's K1 launches = ``CUT_DEPTH`` x its forwards, on the
+    card; (c) Generates through the router equal an in-process gateway's
+    greedy decode of the same blob and config and a solo batch-1 decode
+    (``TorchModelOps.generate``), token for token; (d) a
+    replica SIGKILLed under a burst of Predicts: no client sees a failure,
+    the router retried, the driver relaunched it and it installed the
+    stable version again; (e) ``run_inference`` on learner 0 within
+    ``LOGITS_ATOL`` of a dense forward of the community model (its K1
+    launches are checked from the learner's record after the shutdown).
+    The in-process gateway (the Predict timing's comparison and (c)'s
+    reference) and (e) run while the killed replica's relaunch boots."""
+    import glob
+
+    import torch
+
+    from metisfl_tpu_torch import telemetry
+    from metisfl_tpu_torch.models import TorchModelOps, load_flax_variables
+    from metisfl_tpu_torch.models.zoo import LlamaLite
+    from metisfl_tpu_torch.serving import HashRing, ServingGateway
+    from metisfl_tpu_torch.telemetry import parse_exposition
+    from metisfl_tpu_torch.tensor import ModelBlob
+
+    t0 = time.perf_counter()
+    gpu = gpu_line()
+    out = {}
+    client = session._client
+    fleet = session.config.serving.fleet
+    names = [g.get("name") for g in fleet.gateways]
+    out["boot_s"] = session.wait_for_serving(SERVE_TIMEOUT_S)
+    serving = session.serving_client()
+    llama = dict(vocab_size=VOCAB, dim=DIM, depth=CUT_DEPTH, heads=HEADS,
+                 kv_heads=KV_HEADS, dtype=torch.bfloat16, device=DEVICE)
+
+    def rows_by_name():
+        return {r["replica"]: r
+                for r in serving.status(timeout=30.0)["replicas"]}
+
+    # every gate ran and both replicas serve the registry's stable head
+    deadline = time.time() + SERVE_TIMEOUT_S
+    while True:
+        session.poll_serving()
+        desc = client.describe_registry(timeout=30.0)
+        stable = int(desc.get("stable") or 0)
+        rows = rows_by_name()
+        if (stable and all(v.get("gate") for v in desc.get("versions", []))
+                and all(rows[n]["state"] == "up"
+                        and rows[n]["installed"].get("stable") == stable
+                        for n in names)):
+            break
+        if time.time() > deadline:
+            raise RuntimeError(f"{label}: the replicas never installed the "
+                               f"stable version: {desc} {rows}")
+        time.sleep(0.5)
+    out["stable_version"] = stable
+    out["settled_s"] = time.perf_counter() - t0
+    pids = {p.name: p.process.pid for p in session._procs
+            if p.name in names}
+    # seconds from the promotion of the stable version to each replica's
+    # install of it (the controller's and the replicas' journals)
+    tel_dir = os.path.join(workdir, "telemetry")
+    promoted = [e["ts"] for e in read_events(os.path.join(
+        tel_dir, "controller-*-events.jsonl"))
+        if e["kind"] == "version_promoted" and e.get("version") == stable]
+    installs = {}
+    for name, pid in pids.items():
+        swaps = [e["ts"] for e in read_events(os.path.join(
+            tel_dir, f"serving-{pid}-events.jsonl"))
+            if e["kind"] == "serving_swapped" and e.get("channel") == "stable"
+            and e.get("version") == stable]
+        installs[name] = (round(swaps[0] - promoted[0], 3)
+                          if swaps and promoted else None)
+    out["promotion_to_install_s"] = installs
+    smoke.check(all(v is not None and v >= 0.0 for v in installs.values()),
+                f"{label} fleet: each replica's install of v{stable} follows "
+                f"its promotion in the journals: {installs} s")
+
+    # (a) Predicts through the router against the dense path
+    ring = HashRing(vnodes=fleet.vnodes)
+    for name in names:
+        ring.add(name)
+    keys = {name: [] for name in names}
+    for i in range(10000):
+        key = f"user-{i}"
+        owner = ring.owners(key)[0]
+        if len(keys[owner]) < SERVE_REQUESTS // len(names):
+            keys[owner].append(key)
+        if sum(map(len, keys.values())) == SERVE_REQUESTS:
+            break
+    req_keys = [k for name in names for k in keys[name]]
+    rows = np.random.default_rng(SEED + 6).integers(
+        0, VOCAB, (SERVE_REQUESTS, 1, SERVE_LEN)).astype(np.int32)
+    prompts = np.random.default_rng(SEED + 7).integers(
+        0, VOCAB, (SERVE_GENERATES, PROMPT_LEN)).astype(np.int32)
+    stable_blob = client.get_registered_model(version=stable, timeout=120.0)
+    for name in names:  # each replica's channel at the router, warm
+        serving.predict(rows[0], key=keys[name][0], timeout=120.0)
+    replies, wall, lat = timed_calls(
+        lambda i: serving.predict(rows[i], key=req_keys[i], timeout=120.0),
+        SERVE_REQUESTS)
+    logits = [serving.predictions(r) for r in replies]
+    dense = load_flax_variables(LlamaLite(**llama, use_flash=False),
+                                ModelBlob.from_bytes(stable_blob).tensors
+                                ).eval()
+    with torch.no_grad():
+        want = dense(torch.as_tensor(rows[:, 0], device=DEVICE)
+                     ).float().cpu().numpy()
+    err = max(float(np.abs(g[0] - w).max()) for g, w in zip(logits, want))
+    smoke.check(all(r.model_version == stable and r.channel == "stable"
+                    for r in replies)
+                and all(g.shape == (1, SERVE_LEN, VOCAB)
+                        and np.isfinite(g).all() for g in logits),
+                f"{label} fleet (a): {SERVE_REQUESTS} Predicts through the "
+                f"router on keys {keys}, each from stable v{stable}, "
+                f"finite, (1, {SERVE_LEN}, {VOCAB})")
+    smoke.check(err <= LOGITS_ATOL,
+                f"{label} fleet (a): the replies vs a dense forward of the "
+                f"stable blob: max abs err {err:.4g} <= {LOGITS_ATOL}")
+    out["predict"] = {"requests": SERVE_REQUESTS, "tokens": SERVE_LEN,
+                      "wall_s": wall, **percentiles_ms(lat),
+                      "vs_dense_max_abs_err": err}
+    del want
+    # (c) Generates through the router (the prompts' owner warmed first),
+    # one in flight at a time
+    serving.generate(prompts[0], 2, key=req_keys[0], timeout=300.0)
+    t1 = time.perf_counter()
+    remote = [serving.tokens(serving.generate(
+        prompts[i], SERVE_NEW_TOKENS, key=req_keys[i], timeout=300.0))
+        for i in range(SERVE_GENERATES)]
+    gen_wall = time.perf_counter() - t1
+
+    # (b) K1 in each replica process, from the count file of its recipe
+    def counts(pid):
+        path = os.path.join(workdir, "record_0", f"serving_{pid}.json")
+        if not os.path.exists(path):
+            return None
+        with open(path) as f:
+            return json.load(f)
+
+    before_kill = {name: counts(pid) for name, pid in pids.items()}
+    smoke.check(all(c and c["forwards"] > 0
+                    and c["launches"] == c["k1"] == CUT_DEPTH * c["forwards"]
+                    and c["device"].startswith(DEVICE)
+                    for c in before_kill.values()),
+                f"{label} fleet (b): each replica's K1 launches = "
+                f"{CUT_DEPTH} x its forwards, on {DEVICE}: {before_kill}")
+
+    # (d) SIGKILL a replica under a burst of Predicts
+    restarts = telemetry.metrics.registry().get(
+        telemetry.M_GATEWAY_RESTARTS_TOTAL)
+    restarts_before = restarts.value()
+    victim = names[-1]
+    proc = next(p for p in session._procs if p.name == victim)
+    stop, sent, done, errors = threading.Event(), [], [], []
+    burst_keys = req_keys * 4
+
+    def burst(worker):
+        c = session.serving_client()
+        i = worker
+        try:
+            while not stop.is_set():
+                sent.append(i)
+                try:
+                    r = c.predict(rows[i % SERVE_REQUESTS],
+                                  key=burst_keys[i % len(burst_keys)],
+                                  timeout=120.0)
+                    done.append((time.perf_counter(), r.model_version))
+                except Exception as exc:  # noqa: BLE001 - the check
+                    errors.append(repr(exc))
+                i += SERVE_BURST_THREADS
+        finally:
+            c.close()
+
+    threads = [threading.Thread(target=burst, args=(w,), daemon=True)
+               for w in range(SERVE_BURST_THREADS)]
+    for t in threads:
+        t.start()
+    # every thread's first request on the wire, and then the kill
+    deadline = time.time() + SERVE_TIMEOUT_S
+    while len(sent) < SERVE_BURST_THREADS and time.time() < deadline:
+        time.sleep(0.01)
+    time.sleep(0.2)
+    proc.process.kill()
+    killed_at = time.perf_counter()
+    time.sleep(SERVE_AFTER_KILL_S)
+    stop.set()
+    for t in threads:
+        t.join(timeout=300.0)
+    after = sum(1 for at, _ in done if at > killed_at)
+    smoke.check(not errors and after > 0
+                and all(v == stable for _, v in done),
+                f"{label} fleet (d): a burst of {len(done)} Predicts ({after} "
+                f"after {victim} was SIGKILLed), every one served from "
+                f"v{stable}, none failed: {errors[:3]}")
+    series = parse_exposition(serving.get_metrics(timeout=30.0))
+    retries = sum(series.get(telemetry.M_ROUTER_RETRIES_TOTAL, {}).values())
+    smoke.check(retries > 0,
+                f"{label} fleet (d): the router's "
+                f"{telemetry.M_ROUTER_RETRIES_TOTAL} {retries} > 0")
+    session.poll_serving()  # the relaunch boots while the rest runs
+
+    # the in-process gateway at the same shape and config, on this card
+    ops = TorchModelOps(LlamaLite(**llama, use_flash=True), device=DEVICE)
+    gateway = ServingGateway(ops, fleet_serving_config(), device=DEVICE)
+    try:
+        gateway.install("stable", stable, stable_blob)
+        gateway.predict(rows[0], key="warmup")
+        local, local_wall, local_lat = timed_calls(
+            lambda i: gateway.predict(rows[i], key=req_keys[i]),
+            SERVE_REQUESTS)
+        out["predict_in_process"] = {
+            "wall_s": local_wall, **percentiles_ms(local_lat),
+            "max_abs_diff_vs_router": max(
+                float(np.abs(g - l[0]).max())
+                for g, l in zip(logits, local))}
+        del local
+        gateway.generate(prompts[0], 2, key=req_keys[0])
+        t1 = time.perf_counter()
+        expected = [gateway.generate(prompts[i], SERVE_NEW_TOKENS,
+                                     key=req_keys[i])[0]
+                    for i in range(SERVE_GENERATES)]
+        local_gen_wall = time.perf_counter() - t1
+        solo = [ops.generate(p[None], SERVE_NEW_TOKENS,
+                             model=gateway._models["stable"][1],
+                             max_len=gateway.config.decode.max_len)[0]
+                for p in prompts]
+    finally:
+        gateway.shutdown()
+    del ops, gateway
+    same = [bool(np.array_equal(r, e)) for r, e in zip(remote, expected)]
+    same_solo = [bool(np.array_equal(r, s)) for r, s in zip(remote, solo)]
+    smoke.check(all(same) and all(same_solo)
+                and all(r.shape == (SERVE_NEW_TOKENS,) for r in remote),
+                f"{label} fleet (c): {SERVE_GENERATES} Generates of "
+                f"{SERVE_NEW_TOKENS} tokens through the router equal the "
+                f"in-process gateway's greedy decode {same} and a solo "
+                f"batch-1 decode {same_solo}, token for token")
+    out["generate"] = {
+        "requests": SERVE_GENERATES, "new_tokens": SERVE_NEW_TOKENS,
+        "prompt": PROMPT_LEN, "wall_s": gen_wall,
+        "tokens_per_s": SERVE_GENERATES * SERVE_NEW_TOKENS / gen_wall,
+        "in_process_wall_s": local_gen_wall,
+        "in_process_tokens_per_s": (SERVE_GENERATES * SERVE_NEW_TOKENS
+                                    / local_gen_wall),
+        "equal_in_process": sum(same),
+        "equal_solo": sum(same_solo),
+        "token_agreement_with_batch_1_decode": float(np.mean(
+            [np.mean(r == s) for r, s in zip(remote, solo)]))}
+
+    # (e) RunInference on learner 0 against the dense path
+    infer_rows = np.random.default_rng(SEED + 8).integers(
+        0, VOCAB, (SERVE_INFER_ROWS, SERVE_LEN)).astype(np.int32)
+    t2 = time.perf_counter()
+    inferred = session.run_inference(0, inputs=infer_rows,
+                                      batch_size=SERVE_INFER_ROWS,
+                                      timeout_s=SERVE_TIMEOUT_S)
+    infer_s = time.perf_counter() - t2
+    load_flax_variables(dense, ModelBlob.from_bytes(
+        client.get_community_model()).tensors)
+    with torch.no_grad():
+        want = dense(torch.as_tensor(infer_rows, device=DEVICE)
+                     ).float().cpu().numpy()
+    infer_err = float(np.abs(inferred - want).max())
+    smoke.check(inferred.shape == want.shape and infer_err <= LOGITS_ATOL,
+                f"{label} (e): run_inference on learner 0 over "
+                f"{SERVE_INFER_ROWS} rows of {SERVE_LEN} tokens vs a dense "
+                f"forward of the community model: max abs err "
+                f"{infer_err:.4g} <= {LOGITS_ATOL}")
+    out["run_inference"] = {"rows": SERVE_INFER_ROWS, "tokens": SERVE_LEN,
+                            "wall_s": infer_s, "vs_dense_max_abs_err":
+                            infer_err}
+    del dense, want
+    torch.cuda.empty_cache()
+
+    # (d) the relaunch installs the stable version again
+    deadline = time.time() + SERVE_TIMEOUT_S
+    while True:
+        session.poll_serving()
+        row = rows_by_name()[victim]
+        if row["state"] == "up" and row["installed"].get("stable") == stable:
+            break
+        if time.time() > deadline:
+            raise RuntimeError(f"{label}: {victim} was not relaunched and "
+                               f"re-pinned: {row}")
+        time.sleep(0.25)
+    relaunched = time.perf_counter() - killed_at
+    restarted = restarts.value() - restarts_before
+    smoke.check(restarted == 1 and session._serving_restarts.get(victim)
+                == 1,
+                f"{label} fleet (d): the driver relaunched {victim} once "
+                f"({telemetry.M_GATEWAY_RESTARTS_TOTAL} +{restarted}) and it "
+                f"installed v{stable} again, {relaunched:.3f} s after the "
+                "kill")
+    out["kill"] = {"victim": victim, "burst_requests": len(done),
+                   "after_kill": after, "router_retries": retries,
+                   "relaunch_to_repinned_s": relaunched,
+                   "relaunch_boot_s": session.serving_ready().get(victim),
+                   "waited_after_the_overlap_s": (time.perf_counter()
+                                                  - t2 - infer_s)}
+    # every replica incarnation's K1, for the kernels line
+    finals = []
+    for path in sorted(glob.glob(os.path.join(workdir, "record_0",
+                                              "serving_*.json"))):
+        with open(path) as f:
+            finals.append(json.load(f))
+    out["replica_k1"] = {str(c["pid"]): c["launches"] for c in finals}
+    out["k1_launches"] = sum(c["launches"] for c in finals)
+    out["wall_s"] = time.perf_counter() - t0
+    serving.close()
+    print(f"{label} fleet: boot s {out['boot_s']}; promotion to install s "
+          f"{installs} ({gpu})", flush=True)
+    print(f"{label} fleet: {SERVE_REQUESTS} Predicts x {SERVE_LEN} tokens "
+          f"through the router {wall:.3f} s (p50 "
+          f"{out['predict']['p50_ms']:.1f} ms, p99 "
+          f"{out['predict']['p99_ms']:.1f} ms) vs the in-process gateway "
+          f"{out['predict_in_process']['wall_s']:.3f} s (p50 "
+          f"{out['predict_in_process']['p50_ms']:.1f} ms, p99 "
+          f"{out['predict_in_process']['p99_ms']:.1f} ms); Generate "
+          f"{out['generate']['tokens_per_s']:.1f} tokens/s through the "
+          f"router vs {out['generate']['in_process_tokens_per_s']:.1f} in "
+          f"process ({gpu})", flush=True)
+    return out
 
 
 def multiprocess_phase(smoke, gpu):
@@ -2698,7 +3134,7 @@ def multiprocess_phase(smoke, gpu):
     # join, and its rounds start once (a) is done
     release = threading.Event()
     llama_run = Background(mp_llama_run, smoke, "mp llama", False, release,
-                           True)
+                           True, True)
     # (a) FashionMNIST CNN, the federation phase's data and settings
     x, y = synthetic_image_classification(
         FED_LEARNERS * CNN_EXAMPLES + CNN_TEST, noise=CNN_NOISE, seed=SEED)
@@ -2745,6 +3181,16 @@ def multiprocess_phase(smoke, gpu):
     launches = {name: sum(r["launches"][name] for r in records)
                 for name in ("flash_attention_fwd", "flash_bwd_dq",
                              "flash_bwd_dkv")}
+    # the serving checks' RunInference (learner 0): K1 in its forwards,
+    # counted apart from the rounds'
+    infer = {key: sum(r["infer"][key] for r in records)
+             for key in ("forwards", "k1")}
+    smoke.check(infer["forwards"] > 0
+                and infer["k1"] == CUT_DEPTH * infer["forwards"],
+                f"mp llama (e): RunInference launched K1 {infer['k1']} times "
+                f"in the learner process = {CUT_DEPTH} x "
+                f"{infer['forwards']} forwards")
+    launches["flash_attention_fwd"] -= infer["k1"]
     train_launches = MP_LLAMA_LEARNERS * FED_STEPS * CUT_DEPTH
     eval_launches = (MP_LLAMA_LEARNERS * -(-FED_EVAL_ROWS // TRAIN_BATCH)
                      * CUT_DEPTH)
@@ -2780,7 +3226,11 @@ def multiprocess_phase(smoke, gpu):
         "train_losses": losses,
         "peak_memory_gb": [r["peak_memory_gb"] for r in records],
         "telemetry": wire,
+        "run_inference_launches": {"flash_fwd": infer["k1"],
+                                   "forwards": infer["forwards"]},
     }
+    print(json.dumps({"serving_fleet": {**out["llama"]["serving"],
+                                        "gpu": gpu}}), flush=True)
     print(f"mp llama: round walls "
           f"{[round(s['wall_s'], 3) for s in split]} s", flush=True)
     shutil.rmtree(MP_DIR, ignore_errors=True)
@@ -4105,9 +4555,9 @@ def secure_processes(smoke, scheme):
     """The CNN with a controller process and a process per learner through
     DriverSession. ``masking``: with streaming, SECURE_MP_ROUNDS rounds;
     learner 0 leaves the federation (through the controller, with its
-    saved credentials) while its round-1 task waits, the round settles
-    with the two survivors, and one of them discloses learner 0's
-    residual masks (``RecoverMasks``). ``ckks``: CKKS_MP_ROUNDS rounds,
+    saved credentials) while its round-1 task waits until the rounds are
+    done, the round settles with the two survivors, and one of them
+    discloses learner 0's residual masks (``RecoverMasks``). ``ckks``: CKKS_MP_ROUNDS rounds,
     the driver's keygen; the community decrypts to the plain FedAvg."""
     from metisfl_tpu_torch.comm import TrainParams
     from metisfl_tpu_torch.config import (
@@ -4194,11 +4644,13 @@ def secure_processes(smoke, scheme):
                 if time.time() > deadline:
                     raise RuntimeError(f"{label}: round 0 never completed")
                 time.sleep(0.1)
-            # learner 0 leaves while its round-1 task waits on ``hold``
+            # learner 0 leaves while its round-1 task waits on ``hold``,
+            # which opens only once the rounds are done: the controller
+            # refuses the task's completion and the learner re-attaches
+            # under a new id, which must not join round 1's barrier
             learner_id, token = load_credentials(
                 os.path.join(workdir, "learner_0_creds"))
             left = client.leave(learner_id, token)
-            open(hold, "w").close()
         stats = session.monitor_federation(poll_every_s=0.25)
         run_s = time.perf_counter() - t1
         final = client.get_community_model()
@@ -6509,6 +6961,12 @@ def main() -> int:
     # the learner processes' launches (or the wire phase's, in its place)
     mp_launches = ((multiprocess or {}).get("llama") or {}).get(
         "launches", {})
+    # the serving fleet's replica processes and the learner's RunInference
+    # on the multiprocess phase's federation
+    fleet_k1 = ((((multiprocess or {}).get("llama") or {}).get("serving")
+                 or {}).get("k1_launches", 0))
+    infer_k1 = ((((multiprocess or {}).get("llama") or {}).get(
+        "run_inference_launches") or {}).get("flash_fwd", 0))
     serve_k1 = (sliced or {}).get("flash_launches", 0)
     # the store phase's counts, by wrapper name
     store_launches = ((stored or {}).get("llama") or {}).get("launches", {})
@@ -6532,6 +6990,8 @@ def main() -> int:
                    "train": train_launches.get("flash_fwd", 0),
                    "federation": fed_launches.get("flash_fwd", 0),
                    "multiprocess": mp_launches.get("flash_fwd", 0),
+                   "serving_fleet": fleet_k1,
+                   "run_inference": infer_k1,
                    "store": store_launches.get("flash_attention_fwd", 0),
                    "rules": rules_launches.get("flash_fwd", 0),
                    "tiers": tiers_launches.get("flash_fwd", 0),

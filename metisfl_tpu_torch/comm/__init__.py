@@ -6,13 +6,21 @@ from metisfl_tpu_torch.comm.codec import dumps, loads
 from metisfl_tpu_torch.comm.messages import (
     EvalResult,
     EvalTask,
+    GenerateReply,
+    GenerateRequest,
+    InferResult,
+    InferTask,
     JoinReply,
     JoinRequest,
     Message,
+    ServeReply,
+    ServeRequest,
     TaskResult,
     TrainParams,
     TrainTask,
 )
 
 __all__ = ["dumps", "loads", "Message", "TrainParams", "JoinRequest",
-           "JoinReply", "TrainTask", "TaskResult", "EvalTask", "EvalResult"]
+           "JoinReply", "TrainTask", "TaskResult", "EvalTask", "EvalResult",
+           "InferTask", "InferResult", "ServeRequest", "ServeReply",
+           "GenerateRequest", "GenerateReply"]

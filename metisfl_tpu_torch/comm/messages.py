@@ -1,12 +1,15 @@
 """The port's copies of the JAX package's federation messages
 (``comm/messages.py``): ``TrainParams``, ``JoinRequest``/``JoinReply``,
-``TrainTask``/``TaskResult`` and ``EvalTask``/``EvalResult``, with the same
-field names and defaults. Each is a :class:`Message`: ``to_wire`` encodes
-its fields, nested messages as dicts, with the codec (``comm/codec.py``)
-and ``from_wire`` reads them back, ignoring fields it does not know. Since
-every field keeps its name, the bytes equal the JAX package's for the same
-values, and a learner or controller of either package reads the other's
-messages, over the wire or by attribute in one process.
+``TrainTask``/``TaskResult``, ``EvalTask``/``EvalResult``,
+``InferTask``/``InferResult`` and the serving messages
+(``ServeRequest``/``ServeReply``, ``GenerateRequest``/``GenerateReply``),
+with the same field names and defaults. Each is a :class:`Message`:
+``to_wire`` encodes its fields, nested messages as dicts, with the codec
+(``comm/codec.py``) and ``from_wire`` reads them back, ignoring fields it
+does not know. Since every field keeps its name, the bytes equal the JAX
+package's for the same values, and a learner or controller of either
+package reads the other's messages, over the wire or by attribute in one
+process.
 
 Fields keep their meaning in both engines: ``profile_dir`` and
 ``profile_steps`` arm a ``torch.profiler`` capture of that many training
@@ -193,4 +196,85 @@ class EvalResult(Message):
     round_id: int = 0
     # dataset name -> {metric -> value}
     evaluations: Dict[str, Dict[str, float]] = field(default_factory=dict)
+    duration_ms: float = 0.0
+
+
+@dataclass
+class InferTask(Message):
+    """A learner's inference task (``RunInference``): predictions over
+    explicit inputs or a named local split of the shipped model."""
+
+    task_id: str = ""
+    learner_id: str = ""
+    round_id: int = 0
+    model: bytes = b""          # ModelBlob to infer with (may be encrypted)
+    batch_size: int = 256
+    # either a named local dataset split ("train"/"valid"/"test")...
+    dataset: str = "test"
+    # ...or explicit inputs shipped as a packed {"x": array} ModelBlob
+    inputs: bytes = b""
+    max_examples: int = 0       # 0 = all
+    # > 0 turns the task into greedy generation on a causal-LM engine: the
+    # inputs are token prompts, the result packs the continuations
+    generate_tokens: int = 0
+    # FedBN merge / ship-only backfill for partial community blobs
+    local_tensor_regex: str = ""
+    ship_tensor_regex: str = ""
+    temperature: float = 0.0    # 0 = greedy (the only decoding ported)
+    top_k: int = 0
+    top_p: float = 0.0
+    eos_id: int = -1            # < 0 = no early stop
+
+
+@dataclass
+class ServeRequest(Message):
+    """A gateway Predict: no model rides along, the gateway serves its
+    installed registry version."""
+
+    request_id: str = ""
+    # canary and consistent-hash routing key; "" falls back to request_id
+    key: str = ""
+    inputs: bytes = b""         # packed {"x": array} ModelBlob
+
+
+@dataclass
+class ServeReply(Message):
+    request_id: str = ""
+    predictions: bytes = b""    # packed {"predictions": array} ModelBlob
+    # the registry version and channel that served this request
+    model_version: int = 0
+    channel: str = ""
+    duration_ms: float = 0.0
+
+
+@dataclass
+class GenerateRequest(Message):
+    """A gateway Generate: a greedy continuation of ``prompt`` through the
+    gateway's continuous-batching decode loop."""
+
+    request_id: str = ""
+    key: str = ""
+    prompt: bytes = b""         # packed {"tokens": (L,) int32} ModelBlob
+    max_new_tokens: int = 16
+    eos_id: int = -1            # < 0 = no early stop
+
+
+@dataclass
+class GenerateReply(Message):
+    request_id: str = ""
+    # packed {"tokens": (max_new_tokens,) int32} ModelBlob; pad (0) after
+    # an emitted eos
+    tokens: bytes = b""
+    model_version: int = 0
+    channel: str = ""
+    duration_ms: float = 0.0
+
+
+@dataclass
+class InferResult(Message):
+    task_id: str = ""
+    learner_id: str = ""
+    round_id: int = 0
+    predictions: bytes = b""    # packed {"predictions": array} ModelBlob
+    num_examples: int = 0
     duration_ms: float = 0.0

@@ -25,6 +25,7 @@ from metisfl_tpu_torch.config.federation import (
     SecureAggConfig,
     ServingConfig,
     ServingDecodeConfig,
+    ServingFleetConfig,
     TelemetryConfig,
     TerminationConfig,
     TreeAggregationConfig,
@@ -36,8 +37,8 @@ __all__ = [
     "FederationConfig", "AggregationConfig", "TreeAggregationConfig",
     "SchedulingConfig", "ModelStoreConfig", "SecureAggConfig",
     "TerminationConfig", "CheckpointConfig", "ChaosConfig", "EvalConfig",
-    "ServingConfig",
-    "ServingDecodeConfig", "CommConfig", "LearnerEndpoint", "SSLConfig",
+    "ServingConfig", "ServingDecodeConfig", "ServingFleetConfig",
+    "CommConfig", "LearnerEndpoint", "SSLConfig",
     "FailoverConfig", "ControllerConfig", "ControllerStandbyConfig",
     "PromotionConfig", "RegistryConfig", "TelemetryConfig", "EventsConfig",
     "HealthConfig", "ProfileConfig", "ProfConfig", "RuntimeConfig",

@@ -16,7 +16,9 @@ parallel ingest), with the controller's endpoint, the learners' endpoints,
 the transport's settings and TLS for the multi-process federation, and the
 failover and lifecycle planes: controller checkpoints, the driver's
 supervision of the controller, the hot standby with its round-state WAL,
-and the model registry with its promotion gate. It
+and the model registry with its promotion gate, and the serving plane
+(the gateway, its replicated fleet behind the router, the autoscaler's
+rules). It
 travels to the controller process as codec bytes (``to_wire``) or YAML
 (:func:`load_config`). It refuses at construction what the port does not
 do yet: a request for a protocol, rule, tier, uplink encoding or
@@ -45,6 +47,47 @@ from metisfl_tpu_torch.tensor.spec import resolve_ship_dtype
 
 
 @dataclass
+class ServingFleetConfig:
+    """Replicated serving fleet (serving/fleet.py): N driver-booted gateway
+    replicas behind a consistent-hash router process (``python -m
+    metisfl_tpu_torch.serving --router``). Key-stable routing keeps the
+    crc32 canary split coherent across replicas; replicas stagger their
+    registry polls so a promotion rolls through the fleet one replica at a
+    time; the router drains around dead or draining replicas with bounded
+    retry to the next hash owner. ``enabled=false`` keeps the single
+    supervised gateway."""
+
+    enabled: bool = False
+    # replicas booted at launch (the autoscaler moves the live count
+    # within [min_replicas, max_replicas] afterwards)
+    replicas: int = 2
+    min_replicas: int = 1
+    max_replicas: int = 4
+    # router gRPC port (0: the driver picks a free one and points
+    # serving.port, what serving_client() dials, at it)
+    router_port: int = 0
+    # consistent-hash virtual nodes per replica (keyspace smoothing)
+    vnodes: int = 64
+    # bounded retry past the hash owner when it fails at call time
+    retry_hops: int = 2
+    # router health-probe cadence over the replica fleet
+    probe_every_s: float = 1.0
+    # autoscaler rules (telemetry/alerts.py AlertRule schema, kinds
+    # value|rate, evaluated over fleet-summed serving_* families by the
+    # driver): scale_up boots a replica, scale_down drains one; empty = no
+    # autoscaler. Example:
+    #   scale_up: {metric: serving_requests_total, kind: rate,
+    #              window_s: 10, op: ">", threshold: 50, for_s: 2}
+    scale_up: Dict[str, Any] = field(default_factory=dict)
+    scale_down: Dict[str, Any] = field(default_factory=dict)
+    # minimum seconds between scale actions (flap damping)
+    scale_cooldown_s: float = 30.0
+    # replica endpoints [{name, host, port}]; the driver fills one per
+    # replica when left empty
+    gateways: List[Dict[str, Any]] = field(default_factory=list)
+
+
+@dataclass
 class ServingDecodeConfig:
     """Continuous-batching decode (serving/decode.py)."""
 
@@ -56,8 +99,16 @@ class ServingDecodeConfig:
 
 @dataclass
 class ServingConfig:
-    """Serving gateway (serving/gateway.py)."""
+    """Serving gateway (serving/gateway.py): a driver-bootable process
+    (``python -m metisfl_tpu_torch.serving``) serving inference over the
+    federation's BytesService RPC with a micro-batching queue, atomic
+    hot-swap to newly promoted versions and a canary split toward the
+    ``candidate`` channel. Requires the registry."""
 
+    enabled: bool = False
+    host: str = "0.0.0.0"
+    # gateway gRPC port (0: the driver picks a free one at launch)
+    port: int = 0
     # micro-batching: coalesce concurrent requests until the batch holds
     # max_batch rows or max_wait_ms elapsed since the first queued row.
     # Every forward pass pads to exactly max_batch rows, so per-row results
@@ -70,6 +121,10 @@ class ServingConfig:
     # registry poll period: how often ``start_sync`` compares the channel
     # heads against the registry
     poll_every_s: float = 1.0
+    # which learner recipe builds the gateway's model engine
+    recipe_index: int = 0
+    # replicated fleet behind a consistent-hash router (serving/fleet.py)
+    fleet: ServingFleetConfig = field(default_factory=ServingFleetConfig)
     decode: ServingDecodeConfig = field(default_factory=ServingDecodeConfig)
 
 
@@ -586,6 +641,7 @@ class FederationConfig:
     termination: TerminationConfig = field(default_factory=TerminationConfig)
     checkpoint: CheckpointConfig = field(default_factory=CheckpointConfig)
     registry: RegistryConfig = field(default_factory=RegistryConfig)
+    serving: ServingConfig = field(default_factory=ServingConfig)
     train: TrainParams = field(default_factory=TrainParams)
     eval: EvalConfig = field(default_factory=EvalConfig)
     comm: CommConfig = field(default_factory=CommConfig)
@@ -673,6 +729,7 @@ class FederationConfig:
             raise ValueError("termination cutoffs must be >= 0")
         self._check_uplink(rule)
         self._check_failover()
+        self._check_serving()
         self._check_telemetry()
         # what the port does not do yet, once the values are known valid
         if any(ep.world_size > 1 for ep in self.learners):
@@ -847,6 +904,86 @@ class FederationConfig:
                 raise ValueError(
                     "registry.promotion.divergence_quantile must be in "
                     "(0, 1]")
+
+    def _check_serving(self) -> None:
+        """The JAX package's serving and serving-fleet checks, with its
+        error types and messages."""
+        serving = self.serving
+        fleet = serving.fleet
+        if serving.enabled:
+            if not self.registry.enabled:
+                # the gateway serves registry channels; without versions
+                # there is nothing to install or swap
+                raise ValueError(
+                    "serving.enabled requires registry.enabled (the "
+                    "gateway serves promoted registry versions)")
+            if serving.max_batch < 1:
+                raise ValueError("serving.max_batch must be >= 1")
+            if serving.max_wait_ms < 0:
+                raise ValueError("serving.max_wait_ms must be >= 0")
+            if not 0.0 <= serving.canary_percent <= 100.0:
+                raise ValueError(
+                    "serving.canary_percent must be in [0, 100]")
+            if serving.recipe_index < 0:
+                # a negative index would pick a recipe from the END of the
+                # driver's list
+                raise ValueError("serving.recipe_index must be >= 0")
+            if serving.decode.slots < 1:
+                raise ValueError("serving.decode.slots must be >= 1")
+            if serving.decode.max_len < 2:
+                # one prompt token + one generated token is the minimum
+                # generation the cache must hold
+                raise ValueError("serving.decode.max_len must be >= 2")
+            if fleet.enabled:
+                if fleet.min_replicas < 1:
+                    raise ValueError(
+                        "serving.fleet.min_replicas must be >= 1")
+                if fleet.max_replicas < fleet.min_replicas:
+                    raise ValueError(
+                        "serving.fleet.max_replicas must be >= "
+                        "min_replicas")
+                if not (fleet.min_replicas <= fleet.replicas
+                        <= fleet.max_replicas):
+                    raise ValueError(
+                        "serving.fleet.replicas must lie within "
+                        "[min_replicas, max_replicas]")
+                if fleet.vnodes < 1:
+                    raise ValueError("serving.fleet.vnodes must be >= 1")
+                if fleet.retry_hops < 0:
+                    raise ValueError(
+                        "serving.fleet.retry_hops must be >= 0")
+                if fleet.probe_every_s <= 0.0:
+                    raise ValueError(
+                        "serving.fleet.probe_every_s must be > 0")
+                if fleet.scale_cooldown_s < 0.0:
+                    raise ValueError(
+                        "serving.fleet.scale_cooldown_s must be >= 0")
+                if fleet.scale_up or fleet.scale_down:
+                    # a typo'd scale rule fails at config time, not at the
+                    # first traffic surge; quantile kinds are refused
+                    # inside (a scraped family sum has no digest)
+                    from metisfl_tpu_torch.serving.fleet import (
+                        FleetAutoscaler)
+                    try:
+                        FleetAutoscaler(
+                            fleet.scale_up or None,
+                            fleet.scale_down or None,
+                            fleet.min_replicas, fleet.max_replicas,
+                            cooldown_s=fleet.scale_cooldown_s)
+                    except (TypeError, ValueError) as exc:
+                        raise ValueError(
+                            f"invalid serving.fleet scale rule: "
+                            f"{exc}") from None
+        if fleet.enabled and not serving.enabled:
+            # a fleet block on a disabled serving plane boots nothing
+            raise ValueError(
+                "serving.fleet.enabled requires serving.enabled")
+        if (fleet.scale_up or fleet.scale_down) and not fleet.enabled:
+            # scale rules only drive the fleet autoscaler
+            raise ValueError(
+                "serving.fleet.scale_up/scale_down require "
+                "serving.fleet.enabled (the autoscaler boots and drains "
+                "fleet replicas)")
 
     def _check_distributed(self, masking: bool) -> None:
         """The distributed tier's capability matrix (the JAX package's):

@@ -86,8 +86,30 @@ local process's span file into ``<workdir>/traces.jsonl`` (render it with
 ``python -m metisfl_tpu_torch.telemetry``), and
 :meth:`DriverSession.collect_postmortems` gathers the bundles.
 
-Not ported, and raising ``NotImplementedError`` with the ROADMAP.md Queue 1
-item: serving (5). The fleet fabric's live span stream is item 4b.
+Serving (``serving.enabled``, with the registry): every serving port is
+pinned before the config is written (the gateway's, or under
+``serving.fleet`` one per replica and the router's, which ``serving.port``
+then names). The gateway (``python -m metisfl_tpu_torch.serving``), or
+the fleet's replicas and its router (``--router``), boot beside the
+learners and run the learners' recipe ``serving.recipe_index`` on the
+driver's ``device``. :meth:`DriverSession.serving_client` dials the
+gateway or the router. A serving process that dies is relaunched with a
+doubling backoff capped at 30 s; a relaunched replica needs no state of
+its own (its first registry poll pins it back to the promoted versions)
+and a relaunched router is re-told the fleet's replicas. Serving never
+fails the run. With ``serving.fleet.scale_up``/``scale_down`` rules the
+driver scrapes the fleet's ``serving_*`` families each poll and boots a
+replica (``AddReplica`` out of the ring until it probes SERVING) or drains
+the newest one (``DrainReplica``, an idle wait, ``ShutDown``,
+``RemoveReplica``) within ``min_replicas``/``max_replicas``.
+:meth:`DriverSession.monitor_federation` supervises and autoscales the
+serving plane; once it returned, :meth:`DriverSession.poll_serving` does
+one such tick. :meth:`DriverSession.run_inference` runs the community
+model's inference (or greedy generation) on one learner
+(``RunInference``).
+
+The fleet fabric's live span stream is not ported (ROADMAP.md Queue 1
+item 4b).
 """
 
 from __future__ import annotations
@@ -103,7 +125,7 @@ import subprocess
 import sys
 import tempfile
 import time
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from typing import Any, Callable, Dict, List, Optional, Sequence
 
 import cloudpickle
@@ -113,10 +135,10 @@ from metisfl_tpu_torch import telemetry as _tel
 from metisfl_tpu_torch.aggregation.slice import SLICE_SERVICE
 from metisfl_tpu_torch.chaos import ENV_VAR as CHAOS_ENV_VAR
 from metisfl_tpu_torch.comm.codec import dumps as codec_dumps
+from metisfl_tpu_torch.comm.codec import loads as codec_loads
 from metisfl_tpu_torch.comm.health import probe_health
 from metisfl_tpu_torch.comm.rpc import RpcClient
 from metisfl_tpu_torch.config import FederationConfig, LearnerEndpoint
-from metisfl_tpu_torch.config.federation import not_ported
 from metisfl_tpu_torch.controller.service import (
     CONTROLLER_SERVICE,
     LEARNER_SERVICE,
@@ -137,7 +159,19 @@ _M_CTRL_FAILOVER = _tmetrics.registry().counter(
     "Standby promotions to controller, by role of the emitting process",
     ("role",))
 
+_M_GATEWAY_RESTARTS = _tmetrics.registry().counter(
+    _tel.M_GATEWAY_RESTARTS_TOTAL,
+    "Supervised serving-gateway relaunches after a crash")
+_M_FLEET_REPLICAS = _tmetrics.registry().gauge(
+    _tel.M_SERVING_FLEET_REPLICAS,
+    "Serving-fleet replica count as the autoscaler maintains it")
+_M_SCALE_TOTAL = _tmetrics.registry().counter(
+    _tel.M_SERVING_SCALE_TOTAL,
+    "Autoscaler actions on the serving fleet", ("direction",))
+
 _CONTROLLER_READY = re.compile(r"METISFL_TPU_CONTROLLER_READY port=(\d+)")
+_SERVING_READY = re.compile(
+    r"METISFL_TPU_(?:SERVING|ROUTER)_READY port=(\d+)(?: at=([0-9.]+))?")
 _PROMOTED = "METISFL_TPU_CONTROLLER_PROMOTED"
 _LEARNER_READY = re.compile(r"METISFL_TPU_LEARNER_READY port=(\d+)")
 
@@ -149,6 +183,9 @@ class _Proc:
     log_path: str
     # what launched it (stops it where it runs)
     launcher: Any = None
+    started_at: float = field(default_factory=time.time)
+    # seconds from the launch to the process's READY line, once seen
+    ready_s: Optional[float] = None
 
 
 def _free_port() -> int:
@@ -335,6 +372,11 @@ class DriverSession:
         self._standby_restarts = 0
         self._standby_restart_after = 0.0
         self._standby_promoted = False
+        # serving-plane supervision, per process name: relaunches so far
+        # and the earliest time of the next; the fleet autoscaler
+        self._serving_restarts: Dict[str, int] = {}
+        self._serving_restart_after: Dict[str, float] = {}
+        self._autoscaler = None
 
     # ------------------------------------------------------------------ #
     # bootstrap
@@ -495,6 +537,7 @@ class DriverSession:
                 hosts=[h for h in self.config.ssl.hosts
                        if h not in self._LOCAL_HOSTS])
             self.config.ssl.cert_path, self.config.ssl.key_path = cert, key
+        self._plan_serving()
         if self._slices_distributed():
             self.start_slices()
         else:
@@ -507,6 +550,7 @@ class DriverSession:
         if early:
             for idx in range(len(self.learner_recipes)):
                 self.launch_learner(idx, wait_for_model=True)
+            self._launch_serving()
         deadline = time.time() + health_retries * health_sleep_s
         if not self.config.controller_port:
             # an ephemeral port: the controller prints the one it bound
@@ -524,6 +568,7 @@ class DriverSession:
         if not early:
             for idx in range(len(self.learner_recipes)):
                 self.launch_learner(idx)
+            self._launch_serving()
         self._started_at = time.time()
 
     def _standby_endpoint(self) -> Optional[tuple]:
@@ -837,6 +882,389 @@ class DriverSession:
             restarted = True
         return restarted
 
+    # ------------------------------------------------------------------ #
+    # serving: the gateway, or the fleet's replicas and router
+    # ------------------------------------------------------------------ #
+
+    def _serving_host(self) -> str:
+        """Where the serving processes run: beside the controller."""
+        return self.config.controller_host or "localhost"
+
+    def _plan_serving(self) -> None:
+        """Pin every serving port before the config is written (the file
+        tells the gateways and the router where to serve, and the driver
+        and its clients where to dial): one per fleet replica and the
+        router's, which ``serving.port`` then names, or the gateway's."""
+        serving = self.config.serving
+        if not serving.enabled:
+            return
+        fleet = serving.fleet
+        needs_ports = (not serving.port
+                       or (fleet.enabled
+                           and (not fleet.router_port or not fleet.gateways)))
+        if needs_ports and self._serving_host() not in self._LOCAL_HOSTS:
+            # a port probed here says nothing about the remote host
+            raise ValueError(
+                f"serving on remote host {self._serving_host()!r} requires "
+                "explicit serving ports (serving.port / "
+                "serving.fleet.router_port + gateways)")
+        if fleet.enabled:
+            if not fleet.gateways:
+                fleet.gateways = [
+                    {"name": f"serving_{idx}", "host": "localhost",
+                     "port": _free_port()}
+                    for idx in range(fleet.replicas)]
+            if not fleet.router_port:
+                fleet.router_port = _free_port()
+            # what serving_client() dials is the router
+            serving.port = fleet.router_port
+        elif not serving.port:
+            serving.port = _free_port()
+
+    def _launch_serving(self) -> None:
+        """Boot the gateway, or the fleet's replicas and its router."""
+        if not self.config.serving.enabled:
+            return
+        fleet = self.config.serving.fleet
+        if fleet.enabled:
+            for idx in range(len(fleet.gateways)):
+                self._launch_gateway(idx)
+            self._launch_router()
+            self._setup_autoscaler()
+        else:
+            self._launch_gateway()
+
+    def _launch_gateway(self, replica: Optional[int] = None) -> _Proc:
+        """(Re)launch the gateway (``replica`` None) or fleet replica
+        ``replica`` on the driver's device, from the learners' recipe
+        ``serving.recipe_index``. It needs no state handoff: its first
+        registry poll pins it to the promoted versions."""
+        cfg = self.config.serving
+        if cfg.recipe_index >= len(self.learner_recipes):
+            # a clamped index would boot the gateway on the wrong
+            # architecture and every registry sync would fail to decode
+            raise ValueError(
+                f"serving.recipe_index={cfg.recipe_index} but only "
+                f"{len(self.learner_recipes)} learner recipe(s) exist")
+        recipe_path = self._recipe_path(cfg.recipe_index)
+        args = ["-m", "metisfl_tpu_torch.serving",
+                "--config", self._config_path, "--recipe", recipe_path,
+                "--device", self.device]
+        name = "serving"
+        if replica is not None:
+            spec = cfg.fleet.gateways[replica]
+            name = spec.get("name") or f"serving_{replica}"
+            # each replica binds its pinned port and phases its registry
+            # polls by its fleet index: a promotion rolls through the fleet
+            args += ["--port", str(spec["port"]),
+                     "--replica-index", str(replica),
+                     "--replicas", str(len(cfg.fleet.gateways))]
+        return self._launch(name, self._serving_host(), args,
+                            env=self._chaos_env("serving", replica),
+                            ship=[self._config_path, recipe_path])
+
+    def _launch_router(self) -> _Proc:
+        """(Re)launch the fleet's router (``--router``). Stateless: it reads
+        the initial fleet from the config; :meth:`_sync_router_fleet`
+        re-adds autoscaled replicas after a relaunch."""
+        return self._launch("router", self._serving_host(), [
+            "-m", "metisfl_tpu_torch.serving", "--router",
+            "--config", self._config_path, "--device", self.device],
+            env=self._chaos_env("router"), ship=[self._config_path])
+
+    def _serving_proc_names(self) -> List[str]:
+        """The names of every serving process the driver supervises."""
+        serving = self.config.serving
+        if not serving.enabled:
+            return []
+        if not serving.fleet.enabled:
+            return ["serving"]
+        return [spec.get("name") or f"serving_{i}"
+                for i, spec in enumerate(serving.fleet.gateways)] + ["router"]
+
+    def _serving_rpc(self, host: str, port: int) -> RpcClient:
+        """A fail-fast client of a gateway's or the router's service."""
+        from metisfl_tpu_torch.serving.service import SERVING_SERVICE
+        return RpcClient(host, port, SERVING_SERVICE, retries=0,
+                         ssl=self.config.ssl)
+
+    def _router_call(self, method: str, payload: dict) -> None:
+        """One admin call to the router; a failure is logged (the router's
+        probes re-adopt the fleet eventually)."""
+        client = self._serving_rpc(self._serving_host(),
+                                   self.config.serving.fleet.router_port)
+        try:
+            client.call(method, codec_dumps(payload), timeout=5.0,
+                        wait_ready=False)
+        except Exception:  # noqa: BLE001 - best effort
+            logger.warning("router %s(%s) failed", method,
+                           payload.get("name"))
+        finally:
+            client.close()
+
+    def _sync_router_fleet(self) -> None:
+        """AddReplica every current replica (idempotent): how a relaunched
+        router learns of replicas its config file predates."""
+        for idx, spec in enumerate(self.config.serving.fleet.gateways):
+            self._router_call("AddReplica", {
+                "name": spec.get("name") or f"serving_{idx}",
+                "host": spec.get("host", "localhost"),
+                "port": spec["port"]})
+
+    def _supervise_gateway(self) -> bool:
+        """Relaunch a serving process that died (the gateway, a fleet
+        replica or the router), each after its own doubling backoff capped
+        at 30 s, without a budget: all are stateless, a relaunched replica
+        re-pins through its first registry poll and the router's probes
+        re-admit it. Serving never fails the run. True when a relaunch
+        happened."""
+        if not self.config.serving.enabled or self._shutting_down:
+            return False
+        fleet = self.config.serving.fleet
+        restarted = False
+        for name in self._serving_proc_names():
+            proc = next((p for p in self._procs if p.name == name), None)
+            if proc is None or proc.process.poll() is None:
+                continue
+            if time.time() < self._serving_restart_after.get(name, 0.0):
+                continue
+            code = proc.process.poll()
+            restarts = self._serving_restarts.get(name, 0) + 1
+            self._serving_restarts[name] = restarts
+            self._serving_restart_after[name] = time.time() + min(
+                30.0, 0.5 * (2 ** (restarts - 1)))
+            logger.warning("%s died (exit %s); supervised relaunch %d",
+                           name, code, restarts)
+            _tpostmortem.dump("gateway_relaunch",
+                              extra={"process": name, "exit_code": code,
+                                     "restart": restarts})
+            if name == "router":
+                self._launch_router()
+                self._sync_router_fleet()
+            elif fleet.enabled:
+                idx = next((i for i, spec in enumerate(fleet.gateways)
+                            if (spec.get("name") or f"serving_{i}") == name),
+                           None)
+                if idx is None:
+                    continue  # scaled away meanwhile
+                self._launch_gateway(idx)
+            else:
+                self._launch_gateway()
+            _M_GATEWAY_RESTARTS.inc()
+            restarted = True
+        return restarted
+
+    def poll_serving(self) -> Optional[str]:
+        """One tick of the serving plane's supervision and autoscaling (each
+        :meth:`monitor_federation` poll runs one; a caller that keeps the
+        federation up after it returned runs them itself). Returns the
+        autoscaler's action (``"up"``/``"down"``) or None."""
+        self._supervise_gateway()
+        return self._autoscale_serving()
+
+    def serving_ready(self) -> Dict[str, float]:
+        """The serving processes that printed their READY line, each with
+        its seconds from launch to the time the line states (a relaunch is
+        timed afresh)."""
+        names = set(self._serving_proc_names())
+        ready: Dict[str, float] = {}
+        for proc in self._procs:
+            if proc.name not in names:
+                continue
+            if proc.ready_s is None:
+                with open(proc.log_path) as f:
+                    found = _SERVING_READY.search(f.read())
+                if found:
+                    at = (float(found.group(2)) if found.group(2)
+                          else time.time())
+                    proc.ready_s = at - proc.started_at
+            if proc.ready_s is not None:
+                ready[proc.name] = proc.ready_s
+        return ready
+
+    def wait_for_serving(self, timeout_s: float = 120.0) -> Dict[str, float]:
+        """Wait until every serving process printed its READY line (a
+        replica's first ``import torch`` and model build take seconds),
+        supervising them meanwhile; returns :meth:`serving_ready`."""
+        deadline = time.time() + timeout_s
+        names = self._serving_proc_names()
+        while True:
+            ready = self.serving_ready()
+            if len(ready) == len(names):
+                return ready
+            if time.time() > deadline:
+                missing = sorted(set(names) - set(ready))
+                raise RuntimeError(f"serving process(es) {missing} never "
+                                   "reported ready")
+            self.poll_serving()
+            time.sleep(0.1)
+
+    def _stop_serving(self, deadline: float) -> None:
+        """ShutDown every replica and then the router (or the gateway), and
+        wait for their processes."""
+        serving = self.config.serving
+        if not serving.enabled:
+            return
+        targets = []
+        if serving.fleet.enabled:
+            targets = [(spec.get("host", "localhost"), spec["port"])
+                       for spec in serving.fleet.gateways]
+        if serving.port:
+            targets.append((self._serving_host(), serving.port))
+        for host, port in targets:
+            client = self._serving_rpc(host, port)
+            try:
+                client.call("ShutDown", b"", timeout=5.0, wait_ready=False)
+            except Exception:  # noqa: BLE001 - already gone
+                pass
+            finally:
+                client.close()
+        names = set(self._serving_proc_names())
+        procs = [p for p in self._procs if p.name in names]
+        for proc in procs:
+            if self._logged_port(proc, _SERVING_READY) is None:
+                # still booting: nothing to drain
+                self._stop(proc)
+        self._wait(procs, deadline)
+
+    # -- the fleet autoscaler ------------------------------------------- #
+
+    def _setup_autoscaler(self) -> None:
+        fleet = self.config.serving.fleet
+        if not (fleet.scale_up or fleet.scale_down):
+            return
+        from metisfl_tpu_torch.serving.fleet import FleetAutoscaler
+        self._autoscaler = FleetAutoscaler(
+            fleet.scale_up or None, fleet.scale_down or None,
+            fleet.min_replicas, fleet.max_replicas,
+            cooldown_s=fleet.scale_cooldown_s)
+        _M_FLEET_REPLICAS.set(len(fleet.gateways))
+
+    def _scrape_serving_families(self) -> Dict[str, float]:
+        """The fleet's ``serving_*`` family values summed over series and
+        over the replicas and the router (the router's
+        ``serving_router_*`` families live in its process): the sample the
+        scale rules judge. A dead process scrapes as nothing."""
+        fleet = self.config.serving.fleet
+        targets = ([(spec.get("host", "localhost"), spec["port"])
+                    for spec in fleet.gateways]
+                   + [(self._serving_host(), fleet.router_port)])
+        totals: Dict[str, float] = {}
+        for host, port in targets:
+            client = self._serving_rpc(host, port)
+            try:
+                text = client.call("GetMetrics", b"", timeout=5.0,
+                                   wait_ready=False,
+                                   idempotent=True).decode("utf-8")
+                series = _tmetrics.parse_exposition(text)
+            except Exception:  # noqa: BLE001 - dead or garbled: skip it
+                continue
+            finally:
+                client.close()
+            for name, cells in series.items():
+                if not name.startswith("serving_") or name.endswith(
+                        ("_bucket", "_sum", "_count")):
+                    continue  # histogram internals are not family sums
+                totals[name] = totals.get(name, 0.0) + sum(cells.values())
+        return totals
+
+    def _autoscale_serving(self) -> Optional[str]:
+        """One autoscaler evaluation and its action: "up", "down" or None."""
+        if self._autoscaler is None or self._shutting_down:
+            return None
+        values = self._scrape_serving_families()
+        decision = self._autoscaler.observe(
+            values, replicas=len(self.config.serving.fleet.gateways))
+        if decision == "up":
+            return self._scale_up_serving(values)
+        if decision == "down":
+            return self._scale_down_serving(values)
+        return None
+
+    def _scale_up_serving(self, values: Dict[str, float]) -> str:
+        """Boot one more replica and hand it to the router out of the ring
+        (``wait_serving``): the router's probes admit it once it answers,
+        so no key routes to a replica that is still booting."""
+        fleet = self.config.serving.fleet
+        names = {spec.get("name") or "" for spec in fleet.gateways}
+        idx = len(fleet.gateways)
+        while f"serving_{idx}" in names:
+            idx += 1
+        name = f"serving_{idx}"
+        port = _free_port()
+        fleet.gateways.append({"name": name, "host": "localhost",
+                               "port": port})
+        self._launch_gateway(len(fleet.gateways) - 1)
+        self._router_call("AddReplica", {"name": name, "host": "localhost",
+                                         "port": port, "wait_serving": True})
+        rule = self._autoscaler.up_rule
+        _tevents.emit(_tevents.ServingScaledUp, replica=name,
+                      replicas=len(fleet.gateways),
+                      rule=rule.describe_expr() if rule else "",
+                      value=self._autoscaler.last_values.get("up", 0.0))
+        _M_FLEET_REPLICAS.set(len(fleet.gateways))
+        _M_SCALE_TOTAL.inc(direction="up")
+        logger.warning("serving fleet scaled UP to %d replicas (+%s): %s",
+                       len(fleet.gateways), name, values)
+        return "up"
+
+    def _scale_down_serving(self, values: Dict[str, float]) -> str:
+        """Drain the newest replica: out of the ring first, then a bounded
+        wait until its decode slots are idle, its ShutDown, and the router's
+        RemoveReplica last (closing the router's channel must not cancel a
+        forward the wait let finish)."""
+        fleet = self.config.serving.fleet
+        if len(fleet.gateways) <= fleet.min_replicas:
+            return "down"  # raced the floor; the autoscaler re-checks
+        spec = fleet.gateways[-1]
+        name = spec.get("name") or f"serving_{len(fleet.gateways) - 1}"
+        self._router_call("DrainReplica", {"name": name})
+        client = self._serving_rpc(spec.get("host", "localhost"),
+                                   spec["port"])
+        try:
+            deadline = time.time() + 15.0
+            while time.time() < deadline:
+                try:
+                    desc = codec_loads(client.call(
+                        "GetServingStatus", b"", timeout=5.0,
+                        wait_ready=False, idempotent=True))
+                except Exception:  # noqa: BLE001 - already gone
+                    break
+                # decode sequences are the multi-second in-flight work;
+                # the gateway's own ShutDown drains its micro-batches
+                decode = desc.get("decode") or {}
+                if not any(d.get("queued", 0) or d.get("active", 0)
+                           for d in decode.values()):
+                    break
+                time.sleep(0.25)
+            client.call("ShutDown", b"", timeout=5.0, wait_ready=False)
+        except Exception:  # noqa: BLE001 - already gone
+            pass
+        finally:
+            client.close()
+        self._router_call("RemoveReplica", {"name": name})
+        fleet.gateways.remove(spec)
+        proc = next((p for p in self._procs if p.name == name), None)
+        if proc is not None:
+            try:
+                proc.process.wait(timeout=10.0)
+            except subprocess.TimeoutExpired:
+                _terminate_process(proc.process)
+            self._procs = [p for p in self._procs if p.name != name]
+        # a later scale-up may reuse the name with fresh supervision
+        self._serving_restarts.pop(name, None)
+        self._serving_restart_after.pop(name, None)
+        rule = self._autoscaler.down_rule
+        _tevents.emit(_tevents.ServingScaledDown, replica=name,
+                      replicas=len(fleet.gateways),
+                      rule=rule.describe_expr() if rule else "",
+                      value=self._autoscaler.last_values.get("down", 0.0))
+        _M_FLEET_REPLICAS.set(len(fleet.gateways))
+        _M_SCALE_TOTAL.inc(direction="down")
+        logger.warning("serving fleet scaled DOWN to %d replicas (-%s)",
+                       len(fleet.gateways), name)
+        return "down"
+
     def _launch(self, name: str, host: str, args: Sequence[str],
                 env: Optional[Dict[str, str]] = None,
                 ship: Sequence[str] = ()) -> _Proc:
@@ -941,11 +1369,14 @@ class DriverSession:
     def _check_procs_alive(self, skip: Sequence[str] = ()) -> None:
         """Raise with the log's tail if any process not in ``skip`` exited
         non-zero. A slice aggregator is supervised instead once the
-        federation runs, and under a hot standby a controller or standby
-        death is a failover, which the supervision handles."""
+        federation runs, a serving process always is, and under a hot
+        standby a controller or standby death is a failover, which the
+        supervision handles."""
         skip = tuple(skip)
         if self.config.controller.standby.enabled:
             skip += ("controller", "standby")
+        # serving processes are supervised (relaunched), never fatal
+        skip += tuple(self._serving_proc_names())
         for proc in self._procs:
             if proc.name in skip or (proc.name.startswith("slice_")
                                      and self._started_at):
@@ -965,9 +1396,10 @@ class DriverSession:
         """Poll until a termination criterion holds: ``federation_rounds``
         rounds completed, ``execution_cutoff_mins`` passed since the
         learners launched, or the mean test ``metric_name`` of the latest
-        evaluated community model reached ``metric_cutoff_score``. Then
-        give in-flight evaluations a bounded grace and return the
-        statistics."""
+        evaluated community model reached ``metric_cutoff_score``; each
+        poll also supervises the processes and autoscales the serving
+        fleet. Then give in-flight evaluations a bounded grace and return
+        the statistics."""
         term = self.config.termination
         poll_failures = 0
         while True:
@@ -977,6 +1409,7 @@ class DriverSession:
             self._supervise_controller()
             self._supervise_standby()
             self._supervise_slices()
+            self.poll_serving()
             skip = (("controller",)
                     if self.config.failover.supervise_controller else ())
             if self.config.chaos.enabled:
@@ -1064,7 +1497,60 @@ class DriverSession:
         return path
 
     def serving_client(self):
-        raise not_ported("serving beside a DriverSession federation", "5")
+        """A :class:`metisfl_tpu_torch.serving.ServingClient` dialing this
+        session's gateway, or the router in a fleet (``serving.port``)."""
+        from metisfl_tpu_torch.serving.service import ServingClient
+        if not self.config.serving.enabled:
+            raise RuntimeError("serving is not enabled in this federation")
+        return ServingClient(self.config.controller_host or "localhost",
+                             self.config.serving.port, ssl=self.config.ssl,
+                             comm=self.config.comm)
+
+    def run_inference(self, learner_index: int = 0, inputs=None,
+                      dataset: str = "test", batch_size: int = 256,
+                      max_examples: int = 0, timeout_s: float = 120.0,
+                      generate_tokens: int = 0, temperature: float = 0.0,
+                      top_k: int = 0, top_p: float = 0.0,
+                      eos_id: Optional[int] = None) -> np.ndarray:
+        """The community model's inference on one registered learner (in
+        registration order), as a numpy array: over ``inputs`` where given,
+        else the learner's ``dataset`` split. ``generate_tokens > 0``: the
+        inputs are (B, L) token prompts and the result their greedy
+        continuations (``temperature > 0`` raises on the learner)."""
+        import uuid
+
+        from metisfl_tpu_torch.comm.messages import InferResult, InferTask
+        from metisfl_tpu_torch.tensor.pytree import ModelBlob, to_numpy
+
+        endpoints = self._client.list_learners()
+        if not endpoints:
+            raise RuntimeError("no learners registered")
+        ep = endpoints[learner_index % len(endpoints)]
+        task = InferTask(
+            task_id=uuid.uuid4().hex,
+            learner_id=ep.get("learner_id", ""),
+            model=self._client.get_community_model(),
+            batch_size=batch_size,
+            dataset=dataset,
+            inputs=(ModelBlob(tensors=[("x", np.asarray(inputs))]).to_bytes()
+                    if inputs is not None else b""),
+            max_examples=max_examples,
+            generate_tokens=generate_tokens,
+            temperature=temperature,
+            top_k=top_k,
+            top_p=top_p,
+            eos_id=-1 if eos_id is None else int(eos_id),
+            local_tensor_regex=self.config.train.local_tensor_regex,
+            ship_tensor_regex=self.config.train.ship_tensor_regex)
+        client = RpcClient(ep["hostname"], ep["port"], LEARNER_SERVICE,
+                           ssl=self.config.ssl)
+        try:
+            result = InferResult.from_wire(client.call(
+                "RunInference", task.to_wire(), timeout=timeout_s))
+        finally:
+            client.close()
+        return to_numpy(dict(ModelBlob.from_bytes(
+            result.predictions).tensors)["predictions"])
 
     def collect_traces(self, dest: Optional[str] = None) -> Optional[str]:
         """Merge every local process's sink file under ``telemetry.dir``
@@ -1149,8 +1635,9 @@ class DriverSession:
 
     def shutdown_federation(self, timeout_s: float = 30.0) -> None:
         """Stop every learner, and once they have exited (each leaves the
-        federation on the way out), the slice aggregators, then the
-        controller; a process still
+        federation on the way out), the serving processes (the replicas,
+        then the router), the slice aggregators, then the controller; a
+        process still
         running after ``timeout_s`` is stopped where it runs and its local
         process terminated. Learners get the ShutDown RPC at the endpoints
         they registered with the controller and at their configured host
@@ -1180,6 +1667,7 @@ class DriverSession:
             elif (host, port) not in dialled:
                 self._shut_down_learner(host, port)
         self._wait(learners, deadline)
+        self._stop_serving(deadline)
         self.stop_slices(max(0.0, deadline - time.time()))
         for proc in self._procs:
             if proc.name == "standby" and proc.process.poll() is None:

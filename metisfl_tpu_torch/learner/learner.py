@@ -3,7 +3,8 @@
 The port's copy of the JAX package's ``learner/learner.py`` for the
 synchronous round: join the federation, run a train task on one worker
 thread (a new task cancels the running one between steps), ship the
-trained weights back as a ModelBlob, and evaluate community models. The
+trained weights back as a ModelBlob, evaluate community models, and run
+inference tasks (logits, or greedy generation) on a shipped model. The
 engine is a :class:`~metisfl_tpu_torch.models.ops.TorchModelOps` on the
 device its caller chose; weights move by value through the wire blob.
 
@@ -71,6 +72,8 @@ from metisfl_tpu_torch import telemetry as _tel
 from metisfl_tpu_torch.comm.messages import (
     EvalResult,
     EvalTask,
+    InferResult,
+    InferTask,
     JoinReply,
     JoinRequest,
     TaskResult,
@@ -790,6 +793,58 @@ class Learner:
             learner_id=self.learner_id,
             round_id=task.round_id,
             evaluations=evaluations,
+            duration_ms=(time.time() - t0) * 1e3,
+        )
+
+    def infer(self, task: InferTask) -> InferResult:
+        """Blocking inference on a shipped model: predictions over explicit
+        inputs or a named local split, on a bound copy of the module so a
+        training task running meanwhile keeps the engine's own weights.
+        ``generate_tokens > 0`` makes it a greedy generation task on a
+        causal-LM engine, in ``batch_size`` chunks (``temperature > 0``
+        raises: sampled decoding is not ported)."""
+        t0 = time.time()
+        self._adopt_local_regex(task.local_tensor_regex)
+        # unconditional, like evaluate: a regex-less task clears it
+        self._ship_regex = task.ship_tensor_regex
+        model = (self.model_ops.bind(self._load_model(task.model))
+                 if task.model else None)
+        if task.inputs:
+            tensors = dict(ModelBlob.from_bytes(task.inputs).tensors)
+            if "x" not in tensors:
+                raise ValueError("InferTask.inputs must pack an 'x' tensor")
+            x = to_numpy(tensors["x"])
+        else:
+            name = task.dataset or "test"
+            ds = self.datasets.get(name)
+            if ds is None or len(ds) == 0:
+                raise ValueError(
+                    f"inference requested on dataset {name!r} but this "
+                    "learner has no such split (available: "
+                    f"{[k for k, v in self.datasets.items() if v]})")
+            x = ds.x
+        if task.max_examples > 0:
+            x = x[: task.max_examples]
+        if task.generate_tokens > 0:
+            # x is a (B, L) prompt batch; one KV cache per chunk, not one
+            # unbounded (B, L + new) cache over a whole split
+            prompts = np.asarray(x, np.int32)
+            bs = max(1, int(task.batch_size))
+            preds = np.concatenate([
+                self.model_ops.generate(
+                    prompts[i:i + bs], task.generate_tokens, model=model,
+                    temperature=task.temperature,
+                    eos_id=None if task.eos_id < 0 else task.eos_id)
+                for i in range(0, len(prompts), bs)], axis=0)
+        else:
+            preds = self.model_ops.infer(x, task.batch_size, model=model)
+        return InferResult(
+            task_id=task.task_id,
+            learner_id=self.learner_id,
+            round_id=task.round_id,
+            predictions=ModelBlob(
+                tensors=[("predictions", np.asarray(preds))]).to_bytes(),
+            num_examples=int(len(x)),
             duration_ms=(time.time() - t0) * 1e3,
         )
 

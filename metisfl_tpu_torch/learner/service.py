@@ -2,16 +2,12 @@
 
 The port's copy of the JAX package's ``learner/service.py``, with its
 service and method names: RunTask (acks at once; training runs on the
-learner's own thread), EvaluateModel (blocking), RecoverMasks (masking
-dropout recovery: the dropped parties' residual), health, ``GetMetrics``
-(the process registry's Prometheus exposition) and shutdown. The
-services are built when the server is constructed and the gRPC server
-only in :meth:`LearnerServer.start`, so the handlers can be driven by
-direct calls where grpc is not installed.
-
-Not ported: ``RunInference`` (the port's ``Learner`` has no infer task
-yet; ROADMAP.md Queue 1 item 5), which answers with an error that names
-the item.
+learner's own thread), EvaluateModel and RunInference (blocking),
+RecoverMasks (masking dropout recovery: the dropped parties' residual),
+health, ``GetMetrics`` (the process registry's Prometheus exposition) and
+shutdown. The services are built when the server is constructed and the
+gRPC server only in :meth:`LearnerServer.start`, so the handlers can be
+driven by direct calls where grpc is not installed.
 """
 
 from __future__ import annotations
@@ -26,9 +22,8 @@ from metisfl_tpu_torch.comm.health import (
     SERVING,
     HealthServicer,
 )
-from metisfl_tpu_torch.comm.messages import EvalTask, TrainTask
+from metisfl_tpu_torch.comm.messages import EvalTask, InferTask, TrainTask
 from metisfl_tpu_torch.comm.rpc import BytesService, RpcServer
-from metisfl_tpu_torch.config.federation import not_ported
 from metisfl_tpu_torch.controller.service import LEARNER_SERVICE
 from metisfl_tpu_torch.learner.learner import Learner
 from metisfl_tpu_torch.telemetry import render_metrics
@@ -71,7 +66,7 @@ class LearnerServer:
         return self.learner.evaluate(EvalTask.from_wire(raw)).to_wire()
 
     def _infer(self, raw: bytes) -> bytes:
-        raise not_ported("the learner's inference task", "5")
+        return self.learner.infer(InferTask.from_wire(raw)).to_wire()
 
     def _recover_masks(self, raw: bytes) -> bytes:
         req = loads(raw)

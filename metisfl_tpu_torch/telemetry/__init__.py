@@ -23,14 +23,18 @@ of both packages stitch into one trace and one scraper reads both
 - :mod:`metisfl_tpu_torch.telemetry.profile` — per-round cost profiles
   and the learners' device stats (``torch.cuda``), with ``torch.profiler``
   captures.
+- :mod:`metisfl_tpu_torch.telemetry.timeseries` — bounded time-series
+  rings and sparklines, and :mod:`metisfl_tpu_torch.telemetry.alerts` —
+  the alert-rule schema; the serving fleet's autoscaler judges its scale
+  rules with both.
 - ``python -m metisfl_tpu_torch.telemetry <trace dir or .jsonl>`` renders
   a round's span tree; ``--postmortem`` renders post-mortem bundles.
 
 Not ported yet (ROADMAP.md Queue 1 item 4b): the fleet fabric
 (``CollectTelemetry``'s real answer; every server answers the JAX
 package's ``{"enabled": false}`` stub), the critical path, the stack
-sampler and instrumented locks, the compile and memory plane, and SLO
-alerts. Their config sections load and are ignored (a non-empty
+sampler and instrumented locks, the compile and memory plane, and the
+alert engine. Their config sections load and are ignored (a non-empty
 ``telemetry.alerts`` is refused).
 
 Everything is opt-out via federation config ``telemetry.enabled=false``

@@ -79,6 +79,13 @@ def test_every_module_imports_without_jax():
             "metisfl_tpu_torch.telemetry.postmortem",
             "metisfl_tpu_torch.telemetry.httpd",
             "metisfl_tpu_torch.telemetry.profile",
+            "metisfl_tpu_torch.telemetry.timeseries",
+            "metisfl_tpu_torch.telemetry.alerts",
+            "metisfl_tpu_torch.serving",
+            "metisfl_tpu_torch.serving.service",
+            "metisfl_tpu_torch.serving.fleet",
+            "metisfl_tpu_torch.serving.smoke",
+            "metisfl_tpu_torch.serving.__main__",
             "metisfl_tpu_torch.stats"} <= set(names)
     code = (
         "import importlib, json, sys\n"
@@ -99,10 +106,11 @@ def test_sources_reference_neither_jax_nor_the_jax_package():
     jax_import = re.compile(r"^\s*(import|from)\s+(jax|jaxlib|flax|optax)\b",
                             re.M)
     # the gRPC service names ("metisfl_tpu.Controller", "metisfl_tpu.Learner",
-    # "metisfl_tpu.SliceAggregator") are wire names the two packages share,
-    # not references to the package
+    # "metisfl_tpu.SliceAggregator", "metisfl_tpu.Serving") are wire names
+    # the two packages share, not references to the package
     jax_package = re.compile(
-        r"\bmetisfl_tpu\.(?!(Controller|Learner|SliceAggregator)\b\")")
+        r"\bmetisfl_tpu\.(?!(Controller|Learner|SliceAggregator|Serving)"
+        r"\b\")")
     offenders = []
     for root, _, files in os.walk(PKG_DIR):
         for fname in files:

@@ -455,7 +455,9 @@ def test_what_is_not_ported_is_refused_before_any_process_starts(tmp_path):
     assert isinstance(picked, SSHLauncher) and picked.host == "node-7"
     assert isinstance(remote._launcher_for("localhost"), LocalLauncher)
     assert remote.process_exit_codes() == {}
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    # serving is ported: a session whose config does not enable it has no
+    # gateway to dial
+    with pytest.raises(RuntimeError, match="serving is not enabled"):
         remote.serving_client()
     # trace collection is ported: before any process wrote a span there is
     # nothing to collect, and no post-mortem bundle
